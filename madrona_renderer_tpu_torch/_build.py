@@ -1,0 +1,121 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds). Libraries land in ``build/torch_kernels/`` at the
+root of the checkout, named by a hash of the source and the flags, so an
+edited source or flag rebuilds and an unchanged one loads at once. Nothing
+is built when this module is imported: the first call that launches a
+kernel builds it.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` without fast
+math, so every kernel rounds each multiply and add on its own, as its
+plain PyTorch version does (IEEE divide and square root are nvcc's
+defaults).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of each kernel's launch function: (symbol, argtypes).
+SIGNATURES = {
+    "render_resident": (
+        "mrt_render_resident",
+        [_P, _P, _P, _P, _P, _P,  # rows clusters cams depth seg rgb
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
+         _F, _F,  # two_over_w two_over_h
+         _P],  # stream
+    ),
+}
+
+
+def sources() -> list:
+    """Kernel names, one per ``csrc/*.cu``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found: the port's kernels build with the CUDA toolkit "
+        "(PATH or /usr/local/cuda/bin)"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its hashed library exists; returns
+    the library path. Concurrent builders each write a private temporary
+    file and publish it with an atomic rename."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".{name}_", suffix=".so")
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {name}.cu ({proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def build_all() -> Dict[str, Path]:
+    """Build every kernel under ``csrc/``."""
+    return {name: build(name) for name in sources()}
+
+
+@functools.cache
+def load(name: str):
+    """The kernel's launch function, built on first use and bound with its
+    ``argtypes``/``restype`` (every pointer and the stream as ``c_void_p``)."""
+    lib = ctypes.CDLL(str(build(name)))
+    symbol, argtypes = SIGNATURES[name]
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    err = lib.mrt_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    fn.error_string = lambda code: err(code).decode()
+    return fn

@@ -1,0 +1,199 @@
+"""Built-in demo scene: a colored cube and a ground plane per world, one
+camera — geometry generated in code, no asset files needed.
+
+The port's copy of ``demo_config``, ``cube_mesh`` and ``plane_mesh`` from
+the JAX package's ``runners/scenes.py`` (the scene of the ``bench.py``
+headline), for its untextured raw-geometry form. The textured and
+disk-asset variants are ROADMAP Queue 1 items 6 and 18.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List
+
+import numpy as np
+
+from ..config import (
+    AdditionalMaterial,
+    GeometryConfig,
+    ImportedCamera,
+    ImportedInstance,
+    ManagerConfig,
+    RenderConfig,
+    RenderMode,
+    WorldInit,
+)
+
+
+def cube_mesh(half: float = 0.5):
+    """Unit cube: 8 verts expanded to 24 (per-face UVs), 12 tris."""
+    faces = []
+    uvs = []
+    # (axis, sign) for each face
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            u_axis, v_axis = [(1, 2), (0, 2), (0, 1)][axis]
+            corners = []
+            for du, dv in [(-1, -1), (1, -1), (1, 1), (-1, 1)]:
+                c = [0.0, 0.0, 0.0]
+                c[axis] = sign * half
+                c[u_axis] = du * half * sign
+                c[v_axis] = dv * half
+                corners.append(c)
+            faces.extend([corners[0], corners[1], corners[2],
+                          corners[0], corners[2], corners[3]])
+            uvs.extend([[0, 0], [1, 0], [1, 1], [0, 0], [1, 1], [0, 1]])
+    return np.asarray(faces, np.float32), np.asarray(uvs, np.float32)
+
+
+def plane_mesh(half: float = 10000.0):
+    a, b, c, d = (
+        [-half, -half, 0.0],
+        [half, -half, 0.0],
+        [half, half, 0.0],
+        [-half, half, 0.0],
+    )
+    verts = np.asarray([a, b, c, a, c, d], np.float32)
+    uvs = np.asarray([[0, 0], [1, 0], [1, 1], [0, 0], [1, 1], [0, 1]], np.float32)
+    return verts, uvs
+
+
+def _geo_from(meshes: List[np.ndarray], uv_list: List[np.ndarray], mats: List[int]):
+    verts = np.concatenate(meshes, axis=0)
+    uvs = np.concatenate(uv_list, axis=0)
+    counts = [len(v) for v in meshes]
+    offs = np.cumsum([0] + counts[:-1]).astype(np.uint32)
+    return GeometryConfig(
+        vertices=verts,
+        uvs=uvs,
+        indices=np.concatenate([np.arange(c, dtype=np.uint32) for c in counts]),
+        mesh_vertex_offsets=offs,
+        mesh_index_offsets=offs.copy(),
+        mesh_materials=np.asarray(mats, np.int32),
+    )
+
+
+def _yaw_pitch_quat(yaw: float, pitch: float):
+    """(w, x, y, z) for yaw about Z composed with pitch about X."""
+    cy, sy = math.cos(yaw / 2), math.sin(yaw / 2)
+    pc, ps = math.cos(pitch / 2), math.sin(pitch / 2)
+    return [cy * pc, cy * ps, sy * ps, sy * pc]
+
+
+def demo_config(
+    num_worlds: int,
+    render_mode: RenderMode,
+    width: int,
+    height: int,
+    dynamic: bool = False,
+    textured: bool = False,
+    from_disk: bool = False,
+    num_cams: int = 1,
+    **extra,
+) -> ManagerConfig:
+    """Cube-on-a-plane scene, ``num_cams`` cameras per world (extra cameras
+    orbit the cube at distinct yaw offsets), all worlds identical unless
+    ``dynamic`` pre-seeds a per-world cube yaw so every world differs from
+    step one. ``textured`` and ``from_disk`` (ROADMAP Queue 1 items 6 and
+    18) raise."""
+    if textured:
+        raise NotImplementedError(
+            "the textured demo scene is not ported yet — ROADMAP Queue 1 item 6"
+        )
+    if from_disk:
+        raise NotImplementedError(
+            "the disk-asset demo scene is not ported yet — ROADMAP Queue 1 "
+            "item 18"
+        )
+    cube_v, cube_uv = cube_mesh()
+    plane_v, plane_uv = plane_mesh()
+    geo = _geo_from([cube_v, plane_v], [cube_uv, plane_uv], [0, 1])
+    mats = [
+        AdditionalMaterial(color=(0.9, 0.3, 0.2, 1.0), texture_id=-1, roughness=0.6),
+        AdditionalMaterial(color=(0.25, 0.3, 0.35, 1.0), texture_id=-1, roughness=0.9),
+    ]
+    instances = []
+    cameras = []
+    worlds = []
+    for w in range(num_worlds):
+        yaw = (w * 0.37) % (2 * math.pi) if dynamic else 0.0
+        qw, qz = math.cos(yaw / 2), math.sin(yaw / 2)
+        instances.append(
+            ImportedInstance(
+                position=[0.0, 0.0, 1.0],
+                rotation=[qw, 0.0, 0.0, qz],
+                scale=[2.0, 2.0, 2.0],
+                object_id=0,
+            )
+        )
+        instances.append(
+            ImportedInstance(
+                position=[0.0, 0.0, 0.0],
+                rotation=[1.0, 0.0, 0.0, 0.0],
+                scale=[1.0, 1.0, 1.0],
+                object_id=1,
+            )
+        )
+        # Camera north of the cube looking back (-Y), slightly above and
+        # pitched down — this side faces the default light.
+        pitch = -0.18
+        ps, pc = math.sin(pitch / 2), math.cos(pitch / 2)
+        cameras.append(
+            ImportedCamera(
+                position=[0.0, 8.0, 3.0],
+                rotation=[0.0, 0.0, ps, pc],
+            )
+        )
+        for c in range(1, num_cams):
+            yaw_c = math.pi + c * (2 * math.pi / num_cams) + 0.19 * c
+            cameras.append(
+                ImportedCamera(
+                    position=[8.0 * math.sin(yaw_c),
+                              -8.0 * math.cos(yaw_c),
+                              3.0 + 0.4 * c],
+                    rotation=_yaw_pitch_quat(yaw_c, pitch),
+                )
+            )
+        worlds.append(
+            WorldInit(
+                num_instances=2,
+                instance_offset=2 * w,
+                num_cameras=num_cams,
+                camera_offset=num_cams * w,
+            )
+        )
+    return ManagerConfig(
+        gpu_id=0,
+        num_worlds=num_worlds,
+        render_mode=render_mode,
+        batch_render_view_width=width,
+        batch_render_view_height=height,
+        headless_mode=True,
+        rcfg=RenderConfig(
+            geo_cfg=geo,
+            additional_mats=mats,
+            instances=instances,
+            cameras=cameras,
+            worlds=worlds,
+        ),
+        **extra,
+    )
+
+
+def renderer_kwargs(cfg: ManagerConfig) -> dict:
+    """A config's scene as ``MadronaRenderer`` keyword arguments (the
+    reference binding's mesh_* / materials / instances / cameras / worlds)."""
+    geo, rcfg = cfg.rcfg.geo_cfg, cfg.rcfg
+    return dict(
+        mesh_vertices=geo.vertices,
+        mesh_uvs=geo.uvs,
+        mesh_indices=geo.indices,
+        mesh_vertex_offsets=geo.mesh_vertex_offsets,
+        mesh_indices_offsets=geo.mesh_index_offsets,
+        mesh_materials=geo.mesh_materials,
+        materials=list(rcfg.additional_mats),
+        instances=list(rcfg.instances),
+        cameras=list(rcfg.cameras),
+        worlds=list(rcfg.worlds),
+    )

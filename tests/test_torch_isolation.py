@@ -1,0 +1,107 @@
+"""PyTorch port: it stands alone.
+
+The port (and chip_smoke.py) imports neither JAX nor any module of the JAX
+package; it renders on the CPU in a process where both are unimportable;
+and a CPU render launches no kernel.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "madrona_renderer_tpu_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    """jax / jax.* / jaxlib*, and the JAX package itself by its exact name
+    (``madrona_renderer_tpu_torch`` shares its prefix and is allowed)."""
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib") or top == "madrona_renderer_tpu"
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_forbidden_matches_exact_package_name():
+    assert _forbidden("jax") and _forbidden("jax.numpy") and _forbidden("jaxlib")
+    assert _forbidden("madrona_renderer_tpu")
+    assert _forbidden("madrona_renderer_tpu.ops.raytrace_ref")
+    assert not _forbidden("madrona_renderer_tpu_torch")
+    assert not _forbidden("madrona_renderer_tpu_torch.ops.raytrace_cuda")
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    assert path.exists(), path
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+_CHILD = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["madrona_renderer_tpu"] = None
+import madrona_renderer_tpu_torch as m
+from madrona_renderer_tpu_torch.ops import raytrace_cuda
+from madrona_renderer_tpu_torch.runners.scenes import demo_config
+r = m.Manager(demo_config(2, m.RenderMode.Raytracer, 32, 32, dynamic=True, device="cpu"))
+seg = r.segmask_tensor().numpy()
+assert seg.shape == (2, 32, 32) and set(seg.ravel().tolist()) == {-1, 0, 1}
+assert raytrace_cuda.render_resident.launches == 0
+loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "madrona_renderer_tpu") and sys.modules[k] is not None)
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_renders_without_jax_in_a_fresh_process():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=str(ROOT), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_cpu_render_launches_no_kernel():
+    import madrona_renderer_tpu_torch as m
+    from madrona_renderer_tpu_torch.ops import raytrace_cuda
+    from madrona_renderer_tpu_torch.runners.scenes import demo_config
+
+    before = raytrace_cuda.render_resident.launches
+    r = m.Manager(demo_config(2, m.RenderMode.Raytracer, 16, 16, device="cpu"))
+    r.step()
+    assert raytrace_cuda.render_resident.launches == before == 0
+    assert (r.segmask_tensor().numpy() >= 0).any()
+
+
+def test_cuda_tensor_never_falls_back():
+    """A tensor on a device other than the CPU never takes the plain path:
+    the wrapper launches K1 there or raises (here: a 'meta' tensor)."""
+    import torch
+
+    from madrona_renderer_tpu_torch.ops import raytrace_cuda
+
+    rows = torch.empty((1, 40, 16), device="meta")
+    clusters = torch.empty((1, 8, 2), device="meta")
+    cams = torch.empty((1, 24), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        raytrace_cuda.render_resident(rows, clusters, cams, num_cams=1, n_lights=1,
+                                      height=8, width=8, seg_div=8)

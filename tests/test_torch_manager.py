@@ -1,0 +1,159 @@
+"""PyTorch port: Manager / MadronaRenderer == the JAX package's Manager.
+
+Both managers build the demo scene from their own packages; the port runs
+with ``device="cpu"`` (the plain PyTorch version of kernel K1), the JAX
+manager with ``impl="jnp"``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import madrona_renderer_tpu as jm
+import madrona_renderer_tpu_torch as tm
+from madrona_renderer_tpu.runners.scenes import demo_config as j_demo
+from madrona_renderer_tpu_torch.runners.scenes import demo_config as t_demo
+from madrona_renderer_tpu_torch.runners.scenes import renderer_kwargs
+
+from tests.torch_helpers import assert_frames_close
+
+EXPORTS = (
+    "rgb_tensor", "depth_tensor", "segmask_tensor",
+    "instance_position_tensor", "instance_rotation_tensor",
+    "camera_position_tensor", "camera_rotation_tensor",
+)
+
+
+@pytest.fixture(scope="module")
+def managers():
+    j = jm.Manager(j_demo(4, jm.RenderMode.Raytracer, 64, 64, impl="jnp"))
+    t = tm.Manager(t_demo(4, tm.RenderMode.Raytracer, 64, 64, device="cpu"))
+    return j, t
+
+
+def _np_dtype(x):
+    return x.numpy().dtype
+
+
+def test_export_shapes_and_dtypes(managers):
+    j, t = managers
+    for name in EXPORTS:
+        a, b = getattr(j, name)(), getattr(t, name)()
+        assert a.shape == b.shape, name
+        assert _np_dtype(a) == _np_dtype(b), name
+    assert t.rgb_tensor().to_torch() is t._flat_frames[0]  # zero-copy
+    assert t.total_num_cameras == j.total_num_cameras == 4
+    assert t.total_num_instances == j.total_num_instances == 8
+
+
+def test_frames_match_over_mutated_steps(managers):
+    """Three steps, each moving world 0's cube through the exported
+    position tensor: both packages' frames agree at the parity bar, the
+    mutated world's frame changes, the other worlds stay bit-identical,
+    and time advances by 0.05 a step."""
+    j, t = managers
+    j_pos = j.instance_position_tensor().to_torch()
+    t_pos = t.instance_position_tensor().to_torch()
+    for step in range(3):
+        before = t.rgb_tensor().numpy().copy()
+        before_seg = t.segmask_tensor().numpy().copy()
+        time0 = t.state.time.clone()
+        for pos in (j_pos, t_pos):
+            pos[0][0] += 0.5
+            pos[0][2] += 0.25
+        j.step()
+        t.step()
+        assert_frames_close(j.frames, t.frames)
+        # One camera per world: the flat exports are the frames' views.
+        np.testing.assert_array_equal(t.rgb_tensor().numpy(), t.frames.rgb.numpy()[:, 0])
+        np.testing.assert_array_equal(t.depth_tensor().numpy(), t.frames.depth.numpy()[:, 0])
+        np.testing.assert_array_equal(t.segmask_tensor().numpy(),
+                                      t.frames.segmask.numpy()[:, 0])
+        after = t.rgb_tensor().numpy()
+        assert (after[0] != before[0]).any(), step
+        np.testing.assert_array_equal(after[1:], before[1:])
+        np.testing.assert_array_equal(t.segmask_tensor().numpy()[1:], before_seg[1:])
+        np.testing.assert_allclose(
+            (t.state.time - time0).numpy(), np.full(4, 0.05, np.float32), rtol=1e-6
+        )
+    np.testing.assert_allclose(t.state.time.numpy(), np.asarray(j.state.time))
+
+
+def test_madrona_renderer_ctor_and_functional_api():
+    cfg = t_demo(2, tm.RenderMode.Raytracer, 32, 32, dynamic=True)
+    r = tm.MadronaRenderer(0, 2, tm.RenderMode.Raytracer, 32, 32,
+                           device="cpu", **renderer_kwargs(cfg))
+    m = tm.Manager(t_demo(2, tm.RenderMode.Raytracer, 32, 32, dynamic=True,
+                          device="cpu"))
+    np.testing.assert_array_equal(r.rgb_tensor().numpy(), m.rgb_tensor().numpy())
+    # render_state leaves its input untouched; step_state returns a new one.
+    state = r.state
+    frames = r.render_state(state)
+    np.testing.assert_array_equal(frames.rgb.numpy(), r.frames.rgb.numpy())
+    new_state, _, flat = r.step_state(state)
+    assert torch.equal(state.time, r.state.time)
+    np.testing.assert_allclose((new_state.time - state.time).numpy(), 0.05, rtol=1e-6)
+    assert flat[0].shape == (2, 32, 32, 4)
+    # refresh_frames picks up a mirror write without advancing time.
+    r.camera_position_tensor().to_torch()[1][2] += 1.0
+    t0 = r.state.time.clone()
+    r.refresh_frames()
+    assert torch.equal(r.state.time, t0)
+    assert (r.rgb_tensor().numpy()[1] != m.rgb_tensor().numpy()[1]).any()
+    np.testing.assert_array_equal(r.rgb_tensor().numpy()[0], m.rgb_tensor().numpy()[0])
+
+
+def _big_mesh_kwargs():
+    tri = np.asarray([[0, 5, 0], [1, 5, 0], [0, 5, 1]] * 3100, np.float32)
+    return dict(mesh_vertices=tri, mesh_indices=np.arange(len(tri), dtype=np.uint32),
+                mesh_vertex_offsets=[0], mesh_indices_offsets=[0], mesh_materials=[-1],
+                instances=[tm.ImportedInstance([0, 0, 0], [1, 0, 0, 0])],
+                cameras=[tm.ImportedCamera([0, 0, 0], [1, 0, 0, 0])],
+                worlds=[tm.WorldInit(1, 0, 1, 0)])
+
+
+UNSUPPORTED = {
+    "rasterizer": (dict(render_mode=tm.RenderMode.Rasterizer), "item 5"),
+    "textures": (dict(texture_paths=["checker.png"]), "item 6"),
+    "textured_material": (dict(materials=[tm.AdditionalMaterial(texture_id=0)]), "item 6"),
+    "mipmaps": (dict(mipmaps=True), "item 9"),
+    "shadows": (dict(shadows=True), "item 10"),
+    "watertight": (dict(watertight=True), "item 11"),
+    "warmstart": (dict(warmstart=True), "item 12"),
+    "ssaa": (dict(ssaa=2), "item 13"),
+    "num_devices": (dict(num_devices=2), "item 15"),
+    "multi_camera": (dict(num_cams=2), "item 7"),
+    "asset_paths": (dict(asset_paths=[tm.ImportedAsset("cube.obj")]), "item 18"),
+    "big_mesh": (dict(big=True), "item 8"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNSUPPORTED))
+def test_unsupported_options_raise(case):
+    opts, item = UNSUPPORTED[case]
+    opts = dict(opts)
+    mode = opts.pop("render_mode", tm.RenderMode.Raytracer)
+    num_cams = opts.pop("num_cams", 1)
+    if opts.pop("big", False):
+        kw = _big_mesh_kwargs()
+        n = 1
+    else:
+        n = 2
+        kw = renderer_kwargs(t_demo(n, tm.RenderMode.Raytracer, 16, 16,
+                                    num_cams=num_cams))
+    scene_keys = ("texture_paths", "materials", "asset_paths")
+    kw.update({k: opts.pop(k) for k in scene_keys if k in opts})
+    with pytest.raises(NotImplementedError, match=item):
+        tm.MadronaRenderer(0, n, mode, 16, 16, device="cpu", **kw, **opts)
+
+
+def test_impl_other_than_auto_raises():
+    with pytest.raises(ValueError, match="impl"):
+        tm.Manager(t_demo(1, tm.RenderMode.Raytracer, 16, 16, impl="jnp",
+                          device="cpu"))
+
+
+def test_no_card_and_no_device_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm.Manager(t_demo(1, tm.RenderMode.Raytracer, 16, 16))

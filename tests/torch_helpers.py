@@ -1,0 +1,153 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+Scenes are described once, built through both packages' real import /
+bake / state code, and handed from the JAX package to the port as numpy
+arrays (``madrona_renderer_tpu_torch.convert``), so both render the very
+same state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+import madrona_renderer_tpu.config as jcfg
+import madrona_renderer_tpu_torch.config as tcfg
+from madrona_renderer_tpu.assets.importer import load_render_assets as j_load
+from madrona_renderer_tpu.core.scene import bake_scene as j_bake
+from madrona_renderer_tpu.core.state import init_state as j_init
+from madrona_renderer_tpu_torch.assets.importer import load_render_assets as t_load
+from madrona_renderer_tpu_torch.convert import scene_from_numpy, state_from_numpy
+from madrona_renderer_tpu_torch.core.scene import bake_scene as t_bake
+from madrona_renderer_tpu_torch.core.state import init_state as t_init
+
+
+def to_numpy(x) -> dict:
+    """A JAX ``SceneData`` / ``SimState`` as the dict ``convert`` takes."""
+    d = {}
+    for f in dataclasses.fields(x):
+        v = getattr(x, f.name)
+        d[f.name] = v if isinstance(v, int) else np.asarray(v)
+    if hasattr(x, "tris_per_object"):
+        d["tris_per_object"] = x.tris_per_object
+    return d
+
+
+def carry_over(state, scene, device="cpu"):
+    """JAX (state, scene) → the port's (state, scene) on ``device``."""
+    return (state_from_numpy(to_numpy(state), device),
+            scene_from_numpy(to_numpy(scene), device))
+
+
+@dataclasses.dataclass
+class SceneSpec:
+    """A scene in plain values, buildable through either package."""
+
+    meshes: list  # [V, 3] float vertex arrays, V//3 triangles each
+    instances: list  # dicts of ImportedInstance fields
+    cameras: list  # dicts of ImportedCamera fields
+    worlds: list  # dicts of WorldInit fields
+    materials: list = dataclasses.field(default_factory=list)  # colors
+    mesh_materials: list = None
+
+    def _geo(self, cfg):
+        verts = np.concatenate([np.asarray(m, np.float32) for m in self.meshes])
+        counts = [len(m) for m in self.meshes]
+        offs = np.cumsum([0] + counts[:-1]).astype(np.uint32)
+        mats = (np.full(len(self.meshes), -1, np.int32)
+                if self.mesh_materials is None
+                else np.asarray(self.mesh_materials, np.int32))
+        return cfg.GeometryConfig(
+            vertices=verts,
+            uvs=np.zeros((verts.shape[0], 2), np.float32),
+            indices=np.concatenate([np.arange(c, dtype=np.uint32) for c in counts]),
+            mesh_vertex_offsets=offs,
+            mesh_index_offsets=offs.copy(),
+            mesh_materials=mats,
+        )
+
+    def _parts(self, cfg):
+        return (
+            self._geo(cfg),
+            [cfg.AdditionalMaterial(color=tuple(c)) for c in self.materials],
+            [cfg.ImportedInstance(**i) for i in self.instances],
+            [cfg.ImportedCamera(**c) for c in self.cameras],
+            [cfg.WorldInit(**w) for w in self.worlds],
+        )
+
+    def build_jax(self):
+        geo, mats, insts, cams, worlds = self._parts(jcfg)
+        scene = j_bake(j_load(geo, [], mats, []))
+        return j_init(insts, cams, worlds), scene
+
+    def build_torch(self, device="cpu"):
+        geo, mats, insts, cams, worlds = self._parts(tcfg)
+        scene = t_bake(t_load(geo, [], mats, []), device)
+        return t_init(insts, cams, worlds, device), scene
+
+
+def spec_from_config(cfg) -> SceneSpec:
+    """A ManagerConfig's raw-geometry scene (e.g. ``demo_config``) as a
+    SceneSpec."""
+    r = cfg.rcfg
+    g = r.geo_cfg
+    verts = np.asarray(g.vertices, np.float32)
+    offs = list(np.asarray(g.mesh_vertex_offsets, np.int64)) + [len(verts)]
+    return SceneSpec(
+        meshes=[verts[offs[i]:offs[i + 1]] for i in range(len(offs) - 1)],
+        instances=[dataclasses.asdict(i) for i in r.instances],
+        cameras=[dataclasses.asdict(c) for c in r.cameras],
+        worlds=[dataclasses.asdict(w) for w in r.worlds],
+        materials=[tuple(m.color) for m in r.additional_mats],
+        mesh_materials=list(np.asarray(g.mesh_materials)),
+    )
+
+
+def _unit(v):
+    v = np.asarray(v, np.float64)
+    return (v / np.linalg.norm(v)).tolist()
+
+
+def random_spec(seed: int, n_worlds: int = 1) -> SceneSpec:
+    """Random triangles, instances and one camera per world (the generator
+    of tests/test_pallas_parity.py::test_parity_random_scenes, with one
+    camera per world — the slice's scenes)."""
+    rng = np.random.default_rng(seed)
+    n_meshes = int(rng.integers(1, 4))
+    meshes = [
+        (rng.normal(size=(int(rng.integers(1, 7)) * 3, 3)) * 5).astype(np.float32)
+        for _ in range(n_meshes)
+    ]
+    n_inst = int(rng.integers(1, 5))
+    instances, cameras, worlds = [], [], []
+    for w in range(n_worlds):
+        for _ in range(n_inst):
+            instances.append(dict(
+                position=rng.normal(size=3).tolist(),
+                rotation=_unit(rng.normal(size=4)),
+                scale=rng.uniform(0.5, 2.0, size=3).tolist(),
+                object_id=int(rng.integers(0, n_meshes)),
+            ))
+        cameras.append(dict(
+            position=(rng.normal(size=3) * 3 + [0, -12, 0]).tolist(),
+            rotation=_unit(rng.normal(size=4) * 0.2 + [1, 0, 0, 0]),
+        ))
+        worlds.append(dict(num_instances=n_inst, instance_offset=n_inst * w,
+                           num_cameras=1, camera_offset=w))
+    return SceneSpec(meshes, instances, cameras, worlds)
+
+
+def assert_frames_close(ref, port):
+    """The parity bar of tests/test_pallas_parity.py:21-31: rgb within ±1
+    LSB, depth rtol = atol = 1e-5, segmask exact."""
+    rgb_a = np.asarray(ref.rgb).astype(np.int16)
+    rgb_b = port.rgb.cpu().numpy().astype(np.int16)
+    assert rgb_a.shape == rgb_b.shape
+    diff = np.abs(rgb_a - rgb_b)
+    assert diff.max() <= 1, f"rgb diff {diff.max()}"
+    np.testing.assert_allclose(
+        np.asarray(ref.depth), port.depth.cpu().numpy(), rtol=1e-5, atol=1e-5
+    )
+    np.testing.assert_array_equal(np.asarray(ref.segmask),
+                                  port.segmask.cpu().numpy())
