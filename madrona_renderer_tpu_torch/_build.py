@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -41,10 +42,19 @@ _F = ctypes.c_float
 SIGNATURES = {
     "render_resident": (
         "mrt_render_resident",
-        [_P, _P, _P, _P, _P, _P,  # rows clusters cams depth seg rgb
+        [_P, _P, _P, _P, _P,  # rows clusters cams mats pool
+         _I,  # n_mats
+         _P, _P, _P,  # depth seg rgb
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
          _F, _F,  # two_over_w two_over_h
+         _I, _I,  # raster tex_filter
          _P],  # stream
+    ),
+    "pack_rows": (
+        "mrt_pack_rows",
+        [_P] * 22  # instance, camera and scene tables, then out
+        + [_I, _I, _I,  # W I T
+           _P],  # stream
     ),
 }
 
@@ -101,8 +111,11 @@ def build(name: str) -> Path:
 
 
 def build_all() -> Dict[str, Path]:
-    """Build every kernel under ``csrc/``."""
-    return {name: build(name) for name in sources()}
+    """Build every kernel under ``csrc/``: one ``nvcc`` per source, all
+    started together."""
+    names = sources()
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 @functools.cache

@@ -10,16 +10,18 @@ and moved to the device once.
 
 The numpy body is the JAX package's ``core/scene.py`` bake term for term
 (so both packages bake bitwise-identical scenes), restricted to what the
-port renders today: untextured scenes. The texel pool therefore holds only
-the 1×1 white texture at index 0, and mip chains are off.
+port renders today: scenes whose texel pool fits the render kernel's
+resident budget, without mip chains (ROADMAP Queue 1 item 9 raises).
 
   * Triangles are padded per object to a common ``T`` (multiple of 8);
     padding triangles are degenerate (zero area) **and** masked.
   * Triangle data is pre-differenced for Möller–Trumbore: ``v0, e1, e2``
     with matching UV/normal deltas so hit attributes are two
     multiply-adds from barycentrics.
-  * A default material row at index 0 lets the shader treat every pixel
-    uniformly.
+  * Textures live in one flat RGBA8 texel pool (``u8 / 255`` as f32) with
+    per-texture offset/width/height. A 1×1 white texture at index 0 and a
+    default material row at index 0 let the shader treat every pixel
+    uniformly (a missing texture is a multiply by 1).
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ class SceneData:
     mat_tex: torch.Tensor  # i32 [M] (index into texture table; 0 = white)
     mat_rough: torch.Tensor  # f32 [M]
     mat_metal: torch.Tensor  # f32 [M]
-    # Texture pool (entry 0 = 1x1 white; the only entry the port bakes)
+    # Texture pool (entry 0 = 1x1 white)
     tex_data: torch.Tensor  # f32 [texels, 4] in [0, 1]
     tex_offset: torch.Tensor  # i32 [K]
     tex_width: torch.Tensor  # i32 [K]
@@ -115,6 +117,9 @@ _TRI_ROWS = 32
 _DMA_CLUSTER = 32
 # The JAX bake's fallback-region rows when mips are off.
 TEX_FB_ROWS = 64
+# Texel-pool rows of 128 texels the render kernel samples resident; past it
+# mipmaps="auto" turns mip chains on (the JAX bake's paged-texture switch).
+TEX_RESIDENT_ROWS = 128
 
 
 def bake_scene(
@@ -128,15 +133,11 @@ def bake_scene(
 
     Triangles of each object are Morton-sorted and clustered (see
     geometry/bvh.py) so the culled intersector can skip whole clusters.
+
+    ``mipmaps``: False, or "auto" (on iff the texel pool exceeds
+    ``TEX_RESIDENT_ROWS`` rows of 128 texels, as in the JAX bake). Mip
+    chains are ROADMAP Queue 1 item 9: a bake that needs them raises.
     """
-    if assets.textures:
-        raise NotImplementedError(
-            "textures are not ported yet — ROADMAP Queue 1 item 6"
-        )
-    if mipmaps is True:
-        raise NotImplementedError(
-            "mip-mapped textures are not ported yet — ROADMAP Queue 1 item 9"
-        )
     objects = assets.objects
     num_objects = max(1, len(objects))
 
@@ -149,24 +150,42 @@ def bake_scene(
     mat_rough = np.zeros((m,), np.float32)
     mat_metal = np.zeros((m,), np.float32)
     for i, mat in enumerate(mats):
+        if int(mat.texture_id) >= len(assets.textures):
+            # An out-of-range id would index past the texture tables on the
+            # device.
+            raise ValueError(
+                f"material {i - 1} names texture {mat.texture_id}, but "
+                f"{len(assets.textures)} textures were given"
+            )
         mat_color[i] = np.asarray(mat.color, np.float32)
         # texture_id -1 → white texture slot 0; else shift past it.
         mat_tex[i] = 0 if mat.texture_id == -1 else int(mat.texture_id) + 1
         mat_rough[i] = mat.roughness
         mat_metal[i] = mat.metalness
 
-    # --- Texture pool: the 1×1 white texture only (no mips) ---
+    # --- Texture pool (entry 0 = 1x1 white) ---
     textures = [np.full((1, 1, 4), 255, np.uint8)]
+    textures += [np.asarray(t, np.uint8) for t in assets.textures]
     k = len(textures)
     tex_offset = np.zeros((k,), np.int32)
     tex_width = np.zeros((k,), np.int32)
     tex_height = np.zeros((k,), np.int32)
+    for i, tex in enumerate(textures):
+        tex_width[i] = tex.shape[1]
+        tex_height[i] = tex.shape[0]
+    base_texels = int(sum(t.shape[0] * t.shape[1] for t in textures))
+    if mipmaps == "auto":
+        mipmaps = -(-base_texels // 128) > TEX_RESIDENT_ROWS
+    if mipmaps:
+        raise NotImplementedError(
+            f"mip-mapped textures are not ported yet ({base_texels} texels; "
+            f"mipmaps=auto turns them on past {TEX_RESIDENT_ROWS} rows of 128) "
+            "— ROADMAP Queue 1 item 9"
+        )
     pool = []
     off = 0
     for i, tex in enumerate(textures):
         h, w = tex.shape[0], tex.shape[1]
-        tex_width[i] = w
-        tex_height[i] = h
         tex_offset[i] = off
         pool.append(tex.reshape(-1, 4))
         off += h * w

@@ -17,8 +17,9 @@ Init path (``Manager::Impl::init``, ``src/mgr.cpp:365-503``):
     item that ports them.
 
 Step path (``Manager::step`` → ``CUDAImpl::run``, ``src/mgr.cpp:177-185,
-529-546``): three task-graph nodes — time update, render (prologue + kernel
-K1), export flatten — run eagerly on the device.
+529-546``): three task-graph nodes — time update, render (prologue + the
+render kernel: ``raytrace`` for ``RenderMode.Raytracer``, ``rasterize``
+for ``RenderMode.Rasterizer``), export flatten — run eagerly on the device.
 
 Fixed reference quirks (documented divergences, as in the JAX package):
   * camera_{position,rotation}_tensor shapes use the camera count
@@ -51,7 +52,7 @@ from .config import (
 from .core.frames import Frames
 from .core.scene import SceneData, bake_scene, configure_lighting
 from .core.state import SimState, init_state
-from .ops import raytrace_cuda
+from .ops import raster_cuda, raytrace_cuda
 from .tensor import Tensor
 
 TIME_DELTA = 0.05  # timeUpdateSys increment (reference src/sim.cpp:73-77)
@@ -84,7 +85,6 @@ def _check_config(cfg: ManagerConfig) -> None:
             "device (the CUDA kernel on the card, plain PyTorch on the CPU)"
         )
     unsupported = [
-        (cfg.render_mode != RenderMode.Raytracer, "RenderMode.Rasterizer", 5),
         (cfg.mipmaps is True, "mipmaps=True", 9),
         (bool(cfg.shadows), "shadows=True", 10),
         (bool(cfg.watertight), "watertight=True", 11),
@@ -129,7 +129,7 @@ class Manager:
         self.state: SimState = init_state(
             rcfg.instances, rcfg.cameras, rcfg.worlds, self.device
         )
-        raytrace_cuda.check_supported(self.state, self.scene)
+        raytrace_cuda.check_supported(self.state, self.scene, cfg.texture_filter)
 
         # --- Flat export index maps (world-major, matching the reference's
         # cross-world-concatenated export columns, src/sim.cpp:113-119) ---
@@ -190,12 +190,15 @@ class Manager:
     # ------------------------------------------------------------------ #
     def _build_step_fn(self):
         cfg = self.cfg
+        raster = cfg.render_mode == RenderMode.Rasterizer
+        render = raster_cuda.rasterize if raster else raytrace_cuda.raytrace
         render_kwargs = dict(
             height=cfg.batch_render_view_height,
             width=cfg.batch_render_view_width,
-            near=cfg.near_plane,
+            near=cfg.raster_near_plane if raster else cfg.near_plane,
             far=cfg.far_plane,
             fov_y_degrees=cfg.fov_y_degrees,
+            texture_filter=cfg.texture_filter,
         )
         cam_w, cam_slot = self._t_cam_w, self._t_cam_slot
 
@@ -213,9 +216,7 @@ class Manager:
             return carry
 
         def render_sys(carry):
-            carry["frames"] = raytrace_cuda.raytrace(
-                carry["state"], carry["scene"], **render_kwargs
-            )
+            carry["frames"] = render(carry["state"], carry["scene"], **render_kwargs)
             return carry
 
         def export_flatten_sys(carry):
@@ -302,9 +303,16 @@ class Manager:
         return Tensor(device=self._flat_frames[0])
 
     def depth_tensor(self) -> Tensor:
-        return Tensor(device=self._flat_frames[1])
+        depth = self._flat_frames[1]
+        if self.cfg.render_mode == RenderMode.Rasterizer:
+            # Rasterizer depth carries a trailing singleton dim
+            # (reference src/mgr.cpp:570-580).
+            depth = depth[..., None]
+        return Tensor(device=depth)
 
     def segmask_tensor(self) -> Tensor:
+        if self.cfg.render_mode == RenderMode.Rasterizer:
+            raise RuntimeError("Segmask not implemented for rasterizer")
         return Tensor(device=self._flat_frames[2])
 
     def instance_position_tensor(self) -> Tensor:

@@ -1,0 +1,31 @@
+"""Batch rasterizer: the raster conventions on the shared kernel (K2).
+
+The port of the JAX package's ``ops/raster_pallas.py::rasterize``. For the
+scenes this renderer serves (tiny meshes, many worlds: pixels ≳ triangles)
+point-sampled visibility is ray casting — one ray per pixel centre, min-t
+depth competition — so the rasterizer is the raytracer's kernel in its
+``raster`` variant: camera-plane depth z = t·cos, the exact per-pixel
+t-space znear bound znear / cos, the z-space far clip, and no segmask
+(the reference's rasterizer has none, ``src/mgr.cpp:595``).
+"""
+
+from __future__ import annotations
+
+from ..core.frames import Frames
+from ..core.scene import SceneData
+from ..core.state import SimState
+from .raytrace_cuda import frames_from_core, render_core
+
+
+def rasterize(state: SimState, scene: SceneData, *, height: int, width: int,
+              near: float = 0.001, far: float = 1000.0,
+              fov_y_degrees: float = 90.0,
+              texture_filter: str = "nearest") -> Frames:
+    """Raster-convention rendering → padded ``Frames``: depth is
+    camera-plane z (0 on a miss or past ``far``), segmask is -1 everywhere,
+    invalid camera slots render black."""
+    return frames_from_core(state, *render_core(
+        state, scene, height=height, width=width, near=near, far=far,
+        fov_y_degrees=fov_y_degrees, raster=True,
+        texture_filter=texture_filter,
+    ))

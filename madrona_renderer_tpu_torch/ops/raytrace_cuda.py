@@ -1,17 +1,21 @@
-"""Batch raytracer: the render prologue as torch ops, then kernel K1.
+"""Batch raytracer: the render prologue, then kernel K1 (K2, K6).
 
 The port of the main path of the JAX package's ``ops/raytrace_pallas.py``
-(``render_core``, :3998) for what its flags resolve to on untextured
-single-camera scenes that fit the resident budget: the cluster-culled
-resident sweep over pack-time Möller–Trumbore rows (``prep``,
-``defer_attrs``, ``uv_defer``), shaded in the kernel, with the fused export
-(depth, segmask and RGBA8 written in their final masked form).
+(``render_core``, :3998) for what its flags resolve to on single-camera
+scenes that fit the resident budget: the cluster-culled resident sweep over
+pack-time Möller–Trumbore rows (``prep``, ``defer_attrs``, ``uv_defer``),
+shaded in the kernel, with the fused export (depth, segmask and RGBA8
+written in their final masked form) — untextured (``shaded``) or with the
+in-kernel texture route (``textured``, nearest or bilinear, K6), in the
+raytrace or the raster conventions (``raster_clip``, K2).
 
-  1. The prologue packs the inputs with the JAX package's expressions,
-     term for term: ``_pack_rows_planar`` (split layout, camera-origin
-     prep rows), ``_pack_cams``, and ``world_clusters`` +
-     ``_pack_clusters`` (the per-step TLAS refit).
-  2. ``render_resident`` launches kernel K1 (``csrc/render_resident.cu``)
+  1. The prologue packs the inputs: ``pack_cuda.pack_rows`` (kernel K13 on
+     the card; on the CPU ``_pack_rows_planar``, the JAX split layout with
+     camera-origin prep rows, term for term), then as torch ops
+     ``_pack_cams`` and ``world_clusters`` + ``_pack_clusters`` (the
+     per-step TLAS refit), and for textured scenes the material table and
+     the packed texel pool (``shade.material_table`` / ``texel_pool``).
+  2. ``render_resident`` launches the kernel (``csrc/render_resident.cu``)
      for tensors on the card, or runs ``render_resident_plain`` — the
      same function in torch ops — for tensors on the CPU.
   3. The kernel writes ``[W·C, H, Wd]`` outputs directly, so ``raytrace``
@@ -31,6 +35,7 @@ from .. import _build
 from ..core.frames import Frames
 from ..core.scene import SMEM_TRI_BUDGET, SceneData
 from ..core.state import SimState
+from . import pack_cuda, shade
 from .quat import quat_rotate
 from .raytrace_ref import _EPS_BARY, _EPS_DET, planar_soup_parts
 from .shade import AMBIENT, packed_to_rgba8
@@ -52,7 +57,11 @@ _F_ONE_PLUS_EPS = float(np.float32(1.0 + _EPS_BARY))
 _F_AMBIENT = float(np.float32(AMBIENT))
 _F_DIFFUSE = float(np.float32(1.0 - AMBIENT))
 _F_TINY = float(np.float32(1e-20))
+_F_COS_FLOOR = float(np.float32(1e-6))
 _ALPHA = int(np.uint32(0xFF000000).view(np.int32))
+_CAM_FAR_Z = 16  # camera column of the z-space far clip (raster)
+# The kernel's texture switch: untextured, nearest, bilinear.
+_TEX_CODES = {None: 0, "nearest": 1, "bilinear": 2}
 
 
 def _cam_valid_col(n_lights: int) -> int:
@@ -63,16 +72,41 @@ def _n_cam_cols(n_lights: int) -> int:
     return -(-(_CAM_LIGHT0 + 6 * n_lights + 1) // 8) * 8
 
 
-def check_supported(state: SimState, scene: SceneData) -> None:
-    """Raise ``NotImplementedError`` for a scene this slice does not render."""
-    if int(scene.tex_data.shape[0]) > 1:
-        raise NotImplementedError(
-            "textured scenes are not ported yet — ROADMAP Queue 1 item 6"
-        )
+def is_textured(scene: SceneData) -> bool:
+    """A texel pool beyond the 1×1 white texture (the JAX package's static
+    ``shaded`` / ``tex_inkernel`` switch on the pool's shape)."""
+    return int(scene.tex_data.shape[0]) > 1
+
+
+def check_supported(state: SimState, scene: SceneData,
+                    texture_filter: str = "nearest") -> None:
+    """Raise ``NotImplementedError`` for a scene this slice does not render
+    (``ValueError`` for a filter no route renders)."""
     if int(scene.tex_mip_offset.shape[1]) > 1:
         raise NotImplementedError(
             "mip-mapped textures are not ported yet — ROADMAP Queue 1 item 9"
         )
+    if is_textured(scene):
+        if texture_filter == "trilinear":
+            raise ValueError(
+                "trilinear filtering needs mip chains — bake the scene with "
+                "mipmaps=True (ManagerConfig.mipmaps)"
+            )
+        if texture_filter not in shade.FILTERS:
+            raise ValueError(
+                f"texture_filter must be one of {shade.FILTERS}, got "
+                f"{texture_filter!r}"
+            )
+        n_texels = int(scene.tex_data.shape[0])
+        n_mats = int(scene.mat_color.shape[0])
+        if n_texels > shade.TEX_MAX_TEXELS or n_mats > shade.TEX_MAX_MATERIALS:
+            raise NotImplementedError(
+                f"a textured scene with {n_texels} texels and {n_mats} "
+                f"materials exceeds the in-kernel texture route "
+                f"({shade.TEX_MAX_TEXELS} texels, {shade.TEX_MAX_MATERIALS} "
+                "materials); the 9-output route with the shading epilogue is "
+                "not ported yet — ROADMAP Queue 1 item 6"
+            )
     if state.max_cameras > 1:
         raise NotImplementedError(
             "worlds with more than one camera are not ported yet (the prep "
@@ -242,19 +276,37 @@ def pack_inputs(
     near: float = 0.1,
     far: float = 1000.0,
     fov_y_degrees: float = 90.0,
+    raster: bool = False,
+    texture_filter: str = "nearest",
 ) -> dict:
-    """The whole prologue: K1's tensors and launch parameters, as keyword
-    arguments of ``render_resident`` / ``render_resident_plain``."""
-    check_supported(state, scene)
+    """The whole prologue: the kernel's tensors and launch parameters, as
+    keyword arguments of ``render_resident`` / ``render_resident_plain``.
+    ``raster`` selects the raster conventions (``near`` is then the
+    camera-plane znear)."""
+    check_supported(state, scene, texture_filter)
     # Effective per-camera view parameters (0 = inherit the call defaults).
     eff_fov = torch.where(state.camera_fov > 0, state.camera_fov, fov_y_degrees)
     eff_near = torch.where(state.camera_znear > 0, state.camera_znear, near)
     far_z = torch.full_like(eff_near, far)
-    rows = _pack_rows_planar(state, scene, state.camera_pos[:, 0, :])
-    cams = _pack_cams(state, scene, width, height, eff_fov, eff_near, far_z, far_z)
+    if raster:
+        # The t search window must cover z < far for the worst-case corner
+        # ray (render_core :4030-4034).
+        deg2rad = float(np.float32(np.pi / 180))
+        tan_y = torch.tan(eff_fov * deg2rad * 0.5)
+        tan_x = tan_y * (width / height)
+        far_t = far * torch.sqrt(1.0 + tan_x * tan_x + tan_y * tan_y)
+    else:
+        far_t = far_z
+    rows = pack_cuda.pack_rows(state, scene, state.camera_pos[:, 0, :])
+    cams = _pack_cams(state, scene, width, height, eff_fov, eff_near, far_t, far_z)
     clusters = _pack_clusters(*world_clusters(state, scene))
+    texture = mats = pool = None
+    if is_textured(scene):
+        texture = texture_filter
+        mats = shade.material_table(scene)
+        pool = shade.texel_pool(scene)
     return dict(
-        rows=rows.contiguous(),
+        rows=rows,
         clusters=clusters.contiguous(),
         cams=cams.contiguous(),
         num_cams=state.max_cameras,
@@ -262,15 +314,46 @@ def pack_inputs(
         height=height,
         width=width,
         seg_div=scene.tris_per_object,
+        raster=raster,
+        texture=texture,
+        mats=mats,
+        pool=pool,
     )
 
 
 # --------------------------------------------------------------------- #
-# Kernel K1 and its plain version
+# Kernel K1 (K2, K6) and its plain version
 # --------------------------------------------------------------------- #
+def variant_name(raster: bool, texture) -> str:
+    """The name of one instantiation of the kernel: ``render_resident``
+    plus ``_raster`` (K2) and ``_tex_nearest`` / ``_tex_bilinear`` (K6)."""
+    name = "render_resident" + ("_raster" if raster else "")
+    return name + (f"_tex_{texture}" if texture else "")
+
+
+VARIANTS = tuple(variant_name(r, t) for r in (False, True)
+                 for t in (None, "nearest", "bilinear"))
+
+
 def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
-                  seg_div) -> None:
-    for name, t in (("rows", rows), ("clusters", clusters), ("cams", cams)):
+                  seg_div, texture, mats, pool) -> None:
+    tensors = [("rows", rows), ("clusters", clusters), ("cams", cams)]
+    if texture is not None:
+        if texture not in shade.FILTERS:
+            raise ValueError(f"texture must be None or one of {shade.FILTERS}, got {texture!r}")
+        if mats is None or pool is None:
+            raise ValueError("a textured render needs mats and pool")
+        tensors.append(("mats", mats))
+        if pool.dtype != torch.int32 or not pool.is_contiguous() or pool.dim() != 1:
+            raise ValueError("pool must be a contiguous int32 [texels] tensor")
+        if pool.device != rows.device:
+            raise ValueError(f"pool is on {pool.device}, rows on {rows.device}")
+        if mats.dim() != 2 or mats.shape[0] != 6 or mats.shape[1] > shade.TEX_MAX_MATERIALS:
+            raise ValueError(
+                f"mats must be [6, M<={shade.TEX_MAX_MATERIALS}], got {tuple(mats.shape)}")
+        if pool.shape[0] > shade.TEX_MAX_TEXELS:
+            raise ValueError(f"pool holds {pool.shape[0]} texels, over {shade.TEX_MAX_TEXELS}")
+    for name, t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
@@ -297,16 +380,24 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
 
 
 def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
-                    height: int, width: int, seg_div: int):
-    """Kernel K1. Returns ``(depth f32, segmask i32, rgb i32-packed)``, each
-    ``[W·C, height, width]``, in their final masked form.
+                    height: int, width: int, seg_div: int, raster: bool = False,
+                    texture=None, mats=None, pool=None):
+    """The kernel, in the variant ``variant_name(raster, texture)``. Returns
+    ``(depth f32, segmask i32, rgb i32-packed)``, each ``[W·C, height,
+    width]``, in their final masked form: depth is t (raster: camera-plane
+    z), segmask idx // seg_div (raster: -1). ``texture`` is None for an
+    untextured scene, else the filter, with ``mats`` / ``pool`` from
+    ``shade.material_table`` / ``shade.texel_pool``.
 
     Tensors on the card launch ``csrc/render_resident.cu`` on their device's
-    current stream; tensors on the CPU run ``render_resident_plain``."""
+    current stream; tensors on the CPU run ``render_resident_plain``. Each
+    launch adds one to ``render_resident.launches`` and to its variant's
+    entry of ``render_resident.variant_launches``."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
-                  seg_div)
+                  seg_div, texture, mats, pool)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height,
-              width=width, seg_div=seg_div)
+              width=width, seg_div=seg_div, raster=raster, texture=texture,
+              mats=mats, pool=pool)
     if rows.device.type == "cpu":
         return render_resident_plain(rows, clusters, cams, **kw)
     if rows.device.type != "cuda":
@@ -321,23 +412,30 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
     depth = torch.empty((WC, height, width), dtype=torch.float32, device=dev)
     seg = torch.empty((WC, height, width), dtype=torch.int32, device=dev)
     rgb = torch.empty((WC, height, width), dtype=torch.int32, device=dev)
+    textured = texture is not None
     launch = _build.load("render_resident")
     with torch.cuda.device(dev):
         err = launch(
             rows.data_ptr(), clusters.data_ptr(), cams.data_ptr(),
+            mats.data_ptr() if textured else None,
+            pool.data_ptr() if textured else None,
+            int(mats.shape[1]) if textured else 0,
             depth.data_ptr(), seg.data_ptr(), rgb.data_ptr(),
             WC, num_cams, S, CC, S // CC, int(cams.shape[1]), n_lights,
             height, width, seg_div,
             float(np.float32(2.0 / width)), float(np.float32(2.0 / height)),
+            int(raster), _TEX_CODES[texture],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"render_resident launch failed: {launch.error_string(err)}")
     render_resident.launches += 1
+    render_resident.variant_launches[variant_name(raster, texture)] += 1
     return depth, seg, rgb
 
 
 render_resident.launches = 0
+render_resident.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def plain_rays(cams, height: int, width: int):
@@ -386,11 +484,11 @@ def plain_triangle_test(dx, dy, dz, tri_rows, near, best_t):
 
 def render_resident_plain(rows, clusters, cams, *, num_cams: int,
                           n_lights: int, height: int, width: int,
-                          seg_div: int):
-    """K1 in torch ops, on any device: the same expressions in the same
-    order as the kernel, with no cluster cull (the cull only skips work).
-    A loop over the S triangles carries (best_t, best_idx, u, v) as
-    ``[W·C, H·Wd]`` tensors."""
+                          seg_div: int, raster: bool = False, texture=None,
+                          mats=None, pool=None):
+    """The kernel in torch ops, on any device: the same expressions in the
+    same order, with no cluster cull (the cull only skips work). A loop over
+    the S triangles carries (best_t, best_idx) as ``[W·C, H·Wd]`` tensors."""
     del clusters  # the plain version sweeps every triangle
     W, _, S = rows.shape
     WC = W * num_cams
@@ -403,38 +501,49 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
 
     dx, dy, dz = plain_rays(cams, height, width)
     near = cam(14)
+    cosf = dx * cam(6) + dy * cam(7) + dz * cam(8)
+    t_lo = near / torch.clamp_min(cosf, _F_COS_FLOOR) if raster else near
     P = height * width
     best_t = cam(15).expand(WC, P).clone()
     best_idx = torch.full((WC, P), -1, dtype=torch.int32, device=dev)
-    best_u = torch.zeros((WC, P), dtype=f32, device=dev)
-    best_v = torch.zeros((WC, P), dtype=f32, device=dev)
     for i in range(S):
-        ok, t, u, v = plain_triangle_test(
-            dx, dy, dz, rows_v[:, :_N_PREP_ROWS, i:i + 1], near, best_t
+        ok, t, _, _ = plain_triangle_test(
+            dx, dy, dz, rows_v[:, :_N_PREP_ROWS, i:i + 1], t_lo, best_t
         )
         best_t = torch.where(ok, t, best_t)
         best_idx = torch.where(ok, i, best_idx)
-        best_u = torch.where(ok, u, best_u)
-        best_v = torch.where(ok, v, best_v)
 
     found = best_idx >= 0
     gidx = best_idx.clamp_min(0).long()
 
-    def attr(k):  # attribute row k of each pixel's winner → [WC, P]
-        return torch.where(
-            found, torch.gather(rows_v[:, _N_GEO_ROWS + k], 1, gidx), 0.0
-        )
+    def gather(k):  # row k of each pixel's winner → [WC, P]
+        return torch.gather(rows_v[:, k], 1, gidx)
 
-    uc = torch.clamp(best_u, 0.0, 1.0)
-    vc = torch.clamp(best_v, 0.0, 1.0)
+    def attr(k):  # attribute row k of each pixel's winner, 0 on a miss
+        return torch.where(found, gather(_N_GEO_ROWS + k), 0.0)
+
+    # The winner's (u, v) recomputed from its prep rows, as the kernel does.
+    det = dx * gather(0) + dy * gather(1) + dz * gather(2)
+    inv = torch.where(torch.abs(det) > _F_EPS_DET, 1.0 / det, 0.0)
+    uc = torch.clamp((dx * gather(3) + dy * gather(4) + dz * gather(5)) * inv, 0.0, 1.0)
+    vc = torch.clamp((dx * gather(6) + dy * gather(7) + dz * gather(8)) * inv, 0.0, 1.0)
     nx = torch.where(found, attr(6) + uc * attr(9) + vc * attr(12), 0.0)
     ny = torch.where(found, attr(7) + uc * attr(10) + vc * attr(13), 0.0)
     nz = torch.where(found, attr(8) + uc * attr(11) + vc * attr(14), 0.0)
+    if texture is None:
+        base = [attr(16), attr(17), attr(18)]
+    else:
+        mat = attr(15)
+        u = torch.where(found, attr(0) + uc * attr(2) + vc * attr(4), 0.0)
+        v = torch.where(found, attr(1) + uc * attr(3) + vc * attr(5), 0.0)
+        base = list(shade.sample_texture(mats, pool, mat, u, v, texture))
     ndotd = nx * dx + ny * dy + nz * dz
     flip = torch.where(ndotd > 0, -1.0, 1.0)
     nx = nx * flip
     ny = ny * flip
     nz = nz * flip
+    t_hit = torch.where(found, best_t, 0.0)
+    z = t_hit * cosf
 
     n_inv = 1.0 / torch.sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, _F_TINY))
     s = [torch.zeros((WC, P), dtype=f32, device=dev) for _ in range(3)]
@@ -445,21 +554,27 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
         )
         s = [s[k] + nd * cam(c0 + 3 + k) for k in range(3)]
 
-    def quantize(base, sk):
-        c = torch.clamp(base * (_F_AMBIENT + _F_DIFFUSE * sk), 0.0, 1.0)
-        c = torch.where(found, c, 0.0)
+    shaded_hit = found & (z < cam(_CAM_FAR_Z)) if raster else found
+
+    def quantize(b, sk):
+        c = torch.clamp(b * (_F_AMBIENT + _F_DIFFUSE * sk), 0.0, 1.0)
+        c = torch.where(shaded_hit, c, 0.0)
         return (c * 255.0 + 0.5).to(torch.int32)
 
     packed = (
-        quantize(attr(16), s[0])
-        | (quantize(attr(17), s[1]) << 8)
-        | (quantize(attr(18), s[2]) << 16)
+        quantize(base[0], s[0])
+        | (quantize(base[1], s[1]) << 8)
+        | (quantize(base[2], s[2]) << 16)
         | _ALPHA
     )
     cam_ok = cam(_cam_valid_col(n_lights)) > 0
-    hit = found & cam_ok
-    depth = torch.where(hit, best_t, 0.0)
-    seg = torch.where(hit, torch.div(best_idx, seg_div, rounding_mode="floor"), -1)
+    hit = shaded_hit & cam_ok
+    if raster:
+        depth = torch.where(hit, z, 0.0)
+        seg = torch.full_like(best_idx, -1)
+    else:
+        depth = torch.where(hit, best_t, 0.0)
+        seg = torch.where(hit, torch.div(best_idx, seg_div, rounding_mode="floor"), -1)
     rgb = torch.where(cam_ok, packed, _ALPHA)
     shape = (WC, height, width)
     return (depth.reshape(shape), seg.to(torch.int32).reshape(shape),
@@ -471,27 +586,35 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
 # --------------------------------------------------------------------- #
 def render_core(state: SimState, scene: SceneData, *, height: int, width: int,
                 near: float = 0.1, far: float = 1000.0,
-                fov_y_degrees: float = 90.0):
-    """Prologue + K1 (or its plain version on the CPU). Returns
+                fov_y_degrees: float = 90.0, raster: bool = False,
+                texture_filter: str = "nearest"):
+    """Prologue + kernel (or its plain version on the CPU). Returns
     ``(depth, segmask, rgb_packed)``, each ``[W·C, height, width]``."""
     kw = pack_inputs(state, scene, height=height, width=width, near=near,
-                     far=far, fov_y_degrees=fov_y_degrees)
+                     far=far, fov_y_degrees=fov_y_degrees, raster=raster,
+                     texture_filter=texture_filter)
     return render_resident(**kw)
+
+
+def frames_from_core(state: SimState, depth, seg, rgb) -> Frames:
+    """``[W·C, H, Wd]`` kernel outputs → padded ``Frames [W, C, H, Wd, …]``."""
+    W, C = state.camera_pos.shape[:2]
+    H, Wd = depth.shape[1:]
+    return Frames(
+        rgb=packed_to_rgba8(rgb).reshape(W, C, H, Wd, 4),
+        depth=depth.reshape(W, C, H, Wd),
+        segmask=seg.reshape(W, C, H, Wd),
+    )
 
 
 def raytrace(state: SimState, scene: SceneData, *, height: int, width: int,
              near: float = 0.1, far: float = 1000.0,
-             fov_y_degrees: float = 90.0) -> Frames:
+             fov_y_degrees: float = 90.0,
+             texture_filter: str = "nearest") -> Frames:
     """Render every (world, camera) view → padded ``Frames``; invalid
     camera slots render black/0/-1. The counterpart of
     ``raytrace_pallas.raytrace`` / ``raytrace_ref.raytrace``."""
-    W, C = state.camera_pos.shape[:2]
-    depth, seg, rgb = render_core(
+    return frames_from_core(state, *render_core(
         state, scene, height=height, width=width, near=near, far=far,
-        fov_y_degrees=fov_y_degrees,
-    )
-    return Frames(
-        rgb=packed_to_rgba8(rgb).reshape(W, C, height, width, 4),
-        depth=depth.reshape(W, C, height, width),
-        segmask=seg.reshape(W, C, height, width),
-    )
+        fov_y_degrees=fov_y_degrees, texture_filter=texture_filter,
+    ))

@@ -1,4 +1,4 @@
-"""Shading constants and the packed-pixel view.
+"""Shading constants, texture sampling and the packed-pixel view.
 
 One or more directional lambert lights plus a constant ambient term,
 matching the lighting model the reference configures (``configureLighting``
@@ -7,6 +7,11 @@ the render kernel (``ops/raytrace_cuda.py``); this module keeps what both
 sides share:
 
   * ``AMBIENT = 0.2`` constant ambient.
+  * Textures: repeat wrap, OBJ UV convention (v = 0 at the bottom of the
+    image), nearest or bilinear filtering — the JAX package's
+    ``ops/shade.py`` sampling expressions, here on the kernel's inputs
+    (the material table and the packed texel pool) so that the render
+    kernel's plain version samples exactly as the kernel does.
   * Misses produce RGBA (0, 0, 0, 255), depth 0.0, segmask -1.
 """
 
@@ -15,6 +20,104 @@ from __future__ import annotations
 import torch
 
 AMBIENT = 0.2
+# The in-kernel texture route's budget (the JAX package's
+# _TEX_INKERNEL_MAX_ROWS rows of 128 texels, and one lane per material).
+TEX_MAX_TEXELS = 128 * 128
+TEX_MAX_MATERIALS = 128
+FILTERS = ("nearest", "bilinear")
+
+
+def material_table(scene) -> torch.Tensor:
+    """``[6, M]`` f32: each material's colour rgb and its texture's texel
+    offset, width and height (exact in f32 below 2^24) — the rows of the JAX
+    kernel's ``mp`` table (``raytrace_pallas.py:4166-4172``)."""
+    mt = scene.mat_tex.long()
+    f32 = torch.float32
+    return torch.stack([
+        scene.mat_color[:, 0], scene.mat_color[:, 1], scene.mat_color[:, 2],
+        scene.tex_offset[mt].to(f32), scene.tex_width[mt].to(f32),
+        scene.tex_height[mt].to(f32),
+    ]).contiguous()
+
+
+def texel_pool(scene) -> torch.Tensor:
+    """i32 ``[texels]``: ``r | g << 8 | b << 16`` of each texel. The bake's
+    texels are ``u8 / 255``, so the u8 round trip is exact
+    (``raytrace_pallas.py:4185-4186``)."""
+    q = (scene.tex_data * 255.0 + 0.5).to(torch.int32)
+    return (q[:, 0] | (q[:, 1] << 8) | (q[:, 2] << 16)).contiguous()
+
+
+def dequant(k: torch.Tensor) -> torch.Tensor:
+    """u8 values (i32) → f32 ``k / 255``, an IEEE divide: bitwise the bake's
+    ``np.float32(k) / 255``. The divisor is a tensor on purpose: PyTorch's
+    CUDA division by a Python scalar multiplies by its reciprocal, which
+    misrounds 126 of the 256 values."""
+    return k.to(torch.float32) / torch.full((), 255.0, device=k.device)
+
+
+def _wrap(i: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Repeat wrap of an index in [-1, n] (``raytrace_pallas.py:3140-3144``)."""
+    i = torch.where(i < 0, i + n, i)
+    return torch.where(i >= n, i - n, i)
+
+
+def sample_texture(mats: torch.Tensor, pool: torch.Tensor, mat: torch.Tensor,
+                   u: torch.Tensor, v: torch.Tensor, texture_filter: str):
+    """Material colour times the texel at ``(u, v)`` → ``(r, g, b)`` f32,
+    each shaped like ``mat`` (f32 material ids). Repeat wrap, v flipped;
+    nearest clamps to the last texel, bilinear puts texel centres at
+    half-integers (``shade.py`` ``sample_texture_nearest`` /
+    ``sample_texture_bilinear``, as the JAX kernel computes them at
+    ``raytrace_pallas.py:3060-3167``)."""
+    m = mat.long()
+
+    def row(k):
+        return mats[k][m]
+
+    base = [row(0), row(1), row(2)]
+    wf, hf = row(4), row(5)
+    w_i = wf.to(torch.int32)
+    h_i = hf.to(torch.int32)
+    off_i = row(3).to(torch.int32)
+    uu = u - torch.floor(u)  # repeat wrap
+    vv = v - torch.floor(v)
+
+    def fetch(y, x):
+        return pool[(off_i + y * w_i + x).long()]
+
+    if texture_filter == "nearest":
+        # astype(int32) truncates toward zero; uu, 1 - vv lie in [0, 1].
+        tx = torch.minimum(torch.clamp_min((uu * wf).to(torch.int32), 0), w_i - 1)
+        ty = torch.minimum(torch.clamp_min(((1.0 - vv) * hf).to(torch.int32), 0),
+                           h_i - 1)
+        texel = fetch(ty, tx)
+        return tuple(base[c] * dequant((texel >> (8 * c)) & 255) for c in range(3))
+    if texture_filter != "bilinear":
+        raise ValueError(f"texture_filter must be one of {FILTERS}, got {texture_filter!r}")
+    fx = uu * wf - 0.5
+    fy = (1.0 - vv) * hf - 0.5
+    x0f = torch.floor(fx)
+    y0f = torch.floor(fy)
+    ax = fx - x0f
+    ay = fy - y0f
+    x0 = x0f.to(torch.int32)
+    y0 = y0f.to(torch.int32)
+    xa, xb = _wrap(x0, w_i), _wrap(x0 + 1, w_i)
+    ya, yb = _wrap(y0, h_i), _wrap(y0 + 1, h_i)
+    t00, t10 = fetch(ya, xa), fetch(ya, xb)
+    t01, t11 = fetch(yb, xa), fetch(yb, xb)
+    out = []
+    for c in range(3):
+        sh = 8 * c
+        c00 = dequant((t00 >> sh) & 255)
+        c10 = dequant((t10 >> sh) & 255)
+        c01 = dequant((t01 >> sh) & 255)
+        c11 = dequant((t11 >> sh) & 255)
+        top = c00 * (1.0 - ax) + c10 * ax
+        bot = c01 * (1.0 - ax) + c11 * ax
+        out.append(base[c] * (top * (1.0 - ay) + bot * ay))
+    return tuple(out)
 
 
 def packed_to_rgba8(packed: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,19 @@
 """Built-in demo scene: a colored cube and a ground plane per world, one
 camera — geometry generated in code, no asset files needed.
 
-The port's copy of ``demo_config``, ``cube_mesh`` and ``plane_mesh`` from
-the JAX package's ``runners/scenes.py`` (the scene of the ``bench.py``
-headline), for its untextured raw-geometry form. The textured and
-disk-asset variants are ROADMAP Queue 1 items 6 and 18.
+The port's copy of ``demo_config``, ``cube_mesh``, ``plane_mesh`` and
+``demo_texture_png`` from the JAX package's ``runners/scenes.py`` (the
+scenes of the ``bench.py`` rows), for their raw-geometry form, untextured
+or with the PNG checkerboard. The KTX2 texture and the disk-asset variant
+are ROADMAP Queue 1 item 18.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import tempfile
+from pathlib import Path
 from typing import List
 
 import numpy as np
@@ -74,6 +78,43 @@ def _geo_from(meshes: List[np.ndarray], uv_list: List[np.ndarray], mats: List[in
     )
 
 
+# Generated demo assets live beside the kernel builds, inside the checkout.
+ASSET_DIR = Path(__file__).resolve().parents[2] / "build" / "demo_assets"
+
+
+def _publish_atomic(path: Path, data: bytes) -> None:
+    """Write-once publish: concurrent readers never see a partial file."""
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=".mrt_tmp_")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def demo_texture_png(size: int = 64) -> str:
+    """Generate (once) and return the path of the demo checkerboard
+    texture — the textured-scene analog of the reference's cube.png. The
+    texels are the JAX package's ``demo_texture_png`` texels."""
+    path = ASSET_DIR / f"mrt_demo_checker_{size}.png"
+    if not path.exists():
+        from ..assets.png import encode_png
+
+        yy, xx = np.mgrid[0:size, 0:size]
+        checker = ((yy // 8 + xx // 8) % 2).astype(np.float32)
+        img = np.empty((size, size, 4), np.uint8)
+        img[..., 0] = (255 * (0.35 + 0.6 * checker)).astype(np.uint8)
+        img[..., 1] = (255 * (0.55 - 0.25 * checker)).astype(np.uint8)
+        img[..., 2] = (255 * (0.25 + 0.5 * (1 - checker))).astype(np.uint8)
+        img[..., 3] = 255
+        ASSET_DIR.mkdir(parents=True, exist_ok=True)
+        _publish_atomic(path, encode_png(img))
+    return str(path)
+
+
 def _yaw_pitch_quat(yaw: float, pitch: float):
     """(w, x, y, z) for yaw about Z composed with pitch about X."""
     cy, sy = math.cos(yaw / 2), math.sin(yaw / 2)
@@ -88,6 +129,8 @@ def demo_config(
     height: int,
     dynamic: bool = False,
     textured: bool = False,
+    tex_size: int = 64,
+    tex_format: str = "png",
     from_disk: bool = False,
     num_cams: int = 1,
     **extra,
@@ -95,11 +138,13 @@ def demo_config(
     """Cube-on-a-plane scene, ``num_cams`` cameras per world (extra cameras
     orbit the cube at distinct yaw offsets), all worlds identical unless
     ``dynamic`` pre-seeds a per-world cube yaw so every world differs from
-    step one. ``textured`` and ``from_disk`` (ROADMAP Queue 1 items 6 and
-    18) raise."""
-    if textured:
+    step one. ``textured`` maps a generated ``tex_size``² checkerboard PNG
+    onto the cube. ``tex_format='ktx2'`` and ``from_disk`` (ROADMAP Queue 1
+    item 18) raise."""
+    if textured and tex_format != "png":
         raise NotImplementedError(
-            "the textured demo scene is not ported yet — ROADMAP Queue 1 item 6"
+            f"the {tex_format!r} demo texture is not ported yet (PNG only) — "
+            "ROADMAP Queue 1 item 18"
         )
     if from_disk:
         raise NotImplementedError(
@@ -110,9 +155,14 @@ def demo_config(
     plane_v, plane_uv = plane_mesh()
     geo = _geo_from([cube_v, plane_v], [cube_uv, plane_uv], [0, 1])
     mats = [
-        AdditionalMaterial(color=(0.9, 0.3, 0.2, 1.0), texture_id=-1, roughness=0.6),
+        AdditionalMaterial(
+            color=(0.9, 0.3, 0.2, 1.0),
+            texture_id=0 if textured else -1,
+            roughness=0.6,
+        ),
         AdditionalMaterial(color=(0.25, 0.3, 0.35, 1.0), texture_id=-1, roughness=0.9),
     ]
+    textures = [demo_texture_png(tex_size)] if textured else []
     instances = []
     cameras = []
     worlds = []
@@ -173,6 +223,7 @@ def demo_config(
         rcfg=RenderConfig(
             geo_cfg=geo,
             additional_mats=mats,
+            additional_textures=textures,
             instances=instances,
             cameras=cameras,
             worlds=worlds,
@@ -193,6 +244,7 @@ def renderer_kwargs(cfg: ManagerConfig) -> dict:
         mesh_indices_offsets=geo.mesh_index_offsets,
         mesh_materials=geo.mesh_materials,
         materials=list(rcfg.additional_mats),
+        texture_paths=list(rcfg.additional_textures),
         instances=list(rcfg.instances),
         cameras=list(rcfg.cameras),
         worlds=list(rcfg.worlds),

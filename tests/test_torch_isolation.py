@@ -1,8 +1,8 @@
 """PyTorch port: it stands alone.
 
 The port (and chip_smoke.py) imports neither JAX nor any module of the JAX
-package; it renders on the CPU in a process where both are unimportable;
-and a CPU render launches no kernel.
+package; it renders on the CPU (raytraced, textured and rasterized) in a
+process where both are unimportable; and a CPU render launches no kernel.
 """
 
 import ast
@@ -59,12 +59,18 @@ sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
 sys.modules["madrona_renderer_tpu"] = None
 import madrona_renderer_tpu_torch as m
-from madrona_renderer_tpu_torch.ops import raytrace_cuda
+from madrona_renderer_tpu_torch.ops import pack_cuda, raytrace_cuda
 from madrona_renderer_tpu_torch.runners.scenes import demo_config
 r = m.Manager(demo_config(2, m.RenderMode.Raytracer, 32, 32, dynamic=True, device="cpu"))
 seg = r.segmask_tensor().numpy()
 assert seg.shape == (2, 32, 32) and set(seg.ravel().tolist()) == {-1, 0, 1}
-assert raytrace_cuda.render_resident.launches == 0
+t = m.Manager(demo_config(2, m.RenderMode.Raytracer, 32, 32, dynamic=True, textured=True,
+                          tex_size=32, texture_filter="bilinear", device="cpu"))
+assert t.rgb_tensor().numpy().shape == (2, 32, 32, 4)
+ra = m.Manager(demo_config(2, m.RenderMode.Rasterizer, 32, 32, textured=True, tex_size=32,
+                           device="cpu"))
+assert ra.depth_tensor().numpy().shape == (2, 32, 32, 1)
+assert raytrace_cuda.render_resident.launches == 0 and pack_cuda.pack_rows.launches == 0
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "madrona_renderer_tpu") and sys.modules[k] is not None)
 assert not loaded, loaded
 print("OK")
@@ -90,6 +96,27 @@ def test_cpu_render_launches_no_kernel():
     r.step()
     assert raytrace_cuda.render_resident.launches == before == 0
     assert (r.segmask_tensor().numpy() >= 0).any()
+
+
+def test_pack_rows_never_falls_back():
+    """K13's wrapper takes its plain version only for CPU tensors (here: a
+    state and scene moved to the 'meta' device raise)."""
+    import dataclasses
+
+    import madrona_renderer_tpu_torch as m
+    from madrona_renderer_tpu_torch.ops import pack_cuda
+    from madrona_renderer_tpu_torch.runners.scenes import demo_config
+
+    r = m.Manager(demo_config(1, m.RenderMode.Raytracer, 16, 16, device="cpu"))
+
+    def to_meta(x):
+        return dataclasses.replace(x, **{
+            f.name: getattr(x, f.name).to("meta") for f in dataclasses.fields(x)
+            if hasattr(getattr(x, f.name), "to")})
+
+    state, scene = to_meta(r.state), to_meta(r.scene)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        pack_cuda.pack_rows(state, scene, state.camera_pos[:, 0, :])
 
 
 def test_cuda_tensor_never_falls_back():

@@ -112,10 +112,13 @@ def _big_mesh_kwargs():
                 worlds=[tm.WorldInit(1, 0, 1, 0)])
 
 
+# Rasterizer mode and PNG textures render (tests/test_torch_raster.py,
+# tests/test_torch_textured.py); what is still missing around them raises.
 UNSUPPORTED = {
-    "rasterizer": (dict(render_mode=tm.RenderMode.Rasterizer), "item 5"),
-    "textures": (dict(texture_paths=["checker.png"]), "item 6"),
-    "textured_material": (dict(materials=[tm.AdditionalMaterial(texture_id=0)]), "item 6"),
+    "rasterizer": (dict(render_mode=tm.RenderMode.Rasterizer, num_cams=2), "item 7"),
+    "textures": (dict(texture_paths=["checker.ktx2"]), "item 18"),
+    "textured_material": (dict(materials=[tm.AdditionalMaterial(texture_id=0)],
+                               big_texture=True, mipmaps=False), "item 6"),
     "mipmaps": (dict(mipmaps=True), "item 9"),
     "shadows": (dict(shadows=True), "item 10"),
     "watertight": (dict(watertight=True), "item 11"),
@@ -129,7 +132,7 @@ UNSUPPORTED = {
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
-def test_unsupported_options_raise(case):
+def test_unsupported_options_raise(case, tmp_path):
     opts, item = UNSUPPORTED[case]
     opts = dict(opts)
     mode = opts.pop("render_mode", tm.RenderMode.Raytracer)
@@ -141,6 +144,14 @@ def test_unsupported_options_raise(case):
         n = 2
         kw = renderer_kwargs(t_demo(n, tm.RenderMode.Raytracer, 16, 16,
                                     num_cams=num_cams))
+    if opts.pop("big_texture", False):
+        # 144×144 texels: past the in-kernel route's 128×128 texel pool.
+        from madrona_renderer_tpu_torch.assets.png import write_png
+        from tests.fixtures import make_checker_png
+
+        path = str(tmp_path / "big.png")
+        write_png(path, make_checker_png(144, 16))
+        kw["texture_paths"] = [path]
     scene_keys = ("texture_paths", "materials", "asset_paths")
     kw.update({k: opts.pop(k) for k in scene_keys if k in opts})
     with pytest.raises(NotImplementedError, match=item):

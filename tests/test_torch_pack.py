@@ -18,13 +18,15 @@ import torch
 from madrona_renderer_tpu.config import RenderMode
 from madrona_renderer_tpu.core.state import SimState as JSimState
 from madrona_renderer_tpu.ops import raytrace_pallas as jrp
+from madrona_renderer_tpu.ops.pack_pallas import pack_rows_pallas
 from madrona_renderer_tpu.ops.raytrace_ref import planar_soup_parts as j_parts
 from madrona_renderer_tpu.runners.scenes import demo_config
 from madrona_renderer_tpu_torch.convert import scene_from_numpy, state_from_numpy
+from madrona_renderer_tpu_torch.ops import pack_cuda
 from madrona_renderer_tpu_torch.ops import raytrace_cuda as trc
 from madrona_renderer_tpu_torch.ops.raytrace_ref import planar_soup_parts as t_parts
 
-from tests.torch_helpers import random_spec, spec_from_config, to_numpy
+from tests.torch_helpers import carry_over, random_spec, spec_from_config, to_numpy
 
 
 def _close(a, b, what):
@@ -67,6 +69,8 @@ def _random_state(scene, n_worlds, n_inst, seed):
 SCENES = {
     "demo": lambda: spec_from_config(
         demo_config(2, RenderMode.Raytracer, 64, 64)).build_jax()[1],
+    "demo_textured": lambda: spec_from_config(demo_config(
+        2, RenderMode.Raytracer, 64, 64, textured=True, tex_size=32)).build_jax()[1],
     "random3": lambda: random_spec(3).build_jax()[1],
     "random11": lambda: random_spec(11).build_jax()[1],
 }
@@ -147,3 +151,52 @@ def test_world_clusters_and_pack(states):
     _close(a[:, :6], b[:, :6], "cluster bounds")
     # valid and count rows: exact.
     np.testing.assert_array_equal(a[:, 6:], b[:, 6:])
+
+
+
+def _pack_kernel_scene(textured):
+    from tests.test_pack_kernel import _scene
+
+    return _scene(4, textured=textured)
+
+
+PACK_KERNEL_SCENES = {
+    "demo4_dynamic": lambda: spec_from_config(demo_config(
+        4, RenderMode.Raytracer, 64, 64, dynamic=True)).build_jax(),
+    "demo4_dynamic_textured": lambda: spec_from_config(demo_config(
+        4, RenderMode.Raytracer, 64, 64, dynamic=True, textured=True,
+        tex_size=32)).build_jax(),
+    "pack_kernel_scene": lambda: _pack_kernel_scene(False),
+    "pack_kernel_scene_textured": lambda: _pack_kernel_scene(True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PACK_KERNEL_SCENES))
+def test_pack_rows_kernel_cpu_route_matches_jax_pack_kernel(name):
+    """K13's wrapper on CPU tensors (its plain version) against the JAX
+    package's Pallas pack kernel, split with the camera origin, in interpret
+    mode: the real lanes of its geometry and attribute blocks, untextured
+    and textured (the density row), at the bar above. The scenes are the
+    demo's and tests/test_pack_kernel.py's (several objects, ragged
+    instance lists, non-uniform scales). On the random quaternions of the
+    ``states`` fixture the interpret-mode kernel itself strays from the JAX
+    package's XLA pack by a few ulp in the cancelling cross products, which
+    the port matches at the bar (test_pack_rows_planar_split_prep). The CPU
+    route launches no kernel."""
+    j_state, j_scene = PACK_KERNEL_SCENES[name]()
+    t_state, t_scene = carry_over(j_state, j_scene)
+    geo, attrs = pack_rows_pallas(j_state, j_scene, cam_pos=j_state.camera_pos[:, 0, :],
+                                  split=True, interpret=True)
+    W, I = t_state.instance_obj.shape
+    S = I * j_scene.tris_per_object
+    a = np.concatenate([np.asarray(geo)[:, :, :S], np.asarray(attrs)[:, :, :S]], axis=1)
+    before = pack_cuda.pack_rows.launches
+    b = pack_cuda.pack_rows(t_state, t_scene, t_state.camera_pos[:, 0, :])
+    assert pack_cuda.pack_rows.launches == before
+    assert a.shape == tuple(b.shape) == (W, pack_cuda.N_ROWS, S)
+    b = b.numpy()
+    for r in list(range(10)) + list(range(16, 36)):
+        _close(a[:, r], b[:, r], f"row {r}")
+    np.testing.assert_array_equal(a[:, 31], b[:, 31])  # material ids
+    for r in list(range(10, 16)) + list(range(36, 40)):
+        assert not a[:, r].any() and not b[:, r].any()

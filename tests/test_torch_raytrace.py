@@ -141,7 +141,9 @@ def test_unsupported_scenes_raise():
     t_state, t_scene = spec.build_torch()
     with pytest.raises(NotImplementedError, match="item 7"):
         trc.raytrace(t_state, t_scene, height=16, width=16)
+    # A texel pool past the in-kernel route's 128×128 texels.
     t_state, t_scene = random_spec(3).build_torch()
-    textured = dataclasses.replace(t_scene, tex_data=t_scene.tex_data.repeat(2, 1))
+    textured = dataclasses.replace(
+        t_scene, tex_data=t_scene.tex_data.repeat(128 * 128 + 1, 1))
     with pytest.raises(NotImplementedError, match="item 6"):
         trc.raytrace(t_state, textured, height=16, width=16)

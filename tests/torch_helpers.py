@@ -50,6 +50,9 @@ class SceneSpec:
     worlds: list  # dicts of WorldInit fields
     materials: list = dataclasses.field(default_factory=list)  # colors
     mesh_materials: list = None
+    uvs: list = None  # [V, 2] per mesh (zeros when None)
+    textures: list = dataclasses.field(default_factory=list)  # PNG paths
+    material_textures: list = None  # texture id per material (-1 none)
 
     def _geo(self, cfg):
         verts = np.concatenate([np.asarray(m, np.float32) for m in self.meshes])
@@ -58,9 +61,11 @@ class SceneSpec:
         mats = (np.full(len(self.meshes), -1, np.int32)
                 if self.mesh_materials is None
                 else np.asarray(self.mesh_materials, np.int32))
+        uvs = (np.zeros((verts.shape[0], 2), np.float32) if self.uvs is None
+               else np.concatenate([np.asarray(u, np.float32) for u in self.uvs]))
         return cfg.GeometryConfig(
             vertices=verts,
-            uvs=np.zeros((verts.shape[0], 2), np.float32),
+            uvs=uvs,
             indices=np.concatenate([np.arange(c, dtype=np.uint32) for c in counts]),
             mesh_vertex_offsets=offs,
             mesh_index_offsets=offs.copy(),
@@ -68,9 +73,11 @@ class SceneSpec:
         )
 
     def _parts(self, cfg):
+        tex = self.material_textures or [-1] * len(self.materials)
         return (
             self._geo(cfg),
-            [cfg.AdditionalMaterial(color=tuple(c)) for c in self.materials],
+            [cfg.AdditionalMaterial(color=tuple(c), texture_id=int(t))
+             for c, t in zip(self.materials, tex)],
             [cfg.ImportedInstance(**i) for i in self.instances],
             [cfg.ImportedCamera(**c) for c in self.cameras],
             [cfg.WorldInit(**w) for w in self.worlds],
@@ -78,12 +85,12 @@ class SceneSpec:
 
     def build_jax(self):
         geo, mats, insts, cams, worlds = self._parts(jcfg)
-        scene = j_bake(j_load(geo, [], mats, []))
+        scene = j_bake(j_load(geo, [], mats, list(self.textures)))
         return j_init(insts, cams, worlds), scene
 
     def build_torch(self, device="cpu"):
         geo, mats, insts, cams, worlds = self._parts(tcfg)
-        scene = t_bake(t_load(geo, [], mats, []), device)
+        scene = t_bake(t_load(geo, [], mats, list(self.textures)), device)
         return t_init(insts, cams, worlds, device), scene
 
 
@@ -93,9 +100,13 @@ def spec_from_config(cfg) -> SceneSpec:
     r = cfg.rcfg
     g = r.geo_cfg
     verts = np.asarray(g.vertices, np.float32)
+    uvs = np.asarray(g.uvs, np.float32)
     offs = list(np.asarray(g.mesh_vertex_offsets, np.int64)) + [len(verts)]
     return SceneSpec(
         meshes=[verts[offs[i]:offs[i + 1]] for i in range(len(offs) - 1)],
+        uvs=[uvs[offs[i]:offs[i + 1]] for i in range(len(offs) - 1)],
+        textures=list(r.additional_textures),
+        material_textures=[m.texture_id for m in r.additional_mats],
         instances=[dataclasses.asdict(i) for i in r.instances],
         cameras=[dataclasses.asdict(c) for c in r.cameras],
         worlds=[dataclasses.asdict(w) for w in r.worlds],
