@@ -9,29 +9,44 @@ printed as JSON lines:
   2. build   — every kernel under madrona_renderer_tpu_torch/csrc, one nvcc
                per source, all started together;
   3. kernel_vs_plain — each kernel against its plain PyTorch version on the
-               same CUDA inputs at 64 worlds: the fused pack K13
-               (``pack_rows``, bitwise) on the demo scene, untextured and
-               textured, and on a textured random scene; every variant of
-               the render kernel (raytrace / raster x untextured / nearest /
-               bilinear) on the demo scene and random scenes, 64x64, and the
-               demo scene at 40x24 with two lights;
-  4. paths   — the three paths of the port, each through MadronaRenderer and
+               same CUDA inputs at 64 worlds: the fused pack K13 in both
+               layouts (``pack_rows`` prep, ``pack_rows_raw``, bitwise) and
+               every variant of the render kernel (prep / raw / raw with
+               shadows x raytrace / raster x untextured / nearest /
+               bilinear) on the demo scene with one and with four cameras
+               per world (untextured and textured), random scenes (one with
+               1-3 cameras per world, per-camera fov and znear), the demo
+               scene at 40x24 with two lights, and the occluder scene of
+               tests/test_shadows.py with one and with two lights, each
+               without and with shadows;
+  4. paths   — the five paths of the port, each through MadronaRenderer and
                stepped with a position mutation through the exported tensor
                between steps, with every launch count set to 0 just before
                and read just after:
-                 main            demo_config, 4096 worlds x 64x64, raytraced;
-                 textured_4096w  the same with the 32x32 PNG checkerboard,
-                                 nearest filtering;
-                 raster_256w_png 256 worlds x 64x64 of the textured cube,
-                                 RenderMode.Rasterizer;
+                 main             demo_config, 4096 worlds x 64x64,
+                                  raytraced;
+                 textured_4096w   the same with the 32x32 PNG checkerboard,
+                                  nearest filtering;
+                 raster_256w_png  256 worlds x 64x64 of the textured cube,
+                                  RenderMode.Rasterizer;
+                 multicam_1024w4c 1024 worlds x 4 cameras x 64x64 (4096
+                                  views), raytraced on the raw rows;
+                 shadows_4096w    main with shadows=True (raw rows and one
+                                  shadow ray per pixel and light);
                then, on each path's last inputs at full size, the kernels
-               against the exported frames and their plain versions; one
-               line per path (phase = its name) with the step and prologue
-               times on the host clock and the prologue's operator count;
+               against the exported frames and their plain versions (and
+               for shadows_4096w the unshadowed render of the same rows:
+               rgb darker somewhere, depth and segmask bitwise); one line
+               per path (phase = its name) with the step and prologue times
+               on the host clock and the prologue's operator count;
   5. timing  — each kernel at its path's full-size inputs: its device time
                in a CUDA graph of back-to-back launches, its time through
                the wrapper (host overhead included), its plain version's
-               time, its bound;
+               time, its bound; then, in lines with an ``inputs`` key that
+               the kernels line leaves out, K13's raw layout on
+               multicam_1024w4c's 1024 worlds and the raw sweep on main's
+               one-camera rows (beside a ``prep_vs_raw`` line of phase 4
+               that compares its frames with the prep sweep's);
 
 then the nvidia-smi line, the ``kernels`` summary line and the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -53,6 +68,8 @@ import torch
 
 NUM_WORLDS = 4096
 RASTER_WORLDS = 256
+MULTICAM_WORLDS = 1024
+MULTICAM_CAMS = 4
 HEIGHT = WIDTH = 64
 TEX_SIZE = 32
 WARMUP_STEPS = 3
@@ -73,35 +90,56 @@ PEAK_BYTES = 3.35e12
 # csrc/render_resident.cu (add, sub, mul, div, sqrt, floor, min, max,
 # compare and float<->int conversion count one each, though an IEEE divide
 # or square root takes several instructions, so the bound is a floor): per
-# thread, ray generation 30 + direction inverses 9 + winner resolve 36 +
-# flip 9 + shading 29 + 14 per light; per thread and cluster, the slab test
-# 25; per triangle test 27. The raster variant adds the cosine, its floor,
-# the t-space near bound, z and the far clip (9); the textured variants add
-# the uv resolve (8), the material lookup (4), the wrap (4) and the sample:
-# nearest 11 (two products, two conversions, three dequant divides, three
-# colour products, 1 - v), bilinear 62 (the texel-centre offsets, floors,
-# weights and conversions 14, twelve dequant divides, three lerps of 12,
-# three colour products).
-K1_OPS_FIXED = 113
+# thread, ray generation 30 + direction inverses 9 + winner resolve 36
+# (raw: 16, the carried u, v are only clipped) + flip 9 + shading 29 + 14
+# per light; per thread and cluster, the slab test 25; per triangle test
+# 27 on prep rows, 36 on raw rows (the pvec 9, det 5, 1/det 3, u 6, v 6,
+# t 1, acceptance 6), whose tv, q and t_num (17) a block computes once per
+# triangle. Shadows add per thread the hit point and the bias (8), per
+# light the occlusion select (4), per light and cluster the slab test (24),
+# and per shadow triangle test 52; of these the light's direction and its
+# inverses (12 per light) and the shadow test's pvec, det and 1/det (17 per
+# light and triangle) are the same for every thread, so the work needs the
+# first once per view and the second once per visiting block: the bound
+# charges them so, and each thread 35 per shadow triangle test.
+# The raster variant adds the cosine, its floor, the t-space near bound, z
+# and the far clip (9); the textured variants add the uv resolve (8), the
+# material lookup (4), the wrap (4) and the sample: nearest 11 (two
+# products, two conversions, three dequant divides, three colour products,
+# 1 - v), bilinear 62 (the texel-centre offsets, floors, weights and
+# conversions 14, twelve dequant divides, three lerps of 12, three colour
+# products).
+K1_OPS_FIXED = {"prep": 113, "raw": 113 - 20}
 K1_OPS_PER_LIGHT = 14
 K1_OPS_PER_CLUSTER = 25
-K1_OPS_PER_TRIANGLE = 27
+K1_OPS_PER_TRIANGLE = {"prep": 27, "raw": 36}
+K1_OPS_RAW_HOIST = 17
 K1_OPS_RASTER = 9
 K1_OPS_TEX = {None: 0, "nearest": 8 + 4 + 4 + 11, "bilinear": 8 + 4 + 4 + 62}
+K8_OPS_FIXED = 8
+K8_OPS_PER_LIGHT = 4
+K8_OPS_PER_CLUSTER = 24
+K8_OPS_PER_TRIANGLE = 52 - 17
+K8_OPS_PER_VIEW_LIGHT = 12
+K8_OPS_PER_BLOCK_TRIANGLE = 17
 K1_THREADS_PER_BLOCK = 256
-# Rows of the pack each hit reads once: prep rows 0-9, the normal rows, and
-# the colour rows (untextured) or the material and uv rows (textured).
-K1_ROWS_READ = {None: 10 + 9 + 3, "nearest": 10 + 9 + 7, "bilinear": 10 + 9 + 7}
+# Rows of the pack each block reads (the geometry rows) and each hit reads
+# once (the normal rows, and the colour rows (untextured) or the material
+# and uv rows (textured)).
+K1_GEO_ROWS = {"prep": 10, "raw": 9}
+K1_ATTR_ROWS = {None: 9 + 3, "nearest": 9 + 7, "bilinear": 9 + 7}
 # K13's FP32 operations per (world, triangle slot), counted from
 # csrc/pack_rows.cu: six quaternion rotations of 30, the scaled vertex and
 # edge products and the translation 12, the validity product 1, three
 # inverse scales of 8 and the normal products 9, the texel density 26, the
-# prep products 41, the material id conversion 1.
-K13_OPS_PER_SLOT = 6 * 30 + 12 + 1 + 24 + 9 + 26 + 41 + 1
+# material id conversion 1, and the prep products 41 (prep layout) or the
+# six edge-validity products (raw layout).
+K13_OPS_PER_SLOT = {"pack_rows": 6 * 30 + 12 + 1 + 24 + 9 + 26 + 1 + 41,
+                    "pack_rows_raw": 6 * 30 + 12 + 1 + 24 + 9 + 26 + 1 + 6}
 # Floats K13 reads once: per instance pos, quat, scale, valid, object id;
-# per world the camera origin; per object triangle v0, e1, e2, n0, dn1,
-# dn2, uv0, duv1, duv2, material, valid; per material colour and texture
-# id; per texture width and height.
+# per world the camera origin (prep layout); per object triangle v0, e1,
+# e2, n0, dn1, dn2, uv0, duv1, duv2, material, valid; per material colour
+# and texture id; per texture width and height.
 K13_FLOATS_PER_INSTANCE = 3 + 4 + 3 + 1 + 1
 K13_FLOATS_PER_TRIANGLE = 6 * 3 + 3 * 2 + 2
 
@@ -194,10 +232,11 @@ def count_torch_ops(fn) -> int:
     return Count.n
 
 
-def random_scene(seed: int, n_worlds: int, cfg_mod, texture=None):
-    """Random triangles, 1-4 instances and one camera per world; with a
-    ``texture`` path, random uvs (beyond [0, 1], so the repeat wrap works)
-    and the first mesh's material textured."""
+def random_scene(seed: int, n_worlds: int, cfg_mod, texture=None, max_cams: int = 1):
+    """Random triangles, 1-4 instances and one camera per world (with
+    ``max_cams`` > 1: 1 to ``max_cams`` cameras per world with their own fov
+    and znear); with a ``texture`` path, random uvs (beyond [0, 1], so the
+    repeat wrap works) and the first mesh's material textured."""
     rng = np.random.default_rng(seed)
     meshes = [(rng.normal(size=(int(rng.integers(1, 7)) * 3, 3)) * 5).astype(np.float32)
               for _ in range(int(rng.integers(1, 4)))]
@@ -230,16 +269,46 @@ def random_scene(seed: int, n_worlds: int, cfg_mod, texture=None):
                 position=rng.normal(size=3).tolist(), rotation=unit(rng.normal(size=4)),
                 scale=rng.uniform(0.5, 2.0, size=3).tolist(),
                 object_id=int(rng.integers(0, len(meshes)))))
-        cameras.append(cfg_mod.ImportedCamera(
-            position=(rng.normal(size=3) * 3 + [0, -12, 0]).tolist(),
-            rotation=unit(rng.normal(size=4) * 0.2 + [1, 0, 0, 0])))
-        worlds.append(cfg_mod.WorldInit(n_inst, n_inst * w, 1, w))
+        n_cams = 1 if max_cams == 1 else int(rng.integers(1, max_cams + 1))
+        for _ in range(n_cams):
+            extra = {} if max_cams == 1 else dict(
+                fov_y_degrees=float(rng.choice([0.0, 60.0, 110.0])),
+                znear=float(rng.choice([0.0, 0.5, 3.0])))
+            cameras.append(cfg_mod.ImportedCamera(
+                position=(rng.normal(size=3) * 3 + [0, -12, 0]).tolist(),
+                rotation=unit(rng.normal(size=4) * 0.2 + [1, 0, 0, 0]), **extra))
+        worlds.append(cfg_mod.WorldInit(n_inst, n_inst * w, n_cams, len(cameras) - n_cams))
     return geo, mats, textures, instances, cameras, worlds
 
 
-def demo_scene(n_worlds: int, dynamic: bool, scenes, cfg_mod, textured=False):
+def occluder_scene(n_worlds: int, cfg_mod):
+    """tests/test_shadows.py's scene per world: a ground quad at y=10 and a
+    small occluder quad at y=5, shifted along x from world to world, seen by
+    a camera at the origin looking +y."""
+    def quad(half):
+        a, b, c, d = [-half, 0, -half], [half, 0, -half], [half, 0, half], [-half, 0, half]
+        return np.asarray([a, b, c, a, c, d], np.float32)
+
+    verts = np.concatenate([quad(50.0), quad(2.0)])
+    offs = np.asarray([0, 6], np.uint32)
+    geo = cfg_mod.GeometryConfig(
+        vertices=verts, uvs=np.zeros((12, 2), np.float32),
+        indices=np.tile(np.arange(6, dtype=np.uint32), 2), mesh_vertex_offsets=offs,
+        mesh_index_offsets=offs.copy(), mesh_materials=np.full(2, -1, np.int32))
+    ident = [1.0, 0.0, 0.0, 0.0]
+    instances, cameras, worlds = [], [], []
+    for w in range(n_worlds):
+        instances += [cfg_mod.ImportedInstance([0, 10, 0], ident, object_id=0),
+                      cfg_mod.ImportedInstance([0.05 * w - 1.6, 5, 0], ident, object_id=1)]
+        cameras.append(cfg_mod.ImportedCamera([0, 0, 0], ident))
+        worlds.append(cfg_mod.WorldInit(2, 2 * w, 1, w))
+    return geo, [], [], instances, cameras, worlds
+
+
+def demo_scene(n_worlds: int, dynamic: bool, scenes, cfg_mod, textured=False, num_cams=1):
     r = scenes.demo_config(n_worlds, cfg_mod.RenderMode.Raytracer, WIDTH, HEIGHT,
-                           dynamic=dynamic, textured=textured, tex_size=TEX_SIZE).rcfg
+                           dynamic=dynamic, textured=textured, tex_size=TEX_SIZE,
+                           num_cams=num_cams).rcfg
     return (r.geo_cfg, r.additional_mats, r.additional_textures, r.instances,
             r.cameras, r.worlds)
 
@@ -269,57 +338,94 @@ def output_err(k, p) -> float:
                      .abs().max()))
 
 
-def k1_triangle_tests(kw: dict) -> int:
+def k1_triangle_tests(kw: dict) -> tuple:
     """Triangle tests the render kernel makes on these inputs, per thread of
-    a block and summed over blocks: its block cull replayed in torch ops.
+    a block and summed over blocks: its block culls replayed in torch ops.
     Cluster by cluster, a 16x16 block visits the cluster's valid prefix when
     the cluster is valid and any of its rays passes the slab test against
     the ray's best t so far; the rays of a visiting block then take the
-    prefix's hits (above the raster variant's per-pixel near bound)."""
+    prefix's hits (above the raster variant's per-pixel near bound). With
+    shadows, per light, a block visits a cluster's prefix when any of its
+    shadow rays that is not yet occluded passes the slab test (tmax > 0),
+    and those rays take the prefix's occlusion. Returns (primary tests,
+    shadow tests)."""
     from madrona_renderer_tpu_torch.ops import raytrace_cuda as rc
 
     H, Wd = kw["height"], kw["width"]
     if H % 16 or Wd % 16:
         raise ValueError("the replay covers images in whole 16x16 blocks")
     rows, cams, nc = kw["rows"], kw["cams"], kw["num_cams"]
+    raw = kw["geo"] != "prep"
     world = torch.arange(cams.shape[0], device=cams.device) // nc
     rows_v, cl = rows[world], kw["clusters"][world]
     CC = cl.shape[2]
     size = rows.shape[2] // CC
     dirs = rc.plain_rays(cams, H, Wd)
     tiny = float(np.float32(1e-20))
-    inv = [1.0 / torch.where(d.abs() > tiny, d, torch.where(d < 0, -tiny, tiny))
-           for d in dirs]
+
+    def inverse(d):
+        return 1.0 / torch.where(d.abs() > tiny, d, torch.where(d < 0, -tiny, tiny))
+
+    def slab(c, origin, inv):
+        t1 = [(cl[:, k, c:c + 1] - origin[k]) * inv[k] for k in range(3)]
+        t2 = [(cl[:, 3 + k, c:c + 1] - origin[k]) * inv[k] for k in range(3)]
+        lo = [torch.minimum(a, b) for a, b in zip(t1, t2)]
+        hi = [torch.maximum(a, b) for a, b in zip(t1, t2)]
+        return (torch.maximum(torch.maximum(lo[0], lo[1]), lo[2]),
+                torch.minimum(torch.minimum(hi[0], hi[1]), hi[2]))
+
+    def blocks(possible, c):
+        """Blocks that visit cluster c, and each ray's block flag."""
+        block = possible.reshape(-1, H // 16, 16, Wd // 16, 16).any(4).any(2)
+        block = block & (cl[:, 6, c] > 0)[:, None, None]
+        ray_in = block[:, :, None, :, None].expand(-1, -1, 16, -1, 16).reshape(
+            possible.shape)
+        return block, ray_in
+
+    inv = [inverse(d) for d in dirs]
     near = cams[:, 14:15]
     t_lo = near
     if kw["raster"]:
         cosf = dirs[0] * cams[:, 6:7] + dirs[1] * cams[:, 7:8] + dirs[2] * cams[:, 8:9]
         t_lo = near / torch.clamp_min(cosf, float(np.float32(1e-6)))
-    best_t = cams[:, 15:16].expand_as(dirs[0]).clone()
+    origin = tuple(cams[:, k:k + 1] for k in range(3))
+    far = cams[:, 15:16]
+    best_t = far.expand_as(dirs[0]).clone()
     tests = 0
     for c in range(CC):
-        t1 = [(cl[:, k, c:c + 1] - cams[:, k:k + 1]) * inv[k] for k in range(3)]
-        t2 = [(cl[:, 3 + k, c:c + 1] - cams[:, k:k + 1]) * inv[k] for k in range(3)]
-        lo = [torch.minimum(a, b) for a, b in zip(t1, t2)]
-        hi = [torch.maximum(a, b) for a, b in zip(t1, t2)]
-        tmin = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
-        tmax = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
-        possible = (tmax >= tmin) & (tmax > near) & (tmin < best_t)
-        block = possible.reshape(-1, H // 16, 16, Wd // 16, 16).any(4).any(2)
-        block = block & (cl[:, 6, c] > 0)[:, None, None]
+        tmin, tmax = slab(c, origin, inv)
+        block, ray_in = blocks((tmax >= tmin) & (tmax > near) & (tmin < best_t), c)
         cnt = cl[:, 7, c].long()
         tests += int((block.sum((1, 2)) * cnt).sum())
-        ray_in = block[:, :, None, :, None].expand(-1, -1, 16, -1, 16).reshape(
-            possible.shape)
         for j in range(size):
             i = c * size + j
             ok, t, _, _ = rc.plain_triangle_test(
-                *dirs, rows_v[:, :10, i:i + 1], t_lo, best_t)
+                *dirs, rows_v[:, :10, i:i + 1], t_lo, best_t, origin if raw else None)
             best_t = torch.where(ok & ray_in & (j < cnt)[:, None], t, best_t)
-    return tests
+    shadow_tests = 0
+    if kw["geo"] == "raw_shadows":
+        t_hit = torch.where(best_t < far, best_t, 0.0)
+        hit = tuple(origin[k] + t_hit * dirs[k] for k in range(3))
+        eps = float(np.float32(1e-3)) * (1.0 + t_hit)
+        for li in range(kw["n_lights"]):
+            c0 = 17 + 6 * li
+            sd = tuple(-cams[:, c0 + k:c0 + k + 1] for k in range(3))
+            inv_s = [inverse(d) for d in sd]
+            occ = torch.zeros_like(best_t, dtype=torch.bool)
+            for c in range(CC):
+                tmin, tmax = slab(c, hit, inv_s)
+                block, ray_in = blocks((tmax >= tmin) & (tmax > 0) & ~occ, c)
+                cnt = cl[:, 7, c].long()
+                shadow_tests += int((block.sum((1, 2)) * cnt).sum())
+                for j in range(size):
+                    i = c * size + j
+                    ok, _, _, _ = rc.plain_triangle_test(
+                        *sd, rows_v[:, :10, i:i + 1], eps, origin=hit)
+                    occ = occ | (ok & ray_in & (j < cnt)[:, None])
+    return tests, shadow_tests
 
 
-def k1_bound(kw: dict, visits: int) -> tuple:
+def k1_bound(kw: dict, visits: int, shadow_visits: int) -> tuple:
     """Least time for the render kernel's work on these inputs: bytes over
     HBM rate vs FP32 operations over peak, the larger of the two
     (ms, 'bytes'|'operations', bytes, operations)."""
@@ -328,29 +434,43 @@ def k1_bound(kw: dict, visits: int) -> tuple:
     views = kw["cams"].shape[0]
     pixels = views * kw["height"] * kw["width"]
     tiles = math.ceil(kw["height"] / 16) * math.ceil(kw["width"] / 16)
-    threads = views * tiles * K1_THREADS_PER_BLOCK
-    tex = kw["texture"]
-    nbytes = (W * K1_ROWS_READ[tex] * S * 4 + kw["clusters"].numel() * 4
-              + kw["cams"].numel() * 4 + pixels * 12)
+    blocks = views * tiles
+    threads = blocks * K1_THREADS_PER_BLOCK
+    tex, lights = kw["texture"], kw["n_lights"]
+    geo = "prep" if kw["geo"] == "prep" else "raw"  # the rows' layout
+    nbytes = (W * (K1_GEO_ROWS[geo] + K1_ATTR_ROWS[tex]) * S * 4
+              + kw["clusters"].numel() * 4 + kw["cams"].numel() * 4 + pixels * 12)
     if tex is not None:
         nbytes += kw["mats"].numel() * 4 + kw["pool"].numel() * 4
-    per_thread = (K1_OPS_FIXED + K1_OPS_PER_LIGHT * kw["n_lights"]
+    per_thread = (K1_OPS_FIXED[geo] + K1_OPS_PER_LIGHT * lights
                   + K1_OPS_PER_CLUSTER * CC + K1_OPS_TEX[tex]
                   + (K1_OPS_RASTER if kw["raster"] else 0))
-    ops = threads * per_thread + visits * K1_THREADS_PER_BLOCK * K1_OPS_PER_TRIANGLE
+    if kw["geo"] == "raw_shadows":
+        per_thread += (K8_OPS_FIXED + K8_OPS_PER_LIGHT * lights
+                       + K8_OPS_PER_CLUSTER * CC * lights)
+    ops = (threads * per_thread
+           + visits * K1_THREADS_PER_BLOCK * K1_OPS_PER_TRIANGLE[geo]
+           + shadow_visits * (K1_THREADS_PER_BLOCK * K8_OPS_PER_TRIANGLE
+                              + K8_OPS_PER_BLOCK_TRIANGLE))
+    if kw["geo"] == "raw_shadows":
+        ops += views * lights * K8_OPS_PER_VIEW_LIGHT
+    if geo == "raw":
+        ops += blocks * S * K1_OPS_RAW_HOIST
     return roofline(nbytes, ops) + (nbytes, ops)
 
 
-def k13_bound(state, scene) -> tuple:
-    """Least time for K13's work: each input read once, the [W, 40, S] rows
-    written once, against its FP32 operations."""
+def k13_bound(state, scene, layout: str) -> tuple:
+    """Least time for K13's work in ``layout`` (``pack_rows`` or
+    ``pack_rows_raw``): each input read once, the [W, 40, S] rows written
+    once, against its FP32 operations."""
     W, I = state.instance_obj.shape
     O, T = scene.tri_valid.shape
     M = scene.mat_color.shape[0]
     K = scene.tex_width.shape[0]
-    nbytes = 4 * (W * 40 * I * T + W * I * K13_FLOATS_PER_INSTANCE + W * 3
+    cam_floats = W * 3 if layout == "pack_rows" else 0
+    nbytes = 4 * (W * 40 * I * T + W * I * K13_FLOATS_PER_INSTANCE + cam_floats
                   + O * T * K13_FLOATS_PER_TRIANGLE + M * 5 + K * 2)
-    ops = W * I * T * K13_OPS_PER_SLOT
+    ops = W * I * T * K13_OPS_PER_SLOT[layout]
     return roofline(nbytes, ops) + (nbytes, ops)
 
 
@@ -385,24 +505,27 @@ def main() -> int:
     emit({"phase": "build", "kernels": sorted(built), "seconds": time.perf_counter() - t0})
 
     # Per kernel name: the largest error against its plain version.
-    max_err = {name: 0.0 for name in rc.VARIANTS + ("pack_rows",)}
+    max_err = {name: 0.0 for name in rc.VARIANTS + pack_cuda.LAYOUTS}
 
-    def check_pack(tag, state, scene):
-        cam = state.camera_pos[:, 0, :]
+    def check_pack(tag, state, scene, cam):
+        name = pack_cuda.layout_name(cam)
         k = pack_cuda.pack_rows(state, scene, cam)
         torch.cuda.synchronize()
         p = rc._pack_rows_planar(state, scene, cam)
         err = float((k - p).abs().max())
-        max_err["pack_rows"] = max(max_err["pack_rows"], err)
+        max_err[name] = max(max_err[name], err)
         bitwise = torch.equal(k, p)
-        emit({"phase": "kernel_vs_plain", "kernel": "pack_rows", "case": tag,
+        emit({"phase": "kernel_vs_plain", "kernel": name, "case": tag,
               "worlds": int(k.shape[0]), "slots": int(k.shape[2]),
               "max_abs_err": err, "bitwise": bitwise})
         if not bitwise:
-            raise AssertionError(f"{tag}: pack_rows differs from its plain version")
+            raise AssertionError(f"{tag}: {name} differs from its plain version")
+
+    def variant(kw):
+        return rc.variant_name(kw["raster"], kw["texture"], kw["geo"])
 
     def check_render(tag, kw):
-        name = rc.variant_name(kw["raster"], kw["texture"])
+        name = variant(kw)
         k_out = rc.render_resident(**kw)
         torch.cuda.synchronize()
         p_out = rc.render_resident_plain(**kw)
@@ -419,15 +542,24 @@ def main() -> int:
     tex_png = scenes.demo_texture_png(TEX_SIZE)
     two_lights = [((1.0, -1.0, -0.05), (0.7, 0.7, 0.7)),
                   ((-0.3, 0.2, -1.0), (0.3, 0.25, 0.2))]
+    occluder_lights = [((1.0, 1.0, 0.0), (1.0, 1.0, 1.0))]
     cases = {
         "demo64_dynamic": (demo_scene(SMALL_WORLDS, True, scenes, cfg_mod), {}),
         "demo64_dynamic_tex32": (
             demo_scene(SMALL_WORLDS, True, scenes, cfg_mod, textured=True), {}),
+        "demo64_4cams": (demo_scene(SMALL_WORLDS, True, scenes, cfg_mod, num_cams=4), {}),
+        "demo64_4cams_tex32": (
+            demo_scene(SMALL_WORLDS, True, scenes, cfg_mod, textured=True, num_cams=4), {}),
         "random7": (random_scene(7, SMALL_WORLDS, cfg_mod), {}),
         "random8": (random_scene(8, SMALL_WORLDS, cfg_mod), {}),
         "random9_textured": (random_scene(9, SMALL_WORLDS, cfg_mod, tex_png), {}),
+        "random10_1to3cams": (random_scene(10, SMALL_WORLDS, cfg_mod, max_cams=3), {}),
         "demo64_40x24_two_lights": (demo_scene(SMALL_WORLDS, True, scenes, cfg_mod),
                                     dict(height=40, width=24, lights=two_lights)),
+        "occluder64_one_light": (occluder_scene(SMALL_WORLDS, cfg_mod),
+                                 dict(lights=occluder_lights)),
+        "occluder64_two_lights": (occluder_scene(SMALL_WORLDS, cfg_mod),
+                                  dict(lights=occluder_lights + two_lights[1:])),
     }
     for tag, (parts, opts) in cases.items():
         geo, mats, textures, insts, cams, worlds = parts
@@ -435,74 +567,105 @@ def main() -> int:
         if "lights" in opts:
             scene = configure_lighting(scene, lights=opts["lights"])
         state = init_state(insts, cams, worlds, dev)
-        check_pack(tag, state, scene)
+        if state.max_cameras == 1:
+            check_pack(tag, state, scene, state.camera_pos[:, 0, :])
+        check_pack(tag, state, scene, None)
         size = dict(height=opts.get("height", HEIGHT), width=opts.get("width", WIDTH))
         filters = ("nearest", "bilinear") if rc.is_textured(scene) else ("nearest",)
-        for raster in (False, True):
-            for filt in filters:
-                kw = rc.pack_inputs(state, scene, raster=raster, texture_filter=filt,
-                                    near=0.001 if raster else 0.1, **size)
-                check_render(tag, kw)
+        for shadows in (False, True):
+            for raster in (False, True):
+                for filt in filters:
+                    kw = rc.pack_inputs(state, scene, raster=raster, texture_filter=filt,
+                                        near=0.001 if raster else 0.1, shadows=shadows,
+                                        **size)
+                    out = check_render(tag, kw)
+                    if tag.startswith("occluder") and shadows and not raster:
+                        # The shadow falls on the ground: some lit pixels go dark.
+                        lit = check_render(tag, dict(kw, geo="raw"))
+                        darker = (lit[2].view(torch.uint8).int()
+                                  - out[2].view(torch.uint8).int())
+                        if not bool((darker > 10).any()) or bool((darker < 0).any()):
+                            raise AssertionError(f"{tag}: the shadow does not show")
 
-    # ---- 4. the three paths -------------------------------------------- #
+    # ---- 4. the five paths --------------------------------------------- #
     def reset_counts():
         rc.render_resident.launches = 0
         rc.render_resident.variant_launches = dict.fromkeys(rc.VARIANTS, 0)
-        pack_cuda.pack_rows.launches = 0
+        pack_cuda.pack_rows.layout_launches = dict.fromkeys(pack_cuda.LAYOUTS, 0)
 
-    def drive(path, mode, n_worlds, textured, timed_steps):
+    def drive(path, mode, n_worlds, textured, timed_steps, num_cams=1, shadows=False):
         """One path through MadronaRenderer: construct (which primes one
         step), then warm-up and timed steps, each after moving world 0's
-        cube through the exported position tensor. Returns the renderer,
-        the step times and the launch counts of the run."""
+        cube through the exported position tensor. Every view of world 0
+        that saw the cube must change and every view of world 1 stay
+        bit-identical. Returns the renderer, the step times, the launch
+        counts of the run, the constructor's time and the variant's name."""
         cfg = scenes.demo_config(n_worlds, mode, WIDTH, HEIGHT, dynamic=True,
-                                 textured=textured, tex_size=TEX_SIZE)
+                                 textured=textured, tex_size=TEX_SIZE, num_cams=num_cams)
+        C = num_cams
         reset_counts()
         t0 = time.perf_counter()
-        r = m.MadronaRenderer(0, n_worlds, mode, WIDTH, HEIGHT,
+        r = m.MadronaRenderer(0, n_worlds, mode, WIDTH, HEIGHT, shadows=shadows,
                               **scenes.renderer_kwargs(cfg))
         torch.cuda.synchronize()
         ctor_s = time.perf_counter() - t0
+        raster = mode == m.RenderMode.Rasterizer
         pos = r.instance_position_tensor().to_torch()
-        step_s, snaps = [], []
+        step_s = []
         for i in range(WARMUP_STEPS + timed_steps):
-            prev = (r.depth_tensor().to_torch()[:2].clone(),
-                    r.rgb_tensor().to_torch()[:2].clone())
-            pos[0][1] += 0.05  # world 0's cube (instance 0) moves toward its camera
+            depth0 = r.depth_tensor().to_torch()[:2 * C].clone()
+            rgb0 = r.rgb_tensor().to_torch()[:2 * C].clone()
+            if raster:  # the cube shows in the depth of the views that see it
+                sees = torch.ones(C, dtype=torch.bool, device=dev)
+            else:
+                sees = (r.segmask_tensor().to_torch()[:C] == 0).flatten(1).any(1)
+            # World 0's cube (instance 0) moves along all three axes, so the
+            # depth of every cube face any camera sees changes.
+            pos[0][0] += 0.03
+            pos[0][1] += 0.05
+            pos[0][2] += 0.02
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r.step()
             torch.cuda.synchronize()
             if i >= WARMUP_STEPS:
                 step_s.append(time.perf_counter() - t0)
-            snaps.append((prev, (r.depth_tensor().to_torch()[:2].clone(),
-                                 r.rgb_tensor().to_torch()[:2].clone())))
-        counts = dict(rc.render_resident.variant_launches,
-                      pack_rows=pack_cuda.pack_rows.launches)
+            depth1 = r.depth_tensor().to_torch()[:2 * C]
+            rgb1 = r.rgb_tensor().to_torch()[:2 * C]
+            changed = (depth0[:C] != depth1[:C]).flatten(1).any(1)
+            if not bool(sees.any()) or bool((sees & ~changed).any()):
+                raise AssertionError(f"{path} step {i}: a view of world 0 that sees the "
+                                     f"cube did not change ({sees.tolist()}, "
+                                     f"{changed.tolist()})")
+            if not (torch.equal(depth0[C:], depth1[C:]) and torch.equal(rgb0[C:], rgb1[C:])):
+                raise AssertionError(f"{path} step {i}: world 1 changed without a mutation")
+        counts = dict(rc.render_resident.variant_launches, **pack_cuda.pack_rows.layout_launches)
         steps = 1 + WARMUP_STEPS + timed_steps
-        name = rc.variant_name(mode == m.RenderMode.Rasterizer,
-                               "nearest" if textured else None)
-        expected = dict.fromkeys(rc.VARIANTS, 0)
-        expected.update({name: steps, "pack_rows": steps})
+        kw = rc.pack_inputs(r.state, r.scene, height=HEIGHT, width=WIDTH, raster=raster,
+                            texture_filter=r.cfg.texture_filter, shadows=shadows)
+        name = variant(kw)
+        layout = pack_cuda.LAYOUTS[kw["geo"] != "prep"]
+        expected = dict.fromkeys(rc.VARIANTS + pack_cuda.LAYOUTS, 0)
+        expected.update({name: steps, layout: steps})
         if counts != expected or rc.render_resident.launches != steps:
             raise AssertionError(f"{path}: launches {counts} in {steps} steps, "
                                  f"expected {expected}")
-        for i, ((d0, c0), (d1, c1)) in enumerate(snaps):
-            if torch.equal(d0[0], d1[0]):
-                raise AssertionError(f"{path} step {i}: world 0's depth did not change "
-                                     "after its mutation")
-            if not (torch.equal(d0[1], d1[1]) and torch.equal(c0[1], c1[1])):
-                raise AssertionError(f"{path} step {i}: world 1 changed without a mutation")
         return r, step_s, counts, ctor_s, name
+
+    def path_inputs(r, **over):
+        raster = r.cfg.render_mode == m.RenderMode.Rasterizer
+        kw = dict(height=HEIGHT, width=WIDTH, raster=raster,
+                  near=r.cfg.raster_near_plane if raster else r.cfg.near_plane,
+                  texture_filter=r.cfg.texture_filter, shadows=bool(r.cfg.shadows))
+        kw.update(over)
+        return rc.pack_inputs(r.state, r.scene, **kw)
 
     def full_size_checks(path, r, name):
         """The path's kernel on the last step's inputs reproduces the
         exported frames; K13 and the kernel equal their plain versions at
         full size."""
         raster = r.cfg.render_mode == m.RenderMode.Rasterizer
-        near = r.cfg.raster_near_plane if raster else r.cfg.near_plane
-        kw = rc.pack_inputs(r.state, r.scene, height=HEIGHT, width=WIDTH, near=near,
-                            raster=raster, texture_filter=r.cfg.texture_filter)
+        kw = path_inputs(r)
         k_out = rc.render_resident(**kw)
         depth = r.depth_tensor().to_torch()
         depth = depth[..., 0] if raster else depth
@@ -516,34 +679,35 @@ def main() -> int:
                                  "from the exports")
         if not torch.isfinite(depth).all() or not bool((depth > 0).any()):
             raise AssertionError(f"{path}: depth not finite or empty")
-        check_pack(path, r.state, r.scene)
+        check_pack(path, r.state, r.scene,
+                   r.state.camera_pos[:, 0, :] if kw["geo"] == "prep" else None)
         check_render(path, kw)
         return kw
 
-    def time_path(path, r, step_s, counts, ctor_s, n_worlds, extra):
+    def time_path(path, r, step_s, counts, ctor_s, extra):
         raster = r.cfg.render_mode == m.RenderMode.Rasterizer
-
-        def prologue():
-            return rc.pack_inputs(r.state, r.scene, height=HEIGHT, width=WIDTH,
-                                  raster=raster,
-                                  near=r.cfg.raster_near_plane if raster else r.cfg.near_plane,
-                                  texture_filter=r.cfg.texture_filter)
-
+        n_views = r.total_num_cameras
         step_ms = statistics.median(step_s) * 1e3
         emit({"phase": path, "card": card, "nvidia_smi": smi,
-              "worlds": n_worlds, "height": HEIGHT, "width": WIDTH,
+              "worlds": r.cfg.num_worlds, "views": n_views, "height": HEIGHT, "width": WIDTH,
               "mode": "rasterizer" if raster else "raytracer",
-              "textured": rc.is_textured(r.scene), "ctor_s": ctor_s,
-              "steps_timed": len(step_s), "step_ms_median": step_ms,
+              "textured": rc.is_textured(r.scene), "shadows": bool(r.cfg.shadows),
+              "ctor_s": ctor_s, "steps_timed": len(step_s), "step_ms_median": step_ms,
               "step_ms_min": min(step_s) * 1e3, "step_ms_max": max(step_s) * 1e3,
-              "frames_per_s": n_worlds / (step_ms / 1e3),
-              "prologue_ms": host_ms(prologue, TIMED_STEPS),
-              "prologue_torch_ops": count_torch_ops(prologue),
+              "frames_per_s": n_views / (step_ms / 1e3),
+              "prologue_ms": host_ms(lambda: path_inputs(r), TIMED_STEPS),
+              "prologue_torch_ops": count_torch_ops(lambda: path_inputs(r)),
               "launches": counts, **extra,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
 
-    # Per kernel name: (inputs for its timing, launches on the paths).
-    timing_kw, launches = {}, dict.fromkeys(rc.VARIANTS + ("pack_rows",), 0)
+    # Per kernel name: (inputs for its timing, launches on the paths); and
+    # (name, path, inputs) of the timings on a second path's inputs.
+    timing_kw, launches = {}, dict.fromkeys(rc.VARIANTS + pack_cuda.LAYOUTS, 0)
+    extra_timing = []
+
+    def add_launches(counts):
+        for k, v in counts.items():
+            launches[k] += v
 
     # main: untextured raytrace, 4096 worlds.
     r, step_s, counts, ctor_s, name = drive("main", m.RenderMode.Raytracer,
@@ -551,37 +715,46 @@ def main() -> int:
     seg = r.segmask_tensor().to_torch()
     if set(torch.unique(seg).tolist()) != {-1, 0, 1}:
         raise AssertionError(f"main: segmask values {torch.unique(seg).tolist()}")
-    kw = full_size_checks("main", r, name)
-    timing_kw[name] = kw
+    timing_kw[name] = full_size_checks("main", r, name)
     timing_kw["pack_rows"] = (r.state, r.scene)
+    # The raw sweep on main's one-camera rows, against its plain version and
+    # against the prep sweep that main runs (a few ulp of depth apart: the
+    # determinant rounds otherwise), and timed: what the prep rows buy.
+    kw_raw = dict(timing_kw[name], rows=pack_cuda.pack_rows(r.state, r.scene), geo="raw")
+    raw_out = check_render("main_inputs", kw_raw)
+    emit({"phase": "prep_vs_raw", "path": "main",
+          **compare_outputs(raw_out, rc.render_resident(**timing_kw[name]))})
+    extra_timing.append(("render_resident_raw", "main", kw_raw))
     # The raster variant of the untextured scene runs on no path: it is held
     # to its plain version and timed on the main path's inputs.
-    kw_raster = rc.pack_inputs(r.state, r.scene, height=HEIGHT, width=WIDTH,
-                               near=r.cfg.raster_near_plane, raster=True)
+    kw_raster = path_inputs(r, raster=True, near=r.cfg.raster_near_plane)
     check_render("main_inputs", kw_raster)
-    timing_kw[rc.variant_name(True, None)] = kw_raster
-    time_path("main", r, step_s, counts, ctor_s, NUM_WORLDS, {})
-    for k, v in counts.items():
-        launches[k] += v
+    timing_kw[variant(kw_raster)] = kw_raster
+    time_path("main", r, step_s, counts, ctor_s, {})
+    add_launches(counts)
     del r
 
     # textured_4096w: the 32x32 PNG checkerboard, nearest filtering.
     r, step_s, counts, ctor_s, name = drive("textured_4096w", m.RenderMode.Raytracer,
                                             NUM_WORLDS, True, TIMED_STEPS)
-    kw = full_size_checks("textured_4096w", r, name)
-    timing_kw[name] = kw
-    kw_bilinear = rc.pack_inputs(r.state, r.scene, height=HEIGHT, width=WIDTH,
-                                 texture_filter="bilinear")
+    timing_kw[name] = full_size_checks("textured_4096w", r, name)
+    kw_bilinear = path_inputs(r, texture_filter="bilinear")
     check_render("textured_4096w_inputs", kw_bilinear)
-    timing_kw[rc.variant_name(False, "bilinear")] = kw_bilinear
+    timing_kw[variant(kw_bilinear)] = kw_bilinear
+    # The textured variants with shadows run on no path: held to their plain
+    # versions and timed on these inputs with shadows on.
+    for filt in ("nearest", "bilinear"):
+        for raster in (False, True):
+            kw = path_inputs(r, texture_filter=filt, shadows=True, raster=raster,
+                             near=r.cfg.raster_near_plane if raster else r.cfg.near_plane)
+            check_render("textured_4096w_inputs", kw)
+            timing_kw[variant(kw)] = kw
     rgb = r.rgb_tensor().to_torch()[..., :3].reshape(-1, 3)
     n_colours = int(torch.unique(rgb, dim=0).shape[0])
     if n_colours < 8:
         raise AssertionError(f"textured_4096w: only {n_colours} colours: no texture shows")
-    time_path("textured_4096w", r, step_s, counts, ctor_s, NUM_WORLDS,
-              {"distinct_colours": n_colours})
-    for k, v in counts.items():
-        launches[k] += v
+    time_path("textured_4096w", r, step_s, counts, ctor_s, {"distinct_colours": n_colours})
+    add_launches(counts)
     del r
 
     # raster_256w_png: BASELINE config 2 with the texture as PNG.
@@ -595,39 +768,93 @@ def main() -> int:
         pass
     else:
         raise AssertionError("raster_256w_png: segmask_tensor() did not raise")
-    kw = full_size_checks("raster_256w_png", r, name)
-    timing_kw[name] = kw
-    kw_bilinear = rc.pack_inputs(r.state, r.scene, height=HEIGHT, width=WIDTH,
-                                 near=r.cfg.raster_near_plane, raster=True,
-                                 texture_filter="bilinear")
+    timing_kw[name] = full_size_checks("raster_256w_png", r, name)
+    kw_bilinear = path_inputs(r, texture_filter="bilinear")
     check_render("raster_256w_png_inputs", kw_bilinear)
-    timing_kw[rc.variant_name(True, "bilinear")] = kw_bilinear
-    time_path("raster_256w_png", r, step_s, counts, ctor_s, RASTER_WORLDS, {})
-    for k, v in counts.items():
-        launches[k] += v
+    timing_kw[variant(kw_bilinear)] = kw_bilinear
+    time_path("raster_256w_png", r, step_s, counts, ctor_s, {})
+    add_launches(counts)
+    del r
+
+    # multicam_1024w4c: bench.py's multi-camera row, 1024 worlds x 4 views.
+    r, step_s, counts, ctor_s, name = drive(
+        "multicam_1024w4c", m.RenderMode.Raytracer, MULTICAM_WORLDS, False, TIMED_STEPS,
+        num_cams=MULTICAM_CAMS)
+    n_views = MULTICAM_WORLDS * MULTICAM_CAMS
+    if tuple(r.rgb_tensor().to_torch().shape) != (n_views, HEIGHT, WIDTH, 4):
+        raise AssertionError("multicam_1024w4c: rgb export shape")
+    views = r.depth_tensor().to_torch()[:MULTICAM_CAMS]
+    if any(torch.equal(views[0], views[c]) for c in range(1, MULTICAM_CAMS)):
+        raise AssertionError("multicam_1024w4c: two cameras of world 0 render the same view")
+    timing_kw[name] = full_size_checks("multicam_1024w4c", r, name)
+    extra_timing.append(("pack_rows_raw", "multicam_1024w4c", (r.state, r.scene)))
+    kw_raster = path_inputs(r, raster=True, near=r.cfg.raster_near_plane)
+    check_render("multicam_1024w4c_inputs", kw_raster)
+    timing_kw[variant(kw_raster)] = kw_raster
+    time_path("multicam_1024w4c", r, step_s, counts, ctor_s, {})
+    add_launches(counts)
+    del r
+    # The textured raw variants run on no path: held to their plain versions
+    # and timed on the textured multicam scene at the same size.
+    parts = demo_scene(MULTICAM_WORLDS, True, scenes, cfg_mod, textured=True,
+                       num_cams=MULTICAM_CAMS)
+    geo, mats, textures, insts, cams, worlds = parts
+    tex_scene = bake_scene(load_render_assets(geo, [], mats, textures), dev)
+    tex_state = init_state(insts, cams, worlds, dev)
+    for filt in ("nearest", "bilinear"):
+        for raster in (False, True):
+            kw = rc.pack_inputs(tex_state, tex_scene, height=HEIGHT, width=WIDTH,
+                                raster=raster, near=0.001 if raster else 0.1,
+                                texture_filter=filt)
+            check_render("multicam_1024w4c_tex32", kw)
+            timing_kw[variant(kw)] = kw
+
+    # shadows_4096w: main with one shadow ray per pixel and light.
+    r, step_s, counts, ctor_s, name = drive("shadows_4096w", m.RenderMode.Raytracer,
+                                            NUM_WORLDS, False, TIMED_STEPS, shadows=True)
+    kw = full_size_checks("shadows_4096w", r, name)
+    timing_kw[name] = kw
+    # K13's raw layout runs on both new paths; it is timed on the larger.
+    timing_kw["pack_rows_raw"] = (r.state, r.scene)
+    # Against the unshadowed render of the same rows (the raw variant): the
+    # shadow darkens some pixels and changes nothing but rgb.
+    lit = rc.render_resident(**dict(kw, geo="raw"))
+    shadowed = (r.depth_tensor().to_torch(), r.segmask_tensor().to_torch(),
+                r.rgb_tensor().to_torch().contiguous().view(torch.int32).squeeze(-1))
+    if not (torch.equal(lit[0], shadowed[0]) and torch.equal(lit[1], shadowed[1])):
+        raise AssertionError("shadows_4096w: depth or segmask differ from the unshadowed render")
+    darker = lit[2].view(torch.uint8).int() - shadowed[2].view(torch.uint8).int()
+    if not bool((darker > 0).any()) or bool((darker < 0).any()):
+        raise AssertionError("shadows_4096w: shadows must darken some pixels and brighten none")
+    shadowed_px = int((darker > 0).any(-1).sum())
+    kw_raster = path_inputs(r, raster=True, near=r.cfg.raster_near_plane)
+    check_render("shadows_4096w_inputs", kw_raster)
+    timing_kw[variant(kw_raster)] = kw_raster
+    time_path("shadows_4096w", r, step_s, counts, ctor_s,
+              {"shadowed_pixels": shadowed_px})
+    add_launches(counts)
     del r
 
     # ---- timings of every kernel at its path's full-size inputs --------- #
-    rows = []
-    state, scene = timing_kw.pop("pack_rows")
-    cam = state.camera_pos[:, 0, :].contiguous()
-    bound_ms, bound_by, nbytes, ops = k13_bound(state, scene)
-    rows.append({
-        "name": "pack_rows", "route": "cuda",
-        "source": "madrona_renderer_tpu_torch/csrc/pack_rows.cu",
-        "replaces": "madrona_renderer_tpu/ops/pack_pallas.py:374",
-        "launches": launches["pack_rows"], "max_abs_err": max_err["pack_rows"],
-        "ms": graph_ms(lambda: pack_cuda.pack_rows(state, scene, cam), KERNEL_REPS),
-        "wrapper_ms": cuda_ms(lambda: pack_cuda.pack_rows(state, scene, cam), KERNEL_REPS),
-        "plain_ms": cuda_ms(lambda: rc._pack_rows_planar(state, scene, cam), 10),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "worlds": int(state.instance_obj.shape[0]), "bytes": nbytes, "ops": ops,
-    })
-    for name in rc.VARIANTS:
-        kw = timing_kw[name]
-        visits = k1_triangle_tests(kw)
-        bound_ms, bound_by, nbytes, ops = k1_bound(kw, visits)
-        rows.append({
+    def k13_row(layout, state, scene):
+        cam = state.camera_pos[:, 0, :].contiguous() if layout == "pack_rows" else None
+        bound_ms, bound_by, nbytes, ops = k13_bound(state, scene, layout)
+        return {
+            "name": layout, "route": "cuda",
+            "source": "madrona_renderer_tpu_torch/csrc/pack_rows.cu",
+            "replaces": "madrona_renderer_tpu/ops/pack_pallas.py:374",
+            "launches": launches[layout], "max_abs_err": max_err[layout],
+            "ms": graph_ms(lambda: pack_cuda.pack_rows(state, scene, cam), KERNEL_REPS),
+            "wrapper_ms": cuda_ms(lambda: pack_cuda.pack_rows(state, scene, cam), KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: rc._pack_rows_planar(state, scene, cam), 10),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "worlds": int(state.instance_obj.shape[0]), "bytes": nbytes, "ops": ops,
+        }
+
+    def render_row(name, kw):
+        visits, shadow_visits = k1_triangle_tests(kw)
+        bound_ms, bound_by, nbytes, ops = k1_bound(kw, visits, shadow_visits)
+        return {
             "name": name, "route": "cuda",
             "source": "madrona_renderer_tpu_torch/csrc/render_resident.cu",
             "replaces": "madrona_renderer_tpu/ops/raytrace_pallas.py:4872",
@@ -636,11 +863,20 @@ def main() -> int:
             "wrapper_ms": cuda_ms(lambda: rc.render_resident(**kw), KERNEL_REPS),
             "plain_ms": cuda_ms(lambda: rc.render_resident_plain(**kw), 2),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "worlds": int(kw["rows"].shape[0]), "triangle_visits": visits,
-            "bytes": nbytes, "ops": ops,
-        })
+            "views": int(kw["cams"].shape[0]), "triangle_visits": visits,
+            "shadow_triangle_visits": shadow_visits, "bytes": nbytes, "ops": ops,
+        }
+
+    rows = []
+    for layout in pack_cuda.LAYOUTS:
+        rows.append(k13_row(layout, *timing_kw[layout]))
         emit({"phase": "timing", **rows[-1]})
-    emit({"phase": "timing", **rows[0]})
+    for name in rc.VARIANTS:
+        rows.append(render_row(name, timing_kw[name]))
+        emit({"phase": "timing", **rows[-1]})
+    for name, path, inputs in extra_timing:
+        row = k13_row(name, *inputs) if name in pack_cuda.LAYOUTS else render_row(name, inputs)
+        emit({"phase": "timing", "inputs": path, **row})
 
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -47,7 +47,7 @@ SIGNATURES = {
          _P, _P, _P,  # depth seg rgb
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
          _F, _F,  # two_over_w two_over_h
-         _I, _I,  # raster tex_filter
+         _I, _I, _I,  # raster tex_filter geo
          _P],  # stream
     ),
     "pack_rows": (

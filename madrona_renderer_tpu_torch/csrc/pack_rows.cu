@@ -1,34 +1,39 @@
 // K13: the fused input pack — instance transforms x object triangles →
-// the [W, 40, S] split rows K1 reads.
+// the [W, 40, S] split rows K1 reads, in the prep or the raw layout.
 //
 // Replaces madrona_renderer_tpu/ops/pack_pallas.py::_make_kernel (launched
-// by pack_rows_pallas at pack_pallas.py:374, split=True with the camera
-// origin). The plain PyTorch version is
-// ops/raytrace_cuda.py::_pack_rows_planar (with planar_soup_parts and
-// quat_rotate_planar inside it); every expression below is one of those
-// torch ops, term for term and in the same order, so with --fmad=false and
-// IEEE divide/sqrt the two agree bit for bit. The TPU kernel selects the
-// object's planes with an unrolled O-way select (Mosaic has no gather); here
-// each thread reads them directly by object id.
+// by pack_rows_pallas at pack_pallas.py:374, split=True, with the camera
+// origin for the prep layout and without it for the raw layout, :275-292).
+// The plain PyTorch version is ops/raytrace_cuda.py::_pack_rows_planar
+// (with planar_soup_parts and quat_rotate_planar inside it); every
+// expression below is one of those torch ops, term for term and in the same
+// order, so with --fmad=false and IEEE divide/sqrt the two agree bit for
+// bit. The TPU kernel selects the object's planes with an unrolled O-way
+// select (Mosaic has no gather); here each thread reads them directly by
+// object id.
 //
 // One thread per (world, triangle slot s = instance * T + triangle). It
 // reads its instance's position, quaternion, scale and valid flag and the
 // object's triangle (v0, e1, e2, normals, uvs, material, valid), and writes
 // all 40 rows of its slot:
-//   rows 0-9   D = ve2 x ve1, A = ve2 x tv, Q = tv x ve1, t_num = ve2 . Q
-//              (ve = e * valid, tv = camera origin - v0);
+//   rows 0-9   PREP: D = ve2 x ve1, A = ve2 x tv, Q = tv x ve1,
+//              t_num = ve2 . Q (ve = e * valid, tv = camera origin - v0);
+//              raw: v0, ve1, ve2 in rows 0-8, row 9 zero;
 //   rows 10-15 zero;
 //   rows 16-35 uv0, duv1, duv2, n0, dn1, dn2 (world space), material id,
 //              material colour rgb, texel density;
 //   rows 36-39 zero.
+// The layout is the PREP template parameter: each layout compiles to its
+// own kernel, and the prep kernel keeps its code.
 //
 // Bound on an H100: bytes. Each slot writes 160 B and reads well under
 // that (the instance scalars are shared by T threads, the object tables by
-// all worlds), against about 290 FP32 operations (six quaternion rotations,
-// the inverse scale, the prep products, the density), so the 3.35 TB/s
-// write stream is the floor: 21 MB per step at 4096 worlds x 32 slots.
-// Consecutive threads take consecutive slots of one world, so every row
-// store of a warp is one contiguous 128-byte run.
+// all worlds), against about 290 FP32 operations in the prep layout (six
+// quaternion rotations, the inverse scale, the prep products, the density;
+// the raw layout drops the 41 prep products for 6 validity products), so
+// the 3.35 TB/s write stream is the floor: 21 MB per step at 4096 worlds x
+// 32 slots. Consecutive threads take consecutive slots of one world, so
+// every row store of a warp is one contiguous 128-byte run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,7 +49,7 @@ struct PackArgs {
   const float* inst_scale;  // [W, I, 3]
   const float* inst_valid;  // [W, I]
   const int* inst_obj;      // [W, I]
-  const float* cam_pos;     // [W, 3]
+  const float* cam_pos;     // [W, 3] (PREP only)
   const float* v0;          // [O, T, 3] (and e1, e2, n0, dn1, dn2)
   const float* e1;
   const float* e2;
@@ -92,6 +97,7 @@ __device__ __forceinline__ float inv_scale(float s) {
   return (1.0f / fmaxf(fabsf(s), 1e-20f)) * sign_of(s + (s == 0.f ? 1.f : 0.f));
 }
 
+template <bool PREP>
 __global__ void __launch_bounds__(kThreads) pack_rows_kernel(PackArgs p) {
   const int S = p.I * p.T;
   const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
@@ -150,27 +156,46 @@ __global__ void __launch_bounds__(kThreads) pack_rows_kernel(PackArgs p) {
       a_uv * (float)p.tex_width[tex] * (float)p.tex_height[tex];
   const float density = sqrtf(tex_area / fmaxf(a_world, 1e-30f));
 
-  // Camera-origin Möller–Trumbore prep constants (_pack_rows_planar).
   const float ve1x = e1x * val, ve1y = e1y * val, ve1z = e1z * val;
   const float ve2x = e2x * val, ve2y = e2y * val, ve2z = e2z * val;
-  const float* cam = p.cam_pos + 3 * w;
-  const float tvx = cam[0] - v0x;
-  const float tvy = cam[1] - v0y;
-  const float tvz = cam[2] - v0z;
-  const float qvx = tvy * ve1z - tvz * ve1y;
-  const float qvy = tvz * ve1x - tvx * ve1z;
-  const float qvz = tvx * ve1y - tvy * ve1x;
+  float geo[10];
+  if (PREP) {
+    // Camera-origin Möller–Trumbore prep constants (_pack_rows_planar).
+    const float* cam = p.cam_pos + 3 * w;
+    const float tvx = cam[0] - v0x;
+    const float tvy = cam[1] - v0y;
+    const float tvz = cam[2] - v0z;
+    const float qvx = tvy * ve1z - tvz * ve1y;
+    const float qvy = tvz * ve1x - tvx * ve1z;
+    const float qvz = tvx * ve1y - tvy * ve1x;
+    geo[0] = ve2y * ve1z - ve2z * ve1y;  // D
+    geo[1] = ve2z * ve1x - ve2x * ve1z;
+    geo[2] = ve2x * ve1y - ve2y * ve1x;
+    geo[3] = ve2y * tvz - ve2z * tvy;  // A
+    geo[4] = ve2z * tvx - ve2x * tvz;
+    geo[5] = ve2x * tvy - ve2y * tvx;
+    geo[6] = qvx;  // Q
+    geo[7] = qvy;
+    geo[8] = qvz;
+    geo[9] = ve2x * qvx + ve2y * qvy + ve2z * qvz;  // t_num
+  } else {
+    // Raw rows (:260-266): v0 as it is, the edges times valid.
+    geo[0] = v0x;
+    geo[1] = v0y;
+    geo[2] = v0z;
+    geo[3] = ve1x;
+    geo[4] = ve1y;
+    geo[5] = ve1z;
+    geo[6] = ve2x;
+    geo[7] = ve2y;
+    geo[8] = ve2z;
+    geo[9] = 0.f;
+  }
 
   const float* col = p.mat_color + 4 * mat;
   const float rows[kRows] = {
-      ve2y * ve1z - ve2z * ve1y,  // D
-      ve2z * ve1x - ve2x * ve1z,
-      ve2x * ve1y - ve2y * ve1x,
-      ve2y * tvz - ve2z * tvy,  // A
-      ve2z * tvx - ve2x * tvz,
-      ve2x * tvy - ve2y * tvx,
-      qvx, qvy, qvz,  // Q
-      ve2x * qvx + ve2y * qvy + ve2z * qvz,  // t_num
+      geo[0], geo[1], geo[2], geo[3], geo[4],
+      geo[5], geo[6], geo[7], geo[8], geo[9],
       0.f, 0.f, 0.f, 0.f, 0.f, 0.f,
       uv0[0], uv0[1], du1[0], du1[1], du2[0], du2[1],
       n[0], n[1], n[2], n[3], n[4], n[5], n[6], n[7], n[8],
@@ -185,7 +210,8 @@ __global__ void __launch_bounds__(kThreads) pack_rows_kernel(PackArgs p) {
 
 extern "C" {
 
-// Launches K13 on `stream`, on the caller's current device; returns
+// Launches K13 on `stream`, on the caller's current device: the prep layout
+// when cam_pos is given, the raw layout when it is null. Returns
 // cudaGetLastError() after the launch (0 on success).
 int mrt_pack_rows(const float* inst_pos, const float* inst_rot,
                   const float* inst_scale, const float* inst_valid,
@@ -206,7 +232,10 @@ int mrt_pack_rows(const float* inst_pos, const float* inst_rot,
   if (n == 0) return 0;
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  pack_rows_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+  if (cam_pos != nullptr)
+    pack_rows_kernel<true><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+  else
+    pack_rows_kernel<false><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,23 @@
-// K1 / K2 / K6: resident, cluster-culled, shaded ray-cast with the fused
-// export, in its raytrace and raster conventions, untextured or textured.
+// K1 / K1-raw / K8 / K2 / K6: resident, cluster-culled, shaded ray-cast
+// with the fused export, on prep or raw geometry rows, with or without
+// shadow rays, in its raytrace and raster conventions, untextured or
+// textured.
 //
 // Replaces madrona_renderer_tpu/ops/raytrace_pallas.py::_render_kernel in
-// its resident culled shaded variant (prep rows, defer_attrs, uv_defer,
-// fused_export), launched at raytrace_pallas.py:4872, together with two of
-// that factory's switches:
+// its resident culled shaded variant (defer_attrs, fused_export), launched
+// at raytrace_pallas.py:4872, together with three of that factory's
+// switches:
+//   GEO: prep (K1: prep=True, uv_defer=True, the one-camera scenes without
+//     shadows) or raw (K1-raw: prep off, uv_defer off — more than one
+//     camera per world, or shadows, :4342-4355). The raw sweep reads the
+//     v0 / e1 / e2 rows and this view's camera origin: tv = o - v0,
+//     q = tv x e1, t_num = e2 . q (:1342-1348, once per block here), then
+//     per pixel p = d x e2, det = e1 . p and u, v, t (:1373-1380), and
+//     carries the winner's (u, v) (:1461-1467, resolved clipped at
+//     :2739-2742). raw_shadows (K8, shadows=True) adds, after the resolve,
+//     one cluster-culled any-hit sweep per directional light from the hit
+//     point (:2847-2999), an occluded light adding nothing to the lambert
+//     sum (:3030-3032, :3181-3182);
 //   RASTER (K2, raster_clip=True): per-pixel t_lo = near / max(cosf, 1e-6)
 //     (:1190-1196), depth = z = t * cosf (:2807), the z-far clip against
 //     camera column 16 (:2819-2821, :3037-3039), segmask -1 everywhere
@@ -24,24 +37,34 @@
 //      thread of it can hit (block-wide OR, as the TPU kernel's jnp.any over
 //      its tile — a per-pixel cull could drop an _EPS_BARY edge hit that
 //      the reference keeps);
-//   3. the Möller–Trumbore sweep over the pack-time D/A/Q/t_num rows of the
-//      cluster's valid prefix, first-min on t (strict <, ascending index:
-//      the lowest index wins exact ties, as argmin does);
-//   4. the winner's (u, v) recomputed from the same rows, its normal (and,
-//      textured, its material and uv) interpolated from the attribute rows,
-//      the normal flipped toward the viewer;
-//   5. two-sided lambert + ambient 0.2 summed over the lights, times the
+//   3. the Möller–Trumbore sweep over the cluster's valid prefix (prep:
+//      the pack-time D/A/Q/t_num rows; raw: the pvec test), first-min on t
+//      (strict <, ascending index: the lowest index wins exact ties, as
+//      argmin does);
+//   4. the winner's (u, v) (prep: recomputed from the same rows; raw: the
+//      carried values), its normal (and, textured, its material and uv)
+//      interpolated from the attribute rows, the normal flipped toward the
+//      viewer;
+//   5. raw_shadows: per light, from p = o + t*d (t = 0 on a miss) toward
+//      -dir, the shadow ray's slab test per cluster (tmax > 0, skipped for
+//      the whole block when no thread that is still unoccluded passes) and
+//      the any-hit test against t > 1e-3 * (1 + t);
+//   6. two-sided lambert + ambient 0.2 summed over the lights, times the
 //      base colour (the premultiplied colour row, or the material colour
 //      times the texel), RGBA8 packed;
-//   6. the export masks: depth = t (raster: z) or 0, segmask = idx / T
+//   7. the export masks: depth = t (raster: z) or 0, segmask = idx / T
 //      (raster: -1) or -1, invalid camera → opaque black.
+// Degenerate and padding triangles fail through inv = 0 → t = 0, in the
+// primary sweep (t > t_lo > 0) and the shadow sweep (t > eps > 0).
 //
 // Layout (all f32 unless noted):
-//   rows     [W, 40, S]   split pack: rows 0-9 prep D(3) A(3) Q(3) t_num,
-//                         rows 16-35 attributes (uv0, duv1, duv2, n0, dn1,
-//                         dn2, mat, premultiplied colour rgb, density)
+//   rows     [W, 40, S]   split pack: rows 0-9 prep D(3) A(3) Q(3) t_num or
+//                         rows 0-8 raw v0(3) e1(3) e2(3), rows 16-35
+//                         attributes (uv0, duv1, duv2, n0, dn1, dn2, mat,
+//                         premultiplied colour rgb, density)
 //   clusters [W, 8, CC]   lo.xyz, hi.xyz, valid, valid-prefix count
-//   cams     [W*C, NCOL]  see raytrace_cuda._pack_cams
+//   cams     [W*C, NCOL]  see raytrace_cuda._pack_cams; view v belongs to
+//                         world v / C and takes its origin from its own row
 //   mats     [6, M]       textured only: colour rgb, texel offset, width,
 //                         height of each material's texture (exact in f32)
 //   pool     i32 [texels] textured only: r | g << 8 | b << 16 of each texel
@@ -50,21 +73,28 @@
 //
 // Bound on an H100: FP32 work per pixel is about 110 operations for ray
 // generation, resolve and shading (textured: some 30 more for the sample,
-// bilinear about 60 more), 25 per cluster slab test and 27 per visited
-// triangle, each its own instruction under --fmad=false (so against half
-// the published 67 TFLOP/s); the writes are 12 B per pixel (about 200 MB
-// per step at 4096 worlds x 64x64). chip_smoke.py works out the exact
-// counts for its inputs. The texel pool (at most 128 x 128 texels, 64 KB)
-// stays in L1/L2: a texel read is one cached 4-byte load (bilinear: four).
+// bilinear about 60 more), 25 per cluster slab test and per visited
+// triangle 27 (prep) or 36 (raw, with tv, q and t_num hoisted to 17 per
+// block and triangle); shadows add 24 per light and cluster and 52 per
+// triangle the shadow sweep visits, of which the pvec, det and 1/det (17)
+// depend only on the light and the triangle: the work needs them once per
+// block, though each thread computes them. Each is its own instruction
+// under --fmad=false (so against half the published 67 TFLOP/s); the writes are
+// 12 B per pixel (about 200 MB per step at 4096 views x 64x64).
+// chip_smoke.py works out the exact counts for its inputs. The texel pool
+// (at most 128 x 128 texels, 64 KB) stays in L1/L2: a texel read is one
+// cached 4-byte load (bilinear: four).
 //
 // The design is the simple one: one thread per pixel, one 16x16 block per
-// (view, tile), the world's prep rows, cluster rows and camera row in
-// shared memory (broadcast reads in the sweep), the winner's attributes,
-// the material row and the texels read from global memory once per pixel.
-// No wgmma or TMA: the work is scalar per pixel. The two switches are
-// template parameters, so each variant compiles to its own kernel with no
-// runtime branch on them. Left for a later change: several views per block
-// and persistent blocks, to amortise the per-block setup.
+// (view, tile), the world's geometry rows (raw: with this view's hoisted
+// tv, q, t_num), cluster rows and camera row in shared memory (broadcast
+// reads in the sweeps), the winner's attributes, the material row and the
+// texels read from global memory once per pixel. No wgmma or TMA: the work
+// is scalar per pixel. The three switches are template parameters, so each
+// of the 18 variants compiles to its own kernel with no runtime branch on
+// them. Left for a later change: several views per block and persistent
+// blocks, to amortise the per-block setup; the shadow sweep's per-light
+// pvec, det and 1/det, which are per-triangle scalars, hoisted per block.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,10 +106,17 @@ constexpr int kTileY = 16;
 constexpr int kThreads = kTileX * kTileY;
 constexpr int kPackRows = 40;   // rows per world in the split pack
 constexpr int kPrepRows = 10;   // D(3) A(3) Q(3) t_num
+constexpr int kRawRows = 9;     // v0(3) e1(3) e2(3)
+constexpr int kHoistRows = 7;   // tv(3) q(3) t_num, per view
 constexpr int kAttr0 = 16;      // first attribute row
 constexpr int kClRows = 8;
 constexpr int kCamLight0 = 17;  // first light column of a camera row
 constexpr int kCamFarZ = 16;    // z-space far clip (raster)
+
+// Geometry rows and shadows (the GEO template parameter).
+constexpr int kGeoPrep = 0;
+constexpr int kGeoRaw = 1;
+constexpr int kGeoRawShadows = 2;
 
 // Texture filters (the TEX template parameter).
 constexpr int kTexNone = 0;
@@ -96,6 +133,7 @@ constexpr float kAmbient = 0.2f;
 constexpr float kDiffuse = (float)(1.0 - 0.2);
 constexpr float kTiny = 1e-20f;
 constexpr float kCosFloor = 1e-6f;
+constexpr float kShadowEps = 1e-3f;  // SHADOW_EPS
 constexpr uint32_t kAlpha = 0xFF000000u;
 
 __device__ __forceinline__ float safe_dir(float d) {
@@ -122,6 +160,28 @@ __device__ __forceinline__ float dequant(int k) {
 __device__ __forceinline__ int wrap(int i, int n) {
   i = i < 0 ? i + n : i;
   return i >= n ? i - n : i;
+}
+
+// The pvec test of a ray along d (:1373-1380, :2885-2903) on the raw
+// sweep's terms of its origin and the triangle, h[k * st] for k = 0..6:
+// tv = o - v0 (0-2), q = tv x e1 (3-5), t_num = e2 . q (6). p = d x e2,
+// det = e1 . p, inv = 1/det (0 when |det| <= eps), u = (tv . p) * inv,
+// v = (d . q) * inv, t = t_num * inv. The primary sweep passes its block's
+// terms in shared memory (st = S), read where the expressions use them;
+// the shadow sweep its own, in registers (st = 1).
+__device__ __forceinline__ void pvec_test(float dx, float dy, float dz,
+                                          float e1x, float e1y, float e1z,
+                                          float e2x, float e2y, float e2z,
+                                          const float* h, int st, float& u,
+                                          float& v, float& t) {
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+  u = (h[0] * pvx + h[st] * pvy + h[2 * st] * pvz) * inv;
+  v = (dx * h[3 * st] + dy * h[4 * st] + dz * h[5 * st]) * inv;
+  t = h[6 * st] * inv;
 }
 
 // Base colour of a textured hit: the material colour times the texel
@@ -184,37 +244,79 @@ __device__ __forceinline__ void textured_base(const float* __restrict__ mats,
   }
 }
 
-template <bool RASTER, int TEX>
+// Everything a launch passes to the kernel.
+struct RenderArgs {
+  const float* rows;      // [W, 40, S]
+  const float* clusters;  // [W, 8, CC]
+  const float* cams;      // [W*C, NCOL]
+  const float* mats;      // [6, M] (textured)
+  const int* pool;        // [texels] (textured)
+  float* depth;           // [W*C, H, Wd]
+  int* segmask;
+  uint32_t* rgb;
+  int n_mats, num_cams, S, CC, cluster_size, n_cols, n_lights, height, width,
+      tiles_x, seg_div;
+  float two_over_w, two_over_h;
+};
+
+template <int GEO>
+__host__ __device__ constexpr int smem_geo_rows() {
+  // prep: D, A, Q, t_num; raw: v0, e1, e2 and the hoisted tv, q, t_num.
+  return GEO == kGeoPrep ? kPrepRows : kRawRows + kHoistRows;
+}
+
+template <int GEO, bool RASTER, int TEX>
 __global__ void __launch_bounds__(kThreads)
-render_resident_kernel(const float* __restrict__ rows,
-                       const float* __restrict__ clusters,
-                       const float* __restrict__ cams,
-                       const float* __restrict__ mats,
-                       const int* __restrict__ pool, int n_mats,
-                       float* __restrict__ depth, int* __restrict__ segmask,
-                       uint32_t* __restrict__ rgb, int num_cams, int S, int CC,
-                       int cluster_size, int n_cols, int n_lights, int height,
-                       int width, int tiles_x, int seg_div, float two_over_w,
-                       float two_over_h) {
+render_resident_kernel(const RenderArgs a) {
+  constexpr bool RAW = GEO != kGeoPrep;
+  constexpr bool SHADOWS = GEO == kGeoRawShadows;
+  const int S = a.S, CC = a.CC;
   extern __shared__ float smem[];
-  float* s_prep = smem;                     // [10, S]
-  float* s_cl = s_prep + kPrepRows * S;     // [8, CC]
-  float* s_cam = s_cl + kClRows * CC;       // [NCOL]
+  float* s_geo = smem;                                // [smem_geo_rows, S]
+  float* s_cl = s_geo + smem_geo_rows<GEO>() * S;     // [8, CC]
+  float* s_cam = s_cl + kClRows * CC;                 // [NCOL]
 
   const int view = blockIdx.x;
-  const int world = view / num_cams;
+  const int world = view / a.num_cams;
   const int tid = threadIdx.y * kTileX + threadIdx.x;
-  const float* g_rows = rows + (size_t)world * kPackRows * S;
-  const float* g_cl = clusters + (size_t)world * kClRows * CC;
-  for (int i = tid; i < kPrepRows * S; i += kThreads) s_prep[i] = g_rows[i];
+  const float* g_rows = a.rows + (size_t)world * kPackRows * S;
+  const float* g_cl = a.clusters + (size_t)world * kClRows * CC;
+  const float* g_cam = a.cams + (size_t)view * a.n_cols;
+  constexpr int kLoadRows = RAW ? kRawRows : kPrepRows;
+  for (int i = tid; i < kLoadRows * S; i += kThreads) s_geo[i] = g_rows[i];
   for (int i = tid; i < kClRows * CC; i += kThreads) s_cl[i] = g_cl[i];
-  for (int i = tid; i < n_cols; i += kThreads)
-    s_cam[i] = cams[(size_t)view * n_cols + i];
+  for (int i = tid; i < a.n_cols; i += kThreads) s_cam[i] = g_cam[i];
+  if (RAW) {
+    // The per-(view, triangle) terms of the raw sweep (:1342-1348), once
+    // per block: tv = o - v0, q = tv x e1, t_num = e2 . q, with this view's
+    // camera origin.
+    const float ox = g_cam[0], oy = g_cam[1], oz = g_cam[2];
+    float* s_h = s_geo + kRawRows * S;
+    for (int i = tid; i < S; i += kThreads) {
+      const float e1x = g_rows[3 * S + i], e1y = g_rows[4 * S + i],
+                  e1z = g_rows[5 * S + i];
+      const float e2x = g_rows[6 * S + i], e2y = g_rows[7 * S + i],
+                  e2z = g_rows[8 * S + i];
+      const float tvx = ox - g_rows[i];
+      const float tvy = oy - g_rows[S + i];
+      const float tvz = oz - g_rows[2 * S + i];
+      const float qx = tvy * e1z - tvz * e1y;
+      const float qy = tvz * e1x - tvx * e1z;
+      const float qz = tvx * e1y - tvy * e1x;
+      s_h[i] = tvx;
+      s_h[S + i] = tvy;
+      s_h[2 * S + i] = tvz;
+      s_h[3 * S + i] = qx;
+      s_h[4 * S + i] = qy;
+      s_h[5 * S + i] = qz;
+      s_h[6 * S + i] = e2x * qx + e2y * qy + e2z * qz;
+    }
+  }
   __syncthreads();
 
   const int tile = blockIdx.y;
-  const int px = (tile % tiles_x) * kTileX + threadIdx.x;
-  const int py = (tile / tiles_x) * kTileY + threadIdx.y;
+  const int px = (tile % a.tiles_x) * kTileX + threadIdx.x;
+  const int py = (tile / a.tiles_x) * kTileY + threadIdx.y;
 
   const float ox = s_cam[0], oy = s_cam[1], oz = s_cam[2];
   const float rxx = s_cam[3], rxy = s_cam[4], rxz = s_cam[5];
@@ -224,13 +326,13 @@ render_resident_kernel(const float* __restrict__ rows,
   const float near = s_cam[14], far = s_cam[15];
 
   // Ray generation (raytrace_pallas.py:1180-1188). Threads past the image
-  // edge trace their ray too: they take part in the block-wide cull and
+  // edge trace their ray too: they take part in the block-wide culls and
   // write nothing.
-  const float a = (((float)px + 0.5f) * two_over_w - 1.0f) * tan_x;
-  const float b = (1.0f - ((float)py + 0.5f) * two_over_h) * tan_y;
-  float dx = a * rxx + fx + b * ux;
-  float dy = a * rxy + fy + b * uy;
-  float dz = a * rxz + fz + b * uz;
+  const float ra = (((float)px + 0.5f) * a.two_over_w - 1.0f) * tan_x;
+  const float rb = (1.0f - ((float)py + 0.5f) * a.two_over_h) * tan_y;
+  float dx = ra * rxx + fx + rb * ux;
+  float dy = ra * rxy + fy + rb * uy;
+  float dz = ra * rxz + fz + rb * uz;
   const float inv_len = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
   dx = dx * inv_len;
   dy = dy * inv_len;
@@ -244,19 +346,20 @@ render_resident_kernel(const float* __restrict__ rows,
   const float ivy = 1.0f / safe_dir(dy);
   const float ivz = 1.0f / safe_dir(dz);
 
-  // best_t starts at far: every accepted hit has t < far (:1199-1211).
-  float best_t = far;
+  // best_t starts at far: every accepted hit has t < far (:1199-1211). The
+  // raw sweep carries the winner's (u, v) as well (:1461-1467).
+  float best_t = far, best_u = 0.f, best_v = 0.f;
   int best_idx = -1;
-  const float* s_D0 = s_prep;
-  const float* s_D1 = s_prep + S;
-  const float* s_D2 = s_prep + 2 * S;
-  const float* s_A0 = s_prep + 3 * S;
-  const float* s_A1 = s_prep + 4 * S;
-  const float* s_A2 = s_prep + 5 * S;
-  const float* s_Q0 = s_prep + 6 * S;
-  const float* s_Q1 = s_prep + 7 * S;
-  const float* s_Q2 = s_prep + 8 * S;
-  const float* s_TN = s_prep + 9 * S;
+  const float* g0 = s_geo;  // prep: D; raw: v0
+  const float* g1 = s_geo + S;
+  const float* g2 = s_geo + 2 * S;
+  const float* g3 = s_geo + 3 * S;  // prep: A; raw: e1
+  const float* g4 = s_geo + 4 * S;
+  const float* g5 = s_geo + 5 * S;
+  const float* g6 = s_geo + 6 * S;  // prep: Q; raw: e2
+  const float* g7 = s_geo + 7 * S;
+  const float* g8 = s_geo + 8 * S;
+  const float* g9 = s_geo + 9 * S;  // prep: t_num; raw: tv, q, t_num
 
   for (int c = 0; c < CC; ++c) {
     // Slab test of the cluster's world-space AABB (:1671-1697); it keeps
@@ -276,37 +379,58 @@ render_resident_kernel(const float* __restrict__ rows,
     // Every thread reaches this barrier: the loop bound is uniform.
     const int any_hit = __syncthreads_or(possible);
     if (!any_hit || !(s_cl[6 * CC + c] > 0.f)) continue;
-    const int base = c * cluster_size;
+    const int base = c * a.cluster_size;
     const int cnt = (int)s_cl[7 * CC + c];
     for (int i = base; i < base + cnt; ++i) {
-      // Möller–Trumbore on the pack-time rows (:1296-1316).
-      const float det = dx * s_D0[i] + dy * s_D1[i] + dz * s_D2[i];
-      const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
-      const float u = (dx * s_A0[i] + dy * s_A1[i] + dz * s_A2[i]) * inv;
-      const float v = (dx * s_Q0[i] + dy * s_Q1[i] + dz * s_Q2[i]) * inv;
-      const float t = s_TN[i] * inv;
+      float u, v, t;
+      if (RAW) {
+        // The pvec test on the raw rows, with the block's tv, q, t_num.
+        pvec_test(dx, dy, dz, g3[i], g4[i], g5[i], g6[i], g7[i], g8[i], g9 + i,
+                  S, u, v, t);
+      } else {
+        // Möller–Trumbore on the pack-time rows (:1296-1316).
+        const float det = dx * g0[i] + dy * g1[i] + dz * g2[i];
+        const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+        u = (dx * g3[i] + dy * g4[i] + dz * g5[i]) * inv;
+        v = (dx * g6[i] + dy * g7[i] + dz * g8[i]) * inv;
+        t = g9[i] * inv;
+      }
       const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
                       (t > t_lo) && (t < best_t);
       if (ok) {
         best_t = t;
         best_idx = i;
+        if (RAW) {
+          best_u = u;
+          best_v = v;
+        }
       }
     }
   }
 
-  if (px >= width || py >= height) return;
+  const bool inside = px < a.width && py < a.height;
+  // The shadow sweep below has block-wide barriers: every thread stays.
+  if (!SHADOWS && !inside) return;
 
-  // Winner resolve (:2725-2793): (u, v) recomputed from the prep rows,
-  // attributes read once from global memory. Untextured: the premultiplied
-  // colour (rows 16-18); textured: material (row 15) and uv (rows 0-5).
+  // Winner resolve (:2725-2793): the clipped barycentrics — carried by the
+  // raw sweep (:2739-2742), recomputed from the prep rows otherwise — and
+  // the attributes read once from global memory. Untextured: the
+  // premultiplied colour (rows 16-18); textured: material (row 15) and uv
+  // (rows 0-5).
   float nx = 0.f, ny = 0.f, nz = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f;
   const bool found = best_idx >= 0;
-  if (found) {
+  if (found && inside) {
     const int j = best_idx;
-    const float det = dx * s_D0[j] + dy * s_D1[j] + dz * s_D2[j];
-    const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
-    const float uc = clip01((dx * s_A0[j] + dy * s_A1[j] + dz * s_A2[j]) * inv);
-    const float vc = clip01((dx * s_Q0[j] + dy * s_Q1[j] + dz * s_Q2[j]) * inv);
+    float uc, vc;
+    if (RAW) {
+      uc = clip01(best_u);
+      vc = clip01(best_v);
+    } else {
+      const float det = dx * g0[j] + dy * g1[j] + dz * g2[j];
+      const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+      uc = clip01((dx * g3[j] + dy * g4[j] + dz * g5[j]) * inv);
+      vc = clip01((dx * g6[j] + dy * g7[j] + dz * g8[j]) * inv);
+    }
     const float* g_attr = g_rows + (size_t)kAttr0 * S;
     nx = g_attr[6 * S + j] + uc * g_attr[9 * S + j] + vc * g_attr[12 * S + j];
     ny = g_attr[7 * S + j] + uc * g_attr[10 * S + j] + vc * g_attr[13 * S + j];
@@ -333,17 +457,77 @@ render_resident_kernel(const float* __restrict__ rows,
   const float t_hit = found ? best_t : 0.f;
   const float z = t_hit * cosf_;
 
+  // K8: one any-hit sweep per directional light from the hit point
+  // (:2847-2999), bit li of occ_mask set when light li is occluded. A miss
+  // sweeps from the camera origin (t_hit = 0); its result is dead.
+  uint32_t occ_mask = 0;
+  if (SHADOWS) {
+    const float hx = ox + t_hit * dx;
+    const float hy = oy + t_hit * dy;
+    const float hz = oz + t_hit * dz;
+    const float eps_sh = kShadowEps * (1.0f + t_hit);
+    for (int li = 0; li < a.n_lights; ++li) {
+      const float* l = s_cam + kCamLight0 + 6 * li;
+      const float sdx = -l[0], sdy = -l[1], sdz = -l[2];
+      const float ivsx = 1.0f / safe_dir(sdx);
+      const float ivsy = 1.0f / safe_dir(sdy);
+      const float ivsz = 1.0f / safe_dir(sdz);
+      bool occ = false;
+      for (int c = 0; c < CC; ++c) {
+        // The shadow ray's slab test (:2930-2948): tmax > 0, and pixels
+        // already occluded drop out of the block-wide OR.
+        const float t1x = (s_cl[0 * CC + c] - hx) * ivsx;
+        const float t2x = (s_cl[3 * CC + c] - hx) * ivsx;
+        const float t1y = (s_cl[1 * CC + c] - hy) * ivsy;
+        const float t2y = (s_cl[4 * CC + c] - hy) * ivsy;
+        const float t1z = (s_cl[2 * CC + c] - hz) * ivsz;
+        const float t2z = (s_cl[5 * CC + c] - hz) * ivsz;
+        const float tmin =
+            fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+        const float tmax =
+            fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+        const bool possible = (tmax >= tmin) && (tmax > 0.f) && !occ;
+        const int go = __syncthreads_or(possible);
+        if (!go || !(s_cl[6 * CC + c] > 0.f)) continue;
+        const int base = c * a.cluster_size;
+        const int cnt = (int)s_cl[7 * CC + c];
+        for (int i = base; i < base + cnt; ++i) {
+          // Any-hit test along the light (:2885-2903), from the hit point.
+          const float e1x = g3[i], e1y = g4[i], e1z = g5[i];
+          const float e2x = g6[i], e2y = g7[i], e2z = g8[i];
+          float h[7];  // tv, q, t_num of the hit point and the triangle
+          h[0] = hx - g0[i];
+          h[1] = hy - g1[i];
+          h[2] = hz - g2[i];
+          h[3] = h[1] * e1z - h[2] * e1y;
+          h[4] = h[2] * e1x - h[0] * e1z;
+          h[5] = h[0] * e1y - h[1] * e1x;
+          h[6] = e2x * h[3] + e2y * h[4] + e2z * h[5];
+          float u, v, t;
+          pvec_test(sdx, sdy, sdz, e1x, e1y, e1z, e2x, e2y, e2z, h, 1, u, v, t);
+          occ = occ || ((fminf(u, v) >= -kEpsBary) &&
+                        (u + v <= kOnePlusEps) && (t > eps_sh));
+        }
+      }
+      if (occ) occ_mask |= 1u << li;
+    }
+    if (!inside) return;
+  }
+
   // Base colour. A miss samples material 0 at uv (0, 0): in range, and
   // masked below.
   float br = a0, bg = a1, bb = a2;
-  if (TEX != kTexNone) textured_base<TEX>(mats, pool, n_mats, (int)a0, a1, a2, br, bg, bb);
+  if (TEX != kTexNone)
+    textured_base<TEX>(a.mats, a.pool, a.n_mats, (int)a0, a1, a2, br, bg, bb);
 
-  // Lambert over the lights (:3015-3035).
+  // Lambert over the lights (:3015-3035), an occluded light adding nothing
+  // (:3030-3032, :3181-3182).
   const float n_inv = 1.0f / sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, kTiny));
   float sr = 0.f, sg = 0.f, sb = 0.f;
-  for (int li = 0; li < n_lights; ++li) {
+  for (int li = 0; li < a.n_lights; ++li) {
     const float* l = s_cam + kCamLight0 + 6 * li;
-    const float nd = fmaxf(-(nx * l[0] + ny * l[1] + nz * l[2]) * n_inv, 0.f);
+    float nd = fmaxf(-(nx * l[0] + ny * l[1] + nz * l[2]) * n_inv, 0.f);
+    if (SHADOWS && ((occ_mask >> li) & 1u)) nd = 0.f;
     sr = sr + nd * l[3];
     sg = sg + nd * l[4];
     sb = sb + nd * l[5];
@@ -351,56 +535,68 @@ render_resident_kernel(const float* __restrict__ rows,
 
   // Fused export (:2809-2846, :3041-3050, :3186-3202).
   const bool shaded_hit = RASTER ? found && z < s_cam[kCamFarZ] : found;
-  const bool cam_ok = s_cam[kCamLight0 + 6 * n_lights] > 0.f;
+  const bool cam_ok = s_cam[kCamLight0 + 6 * a.n_lights] > 0.f;
   const bool hit = shaded_hit && cam_ok;
   const uint32_t packed = quantize(br, sr, shaded_hit) |
                           (quantize(bg, sg, shaded_hit) << 8) |
                           (quantize(bb, sb, shaded_hit) << 16) | kAlpha;
-  const size_t o = ((size_t)view * height + py) * width + px;
+  const size_t o = ((size_t)view * a.height + py) * a.width + px;
   if (RASTER) {
-    depth[o] = hit ? z : 0.f;
-    segmask[o] = -1;
+    a.depth[o] = hit ? z : 0.f;
+    a.segmask[o] = -1;
   } else {
-    depth[o] = hit ? best_t : 0.f;
-    segmask[o] = hit ? best_idx / seg_div : -1;
+    a.depth[o] = hit ? best_t : 0.f;
+    a.segmask[o] = hit ? best_idx / a.seg_div : -1;
   }
-  rgb[o] = cam_ok ? packed : kAlpha;
+  a.rgb[o] = cam_ok ? packed : kAlpha;
 }
 
-template <bool RASTER, int TEX>
-int launch(const float* rows, const float* clusters, const float* cams,
-           const float* mats, const int* pool, int n_mats, float* depth,
-           int* segmask, uint32_t* rgb, int num_views, int num_cams, int S,
-           int CC, int cluster_size, int n_cols, int n_lights, int height,
-           int width, int seg_div, float two_over_w, float two_over_h,
-           cudaStream_t stream) {
-  const int tiles_x = (width + kTileX - 1) / kTileX;
-  const int tiles_y = (height + kTileY - 1) / kTileY;
-  const size_t smem =
-      sizeof(float) * ((size_t)kPrepRows * S + (size_t)kClRows * CC + n_cols);
+template <int GEO, bool RASTER, int TEX>
+int launch(const RenderArgs& a, int num_views, cudaStream_t stream) {
+  const int tiles_y = (a.height + kTileY - 1) / kTileY;
+  const size_t smem = sizeof(float) * ((size_t)smem_geo_rows<GEO>() * a.S +
+                                       (size_t)kClRows * a.CC + a.n_cols);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        render_resident_kernel<RASTER, TEX>,
+        render_resident_kernel<GEO, RASTER, TEX>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid(num_views, tiles_x * tiles_y);
+  const dim3 grid(num_views, a.tiles_x * tiles_y);
   const dim3 block(kTileX, kTileY);
-  render_resident_kernel<RASTER, TEX><<<grid, block, smem, stream>>>(
-      rows, clusters, cams, mats, pool, n_mats, depth, segmask, rgb, num_cams,
-      S, CC, cluster_size, n_cols, n_lights, height, width, tiles_x, seg_div,
-      two_over_w, two_over_h);
+  render_resident_kernel<GEO, RASTER, TEX><<<grid, block, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int GEO, bool RASTER>
+int launch_tex(const RenderArgs& a, int num_views, int tex_filter,
+               cudaStream_t stream) {
+  switch (tex_filter) {
+    case kTexNone: return launch<GEO, RASTER, kTexNone>(a, num_views, stream);
+    case kTexNearest:
+      return launch<GEO, RASTER, kTexNearest>(a, num_views, stream);
+    case kTexBilinear:
+      return launch<GEO, RASTER, kTexBilinear>(a, num_views, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int GEO>
+int launch_raster(const RenderArgs& a, int num_views, int raster,
+                  int tex_filter, cudaStream_t stream) {
+  return raster ? launch_tex<GEO, true>(a, num_views, tex_filter, stream)
+                : launch_tex<GEO, false>(a, num_views, tex_filter, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the variant (raster, tex_filter) on `stream`, on the caller's
-// current device; tex_filter is 0 (untextured), 1 (nearest) or 2
-// (bilinear), and mats/pool may be null when it is 0. Returns
-// cudaGetLastError() after the launch (0 on success), or
+// Launches the variant (geo, raster, tex_filter) on `stream`, on the
+// caller's current device: geo is 0 (prep rows), 1 (raw rows) or 2 (raw
+// rows with shadows, at most 32 lights); tex_filter is 0 (untextured), 1
+// (nearest) or 2 (bilinear), and mats/pool may be null when it is 0.
+// Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unknown variant.
 int mrt_render_resident(const float* rows, const float* clusters,
                         const float* cams, const float* mats, const int* pool,
@@ -408,21 +604,22 @@ int mrt_render_resident(const float* rows, const float* clusters,
                         int num_views, int num_cams, int S, int CC,
                         int cluster_size, int n_cols, int n_lights, int height,
                         int width, int seg_div, float two_over_w,
-                        float two_over_h, int raster, int tex_filter,
+                        float two_over_h, int raster, int tex_filter, int geo,
                         void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-#define MRT_LAUNCH(R, T)                                                    \
-  return launch<R, T>(rows, clusters, cams, mats, pool, n_mats, depth,     \
-                      segmask, rgb, num_views, num_cams, S, CC,            \
-                      cluster_size, n_cols, n_lights, height, width,       \
-                      seg_div, two_over_w, two_over_h, st)
-  if (!raster && tex_filter == kTexNone) MRT_LAUNCH(false, kTexNone);
-  if (!raster && tex_filter == kTexNearest) MRT_LAUNCH(false, kTexNearest);
-  if (!raster && tex_filter == kTexBilinear) MRT_LAUNCH(false, kTexBilinear);
-  if (raster && tex_filter == kTexNone) MRT_LAUNCH(true, kTexNone);
-  if (raster && tex_filter == kTexNearest) MRT_LAUNCH(true, kTexNearest);
-  if (raster && tex_filter == kTexBilinear) MRT_LAUNCH(true, kTexBilinear);
-#undef MRT_LAUNCH
+  const RenderArgs a{rows, clusters, cams, mats, pool, depth, segmask, rgb,
+                     n_mats, num_cams, S, CC, cluster_size, n_cols, n_lights,
+                     height, width, (width + kTileX - 1) / kTileX, seg_div,
+                     two_over_w, two_over_h};
+  if (geo == kGeoRawShadows && n_lights > 32) return (int)cudaErrorInvalidValue;
+  switch (geo) {
+    case kGeoPrep:
+      return launch_raster<kGeoPrep>(a, num_views, raster, tex_filter, st);
+    case kGeoRaw:
+      return launch_raster<kGeoRaw>(a, num_views, raster, tex_filter, st);
+    case kGeoRawShadows:
+      return launch_raster<kGeoRawShadows>(a, num_views, raster, tex_filter, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

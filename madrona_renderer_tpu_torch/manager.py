@@ -86,7 +86,6 @@ def _check_config(cfg: ManagerConfig) -> None:
         )
     unsupported = [
         (cfg.mipmaps is True, "mipmaps=True", 9),
-        (bool(cfg.shadows), "shadows=True", 10),
         (bool(cfg.watertight), "watertight=True", 11),
         (bool(cfg.warmstart), "warmstart=True", 12),
         (cfg.ssaa != 1, f"ssaa={cfg.ssaa}", 13),
@@ -199,6 +198,7 @@ class Manager:
             far=cfg.far_plane,
             fov_y_degrees=cfg.fov_y_degrees,
             texture_filter=cfg.texture_filter,
+            shadows=bool(cfg.shadows),
         )
         cam_w, cam_slot = self._t_cam_w, self._t_cam_slot
 

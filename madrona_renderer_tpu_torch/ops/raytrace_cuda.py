@@ -1,17 +1,21 @@
-"""Batch raytracer: the render prologue, then kernel K1 (K2, K6).
+"""Batch raytracer: the render prologue, then kernel K1 (K1-raw, K8, K2, K6).
 
 The port of the main path of the JAX package's ``ops/raytrace_pallas.py``
-(``render_core``, :3998) for what its flags resolve to on single-camera
-scenes that fit the resident budget: the cluster-culled resident sweep over
-pack-time Möller–Trumbore rows (``prep``, ``defer_attrs``, ``uv_defer``),
-shaded in the kernel, with the fused export (depth, segmask and RGBA8
-written in their final masked form) — untextured (``shaded``) or with the
-in-kernel texture route (``textured``, nearest or bilinear, K6), in the
-raytrace or the raster conventions (``raster_clip``, K2).
+(``render_core``, :3998) for what its flags resolve to on scenes that fit
+the resident budget: the cluster-culled resident sweep, shaded in the
+kernel, with the fused export (depth, segmask and RGBA8 written in their
+final masked form). On one-camera scenes without shadows it sweeps
+pack-time Möller–Trumbore rows (``prep``, ``uv_defer``: K1); with more than
+one camera per world or with shadows, the raw v0 / e1 / e2 rows with each
+view's own camera origin (K1-raw), plus a culled any-hit sweep per light
+when ``shadows`` (K8), as ``render_core`` resolves them (:4342-4355). Each
+is untextured (``shaded``) or takes the in-kernel texture route
+(``textured``, nearest or bilinear, K6), in the raytrace or the raster
+conventions (``raster_clip``, K2).
 
   1. The prologue packs the inputs: ``pack_cuda.pack_rows`` (kernel K13 on
      the card; on the CPU ``_pack_rows_planar``, the JAX split layout with
-     camera-origin prep rows, term for term), then as torch ops
+     camera-origin prep rows or raw rows, term for term), then as torch ops
      ``_pack_cams`` and ``world_clusters`` + ``_pack_clusters`` (the
      per-step TLAS refit), and for textured scenes the material table and
      the packed texel pool (``shade.material_table`` / ``texel_pool``).
@@ -37,7 +41,7 @@ from ..core.scene import SMEM_TRI_BUDGET, SceneData
 from ..core.state import SimState
 from . import pack_cuda, shade
 from .quat import quat_rotate
-from .raytrace_ref import _EPS_BARY, _EPS_DET, planar_soup_parts
+from .raytrace_ref import _EPS_BARY, _EPS_DET, SHADOW_EPS, planar_soup_parts
 from .shade import AMBIENT, packed_to_rgba8
 
 # Camera row: origin(3) right(3) fwd(3) up(3) tan_x tan_y near far_t far_z
@@ -45,7 +49,7 @@ from .shade import AMBIENT, packed_to_rgba8
 # col 17, then camera_valid, padded to a multiple of 8.
 _CAM_LIGHT0 = 17
 _N_GEO_ROWS = 16  # split pack: rows 0-9 prep constants, 10-15 padding
-_N_PREP_ROWS = 10  # D(3) A(3) Q(3) t_num
+_N_PREP_ROWS = 10  # D(3) A(3) Q(3) t_num (raw: v0(3) e1(3) e2(3), zero)
 _N_ATTR_ROWS = 24  # split pack: rows 16-35 attributes, 36-39 padding
 _TRI_ROWS = 32  # the JAX kernel's resident row count (budget check)
 
@@ -58,10 +62,14 @@ _F_AMBIENT = float(np.float32(AMBIENT))
 _F_DIFFUSE = float(np.float32(1.0 - AMBIENT))
 _F_TINY = float(np.float32(1e-20))
 _F_COS_FLOOR = float(np.float32(1e-6))
+_F_SHADOW_EPS = float(np.float32(SHADOW_EPS))
 _ALPHA = int(np.uint32(0xFF000000).view(np.int32))
 _CAM_FAR_Z = 16  # camera column of the z-space far clip (raster)
 # The kernel's texture switch: untextured, nearest, bilinear.
 _TEX_CODES = {None: 0, "nearest": 1, "bilinear": 2}
+# The kernel's geometry switch: prep rows, raw rows, raw rows with shadows.
+_GEO_CODES = {"prep": 0, "raw": 1, "raw_shadows": 2}
+_MAX_SHADOW_LIGHTS = 32  # one occlusion bit per light in the kernel
 
 
 def _cam_valid_col(n_lights: int) -> int:
@@ -107,11 +115,6 @@ def check_supported(state: SimState, scene: SceneData,
                 "materials); the 9-output route with the shading epilogue is "
                 "not ported yet — ROADMAP Queue 1 item 6"
             )
-    if state.max_cameras > 1:
-        raise NotImplementedError(
-            "worlds with more than one camera are not ported yet (the prep "
-            "rows bake in one camera origin) — ROADMAP Queue 1 item 7"
-        )
     S = state.max_instances * scene.tris_per_object
     if _TRI_ROWS * S * 4 > SMEM_TRI_BUDGET:
         raise NotImplementedError(
@@ -125,14 +128,16 @@ def check_supported(state: SimState, scene: SceneData,
 # Prologue (torch ops, the JAX expressions term for term)
 # --------------------------------------------------------------------- #
 def _pack_rows_planar(state: SimState, scene: SceneData,
-                      cam_pos: torch.Tensor) -> torch.Tensor:
-    """Split-layout rows ``[W, 40, S]`` with the camera-origin prep
-    constants (``raytrace_pallas._pack_rows_planar(split=True, cam_pos)``,
-    :209): rows 0-9 D = e2×e1, A = e2×tv, Q = tv×e1, t_num = e2·Q
-    (tv = origin − v0), rows 16-35 the attributes (uv0, duv1, duv2, n0,
-    dn1, dn2, material, premultiplied colour, texel density). Invalid
-    triangles have zero edges, so their determinant is 0 and the sweep
-    rejects them without a validity row."""
+                      cam_pos: torch.Tensor | None = None) -> torch.Tensor:
+    """Split-layout rows ``[W, 40, S]``
+    (``raytrace_pallas._pack_rows_planar(split=True, cam_pos)``, :209).
+    With the camera origin ``cam_pos [W, 3]`` (the prep layout), rows 0-9
+    hold D = e2×e1, A = e2×tv, Q = tv×e1, t_num = e2·Q (tv = origin − v0);
+    without it (the raw layout, :260-266), rows 0-8 hold v0, e1·valid and
+    e2·valid. Rows 16-35 hold the attributes (uv0, duv1, duv2, n0, dn1,
+    dn2, material, premultiplied colour, texel density); the rest are
+    zero. Invalid triangles have zero edges, so their determinant is 0 and
+    the sweep rejects them without a validity row."""
     W, I = state.instance_obj.shape
     T = scene.tris_per_object
     S = I * T
@@ -145,26 +150,34 @@ def _pack_rows_planar(state: SimState, scene: SceneData,
     col = [scene.mat_color[:, k][mat] for k in range(3)]
     zero = torch.zeros_like(val)
 
-    ve1 = [e1x * val, e1y * val, e1z * val]
-    ve2 = [e2x * val, e2y * val, e2z * val]
-    o = [cam_pos[:, None, k:k + 1] for k in range(3)]  # [W, 1, 1]
-    tvx = o[0] - v0x
-    tvy = o[1] - v0y
-    tvz = o[2] - v0z
-    qx = tvy * ve1[2] - tvz * ve1[1]
-    qy = tvz * ve1[0] - tvx * ve1[2]
-    qz = tvx * ve1[1] - tvy * ve1[0]
-    geo_rows = [
-        ve2[1] * ve1[2] - ve2[2] * ve1[1],  # D
-        ve2[2] * ve1[0] - ve2[0] * ve1[2],
-        ve2[0] * ve1[1] - ve2[1] * ve1[0],
-        ve2[1] * tvz - ve2[2] * tvy,  # A
-        ve2[2] * tvx - ve2[0] * tvz,
-        ve2[0] * tvy - ve2[1] * tvx,
-        qx, qy, qz,  # Q
-        ve2[0] * qx + ve2[1] * qy + ve2[2] * qz,  # t_num
-        zero, zero, zero, zero, zero, zero,
-    ]
+    if cam_pos is None:
+        geo_rows = [
+            v0x, v0y, v0z,
+            e1x * val, e1y * val, e1z * val,
+            e2x * val, e2y * val, e2z * val,
+            zero, zero, zero, zero, zero, zero, zero,
+        ]
+    else:
+        ve1 = [e1x * val, e1y * val, e1z * val]
+        ve2 = [e2x * val, e2y * val, e2z * val]
+        o = [cam_pos[:, None, k:k + 1] for k in range(3)]  # [W, 1, 1]
+        tvx = o[0] - v0x
+        tvy = o[1] - v0y
+        tvz = o[2] - v0z
+        qx = tvy * ve1[2] - tvz * ve1[1]
+        qy = tvz * ve1[0] - tvx * ve1[2]
+        qz = tvx * ve1[1] - tvy * ve1[0]
+        geo_rows = [
+            ve2[1] * ve1[2] - ve2[2] * ve1[1],  # D
+            ve2[2] * ve1[0] - ve2[0] * ve1[2],
+            ve2[0] * ve1[1] - ve2[1] * ve1[0],
+            ve2[1] * tvz - ve2[2] * tvy,  # A
+            ve2[2] * tvx - ve2[0] * tvz,
+            ve2[0] * tvy - ve2[1] * tvx,
+            qx, qy, qz,  # Q
+            ve2[0] * qx + ve2[1] * qy + ve2[2] * qz,  # t_num
+            zero, zero, zero, zero, zero, zero,
+        ]
     attr_rows = [
         p["uv0"][0], p["uv0"][1],
         p["duv1"][0], p["duv1"][1],
@@ -278,11 +291,15 @@ def pack_inputs(
     fov_y_degrees: float = 90.0,
     raster: bool = False,
     texture_filter: str = "nearest",
+    shadows: bool = False,
 ) -> dict:
     """The whole prologue: the kernel's tensors and launch parameters, as
     keyword arguments of ``render_resident`` / ``render_resident_plain``.
     ``raster`` selects the raster conventions (``near`` is then the
-    camera-plane znear)."""
+    camera-plane znear). The rows take the prep layout on one-camera scenes
+    without shadows and the raw layout otherwise (``render_core``
+    :4342-4347); ``geo`` names the kernel's sweep: ``"prep"``, ``"raw"`` or,
+    with ``shadows``, ``"raw_shadows"``."""
     check_supported(state, scene, texture_filter)
     # Effective per-camera view parameters (0 = inherit the call defaults).
     eff_fov = torch.where(state.camera_fov > 0, state.camera_fov, fov_y_degrees)
@@ -297,7 +314,10 @@ def pack_inputs(
         far_t = far * torch.sqrt(1.0 + tan_x * tan_x + tan_y * tan_y)
     else:
         far_t = far_z
-    rows = pack_cuda.pack_rows(state, scene, state.camera_pos[:, 0, :])
+    prep = state.max_cameras == 1 and not shadows
+    geo = "prep" if prep else "raw_shadows" if shadows else "raw"
+    rows = pack_cuda.pack_rows(state, scene,
+                               state.camera_pos[:, 0, :] if prep else None)
     cams = _pack_cams(state, scene, width, height, eff_fov, eff_near, far_t, far_z)
     clusters = _pack_clusters(*world_clusters(state, scene))
     texture = mats = pool = None
@@ -318,25 +338,34 @@ def pack_inputs(
         texture=texture,
         mats=mats,
         pool=pool,
+        geo=geo,
     )
 
 
 # --------------------------------------------------------------------- #
-# Kernel K1 (K2, K6) and its plain version
+# Kernel K1 (K1-raw, K8, K2, K6) and its plain version
 # --------------------------------------------------------------------- #
-def variant_name(raster: bool, texture) -> str:
+def variant_name(raster: bool, texture, geo: str = "prep") -> str:
     """The name of one instantiation of the kernel: ``render_resident``
-    plus ``_raster`` (K2) and ``_tex_nearest`` / ``_tex_bilinear`` (K6)."""
-    name = "render_resident" + ("_raster" if raster else "")
+    plus ``_raw`` (K1-raw) or ``_raw_shadows`` (K8), ``_raster`` (K2) and
+    ``_tex_nearest`` / ``_tex_bilinear`` (K6)."""
+    name = "render_resident" + ("" if geo == "prep" else f"_{geo}")
+    name += "_raster" if raster else ""
     return name + (f"_tex_{texture}" if texture else "")
 
 
-VARIANTS = tuple(variant_name(r, t) for r in (False, True)
-                 for t in (None, "nearest", "bilinear"))
+VARIANTS = tuple(variant_name(r, t, g) for g in _GEO_CODES
+                 for r in (False, True) for t in (None, "nearest", "bilinear"))
 
 
 def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
-                  seg_div, texture, mats, pool) -> None:
+                  seg_div, texture, mats, pool, geo) -> None:
+    if geo not in _GEO_CODES:
+        raise ValueError(f"geo must be one of {tuple(_GEO_CODES)}, got {geo!r}")
+    if geo == "prep" and num_cams != 1:
+        raise ValueError("the prep rows bake in one camera origin: num_cams must be 1")
+    if geo == "raw_shadows" and n_lights > _MAX_SHADOW_LIGHTS:
+        raise ValueError(f"shadows take at most {_MAX_SHADOW_LIGHTS} lights, got {n_lights}")
     tensors = [("rows", rows), ("clusters", clusters), ("cams", cams)]
     if texture is not None:
         if texture not in shade.FILTERS:
@@ -381,23 +410,26 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
 
 def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
                     height: int, width: int, seg_div: int, raster: bool = False,
-                    texture=None, mats=None, pool=None):
-    """The kernel, in the variant ``variant_name(raster, texture)``. Returns
-    ``(depth f32, segmask i32, rgb i32-packed)``, each ``[W·C, height,
-    width]``, in their final masked form: depth is t (raster: camera-plane
-    z), segmask idx // seg_div (raster: -1). ``texture`` is None for an
-    untextured scene, else the filter, with ``mats`` / ``pool`` from
-    ``shade.material_table`` / ``shade.texel_pool``.
+                    texture=None, mats=None, pool=None, geo: str = "prep"):
+    """The kernel, in the variant ``variant_name(raster, texture, geo)``. Returns ``(depth f32, segmask i32, rgb i32-packed)``, each
+    ``[W·C, height, width]``, in their final masked form: depth is t
+    (raster: camera-plane z), segmask idx // seg_div (raster: -1).
+    ``texture`` is None for an untextured scene, else the filter, with
+    ``mats`` / ``pool`` from ``shade.material_table`` / ``shade.texel_pool``.
+    ``geo`` names the rows' layout (``pack_cuda.pack_rows``) and the sweep:
+    ``"prep"`` (one camera per world), ``"raw"``, or ``"raw_shadows"``,
+    which shades each light only where nothing lies between the hit point
+    and the light.
 
     Tensors on the card launch ``csrc/render_resident.cu`` on their device's
     current stream; tensors on the CPU run ``render_resident_plain``. Each
     launch adds one to ``render_resident.launches`` and to its variant's
     entry of ``render_resident.variant_launches``."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
-                  seg_div, texture, mats, pool)
+                  seg_div, texture, mats, pool, geo)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height,
               width=width, seg_div=seg_div, raster=raster, texture=texture,
-              mats=mats, pool=pool)
+              mats=mats, pool=pool, geo=geo)
     if rows.device.type == "cpu":
         return render_resident_plain(rows, clusters, cams, **kw)
     if rows.device.type != "cuda":
@@ -424,13 +456,13 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
             WC, num_cams, S, CC, S // CC, int(cams.shape[1]), n_lights,
             height, width, seg_div,
             float(np.float32(2.0 / width)), float(np.float32(2.0 / height)),
-            int(raster), _TEX_CODES[texture],
+            int(raster), _TEX_CODES[texture], _GEO_CODES[geo],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"render_resident launch failed: {launch.error_string(err)}")
     render_resident.launches += 1
-    render_resident.variant_launches[variant_name(raster, texture)] += 1
+    render_resident.variant_launches[variant_name(raster, texture, geo)] += 1
     return depth, seg, rgb
 
 
@@ -461,39 +493,67 @@ def plain_rays(cams, height: int, width: int):
     return dx * inv_len, dy * inv_len, dz * inv_len
 
 
-def plain_triangle_test(dx, dy, dz, tri_rows, near, best_t):
-    """K1's Möller–Trumbore test of one triangle against every ray:
-    ``tri_rows`` is its 10 prep rows ``[W·C, 10, 1]``. Returns
-    ``(ok, t, u, v)``, ``ok`` the strict first-min acceptance."""
+def plain_triangle_test(dx, dy, dz, tri_rows, near, best_t=None, origin=None):
+    """The sweep's Möller–Trumbore test of one triangle against every ray:
+    ``tri_rows`` is its first 10 rows ``[W·C, 10, 1]``, the prep rows (K1)
+    or, with the rays' origin ``origin`` (three components, each ``[W·C, 1]``
+    per view or ``[W·C, P]`` per pixel), the raw rows (K1-raw: tv, q and
+    t_num, then the pvec test, :1342-1380; K8's any-hit test from the hit
+    points, :2885-2903, takes the same expressions with ``best_t`` None).
+    Returns ``(ok, t, u, v)``, ``ok`` the strict first-min acceptance."""
     def r(k):
         return tri_rows[:, k]
 
-    det = dx * r(0) + dy * r(1) + dz * r(2)
-    inv = torch.where(torch.abs(det) > _F_EPS_DET, 1.0 / det, 0.0)
-    u = (dx * r(3) + dy * r(4) + dz * r(5)) * inv
-    v = (dx * r(6) + dy * r(7) + dz * r(8)) * inv
-    t = r(9) * inv
+    if origin is None:
+        det = dx * r(0) + dy * r(1) + dz * r(2)
+        inv = torch.where(torch.abs(det) > _F_EPS_DET, 1.0 / det, 0.0)
+        u = (dx * r(3) + dy * r(4) + dz * r(5)) * inv
+        v = (dx * r(6) + dy * r(7) + dz * r(8)) * inv
+        t = r(9) * inv
+    else:
+        e1x, e1y, e1z = r(3), r(4), r(5)
+        e2x, e2y, e2z = r(6), r(7), r(8)
+        tvx = origin[0] - r(0)
+        tvy = origin[1] - r(1)
+        tvz = origin[2] - r(2)
+        qx = tvy * e1z - tvz * e1y
+        qy = tvz * e1x - tvx * e1z
+        qz = tvx * e1y - tvy * e1x
+        t_num = e2x * qx + e2y * qy + e2z * qz
+        pvx = dy * e2z - dz * e2y
+        pvy = dz * e2x - dx * e2z
+        pvz = dx * e2y - dy * e2x
+        det = e1x * pvx + e1y * pvy + e1z * pvz
+        inv = torch.where(torch.abs(det) > _F_EPS_DET, 1.0 / det, 0.0)
+        u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+        v = (dx * qx + dy * qy + dz * qz) * inv
+        t = t_num * inv
     ok = (
         (torch.minimum(u, v) >= -_F_EPS_BARY)
         & (u + v <= _F_ONE_PLUS_EPS)
         & (t > near)
-        & (t < best_t)
     )
+    if best_t is not None:
+        ok = ok & (t < best_t)
     return ok, t, u, v
 
 
 def render_resident_plain(rows, clusters, cams, *, num_cams: int,
                           n_lights: int, height: int, width: int,
                           seg_div: int, raster: bool = False, texture=None,
-                          mats=None, pool=None):
+                          mats=None, pool=None, geo: str = "prep"):
     """The kernel in torch ops, on any device: the same expressions in the
-    same order, with no cluster cull (the cull only skips work). A loop over
-    the S triangles carries (best_t, best_idx) as ``[W·C, H·Wd]`` tensors."""
+    same order, with no cluster cull (the culls only skip work). A loop over
+    the S triangles carries (best_t, best_idx) — and on raw rows the
+    winner's (u, v) — as ``[W·C, H·Wd]`` tensors; with shadows, a loop over
+    the S triangles per light ORs the occlusion."""
     del clusters  # the plain version sweeps every triangle
     W, _, S = rows.shape
     WC = W * num_cams
     dev = rows.device
     f32 = torch.float32
+    raw = geo != "prep"
+    shadows = geo == "raw_shadows"
     rows_v = rows[torch.arange(WC, device=dev) // num_cams]  # [WC, 40, S]
 
     def cam(k):  # camera column k → [WC, 1]
@@ -506,12 +566,18 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
     P = height * width
     best_t = cam(15).expand(WC, P).clone()
     best_idx = torch.full((WC, P), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros((WC, P), dtype=f32, device=dev)
+    best_v = torch.zeros((WC, P), dtype=f32, device=dev)
+    origin = (cam(0), cam(1), cam(2)) if raw else None
     for i in range(S):
-        ok, t, _, _ = plain_triangle_test(
-            dx, dy, dz, rows_v[:, :_N_PREP_ROWS, i:i + 1], t_lo, best_t
+        ok, t, u, v = plain_triangle_test(
+            dx, dy, dz, rows_v[:, :_N_PREP_ROWS, i:i + 1], t_lo, best_t, origin
         )
         best_t = torch.where(ok, t, best_t)
         best_idx = torch.where(ok, i, best_idx)
+        if raw:
+            best_u = torch.where(ok, u, best_u)
+            best_v = torch.where(ok, v, best_v)
 
     found = best_idx >= 0
     gidx = best_idx.clamp_min(0).long()
@@ -522,11 +588,16 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
     def attr(k):  # attribute row k of each pixel's winner, 0 on a miss
         return torch.where(found, gather(_N_GEO_ROWS + k), 0.0)
 
-    # The winner's (u, v) recomputed from its prep rows, as the kernel does.
-    det = dx * gather(0) + dy * gather(1) + dz * gather(2)
-    inv = torch.where(torch.abs(det) > _F_EPS_DET, 1.0 / det, 0.0)
-    uc = torch.clamp((dx * gather(3) + dy * gather(4) + dz * gather(5)) * inv, 0.0, 1.0)
-    vc = torch.clamp((dx * gather(6) + dy * gather(7) + dz * gather(8)) * inv, 0.0, 1.0)
+    if raw:
+        # The carried (u, v), clipped (:2739-2742).
+        uc = torch.clamp(best_u, 0.0, 1.0)
+        vc = torch.clamp(best_v, 0.0, 1.0)
+    else:
+        # The winner's (u, v) recomputed from its prep rows, as the kernel does.
+        det = dx * gather(0) + dy * gather(1) + dz * gather(2)
+        inv = torch.where(torch.abs(det) > _F_EPS_DET, 1.0 / det, 0.0)
+        uc = torch.clamp((dx * gather(3) + dy * gather(4) + dz * gather(5)) * inv, 0.0, 1.0)
+        vc = torch.clamp((dx * gather(6) + dy * gather(7) + dz * gather(8)) * inv, 0.0, 1.0)
     nx = torch.where(found, attr(6) + uc * attr(9) + vc * attr(12), 0.0)
     ny = torch.where(found, attr(7) + uc * attr(10) + vc * attr(13), 0.0)
     nz = torch.where(found, attr(8) + uc * attr(11) + vc * attr(14), 0.0)
@@ -545,6 +616,22 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
     t_hit = torch.where(found, best_t, 0.0)
     z = t_hit * cosf
 
+    occluded = []  # per light: the any-hit sweep from the hit points (K8)
+    if shadows:
+        hx = cam(0) + t_hit * dx
+        hy = cam(1) + t_hit * dy
+        hz = cam(2) + t_hit * dz
+        eps_sh = _F_SHADOW_EPS * (1.0 + t_hit)
+        for li in range(n_lights):
+            c0 = _CAM_LIGHT0 + 6 * li
+            sd = (-cam(c0), -cam(c0 + 1), -cam(c0 + 2))
+            occ = torch.zeros((WC, P), dtype=torch.bool, device=dev)
+            for i in range(S):
+                ok, _, _, _ = plain_triangle_test(
+                    *sd, rows_v[:, :_N_PREP_ROWS, i:i + 1], eps_sh, origin=(hx, hy, hz))
+                occ = occ | ok
+            occluded.append(occ)
+
     n_inv = 1.0 / torch.sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, _F_TINY))
     s = [torch.zeros((WC, P), dtype=f32, device=dev) for _ in range(3)]
     for li in range(n_lights):
@@ -552,6 +639,8 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
         nd = torch.clamp_min(
             -(nx * cam(c0) + ny * cam(c0 + 1) + nz * cam(c0 + 2)) * n_inv, 0.0
         )
+        if shadows:
+            nd = torch.where(occluded[li], 0.0, nd)
         s = [s[k] + nd * cam(c0 + 3 + k) for k in range(3)]
 
     shaded_hit = found & (z < cam(_CAM_FAR_Z)) if raster else found
@@ -587,12 +676,12 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
 def render_core(state: SimState, scene: SceneData, *, height: int, width: int,
                 near: float = 0.1, far: float = 1000.0,
                 fov_y_degrees: float = 90.0, raster: bool = False,
-                texture_filter: str = "nearest"):
+                texture_filter: str = "nearest", shadows: bool = False):
     """Prologue + kernel (or its plain version on the CPU). Returns
     ``(depth, segmask, rgb_packed)``, each ``[W·C, height, width]``."""
     kw = pack_inputs(state, scene, height=height, width=width, near=near,
                      far=far, fov_y_degrees=fov_y_degrees, raster=raster,
-                     texture_filter=texture_filter)
+                     texture_filter=texture_filter, shadows=shadows)
     return render_resident(**kw)
 
 
@@ -610,11 +699,13 @@ def frames_from_core(state: SimState, depth, seg, rgb) -> Frames:
 def raytrace(state: SimState, scene: SceneData, *, height: int, width: int,
              near: float = 0.1, far: float = 1000.0,
              fov_y_degrees: float = 90.0,
-             texture_filter: str = "nearest") -> Frames:
+             texture_filter: str = "nearest", shadows: bool = False) -> Frames:
     """Render every (world, camera) view → padded ``Frames``; invalid
-    camera slots render black/0/-1. The counterpart of
-    ``raytrace_pallas.raytrace`` / ``raytrace_ref.raytrace``."""
+    camera slots render black/0/-1; ``shadows`` casts one shadow ray per
+    (pixel, light). The counterpart of ``raytrace_pallas.raytrace`` /
+    ``raytrace_ref.raytrace``."""
     return frames_from_core(state, *render_core(
         state, scene, height=height, width=width, near=near, far=far,
         fov_y_degrees=fov_y_degrees, texture_filter=texture_filter,
+        shadows=shadows,
     ))

@@ -1,9 +1,9 @@
 """World-space triangle planes and the intersection epsilons.
 
 The port's copy of what the render prologue needs from the JAX package's
-``ops/raytrace_ref.py``: the two Möller–Trumbore epsilons and
-``planar_soup_parts``, the single source of the world-space triangle
-values that the render kernel's input pack lays out as rows.
+``ops/raytrace_ref.py``: the two Möller–Trumbore epsilons, the shadow
+bias and ``planar_soup_parts``, the single source of the world-space
+triangle values that the render kernel's input pack lays out as rows.
 """
 
 from __future__ import annotations
@@ -19,6 +19,12 @@ _EPS_DET = 1e-10
 # of the adjacent triangles (naive Möller–Trumbore is not watertight; the
 # slack double-counts the edge instead of dropping it — min-t picks one).
 _EPS_BARY = 1e-6
+
+# Self-shadow bias: a shadow ray from a hit point must travel at least
+# SHADOW_EPS * (1 + primary_t) before an occluder counts — the hit point
+# carries O(t·ulp) reconstruction error. (Beyond-reference feature: the
+# reference's lighting is unshadowed direct lambert.)
+SHADOW_EPS = 1e-3
 
 
 def planar_soup_parts(state: SimState, scene: SceneData, what: str = "all"):

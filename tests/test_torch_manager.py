@@ -115,35 +115,53 @@ def _big_mesh_kwargs():
 # Rasterizer mode and PNG textures render (tests/test_torch_raster.py,
 # tests/test_torch_textured.py); what is still missing around them raises.
 UNSUPPORTED = {
-    "rasterizer": (dict(render_mode=tm.RenderMode.Rasterizer, num_cams=2), "item 7"),
     "textures": (dict(texture_paths=["checker.ktx2"]), "item 18"),
     "textured_material": (dict(materials=[tm.AdditionalMaterial(texture_id=0)],
                                big_texture=True, mipmaps=False), "item 6"),
     "mipmaps": (dict(mipmaps=True), "item 9"),
-    "shadows": (dict(shadows=True), "item 10"),
     "watertight": (dict(watertight=True), "item 11"),
     "warmstart": (dict(warmstart=True), "item 12"),
     "ssaa": (dict(ssaa=2), "item 13"),
     "num_devices": (dict(num_devices=2), "item 15"),
-    "multi_camera": (dict(num_cams=2), "item 7"),
     "asset_paths": (dict(asset_paths=[tm.ImportedAsset("cube.obj")]), "item 18"),
     "big_mesh": (dict(big=True), "item 8"),
 }
+# Options that raised until their slice was ported (items 7 and 10): each
+# now renders through MadronaRenderer and matches the JAX Manager.
+PORTED = {
+    "rasterizer": dict(render_mode=tm.RenderMode.Rasterizer, num_cams=2),
+    "multi_camera": dict(num_cams=2),
+    "shadows": dict(shadows=True),
+}
 
 
-@pytest.mark.parametrize("case", sorted(UNSUPPORTED))
-def test_unsupported_options_raise(case, tmp_path):
-    opts, item = UNSUPPORTED[case]
+def _renders_like_jax(opts):
     opts = dict(opts)
     mode = opts.pop("render_mode", tm.RenderMode.Raytracer)
     num_cams = opts.pop("num_cams", 1)
+    kw = renderer_kwargs(t_demo(2, mode, 16, 16, dynamic=True, num_cams=num_cams))
+    t = tm.MadronaRenderer(0, 2, mode, 16, 16, device="cpu", **kw, **opts)
+    j = jm.Manager(j_demo(2, jm.RenderMode(mode.value), 16, 16, dynamic=True,
+                          num_cams=num_cams, impl="jnp", **opts))
+    assert t.rgb_tensor().shape == j.rgb_tensor().shape == (2 * num_cams, 16, 16, 4)
+    assert_frames_close(j.frames, t.frames)
+
+
+@pytest.mark.parametrize("case", sorted(UNSUPPORTED) + sorted(PORTED))
+def test_unsupported_options_raise(case, tmp_path):
+    """Options outside the ported slice raise NotImplementedError naming
+    their ROADMAP item; the ones ported since render like the JAX Manager."""
+    if case in PORTED:
+        _renders_like_jax(PORTED[case])
+        return
+    opts, item = UNSUPPORTED[case]
+    opts = dict(opts)
     if opts.pop("big", False):
         kw = _big_mesh_kwargs()
         n = 1
     else:
         n = 2
-        kw = renderer_kwargs(t_demo(n, tm.RenderMode.Raytracer, 16, 16,
-                                    num_cams=num_cams))
+        kw = renderer_kwargs(t_demo(n, tm.RenderMode.Raytracer, 16, 16))
     if opts.pop("big_texture", False):
         # 144×144 texels: past the in-kernel route's 128×128 texel pool.
         from madrona_renderer_tpu_torch.assets.png import write_png
@@ -155,7 +173,7 @@ def test_unsupported_options_raise(case, tmp_path):
     scene_keys = ("texture_paths", "materials", "asset_paths")
     kw.update({k: opts.pop(k) for k in scene_keys if k in opts})
     with pytest.raises(NotImplementedError, match=item):
-        tm.MadronaRenderer(0, n, mode, 16, 16, device="cpu", **kw, **opts)
+        tm.MadronaRenderer(0, n, tm.RenderMode.Raytracer, 16, 16, device="cpu", **kw, **opts)
 
 
 def test_impl_other_than_auto_raises():

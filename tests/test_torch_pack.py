@@ -190,13 +190,64 @@ def test_pack_rows_kernel_cpu_route_matches_jax_pack_kernel(name):
     W, I = t_state.instance_obj.shape
     S = I * j_scene.tris_per_object
     a = np.concatenate([np.asarray(geo)[:, :, :S], np.asarray(attrs)[:, :, :S]], axis=1)
-    before = pack_cuda.pack_rows.launches
+    before = dict(pack_cuda.pack_rows.layout_launches)
     b = pack_cuda.pack_rows(t_state, t_scene, t_state.camera_pos[:, 0, :])
-    assert pack_cuda.pack_rows.launches == before
+    assert pack_cuda.pack_rows.layout_launches == before
     assert a.shape == tuple(b.shape) == (W, pack_cuda.N_ROWS, S)
     b = b.numpy()
     for r in list(range(10)) + list(range(16, 36)):
         _close(a[:, r], b[:, r], f"row {r}")
     np.testing.assert_array_equal(a[:, 31], b[:, 31])  # material ids
     for r in list(range(10, 16)) + list(range(36, 40)):
+        assert not a[:, r].any() and not b[:, r].any()
+
+
+def test_pack_rows_planar_split_raw(states):
+    """The raw layout (no camera origin): rows 0-8 v0, e1·valid, e2·valid
+    bitwise against the JAX package's op-by-op pack, the attribute rows at
+    the bar above."""
+    j_state, j_scene, t_state, t_scene = states
+    with jax.disable_jit():
+        a = np.asarray(jrp._pack_rows_planar(j_state, j_scene, cam_pos=None, split=True))
+    b = trc._pack_rows_planar(t_state, t_scene)
+    assert a.shape == tuple(b.shape) == (3, 40, 3 * j_scene.tris_per_object)
+    b = b.numpy()
+    np.testing.assert_array_equal(a[:, :16], b[:, :16])
+    for r in range(16, 36):
+        _close(a[:, r], b[:, r], f"attr row {r}")
+    np.testing.assert_array_equal(a[:, 31], b[:, 31])
+    for r in list(range(9, 16)) + list(range(36, 40)):
+        assert not b[:, r].any()
+    # Disabled instances keep their vertices and lose their edges.
+    assert (b[2, 0:3, -j_scene.tris_per_object:] != 0).any()
+    assert not b[2, 3:9, -j_scene.tris_per_object:].any()
+
+
+@pytest.mark.parametrize("name", sorted(PACK_KERNEL_SCENES) + ["random_quaternions"])
+def test_pack_rows_raw_cpu_route_matches_jax_pack_kernel(name):
+    """K13's wrapper without a camera origin (the raw layout, its plain
+    version on the CPU) against the JAX package's Pallas pack kernel with
+    ``cam_pos=None`` in interpret mode, at the bar above: the demo, the
+    pack-kernel scenes and a random-quaternion state."""
+    if name == "random_quaternions":
+        j_scene = SCENES["random3"]()
+        j_state, t_state = _random_state(j_scene, 3, 3, 5)
+        t_scene = scene_from_numpy(to_numpy(j_scene))
+    else:
+        j_state, j_scene = PACK_KERNEL_SCENES[name]()
+        t_state, t_scene = carry_over(j_state, j_scene)
+    geo, attrs = pack_rows_pallas(j_state, j_scene, cam_pos=None, split=True,
+                                  interpret=True)
+    W, I = t_state.instance_obj.shape
+    S = I * j_scene.tris_per_object
+    a = np.concatenate([np.asarray(geo)[:, :, :S], np.asarray(attrs)[:, :, :S]], axis=1)
+    before = dict(pack_cuda.pack_rows.layout_launches)
+    b = pack_cuda.pack_rows(t_state, t_scene)
+    assert pack_cuda.pack_rows.layout_launches == before
+    assert a.shape == tuple(b.shape) == (W, pack_cuda.N_ROWS, S)
+    b = b.numpy()
+    for r in list(range(9)) + list(range(16, 36)):
+        _close(a[:, r], b[:, r], f"row {r}")
+    np.testing.assert_array_equal(a[:, 31], b[:, 31])  # material ids
+    for r in list(range(9, 16)) + list(range(36, 40)):
         assert not a[:, r].any() and not b[:, r].any()

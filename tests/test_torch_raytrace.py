@@ -16,15 +16,9 @@ from madrona_renderer_tpu.runners.scenes import demo_config
 from madrona_renderer_tpu_torch.ops import raytrace_cuda as trc
 
 from tests.torch_helpers import (
-    SceneSpec, assert_frames_close, carry_over, random_spec, spec_from_config,
+    IDENTITY, SceneSpec, assert_frames_close, carry_over, quad_xz, random_spec,
+    spec_from_config,
 )
-
-IDENTITY = [1.0, 0.0, 0.0, 0.0]
-
-
-def _quad_xz(half, y=0.0):
-    a, b, c, d = [-half, y, -half], [half, y, -half], [half, y, half], [-half, y, half]
-    return np.asarray([a, b, c, a, c, d], np.float32)
 
 
 def _cloud_spec():
@@ -36,7 +30,7 @@ def _cloud_spec():
     for c in centers:
         tris += [c + rng.normal(size=3) * 0.5 for _ in range(3)]
     return SceneSpec(
-        meshes=[np.asarray(tris, np.float32), _quad_xz(50.0)],
+        meshes=[np.asarray(tris, np.float32), quad_xz(50.0)],
         instances=[
             dict(position=[0, 0, 0], rotation=IDENTITY, object_id=0),
             dict(position=[0, 35, 0], rotation=IDENTITY, object_id=1),
@@ -56,7 +50,7 @@ def _fov_znear_spec():
         dict(position=[1, 4, 1], rotation=IDENTITY, scale=[0.2, 1, 0.2], object_id=0),
     ]
     return SceneSpec(
-        meshes=[_quad_xz(8.0)],
+        meshes=[quad_xz(8.0)],
         instances=insts * 3,
         cameras=[
             dict(position=[0, 0, 0], rotation=IDENTITY),
@@ -132,15 +126,19 @@ def test_two_lights_and_unaligned_size_match_jax():
 
 
 def test_unsupported_scenes_raise():
-    """Scenes outside the slice raise NotImplementedError naming their item."""
+    """Scenes outside the slice raise NotImplementedError naming their item;
+    a world with two cameras, which raised until item 7 was ported, renders
+    like the JAX package."""
     import dataclasses
 
     spec = random_spec(3)
-    spec.cameras.append(dict(spec.cameras[0]))
+    spec.cameras.append(dict(spec.cameras[0], position=[0.5, -11.0, 1.0]))
     spec.worlds[0]["num_cameras"] = 2
-    t_state, t_scene = spec.build_torch()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trc.raytrace(t_state, t_scene, height=16, width=16)
+    j_state, j_scene = spec.build_jax()
+    t_state, t_scene = carry_over(j_state, j_scene)
+    port = trc.raytrace(t_state, t_scene, height=16, width=16)
+    assert port.depth.shape == (1, 2, 16, 16)
+    assert_frames_close(j_ref(j_state, j_scene, height=16, width=16), port)
     # A texel pool past the in-kernel route's 128×128 texels.
     t_state, t_scene = random_spec(3).build_torch()
     textured = dataclasses.replace(

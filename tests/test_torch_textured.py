@@ -27,10 +27,9 @@ from madrona_renderer_tpu_torch.runners.scenes import demo_texture_png as t_demo
 
 from tests.fixtures import make_checker_png
 from tests.torch_helpers import (
-    SceneSpec, assert_frames_close, carry_over, spec_from_config, to_numpy,
+    IDENTITY, SceneSpec, assert_frames_close, carry_over, quad_uvs, quad_xz,
+    spec_from_config, to_numpy,
 )
-
-IDENTITY = [1.0, 0.0, 0.0, 0.0]
 
 
 def _images():
@@ -78,16 +77,6 @@ def test_importer_rejects_other_formats(tmp_path):
         import_image(str(tmp_path / "missing.png"))
 
 
-def _quad_xz(half, y=0.0):
-    a, b, c, d = [-half, y, -half], [half, y, -half], [half, y, half], [-half, y, half]
-    return np.asarray([a, b, c, a, c, d], np.float32)
-
-
-def _quad_uvs(scale=1.0, shift=0.0):
-    uv = np.asarray([[0, 0], [1, 0], [1, 1], [0, 0], [1, 1], [0, 1]], np.float32)
-    return uv * scale + shift
-
-
 @pytest.fixture(scope="module")
 def textures(tmp_path_factory):
     d = tmp_path_factory.mktemp("tex")
@@ -105,8 +94,8 @@ def _mixed_spec(textures):
     """Two textured quads (tiled uvs, one with negative uvs and a non-square
     texture) beside an untextured one, in front of the camera."""
     return SceneSpec(
-        meshes=[_quad_xz(3.0), _quad_xz(3.0), _quad_xz(3.0)],
-        uvs=[_quad_uvs(2.5), _quad_uvs(1.7, -0.6), _quad_uvs()],
+        meshes=[quad_xz(3.0), quad_xz(3.0), quad_xz(3.0)],
+        uvs=[quad_uvs(2.5), quad_uvs(1.7, -0.6), quad_uvs()],
         instances=[
             dict(position=[-6.5, 14, 0], rotation=IDENTITY, object_id=0),
             dict(position=[0, 13, 0.5], rotation=[0.98, 0.0, 0.0, 0.199], object_id=1),

@@ -115,6 +115,22 @@ def spec_from_config(cfg) -> SceneSpec:
     )
 
 
+IDENTITY = [1.0, 0.0, 0.0, 0.0]
+
+
+def quad_xz(half, y=0.0):
+    """Two triangles forming a quad in the XZ plane at ``y``, spanning
+    [-half, half]² — a wall facing a camera that looks +Y."""
+    a, b, c, d = [-half, y, -half], [half, y, -half], [half, y, half], [-half, y, half]
+    return np.asarray([a, b, c, a, c, d], np.float32)
+
+
+def quad_uvs(scale=1.0, shift=0.0):
+    """UVs in ``quad_xz``'s corner order: u right (+x), v up (+z)."""
+    uv = np.asarray([[0, 0], [1, 0], [1, 1], [0, 0], [1, 1], [0, 1]], np.float32)
+    return uv * scale + shift
+
+
 def _unit(v):
     v = np.asarray(v, np.float64)
     return (v / np.linalg.norm(v)).tolist()
