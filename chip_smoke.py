@@ -18,8 +18,16 @@ printed as JSON lines:
                1-3 cameras per world, per-camera fov and znear), the demo
                scene at 40x24 with two lights, and the occluder scene of
                tests/test_shadows.py with one and with two lights, each
-               without and with shadows;
-  4. paths   — the five paths of the port, each through MadronaRenderer and
+               without and with shadows; then K7 (the render kernel's mip
+               hand-off and ``shade_mip``) bitwise, together and each alone,
+               in every variant (prep / raw / raw with shadows x raytrace /
+               raster x nearest / bilinear / trilinear) on the mip scenes of
+               tests/test_mips.py (the gradient floor with a close-up quad,
+               also at 64x256 and with two cameras; the overflow floor; the
+               uv-seam close-up at 48x48; the close-up whose trilinear blend
+               dies), with a ``k7_levels`` line per scene: pixels per level,
+               pixels clamped to the coarse chain, blends killed;
+  4. paths   — the six paths of the port, each through MadronaRenderer and
                stepped with a position mutation through the exported tensor
                between steps, with every launch count set to 0 just before
                and read just after:
@@ -33,10 +41,15 @@ printed as JSON lines:
                                   views), raytraced on the raw rows;
                  shadows_4096w    main with shadows=True (raw rows and one
                                   shadow ray per pixel and light);
+                 textured256_4096w bench.py's paged-texture row: 4096 worlds
+                                  x 64x64 of a cube and a plane both
+                                  textured with a 256x256 checker, which
+                                  bakes mip chains (K7, nearest);
                then, on each path's last inputs at full size, the kernels
                against the exported frames and their plain versions (and
                for shadows_4096w the unshadowed render of the same rows:
-               rgb darker somewhere, depth and segmask bitwise); one line
+               rgb darker somewhere, depth and segmask bitwise; for
+               textured256_4096w every K7 variant on its inputs); one line
                per path (phase = its name) with the step and prologue times
                on the host clock and the prologue's operator count;
   5. timing  — each kernel at its path's full-size inputs: its device time
@@ -44,9 +57,11 @@ printed as JSON lines:
                the wrapper (host overhead included), its plain version's
                time, its bound; then, in lines with an ``inputs`` key that
                the kernels line leaves out, K13's raw layout on
-               multicam_1024w4c's 1024 worlds and the raw sweep on main's
+               multicam_1024w4c's 1024 worlds, the raw sweep on main's
                one-camera rows (beside a ``prep_vs_raw`` line of phase 4
-               that compares its frames with the prep sweep's);
+               that compares its frames with the prep sweep's), and each
+               K7 variant's two launches together on textured256_4096w's
+               inputs;
 
 then the nvidia-smi line, the ``kernels`` summary line and the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -75,6 +90,8 @@ TEX_SIZE = 32
 WARMUP_STEPS = 3
 TIMED_STEPS = 20
 RASTER_TIMED_STEPS = 60
+PAGED_TEX_SIZE = 256
+MIP_FILTERS = ("nearest", "bilinear", "trilinear")
 KERNEL_REPS = 50
 SMALL_WORLDS = 64
 
@@ -115,7 +132,8 @@ K1_OPS_PER_CLUSTER = 25
 K1_OPS_PER_TRIANGLE = {"prep": 27, "raw": 36}
 K1_OPS_RAW_HOIST = 17
 K1_OPS_RASTER = 9
-K1_OPS_TEX = {None: 0, "nearest": 8 + 4 + 4 + 11, "bilinear": 8 + 4 + 4 + 62}
+K1_OPS_TEX = {None: 0, "nearest": 8 + 4 + 4 + 11, "bilinear": 8 + 4 + 4 + 62,
+              "mip": 8 + 3}  # the mip hand-off: uv, and the footprint's 3 products
 K8_OPS_FIXED = 8
 K8_OPS_PER_LIGHT = 4
 K8_OPS_PER_CLUSTER = 24
@@ -127,7 +145,23 @@ K1_THREADS_PER_BLOCK = 256
 # once (the normal rows, and the colour rows (untextured) or the material
 # and uv rows (textured)).
 K1_GEO_ROWS = {"prep": 10, "raw": 9}
-K1_ATTR_ROWS = {None: 9 + 3, "nearest": 9 + 7, "bilinear": 9 + 7}
+K1_ATTR_ROWS = {None: 9 + 3, "nearest": 9 + 7, "bilinear": 9 + 7, "mip": 9 + 8}
+# Bytes a pixel writes: depth, segmask and rgb; in the mip hand-off mode
+# depth, segmask and the 28-byte hand-off instead of rgb.
+K1_OUT_BYTES = {"rgb": 12, "mip": 8 + 28}
+# shade_mip's FP32 operations (csrc/shade_mip.cu), counted as above: per
+# pixel that hit geometry, pass 1 (uv wrap 4, the level's L - 1 compares,
+# the primary taps) and per shaded pixel of a valid camera pass 2 (uv wrap
+# 4, the level, the primary taps twice, the fit conversion 1, the sample,
+# the base colour products 3 and the packing 24), trilinear adding the
+# live test 3, the secondary taps twice, the weight 4, a second sample and
+# the blend 12. Taps: nearest 8 (three conversions of the level's offset
+# and size, three products and 1 - v, two conversions), bilinear 14;
+# sample: nearest 6 (three dequant conversions and divides), bilinear 60.
+MIP_OPS_TAPS = {"nearest": 8, "bilinear": 14, "trilinear": 14}
+MIP_OPS_SAMPLE = {"nearest": 6, "bilinear": 60, "trilinear": 60}
+MIP_OPS_TRILINEAR = 3 + 2 * 14 + 4 + 60 + 12
+MIP_HANDOFF_BYTES = 28
 # K13's FP32 operations per (world, triangle slot), counted from
 # csrc/pack_rows.cu: six quaternion rotations of 30, the scaled vertex and
 # edge products and the translation 12, the validity product 1, three
@@ -313,6 +347,117 @@ def demo_scene(n_worlds: int, dynamic: bool, scenes, cfg_mod, textured=False, nu
             r.cameras, r.worlds)
 
 
+def png_texture(name: str, image: np.ndarray, scenes) -> str:
+    """Write ``image`` as a PNG beside the demo textures; its path."""
+    from madrona_renderer_tpu_torch.assets.png import write_png
+
+    scenes.ASSET_DIR.mkdir(parents=True, exist_ok=True)
+    path = scenes.ASSET_DIR / f"chip_smoke_{name}.png"
+    write_png(str(path), image)
+    return str(path)
+
+
+def checker_texture(size: int) -> np.ndarray:
+    """The demo checker of tools/tpu_paged_tex_bench.py: 8-texel cells."""
+    yy, xx = np.mgrid[0:size, 0:size]
+    checker = ((yy // 8 + xx // 8) % 2).astype(np.float32)
+    img = np.empty((size, size, 4), np.uint8)
+    img[..., 0] = (255 * (0.35 + 0.6 * checker)).astype(np.uint8)
+    img[..., 1] = (255 * (0.55 - 0.25 * checker)).astype(np.uint8)
+    img[..., 2] = (255 * (0.25 + 0.5 * (1 - checker))).astype(np.uint8)
+    img[..., 3] = 255
+    return img
+
+
+def gradient_texture(size: int = 256) -> np.ndarray:
+    """tests/test_mips.py's smooth gradient texture."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / (size - 1)
+    return np.stack([xx * 255, yy * 255, (xx + yy) * 127.5, np.full_like(xx, 255)],
+                    axis=-1).astype(np.uint8)
+
+
+def geometry(cfg_mod, meshes, uvs, mesh_mats):
+    counts = [len(m) for m in meshes]
+    offs = np.cumsum([0] + counts[:-1]).astype(np.uint32)
+    return cfg_mod.GeometryConfig(
+        vertices=np.concatenate(meshes).astype(np.float32),
+        uvs=np.concatenate(uvs).astype(np.float32),
+        indices=np.concatenate([np.arange(c, dtype=np.uint32) for c in counts]),
+        mesh_vertex_offsets=offs, mesh_index_offsets=offs.copy(),
+        mesh_materials=np.asarray(mesh_mats, np.int32))
+
+
+def quad_xz(half: float, y: float = 0.0) -> np.ndarray:
+    """A quad in the XZ plane at ``y``, facing a camera that looks +y."""
+    a, b, c, d = [-half, y, -half], [half, y, -half], [half, y, half], [-half, y, half]
+    return np.asarray([a, b, c, a, c, d], np.float32)
+
+
+def quad_uvs(scale: float = 1.0, shift: float = 0.0) -> np.ndarray:
+    uv = np.asarray([[0, 0], [1, 0], [1, 1], [0, 0], [1, 1], [0, 1]], np.float32)
+    return uv * scale + shift
+
+
+def paged_tex_config(n_worlds: int, scenes, cfg_mod):
+    """bench.py's ``textured256_4096w`` scene (tools/tpu_paged_tex_bench.py
+    :26-86): the demo cube at (0, 6, 1.2) scaled 2 and the plane with its
+    uvs tiled 4 times, both materials textured with a 256x256 checker of
+    8-texel cells, one camera per world at (0, 0, 2) looking +y."""
+    cube_v, cube_uv = scenes.cube_mesh()
+    plane_v, plane_uv = scenes.plane_mesh()
+    tex = png_texture(f"paged_{PAGED_TEX_SIZE}", checker_texture(PAGED_TEX_SIZE), scenes)
+    ident = [1.0, 0.0, 0.0, 0.0]
+    insts, cams, worlds = [], [], []
+    for w in range(n_worlds):
+        insts += [cfg_mod.ImportedInstance([0, 6, 1.2], ident, [2, 2, 2], object_id=0),
+                  cfg_mod.ImportedInstance([0, 0, 0], ident, [1, 1, 1], object_id=1)]
+        cams.append(cfg_mod.ImportedCamera([0, 0, 2], ident))
+        worlds.append(cfg_mod.WorldInit(2, 2 * w, 1, w))
+    return cfg_mod.ManagerConfig(
+        gpu_id=0, num_worlds=n_worlds, render_mode=cfg_mod.RenderMode.Raytracer,
+        batch_render_view_width=WIDTH, batch_render_view_height=HEIGHT,
+        rcfg=cfg_mod.RenderConfig(
+            geo_cfg=geometry(cfg_mod, [cube_v, plane_v], [cube_uv, plane_uv * 4.0], [0, 1]),
+            additional_mats=[cfg_mod.AdditionalMaterial((1, 1, 1, 1), texture_id=0),
+                             cfg_mod.AdditionalMaterial((0.9, 0.85, 0.8, 1.0), texture_id=0)],
+            additional_textures=[tex], instances=insts, cameras=cams, worlds=worlds))
+
+
+def mip_scene(kind: str, n_worlds: int, cfg_mod, tex: str):
+    """tests/test_mips.py's mip scenes, per world: ``gradient`` (a floor 10
+    ahead, uvs tiled 7.3 times, an untextured close-up quad; ``gradient_2cams``
+    with a second camera per world), ``overflow`` (the floor alone, uvs
+    tiled 63.7 times), ``seam`` and ``closeup`` (a floor tiled 40 times
+    behind a textured close-up whose uvs span [0, 0.07] across the seam, or
+    [0.40, 0.47]). The floor of world w moves 0.01·w along x."""
+    ident = [1.0, 0.0, 0.0, 0.0]
+    num_cams = 2 if kind == "gradient_2cams" else 1
+    if kind in ("seam", "closeup"):
+        lo = 0.0 if kind == "seam" else 0.40
+        meshes, uvs = [quad_xz(60.0), quad_xz(2.5, 4.0)], [quad_uvs(40.0), quad_uvs(0.07, lo)]
+        mesh_mats, mats = [0, 0], [cfg_mod.AdditionalMaterial((1, 1, 1, 1), texture_id=0)]
+    else:
+        uv_scale = 63.7 if kind == "overflow" else 7.3
+        meshes, uvs, mesh_mats = [quad_xz(60.0)], [quad_uvs(uv_scale)], [0]
+        if kind != "overflow":
+            meshes.append(quad_xz(2.0, 4.0))
+            uvs.append(np.zeros((6, 2), np.float32))
+            mesh_mats.append(1)
+        mats = [cfg_mod.AdditionalMaterial((1, 1, 1, 1), texture_id=0),
+                cfg_mod.AdditionalMaterial((0.9, 0.4, 0.3, 1.0))]
+    insts, cams, worlds = [], [], []
+    for w in range(n_worlds):
+        insts.append(cfg_mod.ImportedInstance([0.01 * w, 10, 0], ident, object_id=0))
+        if len(meshes) > 1:
+            insts.append(cfg_mod.ImportedInstance([0, 0, 0], ident, object_id=1))
+        cams.append(cfg_mod.ImportedCamera([0, 0, 0], ident))
+        if num_cams == 2:
+            cams.append(cfg_mod.ImportedCamera([0.7, -0.5, 0.3],
+                                               [math.cos(0.075), 0.0, 0.0, math.sin(0.075)]))
+        worlds.append(cfg_mod.WorldInit(len(meshes), len(meshes) * w, num_cams, num_cams * w))
+    return geometry(cfg_mod, meshes, uvs, mesh_mats), mats, [tex], insts, cams, worlds
+
+
 def compare_outputs(k, p) -> dict:
     """Kernel outputs vs plain outputs: rgb bytes, depth, segmask."""
     (kd, ks, kc), (pd, ps, pc) = k, p
@@ -436,11 +581,14 @@ def k1_bound(kw: dict, visits: int, shadow_visits: int) -> tuple:
     tiles = math.ceil(kw["height"] / 16) * math.ceil(kw["width"] / 16)
     blocks = views * tiles
     threads = blocks * K1_THREADS_PER_BLOCK
-    tex, lights = kw["texture"], kw["n_lights"]
+    # The K7 inputs run the render kernel in its mip hand-off mode.
+    tex = "mip" if kw.get("fb_rows") is not None else kw["texture"]
+    lights = kw["n_lights"]
     geo = "prep" if kw["geo"] == "prep" else "raw"  # the rows' layout
     nbytes = (W * (K1_GEO_ROWS[geo] + K1_ATTR_ROWS[tex]) * S * 4
-              + kw["clusters"].numel() * 4 + kw["cams"].numel() * 4 + pixels * 12)
-    if tex is not None:
+              + kw["clusters"].numel() * 4 + kw["cams"].numel() * 4
+              + pixels * K1_OUT_BYTES["mip" if tex == "mip" else "rgb"])
+    if tex in ("nearest", "bilinear"):
         nbytes += kw["mats"].numel() * 4 + kw["pool"].numel() * 4
     per_thread = (K1_OPS_FIXED[geo] + K1_OPS_PER_LIGHT * lights
                   + K1_OPS_PER_CLUSTER * CC + K1_OPS_TEX[tex]
@@ -456,6 +604,28 @@ def k1_bound(kw: dict, visits: int, shadow_visits: int) -> tuple:
         ops += views * lights * K8_OPS_PER_VIEW_LIGHT
     if geo == "raw":
         ops += blocks * S * K1_OPS_RAW_HOIST
+    return roofline(nbytes, ops) + (nbytes, ops)
+
+
+def shade_mip_bound(kw: dict, code) -> tuple:
+    """Least time for shade_mip's work on this hand-off: the hand-off read
+    and the rgb written once, the mip table, pool and camera rows read
+    once, against its FP32 operations for this run's hit and shaded
+    pixels."""
+    from madrona_renderer_tpu_torch.ops import mips
+    from madrona_renderer_tpu_torch.ops import raytrace_cuda as rc
+
+    filt, n_lvl = kw["texture"], mips.num_levels(kw["mats"])
+    col = 17 + 6 * kw["n_lights"]
+    cam_ok = (kw["cams"][:, col] > 0).reshape(-1, 1, 1)
+    found = int(((code & rc._FOUND_BIT) != 0).sum())
+    shaded = int((((code & rc._SHADED_BIT) != 0) & cam_ok).sum())
+    pass1 = 4 + (n_lvl - 1) + MIP_OPS_TAPS[filt]
+    pass2 = (4 + (n_lvl - 1) + 2 * MIP_OPS_TAPS[filt] + 1 + MIP_OPS_SAMPLE[filt] + 27
+             + (MIP_OPS_TRILINEAR if filt == "trilinear" else 0))
+    ops = found * pass1 + shaded * pass2
+    nbytes = (code.numel() * (MIP_HANDOFF_BYTES + 4) + kw["mats"].numel() * 4
+              + kw["pool"].numel() * 4 + kw["cams"].numel() * 4)
     return roofline(nbytes, ops) + (nbytes, ops)
 
 
@@ -489,7 +659,7 @@ def main() -> int:
     from madrona_renderer_tpu_torch.assets.importer import load_render_assets
     from madrona_renderer_tpu_torch.core.scene import bake_scene, configure_lighting
     from madrona_renderer_tpu_torch.core.state import init_state
-    from madrona_renderer_tpu_torch.ops import pack_cuda
+    from madrona_renderer_tpu_torch.ops import mips, pack_cuda
     from madrona_renderer_tpu_torch.ops import raytrace_cuda as rc
     from madrona_renderer_tpu_torch.runners import scenes
 
@@ -505,7 +675,8 @@ def main() -> int:
     emit({"phase": "build", "kernels": sorted(built), "seconds": time.perf_counter() - t0})
 
     # Per kernel name: the largest error against its plain version.
-    max_err = {name: 0.0 for name in rc.VARIANTS + pack_cuda.LAYOUTS}
+    kernel_names = rc.VARIANTS + rc.SHADE_MIP_VARIANTS + pack_cuda.LAYOUTS
+    max_err = {name: 0.0 for name in kernel_names}
 
     def check_pack(tag, state, scene, cam):
         name = pack_cuda.layout_name(cam)
@@ -521,7 +692,16 @@ def main() -> int:
         if not bitwise:
             raise AssertionError(f"{tag}: {name} differs from its plain version")
 
+    def is_k7(kw):
+        return kw.get("fb_rows") is not None
+
+    def handoff_name(kw):
+        return rc.variant_name(kw["raster"], "mip", kw["geo"])
+
     def variant(kw):
+        """The render kernel's variant; for K7 its two launches' names."""
+        if is_k7(kw):
+            return f"{handoff_name(kw)}+shade_mip_{kw['texture']}"
         return rc.variant_name(kw["raster"], kw["texture"], kw["geo"])
 
     def check_render(tag, kw):
@@ -531,12 +711,72 @@ def main() -> int:
         p_out = rc.render_resident_plain(**kw)
         c = compare_outputs(k_out, p_out)
         check_close(f"{tag} {name}", c)
+        if is_k7(kw) and not c["bitwise"]:
+            raise AssertionError(f"{tag} {name}: K7 differs from its plain version: {c}")
         if kw["raster"] and not bool((k_out[1] == -1).all()):
             raise AssertionError(f"{tag} {name}: raster segmask is not -1 everywhere")
-        max_err[name] = max(max_err[name], output_err(k_out, p_out))
+        err = output_err(k_out, p_out)
+        for part in name.split("+"):
+            max_err[part] = max(max_err.get(part, 0.0), err)
         emit({"phase": "kernel_vs_plain", "kernel": name, "case": tag,
               "hit_share": float((k_out[0] > 0).float().mean()), **c})
         return k_out
+
+    handoff_keys = ("num_cams", "n_lights", "height", "width", "seg_div", "raster", "geo")
+
+    def handoff(kw, plain=False):
+        fn = rc.render_handoff_plain if plain else rc.render_handoff
+        return fn(kw["rows"], kw["clusters"], kw["cams"], **{k: kw[k] for k in handoff_keys})
+
+    def shade(kw, code, hf, plain=False):
+        fn = rc.shade_mip_plain if plain else rc.shade_mip
+        return fn(code, hf, kw["cams"], kw["mats"], kw["pool"], fb_rows=kw["fb_rows"],
+                  texture=kw["texture"], n_lights=kw["n_lights"])
+
+    def check_k7(tag, kw):
+        """K7's two launches together (check_render) and each alone against
+        its plain version on the same inputs, bitwise; returns the card's
+        hand-off."""
+        check_render(tag, kw)
+        k_h = handoff(kw)
+        torch.cuda.synchronize()
+        p_h = handoff(kw, plain=True)
+        h_bitwise = all(torch.equal(a, b) for a, b in zip(k_h, p_h))
+        k_rgb = shade(kw, *k_h[2:])
+        torch.cuda.synchronize()
+        p_rgb = shade(kw, *k_h[2:], plain=True)
+        s_lsb = int((k_rgb.view(torch.uint8).int() - p_rgb.view(torch.uint8).int()).abs().max())
+        s_name = f"shade_mip_{kw['texture']}"
+        max_err[s_name] = max(max_err[s_name], float(s_lsb))
+        emit({"phase": "kernel_vs_plain", "kernel": handoff_name(kw), "case": tag,
+              "handoff_bitwise": h_bitwise,
+              "handoff_max_abs": float((k_h[3] - p_h[3]).abs().max())})
+        emit({"phase": "kernel_vs_plain", "kernel": s_name, "case": tag,
+              "rgb_max_lsb": s_lsb, "bitwise": bool(torch.equal(k_rgb, p_rgb))})
+        if not h_bitwise or not torch.equal(k_rgb, p_rgb):
+            raise AssertionError(f"{tag}: a K7 launch differs from its plain version")
+        return k_h
+
+    def level_stats(tag, kw, k_h):
+        """Pixels per mip level, pixels the window clamp sent to the coarse
+        chain and trilinear blends killed, from the card's hand-off."""
+        code, hf = k_h[2], k_h[3]
+        V, H, Wd = code.shape
+        c = code.reshape(V, -1)
+        u, v, fp = hf.reshape(6, V, -1)[:3]
+        found = (c & rc._FOUND_BIT) != 0
+        lvl, lvl_c, kill, _ = mips.mip_levels(kw["mats"], kw["fb_rows"], c & 0xFFFF, u, v,
+                                              fp, found, H, Wd, "trilinear")
+        _, lvl_b, _, _ = mips.mip_levels(kw["mats"], kw["fb_rows"], c & 0xFFFF, u, v,
+                                         fp, found, H, Wd, "nearest")
+        stats = {"pixels_per_level": torch.bincount(
+                     lvl[found].long(), minlength=mips.num_levels(kw["mats"])).tolist(),
+                 "clamped_nearest": int((lvl_b != lvl).sum()),
+                 "clamped_bilinear": int((lvl_c != lvl).sum()),
+                 "blend_killed": int(kill.sum())}
+        emit({"phase": "k7_levels", "case": tag, "fb_rows": kw["fb_rows"],
+              "levels": mips.num_levels(kw["mats"]), **stats})
+        return stats
 
     # ---- 3. each kernel against its plain version on the card ----------- #
     tex_png = scenes.demo_texture_png(TEX_SIZE)
@@ -587,21 +827,63 @@ def main() -> int:
                         if not bool((darker > 10).any()) or bool((darker < 0).any()):
                             raise AssertionError(f"{tag}: the shadow does not show")
 
-    # ---- 4. the five paths --------------------------------------------- #
+    # K7 on the mip scenes of tests/test_mips.py, every variant.
+    gradient_png = png_texture("gradient_256", gradient_texture(), scenes)
+    sun = [((1.0, 1.0, 0.0), (1.0, 1.0, 1.0))]
+    mip_cases = {
+        "mip64_gradient": ("gradient", {}),
+        "mip64_gradient_64x256": ("gradient", dict(width=256)),
+        "mip64_gradient_2cams": ("gradient_2cams", {}),
+        "mip64_overflow": ("overflow", {}),
+        "mip64_seam_48x48": ("seam", dict(height=48, width=48)),
+        "mip64_closeup_32x32": ("closeup", dict(height=32, width=32)),
+    }
+    totals = {"clamped_nearest": 0, "clamped_bilinear": 0, "blend_killed": 0}
+    for tag, (kind, size) in mip_cases.items():
+        geo, mats, textures, insts, cams, worlds = mip_scene(kind, SMALL_WORLDS, cfg_mod,
+                                                             gradient_png)
+        scene = bake_scene(load_render_assets(geo, [], mats, textures), dev)
+        if not rc.has_mips(scene):
+            raise AssertionError(f"{tag}: the 256x256 texture baked no mip chains")
+        state = init_state(insts, cams, worlds, dev)
+        size = dict(dict(height=HEIGHT, width=WIDTH), **size)
+        for shadows in (False, True):
+            lit = configure_lighting(scene, lights=sun) if shadows else scene
+            for raster in (False, True):
+                for filt in MIP_FILTERS:
+                    kw = rc.pack_inputs(state, lit, raster=raster, texture_filter=filt,
+                                        near=0.001 if raster else 0.1, shadows=shadows,
+                                        **size)
+                    k_h = check_k7(tag, kw)
+                    if not shadows and not raster and filt == "trilinear":
+                        for k, v in level_stats(tag, kw, k_h).items():
+                            if k in totals:
+                                totals[k] += v
+    emit({"phase": "k7_levels", "case": "all", **totals})
+    if not (totals["clamped_bilinear"] and totals["blend_killed"]):
+        raise AssertionError(f"the mip scenes did not exercise the clamp and the kill: {totals}")
+
+    # ---- 4. the six paths ---------------------------------------------- #
     def reset_counts():
         rc.render_resident.launches = 0
         rc.render_resident.variant_launches = dict.fromkeys(rc.VARIANTS, 0)
+        rc.shade_mip.launches = 0
+        rc.shade_mip.variant_launches = dict.fromkeys(rc.SHADE_MIP_VARIANTS, 0)
         pack_cuda.pack_rows.layout_launches = dict.fromkeys(pack_cuda.LAYOUTS, 0)
 
-    def drive(path, mode, n_worlds, textured, timed_steps, num_cams=1, shadows=False):
+    def drive(path, mode, n_worlds, textured, timed_steps, num_cams=1, shadows=False,
+              cfg=None):
         """One path through MadronaRenderer: construct (which primes one
         step), then warm-up and timed steps, each after moving world 0's
         cube through the exported position tensor. Every view of world 0
         that saw the cube must change and every view of world 1 stay
         bit-identical. Returns the renderer, the step times, the launch
-        counts of the run, the constructor's time and the variant's name."""
-        cfg = scenes.demo_config(n_worlds, mode, WIDTH, HEIGHT, dynamic=True,
-                                 textured=textured, tex_size=TEX_SIZE, num_cams=num_cams)
+        counts of the run, the constructor's time and the variant's name.
+        The scene is the demo scene unless ``cfg`` names another."""
+        if cfg is None:
+            cfg = scenes.demo_config(n_worlds, mode, WIDTH, HEIGHT, dynamic=True,
+                                     textured=textured, tex_size=TEX_SIZE,
+                                     num_cams=num_cams)
         C = num_cams
         reset_counts()
         t0 = time.perf_counter()
@@ -639,14 +921,15 @@ def main() -> int:
                                      f"{changed.tolist()})")
             if not (torch.equal(depth0[C:], depth1[C:]) and torch.equal(rgb0[C:], rgb1[C:])):
                 raise AssertionError(f"{path} step {i}: world 1 changed without a mutation")
-        counts = dict(rc.render_resident.variant_launches, **pack_cuda.pack_rows.layout_launches)
+        counts = dict(rc.render_resident.variant_launches, **rc.shade_mip.variant_launches,
+                      **pack_cuda.pack_rows.layout_launches)
         steps = 1 + WARMUP_STEPS + timed_steps
         kw = rc.pack_inputs(r.state, r.scene, height=HEIGHT, width=WIDTH, raster=raster,
                             texture_filter=r.cfg.texture_filter, shadows=shadows)
         name = variant(kw)
         layout = pack_cuda.LAYOUTS[kw["geo"] != "prep"]
-        expected = dict.fromkeys(rc.VARIANTS + pack_cuda.LAYOUTS, 0)
-        expected.update({name: steps, layout: steps})
+        expected = dict.fromkeys(kernel_names, 0)
+        expected.update({part: steps for part in name.split("+")}, **{layout: steps})
         if counts != expected or rc.render_resident.launches != steps:
             raise AssertionError(f"{path}: launches {counts} in {steps} steps, "
                                  f"expected {expected}")
@@ -702,7 +985,7 @@ def main() -> int:
 
     # Per kernel name: (inputs for its timing, launches on the paths); and
     # (name, path, inputs) of the timings on a second path's inputs.
-    timing_kw, launches = {}, dict.fromkeys(rc.VARIANTS + pack_cuda.LAYOUTS, 0)
+    timing_kw, launches = {}, dict.fromkeys(kernel_names, 0)
     extra_timing = []
 
     def add_launches(counts):
@@ -835,6 +1118,49 @@ def main() -> int:
     add_launches(counts)
     del r
 
+    # textured256_4096w: bench.py's paged-texture row, a 256x256 checker
+    # that bakes mip chains (K7), nearest filtering.
+    paged_cfg = paged_tex_config(NUM_WORLDS, scenes, cfg_mod)
+    r, step_s, counts, ctor_s, name = drive("textured256_4096w", m.RenderMode.Raytracer,
+                                            NUM_WORLDS, True, TIMED_STEPS, cfg=paged_cfg)
+    if not rc.has_mips(r.scene):
+        raise AssertionError("textured256_4096w: mipmaps='auto' baked no mip chains")
+    bake = {"levels": int(r.scene.tex_mip_offset.shape[1]), "fb_rows": r.scene.fb_rows,
+            "pool_texels": int(r.scene.tex_data.shape[0]),
+            "fit_level": r.scene.tex_fit_level.tolist()}
+    emit({"phase": "textured256_bake", **bake})
+    kw = full_size_checks("textured256_4096w", r, name)
+    timing_kw[handoff_name(kw)] = kw
+    timing_kw["shade_mip_nearest"] = kw
+    k_h = check_k7("textured256_4096w", kw)
+    stats = level_stats("textured256_4096w", kw, k_h)
+    # Every K7 variant on the path's inputs, against its plain version and
+    # timed (both launches); the raw rows for the raw sweep without shadows.
+    raw_rows = pack_cuda.pack_rows(r.state, r.scene)
+    k7_timing = []
+    for geo in ("prep", "raw", "raw_shadows"):
+        for raster in (False, True):
+            for filt in MIP_FILTERS:
+                kw = path_inputs(r, texture_filter=filt, raster=raster,
+                                 shadows=geo == "raw_shadows",
+                                 near=r.cfg.raster_near_plane if raster else r.cfg.near_plane)
+                if geo == "raw":
+                    kw = dict(kw, rows=raw_rows, geo="raw")
+                check_render("textured256_4096w_inputs", kw)
+                k7_timing.append(kw)
+                timing_kw.setdefault(handoff_name(kw), kw)
+                if geo == "prep" and not raster:
+                    timing_kw[f"shade_mip_{filt}"] = kw
+    # The minified cube samples a coarse level of the chain.
+    if not any(stats["pixels_per_level"][1:]):
+        raise AssertionError(f"textured256_4096w: every hit sampled level 0: {stats}")
+    rgb = r.rgb_tensor().to_torch()[..., :3].reshape(-1, 3)
+    n_colours = int(torch.unique(rgb, dim=0).shape[0])
+    time_path("textured256_4096w", r, step_s, counts, ctor_s,
+              {"distinct_colours": n_colours, **bake, **stats})
+    add_launches(counts)
+    del r
+
     # ---- timings of every kernel at its path's full-size inputs --------- #
     def k13_row(layout, state, scene):
         cam = state.camera_pos[:, 0, :].contiguous() if layout == "pack_rows" else None
@@ -852,8 +1178,8 @@ def main() -> int:
         }
 
     def render_row(name, kw):
-        visits, shadow_visits = k1_triangle_tests(kw)
-        bound_ms, bound_by, nbytes, ops = k1_bound(kw, visits, shadow_visits)
+        n_visits, shadow_visits = visits(kw)
+        bound_ms, bound_by, nbytes, ops = k1_bound(kw, n_visits, shadow_visits)
         return {
             "name": name, "route": "cuda",
             "source": "madrona_renderer_tpu_torch/csrc/render_resident.cu",
@@ -863,8 +1189,70 @@ def main() -> int:
             "wrapper_ms": cuda_ms(lambda: rc.render_resident(**kw), KERNEL_REPS),
             "plain_ms": cuda_ms(lambda: rc.render_resident_plain(**kw), 2),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "views": int(kw["cams"].shape[0]), "triangle_visits": visits,
+            "views": int(kw["cams"].shape[0]), "triangle_visits": n_visits,
             "shadow_triangle_visits": shadow_visits, "bytes": nbytes, "ops": ops,
+        }
+
+    visits_of = {}
+
+    def visits(kw):
+        key = (kw["geo"], kw["raster"], kw["rows"].data_ptr(), kw["cams"].data_ptr())
+        if key not in visits_of:
+            visits_of[key] = k1_triangle_tests(kw)
+        return visits_of[key]
+
+    def handoff_row(name, kw):
+        """K7's first launch alone (the render kernel's mip hand-off)."""
+        n_visits, n_shadow = visits(kw)
+        bound_ms, bound_by, nbytes, ops = k1_bound(kw, n_visits, n_shadow)
+        return {
+            "name": name, "route": "cuda",
+            "source": "madrona_renderer_tpu_torch/csrc/render_resident.cu",
+            "replaces": "madrona_renderer_tpu/ops/raytrace_pallas.py:4872",
+            "launches": launches[name], "max_abs_err": max_err[name],
+            "ms": graph_ms(lambda: handoff(kw), KERNEL_REPS),
+            "wrapper_ms": cuda_ms(lambda: handoff(kw), KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: handoff(kw, plain=True), 2),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "views": int(kw["cams"].shape[0]), "triangle_visits": n_visits,
+            "shadow_triangle_visits": n_shadow, "bytes": nbytes, "ops": ops,
+        }
+
+    def shade_row(name, kw):
+        """K7's second launch alone, on the card's hand-off."""
+        _, _, code, hf = handoff(kw)
+        bound_ms, bound_by, nbytes, ops = shade_mip_bound(kw, code)
+        return {
+            "name": name, "route": "cuda",
+            "source": "madrona_renderer_tpu_torch/csrc/shade_mip.cu",
+            "replaces": "madrona_renderer_tpu/ops/raytrace_pallas.py:3203",
+            "launches": launches[name], "max_abs_err": max_err[name],
+            "ms": graph_ms(lambda: shade(kw, code, hf), KERNEL_REPS),
+            "wrapper_ms": cuda_ms(lambda: shade(kw, code, hf), KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: shade(kw, code, hf, plain=True), 5),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "views": int(code.shape[0]), "bytes": nbytes, "ops": ops,
+        }
+
+    def k7_row(kw):
+        """Both K7 launches together, as the path runs them."""
+        n_visits, n_shadow = visits(kw)
+        _, _, b1, o1 = k1_bound(kw, n_visits, n_shadow)
+        _, _, b2, o2 = shade_mip_bound(kw, handoff(kw)[2])
+        bound_ms, bound_by = roofline(b1 + b2, o1 + o2)
+        name = variant(kw)
+        return {
+            "name": name, "route": "cuda",
+            "source": "madrona_renderer_tpu_torch/csrc/render_resident.cu + "
+                      "madrona_renderer_tpu_torch/csrc/shade_mip.cu",
+            "replaces": "madrona_renderer_tpu/ops/raytrace_pallas.py:4872",
+            "launches": min(launches[part] for part in name.split("+")),
+            "max_abs_err": max(max_err[part] for part in name.split("+")),
+            "ms": graph_ms(lambda: rc.render_resident(**kw), KERNEL_REPS),
+            "wrapper_ms": cuda_ms(lambda: rc.render_resident(**kw), KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: rc.render_resident_plain(**kw), 2),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "views": int(kw["cams"].shape[0]), "bytes": b1 + b2, "ops": o1 + o2,
         }
 
     rows = []
@@ -872,8 +1260,14 @@ def main() -> int:
         rows.append(k13_row(layout, *timing_kw[layout]))
         emit({"phase": "timing", **rows[-1]})
     for name in rc.VARIANTS:
-        rows.append(render_row(name, timing_kw[name]))
+        kw = timing_kw[name]
+        rows.append(handoff_row(name, kw) if is_k7(kw) else render_row(name, kw))
         emit({"phase": "timing", **rows[-1]})
+    for name in rc.SHADE_MIP_VARIANTS:
+        rows.append(shade_row(name, timing_kw[name]))
+        emit({"phase": "timing", **rows[-1]})
+    for kw in k7_timing:
+        emit({"phase": "timing", "inputs": "textured256_4096w", **k7_row(kw)})
     for name, path, inputs in extra_timing:
         row = k13_row(name, *inputs) if name in pack_cuda.LAYOUTS else render_row(name, inputs)
         emit({"phase": "timing", "inputs": path, **row})

@@ -45,10 +45,17 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P,  # rows clusters cams mats pool
          _I,  # n_mats
          _P, _P, _P,  # depth seg rgb
+         _P, _P,  # code handoff (the mip hand-off)
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
          _F, _F,  # two_over_w two_over_h
          _I, _I, _I,  # raster tex_filter geo
          _P],  # stream
+    ),
+    "shade_mip": (
+        "mrt_shade_mip",
+        [_P] * 6  # code handoff cams table pool rgb
+        + [_I] * 12  # num_views .. filter
+        + [_P],  # stream
     ),
     "pack_rows": (
         "mrt_pack_rows",

@@ -9,9 +9,9 @@ here is baked once on the host into flat, padded, statically-shaped arrays
 and moved to the device once.
 
 The numpy body is the JAX package's ``core/scene.py`` bake term for term
-(so both packages bake bitwise-identical scenes), restricted to what the
-port renders today: scenes whose texel pool fits the render kernel's
-resident budget, without mip chains (ROADMAP Queue 1 item 9 raises).
+(so both packages bake bitwise-identical scenes), mip chains included;
+author-provided container chains arrive only with KTX2 (ROADMAP Queue 1
+item 18) and raise.
 
   * Triangles are padded per object to a common ``T`` (multiple of 8);
     padding triangles are degenerate (zero area) **and** masked.
@@ -22,6 +22,11 @@ resident budget, without mip chains (ROADMAP Queue 1 item 9 raises).
     per-texture offset/width/height. A 1×1 white texture at index 0 and a
     default material row at index 0 let the shader treat every pixel
     uniformly (a missing texture is a multiply by 1).
+  * With mip chains (``mipmaps``), each texture's box-filtered chain down
+    to 1×1, laid out as ``[fallback region | fine levels]``: the region's
+    ``fb_rows`` rows of 128 texels hold every texture's coarse chain (the
+    levels from ``tex_fit_level`` on), the fine levels follow
+    (``ops/mips.py`` has the sampling semantics).
 """
 
 from __future__ import annotations
@@ -85,8 +90,9 @@ class SceneData:
     cl_max: torch.Tensor  # f32 [O, NC, 3]
     cl_valid: torch.Tensor  # f32 [O, NC]
     cl_count: torch.Tensor  # i32 [O, NC]
-    # Paged-texture fallback rows of the JAX bake (unused without mips;
-    # kept at the JAX default so the two bakes compare field for field).
+    # Rows of 128 texels in the pool's fallback region (mip chains; without
+    # them unused and kept at the JAX default so the two bakes compare
+    # field for field).
     fb_rows: int = 64
 
     @property
@@ -117,9 +123,110 @@ _TRI_ROWS = 32
 _DMA_CLUSTER = 32
 # The JAX bake's fallback-region rows when mips are off.
 TEX_FB_ROWS = 64
+# Rows of 128 texels in one tile's window over the fine levels: part of the
+# mip semantics, since it decides which pixels fall back to the coarse
+# chain (ops/mips.py).
+TEX_PAGE_ROWS = 128
 # Texel-pool rows of 128 texels the render kernel samples resident; past it
 # mipmaps="auto" turns mip chains on (the JAX bake's paged-texture switch).
 TEX_RESIDENT_ROWS = 128
+
+
+def _mip_next(img: np.ndarray) -> np.ndarray:
+    """One box-filtered mip step on u8 RGBA (odd dims edge-repeat,
+    round-half-up) — the mip definition both render paths share."""
+    h, w = img.shape[:2]
+    if h % 2:
+        img = np.concatenate([img, img[-1:]], axis=0)
+    if w % 2:
+        img = np.concatenate([img, img[:, -1:]], axis=1)
+    a = img[0::2, 0::2].astype(np.uint16)
+    b = img[1::2, 0::2].astype(np.uint16)
+    c = img[0::2, 1::2].astype(np.uint16)
+    d = img[1::2, 1::2].astype(np.uint16)
+    return ((a + b + c + d + 2) // 4).astype(np.uint8)
+
+
+def _fits_for(chains, budget_texels):
+    """Coarse-chain start per texture: the smallest level whose dims fit
+    ``fit_max``, shrinking ``fit_max`` until every coarse chain fits the
+    fallback-region budget together → (fit_max, fits), or (None, None)."""
+    for fit_max in (32, 16, 8, 4, 2, 1):
+        fits = [
+            next(i for i, m in enumerate(c) if max(m.shape[0], m.shape[1]) <= fit_max)
+            for c in chains
+        ]
+        coarse = sum(
+            sum(m.shape[0] * m.shape[1] for m in c[f:]) for c, f in zip(chains, fits)
+        )
+        if coarse <= budget_texels:
+            return fit_max, fits
+    return None, None
+
+
+def _mip_pool(textures):
+    """The mip-mapped texel pool (the JAX bake's mip branch): chains down
+    to 1×1; the fallback region sized to the fewest rows (16, 32, 64 or
+    128) that admit the fit the largest admits; the region first, padded
+    to ``fb_rows · 128`` texels, then the fine levels, base first; entries
+    past a chain repeat its 1×1 top. Returns (u8 pool [texels, 4],
+    tex_mip_offset, tex_mip_w, tex_mip_h, tex_fit_level, fb_rows)."""
+    chains = []
+    for tex in textures:
+        chain = [tex]
+        while chain[-1].shape[0] > 1 or chain[-1].shape[1] > 1:
+            chain.append(_mip_next(chain[-1]))
+        chains.append(chain)
+    n_levels = max(len(c) for c in chains)
+    fit_ref, fits = _fits_for(chains, 128 * 128)
+    if fits is None:
+        raise ValueError(
+            "too many textures for the 128-row fallback region (even 1×1 "
+            "chains overflow)"
+        )
+    fb_rows = 128
+    for cand in (16, 32, 64):
+        fm, f2 = _fits_for(chains, cand * 128)
+        if fm == fit_ref:
+            fb_rows, fits = cand, f2
+            break
+    k = len(textures)
+    tex_mip_offset = np.zeros((k, n_levels), np.int32)
+    tex_mip_w = np.zeros((k, n_levels), np.int32)
+    tex_mip_h = np.zeros((k, n_levels), np.int32)
+    pool = []
+    off = 0
+
+    def push(ci, level, m):
+        nonlocal off
+        tex_mip_offset[ci, level] = off
+        tex_mip_w[ci, level] = m.shape[1]
+        tex_mip_h[ci, level] = m.shape[0]
+        pool.append(m.reshape(-1, 4))
+        off += m.shape[0] * m.shape[1]
+
+    for ci, (c, f) in enumerate(zip(chains, fits)):
+        for level in range(f, len(c)):
+            push(ci, level, c[level])
+    if off < fb_rows * 128:
+        pool.append(np.zeros((fb_rows * 128 - off, 4), np.uint8))
+        off = fb_rows * 128
+    for ci, (c, f) in enumerate(zip(chains, fits)):
+        for level in range(f):
+            push(ci, level, c[level])
+        for level in range(len(c), n_levels):
+            tex_mip_offset[ci, level] = tex_mip_offset[ci, len(c) - 1]
+            tex_mip_w[ci, level] = 1
+            tex_mip_h[ci, level] = 1
+    if off > (1 << 24):
+        # Offsets travel as f32 in the kernel's mip table (exact below 2^24).
+        raise ValueError(
+            f"texture pool ({off} texels incl. mip chains) exceeds the "
+            "sampler's 2^24-texel offset range; split textures across scenes "
+            "or downsample"
+        )
+    return (np.concatenate(pool, axis=0), tex_mip_offset, tex_mip_w, tex_mip_h,
+            np.asarray(fits, np.int32), fb_rows)
 
 
 def bake_scene(
@@ -134,9 +241,8 @@ def bake_scene(
     Triangles of each object are Morton-sorted and clustered (see
     geometry/bvh.py) so the culled intersector can skip whole clusters.
 
-    ``mipmaps``: False, or "auto" (on iff the texel pool exceeds
-    ``TEX_RESIDENT_ROWS`` rows of 128 texels, as in the JAX bake). Mip
-    chains are ROADMAP Queue 1 item 9: a bake that needs them raises.
+    ``mipmaps``: True / False / "auto" (on iff the texel pool exceeds
+    ``TEX_RESIDENT_ROWS`` rows of 128 texels, as in the JAX bake).
     """
     objects = assets.objects
     num_objects = max(1, len(objects))
@@ -164,6 +270,11 @@ def bake_scene(
         mat_metal[i] = mat.metalness
 
     # --- Texture pool (entry 0 = 1x1 white) ---
+    if any(hasattr(t, "levels") for t in assets.textures):
+        raise NotImplementedError(
+            "container mip chains (KTX2) are not ported yet — ROADMAP Queue 1 "
+            "item 18"
+        )
     textures = [np.full((1, 1, 4), 255, np.uint8)]
     textures += [np.asarray(t, np.uint8) for t in assets.textures]
     k = len(textures)
@@ -177,23 +288,24 @@ def bake_scene(
     if mipmaps == "auto":
         mipmaps = -(-base_texels // 128) > TEX_RESIDENT_ROWS
     if mipmaps:
-        raise NotImplementedError(
-            f"mip-mapped textures are not ported yet ({base_texels} texels; "
-            f"mipmaps=auto turns them on past {TEX_RESIDENT_ROWS} rows of 128) "
-            "— ROADMAP Queue 1 item 9"
-        )
-    pool = []
-    off = 0
-    for i, tex in enumerate(textures):
-        h, w = tex.shape[0], tex.shape[1]
-        tex_offset[i] = off
-        pool.append(tex.reshape(-1, 4))
-        off += h * w
-    tex_data = np.concatenate(pool, axis=0).astype(np.float32) / 255.0
-    tex_mip_offset = tex_offset[:, None].copy()
-    tex_mip_w = tex_width[:, None].copy()
-    tex_mip_h = tex_height[:, None].copy()
-    tex_fit_level = np.zeros((k,), np.int32)
+        (pool, tex_mip_offset, tex_mip_w, tex_mip_h, tex_fit_level,
+         fb_rows) = _mip_pool(textures)
+        tex_offset = tex_mip_offset[:, 0].copy()
+        tex_data = pool.astype(np.float32) / 255.0
+    else:
+        fb_rows = TEX_FB_ROWS
+        pool = []
+        off = 0
+        for i, tex in enumerate(textures):
+            h, w = tex.shape[0], tex.shape[1]
+            tex_offset[i] = off
+            pool.append(tex.reshape(-1, 4))
+            off += h * w
+        tex_data = np.concatenate(pool, axis=0).astype(np.float32) / 255.0
+        tex_mip_offset = tex_offset[:, None].copy()
+        tex_mip_w = tex_width[:, None].copy()
+        tex_mip_h = tex_height[:, None].copy()
+        tex_fit_level = np.zeros((k,), np.int32)
 
     # --- Triangles, padded per object ---
     def object_tri_count(obj) -> int:
@@ -311,7 +423,7 @@ def bake_scene(
     )
     return SceneData(
         **{k: torch.from_numpy(v).to(device) for k, v in arrays.items()},
-        fb_rows=TEX_FB_ROWS,
+        fb_rows=fb_rows,
     )
 
 

@@ -1,7 +1,7 @@
-// K1 / K1-raw / K8 / K2 / K6: resident, cluster-culled, shaded ray-cast
-// with the fused export, on prep or raw geometry rows, with or without
-// shadow rays, in its raytrace and raster conventions, untextured or
-// textured.
+// K1 / K1-raw / K8 / K2 / K6, and the first launch of K7: resident,
+// cluster-culled, shaded ray-cast with the fused export, on prep or raw
+// geometry rows, with or without shadow rays, in its raytrace and raster
+// conventions, untextured, textured, or handing mip-mapped texturing on.
 //
 // Replaces madrona_renderer_tpu/ops/raytrace_pallas.py::_render_kernel in
 // its resident culled shaded variant (defer_attrs, fused_export), launched
@@ -25,7 +25,13 @@
 //   TEX (K6, textured=True): the winner resolve gathers the material and
 //     uv = uv0 + uc*duv1 + vc*duv2 (:2784-2787) instead of the premultiplied
 //     colour, and the shading samples the packed texel pool with nearest or
-//     bilinear filtering (:3051-3202).
+//     bilinear filtering (:3051-3202). TEX = mip (K7, tex_paged=True, the
+//     scenes baked with mip chains) resolves the material, uv and texel
+//     density (:2789-2796) and writes, instead of rgb, a per-pixel hand-off
+//     for csrc/shade_mip.cu, which picks each pixel's mip level, applies the
+//     per-tile window clamp and samples (:3203-3663): the material and the
+//     hit flags, uv, the footprint t * (2/height) * tan_y * density (:3237)
+//     and the three lambert sums (shadows applied).
 // The plain PyTorch version is ops/raytrace_cuda.py::render_resident_plain;
 // both compute the same expressions in the same order, so with --fmad=false
 // (no mul+add contraction) and IEEE divide/sqrt the two agree bit for bit.
@@ -70,6 +76,8 @@
 //   pool     i32 [texels] textured only: r | g << 8 | b << 16 of each texel
 //   depth    [W*C, H, Wd] f32, segmask i32, rgb packed u32 — the final
 //                         layout, written directly.
+//   code     i32 [W*C, H, Wd], handoff f32 [6, W*C, H, Wd] — the mip
+//                         hand-off, written instead of rgb (28 B a pixel).
 //
 // Bound on an H100: FP32 work per pixel is about 110 operations for ray
 // generation, resolve and shading (textured: some 30 more for the sample,
@@ -80,7 +88,8 @@
 // depend only on the light and the triangle: the work needs them once per
 // block, though each thread computes them. Each is its own instruction
 // under --fmad=false (so against half the published 67 TFLOP/s); the writes are
-// 12 B per pixel (about 200 MB per step at 4096 views x 64x64).
+// 12 B per pixel (about 200 MB per step at 4096 views x 64x64; in the mip
+// hand-off mode 36 B, about 600 MB).
 // chip_smoke.py works out the exact counts for its inputs. The texel pool
 // (at most 128 x 128 texels, 64 KB) stays in L1/L2: a texel read is one
 // cached 4-byte load (bilinear: four).
@@ -91,7 +100,7 @@
 // reads in the sweeps), the winner's attributes, the material row and the
 // texels read from global memory once per pixel. No wgmma or TMA: the work
 // is scalar per pixel. The three switches are template parameters, so each
-// of the 18 variants compiles to its own kernel with no runtime branch on
+// of the 24 variants compiles to its own kernel with no runtime branch on
 // them. Left for a later change: several views per block and persistent
 // blocks, to amortise the per-block setup; the shadow sweep's per-light
 // pvec, det and 1/det, which are per-triangle scalars, hoisted per block.
@@ -118,10 +127,15 @@ constexpr int kGeoPrep = 0;
 constexpr int kGeoRaw = 1;
 constexpr int kGeoRawShadows = 2;
 
-// Texture filters (the TEX template parameter).
+// Texture modes (the TEX template parameter): untextured, the in-kernel
+// filters, and the mip hand-off.
 constexpr int kTexNone = 0;
 constexpr int kTexNearest = 1;
 constexpr int kTexBilinear = 2;
+constexpr int kTexMip = 3;
+// Hand-off code bits above the material id.
+constexpr int kFoundBit = 1 << 16;
+constexpr int kShadedBit = 1 << 17;
 
 // The JAX constants: _EPS_DET, _EPS_BARY and 1 + _EPS_BARY are Python
 // floats rounded once to f32; AMBIENT and 1 - AMBIENT likewise; 1e-6 is the
@@ -245,15 +259,24 @@ __device__ __forceinline__ void textured_base(const float* __restrict__ mats,
 }
 
 // Everything a launch passes to the kernel.
+// The mip hand-off mode samples nothing and writes no rgb, so its two
+// outputs share the texture inputs' slots: the argument block keeps the
+// size it has without them (a larger one changes how the variants load it).
 struct RenderArgs {
   const float* rows;      // [W, 40, S]
   const float* clusters;  // [W, 8, CC]
   const float* cams;      // [W*C, NCOL]
-  const float* mats;      // [6, M] (textured)
-  const int* pool;        // [texels] (textured)
+  union {
+    const float* mats;    // [6, M] (textured)
+    float* handoff;       // [6, W*C, H, Wd] (mip): u, v, fp, lambert rgb
+  };
+  union {
+    const int* pool;      // [texels] (textured)
+    int* code;            // [W*C, H, Wd] (mip): material | hit flags
+  };
   float* depth;           // [W*C, H, Wd]
   int* segmask;
-  uint32_t* rgb;
+  uint32_t* rgb;          // (not mip)
   int n_mats, num_cams, S, CC, cluster_size, n_cols, n_lights, height, width,
       tiles_x, seg_div;
   float two_over_w, two_over_h;
@@ -418,6 +441,7 @@ render_resident_kernel(const RenderArgs a) {
   // premultiplied colour (rows 16-18); textured: material (row 15) and uv
   // (rows 0-5).
   float nx = 0.f, ny = 0.f, nz = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f;
+  float dens = 0.f;  // mip: the winner's texel density
   const bool found = best_idx >= 0;
   if (found && inside) {
     const int j = best_idx;
@@ -444,6 +468,7 @@ render_resident_kernel(const RenderArgs a) {
       a1 = g_attr[0 * S + j] + uc * g_attr[2 * S + j] + vc * g_attr[4 * S + j];
       a2 = g_attr[1 * S + j] + uc * g_attr[3 * S + j] + vc * g_attr[5 * S + j];
     }
+    if (TEX == kTexMip) dens = g_attr[19 * S + j];
   }
 
   // Two-sided: flip the normal toward the viewer (:2800-2804).
@@ -517,7 +542,7 @@ render_resident_kernel(const RenderArgs a) {
   // Base colour. A miss samples material 0 at uv (0, 0): in range, and
   // masked below.
   float br = a0, bg = a1, bb = a2;
-  if (TEX != kTexNone)
+  if (TEX == kTexNearest || TEX == kTexBilinear)
     textured_base<TEX>(a.mats, a.pool, a.n_mats, (int)a0, a1, a2, br, bg, bb);
 
   // Lambert over the lights (:3015-3035), an occluded light adding nothing
@@ -537,6 +562,22 @@ render_resident_kernel(const RenderArgs a) {
   const bool shaded_hit = RASTER ? found && z < s_cam[kCamFarZ] : found;
   const bool cam_ok = s_cam[kCamLight0 + 6 * a.n_lights] > 0.f;
   const bool hit = shaded_hit && cam_ok;
+  if (TEX == kTexMip) {
+    // The hand-off to csrc/shade_mip.cu. The mip level reads the ray
+    // distance t (raster too) of the geometric hit, 0 on a miss (:3237).
+    const size_t o = ((size_t)view * a.height + py) * a.width + px;
+    const size_t plane = (size_t)gridDim.x * a.height * a.width;
+    a.depth[o] = hit ? (RASTER ? z : best_t) : 0.f;
+    a.segmask[o] = hit && !RASTER ? best_idx / a.seg_div : -1;
+    a.code[o] = (int)a0 | (found ? kFoundBit : 0) | (shaded_hit ? kShadedBit : 0);
+    a.handoff[o] = a1;
+    a.handoff[plane + o] = a2;
+    a.handoff[2 * plane + o] = t_hit * a.two_over_h * tan_y * dens;
+    a.handoff[3 * plane + o] = sr;
+    a.handoff[4 * plane + o] = sg;
+    a.handoff[5 * plane + o] = sb;
+    return;
+  }
   const uint32_t packed = quantize(br, sr, shaded_hit) |
                           (quantize(bg, sg, shaded_hit) << 8) |
                           (quantize(bb, sb, shaded_hit) << 16) | kAlpha;
@@ -577,6 +618,7 @@ int launch_tex(const RenderArgs& a, int num_views, int tex_filter,
       return launch<GEO, RASTER, kTexNearest>(a, num_views, stream);
     case kTexBilinear:
       return launch<GEO, RASTER, kTexBilinear>(a, num_views, stream);
+    case kTexMip: return launch<GEO, RASTER, kTexMip>(a, num_views, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -595,22 +637,29 @@ extern "C" {
 // Launches the variant (geo, raster, tex_filter) on `stream`, on the
 // caller's current device: geo is 0 (prep rows), 1 (raw rows) or 2 (raw
 // rows with shadows, at most 32 lights); tex_filter is 0 (untextured), 1
-// (nearest) or 2 (bilinear), and mats/pool may be null when it is 0.
+// (nearest), 2 (bilinear) or 3 (the mip hand-off, written to code and
+// handoff instead of rgb); mats/pool may be null unless it is 1 or 2, and
+// rgb when it is 3, code/handoff unless it is 3.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unknown variant.
 int mrt_render_resident(const float* rows, const float* clusters,
                         const float* cams, const float* mats, const int* pool,
                         int n_mats, float* depth, int* segmask, uint32_t* rgb,
+                        int* code, float* handoff,
                         int num_views, int num_cams, int S, int CC,
                         int cluster_size, int n_cols, int n_lights, int height,
                         int width, int seg_div, float two_over_w,
                         float two_over_h, int raster, int tex_filter, int geo,
                         void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const RenderArgs a{rows, clusters, cams, mats, pool, depth, segmask, rgb,
-                     n_mats, num_cams, S, CC, cluster_size, n_cols, n_lights,
-                     height, width, (width + kTileX - 1) / kTileX, seg_div,
-                     two_over_w, two_over_h};
+  RenderArgs a{rows, clusters, cams, {mats}, {pool}, depth, segmask, rgb,
+               n_mats, num_cams, S, CC, cluster_size, n_cols, n_lights,
+               height, width, (width + kTileX - 1) / kTileX, seg_div,
+               two_over_w, two_over_h};
+  if (tex_filter == kTexMip) {
+    a.handoff = handoff;
+    a.code = code;
+  }
   if (geo == kGeoRawShadows && n_lights > 32) return (int)cudaErrorInvalidValue;
   switch (geo) {
     case kGeoPrep:

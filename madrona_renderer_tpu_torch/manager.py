@@ -85,7 +85,6 @@ def _check_config(cfg: ManagerConfig) -> None:
             "device (the CUDA kernel on the card, plain PyTorch on the CPU)"
         )
     unsupported = [
-        (cfg.mipmaps is True, "mipmaps=True", 9),
         (bool(cfg.watertight), "watertight=True", 11),
         (bool(cfg.warmstart), "warmstart=True", 12),
         (cfg.ssaa != 1, f"ssaa={cfg.ssaa}", 13),

@@ -1,4 +1,5 @@
-"""Batch raytracer: the render prologue, then kernel K1 (K1-raw, K8, K2, K6).
+"""Batch raytracer: the render prologue, then kernel K1 (K1-raw, K8, K2, K6,
+K7).
 
 The port of the main path of the JAX package's ``ops/raytrace_pallas.py``
 (``render_core``, :3998) for what its flags resolve to on scenes that fit
@@ -9,16 +10,20 @@ pack-time Möller–Trumbore rows (``prep``, ``uv_defer``: K1); with more than
 one camera per world or with shadows, the raw v0 / e1 / e2 rows with each
 view's own camera origin (K1-raw), plus a culled any-hit sweep per light
 when ``shadows`` (K8), as ``render_core`` resolves them (:4342-4355). Each
-is untextured (``shaded``) or takes the in-kernel texture route
-(``textured``, nearest or bilinear, K6), in the raytrace or the raster
-conventions (``raster_clip``, K2).
+is untextured (``shaded``), takes the in-kernel texture route
+(``textured``, nearest or bilinear, K6) or, on scenes baked with mip chains,
+the mip route (``tex_paged``, nearest, bilinear or trilinear, K7: the
+render kernel hands each pixel's material, uv, footprint and lambert sums
+to ``shade_mip``, which picks the level, clamps it to the tile's window and
+samples), in the raytrace or the raster conventions (``raster_clip``, K2).
 
   1. The prologue packs the inputs: ``pack_cuda.pack_rows`` (kernel K13 on
      the card; on the CPU ``_pack_rows_planar``, the JAX split layout with
      camera-origin prep rows or raw rows, term for term), then as torch ops
      ``_pack_cams`` and ``world_clusters`` + ``_pack_clusters`` (the
-     per-step TLAS refit), and for textured scenes the material table and
-     the packed texel pool (``shade.material_table`` / ``texel_pool``).
+     per-step TLAS refit), and for textured scenes the material table (with
+     mips the mip table) and the packed texel pool
+     (``shade.material_table`` / ``mip_table`` / ``texel_pool``).
   2. ``render_resident`` launches the kernel (``csrc/render_resident.cu``)
      for tensors on the card, or runs ``render_resident_plain`` — the
      same function in torch ops — for tensors on the CPU.
@@ -39,7 +44,7 @@ from .. import _build
 from ..core.frames import Frames
 from ..core.scene import SMEM_TRI_BUDGET, SceneData
 from ..core.state import SimState
-from . import pack_cuda, shade
+from . import mips, pack_cuda, shade
 from .quat import quat_rotate
 from .raytrace_ref import _EPS_BARY, _EPS_DET, SHADOW_EPS, planar_soup_parts
 from .shade import AMBIENT, packed_to_rgba8
@@ -65,8 +70,15 @@ _F_COS_FLOOR = float(np.float32(1e-6))
 _F_SHADOW_EPS = float(np.float32(SHADOW_EPS))
 _ALPHA = int(np.uint32(0xFF000000).view(np.int32))
 _CAM_FAR_Z = 16  # camera column of the z-space far clip (raster)
-# The kernel's texture switch: untextured, nearest, bilinear.
-_TEX_CODES = {None: 0, "nearest": 1, "bilinear": 2}
+# The render kernel's texture switch: untextured, nearest, bilinear, and
+# the mip hand-off (K7's first launch).
+_TEX_CODES = {None: 0, "nearest": 1, "bilinear": 2, "mip": 3}
+# shade_mip's filter switch.
+_MIP_FILTER_CODES = {"nearest": 0, "bilinear": 1, "trilinear": 2}
+_MIP_FB_ROWS = (16, 32, 64, 128)  # the bake's fallback-region sizes
+_HANDOFF_PLANES = 6  # u, v, footprint, lambert r, g, b
+_FOUND_BIT = 1 << 16
+_SHADED_BIT = 1 << 17
 # The kernel's geometry switch: prep rows, raw rows, raw rows with shadows.
 _GEO_CODES = {"prep": 0, "raw": 1, "raw_shadows": 2}
 _MAX_SHADOW_LIGHTS = 32  # one occlusion bit per light in the kernel
@@ -86,15 +98,28 @@ def is_textured(scene: SceneData) -> bool:
     return int(scene.tex_data.shape[0]) > 1
 
 
+def has_mips(scene: SceneData) -> bool:
+    """Mip chains in the bake (the JAX package's ``mips_on``)."""
+    return int(scene.tex_mip_offset.shape[1]) > 1
+
+
 def check_supported(state: SimState, scene: SceneData,
                     texture_filter: str = "nearest") -> None:
     """Raise ``NotImplementedError`` for a scene this slice does not render
     (``ValueError`` for a filter no route renders)."""
-    if int(scene.tex_mip_offset.shape[1]) > 1:
-        raise NotImplementedError(
-            "mip-mapped textures are not ported yet — ROADMAP Queue 1 item 9"
-        )
-    if is_textured(scene):
+    if is_textured(scene) and has_mips(scene):
+        if texture_filter not in shade.MIP_FILTERS:
+            raise ValueError(
+                f"texture_filter must be one of {shade.MIP_FILTERS}, got "
+                f"{texture_filter!r}"
+            )
+        if int(scene.mat_color.shape[0]) > shade.TEX_MAX_MATERIALS:
+            raise ValueError(
+                "mip-mapped texture pools need the paged kernel path — more "
+                f"than {shade.TEX_MAX_MATERIALS} materials are unsupported with "
+                "mipmaps (bake with mipmaps=False)"
+            )
+    elif is_textured(scene):
         if texture_filter == "trilinear":
             raise ValueError(
                 "trilinear filtering needs mip chains — bake the scene with "
@@ -320,11 +345,15 @@ def pack_inputs(
                                state.camera_pos[:, 0, :] if prep else None)
     cams = _pack_cams(state, scene, width, height, eff_fov, eff_near, far_t, far_z)
     clusters = _pack_clusters(*world_clusters(state, scene))
-    texture = mats = pool = None
+    texture = mats = pool = fb_rows = None
     if is_textured(scene):
         texture = texture_filter
-        mats = shade.material_table(scene)
         pool = shade.texel_pool(scene)
+        if has_mips(scene):
+            mats = shade.mip_table(scene)
+            fb_rows = scene.fb_rows
+        else:
+            mats = shade.material_table(scene)
     return dict(
         rows=rows,
         clusters=clusters.contiguous(),
@@ -339,27 +368,58 @@ def pack_inputs(
         mats=mats,
         pool=pool,
         geo=geo,
+        fb_rows=fb_rows,
     )
 
 
 # --------------------------------------------------------------------- #
-# Kernel K1 (K1-raw, K8, K2, K6) and its plain version
+# Kernel K1 (K1-raw, K8, K2, K6, K7's first launch) and its plain version
 # --------------------------------------------------------------------- #
 def variant_name(raster: bool, texture, geo: str = "prep") -> str:
-    """The name of one instantiation of the kernel: ``render_resident``
-    plus ``_raw`` (K1-raw) or ``_raw_shadows`` (K8), ``_raster`` (K2) and
-    ``_tex_nearest`` / ``_tex_bilinear`` (K6)."""
+    """The name of one instantiation of the render kernel:
+    ``render_resident`` plus ``_raw`` (K1-raw) or ``_raw_shadows`` (K8),
+    ``_raster`` (K2) and ``_tex_nearest`` / ``_tex_bilinear`` (K6) or
+    ``_tex_mip`` (the hand-off, K7's first launch)."""
     name = "render_resident" + ("" if geo == "prep" else f"_{geo}")
     name += "_raster" if raster else ""
     return name + (f"_tex_{texture}" if texture else "")
 
 
 VARIANTS = tuple(variant_name(r, t, g) for g in _GEO_CODES
-                 for r in (False, True) for t in (None, "nearest", "bilinear"))
+                 for r in (False, True) for t in _TEX_CODES)
+SHADE_MIP_VARIANTS = tuple(f"shade_mip_{f}" for f in shade.MIP_FILTERS)
+
+
+def _check_tensors(ref, tensors) -> None:
+    for name, t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, not {ref.device}")
+
+
+def _check_pool(pool, device, max_texels: int) -> None:
+    if pool.dtype != torch.int32 or not pool.is_contiguous() or pool.dim() != 1:
+        raise ValueError("pool must be a contiguous int32 [texels] tensor")
+    if pool.device != device:
+        raise ValueError(f"pool is on {pool.device}, not {device}")
+    if pool.shape[0] > max_texels:
+        raise ValueError(f"pool holds {pool.shape[0]} texels, over {max_texels}")
+
+
+def _check_mip_table(table, fb_rows) -> None:
+    if fb_rows not in _MIP_FB_ROWS:
+        raise ValueError(f"fb_rows must be one of {_MIP_FB_ROWS}, got {fb_rows!r}")
+    if (table.dim() != 2 or table.shape[0] < 7 or (table.shape[0] - 4) % 3
+            or table.shape[1] > shade.TEX_MAX_MATERIALS):
+        raise ValueError(f"the mip table must be [4 + 3L, M<={shade.TEX_MAX_MATERIALS}], "
+                         f"got {tuple(table.shape)}")
 
 
 def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
-                  seg_div, texture, mats, pool, geo) -> None:
+                  seg_div, texture, mats, pool, geo, fb_rows=None) -> None:
     if geo not in _GEO_CODES:
         raise ValueError(f"geo must be one of {tuple(_GEO_CODES)}, got {geo!r}")
     if geo == "prep" and num_cams != 1:
@@ -368,27 +428,24 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
         raise ValueError(f"shadows take at most {_MAX_SHADOW_LIGHTS} lights, got {n_lights}")
     tensors = [("rows", rows), ("clusters", clusters), ("cams", cams)]
     if texture is not None:
-        if texture not in shade.FILTERS:
-            raise ValueError(f"texture must be None or one of {shade.FILTERS}, got {texture!r}")
+        filters = shade.FILTERS if fb_rows is None else shade.MIP_FILTERS
+        if texture not in filters:
+            raise ValueError(f"texture must be None or one of {filters}, got {texture!r}")
         if mats is None or pool is None:
             raise ValueError("a textured render needs mats and pool")
         tensors.append(("mats", mats))
-        if pool.dtype != torch.int32 or not pool.is_contiguous() or pool.dim() != 1:
-            raise ValueError("pool must be a contiguous int32 [texels] tensor")
-        if pool.device != rows.device:
-            raise ValueError(f"pool is on {pool.device}, rows on {rows.device}")
-        if mats.dim() != 2 or mats.shape[0] != 6 or mats.shape[1] > shade.TEX_MAX_MATERIALS:
-            raise ValueError(
-                f"mats must be [6, M<={shade.TEX_MAX_MATERIALS}], got {tuple(mats.shape)}")
-        if pool.shape[0] > shade.TEX_MAX_TEXELS:
-            raise ValueError(f"pool holds {pool.shape[0]} texels, over {shade.TEX_MAX_TEXELS}")
-    for name, t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != rows.device:
-            raise ValueError(f"{name} is on {t.device}, rows on {rows.device}")
+        if fb_rows is None:
+            _check_pool(pool, rows.device, shade.TEX_MAX_TEXELS)
+            if (mats.dim() != 2 or mats.shape[0] != 6
+                    or mats.shape[1] > shade.TEX_MAX_MATERIALS):
+                raise ValueError(f"mats must be [6, M<={shade.TEX_MAX_MATERIALS}], "
+                                 f"got {tuple(mats.shape)}")
+        else:
+            _check_pool(pool, rows.device, 1 << 24)
+            _check_mip_table(mats, fb_rows)
+    elif fb_rows is not None:
+        raise ValueError("fb_rows is for textured scenes baked with mip chains")
+    _check_tensors(rows, tensors)
     if rows.dim() != 3 or rows.shape[1] != _N_GEO_ROWS + _N_ATTR_ROWS:
         raise ValueError(f"rows must be [W, 40, S], got {tuple(rows.shape)}")
     W, _, S = rows.shape
@@ -410,12 +467,16 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
 
 def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
                     height: int, width: int, seg_div: int, raster: bool = False,
-                    texture=None, mats=None, pool=None, geo: str = "prep"):
-    """The kernel, in the variant ``variant_name(raster, texture, geo)``. Returns ``(depth f32, segmask i32, rgb i32-packed)``, each
-    ``[W·C, height, width]``, in their final masked form: depth is t
+                    texture=None, mats=None, pool=None, geo: str = "prep",
+                    fb_rows=None):
+    """The render kernel. Returns ``(depth f32, segmask i32, rgb i32-packed)``,
+    each ``[W·C, height, width]``, in their final masked form: depth is t
     (raster: camera-plane z), segmask idx // seg_div (raster: -1).
     ``texture`` is None for an untextured scene, else the filter, with
-    ``mats`` / ``pool`` from ``shade.material_table`` / ``shade.texel_pool``.
+    ``mats`` / ``pool`` from ``shade.material_table`` / ``shade.texel_pool``;
+    with ``fb_rows`` (a scene baked with mip chains) ``mats`` is
+    ``shade.mip_table`` and the render is K7: the kernel's hand-off
+    (``render_handoff``), then ``shade_mip``.
     ``geo`` names the rows' layout (``pack_cuda.pack_rows``) and the sweep:
     ``"prep"`` (one camera per world), ``"raw"``, or ``"raw_shadows"``,
     which shades each light only where nothing lies between the hit point
@@ -426,12 +487,43 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
     launch adds one to ``render_resident.launches`` and to its variant's
     entry of ``render_resident.variant_launches``."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
-                  seg_div, texture, mats, pool, geo)
+                  seg_div, texture, mats, pool, geo, fb_rows)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height,
-              width=width, seg_div=seg_div, raster=raster, texture=texture,
-              mats=mats, pool=pool, geo=geo)
+              width=width, seg_div=seg_div, raster=raster, geo=geo)
     if rows.device.type == "cpu":
-        return render_resident_plain(rows, clusters, cams, **kw)
+        return render_resident_plain(rows, clusters, cams, texture=texture,
+                                     mats=mats, pool=pool, fb_rows=fb_rows, **kw)
+    if fb_rows is not None:
+        depth, seg, code, handoff = render_handoff(rows, clusters, cams, **kw)
+        rgb = shade_mip(code, handoff, cams, mats, pool, fb_rows=fb_rows,
+                        texture=texture, n_lights=n_lights)
+        return depth, seg, rgb
+    return _launch_render(rows, clusters, cams, texture=texture, mats=mats,
+                          pool=pool, **kw)
+
+
+def render_handoff(rows, clusters, cams, *, num_cams: int, n_lights: int,
+                   height: int, width: int, seg_div: int, raster: bool = False,
+                   geo: str = "prep"):
+    """K7's first launch: the render kernel in its mip hand-off mode.
+    Returns ``(depth, segmask, code, handoff)``: depth and segmask as
+    ``render_resident`` writes them, ``code`` i32 ``[W·C, H, Wd]`` (the
+    winner's material | geometric hit << 16 | shaded hit << 17) and
+    ``handoff`` f32 ``[6, W·C, H, Wd]`` (u, v, the footprint, the three
+    lambert sums with shadows applied). Launches on the card (counted as
+    ``render_resident``'s ``_tex_mip`` variant), ``render_handoff_plain``
+    on the CPU."""
+    _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
+                  seg_div, None, None, None, geo)
+    kw = dict(num_cams=num_cams, n_lights=n_lights, height=height,
+              width=width, seg_div=seg_div, raster=raster, geo=geo)
+    if rows.device.type == "cpu":
+        return render_handoff_plain(rows, clusters, cams, **kw)
+    return _launch_render(rows, clusters, cams, texture="mip", **kw)
+
+
+def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
+                   seg_div, raster, texture, geo, mats=None, pool=None):
     if rows.device.type != "cuda":
         raise ValueError(f"render_resident runs on cuda or cpu, not {rows.device}")
     W, _, S = rows.shape
@@ -441,18 +533,25 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
     if tiles > 65535:
         raise ValueError(f"{height}x{width} needs {tiles} tiles; the grid takes 65535")
     dev = rows.device
-    depth = torch.empty((WC, height, width), dtype=torch.float32, device=dev)
-    seg = torch.empty((WC, height, width), dtype=torch.int32, device=dev)
-    rgb = torch.empty((WC, height, width), dtype=torch.int32, device=dev)
-    textured = texture is not None
+    shape = (WC, height, width)
+    depth = torch.empty(shape, dtype=torch.float32, device=dev)
+    seg = torch.empty(shape, dtype=torch.int32, device=dev)
+    mip = texture == "mip"
+    sampled = texture in shade.FILTERS
+    if mip:
+        code = torch.empty(shape, dtype=torch.int32, device=dev)
+        handoff = torch.empty((_HANDOFF_PLANES,) + shape, dtype=torch.float32, device=dev)
+    else:
+        rgb = torch.empty(shape, dtype=torch.int32, device=dev)
     launch = _build.load("render_resident")
     with torch.cuda.device(dev):
         err = launch(
             rows.data_ptr(), clusters.data_ptr(), cams.data_ptr(),
-            mats.data_ptr() if textured else None,
-            pool.data_ptr() if textured else None,
-            int(mats.shape[1]) if textured else 0,
-            depth.data_ptr(), seg.data_ptr(), rgb.data_ptr(),
+            mats.data_ptr() if sampled else None,
+            pool.data_ptr() if sampled else None,
+            int(mats.shape[1]) if sampled else 0,
+            depth.data_ptr(), seg.data_ptr(), None if mip else rgb.data_ptr(),
+            code.data_ptr() if mip else None, handoff.data_ptr() if mip else None,
             WC, num_cams, S, CC, S // CC, int(cams.shape[1]), n_lights,
             height, width, seg_div,
             float(np.float32(2.0 / width)), float(np.float32(2.0 / height)),
@@ -463,11 +562,102 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
         raise RuntimeError(f"render_resident launch failed: {launch.error_string(err)}")
     render_resident.launches += 1
     render_resident.variant_launches[variant_name(raster, texture, geo)] += 1
-    return depth, seg, rgb
+    return (depth, seg, code, handoff) if mip else (depth, seg, rgb)
 
 
 render_resident.launches = 0
 render_resident.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+# --------------------------------------------------------------------- #
+# Kernel K7's second launch and its plain version
+# --------------------------------------------------------------------- #
+def _check_handoff(code, handoff, cams, table, pool, fb_rows, texture, n_lights):
+    if texture not in shade.MIP_FILTERS:
+        raise ValueError(f"texture must be one of {shade.MIP_FILTERS}, got {texture!r}")
+    if code.dtype != torch.int32 or code.dim() != 3 or not code.is_contiguous():
+        raise ValueError("code must be a contiguous int32 [V, H, Wd] tensor")
+    if handoff.shape != (_HANDOFF_PLANES,) + tuple(code.shape):
+        raise ValueError(f"handoff must be [{_HANDOFF_PLANES}, V, H, Wd], got "
+                         f"{tuple(handoff.shape)}")
+    _check_tensors(code, [("handoff", handoff), ("cams", cams), ("table", table)])
+    if cams.shape != (code.shape[0], _n_cam_cols(n_lights)):
+        raise ValueError(f"cams must be [{code.shape[0]}, {_n_cam_cols(n_lights)}], "
+                         f"got {tuple(cams.shape)}")
+    _check_pool(pool, code.device, 1 << 24)
+    _check_mip_table(table, fb_rows)
+
+
+def shade_mip(code, handoff, cams, table, pool, *, fb_rows: int, texture: str,
+              n_lights: int):
+    """K7's second launch (``csrc/shade_mip.cu``): from the hand-off of
+    ``render_handoff``, each pixel's mip level, the window clamp of its TPU
+    tile (``mips.tile_geometry``), the ``texture`` sample (nearest,
+    bilinear or trilinear) from the mip table ``table`` and the pool, and
+    the packed rgb ``[V, H, Wd]`` i32. Tensors on the card launch the
+    kernel (one add to ``shade_mip.launches`` and to the filter's entry of
+    ``shade_mip.variant_launches``); tensors on the CPU run
+    ``shade_mip_plain``."""
+    _check_handoff(code, handoff, cams, table, pool, fb_rows, texture, n_lights)
+    if code.device.type == "cpu":
+        return shade_mip_plain(code, handoff, cams, table, pool, fb_rows=fb_rows,
+                               texture=texture, n_lights=n_lights)
+    if code.device.type != "cuda":
+        raise ValueError(f"shade_mip runs on cuda or cpu, not {code.device}")
+    V, height, width = code.shape
+    tile_sub, tiles_x, n_tiles = mips.tile_geometry(height, width)
+    if n_tiles > 65535:
+        raise ValueError(f"{height}x{width} needs {n_tiles} tiles; the grid takes 65535")
+    rgb = torch.empty_like(code)
+    launch = _build.load("shade_mip")
+    with torch.cuda.device(code.device):
+        err = launch(
+            code.data_ptr(), handoff.data_ptr(), cams.data_ptr(), table.data_ptr(),
+            pool.data_ptr(), rgb.data_ptr(), V, int(cams.shape[1]),
+            _cam_valid_col(n_lights), int(table.shape[1]), mips.num_levels(table),
+            fb_rows, height, width, tile_sub, tiles_x, n_tiles,
+            _MIP_FILTER_CODES[texture],
+            torch.cuda.current_stream(code.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"shade_mip launch failed: {launch.error_string(err)}")
+    shade_mip.launches += 1
+    shade_mip.variant_launches[f"shade_mip_{texture}"] += 1
+    return rgb
+
+
+shade_mip.launches = 0
+shade_mip.variant_launches = dict.fromkeys(SHADE_MIP_VARIANTS, 0)
+
+
+def _pack_rgb(base, s, shaded_hit, cam_ok):
+    """RGBA8 of lambert + ambient 0.2 over the base colour, black where
+    nothing is shaded, opaque black for an invalid camera."""
+    def quantize(b, sk):
+        c = torch.clamp(b * (_F_AMBIENT + _F_DIFFUSE * sk), 0.0, 1.0)
+        c = torch.where(shaded_hit, c, 0.0)
+        return (c * 255.0 + 0.5).to(torch.int32)
+
+    packed = (
+        quantize(base[0], s[0])
+        | (quantize(base[1], s[1]) << 8)
+        | (quantize(base[2], s[2]) << 16)
+        | _ALPHA
+    )
+    return torch.where(cam_ok, packed, _ALPHA)
+
+
+def shade_mip_plain(code, handoff, cams, table, pool, *, fb_rows: int,
+                    texture: str, n_lights: int):
+    """``shade_mip`` in torch ops (``ops/mips.py``), on any device."""
+    V, height, width = code.shape
+    c = code.reshape(V, -1)
+    u, v, fp, *s = handoff.reshape(_HANDOFF_PLANES, V, -1)
+    base = mips.mip_base(table, pool, fb_rows, c & 0xFFFF, u, v, fp,
+                         (c & _FOUND_BIT) != 0, height, width, texture)
+    cam_ok = cams[:, _cam_valid_col(n_lights):_cam_valid_col(n_lights) + 1] > 0
+    rgb = _pack_rgb(base, s, (c & _SHADED_BIT) != 0, cam_ok)
+    return rgb.to(torch.int32).reshape(V, height, width)
 
 
 def plain_rays(cams, height: int, width: int):
@@ -541,13 +731,38 @@ def plain_triangle_test(dx, dy, dz, tri_rows, near, best_t=None, origin=None):
 def render_resident_plain(rows, clusters, cams, *, num_cams: int,
                           n_lights: int, height: int, width: int,
                           seg_div: int, raster: bool = False, texture=None,
-                          mats=None, pool=None, geo: str = "prep"):
+                          mats=None, pool=None, geo: str = "prep",
+                          fb_rows=None):
     """The kernel in torch ops, on any device: the same expressions in the
     same order, with no cluster cull (the culls only skip work). A loop over
     the S triangles carries (best_t, best_idx) — and on raw rows the
     winner's (u, v) — as ``[W·C, H·Wd]`` tensors; with shadows, a loop over
-    the S triangles per light ORs the occlusion."""
+    the S triangles per light ORs the occlusion. With ``fb_rows`` (K7):
+    ``render_handoff_plain``, then ``shade_mip_plain``."""
     del clusters  # the plain version sweeps every triangle
+    kw = dict(num_cams=num_cams, n_lights=n_lights, height=height, width=width,
+              seg_div=seg_div, raster=raster, geo=geo)
+    if fb_rows is None:
+        return _render_plain(rows, cams, texture=texture, mats=mats, pool=pool,
+                             **kw)
+    depth, seg, code, handoff = _render_plain(rows, cams, texture="mip", **kw)
+    return depth, seg, shade_mip_plain(code, handoff, cams, mats, pool,
+                                       fb_rows=fb_rows, texture=texture,
+                                       n_lights=n_lights)
+
+
+def render_handoff_plain(rows, clusters, cams, *, num_cams: int, n_lights: int,
+                         height: int, width: int, seg_div: int,
+                         raster: bool = False, geo: str = "prep"):
+    """``render_handoff`` in torch ops, on any device."""
+    del clusters  # the plain version sweeps every triangle
+    return _render_plain(rows, cams, num_cams=num_cams, n_lights=n_lights,
+                         height=height, width=width, seg_div=seg_div,
+                         raster=raster, texture="mip", geo=geo)
+
+
+def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
+                  raster, texture, geo, mats=None, pool=None):
     W, _, S = rows.shape
     WC = W * num_cams
     dev = rows.device
@@ -607,7 +822,8 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
         mat = attr(15)
         u = torch.where(found, attr(0) + uc * attr(2) + vc * attr(4), 0.0)
         v = torch.where(found, attr(1) + uc * attr(3) + vc * attr(5), 0.0)
-        base = list(shade.sample_texture(mats, pool, mat, u, v, texture))
+        if texture != "mip":
+            base = list(shade.sample_texture(mats, pool, mat, u, v, texture))
     ndotd = nx * dx + ny * dy + nz * dz
     flip = torch.where(ndotd > 0, -1.0, 1.0)
     nx = nx * flip
@@ -644,18 +860,6 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
         s = [s[k] + nd * cam(c0 + 3 + k) for k in range(3)]
 
     shaded_hit = found & (z < cam(_CAM_FAR_Z)) if raster else found
-
-    def quantize(b, sk):
-        c = torch.clamp(b * (_F_AMBIENT + _F_DIFFUSE * sk), 0.0, 1.0)
-        c = torch.where(shaded_hit, c, 0.0)
-        return (c * 255.0 + 0.5).to(torch.int32)
-
-    packed = (
-        quantize(base[0], s[0])
-        | (quantize(base[1], s[1]) << 8)
-        | (quantize(base[2], s[2]) << 16)
-        | _ALPHA
-    )
     cam_ok = cam(_cam_valid_col(n_lights)) > 0
     hit = shaded_hit & cam_ok
     if raster:
@@ -664,10 +868,17 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
     else:
         depth = torch.where(hit, best_t, 0.0)
         seg = torch.where(hit, torch.div(best_idx, seg_div, rounding_mode="floor"), -1)
-    rgb = torch.where(cam_ok, packed, _ALPHA)
     shape = (WC, height, width)
-    return (depth.reshape(shape), seg.to(torch.int32).reshape(shape),
-            rgb.to(torch.int32).reshape(shape))
+    depth, seg = depth.reshape(shape), seg.to(torch.int32).reshape(shape)
+    if texture == "mip":
+        # The hand-off: the mip level reads t (raster too), 0 on a miss.
+        fp = mips.footprint(t_hit, cam(13), height, attr(19))
+        code = (mat.to(torch.int32) | torch.where(found, _FOUND_BIT, 0)
+                | torch.where(shaded_hit, _SHADED_BIT, 0))
+        handoff = torch.stack([u, v, fp, *s]).reshape((_HANDOFF_PLANES,) + shape)
+        return depth, seg, code.to(torch.int32).reshape(shape), handoff
+    rgb = _pack_rgb(base, s, shaded_hit, cam_ok)
+    return depth, seg, rgb.to(torch.int32).reshape(shape)
 
 
 # --------------------------------------------------------------------- #

@@ -11,7 +11,9 @@ sides share:
     image), nearest or bilinear filtering — the JAX package's
     ``ops/shade.py`` sampling expressions, here on the kernel's inputs
     (the material table and the packed texel pool) so that the render
-    kernel's plain version samples exactly as the kernel does.
+    kernel's plain version samples exactly as the kernel does. Scenes
+    baked with mip chains sample through ``ops/mips.py`` on the mip table
+    (``mip_table``), and take trilinear filtering too.
   * Misses produce RGBA (0, 0, 0, 255), depth 0.0, segmask -1.
 """
 
@@ -25,6 +27,7 @@ AMBIENT = 0.2
 TEX_MAX_TEXELS = 128 * 128
 TEX_MAX_MATERIALS = 128
 FILTERS = ("nearest", "bilinear")
+MIP_FILTERS = FILTERS + ("trilinear",)
 
 
 def material_table(scene) -> torch.Tensor:
@@ -40,8 +43,27 @@ def material_table(scene) -> torch.Tensor:
     ]).contiguous()
 
 
+def mip_table(scene) -> torch.Tensor:
+    """``[4 + 3L, M]`` f32 for a scene with ``L`` mip levels: each
+    material's colour rgb, its texture's coarse fallback level, then the
+    offset, width and height of each level (exact in f32 below 2^24) — the
+    rows of the JAX kernel's paged param table
+    (``raytrace_pallas.py:4210-4224``) without its k/255 lookup rows, since
+    ``dequant`` is an IEEE divide."""
+    mt = scene.mat_tex.long()
+    f32 = torch.float32
+    rows = [scene.mat_color[:, 0], scene.mat_color[:, 1], scene.mat_color[:, 2],
+            scene.tex_fit_level[mt].to(f32)]
+    for level in range(int(scene.tex_mip_offset.shape[1])):
+        rows += [scene.tex_mip_offset[mt, level].to(f32),
+                 scene.tex_mip_w[mt, level].to(f32),
+                 scene.tex_mip_h[mt, level].to(f32)]
+    return torch.stack(rows).contiguous()
+
+
 def texel_pool(scene) -> torch.Tensor:
-    """i32 ``[texels]``: ``r | g << 8 | b << 16`` of each texel. The bake's
+    """i32 ``[texels]``: ``r | g << 8 | b << 16`` of each texel (with mip
+    chains the whole pool, fallback region and fine levels). The bake's
     texels are ``u8 / 255``, so the u8 round trip is exact
     (``raytrace_pallas.py:4185-4186``)."""
     q = (scene.tex_data * 255.0 + 0.5).to(torch.int32)

@@ -1,8 +1,10 @@
 """PyTorch port: it stands alone.
 
 The port (and chip_smoke.py) imports neither JAX nor any module of the JAX
-package; it renders on the CPU (raytraced, textured and rasterized) in a
-process where both are unimportable; and a CPU render launches no kernel.
+package; it renders on the CPU (raytraced, textured, mip-mapped and
+rasterized) in a process where both are unimportable; a CPU render
+launches no kernel; every kernel source under csrc/ has its launch
+signature, so the build covers it.
 """
 
 import ast
@@ -70,7 +72,11 @@ assert t.rgb_tensor().numpy().shape == (2, 32, 32, 4)
 ra = m.Manager(demo_config(2, m.RenderMode.Rasterizer, 32, 32, textured=True, tex_size=32,
                            device="cpu"))
 assert ra.depth_tensor().numpy().shape == (2, 32, 32, 1)
+mp = m.Manager(demo_config(2, m.RenderMode.Raytracer, 32, 32, textured=True, tex_size=256,
+                           texture_filter="trilinear", device="cpu"))
+assert raytrace_cuda.has_mips(mp.scene) and mp.rgb_tensor().numpy().shape == (2, 32, 32, 4)
 assert raytrace_cuda.render_resident.launches == 0
+assert raytrace_cuda.shade_mip.launches == 0
 assert sum(pack_cuda.pack_rows.layout_launches.values()) == 0
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "madrona_renderer_tpu") and sys.modules[k] is not None)
 assert not loaded, loaded
@@ -133,3 +139,32 @@ def test_cuda_tensor_never_falls_back():
     with pytest.raises(ValueError, match="cuda or cpu"):
         raytrace_cuda.render_resident(rows, clusters, cams, num_cams=1, n_lights=1,
                                       height=8, width=8, seg_div=8)
+
+
+def test_every_kernel_source_has_a_signature():
+    """Each csrc/*.cu builds into a library whose launch function _build
+    binds: none is left out of build_all or of load."""
+    from madrona_renderer_tpu_torch import _build
+
+    assert set(_build.sources()) == set(_build.SIGNATURES)
+    assert "shade_mip" in _build.sources()
+    for name in _build.sources():
+        symbol = _build.SIGNATURES[name][0]
+        assert f"int {symbol}(" in (_build.CSRC / f"{name}.cu").read_text()
+
+
+def test_shade_mip_never_falls_back():
+    """K7's second launch takes its plain version only for CPU tensors (here:
+    'meta' tensors raise)."""
+    import torch
+
+    from madrona_renderer_tpu_torch.ops import raytrace_cuda
+
+    code = torch.empty((1, 8, 8), dtype=torch.int32, device="meta")
+    handoff = torch.empty((6, 1, 8, 8), device="meta")
+    cams = torch.empty((1, 24), device="meta")
+    table = torch.empty((4 + 3 * 4, 2), device="meta")
+    pool = torch.empty((2048,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        raytrace_cuda.shade_mip(code, handoff, cams, table, pool, fb_rows=16,
+                                texture="trilinear", n_lights=1)

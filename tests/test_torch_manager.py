@@ -118,7 +118,6 @@ UNSUPPORTED = {
     "textures": (dict(texture_paths=["checker.ktx2"]), "item 18"),
     "textured_material": (dict(materials=[tm.AdditionalMaterial(texture_id=0)],
                                big_texture=True, mipmaps=False), "item 6"),
-    "mipmaps": (dict(mipmaps=True), "item 9"),
     "watertight": (dict(watertight=True), "item 11"),
     "warmstart": (dict(warmstart=True), "item 12"),
     "ssaa": (dict(ssaa=2), "item 13"),
@@ -126,24 +125,31 @@ UNSUPPORTED = {
     "asset_paths": (dict(asset_paths=[tm.ImportedAsset("cube.obj")]), "item 18"),
     "big_mesh": (dict(big=True), "item 8"),
 }
-# Options that raised until their slice was ported (items 7 and 10): each
-# now renders through MadronaRenderer and matches the JAX Manager.
+# Options that raised until their slice was ported (items 7, 9 and 10):
+# each now renders through MadronaRenderer, steps, and matches the JAX
+# Manager.
 PORTED = {
     "rasterizer": dict(render_mode=tm.RenderMode.Rasterizer, num_cams=2),
     "multi_camera": dict(num_cams=2),
     "shadows": dict(shadows=True),
+    "mipmaps": dict(mipmaps=True, textured=True, tex_size=32),
 }
 
 
 def _renders_like_jax(opts):
     opts = dict(opts)
     mode = opts.pop("render_mode", tm.RenderMode.Raytracer)
-    num_cams = opts.pop("num_cams", 1)
-    kw = renderer_kwargs(t_demo(2, mode, 16, 16, dynamic=True, num_cams=num_cams))
+    scene = dict(num_cams=opts.pop("num_cams", 1), textured=opts.pop("textured", False),
+                 tex_size=opts.pop("tex_size", 64))
+    kw = renderer_kwargs(t_demo(2, mode, 16, 16, dynamic=True, **scene))
     t = tm.MadronaRenderer(0, 2, mode, 16, 16, device="cpu", **kw, **opts)
     j = jm.Manager(j_demo(2, jm.RenderMode(mode.value), 16, 16, dynamic=True,
-                          num_cams=num_cams, impl="jnp", **opts))
-    assert t.rgb_tensor().shape == j.rgb_tensor().shape == (2 * num_cams, 16, 16, 4)
+                          impl="jnp", **scene, **opts))
+    n_views = 2 * scene["num_cams"]
+    assert t.rgb_tensor().shape == j.rgb_tensor().shape == (n_views, 16, 16, 4)
+    assert_frames_close(j.frames, t.frames)
+    t.step()
+    j.step()
     assert_frames_close(j.frames, t.frames)
 
 

@@ -180,8 +180,9 @@ def test_texel_pool_round_trips(textures):
 
 
 def test_big_pool_and_mips_raise(tmp_path):
-    """Past 128 rows of 128 texels the bake turns mips on (item 9); with
-    mipmaps=False the scene exceeds the in-kernel route (item 6)."""
+    """Past 128 rows of 128 texels the bake turns mips on and the scene
+    renders through the mip route; with mipmaps=False the scene exceeds the
+    in-kernel route (item 6), and trilinear without mips raises."""
     from madrona_renderer_tpu_torch.assets.importer import load_render_assets
     from madrona_renderer_tpu_torch.core.scene import bake_scene
     from madrona_renderer_tpu_torch.core.state import init_state
@@ -193,10 +194,13 @@ def test_big_pool_and_mips_raise(tmp_path):
 
     geo, mats, insts, cams, worlds = spec._parts(tcfg)
     assets = load_render_assets(geo, [], mats, spec.textures)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        bake_scene(assets, "cpu")
-    scene = bake_scene(assets, "cpu", mipmaps=False)
     state = init_state(insts, cams, worlds, "cpu")
+    mipped = bake_scene(assets, "cpu")
+    assert trc.has_mips(mipped)
+    frames = trc.raytrace(state, mipped, height=16, width=16, texture_filter="trilinear")
+    assert (frames.segmask.numpy() >= 0).any()
+    assert len(np.unique(frames.rgb.numpy().reshape(-1, 4), axis=0)) > 4
+    scene = bake_scene(assets, "cpu", mipmaps=False)
     with pytest.raises(NotImplementedError, match="item 6"):
         trc.raytrace(state, scene, height=16, width=16)
     with pytest.raises(ValueError, match="trilinear"):

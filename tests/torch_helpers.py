@@ -131,6 +131,73 @@ def quad_uvs(scale=1.0, shift=0.0):
     return uv * scale + shift
 
 
+def gradient_image(size=256):
+    """tests/test_mips.py's smooth RGBA gradient texture."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / (size - 1)
+    return np.stack([xx * 255, yy * 255, (xx + yy) * 127.5, np.full_like(xx, 255)],
+                    axis=-1).astype(np.uint8)
+
+
+def checker_image(size=256, cell=4):
+    """tests/test_mips.py's black-and-white checker texture."""
+    yy, xx = np.mgrid[0:size, 0:size]
+    c = ((yy // cell + xx // cell) % 2).astype(np.uint8) * 255
+    return np.stack([c, c, c, np.full_like(c, 255)], axis=-1)
+
+
+def mip_spec(tex_path, uv_scale=7.3, extra_mesh=None, n_worlds=1, num_cams=1):
+    """tests/test_mips.py's ``_scene``: a 120-unit textured floor 10 units
+    ahead of a camera at the origin, uvs tiled ``uv_scale`` times, and an
+    optional untextured extra mesh; with ``num_cams`` > 1, more cameras per
+    world beside the first, turned a little."""
+    meshes, uvs, mesh_mats = [quad_xz(60.0, 0.0)], [quad_uvs(uv_scale)], [0]
+    instances = [dict(position=[0, 10, 0], rotation=IDENTITY, scale=[1, 1, 1],
+                      object_id=0)]
+    if extra_mesh is not None:
+        meshes.append(extra_mesh)
+        uvs.append(np.zeros((len(extra_mesh), 2), np.float32))
+        mesh_mats.append(1)
+        instances.append(dict(position=[0, 0, 0], rotation=IDENTITY,
+                              scale=[1, 1, 1], object_id=1))
+    cameras = [dict(position=[0.0, 0.0, 0.0], rotation=IDENTITY)]
+    for c in range(1, num_cams):
+        yaw = 0.15 * c
+        cameras.append(dict(position=[0.7 * c, -0.5 * c, 0.3 * c],
+                            rotation=[float(np.cos(yaw / 2)), 0.0, 0.0,
+                                      float(np.sin(yaw / 2))]))
+    n_inst = len(instances)
+    return SceneSpec(
+        meshes=meshes, uvs=uvs, mesh_materials=mesh_mats,
+        instances=instances * n_worlds,
+        cameras=cameras * n_worlds,
+        worlds=[dict(num_instances=n_inst, instance_offset=n_inst * w,
+                     num_cameras=num_cams, camera_offset=num_cams * w)
+                for w in range(n_worlds)],
+        materials=[(1, 1, 1, 1), (0.9, 0.4, 0.3, 1.0)],
+        textures=[tex_path], material_textures=[0, -1],
+    )
+
+
+def two_quad_spec(tex_path, close_uv_lo, close_uv_hi):
+    """tests/test_mips.py's ``_two_quad_scene``: a far floor with uvs tiled
+    40 times behind a close-up quad whose uvs span [lo, hi], both textured
+    with the same material."""
+    span = close_uv_hi - close_uv_lo
+    return SceneSpec(
+        meshes=[quad_xz(60.0, 0.0), quad_xz(2.5, 4.0)],
+        uvs=[quad_uvs(40.0), quad_uvs(span, close_uv_lo)],
+        mesh_materials=[0, 0],
+        instances=[dict(position=[0, 10, 0], rotation=IDENTITY, scale=[1, 1, 1],
+                        object_id=0),
+                   dict(position=[0, 0, 0], rotation=IDENTITY, scale=[1, 1, 1],
+                        object_id=1)],
+        cameras=[dict(position=[0, 0, 0], rotation=IDENTITY)],
+        worlds=[dict(num_instances=2, instance_offset=0, num_cameras=1,
+                     camera_offset=0)],
+        materials=[(1, 1, 1, 1)], textures=[tex_path], material_textures=[0],
+    )
+
+
 def _unit(v):
     v = np.asarray(v, np.float64)
     return (v / np.linalg.norm(v)).tolist()
