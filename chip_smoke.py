@@ -26,8 +26,15 @@ printed as JSON lines:
                also at 64x256 and with two cameras; the overflow floor; the
                uv-seam close-up at 48x48; the close-up whose trilinear blend
                dies), with a ``k7_levels`` line per scene: pixels per level,
-               pixels clamped to the coarse chain, blends killed;
-  4. paths   — the six paths of the port, each through MadronaRenderer and
+               pixels clamped to the coarse chain, blends killed; then every
+               variant of the streamed route (K3 + K5, ``render_streamed*``)
+               bitwise on bench.py's big-mesh scene with a per-world terrain
+               yaw and cube position (also with two cameras, a 32x32 texture
+               and a 256x256 mip-mapped one), on the streamed scenes of
+               tests/test_pallas_parity.py and tests/test_shadows.py, and on
+               the tie scene (exact-t ties across clusters go to the lower
+               index, a ``tie`` line counts the pixels);
+  4. paths   — the seven paths of the port, each through MadronaRenderer and
                stepped with a position mutation through the exported tensor
                between steps, with every launch count set to 0 just before
                and read just after:
@@ -45,6 +52,12 @@ printed as JSON lines:
                                   x 64x64 of a cube and a plane both
                                   textured with a 256x256 checker, which
                                   bakes mip chains (K7, nearest);
+                 bigmesh_512w     bench.py's big-mesh row: 512 worlds x
+                                  64x64 of a 10,368-triangle terrain and a
+                                  cube (S = 20,736 triangles per world, past
+                                  the resident budget: K3 + K5, with the
+                                  walk replayed in torch ops, its frames
+                                  held to the exports and its work counted);
                then, on each path's last inputs at full size, the kernels
                against the exported frames and their plain versions (and
                for shadows_4096w the unshadowed render of the same rows:
@@ -55,7 +68,12 @@ printed as JSON lines:
   5. timing  — each kernel at its path's full-size inputs: its device time
                in a CUDA graph of back-to-back launches, its time through
                the wrapper (host overhead included), its plain version's
-               time, its bound; then, in lines with an ``inputs`` key that
+               time, its bound (on the streamed route from the walk the
+               data makes: the clusters streamed, the positions gated, the
+               slab and triangle tests; the streamed variants that
+               bigmesh_512w does not run are timed on the 64-world inputs of
+               their first scene of phase 3); then, in lines with an
+               ``inputs`` key that
                the kernels line leaves out, K13's raw layout on
                multicam_1024w4c's 1024 worlds, the raw sweep on main's
                one-camera rows (beside a ``prep_vs_raw`` line of phase 4
@@ -91,6 +109,7 @@ WARMUP_STEPS = 3
 TIMED_STEPS = 20
 RASTER_TIMED_STEPS = 60
 PAGED_TEX_SIZE = 256
+BIGMESH_WORLDS = 512
 MIP_FILTERS = ("nearest", "bilinear", "trilinear")
 KERNEL_REPS = 50
 SMALL_WORLDS = 64
@@ -176,6 +195,20 @@ K13_OPS_PER_SLOT = {"pack_rows": 6 * 30 + 12 + 1 + 24 + 9 + 26 + 1 + 41,
 # and texture id; per texture width and height.
 K13_FLOATS_PER_INSTANCE = 3 + 4 + 3 + 1 + 1
 K13_FLOATS_PER_TRIANGLE = 6 * 3 + 3 * 2 + 2
+# The streamed route's FP32 operations (csrc/render_resident.cu, STREAM),
+# counted as above on top of K1's per-thread fixed work: per block and
+# position the walk reaches, the approach distance (12 for the per-axis
+# gaps, 5 for the squares and sums, 1 for the slack: the same for every
+# thread, so charged once a block) and per thread the early-exit test (2);
+# per thread and position past the row gate the slab test (26: K1's 25 and
+# the tie slack); per triangle test 28 on prep rows and 37 on raw rows
+# (K1's and the tie compare), the raw rows' tv, q and t_num (17) once per
+# block and staged triangle. The shadow walk gates every cluster per light
+# (24 per thread) and tests as K8 does.
+K5_OPS_APPROACH = 18
+K5_OPS_EXIT = 2
+K5_OPS_SLAB = 26
+K5_OPS_PER_TRIANGLE = {"prep": 28, "raw": 37}
 
 
 def emit(obj) -> None:
@@ -458,6 +491,93 @@ def mip_scene(kind: str, n_worlds: int, cfg_mod, tex: str):
     return geometry(cfg_mod, meshes, uvs, mesh_mats), mats, [tex], insts, cams, worlds
 
 
+def cloud_mesh(seed: int, n_tris: int = 3600, spread: float = 10.0, y_lo: float = 4.0,
+               y_hi: float = 40.0, jitter: float = 0.4) -> np.ndarray:
+    """tests/test_pallas_parity.py's random triangle cloud ahead of a camera
+    at the origin looking +y."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-spread, spread, size=(n_tris, 3)).astype(np.float32)
+    centers[:, 1] = rng.uniform(y_lo, y_hi, size=n_tris)
+    tris = np.repeat(centers, 3, axis=0)
+    tris[1::3] += rng.normal(size=(n_tris, 3)).astype(np.float32) * jitter
+    tris[2::3] += rng.normal(size=(n_tris, 3)).astype(np.float32) * jitter
+    return tris
+
+
+def bigmesh_scene(n_worlds: int, cfg_mod, scenes, vary: bool = False, num_cams: int = 1,
+                  texture=None):
+    """bench.py's ``bigmesh_512w`` scene (tools/tpu_bigmesh_bench.py:44-90):
+    the 72x72 terrain (10,368 triangles) at the origin and the demo cube
+    scaled 2 at (0, 0, 2.5), one camera per world at (0, 14, 6) pitched
+    -0.25. With ``vary``, world w's terrain turns by a yaw of 0.05·w and its
+    cube moves 0.1·w along x, so the worlds' visit orders differ; further
+    cameras of a world stand 1.5 apart along x; with a ``texture`` path the
+    terrain's uvs are its xy / 8 and its material samples the texture."""
+    terrain = scenes.terrain_mesh()
+    cube_v, cube_uv = scenes.cube_mesh()
+    uvs = [terrain[:, :2] / 8.0 if texture else np.zeros((len(terrain), 2), np.float32),
+           cube_uv]
+    mats = [cfg_mod.AdditionalMaterial((0.35, 0.5, 0.3, 1.0), texture_id=0 if texture else -1),
+            cfg_mod.AdditionalMaterial((0.9, 0.3, 0.2, 1.0))]
+    ps, pc = math.sin(-0.25 / 2), math.cos(-0.25 / 2)
+    insts, cams, worlds = [], [], []
+    for w in range(n_worlds):
+        yaw = 0.05 * w if vary else 0.0
+        insts += [cfg_mod.ImportedInstance([0, 0, 0], [math.cos(yaw / 2), 0, 0, math.sin(yaw / 2)],
+                                           [1, 1, 1], object_id=0),
+                  cfg_mod.ImportedInstance([0.1 * w if vary else 0.0, 0, 2.5], [1, 0, 0, 0],
+                                           [2, 2, 2], object_id=1)]
+        for c in range(num_cams):
+            cams.append(cfg_mod.ImportedCamera([1.5 * c, 14.0, 6.0], [0.0, 0.0, ps, pc]))
+        worlds.append(cfg_mod.WorldInit(2, 2 * w, num_cams, num_cams * w))
+    return (geometry(cfg_mod, [terrain, cube_v], uvs, [0, 1]), mats,
+            [texture] if texture else [], insts, cams, worlds)
+
+
+def streamed_test_scene(kind: str, n_worlds: int, cfg_mod):
+    """The streamed scenes of tests/test_pallas_parity.py and
+    tests/test_shadows.py, per world, the instances of world w moved 0.01·w
+    along x: ``cloud`` (3,600 triangles ahead of a camera at the origin,
+    :176), ``instances64`` (64 instances of a 500-triangle cloud, 64-triangle
+    clusters, :204), ``hetero`` (two instances, every other world holding
+    only the first, :596), ``two_cams`` (two cameras per world, :634); and
+    ``tie``: instance 0 a quad 10 ahead of the camera, instance 1 the same
+    quad at the same pose with a small triangle 5 ahead, so that its cluster
+    comes first in the visit order while every pixel of the quad ties
+    between the two (the lower index, instance 0, wins), and a 3,600-triangle
+    cloud behind the camera that makes the mesh streamed."""
+    ident = [1.0, 0.0, 0.0, 0.0]
+    num_cams = 2 if kind == "two_cams" else 1
+    if kind == "instances64":
+        meshes = [cloud_mesh(13, 500, 6.0, 4.0, 25.0, 0.5)]
+        per_world = [([(i % 8 - 3.5) * 2, 0, (i // 8 - 3.5) * 2], [0.5] * 3, 0)
+                     for i in range(64)]
+    elif kind == "tie":
+        small = np.asarray([[-0.5, -5.0, -0.5], [0.5, -5.0, -0.5], [0.0, -5.0, 0.5]],
+                           np.float32)
+        quad = quad_xz(4.0)
+        meshes = [quad, np.concatenate([quad, small]), cloud_mesh(11)]
+        per_world = [([0, 10, 0], [1] * 3, 0), ([0, 10, 0], [1] * 3, 1),
+                     ([0, -60, 0], [1] * 3, 2)]
+    else:
+        meshes = [cloud_mesh({"cloud": 11, "hetero": 41, "two_cams": 43}[kind])]
+        per_world = [([0, 0, 0], [1] * 3, 0)]
+        if kind == "hetero":
+            per_world.append(([3, 5, 0], [0.5] * 3, 0))
+    insts, cams, worlds = [], [], []
+    for w in range(n_worlds):
+        n_inst = 1 if kind == "hetero" and w % 2 else len(per_world)
+        for pos, scale, obj in per_world[:n_inst]:
+            insts.append(cfg_mod.ImportedInstance([pos[0] + 0.01 * w, pos[1], pos[2]], ident,
+                                                  scale, object_id=obj))
+        cams.append(cfg_mod.ImportedCamera([0, 0, 0], ident))
+        if num_cams == 2:
+            cams.append(cfg_mod.ImportedCamera([5, -2, 1], [0.96, 0, 0, 0.28]))
+        worlds.append(cfg_mod.WorldInit(n_inst, len(insts) - n_inst, num_cams, num_cams * w))
+    uvs = [np.zeros((len(m), 2), np.float32) for m in meshes]
+    return geometry(cfg_mod, meshes, uvs, [-1] * len(meshes)), [], [], insts, cams, worlds
+
+
 def compare_outputs(k, p) -> dict:
     """Kernel outputs vs plain outputs: rgb bytes, depth, segmask."""
     (kd, ks, kc), (pd, ps, pc) = k, p
@@ -607,6 +727,49 @@ def k1_bound(kw: dict, visits: int, shadow_visits: int) -> tuple:
     return roofline(nbytes, ops) + (nbytes, ops)
 
 
+def k5_bound(kw: dict, walk: dict) -> tuple:
+    """Least time for the streamed render kernel's work on these inputs,
+    from the walk this run's data makes (``walk_replay.streamed_walk``):
+    the rows of every (world, cluster) some block streams read once (10 prep
+    rows, or 9 raw rows), the winners' attribute rows (prep: and their 9 prep
+    rows for the uv), the cluster table, each view's order and spans, the
+    camera rows and the pixels written; against the FP32 operations of the
+    positions the blocks gate, the slab tests and the triangle tests they
+    make (ms, 'bytes'|'operations', bytes, operations)."""
+    W, _, S = kw["rows"].shape
+    CC = kw["clusters"].shape[2]
+    size = S // CC
+    views = kw["cams"].shape[0]
+    pixels = views * kw["height"] * kw["width"]
+    blocks = views * math.ceil(kw["height"] / 16) * math.ceil(kw["width"] / 16)
+    threads = blocks * K1_THREADS_PER_BLOCK
+    tex = "mip" if kw.get("fb_rows") is not None else kw["texture"]
+    lights = kw["n_lights"]
+    geo = "prep" if kw["geo"] == "prep" else "raw"
+    nbytes = (walk["clusters_streamed"] * K1_GEO_ROWS[geo] * size * 4
+              + walk["winners"] * (K1_ATTR_ROWS[tex] + (9 if geo == "prep" else 0)) * 4
+              + kw["clusters"].numel() * 4 + views * 3 * CC * 4 + kw["cams"].numel() * 4
+              + pixels * K1_OUT_BYTES["mip" if tex == "mip" else "rgb"])
+    if tex in ("nearest", "bilinear"):
+        nbytes += kw["mats"].numel() * 4 + kw["pool"].numel() * 4
+    per_thread = (K1_OPS_FIXED[geo] + K1_OPS_PER_LIGHT * lights + K1_OPS_TEX[tex]
+                  + (K1_OPS_RASTER if kw["raster"] else 0))
+    reached = walk["gated"] + blocks  # the positions gated and each block's last
+    ops = (threads * per_thread
+           + reached * (K5_OPS_APPROACH + K1_THREADS_PER_BLOCK * K5_OPS_EXIT)
+           + walk["slab_tests"] * K1_THREADS_PER_BLOCK * K5_OPS_SLAB
+           + walk["triangle_visits"] * K1_THREADS_PER_BLOCK * K5_OPS_PER_TRIANGLE[geo])
+    if geo == "raw":
+        ops += walk["triangle_visits"] * K1_OPS_RAW_HOIST
+    if kw["geo"] == "raw_shadows":
+        ops += (threads * (K8_OPS_FIXED + K8_OPS_PER_LIGHT * lights
+                           + K8_OPS_PER_CLUSTER * CC * lights)
+                + views * lights * K8_OPS_PER_VIEW_LIGHT
+                + walk["shadow_triangle_visits"] * (K1_THREADS_PER_BLOCK * K8_OPS_PER_TRIANGLE
+                                                    + K8_OPS_PER_BLOCK_TRIANGLE))
+    return roofline(nbytes, ops) + (nbytes, ops)
+
+
 def shade_mip_bound(kw: dict, code) -> tuple:
     """Least time for shade_mip's work on this hand-off: the hand-off read
     and the rgb written once, the mip table, pool and camera rows read
@@ -659,7 +822,7 @@ def main() -> int:
     from madrona_renderer_tpu_torch.assets.importer import load_render_assets
     from madrona_renderer_tpu_torch.core.scene import bake_scene, configure_lighting
     from madrona_renderer_tpu_torch.core.state import init_state
-    from madrona_renderer_tpu_torch.ops import mips, pack_cuda
+    from madrona_renderer_tpu_torch.ops import mips, pack_cuda, walk_replay
     from madrona_renderer_tpu_torch.ops import raytrace_cuda as rc
     from madrona_renderer_tpu_torch.runners import scenes
 
@@ -695,14 +858,17 @@ def main() -> int:
     def is_k7(kw):
         return kw.get("fb_rows") is not None
 
+    def streamed(kw):
+        return kw.get("order") is not None
+
     def handoff_name(kw):
-        return rc.variant_name(kw["raster"], "mip", kw["geo"])
+        return rc.variant_name(kw["raster"], "mip", kw["geo"], streamed(kw))
 
     def variant(kw):
         """The render kernel's variant; for K7 its two launches' names."""
         if is_k7(kw):
             return f"{handoff_name(kw)}+shade_mip_{kw['texture']}"
-        return rc.variant_name(kw["raster"], kw["texture"], kw["geo"])
+        return rc.variant_name(kw["raster"], kw["texture"], kw["geo"], streamed(kw))
 
     def check_render(tag, kw):
         name = variant(kw)
@@ -722,7 +888,18 @@ def main() -> int:
               "hit_share": float((k_out[0] > 0).float().mean()), **c})
         return k_out
 
-    handoff_keys = ("num_cams", "n_lights", "height", "width", "seg_div", "raster", "geo")
+    handoff_keys = ("num_cams", "n_lights", "height", "width", "seg_div", "raster", "geo",
+                    "order", "spans")
+
+    walk_of = {}
+
+    def walks(kw):
+        """The streamed kernel's walk on these inputs, replayed in torch ops
+        (ops/walk_replay.py): its frames and its work."""
+        key = (kw["geo"], kw["raster"], kw["rows"].data_ptr(), kw["cams"].data_ptr())
+        if key not in walk_of:
+            walk_of[key] = walk_replay.streamed_walk(**kw)
+        return walk_of[key]
 
     def handoff(kw, plain=False):
         fn = rc.render_handoff_plain if plain else rc.render_handoff
@@ -863,7 +1040,61 @@ def main() -> int:
     if not (totals["clamped_bilinear"] and totals["blend_killed"]):
         raise AssertionError(f"the mip scenes did not exercise the clamp and the kill: {totals}")
 
-    # ---- 4. the six paths ---------------------------------------------- #
+    # K3 + K5, the streamed route: every variant bitwise against its plain
+    # version at 64 worlds on bench.py's big-mesh scene with per-world
+    # orders (also with two cameras, a 32x32 texture and a 256x256
+    # mip-mapped one), on the streamed scenes of the JAX tests and on the
+    # tie scene. The first scene that runs a variant gives its timing inputs.
+    streamed_cases = {
+        "bigmesh64": bigmesh_scene(SMALL_WORLDS, cfg_mod, scenes, vary=True),
+        "bigmesh64_2cams": bigmesh_scene(SMALL_WORLDS, cfg_mod, scenes, vary=True, num_cams=2),
+        "bigmesh64_tex32": bigmesh_scene(SMALL_WORLDS, cfg_mod, scenes, vary=True,
+                                         texture=tex_png),
+        "bigmesh64_2cams_tex32": bigmesh_scene(SMALL_WORLDS, cfg_mod, scenes, vary=True,
+                                               num_cams=2, texture=tex_png),
+        "bigmesh64_mip256": bigmesh_scene(SMALL_WORLDS, cfg_mod, scenes, vary=True,
+                                          texture=gradient_png),
+        "cloud64": streamed_test_scene("cloud", SMALL_WORLDS, cfg_mod),
+        "instances64": streamed_test_scene("instances64", SMALL_WORLDS, cfg_mod),
+        "hetero64": streamed_test_scene("hetero", SMALL_WORLDS, cfg_mod),
+        "two_cams64": streamed_test_scene("two_cams", SMALL_WORLDS, cfg_mod),
+        "tie64": streamed_test_scene("tie", SMALL_WORLDS, cfg_mod),
+    }
+    streamed_kw = {}
+    for tag, parts in streamed_cases.items():
+        geo, mats, textures, insts, cams, worlds = parts
+        scene = bake_scene(load_render_assets(geo, [], mats, textures), dev)
+        state = init_state(insts, cams, worlds, dev)
+        if not rc.is_streamed(state, scene):
+            raise AssertionError(f"{tag}: the scene fits the resident budget")
+        mip = rc.has_mips(scene)
+        filters = (MIP_FILTERS if mip else ("nearest", "bilinear") if rc.is_textured(scene)
+                   else ("nearest",))
+        for shadows in (False, True):
+            lit = (configure_lighting(scene, lights=[((0.5, 1.0, 0.0), (1.0, 1.0, 1.0))])
+                   if shadows and tag == "cloud64" else scene)  # tests/test_shadows.py:176
+            for raster in (False, True):
+                for filt in filters:
+                    kw = rc.pack_inputs(state, lit, raster=raster, texture_filter=filt,
+                                        near=0.001 if raster else 0.1, shadows=shadows,
+                                        height=HEIGHT, width=WIDTH)
+                    out = check_k7(tag, kw)[:2] if mip else check_render(tag, kw)
+                    streamed_kw.setdefault(handoff_name(kw) if mip else variant(kw), kw)
+                    if mip and not shadows:
+                        # The one-camera mip scene on the raw rows too.
+                        kw = dict(kw, rows=pack_cuda.pack_rows(state, lit), geo="raw")
+                        check_k7(tag, kw)
+                        streamed_kw.setdefault(handoff_name(kw), kw)
+                    if tag == "tie64" and not raster:
+                        # The quad's pixels tie between instances 0 and 1:
+                        # instance 0 wins them; instance 1 keeps the small
+                        # triangle in front.
+                        tie = {v: int((out[1] == v).sum()) for v in (0, 1)}
+                        emit({"phase": "tie", "shadows": shadows, "pixels": tie})
+                        if tie[0] <= tie[1]:
+                            raise AssertionError(f"tie64: the ties did not go to instance 0: {tie}")
+
+    # ---- 4. the seven paths -------------------------------------------- #
     def reset_counts():
         rc.render_resident.launches = 0
         rc.render_resident.variant_launches = dict.fromkeys(rc.VARIANTS, 0)
@@ -1161,6 +1392,33 @@ def main() -> int:
     add_launches(counts)
     del r
 
+    # bigmesh_512w: bench.py's big-mesh row, past the resident budget: the
+    # streamed route (K3 + K5).
+    r, step_s, counts, ctor_s, name = drive(
+        "bigmesh_512w", m.RenderMode.Raytracer, BIGMESH_WORLDS, False, TIMED_STEPS,
+        cfg=scenes.bigmesh_config(BIGMESH_WORLDS, WIDTH, HEIGHT))
+    kw = full_size_checks("bigmesh_512w", r, name)
+    if not streamed(kw):
+        raise AssertionError("bigmesh_512w: the terrain did not take the streamed route")
+    timing_kw[name] = kw
+    # The walk this run's data makes, replayed: the frames of the exports,
+    # and a fraction of the index-order sweep's triangle tests.
+    walk = walks(kw)
+    blocks = BIGMESH_WORLDS * (HEIGHT // 16) * (WIDTH // 16)
+    S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
+    if not (torch.equal(walk["depth"], r.depth_tensor().to_torch())
+            and torch.equal(walk["segmask"], r.segmask_tensor().to_torch())):
+        raise AssertionError("bigmesh_512w: the replayed walk differs from the exports")
+    if not 0 < walk["triangle_visits"] < blocks * S:
+        raise AssertionError(f"bigmesh_512w: {walk['triangle_visits']} triangle tests")
+    bake = {"tris_per_world": S, "clusters_per_world": CC,
+            "valid_clusters_per_world": int((kw["clusters"][0, 6] > 0).sum()),
+            "triangle_share_tested": walk["triangle_visits"] / (blocks * S),
+            **{k: v for k, v in walk.items() if k not in ("depth", "segmask")}}
+    time_path("bigmesh_512w", r, step_s, counts, ctor_s, bake)
+    add_launches(counts)
+    del r
+
     # ---- timings of every kernel at its path's full-size inputs --------- #
     def k13_row(layout, state, scene):
         cam = state.camera_pos[:, 0, :].contiguous() if layout == "pack_rows" else None
@@ -1177,9 +1435,20 @@ def main() -> int:
             "worlds": int(state.instance_obj.shape[0]), "bytes": nbytes, "ops": ops,
         }
 
-    def render_row(name, kw):
+    def bound_of(kw):
+        """The render kernel's bound on these inputs and the work it counts:
+        the resident route's culls or the streamed route's walk, replayed."""
+        if streamed(kw):
+            walk = walks(kw)
+            work = {k: walk[k] for k in ("triangle_visits", "shadow_triangle_visits",
+                                         "cluster_visits", "clusters_streamed")}
+            return k5_bound(kw, walk), work
         n_visits, shadow_visits = visits(kw)
-        bound_ms, bound_by, nbytes, ops = k1_bound(kw, n_visits, shadow_visits)
+        work = {"triangle_visits": n_visits, "shadow_triangle_visits": shadow_visits}
+        return k1_bound(kw, n_visits, shadow_visits), work
+
+    def render_row(name, kw):
+        (bound_ms, bound_by, nbytes, ops), work = bound_of(kw)
         return {
             "name": name, "route": "cuda",
             "source": "madrona_renderer_tpu_torch/csrc/render_resident.cu",
@@ -1187,10 +1456,10 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": max_err[name],
             "ms": graph_ms(lambda: rc.render_resident(**kw), KERNEL_REPS),
             "wrapper_ms": cuda_ms(lambda: rc.render_resident(**kw), KERNEL_REPS),
-            "plain_ms": cuda_ms(lambda: rc.render_resident_plain(**kw), 2),
+            "plain_ms": cuda_ms(lambda: rc.render_resident_plain(**kw),
+                                1 if streamed(kw) else 2),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "views": int(kw["cams"].shape[0]), "triangle_visits": n_visits,
-            "shadow_triangle_visits": shadow_visits, "bytes": nbytes, "ops": ops,
+            "views": int(kw["cams"].shape[0]), **work, "bytes": nbytes, "ops": ops,
         }
 
     visits_of = {}
@@ -1203,8 +1472,7 @@ def main() -> int:
 
     def handoff_row(name, kw):
         """K7's first launch alone (the render kernel's mip hand-off)."""
-        n_visits, n_shadow = visits(kw)
-        bound_ms, bound_by, nbytes, ops = k1_bound(kw, n_visits, n_shadow)
+        (bound_ms, bound_by, nbytes, ops), work = bound_of(kw)
         return {
             "name": name, "route": "cuda",
             "source": "madrona_renderer_tpu_torch/csrc/render_resident.cu",
@@ -1212,10 +1480,9 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": max_err[name],
             "ms": graph_ms(lambda: handoff(kw), KERNEL_REPS),
             "wrapper_ms": cuda_ms(lambda: handoff(kw), KERNEL_REPS),
-            "plain_ms": cuda_ms(lambda: handoff(kw, plain=True), 2),
+            "plain_ms": cuda_ms(lambda: handoff(kw, plain=True), 1 if streamed(kw) else 2),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "views": int(kw["cams"].shape[0]), "triangle_visits": n_visits,
-            "shadow_triangle_visits": n_shadow, "bytes": nbytes, "ops": ops,
+            "views": int(kw["cams"].shape[0]), **work, "bytes": nbytes, "ops": ops,
         }
 
     def shade_row(name, kw):
@@ -1255,6 +1522,10 @@ def main() -> int:
             "views": int(kw["cams"].shape[0]), "bytes": b1 + b2, "ops": o1 + o2,
         }
 
+    # The streamed variants bigmesh_512w does not run are timed on the
+    # 64-world inputs of their first kernel_vs_plain scene.
+    for name, kw in streamed_kw.items():
+        timing_kw.setdefault(name, kw)
     rows = []
     for layout in pack_cuda.LAYOUTS:
         rows.append(k13_row(layout, *timing_kw[layout]))

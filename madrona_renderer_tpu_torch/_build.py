@@ -46,6 +46,7 @@ SIGNATURES = {
          _I,  # n_mats
          _P, _P, _P,  # depth seg rgb
          _P, _P,  # code handoff (the mip hand-off)
+         _P, _P,  # order spans (the streamed route)
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
          _F, _F,  # two_over_w two_over_h
          _I, _I, _I,  # raster tex_filter geo

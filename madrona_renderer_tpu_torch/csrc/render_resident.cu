@@ -1,7 +1,9 @@
 // K1 / K1-raw / K8 / K2 / K6, and the first launch of K7: resident,
 // cluster-culled, shaded ray-cast with the fused export, on prep or raw
 // geometry rows, with or without shadow rays, in its raytrace and raster
-// conventions, untextured, textured, or handing mip-mapped texturing on.
+// conventions, untextured, textured, or handing mip-mapped texturing on;
+// and K3 + K5, the same kernel on the streamed route for meshes past the
+// resident budget (render_streamed_kernel, below).
 //
 // Replaces madrona_renderer_tpu/ops/raytrace_pallas.py::_render_kernel in
 // its resident culled shaded variant (defer_attrs, fused_export), launched
@@ -99,11 +101,39 @@
 // tv, q, t_num), cluster rows and camera row in shared memory (broadcast
 // reads in the sweeps), the winner's attributes, the material row and the
 // texels read from global memory once per pixel. No wgmma or TMA: the work
-// is scalar per pixel. The three switches are template parameters, so each
-// of the 24 variants compiles to its own kernel with no runtime branch on
-// them. Left for a later change: several views per block and persistent
-// blocks, to amortise the per-block setup; the shadow sweep's per-light
-// pvec, det and 1/det, which are per-triangle scalars, hoisted per block.
+// is scalar per pixel. The three switches and the route (STREAM) are
+// template parameters, so each of the 48 variants compiles to its own kernel
+// with no runtime branch on them. Left for a later change: several views
+// per block and persistent blocks, to amortise the per-block setup; the
+// shadow sweep's per-light pvec, det and 1/det, which are per-triangle
+// scalars, hoisted per block.
+//
+// The streamed route (STREAM, render_streamed_kernel): meshes whose rows do
+// not fit the resident budget (32 * S * 4 bytes > 384 KB, the JAX package's
+// dma_tris, :4265-4266). Replaces the same factory's ordered (K3, :1755-1785)
+// deferred / dma_tris / prep-stream / band_gates sweep (K5, :1787-2680). Per
+// 16x16 block (one view, one tile) the world's cluster table, the view's
+// visit order (ascending camera-to-AABB distance, raytrace_cuda.
+// camera_cluster_order) and its clusters' pixel-row spans (raytrace_cuda.
+// camera_cluster_rowspans at 16-row bands) sit in shared memory, and the block
+// walks the order: it stops at the first cluster that is invalid or that no
+// pixel can reach (best_t^2 <= 0.998 * approach distance^2, :1740-1780),
+// skips a cluster whose span misses the block's rows or whose slab test no
+// ray passes, and sweeps the rest from a double buffer that cp.async fills
+// with the next candidate's geometry rows (10 prep rows, or 9 raw rows plus
+// the block's tv, q, t_num per staged triangle) while the current one is
+// swept. Exact-t ties go to the lower triangle index
+// (t < best_t || t == best_t && i < best_i), and the slab test passes
+// tmin * 0.999 < best_t, so a cluster holding a triangle that ties the best
+// hit is visited whatever the order: the frames are the index-order sweep's
+// (render_resident_plain), bit for bit. The winner's (u, v) and attributes
+// are resolved once, after the walk, from global memory; the shadow sweep
+// (raw_shadows) walks every cluster in index order with its slab test and
+// stages each visited cluster's raw rows the same way. The grid is the
+// resident route's, (views, tiles), a tile's views next to each other in
+// launch order: on bigmesh_512w that ran 6% faster than a grid that keeps
+// a view's tiles together for L2 reuse of its clusters
+// (port_tools/stream_grid_ab.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,6 +179,14 @@ constexpr float kTiny = 1e-20f;
 constexpr float kCosFloor = 1e-6f;
 constexpr float kShadowEps = 1e-3f;  // SHADOW_EPS
 constexpr uint32_t kAlpha = 0xFF000000u;
+// The streamed walk: the occlusion early exit's rounding slack on squared
+// distances (:1763-1775) and the slab test's on t (a tie must not be culled).
+constexpr float kExitSlack = 0.998f;
+constexpr float kSlabSlack = 0.999f;
+// Walk decisions.
+constexpr int kStop = 0;
+constexpr int kSkip = 1;
+constexpr int kVisit = 2;
 
 __device__ __forceinline__ float safe_dir(float d) {
   return fabsf(d) > kTiny ? d : (d < 0.f ? -kTiny : kTiny);
@@ -196,6 +234,118 @@ __device__ __forceinline__ void pvec_test(float dx, float dy, float dz,
   u = (h[0] * pvx + h[st] * pvy + h[2 * st] * pvz) * inv;
   v = (dx * h[3 * st] + dy * h[4 * st] + dz * h[5 * st]) * inv;
   t = h[6 * st] * inv;
+}
+
+// Möller–Trumbore on the pack-time prep rows (:1296-1316), g[k * st] for row
+// k = 0..9: D(3), A(3), Q(3), t_num.
+__device__ __forceinline__ void prep_test(float dx, float dy, float dz,
+                                          const float* g, int st, float& u,
+                                          float& v, float& t) {
+  const float det = dx * g[0] + dy * g[st] + dz * g[2 * st];
+  const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+  u = (dx * g[3 * st] + dy * g[4 * st] + dz * g[5 * st]) * inv;
+  v = (dx * g[6 * st] + dy * g[7 * st] + dz * g[8 * st]) * inv;
+  t = g[9 * st] * inv;
+}
+
+// Slab test of one ray against an AABB given as lo.xyz, hi.xyz rows of the
+// cluster table (stride CC), column c (:1671-1697).
+__device__ __forceinline__ void slab(const float* cl, int CC, int c, float ox,
+                                     float oy, float oz, float ivx, float ivy,
+                                     float ivz, float& tmin, float& tmax) {
+  const float t1x = (cl[0 * CC + c] - ox) * ivx;
+  const float t2x = (cl[3 * CC + c] - ox) * ivx;
+  const float t1y = (cl[1 * CC + c] - oy) * ivy;
+  const float t2y = (cl[4 * CC + c] - oy) * ivy;
+  const float t1z = (cl[2 * CC + c] - oz) * ivz;
+  const float t2z = (cl[5 * CC + c] - oz) * ivz;
+  tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+  tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+}
+
+// ---- The streamed route's staging: cp.async, 16 bytes a copy ------------ //
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issues the copies of rows 0..n_rows-1 of cluster c (cs triangles from
+// c * cs, row stride S in global memory) into buf [n_rows, cs], and commits
+// them as one group. Each thread copies the same slots whatever c is.
+__device__ __forceinline__ void stage_cluster(float* buf, const float* g_rows,
+                                              int S, int cs, int c, int n_rows,
+                                              int tid) {
+  const int vec = cs / 4;
+  const float* src = g_rows + (size_t)c * cs;
+  for (int i = tid; i < n_rows * vec; i += kThreads) {
+    const int r = i / vec;
+    const int k = (i - r * vec) * 4;
+    cp_async16(buf + r * cs + k, src + (size_t)r * S + k);
+  }
+  cp_async_commit();
+}
+
+// The streamed walk over positions 0..n-1. gate(p) returns kStop, kSkip or
+// kVisit for the block (uniform: every thread reaches its barriers);
+// stage(p, buf) issues a visited position's copies; visit(p, buf) sweeps it
+// once they have landed. The next candidate is chosen, and its copies issued,
+// before the current one is swept; after the sweep it is tested again (the
+// sweep may have lowered best_t past it) and, if it fails, dropped. So the
+// positions visited are those of the plain walk that gates every position
+// on the best_t of the visits before it: the gates only tighten as best_t
+// falls, and distances grow along the order.
+template <class Gate, class Stage, class Visit>
+__device__ __forceinline__ void walk_clusters(int n, float* buf0, float* buf1,
+                                              Gate gate, Stage stage,
+                                              Visit visit) {
+  auto next = [&](int p) {
+    for (; p < n; ++p) {
+      const int g = gate(p);
+      if (g == kVisit) return p;
+      if (g == kStop) return -1;
+    }
+    return -1;
+  };
+  float* cur = buf0;
+  float* spare = buf1;
+  int pos = next(0);
+  if (pos >= 0) stage(pos, cur);
+  while (pos >= 0) {
+    int nxt = next(pos + 1);
+    if (nxt >= 0) {
+      stage(nxt, spare);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    visit(pos, cur);
+    __syncthreads();  // every thread is done with cur before it is refilled
+    if (nxt >= 0) {
+      const int g = gate(nxt);
+      if (g != kVisit) {
+        // Drop it: each thread waits for its own copies, then refills the
+        // same slots.
+        cp_async_wait<0>();
+        nxt = g == kStop ? -1 : next(nxt + 1);
+        if (nxt >= 0) stage(nxt, spare);
+      }
+    }
+    pos = nxt;
+    float* t = cur;
+    cur = spare;
+    spare = t;
+  }
 }
 
 // Base colour of a textured hit: the material colour times the texel
@@ -282,22 +432,38 @@ struct RenderArgs {
   float two_over_w, two_over_h;
 };
 
+// The streamed route's inputs, the second parameter of its entry point (the
+// resident entry keeps its argument block as it was).
+struct StreamArgs {
+  const int* order;  // [W*C, CC] cluster visit order of each view
+  const int* spans;  // [W*C, 2, CC] pixel-row span (lo, hi) of each cluster
+};
+
 template <int GEO>
 __host__ __device__ constexpr int smem_geo_rows() {
   // prep: D, A, Q, t_num; raw: v0, e1, e2 and the hoisted tv, q, t_num.
   return GEO == kGeoPrep ? kPrepRows : kRawRows + kHoistRows;
 }
 
-template <int GEO, bool RASTER, int TEX>
-__global__ void __launch_bounds__(kThreads)
-render_resident_kernel(const RenderArgs a) {
+// The render kernel's body. STREAM false: the resident route (the world's
+// geometry rows in shared memory, clusters in index order); true: the
+// streamed route (see the header).
+template <int GEO, bool RASTER, int TEX, bool STREAM>
+__device__ __forceinline__ void render_body(const RenderArgs& a,
+                                            const StreamArgs& st) {
   constexpr bool RAW = GEO != kGeoPrep;
   constexpr bool SHADOWS = GEO == kGeoRawShadows;
   const int S = a.S, CC = a.CC;
-  extern __shared__ float smem[];
-  float* s_geo = smem;                                // [smem_geo_rows, S]
-  float* s_cl = s_geo + smem_geo_rows<GEO>() * S;     // [8, CC]
+  extern __shared__ __align__(16) float smem[];
+  // Resident: [smem_geo_rows, S]; streamed: two staged clusters, each
+  // [smem_geo_rows, cluster_size], then the view's order and spans.
+  const int geo_floats = STREAM ? 2 * smem_geo_rows<GEO>() * a.cluster_size
+                                : smem_geo_rows<GEO>() * S;
+  float* s_geo = smem;
+  float* s_cl = s_geo + geo_floats;                   // [8, CC]
   float* s_cam = s_cl + kClRows * CC;                 // [NCOL]
+  int* s_order = reinterpret_cast<int*>(s_cam + a.n_cols);  // [CC]
+  int* s_span = s_order + CC;                               // [2, CC]
 
   const int view = blockIdx.x;
   const int world = view / a.num_cams;
@@ -306,34 +472,43 @@ render_resident_kernel(const RenderArgs a) {
   const float* g_cl = a.clusters + (size_t)world * kClRows * CC;
   const float* g_cam = a.cams + (size_t)view * a.n_cols;
   constexpr int kLoadRows = RAW ? kRawRows : kPrepRows;
-  for (int i = tid; i < kLoadRows * S; i += kThreads) s_geo[i] = g_rows[i];
+  if constexpr (!STREAM) {
+    for (int i = tid; i < kLoadRows * S; i += kThreads) s_geo[i] = g_rows[i];
+  }
   for (int i = tid; i < kClRows * CC; i += kThreads) s_cl[i] = g_cl[i];
   for (int i = tid; i < a.n_cols; i += kThreads) s_cam[i] = g_cam[i];
-  if (RAW) {
-    // The per-(view, triangle) terms of the raw sweep (:1342-1348), once
-    // per block: tv = o - v0, q = tv x e1, t_num = e2 . q, with this view's
-    // camera origin.
-    const float ox = g_cam[0], oy = g_cam[1], oz = g_cam[2];
-    float* s_h = s_geo + kRawRows * S;
-    for (int i = tid; i < S; i += kThreads) {
-      const float e1x = g_rows[3 * S + i], e1y = g_rows[4 * S + i],
-                  e1z = g_rows[5 * S + i];
-      const float e2x = g_rows[6 * S + i], e2y = g_rows[7 * S + i],
-                  e2z = g_rows[8 * S + i];
-      const float tvx = ox - g_rows[i];
-      const float tvy = oy - g_rows[S + i];
-      const float tvz = oz - g_rows[2 * S + i];
-      const float qx = tvy * e1z - tvz * e1y;
-      const float qy = tvz * e1x - tvx * e1z;
-      const float qz = tvx * e1y - tvy * e1x;
-      s_h[i] = tvx;
-      s_h[S + i] = tvy;
-      s_h[2 * S + i] = tvz;
-      s_h[3 * S + i] = qx;
-      s_h[4 * S + i] = qy;
-      s_h[5 * S + i] = qz;
-      s_h[6 * S + i] = e2x * qx + e2y * qy + e2z * qz;
+  if constexpr (!STREAM) {
+    if (RAW) {
+      // The per-(view, triangle) terms of the raw sweep (:1342-1348), once
+      // per block: tv = o - v0, q = tv x e1, t_num = e2 . q, with this
+      // view's camera origin.
+      const float ox = g_cam[0], oy = g_cam[1], oz = g_cam[2];
+      float* s_h = s_geo + kRawRows * S;
+      for (int i = tid; i < S; i += kThreads) {
+        const float e1x = g_rows[3 * S + i], e1y = g_rows[4 * S + i],
+                    e1z = g_rows[5 * S + i];
+        const float e2x = g_rows[6 * S + i], e2y = g_rows[7 * S + i],
+                    e2z = g_rows[8 * S + i];
+        const float tvx = ox - g_rows[i];
+        const float tvy = oy - g_rows[S + i];
+        const float tvz = oz - g_rows[2 * S + i];
+        const float qx = tvy * e1z - tvz * e1y;
+        const float qy = tvz * e1x - tvx * e1z;
+        const float qz = tvx * e1y - tvy * e1x;
+        s_h[i] = tvx;
+        s_h[S + i] = tvy;
+        s_h[2 * S + i] = tvz;
+        s_h[3 * S + i] = qx;
+        s_h[4 * S + i] = qy;
+        s_h[5 * S + i] = qz;
+        s_h[6 * S + i] = e2x * qx + e2y * qy + e2z * qz;
+      }
     }
+  } else {
+    const int* g_order = st.order + (size_t)view * CC;
+    const int* g_span = st.spans + (size_t)view * 2 * CC;
+    for (int i = tid; i < CC; i += kThreads) s_order[i] = g_order[i];
+    for (int i = tid; i < 2 * CC; i += kThreads) s_span[i] = g_span[i];
   }
   __syncthreads();
 
@@ -373,62 +548,153 @@ render_resident_kernel(const RenderArgs a) {
   // raw sweep carries the winner's (u, v) as well (:1461-1467).
   float best_t = far, best_u = 0.f, best_v = 0.f;
   int best_idx = -1;
-  const float* g0 = s_geo;  // prep: D; raw: v0
-  const float* g1 = s_geo + S;
-  const float* g2 = s_geo + 2 * S;
-  const float* g3 = s_geo + 3 * S;  // prep: A; raw: e1
-  const float* g4 = s_geo + 4 * S;
-  const float* g5 = s_geo + 5 * S;
-  const float* g6 = s_geo + 6 * S;  // prep: Q; raw: e2
-  const float* g7 = s_geo + 7 * S;
-  const float* g8 = s_geo + 8 * S;
-  const float* g9 = s_geo + 9 * S;  // prep: t_num; raw: tv, q, t_num
+  // The rows the resolve reads: resident in shared memory, streamed in
+  // global memory (the same [rows, S] layout).
+  const float* geo = STREAM ? g_rows : s_geo;
+  const float* g0 = geo;  // prep: D; raw: v0
+  const float* g1 = geo + S;
+  const float* g2 = geo + 2 * S;
+  const float* g3 = geo + 3 * S;  // prep: A; raw: e1
+  const float* g4 = geo + 4 * S;
+  const float* g5 = geo + 5 * S;
+  const float* g6 = geo + 6 * S;  // prep: Q; raw: e2
+  const float* g7 = geo + 7 * S;
+  const float* g8 = geo + 8 * S;
+  const float* g9 = geo + 9 * S;  // prep: t_num; raw: tv, q, t_num
 
-  for (int c = 0; c < CC; ++c) {
-    // Slab test of the cluster's world-space AABB (:1671-1697); it keeps
-    // the scalar near in raster mode too (t_lo >= near, so it only
-    // over-visits).
-    const float t1x = (s_cl[0 * CC + c] - ox) * ivx;
-    const float t2x = (s_cl[3 * CC + c] - ox) * ivx;
-    const float t1y = (s_cl[1 * CC + c] - oy) * ivy;
-    const float t2y = (s_cl[4 * CC + c] - oy) * ivy;
-    const float t1z = (s_cl[2 * CC + c] - oz) * ivz;
-    const float t2z = (s_cl[5 * CC + c] - oz) * ivz;
-    const float tmin =
-        fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-    const float tmax =
-        fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
-    const bool possible = (tmax >= tmin) && (tmax > near) && (tmin < best_t);
-    // Every thread reaches this barrier: the loop bound is uniform.
-    const int any_hit = __syncthreads_or(possible);
-    if (!any_hit || !(s_cl[6 * CC + c] > 0.f)) continue;
-    const int base = c * a.cluster_size;
-    const int cnt = (int)s_cl[7 * CC + c];
-    for (int i = base; i < base + cnt; ++i) {
-      float u, v, t;
-      if (RAW) {
-        // The pvec test on the raw rows, with the block's tv, q, t_num.
-        pvec_test(dx, dy, dz, g3[i], g4[i], g5[i], g6[i], g7[i], g8[i], g9 + i,
-                  S, u, v, t);
-      } else {
-        // Möller–Trumbore on the pack-time rows (:1296-1316).
-        const float det = dx * g0[i] + dy * g1[i] + dz * g2[i];
-        const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
-        u = (dx * g3[i] + dy * g4[i] + dz * g5[i]) * inv;
-        v = (dx * g6[i] + dy * g7[i] + dz * g8[i]) * inv;
-        t = g9[i] * inv;
-      }
-      const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
-                      (t > t_lo) && (t < best_t);
-      if (ok) {
-        best_t = t;
-        best_idx = i;
+  const int cs = a.cluster_size;
+  float* buf0 = s_geo;  // streamed: the two staged clusters
+  float* buf1 = s_geo + smem_geo_rows<GEO>() * cs;
+  if constexpr (!STREAM) {
+    // The resident sweep keeps its own copy of the slab and prep tests
+    // (slab() and prep_test() compute the same expressions): ptxas's
+    // register allocation of these variants moves with the source's shape.
+    for (int c = 0; c < CC; ++c) {
+      // Slab test of the cluster's world-space AABB (:1671-1697); it keeps
+      // the scalar near in raster mode too (t_lo >= near, so it only
+      // over-visits).
+      const float t1x = (s_cl[0 * CC + c] - ox) * ivx;
+      const float t2x = (s_cl[3 * CC + c] - ox) * ivx;
+      const float t1y = (s_cl[1 * CC + c] - oy) * ivy;
+      const float t2y = (s_cl[4 * CC + c] - oy) * ivy;
+      const float t1z = (s_cl[2 * CC + c] - oz) * ivz;
+      const float t2z = (s_cl[5 * CC + c] - oz) * ivz;
+      const float tmin =
+          fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+      const float tmax =
+          fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+      const bool possible = (tmax >= tmin) && (tmax > near) && (tmin < best_t);
+      // Every thread reaches this barrier: the loop bound is uniform.
+      const int any_hit = __syncthreads_or(possible);
+      if (!any_hit || !(s_cl[6 * CC + c] > 0.f)) continue;
+      const int base = c * a.cluster_size;
+      const int cnt = (int)s_cl[7 * CC + c];
+      for (int i = base; i < base + cnt; ++i) {
+        float u, v, t;
         if (RAW) {
-          best_u = u;
-          best_v = v;
+          // The pvec test on the raw rows, with the block's tv, q, t_num.
+          pvec_test(dx, dy, dz, g3[i], g4[i], g5[i], g6[i], g7[i], g8[i],
+                    g9 + i, S, u, v, t);
+        } else {
+          // Möller–Trumbore on the pack-time rows (:1296-1316).
+          const float det = dx * g0[i] + dy * g1[i] + dz * g2[i];
+          const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+          u = (dx * g3[i] + dy * g4[i] + dz * g5[i]) * inv;
+          v = (dx * g6[i] + dy * g7[i] + dz * g8[i]) * inv;
+          t = g9[i] * inv;
+        }
+        const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
+                        (t > t_lo) && (t < best_t);
+        if (ok) {
+          best_t = t;
+          best_idx = i;
+          if (RAW) {
+            best_u = u;
+            best_v = v;
+          }
         }
       }
     }
+  } else {
+    // K3 + K5: the front-to-back streamed walk.
+    const int row0 = (tile / a.tiles_x) * kTileY;
+    auto gate = [&](int p) {
+      const int c = s_order[p];
+      if (!(s_cl[6 * CC + c] > 0.f)) return kStop;  // invalid clusters sort last
+      // Occlusion early exit (approach_dist2, :1740-1780): no pixel's best
+      // hit lies beyond this cluster's AABB, nor beyond any later one's.
+      const float ax =
+          fmaxf(fmaxf(s_cl[0 * CC + c] - ox, ox - s_cl[3 * CC + c]), 0.0f);
+      const float ay =
+          fmaxf(fmaxf(s_cl[1 * CC + c] - oy, oy - s_cl[4 * CC + c]), 0.0f);
+      const float az =
+          fmaxf(fmaxf(s_cl[2 * CC + c] - oz, oz - s_cl[5 * CC + c]), 0.0f);
+      const float d2 = ax * ax + ay * ay + az * az;
+      if (!__syncthreads_or(best_t * best_t > d2 * kExitSlack)) return kStop;
+      // Row gate: the cluster's image rows miss the block's.
+      if (s_span[c] > row0 + kTileY - 1 || s_span[CC + c] < row0) return kSkip;
+      float tmin, tmax;
+      slab(s_cl, CC, c, ox, oy, oz, ivx, ivy, ivz, tmin, tmax);
+      const bool possible =
+          (tmax >= tmin) && (tmax > near) && (tmin * kSlabSlack < best_t);
+      return __syncthreads_or(possible) ? kVisit : kSkip;
+    };
+    auto stage = [&](int p, float* buf) {
+      stage_cluster(buf, g_rows, S, cs, s_order[p], kLoadRows, tid);
+    };
+    auto visit = [&](int p, float* buf) {
+      const int c = s_order[p];
+      const int base = c * cs;
+      const int cnt = (int)s_cl[7 * CC + c];
+      if constexpr (RAW) {
+        // This view's tv, q, t_num of each staged triangle (:1342-1348).
+        float* h = buf + kRawRows * cs;
+        for (int k = tid; k < cnt; k += kThreads) {
+          const float e1x = buf[3 * cs + k], e1y = buf[4 * cs + k],
+                      e1z = buf[5 * cs + k];
+          const float e2x = buf[6 * cs + k], e2y = buf[7 * cs + k],
+                      e2z = buf[8 * cs + k];
+          const float tvx = ox - buf[k];
+          const float tvy = oy - buf[cs + k];
+          const float tvz = oz - buf[2 * cs + k];
+          const float qx = tvy * e1z - tvz * e1y;
+          const float qy = tvz * e1x - tvx * e1z;
+          const float qz = tvx * e1y - tvy * e1x;
+          h[k] = tvx;
+          h[cs + k] = tvy;
+          h[2 * cs + k] = tvz;
+          h[3 * cs + k] = qx;
+          h[4 * cs + k] = qy;
+          h[5 * cs + k] = qz;
+          h[6 * cs + k] = e2x * qx + e2y * qy + e2z * qz;
+        }
+        __syncthreads();
+      }
+      for (int k = 0; k < cnt; ++k) {
+        float u, v, t;
+        if constexpr (RAW) {
+          pvec_test(dx, dy, dz, buf[3 * cs + k], buf[4 * cs + k],
+                    buf[5 * cs + k], buf[6 * cs + k], buf[7 * cs + k],
+                    buf[8 * cs + k], buf + kRawRows * cs + k, cs, u, v, t);
+        } else {
+          prep_test(dx, dy, dz, buf + k, cs, u, v, t);
+        }
+        // The lower index wins an exact tie, whatever the visit order.
+        const int i = base + k;
+        const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
+                        (t > t_lo) &&
+                        ((t < best_t) || (t == best_t && i < best_idx));
+        if (ok) {
+          best_t = t;
+          best_idx = i;
+          if (RAW) {
+            best_u = u;
+            best_v = v;
+          }
+        }
+      }
+    };
+    walk_clusters(CC, buf0, buf1, gate, stage, visit);
   }
 
   const bool inside = px < a.width && py < a.height;
@@ -498,41 +764,78 @@ render_resident_kernel(const RenderArgs a) {
       const float ivsy = 1.0f / safe_dir(sdy);
       const float ivsz = 1.0f / safe_dir(sdz);
       bool occ = false;
-      for (int c = 0; c < CC; ++c) {
-        // The shadow ray's slab test (:2930-2948): tmax > 0, and pixels
-        // already occluded drop out of the block-wide OR.
-        const float t1x = (s_cl[0 * CC + c] - hx) * ivsx;
-        const float t2x = (s_cl[3 * CC + c] - hx) * ivsx;
-        const float t1y = (s_cl[1 * CC + c] - hy) * ivsy;
-        const float t2y = (s_cl[4 * CC + c] - hy) * ivsy;
-        const float t1z = (s_cl[2 * CC + c] - hz) * ivsz;
-        const float t2z = (s_cl[5 * CC + c] - hz) * ivsz;
-        const float tmin =
-            fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-        const float tmax =
-            fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
-        const bool possible = (tmax >= tmin) && (tmax > 0.f) && !occ;
-        const int go = __syncthreads_or(possible);
-        if (!go || !(s_cl[6 * CC + c] > 0.f)) continue;
-        const int base = c * a.cluster_size;
-        const int cnt = (int)s_cl[7 * CC + c];
-        for (int i = base; i < base + cnt; ++i) {
-          // Any-hit test along the light (:2885-2903), from the hit point.
-          const float e1x = g3[i], e1y = g4[i], e1z = g5[i];
-          const float e2x = g6[i], e2y = g7[i], e2z = g8[i];
-          float h[7];  // tv, q, t_num of the hit point and the triangle
-          h[0] = hx - g0[i];
-          h[1] = hy - g1[i];
-          h[2] = hz - g2[i];
-          h[3] = h[1] * e1z - h[2] * e1y;
-          h[4] = h[2] * e1x - h[0] * e1z;
-          h[5] = h[0] * e1y - h[1] * e1x;
-          h[6] = e2x * h[3] + e2y * h[4] + e2z * h[5];
-          float u, v, t;
-          pvec_test(sdx, sdy, sdz, e1x, e1y, e1z, e2x, e2y, e2z, h, 1, u, v, t);
-          occ = occ || ((fminf(u, v) >= -kEpsBary) &&
-                        (u + v <= kOnePlusEps) && (t > eps_sh));
+      if constexpr (!STREAM) {
+        for (int c = 0; c < CC; ++c) {
+          // The shadow ray's slab test (:2930-2948): tmax > 0, and pixels
+          // already occluded drop out of the block-wide OR.
+          const float t1x = (s_cl[0 * CC + c] - hx) * ivsx;
+          const float t2x = (s_cl[3 * CC + c] - hx) * ivsx;
+          const float t1y = (s_cl[1 * CC + c] - hy) * ivsy;
+          const float t2y = (s_cl[4 * CC + c] - hy) * ivsy;
+          const float t1z = (s_cl[2 * CC + c] - hz) * ivsz;
+          const float t2z = (s_cl[5 * CC + c] - hz) * ivsz;
+          const float tmin =
+              fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+          const float tmax =
+              fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+          const bool possible = (tmax >= tmin) && (tmax > 0.f) && !occ;
+          const int go = __syncthreads_or(possible);
+          if (!go || !(s_cl[6 * CC + c] > 0.f)) continue;
+          const int base = c * a.cluster_size;
+          const int cnt = (int)s_cl[7 * CC + c];
+          for (int i = base; i < base + cnt; ++i) {
+            // Any-hit test along the light (:2885-2903), from the hit point.
+            const float e1x = g3[i], e1y = g4[i], e1z = g5[i];
+            const float e2x = g6[i], e2y = g7[i], e2z = g8[i];
+            float h[7];  // tv, q, t_num of the hit point and the triangle
+            h[0] = hx - g0[i];
+            h[1] = hy - g1[i];
+            h[2] = hz - g2[i];
+            h[3] = h[1] * e1z - h[2] * e1y;
+            h[4] = h[2] * e1x - h[0] * e1z;
+            h[5] = h[0] * e1y - h[1] * e1x;
+            h[6] = e2x * h[3] + e2y * h[4] + e2z * h[5];
+            float u, v, t;
+            pvec_test(sdx, sdy, sdz, e1x, e1y, e1z, e2x, e2y, e2z, h, 1, u, v, t);
+            occ = occ || ((fminf(u, v) >= -kEpsBary) &&
+                          (u + v <= kOnePlusEps) && (t > eps_sh));
+          }
         }
+      } else {
+        // The same sweep on the streamed route: every cluster in index
+        // order, each visited cluster's raw rows staged.
+        auto gate_sh = [&](int c) {
+          float tmin, tmax;
+          slab(s_cl, CC, c, hx, hy, hz, ivsx, ivsy, ivsz, tmin, tmax);
+          const bool possible = (tmax >= tmin) && (tmax > 0.f) && !occ;
+          const int go = __syncthreads_or(possible);
+          return go && s_cl[6 * CC + c] > 0.f ? kVisit : kSkip;
+        };
+        auto stage_sh = [&](int c, float* buf) {
+          stage_cluster(buf, g_rows, S, cs, c, kRawRows, tid);
+        };
+        auto visit_sh = [&](int c, float* buf) {
+          const int cnt = (int)s_cl[7 * CC + c];
+          for (int k = 0; k < cnt; ++k) {
+            const float e1x = buf[3 * cs + k], e1y = buf[4 * cs + k],
+                        e1z = buf[5 * cs + k];
+            const float e2x = buf[6 * cs + k], e2y = buf[7 * cs + k],
+                        e2z = buf[8 * cs + k];
+            float h[7];
+            h[0] = hx - buf[k];
+            h[1] = hy - buf[cs + k];
+            h[2] = hz - buf[2 * cs + k];
+            h[3] = h[1] * e1z - h[2] * e1y;
+            h[4] = h[2] * e1x - h[0] * e1z;
+            h[5] = h[0] * e1y - h[1] * e1x;
+            h[6] = e2x * h[3] + e2y * h[4] + e2z * h[5];
+            float u, v, t;
+            pvec_test(sdx, sdy, sdz, e1x, e1y, e1z, e2x, e2y, e2z, h, 1, u, v, t);
+            occ = occ || ((fminf(u, v) >= -kEpsBary) &&
+                          (u + v <= kOnePlusEps) && (t > eps_sh));
+          }
+        };
+        walk_clusters(CC, buf0, buf1, gate_sh, stage_sh, visit_sh);
       }
       if (occ) occ_mask |= 1u << li;
     }
@@ -593,41 +896,67 @@ render_resident_kernel(const RenderArgs a) {
 }
 
 template <int GEO, bool RASTER, int TEX>
-int launch(const RenderArgs& a, int num_views, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+render_resident_kernel(const RenderArgs a) {
+  render_body<GEO, RASTER, TEX, false>(a, StreamArgs{nullptr, nullptr});
+}
+
+template <int GEO, bool RASTER, int TEX>
+__global__ void __launch_bounds__(kThreads)
+render_streamed_kernel(const RenderArgs a, const StreamArgs s) {
+  render_body<GEO, RASTER, TEX, true>(a, s);
+}
+
+template <class Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int GEO, bool RASTER, int TEX>
+int launch(const RenderArgs& a, const StreamArgs& s, int num_views,
+           cudaStream_t stream) {
   const int tiles_y = (a.height + kTileY - 1) / kTileY;
-  const size_t smem = sizeof(float) * ((size_t)smem_geo_rows<GEO>() * a.S +
-                                       (size_t)kClRows * a.CC + a.n_cols);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        render_resident_kernel<GEO, RASTER, TEX>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   const dim3 grid(num_views, a.tiles_x * tiles_y);
   const dim3 block(kTileX, kTileY);
-  render_resident_kernel<GEO, RASTER, TEX><<<grid, block, smem, stream>>>(a);
+  if (s.order == nullptr) {
+    const size_t smem = sizeof(float) * ((size_t)smem_geo_rows<GEO>() * a.S +
+                                         (size_t)kClRows * a.CC + a.n_cols);
+    const int err = set_smem(render_resident_kernel<GEO, RASTER, TEX>, smem);
+    if (err != 0) return err;
+    render_resident_kernel<GEO, RASTER, TEX><<<grid, block, smem, stream>>>(a);
+  } else {
+    const size_t smem =
+        sizeof(float) * ((size_t)2 * smem_geo_rows<GEO>() * a.cluster_size +
+                         (size_t)kClRows * a.CC + a.n_cols) +
+        sizeof(int) * 3 * (size_t)a.CC;
+    const int err = set_smem(render_streamed_kernel<GEO, RASTER, TEX>, smem);
+    if (err != 0) return err;
+    render_streamed_kernel<GEO, RASTER, TEX><<<grid, block, smem, stream>>>(a, s);
+  }
   return (int)cudaGetLastError();
 }
 
 template <int GEO, bool RASTER>
-int launch_tex(const RenderArgs& a, int num_views, int tex_filter,
-               cudaStream_t stream) {
+int launch_tex(const RenderArgs& a, const StreamArgs& s, int num_views,
+               int tex_filter, cudaStream_t stream) {
   switch (tex_filter) {
-    case kTexNone: return launch<GEO, RASTER, kTexNone>(a, num_views, stream);
+    case kTexNone: return launch<GEO, RASTER, kTexNone>(a, s, num_views, stream);
     case kTexNearest:
-      return launch<GEO, RASTER, kTexNearest>(a, num_views, stream);
+      return launch<GEO, RASTER, kTexNearest>(a, s, num_views, stream);
     case kTexBilinear:
-      return launch<GEO, RASTER, kTexBilinear>(a, num_views, stream);
-    case kTexMip: return launch<GEO, RASTER, kTexMip>(a, num_views, stream);
+      return launch<GEO, RASTER, kTexBilinear>(a, s, num_views, stream);
+    case kTexMip: return launch<GEO, RASTER, kTexMip>(a, s, num_views, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <int GEO>
-int launch_raster(const RenderArgs& a, int num_views, int raster,
-                  int tex_filter, cudaStream_t stream) {
-  return raster ? launch_tex<GEO, true>(a, num_views, tex_filter, stream)
-                : launch_tex<GEO, false>(a, num_views, tex_filter, stream);
+int launch_raster(const RenderArgs& a, const StreamArgs& s, int num_views,
+                  int raster, int tex_filter, cudaStream_t stream) {
+  return raster ? launch_tex<GEO, true>(a, s, num_views, tex_filter, stream)
+                : launch_tex<GEO, false>(a, s, num_views, tex_filter, stream);
 }
 
 }  // namespace
@@ -639,14 +968,16 @@ extern "C" {
 // rows with shadows, at most 32 lights); tex_filter is 0 (untextured), 1
 // (nearest), 2 (bilinear) or 3 (the mip hand-off, written to code and
 // handoff instead of rgb); mats/pool may be null unless it is 1 or 2, and
-// rgb when it is 3, code/handoff unless it is 3.
+// rgb when it is 3, code/handoff unless it is 3. With order and spans (both
+// or neither) the streamed route runs: rows, cluster_size and S must keep
+// every cluster's rows 16-byte aligned.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unknown variant.
 int mrt_render_resident(const float* rows, const float* clusters,
                         const float* cams, const float* mats, const int* pool,
                         int n_mats, float* depth, int* segmask, uint32_t* rgb,
-                        int* code, float* handoff,
-                        int num_views, int num_cams, int S, int CC,
+                        int* code, float* handoff, const int* order,
+                        const int* spans, int num_views, int num_cams, int S, int CC,
                         int cluster_size, int n_cols, int n_lights, int height,
                         int width, int seg_div, float two_over_w,
                         float two_over_h, int raster, int tex_filter, int geo,
@@ -661,13 +992,18 @@ int mrt_render_resident(const float* rows, const float* clusters,
     a.code = code;
   }
   if (geo == kGeoRawShadows && n_lights > 32) return (int)cudaErrorInvalidValue;
+  if ((order == nullptr) != (spans == nullptr)) return (int)cudaErrorInvalidValue;
+  if (order != nullptr &&
+      (cluster_size % 4 != 0 || S % 4 != 0 || ((uintptr_t)rows & 15) != 0))
+    return (int)cudaErrorMisalignedAddress;
+  const StreamArgs s{order, spans};
   switch (geo) {
     case kGeoPrep:
-      return launch_raster<kGeoPrep>(a, num_views, raster, tex_filter, st);
+      return launch_raster<kGeoPrep>(a, s, num_views, raster, tex_filter, st);
     case kGeoRaw:
-      return launch_raster<kGeoRaw>(a, num_views, raster, tex_filter, st);
+      return launch_raster<kGeoRaw>(a, s, num_views, raster, tex_filter, st);
     case kGeoRawShadows:
-      return launch_raster<kGeoRawShadows>(a, num_views, raster, tex_filter, st);
+      return launch_raster<kGeoRawShadows>(a, s, num_views, raster, tex_filter, st);
   }
   return (int)cudaErrorInvalidValue;
 }

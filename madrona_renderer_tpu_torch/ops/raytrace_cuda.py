@@ -1,5 +1,5 @@
 """Batch raytracer: the render prologue, then kernel K1 (K1-raw, K8, K2, K6,
-K7).
+K7), or on meshes past the resident budget K3 + K5.
 
 The port of the main path of the JAX package's ``ops/raytrace_pallas.py``
 (``render_core``, :3998) for what its flags resolve to on scenes that fit
@@ -31,7 +31,21 @@ samples), in the raytrace or the raster conventions (``raster_clip``, K2).
      only reshapes them into ``Frames`` (the JAX ``unpack`` and supertile
      fold are TPU layout steps with no counterpart here).
 
-Scenes outside this path raise ``NotImplementedError`` naming the ROADMAP
+Meshes past the resident budget (``is_streamed``: 32·S·4 bytes > 384 KB,
+the JAX package's ``dma_tris``, :4265-4266, whatever the cluster count)
+take the streamed route: the prologue adds each view's front-to-back
+cluster order (``camera_cluster_order``, K3's visit order) and its
+clusters' pixel-row spans (``camera_cluster_rowspans`` at the kernel's
+16-row blocks), and the kernel walks that order with the occlusion early
+exit, streaming each visited cluster's rows from device memory (K5). Exact-t
+ties go to the lower triangle index on both routes, so the order changes
+only the work: the frames are the index-order sweep's
+(``render_resident_plain``). Where the JAX package would bin clusters per
+2D tile instead (``binned``: 4 or more TPU tiles, e.g. 128×128 and larger
+views), the port still walks the ordered list: the frames are the same,
+and the binned visit (K4) is the next slice of ROADMAP item 8.
+
+Scenes outside these paths raise ``NotImplementedError`` naming the ROADMAP
 item that ports them (``check_supported``).
 """
 
@@ -68,6 +82,7 @@ _F_DIFFUSE = float(np.float32(1.0 - AMBIENT))
 _F_TINY = float(np.float32(1e-20))
 _F_COS_FLOOR = float(np.float32(1e-6))
 _F_SHADOW_EPS = float(np.float32(SHADOW_EPS))
+_F_EPS_BEHIND = float(np.float32(1e-6))  # the row spans' camera-plane floor
 _ALPHA = int(np.uint32(0xFF000000).view(np.int32))
 _CAM_FAR_Z = 16  # camera column of the z-space far clip (raster)
 # The render kernel's texture switch: untextured, nearest, bilinear, and
@@ -82,6 +97,16 @@ _SHADED_BIT = 1 << 17
 # The kernel's geometry switch: prep rows, raw rows, raw rows with shadows.
 _GEO_CODES = {"prep": 0, "raw": 1, "raw_shadows": 2}
 _MAX_SHADOW_LIGHTS = 32  # one occlusion bit per light in the kernel
+_TILE = 16  # the kernel's block: 16×16 pixels; the row spans' band height
+# The streamed route's shared memory: two staged clusters of up to 16 rows,
+# the cluster table, order and spans, the camera row (an H100 block's
+# dynamic shared memory ends at 227 KB).
+_STAGE_ROWS = 16
+_MAX_SMEM = 227 * 1024
+# The streamed walk's slack: the occlusion early exit's on squared distances
+# (the JAX kernel's), the slab test's on t (a tie must not be culled).
+_F_EXIT_SLACK = float(np.float32(0.998))
+_F_SLAB_SLACK = float(np.float32(0.999))
 
 
 def _cam_valid_col(n_lights: int) -> int:
@@ -101,6 +126,19 @@ def is_textured(scene: SceneData) -> bool:
 def has_mips(scene: SceneData) -> bool:
     """Mip chains in the bake (the JAX package's ``mips_on``)."""
     return int(scene.tex_mip_offset.shape[1]) > 1
+
+
+def is_streamed(state: SimState, scene: SceneData) -> bool:
+    """The world's rows exceed the resident budget: the streamed route
+    (``render_core``'s ``dma_tris``, :4265-4266)."""
+    S = state.max_instances * scene.tris_per_object
+    return _TRI_ROWS * S * 4 > SMEM_TRI_BUDGET
+
+
+def streamed_smem_bytes(n_clusters: int, cluster_size: int, n_lights: int) -> int:
+    """Shared memory a block of the streamed route takes."""
+    return 4 * (2 * _STAGE_ROWS * cluster_size + 11 * n_clusters
+                + _n_cam_cols(n_lights))
 
 
 def check_supported(state: SimState, scene: SceneData,
@@ -140,13 +178,16 @@ def check_supported(state: SimState, scene: SceneData,
                 "materials); the 9-output route with the shading epilogue is "
                 "not ported yet — ROADMAP Queue 1 item 6"
             )
-    S = state.max_instances * scene.tris_per_object
-    if _TRI_ROWS * S * 4 > SMEM_TRI_BUDGET:
-        raise NotImplementedError(
-            f"{S} triangles per world exceed the resident budget "
-            f"({SMEM_TRI_BUDGET} bytes) — streamed big meshes are ROADMAP "
-            "Queue 1 item 8"
-        )
+    if is_streamed(state, scene):
+        n_cl = state.max_instances * int(scene.cl_valid.shape[1])
+        size = scene.tris_per_object // int(scene.cl_valid.shape[1])
+        need = streamed_smem_bytes(n_cl, size, int(scene.light_dir.shape[0]))
+        if need > _MAX_SMEM:
+            raise NotImplementedError(
+                f"{n_cl} clusters per world need {need} bytes of shared memory "
+                f"on the streamed route (at most {_MAX_SMEM}); a cluster table "
+                "read from device memory is ROADMAP Queue 1 item 8"
+            )
 
 
 # --------------------------------------------------------------------- #
@@ -305,6 +346,97 @@ def _pack_clusters(cl_lo, cl_hi, cl_valid, cl_count) -> torch.Tensor:
     return torch.stack(rows, dim=1)
 
 
+def _cluster_approach_dist2(cl_lo, cl_hi, cam_pos) -> torch.Tensor:
+    """Squared closest-approach distance camera → cluster AABB ``[W, C, CC]``
+    (``raytrace_pallas._cluster_approach_dist2``, :363): a lower bound on
+    any hit t inside the cluster (unit ray directions), summed x, y, z in
+    that order."""
+    o = cam_pos[:, :, None, :]  # [W, C, 1, 3]
+    near = torch.minimum(torch.maximum(o, cl_lo[:, None]), cl_hi[:, None])
+    d = near - o
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+
+
+def camera_cluster_order(cl_lo, cl_hi, cl_valid, cam_pos) -> torch.Tensor:
+    """Front-to-back cluster visit order per view, int32 ``[W·C, CC]``
+    (``raytrace_pallas.camera_cluster_order``, :378): a stable ascending
+    sort of the approach distance, invalid clusters keyed ``inf`` (last).
+    The JAX package's ``win_div`` key (``MRT_WIN_SORT``, off by default)
+    groups clusters by TPU DMA window and has no counterpart here."""
+    dist = _cluster_approach_dist2(cl_lo, cl_hi, cam_pos)
+    dist = torch.where(cl_valid[:, None, :] > 0, dist, torch.inf)
+    order = torch.argsort(dist, dim=-1, stable=True).to(torch.int32)
+    W, C, CC = order.shape
+    return order.reshape(W * C, CC)
+
+
+def camera_cluster_rowspans(cl_lo, cl_hi, cl_valid, state: SimState, eff_fov,
+                            height: int, g_rows: int = 0) -> torch.Tensor:
+    """Per-(view, cluster) conservative image pixel-row span, int32
+    ``[W·C, 2, CC]`` (``raytrace_pallas.camera_cluster_rowspans``, :728):
+    the AABB corners projected through the camera, padded by 2 px (the
+    full height for a cluster with a corner behind the camera), and with
+    ``g_rows`` > 0 intersected with the hull of the ``g_rows``-row bands
+    the AABB's frustum-plane tests can touch (``MRT_PLANE_BINS``, on by
+    default there). A span with lo > hi touches no row. The three-term
+    dots sum x, y, z in that order, as the JAX einsums do on the CPU."""
+    W, CC = cl_valid.shape
+    C = state.camera_pos.shape[1]
+    dev = cl_lo.device
+    picks = torch.tensor(
+        [[x, y, z] for x in (0, 1) for y in (0, 1) for z in (0, 1)],
+        dtype=torch.float32, device=dev,
+    )
+    corners = cl_lo[:, :, None, :] * (1 - picks) + cl_hi[:, :, None, :] * picks
+    rot = state.camera_rot
+    fwd = quat_rotate(rot, torch.tensor([0.0, 1.0, 0.0], device=dev))
+    up = quat_rotate(rot, torch.tensor([0.0, 0.0, 1.0], device=dev))
+    rel = corners[:, None] - state.camera_pos[:, :, None, None, :]  # [W, C, CC, 8, 3]
+
+    def dot(axis):  # [W, C, 3] → [W, C, CC, 8]
+        a = axis[:, :, None, None, :]
+        return (rel[..., 0] * a[..., 0] + rel[..., 1] * a[..., 1]) + rel[..., 2] * a[..., 2]
+
+    y_f = dot(fwd)
+    z_u = dot(up)
+    deg2rad = float(np.float32(np.pi / 180))
+    tan_y = torch.tan(eff_fov * deg2rad * 0.5)[:, :, None, None]
+    behind_any = (y_f <= _F_EPS_BEHIND).any(-1)
+    safe_yf = torch.clamp_min(y_f, _F_EPS_BEHIND)
+    py = (1.0 - z_u / (safe_yf * tan_y)) * (height * 0.5) - 0.5
+    ymin = torch.where(behind_any, 0.0, py.amin(-1) - 2.0)
+    ymax = torch.where(behind_any, float(height), py.amax(-1) + 2.0)
+
+    def to_row(x):  # floor → int32, saturating (as XLA's conversion does)
+        return torch.floor(x).clamp(-2.0 ** 30, 2.0 ** 30).to(torch.int32)
+
+    row_lo = to_row(ymin).clamp(0, height - 1)
+    row_hi = (to_row(ymax) + 1).clamp(0, height - 1)
+    if g_rows > 0:
+        n_bands = -(-height // g_rows)
+
+        def slopes(rows):  # each band edge's slope factor, rounded to f32
+            return torch.tensor([1.0 - 2.0 * (p + 0.5) / height for p in rows],
+                                dtype=torch.float32, device=dev)
+
+        # Band k: the AABB lies wholly above its top edge (k·g - 2 px) or
+        # wholly below its bottom edge ((k+1)·g + 1 px); [W, C, CC, 8, K].
+        ks = torch.arange(n_bands, dtype=torch.int32, device=dev)
+        s_top = slopes([k * g_rows - 2.0 for k in range(n_bands)]) * tan_y[..., None]
+        s_bot = slopes([(k + 1) * g_rows + 1.0 for k in range(n_bands)]) * tan_y[..., None]
+        above = (z_u[..., None] - s_top * y_f[..., None]).amin(-2) > 0.0
+        below = (z_u[..., None] - s_bot * y_f[..., None]).amax(-2) < 0.0
+        touch = ~above & ~below  # [W, C, CC, K]
+        first = torch.where(touch, ks, n_bands).amin(-1)
+        last = torch.where(touch, ks, -1).amax(-1)
+        p_lo = torch.clamp_max(first * g_rows, height - 1)
+        p_hi = torch.clamp(last * g_rows + g_rows - 1, -1, height - 1)
+        row_lo = torch.maximum(row_lo, p_lo)
+        row_hi = torch.minimum(row_hi, p_hi)
+    spans = torch.stack([row_lo, row_hi], dim=2).to(torch.int32)  # [W, C, 2, CC]
+    return spans.reshape(W * C, 2, CC)
+
+
 def pack_inputs(
     state: SimState,
     scene: SceneData,
@@ -324,7 +456,8 @@ def pack_inputs(
     camera-plane znear). The rows take the prep layout on one-camera scenes
     without shadows and the raw layout otherwise (``render_core``
     :4342-4347); ``geo`` names the kernel's sweep: ``"prep"``, ``"raw"`` or,
-    with ``shadows``, ``"raw_shadows"``."""
+    with ``shadows``, ``"raw_shadows"``. On the streamed route ``order`` and
+    ``spans`` are each view's cluster order and row spans, else None."""
     check_supported(state, scene, texture_filter)
     # Effective per-camera view parameters (0 = inherit the call defaults).
     eff_fov = torch.where(state.camera_fov > 0, state.camera_fov, fov_y_degrees)
@@ -344,7 +477,13 @@ def pack_inputs(
     rows = pack_cuda.pack_rows(state, scene,
                                state.camera_pos[:, 0, :] if prep else None)
     cams = _pack_cams(state, scene, width, height, eff_fov, eff_near, far_t, far_z)
-    clusters = _pack_clusters(*world_clusters(state, scene))
+    cl_lo, cl_hi, cl_valid, cl_count = world_clusters(state, scene)
+    clusters = _pack_clusters(cl_lo, cl_hi, cl_valid, cl_count)
+    order = spans = None
+    if is_streamed(state, scene):
+        order = camera_cluster_order(cl_lo, cl_hi, cl_valid, state.camera_pos)
+        spans = camera_cluster_rowspans(cl_lo, cl_hi, cl_valid, state, eff_fov,
+                                        height, g_rows=_TILE)
     texture = mats = pool = fb_rows = None
     if is_textured(scene):
         texture = texture_filter
@@ -369,23 +508,28 @@ def pack_inputs(
         pool=pool,
         geo=geo,
         fb_rows=fb_rows,
+        order=order,
+        spans=spans,
     )
 
 
 # --------------------------------------------------------------------- #
 # Kernel K1 (K1-raw, K8, K2, K6, K7's first launch) and its plain version
 # --------------------------------------------------------------------- #
-def variant_name(raster: bool, texture, geo: str = "prep") -> str:
+def variant_name(raster: bool, texture, geo: str = "prep",
+                 streamed: bool = False) -> str:
     """The name of one instantiation of the render kernel:
-    ``render_resident`` plus ``_raw`` (K1-raw) or ``_raw_shadows`` (K8),
-    ``_raster`` (K2) and ``_tex_nearest`` / ``_tex_bilinear`` (K6) or
-    ``_tex_mip`` (the hand-off, K7's first launch)."""
-    name = "render_resident" + ("" if geo == "prep" else f"_{geo}")
+    ``render_resident`` (``render_streamed`` on the streamed route, K3 + K5)
+    plus ``_raw`` (K1-raw) or ``_raw_shadows`` (K8), ``_raster`` (K2) and
+    ``_tex_nearest`` / ``_tex_bilinear`` (K6) or ``_tex_mip`` (the hand-off,
+    K7's first launch)."""
+    name = "render_streamed" if streamed else "render_resident"
+    name += "" if geo == "prep" else f"_{geo}"
     name += "_raster" if raster else ""
     return name + (f"_tex_{texture}" if texture else "")
 
 
-VARIANTS = tuple(variant_name(r, t, g) for g in _GEO_CODES
+VARIANTS = tuple(variant_name(r, t, g, st) for st in (False, True) for g in _GEO_CODES
                  for r in (False, True) for t in _TEX_CODES)
 SHADE_MIP_VARIANTS = tuple(f"shade_mip_{f}" for f in shade.MIP_FILTERS)
 
@@ -418,8 +562,23 @@ def _check_mip_table(table, fb_rows) -> None:
                          f"got {tuple(table.shape)}")
 
 
+def _check_stream(order, spans, num_views: int, n_clusters: int, device) -> None:
+    if (order is None) != (spans is None):
+        raise ValueError("the streamed route needs both order and spans")
+    if order is None:
+        return
+    for name, t, shape in (("order", order, (num_views, n_clusters)),
+                           ("spans", spans, (num_views, 2, n_clusters))):
+        if t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a contiguous int32 {list(shape)} tensor, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
+
+
 def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
-                  seg_div, texture, mats, pool, geo, fb_rows=None) -> None:
+                  seg_div, texture, mats, pool, geo, fb_rows=None, order=None,
+                  spans=None) -> None:
     if geo not in _GEO_CODES:
         raise ValueError(f"geo must be one of {tuple(_GEO_CODES)}, got {geo!r}")
     if geo == "prep" and num_cams != 1:
@@ -463,12 +622,13 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
         )
     if height < 1 or width < 1 or seg_div < 1:
         raise ValueError(f"bad height/width/seg_div {height}/{width}/{seg_div}")
+    _check_stream(order, spans, W * num_cams, CC, rows.device)
 
 
 def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
                     height: int, width: int, seg_div: int, raster: bool = False,
                     texture=None, mats=None, pool=None, geo: str = "prep",
-                    fb_rows=None):
+                    fb_rows=None, order=None, spans=None):
     """The render kernel. Returns ``(depth f32, segmask i32, rgb i32-packed)``,
     each ``[W·C, height, width]``, in their final masked form: depth is t
     (raster: camera-plane z), segmask idx // seg_div (raster: -1).
@@ -480,16 +640,18 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
     ``geo`` names the rows' layout (``pack_cuda.pack_rows``) and the sweep:
     ``"prep"`` (one camera per world), ``"raw"``, or ``"raw_shadows"``,
     which shades each light only where nothing lies between the hit point
-    and the light.
+    and the light. With ``order`` and ``spans`` (``pack_inputs`` on a mesh
+    past the resident budget) the kernel takes the streamed route.
 
     Tensors on the card launch ``csrc/render_resident.cu`` on their device's
     current stream; tensors on the CPU run ``render_resident_plain``. Each
     launch adds one to ``render_resident.launches`` and to its variant's
     entry of ``render_resident.variant_launches``."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
-                  seg_div, texture, mats, pool, geo, fb_rows)
+                  seg_div, texture, mats, pool, geo, fb_rows, order, spans)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height,
-              width=width, seg_div=seg_div, raster=raster, geo=geo)
+              width=width, seg_div=seg_div, raster=raster, geo=geo,
+              order=order, spans=spans)
     if rows.device.type == "cpu":
         return render_resident_plain(rows, clusters, cams, texture=texture,
                                      mats=mats, pool=pool, fb_rows=fb_rows, **kw)
@@ -504,7 +666,7 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
 
 def render_handoff(rows, clusters, cams, *, num_cams: int, n_lights: int,
                    height: int, width: int, seg_div: int, raster: bool = False,
-                   geo: str = "prep"):
+                   geo: str = "prep", order=None, spans=None):
     """K7's first launch: the render kernel in its mip hand-off mode.
     Returns ``(depth, segmask, code, handoff)``: depth and segmask as
     ``render_resident`` writes them, ``code`` i32 ``[W·C, H, Wd]`` (the
@@ -514,16 +676,18 @@ def render_handoff(rows, clusters, cams, *, num_cams: int, n_lights: int,
     ``render_resident``'s ``_tex_mip`` variant), ``render_handoff_plain``
     on the CPU."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
-                  seg_div, None, None, None, geo)
+                  seg_div, None, None, None, geo, None, order, spans)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height,
-              width=width, seg_div=seg_div, raster=raster, geo=geo)
+              width=width, seg_div=seg_div, raster=raster, geo=geo,
+              order=order, spans=spans)
     if rows.device.type == "cpu":
         return render_handoff_plain(rows, clusters, cams, **kw)
     return _launch_render(rows, clusters, cams, texture="mip", **kw)
 
 
 def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
-                   seg_div, raster, texture, geo, mats=None, pool=None):
+                   seg_div, raster, texture, geo, mats=None, pool=None,
+                   order=None, spans=None):
     if rows.device.type != "cuda":
         raise ValueError(f"render_resident runs on cuda or cpu, not {rows.device}")
     W, _, S = rows.shape
@@ -532,6 +696,15 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     tiles = -(-height // 16) * -(-width // 16)
     if tiles > 65535:
         raise ValueError(f"{height}x{width} needs {tiles} tiles; the grid takes 65535")
+    streamed = order is not None
+    if streamed:
+        if (S // CC) % 4 or rows.data_ptr() % 16:
+            raise ValueError("the streamed route copies 16-byte slices: the cluster "
+                             "size must be a multiple of 4 and rows 16-byte aligned")
+        smem = streamed_smem_bytes(CC, S // CC, n_lights)
+        if smem > _MAX_SMEM:
+            raise ValueError(f"{CC} clusters need {smem} bytes of shared memory "
+                             f"(at most {_MAX_SMEM})")
     dev = rows.device
     shape = (WC, height, width)
     depth = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -552,6 +725,8 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
             int(mats.shape[1]) if sampled else 0,
             depth.data_ptr(), seg.data_ptr(), None if mip else rgb.data_ptr(),
             code.data_ptr() if mip else None, handoff.data_ptr() if mip else None,
+            order.data_ptr() if streamed else None,
+            spans.data_ptr() if streamed else None,
             WC, num_cams, S, CC, S // CC, int(cams.shape[1]), n_lights,
             height, width, seg_div,
             float(np.float32(2.0 / width)), float(np.float32(2.0 / height)),
@@ -561,7 +736,7 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     if err != 0:
         raise RuntimeError(f"render_resident launch failed: {launch.error_string(err)}")
     render_resident.launches += 1
-    render_resident.variant_launches[variant_name(raster, texture, geo)] += 1
+    render_resident.variant_launches[variant_name(raster, texture, geo, streamed)] += 1
     return (depth, seg, code, handoff) if mip else (depth, seg, rgb)
 
 
@@ -660,14 +835,16 @@ def shade_mip_plain(code, handoff, cams, table, pool, *, fb_rows: int,
     return rgb.to(torch.int32).reshape(V, height, width)
 
 
-def plain_rays(cams, height: int, width: int):
+def plain_rays(cams, height: int, width: int, rows: int = 0, cols: int = 0):
     """Unit ray directions ``(dx, dy, dz)``, each ``[W·C, height·width]``,
-    with K1's ray generation expressions (``raytrace_pallas.py:1180-1188``)."""
+    with K1's ray generation expressions (``raytrace_pallas.py:1180-1188``);
+    with ``rows`` × ``cols`` (at least the image), those of a larger grid of
+    threads, as the kernel's blocks past the image edge trace them."""
     dev = cams.device
     f32 = torch.float32
     ys, xs = torch.meshgrid(
-        torch.arange(height, device=dev, dtype=f32),
-        torch.arange(width, device=dev, dtype=f32),
+        torch.arange(rows or height, device=dev, dtype=f32),
+        torch.arange(cols or width, device=dev, dtype=f32),
         indexing="ij",
     )
     px = xs.reshape(1, -1)
@@ -732,14 +909,19 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
                           n_lights: int, height: int, width: int,
                           seg_div: int, raster: bool = False, texture=None,
                           mats=None, pool=None, geo: str = "prep",
-                          fb_rows=None):
+                          fb_rows=None, order=None, spans=None):
     """The kernel in torch ops, on any device: the same expressions in the
     same order, with no cluster cull (the culls only skip work). A loop over
-    the S triangles carries (best_t, best_idx) — and on raw rows the
-    winner's (u, v) — as ``[W·C, H·Wd]`` tensors; with shadows, a loop over
-    the S triangles per light ORs the occlusion. With ``fb_rows`` (K7):
-    ``render_handoff_plain``, then ``shade_mip_plain``."""
-    del clusters  # the plain version sweeps every triangle
+    the S triangles in ascending chunks carries (best_t, best_idx) — and on
+    raw rows the winner's (u, v) — as ``[W·C, H·Wd]`` tensors, each chunk
+    taking its first triangle at its least accepted t where that beats
+    best_t (the strict-< running sweep: the lowest index wins an exact tie);
+    with shadows, a loop over the S triangles per light ORs the occlusion.
+    With ``fb_rows`` (K7):
+    ``render_handoff_plain``, then ``shade_mip_plain``. It is the plain
+    version of both routes: the streamed route's visit order and culls only
+    skip work, and exact ties go to the lower index on both."""
+    del clusters, order, spans  # the plain version sweeps every triangle
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height, width=width,
               seg_div=seg_div, raster=raster, geo=geo)
     if fb_rows is None:
@@ -753,12 +935,20 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
 
 def render_handoff_plain(rows, clusters, cams, *, num_cams: int, n_lights: int,
                          height: int, width: int, seg_div: int,
-                         raster: bool = False, geo: str = "prep"):
+                         raster: bool = False, geo: str = "prep", order=None,
+                         spans=None):
     """``render_handoff`` in torch ops, on any device."""
-    del clusters  # the plain version sweeps every triangle
+    del clusters, order, spans  # the plain version sweeps every triangle
     return _render_plain(rows, cams, num_cams=num_cams, n_lights=n_lights,
                          height=height, width=width, seg_div=seg_div,
                          raster=raster, texture="mip", geo=geo)
+
+
+def _plain_chunks(S: int, rays: int):
+    """Triangle ranges of the plain sweep, sized so that its ``[rays, K]``
+    temporaries hold about 2^25 elements each."""
+    k = max(1, min(S, (1 << 25) // max(1, rays)))
+    return [(i, min(S, i + k)) for i in range(0, S, k)]
 
 
 def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
@@ -783,16 +973,24 @@ def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
     best_idx = torch.full((WC, P), -1, dtype=torch.int32, device=dev)
     best_u = torch.zeros((WC, P), dtype=f32, device=dev)
     best_v = torch.zeros((WC, P), dtype=f32, device=dev)
-    origin = (cam(0), cam(1), cam(2)) if raw else None
-    for i in range(S):
+    origin = (cam(0)[:, None], cam(1)[:, None], cam(2)[:, None]) if raw else None
+    d3 = (dx[:, None], dy[:, None], dz[:, None])  # [WC, 1, P]
+    for i0, i1 in _plain_chunks(S, WC * P):
+        # The chunk's tests as [WC, K, P]; its winner is the first triangle
+        # at its least accepted t, taken on strict <: the running sweep's.
         ok, t, u, v = plain_triangle_test(
-            dx, dy, dz, rows_v[:, :_N_PREP_ROWS, i:i + 1], t_lo, best_t, origin
-        )
-        best_t = torch.where(ok, t, best_t)
-        best_idx = torch.where(ok, i, best_idx)
+            *d3, rows_v[:, :_N_PREP_ROWS, i0:i1, None], t_lo[:, None], None, origin)
+        t = torch.where(ok, t, torch.inf)
+        m = t.amin(1)
+        ks = torch.arange(i1 - i0, dtype=torch.int32, device=dev)[None, :, None]
+        first = torch.where(t == m[:, None], ks, i1 - i0).amin(1)
+        take = m < best_t
+        best_t = torch.where(take, m, best_t)
+        best_idx = torch.where(take, first + i0, best_idx)
         if raw:
-            best_u = torch.where(ok, u, best_u)
-            best_v = torch.where(ok, v, best_v)
+            pick = first.clamp_max(i1 - i0 - 1).long()[:, None]
+            best_u = torch.where(take, torch.gather(u, 1, pick)[:, 0], best_u)
+            best_v = torch.where(take, torch.gather(v, 1, pick)[:, 0], best_v)
 
     found = best_idx >= 0
     gidx = best_idx.clamp_min(0).long()
@@ -841,11 +1039,13 @@ def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
         for li in range(n_lights):
             c0 = _CAM_LIGHT0 + 6 * li
             sd = (-cam(c0), -cam(c0 + 1), -cam(c0 + 2))
+            sd = tuple(c[:, None] for c in sd)
             occ = torch.zeros((WC, P), dtype=torch.bool, device=dev)
-            for i in range(S):
+            for i0, i1 in _plain_chunks(S, WC * P):
                 ok, _, _, _ = plain_triangle_test(
-                    *sd, rows_v[:, :_N_PREP_ROWS, i:i + 1], eps_sh, origin=(hx, hy, hz))
-                occ = occ | ok
+                    *sd, rows_v[:, :_N_PREP_ROWS, i0:i1, None], eps_sh[:, None],
+                    origin=(hx[:, None], hy[:, None], hz[:, None]))
+                occ = occ | ok.any(1)
             occluded.append(occ)
 
     n_inv = 1.0 / torch.sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, _F_TINY))

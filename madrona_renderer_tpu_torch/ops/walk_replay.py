@@ -1,0 +1,180 @@
+"""The streamed route's walk (K3 + K5) replayed in torch ops.
+
+``streamed_walk`` repeats, block by block, what a 16×16 block of the
+streamed render kernel (``csrc/render_resident.cu``, ``STREAM``) decides:
+along its view's cluster order it stops at the first cluster that is
+invalid or that no ray can reach (best_t² ≤ 0.998 · approach distance²),
+skips a cluster whose pixel-row span misses the block's rows or whose slab
+test (tmin · 0.999 < best_t) no ray passes, and sweeps the rest, the lower
+index winning an exact tie. With shadows it repeats each light's index-order
+any-hit walk. It returns the frames' depth and segmask (equal to
+``render_resident_plain``'s when the culls are conservative, which the tests
+check) and the work: positions gated, clusters and triangles swept per
+block, and the distinct (world, cluster) pairs whose rows some block
+streamed — what the kernel's bound counts. Every block's threads trace
+rays, including those past the image edge, as the kernel's do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import raytrace_cuda as rc
+
+_T = rc._TILE
+
+
+def _inverse(d):
+    tiny = rc._F_TINY
+    return 1.0 / torch.where(d.abs() > tiny, d, torch.where(d < 0, -tiny, tiny))
+
+
+def _slab(g, origin, inv):
+    """Slab test of AABBs ``g`` (rows lo.xyz, hi.xyz as ``g[k]``) against
+    rays from ``origin`` with inverse directions ``inv``: (tmin, tmax)."""
+    t1 = [(g[k] - origin[k]) * inv[k] for k in range(3)]
+    t2 = [(g[3 + k] - origin[k]) * inv[k] for k in range(3)]
+    lo = [torch.minimum(a, b) for a, b in zip(t1, t2)]
+    hi = [torch.maximum(a, b) for a, b in zip(t1, t2)]
+    return (torch.maximum(torch.maximum(lo[0], lo[1]), lo[2]),
+            torch.minimum(torch.minimum(hi[0], hi[1]), hi[2]))
+
+
+def _cluster_tests(rows_v, c, cs, cnt, dirs, t_lo, origin):
+    """Tests of each view's cluster ``c`` [V] (its valid prefix ``cnt``)
+    against the blocks' rays ``dirs`` [V, nt, 1, 256]: (ok, t) as
+    [V, nt, cs, 256]."""
+    V = rows_v.shape[0]
+    dev = rows_v.device
+    ks = torch.arange(cs, device=dev)
+    idx = (c[:, None] * cs + ks)[:, None, :].expand(V, rc._N_PREP_ROWS, cs)
+    tri = rows_v[:, :rc._N_PREP_ROWS].gather(2, idx)  # [V, 10, cs]
+    ok, t, _, _ = rc.plain_triangle_test(*dirs, tri[:, :, None, :, None], t_lo, None,
+                                         origin)
+    return ok & (ks[None, :] < cnt[:, None])[:, None, :, None], t
+
+
+def streamed_walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights: int,
+                  height: int, width: int, seg_div: int, raster: bool = False,
+                  geo: str = "prep", **_):
+    """Replay the streamed kernel's walk on ``pack_inputs``'s tensors.
+    Returns a dict: ``depth`` f32 and ``segmask`` i32 ``[W·C, H, Wd]`` as
+    the raytrace export writes them for valid cameras (t and idx // seg_div
+    on a hit, 0 and -1 on a miss), and the counts ``gated`` (positions a
+    block evaluated past the early exit), ``slab_tests`` (those that passed
+    the row gate), ``cluster_visits`` and ``triangle_visits`` (per block),
+    ``clusters_streamed`` (distinct (world, cluster) pairs visited),
+    ``winners`` (distinct (world, triangle) pairs some pixel hits),
+    ``shadow_cluster_visits`` and ``shadow_triangle_visits`` (per block, all
+    lights)."""
+    V = cams.shape[0]
+    W, _, S = rows.shape
+    CC = clusters.shape[2]
+    cs = S // CC
+    dev = cams.device
+    hp, wp = -(-height // _T) * _T, -(-width // _T) * _T
+    ty, tx = hp // _T, wp // _T
+    nt = ty * tx
+    world = torch.arange(V, device=dev) // num_cams
+    rows_v = rows[world]
+    cl = clusters[world]  # [V, 8, CC]
+
+    def blocks(x):  # [V, hp·wp] → [V, nt, 256], block-major
+        return x.reshape(V, ty, _T, tx, _T).permute(0, 1, 3, 2, 4).reshape(V, nt, _T * _T)
+
+    d = tuple(blocks(x) for x in rc.plain_rays(cams, height, width, hp, wp))
+    inv = tuple(_inverse(x) for x in d)
+
+    def cam(k):  # [V, 1, 1]
+        return cams[:, k, None, None]
+
+    o = (cam(0), cam(1), cam(2))
+    near, far = cam(14), cam(15)
+    t_lo = near
+    if raster:
+        cosf = d[0] * cam(6) + d[1] * cam(7) + d[2] * cam(8)
+        t_lo = near / torch.clamp_min(cosf, rc._F_COS_FLOOR)
+    raw = geo != "prep"
+    dirs = tuple(x[:, :, None] for x in d)  # [V, nt, 1, 256]
+    t_lo4 = t_lo[:, :, None] if raster else near[..., None]
+    origin4 = tuple(x[..., None] for x in o) if raw else None
+    best_t = far.expand(V, nt, _T * _T).clone()
+    best_idx = torch.full_like(best_t, -1, dtype=torch.int64)
+    done = torch.zeros((V, nt), dtype=torch.bool, device=dev)
+    row0 = (torch.arange(nt, device=dev) // tx * _T)[None, :]
+    streamed = torch.zeros((W, CC), dtype=torch.int64, device=dev)  # visits per cluster
+    ks = torch.arange(cs, device=dev)[None, None, :, None]
+    n = dict(gated=0, slab_tests=0, cluster_visits=0, triangle_visits=0,
+             shadow_cluster_visits=0, shadow_triangle_visits=0)
+    for p in range(CC):
+        active = ~done
+        if not bool(active.any()):
+            break
+        c = order[:, p].long()
+        g = cl.gather(2, c[:, None, None].expand(V, 8, 1))[:, :, 0]  # [V, 8]
+        gv = [g[:, k, None, None] for k in range(8)]
+        a = [torch.clamp_min(torch.maximum(g[:, k] - cams[:, k], cams[:, k] - g[:, 3 + k]), 0.0)
+             for k in range(3)]
+        d2 = (a[0] * a[0] + a[1] * a[1]) + a[2] * a[2]  # [V]
+        live = (best_t * best_t > (d2 * rc._F_EXIT_SLACK)[:, None, None]).any(-1)
+        done = done | (active & (~(g[:, 6] > 0)[:, None] | ~live))
+        act = active & ~done
+        n["gated"] += int(act.sum())
+        lo = spans[:, 0].gather(1, c[:, None])
+        hi = spans[:, 1].gather(1, c[:, None])
+        act = act & ~((lo > row0 + _T - 1) | (hi < row0))
+        n["slab_tests"] += int(act.sum())
+        tmin, tmax = _slab(gv, o, inv)
+        possible = (tmax >= tmin) & (tmax > near) & (tmin * rc._F_SLAB_SLACK < best_t)
+        visit = act & possible.any(-1)  # [V, nt]
+        if not bool(visit.any()):
+            continue
+        cnt = g[:, 7].long()
+        n["cluster_visits"] += int(visit.sum())
+        n["triangle_visits"] += int((visit.sum(1) * cnt).sum())
+        streamed.index_put_((world, c), visit.sum(1), accumulate=True)
+        ok, t = _cluster_tests(rows_v, c, cs, cnt, dirs, t_lo4, origin4)
+        t = torch.where(ok & visit[:, :, None, None], t, torch.inf)
+        m = t.amin(2)
+        first = torch.where(t == m[:, :, None], ks, cs).amin(2)
+        gi = c[:, None, None] * cs + first
+        take = (m < best_t) | ((m == best_t) & (gi < best_idx))
+        best_t = torch.where(take, m, best_t)
+        best_idx = torch.where(take, gi, best_idx)
+
+    if geo == "raw_shadows":
+        t_hit = torch.where(best_idx >= 0, best_t, 0.0)
+        h = tuple(o[k] + t_hit * d[k] for k in range(3))
+        eps = rc._F_SHADOW_EPS * (1.0 + t_hit)
+        h4 = tuple(x[:, :, None] for x in h)
+        all_c = torch.arange(CC, device=dev)
+        for li in range(n_lights):
+            c0 = rc._CAM_LIGHT0 + 6 * li
+            sd = tuple(-cam(c0 + k) for k in range(3))
+            inv_s = tuple(_inverse(x) for x in sd)
+            occ = torch.zeros_like(best_t, dtype=torch.bool)
+            for c in range(CC):
+                g = [cl[:, k, c, None, None] for k in range(8)]
+                tmin, tmax = _slab(g, h, inv_s)
+                visit = ((tmax >= tmin) & (tmax > 0) & ~occ).any(-1) & (g[6][:, :, 0] > 0)
+                if not bool(visit.any()):
+                    continue
+                cnt = cl[:, 7, c].long()
+                n["shadow_cluster_visits"] += int(visit.sum())
+                n["shadow_triangle_visits"] += int((visit.sum(1) * cnt).sum())
+                streamed.index_put_((world, all_c[c].expand(V)), visit.sum(1), accumulate=True)
+                ok, _ = _cluster_tests(rows_v, all_c[c].expand(V), cs, cnt,
+                                       tuple(x[..., None] for x in sd), eps[:, :, None], h4)
+                occ = occ | (ok & visit[:, :, None, None]).any(2)
+
+    def image(x):  # [V, nt, 256] → [V, height, width]
+        x = x.reshape(V, ty, tx, _T, _T).permute(0, 1, 3, 2, 4).reshape(V, hp, wp)
+        return x[:, :height, :width]
+
+    found = best_idx >= 0
+    hits = (world[:, None, None] * S + best_idx)[found]
+    depth = torch.where(found, best_t, 0.0)
+    seg = torch.where(found, torch.div(best_idx, seg_div, rounding_mode="floor"), -1)
+    return dict(depth=image(depth), segmask=image(seg).to(torch.int32),
+                clusters_streamed=int((streamed > 0).sum()),
+                winners=int(torch.unique(hits).numel()), **n)

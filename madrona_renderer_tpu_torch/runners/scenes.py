@@ -5,7 +5,9 @@ The port's copy of ``demo_config``, ``cube_mesh``, ``plane_mesh`` and
 ``demo_texture_png`` from the JAX package's ``runners/scenes.py`` (the
 scenes of the ``bench.py`` rows), for their raw-geometry form, untextured
 or with the PNG checkerboard. The KTX2 texture and the disk-asset variant
-are ROADMAP Queue 1 item 18.
+are ROADMAP Queue 1 item 18. ``terrain_mesh`` and ``bigmesh_config`` copy
+``tools/tpu_bigmesh_bench.py``'s big-mesh scene (``bench.py``'s
+``bigmesh_512w`` row), a mesh past the resident budget.
 """
 
 from __future__ import annotations
@@ -248,4 +250,47 @@ def renderer_kwargs(cfg: ManagerConfig) -> dict:
         instances=list(rcfg.instances),
         cameras=list(rcfg.cameras),
         worlds=list(rcfg.worlds),
+    )
+
+
+def terrain_mesh(n: int = 72, extent: float = 40.0, amp: float = 1.5) -> np.ndarray:
+    """``tools/tpu_bigmesh_bench.py``'s heightfield terrain: an n x n grid of
+    quads over [-extent, extent]², 2·n² triangles ``[6n², 3]`` f32."""
+    xs = np.linspace(-extent, extent, n + 1)
+    gx, gy = np.meshgrid(xs, xs, indexing="ij")
+    gz = amp * (np.sin(gx * 0.3) * np.cos(gy * 0.23) + 0.3 * np.sin(gy * 0.7))
+    v = np.stack([gx, gy, gz], axis=-1).astype(np.float32)
+    a, b, c, d = v[:-1, :-1], v[1:, :-1], v[1:, 1:], v[:-1, 1:]
+    return np.stack([a, b, c, a, c, d], axis=2).reshape(-1, 3)
+
+
+def bigmesh_config(num_worlds: int, width: int = 64, height: int = 64,
+                   grid: int = 72, **extra) -> ManagerConfig:
+    """``bench.py``'s ``bigmesh_512w`` scene (``tools/tpu_bigmesh_bench.py``
+    :44-90): per world the ``grid``² terrain (10,368 triangles at 72) at the
+    origin and the cube scaled 2 at (0, 0, 2.5), one camera at (0, 14, 6)
+    pitched -0.25, raytraced."""
+    terrain = terrain_mesh(grid)
+    cube_v, _ = cube_mesh()
+    geo = _geo_from([terrain, cube_v], [np.zeros((len(m), 2), np.float32)
+                                        for m in (terrain, cube_v)], [0, 1])
+    mats = [AdditionalMaterial(color=(0.35, 0.5, 0.3, 1.0)),
+            AdditionalMaterial(color=(0.9, 0.3, 0.2, 1.0))]
+    ps, pc = math.sin(-0.25 / 2), math.cos(-0.25 / 2)
+    instances, cameras, worlds = [], [], []
+    for w in range(num_worlds):
+        instances.append(ImportedInstance(position=[0, 0, 0], rotation=[1, 0, 0, 0],
+                                          scale=[1, 1, 1], object_id=0))
+        instances.append(ImportedInstance(position=[0, 0, 2.5], rotation=[1, 0, 0, 0],
+                                          scale=[2, 2, 2], object_id=1))
+        cameras.append(ImportedCamera(position=[0.0, 14.0, 6.0], rotation=[0.0, 0.0, ps, pc]))
+        worlds.append(WorldInit(num_instances=2, instance_offset=2 * w, num_cameras=1,
+                                camera_offset=w))
+    return ManagerConfig(
+        gpu_id=0, num_worlds=num_worlds, render_mode=RenderMode.Raytracer,
+        batch_render_view_width=width, batch_render_view_height=height,
+        headless_mode=True,
+        rcfg=RenderConfig(geo_cfg=geo, additional_mats=mats, instances=instances,
+                          cameras=cameras, worlds=worlds),
+        **extra,
     )

@@ -16,13 +16,18 @@ from madrona_renderer_tpu_torch import convert
 from madrona_renderer_tpu_torch.core.scene import SceneData as TSceneData
 from madrona_renderer_tpu_torch.core.state import SimState as TSimState
 
-from tests.torch_helpers import carry_over, random_spec, spec_from_config, to_numpy
+from tests.torch_helpers import (
+    carry_over, random_spec, spec_from_config, terrain_spec, to_numpy,
+)
 
 SPECS = {
     "demo3_dynamic": lambda: spec_from_config(
         demo_config(3, RenderMode.Raytracer, 64, 64, dynamic=True)),
     "random5": lambda: random_spec(5, n_worlds=2),
     "random9": lambda: random_spec(9, n_worlds=3),
+    # bench.py's bigmesh scene: a streamed bake (t_pad rounded to 128,
+    # 32-triangle clusters).
+    "terrain72": lambda: terrain_spec(n_worlds=2, grid=72),
 }
 
 
@@ -64,6 +69,18 @@ def test_convert_round_trip(name):
     _assert_bitwise(j_scene, again)
     again = convert.state_from_numpy(convert.to_numpy(t_state))
     _assert_bitwise(j_state, again)
+
+
+def test_streamed_bake_pads_and_clusters():
+    """The terrain's object (10,368 triangles) is past the resident budget:
+    the bake pads it to a multiple of 128 and cuts 32-triangle clusters,
+    their valid-prefix counts ending where the triangles do."""
+    t_state, t_scene = SPECS["terrain72"]().build_torch()
+    assert t_scene.tris_per_object == 10368 and t_scene.tris_per_object % 128 == 0
+    assert t_scene.cl_valid.shape[1] * 32 == t_scene.tris_per_object
+    counts = t_scene.cl_count[0].numpy()
+    assert (counts == 32).all() and int(t_scene.cl_count[1].sum()) == 12
+    assert int(t_scene.cl_valid.sum()) == 324 + 1
 
 
 def test_convert_rejects_mismatched_tris_per_object():

@@ -1,8 +1,9 @@
 """PyTorch port: it stands alone.
 
-The port (and chip_smoke.py) imports neither JAX nor any module of the JAX
-package; it renders on the CPU (raytraced, textured, mip-mapped and
-rasterized) in a process where both are unimportable; a CPU render
+The port (and chip_smoke.py and port_tools/) imports neither JAX nor any
+module of the JAX package; it renders on the CPU (raytraced, textured,
+mip-mapped, rasterized and a streamed big mesh, with its walk replayed) in
+a process where both are unimportable; a CPU render
 launches no kernel; every kernel source under csrc/ has its launch
 signature, so the build covers it.
 """
@@ -17,7 +18,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "madrona_renderer_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "port_tools").glob("*.py")))
 
 
 def _forbidden(module: str) -> bool:
@@ -75,6 +77,13 @@ assert ra.depth_tensor().numpy().shape == (2, 32, 32, 1)
 mp = m.Manager(demo_config(2, m.RenderMode.Raytracer, 32, 32, textured=True, tex_size=256,
                            texture_filter="trilinear", device="cpu"))
 assert raytrace_cuda.has_mips(mp.scene) and mp.rgb_tensor().numpy().shape == (2, 32, 32, 4)
+from madrona_renderer_tpu_torch.ops import walk_replay
+from madrona_renderer_tpu_torch.runners.scenes import bigmesh_config
+bm = m.Manager(bigmesh_config(2, 32, 32, grid=40, device="cpu"))
+assert raytrace_cuda.is_streamed(bm.state, bm.scene)
+assert set(bm.segmask_tensor().numpy().ravel().tolist()) == {-1, 0, 1}
+kw = raytrace_cuda.pack_inputs(bm.state, bm.scene, height=32, width=32)
+assert walk_replay.streamed_walk(**kw)["segmask"].equal(bm.segmask_tensor().to_torch())
 assert raytrace_cuda.render_resident.launches == 0
 assert raytrace_cuda.shade_mip.launches == 0
 assert sum(pack_cuda.pack_rows.layout_launches.values()) == 0
@@ -139,6 +148,13 @@ def test_cuda_tensor_never_falls_back():
     with pytest.raises(ValueError, match="cuda or cpu"):
         raytrace_cuda.render_resident(rows, clusters, cams, num_cams=1, n_lights=1,
                                       height=8, width=8, seg_div=8)
+    # The streamed route too.
+    order = torch.empty((1, 2), dtype=torch.int32, device="meta")
+    spans = torch.empty((1, 2, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        raytrace_cuda.render_resident(rows, clusters, cams, num_cams=1, n_lights=1,
+                                      height=8, width=8, seg_div=8, order=order,
+                                      spans=spans)
 
 
 def test_every_kernel_source_has_a_signature():

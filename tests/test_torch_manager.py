@@ -103,15 +103,6 @@ def test_madrona_renderer_ctor_and_functional_api():
     np.testing.assert_array_equal(r.rgb_tensor().numpy()[0], m.rgb_tensor().numpy()[0])
 
 
-def _big_mesh_kwargs():
-    tri = np.asarray([[0, 5, 0], [1, 5, 0], [0, 5, 1]] * 3100, np.float32)
-    return dict(mesh_vertices=tri, mesh_indices=np.arange(len(tri), dtype=np.uint32),
-                mesh_vertex_offsets=[0], mesh_indices_offsets=[0], mesh_materials=[-1],
-                instances=[tm.ImportedInstance([0, 0, 0], [1, 0, 0, 0])],
-                cameras=[tm.ImportedCamera([0, 0, 0], [1, 0, 0, 0])],
-                worlds=[tm.WorldInit(1, 0, 1, 0)])
-
-
 # Rasterizer mode and PNG textures render (tests/test_torch_raster.py,
 # tests/test_torch_textured.py); what is still missing around them raises.
 UNSUPPORTED = {
@@ -123,9 +114,8 @@ UNSUPPORTED = {
     "ssaa": (dict(ssaa=2), "item 13"),
     "num_devices": (dict(num_devices=2), "item 15"),
     "asset_paths": (dict(asset_paths=[tm.ImportedAsset("cube.obj")]), "item 18"),
-    "big_mesh": (dict(big=True), "item 8"),
 }
-# Options that raised until their slice was ported (items 7, 9 and 10):
+# Options that raised until their slice was ported (items 7, 8, 9 and 10):
 # each now renders through MadronaRenderer, steps, and matches the JAX
 # Manager.
 PORTED = {
@@ -133,11 +123,43 @@ PORTED = {
     "multi_camera": dict(num_cams=2),
     "shadows": dict(shadows=True),
     "mipmaps": dict(mipmaps=True, textured=True, tex_size=32),
+    "big_mesh": dict(big=True),
 }
+
+
+def _big_mesh_renders_like_jax():
+    """bench.py's big-mesh scene (tools/tpu_bigmesh_bench.py, a 40x40-grid
+    terrain: past the resident budget) through both MadronaRenderers; after
+    a step that moves world 0's terrain, world 0's frames change and world
+    1's do not, in both."""
+    import dataclasses
+
+    import madrona_renderer_tpu.config as jcfg
+    from madrona_renderer_tpu_torch.ops import raytrace_cuda
+    from madrona_renderer_tpu_torch.runners.scenes import bigmesh_config
+
+    kw = renderer_kwargs(bigmesh_config(2, 16, 16, grid=40))
+    t = tm.MadronaRenderer(0, 2, tm.RenderMode.Raytracer, 16, 16, device="cpu", **kw)
+    assert raytrace_cuda.is_streamed(t.state, t.scene)
+    for key, cls in (("materials", jcfg.AdditionalMaterial), ("instances", jcfg.ImportedInstance),
+                     ("cameras", jcfg.ImportedCamera), ("worlds", jcfg.WorldInit)):
+        kw[key] = [cls(**dataclasses.asdict(x)) for x in kw[key]]
+    j = jm.MadronaRenderer(0, 2, jm.RenderMode.Raytracer, 16, 16, impl="jnp", **kw)
+    assert_frames_close(j.frames, t.frames)
+    before = t.rgb_tensor().to_torch().clone()
+    for r in (t, j):
+        pos = r.instance_position_tensor().to_torch()
+        pos[0][0] += 0.7
+        r.step()
+    assert_frames_close(j.frames, t.frames)
+    after = t.rgb_tensor().to_torch()
+    assert not torch.equal(before[0], after[0]) and torch.equal(before[1], after[1])
 
 
 def _renders_like_jax(opts):
     opts = dict(opts)
+    if opts.pop("big", False):
+        return _big_mesh_renders_like_jax()
     mode = opts.pop("render_mode", tm.RenderMode.Raytracer)
     scene = dict(num_cams=opts.pop("num_cams", 1), textured=opts.pop("textured", False),
                  tex_size=opts.pop("tex_size", 64))
@@ -162,12 +184,8 @@ def test_unsupported_options_raise(case, tmp_path):
         return
     opts, item = UNSUPPORTED[case]
     opts = dict(opts)
-    if opts.pop("big", False):
-        kw = _big_mesh_kwargs()
-        n = 1
-    else:
-        n = 2
-        kw = renderer_kwargs(t_demo(n, tm.RenderMode.Raytracer, 16, 16))
+    n = 2
+    kw = renderer_kwargs(t_demo(n, tm.RenderMode.Raytracer, 16, 16))
     if opts.pop("big_texture", False):
         # 144×144 texels: past the in-kernel route's 128×128 texel pool.
         from madrona_renderer_tpu_torch.assets.png import write_png

@@ -9,6 +9,7 @@ same state.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 
@@ -21,6 +22,8 @@ from madrona_renderer_tpu_torch.assets.importer import load_render_assets as t_l
 from madrona_renderer_tpu_torch.convert import scene_from_numpy, state_from_numpy
 from madrona_renderer_tpu_torch.core.scene import bake_scene as t_bake
 from madrona_renderer_tpu_torch.core.state import init_state as t_init
+from madrona_renderer_tpu.runners.scenes import cube_mesh
+from tools.tpu_bigmesh_bench import terrain_mesh
 
 
 def to_numpy(x) -> dict:
@@ -230,6 +233,32 @@ def random_spec(seed: int, n_worlds: int = 1) -> SceneSpec:
         worlds.append(dict(num_instances=n_inst, instance_offset=n_inst * w,
                            num_cameras=1, camera_offset=w))
     return SceneSpec(meshes, instances, cameras, worlds)
+
+
+def terrain_spec(n_worlds=2, rotated=False, num_cams=1, grid=40):
+    """tools/tpu_bigmesh_bench.py's scene at a ``grid``² terrain (40: 3,200
+    terrain triangles, S = 6,400 per world): the terrain and the cube scaled 2,
+    one camera at (0, 14, 6) pitched -0.25; ``rotated`` turns each world's
+    terrain by a random quaternion, and extra cameras stand 1.5 apart."""
+    rng = np.random.default_rng(3)
+    ps, pc = math.sin(-0.125), math.cos(-0.125)
+    insts, cams, worlds = [], [], []
+    for w in range(n_worlds):
+        rot = IDENTITY
+        if rotated:
+            q = rng.normal(size=4)
+            rot = (q / np.linalg.norm(q)).tolist()
+        insts += [dict(position=[0, 0, 0], rotation=list(rot), scale=[1, 1, 1], object_id=0),
+                  dict(position=[0.3 * w, 0, 2.5], rotation=IDENTITY, scale=[2, 2, 2],
+                       object_id=1)]
+        cams += [dict(position=[1.5 * c, 14.0, 6.0], rotation=[0.0, 0.0, ps, pc])
+                 for c in range(num_cams)]
+        worlds.append(dict(num_instances=2, instance_offset=2 * w, num_cameras=num_cams,
+                           camera_offset=num_cams * w))
+    return SceneSpec(meshes=[terrain_mesh(grid), cube_mesh()[0]], instances=insts,
+                     cameras=cams, worlds=worlds,
+                     materials=[(0.35, 0.5, 0.3, 1.0), (0.9, 0.3, 0.2, 1.0)],
+                     mesh_materials=[0, 1])
 
 
 def assert_frames_close(ref, port):
