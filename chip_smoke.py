@@ -12,29 +12,36 @@ printed as JSON lines:
                same CUDA inputs at 64 worlds: the fused pack K13 in both
                layouts (``pack_rows`` prep, ``pack_rows_raw``, bitwise) and
                every variant of the render kernel (prep / raw / raw with
-               shadows x raytrace / raster x untextured / nearest /
-               bilinear) on the demo scene with one and with four cameras
-               per world (untextured and textured), random scenes (one with
-               1-3 cameras per world, per-camera fov and znear), the demo
-               scene at 40x24 with two lights, and the occluder scene of
-               tests/test_shadows.py with one and with two lights, each
-               without and with shadows; then K7 (the render kernel's mip
+               shadows, and K10's watertight raw / raw with shadows, bitwise
+               x raytrace / raster x untextured / nearest / bilinear) on the
+               demo scene with one and with four cameras per world
+               (untextured and textured), random scenes (padded triangle
+               slots; one with 1-3 cameras per world, per-camera fov and
+               znear), the demo scene at 40x24 with two lights, the occluder
+               scene of tests/test_shadows.py with one and with two lights,
+               and the quad-seam scene of tests/test_watertight_pallas.py
+               split across two instances and in one (a ``seam`` line counts
+               the crack pixels inside the quad: none), each without and
+               with shadows; then K7 (the render kernel's mip
                hand-off and ``shade_mip``) bitwise, together and each alone,
                in every variant (prep / raw / raw with shadows x raytrace /
                raster x nearest / bilinear / trilinear) on the mip scenes of
                tests/test_mips.py (the gradient floor with a close-up quad,
                also at 64x256 and with two cameras; the overflow floor; the
                uv-seam close-up at 48x48; the close-up whose trilinear blend
-               dies), with a ``k7_levels`` line per scene: pixels per level,
-               pixels clamped to the coarse chain, blends killed; then every
-               variant of the streamed route (K3 + K5, ``render_streamed*``)
-               bitwise on bench.py's big-mesh scene with a per-world terrain
-               yaw and cube position (also with two cameras, a 32x32 texture
-               and a 256x256 mip-mapped one), on the streamed scenes of
-               tests/test_pallas_parity.py and tests/test_shadows.py, and on
-               the tie scene (exact-t ties across clusters go to the lower
-               index, a ``tie`` line counts the pixels);
-  4. paths   — the seven paths of the port, each through MadronaRenderer and
+               dies; K10's hand-off variants, trilinear), with a
+               ``k7_levels`` line per scene: pixels per level, pixels
+               clamped to the coarse chain, blends killed; then every
+               variant of the streamed route (K3 + K5, ``render_streamed*``;
+               K10's on the untextured, 32x32-textured and mip-mapped terrain
+               and the tie scene) bitwise on bench.py's big-mesh scene with a
+               per-world terrain yaw and cube position (also with two
+               cameras, a 32x32 texture and a 256x256 mip-mapped one), on the
+               streamed scenes of tests/test_pallas_parity.py and
+               tests/test_shadows.py, and on the tie scene (exact-t ties
+               across clusters go to the lower index, a ``tie`` line counts
+               the pixels);
+  4. paths   — the nine paths of the port, each through MadronaRenderer and
                stepped with a position mutation through the exported tensor
                between steps, with every launch count set to 0 just before
                and read just after:
@@ -42,6 +49,13 @@ printed as JSON lines:
                                   raytraced;
                  textured_4096w   the same with the 32x32 PNG checkerboard,
                                   nearest filtering;
+                 watertight_4096w bench.py:314, textured_4096w with
+                                  watertight=True (K10 on the raw rows;
+                                  beside it K1-raw's ε-slack sweep on the
+                                  same rows, a ``wt_vs_eps`` line);
+                 textured_4096w_ssaa2 bench.py:309, textured_4096w with
+                                  ssaa=2 (K6 at 128x128, the box filter
+                                  to 64x64);
                  raster_256w_png  256 worlds x 64x64 of the textured cube,
                                   RenderMode.Rasterizer;
                  multicam_1024w4c 1024 worlds x 4 cameras x 64x64 (4096
@@ -59,14 +73,17 @@ printed as JSON lines:
                                   walk replayed in torch ops, its frames
                                   held to the exports and its work counted);
                then, on each path's last inputs at full size, the kernels
-               against the exported frames and their plain versions (and
+               (under SSAA, filtered down) against the exported frames and
+               their plain versions (and
                for shadows_4096w the unshadowed render of the same rows:
                rgb darker somewhere, depth and segmask bitwise; for
                textured256_4096w every K7 variant on its inputs); one line
                per path (phase = its name) with the step and prologue times
                on the host clock and the prologue's operator count;
-  5. timing  — each kernel at its path's full-size inputs: its device time
-               in a CUDA graph of back-to-back launches, its time through
+  5. timing  — each kernel at its path's full-size inputs (K10's
+               untextured variants on main's, its textured ones on
+               watertight_4096w's): its device time in a CUDA graph of
+               back-to-back launches, its time through
                the wrapper (host overhead included), its plain version's
                time, its bound (on the streamed route from the walk the
                data makes: the clusters streamed, the positions gated, the
@@ -79,7 +96,8 @@ printed as JSON lines:
                one-camera rows (beside a ``prep_vs_raw`` line of phase 4
                that compares its frames with the prep sweep's), and each
                K7 variant's two launches together on textured256_4096w's
-               inputs;
+               inputs, K1-raw on watertight_4096w's rows, the ssaa path's
+               kernel at 128x128 and its filter (torch ops: time and bound);
 
 then the nvidia-smi line, the ``kernels`` summary line and the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -89,6 +107,7 @@ once.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import statistics
@@ -113,6 +132,7 @@ BIGMESH_WORLDS = 512
 MIP_FILTERS = ("nearest", "bilinear", "trilinear")
 KERNEL_REPS = 50
 SMALL_WORLDS = 64
+SSAA = 2
 
 # H100 SXM peaks (NVIDIA data sheet). The published 67 TFLOP/s of FP32
 # outside the tensor cores counts a fused multiply-add as two operations
@@ -121,6 +141,9 @@ SMALL_WORLDS = 64
 # its own: their peak is half of that.
 PEAK_FP32_OPS = 67e12 / 2
 PEAK_BYTES = 3.35e12
+# int32 add, shift and logic: 64 lanes an SM (Hopper white paper) at the
+# same 1.98 GHz.
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
 
 # The render kernel's FP32 operations, counted from
 # csrc/render_resident.cu (add, sub, mul, div, sqrt, floor, min, max,
@@ -145,11 +168,20 @@ PEAK_BYTES = 3.35e12
 # 1 - v), bilinear 62 (the texel-centre offsets, floors, weights and
 # conversions 14, twelve dequant divides, three lerps of 12, three colour
 # products).
-K1_OPS_FIXED = {"prep": 113, "raw": 113 - 20}
+# K10 (the watertight sweeps, csrc/render_resident.cu GEO raw_wt and
+# raw_wt_shadows) per thread adds the shear frame (3 compares, the
+# reciprocal, 2 products: 6) and the winner's Möller–Trumbore (u, v) in the
+# resolve (tv 3, q 9, t_num 5, the pvec 9, det 5, 1/det 2, u 6, v 6, t 1:
+# 46) to the raw resolve's; per triangle test 43 (the three vertices'
+# shears 15, the edge functions 9, det 2, the det and sign compares 7, t 6
+# and its reciprocal 1, the validity and t-window compares 3; the 18
+# component selects are not counted), whose a, b, c (9 adds) a block
+# computes once per triangle.
+K1_OPS_FIXED = {"prep": 113, "raw": 113 - 20, "wt": 113 - 20 + 6 + 46}
 K1_OPS_PER_LIGHT = 14
 K1_OPS_PER_CLUSTER = 25
-K1_OPS_PER_TRIANGLE = {"prep": 27, "raw": 36}
-K1_OPS_RAW_HOIST = 17
+K1_OPS_PER_TRIANGLE = {"prep": 27, "raw": 36, "wt": 43}
+K1_OPS_HOIST = {"prep": 0, "raw": 17, "wt": 9}
 K1_OPS_RASTER = 9
 K1_OPS_TEX = {None: 0, "nearest": 8 + 4 + 4 + 11, "bilinear": 8 + 4 + 4 + 62,
               "mip": 8 + 3}  # the mip hand-off: uv, and the footprint's 3 products
@@ -163,7 +195,7 @@ K1_THREADS_PER_BLOCK = 256
 # Rows of the pack each block reads (the geometry rows) and each hit reads
 # once (the normal rows, and the colour rows (untextured) or the material
 # and uv rows (textured)).
-K1_GEO_ROWS = {"prep": 10, "raw": 9}
+K1_GEO_ROWS = {"prep": 10, "raw": 9, "wt": 10}
 K1_ATTR_ROWS = {None: 9 + 3, "nearest": 9 + 7, "bilinear": 9 + 7, "mip": 9 + 8}
 # Bytes a pixel writes: depth, segmask and rgb; in the mip hand-off mode
 # depth, segmask and the 28-byte hand-off instead of rgb.
@@ -202,13 +234,13 @@ K13_FLOATS_PER_TRIANGLE = 6 * 3 + 3 * 2 + 2
 # thread, so charged once a block) and per thread the early-exit test (2);
 # per thread and position past the row gate the slab test (26: K1's 25 and
 # the tie slack); per triangle test 28 on prep rows and 37 on raw rows
-# (K1's and the tie compare), the raw rows' tv, q and t_num (17) once per
-# block and staged triangle. The shadow walk gates every cluster per light
-# (24 per thread) and tests as K8 does.
+# (K1's and the tie compare; K10: 44), the raw rows' tv, q and t_num (17;
+# K10: a, b, c, 9) once per block and staged triangle. The shadow walk gates
+# every cluster per light (24 per thread) and tests as K8 does.
 K5_OPS_APPROACH = 18
 K5_OPS_EXIT = 2
 K5_OPS_SLAB = 26
-K5_OPS_PER_TRIANGLE = {"prep": 28, "raw": 37}
+K5_OPS_PER_TRIANGLE = {"prep": 28, "raw": 37, "wt": 44}
 
 
 def emit(obj) -> None:
@@ -370,6 +402,26 @@ def occluder_scene(n_worlds: int, cfg_mod):
         cameras.append(cfg_mod.ImportedCamera([0, 0, 0], ident))
         worlds.append(cfg_mod.WorldInit(2, 2 * w, 1, w))
     return geo, [], [], instances, cameras, worlds
+
+
+def seam_scene(n_worlds: int, cfg_mod, split: bool = True):
+    """tests/test_watertight_pallas.py's crack scene per world: two triangles
+    sharing the diagonal of a flat quad 3 ahead of a camera at the origin,
+    in two instances (a seam across clusters) or in one, moved 0.01·w along
+    x in world w."""
+    tri_a = np.asarray([[-1, 0, -1], [1, 0, -1], [1, 0, 1]], np.float32)
+    tri_b = np.asarray([[-1, 0, -1], [1, 0, 1], [-1, 0, 1]], np.float32)
+    meshes = [tri_a, tri_b] if split else [np.concatenate([tri_a, tri_b])]
+    ident = [1.0, 0.0, 0.0, 0.0]
+    instances, cameras, worlds = [], [], []
+    for w in range(n_worlds):
+        for obj in range(len(meshes)):
+            instances.append(cfg_mod.ImportedInstance([0.01 * w, 3, 0], ident, object_id=obj))
+        cameras.append(cfg_mod.ImportedCamera([0, 0, 0], ident))
+        worlds.append(cfg_mod.WorldInit(len(meshes), len(meshes) * w, 1, w))
+    uvs = [np.zeros((len(m), 2), np.float32) for m in meshes]
+    return (geometry(cfg_mod, meshes, uvs, [-1] * len(meshes)), [], [], instances, cameras,
+            worlds)
 
 
 def demo_scene(n_worlds: int, dynamic: bool, scenes, cfg_mod, textured=False, num_cams=1):
@@ -621,6 +673,7 @@ def k1_triangle_tests(kw: dict) -> tuple:
         raise ValueError("the replay covers images in whole 16x16 blocks")
     rows, cams, nc = kw["rows"], kw["cams"], kw["num_cams"]
     raw = kw["geo"] != "prep"
+    wt = kw["geo"] in rc._WATERTIGHT_GEOS
     world = torch.arange(cams.shape[0], device=cams.device) // nc
     rows_v, cl = rows[world], kw["clusters"][world]
     CC = cl.shape[2]
@@ -654,6 +707,7 @@ def k1_triangle_tests(kw: dict) -> tuple:
         cosf = dirs[0] * cams[:, 6:7] + dirs[1] * cams[:, 7:8] + dirs[2] * cams[:, 8:9]
         t_lo = near / torch.clamp_min(cosf, float(np.float32(1e-6)))
     origin = tuple(cams[:, k:k + 1] for k in range(3))
+    shear = rc.wt.shear_select(*dirs) if wt else None
     far = cams[:, 15:16]
     best_t = far.expand_as(dirs[0]).clone()
     tests = 0
@@ -665,10 +719,11 @@ def k1_triangle_tests(kw: dict) -> tuple:
         for j in range(size):
             i = c * size + j
             ok, t, _, _ = rc.plain_triangle_test(
-                *dirs, rows_v[:, :10, i:i + 1], t_lo, best_t, origin if raw else None)
+                *dirs, rows_v[:, :10, i:i + 1], t_lo, best_t, origin if raw else None,
+                shear)
             best_t = torch.where(ok & ray_in & (j < cnt)[:, None], t, best_t)
     shadow_tests = 0
-    if kw["geo"] == "raw_shadows":
+    if kw["geo"] in rc._SHADOW_GEOS:
         t_hit = torch.where(best_t < far, best_t, 0.0)
         hit = tuple(origin[k] + t_hit * dirs[k] for k in range(3))
         eps = float(np.float32(1e-3)) * (1.0 + t_hit)
@@ -690,6 +745,13 @@ def k1_triangle_tests(kw: dict) -> tuple:
     return tests, shadow_tests
 
 
+def layout(kw: dict) -> str:
+    """The rows' layout and sweep a variant's operation counts follow:
+    ``prep``, ``raw`` (K1-raw, K8) or ``wt`` (K10)."""
+    geo = kw["geo"]
+    return "prep" if geo == "prep" else "wt" if geo.startswith("raw_wt") else "raw"
+
+
 def k1_bound(kw: dict, visits: int, shadow_visits: int) -> tuple:
     """Least time for the render kernel's work on these inputs: bytes over
     HBM rate vs FP32 operations over peak, the larger of the two
@@ -704,7 +766,8 @@ def k1_bound(kw: dict, visits: int, shadow_visits: int) -> tuple:
     # The K7 inputs run the render kernel in its mip hand-off mode.
     tex = "mip" if kw.get("fb_rows") is not None else kw["texture"]
     lights = kw["n_lights"]
-    geo = "prep" if kw["geo"] == "prep" else "raw"  # the rows' layout
+    geo = layout(kw)
+    shadows = kw["geo"].endswith("_shadows")
     nbytes = (W * (K1_GEO_ROWS[geo] + K1_ATTR_ROWS[tex]) * S * 4
               + kw["clusters"].numel() * 4 + kw["cams"].numel() * 4
               + pixels * K1_OUT_BYTES["mip" if tex == "mip" else "rgb"])
@@ -713,17 +776,16 @@ def k1_bound(kw: dict, visits: int, shadow_visits: int) -> tuple:
     per_thread = (K1_OPS_FIXED[geo] + K1_OPS_PER_LIGHT * lights
                   + K1_OPS_PER_CLUSTER * CC + K1_OPS_TEX[tex]
                   + (K1_OPS_RASTER if kw["raster"] else 0))
-    if kw["geo"] == "raw_shadows":
+    if shadows:
         per_thread += (K8_OPS_FIXED + K8_OPS_PER_LIGHT * lights
                        + K8_OPS_PER_CLUSTER * CC * lights)
     ops = (threads * per_thread
            + visits * K1_THREADS_PER_BLOCK * K1_OPS_PER_TRIANGLE[geo]
            + shadow_visits * (K1_THREADS_PER_BLOCK * K8_OPS_PER_TRIANGLE
                               + K8_OPS_PER_BLOCK_TRIANGLE))
-    if kw["geo"] == "raw_shadows":
+    if shadows:
         ops += views * lights * K8_OPS_PER_VIEW_LIGHT
-    if geo == "raw":
-        ops += blocks * S * K1_OPS_RAW_HOIST
+    ops += blocks * S * K1_OPS_HOIST[geo]
     return roofline(nbytes, ops) + (nbytes, ops)
 
 
@@ -731,9 +793,10 @@ def k5_bound(kw: dict, walk: dict) -> tuple:
     """Least time for the streamed render kernel's work on these inputs,
     from the walk this run's data makes (``walk_replay.streamed_walk``):
     the rows of every (world, cluster) some block streams read once (10 prep
-    rows, or 9 raw rows), the winners' attribute rows (prep: and their 9 prep
-    rows for the uv), the cluster table, each view's order and spans, the
-    camera rows and the pixels written; against the FP32 operations of the
+    rows, 9 raw rows or, K10, 10), the winners' attribute rows (prep: and
+    their 9 prep rows for the uv; K10: their 9 raw rows), the cluster table,
+    each view's order and spans, the camera rows and the pixels written;
+    against the FP32 operations of the
     positions the blocks gate, the slab tests and the triangle tests they
     make (ms, 'bytes'|'operations', bytes, operations)."""
     W, _, S = kw["rows"].shape
@@ -745,9 +808,9 @@ def k5_bound(kw: dict, walk: dict) -> tuple:
     threads = blocks * K1_THREADS_PER_BLOCK
     tex = "mip" if kw.get("fb_rows") is not None else kw["texture"]
     lights = kw["n_lights"]
-    geo = "prep" if kw["geo"] == "prep" else "raw"
+    geo = layout(kw)
     nbytes = (walk["clusters_streamed"] * K1_GEO_ROWS[geo] * size * 4
-              + walk["winners"] * (K1_ATTR_ROWS[tex] + (9 if geo == "prep" else 0)) * 4
+              + walk["winners"] * (K1_ATTR_ROWS[tex] + (9 if geo != "raw" else 0)) * 4
               + kw["clusters"].numel() * 4 + views * 3 * CC * 4 + kw["cams"].numel() * 4
               + pixels * K1_OUT_BYTES["mip" if tex == "mip" else "rgb"])
     if tex in ("nearest", "bilinear"):
@@ -759,9 +822,8 @@ def k5_bound(kw: dict, walk: dict) -> tuple:
            + reached * (K5_OPS_APPROACH + K1_THREADS_PER_BLOCK * K5_OPS_EXIT)
            + walk["slab_tests"] * K1_THREADS_PER_BLOCK * K5_OPS_SLAB
            + walk["triangle_visits"] * K1_THREADS_PER_BLOCK * K5_OPS_PER_TRIANGLE[geo])
-    if geo == "raw":
-        ops += walk["triangle_visits"] * K1_OPS_RAW_HOIST
-    if kw["geo"] == "raw_shadows":
+    ops += walk["triangle_visits"] * K1_OPS_HOIST[geo]
+    if kw["geo"].endswith("_shadows"):
         ops += (threads * (K8_OPS_FIXED + K8_OPS_PER_LIGHT * lights
                            + K8_OPS_PER_CLUSTER * CC * lights)
                 + views * lights * K8_OPS_PER_VIEW_LIGHT
@@ -822,7 +884,7 @@ def main() -> int:
     from madrona_renderer_tpu_torch.assets.importer import load_render_assets
     from madrona_renderer_tpu_torch.core.scene import bake_scene, configure_lighting
     from madrona_renderer_tpu_torch.core.state import init_state
-    from madrona_renderer_tpu_torch.ops import mips, pack_cuda, walk_replay
+    from madrona_renderer_tpu_torch.ops import mips, pack_cuda, ssaa, walk_replay
     from madrona_renderer_tpu_torch.ops import raytrace_cuda as rc
     from madrona_renderer_tpu_torch.runners import scenes
 
@@ -877,8 +939,8 @@ def main() -> int:
         p_out = rc.render_resident_plain(**kw)
         c = compare_outputs(k_out, p_out)
         check_close(f"{tag} {name}", c)
-        if is_k7(kw) and not c["bitwise"]:
-            raise AssertionError(f"{tag} {name}: K7 differs from its plain version: {c}")
+        if (is_k7(kw) or kw["geo"] in rc._WATERTIGHT_GEOS) and not c["bitwise"]:
+            raise AssertionError(f"{tag} {name}: differs from its plain version: {c}")
         if kw["raster"] and not bool((k_out[1] == -1).all()):
             raise AssertionError(f"{tag} {name}: raster segmask is not -1 everywhere")
         err = output_err(k_out, p_out)
@@ -977,6 +1039,8 @@ def main() -> int:
                                  dict(lights=occluder_lights)),
         "occluder64_two_lights": (occluder_scene(SMALL_WORLDS, cfg_mod),
                                   dict(lights=occluder_lights + two_lights[1:])),
+        "seam64": (seam_scene(SMALL_WORLDS, cfg_mod), {}),
+        "seam64_unsplit": (seam_scene(SMALL_WORLDS, cfg_mod, split=False), {}),
     }
     for tag, (parts, opts) in cases.items():
         geo, mats, textures, insts, cams, worlds = parts
@@ -989,20 +1053,28 @@ def main() -> int:
         check_pack(tag, state, scene, None)
         size = dict(height=opts.get("height", HEIGHT), width=opts.get("width", WIDTH))
         filters = ("nearest", "bilinear") if rc.is_textured(scene) else ("nearest",)
-        for shadows in (False, True):
-            for raster in (False, True):
-                for filt in filters:
-                    kw = rc.pack_inputs(state, scene, raster=raster, texture_filter=filt,
-                                        near=0.001 if raster else 0.1, shadows=shadows,
-                                        **size)
-                    out = check_render(tag, kw)
-                    if tag.startswith("occluder") and shadows and not raster:
-                        # The shadow falls on the ground: some lit pixels go dark.
-                        lit = check_render(tag, dict(kw, geo="raw"))
-                        darker = (lit[2].view(torch.uint8).int()
-                                  - out[2].view(torch.uint8).int())
-                        if not bool((darker > 10).any()) or bool((darker < 0).any()):
-                            raise AssertionError(f"{tag}: the shadow does not show")
+        for watertight, shadows, raster, filt in itertools.product(
+                (False, True), (False, True), (False, True), filters):
+            kw = rc.pack_inputs(state, scene, raster=raster, texture_filter=filt,
+                                near=0.001 if raster else 0.1, shadows=shadows,
+                                watertight=watertight, **size)
+            out = check_render(tag, kw)
+            if tag.startswith("occluder") and shadows and not raster:
+                # The shadow falls on the ground: some lit pixels go dark.
+                lit = check_render(tag, dict(kw, geo=kw["geo"][:-len("_shadows")]))
+                darker = lit[2].view(torch.uint8).int() - out[2].view(torch.uint8).int()
+                if not bool((darker > 10).any()) or bool((darker < 0).any()):
+                    raise AssertionError(f"{tag}: the shadow does not show")
+            if tag.startswith("seam") and watertight and not raster:
+                # No pixel strictly inside the quad misses through the
+                # diagonal (tests/test_watertight_pallas.py:138-154).
+                lo, hi = int(math.ceil(HEIGHT / 3)) + 2, int(HEIGHT * 2 / 3) - 2
+                inner = out[1][0, lo:hi, lo:hi]
+                emit({"phase": "seam", "case": tag, "shadows": shadows,
+                      "interior_pixels": int(inner.numel()),
+                      "cracks": int((inner < 0).sum())})
+                if bool((inner < 0).any()):
+                    raise AssertionError(f"{tag}: crack pixels inside the quad")
 
     # K7 on the mip scenes of tests/test_mips.py, every variant.
     gradient_png = png_texture("gradient_256", gradient_texture(), scenes)
@@ -1036,6 +1108,10 @@ def main() -> int:
                         for k, v in level_stats(tag, kw, k_h).items():
                             if k in totals:
                                 totals[k] += v
+                # K10's hand-off variants (trilinear: both K7 launches at work).
+                check_k7(tag, rc.pack_inputs(state, lit, raster=raster, texture_filter="trilinear",
+                                             near=0.001 if raster else 0.1, shadows=shadows,
+                                             watertight=True, **size))
     emit({"phase": "k7_levels", "case": "all", **totals})
     if not (totals["clamped_bilinear"] and totals["blend_killed"]):
         raise AssertionError(f"the mip scenes did not exercise the clamp and the kill: {totals}")
@@ -1060,6 +1136,9 @@ def main() -> int:
         "two_cams64": streamed_test_scene("two_cams", SMALL_WORLDS, cfg_mod),
         "tie64": streamed_test_scene("tie", SMALL_WORLDS, cfg_mod),
     }
+    # K10's streamed variants on the varied terrain (untextured, 32x32 and
+    # 256x256 mip textures) and the tie scene.
+    wt_streamed = ("bigmesh64", "bigmesh64_tex32", "bigmesh64_mip256", "tie64")
     streamed_kw = {}
     for tag, parts in streamed_cases.items():
         geo, mats, textures, insts, cams, worlds = parts
@@ -1070,29 +1149,29 @@ def main() -> int:
         mip = rc.has_mips(scene)
         filters = (MIP_FILTERS if mip else ("nearest", "bilinear") if rc.is_textured(scene)
                    else ("nearest",))
-        for shadows in (False, True):
+        for watertight, shadows, raster, filt in itertools.product(
+                (False, True) if tag in wt_streamed else (False,), (False, True),
+                (False, True), filters):
             lit = (configure_lighting(scene, lights=[((0.5, 1.0, 0.0), (1.0, 1.0, 1.0))])
                    if shadows and tag == "cloud64" else scene)  # tests/test_shadows.py:176
-            for raster in (False, True):
-                for filt in filters:
-                    kw = rc.pack_inputs(state, lit, raster=raster, texture_filter=filt,
-                                        near=0.001 if raster else 0.1, shadows=shadows,
-                                        height=HEIGHT, width=WIDTH)
-                    out = check_k7(tag, kw)[:2] if mip else check_render(tag, kw)
-                    streamed_kw.setdefault(handoff_name(kw) if mip else variant(kw), kw)
-                    if mip and not shadows:
-                        # The one-camera mip scene on the raw rows too.
-                        kw = dict(kw, rows=pack_cuda.pack_rows(state, lit), geo="raw")
-                        check_k7(tag, kw)
-                        streamed_kw.setdefault(handoff_name(kw), kw)
-                    if tag == "tie64" and not raster:
-                        # The quad's pixels tie between instances 0 and 1:
-                        # instance 0 wins them; instance 1 keeps the small
-                        # triangle in front.
-                        tie = {v: int((out[1] == v).sum()) for v in (0, 1)}
-                        emit({"phase": "tie", "shadows": shadows, "pixels": tie})
-                        if tie[0] <= tie[1]:
-                            raise AssertionError(f"tie64: the ties did not go to instance 0: {tie}")
+            kw = rc.pack_inputs(state, lit, raster=raster, texture_filter=filt,
+                                near=0.001 if raster else 0.1, shadows=shadows,
+                                watertight=watertight, height=HEIGHT, width=WIDTH)
+            out = check_k7(tag, kw)[:2] if mip else check_render(tag, kw)
+            streamed_kw.setdefault(handoff_name(kw) if mip else variant(kw), kw)
+            if mip and not shadows and not watertight:
+                # The one-camera mip scene on the raw rows too.
+                kw = dict(kw, rows=pack_cuda.pack_rows(state, lit), geo="raw")
+                check_k7(tag, kw)
+                streamed_kw.setdefault(handoff_name(kw), kw)
+            if tag == "tie64" and not raster:
+                # The quad's pixels tie between instances 0 and 1: instance
+                # 0 wins them; instance 1 keeps the small triangle in front.
+                tie = {v: int((out[1] == v).sum()) for v in (0, 1)}
+                emit({"phase": "tie", "shadows": shadows, "watertight": watertight,
+                      "pixels": tie})
+                if tie[0] <= tie[1]:
+                    raise AssertionError(f"tie64: the ties did not go to instance 0: {tie}")
 
     # ---- 4. the seven paths -------------------------------------------- #
     def reset_counts():
@@ -1102,15 +1181,15 @@ def main() -> int:
         rc.shade_mip.variant_launches = dict.fromkeys(rc.SHADE_MIP_VARIANTS, 0)
         pack_cuda.pack_rows.layout_launches = dict.fromkeys(pack_cuda.LAYOUTS, 0)
 
-    def drive(path, mode, n_worlds, textured, timed_steps, num_cams=1, shadows=False,
-              cfg=None):
+    def drive(path, mode, n_worlds, textured, timed_steps, num_cams=1, cfg=None, **opts):
         """One path through MadronaRenderer: construct (which primes one
         step), then warm-up and timed steps, each after moving world 0's
         cube through the exported position tensor. Every view of world 0
         that saw the cube must change and every view of world 1 stay
         bit-identical. Returns the renderer, the step times, the launch
         counts of the run, the constructor's time and the variant's name.
-        The scene is the demo scene unless ``cfg`` names another."""
+        The scene is the demo scene unless ``cfg`` names another; ``opts``
+        (shadows, watertight, ssaa) go to MadronaRenderer."""
         if cfg is None:
             cfg = scenes.demo_config(n_worlds, mode, WIDTH, HEIGHT, dynamic=True,
                                      textured=textured, tex_size=TEX_SIZE,
@@ -1118,7 +1197,7 @@ def main() -> int:
         C = num_cams
         reset_counts()
         t0 = time.perf_counter()
-        r = m.MadronaRenderer(0, n_worlds, mode, WIDTH, HEIGHT, shadows=shadows,
+        r = m.MadronaRenderer(0, n_worlds, mode, WIDTH, HEIGHT, **opts,
                               **scenes.renderer_kwargs(cfg))
         torch.cuda.synchronize()
         ctor_s = time.perf_counter() - t0
@@ -1155,32 +1234,38 @@ def main() -> int:
         counts = dict(rc.render_resident.variant_launches, **rc.shade_mip.variant_launches,
                       **pack_cuda.pack_rows.layout_launches)
         steps = 1 + WARMUP_STEPS + timed_steps
-        kw = rc.pack_inputs(r.state, r.scene, height=HEIGHT, width=WIDTH, raster=raster,
-                            texture_filter=r.cfg.texture_filter, shadows=shadows)
+        kw = path_inputs(r)
         name = variant(kw)
-        layout = pack_cuda.LAYOUTS[kw["geo"] != "prep"]
+        pack_layout = pack_cuda.LAYOUTS[kw["geo"] != "prep"]
         expected = dict.fromkeys(kernel_names, 0)
-        expected.update({part: steps for part in name.split("+")}, **{layout: steps})
+        expected.update({part: steps for part in name.split("+")}, **{pack_layout: steps})
         if counts != expected or rc.render_resident.launches != steps:
             raise AssertionError(f"{path}: launches {counts} in {steps} steps, "
                                  f"expected {expected}")
         return r, step_s, counts, ctor_s, name
 
     def path_inputs(r, **over):
+        """The path's kernel inputs for the renderer's state (at ssaa x its
+        view size)."""
         raster = r.cfg.render_mode == m.RenderMode.Rasterizer
-        kw = dict(height=HEIGHT, width=WIDTH, raster=raster,
+        kw = dict(height=HEIGHT * r.cfg.ssaa, width=WIDTH * r.cfg.ssaa, raster=raster,
                   near=r.cfg.raster_near_plane if raster else r.cfg.near_plane,
-                  texture_filter=r.cfg.texture_filter, shadows=bool(r.cfg.shadows))
+                  texture_filter=r.cfg.texture_filter, shadows=bool(r.cfg.shadows),
+                  watertight=bool(r.cfg.watertight))
         kw.update(over)
         return rc.pack_inputs(r.state, r.scene, **kw)
 
     def full_size_checks(path, r, name):
-        """The path's kernel on the last step's inputs reproduces the
-        exported frames; K13 and the kernel equal their plain versions at
-        full size."""
+        """The path's kernel on the last step's inputs (under SSAA, filtered
+        down) reproduces the exported frames; K13 and the kernel equal their
+        plain versions at full size."""
         raster = r.cfg.render_mode == m.RenderMode.Rasterizer
         kw = path_inputs(r)
         k_out = rc.render_resident(**kw)
+        if r.cfg.ssaa > 1:
+            f = ssaa.downsample_frames(rc.frames_from_core(r.state, *k_out), r.cfg.ssaa)
+            k_out = (f.depth.reshape(-1, HEIGHT, WIDTH), f.segmask.reshape(-1, HEIGHT, WIDTH),
+                     f.rgb.contiguous().view(torch.int32).reshape(-1, HEIGHT, WIDTH))
         depth = r.depth_tensor().to_torch()
         depth = depth[..., 0] if raster else depth
         rgb = r.rgb_tensor().to_torch().contiguous().view(torch.int32).squeeze(-1)
@@ -1206,6 +1291,7 @@ def main() -> int:
               "worlds": r.cfg.num_worlds, "views": n_views, "height": HEIGHT, "width": WIDTH,
               "mode": "rasterizer" if raster else "raytracer",
               "textured": rc.is_textured(r.scene), "shadows": bool(r.cfg.shadows),
+              "watertight": bool(r.cfg.watertight), "ssaa": r.cfg.ssaa,
               "ctor_s": ctor_s, "steps_timed": len(step_s), "step_ms_median": step_ms,
               "step_ms_min": min(step_s) * 1e3, "step_ms_max": max(step_s) * 1e3,
               "frames_per_s": n_views / (step_ms / 1e3),
@@ -1222,6 +1308,30 @@ def main() -> int:
     def add_launches(counts):
         for k, v in counts.items():
             launches[k] += v
+
+    def ssaa_timing(frames):
+        """The SSAA filter (ops/ssaa.py: torch ops, not a kernel) on a path's
+        supersampled frames: its device time beside its bound (the u8 rgb
+        read once and the filtered u8 rgb written once, the depth and
+        segmask centre samples being views; per subsample and channel a
+        conversion and an add, per output pixel and channel the rounding
+        add, the divide and the conversion, against the int32 rate),
+        printed as a timing line outside the kernels line."""
+        n_sub = frames.depth.numel()
+        n_out = n_sub // (SSAA * SSAA)
+        nbytes = 4 * (n_sub + n_out)
+        ops = 4 * (2 * n_sub + 3 * n_out)
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT32_OPS * 1e3
+        row = {"name": "ssaa_downsample", "route": "torch ops",
+               "source": "madrona_renderer_tpu_torch/ops/ssaa.py",
+               "replaces": "madrona_renderer_tpu/ops/ssaa.py:36 (XLA ops, no Pallas kernel)",
+               "ms": cuda_ms(lambda: ssaa.downsample_frames(frames, SSAA), KERNEL_REPS),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": None, "views": int(n_out // (HEIGHT * WIDTH)),
+               "bytes": nbytes, "ops": ops}
+        emit({"phase": "timing", "inputs": "textured_4096w_ssaa2", **row})
+        return row
 
     # main: untextured raytrace, 4096 worlds.
     r, step_s, counts, ctor_s, name = drive("main", m.RenderMode.Raytracer,
@@ -1244,6 +1354,13 @@ def main() -> int:
     kw_raster = path_inputs(r, raster=True, near=r.cfg.raster_near_plane)
     check_render("main_inputs", kw_raster)
     timing_kw[variant(kw_raster)] = kw_raster
+    # K10's untextured variants run on no path: held to their plain versions
+    # and timed on main's inputs.
+    for shadows, raster in itertools.product((False, True), (False, True)):
+        kw = path_inputs(r, watertight=True, shadows=shadows, raster=raster,
+                         near=r.cfg.raster_near_plane if raster else r.cfg.near_plane)
+        check_render("main_inputs", kw)
+        timing_kw[variant(kw)] = kw
     time_path("main", r, step_s, counts, ctor_s, {})
     add_launches(counts)
     del r
@@ -1267,9 +1384,58 @@ def main() -> int:
     n_colours = int(torch.unique(rgb, dim=0).shape[0])
     if n_colours < 8:
         raise AssertionError(f"textured_4096w: only {n_colours} colours: no texture shows")
+    point_sampled_colours = n_colours
     time_path("textured_4096w", r, step_s, counts, ctor_s, {"distinct_colours": n_colours})
     add_launches(counts)
     del r
+
+    # watertight_4096w: bench.py:314, textured_4096w through K10 (raw rows,
+    # the Woop decision).
+    r, step_s, counts, ctor_s, name = drive("watertight_4096w", m.RenderMode.Raytracer,
+                                            NUM_WORLDS, True, TIMED_STEPS, watertight=True)
+    kw = full_size_checks("watertight_4096w", r, name)
+    timing_kw[name] = kw
+    # Beside K1-raw on the same rows (the ε-slack decision): the frames it
+    # gives and its time, timed in the same call.
+    kw_eps = dict(kw, geo="raw")
+    eps_out = check_render("watertight_4096w_inputs", kw_eps)
+    emit({"phase": "wt_vs_eps", "path": "watertight_4096w",
+          **compare_outputs(rc.render_resident(**kw), eps_out)})
+    extra_timing.append(("render_resident_raw_tex_nearest", "watertight_4096w", kw_eps))
+    # K10's other textured variants run on no path: held to their plain
+    # versions and timed on these inputs.
+    for filt, shadows, raster in itertools.product(("nearest", "bilinear"), (False, True),
+                                                   (False, True)):
+        kw = path_inputs(r, texture_filter=filt, shadows=shadows, raster=raster,
+                         near=r.cfg.raster_near_plane if raster else r.cfg.near_plane)
+        check_render("watertight_4096w_inputs", kw)
+        timing_kw.setdefault(variant(kw), kw)
+    time_path("watertight_4096w", r, step_s, counts, ctor_s, {})
+    add_launches(counts)
+    del r
+
+    # textured_4096w_ssaa2: bench.py:309, textured_4096w at ssaa=2 (K6 at
+    # 128x128, the box filter to 64x64).
+    r, step_s, counts, ctor_s, name = drive("textured_4096w_ssaa2", m.RenderMode.Raytracer,
+                                            NUM_WORLDS, True, TIMED_STEPS, ssaa=SSAA)
+    kw = full_size_checks("textured_4096w_ssaa2", r, name)
+    extra_timing.append((name, "textured_4096w_ssaa2", kw))
+    # Antialiased edges carry colours the point-sampled render lacks.
+    rgb = r.rgb_tensor().to_torch()[..., :3].reshape(-1, 3)
+    n_colours = int(torch.unique(rgb, dim=0).shape[0])
+    if n_colours <= point_sampled_colours:
+        raise AssertionError(f"textured_4096w_ssaa2: {n_colours} colours, point-sampled "
+                             f"{point_sampled_colours}: no edge is blended")
+    # The filter (torch ops) on these frames, timed and bounded.
+    frames = rc.frames_from_core(r.state, *rc.render_resident(**kw))
+    ssaa_row = ssaa_timing(frames)
+    time_path("textured_4096w_ssaa2", r, step_s, counts, ctor_s,
+              {"render_height": HEIGHT * SSAA, "render_width": WIDTH * SSAA,
+               "distinct_colours": n_colours,
+               "point_sampled_colours": point_sampled_colours,
+               "filter_ms": ssaa_row["ms"]})
+    add_launches(counts)
+    del r, frames
 
     # raster_256w_png: BASELINE config 2 with the texture as PNG.
     r, step_s, counts, ctor_s, name = drive("raster_256w_png", m.RenderMode.Rasterizer,
@@ -1369,11 +1535,12 @@ def main() -> int:
     # timed (both launches); the raw rows for the raw sweep without shadows.
     raw_rows = pack_cuda.pack_rows(r.state, r.scene)
     k7_timing = []
-    for geo in ("prep", "raw", "raw_shadows"):
+    for geo in rc._GEO_CODES:
         for raster in (False, True):
             for filt in MIP_FILTERS:
                 kw = path_inputs(r, texture_filter=filt, raster=raster,
-                                 shadows=geo == "raw_shadows",
+                                 shadows=geo.endswith("_shadows"),
+                                 watertight=geo.startswith("raw_wt"),
                                  near=r.cfg.raster_near_plane if raster else r.cfg.near_plane)
                 if geo == "raw":
                     kw = dict(kw, rows=raw_rows, geo="raw")

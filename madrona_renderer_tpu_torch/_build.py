@@ -3,10 +3,12 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). Libraries land in ``build/torch_kernels/`` at the
-root of the checkout, named by a hash of the source and the flags, so an
-edited source or flag rebuilds and an unchanged one loads at once. Nothing
-is built when this module is imported: the first call that launches a
-kernel builds it.
+root of a source checkout, or in a per-user cache directory for an
+installed package (``cache_root``), named by a hash of the source and the
+flags, so an edited source or flag rebuilds and an unchanged one loads at
+once. Nothing is built when this module is imported: the first call that
+launches a kernel builds it. The sources ship in the package
+(``pyproject.toml``'s package data).
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` without fast
 math, so every kernel rounds each multiply and add on its own, as its
@@ -27,8 +29,25 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+PACKAGE = Path(__file__).resolve().parent
+CSRC = PACKAGE / "csrc"
+
+
+def cache_root(package: Path = PACKAGE) -> Path:
+    """Where the port writes what it builds and generates (kernel
+    libraries, demo textures): ``build/`` at the root of a source checkout
+    (the package's parent holds ``pyproject.toml``; ``.gitignore`` lists
+    ``build/``), else ``madrona_renderer_tpu_torch/`` in the user's cache
+    directory (``$XDG_CACHE_HOME``, else ``~/.cache``), never inside an
+    installed package."""
+    if (package.parent / "pyproject.toml").is_file():
+        return package.parent / "build"
+    xdg = os.environ.get("XDG_CACHE_HOME", "")
+    base = Path(xdg) if os.path.isabs(xdg) else Path.home() / ".cache"
+    return base / "madrona_renderer_tpu_torch"
+
+
+BUILD_DIR = cache_root() / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",

@@ -18,7 +18,9 @@
 // all 40 rows of its slot:
 //   rows 0-9   PREP: D = ve2 x ve1, A = ve2 x tv, Q = tv x ve1,
 //              t_num = ve2 . Q (ve = e * valid, tv = camera origin - v0);
-//              raw: v0, ve1, ve2 in rows 0-8, row 9 zero;
+//              raw: v0, ve1, ve2 in rows 0-8, row 9 the validity (the JAX
+//              32-row pack's row 9, raytrace_pallas.py:281-286), which the
+//              watertight sweep (K10) ANDs into its decision;
 //   rows 10-15 zero;
 //   rows 16-35 uv0, duv1, duv2, n0, dn1, dn2 (world space), material id,
 //              material colour rgb, texel density;
@@ -179,7 +181,7 @@ __global__ void __launch_bounds__(kThreads) pack_rows_kernel(PackArgs p) {
     geo[8] = qvz;
     geo[9] = ve2x * qvx + ve2y * qvy + ve2z * qvz;  // t_num
   } else {
-    // Raw rows (:260-266): v0 as it is, the edges times valid.
+    // Raw rows (:260-266): v0 as it is, the edges times valid, and valid.
     geo[0] = v0x;
     geo[1] = v0y;
     geo[2] = v0z;
@@ -189,7 +191,7 @@ __global__ void __launch_bounds__(kThreads) pack_rows_kernel(PackArgs p) {
     geo[6] = ve2x;
     geo[7] = ve2y;
     geo[8] = ve2z;
-    geo[9] = 0.f;
+    geo[9] = val;
   }
 
   const float* col = p.mat_color + 4 * mat;

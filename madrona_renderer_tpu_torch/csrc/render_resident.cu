@@ -1,9 +1,10 @@
-// K1 / K1-raw / K8 / K2 / K6, and the first launch of K7: resident,
+// K1 / K1-raw / K8 / K10 / K2 / K6, and the first launch of K7: resident,
 // cluster-culled, shaded ray-cast with the fused export, on prep or raw
-// geometry rows, with or without shadow rays, in its raytrace and raster
-// conventions, untextured, textured, or handing mip-mapped texturing on;
-// and K3 + K5, the same kernel on the streamed route for meshes past the
-// resident budget (render_streamed_kernel, below).
+// geometry rows, with the Möller–Trumbore or the watertight decision, with
+// or without shadow rays, in its raytrace and raster conventions,
+// untextured, textured, or handing mip-mapped texturing on; and K3 + K5,
+// the same kernel on the streamed route for meshes past the resident
+// budget (render_streamed_kernel, below).
 //
 // Replaces madrona_renderer_tpu/ops/raytrace_pallas.py::_render_kernel in
 // its resident culled shaded variant (defer_attrs, fused_export), launched
@@ -20,6 +21,18 @@
 //     one cluster-culled any-hit sweep per directional light from the hit
 //     point (:2847-2999), an occluded light adding nothing to the lambert
 //     sum (:3030-3032, :3181-3182);
+//     raw_wt and raw_wt_shadows (K10, watertight=True, :1235-1273,
+//     :1382-1435; flags :4425-4436) sweep the raw rows with the Woop
+//     decision instead (ops/watertight.py): per pixel the shear frame
+//     (kz = argmax |d|, first maximum, kx and ky cyclic, reciprocal-multiply
+//     shears: struct Shear), per triangle a = v0 - o, b = a + e1, c = a + e2
+//     (once per block here) sheared, the three 2D edge functions u, v, w,
+//     det = u + v + w, t = (u az + v bz + w cz) * (1/det), and acceptance
+//     when the edge functions are all >= 0 or all <= 0, det != 0, the
+//     pack's validity row 9 > 0, t > t_lo and t < best_t. The winner's
+//     Möller–Trumbore (u, v), which the JAX sweep carries, are recomputed
+//     from its raw rows in the resolve (the same expressions on the same
+//     values: the same bits); the shadow rays stay Möller–Trumbore;
 //   RASTER (K2, raster_clip=True): per-pixel t_lo = near / max(cosf, 1e-6)
 //     (:1190-1196), depth = z = t * cosf (:2807), the z-far clip against
 //     camera column 16 (:2819-2821, :3037-3039), segmask -1 everywhere
@@ -67,7 +80,7 @@
 //
 // Layout (all f32 unless noted):
 //   rows     [W, 40, S]   split pack: rows 0-9 prep D(3) A(3) Q(3) t_num or
-//                         rows 0-8 raw v0(3) e1(3) e2(3), rows 16-35
+//                         rows 0-9 raw v0(3) e1(3) e2(3) valid, rows 16-35
 //                         attributes (uv0, duv1, duv2, n0, dn1, dn2, mat,
 //                         premultiplied colour rgb, density)
 //   clusters [W, 8, CC]   lo.xyz, hi.xyz, valid, valid-prefix count
@@ -85,7 +98,10 @@
 // generation, resolve and shading (textured: some 30 more for the sample,
 // bilinear about 60 more), 25 per cluster slab test and per visited
 // triangle 27 (prep) or 36 (raw, with tv, q and t_num hoisted to 17 per
-// block and triangle); shadows add 24 per light and cluster and 52 per
+// block and triangle) or, watertight, about 50 (the shear 15, its selects
+// 18, the edge functions 9, det 2, the signs 6, t 6 and the reciprocal, on
+// the block's a, b, c; the winner's pvec (u, v) once per pixel); shadows
+// add 24 per light and cluster and 52 per
 // triangle the shadow sweep visits, of which the pvec, det and 1/det (17)
 // depend only on the light and the triangle: the work needs them once per
 // block, though each thread computes them. Each is its own instruction
@@ -102,8 +118,11 @@
 // reads in the sweeps), the winner's attributes, the material row and the
 // texels read from global memory once per pixel. No wgmma or TMA: the work
 // is scalar per pixel. The three switches and the route (STREAM) are
-// template parameters, so each of the 48 variants compiles to its own kernel
-// with no runtime branch on them. Left for a later change: several views
+// template parameters, so each of the 80 variants compiles to its own kernel
+// with no runtime branch on them. K10's block keeps 10 rows per triangle in
+// shared memory (a, b, c and the validity: 120 KB at the budget's 3,072
+// triangles, where K1-raw's 16 rows take 192 KB); its resolve and its
+// shadow sweep read the raw rows from global memory (L1/L2). Left for a later change: several views
 // per block and persistent blocks, to amortise the per-block setup; the
 // shadow sweep's per-light pvec, det and 1/det, which are per-triangle
 // scalars, hoisted per block.
@@ -120,9 +139,10 @@
 // pixel can reach (best_t^2 <= 0.998 * approach distance^2, :1740-1780),
 // skips a cluster whose span misses the block's rows or whose slab test no
 // ray passes, and sweeps the rest from a double buffer that cp.async fills
-// with the next candidate's geometry rows (10 prep rows, or 9 raw rows plus
-// the block's tv, q, t_num per staged triangle) while the current one is
-// swept. Exact-t ties go to the lower triangle index
+// with the next candidate's geometry rows (10 prep rows, 9 raw rows plus
+// the block's tv, q, t_num per staged triangle, or, watertight, the 10 raw
+// rows turned in place into the block's a, b, c and the validity) while the
+// current one is swept. Exact-t ties go to the lower triangle index
 // (t < best_t || t == best_t && i < best_i), and the slab test passes
 // tmin * 0.999 < best_t, so a cluster holding a triangle that ties the best
 // hit is visited whatever the order: the frames are the index-order sweep's
@@ -138,6 +158,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kTileX = 16;
@@ -147,6 +169,7 @@ constexpr int kPackRows = 40;   // rows per world in the split pack
 constexpr int kPrepRows = 10;   // D(3) A(3) Q(3) t_num
 constexpr int kRawRows = 9;     // v0(3) e1(3) e2(3)
 constexpr int kHoistRows = 7;   // tv(3) q(3) t_num, per view
+constexpr int kWtRows = 10;     // watertight: a(3) b(3) c(3) valid, per view
 constexpr int kAttr0 = 16;      // first attribute row
 constexpr int kClRows = 8;
 constexpr int kCamLight0 = 17;  // first light column of a camera row
@@ -156,6 +179,8 @@ constexpr int kCamFarZ = 16;    // z-space far clip (raster)
 constexpr int kGeoPrep = 0;
 constexpr int kGeoRaw = 1;
 constexpr int kGeoRawShadows = 2;
+constexpr int kGeoRawWt = 3;         // K10: the watertight decision
+constexpr int kGeoRawWtShadows = 4;  // K10 with K8's shadow rays
 
 // Texture modes (the TEX template parameter): untextured, the in-kernel
 // filters, and the mip hand-off.
@@ -234,6 +259,68 @@ __device__ __forceinline__ void pvec_test(float dx, float dy, float dz,
   u = (h[0] * pvx + h[st] * pvy + h[2 * st] * pvz) * inv;
   v = (dx * h[3 * st] + dy * h[4 * st] + dz * h[5 * st]) * inv;
   t = h[6 * st] * inv;
+}
+
+// The Woop shear frame of one ray (watertight.py::shear_select, the JAX
+// kernel's select form, :1244-1273): kz = argmax |d| with the first maximum
+// on ties, kx = kz + 1 and ky = kz + 2 (mod 3), sz = 1 / d[kz],
+// sx = d[kx] * sz, sy = d[ky] * sz.
+struct Shear {
+  bool kz_x, kz_y;
+  float sx, sy, sz;
+
+  __device__ __forceinline__ Shear(float dx, float dy, float dz) {
+    const float adx = fabsf(dx), ady = fabsf(dy), adz = fabsf(dz);
+    kz_x = (adx >= ady) && (adx >= adz);
+    kz_y = !kz_x && (ady >= adz);
+    sz = 1.0f / sel_z(dx, dy, dz);
+    sx = sel_x(dx, dy, dz) * sz;
+    sy = sel_y(dx, dy, dz) * sz;
+  }
+  __device__ __forceinline__ float sel_z(float x, float y, float z) const {
+    return kz_x ? x : (kz_y ? y : z);
+  }
+  __device__ __forceinline__ float sel_x(float x, float y, float z) const {
+    return kz_x ? y : (kz_y ? z : x);
+  }
+  __device__ __forceinline__ float sel_y(float x, float y, float z) const {
+    return kz_x ? z : (kz_y ? x : y);
+  }
+  // A vertex translated to the ray origin → its sheared coordinates
+  // (watertight.py::sheared).
+  __device__ __forceinline__ void shear(float x, float y, float z, float& px,
+                                        float& py, float& pz) const {
+    const float k = sel_z(x, y, z);
+    px = sel_x(x, y, z) - sx * k;
+    py = sel_y(x, y, z) - sy * k;
+    pz = sz * k;
+  }
+};
+
+// The frame of the variants without the watertight decision: nothing.
+struct NoShear {
+  __device__ __forceinline__ NoShear(float, float, float) {}
+};
+
+// K10's decision (:1393-1435, watertight.py::_edge_function_hit) on a
+// triangle's vertices translated to the ray origin, g[k * st] for
+// k = 0..8: a (0-2), b (3-5), c (6-8). Returns whether the edge functions
+// accept (all >= 0 or all <= 0, det != 0) and then sets t; the caller ANDs
+// the validity and the t window.
+__device__ __forceinline__ bool woop_test(const Shear& f, const float* g,
+                                          int st, float& t) {
+  float ax, ay, az, bx, by, bz, cx, cy, cz;
+  f.shear(g[0], g[st], g[2 * st], ax, ay, az);
+  f.shear(g[3 * st], g[4 * st], g[5 * st], bx, by, bz);
+  f.shear(g[6 * st], g[7 * st], g[8 * st], cx, cy, cz);
+  const float u = cx * by - cy * bx;
+  const float v = ax * cy - ay * cx;
+  const float w = bx * ay - by * ax;
+  const float det = u + v + w;
+  const bool accept = det != 0.f && ((u >= 0.f && v >= 0.f && w >= 0.f) ||
+                                     (u <= 0.f && v <= 0.f && w <= 0.f));
+  if (accept) t = (u * az + v * bz + w * cz) * (1.0f / det);
+  return accept;
 }
 
 // Möller–Trumbore on the pack-time prep rows (:1296-1316), g[k * st] for row
@@ -441,8 +528,10 @@ struct StreamArgs {
 
 template <int GEO>
 __host__ __device__ constexpr int smem_geo_rows() {
-  // prep: D, A, Q, t_num; raw: v0, e1, e2 and the hoisted tv, q, t_num.
-  return GEO == kGeoPrep ? kPrepRows : kRawRows + kHoistRows;
+  // prep: D, A, Q, t_num; raw: v0, e1, e2 and the hoisted tv, q, t_num;
+  // watertight: a, b, c and the validity.
+  return GEO == kGeoPrep ? kPrepRows
+                         : (GEO >= kGeoRawWt ? kWtRows : kRawRows + kHoistRows);
 }
 
 // The render kernel's body. STREAM false: the resident route (the world's
@@ -452,7 +541,8 @@ template <int GEO, bool RASTER, int TEX, bool STREAM>
 __device__ __forceinline__ void render_body(const RenderArgs& a,
                                             const StreamArgs& st) {
   constexpr bool RAW = GEO != kGeoPrep;
-  constexpr bool SHADOWS = GEO == kGeoRawShadows;
+  constexpr bool SHADOWS = GEO == kGeoRawShadows || GEO == kGeoRawWtShadows;
+  constexpr bool WT = GEO >= kGeoRawWt;
   const int S = a.S, CC = a.CC;
   extern __shared__ __align__(16) float smem[];
   // Resident: [smem_geo_rows, S]; streamed: two staged clusters, each
@@ -471,13 +561,33 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
   const float* g_rows = a.rows + (size_t)world * kPackRows * S;
   const float* g_cl = a.clusters + (size_t)world * kClRows * CC;
   const float* g_cam = a.cams + (size_t)view * a.n_cols;
-  constexpr int kLoadRows = RAW ? kRawRows : kPrepRows;
-  if constexpr (!STREAM) {
+  constexpr int kLoadRows = WT ? kWtRows : (RAW ? kRawRows : kPrepRows);
+  if constexpr (!STREAM && !WT) {
     for (int i = tid; i < kLoadRows * S; i += kThreads) s_geo[i] = g_rows[i];
   }
   for (int i = tid; i < kClRows * CC; i += kThreads) s_cl[i] = g_cl[i];
   for (int i = tid; i < a.n_cols; i += kThreads) s_cam[i] = g_cam[i];
-  if constexpr (!STREAM) {
+  if constexpr (!STREAM && WT) {
+    // K10's per-(view, triangle) terms (:1393-1402), once per block:
+    // a = v0 - o, b = a + e1, c = a + e2 with this view's camera origin,
+    // and the validity.
+    const float ox = g_cam[0], oy = g_cam[1], oz = g_cam[2];
+    for (int i = tid; i < S; i += kThreads) {
+      const float ax = g_rows[i] - ox;
+      const float ay = g_rows[S + i] - oy;
+      const float az = g_rows[2 * S + i] - oz;
+      s_geo[i] = ax;
+      s_geo[S + i] = ay;
+      s_geo[2 * S + i] = az;
+      s_geo[3 * S + i] = ax + g_rows[3 * S + i];
+      s_geo[4 * S + i] = ay + g_rows[4 * S + i];
+      s_geo[5 * S + i] = az + g_rows[5 * S + i];
+      s_geo[6 * S + i] = ax + g_rows[6 * S + i];
+      s_geo[7 * S + i] = ay + g_rows[7 * S + i];
+      s_geo[8 * S + i] = az + g_rows[8 * S + i];
+      s_geo[9 * S + i] = g_rows[9 * S + i];
+    }
+  } else if constexpr (!STREAM) {
     if (RAW) {
       // The per-(view, triangle) terms of the raw sweep (:1342-1348), once
       // per block: tv = o - v0, q = tv x e1, t_num = e2 . q, with this
@@ -543,14 +653,17 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
   const float ivx = 1.0f / safe_dir(dx);
   const float ivy = 1.0f / safe_dir(dy);
   const float ivz = 1.0f / safe_dir(dz);
+  // K10: the ray's shear frame, once per thread (:1235-1273).
+  const std::conditional_t<WT, Shear, NoShear> shear(dx, dy, dz);
 
   // best_t starts at far: every accepted hit has t < far (:1199-1211). The
   // raw sweep carries the winner's (u, v) as well (:1461-1467).
   float best_t = far, best_u = 0.f, best_v = 0.f;
   int best_idx = -1;
   // The rows the resolve reads: resident in shared memory, streamed in
-  // global memory (the same [rows, S] layout).
-  const float* geo = STREAM ? g_rows : s_geo;
+  // global memory (the same [rows, S] layout); K10's raw rows are in global
+  // memory (its block holds a, b, c).
+  const float* geo = (STREAM || WT) ? g_rows : s_geo;
   const float* g0 = geo;  // prep: D; raw: v0
   const float* g1 = geo + S;
   const float* g2 = geo + 2 * S;
@@ -560,7 +673,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
   const float* g6 = geo + 6 * S;  // prep: Q; raw: e2
   const float* g7 = geo + 7 * S;
   const float* g8 = geo + 8 * S;
-  const float* g9 = geo + 9 * S;  // prep: t_num; raw: tv, q, t_num
+  const float* g9 = geo + 9 * S;  // prep: t_num; raw: tv, q, t_num; K10: valid
 
   const int cs = a.cluster_size;
   float* buf0 = s_geo;  // streamed: the two staged clusters
@@ -590,27 +703,37 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
       const int base = c * a.cluster_size;
       const int cnt = (int)s_cl[7 * CC + c];
       for (int i = base; i < base + cnt; ++i) {
-        float u, v, t;
-        if (RAW) {
-          // The pvec test on the raw rows, with the block's tv, q, t_num.
-          pvec_test(dx, dy, dz, g3[i], g4[i], g5[i], g6[i], g7[i], g8[i],
-                    g9 + i, S, u, v, t);
+        if constexpr (WT) {
+          // K10: the Woop decision on the block's a, b, c and validity.
+          float t;
+          if (woop_test(shear, s_geo + i, S, t) && s_geo[9 * S + i] > 0.f &&
+              t > t_lo && t < best_t) {
+            best_t = t;
+            best_idx = i;
+          }
         } else {
-          // Möller–Trumbore on the pack-time rows (:1296-1316).
-          const float det = dx * g0[i] + dy * g1[i] + dz * g2[i];
-          const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
-          u = (dx * g3[i] + dy * g4[i] + dz * g5[i]) * inv;
-          v = (dx * g6[i] + dy * g7[i] + dz * g8[i]) * inv;
-          t = g9[i] * inv;
-        }
-        const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
-                        (t > t_lo) && (t < best_t);
-        if (ok) {
-          best_t = t;
-          best_idx = i;
+          float u, v, t;
           if (RAW) {
-            best_u = u;
-            best_v = v;
+            // The pvec test on the raw rows, with the block's tv, q, t_num.
+            pvec_test(dx, dy, dz, g3[i], g4[i], g5[i], g6[i], g7[i], g8[i],
+                      g9 + i, S, u, v, t);
+          } else {
+            // Möller–Trumbore on the pack-time rows (:1296-1316).
+            const float det = dx * g0[i] + dy * g1[i] + dz * g2[i];
+            const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+            u = (dx * g3[i] + dy * g4[i] + dz * g5[i]) * inv;
+            v = (dx * g6[i] + dy * g7[i] + dz * g8[i]) * inv;
+            t = g9[i] * inv;
+          }
+          const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
+                          (t > t_lo) && (t < best_t);
+          if (ok) {
+            best_t = t;
+            best_idx = i;
+            if (RAW) {
+              best_u = u;
+              best_v = v;
+            }
           }
         }
       }
@@ -646,7 +769,25 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
       const int c = s_order[p];
       const int base = c * cs;
       const int cnt = (int)s_cl[7 * CC + c];
-      if constexpr (RAW) {
+      if constexpr (WT) {
+        // K10: the staged v0, e1, e2 turned in place into this view's
+        // a = v0 - o, b = a + e1, c = a + e2 (:1393-1402).
+        for (int k = tid; k < cnt; k += kThreads) {
+          const float ax = buf[k] - ox;
+          const float ay = buf[cs + k] - oy;
+          const float az = buf[2 * cs + k] - oz;
+          buf[k] = ax;
+          buf[cs + k] = ay;
+          buf[2 * cs + k] = az;
+          buf[3 * cs + k] = ax + buf[3 * cs + k];
+          buf[4 * cs + k] = ay + buf[4 * cs + k];
+          buf[5 * cs + k] = az + buf[5 * cs + k];
+          buf[6 * cs + k] = ax + buf[6 * cs + k];
+          buf[7 * cs + k] = ay + buf[7 * cs + k];
+          buf[8 * cs + k] = az + buf[8 * cs + k];
+        }
+        __syncthreads();
+      } else if constexpr (RAW) {
         // This view's tv, q, t_num of each staged triangle (:1342-1348).
         float* h = buf + kRawRows * cs;
         for (int k = tid; k < cnt; k += kThreads) {
@@ -671,25 +812,36 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
         __syncthreads();
       }
       for (int k = 0; k < cnt; ++k) {
-        float u, v, t;
-        if constexpr (RAW) {
-          pvec_test(dx, dy, dz, buf[3 * cs + k], buf[4 * cs + k],
-                    buf[5 * cs + k], buf[6 * cs + k], buf[7 * cs + k],
-                    buf[8 * cs + k], buf + kRawRows * cs + k, cs, u, v, t);
+        if constexpr (WT) {
+          // K10's decision; the lower index wins an exact tie.
+          const int i = base + k;
+          float t;
+          if (woop_test(shear, buf + k, cs, t) && buf[9 * cs + k] > 0.f &&
+              t > t_lo && ((t < best_t) || (t == best_t && i < best_idx))) {
+            best_t = t;
+            best_idx = i;
+          }
         } else {
-          prep_test(dx, dy, dz, buf + k, cs, u, v, t);
-        }
-        // The lower index wins an exact tie, whatever the visit order.
-        const int i = base + k;
-        const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
-                        (t > t_lo) &&
-                        ((t < best_t) || (t == best_t && i < best_idx));
-        if (ok) {
-          best_t = t;
-          best_idx = i;
-          if (RAW) {
-            best_u = u;
-            best_v = v;
+          float u, v, t;
+          if constexpr (RAW) {
+            pvec_test(dx, dy, dz, buf[3 * cs + k], buf[4 * cs + k],
+                      buf[5 * cs + k], buf[6 * cs + k], buf[7 * cs + k],
+                      buf[8 * cs + k], buf + kRawRows * cs + k, cs, u, v, t);
+          } else {
+            prep_test(dx, dy, dz, buf + k, cs, u, v, t);
+          }
+          // The lower index wins an exact tie, whatever the visit order.
+          const int i = base + k;
+          const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
+                          (t > t_lo) &&
+                          ((t < best_t) || (t == best_t && i < best_idx));
+          if (ok) {
+            best_t = t;
+            best_idx = i;
+            if (RAW) {
+              best_u = u;
+              best_v = v;
+            }
           }
         }
       }
@@ -712,7 +864,23 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
   if (found && inside) {
     const int j = best_idx;
     float uc, vc;
-    if (RAW) {
+    if constexpr (WT) {
+      // The winner's Möller–Trumbore (u, v) (:1372-1380), which the JAX
+      // sweep carries, from its raw rows: tv = o - v0, q = tv x e1,
+      // t_num = e2 . q, then the pvec test.
+      float h[7];
+      h[0] = ox - g0[j];
+      h[1] = oy - g1[j];
+      h[2] = oz - g2[j];
+      h[3] = h[1] * g5[j] - h[2] * g4[j];
+      h[4] = h[2] * g3[j] - h[0] * g5[j];
+      h[5] = h[0] * g4[j] - h[1] * g3[j];
+      h[6] = g6[j] * h[3] + g7[j] * h[4] + g8[j] * h[5];
+      float u, v, t;
+      pvec_test(dx, dy, dz, g3[j], g4[j], g5[j], g6[j], g7[j], g8[j], h, 1, u, v, t);
+      uc = clip01(u);
+      vc = clip01(v);
+    } else if (RAW) {
       uc = clip01(best_u);
       vc = clip01(best_v);
     } else {
@@ -964,8 +1132,9 @@ int launch_raster(const RenderArgs& a, const StreamArgs& s, int num_views,
 extern "C" {
 
 // Launches the variant (geo, raster, tex_filter) on `stream`, on the
-// caller's current device: geo is 0 (prep rows), 1 (raw rows) or 2 (raw
-// rows with shadows, at most 32 lights); tex_filter is 0 (untextured), 1
+// caller's current device: geo is 0 (prep rows), 1 (raw rows), 2 (raw rows
+// with shadows, at most 32 lights), 3 (raw rows, the watertight decision)
+// or 4 (3 with shadows); tex_filter is 0 (untextured), 1
 // (nearest), 2 (bilinear) or 3 (the mip hand-off, written to code and
 // handoff instead of rgb); mats/pool may be null unless it is 1 or 2, and
 // rgb when it is 3, code/handoff unless it is 3. With order and spans (both
@@ -991,7 +1160,8 @@ int mrt_render_resident(const float* rows, const float* clusters,
     a.handoff = handoff;
     a.code = code;
   }
-  if (geo == kGeoRawShadows && n_lights > 32) return (int)cudaErrorInvalidValue;
+  if ((geo == kGeoRawShadows || geo == kGeoRawWtShadows) && n_lights > 32)
+    return (int)cudaErrorInvalidValue;
   if ((order == nullptr) != (spans == nullptr)) return (int)cudaErrorInvalidValue;
   if (order != nullptr &&
       (cluster_size % 4 != 0 || S % 4 != 0 || ((uintptr_t)rows & 15) != 0))
@@ -1004,6 +1174,10 @@ int mrt_render_resident(const float* rows, const float* clusters,
       return launch_raster<kGeoRaw>(a, s, num_views, raster, tex_filter, st);
     case kGeoRawShadows:
       return launch_raster<kGeoRawShadows>(a, s, num_views, raster, tex_filter, st);
+    case kGeoRawWt:
+      return launch_raster<kGeoRawWt>(a, s, num_views, raster, tex_filter, st);
+    case kGeoRawWtShadows:
+      return launch_raster<kGeoRawWtShadows>(a, s, num_views, raster, tex_filter, st);
   }
   return (int)cudaErrorInvalidValue;
 }

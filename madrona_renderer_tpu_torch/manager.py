@@ -53,6 +53,7 @@ from .core.frames import Frames
 from .core.scene import SceneData, bake_scene, configure_lighting
 from .core.state import SimState, init_state
 from .ops import raster_cuda, raytrace_cuda
+from .ops.ssaa import downsample_frames
 from .tensor import Tensor
 
 TIME_DELTA = 0.05  # timeUpdateSys increment (reference src/sim.cpp:73-77)
@@ -84,10 +85,10 @@ def _check_config(cfg: ManagerConfig) -> None:
             f"impl={cfg.impl!r}: the port picks its implementation from the "
             "device (the CUDA kernel on the card, plain PyTorch on the CPU)"
         )
+    if int(cfg.ssaa) < 1 or int(cfg.ssaa) != cfg.ssaa:
+        raise ValueError(f"ssaa={cfg.ssaa} must be a positive integer")
     unsupported = [
-        (bool(cfg.watertight), "watertight=True", 11),
         (bool(cfg.warmstart), "warmstart=True", 12),
-        (cfg.ssaa != 1, f"ssaa={cfg.ssaa}", 13),
         (cfg.num_devices != 1, f"num_devices={cfg.num_devices}", 15),
     ]
     for bad, what, item in unsupported:
@@ -190,14 +191,18 @@ class Manager:
         cfg = self.cfg
         raster = cfg.render_mode == RenderMode.Rasterizer
         render = raster_cuda.rasterize if raster else raytrace_cuda.raytrace
+        # SSAA renders every view at ssaa x height and width; render_sys
+        # box-filters the frames back down (ops/ssaa.py).
+        ssaa = int(cfg.ssaa)
         render_kwargs = dict(
-            height=cfg.batch_render_view_height,
-            width=cfg.batch_render_view_width,
+            height=cfg.batch_render_view_height * ssaa,
+            width=cfg.batch_render_view_width * ssaa,
             near=cfg.raster_near_plane if raster else cfg.near_plane,
             far=cfg.far_plane,
             fov_y_degrees=cfg.fov_y_degrees,
             texture_filter=cfg.texture_filter,
             shadows=bool(cfg.shadows),
+            watertight=bool(cfg.watertight),
         )
         cam_w, cam_slot = self._t_cam_w, self._t_cam_slot
 
@@ -215,7 +220,8 @@ class Manager:
             return carry
 
         def render_sys(carry):
-            carry["frames"] = render(carry["state"], carry["scene"], **render_kwargs)
+            carry["frames"] = downsample_frames(
+                render(carry["state"], carry["scene"], **render_kwargs), ssaa)
             return carry
 
         def export_flatten_sys(carry):

@@ -5,7 +5,7 @@ with ``split=True``, with the camera origin or without it): per (world,
 triangle slot), the instance transform applied to the object's triangle,
 laid out as the ``[W, 40, S]`` split rows that the render kernel reads, in
 the prep layout (camera-origin Möller–Trumbore constants) or the raw one
-(v0, e1, e2). ``pack_rows``
+(v0, e1, e2 and the validity). ``pack_rows``
 launches ``csrc/pack_rows.cu`` for tensors on the card and runs
 ``raytrace_cuda._pack_rows_planar`` — the same function in torch ops, and
 the kernel's plain version — for tensors on the CPU. The two are bitwise
@@ -27,7 +27,7 @@ from ..core.scene import SceneData
 from ..core.state import SimState
 from . import raytrace_cuda
 
-N_ROWS = 40  # 16 geometry rows (10 prep or 9 raw + padding), 24 attribute rows
+N_ROWS = 40  # 16 geometry rows (10 prep or raw + padding), 24 attribute rows
 # The two layouts' names, as chip_smoke.py reports them.
 LAYOUTS = ("pack_rows", "pack_rows_raw")
 

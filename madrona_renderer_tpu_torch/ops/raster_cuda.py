@@ -21,15 +21,18 @@ from .raytrace_cuda import frames_from_core, render_core
 def rasterize(state: SimState, scene: SceneData, *, height: int, width: int,
               near: float = 0.001, far: float = 1000.0,
               fov_y_degrees: float = 90.0,
-              texture_filter: str = "nearest", shadows: bool = False) -> Frames:
+              texture_filter: str = "nearest", shadows: bool = False,
+              watertight: bool = False) -> Frames:
     """Raster-convention rendering → padded ``Frames``: depth is
     camera-plane z (0 on a miss or past ``far``), segmask is -1 everywhere,
     invalid camera slots render black. With ``shadows`` the shadow rays
     start at the hit point's ray distance t, not at z; on scenes baked with
     mip chains the mip level reads t too, and the window clamp keys on the
-    geometric hit, before the far clip (the JAX ``raster_ref.py:108-123``)."""
+    geometric hit, before the far clip (the JAX ``raster_ref.py:108-123``).
+    ``watertight`` passes through to the shared kernel's Woop decision, as
+    in the JAX ``raster_pallas.py:79-92``."""
     return frames_from_core(state, *render_core(
         state, scene, height=height, width=width, near=near, far=far,
         fov_y_degrees=fov_y_degrees, raster=True,
-        texture_filter=texture_filter, shadows=shadows,
+        texture_filter=texture_filter, shadows=shadows, watertight=watertight,
     ))

@@ -1,5 +1,5 @@
-"""Batch raytracer: the render prologue, then kernel K1 (K1-raw, K8, K2, K6,
-K7), or on meshes past the resident budget K3 + K5.
+"""Batch raytracer: the render prologue, then kernel K1 (K1-raw, K8, K10,
+K2, K6, K7), or on meshes past the resident budget K3 + K5.
 
 The port of the main path of the JAX package's ``ops/raytrace_pallas.py``
 (``render_core``, :3998) for what its flags resolve to on scenes that fit
@@ -9,7 +9,12 @@ final masked form). On one-camera scenes without shadows it sweeps
 pack-time Möller–Trumbore rows (``prep``, ``uv_defer``: K1); with more than
 one camera per world or with shadows, the raw v0 / e1 / e2 rows with each
 view's own camera origin (K1-raw), plus a culled any-hit sweep per light
-when ``shadows`` (K8), as ``render_core`` resolves them (:4342-4355). Each
+when ``shadows`` (K8), as ``render_core`` resolves them (:4342-4355). With
+``watertight`` every scene takes the raw rows (the JAX package turns its
+prep and deferred cuts off, :4425-4436) and the sweep decides each hit by
+the Woop sheared edge-function test instead (K10, ``ops/watertight.py``;
+the Möller–Trumbore (u, v) only interpolate the winner's attributes, the
+shadow rays stay Möller–Trumbore). Each
 is untextured (``shaded``), takes the in-kernel texture route
 (``textured``, nearest or bilinear, K6) or, on scenes baked with mip chains,
 the mip route (``tex_paged``, nearest, bilinear or trilinear, K7: the
@@ -59,6 +64,7 @@ from ..core.frames import Frames
 from ..core.scene import SMEM_TRI_BUDGET, SceneData
 from ..core.state import SimState
 from . import mips, pack_cuda, shade
+from . import watertight as wt
 from .quat import quat_rotate
 from .raytrace_ref import _EPS_BARY, _EPS_DET, SHADOW_EPS, planar_soup_parts
 from .shade import AMBIENT, packed_to_rgba8
@@ -68,7 +74,7 @@ from .shade import AMBIENT, packed_to_rgba8
 # col 17, then camera_valid, padded to a multiple of 8.
 _CAM_LIGHT0 = 17
 _N_GEO_ROWS = 16  # split pack: rows 0-9 prep constants, 10-15 padding
-_N_PREP_ROWS = 10  # D(3) A(3) Q(3) t_num (raw: v0(3) e1(3) e2(3), zero)
+_N_PREP_ROWS = 10  # D(3) A(3) Q(3) t_num (raw: v0(3) e1(3) e2(3), valid)
 _N_ATTR_ROWS = 24  # split pack: rows 16-35 attributes, 36-39 padding
 _TRI_ROWS = 32  # the JAX kernel's resident row count (budget check)
 
@@ -94,8 +100,11 @@ _MIP_FB_ROWS = (16, 32, 64, 128)  # the bake's fallback-region sizes
 _HANDOFF_PLANES = 6  # u, v, footprint, lambert r, g, b
 _FOUND_BIT = 1 << 16
 _SHADED_BIT = 1 << 17
-# The kernel's geometry switch: prep rows, raw rows, raw rows with shadows.
-_GEO_CODES = {"prep": 0, "raw": 1, "raw_shadows": 2}
+# The kernel's geometry switch: prep rows, raw rows, raw rows with shadows,
+# and the two raw sweeps with the watertight decision (K10).
+_GEO_CODES = {"prep": 0, "raw": 1, "raw_shadows": 2, "raw_wt": 3, "raw_wt_shadows": 4}
+_SHADOW_GEOS = ("raw_shadows", "raw_wt_shadows")
+_WATERTIGHT_GEOS = ("raw_wt", "raw_wt_shadows")
 _MAX_SHADOW_LIGHTS = 32  # one occlusion bit per light in the kernel
 _TILE = 16  # the kernel's block: 16×16 pixels; the row spans' band height
 # The streamed route's shared memory: two staged clusters of up to 16 rows,
@@ -200,10 +209,12 @@ def _pack_rows_planar(state: SimState, scene: SceneData,
     With the camera origin ``cam_pos [W, 3]`` (the prep layout), rows 0-9
     hold D = e2×e1, A = e2×tv, Q = tv×e1, t_num = e2·Q (tv = origin − v0);
     without it (the raw layout, :260-266), rows 0-8 hold v0, e1·valid and
-    e2·valid. Rows 16-35 hold the attributes (uv0, duv1, duv2, n0, dn1,
-    dn2, material, premultiplied colour, texel density); the rest are
-    zero. Invalid triangles have zero edges, so their determinant is 0 and
-    the sweep rejects them without a validity row."""
+    e2·valid, and row 9 the validity (the JAX 32-row pack's row 9,
+    :281-286; the JAX split raw layout leaves it zero). Rows 16-35 hold
+    the attributes (uv0, duv1, duv2, n0, dn1, dn2, material, premultiplied
+    colour, texel density); the rest are zero. Invalid triangles have zero
+    edges, so their determinant is 0 and the Möller–Trumbore sweeps reject
+    them without the validity row; the watertight decision ANDs it in."""
     W, I = state.instance_obj.shape
     T = scene.tris_per_object
     S = I * T
@@ -221,7 +232,7 @@ def _pack_rows_planar(state: SimState, scene: SceneData,
             v0x, v0y, v0z,
             e1x * val, e1y * val, e1z * val,
             e2x * val, e2y * val, e2z * val,
-            zero, zero, zero, zero, zero, zero, zero,
+            val, zero, zero, zero, zero, zero, zero,
         ]
     else:
         ve1 = [e1x * val, e1y * val, e1z * val]
@@ -449,15 +460,18 @@ def pack_inputs(
     raster: bool = False,
     texture_filter: str = "nearest",
     shadows: bool = False,
+    watertight: bool = False,
 ) -> dict:
     """The whole prologue: the kernel's tensors and launch parameters, as
     keyword arguments of ``render_resident`` / ``render_resident_plain``.
     ``raster`` selects the raster conventions (``near`` is then the
     camera-plane znear). The rows take the prep layout on one-camera scenes
-    without shadows and the raw layout otherwise (``render_core``
-    :4342-4347); ``geo`` names the kernel's sweep: ``"prep"``, ``"raw"`` or,
-    with ``shadows``, ``"raw_shadows"``. On the streamed route ``order`` and
-    ``spans`` are each view's cluster order and row spans, else None."""
+    without shadows or ``watertight`` and the raw layout otherwise
+    (``render_core`` :4342-4347, :4425-4436); ``geo`` names the kernel's
+    sweep: ``"prep"``, ``"raw"`` or, with ``shadows``, ``"raw_shadows"``,
+    and under ``watertight`` ``"raw_wt"`` or ``"raw_wt_shadows"``. On the
+    streamed route ``order`` and ``spans`` are each view's cluster order and
+    row spans, else None."""
     check_supported(state, scene, texture_filter)
     # Effective per-camera view parameters (0 = inherit the call defaults).
     eff_fov = torch.where(state.camera_fov > 0, state.camera_fov, fov_y_degrees)
@@ -472,8 +486,10 @@ def pack_inputs(
         far_t = far * torch.sqrt(1.0 + tan_x * tan_x + tan_y * tan_y)
     else:
         far_t = far_z
-    prep = state.max_cameras == 1 and not shadows
-    geo = "prep" if prep else "raw_shadows" if shadows else "raw"
+    prep = state.max_cameras == 1 and not shadows and not watertight
+    geo = "prep"
+    if not prep:
+        geo = ("raw_wt" if watertight else "raw") + ("_shadows" if shadows else "")
     rows = pack_cuda.pack_rows(state, scene,
                                state.camera_pos[:, 0, :] if prep else None)
     cams = _pack_cams(state, scene, width, height, eff_fov, eff_near, far_t, far_z)
@@ -520,7 +536,8 @@ def variant_name(raster: bool, texture, geo: str = "prep",
                  streamed: bool = False) -> str:
     """The name of one instantiation of the render kernel:
     ``render_resident`` (``render_streamed`` on the streamed route, K3 + K5)
-    plus ``_raw`` (K1-raw) or ``_raw_shadows`` (K8), ``_raster`` (K2) and
+    plus ``_raw`` (K1-raw), ``_raw_shadows`` (K8), ``_raw_wt`` or
+    ``_raw_wt_shadows`` (K10), ``_raster`` (K2) and
     ``_tex_nearest`` / ``_tex_bilinear`` (K6) or ``_tex_mip`` (the hand-off,
     K7's first launch)."""
     name = "render_streamed" if streamed else "render_resident"
@@ -583,7 +600,7 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
         raise ValueError(f"geo must be one of {tuple(_GEO_CODES)}, got {geo!r}")
     if geo == "prep" and num_cams != 1:
         raise ValueError("the prep rows bake in one camera origin: num_cams must be 1")
-    if geo == "raw_shadows" and n_lights > _MAX_SHADOW_LIGHTS:
+    if geo in _SHADOW_GEOS and n_lights > _MAX_SHADOW_LIGHTS:
         raise ValueError(f"shadows take at most {_MAX_SHADOW_LIGHTS} lights, got {n_lights}")
     tensors = [("rows", rows), ("clusters", clusters), ("cams", cams)]
     if texture is not None:
@@ -640,8 +657,10 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
     ``geo`` names the rows' layout (``pack_cuda.pack_rows``) and the sweep:
     ``"prep"`` (one camera per world), ``"raw"``, or ``"raw_shadows"``,
     which shades each light only where nothing lies between the hit point
-    and the light. With ``order`` and ``spans`` (``pack_inputs`` on a mesh
-    past the resident budget) the kernel takes the streamed route.
+    and the light; ``"raw_wt"`` and ``"raw_wt_shadows"`` decide the primary
+    hits by the watertight Woop test (K10). With ``order`` and ``spans``
+    (``pack_inputs`` on a mesh past the resident budget) the kernel takes
+    the streamed route.
 
     Tensors on the card launch ``csrc/render_resident.cu`` on their device's
     current stream; tensors on the CPU run ``render_resident_plain``. Each
@@ -860,13 +879,18 @@ def plain_rays(cams, height: int, width: int, rows: int = 0, cols: int = 0):
     return dx * inv_len, dy * inv_len, dz * inv_len
 
 
-def plain_triangle_test(dx, dy, dz, tri_rows, near, best_t=None, origin=None):
+def plain_triangle_test(dx, dy, dz, tri_rows, near, best_t=None, origin=None,
+                        shear=None):
     """The sweep's Möller–Trumbore test of one triangle against every ray:
     ``tri_rows`` is its first 10 rows ``[W·C, 10, 1]``, the prep rows (K1)
     or, with the rays' origin ``origin`` (three components, each ``[W·C, 1]``
     per view or ``[W·C, P]`` per pixel), the raw rows (K1-raw: tv, q and
     t_num, then the pvec test, :1342-1380; K8's any-hit test from the hit
     points, :2885-2903, takes the same expressions with ``best_t`` None).
+    With the rays' shear frame ``shear`` (``watertight.shear_select``, raw
+    rows) the acceptance and t are K10's Woop decision (:1393-1435):
+    a = v0 − o, b = a + e1, c = a + e2 sheared, the three edge functions,
+    the validity row 9; (u, v) stay the Möller–Trumbore values.
     Returns ``(ok, t, u, v)``, ``ok`` the strict first-min acceptance."""
     def r(k):
         return tri_rows[:, k]
@@ -895,11 +919,21 @@ def plain_triangle_test(dx, dy, dz, tri_rows, near, best_t=None, origin=None):
         u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
         v = (dx * qx + dy * qy + dz * qz) * inv
         t = t_num * inv
-    ok = (
-        (torch.minimum(u, v) >= -_F_EPS_BARY)
-        & (u + v <= _F_ONE_PLUS_EPS)
-        & (t > near)
-    )
+    if shear is not None:
+        awx = r(0) - origin[0]
+        awy = r(1) - origin[1]
+        awz = r(2) - origin[2]
+        *_, t, accept = wt._edge_function_hit(
+            *wt.sheared(shear, awx, awy, awz),
+            *wt.sheared(shear, awx + e1x, awy + e1y, awz + e1z),
+            *wt.sheared(shear, awx + e2x, awy + e2y, awz + e2z))
+        ok = accept & (r(9) > 0.0) & (t > near)
+    else:
+        ok = (
+            (torch.minimum(u, v) >= -_F_EPS_BARY)
+            & (u + v <= _F_ONE_PLUS_EPS)
+            & (t > near)
+        )
     if best_t is not None:
         ok = ok & (t < best_t)
     return ok, t, u, v
@@ -958,7 +992,7 @@ def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
     dev = rows.device
     f32 = torch.float32
     raw = geo != "prep"
-    shadows = geo == "raw_shadows"
+    shadows = geo in _SHADOW_GEOS
     rows_v = rows[torch.arange(WC, device=dev) // num_cams]  # [WC, 40, S]
 
     def cam(k):  # camera column k → [WC, 1]
@@ -975,11 +1009,13 @@ def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
     best_v = torch.zeros((WC, P), dtype=f32, device=dev)
     origin = (cam(0)[:, None], cam(1)[:, None], cam(2)[:, None]) if raw else None
     d3 = (dx[:, None], dy[:, None], dz[:, None])  # [WC, 1, P]
+    shear = wt.shear_select(*d3) if geo in _WATERTIGHT_GEOS else None
     for i0, i1 in _plain_chunks(S, WC * P):
         # The chunk's tests as [WC, K, P]; its winner is the first triangle
         # at its least accepted t, taken on strict <: the running sweep's.
         ok, t, u, v = plain_triangle_test(
-            *d3, rows_v[:, :_N_PREP_ROWS, i0:i1, None], t_lo[:, None], None, origin)
+            *d3, rows_v[:, :_N_PREP_ROWS, i0:i1, None], t_lo[:, None], None, origin,
+            shear)
         t = torch.where(ok, t, torch.inf)
         m = t.amin(1)
         ks = torch.arange(i1 - i0, dtype=torch.int32, device=dev)[None, :, None]
@@ -1087,12 +1123,14 @@ def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
 def render_core(state: SimState, scene: SceneData, *, height: int, width: int,
                 near: float = 0.1, far: float = 1000.0,
                 fov_y_degrees: float = 90.0, raster: bool = False,
-                texture_filter: str = "nearest", shadows: bool = False):
+                texture_filter: str = "nearest", shadows: bool = False,
+                watertight: bool = False):
     """Prologue + kernel (or its plain version on the CPU). Returns
     ``(depth, segmask, rgb_packed)``, each ``[W·C, height, width]``."""
     kw = pack_inputs(state, scene, height=height, width=width, near=near,
                      far=far, fov_y_degrees=fov_y_degrees, raster=raster,
-                     texture_filter=texture_filter, shadows=shadows)
+                     texture_filter=texture_filter, shadows=shadows,
+                     watertight=watertight)
     return render_resident(**kw)
 
 
@@ -1110,13 +1148,15 @@ def frames_from_core(state: SimState, depth, seg, rgb) -> Frames:
 def raytrace(state: SimState, scene: SceneData, *, height: int, width: int,
              near: float = 0.1, far: float = 1000.0,
              fov_y_degrees: float = 90.0,
-             texture_filter: str = "nearest", shadows: bool = False) -> Frames:
+             texture_filter: str = "nearest", shadows: bool = False,
+             watertight: bool = False) -> Frames:
     """Render every (world, camera) view → padded ``Frames``; invalid
     camera slots render black/0/-1; ``shadows`` casts one shadow ray per
-    (pixel, light). The counterpart of ``raytrace_pallas.raytrace`` /
-    ``raytrace_ref.raytrace``."""
+    (pixel, light); ``watertight`` decides hits by the crack-free Woop test
+    (``ops/watertight.py``). The counterpart of ``raytrace_pallas.raytrace``
+    / ``raytrace_ref.raytrace``."""
     return frames_from_core(state, *render_core(
         state, scene, height=height, width=width, near=near, far=far,
         fov_y_degrees=fov_y_degrees, texture_filter=texture_filter,
-        shadows=shadows,
+        shadows=shadows, watertight=watertight,
     ))

@@ -6,7 +6,8 @@ along its view's cluster order it stops at the first cluster that is
 invalid or that no ray can reach (best_t² ≤ 0.998 · approach distance²),
 skips a cluster whose pixel-row span misses the block's rows or whose slab
 test (tmin · 0.999 < best_t) no ray passes, and sweeps the rest, the lower
-index winning an exact tie. With shadows it repeats each light's index-order
+index winning an exact tie (under the watertight sweep's geometry codes,
+with the Woop decision). With shadows it repeats each light's index-order
 any-hit walk. It returns the frames' depth and segmask (equal to
 ``render_resident_plain``'s when the culls are conservative, which the tests
 check) and the work: positions gated, clusters and triangles swept per
@@ -40,17 +41,17 @@ def _slab(g, origin, inv):
             torch.minimum(torch.minimum(hi[0], hi[1]), hi[2]))
 
 
-def _cluster_tests(rows_v, c, cs, cnt, dirs, t_lo, origin):
+def _cluster_tests(rows_v, c, cs, cnt, dirs, t_lo, origin, shear=None):
     """Tests of each view's cluster ``c`` [V] (its valid prefix ``cnt``)
-    against the blocks' rays ``dirs`` [V, nt, 1, 256]: (ok, t) as
-    [V, nt, cs, 256]."""
+    against the blocks' rays ``dirs`` [V, nt, 1, 256] (with ``shear``, the
+    watertight decision): (ok, t) as [V, nt, cs, 256]."""
     V = rows_v.shape[0]
     dev = rows_v.device
     ks = torch.arange(cs, device=dev)
     idx = (c[:, None] * cs + ks)[:, None, :].expand(V, rc._N_PREP_ROWS, cs)
     tri = rows_v[:, :rc._N_PREP_ROWS].gather(2, idx)  # [V, 10, cs]
     ok, t, _, _ = rc.plain_triangle_test(*dirs, tri[:, :, None, :, None], t_lo, None,
-                                         origin)
+                                         origin, shear)
     return ok & (ks[None, :] < cnt[:, None])[:, None, :, None], t
 
 
@@ -96,6 +97,7 @@ def streamed_walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights
         t_lo = near / torch.clamp_min(cosf, rc._F_COS_FLOOR)
     raw = geo != "prep"
     dirs = tuple(x[:, :, None] for x in d)  # [V, nt, 1, 256]
+    shear = rc.wt.shear_select(*dirs) if geo in rc._WATERTIGHT_GEOS else None
     t_lo4 = t_lo[:, :, None] if raster else near[..., None]
     origin4 = tuple(x[..., None] for x in o) if raw else None
     best_t = far.expand(V, nt, _T * _T).clone()
@@ -133,7 +135,7 @@ def streamed_walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights
         n["cluster_visits"] += int(visit.sum())
         n["triangle_visits"] += int((visit.sum(1) * cnt).sum())
         streamed.index_put_((world, c), visit.sum(1), accumulate=True)
-        ok, t = _cluster_tests(rows_v, c, cs, cnt, dirs, t_lo4, origin4)
+        ok, t = _cluster_tests(rows_v, c, cs, cnt, dirs, t_lo4, origin4, shear)
         t = torch.where(ok & visit[:, :, None, None], t, torch.inf)
         m = t.amin(2)
         first = torch.where(t == m[:, :, None], ks, cs).amin(2)
@@ -142,7 +144,7 @@ def streamed_walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights
         best_t = torch.where(take, m, best_t)
         best_idx = torch.where(take, gi, best_idx)
 
-    if geo == "raw_shadows":
+    if geo in rc._SHADOW_GEOS:
         t_hit = torch.where(best_idx >= 0, best_t, 0.0)
         h = tuple(o[k] + t_hit * d[k] for k in range(3))
         eps = rc._F_SHADOW_EPS * (1.0 + t_hit)

@@ -20,6 +20,7 @@ from typing import List
 
 import numpy as np
 
+from .._build import cache_root
 from ..config import (
     AdditionalMaterial,
     GeometryConfig,
@@ -80,8 +81,9 @@ def _geo_from(meshes: List[np.ndarray], uv_list: List[np.ndarray], mats: List[in
     )
 
 
-# Generated demo assets live beside the kernel builds, inside the checkout.
-ASSET_DIR = Path(__file__).resolve().parents[2] / "build" / "demo_assets"
+# Generated demo assets live beside the kernel builds (in a source
+# checkout: build/demo_assets/).
+ASSET_DIR = cache_root() / "demo_assets"
 
 
 def _publish_atomic(path: Path, data: bytes) -> None:

@@ -2,7 +2,8 @@
 
 The port (and chip_smoke.py and port_tools/) imports neither JAX nor any
 module of the JAX package; it renders on the CPU (raytraced, textured,
-mip-mapped, rasterized and a streamed big mesh, with its walk replayed) in
+mip-mapped, rasterized, a streamed big mesh with its walk replayed,
+watertight and supersampled) in
 a process where both are unimportable; a CPU render
 launches no kernel; every kernel source under csrc/ has its launch
 signature, so the build covers it.
@@ -84,6 +85,12 @@ assert raytrace_cuda.is_streamed(bm.state, bm.scene)
 assert set(bm.segmask_tensor().numpy().ravel().tolist()) == {-1, 0, 1}
 kw = raytrace_cuda.pack_inputs(bm.state, bm.scene, height=32, width=32)
 assert walk_replay.streamed_walk(**kw)["segmask"].equal(bm.segmask_tensor().to_torch())
+wt = m.Manager(demo_config(2, m.RenderMode.Raytracer, 32, 32, dynamic=True, watertight=True,
+                           device="cpu"))
+assert set(wt.segmask_tensor().numpy().ravel().tolist()) == {-1, 0, 1}
+aa = m.Manager(demo_config(2, m.RenderMode.Rasterizer, 16, 16, ssaa=2, device="cpu"))
+assert aa.rgb_tensor().numpy().shape == (2, 16, 16, 4)
+from madrona_renderer_tpu_torch.ops import ssaa, watertight
 assert raytrace_cuda.render_resident.launches == 0
 assert raytrace_cuda.shade_mip.launches == 0
 assert sum(pack_cuda.pack_rows.layout_launches.values()) == 0

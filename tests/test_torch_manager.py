@@ -15,6 +15,7 @@ from madrona_renderer_tpu.runners.scenes import demo_config as j_demo
 from madrona_renderer_tpu_torch.runners.scenes import demo_config as t_demo
 from madrona_renderer_tpu_torch.runners.scenes import renderer_kwargs
 
+from tests.test_torch_watertight import _assert_frames_equal_knife_edge
 from tests.torch_helpers import assert_frames_close
 
 EXPORTS = (
@@ -109,21 +110,22 @@ UNSUPPORTED = {
     "textures": (dict(texture_paths=["checker.ktx2"]), "item 18"),
     "textured_material": (dict(materials=[tm.AdditionalMaterial(texture_id=0)],
                                big_texture=True, mipmaps=False), "item 6"),
-    "watertight": (dict(watertight=True), "item 11"),
     "warmstart": (dict(warmstart=True), "item 12"),
-    "ssaa": (dict(ssaa=2), "item 13"),
     "num_devices": (dict(num_devices=2), "item 15"),
     "asset_paths": (dict(asset_paths=[tm.ImportedAsset("cube.obj")]), "item 18"),
 }
-# Options that raised until their slice was ported (items 7, 8, 9 and 10):
-# each now renders through MadronaRenderer, steps, and matches the JAX
-# Manager.
+# Options that raised until their slice was ported (items 7, 8, 9, 10, 11
+# and 13): each now renders through MadronaRenderer, steps, and matches the
+# JAX Manager (watertight at the knife-edge bar of
+# tests/test_torch_watertight.py).
 PORTED = {
     "rasterizer": dict(render_mode=tm.RenderMode.Rasterizer, num_cams=2),
     "multi_camera": dict(num_cams=2),
     "shadows": dict(shadows=True),
     "mipmaps": dict(mipmaps=True, textured=True, tex_size=32),
     "big_mesh": dict(big=True),
+    "watertight": dict(watertight=True, textured=True, tex_size=32),
+    "ssaa": dict(ssaa=2, textured=True, tex_size=32),
 }
 
 
@@ -169,10 +171,15 @@ def _renders_like_jax(opts):
                           impl="jnp", **scene, **opts))
     n_views = 2 * scene["num_cams"]
     assert t.rgb_tensor().shape == j.rgb_tensor().shape == (n_views, 16, 16, 4)
-    assert_frames_close(j.frames, t.frames)
+    if opts.get("watertight"):
+        def compare(a, b):  # the demo's ground plane is instance 1
+            _assert_frames_equal_knife_edge(a, b, max_flips=8, far=b.segmask.numpy() == 1)
+    else:
+        compare = assert_frames_close
+    compare(j.frames, t.frames)
     t.step()
     j.step()
-    assert_frames_close(j.frames, t.frames)
+    compare(j.frames, t.frames)
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED) + sorted(PORTED))

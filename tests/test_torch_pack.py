@@ -204,19 +204,25 @@ def test_pack_rows_kernel_cpu_route_matches_jax_pack_kernel(name):
 
 def test_pack_rows_planar_split_raw(states):
     """The raw layout (no camera origin): rows 0-8 v0, e1·valid, e2·valid
-    bitwise against the JAX package's op-by-op pack, the attribute rows at
+    bitwise against the JAX package's op-by-op split pack, row 9 the
+    validity bitwise against its 32-row pack's row 9 (the JAX split layout
+    leaves it zero; the watertight sweep ANDs it in), the attribute rows at
     the bar above."""
     j_state, j_scene, t_state, t_scene = states
     with jax.disable_jit():
         a = np.asarray(jrp._pack_rows_planar(j_state, j_scene, cam_pos=None, split=True))
+        a32 = np.asarray(jrp._pack_rows_planar(j_state, j_scene))
     b = trc._pack_rows_planar(t_state, t_scene)
     assert a.shape == tuple(b.shape) == (3, 40, 3 * j_scene.tris_per_object)
     b = b.numpy()
-    np.testing.assert_array_equal(a[:, :16], b[:, :16])
+    np.testing.assert_array_equal(a[:, :9], b[:, :9])
+    np.testing.assert_array_equal(a[:, 10:16], b[:, 10:16])
+    np.testing.assert_array_equal(a32[:, 9], b[:, 9])
+    assert not a[:, 9].any() and b[:, 9].any()
     for r in range(16, 36):
         _close(a[:, r], b[:, r], f"attr row {r}")
     np.testing.assert_array_equal(a[:, 31], b[:, 31])
-    for r in list(range(9, 16)) + list(range(36, 40)):
+    for r in list(range(10, 16)) + list(range(36, 40)):
         assert not b[:, r].any()
     # Disabled instances keep their vertices and lose their edges.
     assert (b[2, 0:3, -j_scene.tris_per_object:] != 0).any()
@@ -228,7 +234,9 @@ def test_pack_rows_raw_cpu_route_matches_jax_pack_kernel(name):
     """K13's wrapper without a camera origin (the raw layout, its plain
     version on the CPU) against the JAX package's Pallas pack kernel with
     ``cam_pos=None`` in interpret mode, at the bar above: the demo, the
-    pack-kernel scenes and a random-quaternion state."""
+    pack-kernel scenes and a random-quaternion state. Row 9, the validity,
+    is held against the JAX 32-row pack's row 9 (the Pallas split layout
+    leaves it zero)."""
     if name == "random_quaternions":
         j_scene = SCENES["random3"]()
         j_state, t_state = _random_state(j_scene, 3, 3, 5)
@@ -249,5 +257,8 @@ def test_pack_rows_raw_cpu_route_matches_jax_pack_kernel(name):
     for r in list(range(9)) + list(range(16, 36)):
         _close(a[:, r], b[:, r], f"row {r}")
     np.testing.assert_array_equal(a[:, 31], b[:, 31])  # material ids
-    for r in list(range(9, 16)) + list(range(36, 40)):
+    np.testing.assert_array_equal(np.asarray(jrp._pack_rows_planar(j_state, j_scene))[:, 9],
+                                  b[:, 9])
+    assert not a[:, 9].any() and b[:, 9].any()
+    for r in list(range(10, 16)) + list(range(36, 40)):
         assert not a[:, r].any() and not b[:, r].any()

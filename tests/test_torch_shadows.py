@@ -128,9 +128,10 @@ def test_shadow_prologue_takes_the_raw_rows():
     assert kw["rows"].equal(trc._pack_rows_planar(t_state, t_scene))
     assert (trc.variant_name(True, "bilinear", "raw_shadows")
             == "render_resident_raw_shadows_raster_tex_bilinear")
-    # 2 routes (resident, streamed) x 3 sweeps x 2 conventions x 4 texture
-    # modes (K7's mip hand-off the fourth).
-    assert len(trc.VARIANTS) == len(set(trc.VARIANTS)) == 48
+    # 2 routes (resident, streamed) x 5 sweeps (prep, raw, raw with shadows
+    # and the two watertight ones) x 2 conventions x 4 texture modes (K7's
+    # mip hand-off the fourth).
+    assert len(trc.VARIANTS) == len(set(trc.VARIANTS)) == 80
     with pytest.raises(ValueError, match="geo must be one of"):
         trc.render_resident(**dict(kw, geo="prep_shadows"))
 
