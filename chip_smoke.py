@@ -40,8 +40,13 @@ printed as JSON lines:
                streamed scenes of tests/test_pallas_parity.py and
                tests/test_shadows.py, and on the tie scene (exact-t ties
                across clusters go to the lower index, a ``tie`` line counts
-               the pixels);
-  4. paths   — the nine paths of the port, each through MadronaRenderer and
+               the pixels); each of those again with accel="binned": every
+               variant of the binned visit (K4, ``render_binned*``) bitwise
+               (a ``tie`` line under bins too); every geometry variant of K4
+               on 4 worlds of the binned terrain at 128x128 bitwise against
+               its plain version and against K5 (``k4_vs_k5`` lines); the
+               seam scene made streamed under bins (a ``seam`` line);
+  4. paths   — the twelve paths of the port, each through MadronaRenderer and
                stepped with a position mutation through the exported tensor
                between steps, with every launch count set to 0 just before
                and read just after:
@@ -72,6 +77,21 @@ printed as JSON lines:
                                   the resident budget: K3 + K5, with the
                                   walk replayed in torch ops, its frames
                                   held to the exports and its work counted);
+                 binned_32w_128, binned_32w_256, terrain_32w_512
+                                  tools/tpu_binned_bench.py's scene (32
+                                  worlds of the 100,352-triangle terrain)
+                                  at 128x128 and 256x256 with accel="auto",
+                                  and bench.py:505-546's health anchor at
+                                  512x512 with accel="binned": K4, each step
+                                  turning every terrain through the
+                                  exported rotation tensor; K4 against K5
+                                  bitwise at full size (against the plain
+                                  version too at 128x128), the replayed
+                                  binned walk against the exports, the
+                                  bins' and the row sort's bytes and device
+                                  times, the step's device time from a
+                                  profiler trace, and the same steps with
+                                  accel="clusters" (K5) beside them;
                then, on each path's last inputs at full size, the kernels
                (under SSAA, filtered down) against the exported frames and
                their plain versions (and
@@ -80,7 +100,9 @@ printed as JSON lines:
                textured256_4096w every K7 variant on its inputs); one line
                per path (phase = its name) with the step and prologue times
                on the host clock and the prologue's operator count;
-  5. timing  — each kernel at its path's full-size inputs (K10's
+  5. timing  — each kernel at its path's full-size inputs (K4's
+               ``render_binned`` on binned_32w_128's, its other variants on
+               the 64-world inputs of their first scene of phase 3; K10's
                untextured variants on main's, its textured ones on
                watertight_4096w's): its device time in a CUDA graph of
                back-to-back launches, its time through
@@ -97,7 +119,11 @@ printed as JSON lines:
                that compares its frames with the prep sweep's), and each
                K7 variant's two launches together on textured256_4096w's
                inputs, K1-raw on watertight_4096w's rows, the ssaa path's
-               kernel at 128x128 and its filter (torch ops: time and bound);
+               kernel at 128x128 and its filter (torch ops: time and bound),
+               and K4 and K5 on each terrain path's inputs (K4's bound from
+               the replayed binned walk; at 256x256 and 512x512 no plain
+               time; K5 without a bound, its walk's replay would take
+               minutes);
 
 then the nvidia-smi line, the ``kernels`` summary line and the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -129,6 +155,12 @@ TIMED_STEPS = 20
 RASTER_TIMED_STEPS = 60
 PAGED_TEX_SIZE = 256
 BIGMESH_WORLDS = 512
+# The binned terrain paths (tools/tpu_binned_bench.py, bench.py:505-546):
+# 32 worlds of the 224-grid terrain at each size; the variant checks at 4.
+TERRAIN_WORLDS = 32
+TERRAIN_CHECK_WORLDS = 4
+TERRAIN_PATHS = (("binned_32w_128", 128, "auto"), ("binned_32w_256", 256, "auto"),
+                 ("terrain_32w_512", 512, "binned"))
 MIP_FILTERS = ("nearest", "bilinear", "trilinear")
 KERNEL_REPS = 50
 SMALL_WORLDS = 64
@@ -241,9 +273,21 @@ K5_OPS_APPROACH = 18
 K5_OPS_EXIT = 2
 K5_OPS_SLAB = 26
 K5_OPS_PER_TRIANGLE = {"prep": 28, "raw": 37, "wt": 44}
+# The binned route (K4, csrc/render_binned.cu): the ordered walk's gates and
+# tests; on prep rows each test adds the original index's conversion (29)
+# and is made by the 128 threads of one band, the band's row gate (2 compares
+# a thread) charged per band that a visit reaches.
+K4_OPS_PER_TRIANGLE = {"prep": 29, "raw": 37, "wt": 44}
+K4_OPS_BAND_GATE = 2
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase line carries the seconds since the start."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=round(time.perf_counter() - _T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -255,10 +299,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back calls, by CUDA
-    events (after one warm-up call)."""
-    fn()
+    events (after one warm-up call, unless ``warm`` is False: the plain
+    sweeps of the streamed scenes, seconds long, are timed cold, once)."""
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -404,19 +450,23 @@ def occluder_scene(n_worlds: int, cfg_mod):
     return geo, [], [], instances, cameras, worlds
 
 
-def seam_scene(n_worlds: int, cfg_mod, split: bool = True):
+def seam_scene(n_worlds: int, cfg_mod, split: bool = True, fill: bool = False):
     """tests/test_watertight_pallas.py's crack scene per world: two triangles
     sharing the diagonal of a flat quad 3 ahead of a camera at the origin,
     in two instances (a seam across clusters) or in one, moved 0.01·w along
-    x in world w."""
+    x in world w; with ``fill``, a 3,600-triangle cloud behind the camera as
+    a third instance, which makes the mesh streamed."""
     tri_a = np.asarray([[-1, 0, -1], [1, 0, -1], [1, 0, 1]], np.float32)
     tri_b = np.asarray([[-1, 0, -1], [1, 0, 1], [-1, 0, 1]], np.float32)
     meshes = [tri_a, tri_b] if split else [np.concatenate([tri_a, tri_b])]
+    if fill:
+        meshes.append(cloud_mesh(11))
     ident = [1.0, 0.0, 0.0, 0.0]
     instances, cameras, worlds = [], [], []
     for w in range(n_worlds):
         for obj in range(len(meshes)):
-            instances.append(cfg_mod.ImportedInstance([0.01 * w, 3, 0], ident, object_id=obj))
+            y = -60 if fill and obj == len(meshes) - 1 else 3
+            instances.append(cfg_mod.ImportedInstance([0.01 * w, y, 0], ident, object_id=obj))
         cameras.append(cfg_mod.ImportedCamera([0, 0, 0], ident))
         worlds.append(cfg_mod.WorldInit(len(meshes), len(meshes) * w, 1, w))
     uvs = [np.zeros((len(m), 2), np.float32) for m in meshes]
@@ -791,7 +841,8 @@ def k1_bound(kw: dict, visits: int, shadow_visits: int) -> tuple:
 
 def k5_bound(kw: dict, walk: dict) -> tuple:
     """Least time for the streamed render kernel's work on these inputs,
-    from the walk this run's data makes (``walk_replay.streamed_walk``):
+    from the walk this run's data makes (``walk_replay.streamed_walk``, or
+    for K4 ``walk_replay.binned_walk``):
     the rows of every (world, cluster) some block streams read once (10 prep
     rows, 9 raw rows or, K10, 10), the winners' attribute rows (prep: and
     their 9 prep rows for the uv; K10: their 9 raw rows), the cluster table,
@@ -809,19 +860,31 @@ def k5_bound(kw: dict, walk: dict) -> tuple:
     tex = "mip" if kw.get("fb_rows") is not None else kw["texture"]
     lights = kw["n_lights"]
     geo = layout(kw)
-    nbytes = (walk["clusters_streamed"] * K1_GEO_ROWS[geo] * size * 4
+    binned = kw.get("bins") is not None
+    ranged = kw.get("ranges") is not None
+    # Visit inputs: the ordered walk's order and spans; the binned walk's
+    # spans, the bin entries its blocks reach and (prep) the range of each
+    # (cluster, band) a visit reads, with the original-index row.
+    visit_bytes = (views * 2 * CC * 4 + walk["bin_entries"] * 4 + walk["band_reads"] * 8
+                   if binned else views * 2 * CC * 4 + views * CC * 4)
+    nbytes = (walk["clusters_streamed"] * (K1_GEO_ROWS[geo] + ranged) * size * 4
               + walk["winners"] * (K1_ATTR_ROWS[tex] + (9 if geo != "raw" else 0)) * 4
-              + kw["clusters"].numel() * 4 + views * 3 * CC * 4 + kw["cams"].numel() * 4
+              + kw["clusters"].numel() * 4 + visit_bytes + kw["cams"].numel() * 4
               + pixels * K1_OUT_BYTES["mip" if tex == "mip" else "rgb"])
     if tex in ("nearest", "bilinear"):
         nbytes += kw["mats"].numel() * 4 + kw["pool"].numel() * 4
     per_thread = (K1_OPS_FIXED[geo] + K1_OPS_PER_LIGHT * lights + K1_OPS_TEX[tex]
                   + (K1_OPS_RASTER if kw["raster"] else 0))
-    reached = walk["gated"] + blocks  # the positions gated and each block's last
+    # The positions gated and each block's last (binned: the stops counted).
+    reached = walk["gated"] + (walk["stops"] if binned else blocks)
+    per_triangle = (K4_OPS_PER_TRIANGLE if binned else K5_OPS_PER_TRIANGLE)[geo]
     ops = (threads * per_thread
            + reached * (K5_OPS_APPROACH + K1_THREADS_PER_BLOCK * K5_OPS_EXIT)
            + walk["slab_tests"] * K1_THREADS_PER_BLOCK * K5_OPS_SLAB
-           + walk["triangle_visits"] * K1_THREADS_PER_BLOCK * K5_OPS_PER_TRIANGLE[geo])
+           + walk["triangle_visits"] * walk.get("sweep_threads", K1_THREADS_PER_BLOCK)
+           * per_triangle)
+    if ranged:
+        ops += walk["cluster_visits"] * K1_THREADS_PER_BLOCK * K4_OPS_BAND_GATE
     ops += walk["triangle_visits"] * K1_OPS_HOIST[geo]
     if kw["geo"].endswith("_shadows"):
         ops += (threads * (K8_OPS_FIXED + K8_OPS_PER_LIGHT * lights
@@ -869,6 +932,27 @@ def k13_bound(state, scene, layout: str) -> tuple:
     return roofline(nbytes, ops) + (nbytes, ops)
 
 
+def device_ms(fn, reps: int = 3):
+    """Device time of ``fn`` from a torch.profiler trace: the durations of
+    the kernels it launched, summed, a mean over ``reps`` calls. None when
+    the profiler cannot trace the card or its trace holds no device time
+    (then only the CUDA events' times stand)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    except (RuntimeError, AssertionError):
+        return None
+    return total / reps / 1e3 if total > 0 else None
+
+
 def roofline(nbytes: int, ops: int) -> tuple:
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_FP32_OPS * 1e3
@@ -900,7 +984,7 @@ def main() -> int:
     emit({"phase": "build", "kernels": sorted(built), "seconds": time.perf_counter() - t0})
 
     # Per kernel name: the largest error against its plain version.
-    kernel_names = rc.VARIANTS + rc.SHADE_MIP_VARIANTS + pack_cuda.LAYOUTS
+    kernel_names = rc.VARIANTS + rc.BINNED_VARIANTS + rc.SHADE_MIP_VARIANTS + pack_cuda.LAYOUTS
     max_err = {name: 0.0 for name in kernel_names}
 
     def check_pack(tag, state, scene, cam):
@@ -920,17 +1004,21 @@ def main() -> int:
     def is_k7(kw):
         return kw.get("fb_rows") is not None
 
+    def binned(kw):
+        return kw.get("bins") is not None
+
     def streamed(kw):
-        return kw.get("order") is not None
+        return kw.get("order") is not None or binned(kw)
 
     def handoff_name(kw):
-        return rc.variant_name(kw["raster"], "mip", kw["geo"], streamed(kw))
+        return rc.variant_name(kw["raster"], "mip", kw["geo"], streamed(kw), binned(kw))
 
     def variant(kw):
         """The render kernel's variant; for K7 its two launches' names."""
         if is_k7(kw):
             return f"{handoff_name(kw)}+shade_mip_{kw['texture']}"
-        return rc.variant_name(kw["raster"], kw["texture"], kw["geo"], streamed(kw))
+        return rc.variant_name(kw["raster"], kw["texture"], kw["geo"], streamed(kw),
+                               binned(kw))
 
     def check_render(tag, kw):
         name = variant(kw)
@@ -951,16 +1039,19 @@ def main() -> int:
         return k_out
 
     handoff_keys = ("num_cams", "n_lights", "height", "width", "seg_div", "raster", "geo",
-                    "order", "spans")
+                    "order", "spans", "bins", "ranges", "bin_tile")
 
     walk_of = {}
 
     def walks(kw):
         """The streamed kernel's walk on these inputs, replayed in torch ops
-        (ops/walk_replay.py): its frames and its work."""
-        key = (kw["geo"], kw["raster"], kw["rows"].data_ptr(), kw["cams"].data_ptr())
+        (ops/walk_replay.py, the ordered or the binned walk): its frames and
+        its work."""
+        key = (kw["geo"], kw["raster"], kw["rows"].data_ptr(), kw["cams"].data_ptr(),
+               binned(kw))
         if key not in walk_of:
-            walk_of[key] = walk_replay.streamed_walk(**kw)
+            walk_of[key] = (walk_replay.binned_walk if binned(kw)
+                            else walk_replay.streamed_walk)(**kw)
         return walk_of[key]
 
     def handoff(kw, plain=False):
@@ -1149,34 +1240,87 @@ def main() -> int:
         mip = rc.has_mips(scene)
         filters = (MIP_FILTERS if mip else ("nearest", "bilinear") if rc.is_textured(scene)
                    else ("nearest",))
-        for watertight, shadows, raster, filt in itertools.product(
-                (False, True) if tag in wt_streamed else (False,), (False, True),
-                (False, True), filters):
+        for accel, watertight, shadows, raster, filt in itertools.product(
+                ("clusters", "binned"), (False, True) if tag in wt_streamed else (False,),
+                (False, True), (False, True), filters):
             lit = (configure_lighting(scene, lights=[((0.5, 1.0, 0.0), (1.0, 1.0, 1.0))])
                    if shadows and tag == "cloud64" else scene)  # tests/test_shadows.py:176
             kw = rc.pack_inputs(state, lit, raster=raster, texture_filter=filt,
                                 near=0.001 if raster else 0.1, shadows=shadows,
-                                watertight=watertight, height=HEIGHT, width=WIDTH)
+                                watertight=watertight, height=HEIGHT, width=WIDTH,
+                                accel=accel)
             out = check_k7(tag, kw)[:2] if mip else check_render(tag, kw)
             streamed_kw.setdefault(handoff_name(kw) if mip else variant(kw), kw)
             if mip and not shadows and not watertight:
                 # The one-camera mip scene on the raw rows too.
-                kw = dict(kw, rows=pack_cuda.pack_rows(state, lit), geo="raw")
+                kw = dict(kw, rows=pack_cuda.pack_rows(state, lit), geo="raw", ranges=None)
                 check_k7(tag, kw)
                 streamed_kw.setdefault(handoff_name(kw), kw)
             if tag == "tie64" and not raster:
                 # The quad's pixels tie between instances 0 and 1: instance
-                # 0 wins them; instance 1 keeps the small triangle in front.
+                # 0 wins them; instance 1 keeps the small triangle in front
+                # (binned: on row-sorted rows too).
                 tie = {v: int((out[1] == v).sum()) for v in (0, 1)}
                 emit({"phase": "tie", "shadows": shadows, "watertight": watertight,
-                      "pixels": tie})
+                      "binned": accel == "binned", "pixels": tie})
                 if tie[0] <= tie[1]:
                     raise AssertionError(f"tie64: the ties did not go to instance 0: {tie}")
 
-    # ---- 4. the seven paths -------------------------------------------- #
+    # K4 on 4 worlds of the binned terrain at 128x128 (tools/tpu_binned_bench.py's
+    # scene, the terrains turned apart): every geometry variant, raytraced
+    # and rasterized, bitwise against its plain version and against K5 on
+    # the same inputs. And the seam scene made streamed (the crack quad, a
+    # cloud behind the camera): no crack under bins either.
+    terrain_cfg = scenes.binned_terrain_config(TERRAIN_CHECK_WORLDS, 128, 128)
+    t_scene = bake_scene(load_render_assets(terrain_cfg.rcfg.geo_cfg, [],
+                                            terrain_cfg.rcfg.additional_mats, []), dev)
+    t_state = init_state(terrain_cfg.rcfg.instances, terrain_cfg.rcfg.cameras,
+                         terrain_cfg.rcfg.worlds, dev)
+    yaw = torch.arange(TERRAIN_CHECK_WORLDS, device=dev, dtype=torch.float32) * 0.1
+    t_state.instance_rot[:, 0] = torch.stack(
+        [torch.cos(yaw), 0 * yaw, 0 * yaw, torch.sin(yaw)], dim=-1)
+    sun = [((0.5, 1.0, -1.0), (1.0, 1.0, 1.0))]
+    for shadows, watertight, raster in itertools.product((False, True), (False, True),
+                                                         (False, True)):
+        lit = configure_lighting(t_scene, lights=sun) if shadows else t_scene
+        opts = dict(height=128, width=128, raster=raster, near=0.001 if raster else 0.1,
+                    shadows=shadows, watertight=watertight)
+        pairs = [(rc.pack_inputs(t_state, lit, accel="binned", **opts),
+                  rc.pack_inputs(t_state, lit, accel="clusters", **opts))]
+        if pairs[0][0]["geo"] == "prep":  # the raw sweep on the terrain too
+            raw_rows = pack_cuda.pack_rows(t_state, lit)
+            pairs.append(tuple(dict(kw, rows=raw_rows, geo="raw", ranges=None)
+                               for kw in pairs[0]))
+        for kw, kw5 in pairs:
+            k4 = check_render("terrain4_128", kw)
+            k5 = rc.render_resident(**kw5)
+            same = all(torch.equal(x, y) for x, y in zip(k4, k5))
+            emit({"phase": "k4_vs_k5", "case": "terrain4_128", "kernel": variant(kw),
+                  "bitwise": same})
+            if not same:
+                raise AssertionError(f"terrain4_128 {variant(kw)}: K4 differs from K5")
+            streamed_kw.setdefault(variant(kw), kw)
+    parts = seam_scene(SMALL_WORLDS, cfg_mod, fill=True)
+    seam_state = init_state(*parts[3:], dev)
+    seam_sc = bake_scene(load_render_assets(parts[0], [], [], []), dev)
+    for shadows in (False, True):
+        lit = configure_lighting(seam_sc, lights=sun) if shadows else seam_sc
+        kw = rc.pack_inputs(seam_state, lit, height=HEIGHT, width=WIDTH, watertight=True,
+                            shadows=shadows, accel="binned")
+        if not binned(kw):
+            raise AssertionError("seam64_streamed: the scene did not take the binned route")
+        out = check_render("seam64_streamed", kw)
+        lo, hi = int(math.ceil(HEIGHT / 3)) + 2, int(HEIGHT * 2 / 3) - 2
+        inner = out[1][0, lo:hi, lo:hi]
+        emit({"phase": "seam", "case": "seam64_streamed", "shadows": shadows, "binned": True,
+              "interior_pixels": int(inner.numel()), "cracks": int((inner < 0).sum())})
+        if bool((inner < 0).any()):
+            raise AssertionError("seam64_streamed: crack pixels inside the quad")
+
+    # ---- 4. the paths --------------------------------------------------- #
     def reset_counts():
         rc.render_resident.launches = 0
-        rc.render_resident.variant_launches = dict.fromkeys(rc.VARIANTS, 0)
+        rc.render_resident.variant_launches = dict.fromkeys(rc.VARIANTS + rc.BINNED_VARIANTS, 0)
         rc.shade_mip.launches = 0
         rc.shade_mip.variant_launches = dict.fromkeys(rc.SHADE_MIP_VARIANTS, 0)
         pack_cuda.pack_rows.layout_launches = dict.fromkeys(pack_cuda.LAYOUTS, 0)
@@ -1248,10 +1392,11 @@ def main() -> int:
         """The path's kernel inputs for the renderer's state (at ssaa x its
         view size)."""
         raster = r.cfg.render_mode == m.RenderMode.Rasterizer
-        kw = dict(height=HEIGHT * r.cfg.ssaa, width=WIDTH * r.cfg.ssaa, raster=raster,
+        kw = dict(height=r.cfg.batch_render_view_height * r.cfg.ssaa,
+                  width=r.cfg.batch_render_view_width * r.cfg.ssaa, raster=raster,
                   near=r.cfg.raster_near_plane if raster else r.cfg.near_plane,
                   texture_filter=r.cfg.texture_filter, shadows=bool(r.cfg.shadows),
-                  watertight=bool(r.cfg.watertight))
+                  watertight=bool(r.cfg.watertight), accel=r.cfg.accel)
         kw.update(over)
         return rc.pack_inputs(r.state, r.scene, **kw)
 
@@ -1288,7 +1433,9 @@ def main() -> int:
         n_views = r.total_num_cameras
         step_ms = statistics.median(step_s) * 1e3
         emit({"phase": path, "card": card, "nvidia_smi": smi,
-              "worlds": r.cfg.num_worlds, "views": n_views, "height": HEIGHT, "width": WIDTH,
+              "worlds": r.cfg.num_worlds, "views": n_views,
+              "height": r.cfg.batch_render_view_height,
+              "width": r.cfg.batch_render_view_width,
               "mode": "rasterizer" if raster else "raytracer",
               "textured": rc.is_textured(r.scene), "shadows": bool(r.cfg.shadows),
               "watertight": bool(r.cfg.watertight), "ssaa": r.cfg.ssaa,
@@ -1586,6 +1733,138 @@ def main() -> int:
     add_launches(counts)
     del r
 
+    # The binned terrain paths: tools/tpu_binned_bench.py's scene (32 worlds
+    # of the 224-grid terrain, S = 100,352, 3,136 clusters a world) at 128²
+    # and 256² with accel="auto", and bench.py:505-546's health anchor at
+    # 512² with accel="binned", each step turning every terrain in place as
+    # the tool's rollout does; then the same steps with accel="clusters"
+    # (K5), the tool's A/B.
+    from madrona_renderer_tpu_torch.ops.quat import quat_multiply, quat_normalize
+
+    half = torch.tensor(0.01, dtype=torch.float32)
+    dq = torch.stack([torch.cos(half), 0 * half, 0 * half, torch.sin(half)])
+
+    def drive_terrain(path, res, accel):
+        """One terrain path through MadronaRenderer; every view of world 0
+        must change each step. Returns the renderer, the step times, the
+        launch counts, the constructor's time and the variant's name."""
+        cfg = scenes.binned_terrain_config(TERRAIN_WORLDS, res, res)
+        reset_counts()
+        t0 = time.perf_counter()
+        r = m.MadronaRenderer(0, TERRAIN_WORLDS, m.RenderMode.Raytracer, res, res,
+                              accel=accel, **scenes.renderer_kwargs(cfg))
+        torch.cuda.synchronize()
+        ctor_s = time.perf_counter() - t0
+        rot = r.instance_rotation_tensor().to_torch()
+        step_s = []
+        for i in range(WARMUP_STEPS + TIMED_STEPS):
+            depth0 = r.depth_tensor().to_torch()[0].clone()
+            rot.copy_(quat_normalize(quat_multiply(dq, rot)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.step()
+            torch.cuda.synchronize()
+            if i >= WARMUP_STEPS:
+                step_s.append(time.perf_counter() - t0)
+            if torch.equal(depth0, r.depth_tensor().to_torch()[0]):
+                raise AssertionError(f"{path} step {i}: the turned terrain did not change")
+        counts = dict(rc.render_resident.variant_launches, **rc.shade_mip.variant_launches,
+                      **pack_cuda.pack_rows.layout_launches)
+        steps = 1 + WARMUP_STEPS + TIMED_STEPS
+        name = variant(path_inputs(r))
+        expected = dict.fromkeys(kernel_names, 0)
+        expected.update({name: steps, "pack_rows": steps})
+        if counts != expected:
+            raise AssertionError(f"{path}: launches {counts} in {steps} steps, "
+                                 f"expected {expected}")
+        return r, step_s, counts, ctor_s, name
+
+    def binning(r, res, bin_tile):
+        """The binned prologue's own work on the renderer's state: the bins
+        (order, membership, compaction), the 8-row spans, and the row sort
+        with the row gather; their device times (CUDA events back to back,
+        and the profiler's kernel time) and bytes."""
+        state, scene = r.state, r.scene
+        eff_fov = torch.where(state.camera_fov > 0, state.camera_fov, r.cfg.fov_y_degrees)
+        cl_lo, cl_hi, cl_valid, _ = rc.world_clusters(state, scene)
+        views, CC = TERRAIN_WORLDS, int(cl_valid.shape[1])
+        tx = -(-res // bin_tile)
+
+        def bins():
+            order = rc.camera_cluster_order(cl_lo, cl_hi, cl_valid, state.camera_pos)
+            rc.camera_cluster_rowspans(cl_lo, cl_hi, cl_valid, state, eff_fov, res, g_rows=8)
+            return rc.band_cluster_bins(cl_lo, cl_hi, cl_valid, state, eff_fov, res, res,
+                                        tx * tx, tx, bin_tile, bin_tile, order=order)
+
+        rows = pack_cuda.pack_rows(state, scene, state.camera_pos[:, 0, :])
+
+        def row_sort():
+            from madrona_renderer_tpu_torch.ops.raytrace_ref import planar_soup_parts
+            p = planar_soup_parts(state, scene, what="geo")
+            planes = [tuple(x.reshape(views, -1) for x in p[k]) for k in ("v0", "e1", "e2")]
+            perm, lo, hi = rc.cluster_row_sort(*planes, p["valid"].reshape(views, -1), state,
+                                               eff_fov, res, rows.shape[2] // CC, 8,
+                                               -(-res // 8))
+            rc.row_sorted(rows, perm)
+            return torch.stack([lo, hi], dim=-1)
+
+        b, rg = bins(), row_sort()
+        return {"bin_tile": bin_tile, "bins_bytes": b.numel() * 4, "ranges_bytes": rg.numel() * 4,
+                "bins_ms": cuda_ms(bins, 5), "bins_device_ms": device_ms(bins),
+                "row_sort_ms": cuda_ms(row_sort, 5), "row_sort_device_ms": device_ms(row_sort)}
+
+    terrain_timing = []
+    for path, res, accel in TERRAIN_PATHS:
+        r, step_s, counts, ctor_s, name = drive_terrain(path, res, accel)
+        if name != "render_binned":
+            raise AssertionError(f"{path}: the terrain took {name}, not the binned route")
+        add_launches(counts)
+        kw = path_inputs(r)
+        k4 = rc.render_resident(**kw)
+        exported = (r.depth_tensor().to_torch(), r.segmask_tensor().to_torch(),
+                    r.rgb_tensor().to_torch().contiguous().view(torch.int32).squeeze(-1))
+        if not all(torch.equal(k, e) for k, e in zip(k4, exported)):
+            raise AssertionError(f"{path}: K4 on the last step's inputs differs from the exports")
+        if not torch.isfinite(exported[0]).all() or not bool((exported[0] > 0).any()):
+            raise AssertionError(f"{path}: depth not finite or empty")
+        # K4 against K5 on the same state, bitwise; at 128² against the
+        # plain version too (the index-order sweep: 20-70 s at 256² and 512²).
+        kw5 = path_inputs(r, accel="clusters")
+        k5 = rc.render_resident(**kw5)
+        same = all(torch.equal(x, y) for x, y in zip(k4, k5))
+        emit({"phase": "k4_vs_k5", "case": path, "kernel": name, "bitwise": same})
+        if not same:
+            raise AssertionError(f"{path}: K4 differs from K5 at full size")
+        check_pack(path, r.state, r.scene, r.state.camera_pos[:, 0, :])
+        if res == 128:
+            check_render(path, kw)
+        walk = walks(kw)
+        if not (torch.equal(walk["depth"], exported[0]) and torch.equal(walk["segmask"], exported[1])):
+            raise AssertionError(f"{path}: the replayed binned walk differs from the exports")
+        cost = binning(r, res, kw["bin_tile"])
+        step_dev = device_ms(r.step)
+        work = {k: v for k, v in walk.items() if k not in ("depth", "segmask")}
+        extra = {"accel": accel, "route": name, "tris_per_world": int(kw["rows"].shape[2]),
+                 "clusters_per_world": int(kw["clusters"].shape[2]), **cost,
+                 "step_device_ms": step_dev,
+                 "k4_ms": graph_ms(lambda: rc.render_resident(**kw), KERNEL_REPS),
+                 "k5_ms": graph_ms(lambda: rc.render_resident(**kw5), KERNEL_REPS // 10),
+                 **work}
+        if res == 128:
+            timing_kw[name] = kw
+        terrain_timing.append((path, res, kw, kw5))
+        # The A/B: the same steps through the ordered walk (K5).
+        r5, step5, counts5, _, name5 = drive_terrain(path + "_clusters", res, "clusters")
+        add_launches(counts5)
+        extra.update(clusters_route=name5,
+                     clusters_step_ms_median=statistics.median(step5) * 1e3,
+                     clusters_step_ms_min=min(step5) * 1e3,
+                     clusters_step_ms_max=max(step5) * 1e3)
+        del r5
+        time_path(path, r, step_s, counts, ctor_s, extra)
+        del r, k4, k5
+        torch.cuda.empty_cache()
+
     # ---- timings of every kernel at its path's full-size inputs --------- #
     def k13_row(layout, state, scene):
         cam = state.camera_pos[:, 0, :].contiguous() if layout == "pack_rows" else None
@@ -1614,17 +1893,25 @@ def main() -> int:
         work = {"triangle_visits": n_visits, "shadow_triangle_visits": shadow_visits}
         return k1_bound(kw, n_visits, shadow_visits), work
 
-    def render_row(name, kw):
-        (bound_ms, bound_by, nbytes, ops), work = bound_of(kw)
+    def render_row(name, kw, plain=True, bound=True):
+        """A render variant's timing line; ``plain`` and ``bound`` False leave
+        out the plain version's time and the replayed walk (None), for the
+        terrain at 256² and 512², where the index-order sweep takes 20-70 s,
+        and for K5 on the terrain, whose walk's replay takes minutes."""
+        (bound_ms, bound_by, nbytes, ops), work = (
+            bound_of(kw) if bound else ((None, None, None, None), {}))
+        reps = KERNEL_REPS if binned(kw) or not streamed(kw) or bound else KERNEL_REPS // 10
         return {
             "name": name, "route": "cuda",
-            "source": "madrona_renderer_tpu_torch/csrc/render_resident.cu",
+            "source": "madrona_renderer_tpu_torch/csrc/" + (
+                "render_binned.cu" if binned(kw) else "render_resident.cu"),
             "replaces": "madrona_renderer_tpu/ops/raytrace_pallas.py:4872",
             "launches": launches[name], "max_abs_err": max_err[name],
-            "ms": graph_ms(lambda: rc.render_resident(**kw), KERNEL_REPS),
-            "wrapper_ms": cuda_ms(lambda: rc.render_resident(**kw), KERNEL_REPS),
-            "plain_ms": cuda_ms(lambda: rc.render_resident_plain(**kw),
-                                1 if streamed(kw) else 2),
+            "ms": graph_ms(lambda: rc.render_resident(**kw), reps),
+            "wrapper_ms": cuda_ms(lambda: rc.render_resident(**kw), reps),
+            "plain_ms": (cuda_ms(lambda: rc.render_resident_plain(**kw), 1, warm=False)
+                         if streamed(kw) else cuda_ms(
+                             lambda: rc.render_resident_plain(**kw), 2)) if plain else None,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "views": int(kw["cams"].shape[0]), **work, "bytes": nbytes, "ops": ops,
         }
@@ -1647,7 +1934,8 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": max_err[name],
             "ms": graph_ms(lambda: handoff(kw), KERNEL_REPS),
             "wrapper_ms": cuda_ms(lambda: handoff(kw), KERNEL_REPS),
-            "plain_ms": cuda_ms(lambda: handoff(kw, plain=True), 1 if streamed(kw) else 2),
+            "plain_ms": (cuda_ms(lambda: handoff(kw, plain=True), 1, warm=False)
+                         if streamed(kw) else cuda_ms(lambda: handoff(kw, plain=True), 2)),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "views": int(kw["cams"].shape[0]), **work, "bytes": nbytes, "ops": ops,
         }
@@ -1697,7 +1985,7 @@ def main() -> int:
     for layout in pack_cuda.LAYOUTS:
         rows.append(k13_row(layout, *timing_kw[layout]))
         emit({"phase": "timing", **rows[-1]})
-    for name in rc.VARIANTS:
+    for name in rc.VARIANTS + rc.BINNED_VARIANTS:
         kw = timing_kw[name]
         rows.append(handoff_row(name, kw) if is_k7(kw) else render_row(name, kw))
         emit({"phase": "timing", **rows[-1]})
@@ -1709,6 +1997,14 @@ def main() -> int:
     for name, path, inputs in extra_timing:
         row = k13_row(name, *inputs) if name in pack_cuda.LAYOUTS else render_row(name, inputs)
         emit({"phase": "timing", "inputs": path, **row})
+    # K4 on the larger terrain paths and K5 on each (the tool's A/B), on the
+    # same inputs; K5's walk is not replayed there (minutes at these sizes).
+    for path, res, kw, kw5 in terrain_timing:
+        if res != 128:
+            emit({"phase": "timing", "inputs": path,
+                  **render_row(variant(kw), kw, plain=False)})
+        emit({"phase": "timing", "inputs": path,
+              **render_row(variant(kw5), kw5, plain=False, bound=False)})
 
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). Libraries land in ``build/torch_kernels/`` at the
 root of a source checkout, or in a per-user cache directory for an
-installed package (``cache_root``), named by a hash of the source and the
-flags, so an edited source or flag rebuilds and an unchanged one loads at
-once. Nothing is built when this module is imported: the first call that
+installed package (``cache_root``), named by a hash of the source, the
+sources it includes (``csrc/render_binned.cu`` includes
+``csrc/render_resident.cu``) and the flags, so an edited source or flag
+rebuilds and an unchanged one loads at once. Nothing is built when this module is imported: the first call that
 launches a kernel builds it. The sources ship in the package
 (``pyproject.toml``'s package data).
 
@@ -22,6 +23,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -71,6 +73,19 @@ SIGNATURES = {
          _I, _I, _I,  # raster tex_filter geo
          _P],  # stream
     ),
+    "render_binned": (
+        "mrt_render_binned",
+        [_P, _P, _P, _P, _P,  # rows clusters cams mats pool
+         _I,  # n_mats
+         _P, _P, _P,  # depth seg rgb
+         _P, _P,  # code handoff (the mip hand-off)
+         _P, _P, _P,  # bins spans ranges
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
+         _F, _F,  # two_over_w two_over_h
+         _I, _I, _I,  # raster tex_filter geo
+         _I, _I, _I, _I,  # bins_x bin_shift n_bins n_bands
+         _P],  # stream
+    ),
     "shade_mip": (
         "mrt_shade_mip",
         [_P] * 6  # code handoff cams table pool rgb
@@ -104,10 +119,18 @@ def _nvcc() -> str:
     )
 
 
+def _source_bytes(src: Path) -> bytes:
+    """The source and, in order, the ``csrc`` files it includes."""
+    data = src.read_bytes()
+    for inc in re.findall(rb'^#include "([^"]+)"', data, flags=re.M):
+        data += b"\0" + _source_bytes(CSRC / inc.decode())
+    return data
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+        _source_bytes(src) + "\0".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -218,6 +218,11 @@ class ManagerConfig:
     # exceeds the kernel's resident budget). The reference's hardware
     # samplers mip implicitly (src/mgr.cpp:352-354).
     mipmaps: "bool | str" = "auto"
+    # The streamed route's cluster visit (port only; the JAX package's
+    # Manager always takes "auto"): "auto", "clusters" (the ordered walk,
+    # K3 + K5) or "binned" (the tile-binned visit, K4); resident scenes
+    # render through K1 whatever it says.
+    accel: str = "auto"
     # Supersampled antialiasing: render each view at ssaa x resolution
     # and box-filter rgb back down. 1 = off (reference behavior: one ray
     # per pixel); more is ROADMAP Queue 1 item 13.

@@ -1,0 +1,109 @@
+// K4: the tile-binned visit of the streamed route, the render kernel's body
+// (csrc/render_resident.cu, included below, with its variant dispatch) in
+// its binned mode, with its own entry point, route and C interface in this
+// translation unit, which builds beside render_resident.cu's.
+//
+// Replaces madrona_renderer_tpu/ops/raytrace_pallas.py::_render_kernel in its
+// binned variant on 2D tiles with per-band triangle ranges (binned,
+// tri_ranges, tri_tie: :1796-1800, :2222-2660, :2681-2691; the bins
+// :4762-4810), launched at :4872. Per (view, 16x16 block) the kernel walks
+// the bin of the bin tile the block lies in (bins [W*C, n_bins, 1 + CC]:
+// the count, then the cluster ids front to back, raytrace_cuda.
+// band_cluster_bins at a square tile of 16 * 2^bin_shift pixels that blocks
+// share) instead of the view's whole visit order: the same gates as the
+// ordered walk (the occlusion early exit, the row gate on the clusters'
+// 8-row-band spans, the slab test with its tie slack) and the same
+// cp.async double buffer. The cluster table and the spans are read from
+// device memory (each gate's reads are the same word for every thread: a
+// broadcast), so a block's shared memory is the two stage buffers and the
+// camera row, whatever the cluster count.
+//
+// On prep rows (one camera per world, no shadows) the rows are row-sorted
+// per cluster (raytrace_cuda.cluster_row_sort / row_sorted: geometry rows
+// 0-9 permuted, row 10 the original index) and the block's two 8-row bands
+// (warps 0-3 and 4-7, so a band's gates are warp-uniform) each sweep only
+// the sorted lanes [lo, hi) of their image band (ranges [W, CC, n_bands]),
+// where the cluster's span touches the band; exact-t ties go to the lower
+// original index (t < best_t || t == best_t && gi < best_gi), so the frames
+// are the index-order sweep's (raytrace_cuda.render_resident_plain), bit
+// for bit. The winner's (u, v) is recomputed from its sorted lane's prep
+// rows and its attributes and segmask read at its original index. On raw
+// rows (more cameras, shadows, the watertight decision) there are no
+// ranges: a visited cluster's valid prefix is swept, as on the ordered walk.
+//
+// Bound on an H100: the walk's work (positions gated, slab tests, the
+// triangle tests of the swept lanes) at about 27 FP32 operations per prep
+// test; chip_smoke.py counts them from ops/walk_replay.binned_walk for its
+// inputs. The design is the simple one: the walk's gates take two block
+// barriers each, as on the ordered walk.
+
+#define MRT_RENDER_BODY_ONLY
+#include "render_resident.cu"
+
+namespace {
+
+template <int GEO, bool RASTER, int TEX>
+__global__ void __launch_bounds__(kThreads)
+render_binned_kernel(const RenderArgs a, const BinArgs b) {
+  render_body<GEO, RASTER, TEX, true, true>(a, StreamArgs{nullptr, nullptr}, b);
+}
+
+// K4's launch of one variant: the streamed grid, and shared memory for the
+// two stage buffers and the camera row.
+struct BinnedRoute {
+  template <int GEO, bool RASTER, int TEX>
+  static int run(const RenderArgs& a, const BinArgs& b, int num_views,
+                 cudaStream_t stream) {
+    const int tiles_y = (a.height + kTileY - 1) / kTileY;
+    const dim3 grid(num_views, a.tiles_x * tiles_y);
+    const dim3 block(kTileX, kTileY);
+    const size_t smem =
+        sizeof(float) * ((size_t)2 * binned_stage_rows<GEO>() * a.cluster_size + a.n_cols);
+    const int err = set_smem(render_binned_kernel<GEO, RASTER, TEX>, smem);
+    if (err != 0) return err;
+    render_binned_kernel<GEO, RASTER, TEX><<<grid, block, smem, stream>>>(a, b);
+    return (int)cudaGetLastError();
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// Launches the binned variant (geo, raster, tex_filter) on `stream`, on the
+// caller's current device, with mrt_render_resident's arguments but for the
+// visit: bins, spans (8-row bands) and, with prep rows (geo 0) and only
+// then, ranges; the bin of block (bx, by) is
+// (by >> bin_shift) * bins_x + (bx >> bin_shift) of n_bins a view, and
+// ranges hold n_bands bands a cluster. rows, cluster_size and S must keep
+// every cluster's rows 16-byte aligned. Returns cudaGetLastError() after
+// the launch (0 on success), or cudaErrorInvalidValue for an unknown variant
+// or a missing input.
+int mrt_render_binned(const float* rows, const float* clusters, const float* cams,
+                      const float* mats, const int* pool, int n_mats, float* depth,
+                      int* segmask, uint32_t* rgb, int* code, float* handoff,
+                      const int* bins, const int* spans, const int* ranges,
+                      int num_views, int num_cams, int S, int CC, int cluster_size,
+                      int n_cols, int n_lights, int height, int width, int seg_div,
+                      float two_over_w, float two_over_h, int raster, int tex_filter,
+                      int geo, int bins_x, int bin_shift, int n_bins, int n_bands,
+                      void* stream) {
+  const RenderArgs a = render_args(rows, clusters, cams, mats, pool, n_mats, depth,
+                                   segmask, rgb, code, handoff, num_cams, S, CC,
+                                   cluster_size, n_cols, n_lights, height, width,
+                                   seg_div, two_over_w, two_over_h, tex_filter);
+  if (bins == nullptr || spans == nullptr || (ranges == nullptr) != (geo != kGeoPrep))
+    return (int)cudaErrorInvalidValue;
+  if (cluster_size % 4 != 0 || S % 4 != 0 || ((uintptr_t)rows & 15) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const BinArgs b{bins, spans, reinterpret_cast<const int2*>(ranges), bins_x, bin_shift,
+                  n_bins, n_bands};
+  return launch_variant<BinnedRoute>(a, b, num_views, geo, raster, tex_filter,
+                                     (cudaStream_t)stream);
+}
+
+const char* mrt_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -154,6 +154,24 @@
 // launch order: on bigmesh_512w that ran 6% faster than a grid that keeps
 // a view's tiles together for L2 reuse of its clusters
 // (port_tools/stream_grid_ab.py).
+//
+// The binned visit (K4, BINNED, built by csrc/render_binned.cu, which
+// includes this file for the body and has its own entry point, so this
+// file's entries keep their code): the same walk over the bin of the bin
+// tile the block lies in (raytrace_cuda.band_cluster_bins), its cluster ids
+// front to back, instead of the view's whole order. The walk's pointers to
+// the order, the spans (at 8-row bands) and the cluster table point into
+// device memory (every thread of a gate reads the same word), so the
+// block's shared memory is the two stage buffers and the camera row. On
+// prep rows the staged rows are row-sorted (row 10: the original index gi);
+// each of the block's two 8-row bands (threads row-major: warps 0-3 and
+// 4-7, so its gates are warp-uniform) sweeps, where the cluster's span
+// touches the band, only the sorted lanes [lo, hi) of its image band
+// (raytrace_cuda.cluster_row_sort), ties to the lower gi
+// (t < best_t || t == best_t && gi < best_gi); the resolve reads the
+// winner's prep rows at its sorted lane and its attributes at gi. A band
+// below the image sweeps nothing and starts at best_t = 0, so it never
+// holds the walk open.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -174,6 +192,7 @@ constexpr int kAttr0 = 16;      // first attribute row
 constexpr int kClRows = 8;
 constexpr int kCamLight0 = 17;  // first light column of a camera row
 constexpr int kCamFarZ = 16;    // z-space far clip (raster)
+constexpr int kBandRows = 8;    // the binned route's sweep bands: two a block
 
 // Geometry rows and shadows (the GEO template parameter).
 constexpr int kGeoPrep = 0;
@@ -526,6 +545,15 @@ struct StreamArgs {
   const int* spans;  // [W*C, 2, CC] pixel-row span (lo, hi) of each cluster
 };
 
+// The binned route's inputs (K4, csrc/render_binned.cu): the entry point's
+// second parameter.
+struct BinArgs {
+  const int* bins;     // [W*C, n_bins, 1 + CC]: count, then the ids front to back
+  const int* spans;    // [W*C, 2, CC] pixel-row spans at 8-row bands
+  const int2* ranges;  // prep: [W, CC, n_bands] sorted-local (lo, hi) per band
+  int bins_x, bin_shift, n_bins, n_bands;  // bin = (by >> shift) * bins_x + (bx >> shift)
+};
+
 template <int GEO>
 __host__ __device__ constexpr int smem_geo_rows() {
   // prep: D, A, Q, t_num; raw: v0, e1, e2 and the hoisted tv, q, t_num;
@@ -534,15 +562,27 @@ __host__ __device__ constexpr int smem_geo_rows() {
                          : (GEO >= kGeoRawWt ? kWtRows : kRawRows + kHoistRows);
 }
 
+// Rows a staged cluster holds on the binned route: the ordered walk's, and
+// on prep rows the original index (row 10) too.
+template <int GEO>
+__host__ __device__ constexpr int binned_stage_rows() {
+  return GEO == kGeoPrep ? kPrepRows + 1 : smem_geo_rows<GEO>();
+}
+
 // The render kernel's body. STREAM false: the resident route (the world's
 // geometry rows in shared memory, clusters in index order); true: the
-// streamed route (see the header).
-template <int GEO, bool RASTER, int TEX, bool STREAM>
+// streamed route (see the header), with BINNED its binned visit (K4: the
+// walk below reads the bin, the cluster table and the spans in device
+// memory where the ordered walk reads its shared copies).
+template <int GEO, bool RASTER, int TEX, bool STREAM, bool BINNED = false>
 __device__ __forceinline__ void render_body(const RenderArgs& a,
-                                            const StreamArgs& st) {
+                                            const StreamArgs& st,
+                                            const BinArgs& bn = BinArgs{}) {
   constexpr bool RAW = GEO != kGeoPrep;
   constexpr bool SHADOWS = GEO == kGeoRawShadows || GEO == kGeoRawWtShadows;
   constexpr bool WT = GEO >= kGeoRawWt;
+  // The binned visit on prep rows: row-sorted rows and triangle ranges.
+  constexpr bool RANGED = BINNED && GEO == kGeoPrep;
   const int S = a.S, CC = a.CC;
   extern __shared__ __align__(16) float smem[];
   // Resident: [smem_geo_rows, S]; streamed: two staged clusters, each
@@ -561,11 +601,26 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
   const float* g_rows = a.rows + (size_t)world * kPackRows * S;
   const float* g_cl = a.clusters + (size_t)world * kClRows * CC;
   const float* g_cam = a.cams + (size_t)view * a.n_cols;
-  constexpr int kLoadRows = WT ? kWtRows : (RAW ? kRawRows : kPrepRows);
+  constexpr int kLoadRows =
+      WT ? kWtRows : (RAW ? kRawRows : (RANGED ? kPrepRows + 1 : kPrepRows));
+  if constexpr (BINNED) {
+    // K4: shared memory holds the two stage buffers and the camera row; the
+    // cluster table, the bin of the block's bin tile (count, then ids) and
+    // the 8-row-band spans are read in device memory through the pointers
+    // the ordered walk reads its shared copies by.
+    const int bx = blockIdx.y % a.tiles_x, by = blockIdx.y / a.tiles_x;
+    const int bin = (by >> bn.bin_shift) * bn.bins_x + (bx >> bn.bin_shift);
+    s_cam = s_geo + 2 * binned_stage_rows<GEO>() * a.cluster_size;
+    s_cl = const_cast<float*>(g_cl);
+    s_order = const_cast<int*>(bn.bins + ((size_t)view * bn.n_bins + bin) * (1 + CC) + 1);
+    s_span = const_cast<int*>(bn.spans + (size_t)view * 2 * CC);
+  }
   if constexpr (!STREAM && !WT) {
     for (int i = tid; i < kLoadRows * S; i += kThreads) s_geo[i] = g_rows[i];
   }
-  for (int i = tid; i < kClRows * CC; i += kThreads) s_cl[i] = g_cl[i];
+  if constexpr (!BINNED) {
+    for (int i = tid; i < kClRows * CC; i += kThreads) s_cl[i] = g_cl[i];
+  }
   for (int i = tid; i < a.n_cols; i += kThreads) s_cam[i] = g_cam[i];
   if constexpr (!STREAM && WT) {
     // K10's per-(view, triangle) terms (:1393-1402), once per block:
@@ -614,7 +669,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
         s_h[6 * S + i] = e2x * qx + e2y * qy + e2z * qz;
       }
     }
-  } else {
+  } else if constexpr (!BINNED) {
     const int* g_order = st.order + (size_t)view * CC;
     const int* g_span = st.spans + (size_t)view * 2 * CC;
     for (int i = tid; i < CC; i += kThreads) s_order[i] = g_order[i];
@@ -660,6 +715,9 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
   // raw sweep carries the winner's (u, v) as well (:1461-1467).
   float best_t = far, best_u = 0.f, best_v = 0.f;
   int best_idx = -1;
+  // RANGED: the winner's sorted lane (its geometry rows), best_idx its
+  // original index (its attributes, the tie rule, the segmask).
+  [[maybe_unused]] int best_lane = -1;
   // The rows the resolve reads: resident in shared memory, streamed in
   // global memory (the same [rows, S] layout); K10's raw rows are in global
   // memory (its block holds a, b, c).
@@ -678,6 +736,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
   const int cs = a.cluster_size;
   float* buf0 = s_geo;  // streamed: the two staged clusters
   float* buf1 = s_geo + smem_geo_rows<GEO>() * cs;
+  if constexpr (BINNED) buf1 = s_geo + binned_stage_rows<GEO>() * cs;
   if constexpr (!STREAM) {
     // The resident sweep keeps its own copy of the slab and prep tests
     // (slab() and prep_test() compute the same expressions): ptxas's
@@ -846,7 +905,45 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
         }
       }
     };
-    walk_clusters(CC, buf0, buf1, gate, stage, visit);
+    if constexpr (!BINNED) {
+      walk_clusters(CC, buf0, buf1, gate, stage, visit);
+    } else if constexpr (!RANGED) {
+      // K4 on raw rows: the bin's clusters (s_order[-1] of them) through
+      // the ordered walk's gate and sweep.
+      walk_clusters(s_order[-1], buf0, buf1, gate, stage, visit);
+    } else {
+      // K4 on prep rows, row-sorted: warps 0-3 sweep the block's first
+      // 8-row band, warps 4-7 its second, each only where the cluster's
+      // span touches the band and only the sorted lanes [lo, hi) of the
+      // band's image band; row 10 holds each lane's original index, the
+      // exact-tie rule's. A band below the image sweeps nothing and starts
+      // at 0, so it never holds the walk open (:2245-2257).
+      const int band_row0 = row0 + (threadIdx.y / kBandRows) * kBandRows;
+      const int gband = band_row0 / kBandRows;
+      const bool band_in = gband < bn.n_bands;
+      if (!band_in) best_t = 0.f;
+      const int2* g_range = bn.ranges + (size_t)world * CC * bn.n_bands + gband;
+      auto visit_r = [&](int p, float* buf) {
+        const int c = s_order[p];
+        if (!band_in || s_span[c] > band_row0 + kBandRows - 1 ||
+            s_span[CC + c] < band_row0)
+          return;
+        const int2 r = g_range[(size_t)c * bn.n_bands];
+        for (int k = r.x; k < r.y; ++k) {
+          float u, v, t;
+          prep_test(dx, dy, dz, buf + k, cs, u, v, t);
+          const int gi = (int)buf[kPrepRows * cs + k];
+          const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
+                          (t > t_lo) && ((t < best_t) || (t == best_t && gi < best_idx));
+          if (ok) {
+            best_t = t;
+            best_idx = gi;
+            best_lane = c * cs + k;
+          }
+        }
+      };
+      walk_clusters(s_order[-1], buf0, buf1, gate, stage, visit_r);
+    }
   }
 
   const bool inside = px < a.width && py < a.height;
@@ -883,6 +980,13 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
     } else if (RAW) {
       uc = clip01(best_u);
       vc = clip01(best_v);
+    } else if constexpr (RANGED) {
+      // The winner's prep rows sit at its sorted lane.
+      const int jr = best_lane;
+      const float det = dx * g0[jr] + dy * g1[jr] + dz * g2[jr];
+      const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+      uc = clip01((dx * g3[jr] + dy * g4[jr] + dz * g5[jr]) * inv);
+      vc = clip01((dx * g6[jr] + dy * g7[jr] + dz * g8[jr]) * inv);
     } else {
       const float det = dx * g0[j] + dy * g1[j] + dz * g2[j];
       const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
@@ -1082,53 +1186,108 @@ int set_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int GEO, bool RASTER, int TEX>
-int launch(const RenderArgs& a, const StreamArgs& s, int num_views,
-           cudaStream_t stream) {
-  const int tiles_y = (a.height + kTileY - 1) / kTileY;
-  const dim3 grid(num_views, a.tiles_x * tiles_y);
-  const dim3 block(kTileX, kTileY);
-  if (s.order == nullptr) {
-    const size_t smem = sizeof(float) * ((size_t)smem_geo_rows<GEO>() * a.S +
-                                         (size_t)kClRows * a.CC + a.n_cols);
-    const int err = set_smem(render_resident_kernel<GEO, RASTER, TEX>, smem);
-    if (err != 0) return err;
-    render_resident_kernel<GEO, RASTER, TEX><<<grid, block, smem, stream>>>(a);
-  } else {
-    const size_t smem =
-        sizeof(float) * ((size_t)2 * smem_geo_rows<GEO>() * a.cluster_size +
-                         (size_t)kClRows * a.CC + a.n_cols) +
-        sizeof(int) * 3 * (size_t)a.CC;
-    const int err = set_smem(render_streamed_kernel<GEO, RASTER, TEX>, smem);
-    if (err != 0) return err;
-    render_streamed_kernel<GEO, RASTER, TEX><<<grid, block, smem, stream>>>(a, s);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <int GEO, bool RASTER>
-int launch_tex(const RenderArgs& a, const StreamArgs& s, int num_views,
-               int tex_filter, cudaStream_t stream) {
+// The variant dispatch of the C entries, this file's and
+// csrc/render_binned.cu's: Route::run<GEO, RASTER, TEX>(a, x, num_views,
+// stream) launches one instantiation with the route's own entry argument x
+// (StreamArgs here, BinArgs there).
+template <class Route, int GEO, bool RASTER, class Extra>
+int launch_tex(const RenderArgs& a, const Extra& x, int num_views, int tex_filter,
+               cudaStream_t stream) {
   switch (tex_filter) {
-    case kTexNone: return launch<GEO, RASTER, kTexNone>(a, s, num_views, stream);
+    case kTexNone:
+      return Route::template run<GEO, RASTER, kTexNone>(a, x, num_views, stream);
     case kTexNearest:
-      return launch<GEO, RASTER, kTexNearest>(a, s, num_views, stream);
+      return Route::template run<GEO, RASTER, kTexNearest>(a, x, num_views, stream);
     case kTexBilinear:
-      return launch<GEO, RASTER, kTexBilinear>(a, s, num_views, stream);
-    case kTexMip: return launch<GEO, RASTER, kTexMip>(a, s, num_views, stream);
+      return Route::template run<GEO, RASTER, kTexBilinear>(a, x, num_views, stream);
+    case kTexMip:
+      return Route::template run<GEO, RASTER, kTexMip>(a, x, num_views, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <int GEO>
-int launch_raster(const RenderArgs& a, const StreamArgs& s, int num_views,
-                  int raster, int tex_filter, cudaStream_t stream) {
-  return raster ? launch_tex<GEO, true>(a, s, num_views, tex_filter, stream)
-                : launch_tex<GEO, false>(a, s, num_views, tex_filter, stream);
+template <class Route, int GEO, class Extra>
+int launch_raster(const RenderArgs& a, const Extra& x, int num_views, int raster,
+                  int tex_filter, cudaStream_t stream) {
+  return raster ? launch_tex<Route, GEO, true>(a, x, num_views, tex_filter, stream)
+                : launch_tex<Route, GEO, false>(a, x, num_views, tex_filter, stream);
 }
+
+template <class Route, class Extra>
+int launch_variant(const RenderArgs& a, const Extra& x, int num_views, int geo,
+                   int raster, int tex_filter, cudaStream_t stream) {
+  if ((geo == kGeoRawShadows || geo == kGeoRawWtShadows) && a.n_lights > 32)
+    return (int)cudaErrorInvalidValue;
+  switch (geo) {
+    case kGeoPrep:
+      return launch_raster<Route, kGeoPrep>(a, x, num_views, raster, tex_filter, stream);
+    case kGeoRaw:
+      return launch_raster<Route, kGeoRaw>(a, x, num_views, raster, tex_filter, stream);
+    case kGeoRawShadows:
+      return launch_raster<Route, kGeoRawShadows>(a, x, num_views, raster, tex_filter,
+                                                  stream);
+    case kGeoRawWt:
+      return launch_raster<Route, kGeoRawWt>(a, x, num_views, raster, tex_filter, stream);
+    case kGeoRawWtShadows:
+      return launch_raster<Route, kGeoRawWtShadows>(a, x, num_views, raster, tex_filter,
+                                                    stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The C entries' argument block; the mip hand-off's two outputs take the
+// texture inputs' slots.
+RenderArgs render_args(const float* rows, const float* clusters, const float* cams,
+                       const float* mats, const int* pool, int n_mats, float* depth,
+                       int* segmask, uint32_t* rgb, int* code, float* handoff,
+                       int num_cams, int S, int CC, int cluster_size, int n_cols,
+                       int n_lights, int height, int width, int seg_div,
+                       float two_over_w, float two_over_h, int tex_filter) {
+  RenderArgs a{rows, clusters, cams, {mats}, {pool}, depth, segmask, rgb,
+               n_mats, num_cams, S, CC, cluster_size, n_cols, n_lights,
+               height, width, (width + kTileX - 1) / kTileX, seg_div,
+               two_over_w, two_over_h};
+  if (tex_filter == kTexMip) {
+    a.handoff = handoff;
+    a.code = code;
+  }
+  return a;
+}
+
+// csrc/render_binned.cu includes this file for the above and brings its own
+// entry point, route and C interface.
+#ifndef MRT_RENDER_BODY_ONLY
+// The resident route, or with s.order the streamed route's ordered visit.
+struct ResidentRoute {
+  template <int GEO, bool RASTER, int TEX>
+  static int run(const RenderArgs& a, const StreamArgs& s, int num_views,
+                 cudaStream_t stream) {
+    const int tiles_y = (a.height + kTileY - 1) / kTileY;
+    const dim3 grid(num_views, a.tiles_x * tiles_y);
+    const dim3 block(kTileX, kTileY);
+    if (s.order == nullptr) {
+      const size_t smem = sizeof(float) * ((size_t)smem_geo_rows<GEO>() * a.S +
+                                           (size_t)kClRows * a.CC + a.n_cols);
+      const int err = set_smem(render_resident_kernel<GEO, RASTER, TEX>, smem);
+      if (err != 0) return err;
+      render_resident_kernel<GEO, RASTER, TEX><<<grid, block, smem, stream>>>(a);
+    } else {
+      const size_t smem =
+          sizeof(float) * ((size_t)2 * smem_geo_rows<GEO>() * a.cluster_size +
+                           (size_t)kClRows * a.CC + a.n_cols) +
+          sizeof(int) * 3 * (size_t)a.CC;
+      const int err = set_smem(render_streamed_kernel<GEO, RASTER, TEX>, smem);
+      if (err != 0) return err;
+      render_streamed_kernel<GEO, RASTER, TEX><<<grid, block, smem, stream>>>(a, s);
+    }
+    return (int)cudaGetLastError();
+  }
+};
+#endif  // MRT_RENDER_BODY_ONLY
 
 }  // namespace
 
+#ifndef MRT_RENDER_BODY_ONLY
 extern "C" {
 
 // Launches the variant (geo, raster, tex_filter) on `stream`, on the
@@ -1151,35 +1310,16 @@ int mrt_render_resident(const float* rows, const float* clusters,
                         int width, int seg_div, float two_over_w,
                         float two_over_h, int raster, int tex_filter, int geo,
                         void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  RenderArgs a{rows, clusters, cams, {mats}, {pool}, depth, segmask, rgb,
-               n_mats, num_cams, S, CC, cluster_size, n_cols, n_lights,
-               height, width, (width + kTileX - 1) / kTileX, seg_div,
-               two_over_w, two_over_h};
-  if (tex_filter == kTexMip) {
-    a.handoff = handoff;
-    a.code = code;
-  }
-  if ((geo == kGeoRawShadows || geo == kGeoRawWtShadows) && n_lights > 32)
-    return (int)cudaErrorInvalidValue;
+  const RenderArgs a = render_args(rows, clusters, cams, mats, pool, n_mats, depth,
+                                   segmask, rgb, code, handoff, num_cams, S, CC,
+                                   cluster_size, n_cols, n_lights, height, width,
+                                   seg_div, two_over_w, two_over_h, tex_filter);
   if ((order == nullptr) != (spans == nullptr)) return (int)cudaErrorInvalidValue;
   if (order != nullptr &&
       (cluster_size % 4 != 0 || S % 4 != 0 || ((uintptr_t)rows & 15) != 0))
     return (int)cudaErrorMisalignedAddress;
-  const StreamArgs s{order, spans};
-  switch (geo) {
-    case kGeoPrep:
-      return launch_raster<kGeoPrep>(a, s, num_views, raster, tex_filter, st);
-    case kGeoRaw:
-      return launch_raster<kGeoRaw>(a, s, num_views, raster, tex_filter, st);
-    case kGeoRawShadows:
-      return launch_raster<kGeoRawShadows>(a, s, num_views, raster, tex_filter, st);
-    case kGeoRawWt:
-      return launch_raster<kGeoRawWt>(a, s, num_views, raster, tex_filter, st);
-    case kGeoRawWtShadows:
-      return launch_raster<kGeoRawWtShadows>(a, s, num_views, raster, tex_filter, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch_variant<ResidentRoute>(a, StreamArgs{order, spans}, num_views, geo,
+                                       raster, tex_filter, (cudaStream_t)stream);
 }
 
 const char* mrt_error_string(int err) {
@@ -1187,3 +1327,4 @@ const char* mrt_error_string(int err) {
 }
 
 }  // extern "C"
+#endif  // MRT_RENDER_BODY_ONLY

@@ -129,6 +129,7 @@ class Manager:
             rcfg.instances, rcfg.cameras, rcfg.worlds, self.device
         )
         raytrace_cuda.check_supported(self.state, self.scene, cfg.texture_filter)
+        raytrace_cuda.check_accel(cfg.accel)
 
         # --- Flat export index maps (world-major, matching the reference's
         # cross-world-concatenated export columns, src/sim.cpp:113-119) ---
@@ -203,6 +204,7 @@ class Manager:
             texture_filter=cfg.texture_filter,
             shadows=bool(cfg.shadows),
             watertight=bool(cfg.watertight),
+            accel=cfg.accel,
         )
         cam_w, cam_slot = self._t_cam_w, self._t_cam_slot
 

@@ -48,3 +48,30 @@ def quat_rotate_planar(qw, qx, qy, qz, vx, vy, vz):
     uuvy = qz * ax - qx * az
     uuvz = qx * ay - qy * ax
     return (vx + 2.0 * uuvx, vy + 2.0 * uuvy, vz + 2.0 * uuvz)
+
+
+def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Normalize quaternion(s) ``[..., 4]`` to unit length: the squares
+    summed w, x, y, z in that order, the square root correctly rounded (in
+    f64, then to f32: torch's CPU ``sqrt`` is not everywhere), as the JAX
+    package's on the CPU and the card's IEEE ``sqrt`` give."""
+    s = q * q
+    n2 = ((s[..., 0:1] + s[..., 1:2]) + s[..., 2:3]) + s[..., 3:4]
+    n = torch.sqrt(n2.double()).to(q.dtype)
+    return q / torch.clamp_min(n, eps)
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product ``a*b`` of quaternions ``[..., 4]`` (w,x,y,z), each
+    component summed left to right as the JAX package writes it."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )

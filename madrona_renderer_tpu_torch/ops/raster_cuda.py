@@ -22,7 +22,7 @@ def rasterize(state: SimState, scene: SceneData, *, height: int, width: int,
               near: float = 0.001, far: float = 1000.0,
               fov_y_degrees: float = 90.0,
               texture_filter: str = "nearest", shadows: bool = False,
-              watertight: bool = False) -> Frames:
+              watertight: bool = False, accel: str = "auto") -> Frames:
     """Raster-convention rendering → padded ``Frames``: depth is
     camera-plane z (0 on a miss or past ``far``), segmask is -1 everywhere,
     invalid camera slots render black. With ``shadows`` the shadow rays
@@ -30,9 +30,11 @@ def rasterize(state: SimState, scene: SceneData, *, height: int, width: int,
     mip chains the mip level reads t too, and the window clamp keys on the
     geometric hit, before the far clip (the JAX ``raster_ref.py:108-123``).
     ``watertight`` passes through to the shared kernel's Woop decision, as
-    in the JAX ``raster_pallas.py:79-92``."""
+    in the JAX ``raster_pallas.py:79-92``; ``accel`` picks the streamed
+    route's visit, as in ``raytrace_cuda.render_core``."""
     return frames_from_core(state, *render_core(
         state, scene, height=height, width=width, near=near, far=far,
         fov_y_degrees=fov_y_degrees, raster=True,
         texture_filter=texture_filter, shadows=shadows, watertight=watertight,
+        accel=accel,
     ))

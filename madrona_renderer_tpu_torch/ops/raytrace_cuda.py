@@ -1,5 +1,5 @@
 """Batch raytracer: the render prologue, then kernel K1 (K1-raw, K8, K10,
-K2, K6, K7), or on meshes past the resident budget K3 + K5.
+K2, K6, K7), or on meshes past the resident budget K3 + K5 or K4.
 
 The port of the main path of the JAX package's ``ops/raytrace_pallas.py``
 (``render_core``, :3998) for what its flags resolve to on scenes that fit
@@ -38,17 +38,32 @@ samples), in the raytrace or the raster conventions (``raster_clip``, K2).
 
 Meshes past the resident budget (``is_streamed``: 32·S·4 bytes > 384 KB,
 the JAX package's ``dma_tris``, :4265-4266, whatever the cluster count)
-take the streamed route: the prologue adds each view's front-to-back
-cluster order (``camera_cluster_order``, K3's visit order) and its
-clusters' pixel-row spans (``camera_cluster_rowspans`` at the kernel's
-16-row blocks), and the kernel walks that order with the occlusion early
-exit, streaming each visited cluster's rows from device memory (K5). Exact-t
-ties go to the lower triangle index on both routes, so the order changes
-only the work: the frames are the index-order sweep's
-(``render_resident_plain``). Where the JAX package would bin clusters per
-2D tile instead (``binned``: 4 or more TPU tiles, e.g. 128×128 and larger
-views), the port still walks the ordered list: the frames are the same,
-and the binned visit (K4) is the next slice of ROADMAP item 8.
+take the streamed route, with one of two visits (``visit_route``):
+  * ordered (K3 + K5): the prologue adds each view's front-to-back cluster
+    order (``camera_cluster_order``) and its clusters' pixel-row spans
+    (``camera_cluster_rowspans`` at the kernel's 16-row blocks); each block
+    walks the order with the occlusion early exit, streaming each visited
+    cluster's rows from device memory, its shared memory holding the
+    cluster table, order and spans;
+  * binned (K4, ``csrc/render_binned.cu``), where the JAX ``render_core``
+    bins (``accel="binned"``, or ``"auto"`` with 64 or more clusters and 4
+    or more TPU tiles: 128×128 views and up) and wherever the ordered
+    walk's table would overflow a block's shared memory: the prologue adds
+    per-tile bins (``band_cluster_bins``: the view's order with each bin
+    tile's non-members taken out; the bin tile a square of 16·2^k pixels,
+    ``bin_tile_for``) and spans at 8-row bands; each block walks its bin
+    tile's bin with the ordered walk's gates, reading the cluster table in
+    device memory. On prep rows each cluster's triangles are row-sorted
+    (``cluster_row_sort``, ``row_sorted``: row 10 holds the original index)
+    and each of the block's two 8-row bands (warps 0-3, 4-7) sweeps only
+    its triangle range (``ranges``); exact ties go to the lower original
+    index (``gi``), and the winner's attributes are read at it. The kernel
+    takes the binned inputs as its own entry point's arguments, so the
+    ordered route's entries keep their code.
+Exact-t ties go to the lower triangle index on every route, so the visit
+changes only the work: the frames are the index-order sweep's
+(``render_resident_plain``, which puts row-sorted rows back in order
+first).
 
 Scenes outside these paths raise ``NotImplementedError`` naming the ROADMAP
 item that ports them (``check_supported``).
@@ -116,6 +131,16 @@ _MAX_SMEM = 227 * 1024
 # (the JAX kernel's), the slab test's on t (a tie must not be culled).
 _F_EXIT_SLACK = float(np.float32(0.998))
 _F_SLAB_SLACK = float(np.float32(0.999))
+# The binned route (K4): each 16x16 block sweeps two bands of 8 rows (warps
+# 0-3 and 4-7), its row spans and triangle ranges at 8-row bands. Its bins
+# are dense [W·C, bins, 1 + CC] i32, at most _BIN_ENTRIES entries (128 MB):
+# the JAX package's dense-bin budget (render_core :4279), which also gates
+# its auto-binning with at least 64 clusters a world and 4 TPU tiles.
+_BAND = 8
+_BIN_ENTRIES = 1 << 25
+_AUTO_BIN_MIN_CLUSTERS = 64
+_AUTO_BIN_MIN_TILES = 4
+ACCELS = ("auto", "clusters", "binned")
 
 
 def _cam_valid_col(n_lights: int) -> int:
@@ -148,6 +173,56 @@ def streamed_smem_bytes(n_clusters: int, cluster_size: int, n_lights: int) -> in
     """Shared memory a block of the streamed route takes."""
     return 4 * (2 * _STAGE_ROWS * cluster_size + 11 * n_clusters
                 + _n_cam_cols(n_lights))
+
+
+def check_accel(accel: str) -> None:
+    """``accel`` is one of ``ACCELS``; the JAX package's ``"none"`` and
+    ``"mxu"`` raise ``NotImplementedError``, any other value ``ValueError``."""
+    if accel in ("none", "mxu"):
+        raise NotImplementedError(
+            f"accel={accel!r} (the non-culled sweep K1-none, the matmul kernel "
+            "K12) is not ported yet — ROADMAP Queue 1 #3"
+        )
+    if accel not in ACCELS:
+        raise ValueError(f"accel must be one of {ACCELS}, got {accel!r}")
+
+
+def visit_route(state: SimState, scene: SceneData, height: int, width: int,
+                accel: str = "auto"):
+    """The kernel's cluster visit: None on resident scenes (K1, whatever
+    ``accel`` says), else ``"binned"`` (K4) or ``"ordered"`` (K3 + K5).
+    ``render_core``'s ``binned`` (:4272-4280), evaluated on the TPU tiling
+    (``mips.tile_geometry``) so that the port bins the scenes the JAX package
+    bins: ``accel="binned"``, or ``"auto"`` with at least 64 clusters a world,
+    4 TPU tiles and at most 2^25 dense bin entries. A cluster table too large
+    for the ordered route's shared memory takes the binned route too."""
+    check_accel(accel)
+    if not is_streamed(state, scene):
+        return None
+    n_cl = state.max_instances * int(scene.cl_valid.shape[1])
+    size = scene.tris_per_object // int(scene.cl_valid.shape[1])
+    views = int(state.camera_pos.shape[0]) * state.max_cameras
+    n_tiles = mips.tile_geometry(height, width)[2]
+    binned = accel == "binned" or (
+        accel == "auto" and n_cl >= _AUTO_BIN_MIN_CLUSTERS
+        and n_tiles >= _AUTO_BIN_MIN_TILES
+        and views * n_tiles * (n_cl + 1) <= _BIN_ENTRIES)
+    if streamed_smem_bytes(n_cl, size, int(scene.light_dir.shape[0])) > _MAX_SMEM:
+        binned = True
+    return "binned" if binned else "ordered"
+
+
+def bin_tile_for(num_views: int, height: int, width: int, n_clusters: int) -> int:
+    """The binned route's bin tile: the smallest square of 16·2^k pixels
+    (blocks share the bin of the tile they lie in) whose dense bins
+    ``[views, bins, 1 + CC]`` hold at most 2^25 entries (128 MB), the JAX
+    package's dense-bin budget: 16 px for 32 views of the 3,136-cluster
+    terrain at 128² and 256², 32 px at 512²."""
+    tile = _TILE
+    while (tile < max(height, width) and num_views * -(-height // tile)
+           * -(-width // tile) * (1 + n_clusters) > _BIN_ENTRIES):
+        tile *= 2
+    return tile
 
 
 def check_supported(state: SimState, scene: SceneData,
@@ -186,16 +261,6 @@ def check_supported(state: SimState, scene: SceneData,
                 f"({shade.TEX_MAX_TEXELS} texels, {shade.TEX_MAX_MATERIALS} "
                 "materials); the 9-output route with the shading epilogue is "
                 "not ported yet — ROADMAP Queue 1 item 6"
-            )
-    if is_streamed(state, scene):
-        n_cl = state.max_instances * int(scene.cl_valid.shape[1])
-        size = scene.tris_per_object // int(scene.cl_valid.shape[1])
-        need = streamed_smem_bytes(n_cl, size, int(scene.light_dir.shape[0]))
-        if need > _MAX_SMEM:
-            raise NotImplementedError(
-                f"{n_cl} clusters per world need {need} bytes of shared memory "
-                f"on the streamed route (at most {_MAX_SMEM}); a cluster table "
-                "read from device memory is ROADMAP Queue 1 item 8"
             )
 
 
@@ -381,6 +446,54 @@ def camera_cluster_order(cl_lo, cl_hi, cl_valid, cam_pos) -> torch.Tensor:
     return order.reshape(W * C, CC)
 
 
+def _tan_half_fov(eff_fov):
+    return torch.tan(eff_fov * float(np.float32(np.pi / 180)) * 0.5)
+
+
+def _corner_dots(cl_lo, cl_hi, state: SimState, axes) -> list:
+    """Each cluster AABB corner relative to each camera, dotted with the
+    camera's local axes ``axes`` (0 right, 1 forward, 2 up): a list of
+    ``[W, C, CC, 8]`` tensors, the three terms summed x, y, z in that order
+    (the JAX einsums on the CPU)."""
+    dev = cl_lo.device
+    picks = torch.tensor(
+        [[x, y, z] for x in (0, 1) for y in (0, 1) for z in (0, 1)],
+        dtype=torch.float32, device=dev,
+    )
+    corners = cl_lo[:, :, None, :] * (1 - picks) + cl_hi[:, :, None, :] * picks
+    rel = corners[:, None] - state.camera_pos[:, :, None, None, :]  # [W, C, CC, 8, 3]
+    basis = torch.eye(3, dtype=torch.float32, device=dev)
+    out = []
+    for k in axes:
+        a = quat_rotate(state.camera_rot, basis[k])[:, :, None, None, :]
+        out.append((rel[..., 0] * a[..., 0] + rel[..., 1] * a[..., 1])
+                   + rel[..., 2] * a[..., 2])
+    return out
+
+
+def _edge_slopes(edges, size: int, sign: float, dev):
+    """The frustum slope factor of each pixel edge (row or column
+    coordinate ``p``): ``sign · (1 - 2 (p + 0.5) / size)``, a Python double
+    rounded once to f32, as the JAX package's weakly typed scalars are."""
+    return torch.tensor([sign * (1.0 - 2.0 * (p + 0.5) / size) for p in edges],
+                        dtype=torch.float32, device=dev)
+
+
+def _plane_bands(d_up, y_f, tan, size: int, step: int, n: int):
+    """Frustum-plane membership of the AABBs (corner dots ``d_up`` along the
+    band axis and ``y_f`` along the view axis, ``[W, C, CC, 8]``) in ``n``
+    bands of ``step`` pixels, padded by 2 px: ``[W, C, CC, n]``, False where
+    every corner lies beyond the band's first edge (its first pixel - 2) or
+    wholly past its last (its last pixel + 2); the test
+    ``d - s·y_f`` against 0 of ``band_cluster_bins`` (:477-528)."""
+    dev = y_f.device
+    s_lo = _edge_slopes([k * step - 2.0 for k in range(n)], size, 1.0, dev) * tan[..., None]
+    s_hi = _edge_slopes([(k + 1) * step + 1.0 for k in range(n)], size, 1.0, dev) * tan[..., None]
+    before = (d_up[..., None] - s_lo * y_f[..., None]).amin(-2) > 0.0
+    past = (d_up[..., None] - s_hi * y_f[..., None]).amax(-2) < 0.0
+    return ~before & ~past
+
+
 def camera_cluster_rowspans(cl_lo, cl_hi, cl_valid, state: SimState, eff_fov,
                             height: int, g_rows: int = 0) -> torch.Tensor:
     """Per-(view, cluster) conservative image pixel-row span, int32
@@ -394,24 +507,8 @@ def camera_cluster_rowspans(cl_lo, cl_hi, cl_valid, state: SimState, eff_fov,
     W, CC = cl_valid.shape
     C = state.camera_pos.shape[1]
     dev = cl_lo.device
-    picks = torch.tensor(
-        [[x, y, z] for x in (0, 1) for y in (0, 1) for z in (0, 1)],
-        dtype=torch.float32, device=dev,
-    )
-    corners = cl_lo[:, :, None, :] * (1 - picks) + cl_hi[:, :, None, :] * picks
-    rot = state.camera_rot
-    fwd = quat_rotate(rot, torch.tensor([0.0, 1.0, 0.0], device=dev))
-    up = quat_rotate(rot, torch.tensor([0.0, 0.0, 1.0], device=dev))
-    rel = corners[:, None] - state.camera_pos[:, :, None, None, :]  # [W, C, CC, 8, 3]
-
-    def dot(axis):  # [W, C, 3] → [W, C, CC, 8]
-        a = axis[:, :, None, None, :]
-        return (rel[..., 0] * a[..., 0] + rel[..., 1] * a[..., 1]) + rel[..., 2] * a[..., 2]
-
-    y_f = dot(fwd)
-    z_u = dot(up)
-    deg2rad = float(np.float32(np.pi / 180))
-    tan_y = torch.tan(eff_fov * deg2rad * 0.5)[:, :, None, None]
+    y_f, z_u = _corner_dots(cl_lo, cl_hi, state, (1, 2))
+    tan_y = _tan_half_fov(eff_fov)[:, :, None, None]
     behind_any = (y_f <= _F_EPS_BEHIND).any(-1)
     safe_yf = torch.clamp_min(y_f, _F_EPS_BEHIND)
     py = (1.0 - z_u / (safe_yf * tan_y)) * (height * 0.5) - 0.5
@@ -426,18 +523,10 @@ def camera_cluster_rowspans(cl_lo, cl_hi, cl_valid, state: SimState, eff_fov,
     if g_rows > 0:
         n_bands = -(-height // g_rows)
 
-        def slopes(rows):  # each band edge's slope factor, rounded to f32
-            return torch.tensor([1.0 - 2.0 * (p + 0.5) / height for p in rows],
-                                dtype=torch.float32, device=dev)
-
         # Band k: the AABB lies wholly above its top edge (k·g - 2 px) or
-        # wholly below its bottom edge ((k+1)·g + 1 px); [W, C, CC, 8, K].
+        # wholly below its bottom edge ((k+1)·g + 1 px); [W, C, CC, K].
         ks = torch.arange(n_bands, dtype=torch.int32, device=dev)
-        s_top = slopes([k * g_rows - 2.0 for k in range(n_bands)]) * tan_y[..., None]
-        s_bot = slopes([(k + 1) * g_rows + 1.0 for k in range(n_bands)]) * tan_y[..., None]
-        above = (z_u[..., None] - s_top * y_f[..., None]).amin(-2) > 0.0
-        below = (z_u[..., None] - s_bot * y_f[..., None]).amax(-2) < 0.0
-        touch = ~above & ~below  # [W, C, CC, K]
+        touch = _plane_bands(z_u, y_f, tan_y, height, g_rows, n_bands)
         first = torch.where(touch, ks, n_bands).amin(-1)
         last = torch.where(touch, ks, -1).amax(-1)
         p_lo = torch.clamp_max(first * g_rows, height - 1)
@@ -446,6 +535,156 @@ def camera_cluster_rowspans(cl_lo, cl_hi, cl_valid, state: SimState, eff_fov,
         row_hi = torch.minimum(row_hi, p_hi)
     spans = torch.stack([row_lo, row_hi], dim=2).to(torch.int32)  # [W, C, 2, CC]
     return spans.reshape(W * C, 2, CC)
+
+
+def band_cluster_bins(cl_lo, cl_hi, cl_valid, state: SimState, eff_fov, height: int,
+                      width: int, n_tiles: int, tiles_x: int, tile_sub: int,
+                      tile_cols: int, order=None) -> torch.Tensor:
+    """Per-(view, tile) cluster bins, int32 ``[W·C, n_tiles, 1 + CC]``
+    (``raytrace_pallas.band_cluster_bins``, :407-610, its 2D branch with the
+    frustum-plane tests): tile r = ty · tiles_x + tx owns rows
+    [ty·tile_sub, (ty+1)·tile_sub) and columns [tx·tile_cols,
+    (tx+1)·tile_cols); a valid cluster that is on screen and not wholly
+    behind the camera is in the tile's bin unless its AABB lies wholly
+    outside one of the tile's four frustum planes, padded by 2 px. Entry 0
+    is the count, entries 1..count the members front to back: the view's
+    ``order`` (``camera_cluster_order``, computed when None) with the
+    non-members taken out, a stable partition, so the count and the first
+    count ids are the JAX package's ``argsort(where(member, dist, inf))``;
+    the entries past the count are the rest of the order."""
+    W, CC = cl_valid.shape
+    C = state.camera_pos.shape[1]
+    dev = cl_lo.device
+    x_r, y_f, z_u = _corner_dots(cl_lo, cl_hi, state, (0, 1, 2))
+    tan_y = _tan_half_fov(eff_fov)[:, :, None, None]
+    behind = y_f <= _F_EPS_BEHIND
+    behind_any, behind_all = behind.any(-1), behind.all(-1)
+    straddle = behind_any & ~behind_all
+    py = (1.0 - z_u / (torch.clamp_min(y_f, _F_EPS_BEHIND) * tan_y)) * (height * 0.5) - 0.5
+    ymin = torch.where(straddle, 0.0, py.amin(-1) - 2.0)
+    ymax = torch.where(straddle, float(height), py.amax(-1) + 2.0)
+    ok = (ymax >= 0.0) & (ymin < float(height)) & ~behind_all & (cl_valid[:, None, :] > 0)
+    tiles_y = n_tiles // tiles_x
+    mem_y = _plane_bands(z_u, y_f, tan_y, height, tile_sub, tiles_y) & ok[..., None]
+    # Columns: s(px) = (2 (px + 0.5) / width - 1) · tan_x; a tile drops the
+    # AABB when every corner lies left of its left edge - 2 px or right of
+    # its right edge + 2 px.
+    tan_x = tan_y * (width / height)
+    s_l = _edge_slopes([tx * tile_cols - 2.0 for tx in range(tiles_x)], width, -1.0, dev)
+    s_r = _edge_slopes([(tx + 1) * tile_cols + 1.0 for tx in range(tiles_x)], width, -1.0, dev)
+    left = (x_r[..., None] - (s_l * tan_x[..., None]) * y_f[..., None]).amax(-2) < 0.0
+    right = (x_r[..., None] - (s_r * tan_x[..., None]) * y_f[..., None]).amin(-2) > 0.0
+    mem_x = ~left & ~right  # [W, C, CC, TX]
+    if order is None:
+        order = camera_cluster_order(cl_lo, cl_hi, cl_valid, state.camera_pos)
+    V = W * C
+    idx = order.long()[:, None, :]  # [V, 1, CC]
+    in_y = mem_y.reshape(V, CC, tiles_y).transpose(1, 2).gather(2, idx.expand(V, tiles_y, CC))
+    in_x = mem_x.reshape(V, CC, tiles_x).transpose(1, 2).gather(2, idx.expand(V, tiles_x, CC))
+    member = (in_y[:, :, None, :] & in_x[:, None, :, :]).reshape(V, n_tiles, CC)
+    # The stable partition: a member goes to its rank among the members, a
+    # non-member after all of them at its rank among the rest.
+    rank = torch.cumsum(member, dim=-1, dtype=torch.int32)  # members up to here
+    count = rank[..., -1:]
+    ks = torch.arange(1, CC + 1, dtype=torch.int32, device=dev)
+    dest = torch.where(member, rank - 1, count + ks - rank - 1).long()
+    bins = torch.empty((V, n_tiles, 1 + CC), dtype=torch.int32, device=dev)
+    bins[..., :1] = count
+    bins[..., 1:].scatter_(2, dest, order[:, None, :].expand(V, n_tiles, CC))
+    return bins
+
+
+def cluster_row_sort(v0, e1, e2, valid, state: SimState, eff_fov, height: int,
+                     cluster_size: int, g_rows: int, n_bands: int):
+    """Per-step within-cluster triangle sort by projected image row and the
+    per-(cluster, band) triangle ranges (``raytrace_pallas.cluster_row_sort``,
+    :612-689), from the world soup's planes (``v0``, ``e1``, ``e2``: three
+    ``[W, S]`` planes each, ``valid [W, S]``; ``planar_soup_parts``) and
+    each world's first camera. Returns ``(perm [W, S], lo, hi [W, CC,
+    n_bands])`` int32: ``perm`` maps a sorted lane to the original triangle
+    index, and band b of cluster c needs only its sorted-local triangles
+    [lo, hi): triangles sorted (stably) by their projected first row (the 2 px
+    pad, the full height for one with a vertex at or behind the camera
+    plane, invalid ones last and in no band); hi counts those that start
+    above the band's end, lo those before which every triangle ends above
+    its start (a running maximum)."""
+    W, S = valid.shape
+    n_cl = S // cluster_size
+    dev = valid.device
+    rot = state.camera_rot[:, 0]  # [W, 4]
+    basis = torch.eye(3, dtype=torch.float32, device=dev)
+    fwd = quat_rotate(rot, basis[1])
+    up = quat_rotate(rot, basis[2])
+    cam = state.camera_pos[:, 0]  # [W, 3]
+    tan_y = _tan_half_fov(eff_fov[:, 0])[:, None]  # [W, 1]
+
+    def dot(rel, axis):
+        # The JAX einsum's order on the CPU, fused multiply-adds:
+        # fma(z, az, fma(y, ay, x ax)), each in f64 (where the product of two
+        # f32 is exact) rounded to f32: one fma's result unless the f64 sum
+        # falls on an f32 rounding midpoint.
+        d = rel[0] * axis[:, 0:1]
+        for k in (1, 2):
+            d = (rel[k].double() * axis[:, k:k + 1].double() + d.double()).float()
+        return d
+
+    def rows_of(p):  # three [W, S] planes → (py, y_f)
+        rel = [p[k] - cam[:, k:k + 1] for k in range(3)]
+        y_f = dot(rel, fwd)
+        z_u = dot(rel, up)
+        py = (1.0 - z_u / (torch.clamp_min(y_f, _F_EPS_BEHIND) * tan_y)) * (height * 0.5) - 0.5
+        return py, y_f
+
+    py0, yf0 = rows_of(v0)
+    py1, yf1 = rows_of([v0[k] + e1[k] for k in range(3)])
+    py2, yf2 = rows_of([v0[k] + e2[k] for k in range(3)])
+    straddle = (yf0 <= _F_EPS_BEHIND) | (yf1 <= _F_EPS_BEHIND) | (yf2 <= _F_EPS_BEHIND)
+    pmin = torch.minimum(torch.minimum(py0, py1), py2) - 2.0
+    pmax = torch.maximum(torch.maximum(py0, py1), py2) + 2.0
+    big = float(height * 4 + 8)
+    pmin = torch.where(straddle, -big, pmin)
+    pmax = torch.where(straddle, big, pmax)
+    ok = valid > 0
+    pmin = torch.where(ok, pmin, torch.inf)
+    pmax = torch.where(ok, pmax, -torch.inf)
+    key = pmin.reshape(W, n_cl, cluster_size)
+    local = torch.argsort(key, dim=-1, stable=True)
+    base = torch.arange(n_cl, device=dev)[None, :, None] * cluster_size
+    perm = (local + base).reshape(W, S).to(torch.int32)
+    m_sorted = key.gather(2, local)
+    mx_run = torch.cummax(pmax.reshape(W, n_cl, cluster_size).gather(2, local), dim=2).values
+    # Both are ascending along a cluster: a band's counts are searches.
+    edges = torch.arange(n_bands + 1, device=dev, dtype=torch.float32) * g_rows
+    edges = edges.expand(W, n_cl, n_bands + 1).contiguous()
+    lo = torch.searchsorted(mx_run.contiguous(), edges[..., :-1].contiguous()).to(torch.int32)
+    hi = torch.searchsorted(m_sorted.contiguous(), edges[..., 1:].contiguous()).to(torch.int32)
+    return perm, torch.minimum(lo, hi), hi
+
+
+def row_sorted(rows: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """The binned route's rows (:4504-4522), in place: geometry rows 0-9 of
+    each world gathered by ``perm`` (cluster_row_sort), row 10 the original
+    triangle index of each lane as f32 (exact: S ≤ 2^24); the attribute rows
+    keep the original order. A torch gather after K13 rather than a
+    permutation inside it: K13 stays one layout for both routes, and the
+    gather moves 10 rows once a step."""
+    W, _, S = rows.shape
+    if S > 1 << 24:
+        raise ValueError(f"{S} triangles a world: row 10 holds indices exactly up to 2^24")
+    idx = perm.long()[:, None, :].expand(W, _N_PREP_ROWS, S)
+    rows[:, :_N_PREP_ROWS] = rows[:, :_N_PREP_ROWS].gather(2, idx)
+    rows[:, _N_PREP_ROWS] = perm.to(torch.float32)
+    return rows
+
+
+def _index_order_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Row-sorted rows (``row_sorted``) back in triangle order: geometry
+    rows 0-9 scattered to the index in row 10, row 10 zero again."""
+    W, _, S = rows.shape
+    gi = rows[:, _N_PREP_ROWS].long()[:, None, :].expand(W, _N_PREP_ROWS, S)
+    geo = torch.empty_like(rows[:, :_N_PREP_ROWS]).scatter_(2, gi, rows[:, :_N_PREP_ROWS])
+    pad = torch.zeros_like(rows[:, :1])
+    return torch.cat([geo, pad, rows[:, _N_PREP_ROWS + 1:]], dim=1)
 
 
 def pack_inputs(
@@ -461,6 +700,7 @@ def pack_inputs(
     texture_filter: str = "nearest",
     shadows: bool = False,
     watertight: bool = False,
+    accel: str = "auto",
 ) -> dict:
     """The whole prologue: the kernel's tensors and launch parameters, as
     keyword arguments of ``render_resident`` / ``render_resident_plain``.
@@ -470,9 +710,15 @@ def pack_inputs(
     (``render_core`` :4342-4347, :4425-4436); ``geo`` names the kernel's
     sweep: ``"prep"``, ``"raw"`` or, with ``shadows``, ``"raw_shadows"``,
     and under ``watertight`` ``"raw_wt"`` or ``"raw_wt_shadows"``. On the
-    streamed route ``order`` and ``spans`` are each view's cluster order and
-    row spans, else None."""
+    streamed route (``visit_route``) the ordered visit takes ``order`` and
+    ``spans`` (each view's cluster order and row spans at 16-row bands); the
+    binned visit (K4) takes ``bins`` (``band_cluster_bins`` at the bin tile
+    ``bin_tile``, ``bin_tile_for``'s), ``spans`` at 8-row bands
+    and, on prep rows, ``ranges`` ``[W, CC, bands, 2]`` (each cluster's
+    sorted-local triangle range (lo, hi) per 8-row band) with the rows
+    row-sorted (``row_sorted``); unused entries are None."""
     check_supported(state, scene, texture_filter)
+    route = visit_route(state, scene, height, width, accel)
     # Effective per-camera view parameters (0 = inherit the call defaults).
     eff_fov = torch.where(state.camera_fov > 0, state.camera_fov, fov_y_degrees)
     eff_near = torch.where(state.camera_znear > 0, state.camera_znear, near)
@@ -495,11 +741,28 @@ def pack_inputs(
     cams = _pack_cams(state, scene, width, height, eff_fov, eff_near, far_t, far_z)
     cl_lo, cl_hi, cl_valid, cl_count = world_clusters(state, scene)
     clusters = _pack_clusters(cl_lo, cl_hi, cl_valid, cl_count)
-    order = spans = None
-    if is_streamed(state, scene):
+    order = spans = bins = ranges = bin_tile = None
+    if route is not None:
         order = camera_cluster_order(cl_lo, cl_hi, cl_valid, state.camera_pos)
-        spans = camera_cluster_rowspans(cl_lo, cl_hi, cl_valid, state, eff_fov,
-                                        height, g_rows=_TILE)
+        spans = camera_cluster_rowspans(cl_lo, cl_hi, cl_valid, state, eff_fov, height,
+                                        g_rows=_BAND if route == "binned" else _TILE)
+    if route == "binned":
+        views, CC = order.shape
+        bin_tile = bin_tile_for(views, height, width, CC)
+        tx, ty = -(-width // bin_tile), -(-height // bin_tile)
+        bins = band_cluster_bins(cl_lo, cl_hi, cl_valid, state, eff_fov, height, width,
+                                 tx * ty, tx, bin_tile, bin_tile, order=order)
+        order = None
+        if geo == "prep":
+            p = planar_soup_parts(state, scene, what="geo")
+            W = p["valid"].shape[0]
+            planes = [tuple(x.reshape(W, -1) for x in p[k]) for k in ("v0", "e1", "e2")]
+            perm, lo, hi = cluster_row_sort(
+                *planes, p["valid"].reshape(W, -1), state, eff_fov, height,
+                scene.tris_per_object // int(scene.cl_valid.shape[1]), _BAND,
+                -(-height // _BAND))
+            rows = row_sorted(rows, perm)
+            ranges = torch.stack([lo, hi], dim=-1).contiguous()
     texture = mats = pool = fb_rows = None
     if is_textured(scene):
         texture = texture_filter
@@ -526,6 +789,9 @@ def pack_inputs(
         fb_rows=fb_rows,
         order=order,
         spans=spans,
+        bins=bins,
+        ranges=ranges,
+        bin_tile=bin_tile,
     )
 
 
@@ -533,21 +799,25 @@ def pack_inputs(
 # Kernel K1 (K1-raw, K8, K2, K6, K7's first launch) and its plain version
 # --------------------------------------------------------------------- #
 def variant_name(raster: bool, texture, geo: str = "prep",
-                 streamed: bool = False) -> str:
+                 streamed: bool = False, binned: bool = False) -> str:
     """The name of one instantiation of the render kernel:
-    ``render_resident`` (``render_streamed`` on the streamed route, K3 + K5)
-    plus ``_raw`` (K1-raw), ``_raw_shadows`` (K8), ``_raw_wt`` or
+    ``render_resident`` (``render_streamed`` on the streamed route's ordered
+    visit, K3 + K5; ``render_binned`` on its binned visit, K4) plus ``_raw`` (K1-raw), ``_raw_shadows`` (K8), ``_raw_wt`` or
     ``_raw_wt_shadows`` (K10), ``_raster`` (K2) and
     ``_tex_nearest`` / ``_tex_bilinear`` (K6) or ``_tex_mip`` (the hand-off,
     K7's first launch)."""
-    name = "render_streamed" if streamed else "render_resident"
+    name = "render_binned" if binned else "render_streamed" if streamed else "render_resident"
     name += "" if geo == "prep" else f"_{geo}"
     name += "_raster" if raster else ""
     return name + (f"_tex_{texture}" if texture else "")
 
 
+# csrc/render_resident.cu's entries (resident and ordered) and
+# csrc/render_binned.cu's (K4).
 VARIANTS = tuple(variant_name(r, t, g, st) for st in (False, True) for g in _GEO_CODES
                  for r in (False, True) for t in _TEX_CODES)
+BINNED_VARIANTS = tuple(variant_name(r, t, g, binned=True) for g in _GEO_CODES
+                        for r in (False, True) for t in _TEX_CODES)
 SHADE_MIP_VARIANTS = tuple(f"shade_mip_{f}" for f in shade.MIP_FILTERS)
 
 
@@ -579,13 +849,33 @@ def _check_mip_table(table, fb_rows) -> None:
                          f"got {tuple(table.shape)}")
 
 
-def _check_stream(order, spans, num_views: int, n_clusters: int, device) -> None:
-    if (order is None) != (spans is None):
-        raise ValueError("the streamed route needs both order and spans")
-    if order is None:
+def _check_stream(order, spans, num_views: int, n_clusters: int, device, bins=None,
+                  ranges=None, bin_tile=None, height=0, width=0, rows=None,
+                  geo="prep") -> None:
+    if order is not None and bins is not None:
+        raise ValueError("the streamed route takes order (ordered) or bins (binned), not both")
+    if (order is None and bins is None) != (spans is None):
+        raise ValueError("the streamed route needs both order and spans, or bins and spans")
+    if spans is None:
+        if ranges is not None:
+            raise ValueError("ranges are for the binned route")
         return
-    for name, t, shape in (("order", order, (num_views, n_clusters)),
-                           ("spans", spans, (num_views, 2, n_clusters))):
+    checks = [("spans", spans, (num_views, 2, n_clusters))]
+    if order is not None:
+        checks.append(("order", order, (num_views, n_clusters)))
+        if ranges is not None:
+            raise ValueError("ranges are for the binned route")
+    else:
+        if bin_tile not in tuple(_TILE << k for k in range(16)):
+            raise ValueError(f"bin_tile must be 16·2^k, got {bin_tile!r}")
+        n_bins = -(-height // bin_tile) * -(-width // bin_tile)
+        checks.append(("bins", bins, (num_views, n_bins, 1 + n_clusters)))
+        if (ranges is not None) != (geo == "prep"):
+            raise ValueError("the binned route takes ranges with prep rows and only then")
+        if ranges is not None:
+            checks.append(("ranges", ranges, (rows.shape[0], n_clusters,
+                                              -(-height // _BAND), 2)))
+    for name, t, shape in checks:
         if t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be a contiguous int32 {list(shape)} tensor, "
                              f"got {t.dtype} {tuple(t.shape)}")
@@ -595,7 +885,7 @@ def _check_stream(order, spans, num_views: int, n_clusters: int, device) -> None
 
 def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
                   seg_div, texture, mats, pool, geo, fb_rows=None, order=None,
-                  spans=None) -> None:
+                  spans=None, bins=None, ranges=None, bin_tile=None) -> None:
     if geo not in _GEO_CODES:
         raise ValueError(f"geo must be one of {tuple(_GEO_CODES)}, got {geo!r}")
     if geo == "prep" and num_cams != 1:
@@ -639,13 +929,15 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
         )
     if height < 1 or width < 1 or seg_div < 1:
         raise ValueError(f"bad height/width/seg_div {height}/{width}/{seg_div}")
-    _check_stream(order, spans, W * num_cams, CC, rows.device)
+    _check_stream(order, spans, W * num_cams, CC, rows.device, bins, ranges, bin_tile,
+                  height, width, rows, geo)
 
 
 def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
                     height: int, width: int, seg_div: int, raster: bool = False,
                     texture=None, mats=None, pool=None, geo: str = "prep",
-                    fb_rows=None, order=None, spans=None):
+                    fb_rows=None, order=None, spans=None, bins=None, ranges=None,
+                    bin_tile=None):
     """The render kernel. Returns ``(depth f32, segmask i32, rgb i32-packed)``,
     each ``[W·C, height, width]``, in their final masked form: depth is t
     (raster: camera-plane z), segmask idx // seg_div (raster: -1).
@@ -660,17 +952,21 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
     and the light; ``"raw_wt"`` and ``"raw_wt_shadows"`` decide the primary
     hits by the watertight Woop test (K10). With ``order`` and ``spans``
     (``pack_inputs`` on a mesh past the resident budget) the kernel takes
-    the streamed route.
+    the streamed route's ordered visit; with ``bins``, ``spans``,
+    ``bin_tile`` and on prep rows ``ranges``, its binned visit (K4,
+    ``csrc/render_binned.cu``).
 
-    Tensors on the card launch ``csrc/render_resident.cu`` on their device's
-    current stream; tensors on the CPU run ``render_resident_plain``. Each
-    launch adds one to ``render_resident.launches`` and to its variant's
-    entry of ``render_resident.variant_launches``."""
+    Tensors on the card launch ``csrc/render_resident.cu`` (binned:
+    ``csrc/render_binned.cu``) on their device's current stream; tensors on
+    the CPU run ``render_resident_plain``. Each launch adds one to
+    ``render_resident.launches`` and to its variant's entry of
+    ``render_resident.variant_launches``."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
-                  seg_div, texture, mats, pool, geo, fb_rows, order, spans)
+                  seg_div, texture, mats, pool, geo, fb_rows, order, spans, bins,
+                  ranges, bin_tile)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height,
               width=width, seg_div=seg_div, raster=raster, geo=geo,
-              order=order, spans=spans)
+              order=order, spans=spans, bins=bins, ranges=ranges, bin_tile=bin_tile)
     if rows.device.type == "cpu":
         return render_resident_plain(rows, clusters, cams, texture=texture,
                                      mats=mats, pool=pool, fb_rows=fb_rows, **kw)
@@ -685,7 +981,8 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
 
 def render_handoff(rows, clusters, cams, *, num_cams: int, n_lights: int,
                    height: int, width: int, seg_div: int, raster: bool = False,
-                   geo: str = "prep", order=None, spans=None):
+                   geo: str = "prep", order=None, spans=None, bins=None, ranges=None,
+                   bin_tile=None):
     """K7's first launch: the render kernel in its mip hand-off mode.
     Returns ``(depth, segmask, code, handoff)``: depth and segmask as
     ``render_resident`` writes them, ``code`` i32 ``[W·C, H, Wd]`` (the
@@ -695,10 +992,11 @@ def render_handoff(rows, clusters, cams, *, num_cams: int, n_lights: int,
     ``render_resident``'s ``_tex_mip`` variant), ``render_handoff_plain``
     on the CPU."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
-                  seg_div, None, None, None, geo, None, order, spans)
+                  seg_div, None, None, None, geo, None, order, spans, bins, ranges,
+                  bin_tile)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height,
               width=width, seg_div=seg_div, raster=raster, geo=geo,
-              order=order, spans=spans)
+              order=order, spans=spans, bins=bins, ranges=ranges, bin_tile=bin_tile)
     if rows.device.type == "cpu":
         return render_handoff_plain(rows, clusters, cams, **kw)
     return _launch_render(rows, clusters, cams, texture="mip", **kw)
@@ -706,7 +1004,7 @@ def render_handoff(rows, clusters, cams, *, num_cams: int, n_lights: int,
 
 def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
                    seg_div, raster, texture, geo, mats=None, pool=None,
-                   order=None, spans=None):
+                   order=None, spans=None, bins=None, ranges=None, bin_tile=None):
     if rows.device.type != "cuda":
         raise ValueError(f"render_resident runs on cuda or cpu, not {rows.device}")
     W, _, S = rows.shape
@@ -716,10 +1014,11 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     if tiles > 65535:
         raise ValueError(f"{height}x{width} needs {tiles} tiles; the grid takes 65535")
     streamed = order is not None
+    binned = bins is not None
+    if (streamed or binned) and ((S // CC) % 4 or rows.data_ptr() % 16):
+        raise ValueError("the streamed route copies 16-byte slices: the cluster "
+                         "size must be a multiple of 4 and rows 16-byte aligned")
     if streamed:
-        if (S // CC) % 4 or rows.data_ptr() % 16:
-            raise ValueError("the streamed route copies 16-byte slices: the cluster "
-                             "size must be a multiple of 4 and rows 16-byte aligned")
         smem = streamed_smem_bytes(CC, S // CC, n_lights)
         if smem > _MAX_SMEM:
             raise ValueError(f"{CC} clusters need {smem} bytes of shared memory "
@@ -735,32 +1034,41 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
         handoff = torch.empty((_HANDOFF_PLANES,) + shape, dtype=torch.float32, device=dev)
     else:
         rgb = torch.empty(shape, dtype=torch.int32, device=dev)
-    launch = _build.load("render_resident")
-    with torch.cuda.device(dev):
-        err = launch(
-            rows.data_ptr(), clusters.data_ptr(), cams.data_ptr(),
-            mats.data_ptr() if sampled else None,
-            pool.data_ptr() if sampled else None,
+    # The two C entries share their arguments but for the visit's.
+    head = [rows.data_ptr(), clusters.data_ptr(), cams.data_ptr(),
+            mats.data_ptr() if sampled else None, pool.data_ptr() if sampled else None,
             int(mats.shape[1]) if sampled else 0,
             depth.data_ptr(), seg.data_ptr(), None if mip else rgb.data_ptr(),
-            code.data_ptr() if mip else None, handoff.data_ptr() if mip else None,
-            order.data_ptr() if streamed else None,
-            spans.data_ptr() if streamed else None,
-            WC, num_cams, S, CC, S // CC, int(cams.shape[1]), n_lights,
-            height, width, seg_div,
-            float(np.float32(2.0 / width)), float(np.float32(2.0 / height)),
-            int(raster), _TEX_CODES[texture], _GEO_CODES[geo],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+            code.data_ptr() if mip else None, handoff.data_ptr() if mip else None]
+    params = [WC, num_cams, S, CC, S // CC, int(cams.shape[1]), n_lights,
+              height, width, seg_div,
+              float(np.float32(2.0 / width)), float(np.float32(2.0 / height)),
+              int(raster), _TEX_CODES[texture], _GEO_CODES[geo]]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if binned:
+        kernel = "render_binned"
+        visit = [bins.data_ptr(), spans.data_ptr(),
+                 ranges.data_ptr() if ranges is not None else None]
+        tail = [-(-width // bin_tile), bin_tile.bit_length() - _TILE.bit_length(),
+                int(bins.shape[1]), -(-height // _BAND), stream]
+    else:
+        kernel = "render_resident"
+        visit = [order.data_ptr() if streamed else None,
+                 spans.data_ptr() if streamed else None]
+        tail = [stream]
+    launch = _build.load(kernel)
+    with torch.cuda.device(dev):
+        err = launch(*head, *visit, *params, *tail)
     if err != 0:
-        raise RuntimeError(f"render_resident launch failed: {launch.error_string(err)}")
+        raise RuntimeError(f"{kernel} launch failed: {launch.error_string(err)}")
     render_resident.launches += 1
-    render_resident.variant_launches[variant_name(raster, texture, geo, streamed)] += 1
+    render_resident.variant_launches[
+        variant_name(raster, texture, geo, streamed, binned)] += 1
     return (depth, seg, code, handoff) if mip else (depth, seg, rgb)
 
 
 render_resident.launches = 0
-render_resident.variant_launches = dict.fromkeys(VARIANTS, 0)
+render_resident.variant_launches = dict.fromkeys(VARIANTS + BINNED_VARIANTS, 0)
 
 
 # --------------------------------------------------------------------- #
@@ -943,7 +1251,8 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
                           n_lights: int, height: int, width: int,
                           seg_div: int, raster: bool = False, texture=None,
                           mats=None, pool=None, geo: str = "prep",
-                          fb_rows=None, order=None, spans=None):
+                          fb_rows=None, order=None, spans=None, bins=None,
+                          ranges=None, bin_tile=None):
     """The kernel in torch ops, on any device: the same expressions in the
     same order, with no cluster cull (the culls only skip work). A loop over
     the S triangles in ascending chunks carries (best_t, best_idx) — and on
@@ -953,9 +1262,13 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
     with shadows, a loop over the S triangles per light ORs the occlusion.
     With ``fb_rows`` (K7):
     ``render_handoff_plain``, then ``shade_mip_plain``. It is the plain
-    version of both routes: the streamed route's visit order and culls only
-    skip work, and exact ties go to the lower index on both."""
-    del clusters, order, spans  # the plain version sweeps every triangle
+    version of every route: the streamed route's visit order, bins and culls
+    only skip work, and exact ties go to the lower index on all. Row-sorted
+    rows (the binned route's ``ranges``) are put back in triangle order
+    first."""
+    del clusters, order, spans, bins, bin_tile  # the plain version sweeps every triangle
+    if ranges is not None:
+        rows = _index_order_rows(rows)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height, width=width,
               seg_div=seg_div, raster=raster, geo=geo)
     if fb_rows is None:
@@ -970,9 +1283,11 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
 def render_handoff_plain(rows, clusters, cams, *, num_cams: int, n_lights: int,
                          height: int, width: int, seg_div: int,
                          raster: bool = False, geo: str = "prep", order=None,
-                         spans=None):
+                         spans=None, bins=None, ranges=None, bin_tile=None):
     """``render_handoff`` in torch ops, on any device."""
-    del clusters, order, spans  # the plain version sweeps every triangle
+    del clusters, order, spans, bins, bin_tile  # the plain version sweeps every triangle
+    if ranges is not None:
+        rows = _index_order_rows(rows)
     return _render_plain(rows, cams, num_cams=num_cams, n_lights=n_lights,
                          height=height, width=width, seg_div=seg_div,
                          raster=raster, texture="mip", geo=geo)
@@ -1124,13 +1439,17 @@ def render_core(state: SimState, scene: SceneData, *, height: int, width: int,
                 near: float = 0.1, far: float = 1000.0,
                 fov_y_degrees: float = 90.0, raster: bool = False,
                 texture_filter: str = "nearest", shadows: bool = False,
-                watertight: bool = False):
+                watertight: bool = False, accel: str = "auto"):
     """Prologue + kernel (or its plain version on the CPU). Returns
-    ``(depth, segmask, rgb_packed)``, each ``[W·C, height, width]``."""
+    ``(depth, segmask, rgb_packed)``, each ``[W·C, height, width]``.
+    ``accel`` (``"auto"``, ``"clusters"`` or ``"binned"``) picks the streamed
+    route's visit (``visit_route``); resident scenes render through K1
+    whatever it says, with the same frames (the resident ordered and binned
+    visits are not ported yet)."""
     kw = pack_inputs(state, scene, height=height, width=width, near=near,
                      far=far, fov_y_degrees=fov_y_degrees, raster=raster,
                      texture_filter=texture_filter, shadows=shadows,
-                     watertight=watertight)
+                     watertight=watertight, accel=accel)
     return render_resident(**kw)
 
 
@@ -1149,14 +1468,14 @@ def raytrace(state: SimState, scene: SceneData, *, height: int, width: int,
              near: float = 0.1, far: float = 1000.0,
              fov_y_degrees: float = 90.0,
              texture_filter: str = "nearest", shadows: bool = False,
-             watertight: bool = False) -> Frames:
+             watertight: bool = False, accel: str = "auto") -> Frames:
     """Render every (world, camera) view → padded ``Frames``; invalid
     camera slots render black/0/-1; ``shadows`` casts one shadow ray per
     (pixel, light); ``watertight`` decides hits by the crack-free Woop test
-    (``ops/watertight.py``). The counterpart of ``raytrace_pallas.raytrace``
-    / ``raytrace_ref.raytrace``."""
+    (``ops/watertight.py``); ``accel`` as in ``render_core``. The
+    counterpart of ``raytrace_pallas.raytrace`` / ``raytrace_ref.raytrace``."""
     return frames_from_core(state, *render_core(
         state, scene, height=height, width=width, near=near, far=far,
         fov_y_degrees=fov_y_degrees, texture_filter=texture_filter,
-        shadows=shadows, watertight=watertight,
+        shadows=shadows, watertight=watertight, accel=accel,
     ))

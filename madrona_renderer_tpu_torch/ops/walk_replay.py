@@ -145,29 +145,197 @@ def streamed_walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights
         best_idx = torch.where(take, gi, best_idx)
 
     if geo in rc._SHADOW_GEOS:
-        t_hit = torch.where(best_idx >= 0, best_t, 0.0)
-        h = tuple(o[k] + t_hit * d[k] for k in range(3))
-        eps = rc._F_SHADOW_EPS * (1.0 + t_hit)
-        h4 = tuple(x[:, :, None] for x in h)
-        all_c = torch.arange(CC, device=dev)
-        for li in range(n_lights):
-            c0 = rc._CAM_LIGHT0 + 6 * li
-            sd = tuple(-cam(c0 + k) for k in range(3))
-            inv_s = tuple(_inverse(x) for x in sd)
-            occ = torch.zeros_like(best_t, dtype=torch.bool)
-            for c in range(CC):
-                g = [cl[:, k, c, None, None] for k in range(8)]
-                tmin, tmax = _slab(g, h, inv_s)
-                visit = ((tmax >= tmin) & (tmax > 0) & ~occ).any(-1) & (g[6][:, :, 0] > 0)
-                if not bool(visit.any()):
-                    continue
-                cnt = cl[:, 7, c].long()
-                n["shadow_cluster_visits"] += int(visit.sum())
-                n["shadow_triangle_visits"] += int((visit.sum(1) * cnt).sum())
-                streamed.index_put_((world, all_c[c].expand(V)), visit.sum(1), accumulate=True)
-                ok, _ = _cluster_tests(rows_v, all_c[c].expand(V), cs, cnt,
-                                       tuple(x[..., None] for x in sd), eps[:, :, None], h4)
-                occ = occ | (ok & visit[:, :, None, None]).any(2)
+        _shadow_walk(cl, cams, world, d, o, best_t, best_idx, rows_v, cs, n_lights,
+                     streamed, n)
+    return _results(best_t, best_idx, world, S, seg_div, height, width, streamed, n)
+
+
+def binned_walk(rows, clusters, cams, bins, spans, ranges=None, *, bin_tile: int,
+                num_cams: int, n_lights: int, height: int, width: int, seg_div: int,
+                raster: bool = False, geo: str = "prep", chunk: int = 2048, **_):
+    """Replay the binned kernel's walk (K4, ``csrc/render_binned.cu``) on
+    ``pack_inputs``'s tensors: each 16x16 block walks the bin of the
+    ``bin_tile`` square it lies in, front to back, with the ordered walk's
+    early exit, row gate (8-row spans) and slab test; on prep rows each of
+    its two 8-row bands (rows 0-7 and 8-15 of the block) then sweeps the
+    sorted lanes [lo, hi) of its image band where the cluster's span touches
+    the band (a band below the image sweeps nothing and starts its best t at
+    0), taking exact ties by the original index in row 10; on raw rows the
+    whole valid prefix. Returns what ``streamed_walk`` returns, with
+    ``triangle_visits`` counted per band on prep rows (``sweep_threads``:
+    the threads that test each, 128 on prep rows, 256 on raw rows), and
+    ``stops`` (blocks that stopped at the early exit), ``bin_entries`` (the
+    bin entries some block reads: per (view, bin) the count and the
+    positions its furthest block reached) and ``band_reads`` (the
+    (visit, band) ranges read). Visiting blocks are swept ``chunk`` at a
+    time."""
+    V = cams.shape[0]
+    W, _, S = rows.shape
+    CC = clusters.shape[2]
+    cs = S // CC
+    dev = cams.device
+    hp, wp = -(-height // _T) * _T, -(-width // _T) * _T
+    ty, tx = hp // _T, wp // _T
+    nt = ty * tx
+    world = torch.arange(V, device=dev) // num_cams
+    cl = clusters[world]  # [V, 8, CC]
+    ranged = ranges is not None
+    n_rows = rc._N_PREP_ROWS + (1 if ranged else 0)
+    n_bands = -(-height // rc._BAND)
+
+    def blocks(x):  # [V, hp·wp] → [V, nt, 256], block-major
+        return x.reshape(V, ty, _T, tx, _T).permute(0, 1, 3, 2, 4).reshape(V, nt, _T * _T)
+
+    d = tuple(blocks(x) for x in rc.plain_rays(cams, height, width, hp, wp))
+    inv = tuple(_inverse(x) for x in d)
+
+    def cam(k):  # [V, 1, 1]
+        return cams[:, k, None, None]
+
+    o = (cam(0), cam(1), cam(2))
+    near, far = cam(14), cam(15)
+    t_lo = near.expand(V, nt, _T * _T)
+    if raster:
+        cosf = d[0] * cam(6) + d[1] * cam(7) + d[2] * cam(8)
+        t_lo = near / torch.clamp_min(cosf, rc._F_COS_FLOOR)
+    raw = geo != "prep"
+    wt = geo in rc._WATERTIGHT_GEOS
+    best_t = far.expand(V, nt, _T * _T).clone()
+    best_idx = torch.full_like(best_t, -1, dtype=torch.int64)
+    blk = torch.arange(nt, device=dev)
+    row0 = (blk // tx * _T)[None, :]
+    thread_band = torch.arange(_T * _T, device=dev) // (_T * rc._BAND)  # 0 or 1
+    gband = (blk // tx * 2)[:, None] + thread_band[None, :]  # [nt, 256]
+    if ranged:
+        best_t = torch.where(gband[None] < n_bands, best_t, 0.0)
+    shift = bin_tile.bit_length() - _T.bit_length()
+    bin_of = (blk // tx >> shift) * -(-width // bin_tile) + (blk % tx >> shift)
+    blk_bins = bins[:, bin_of]  # [V, nt, 1 + CC]
+    count = blk_bins[:, :, 0]
+    done = torch.zeros((V, nt), dtype=torch.bool, device=dev)
+    streamed = torch.zeros((W, CC), dtype=torch.int64, device=dev)
+    lanes = torch.arange(cs, device=dev)
+    geo_rows = torch.arange(n_rows, device=dev)
+    n = dict(gated=0, slab_tests=0, cluster_visits=0, triangle_visits=0,
+             shadow_cluster_visits=0, shadow_triangle_visits=0, stops=0, band_reads=0,
+             sweep_threads=_T * rc._BAND if ranged else _T * _T)
+    reached = torch.zeros((V, nt), dtype=torch.int64, device=dev)
+    for p in range(int(count.max()) if count.numel() else 0):
+        active = ~done & (p < count)
+        if not bool(active.any()):
+            break
+        reached = torch.where(active, p + 1, reached)
+        c = blk_bins[:, :, 1 + p].long().clamp(0, CC - 1)  # [V, nt]
+        g = cl.gather(2, c[:, None, :].expand(V, 8, nt))  # [V, 8, nt]
+        a = [torch.clamp_min(torch.maximum(g[:, k] - cams[:, k, None],
+                                           cams[:, k, None] - g[:, 3 + k]), 0.0)
+             for k in range(3)]
+        d2 = (a[0] * a[0] + a[1] * a[1]) + a[2] * a[2]  # [V, nt]
+        live = (best_t * best_t > (d2 * rc._F_EXIT_SLACK)[..., None]).any(-1)
+        done = done | (active & ~live)
+        n["stops"] += int((active & ~live).sum())
+        act = active & live
+        n["gated"] += int(act.sum())
+        s_lo, s_hi = spans[:, 0].gather(1, c), spans[:, 1].gather(1, c)
+        act = act & ~((s_lo > row0 + _T - 1) | (s_hi < row0))
+        n["slab_tests"] += int(act.sum())
+        gv = [g[:, k, :, None] for k in range(8)]
+        tmin, tmax = _slab(gv, o, inv)
+        possible = (tmax >= tmin) & (tmax > near) & (tmin * rc._F_SLAB_SLACK < best_t)
+        visit = act & possible.any(-1)
+        if not bool(visit.any()):
+            continue
+        n["cluster_visits"] += int(visit.sum())
+        for vb in torch.nonzero(visit).split(chunk):
+            v, b = vb[:, 0], vb[:, 1]
+            cv, wv = c[v, b], world[v]
+            streamed.index_put_((wv, cv), torch.ones_like(cv), accumulate=True)
+            lane_g = cv[:, None] * cs + lanes  # [m, cs]
+            tri = rows[wv[:, None, None], geo_rows[None, :, None], lane_g[:, None, :]]
+            dirs = tuple(x[v, b][:, None, :] for x in d)  # [m, 1, 256]
+            if ranged:
+                gb = gband[b]  # [m, 256]
+                band_rows = gb * rc._BAND
+                touch = (gb < n_bands) & (s_lo[v, b][:, None] <= band_rows + rc._BAND - 1) \
+                    & (s_hi[v, b][:, None] >= band_rows)
+                rg = ranges[wv[:, None], cv[:, None], gb.clamp_max(n_bands - 1)]  # [m, 256, 2]
+                lo = torch.where(touch, rg[..., 0], 0)
+                hi = torch.where(touch, rg[..., 1], 0)
+                sweep = (lanes[None, :, None] >= lo[:, None, :]) & (lanes[None, :, None] < hi[:, None, :])
+                per_band = (hi - lo)[:, :: _T * rc._BAND]  # [m, 2]: each band's lanes
+                n["triangle_visits"] += int(per_band.sum())
+                n["band_reads"] += int(touch[:, :: _T * rc._BAND].sum())
+                gi = tri[:, rc._N_PREP_ROWS].long()  # [m, cs]
+            else:
+                cnt = cl[v, 7, cv].long()
+                sweep = (lanes[None, :] < cnt[:, None])[:, :, None]
+                n["triangle_visits"] += int(cnt.sum())
+                gi = lane_g
+            origin = tuple(x[v] for x in o) if raw else None  # [m, 1, 1]
+            shear = rc.wt.shear_select(*dirs) if wt else None
+            ok, t, _, _ = rc.plain_triangle_test(*dirs, tri[:, :rc._N_PREP_ROWS, :, None],
+                                                 t_lo[v, b][:, None, :], None, origin, shear)
+            t = torch.where(ok & sweep, t, torch.inf)  # [m, cs, 256]
+            tm = t.amin(1)
+            big = torch.iinfo(torch.int64).max
+            at_min = t == tm[:, None]
+            gi_m = torch.where(at_min, gi[:, :, None], big).amin(1)
+            bt, bi = best_t[v, b], best_idx[v, b]
+            take = (tm < bt) | ((tm == bt) & (gi_m < bi))
+            best_t[v, b] = torch.where(take, tm, bt)
+            best_idx[v, b] = torch.where(take, gi_m, bi)
+
+    furthest = torch.zeros((V, bins.shape[1]), dtype=torch.int64, device=dev)
+    furthest.scatter_reduce_(1, bin_of.expand(V, nt), reached, "amax")
+    n["bin_entries"] = int((1 + furthest).sum())
+    if geo in rc._SHADOW_GEOS:
+        _shadow_walk(cl, cams, world, d, o, best_t, best_idx, rows[world], cs, n_lights,
+                     streamed, n)
+    return _results(best_t, best_idx, world, S, seg_div, height, width, streamed, n)
+
+
+def _shadow_walk(cl, cams, world, d, o, best_t, best_idx, rows_v, cs, n_lights,
+                 streamed, n):
+    """Each light's any-hit walk over every cluster in index order (the
+    streamed kernel's shadow walk on both visits), its work added to ``n``
+    and ``streamed``."""
+    V, CC = cl.shape[0], cl.shape[2]
+    dev = cams.device
+
+    def cam(k):  # [V, 1, 1]
+        return cams[:, k, None, None]
+
+    t_hit = torch.where(best_idx >= 0, best_t, 0.0)
+    h = tuple(o[k] + t_hit * d[k] for k in range(3))
+    eps = rc._F_SHADOW_EPS * (1.0 + t_hit)
+    h4 = tuple(x[:, :, None] for x in h)
+    all_c = torch.arange(CC, device=dev)
+    for li in range(n_lights):
+        c0 = rc._CAM_LIGHT0 + 6 * li
+        sd = tuple(-cam(c0 + k) for k in range(3))
+        inv_s = tuple(_inverse(x) for x in sd)
+        occ = torch.zeros_like(best_t, dtype=torch.bool)
+        for c in range(CC):
+            g = [cl[:, k, c, None, None] for k in range(8)]
+            tmin, tmax = _slab(g, h, inv_s)
+            visit = ((tmax >= tmin) & (tmax > 0) & ~occ).any(-1) & (g[6][:, :, 0] > 0)
+            if not bool(visit.any()):
+                continue
+            cnt = cl[:, 7, c].long()
+            n["shadow_cluster_visits"] += int(visit.sum())
+            n["shadow_triangle_visits"] += int((visit.sum(1) * cnt).sum())
+            streamed.index_put_((world, all_c[c].expand(V)), visit.sum(1), accumulate=True)
+            ok, _ = _cluster_tests(rows_v, all_c[c].expand(V), cs, cnt,
+                                   tuple(x[..., None] for x in sd), eps[:, :, None], h4)
+            occ = occ | (ok & visit[:, :, None, None]).any(2)
+
+
+def _results(best_t, best_idx, world, S, seg_div, height, width, streamed, n):
+    """The walk's frames (``[V, nt, 256]`` block-major carries → ``[V,
+    height, width]``) and its work."""
+    V = best_t.shape[0]
+    hp, wp = -(-height // _T) * _T, -(-width // _T) * _T
+    ty, tx = hp // _T, wp // _T
 
     def image(x):  # [V, nt, 256] → [V, height, width]
         x = x.reshape(V, ty, tx, _T, _T).permute(0, 1, 3, 2, 4).reshape(V, hp, wp)

@@ -7,7 +7,9 @@ scenes of the ``bench.py`` rows), for their raw-geometry form, untextured
 or with the PNG checkerboard. The KTX2 texture and the disk-asset variant
 are ROADMAP Queue 1 item 18. ``terrain_mesh`` and ``bigmesh_config`` copy
 ``tools/tpu_bigmesh_bench.py``'s big-mesh scene (``bench.py``'s
-``bigmesh_512w`` row), a mesh past the resident budget.
+``bigmesh_512w`` row), a mesh past the resident budget;
+``binned_terrain_config`` copies ``tools/tpu_binned_bench.py``'s
+100k-triangle terrain, the scene of the tile-binned visit (K4).
 """
 
 from __future__ import annotations
@@ -294,5 +296,33 @@ def bigmesh_config(num_worlds: int, width: int = 64, height: int = 64,
         headless_mode=True,
         rcfg=RenderConfig(geo_cfg=geo, additional_mats=mats, instances=instances,
                           cameras=cameras, worlds=worlds),
+        **extra,
+    )
+
+
+def binned_terrain_config(num_worlds: int, width: int, height: int, grid: int = 224,
+                          **extra) -> ManagerConfig:
+    """``tools/tpu_binned_bench.py``'s scene (:37-88, also ``bench.py``'s
+    health anchor, :505-546): per world the ``grid``² sine terrain over
+    [-24, 24]² with amplitude 2 (100,352 triangles at 224) at the origin,
+    colour (0.35, 0.5, 0.3), and one camera at (0, 20, 8) with rotation
+    (0, 0, sin(-0.175), cos(-0.175)), raytraced."""
+    terrain = terrain_mesh(grid, extent=24.0, amp=2.0)
+    geo = _geo_from([terrain], [np.zeros((len(terrain), 2), np.float32)], [0])
+    ps, pc = math.sin(-0.35 / 2), math.cos(-0.35 / 2)
+    instances, cameras, worlds = [], [], []
+    for w in range(num_worlds):
+        instances.append(ImportedInstance(position=[0, 0, 0], rotation=[1, 0, 0, 0],
+                                          scale=[1, 1, 1], object_id=0))
+        cameras.append(ImportedCamera(position=[0.0, 20.0, 8.0], rotation=[0.0, 0.0, ps, pc]))
+        worlds.append(WorldInit(num_instances=1, instance_offset=w, num_cameras=1,
+                                camera_offset=w))
+    return ManagerConfig(
+        gpu_id=0, num_worlds=num_worlds, render_mode=RenderMode.Raytracer,
+        batch_render_view_width=width, batch_render_view_height=height,
+        headless_mode=True,
+        rcfg=RenderConfig(geo_cfg=geo,
+                          additional_mats=[AdditionalMaterial(color=(0.35, 0.5, 0.3, 1.0))],
+                          instances=instances, cameras=cameras, worlds=worlds),
         **extra,
     )

@@ -4,8 +4,8 @@ another checkout (e.g. the parent commit unpacked with ``git archive``):
 
     python3 port_tools/ptxas_regs.py [OTHER_CHECKOUT]
 
-Prints one JSON line: the entries of csrc/render_resident.cu with their
-register counts ("name": n) and spill stores/loads ("name:spill": "s/l"),
+Prints one JSON line: the entries of csrc/render_resident.cu and
+csrc/render_binned.cu with their register counts ("name": n) and spill stores/loads ("name:spill": "s/l"),
 and, with OTHER_CHECKOUT, whether every entry that tree has keeps its count
 here. Entry names drop the anonymous namespace's per-build hash. Needs nvcc.
 """
@@ -26,7 +26,8 @@ sys.path.insert(0, str(ROOT))
 
 from madrona_renderer_tpu_torch import _build  # noqa: E402
 
-SOURCE = Path("madrona_renderer_tpu_torch/csrc/render_resident.cu")
+SOURCES = (Path("madrona_renderer_tpu_torch/csrc/render_resident.cu"),
+           Path("madrona_renderer_tpu_torch/csrc/render_binned.cu"))
 
 
 def registers(src: Path) -> dict:
@@ -53,9 +54,14 @@ def registers(src: Path) -> dict:
 
 def main() -> int:
     trees = [ROOT] + [Path(a).resolve() for a in sys.argv[1:2]]
+    jobs = [(i, t / src) for i, t in enumerate(trees) for src in SOURCES
+            if (t / src).is_file()]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(trees)) as pool:
-        found = list(pool.map(lambda t: registers(t / SOURCE), trees))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        parts = list(pool.map(lambda job: (job[0], registers(job[1])), jobs))
+    found = [{} for _ in trees]
+    for i, regs in parts:
+        found[i].update(regs)
     out = {"phase": "ptxas", "seconds": time.perf_counter() - t0, "entries": found[0]}
     if len(found) > 1:
         other = found[1]

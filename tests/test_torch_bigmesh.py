@@ -6,7 +6,9 @@ order and its clusters' pixel-row spans, and the kernel walks that order
 with the occlusion early exit, streaming the visited clusters. On the CPU
 the kernel's plain version renders (it sweeps every triangle in index
 order); ``ops/walk_replay.py`` replays the kernel's walk in torch ops.
-Held against the JAX package on the same inputs:
+A cluster table past the ordered walk's shared memory takes the binned
+route (tests/test_torch_binned.py). Held against the JAX package on the
+same inputs:
   * ``camera_cluster_order`` and ``camera_cluster_rowspans`` (at the JAX
     package's band height and at the kernel's 16 rows): integers equal;
   * frames of the port's ``raytrace`` / ``rasterize`` against the jnp
@@ -170,12 +172,21 @@ def test_route_choice():
 
 
 def test_cluster_table_past_shared_memory_raises(monkeypatch):
-    """A cluster table too large for a block's shared memory raises,
-    naming ROADMAP item 8."""
+    """A cluster table too large for the ordered walk's shared memory no
+    longer raises: the scene takes the binned route (K4, whose block keeps
+    no cluster table), whatever accel says, and renders the plain frames;
+    the binned walk's replay renders them too."""
     _, (t_state, t_scene) = _both(terrain_spec())
+    plain = trc.render_resident_plain(**trc.pack_inputs(t_state, t_scene, height=32, width=32))
     monkeypatch.setattr(trc, "_MAX_SMEM", 1024)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trc.check_supported(t_state, t_scene)
+    trc.check_supported(t_state, t_scene)
+    for accel in ("auto", "clusters"):
+        kw = trc.pack_inputs(t_state, t_scene, height=32, width=32, accel=accel)
+        assert kw["bins"] is not None and kw["order"] is None
+        out = trc.render_resident(**kw)
+        assert all(torch.equal(a, b) for a, b in zip(out, plain))
+    replay = walk_replay.binned_walk(**kw)
+    assert torch.equal(replay["depth"], plain[0]) and torch.equal(replay["segmask"], plain[1])
 
 
 # ------------------------------------------------------------- frames ----

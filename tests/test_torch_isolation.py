@@ -2,8 +2,8 @@
 
 The port (and chip_smoke.py and port_tools/) imports neither JAX nor any
 module of the JAX package; it renders on the CPU (raytraced, textured,
-mip-mapped, rasterized, a streamed big mesh with its walk replayed,
-watertight and supersampled) in
+mip-mapped, rasterized, a streamed big mesh with its walk replayed, the
+binned terrain with its binned walk replayed, watertight and supersampled) in
 a process where both are unimportable; a CPU render
 launches no kernel; every kernel source under csrc/ has its launch
 signature, so the build covers it.
@@ -85,6 +85,15 @@ assert raytrace_cuda.is_streamed(bm.state, bm.scene)
 assert set(bm.segmask_tensor().numpy().ravel().tolist()) == {-1, 0, 1}
 kw = raytrace_cuda.pack_inputs(bm.state, bm.scene, height=32, width=32)
 assert walk_replay.streamed_walk(**kw)["segmask"].equal(bm.segmask_tensor().to_torch())
+from madrona_renderer_tpu_torch.ops.quat import quat_multiply, quat_normalize
+from madrona_renderer_tpu_torch.runners.scenes import binned_terrain_config
+bt = m.Manager(binned_terrain_config(2, 32, 32, grid=40, accel="binned", device="cpu"))
+rot = bt.instance_rotation_tensor().to_torch()
+rot.copy_(quat_normalize(quat_multiply(rot, rot)))
+bt.step()
+kw = raytrace_cuda.pack_inputs(bt.state, bt.scene, height=32, width=32, accel="binned")
+assert kw["bins"] is not None and kw["ranges"] is not None
+assert walk_replay.binned_walk(**kw)["segmask"].equal(bt.segmask_tensor().to_torch())
 wt = m.Manager(demo_config(2, m.RenderMode.Raytracer, 32, 32, dynamic=True, watertight=True,
                            device="cpu"))
 assert set(wt.segmask_tensor().numpy().ravel().tolist()) == {-1, 0, 1}
