@@ -13,28 +13,38 @@ printed as JSON lines:
                layouts (``pack_rows`` prep, ``pack_rows_raw``, bitwise) and
                every variant of the render kernel (prep / raw / raw with
                shadows, and K10's watertight raw / raw with shadows, bitwise
-               x raytrace / raster x untextured / nearest / bilinear) on the
+               x raytrace / raster x untextured / nearest / bilinear), each
+               through the three resident visits (K1's index order, K3 and
+               K4 on resident rows: ``render_resident_ordered*``,
+               ``render_resident_binned*``) and, raytraced, each of those
+               seeded (K9, ``*_seeded*``: per pixel far, just above the hit,
+               at it or at half of it), all bitwise, on the
                demo scene with one and with four cameras per world
                (untextured and textured), random scenes (padded triangle
                slots; one with 1-3 cameras per world, per-camera fov and
                znear), the demo scene at 40x24 with two lights, the occluder
                scene of tests/test_shadows.py with one and with two lights,
-               and the quad-seam scene of tests/test_watertight_pallas.py
+               the quad-seam scene of tests/test_watertight_pallas.py
                split across two instances and in one (a ``seam`` line counts
                the crack pixels inside the quad: none), each without and
-               with shadows; then K7 (the render kernel's mip
+               with shadows, and the resident terrain (bench.py's big-mesh
+               scene at a 27 grid, varied per world) at 64x64 and at
+               128x128, the bin tiling of its 128x128 path; then K7 (the render
+               kernel's mip
                hand-off and ``shade_mip``) bitwise, together and each alone,
                in every variant (prep / raw / raw with shadows x raytrace /
                raster x nearest / bilinear / trilinear) on the mip scenes of
                tests/test_mips.py (the gradient floor with a close-up quad,
                also at 64x256 and with two cameras; the overflow floor; the
                uv-seam close-up at 48x48; the close-up whose trilinear blend
-               dies; K10's hand-off variants, trilinear), with a
+               dies; trilinear, with and without K10, through the three
+               resident visits and seeded), with a
                ``k7_levels`` line per scene: pixels per level, pixels
                clamped to the coarse chain, blends killed; then every
                variant of the streamed route (K3 + K5, ``render_streamed*``;
                K10's on the untextured, 32x32-textured and mip-mapped terrain
-               and the tie scene) bitwise on bench.py's big-mesh scene with a
+               and the tie scene; K9's seeded ones on the terrain scenes and
+               the tie scene) bitwise on bench.py's big-mesh scene with a
                per-world terrain yaw and cube position (also with two
                cameras, a 32x32 texture and a 256x256 mip-mapped one), on the
                streamed scenes of tests/test_pallas_parity.py and
@@ -46,7 +56,7 @@ printed as JSON lines:
                on 4 worlds of the binned terrain at 128x128 bitwise against
                its plain version and against K5 (``k4_vs_k5`` lines); the
                seam scene made streamed under bins (a ``seam`` line);
-  4. paths   — the twelve paths of the port, each through MadronaRenderer and
+  4. paths   — the fifteen paths of the port, each through MadronaRenderer and
                stepped with a position mutation through the exported tensor
                between steps, with every launch count set to 0 just before
                and read just after:
@@ -77,6 +87,25 @@ printed as JSON lines:
                                   the resident budget: K3 + K5, with the
                                   walk replayed in torch ops, its frames
                                   held to the exports and its work counted);
+                 bigmesh_512w_warm bench.py:322-324, bigmesh_512w with
+                                  warmstart=True: the streamed walk seeded
+                                  (K9) by the previous depth, repaired where
+                                  it misses; every step's frames bitwise a
+                                  cold render's, the last step's seeded
+                                  inputs bitwise against the seeded plain
+                                  version, the replayed walk's work cold and
+                                  seeded, beside bigmesh_512w's cold steps;
+                 resident_terrain_4096w_64, resident_terrain_1024w_128
+                                  bench.py's big-mesh scene at a 27 grid
+                                  (S = 2,928: resident, 366 clusters) at
+                                  4096 worlds x 64² ("auto" orders: K3 on
+                                  resident rows) and 1024 x 128² (bins: K4
+                                  on resident rows), world 0's cube moved
+                                  each step; the three visits on the last
+                                  step's inputs bitwise equal to the plain
+                                  version and the exports, each timed step's inputs
+                                  through the three at the kernel entry (the
+                                  A/B), the replayed walks' work;
                  binned_32w_128, binned_32w_256, terrain_32w_512
                                   tools/tpu_binned_bench.py's scene (32
                                   worlds of the 100,352-triangle terrain)
@@ -107,9 +136,11 @@ printed as JSON lines:
                watertight_4096w's): its device time in a CUDA graph of
                back-to-back launches, its time through
                the wrapper (host overhead included), its plain version's
-               time, its bound (on the streamed route from the walk the
-               data makes: the clusters streamed, the positions gated, the
-               slab and triangle tests; the streamed variants that
+               time (on inputs a check ran on, the check's own cold call),
+               its bound (from the walk the data makes, replayed by
+               ops/walk_replay.py: K1's culls, or the positions gated, the
+               clusters streamed, the slab and triangle tests; the streamed
+               variants that
                bigmesh_512w does not run are timed on the 64-world inputs of
                their first scene of phase 3); then, in lines with an
                ``inputs`` key that
@@ -123,7 +154,12 @@ printed as JSON lines:
                and K4 and K5 on each terrain path's inputs (K4's bound from
                the replayed binned walk; at 256x256 and 512x512 no plain
                time; K5 without a bound, its walk's replay would take
-               minutes);
+               minutes); this slice's kernels (K3 and K4 on resident rows,
+               K9) on their path's full-size inputs or the 64-world inputs
+               of their first check, 10 launches a graph, their bounds from
+               the replayed walks (ops/walk_replay.py, seeded where they
+               are), and the visits a resident terrain path does not take on
+               its inputs;
 
 then the nvidia-smi line, the ``kernels`` summary line and the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -140,6 +176,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -165,6 +202,16 @@ MIP_FILTERS = ("nearest", "bilinear", "trilinear")
 KERNEL_REPS = 50
 SMALL_WORLDS = 64
 SSAA = 2
+# The resident terrain paths: bench.py's big-mesh scene at a 27 grid (1,458
+# terrain triangles and the cube: S = 2,928 slots, 366 clusters of 8, 374,784
+# bytes of the JAX kernel's rows, within the 384 KB resident budget): 4096
+# worlds at 64² (ordered: one TPU tile) and 1024 at 128² (binned: 4 tiles).
+RESIDENT_GRID = 27
+RESIDENT_PATHS = (("resident_terrain_4096w_64", 4096, 64, "ordered"),
+                  ("resident_terrain_1024w_128", 1024, 128, "binned"))
+# The new kernels' timing lines (80 resident-visit and 100 seeded entries):
+# fewer launches a CUDA graph than the older rows.
+NEW_KERNEL_REPS = 10
 
 # H100 SXM peaks (NVIDIA data sheet). The published 67 TFLOP/s of FP32
 # outside the tensor cores counts a fused multiply-add as two operations
@@ -279,6 +326,13 @@ K5_OPS_PER_TRIANGLE = {"prep": 28, "raw": 37, "wt": 44}
 # a thread) charged per band that a visit reaches.
 K4_OPS_PER_TRIANGLE = {"prep": 29, "raw": 37, "wt": 44}
 K4_OPS_BAND_GATE = 2
+# K3 and K4 on resident rows (csrc/render_resident_ordered.cu,
+# csrc/render_resident_binned.cu): K1's block set-up (rows, hoisted terms,
+# cluster table) and per-thread work, then the streamed walk's gates (the
+# approach distance, the exit test, the slab test with its slack) and its
+# triangle tests with the tie compare (K5_OPS_PER_TRIANGLE); the shadow sweep
+# is K1's (index order). K9 adds the seed's read and its min (1 a thread).
+K9_OPS_SEED = 1
 
 
 _T0 = time.perf_counter()
@@ -297,6 +351,19 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def timed_ms(fn) -> tuple:
+    """``fn``'s result and its device time by CUDA events, one call (the
+    plain versions of the checks, timed where they run once)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def cuda_ms(fn, reps: int, warm: bool = True) -> float:
@@ -607,15 +674,16 @@ def cloud_mesh(seed: int, n_tris: int = 3600, spread: float = 10.0, y_lo: float 
 
 
 def bigmesh_scene(n_worlds: int, cfg_mod, scenes, vary: bool = False, num_cams: int = 1,
-                  texture=None):
+                  texture=None, grid: int = 72):
     """bench.py's ``bigmesh_512w`` scene (tools/tpu_bigmesh_bench.py:44-90):
-    the 72x72 terrain (10,368 triangles) at the origin and the demo cube
-    scaled 2 at (0, 0, 2.5), one camera per world at (0, 14, 6) pitched
-    -0.25. With ``vary``, world w's terrain turns by a yaw of 0.05·w and its
-    cube moves 0.1·w along x, so the worlds' visit orders differ; further
-    cameras of a world stand 1.5 apart along x; with a ``texture`` path the
-    terrain's uvs are its xy / 8 and its material samples the texture."""
-    terrain = scenes.terrain_mesh()
+    the 72x72 terrain (10,368 triangles; ``grid`` x ``grid``) at the origin
+    and the demo cube scaled 2 at (0, 0, 2.5), one camera per world at
+    (0, 14, 6) pitched -0.25. With ``vary``, world w's terrain turns by a yaw
+    of 0.05·w and its cube moves 0.1·w along x, so the worlds' visit orders
+    differ; further cameras of a world stand 1.5 apart along x; with a
+    ``texture`` path the terrain's uvs are its xy / 8 and its material
+    samples the texture."""
+    terrain = scenes.terrain_mesh(grid)
     cube_v, cube_uv = scenes.cube_mesh()
     uvs = [terrain[:, :2] / 8.0 if texture else np.zeros((len(terrain), 2), np.float32),
            cube_uv]
@@ -705,138 +773,11 @@ def output_err(k, p) -> float:
                      .abs().max()))
 
 
-def k1_triangle_tests(kw: dict) -> tuple:
-    """Triangle tests the render kernel makes on these inputs, per thread of
-    a block and summed over blocks: its block culls replayed in torch ops.
-    Cluster by cluster, a 16x16 block visits the cluster's valid prefix when
-    the cluster is valid and any of its rays passes the slab test against
-    the ray's best t so far; the rays of a visiting block then take the
-    prefix's hits (above the raster variant's per-pixel near bound). With
-    shadows, per light, a block visits a cluster's prefix when any of its
-    shadow rays that is not yet occluded passes the slab test (tmax > 0),
-    and those rays take the prefix's occlusion. Returns (primary tests,
-    shadow tests)."""
-    from madrona_renderer_tpu_torch.ops import raytrace_cuda as rc
-
-    H, Wd = kw["height"], kw["width"]
-    if H % 16 or Wd % 16:
-        raise ValueError("the replay covers images in whole 16x16 blocks")
-    rows, cams, nc = kw["rows"], kw["cams"], kw["num_cams"]
-    raw = kw["geo"] != "prep"
-    wt = kw["geo"] in rc._WATERTIGHT_GEOS
-    world = torch.arange(cams.shape[0], device=cams.device) // nc
-    rows_v, cl = rows[world], kw["clusters"][world]
-    CC = cl.shape[2]
-    size = rows.shape[2] // CC
-    dirs = rc.plain_rays(cams, H, Wd)
-    tiny = float(np.float32(1e-20))
-
-    def inverse(d):
-        return 1.0 / torch.where(d.abs() > tiny, d, torch.where(d < 0, -tiny, tiny))
-
-    def slab(c, origin, inv):
-        t1 = [(cl[:, k, c:c + 1] - origin[k]) * inv[k] for k in range(3)]
-        t2 = [(cl[:, 3 + k, c:c + 1] - origin[k]) * inv[k] for k in range(3)]
-        lo = [torch.minimum(a, b) for a, b in zip(t1, t2)]
-        hi = [torch.maximum(a, b) for a, b in zip(t1, t2)]
-        return (torch.maximum(torch.maximum(lo[0], lo[1]), lo[2]),
-                torch.minimum(torch.minimum(hi[0], hi[1]), hi[2]))
-
-    def blocks(possible, c):
-        """Blocks that visit cluster c, and each ray's block flag."""
-        block = possible.reshape(-1, H // 16, 16, Wd // 16, 16).any(4).any(2)
-        block = block & (cl[:, 6, c] > 0)[:, None, None]
-        ray_in = block[:, :, None, :, None].expand(-1, -1, 16, -1, 16).reshape(
-            possible.shape)
-        return block, ray_in
-
-    inv = [inverse(d) for d in dirs]
-    near = cams[:, 14:15]
-    t_lo = near
-    if kw["raster"]:
-        cosf = dirs[0] * cams[:, 6:7] + dirs[1] * cams[:, 7:8] + dirs[2] * cams[:, 8:9]
-        t_lo = near / torch.clamp_min(cosf, float(np.float32(1e-6)))
-    origin = tuple(cams[:, k:k + 1] for k in range(3))
-    shear = rc.wt.shear_select(*dirs) if wt else None
-    far = cams[:, 15:16]
-    best_t = far.expand_as(dirs[0]).clone()
-    tests = 0
-    for c in range(CC):
-        tmin, tmax = slab(c, origin, inv)
-        block, ray_in = blocks((tmax >= tmin) & (tmax > near) & (tmin < best_t), c)
-        cnt = cl[:, 7, c].long()
-        tests += int((block.sum((1, 2)) * cnt).sum())
-        for j in range(size):
-            i = c * size + j
-            ok, t, _, _ = rc.plain_triangle_test(
-                *dirs, rows_v[:, :10, i:i + 1], t_lo, best_t, origin if raw else None,
-                shear)
-            best_t = torch.where(ok & ray_in & (j < cnt)[:, None], t, best_t)
-    shadow_tests = 0
-    if kw["geo"] in rc._SHADOW_GEOS:
-        t_hit = torch.where(best_t < far, best_t, 0.0)
-        hit = tuple(origin[k] + t_hit * dirs[k] for k in range(3))
-        eps = float(np.float32(1e-3)) * (1.0 + t_hit)
-        for li in range(kw["n_lights"]):
-            c0 = 17 + 6 * li
-            sd = tuple(-cams[:, c0 + k:c0 + k + 1] for k in range(3))
-            inv_s = [inverse(d) for d in sd]
-            occ = torch.zeros_like(best_t, dtype=torch.bool)
-            for c in range(CC):
-                tmin, tmax = slab(c, hit, inv_s)
-                block, ray_in = blocks((tmax >= tmin) & (tmax > 0) & ~occ, c)
-                cnt = cl[:, 7, c].long()
-                shadow_tests += int((block.sum((1, 2)) * cnt).sum())
-                for j in range(size):
-                    i = c * size + j
-                    ok, _, _, _ = rc.plain_triangle_test(
-                        *sd, rows_v[:, :10, i:i + 1], eps, origin=hit)
-                    occ = occ | (ok & ray_in & (j < cnt)[:, None])
-    return tests, shadow_tests
-
-
 def layout(kw: dict) -> str:
     """The rows' layout and sweep a variant's operation counts follow:
     ``prep``, ``raw`` (K1-raw, K8) or ``wt`` (K10)."""
     geo = kw["geo"]
     return "prep" if geo == "prep" else "wt" if geo.startswith("raw_wt") else "raw"
-
-
-def k1_bound(kw: dict, visits: int, shadow_visits: int) -> tuple:
-    """Least time for the render kernel's work on these inputs: bytes over
-    HBM rate vs FP32 operations over peak, the larger of the two
-    (ms, 'bytes'|'operations', bytes, operations)."""
-    W, _, S = kw["rows"].shape
-    CC = kw["clusters"].shape[2]
-    views = kw["cams"].shape[0]
-    pixels = views * kw["height"] * kw["width"]
-    tiles = math.ceil(kw["height"] / 16) * math.ceil(kw["width"] / 16)
-    blocks = views * tiles
-    threads = blocks * K1_THREADS_PER_BLOCK
-    # The K7 inputs run the render kernel in its mip hand-off mode.
-    tex = "mip" if kw.get("fb_rows") is not None else kw["texture"]
-    lights = kw["n_lights"]
-    geo = layout(kw)
-    shadows = kw["geo"].endswith("_shadows")
-    nbytes = (W * (K1_GEO_ROWS[geo] + K1_ATTR_ROWS[tex]) * S * 4
-              + kw["clusters"].numel() * 4 + kw["cams"].numel() * 4
-              + pixels * K1_OUT_BYTES["mip" if tex == "mip" else "rgb"])
-    if tex in ("nearest", "bilinear"):
-        nbytes += kw["mats"].numel() * 4 + kw["pool"].numel() * 4
-    per_thread = (K1_OPS_FIXED[geo] + K1_OPS_PER_LIGHT * lights
-                  + K1_OPS_PER_CLUSTER * CC + K1_OPS_TEX[tex]
-                  + (K1_OPS_RASTER if kw["raster"] else 0))
-    if shadows:
-        per_thread += (K8_OPS_FIXED + K8_OPS_PER_LIGHT * lights
-                       + K8_OPS_PER_CLUSTER * CC * lights)
-    ops = (threads * per_thread
-           + visits * K1_THREADS_PER_BLOCK * K1_OPS_PER_TRIANGLE[geo]
-           + shadow_visits * (K1_THREADS_PER_BLOCK * K8_OPS_PER_TRIANGLE
-                              + K8_OPS_PER_BLOCK_TRIANGLE))
-    if shadows:
-        ops += views * lights * K8_OPS_PER_VIEW_LIGHT
-    ops += blocks * S * K1_OPS_HOIST[geo]
-    return roofline(nbytes, ops) + (nbytes, ops)
 
 
 def k5_bound(kw: dict, walk: dict) -> tuple:
@@ -849,10 +790,12 @@ def k5_bound(kw: dict, walk: dict) -> tuple:
     each view's order and spans, the camera rows and the pixels written;
     against the FP32 operations of the
     positions the blocks gate, the slab tests and the triangle tests they
-    make (ms, 'bytes'|'operations', bytes, operations)."""
+    make; with K9's seed its read and min (ms, 'bytes'|'operations', bytes,
+    operations)."""
     W, _, S = kw["rows"].shape
     CC = kw["clusters"].shape[2]
     size = S // CC
+    seeded = kw.get("seed") is not None
     views = kw["cams"].shape[0]
     pixels = views * kw["height"] * kw["width"]
     blocks = views * math.ceil(kw["height"] / 16) * math.ceil(kw["width"] / 16)
@@ -870,11 +813,11 @@ def k5_bound(kw: dict, walk: dict) -> tuple:
     nbytes = (walk["clusters_streamed"] * (K1_GEO_ROWS[geo] + ranged) * size * 4
               + walk["winners"] * (K1_ATTR_ROWS[tex] + (9 if geo != "raw" else 0)) * 4
               + kw["clusters"].numel() * 4 + visit_bytes + kw["cams"].numel() * 4
-              + pixels * K1_OUT_BYTES["mip" if tex == "mip" else "rgb"])
+              + pixels * (K1_OUT_BYTES["mip" if tex == "mip" else "rgb"] + 4 * seeded))
     if tex in ("nearest", "bilinear"):
         nbytes += kw["mats"].numel() * 4 + kw["pool"].numel() * 4
     per_thread = (K1_OPS_FIXED[geo] + K1_OPS_PER_LIGHT * lights + K1_OPS_TEX[tex]
-                  + (K1_OPS_RASTER if kw["raster"] else 0))
+                  + (K1_OPS_RASTER if kw["raster"] else 0) + K9_OPS_SEED * seeded)
     # The positions gated and each block's last (binned: the stops counted).
     reached = walk["gated"] + (walk["stops"] if binned else blocks)
     per_triangle = (K4_OPS_PER_TRIANGLE if binned else K5_OPS_PER_TRIANGLE)[geo]
@@ -886,6 +829,56 @@ def k5_bound(kw: dict, walk: dict) -> tuple:
     if ranged:
         ops += walk["cluster_visits"] * K1_THREADS_PER_BLOCK * K4_OPS_BAND_GATE
     ops += walk["triangle_visits"] * K1_OPS_HOIST[geo]
+    if kw["geo"].endswith("_shadows"):
+        ops += (threads * (K8_OPS_FIXED + K8_OPS_PER_LIGHT * lights
+                           + K8_OPS_PER_CLUSTER * CC * lights)
+                + views * lights * K8_OPS_PER_VIEW_LIGHT
+                + walk["shadow_triangle_visits"] * (K1_THREADS_PER_BLOCK * K8_OPS_PER_TRIANGLE
+                                                    + K8_OPS_PER_BLOCK_TRIANGLE))
+    return roofline(nbytes, ops) + (nbytes, ops)
+
+
+def resident_bound(kw: dict, walk: dict) -> tuple:
+    """Least time for the resident render kernel's work on these inputs
+    (K1, or K3 and K4 on resident rows), from the walk this run's data
+    makes (``walk_replay.resident_walk``, with the seed where there is
+    one): bytes over HBM rate vs FP32 operations over peak, the larger of
+    the two. Bytes: the rows each block reads (the geometry rows) and each
+    hit reads once (the attribute rows), the cluster table, the camera
+    rows, the visit's order or the bin entries its blocks read, the seed,
+    the pixels written. Operations: per thread the ray, resolve and shading
+    work (K1: and a slab test per cluster), per block the hoisted
+    per-triangle terms, the walk's gates, and the triangle tests of the
+    visited clusters (K1: at its own count), with shadows K8's sweep
+    (ms, 'bytes'|'operations', bytes, operations)."""
+    W, _, S = kw["rows"].shape
+    CC = kw["clusters"].shape[2]
+    views = kw["cams"].shape[0]
+    pixels = views * kw["height"] * kw["width"]
+    blocks = views * math.ceil(kw["height"] / 16) * math.ceil(kw["width"] / 16)
+    threads = blocks * K1_THREADS_PER_BLOCK
+    tex = "mip" if kw.get("fb_rows") is not None else kw["texture"]
+    lights = kw["n_lights"]
+    geo = layout(kw)
+    seeded = kw.get("seed") is not None
+    visit_bytes = (walk["bin_entries"] * 4 if kw.get("bins") is not None
+                   else views * CC * 4 if kw.get("order") is not None else 0)
+    nbytes = (W * (K1_GEO_ROWS[geo] + K1_ATTR_ROWS[tex]) * S * 4
+              + kw["clusters"].numel() * 4 + kw["cams"].numel() * 4 + visit_bytes
+              + pixels * (K1_OUT_BYTES["mip" if tex == "mip" else "rgb"] + 4 * seeded))
+    if tex in ("nearest", "bilinear"):
+        nbytes += kw["mats"].numel() * 4 + kw["pool"].numel() * 4
+    per_thread = (K1_OPS_FIXED[geo] + K1_OPS_PER_LIGHT * lights + K1_OPS_TEX[tex]
+                  + (K1_OPS_RASTER if kw["raster"] else 0) + K9_OPS_SEED * seeded)
+    if kw.get("order") is None and kw.get("bins") is None:  # K1's index order
+        per_thread += K1_OPS_PER_CLUSTER * CC
+        ops = walk["triangle_visits"] * K1_THREADS_PER_BLOCK * K1_OPS_PER_TRIANGLE[geo]
+    else:
+        reached = walk["gated"] + walk.get("stops", blocks)
+        ops = (reached * (K5_OPS_APPROACH + K1_THREADS_PER_BLOCK * K5_OPS_EXIT)
+               + walk["slab_tests"] * K1_THREADS_PER_BLOCK * K5_OPS_SLAB
+               + walk["triangle_visits"] * K1_THREADS_PER_BLOCK * K5_OPS_PER_TRIANGLE[geo])
+    ops += threads * per_thread + blocks * S * K1_OPS_HOIST[geo]
     if kw["geo"].endswith("_shadows"):
         ops += (threads * (K8_OPS_FIXED + K8_OPS_PER_LIGHT * lights
                            + K8_OPS_PER_CLUSTER * CC * lights)
@@ -979,12 +972,22 @@ def main() -> int:
           "cuda": torch.version.cuda, "card": card, "nvidia_smi": smi,
           "device_count": torch.cuda.device_count()})
 
+    # Every library at once, one nvcc each (as _build.build_all), each timed.
     t0 = time.perf_counter()
-    built = _build.build_all()
-    emit({"phase": "build", "kernels": sorted(built), "seconds": time.perf_counter() - t0})
+    build_s = {}
+
+    def timed_build(name):
+        start = time.perf_counter()
+        _build.build(name)
+        build_s[name] = time.perf_counter() - start
+
+    with ThreadPoolExecutor(len(_build.sources())) as pool:
+        list(pool.map(timed_build, _build.sources()))
+    emit({"phase": "build", "kernels": sorted(build_s), "seconds": time.perf_counter() - t0,
+          "seconds_each": build_s})
 
     # Per kernel name: the largest error against its plain version.
-    kernel_names = rc.VARIANTS + rc.BINNED_VARIANTS + rc.SHADE_MIP_VARIANTS + pack_cuda.LAYOUTS
+    kernel_names = rc.RENDER_VARIANTS + rc.SHADE_MIP_VARIANTS + pack_cuda.LAYOUTS
     max_err = {name: 0.0 for name in kernel_names}
 
     def check_pack(tag, state, scene, cam):
@@ -1004,31 +1007,81 @@ def main() -> int:
     def is_k7(kw):
         return kw.get("fb_rows") is not None
 
+    def route(kw):
+        return rc.route_of(kw.get("order"), kw.get("spans"), kw.get("bins"))
+
     def binned(kw):
-        return kw.get("bins") is not None
+        return route(kw).visit == "binned"
 
     def streamed(kw):
-        return kw.get("order") is not None or binned(kw)
+        return route(kw).streamed
+
+    def seeded(kw):
+        return kw.get("seed") is not None
 
     def handoff_name(kw):
-        return rc.variant_name(kw["raster"], "mip", kw["geo"], streamed(kw), binned(kw))
+        return rc.variant_name(kw["raster"], "mip", kw["geo"], route(kw), seeded(kw))
 
     def variant(kw):
         """The render kernel's variant; for K7 its two launches' names."""
         if is_k7(kw):
             return f"{handoff_name(kw)}+shade_mip_{kw['texture']}"
-        return rc.variant_name(kw["raster"], kw["texture"], kw["geo"], streamed(kw),
-                               binned(kw))
+        return rc.variant_name(kw["raster"], kw["texture"], kw["geo"], route(kw), seeded(kw))
 
-    def check_render(tag, kw):
+    def resident_visits(kw, state, scene):
+        """A resident scene's inputs for each visit: index order (K1), the
+        view's order (K3) and the bins at bin_tile_for's tile (K4), as
+        pack_inputs builds them (the default 90° fov)."""
+        eff_fov = torch.where(state.camera_fov > 0, state.camera_fov, 90.0)
+        lo, hi, valid, _ = rc.world_clusters(state, scene)
+        order = rc.camera_cluster_order(lo, hi, valid, state.camera_pos)
+        views, CC = order.shape
+        h, w = kw["height"], kw["width"]
+        tile = rc.bin_tile_for(views, h, w, CC)
+        tx, ty = -(-w // tile), -(-h // tile)
+        bins = rc.band_cluster_bins(lo, hi, valid, state, eff_fov, h, w, tx * ty, tx, tile,
+                                    tile, order=order)
+        base = dict(kw, order=None, spans=None, bins=None, ranges=None, bin_tile=None)
+        return [base, dict(base, order=order), dict(base, bins=bins, bin_tile=tile)]
+
+    seed_rng = torch.Generator(device=dev).manual_seed(9)
+
+    def seed_for(depth):
+        """K9's test seed for frames of this depth: per pixel at random far
+        (1000), just above the hit (× 1.0001), exactly at it (a miss), or
+        at half of it (a miss); far on a miss."""
+        pick = torch.randint(0, 4, depth.shape, generator=seed_rng, device=depth.device)
+        scale = torch.tensor([1.0, 1.0001, 1.0, 0.5], device=depth.device)[pick]
+        bound = torch.where(pick == 0, 1000.0, depth * scale)
+        return torch.where(depth > 0, bound, 1000.0).contiguous()
+
+    def is_new(kw):
+        """K3 or K4 on resident rows, or K9: this slice's kernels."""
+        return seeded(kw) or (not streamed(kw) and route(kw).visit != "index")
+
+    first_kw = {}  # the first inputs each of this slice's variants was checked on
+    # Per variant (K7: per hand-off variant too): the inputs it was checked
+    # on and its plain version's time there, one cold call, for its first
+    # inputs and for a path's own (``keep``); the timing lines take it where
+    # they time the variant on those inputs.
+    plain_of, handoff_plain_of = {}, {}
+
+    def note_plain(checked, name, kw, ms, keep):
+        if keep or name not in checked:
+            checked.setdefault(name, []).append((kw, ms))
+
+    def check_render(tag, kw, keep=False):
         name = variant(kw)
         k_out = rc.render_resident(**kw)
         torch.cuda.synchronize()
-        p_out = rc.render_resident_plain(**kw)
+        plain_ms, p_out = timed_ms(lambda: rc.render_resident_plain(**kw))
+        note_plain(plain_of, name, kw, plain_ms, keep)
         c = compare_outputs(k_out, p_out)
         check_close(f"{tag} {name}", c)
-        if (is_k7(kw) or kw["geo"] in rc._WATERTIGHT_GEOS) and not c["bitwise"]:
+        if (is_k7(kw) or kw["geo"] in rc._WATERTIGHT_GEOS or is_new(kw)) and not c["bitwise"]:
             raise AssertionError(f"{tag} {name}: differs from its plain version: {c}")
+        if is_new(kw):
+            first_kw.setdefault(handoff_name(kw) if is_k7(kw) else name, kw)
         if kw["raster"] and not bool((k_out[1] == -1).all()):
             raise AssertionError(f"{tag} {name}: raster segmask is not -1 everywhere")
         err = output_err(k_out, p_out)
@@ -1039,24 +1092,28 @@ def main() -> int:
         return k_out
 
     handoff_keys = ("num_cams", "n_lights", "height", "width", "seg_div", "raster", "geo",
-                    "order", "spans", "bins", "ranges", "bin_tile")
+                    "order", "spans", "bins", "ranges", "bin_tile", "seed")
 
     walk_of = {}
 
     def walks(kw):
-        """The streamed kernel's walk on these inputs, replayed in torch ops
-        (ops/walk_replay.py, the ordered or the binned walk): its frames and
+        """The kernel's walk on these inputs, replayed in torch ops
+        (ops/walk_replay.py: the streamed ordered or binned walk, or the
+        resident route's), with the seed where there is one: its frames and
         its work."""
+        seed = kw.get("seed")
         key = (kw["geo"], kw["raster"], kw["rows"].data_ptr(), kw["cams"].data_ptr(),
-               binned(kw))
+               route(kw), None if seed is None else seed.data_ptr())
         if key not in walk_of:
-            walk_of[key] = (walk_replay.binned_walk if binned(kw)
-                            else walk_replay.streamed_walk)(**kw)
+            walk = (walk_replay.resident_walk if not streamed(kw)
+                    else walk_replay.binned_walk if binned(kw) else walk_replay.streamed_walk)
+            walk_of[key] = walk(**kw)
         return walk_of[key]
 
     def handoff(kw, plain=False):
         fn = rc.render_handoff_plain if plain else rc.render_handoff
-        return fn(kw["rows"], kw["clusters"], kw["cams"], **{k: kw[k] for k in handoff_keys})
+        return fn(kw["rows"], kw["clusters"], kw["cams"],
+                  **{k: kw[k] for k in handoff_keys if k in kw})
 
     def shade(kw, code, hf, plain=False):
         fn = rc.shade_mip_plain if plain else rc.shade_mip
@@ -1070,7 +1127,8 @@ def main() -> int:
         check_render(tag, kw)
         k_h = handoff(kw)
         torch.cuda.synchronize()
-        p_h = handoff(kw, plain=True)
+        plain_ms, p_h = timed_ms(lambda: handoff(kw, plain=True))
+        note_plain(handoff_plain_of, handoff_name(kw), kw, plain_ms, False)
         h_bitwise = all(torch.equal(a, b) for a, b in zip(k_h, p_h))
         k_rgb = shade(kw, *k_h[2:])
         torch.cuda.synchronize()
@@ -1132,6 +1190,12 @@ def main() -> int:
                                   dict(lights=occluder_lights + two_lights[1:])),
         "seam64": (seam_scene(SMALL_WORLDS, cfg_mod), {}),
         "seam64_unsplit": (seam_scene(SMALL_WORLDS, cfg_mod, split=False), {}),
+        "terrain27_64": (bigmesh_scene(SMALL_WORLDS, cfg_mod, scenes, vary=True,
+                                       grid=RESIDENT_GRID), {}),
+        # At 128², the bin tiling of resident_terrain_1024w_128 (8x8 bin
+        # tiles of 16 px).
+        "terrain27_128": (bigmesh_scene(SMALL_WORLDS, cfg_mod, scenes, vary=True,
+                                        grid=RESIDENT_GRID), dict(height=128, width=128)),
     }
     for tag, (parts, opts) in cases.items():
         geo, mats, textures, insts, cams, worlds = parts
@@ -1149,7 +1213,15 @@ def main() -> int:
             kw = rc.pack_inputs(state, scene, raster=raster, texture_filter=filt,
                                 near=0.001 if raster else 0.1, shadows=shadows,
                                 watertight=watertight, **size)
-            out = check_render(tag, kw)
+            # The three resident visits (K1, K3, K4 on resident rows), each
+            # seeded (K9) too in the raytrace conventions.
+            visits = resident_visits(kw, state, scene)
+            out = [check_render(tag, vkw) for vkw in visits][0]
+            if not raster:
+                seed = seed_for(out[0])
+                for vkw in visits:
+                    check_render(tag, dict(vkw, seed=seed))
+            kw = visits[0]
             if tag.startswith("occluder") and shadows and not raster:
                 # The shadow falls on the ground: some lit pixels go dark.
                 lit = check_render(tag, dict(kw, geo=kw["geo"][:-len("_shadows")]))
@@ -1199,10 +1271,19 @@ def main() -> int:
                         for k, v in level_stats(tag, kw, k_h).items():
                             if k in totals:
                                 totals[k] += v
-                # K10's hand-off variants (trilinear: both K7 launches at work).
-                check_k7(tag, rc.pack_inputs(state, lit, raster=raster, texture_filter="trilinear",
-                                             near=0.001 if raster else 0.1, shadows=shadows,
-                                             watertight=True, **size))
+                # Trilinear (both K7 launches at work) through the three
+                # resident visits, without and with K10, each seeded (K9) too
+                # in the raytrace conventions.
+                for watertight in (False, True):
+                    kw = rc.pack_inputs(state, lit, raster=raster, texture_filter="trilinear",
+                                        near=0.001 if raster else 0.1, shadows=shadows,
+                                        watertight=watertight, **size)
+                    visits = resident_visits(kw, state, lit)
+                    k_h = [check_k7(tag, vkw) for vkw in visits][0]
+                    if not raster:
+                        seed = seed_for(k_h[0])
+                        for vkw in visits:
+                            check_k7(tag, dict(vkw, seed=seed))
     emit({"phase": "k7_levels", "case": "all", **totals})
     if not (totals["clamped_bilinear"] and totals["blend_killed"]):
         raise AssertionError(f"the mip scenes did not exercise the clamp and the kill: {totals}")
@@ -1228,9 +1309,19 @@ def main() -> int:
         "tie64": streamed_test_scene("tie", SMALL_WORLDS, cfg_mod),
     }
     # K10's streamed variants on the varied terrain (untextured, 32x32 and
-    # 256x256 mip textures) and the tie scene.
+    # 256x256 mip textures) and the tie scene; K9's (seeded, raytraced) on
+    # the terrain scenes and the tie scene.
     wt_streamed = ("bigmesh64", "bigmesh64_tex32", "bigmesh64_mip256", "tie64")
+    seeded_streamed = ("bigmesh64", "bigmesh64_2cams", "bigmesh64_tex32",
+                       "bigmesh64_2cams_tex32", "bigmesh64_mip256", "tie64")
     streamed_kw = {}
+
+    def check_seeded(tag, kw, depth):
+        """The variant seeded (K9) by seed_for(depth), against the seeded
+        plain version; its first inputs time it."""
+        kw = dict(kw, seed=seed_for(depth))
+        (check_k7 if is_k7(kw) else check_render)(tag, kw)
+        streamed_kw.setdefault(handoff_name(kw) if is_k7(kw) else variant(kw), kw)
     for tag, parts in streamed_cases.items():
         geo, mats, textures, insts, cams, worlds = parts
         scene = bake_scene(load_render_assets(geo, [], mats, textures), dev)
@@ -1251,11 +1342,16 @@ def main() -> int:
                                 accel=accel)
             out = check_k7(tag, kw)[:2] if mip else check_render(tag, kw)
             streamed_kw.setdefault(handoff_name(kw) if mip else variant(kw), kw)
+            seed_it = tag in seeded_streamed and not raster and (not mip or filt == "trilinear")
+            if seed_it:
+                check_seeded(tag, kw, out[0])
             if mip and not shadows and not watertight:
                 # The one-camera mip scene on the raw rows too.
                 kw = dict(kw, rows=pack_cuda.pack_rows(state, lit), geo="raw", ranges=None)
-                check_k7(tag, kw)
+                raw_out = check_k7(tag, kw)
                 streamed_kw.setdefault(handoff_name(kw), kw)
+                if seed_it:
+                    check_seeded(tag, kw, raw_out[0])
             if tag == "tie64" and not raster:
                 # The quad's pixels tie between instances 0 and 1: instance
                 # 0 wins them; instance 1 keeps the small triangle in front
@@ -1320,20 +1416,25 @@ def main() -> int:
     # ---- 4. the paths --------------------------------------------------- #
     def reset_counts():
         rc.render_resident.launches = 0
-        rc.render_resident.variant_launches = dict.fromkeys(rc.VARIANTS + rc.BINNED_VARIANTS, 0)
+        rc.render_resident.variant_launches = dict.fromkeys(rc.RENDER_VARIANTS, 0)
         rc.shade_mip.launches = 0
         rc.shade_mip.variant_launches = dict.fromkeys(rc.SHADE_MIP_VARIANTS, 0)
         pack_cuda.pack_rows.layout_launches = dict.fromkeys(pack_cuda.LAYOUTS, 0)
 
-    def drive(path, mode, n_worlds, textured, timed_steps, num_cams=1, cfg=None, **opts):
+    def drive(path, mode, n_worlds, textured, timed_steps, num_cams=1, cfg=None, moved=0,
+              size=HEIGHT, record=None, **opts):
         """One path through MadronaRenderer: construct (which primes one
         step), then warm-up and timed steps, each after moving world 0's
-        cube through the exported position tensor. Every view of world 0
-        that saw the cube must change and every view of world 1 stay
-        bit-identical. Returns the renderer, the step times, the launch
-        counts of the run, the constructor's time and the variant's name.
-        The scene is the demo scene unless ``cfg`` names another; ``opts``
-        (shadows, watertight, ssaa) go to MadronaRenderer."""
+        instance ``moved`` (the demo's cube) through the exported position
+        tensor. Every view of world 0 that saw it must change and every view
+        of world 1 stay bit-identical. Returns the renderer, the step times,
+        the launch counts of the run, the constructor's time and the
+        variant's name. The scene is the demo scene unless ``cfg`` names
+        another, at ``size``²; ``opts`` (shadows, watertight, ssaa,
+        warmstart) go to MadronaRenderer. With ``record`` (a list), each
+        step's state and exported depth, segmask and rgb are appended to it.
+        Under warmstart each step launches K9's variant once, or twice when
+        it repairs."""
         if cfg is None:
             cfg = scenes.demo_config(n_worlds, mode, WIDTH, HEIGHT, dynamic=True,
                                      textured=textured, tex_size=TEX_SIZE,
@@ -1341,7 +1442,7 @@ def main() -> int:
         C = num_cams
         reset_counts()
         t0 = time.perf_counter()
-        r = m.MadronaRenderer(0, n_worlds, mode, WIDTH, HEIGHT, **opts,
+        r = m.MadronaRenderer(0, n_worlds, mode, size, size, **opts,
                               **scenes.renderer_kwargs(cfg))
         torch.cuda.synchronize()
         ctor_s = time.perf_counter() - t0
@@ -1354,12 +1455,12 @@ def main() -> int:
             if raster:  # the cube shows in the depth of the views that see it
                 sees = torch.ones(C, dtype=torch.bool, device=dev)
             else:
-                sees = (r.segmask_tensor().to_torch()[:C] == 0).flatten(1).any(1)
-            # World 0's cube (instance 0) moves along all three axes, so the
-            # depth of every cube face any camera sees changes.
-            pos[0][0] += 0.03
-            pos[0][1] += 0.05
-            pos[0][2] += 0.02
+                sees = (r.segmask_tensor().to_torch()[:C] == moved).flatten(1).any(1)
+            # The instance moves along all three axes, so the depth of every
+            # face of it any camera sees changes.
+            pos[moved][0] += 0.03
+            pos[moved][1] += 0.05
+            pos[moved][2] += 0.02
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r.step()
@@ -1375,15 +1476,22 @@ def main() -> int:
                                      f"{changed.tolist()})")
             if not (torch.equal(depth0[C:], depth1[C:]) and torch.equal(rgb0[C:], rgb1[C:])):
                 raise AssertionError(f"{path} step {i}: world 1 changed without a mutation")
+            if record is not None:
+                record.append((r.state, r.depth_tensor().to_torch().clone(),
+                               r.segmask_tensor().to_torch().clone(),
+                               r.rgb_tensor().to_torch().clone()))
         counts = dict(rc.render_resident.variant_launches, **rc.shade_mip.variant_launches,
                       **pack_cuda.pack_rows.layout_launches)
         steps = 1 + WARMUP_STEPS + timed_steps
         kw = path_inputs(r)
-        name = variant(kw)
+        name = variant(dict(kw, seed=kw["cams"]) if r.cfg.warmstart else kw)
         pack_layout = pack_cuda.LAYOUTS[kw["geo"] != "prep"]
         expected = dict.fromkeys(kernel_names, 0)
         expected.update({part: steps for part in name.split("+")}, **{pack_layout: steps})
-        if counts != expected or rc.render_resident.launches != steps:
+        launched = steps
+        if r.cfg.warmstart and steps <= counts[name] <= 2 * steps:
+            launched = expected[name] = counts[name]  # the repair passes
+        if counts != expected or rc.render_resident.launches != launched:
             raise AssertionError(f"{path}: launches {counts} in {steps} steps, "
                                  f"expected {expected}")
         return r, step_s, counts, ctor_s, name
@@ -1451,6 +1559,7 @@ def main() -> int:
     # (name, path, inputs) of the timings on a second path's inputs.
     timing_kw, launches = {}, dict.fromkeys(kernel_names, 0)
     extra_timing = []
+    resident_kw = {}  # per resident terrain path: its last inputs for the other visits
 
     def add_launches(counts):
         for k, v in counts.items():
@@ -1732,6 +1841,96 @@ def main() -> int:
     time_path("bigmesh_512w", r, step_s, counts, ctor_s, bake)
     add_launches(counts)
     del r
+    cold_step_s = step_s
+
+    def work_of(walk):
+        return {k: walk[k] for k in ("gated", "slab_tests", "cluster_visits",
+                                     "triangle_visits")}
+
+    # bigmesh_512w_warm: bench.py:322-324 (opt-in; rollout :188-215),
+    # bigmesh_512w's scene with warmstart=True: each step seeded (K9 on the
+    # streamed ordered route) by the previous frame's depth and repaired where
+    # it missed. Every step's frames bitwise a cold render's of the same
+    # state; the A/B is bigmesh_512w's cold steps above, in this call.
+    record = []
+    r, step_s, counts, ctor_s, name = drive(
+        "bigmesh_512w_warm", m.RenderMode.Raytracer, BIGMESH_WORLDS, False, TIMED_STEPS,
+        cfg=scenes.bigmesh_config(BIGMESH_WORLDS, WIDTH, HEIGHT), record=record,
+        warmstart=True)
+    for i, (state, depth, seg, rgb) in enumerate(record):
+        cold = rc.render_resident(**rc.pack_inputs(state, r.scene, height=HEIGHT, width=WIDTH))
+        warm = (depth, seg, rgb.contiguous().view(torch.int32).squeeze(-1))
+        if not all(torch.equal(c, w) for c, w in zip(cold, warm)):
+            raise AssertionError(f"bigmesh_512w_warm step {i}: warm frames differ from cold")
+    emit({"phase": "warm_vs_cold", "path": "bigmesh_512w_warm", "steps": len(record),
+          "bitwise": True})
+    # The last step's main pass: its seed from the step before, and its walk
+    # against the cold walk of the same state.
+    prev = record[-2][1]
+    far = torch.tensor(r.cfg.far_plane, dtype=torch.float32, device=dev)
+    seed = torch.where(prev > 0, torch.minimum(prev * 1.01, far), far).contiguous()
+    # K9 on these inputs against the seeded plain version, bitwise.
+    kw = path_inputs(r)
+    seeded_kw = dict(kw, seed=seed)
+    check_render("bigmesh_512w_warm", seeded_kw, keep=True)
+    warm_walk, last_cold_walk = walks(seeded_kw), walks(kw)
+    timing_kw[name] = seeded_kw
+    steps = 1 + WARMUP_STEPS + TIMED_STEPS
+    time_path("bigmesh_512w_warm", r, step_s, counts, ctor_s, {
+        "route": name, "repair_passes": counts[name] - steps,
+        "cold_step_ms_median": statistics.median(cold_step_s) * 1e3,
+        "cold_step_ms_min": min(cold_step_s) * 1e3, "cold_step_ms_max": max(cold_step_s) * 1e3,
+        "step_device_ms": device_ms(r.step),
+        "walk_seeded": work_of(warm_walk), "walk_cold": work_of(last_cold_walk)})
+    add_launches(counts)
+    del r, record
+
+    # The resident terrain paths: bench.py's big-mesh scene at a 27 grid (S
+    # = 2,928 slots: resident, 366 clusters of 8): 4096 worlds at 64²
+    # ("auto" orders: K3 on resident rows) and 1024 at 128² ("auto" bins: K4
+    # on resident rows), world 0's cube moved each step. Every visit (K1's
+    # index order included) on the last step's inputs bitwise equal to the
+    # plain version and to the exports; the A/B: each timed step's inputs
+    # through the three visits at the kernel entry.
+    for path, n_worlds, res, visit in RESIDENT_PATHS:
+        record = []
+        r, step_s, counts, ctor_s, name = drive(
+            path, m.RenderMode.Raytracer, n_worlds, False, TIMED_STEPS, moved=1, size=res,
+            cfg=scenes.bigmesh_config(n_worlds, res, res, grid=RESIDENT_GRID), record=record)
+        kw = path_inputs(r)
+        if route(kw) != rc.Route(False, visit):
+            raise AssertionError(f"{path}: took {route(kw)}, not the resident {visit} visit")
+        visits = resident_visits(kw, r.state, r.scene)
+        exported = (record[-1][1], record[-1][2],
+                    record[-1][3].contiguous().view(torch.int32).squeeze(-1))
+        for v, vkw in zip(("index", "ordered", "binned"), visits):
+            out = check_render(path, vkw, keep=True)
+            if not all(torch.equal(o, e) for o, e in zip(out, exported)):
+                raise AssertionError(f"{path}: the {v} visit differs from the exports")
+        emit({"phase": "visits_vs_k1", "case": path, "visits": 3, "bitwise": True})
+        if not torch.isfinite(exported[0]).all() or not bool((exported[0] > 0).any()):
+            raise AssertionError(f"{path}: depth not finite or empty")
+        check_pack(path, r.state, r.scene, r.state.camera_pos[:, 0, :])
+        timing_kw[name] = next(vkw for vkw in visits if route(vkw) == route(kw))
+        ab = {"index": [], "ordered": [], "binned": []}
+        for state, *_ in record[WARMUP_STEPS:]:
+            vkws = resident_visits(rc.pack_inputs(state, r.scene, height=res, width=res), state,
+                                   r.scene)
+            for v, vkw in zip(ab, vkws):
+                ab[v].append(cuda_ms(lambda vkw=vkw: rc.render_resident(**vkw), 1))
+            del vkws
+        walk_work = {v: work_of(walks(vkw)) for v, vkw in zip(ab, visits)}
+        resident_kw[path] = [vkw for vkw in visits if route(vkw) != route(kw)]
+        extra = {"route": name, "tris_per_world": int(kw["rows"].shape[2]),
+                 "clusters_per_world": int(kw["clusters"].shape[2]),
+                 "bin_tile": visits[2]["bin_tile"],
+                 "step_device_ms": device_ms(r.step),
+                 **{f"ab_{v}_kernel_ms_median": statistics.median(t) for v, t in ab.items()},
+                 **{f"walk_{v}": w for v, w in walk_work.items()}}
+        time_path(path, r, step_s, counts, ctor_s, extra)
+        add_launches(counts)
+        del r, record, kw, visits
+        torch.cuda.empty_cache()
 
     # The binned terrain paths: tools/tpu_binned_bench.py's scene (32 worlds
     # of the 224-grid terrain, S = 100,352, 3,136 clusters a world) at 128²
@@ -1882,60 +2081,61 @@ def main() -> int:
         }
 
     def bound_of(kw):
-        """The render kernel's bound on these inputs and the work it counts:
-        the resident route's culls or the streamed route's walk, replayed."""
-        if streamed(kw):
-            walk = walks(kw)
-            work = {k: walk[k] for k in ("triangle_visits", "shadow_triangle_visits",
-                                         "cluster_visits", "clusters_streamed")}
-            return k5_bound(kw, walk), work
-        n_visits, shadow_visits = visits(kw)
-        work = {"triangle_visits": n_visits, "shadow_triangle_visits": shadow_visits}
-        return k1_bound(kw, n_visits, shadow_visits), work
+        """The render kernel's bound on these inputs and the work it counts,
+        from its walk replayed (K1's index order included)."""
+        walk = walks(kw)
+        work = {k: walk[k] for k in ("triangle_visits", "shadow_triangle_visits",
+                                     "cluster_visits", "clusters_streamed")}
+        return (k5_bound if streamed(kw) else resident_bound)(kw, walk), work
 
-    def render_row(name, kw, plain=True, bound=True):
+    def plain_ms(checked, name, kw, once, fn):
+        """The plain version's time on these inputs: the check's, where it
+        ran on them; else one cold call (``once``: the walks' inputs, seconds
+        long) or two warm ones."""
+        for checked_kw, ms in checked.get(name, ()):
+            if checked_kw is kw:
+                return ms
+        return cuda_ms(fn, 1, warm=False) if once else cuda_ms(fn, 2)
+
+    def source_of(kw):
+        return f"madrona_renderer_tpu_torch/csrc/{rc.library_of(route(kw), seeded(kw))}.cu"
+
+    def render_row(name, kw, plain=True, bound=True, reps=None):
         """A render variant's timing line; ``plain`` and ``bound`` False leave
         out the plain version's time and the replayed walk (None), for the
         terrain at 256² and 512², where the index-order sweep takes 20-70 s,
-        and for K5 on the terrain, whose walk's replay takes minutes."""
+        and for K5 on the terrain, whose walk's replay takes minutes. This
+        slice's kernels take ``reps`` launches a graph and their plain
+        version once, cold."""
         (bound_ms, bound_by, nbytes, ops), work = (
             bound_of(kw) if bound else ((None, None, None, None), {}))
-        reps = KERNEL_REPS if binned(kw) or not streamed(kw) or bound else KERNEL_REPS // 10
+        if reps is None:
+            reps = KERNEL_REPS if binned(kw) or not streamed(kw) or bound else KERNEL_REPS // 10
+        once = streamed(kw) or is_new(kw)
         return {
-            "name": name, "route": "cuda",
-            "source": "madrona_renderer_tpu_torch/csrc/" + (
-                "render_binned.cu" if binned(kw) else "render_resident.cu"),
+            "name": name, "route": "cuda", "source": source_of(kw),
             "replaces": "madrona_renderer_tpu/ops/raytrace_pallas.py:4872",
             "launches": launches[name], "max_abs_err": max_err[name],
             "ms": graph_ms(lambda: rc.render_resident(**kw), reps),
             "wrapper_ms": cuda_ms(lambda: rc.render_resident(**kw), reps),
-            "plain_ms": (cuda_ms(lambda: rc.render_resident_plain(**kw), 1, warm=False)
-                         if streamed(kw) else cuda_ms(
-                             lambda: rc.render_resident_plain(**kw), 2)) if plain else None,
+            "plain_ms": plain_ms(plain_of, name, kw, once,
+                                 lambda: rc.render_resident_plain(**kw)) if plain else None,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "views": int(kw["cams"].shape[0]), **work, "bytes": nbytes, "ops": ops,
         }
 
-    visits_of = {}
-
-    def visits(kw):
-        key = (kw["geo"], kw["raster"], kw["rows"].data_ptr(), kw["cams"].data_ptr())
-        if key not in visits_of:
-            visits_of[key] = k1_triangle_tests(kw)
-        return visits_of[key]
-
-    def handoff_row(name, kw):
+    def handoff_row(name, kw, reps=KERNEL_REPS):
         """K7's first launch alone (the render kernel's mip hand-off)."""
         (bound_ms, bound_by, nbytes, ops), work = bound_of(kw)
+        once = streamed(kw) or is_new(kw)
         return {
-            "name": name, "route": "cuda",
-            "source": "madrona_renderer_tpu_torch/csrc/render_resident.cu",
+            "name": name, "route": "cuda", "source": source_of(kw),
             "replaces": "madrona_renderer_tpu/ops/raytrace_pallas.py:4872",
             "launches": launches[name], "max_abs_err": max_err[name],
-            "ms": graph_ms(lambda: handoff(kw), KERNEL_REPS),
-            "wrapper_ms": cuda_ms(lambda: handoff(kw), KERNEL_REPS),
-            "plain_ms": (cuda_ms(lambda: handoff(kw, plain=True), 1, warm=False)
-                         if streamed(kw) else cuda_ms(lambda: handoff(kw, plain=True), 2)),
+            "ms": graph_ms(lambda: handoff(kw), reps),
+            "wrapper_ms": cuda_ms(lambda: handoff(kw), reps),
+            "plain_ms": plain_ms(handoff_plain_of, name, kw, once,
+                                 lambda: handoff(kw, plain=True)),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "views": int(kw["cams"].shape[0]), **work, "bytes": nbytes, "ops": ops,
         }
@@ -1958,8 +2158,7 @@ def main() -> int:
 
     def k7_row(kw):
         """Both K7 launches together, as the path runs them."""
-        n_visits, n_shadow = visits(kw)
-        _, _, b1, o1 = k1_bound(kw, n_visits, n_shadow)
+        _, _, b1, o1 = resident_bound(kw, walks(kw))
         _, _, b2, o2 = shade_mip_bound(kw, handoff(kw)[2])
         bound_ms, bound_by = roofline(b1 + b2, o1 + o2)
         name = variant(kw)
@@ -1989,6 +2188,15 @@ def main() -> int:
         kw = timing_kw[name]
         rows.append(handoff_row(name, kw) if is_k7(kw) else render_row(name, kw))
         emit({"phase": "timing", **rows[-1]})
+    # This slice's kernels (K3 and K4 on resident rows, K9): a path's own
+    # on its full-size inputs, the others on the 64-world inputs of their
+    # first kernel_vs_plain scene, NEW_KERNEL_REPS launches a graph.
+    for name in rc.RESIDENT_ORDERED_VARIANTS + rc.RESIDENT_BINNED_VARIANTS + rc.SEEDED_VARIANTS:
+        kw = timing_kw.get(name) or first_kw[name]
+        reps = KERNEL_REPS if name in timing_kw else NEW_KERNEL_REPS
+        rows.append(handoff_row(name, kw, reps) if is_k7(kw) else render_row(name, kw,
+                                                                                reps=reps))
+        emit({"phase": "timing", **rows[-1]})
     for name in rc.SHADE_MIP_VARIANTS:
         rows.append(shade_row(name, timing_kw[name]))
         emit({"phase": "timing", **rows[-1]})
@@ -1997,6 +2205,11 @@ def main() -> int:
     for name, path, inputs in extra_timing:
         row = k13_row(name, *inputs) if name in pack_cuda.LAYOUTS else render_row(name, inputs)
         emit({"phase": "timing", "inputs": path, **row})
+    # The resident terrain paths' A/B: the visits the path does not take, on
+    # its last inputs (the plain times of their checks there).
+    for path, visits in resident_kw.items():
+        for vkw in visits:
+            emit({"phase": "timing", "inputs": path, **render_row(variant(vkw), vkw)})
     # K4 on the larger terrain paths and K5 on each (the tool's A/B), on the
     # same inputs; K5's walk is not replayed there (minutes at these sizes).
     for path, res, kw, kw5 in terrain_timing:

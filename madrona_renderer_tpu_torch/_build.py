@@ -5,8 +5,10 @@ with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). Libraries land in ``build/torch_kernels/`` at the
 root of a source checkout, or in a per-user cache directory for an
 installed package (``cache_root``), named by a hash of the source, the
-sources it includes (``csrc/render_binned.cu`` includes
-``csrc/render_resident.cu``) and the flags, so an edited source or flag
+sources it includes (``csrc/render_binned.cu``,
+``csrc/render_resident_ordered.cu``, ``csrc/render_resident_binned.cu`` and
+``csrc/render_seeded.cu`` include ``csrc/render_resident.cu``) and the
+flags, so an edited source or flag
 rebuilds and an unchanged one loads at once. Nothing is built when this module is imported: the first call that
 launches a kernel builds it. The sources ship in the package
 (``pyproject.toml``'s package data).
@@ -84,6 +86,47 @@ SIGNATURES = {
          _F, _F,  # two_over_w two_over_h
          _I, _I, _I,  # raster tex_filter geo
          _I, _I, _I, _I,  # bins_x bin_shift n_bins n_bands
+         _P],  # stream
+    ),
+    "render_seeded": (
+        "mrt_render_seeded",
+        [_P, _P, _P, _P, _P,  # rows clusters cams mats pool
+         _I,  # n_mats
+         _P, _P, _P,  # depth seg rgb
+         _P, _P,  # code handoff (the mip hand-off)
+         _P, _P, _P, _P,  # order spans bins ranges (each or null)
+         _P,  # seed
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
+         _F, _F,  # two_over_w two_over_h
+         _I, _I, _I,  # raster tex_filter geo
+         _I, _I, _I, _I,  # bins_x bin_shift n_bins n_bands
+         _P],  # stream
+    ),
+    "render_resident_ordered": (
+        "mrt_render_resident_ordered",
+        [_P, _P, _P, _P, _P,  # rows clusters cams mats pool
+         _I,  # n_mats
+         _P, _P, _P,  # depth seg rgb
+         _P, _P,  # code handoff (the mip hand-off)
+         _P,  # order
+         _P,  # seed
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
+         _F, _F,  # two_over_w two_over_h
+         _I, _I, _I,  # raster tex_filter geo
+         _P],  # stream
+    ),
+    "render_resident_binned": (
+        "mrt_render_resident_binned",
+        [_P, _P, _P, _P, _P,  # rows clusters cams mats pool
+         _I,  # n_mats
+         _P, _P, _P,  # depth seg rgb
+         _P, _P,  # code handoff (the mip hand-off)
+         _P,  # bins
+         _P,  # seed
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
+         _F, _F,  # two_over_w two_over_h
+         _I, _I, _I,  # raster tex_filter geo
+         _I, _I, _I,  # bins_x bin_shift n_bins
          _P],  # stream
     ),
     "shade_mip": (

@@ -54,15 +54,8 @@ struct BinnedRoute {
   template <int GEO, bool RASTER, int TEX>
   static int run(const RenderArgs& a, const BinArgs& b, int num_views,
                  cudaStream_t stream) {
-    const int tiles_y = (a.height + kTileY - 1) / kTileY;
-    const dim3 grid(num_views, a.tiles_x * tiles_y);
-    const dim3 block(kTileX, kTileY);
-    const size_t smem =
-        sizeof(float) * ((size_t)2 * binned_stage_rows<GEO>() * a.cluster_size + a.n_cols);
-    const int err = set_smem(render_binned_kernel<GEO, RASTER, TEX>, smem);
-    if (err != 0) return err;
-    render_binned_kernel<GEO, RASTER, TEX><<<grid, block, smem, stream>>>(a, b);
-    return (int)cudaGetLastError();
+    return launch_grid(render_binned_kernel<GEO, RASTER, TEX>, a, num_views,
+                       binned_smem<GEO>(a), stream, a, b);
   }
 };
 

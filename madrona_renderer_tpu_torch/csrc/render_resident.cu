@@ -172,6 +172,33 @@
 // winner's prep rows at its sorted lane and its attributes at gi. A band
 // below the image sweeps nothing and starts at best_t = 0, so it never
 // holds the walk open.
+//
+// The resident visits (K3 and K4 on resident rows, RWALK, built by
+// csrc/render_resident_ordered.cu and csrc/render_resident_binned.cu, each
+// including this file and bringing its own entry point): the JAX factory's
+// ordered and binned sweeps over the resident SMEM rows (:2681-2699; perm
+// :4819-4832, bins :4762-4810). The block holds the world's rows, the
+// cluster table and the camera row in shared memory as K1 does, and walks
+// the view's front-to-back order (in shared memory after the camera row) or
+// the bin of its bin tile (in device memory, as K4 reads it) with the
+// streamed walk's early exit and slab slack, but with no row gate and no
+// staging: a visited cluster's valid prefix is swept from the shared rows,
+// exact-t ties to the lower triangle index.
+//
+// K9 (the factory's seeded switch, :1064-1069, :1205-1209; SEEDED, a
+// template switch of the raytrace variants of every route, each an entry of
+// its own beside the cold one, whose code stays as it was: a runtime
+// pointer in every entry moved 29 of the older entries' times past 1.5% on
+// an H100 (port_tools/tree_ab.py);
+// this file's routes' and K4's seeded entries build in csrc/render_seeded.cu,
+// the resident visits' in their own sources):
+// with a seed ([W*C, H, Wd] f32) each pixel's best_t starts at
+// min(seed, far) instead of far; a thread past the image edge starts at 0
+// (the TPU's padding lanes, _pack_seed_tiles :3968-3972), so it accepts
+// nothing and never holds a walk's exit back. A hit at exactly the seed is
+// a miss: the strict test t < best_t rejects it, and the tie rule's
+// t == best_t && i < best_idx cannot take it before a triangle has been
+// accepted (best_idx = -1).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -539,14 +566,15 @@ struct RenderArgs {
 };
 
 // The streamed route's inputs, the second parameter of its entry point (the
-// resident entry keeps its argument block as it was).
+// resident entry keeps its argument block as it was); the resident ordered
+// visit's order (no spans).
 struct StreamArgs {
   const int* order;  // [W*C, CC] cluster visit order of each view
   const int* spans;  // [W*C, 2, CC] pixel-row span (lo, hi) of each cluster
 };
 
 // The binned route's inputs (K4, csrc/render_binned.cu): the entry point's
-// second parameter.
+// second parameter; the resident binned visit's bins (no spans, no ranges).
 struct BinArgs {
   const int* bins;     // [W*C, n_bins, 1 + CC]: count, then the ids front to back
   const int* spans;    // [W*C, 2, CC] pixel-row spans at 8-row bands
@@ -573,16 +601,21 @@ __host__ __device__ constexpr int binned_stage_rows() {
 // geometry rows in shared memory, clusters in index order); true: the
 // streamed route (see the header), with BINNED its binned visit (K4: the
 // walk below reads the bin, the cluster table and the spans in device
-// memory where the ordered walk reads its shared copies).
-template <int GEO, bool RASTER, int TEX, bool STREAM, bool BINNED = false>
+// memory where the ordered walk reads its shared copies). RWALK (with STREAM
+// false): the resident visits, BINNED choosing the bin over the order.
+// SEEDED: K9, best_t starting from `seed` (unread otherwise).
+template <int GEO, bool RASTER, int TEX, bool STREAM, bool BINNED = false,
+          bool RWALK = false, bool SEEDED = false>
 __device__ __forceinline__ void render_body(const RenderArgs& a,
                                             const StreamArgs& st,
-                                            const BinArgs& bn = BinArgs{}) {
+                                            const BinArgs& bn = BinArgs{},
+                                            const float* seed = nullptr) {
   constexpr bool RAW = GEO != kGeoPrep;
   constexpr bool SHADOWS = GEO == kGeoRawShadows || GEO == kGeoRawWtShadows;
   constexpr bool WT = GEO >= kGeoRawWt;
-  // The binned visit on prep rows: row-sorted rows and triangle ranges.
-  constexpr bool RANGED = BINNED && GEO == kGeoPrep;
+  // The streamed binned visit on prep rows: row-sorted rows and triangle
+  // ranges.
+  constexpr bool RANGED = BINNED && STREAM && GEO == kGeoPrep;
   const int S = a.S, CC = a.CC;
   extern __shared__ __align__(16) float smem[];
   // Resident: [smem_geo_rows, S]; streamed: two staged clusters, each
@@ -603,7 +636,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
   const float* g_cam = a.cams + (size_t)view * a.n_cols;
   constexpr int kLoadRows =
       WT ? kWtRows : (RAW ? kRawRows : (RANGED ? kPrepRows + 1 : kPrepRows));
-  if constexpr (BINNED) {
+  if constexpr (BINNED && STREAM) {
     // K4: shared memory holds the two stage buffers and the camera row; the
     // cluster table, the bin of the block's bin tile (count, then ids) and
     // the 8-row-band spans are read in device memory through the pointers
@@ -614,12 +647,22 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
     s_cl = const_cast<float*>(g_cl);
     s_order = const_cast<int*>(bn.bins + ((size_t)view * bn.n_bins + bin) * (1 + CC) + 1);
     s_span = const_cast<int*>(bn.spans + (size_t)view * 2 * CC);
+  } else if constexpr (BINNED) {
+    // K4 on resident rows: the bin of the block's bin tile, in device memory.
+    const int bx = blockIdx.y % a.tiles_x, by = blockIdx.y / a.tiles_x;
+    const int bin = (by >> bn.bin_shift) * bn.bins_x + (bx >> bn.bin_shift);
+    s_order = const_cast<int*>(bn.bins + ((size_t)view * bn.n_bins + bin) * (1 + CC) + 1);
   }
   if constexpr (!STREAM && !WT) {
     for (int i = tid; i < kLoadRows * S; i += kThreads) s_geo[i] = g_rows[i];
   }
-  if constexpr (!BINNED) {
+  if constexpr (!BINNED || !STREAM) {
     for (int i = tid; i < kClRows * CC; i += kThreads) s_cl[i] = g_cl[i];
+  }
+  if constexpr (RWALK && !BINNED) {
+    // K3 on resident rows: the view's order, after the camera row.
+    const int* g_order = st.order + (size_t)view * CC;
+    for (int i = tid; i < CC; i += kThreads) s_order[i] = g_order[i];
   }
   for (int i = tid; i < a.n_cols; i += kThreads) s_cam[i] = g_cam[i];
   if constexpr (!STREAM && WT) {
@@ -714,6 +757,13 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
   // best_t starts at far: every accepted hit has t < far (:1199-1211). The
   // raw sweep carries the winner's (u, v) as well (:1461-1467).
   float best_t = far, best_u = 0.f, best_v = 0.f;
+  if constexpr (SEEDED) {
+    // K9: min(seed, far) as jnp.minimum takes it (a NaN seed stays NaN and
+    // accepts nothing); 0 past the image edge.
+    const bool in_image = px < a.width && py < a.height;
+    const float s = in_image ? seed[((size_t)view * a.height + py) * a.width + px] : 0.f;
+    best_t = s > far ? far : s;
+  }
   int best_idx = -1;
   // RANGED: the winner's sorted lane (its geometry rows), best_idx its
   // original index (its attributes, the tie rule, the segmask).
@@ -737,7 +787,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
   float* buf0 = s_geo;  // streamed: the two staged clusters
   float* buf1 = s_geo + smem_geo_rows<GEO>() * cs;
   if constexpr (BINNED) buf1 = s_geo + binned_stage_rows<GEO>() * cs;
-  if constexpr (!STREAM) {
+  if constexpr (!STREAM && !RWALK) {
     // The resident sweep keeps its own copy of the slab and prep tests
     // (slab() and prep_test() compute the same expressions): ptxas's
     // register allocation of these variants moves with the source's shape.
@@ -786,6 +836,64 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
           }
           const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
                           (t > t_lo) && (t < best_t);
+          if (ok) {
+            best_t = t;
+            best_idx = i;
+            if (RAW) {
+              best_u = u;
+              best_v = v;
+            }
+          }
+        }
+      }
+    }
+  } else if constexpr (!STREAM) {
+    // K3 / K4 on resident rows: the view's order (or the block's bin) with
+    // the streamed walk's early exit and slab slack; the rows are resident,
+    // so a visited cluster is swept at once. Each gate is uniform across the
+    // block (a block-wide OR, or a shared-memory value), so every thread
+    // leaves the loop together.
+    const int n = BINNED ? s_order[-1] : CC;
+    for (int p = 0; p < n; ++p) {
+      const int c = s_order[p];
+      if (!(s_cl[6 * CC + c] > 0.f)) break;  // invalid clusters sort last
+      // Occlusion early exit (:1740-1780): no pixel's best hit lies beyond
+      // this cluster's AABB, nor beyond any later one's.
+      const float ax =
+          fmaxf(fmaxf(s_cl[0 * CC + c] - ox, ox - s_cl[3 * CC + c]), 0.0f);
+      const float ay =
+          fmaxf(fmaxf(s_cl[1 * CC + c] - oy, oy - s_cl[4 * CC + c]), 0.0f);
+      const float az =
+          fmaxf(fmaxf(s_cl[2 * CC + c] - oz, oz - s_cl[5 * CC + c]), 0.0f);
+      const float d2 = ax * ax + ay * ay + az * az;
+      if (!__syncthreads_or(best_t * best_t > d2 * kExitSlack)) break;
+      float tmin, tmax;
+      slab(s_cl, CC, c, ox, oy, oz, ivx, ivy, ivz, tmin, tmax);
+      const bool possible =
+          (tmax >= tmin) && (tmax > near) && (tmin * kSlabSlack < best_t);
+      if (!__syncthreads_or(possible)) continue;
+      const int base = c * cs;
+      const int cnt = (int)s_cl[7 * CC + c];
+      for (int i = base; i < base + cnt; ++i) {
+        // The lower index wins an exact tie, whatever the visit order.
+        if constexpr (WT) {
+          float t;
+          if (woop_test(shear, s_geo + i, S, t) && s_geo[9 * S + i] > 0.f &&
+              t > t_lo && ((t < best_t) || (t == best_t && i < best_idx))) {
+            best_t = t;
+            best_idx = i;
+          }
+        } else {
+          float u, v, t;
+          if constexpr (RAW) {
+            pvec_test(dx, dy, dz, g3[i], g4[i], g5[i], g6[i], g7[i], g8[i],
+                      g9 + i, S, u, v, t);
+          } else {
+            prep_test(dx, dy, dz, s_geo + i, S, u, v, t);
+          }
+          const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
+                          (t > t_lo) &&
+                          ((t < best_t) || (t == best_t && i < best_idx));
           if (ok) {
             best_t = t;
             best_idx = i;
@@ -1186,10 +1294,55 @@ int set_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// The variant dispatch of the C entries, this file's and
-// csrc/render_binned.cu's: Route::run<GEO, RASTER, TEX>(a, x, num_views,
+// Shared memory of a block: resident (its geometry rows, the cluster table
+// and the camera row), streamed (the two staged clusters, the cluster table,
+// the camera row, the order and the spans) and binned (the two staged
+// clusters and the camera row).
+template <int GEO>
+size_t resident_smem(const RenderArgs& a) {
+  return sizeof(float) *
+         ((size_t)smem_geo_rows<GEO>() * a.S + (size_t)kClRows * a.CC + a.n_cols);
+}
+
+template <int GEO>
+size_t streamed_smem(const RenderArgs& a) {
+  return sizeof(float) * ((size_t)2 * smem_geo_rows<GEO>() * a.cluster_size +
+                          (size_t)kClRows * a.CC + a.n_cols) +
+         sizeof(int) * 3 * (size_t)a.CC;
+}
+
+template <int GEO>
+size_t binned_smem(const RenderArgs& a) {
+  return sizeof(float) *
+         ((size_t)2 * binned_stage_rows<GEO>() * a.cluster_size + a.n_cols);
+}
+
+// A route's entry argument and K9's seed (null: the cold entries), for the
+// routes with seeded entries.
+template <class X>
+struct Seeded {
+  X x;
+  const float* seed;
+};
+
+// One launch on the (views, tiles) grid of 16x16 blocks with `smem` bytes of
+// dynamic shared memory; cudaGetLastError() after it.
+template <class... Params, class... Args>
+int launch_grid(void (*kernel)(Params...), const RenderArgs& a, int num_views,
+                size_t smem, cudaStream_t stream, const Args&... args) {
+  const int err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  const int tiles_y = (a.height + kTileY - 1) / kTileY;
+  const dim3 grid(num_views, a.tiles_x * tiles_y);
+  const dim3 block(kTileX, kTileY);
+  kernel<<<grid, block, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// The variant dispatch of the C entries, this file's and those of the
+// sources that include it: Route::run<GEO, RASTER, TEX>(a, x, num_views,
 // stream) launches one instantiation with the route's own entry argument x
-// (StreamArgs here, BinArgs there).
+// (StreamArgs, BinArgs, or either with K9's seed: Seeded).
 template <class Route, int GEO, bool RASTER, class Extra>
 int launch_tex(const RenderArgs& a, const Extra& x, int num_views, int tex_filter,
                cudaStream_t stream) {
@@ -1254,33 +1407,20 @@ RenderArgs render_args(const float* rows, const float* clusters, const float* ca
   return a;
 }
 
-// csrc/render_binned.cu includes this file for the above and brings its own
-// entry point, route and C interface.
+// csrc/render_binned.cu, csrc/render_resident_ordered.cu,
+// csrc/render_resident_binned.cu and csrc/render_seeded.cu include this file
+// for the above and bring their own entry point, route and C interface.
 #ifndef MRT_RENDER_BODY_ONLY
 // The resident route, or with s.order the streamed route's ordered visit.
 struct ResidentRoute {
   template <int GEO, bool RASTER, int TEX>
   static int run(const RenderArgs& a, const StreamArgs& s, int num_views,
                  cudaStream_t stream) {
-    const int tiles_y = (a.height + kTileY - 1) / kTileY;
-    const dim3 grid(num_views, a.tiles_x * tiles_y);
-    const dim3 block(kTileX, kTileY);
-    if (s.order == nullptr) {
-      const size_t smem = sizeof(float) * ((size_t)smem_geo_rows<GEO>() * a.S +
-                                           (size_t)kClRows * a.CC + a.n_cols);
-      const int err = set_smem(render_resident_kernel<GEO, RASTER, TEX>, smem);
-      if (err != 0) return err;
-      render_resident_kernel<GEO, RASTER, TEX><<<grid, block, smem, stream>>>(a);
-    } else {
-      const size_t smem =
-          sizeof(float) * ((size_t)2 * smem_geo_rows<GEO>() * a.cluster_size +
-                           (size_t)kClRows * a.CC + a.n_cols) +
-          sizeof(int) * 3 * (size_t)a.CC;
-      const int err = set_smem(render_streamed_kernel<GEO, RASTER, TEX>, smem);
-      if (err != 0) return err;
-      render_streamed_kernel<GEO, RASTER, TEX><<<grid, block, smem, stream>>>(a, s);
-    }
-    return (int)cudaGetLastError();
+    if (s.order == nullptr)
+      return launch_grid(render_resident_kernel<GEO, RASTER, TEX>, a, num_views,
+                         resident_smem<GEO>(a), stream, a);
+    return launch_grid(render_streamed_kernel<GEO, RASTER, TEX>, a, num_views,
+                       streamed_smem<GEO>(a), stream, a, s);
   }
 };
 #endif  // MRT_RENDER_BODY_ONLY

@@ -53,7 +53,8 @@ from .core.frames import Frames
 from .core.scene import SceneData, bake_scene, configure_lighting
 from .core.state import SimState, init_state
 from .ops import raster_cuda, raytrace_cuda
-from .ops.ssaa import downsample_frames
+from .ops.ssaa import downsample_frames, upsample_depth
+from .ops.warmstart import raytrace_warmstart
 from .tensor import Tensor
 
 TIME_DELTA = 0.05  # timeUpdateSys increment (reference src/sim.cpp:73-77)
@@ -87,15 +88,16 @@ def _check_config(cfg: ManagerConfig) -> None:
         )
     if int(cfg.ssaa) < 1 or int(cfg.ssaa) != cfg.ssaa:
         raise ValueError(f"ssaa={cfg.ssaa} must be a positive integer")
-    unsupported = [
-        (bool(cfg.warmstart), "warmstart=True", 12),
-        (cfg.num_devices != 1, f"num_devices={cfg.num_devices}", 15),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet — ROADMAP Queue 1 item {item}"
-            )
+    if cfg.num_devices != 1:
+        raise NotImplementedError(
+            f"num_devices={cfg.num_devices} is not ported yet — ROADMAP Queue 1 item 15"
+        )
+    if cfg.warmstart and cfg.render_mode != RenderMode.Raytracer:
+        # The JAX Manager's gate (manager.py:241-246).
+        raise NotImplementedError(
+            "warmstart=True is a Raytracer feature (the raster path has no "
+            "segmask to drive the repair pass)"
+        )
 
 
 class Manager:
@@ -180,6 +182,14 @@ class Manager:
         self._step_fn = self._build_step_fn()
         self._frames: Optional[Frames] = None
         self._flat_frames = None
+        # warmstart=True: the previous frame's depth seeds the next render
+        # (ops/warmstart.py); the first step's seed is far everywhere.
+        self._prev_depth = None
+        if cfg.warmstart:
+            self._prev_depth = torch.full(
+                (cfg.num_worlds, self.state.max_cameras, cfg.batch_render_view_height,
+                 cfg.batch_render_view_width),
+                float(cfg.far_plane), dtype=torch.float32, device=self.device)
 
         # Prime first observations, exactly like the reference ctor
         # (src/mgr.cpp:524).
@@ -221,10 +231,22 @@ class Manager:
             carry["state"] = dataclasses.replace(state, time=state.time + TIME_DELTA)
             return carry
 
-        def render_sys(carry):
-            carry["frames"] = downsample_frames(
-                render(carry["state"], carry["scene"], **render_kwargs), ssaa)
-            return carry
+        if cfg.warmstart:
+            def render_sys(carry):
+                # Seeded by the previous frame's depth, repaired where it
+                # misses: bitwise a cold render (ops/warmstart.py). Under
+                # SSAA the fed-back depth is at output resolution; its
+                # nearest upsample is a seed like any other.
+                carry["frames"] = downsample_frames(raytrace_warmstart(
+                    carry["state"], carry["scene"],
+                    prev_depth=upsample_depth(carry["prev_depth"], ssaa),
+                    **render_kwargs), ssaa)
+                return carry
+        else:
+            def render_sys(carry):
+                carry["frames"] = downsample_frames(
+                    render(carry["state"], carry["scene"], **render_kwargs), ssaa)
+                return carry
 
         def export_flatten_sys(carry):
             # Flat [total_cams, ...] export tensors.
@@ -244,8 +266,8 @@ class Manager:
         render_builder.add_to_graph(export_flatten_sys, deps=(r_node,))
         run_graphs = tg.build_sequence()
 
-        def step_fn(state: SimState, scene: SceneData):
-            carry = run_graphs({"state": state, "scene": scene})
+        def step_fn(state: SimState, scene: SceneData, prev_depth=None):
+            carry = run_graphs({"state": state, "scene": scene, "prev_depth": prev_depth})
             return carry["state"], carry["frames"], carry["flat"]
 
         return step_fn
@@ -281,26 +303,34 @@ class Manager:
             self.state = dataclasses.replace(self.state, **updates)
 
     def step(self) -> None:
-        """Advance one step and render all views (OO path with mirrors)."""
+        """Advance one step and render all views (OO path with mirrors);
+        with ``warmstart`` the frames' depth seeds the next step."""
         self._upload_mirrors()
         self.state, self._frames, self._flat_frames = self._step_fn(
-            self.state, self.scene
+            self.state, self.scene, self._prev_depth
         )
+        if self.cfg.warmstart:
+            self._prev_depth = self._frames.depth
 
     def refresh_frames(self) -> None:
         """Re-render from the current state + mirror writes WITHOUT keeping
         the advanced state (the paused viewer's re-render)."""
         self._upload_mirrors()
-        _, self._frames, self._flat_frames = self._step_fn(self.state, self.scene)
+        _, self._frames, self._flat_frames = self._step_fn(
+            self.state, self.scene, self._prev_depth)
 
-    def step_state(self, state: SimState):
+    def step_state(self, state: SimState, prev_depth=None):
         """Pure step: (state) → (state', frames, flat_frames). The input
-        state is left as it was."""
-        return self._step_fn(state, self.scene)
+        state is left as it was. With ``warmstart`` the render is seeded by
+        ``prev_depth`` (a previous frames' depth), by default the Manager's
+        carried one."""
+        if self.cfg.warmstart and prev_depth is None:
+            prev_depth = self._prev_depth
+        return self._step_fn(state, self.scene, prev_depth)
 
     def render_state(self, state: SimState) -> Frames:
         """Render a state without advancing it."""
-        _, frames, _ = self._step_fn(state, self.scene)
+        _, frames, _ = self._step_fn(state, self.scene, self._prev_depth)
         return frames
 
     # ------------------------------------------------------------------ #

@@ -1,5 +1,6 @@
 """Batch raytracer: the render prologue, then kernel K1 (K1-raw, K8, K10,
-K2, K6, K7), or on meshes past the resident budget K3 + K5 or K4.
+K2, K6, K7) or K3 / K4 on resident rows, or on meshes past the resident
+budget K3 + K5 or K4; each raytrace variant seeded by K9 on request.
 
 The port of the main path of the JAX package's ``ops/raytrace_pallas.py``
 (``render_core``, :3998) for what its flags resolve to on scenes that fit
@@ -60,16 +61,28 @@ take the streamed route, with one of two visits (``visit_route``):
     index (``gi``), and the winner's attributes are read at it. The kernel
     takes the binned inputs as its own entry point's arguments, so the
     ordered route's entries keep their code.
+Resident scenes take one of three visits (``visit_route``, the JAX
+``render_core``'s ``ordered`` and ``binned``, :4272-4292): index order (K1)
+under 4 clusters a world; the front-to-back walk with the early exit (K3 on
+resident rows, ``csrc/render_resident_ordered.cu``: ``camera_cluster_order``
+in the prologue); or, where the JAX package bins, each block's bin tile's
+bin (K4 on resident rows, ``csrc/render_resident_binned.cu``:
+``band_cluster_bins``). The rows stay in shared memory; there are no row
+spans, row sort or triangle ranges on the resident route.
 Exact-t ties go to the lower triangle index on every route, so the visit
 changes only the work: the frames are the index-order sweep's
 (``render_resident_plain``, which puts row-sorted rows back in order
-first).
+first). K9 (``seed``, ``render_core(seed_t=)``): each pixel's best t starts
+at min(seed, far), a per-pixel bound that lets the walks stop sooner; the
+warm start (``ops/warmstart.py``) is built on it.
 
 Scenes outside these paths raise ``NotImplementedError`` naming the ROADMAP
 item that ports them (``check_supported``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -140,7 +153,25 @@ _BAND = 8
 _BIN_ENTRIES = 1 << 25
 _AUTO_BIN_MIN_CLUSTERS = 64
 _AUTO_BIN_MIN_TILES = 4
+# The resident ordered visit (K3 on resident rows) from 4 clusters a world
+# (the JAX package's MRT_ORDERED_MIN default, render_core :4291-4292); under
+# accel="auto" culling needs 16 triangles and 2 clusters a world (:4042).
+_ORDERED_MIN_CLUSTERS = 4
+_AUTO_CULL_MIN_TRIS = 16
+_AUTO_CULL_MIN_CLUSTERS = 2
 ACCELS = ("auto", "clusters", "binned")
+
+
+class Route(NamedTuple):
+    """Where the world's rows live and how a block visits its clusters:
+    ``streamed`` (rows past the resident budget, staged from device memory)
+    or resident (in shared memory); ``visit`` ``"index"`` (every cluster in
+    index order, K1), ``"ordered"`` (each view's front-to-back order with
+    the occlusion early exit, K3) or ``"binned"`` (the bin of the block's
+    bin tile, K4)."""
+
+    streamed: bool
+    visit: str
 
 
 def _cam_valid_col(n_lights: int) -> int:
@@ -165,7 +196,10 @@ def has_mips(scene: SceneData) -> bool:
 def is_streamed(state: SimState, scene: SceneData) -> bool:
     """The world's rows exceed the resident budget: the streamed route
     (``render_core``'s ``dma_tris``, :4265-4266)."""
-    S = state.max_instances * scene.tris_per_object
+    return _streamed_slots(state.max_instances * scene.tris_per_object)
+
+
+def _streamed_slots(S: int) -> bool:
     return _TRI_ROWS * S * 4 > SMEM_TRI_BUDGET
 
 
@@ -188,17 +222,19 @@ def check_accel(accel: str) -> None:
 
 
 def visit_route(state: SimState, scene: SceneData, height: int, width: int,
-                accel: str = "auto"):
-    """The kernel's cluster visit: None on resident scenes (K1, whatever
-    ``accel`` says), else ``"binned"`` (K4) or ``"ordered"`` (K3 + K5).
-    ``render_core``'s ``binned`` (:4272-4280), evaluated on the TPU tiling
-    (``mips.tile_geometry``) so that the port bins the scenes the JAX package
-    bins: ``accel="binned"``, or ``"auto"`` with at least 64 clusters a world,
-    4 TPU tiles and at most 2^25 dense bin entries. A cluster table too large
-    for the ordered route's shared memory takes the binned route too."""
+                accel: str = "auto") -> Route:
+    """The kernel's route: ``render_core``'s ``dma_tris``, ``binned`` and
+    ``ordered`` (:4265-4292), evaluated on the TPU tiling
+    (``mips.tile_geometry``) so that the port visits as the JAX package
+    does. Binned: ``accel="binned"``, or ``"auto"`` with at least 64
+    clusters a world, 4 TPU tiles and at most 2^25 dense bin entries; else
+    ordered on the streamed route and on resident worlds of at least 4
+    clusters (under ``"auto"`` with at least 16 triangles: the JAX package's
+    cluster gate), else index order (K1). A streamed cluster table too
+    large for the ordered walk's shared memory takes the binned visit
+    too."""
     check_accel(accel)
-    if not is_streamed(state, scene):
-        return None
+    streamed = is_streamed(state, scene)
     n_cl = state.max_instances * int(scene.cl_valid.shape[1])
     size = scene.tris_per_object // int(scene.cl_valid.shape[1])
     views = int(state.camera_pos.shape[0]) * state.max_cameras
@@ -207,9 +243,16 @@ def visit_route(state: SimState, scene: SceneData, height: int, width: int,
         accel == "auto" and n_cl >= _AUTO_BIN_MIN_CLUSTERS
         and n_tiles >= _AUTO_BIN_MIN_TILES
         and views * n_tiles * (n_cl + 1) <= _BIN_ENTRIES)
-    if streamed_smem_bytes(n_cl, size, int(scene.light_dir.shape[0])) > _MAX_SMEM:
-        binned = True
-    return "binned" if binned else "ordered"
+    if streamed:
+        if streamed_smem_bytes(n_cl, size, int(scene.light_dir.shape[0])) > _MAX_SMEM:
+            binned = True
+        return Route(True, "binned" if binned else "ordered")
+    culled = accel != "auto" or (state.max_instances * scene.tris_per_object
+                                 >= _AUTO_CULL_MIN_TRIS
+                                 and n_cl >= _AUTO_CULL_MIN_CLUSTERS)
+    if binned:
+        return Route(False, "binned")
+    return Route(False, "ordered" if culled and n_cl >= _ORDERED_MIN_CLUSTERS else "index")
 
 
 def bin_tile_for(num_views: int, height: int, width: int, n_clusters: int) -> int:
@@ -709,14 +752,17 @@ def pack_inputs(
     without shadows or ``watertight`` and the raw layout otherwise
     (``render_core`` :4342-4347, :4425-4436); ``geo`` names the kernel's
     sweep: ``"prep"``, ``"raw"`` or, with ``shadows``, ``"raw_shadows"``,
-    and under ``watertight`` ``"raw_wt"`` or ``"raw_wt_shadows"``. On the
-    streamed route (``visit_route``) the ordered visit takes ``order`` and
-    ``spans`` (each view's cluster order and row spans at 16-row bands); the
-    binned visit (K4) takes ``bins`` (``band_cluster_bins`` at the bin tile
-    ``bin_tile``, ``bin_tile_for``'s), ``spans`` at 8-row bands
-    and, on prep rows, ``ranges`` ``[W, CC, bands, 2]`` (each cluster's
-    sorted-local triangle range (lo, hi) per 8-row band) with the rows
-    row-sorted (``row_sorted``); unused entries are None."""
+    and under ``watertight`` ``"raw_wt"`` or ``"raw_wt_shadows"``. The
+    ordered visit (``visit_route``) takes ``order`` (each view's cluster
+    order), the binned visit ``bins`` (``band_cluster_bins`` at the bin tile
+    ``bin_tile``, ``bin_tile_for``'s). On the streamed route the ordered
+    visit takes ``spans`` too (row spans at 16-row bands), and the binned
+    visit (K4) ``spans`` at 8-row bands and, on prep rows, ``ranges``
+    ``[W, CC, bands, 2]`` (each cluster's sorted-local triangle range (lo,
+    hi) per 8-row band) with the rows row-sorted (``row_sorted``); the
+    resident visits take no spans, sort and ranges (the JAX package builds
+    them for its deferred sweep only, :4373-4378, :4402-4410). Unused
+    entries are None."""
     check_supported(state, scene, texture_filter)
     route = visit_route(state, scene, height, width, accel)
     # Effective per-camera view parameters (0 = inherit the call defaults).
@@ -742,18 +788,19 @@ def pack_inputs(
     cl_lo, cl_hi, cl_valid, cl_count = world_clusters(state, scene)
     clusters = _pack_clusters(cl_lo, cl_hi, cl_valid, cl_count)
     order = spans = bins = ranges = bin_tile = None
-    if route is not None:
+    if route.visit != "index":
         order = camera_cluster_order(cl_lo, cl_hi, cl_valid, state.camera_pos)
+    if route.streamed:
         spans = camera_cluster_rowspans(cl_lo, cl_hi, cl_valid, state, eff_fov, height,
-                                        g_rows=_BAND if route == "binned" else _TILE)
-    if route == "binned":
+                                        g_rows=_BAND if route.visit == "binned" else _TILE)
+    if route.visit == "binned":
         views, CC = order.shape
         bin_tile = bin_tile_for(views, height, width, CC)
         tx, ty = -(-width // bin_tile), -(-height // bin_tile)
         bins = band_cluster_bins(cl_lo, cl_hi, cl_valid, state, eff_fov, height, width,
                                  tx * ty, tx, bin_tile, bin_tile, order=order)
         order = None
-        if geo == "prep":
+        if route.streamed and geo == "prep":
             p = planar_soup_parts(state, scene, what="geo")
             W = p["valid"].shape[0]
             planes = [tuple(x.reshape(W, -1) for x in p[k]) for k in ("v0", "e1", "e2")]
@@ -798,26 +845,71 @@ def pack_inputs(
 # --------------------------------------------------------------------- #
 # Kernel K1 (K1-raw, K8, K2, K6, K7's first launch) and its plain version
 # --------------------------------------------------------------------- #
-def variant_name(raster: bool, texture, geo: str = "prep",
-                 streamed: bool = False, binned: bool = False) -> str:
-    """The name of one instantiation of the render kernel:
-    ``render_resident`` (``render_streamed`` on the streamed route's ordered
-    visit, K3 + K5; ``render_binned`` on its binned visit, K4) plus ``_raw`` (K1-raw), ``_raw_shadows`` (K8), ``_raw_wt`` or
-    ``_raw_wt_shadows`` (K10), ``_raster`` (K2) and
-    ``_tex_nearest`` / ``_tex_bilinear`` (K6) or ``_tex_mip`` (the hand-off,
-    K7's first launch)."""
-    name = "render_binned" if binned else "render_streamed" if streamed else "render_resident"
+INDEX = Route(False, "index")
+# Each route's kernel name (the variants' prefix) and the csrc/ library that
+# holds its entries.
+_ROUTE_NAMES = {
+    INDEX: "render_resident",
+    Route(False, "ordered"): "render_resident_ordered",
+    Route(False, "binned"): "render_resident_binned",
+    Route(True, "ordered"): "render_streamed",
+    Route(True, "binned"): "render_binned",
+}
+_ROUTE_LIBRARIES = {INDEX: "render_resident", Route(True, "ordered"): "render_resident",
+                    Route(True, "binned"): "render_binned",
+                    Route(False, "ordered"): "render_resident_ordered",
+                    Route(False, "binned"): "render_resident_binned"}
+
+
+def library_of(route: Route, seeded: bool) -> str:
+    """The csrc/ library of a launch: K9 on K1, K3 + K5 and K4 builds in
+    ``render_seeded.cu``, the resident visits' seeded entries in their own
+    sources."""
+    if seeded and route in (INDEX, Route(True, "ordered"), Route(True, "binned")):
+        return "render_seeded"
+    return _ROUTE_LIBRARIES[route]
+
+
+def route_of(order=None, spans=None, bins=None) -> Route:
+    """The route a launch on these visit inputs takes: streamed with row
+    spans (``pack_inputs`` gives them past the resident budget), resident
+    without; ordered with an order, binned with bins, else index order."""
+    visit = "binned" if bins is not None else "ordered" if order is not None else "index"
+    return Route(spans is not None, visit)
+
+
+def variant_name(raster: bool, texture, geo: str = "prep", route: Route = INDEX,
+                 seeded: bool = False) -> str:
+    """The name of one instantiation of the render kernel: the route's
+    (``render_resident``, K1; ``render_resident_ordered`` / ``_binned``, K3
+    and K4 on resident rows; ``render_streamed``, K3 + K5;
+    ``render_binned``, K4), ``_seeded`` (K9), then ``_raw`` (K1-raw),
+    ``_raw_shadows`` (K8), ``_raw_wt`` or ``_raw_wt_shadows`` (K10),
+    ``_raster`` (K2) and ``_tex_nearest`` / ``_tex_bilinear`` (K6) or
+    ``_tex_mip`` (the hand-off, K7's first launch)."""
+    name = _ROUTE_NAMES[route] + ("_seeded" if seeded else "")
     name += "" if geo == "prep" else f"_{geo}"
     name += "_raster" if raster else ""
     return name + (f"_tex_{texture}" if texture else "")
 
 
-# csrc/render_resident.cu's entries (resident and ordered) and
-# csrc/render_binned.cu's (K4).
-VARIANTS = tuple(variant_name(r, t, g, st) for st in (False, True) for g in _GEO_CODES
-                 for r in (False, True) for t in _TEX_CODES)
-BINNED_VARIANTS = tuple(variant_name(r, t, g, binned=True) for g in _GEO_CODES
-                        for r in (False, True) for t in _TEX_CODES)
+def _route_variants(*routes, seeded: bool = False) -> tuple:
+    return tuple(variant_name(r, t, g, route, seeded) for route in routes
+                 for g in _GEO_CODES for r in ((False,) if seeded else (False, True))
+                 for t in _TEX_CODES)
+
+
+# csrc/render_resident.cu's cold entries (resident and streamed ordered),
+# csrc/render_binned.cu's (K4), the resident visits' sources' (K3 and K4 on
+# resident rows), and every route's seeded raytrace entries (K9, each
+# source's own).
+VARIANTS = _route_variants(INDEX, Route(True, "ordered"))
+BINNED_VARIANTS = _route_variants(Route(True, "binned"))
+RESIDENT_ORDERED_VARIANTS = _route_variants(Route(False, "ordered"))
+RESIDENT_BINNED_VARIANTS = _route_variants(Route(False, "binned"))
+SEEDED_VARIANTS = _route_variants(*_ROUTE_NAMES, seeded=True)
+RENDER_VARIANTS = (VARIANTS + BINNED_VARIANTS + RESIDENT_ORDERED_VARIANTS
+                   + RESIDENT_BINNED_VARIANTS + SEEDED_VARIANTS)
 SHADE_MIP_VARIANTS = tuple(f"shade_mip_{f}" for f in shade.MIP_FILTERS)
 
 
@@ -849,28 +941,29 @@ def _check_mip_table(table, fb_rows) -> None:
                          f"got {tuple(table.shape)}")
 
 
-def _check_stream(order, spans, num_views: int, n_clusters: int, device, bins=None,
-                  ranges=None, bin_tile=None, height=0, width=0, rows=None,
-                  geo="prep") -> None:
+def _check_visit(order, spans, num_views: int, n_clusters: int, device, bins=None,
+                 ranges=None, bin_tile=None, height=0, width=0, rows=None,
+                 geo="prep") -> None:
     if order is not None and bins is not None:
-        raise ValueError("the streamed route takes order (ordered) or bins (binned), not both")
-    if (order is None and bins is None) != (spans is None):
+        raise ValueError("a visit takes order (ordered) or bins (binned), not both")
+    if spans is not None and order is None and bins is None:
         raise ValueError("the streamed route needs both order and spans, or bins and spans")
-    if spans is None:
-        if ranges is not None:
-            raise ValueError("ranges are for the binned route")
-        return
-    checks = [("spans", spans, (num_views, 2, n_clusters))]
+    if spans is None and _streamed_slots(int(rows.shape[2])):
+        raise ValueError(f"{rows.shape[2]} triangles a world are past the resident budget: "
+                         "the streamed route needs order or bins, and spans")
+    if ranges is not None and (bins is None or spans is None):
+        raise ValueError("ranges are for the streamed binned route")
+    checks = []
+    if spans is not None:
+        checks.append(("spans", spans, (num_views, 2, n_clusters)))
     if order is not None:
         checks.append(("order", order, (num_views, n_clusters)))
-        if ranges is not None:
-            raise ValueError("ranges are for the binned route")
-    else:
+    if bins is not None:
         if bin_tile not in tuple(_TILE << k for k in range(16)):
             raise ValueError(f"bin_tile must be 16·2^k, got {bin_tile!r}")
         n_bins = -(-height // bin_tile) * -(-width // bin_tile)
         checks.append(("bins", bins, (num_views, n_bins, 1 + n_clusters)))
-        if (ranges is not None) != (geo == "prep"):
+        if spans is not None and (ranges is not None) != (geo == "prep"):
             raise ValueError("the binned route takes ranges with prep rows and only then")
         if ranges is not None:
             checks.append(("ranges", ranges, (rows.shape[0], n_clusters,
@@ -883,9 +976,22 @@ def _check_stream(order, spans, num_views: int, n_clusters: int, device, bins=No
             raise ValueError(f"{name} is on {t.device}, not {device}")
 
 
+def _check_seed(seed, rows, shape, raster: bool) -> None:
+    if seed is None:
+        return
+    if raster:
+        raise ValueError("a seed is for the raytrace conventions (K9 has no raster variants)")
+    if seed.dtype != torch.float32 or not seed.is_contiguous() or tuple(seed.shape) != shape:
+        raise ValueError(f"seed must be a contiguous float32 {list(shape)} tensor, got "
+                         f"{seed.dtype} {tuple(seed.shape)}")
+    if seed.device != rows.device:
+        raise ValueError(f"seed is on {seed.device}, not {rows.device}")
+
+
 def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
                   seg_div, texture, mats, pool, geo, fb_rows=None, order=None,
-                  spans=None, bins=None, ranges=None, bin_tile=None) -> None:
+                  spans=None, bins=None, ranges=None, bin_tile=None, seed=None,
+                  raster=False) -> None:
     if geo not in _GEO_CODES:
         raise ValueError(f"geo must be one of {tuple(_GEO_CODES)}, got {geo!r}")
     if geo == "prep" and num_cams != 1:
@@ -929,15 +1035,16 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
         )
     if height < 1 or width < 1 or seg_div < 1:
         raise ValueError(f"bad height/width/seg_div {height}/{width}/{seg_div}")
-    _check_stream(order, spans, W * num_cams, CC, rows.device, bins, ranges, bin_tile,
-                  height, width, rows, geo)
+    _check_visit(order, spans, W * num_cams, CC, rows.device, bins, ranges, bin_tile,
+                 height, width, rows, geo)
+    _check_seed(seed, rows, (W * num_cams, height, width), raster)
 
 
 def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
                     height: int, width: int, seg_div: int, raster: bool = False,
                     texture=None, mats=None, pool=None, geo: str = "prep",
                     fb_rows=None, order=None, spans=None, bins=None, ranges=None,
-                    bin_tile=None):
+                    bin_tile=None, seed=None):
     """The render kernel. Returns ``(depth f32, segmask i32, rgb i32-packed)``,
     each ``[W·C, height, width]``, in their final masked form: depth is t
     (raster: camera-plane z), segmask idx // seg_div (raster: -1).
@@ -950,23 +1057,28 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
     ``"prep"`` (one camera per world), ``"raw"``, or ``"raw_shadows"``,
     which shades each light only where nothing lies between the hit point
     and the light; ``"raw_wt"`` and ``"raw_wt_shadows"`` decide the primary
-    hits by the watertight Woop test (K10). With ``order`` and ``spans``
-    (``pack_inputs`` on a mesh past the resident budget) the kernel takes
-    the streamed route's ordered visit; with ``bins``, ``spans``,
-    ``bin_tile`` and on prep rows ``ranges``, its binned visit (K4,
-    ``csrc/render_binned.cu``).
+    hits by the watertight Woop test (K10). The visit (``route_of``): with
+    ``order`` the front-to-back walk, on resident rows (K3,
+    ``csrc/render_resident_ordered.cu``) or with ``spans`` (``pack_inputs``
+    on a mesh past the resident budget) the streamed route's (K3 + K5); with
+    ``bins`` and ``bin_tile`` the binned walk, on resident rows (K4,
+    ``csrc/render_resident_binned.cu``) or with ``spans`` and on prep rows
+    ``ranges`` the streamed route's (K4, ``csrc/render_binned.cu``);
+    without either, every cluster in index order (K1). ``seed`` (K9, f32
+    ``[W·C, height, width]`` or None): each pixel's search starts at
+    ``min(seed, far)``, so a hit at or beyond its seed is a miss.
 
-    Tensors on the card launch ``csrc/render_resident.cu`` (binned:
-    ``csrc/render_binned.cu``) on their device's current stream; tensors on
-    the CPU run ``render_resident_plain``. Each launch adds one to
-    ``render_resident.launches`` and to its variant's entry of
+    Tensors on the card launch the route's kernel on their device's current
+    stream; tensors on the CPU run ``render_resident_plain``. Each launch
+    adds one to ``render_resident.launches`` and to its variant's entry of
     ``render_resident.variant_launches``."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
                   seg_div, texture, mats, pool, geo, fb_rows, order, spans, bins,
-                  ranges, bin_tile)
+                  ranges, bin_tile, seed, raster)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height,
               width=width, seg_div=seg_div, raster=raster, geo=geo,
-              order=order, spans=spans, bins=bins, ranges=ranges, bin_tile=bin_tile)
+              order=order, spans=spans, bins=bins, ranges=ranges, bin_tile=bin_tile,
+              seed=seed)
     if rows.device.type == "cpu":
         return render_resident_plain(rows, clusters, cams, texture=texture,
                                      mats=mats, pool=pool, fb_rows=fb_rows, **kw)
@@ -982,7 +1094,7 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
 def render_handoff(rows, clusters, cams, *, num_cams: int, n_lights: int,
                    height: int, width: int, seg_div: int, raster: bool = False,
                    geo: str = "prep", order=None, spans=None, bins=None, ranges=None,
-                   bin_tile=None):
+                   bin_tile=None, seed=None):
     """K7's first launch: the render kernel in its mip hand-off mode.
     Returns ``(depth, segmask, code, handoff)``: depth and segmask as
     ``render_resident`` writes them, ``code`` i32 ``[W·C, H, Wd]`` (the
@@ -993,10 +1105,11 @@ def render_handoff(rows, clusters, cams, *, num_cams: int, n_lights: int,
     on the CPU."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
                   seg_div, None, None, None, geo, None, order, spans, bins, ranges,
-                  bin_tile)
+                  bin_tile, seed, raster)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height,
               width=width, seg_div=seg_div, raster=raster, geo=geo,
-              order=order, spans=spans, bins=bins, ranges=ranges, bin_tile=bin_tile)
+              order=order, spans=spans, bins=bins, ranges=ranges, bin_tile=bin_tile,
+              seed=seed)
     if rows.device.type == "cpu":
         return render_handoff_plain(rows, clusters, cams, **kw)
     return _launch_render(rows, clusters, cams, texture="mip", **kw)
@@ -1004,7 +1117,8 @@ def render_handoff(rows, clusters, cams, *, num_cams: int, n_lights: int,
 
 def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
                    seg_div, raster, texture, geo, mats=None, pool=None,
-                   order=None, spans=None, bins=None, ranges=None, bin_tile=None):
+                   order=None, spans=None, bins=None, ranges=None, bin_tile=None,
+                   seed=None):
     if rows.device.type != "cuda":
         raise ValueError(f"render_resident runs on cuda or cpu, not {rows.device}")
     W, _, S = rows.shape
@@ -1013,12 +1127,11 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     tiles = -(-height // 16) * -(-width // 16)
     if tiles > 65535:
         raise ValueError(f"{height}x{width} needs {tiles} tiles; the grid takes 65535")
-    streamed = order is not None
-    binned = bins is not None
-    if (streamed or binned) and ((S // CC) % 4 or rows.data_ptr() % 16):
+    route = route_of(order, spans, bins)
+    if route.streamed and ((S // CC) % 4 or rows.data_ptr() % 16):
         raise ValueError("the streamed route copies 16-byte slices: the cluster "
                          "size must be a multiple of 4 and rows 16-byte aligned")
-    if streamed:
+    if route == Route(True, "ordered"):
         smem = streamed_smem_bytes(CC, S // CC, n_lights)
         if smem > _MAX_SMEM:
             raise ValueError(f"{CC} clusters need {smem} bytes of shared memory "
@@ -1034,7 +1147,7 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
         handoff = torch.empty((_HANDOFF_PLANES,) + shape, dtype=torch.float32, device=dev)
     else:
         rgb = torch.empty(shape, dtype=torch.int32, device=dev)
-    # The two C entries share their arguments but for the visit's.
+    # The C entries share their arguments but for the visit's.
     head = [rows.data_ptr(), clusters.data_ptr(), cams.data_ptr(),
             mats.data_ptr() if sampled else None, pool.data_ptr() if sampled else None,
             int(mats.shape[1]) if sampled else 0,
@@ -1045,17 +1158,26 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
               float(np.float32(2.0 / width)), float(np.float32(2.0 / height)),
               int(raster), _TEX_CODES[texture], _GEO_CODES[geo]]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if binned:
-        kernel = "render_binned"
-        visit = [bins.data_ptr(), spans.data_ptr(),
-                 ranges.data_ptr() if ranges is not None else None]
-        tail = [-(-width // bin_tile), bin_tile.bit_length() - _TILE.bit_length(),
-                int(bins.shape[1]), -(-height // _BAND), stream]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    bin_args = [0, 0, 0] if bins is None else [
+        -(-width // bin_tile), bin_tile.bit_length() - _TILE.bit_length(), int(bins.shape[1])]
+    n_bands = -(-height // _BAND)
+    kernel = library_of(route, seed is not None)
+    if kernel == "render_seeded":  # K9 on K1, K3 + K5 and K4
+        visit = [ptr(order), ptr(spans), ptr(bins), ptr(ranges), seed.data_ptr()]
+        tail = bin_args + [n_bands, stream]
+    elif route == Route(True, "binned"):
+        visit = [bins.data_ptr(), spans.data_ptr(), ptr(ranges)]
+        tail = bin_args + [n_bands, stream]
+    elif route == Route(False, "binned"):
+        visit, tail = [bins.data_ptr(), ptr(seed)], bin_args + [stream]
+    elif route == Route(False, "ordered"):
+        visit, tail = [order.data_ptr(), ptr(seed)], [stream]
     else:
-        kernel = "render_resident"
-        visit = [order.data_ptr() if streamed else None,
-                 spans.data_ptr() if streamed else None]
-        tail = [stream]
+        visit, tail = [ptr(order), ptr(spans)], [stream]
     launch = _build.load(kernel)
     with torch.cuda.device(dev):
         err = launch(*head, *visit, *params, *tail)
@@ -1063,12 +1185,12 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
         raise RuntimeError(f"{kernel} launch failed: {launch.error_string(err)}")
     render_resident.launches += 1
     render_resident.variant_launches[
-        variant_name(raster, texture, geo, streamed, binned)] += 1
+        variant_name(raster, texture, geo, route, seed is not None)] += 1
     return (depth, seg, code, handoff) if mip else (depth, seg, rgb)
 
 
 render_resident.launches = 0
-render_resident.variant_launches = dict.fromkeys(VARIANTS + BINNED_VARIANTS, 0)
+render_resident.variant_launches = dict.fromkeys(RENDER_VARIANTS, 0)
 
 
 # --------------------------------------------------------------------- #
@@ -1252,25 +1374,25 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
                           seg_div: int, raster: bool = False, texture=None,
                           mats=None, pool=None, geo: str = "prep",
                           fb_rows=None, order=None, spans=None, bins=None,
-                          ranges=None, bin_tile=None):
+                          ranges=None, bin_tile=None, seed=None):
     """The kernel in torch ops, on any device: the same expressions in the
     same order, with no cluster cull (the culls only skip work). A loop over
     the S triangles in ascending chunks carries (best_t, best_idx) — and on
     raw rows the winner's (u, v) — as ``[W·C, H·Wd]`` tensors, each chunk
     taking its first triangle at its least accepted t where that beats
     best_t (the strict-< running sweep: the lowest index wins an exact tie);
-    with shadows, a loop over the S triangles per light ORs the occlusion.
+    best_t starts at far, or with ``seed`` (K9) at ``min(seed, far)``; with
+    shadows, a loop over the S triangles per light ORs the occlusion.
     With ``fb_rows`` (K7):
     ``render_handoff_plain``, then ``shade_mip_plain``. It is the plain
-    version of every route: the streamed route's visit order, bins and culls
-    only skip work, and exact ties go to the lower index on all. Row-sorted
-    rows (the binned route's ``ranges``) are put back in triangle order
-    first."""
+    version of every route: the visit orders, bins and culls only skip
+    work, and exact ties go to the lower index on all. Row-sorted rows (the
+    binned route's ``ranges``) are put back in triangle order first."""
     del clusters, order, spans, bins, bin_tile  # the plain version sweeps every triangle
     if ranges is not None:
         rows = _index_order_rows(rows)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height, width=width,
-              seg_div=seg_div, raster=raster, geo=geo)
+              seg_div=seg_div, raster=raster, geo=geo, seed=seed)
     if fb_rows is None:
         return _render_plain(rows, cams, texture=texture, mats=mats, pool=pool,
                              **kw)
@@ -1283,14 +1405,14 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
 def render_handoff_plain(rows, clusters, cams, *, num_cams: int, n_lights: int,
                          height: int, width: int, seg_div: int,
                          raster: bool = False, geo: str = "prep", order=None,
-                         spans=None, bins=None, ranges=None, bin_tile=None):
+                         spans=None, bins=None, ranges=None, bin_tile=None, seed=None):
     """``render_handoff`` in torch ops, on any device."""
     del clusters, order, spans, bins, bin_tile  # the plain version sweeps every triangle
     if ranges is not None:
         rows = _index_order_rows(rows)
     return _render_plain(rows, cams, num_cams=num_cams, n_lights=n_lights,
                          height=height, width=width, seg_div=seg_div,
-                         raster=raster, texture="mip", geo=geo)
+                         raster=raster, texture="mip", geo=geo, seed=seed)
 
 
 def _plain_chunks(S: int, rays: int):
@@ -1301,7 +1423,7 @@ def _plain_chunks(S: int, rays: int):
 
 
 def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
-                  raster, texture, geo, mats=None, pool=None):
+                  raster, texture, geo, mats=None, pool=None, seed=None):
     W, _, S = rows.shape
     WC = W * num_cams
     dev = rows.device
@@ -1319,6 +1441,8 @@ def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
     t_lo = near / torch.clamp_min(cosf, _F_COS_FLOOR) if raster else near
     P = height * width
     best_t = cam(15).expand(WC, P).clone()
+    if seed is not None:  # K9: jnp.minimum(seed, far) (:1205-1209)
+        best_t = torch.minimum(seed.reshape(WC, P), best_t)
     best_idx = torch.full((WC, P), -1, dtype=torch.int32, device=dev)
     best_u = torch.zeros((WC, P), dtype=f32, device=dev)
     best_v = torch.zeros((WC, P), dtype=f32, device=dev)
@@ -1439,18 +1563,23 @@ def render_core(state: SimState, scene: SceneData, *, height: int, width: int,
                 near: float = 0.1, far: float = 1000.0,
                 fov_y_degrees: float = 90.0, raster: bool = False,
                 texture_filter: str = "nearest", shadows: bool = False,
-                watertight: bool = False, accel: str = "auto"):
+                watertight: bool = False, accel: str = "auto", seed_t=None):
     """Prologue + kernel (or its plain version on the CPU). Returns
     ``(depth, segmask, rgb_packed)``, each ``[W·C, height, width]``.
-    ``accel`` (``"auto"``, ``"clusters"`` or ``"binned"``) picks the streamed
-    route's visit (``visit_route``); resident scenes render through K1
-    whatever it says, with the same frames (the resident ordered and binned
-    visits are not ported yet)."""
+    ``accel`` (``"auto"``, ``"clusters"`` or ``"binned"``) picks the visit
+    (``visit_route``); every visit gives the same frames. ``seed_t`` (K9,
+    the JAX ``render_core``'s, :4146-4158): a per-pixel upper bound on the
+    hit t, ``[W, C, height, width]`` (or any shape of as many values), each
+    pixel's search window ``min(seed, far)``: a pixel whose nearest hit
+    lies at or beyond its seed renders as a miss."""
     kw = pack_inputs(state, scene, height=height, width=width, near=near,
                      far=far, fov_y_degrees=fov_y_degrees, raster=raster,
                      texture_filter=texture_filter, shadows=shadows,
                      watertight=watertight, accel=accel)
-    return render_resident(**kw)
+    views = int(kw["cams"].shape[0])
+    seed = None if seed_t is None else (
+        seed_t.to(torch.float32).reshape(views, height, width).contiguous())
+    return render_resident(**kw, seed=seed)
 
 
 def frames_from_core(state: SimState, depth, seg, rgb) -> Frames:
@@ -1468,14 +1597,15 @@ def raytrace(state: SimState, scene: SceneData, *, height: int, width: int,
              near: float = 0.1, far: float = 1000.0,
              fov_y_degrees: float = 90.0,
              texture_filter: str = "nearest", shadows: bool = False,
-             watertight: bool = False, accel: str = "auto") -> Frames:
+             watertight: bool = False, accel: str = "auto", seed_t=None) -> Frames:
     """Render every (world, camera) view → padded ``Frames``; invalid
     camera slots render black/0/-1; ``shadows`` casts one shadow ray per
     (pixel, light); ``watertight`` decides hits by the crack-free Woop test
-    (``ops/watertight.py``); ``accel`` as in ``render_core``. The
-    counterpart of ``raytrace_pallas.raytrace`` / ``raytrace_ref.raytrace``."""
+    (``ops/watertight.py``); ``accel`` and ``seed_t`` as in ``render_core``.
+    The counterpart of ``raytrace_pallas.raytrace`` (:5043-5064) /
+    ``raytrace_ref.raytrace``."""
     return frames_from_core(state, *render_core(
         state, scene, height=height, width=width, near=near, far=far,
         fov_y_degrees=fov_y_degrees, texture_filter=texture_filter,
-        shadows=shadows, watertight=watertight, accel=accel,
+        shadows=shadows, watertight=watertight, accel=accel, seed_t=seed_t,
     ))

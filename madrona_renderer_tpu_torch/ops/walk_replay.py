@@ -1,4 +1,4 @@
-"""The streamed route's walk (K3 + K5) replayed in torch ops.
+"""The render kernel's cluster walks replayed in torch ops.
 
 ``streamed_walk`` repeats, block by block, what a 16×16 block of the
 streamed render kernel (``csrc/render_resident.cu``, ``STREAM``) decides:
@@ -13,7 +13,11 @@ any-hit walk. It returns the frames' depth and segmask (equal to
 check) and the work: positions gated, clusters and triangles swept per
 block, and the distinct (world, cluster) pairs whose rows some block
 streamed — what the kernel's bound counts. Every block's threads trace
-rays, including those past the image edge, as the kernel's do.
+rays, including those past the image edge, as the kernel's do; with a seed
+(K9) those start at best t 0 and the others at min(seed, far).
+``binned_walk`` replays K4's walk over its bins, and ``resident_walk`` the
+resident route's: K1's index order, and K3 and K4 on resident rows (the
+ordered and binned walks with no row gate).
 """
 
 from __future__ import annotations
@@ -41,6 +45,23 @@ def _slab(g, origin, inv):
             torch.minimum(torch.minimum(hi[0], hi[1]), hi[2]))
 
 
+def _view_chunks(V: int, per_view: int):
+    """View ranges whose [views, blocks, cs, 256] tests hold about 2^26
+    elements (the replays at full size stay within the card's memory)."""
+    step = max(1, (1 << 26) // max(1, per_view))
+    return [slice(v0, min(V, v0 + step)) for v0 in range(0, V, step)]
+
+
+def _rows(x, sl, V):
+    """``x`` (a tensor, a tuple of tensors or None) at views ``sl`` where it
+    has a view axis."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(_rows(y, sl, V) for y in x)
+    return x[sl] if x.shape[0] == V else x
+
+
 def _cluster_tests(rows_v, c, cs, cnt, dirs, t_lo, origin, shear=None):
     """Tests of each view's cluster ``c`` [V] (its valid prefix ``cnt``)
     against the blocks' rays ``dirs`` [V, nt, 1, 256] (with ``shear``, the
@@ -55,19 +76,62 @@ def _cluster_tests(rows_v, c, cs, cnt, dirs, t_lo, origin, shear=None):
     return ok & (ks[None, :] < cnt[:, None])[:, None, :, None], t
 
 
+def _best_t0(far, seed, height: int, width: int, hp: int, wp: int, blocks):
+    """Each thread's first best t, ``[V, nt, 256]``: far, or with a seed
+    min(seed, far) inside the image and 0 past its edge."""
+    V = far.shape[0]
+    if seed is None:
+        return far.expand(V, hp * wp // (_T * _T), _T * _T).clone()
+    full = torch.zeros((V, hp, wp), dtype=far.dtype, device=far.device)
+    full[:, :height, :width] = torch.minimum(seed.reshape(V, height, width), far)
+    return blocks(full.reshape(V, -1))
+
+
 def streamed_walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights: int,
                   height: int, width: int, seg_div: int, raster: bool = False,
-                  geo: str = "prep", **_):
-    """Replay the streamed kernel's walk on ``pack_inputs``'s tensors.
-    Returns a dict: ``depth`` f32 and ``segmask`` i32 ``[W·C, H, Wd]`` as
-    the raytrace export writes them for valid cameras (t and idx // seg_div
-    on a hit, 0 and -1 on a miss), and the counts ``gated`` (positions a
-    block evaluated past the early exit), ``slab_tests`` (those that passed
-    the row gate), ``cluster_visits`` and ``triangle_visits`` (per block),
-    ``clusters_streamed`` (distinct (world, cluster) pairs visited),
-    ``winners`` (distinct (world, triangle) pairs some pixel hits),
-    ``shadow_cluster_visits`` and ``shadow_triangle_visits`` (per block, all
-    lights)."""
+                  geo: str = "prep", seed=None, **_):
+    """Replay the streamed kernel's walk on ``pack_inputs``'s tensors
+    (``seed``: K9's, or None). Returns a dict: ``depth`` f32 and ``segmask``
+    i32 ``[W·C, H, Wd]`` as the raytrace export writes them for valid cameras
+    (t and idx // seg_div on a hit, 0 and -1 on a miss), and the counts
+    ``gated`` (positions a block evaluated past the early exit),
+    ``slab_tests`` (those that passed the row gate), ``cluster_visits`` and
+    ``triangle_visits`` (per block), ``clusters_streamed`` (distinct (world,
+    cluster) pairs visited), ``winners`` (distinct (world, triangle) pairs
+    some pixel hits), ``shadow_cluster_visits`` and
+    ``shadow_triangle_visits`` (per block, all lights)."""
+    return _walk(rows, clusters, cams, order, spans, num_cams=num_cams, n_lights=n_lights,
+                 height=height, width=width, seg_div=seg_div, raster=raster, geo=geo,
+                 seed=seed)
+
+
+def resident_walk(rows, clusters, cams, order=None, bins=None, *, bin_tile=None,
+                  num_cams: int, n_lights: int, height: int, width: int, seg_div: int,
+                  raster: bool = False, geo: str = "prep", seed=None, **_):
+    """Replay the resident route's walk on ``pack_inputs``'s tensors: with
+    ``order`` K3 on resident rows (``streamed_walk``'s walk with no row
+    gate), with ``bins`` K4 on resident rows (``binned_walk``'s with no row
+    gate and no ranges), without either K1's index order (every cluster, no
+    early exit, the slab test tmin < best_t, invalid clusters skipped);
+    ``seed`` as in ``streamed_walk``. Returns what ``streamed_walk``
+    returns (binned: ``binned_walk``'s); ``clusters_streamed`` then counts
+    the (world, cluster) pairs some block swept."""
+    kw = dict(num_cams=num_cams, n_lights=n_lights, height=height, width=width,
+              seg_div=seg_div, raster=raster, geo=geo, seed=seed)
+    if bins is not None:
+        return binned_walk(rows, clusters, cams, bins, None, bin_tile=bin_tile, **kw)
+    if order is None:
+        V, CC = cams.shape[0], clusters.shape[2]
+        order = torch.arange(CC, device=cams.device).expand(V, CC)
+        return _walk(rows, clusters, cams, order, None, index=True, **kw)
+    return _walk(rows, clusters, cams, order, None, **kw)
+
+
+def _walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights: int,
+          height: int, width: int, seg_div: int, raster: bool, geo: str, seed,
+          index: bool = False):
+    """The ordered walk along ``order`` (with ``spans`` the row gate; with
+    ``index`` K1's sweep in index order) → ``streamed_walk``'s dict."""
     V = cams.shape[0]
     W, _, S = rows.shape
     CC = clusters.shape[2]
@@ -100,7 +164,7 @@ def streamed_walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights
     shear = rc.wt.shear_select(*dirs) if geo in rc._WATERTIGHT_GEOS else None
     t_lo4 = t_lo[:, :, None] if raster else near[..., None]
     origin4 = tuple(x[..., None] for x in o) if raw else None
-    best_t = far.expand(V, nt, _T * _T).clone()
+    best_t = _best_t0(far, seed, height, width, hp, wp, blocks)
     best_idx = torch.full_like(best_t, -1, dtype=torch.int64)
     done = torch.zeros((V, nt), dtype=torch.bool, device=dev)
     row0 = (torch.arange(nt, device=dev) // tx * _T)[None, :]
@@ -115,30 +179,44 @@ def streamed_walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights
         c = order[:, p].long()
         g = cl.gather(2, c[:, None, None].expand(V, 8, 1))[:, :, 0]  # [V, 8]
         gv = [g[:, k, None, None] for k in range(8)]
-        a = [torch.clamp_min(torch.maximum(g[:, k] - cams[:, k], cams[:, k] - g[:, 3 + k]), 0.0)
-             for k in range(3)]
-        d2 = (a[0] * a[0] + a[1] * a[1]) + a[2] * a[2]  # [V]
-        live = (best_t * best_t > (d2 * rc._F_EXIT_SLACK)[:, None, None]).any(-1)
-        done = done | (active & (~(g[:, 6] > 0)[:, None] | ~live))
-        act = active & ~done
+        valid = (g[:, 6] > 0)[:, None]
+        if index:
+            act = active
+        else:
+            a = [torch.clamp_min(torch.maximum(g[:, k] - cams[:, k], cams[:, k] - g[:, 3 + k]),
+                                 0.0)
+                 for k in range(3)]
+            d2 = (a[0] * a[0] + a[1] * a[1]) + a[2] * a[2]  # [V]
+            live = (best_t * best_t > (d2 * rc._F_EXIT_SLACK)[:, None, None]).any(-1)
+            done = done | (active & (~valid | ~live))
+            act = active & ~done
         n["gated"] += int(act.sum())
-        lo = spans[:, 0].gather(1, c[:, None])
-        hi = spans[:, 1].gather(1, c[:, None])
-        act = act & ~((lo > row0 + _T - 1) | (hi < row0))
+        if spans is not None:
+            lo = spans[:, 0].gather(1, c[:, None])
+            hi = spans[:, 1].gather(1, c[:, None])
+            act = act & ~((lo > row0 + _T - 1) | (hi < row0))
         n["slab_tests"] += int(act.sum())
         tmin, tmax = _slab(gv, o, inv)
-        possible = (tmax >= tmin) & (tmax > near) & (tmin * rc._F_SLAB_SLACK < best_t)
+        reach = tmin if index else tmin * rc._F_SLAB_SLACK
+        possible = (tmax >= tmin) & (tmax > near) & (reach < best_t)
         visit = act & possible.any(-1)  # [V, nt]
+        if index:
+            visit = visit & valid
         if not bool(visit.any()):
             continue
         cnt = g[:, 7].long()
         n["cluster_visits"] += int(visit.sum())
         n["triangle_visits"] += int((visit.sum(1) * cnt).sum())
         streamed.index_put_((world, c), visit.sum(1), accumulate=True)
-        ok, t = _cluster_tests(rows_v, c, cs, cnt, dirs, t_lo4, origin4, shear)
-        t = torch.where(ok & visit[:, :, None, None], t, torch.inf)
-        m = t.amin(2)
-        first = torch.where(t == m[:, :, None], ks, cs).amin(2)
+        m = torch.empty_like(best_t)
+        first = torch.empty_like(best_idx)
+        for sl in _view_chunks(V, nt * cs * _T * _T):
+            ok, t = _cluster_tests(rows_v[sl], c[sl], cs, cnt[sl], _rows(dirs, sl, V),
+                                   _rows(t_lo4, sl, V), _rows(origin4, sl, V),
+                                   _rows(shear, sl, V))
+            t = torch.where(ok & visit[sl, :, None, None], t, torch.inf)
+            m[sl] = t.amin(2)
+            first[sl] = torch.where(t == m[sl][:, :, None], ks, cs).amin(2)
         gi = c[:, None, None] * cs + first
         take = (m < best_t) | ((m == best_t) & (gi < best_idx))
         best_t = torch.where(take, m, best_t)
@@ -152,16 +230,18 @@ def streamed_walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights
 
 def binned_walk(rows, clusters, cams, bins, spans, ranges=None, *, bin_tile: int,
                 num_cams: int, n_lights: int, height: int, width: int, seg_div: int,
-                raster: bool = False, geo: str = "prep", chunk: int = 2048, **_):
+                raster: bool = False, geo: str = "prep", chunk: int = 2048, seed=None,
+                **_):
     """Replay the binned kernel's walk (K4, ``csrc/render_binned.cu``) on
-    ``pack_inputs``'s tensors: each 16x16 block walks the bin of the
-    ``bin_tile`` square it lies in, front to back, with the ordered walk's
-    early exit, row gate (8-row spans) and slab test; on prep rows each of
-    its two 8-row bands (rows 0-7 and 8-15 of the block) then sweeps the
-    sorted lanes [lo, hi) of its image band where the cluster's span touches
-    the band (a band below the image sweeps nothing and starts its best t at
-    0), taking exact ties by the original index in row 10; on raw rows the
-    whole valid prefix. Returns what ``streamed_walk`` returns, with
+    ``pack_inputs``'s tensors (``seed`` as in ``streamed_walk``): each 16x16
+    block walks the bin of the ``bin_tile`` square it lies in, front to
+    back, with the ordered walk's early exit, row gate (8-row spans; none
+    when ``spans`` is None, the resident route) and slab test; with
+    ``ranges`` (prep rows) each of its two 8-row bands (rows 0-7 and 8-15 of
+    the block) then sweeps the sorted lanes [lo, hi) of its image band where
+    the cluster's span touches the band (a band below the image sweeps
+    nothing and starts its best t at 0), taking exact ties by the original
+    index in row 10; without, the whole valid prefix. Returns what ``streamed_walk`` returns, with
     ``triangle_visits`` counted per band on prep rows (``sweep_threads``:
     the threads that test each, 128 on prep rows, 256 on raw rows), and
     ``stops`` (blocks that stopped at the early exit), ``bin_entries`` (the
@@ -200,7 +280,7 @@ def binned_walk(rows, clusters, cams, bins, spans, ranges=None, *, bin_tile: int
         t_lo = near / torch.clamp_min(cosf, rc._F_COS_FLOOR)
     raw = geo != "prep"
     wt = geo in rc._WATERTIGHT_GEOS
-    best_t = far.expand(V, nt, _T * _T).clone()
+    best_t = _best_t0(far, seed, height, width, hp, wp, blocks)
     best_idx = torch.full_like(best_t, -1, dtype=torch.int64)
     blk = torch.arange(nt, device=dev)
     row0 = (blk // tx * _T)[None, :]
@@ -236,8 +316,9 @@ def binned_walk(rows, clusters, cams, bins, spans, ranges=None, *, bin_tile: int
         n["stops"] += int((active & ~live).sum())
         act = active & live
         n["gated"] += int(act.sum())
-        s_lo, s_hi = spans[:, 0].gather(1, c), spans[:, 1].gather(1, c)
-        act = act & ~((s_lo > row0 + _T - 1) | (s_hi < row0))
+        if spans is not None:
+            s_lo, s_hi = spans[:, 0].gather(1, c), spans[:, 1].gather(1, c)
+            act = act & ~((s_lo > row0 + _T - 1) | (s_hi < row0))
         n["slab_tests"] += int(act.sum())
         gv = [g[:, k, :, None] for k in range(8)]
         tmin, tmax = _slab(gv, o, inv)
@@ -325,9 +406,11 @@ def _shadow_walk(cl, cams, world, d, o, best_t, best_idx, rows_v, cs, n_lights,
             n["shadow_cluster_visits"] += int(visit.sum())
             n["shadow_triangle_visits"] += int((visit.sum(1) * cnt).sum())
             streamed.index_put_((world, all_c[c].expand(V)), visit.sum(1), accumulate=True)
-            ok, _ = _cluster_tests(rows_v, all_c[c].expand(V), cs, cnt,
-                                   tuple(x[..., None] for x in sd), eps[:, :, None], h4)
-            occ = occ | (ok & visit[:, :, None, None]).any(2)
+            sd4, eps4 = tuple(x[..., None] for x in sd), eps[:, :, None]
+            for sl in _view_chunks(V, occ.shape[1] * cs * occ.shape[2]):
+                ok, _ = _cluster_tests(rows_v[sl], all_c[c].expand(V)[sl], cs, cnt[sl],
+                                       _rows(sd4, sl, V), _rows(eps4, sl, V), _rows(h4, sl, V))
+                occ[sl] = occ[sl] | (ok & visit[sl, :, None, None]).any(2)
 
 
 def _results(best_t, best_idx, world, S, seg_div, height, width, streamed, n):

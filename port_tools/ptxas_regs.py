@@ -4,10 +4,12 @@ another checkout (e.g. the parent commit unpacked with ``git archive``):
 
     python3 port_tools/ptxas_regs.py [OTHER_CHECKOUT]
 
-Prints one JSON line: the entries of csrc/render_resident.cu and
-csrc/render_binned.cu with their register counts ("name": n) and spill stores/loads ("name:spill": "s/l"),
+Prints one JSON line: the entries of every csrc/render_*.cu with their
+register counts ("name": n) and spill stores/loads ("name:spill": "s/l"),
 and, with OTHER_CHECKOUT, whether every entry that tree has keeps its count
-here. Entry names drop the anonymous namespace's per-build hash. Needs nvcc.
+here. Entry names are the kernels' mangled names with the anonymous
+namespace's per-build hash and the parameter list dropped (an entry that
+gains a parameter keeps its name). Needs nvcc.
 """
 
 from __future__ import annotations
@@ -26,8 +28,16 @@ sys.path.insert(0, str(ROOT))
 
 from madrona_renderer_tpu_torch import _build  # noqa: E402
 
-SOURCES = (Path("madrona_renderer_tpu_torch/csrc/render_resident.cu"),
-           Path("madrona_renderer_tpu_torch/csrc/render_binned.cu"))
+CSRC = Path("madrona_renderer_tpu_torch/csrc")
+
+
+def entry_name(mangled: str) -> str:
+    """``_ZN<ns><len>name I<template args>E v <params>`` → ``name I...E``:
+    the template arguments end where the void return type's ``Ev`` follows
+    their closing ``E``."""
+    name = re.sub(r"^_ZN\d+", "", re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", mangled))
+    cut = name.find("EEv")
+    return name[:cut + 2] if cut >= 0 else name
 
 
 def registers(src: Path) -> dict:
@@ -42,7 +52,7 @@ def registers(src: Path) -> dict:
     for line in (proc.stdout + proc.stderr).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            entry = re.sub(r"^_ZN\d+", "", re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", m.group(1)))
+            entry = entry_name(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             regs[entry] = int(m.group(1))
@@ -54,8 +64,8 @@ def registers(src: Path) -> dict:
 
 def main() -> int:
     trees = [ROOT] + [Path(a).resolve() for a in sys.argv[1:2]]
-    jobs = [(i, t / src) for i, t in enumerate(trees) for src in SOURCES
-            if (t / src).is_file()]
+    jobs = [(i, src) for i, t in enumerate(trees)
+            for src in sorted((t / CSRC).glob("render_*.cu"))]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         parts = list(pool.map(lambda job: (job[0], registers(job[1])), jobs))

@@ -1,26 +1,33 @@
-"""A few kernels of two source trees timed in turns on one card: this tree
-and OTHER (an unpacked `git archive` of another commit, e.g. the parent,
-under a directory that .gitignore lists):
+"""K13 and every render-kernel entry that two source trees share, timed in
+turns on one card: this tree and OTHER (an unpacked `git archive` of
+another commit, e.g. the parent, under a directory that .gitignore lists):
 
     python3 port_tools/tree_ab.py OTHER [PASSES]
 
 Each pass is a child process that imports the port from one tree (which
 builds its kernels into that tree's build/) and times, each a CUDA graph
-of 50 launches on the same inputs:
-  pack_rows                 K13 on main's 4096 worlds (the demo scene);
-  render_resident           K1 on main's inputs;
+of 50 launches on the same inputs (the scenes' first step, 64x64):
+  pack_rows            K13 on main's 4096 worlds (the demo scene);
+  render_resident      K1 on main's inputs;
   render_resident_raster_tex_bilinear
-                            K2 + K6 bilinear on raster_256w_png's inputs
-                            (256 worlds of the textured demo at 64x64).
-The inputs are each scene's first step. PASSES (4) alternate this tree and
-OTHER, starting with this one. Prints one JSON line per pass and then one
-with each kernel's times and OTHER's over this tree's mean, with the card's
-name and power limit. Needs one card and nvcc.
+                       K2 + K6 bilinear on raster_256w_png's inputs (256
+                       worlds of the textured demo);
+  and every variant of csrc/render_resident.cu (resident and streamed)
+  and csrc/render_binned.cu on 64 worlds: the resident ones on the demo
+  scene (untextured, with the 32x32 texture, or chip_smoke.py's 256x256
+  gradient floor for the mip hand-off), the streamed and binned ones on
+  chip_smoke.py's varied big-mesh terrain (likewise), each geometry code
+  from pack_inputs (the raw sweep on K13's raw rows), keyed "@64w".
+PASSES (4) alternate this tree and OTHER, starting with this one. Prints
+one JSON line per pass and then one with each kernel's times and OTHER's
+over this tree's mean, with the card's name and power limit. Needs one
+card and nvcc.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import itertools
 import json
 import statistics
 import subprocess
@@ -28,22 +35,85 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-KERNELS = ("pack_rows", "render_resident", "render_resident_raster_tex_bilinear")
+GEOS = ("prep", "raw", "raw_shadows", "raw_wt", "raw_wt_shadows")
+TEXTURES = (None, "nearest", "bilinear", "mip")
+ROUTES = {"resident": "render_resident", "streamed": "render_streamed",
+          "binned": "render_binned"}
+HANDOFF_KEYS = ("num_cams", "n_lights", "height", "width", "seg_div", "raster", "geo",
+                "order", "spans", "bins", "ranges", "bin_tile")
 
 
 def this_chip_smoke():
-    """This tree's chip_smoke module (its timing helpers and nvidia_smi)."""
+    """This tree's chip_smoke module (its scenes, timing helpers and
+    nvidia_smi)."""
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
 
 
+def variant_name(route: str, geo: str, raster: bool, texture) -> str:
+    """The variant's name, in the form both trees give it."""
+    name = ROUTES[route] + ("" if geo == "prep" else f"_{geo}")
+    return name + ("_raster" if raster else "") + (f"_tex_{texture}" if texture else "")
+
+
+def variants(cs, dev):
+    """(name, launch) for every variant of the two sources, on 64 worlds."""
+    import madrona_renderer_tpu_torch.config as cfg_mod
+    from madrona_renderer_tpu_torch.assets.importer import load_render_assets
+    from madrona_renderer_tpu_torch.core.scene import bake_scene
+    from madrona_renderer_tpu_torch.core.state import init_state
+    from madrona_renderer_tpu_torch.ops import pack_cuda
+    from madrona_renderer_tpu_torch.ops import raytrace_cuda as rc
+    from madrona_renderer_tpu_torch.runners import scenes
+
+    def build(parts):
+        geo, mats, textures, insts, cams, worlds = parts
+        return (init_state(insts, cams, worlds, dev),
+                bake_scene(load_render_assets(geo, [], mats, textures), dev))
+
+    n = cs.SMALL_WORLDS
+    tex = scenes.demo_texture_png(cs.TEX_SIZE)
+    grad = cs.png_texture("gradient_256", cs.gradient_texture(), scenes)
+    inputs = {
+        "resident": {None: build(cs.demo_scene(n, True, scenes, cfg_mod)),
+                     "tex": build(cs.demo_scene(n, True, scenes, cfg_mod, textured=True)),
+                     "mip": build(cs.mip_scene("gradient", n, cfg_mod, grad))},
+        "streamed": {None: build(cs.bigmesh_scene(n, cfg_mod, scenes, vary=True)),
+                     "tex": build(cs.bigmesh_scene(n, cfg_mod, scenes, vary=True, texture=tex)),
+                     "mip": build(cs.bigmesh_scene(n, cfg_mod, scenes, vary=True,
+                                                   texture=grad))},
+    }
+    for route, geo, raster, texture in itertools.product(ROUTES, GEOS, (False, True),
+                                                         TEXTURES):
+        key = None if texture is None else "mip" if texture == "mip" else "tex"
+        state, scene = inputs["resident" if route == "resident" else "streamed"][key]
+        kw = rc.pack_inputs(state, scene, height=64, width=64, raster=raster,
+                            near=0.001 if raster else 0.1,
+                            texture_filter=texture if texture in ("nearest", "bilinear")
+                            else "nearest",
+                            shadows=geo.endswith("_shadows"), watertight=geo.startswith("raw_wt"),
+                            accel="binned" if route == "binned" else "auto")
+        if geo == "raw":
+            kw = dict(kw, rows=pack_cuda.pack_rows(state, scene), geo="raw", ranges=None)
+        if texture == "mip":
+            hw = {k: kw[k] for k in HANDOFF_KEYS}
+            yield (variant_name(route, geo, raster, texture) + "@64w",
+                   lambda kw=kw, hw=hw: rc.render_handoff(kw["rows"], kw["clusters"],
+                                                          kw["cams"], **hw))
+        else:
+            yield (variant_name(route, geo, raster, texture) + "@64w",
+                   lambda kw=kw: rc.render_resident(**kw))
+
+
 def one_pass(root: Path) -> dict:
     """Times the kernels with the port of ``root``; this tree's chip_smoke
-    for the timing and the card's description."""
+    for the scenes, the timing and the card's description."""
     sys.path.insert(0, str(root))
     cs = this_chip_smoke()
+    import torch
+
     import madrona_renderer_tpu_torch as m
     from madrona_renderer_tpu_torch.ops import pack_cuda
     from madrona_renderer_tpu_torch.ops import raytrace_cuda as rc
@@ -66,6 +136,9 @@ def one_pass(root: Path) -> dict:
                         near=cfg.raster_near_plane, texture_filter="bilinear")
     out["render_resident_raster_tex_bilinear"] = cs.graph_ms(
         lambda: rc.render_resident(**kw), cs.KERNEL_REPS)
+    del raster, kw
+    for name, fn in variants(cs, torch.device("cuda", 0)):
+        out[name] = cs.graph_ms(fn, cs.KERNEL_REPS)
     return out
 
 
@@ -91,7 +164,9 @@ def main() -> int:
         results.append(json.loads(line))
     summary = {"phase": "tree_ab", "this": str(HERE), "other": str(other),
                "nvidia_smi": this_chip_smoke().nvidia_smi()}
-    for k in KERNELS:
+    for k in results[0]:
+        if k in ("phase", "tree"):
+            continue
         mine = [r[k] for r, t in zip(results, trees) if t == HERE]
         theirs = [r[k] for r, t in zip(results, trees) if t == other]
         summary[k] = {"this_ms": mine, "other_ms": theirs,

@@ -42,7 +42,7 @@ from tools.tpu_bigmesh_bench import terrain_mesh as j_terrain_mesh
 
 from tests.torch_helpers import (
     IDENTITY, SceneSpec, assert_frames_close, carry_over, gradient_image, mip_spec,
-    quad_xz, terrain_spec,
+    one_thread, quad_xz, terrain_spec,
 )
 
 
@@ -153,13 +153,14 @@ def test_cluster_order_and_rowspans_equal_jax(case):
 
 def test_route_choice():
     """Past the resident budget pack_inputs adds the order and the spans (at
-    16-row bands) and the streamed variants are named; a resident scene
-    keeps K1."""
+    16-row bands) and the streamed variants are named; a resident scene of
+    one cluster keeps K1 (no order, no spans), and spans without an order
+    or bins raise."""
     _, (t_state, t_scene) = _both(terrain_spec())
     kw = trc.pack_inputs(t_state, t_scene, height=32, width=32)
     assert kw["order"].shape == (2, kw["clusters"].shape[2])
     assert kw["spans"].shape == (2, 2, kw["clusters"].shape[2])
-    assert trc.variant_name(False, None, "prep", streamed=True) == "render_streamed"
+    assert trc.variant_name(False, None, "prep", trc.Route(True, "ordered")) == "render_streamed"
     assert "render_streamed_raw_shadows_raster_tex_mip" in trc.VARIANTS
     small = SceneSpec(meshes=[quad_xz(4.0)], instances=[_inst([0, 10, 0])],
                       cameras=_origin_cams(), worlds=[_world(1, 0)])
@@ -168,7 +169,7 @@ def test_route_choice():
     kw = trc.pack_inputs(s_state, s_scene, height=16, width=16)
     assert kw["order"] is None and kw["spans"] is None
     with pytest.raises(ValueError, match="both order and spans"):
-        trc.render_resident(**dict(kw, order=torch.zeros((1, 1), dtype=torch.int32)))
+        trc.render_resident(**dict(kw, spans=torch.zeros((1, 2, 1), dtype=torch.int32)))
 
 
 def test_cluster_table_past_shared_memory_raises(monkeypatch):
@@ -185,7 +186,8 @@ def test_cluster_table_past_shared_memory_raises(monkeypatch):
         assert kw["bins"] is not None and kw["order"] is None
         out = trc.render_resident(**kw)
         assert all(torch.equal(a, b) for a, b in zip(out, plain))
-    replay = walk_replay.binned_walk(**kw)
+    with one_thread():
+        replay = walk_replay.binned_walk(**kw)
     assert torch.equal(replay["depth"], plain[0]) and torch.equal(replay["segmask"], plain[1])
 
 
@@ -261,7 +263,8 @@ def test_exact_ties_take_the_lower_index():
     quad = seg == 0
     assert quad.sum() > 100 and (seg == 1).any()  # the quad, and the small triangle
     kw = trc.pack_inputs(t_state, t_scene, height=32, width=32)
-    replay = walk_replay.streamed_walk(**kw)
+    with one_thread():
+        replay = walk_replay.streamed_walk(**kw)
     assert torch.equal(replay["segmask"].reshape(seg.shape), port.segmask)
     pallas = np.asarray(j_pallas(j_state, j_scene, height=32, width=32, interpret=True).segmask)
     assert (pallas[quad] == 1).all()
@@ -277,7 +280,8 @@ def test_walk_replay_is_the_plain_sweep_with_less_work(case):
     t_state, t_scene = spec.build_torch()
     kw = trc.pack_inputs(t_state, t_scene, height=32, width=32)
     depth, seg, _ = trc.render_resident_plain(**kw)
-    replay = walk_replay.streamed_walk(**kw)
+    with one_thread():
+        replay = walk_replay.streamed_walk(**kw)
     assert torch.equal(replay["depth"], depth) and torch.equal(replay["segmask"], seg)
     views, blocks = kw["cams"].shape[0], 4
     full = views * blocks * kw["rows"].shape[2]

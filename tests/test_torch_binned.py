@@ -22,6 +22,7 @@ walk. Held against the JAX package on the same inputs:
 
 import functools
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -48,8 +49,8 @@ from tools.tpu_binned_bench import build_scene as j_binned_scene
 from tests.test_torch_bake import _assert_bitwise
 from tests.test_torch_bigmesh import _both, _cloud, _cloud_spec, _inst, _origin_cams, _world
 from tests.test_torch_watertight import _assert_frames_equal_knife_edge
-from tests.torch_helpers import SceneSpec, assert_frames_close, carry_over, spec_from_config, \
-    terrain_spec
+from tests.torch_helpers import SceneSpec, assert_frames_close, carry_over, one_thread, \
+    spec_from_config, terrain_spec
 
 
 def _straddle_spec():
@@ -89,6 +90,14 @@ SCENES = {
     "straddle": _straddle_spec,
     "terrain40": _terrain40_spec,
 }
+
+
+# The JAX helpers, each compiled once per shape (eager calls compile every
+# primitive of them per shape).
+_J_BINS = jax.jit(jrp.band_cluster_bins, static_argnums=(5, 6, 7),
+                  static_argnames=("tile_pix", "tiles_x", "tile_sub", "tile_cols"))
+_J_ROW_SORT = jax.jit(jrp.cluster_row_sort, static_argnums=(3, 4, 5, 6))
+_J_SPANS = jax.jit(jrp.camera_cluster_rowspans, static_argnums=(5,), static_argnames=("g_rows",))
 
 
 @functools.cache
@@ -149,9 +158,8 @@ def test_band_cluster_bins_equal_jax(name):
         tiles += [(512, 512, 32, 128), (64, 64, 32, 32)]
     for h, w, sub, cols in tiles:
         tx, ty = -(-w // cols), -(-h // sub)
-        jb = np.asarray(jrp.band_cluster_bins(j_lo, j_hi, j_valid, j_state, j_fov, h, w,
-                                              tx * ty, tile_pix=sub * 128, tiles_x=tx,
-                                              tile_sub=sub, tile_cols=cols))
+        jb = np.asarray(_J_BINS(j_lo, j_hi, j_valid, j_state, j_fov, h, w, tx * ty,
+                                tile_pix=sub * 128, tiles_x=tx, tile_sub=sub, tile_cols=cols))
         tb = trc.band_cluster_bins(lo, hi, valid, t_state, t_fov, h, w, tx * ty, tx, sub,
                                    cols).numpy()
         assert tb.dtype == np.int32 and tb.shape == jb.shape
@@ -178,7 +186,7 @@ def test_cluster_row_sort_and_spans_equal_jax(name):
     cs = t_scene.tris_per_object // int(t_scene.cl_valid.shape[1])
     for height, g_rows in ((32, 16), (32, 8), (64, 8), (40, 8)):
         n_bands = -(-height // g_rows)
-        jp, jl, jh = (np.asarray(x) for x in jrp.cluster_row_sort(
+        jp, jl, jh = (np.asarray(x) for x in _J_ROW_SORT(
             soup, j_state, j_fov, height, cs, g_rows, n_bands))
         tp, tl, th = trc.cluster_row_sort(*planes, p["valid"].reshape(W, -1), t_state, t_fov,
                                           height, cs, g_rows, n_bands)
@@ -186,8 +194,8 @@ def test_cluster_row_sort_and_spans_equal_jax(name):
             assert b.dtype == torch.int32
             np.testing.assert_array_equal(b.numpy(), a, err_msg=f"{height} {g_rows}")
         assert (tl <= th).all() and (th.numpy() > 0).any()
-        j_spans = np.asarray(jrp.camera_cluster_rowspans(j_lo, j_hi, j_valid, j_state, j_fov,
-                                                         height, g_rows=g_rows))
+        j_spans = np.asarray(_J_SPANS(j_lo, j_hi, j_valid, j_state, j_fov, height,
+                                      g_rows=g_rows))
         spans = trc.camera_cluster_rowspans(lo, hi, valid, t_state, t_fov, height,
                                             g_rows=g_rows)
         np.testing.assert_array_equal(spans.numpy(), j_spans)
@@ -216,11 +224,18 @@ FRAMES = {
 }
 
 
+@functools.cache
+def _frames_scene(name):
+    """A scene of FRAMES through both packages, once a worker."""
+    make, _, _, light, _ = FRAMES[name]
+    return _both(make(), light=light)
+
+
 @pytest.mark.parametrize("name", sorted(FRAMES))
 def test_binned_frames_match_jax(name):
-    make, h, w, light, opts = FRAMES[name]
-    (j_state, j_scene), (t_state, t_scene) = _both(make(), light=light)
-    assert trc.visit_route(t_state, t_scene, h, w, "binned") == "binned"
+    _, h, w, _, opts = FRAMES[name]
+    (j_state, j_scene), (t_state, t_scene) = _frames_scene(name)
+    assert trc.visit_route(t_state, t_scene, h, w, "binned") == trc.Route(True, "binned")
     kw = trc.pack_inputs(t_state, t_scene, height=h, width=w, accel="binned", **opts)
     assert kw["bins"] is not None and (kw["ranges"] is not None) == (kw["geo"] == "prep")
     port = trc.raytrace(t_state, t_scene, height=h, width=w, accel="binned", **opts)
@@ -231,7 +246,7 @@ def test_binned_frames_match_jax(name):
 
 
 def test_binned_raster_matches_jax():
-    (j_state, j_scene), (t_state, t_scene) = _both(_cloud_spec("cloud"))
+    (j_state, j_scene), (t_state, t_scene) = _frames_scene("cloud_prep_ranges")
     port = raster_cuda.rasterize(t_state, t_scene, height=32, width=64, accel="binned")
     for j in (j_raster_ref(j_state, j_scene, height=32, width=64),
               j_raster_pallas(j_state, j_scene, height=32, width=64, interpret=True,
@@ -255,7 +270,8 @@ def test_binned_watertight_matches_jax():
                 j_pallas(j_state, j_scene, height=32, width=32, interpret=True,
                          watertight=True, accel="binned")):
         _assert_frames_equal_knife_edge(ref, port)
-    replay = walk_replay.binned_walk(**kw)
+    with one_thread():
+        replay = walk_replay.binned_walk(**kw)
     assert torch.equal(replay["segmask"], port.segmask[:, 0])
     assert torch.equal(replay["depth"], port.depth[:, 0])
 
@@ -299,7 +315,8 @@ def test_coplanar_ties_take_the_lower_original_index(tmp_path):
         "the row sort must flip the coplanar pair"
     port = trc.raytrace(t_state, t_scene, height=64, width=256, accel="binned")
     assert_frames_close(j_ref(j_state, j_scene, height=64, width=256), port)
-    replay = walk_replay.binned_walk(**kw)
+    with one_thread():
+        replay = walk_replay.binned_walk(**kw)
     assert torch.equal(replay["segmask"], port.segmask[:, 0])
     assert torch.equal(replay["depth"], port.depth[:, 0])
 
@@ -320,7 +337,7 @@ def test_auto_bins_where_jax_bins(size, monkeypatch):
     jax.eval_shape(lambda s: jrp.render_core(s, j_scene, height=size, width=size, near=0.1,
                                              far=1000.0, fov_y_degrees=90.0, interpret=True),
                    j_state)
-    route = trc.visit_route(t_state, t_scene, size, size, "auto")
+    route = trc.visit_route(t_state, t_scene, size, size, "auto").visit
     assert route == ("binned" if called else "ordered")
     assert (route == "binned") == (size >= 128)
     kw = trc.pack_inputs(t_state, t_scene, height=size, width=size)
@@ -330,8 +347,9 @@ def test_auto_bins_where_jax_bins(size, monkeypatch):
 
 def test_accel_values():
     """"none" and "mxu" raise naming Queue 1 #3; "clusters" keeps the ordered
-    visit, "binned" bins at any size; resident scenes render through K1
-    with every value."""
+    visit, "binned" bins at any size; a resident scene of one cluster
+    renders the same frames with every value (K1, or with "binned" the
+    resident binned visit)."""
     t_state, t_scene = terrain_spec().build_torch()
     for accel in ("none", "mxu"):
         with pytest.raises(NotImplementedError, match="Queue 1 #3"):
@@ -340,9 +358,9 @@ def test_accel_values():
             tm.Manager(binned_terrain_config(1, 32, 32, grid=40, device="cpu", accel=accel))
     with pytest.raises(ValueError, match="accel"):
         trc.pack_inputs(t_state, t_scene, height=32, width=32, accel="bvh")
-    assert trc.visit_route(t_state, t_scene, 128, 128, "clusters") == "ordered"
-    assert trc.visit_route(t_state, t_scene, 32, 32, "binned") == "binned"
-    assert trc.variant_name(False, None, "prep", binned=True) == "render_binned"
+    assert trc.visit_route(t_state, t_scene, 128, 128, "clusters") == trc.Route(True, "ordered")
+    assert trc.visit_route(t_state, t_scene, 32, 32, "binned") == trc.Route(True, "binned")
+    assert trc.variant_name(False, None, "prep", trc.Route(True, "binned")) == "render_binned"
     assert len(trc.BINNED_VARIANTS) == 40 and "render_binned_raw_wt_shadows_raster_tex_mip" \
         in trc.BINNED_VARIANTS
     small = SceneSpec(meshes=[np.asarray([[-1, 5, -1], [1, 5, -1], [0, 5, 1]], np.float32)],
@@ -353,7 +371,9 @@ def test_accel_values():
               for a in ("auto", "clusters", "binned")]
     for f in frames[1:]:
         assert torch.equal(f.rgb, frames[0].rgb) and torch.equal(f.depth, frames[0].depth)
-    assert trc.pack_inputs(s_state, s_scene, height=16, width=16, accel="binned")["bins"] is None
+    assert trc.pack_inputs(s_state, s_scene, height=16, width=16, accel="auto")["bins"] is None
+    binned = trc.pack_inputs(s_state, s_scene, height=16, width=16, accel="binned")
+    assert binned["bins"] is not None and binned["spans"] is None
 
 
 def test_bin_tile_rule():
@@ -374,15 +394,17 @@ def test_binned_walk_is_the_plain_sweep_with_less_work(case):
     h, w = (40, 32) if "crop" in case else (32, 32)
     kw = trc.pack_inputs(t_state, t_scene, height=h, width=w, accel="binned")
     depth, seg, _ = trc.render_resident_plain(**kw)
-    replay = walk_replay.binned_walk(**kw)
+    with one_thread():
+        replay = walk_replay.binned_walk(**kw)
     assert torch.equal(replay["depth"], depth) and torch.equal(replay["segmask"], seg)
     assert replay["cluster_visits"] <= replay["slab_tests"] <= replay["gated"]
     tests = replay["triangle_visits"] * replay["sweep_threads"]
     views = kw["cams"].shape[0]
     assert 0 < tests < views * -(-h // 16) * -(-w // 16) * 256 * kw["rows"].shape[2]
     if case == "terrain_prep":
-        ordered = walk_replay.streamed_walk(**trc.pack_inputs(t_state, t_scene, height=h,
-                                                              width=w, accel="clusters"))
+        ordered_kw = trc.pack_inputs(t_state, t_scene, height=h, width=w, accel="clusters")
+        with one_thread():
+            ordered = walk_replay.streamed_walk(**ordered_kw)
         assert tests < ordered["triangle_visits"] * 256
         assert replay["gated"] < ordered["gated"]
 

@@ -110,14 +110,14 @@ UNSUPPORTED = {
     "textures": (dict(texture_paths=["checker.ktx2"]), "item 18"),
     "textured_material": (dict(materials=[tm.AdditionalMaterial(texture_id=0)],
                                big_texture=True, mipmaps=False), "item 6"),
-    "warmstart": (dict(warmstart=True), "item 12"),
     "num_devices": (dict(num_devices=2), "item 15"),
     "asset_paths": (dict(asset_paths=[tm.ImportedAsset("cube.obj")]), "item 18"),
 }
-# Options that raised until their slice was ported (items 7, 8, 9, 10, 11
-# and 13): each now renders through MadronaRenderer, steps, and matches the
-# JAX Manager (watertight at the knife-edge bar of
-# tests/test_torch_watertight.py).
+# Options that raised until their slice was ported (items 7, 8, 9, 10, 11,
+# 12 and 13): each now renders through MadronaRenderer, steps, and matches
+# the JAX Manager (watertight at the knife-edge bar of
+# tests/test_torch_watertight.py; warmstart against the JAX Manager's
+# Pallas raytracer, the only one it warm-starts).
 PORTED = {
     "rasterizer": dict(render_mode=tm.RenderMode.Rasterizer, num_cams=2),
     "multi_camera": dict(num_cams=2),
@@ -126,6 +126,7 @@ PORTED = {
     "big_mesh": dict(big=True),
     "watertight": dict(watertight=True, textured=True, tex_size=32),
     "ssaa": dict(ssaa=2, textured=True, tex_size=32),
+    "warmstart": dict(warmstart=True),
 }
 
 
@@ -168,7 +169,8 @@ def _renders_like_jax(opts):
     kw = renderer_kwargs(t_demo(2, mode, 16, 16, dynamic=True, **scene))
     t = tm.MadronaRenderer(0, 2, mode, 16, 16, device="cpu", **kw, **opts)
     j = jm.Manager(j_demo(2, jm.RenderMode(mode.value), 16, 16, dynamic=True,
-                          impl="jnp", **scene, **opts))
+                          impl="pallas" if opts.get("warmstart") else "jnp", **scene,
+                          **opts))
     n_views = 2 * scene["num_cams"]
     assert t.rgb_tensor().shape == j.rgb_tensor().shape == (n_views, 16, 16, 4)
     if opts.get("watertight"):

@@ -40,7 +40,8 @@ from madrona_renderer_tpu_torch.runners.scenes import bigmesh_config, renderer_k
 from madrona_renderer_tpu_torch.runners.scenes import demo_config as t_demo
 
 from tests.test_watertight import _edge_targets, _grid_mesh, _interior_edges
-from tests.torch_helpers import IDENTITY, SceneSpec, carry_over, quad_xz, spec_from_config, terrain_spec
+from tests.torch_helpers import IDENTITY, SceneSpec, carry_over, one_thread, quad_xz, \
+    spec_from_config, terrain_spec
 
 
 def _quad_seam_spec(split_instances=True):
@@ -206,7 +207,8 @@ def test_streamed_watertight_matches_jax():
         _assert_frames_equal_knife_edge(ref, port)
     kw = trc.pack_inputs(t_state, t_scene, height=32, width=32, watertight=True)
     assert kw["geo"] == "raw_wt" and kw["order"] is not None
-    replay = walk_replay.streamed_walk(**kw)
+    with one_thread():
+        replay = walk_replay.streamed_walk(**kw)
     assert torch.equal(replay["segmask"], port.segmask[:, 0])
     assert torch.equal(replay["depth"], port.depth[:, 0])
 

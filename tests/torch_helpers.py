@@ -8,10 +8,12 @@ same state.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import numpy as np
+import torch
 
 import madrona_renderer_tpu.config as jcfg
 import madrona_renderer_tpu_torch.config as tcfg
@@ -24,6 +26,19 @@ from madrona_renderer_tpu_torch.core.scene import bake_scene as t_bake
 from madrona_renderer_tpu_torch.core.state import init_state as t_init
 from madrona_renderer_tpu.runners.scenes import cube_mesh
 from tools.tpu_bigmesh_bench import terrain_mesh
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch's CPU ops on one thread inside the block: the walk replays
+    (``ops/walk_replay.py``) issue thousands of small ops, which an intra-op
+    thread pool slows several-fold when other test workers load the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def to_numpy(x) -> dict:
