@@ -14,11 +14,16 @@ printed as JSON lines:
                every variant of the render kernel (prep / raw / raw with
                shadows, and K10's watertight raw / raw with shadows, bitwise
                x raytrace / raster x untextured / nearest / bilinear), each
-               through the three resident visits (K1's index order, K3 and
+               through the four resident visits (K1's index order, K3 and
                K4 on resident rows: ``render_resident_ordered*``,
-               ``render_resident_binned*``) and, raytraced, each of those
-               seeded (K9, ``*_seeded*``: per pixel far, just above the hit,
-               at it or at half of it), all bitwise, on the
+               ``render_resident_binned*``, and K1-none: ``render_none*``)
+               and, raytraced, each of those seeded (K9, ``*_seeded*``: per
+               pixel far, just above the hit, at it or at half of it), the
+               9-output mode (``*_nine``) of K1 and K1-none on the prep,
+               raw and K10 rows, seeded too, and K12 (``render_batched*``,
+               shaded and 9-output, raytrace and raster; on the occluder
+               scenes the mxu route's shadow epilogue), all bitwise (a plain
+               output that several checks share is computed once), on the
                demo scene with one and with four cameras per world
                (untextured and textured), random scenes (padded triangle
                slots; one with 1-3 cameras per world, per-camera fov and
@@ -37,7 +42,7 @@ printed as JSON lines:
                tests/test_mips.py (the gradient floor with a close-up quad,
                also at 64x256 and with two cameras; the overflow floor; the
                uv-seam close-up at 48x48; the close-up whose trilinear blend
-               dies; trilinear, with and without K10, through the three
+               dies; trilinear, with and without K10, through the four
                resident visits and seeded), with a
                ``k7_levels`` line per scene: pixels per level, pixels
                clamped to the coarse chain, blends killed; then every
@@ -56,7 +61,7 @@ printed as JSON lines:
                on 4 worlds of the binned terrain at 128x128 bitwise against
                its plain version and against K5 (``k4_vs_k5`` lines); the
                seam scene made streamed under bins (a ``seam`` line);
-  4. paths   — the fifteen paths of the port, each through MadronaRenderer and
+  4. paths   — the twenty paths of the port, each through MadronaRenderer and
                stepped with a position mutation through the exported tensor
                between steps, with every launch count set to 0 just before
                and read just after:
@@ -121,6 +126,33 @@ printed as JSON lines:
                                   times, the step's device time from a
                                   profiler trace, and the same steps with
                                   accel="clusters" (K5) beside them;
+                 mxu_4096w, mxu_4096w_128
+                                  tools/tpu_accel_compare.py's defaults:
+                                  the demo scene, 4096 worlds at 64x64 and
+                                  128x128, accel="mxu" (K12, the 4-output
+                                  epilogue), every instance turned about z
+                                  each step as the tool's rollout does; the
+                                  same steps through "auto" (K1) beside
+                                  them, each timed step's inputs through
+                                  both kernels, and (64x64) a ``mxu_vs_k1``
+                                  line: the frames' largest rgb and
+                                  relative depth differences and segmask
+                                  mismatches (a report: the two round
+                                  otherwise);
+                 none_4096w       tools/tpu_opt_probe.py:69-72 (accel=
+                                  "none": K1-none), every step's frames
+                                  bitwise K1's, the "clusters" steps beside;
+                 textured_4096w_mxu bench.py:291's scene with accel="mxu":
+                                  K12's 9-output mode and the planar
+                                  shading epilogue;
+                 tex256_cliff_4096w tools/tpu_paged_tex_bench.py:167: the
+                                  256x256 texture baked without mips, K1's
+                                  9-output mode and the epilogue, the same
+                                  loop on the mip-mapped bake (K7) beside;
+               each of these five with the kernel and the epilogue on the
+               last step's inputs equal to the exports, the step's device
+               time and idle share from the profiler and the epilogue's
+               time;
                then, on each path's last inputs at full size, the kernels
                (under SSAA, filtered down) against the exported frames and
                their plain versions (and
@@ -159,7 +191,11 @@ printed as JSON lines:
                of their first check, 10 launches a graph, their bounds from
                the replayed walks (ops/walk_replay.py, seeded where they
                are), and the visits a resident terrain path does not take on
-               its inputs;
+               its inputs; the ninth slice's (K1-none, the 9-output mode,
+               K12) likewise, their bounds counted from every triangle test
+               (K12 at 128x128 on mxu_4096w_128's inputs), and the shadow
+               epilogue (compute_lit, torch ops) on shadows_4096w's inputs
+               in a line of its own;
 
 then the nvidia-smi line, the ``kernels`` summary line and the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -188,8 +224,10 @@ MULTICAM_CAMS = 4
 HEIGHT = WIDTH = 64
 TEX_SIZE = 32
 WARMUP_STEPS = 3
-TIMED_STEPS = 20
-RASTER_TIMED_STEPS = 60
+# Timed steps of every path (20 and 60 before the ninth slice made room for
+# its five paths: the paths' steps are a small part of the run).
+TIMED_STEPS = 10
+RASTER_TIMED_STEPS = 30
 PAGED_TEX_SIZE = 256
 BIGMESH_WORLDS = 512
 # The binned terrain paths (tools/tpu_binned_bench.py, bench.py:505-546):
@@ -209,9 +247,17 @@ SSAA = 2
 RESIDENT_GRID = 27
 RESIDENT_PATHS = (("resident_terrain_4096w_64", 4096, 64, "ordered"),
                   ("resident_terrain_1024w_128", 1024, 128, "binned"))
-# The new kernels' timing lines (80 resident-visit and 100 seeded entries):
-# fewer launches a CUDA graph than the older rows.
+# The timing lines of the entries off the paths (the resident visits', the
+# seeded ones, K1-none's, the 9-output mode's, K12's raster ones, and the
+# streamed entries on 64 worlds): fewer launches a CUDA graph.
 NEW_KERNEL_REPS = 10
+# This slice's paths (tools/tpu_accel_compare.py, tools/tpu_opt_probe.py,
+# bench.py:291, tools/tpu_paged_tex_bench.py:167): every instance turned by
+# dq about z each step, as the tools' rollouts do (half-angle 0.015, the
+# paged-texture tool's 0.01).
+TOOL_HALF_ANGLE = 0.015
+PAGED_HALF_ANGLE = 0.01
+MXU_RESOLUTIONS = (64, 128)
 
 # H100 SXM peaks (NVIDIA data sheet). The published 67 TFLOP/s of FP32
 # outside the tensor cores counts a fused multiply-add as two operations
@@ -263,7 +309,8 @@ K1_OPS_PER_TRIANGLE = {"prep": 27, "raw": 36, "wt": 43}
 K1_OPS_HOIST = {"prep": 0, "raw": 17, "wt": 9}
 K1_OPS_RASTER = 9
 K1_OPS_TEX = {None: 0, "nearest": 8 + 4 + 4 + 11, "bilinear": 8 + 4 + 4 + 62,
-              "mip": 8 + 3}  # the mip hand-off: uv, and the footprint's 3 products
+              "mip": 8 + 3,  # the mip hand-off: uv, and the footprint's 3 products
+              "nine": 8 + 4}  # the 9-output mode: uv and the material
 K8_OPS_FIXED = 8
 K8_OPS_PER_LIGHT = 4
 K8_OPS_PER_CLUSTER = 24
@@ -275,10 +322,12 @@ K1_THREADS_PER_BLOCK = 256
 # once (the normal rows, and the colour rows (untextured) or the material
 # and uv rows (textured)).
 K1_GEO_ROWS = {"prep": 10, "raw": 9, "wt": 10}
-K1_ATTR_ROWS = {None: 9 + 3, "nearest": 9 + 7, "bilinear": 9 + 7, "mip": 9 + 8}
+K1_ATTR_ROWS = {None: 9 + 3, "nearest": 9 + 7, "bilinear": 9 + 7, "mip": 9 + 8,
+                "nine": 9 + 7}
 # Bytes a pixel writes: depth, segmask and rgb; in the mip hand-off mode
-# depth, segmask and the 28-byte hand-off instead of rgb.
-K1_OUT_BYTES = {"rgb": 12, "mip": 8 + 28}
+# depth, segmask and the 28-byte hand-off instead of rgb; in the 9-output
+# mode nine 4-byte values.
+K1_OUT_BYTES = {"rgb": 12, "mip": 8 + 28, "nine": 36}
 # shade_mip's FP32 operations (csrc/shade_mip.cu), counted as above: per
 # pixel that hit geometry, pass 1 (uv wrap 4, the level's L - 1 compares,
 # the primary taps) and per shaded pixel of a valid camera pass 2 (uv wrap
@@ -326,6 +375,30 @@ K5_OPS_PER_TRIANGLE = {"prep": 28, "raw": 37, "wt": 44}
 # a thread) charged per band that a visit reaches.
 K4_OPS_PER_TRIANGLE = {"prep": 29, "raw": 37, "wt": 44}
 K4_OPS_BAND_GATE = 2
+# K1-none (csrc/render_none.cu): K1's per-thread work without the slab tests,
+# and every triangle of the world tested by every thread; its shadow rays
+# every triangle per light. The 9-output mode (K1's and K1-none's) stops
+# before the shading (29 + 14 per light a thread) and resolves the material
+# and uv as the textured variants do (8 + 4), writing 36 bytes a pixel.
+K1_OPS_SHADING = 29
+# K12 (csrc/render_batched.cu): per view and triangle the prepass (tv 3, the
+# cross products of D, A and B 27, t_num 5: 35; the work needs it once a
+# view, though every block computes it), per pixel and triangle the
+# numerators 15, the reciprocal and its guard 3, u, v, t 3 and the tests 6;
+# per pixel the ray 30, the resolve (the winner's prepass 35, numerators and
+# reciprocal 21, the clips 4, the normal 12, the flip 9) and the shading
+# (29 + 14 per light) or the uv 8. Bytes: the rows read once (v0, e1, e2 and
+# the attribute rows a hit reads), the camera rows, and 16 bytes a pixel
+# written (t, z, idx, rgb) or 36 (the 9-output mode).
+K12_OPS_PREPASS = 35
+K12_OPS_PER_TRIANGLE = 15 + 3 + 3 + 6
+K12_OPS_FIXED = 30 + 35 + 21 + 4 + 12 + 9
+K12_OUT_BYTES = {False: 16, True: 36}
+# The shadow epilogue (compute_lit, torch ops): per pixel, light and
+# triangle tv 3, u 6, q 9, v 6, t 6, the bias 2 and the tests 7 (39); per
+# light and triangle the pvec, det and 1/det 17.
+EPILOGUE_OPS_PER_TEST = 39
+EPILOGUE_OPS_PER_TRIANGLE = 17
 # K3 and K4 on resident rows (csrc/render_resident_ordered.cu,
 # csrc/render_resident_binned.cu): K1's block set-up (rows, hoisted terms,
 # cluster table) and per-thread work, then the streamed walk's gates (the
@@ -767,6 +840,15 @@ def check_close(tag: str, c: dict) -> None:
         raise AssertionError(f"{tag}: kernel disagrees with its plain version: {c}")
 
 
+def compare_all(k, p) -> dict:
+    """Kernel outputs vs plain outputs, any number of them (K12's four, the
+    9-output mode's nine): the largest difference and whether every output
+    is bitwise its plain twin."""
+    errs = [float((a.double() - b.double()).abs().max()) for a, b in zip(k, p)]
+    return dict(max_abs_err=max(errs), outputs=len(k), pixels=int(k[0].numel()),
+                bitwise=all(torch.equal(a, b) for a, b in zip(k, p)))
+
+
 def output_err(k, p) -> float:
     return max(float((k[0] - p[0]).abs().max()), float((k[1] - p[1]).abs().max()),
                float((k[2].view(torch.uint8).int() - p[2].view(torch.uint8).int())
@@ -838,6 +920,72 @@ def k5_bound(kw: dict, walk: dict) -> tuple:
     return roofline(nbytes, ops) + (nbytes, ops)
 
 
+def out_bytes(tex) -> int:
+    """Bytes the render kernel writes a pixel in this texture mode."""
+    return K1_OUT_BYTES[tex if tex in ("mip", "nine") else "rgb"]
+
+
+def per_thread_ops(kw: dict, geo: str, tex) -> int:
+    """The render kernel's FP32 operations a thread makes outside its
+    sweeps: ray, resolve and shading (none in the 9-output mode), the
+    texture mode's, raster's and the seed's."""
+    lights = kw["n_lights"]
+    ops = (K1_OPS_FIXED[geo] + K1_OPS_PER_LIGHT * lights + K1_OPS_TEX[tex]
+           + (K1_OPS_RASTER if kw["raster"] else 0) + K9_OPS_SEED * (kw.get("seed") is not None))
+    if tex == "nine":
+        ops -= K1_OPS_SHADING + K1_OPS_PER_LIGHT * lights
+    return ops
+
+
+def none_bound(kw: dict) -> tuple:
+    """Least time for K1-none's work (csrc/render_none.cu) on these inputs:
+    the rows each block reads, the attribute rows a hit reads once, the
+    camera rows, the seed and the pixels written, against the per-thread
+    work, the block's hoisted per-triangle terms and every thread's test of
+    every triangle; with shadows every thread's shadow test of every
+    triangle per light (ms, 'bytes'|'operations', bytes, operations)."""
+    W, _, S = kw["rows"].shape
+    views = kw["cams"].shape[0]
+    pixels = views * kw["height"] * kw["width"]
+    blocks = views * math.ceil(kw["height"] / 16) * math.ceil(kw["width"] / 16)
+    threads = blocks * K1_THREADS_PER_BLOCK
+    tex = "mip" if kw.get("fb_rows") is not None else kw["texture"]
+    geo = layout(kw)
+    lights = kw["n_lights"]
+    seeded = kw.get("seed") is not None
+    nbytes = (W * (K1_GEO_ROWS[geo] + K1_ATTR_ROWS[tex]) * S * 4 + kw["cams"].numel() * 4
+              + pixels * (out_bytes(tex) + 4 * seeded))
+    if tex in ("nearest", "bilinear"):
+        nbytes += kw["mats"].numel() * 4 + kw["pool"].numel() * 4
+    ops = (threads * per_thread_ops(kw, geo, tex) + blocks * S * K1_OPS_HOIST[geo]
+           + threads * S * K1_OPS_PER_TRIANGLE[geo])
+    if kw["geo"].endswith("_shadows"):
+        ops += (threads * (K8_OPS_FIXED + K8_OPS_PER_LIGHT * lights)
+                + views * lights * K8_OPS_PER_VIEW_LIGHT
+                + blocks * lights * S * (K1_THREADS_PER_BLOCK * K8_OPS_PER_TRIANGLE
+                                         + K8_OPS_PER_BLOCK_TRIANGLE))
+    return roofline(nbytes, ops) + (nbytes, ops)
+
+
+def k12_bound(kw: dict) -> tuple:
+    """Least time for K12's work (csrc/render_batched.cu) on these inputs:
+    the rows read once (v0, e1, e2 and the attribute rows: normals and
+    colour, or normals, material and uv), the camera rows and the pixels
+    written, against the prepass once a view and triangle, every pixel's
+    test of every triangle and the per-pixel ray, resolve and shading (or
+    uv) (ms, 'bytes'|'operations', bytes, operations)."""
+    W, _, S = kw["rows"].shape
+    views = kw["cams"].shape[0]
+    pixels = views * kw["height"] * kw["width"]
+    nine = kw["nine"]
+    nbytes = (W * (9 + 9 + (7 if nine else 3)) * S * 4 + kw["cams"].numel() * 4
+              + pixels * K12_OUT_BYTES[nine])
+    per_pixel = (K12_OPS_FIXED + (K1_OPS_RASTER if kw["raster"] else 0)
+                 + (8 if nine else K1_OPS_SHADING + K1_OPS_PER_LIGHT * kw["n_lights"]))
+    ops = views * S * K12_OPS_PREPASS + pixels * S * K12_OPS_PER_TRIANGLE + pixels * per_pixel
+    return roofline(nbytes, ops) + (nbytes, ops)
+
+
 def resident_bound(kw: dict, walk: dict) -> tuple:
     """Least time for the resident render kernel's work on these inputs
     (K1, or K3 and K4 on resident rows), from the walk this run's data
@@ -865,11 +1013,10 @@ def resident_bound(kw: dict, walk: dict) -> tuple:
                    else views * CC * 4 if kw.get("order") is not None else 0)
     nbytes = (W * (K1_GEO_ROWS[geo] + K1_ATTR_ROWS[tex]) * S * 4
               + kw["clusters"].numel() * 4 + kw["cams"].numel() * 4 + visit_bytes
-              + pixels * (K1_OUT_BYTES["mip" if tex == "mip" else "rgb"] + 4 * seeded))
+              + pixels * (out_bytes(tex) + 4 * seeded))
     if tex in ("nearest", "bilinear"):
         nbytes += kw["mats"].numel() * 4 + kw["pool"].numel() * 4
-    per_thread = (K1_OPS_FIXED[geo] + K1_OPS_PER_LIGHT * lights + K1_OPS_TEX[tex]
-                  + (K1_OPS_RASTER if kw["raster"] else 0) + K9_OPS_SEED * seeded)
+    per_thread = per_thread_ops(kw, geo, tex)
     if kw.get("order") is None and kw.get("bins") is None:  # K1's index order
         per_thread += K1_OPS_PER_CLUSTER * CC
         ops = walk["triangle_visits"] * K1_THREADS_PER_BLOCK * K1_OPS_PER_TRIANGLE[geo]
@@ -987,7 +1134,8 @@ def main() -> int:
           "seconds_each": build_s})
 
     # Per kernel name: the largest error against its plain version.
-    kernel_names = rc.RENDER_VARIANTS + rc.SHADE_MIP_VARIANTS + pack_cuda.LAYOUTS
+    kernel_names = (rc.RENDER_VARIANTS + rc.BATCHED_VARIANTS + rc.SHADE_MIP_VARIANTS
+                    + pack_cuda.LAYOUTS)
     max_err = {name: 0.0 for name in kernel_names}
 
     def check_pack(tag, state, scene, cam):
@@ -1007,8 +1155,15 @@ def main() -> int:
     def is_k7(kw):
         return kw.get("fb_rows") is not None
 
+    def is_batched(kw):
+        """K12's inputs (pack_inputs with accel="mxu")."""
+        return "nine" in kw
+
     def route(kw):
-        return rc.route_of(kw.get("order"), kw.get("spans"), kw.get("bins"))
+        if is_batched(kw):
+            return rc.Route(False, "mxu")
+        return rc.route_of(kw.get("order"), kw.get("spans"), kw.get("bins"),
+                           kw["clusters"] is not None)
 
     def binned(kw):
         return route(kw).visit == "binned"
@@ -1024,16 +1179,19 @@ def main() -> int:
 
     def variant(kw):
         """The render kernel's variant; for K7 its two launches' names."""
+        if is_batched(kw):
+            return rc.batched_name(kw["raster"], kw["nine"])
         if is_k7(kw):
             return f"{handoff_name(kw)}+shade_mip_{kw['texture']}"
         return rc.variant_name(kw["raster"], kw["texture"], kw["geo"], route(kw), seeded(kw))
 
-    def resident_visits(kw, state, scene):
+    def resident_visits(kw, state, scene, none=False):
         """A resident scene's inputs for each visit: index order (K1), the
         view's order (K3) and the bins at bin_tile_for's tile (K4), as
-        pack_inputs builds them (the default 90° fov)."""
+        pack_inputs builds them (the default 90° fov), and with ``none``
+        no cluster table (K1-none)."""
         eff_fov = torch.where(state.camera_fov > 0, state.camera_fov, 90.0)
-        lo, hi, valid, _ = rc.world_clusters(state, scene)
+        lo, hi, valid, count = rc.world_clusters(state, scene)
         order = rc.camera_cluster_order(lo, hi, valid, state.camera_pos)
         views, CC = order.shape
         h, w = kw["height"], kw["width"]
@@ -1041,8 +1199,10 @@ def main() -> int:
         tx, ty = -(-w // tile), -(-h // tile)
         bins = rc.band_cluster_bins(lo, hi, valid, state, eff_fov, h, w, tx * ty, tx, tile,
                                     tile, order=order)
-        base = dict(kw, order=None, spans=None, bins=None, ranges=None, bin_tile=None)
-        return [base, dict(base, order=order), dict(base, bins=bins, bin_tile=tile)]
+        base = dict(kw, clusters=rc._pack_clusters(lo, hi, valid, count).contiguous(),
+                    order=None, spans=None, bins=None, ranges=None, bin_tile=None)
+        visits = [base, dict(base, order=order), dict(base, bins=bins, bin_tile=tile)]
+        return visits + [dict(base, clusters=None)] if none else visits
 
     seed_rng = torch.Generator(device=dev).manual_seed(9)
 
@@ -1056,8 +1216,10 @@ def main() -> int:
         return torch.where(depth > 0, bound, 1000.0).contiguous()
 
     def is_new(kw):
-        """K3 or K4 on resident rows, or K9: this slice's kernels."""
-        return seeded(kw) or (not streamed(kw) and route(kw).visit != "index")
+        """K3 or K4 on resident rows, K9, K1-none, K12 or the 9-output mode:
+        the eighth and ninth slices' kernels."""
+        return (seeded(kw) or (not streamed(kw) and route(kw).visit != "index")
+                or kw.get("texture") == "nine")
 
     first_kw = {}  # the first inputs each of this slice's variants was checked on
     # Per variant (K7: per hand-off variant too): the inputs it was checked
@@ -1070,21 +1232,42 @@ def main() -> int:
         if keep or name not in checked:
             checked.setdefault(name, []).append((kw, ms))
 
-    def check_render(tag, kw, keep=False):
+    # The plain outputs of inputs whose plain version another check already
+    # ran (the visits and routes of one scene and mode share it: the plain
+    # version sweeps every triangle in index order whatever the visit);
+    # cleared with each scene's loop.
+    plain_memo = {}
+
+    def check_render(tag, kw, keep=False, memo=None):
+        """The render kernel (K12: render_batched) against its plain
+        version on ``kw``; ``memo`` names the plain outputs it shares with
+        other checks."""
         name = variant(kw)
-        k_out = rc.render_resident(**kw)
+        run, plain = ((rc.render_batched, rc.render_batched_plain) if is_batched(kw)
+                      else (rc.render_resident, rc.render_resident_plain))
+        k_out = run(**kw)
         torch.cuda.synchronize()
-        plain_ms, p_out = timed_ms(lambda: rc.render_resident_plain(**kw))
+        if memo is not None and memo in plain_memo:
+            plain_ms, p_out = plain_memo[memo]
+        else:
+            plain_ms, p_out = timed_ms(lambda: plain(**kw))
+            if memo is not None:
+                plain_memo[memo] = plain_ms, p_out
         note_plain(plain_of, name, kw, plain_ms, keep)
-        c = compare_outputs(k_out, p_out)
-        check_close(f"{tag} {name}", c)
-        if (is_k7(kw) or kw["geo"] in rc._WATERTIGHT_GEOS or is_new(kw)) and not c["bitwise"]:
+        if len(k_out) == 3:
+            c = compare_outputs(k_out, p_out)
+            check_close(f"{tag} {name}", c)
+            err = output_err(k_out, p_out)
+        else:  # K12, and the 9-output mode: unshaded or unmasked outputs
+            c = compare_all(k_out, p_out)
+            err = c["max_abs_err"]
+        if (is_batched(kw) or is_k7(kw) or kw["geo"] in rc._WATERTIGHT_GEOS or is_new(kw)) \
+                and not c["bitwise"]:
             raise AssertionError(f"{tag} {name}: differs from its plain version: {c}")
-        if is_new(kw):
+        if is_new(kw) or is_batched(kw):
             first_kw.setdefault(handoff_name(kw) if is_k7(kw) else name, kw)
-        if kw["raster"] and not bool((k_out[1] == -1).all()):
+        if len(k_out) == 3 and kw["raster"] and not bool((k_out[1] == -1).all()):
             raise AssertionError(f"{tag} {name}: raster segmask is not -1 everywhere")
-        err = output_err(k_out, p_out)
         for part in name.split("+"):
             max_err[part] = max(max_err.get(part, 0.0), err)
         emit({"phase": "kernel_vs_plain", "kernel": name, "case": tag,
@@ -1120,14 +1303,20 @@ def main() -> int:
         return fn(code, hf, kw["cams"], kw["mats"], kw["pool"], fb_rows=kw["fb_rows"],
                   texture=kw["texture"], n_lights=kw["n_lights"])
 
-    def check_k7(tag, kw):
+    def check_k7(tag, kw, memo=None):
         """K7's two launches together (check_render) and each alone against
         its plain version on the same inputs, bitwise; returns the card's
         hand-off."""
-        check_render(tag, kw)
+        check_render(tag, kw, memo=memo)
         k_h = handoff(kw)
         torch.cuda.synchronize()
-        plain_ms, p_h = timed_ms(lambda: handoff(kw, plain=True))
+        h_memo = None if memo is None else memo + ("handoff",)
+        if h_memo in plain_memo:
+            plain_ms, p_h = plain_memo[h_memo]
+        else:
+            plain_ms, p_h = timed_ms(lambda: handoff(kw, plain=True))
+            if h_memo is not None:
+                plain_memo[h_memo] = plain_ms, p_h
         note_plain(handoff_plain_of, handoff_name(kw), kw, plain_ms, False)
         h_bitwise = all(torch.equal(a, b) for a, b in zip(k_h, p_h))
         k_rgb = shade(kw, *k_h[2:])
@@ -1210,21 +1399,48 @@ def main() -> int:
         filters = ("nearest", "bilinear") if rc.is_textured(scene) else ("nearest",)
         for watertight, shadows, raster, filt in itertools.product(
                 (False, True), (False, True), (False, True), filters):
+            plain_memo.clear()
+            key = (watertight, shadows, raster, filt)
             kw = rc.pack_inputs(state, scene, raster=raster, texture_filter=filt,
                                 near=0.001 if raster else 0.1, shadows=shadows,
                                 watertight=watertight, **size)
-            # The three resident visits (K1, K3, K4 on resident rows), each
-            # seeded (K9) too in the raytrace conventions.
-            visits = resident_visits(kw, state, scene)
-            out = [check_render(tag, vkw) for vkw in visits][0]
+            # The four resident visits (K1, K3, K4 on resident rows, K1-none),
+            # each seeded (K9) too in the raytrace conventions.
+            visits = resident_visits(kw, state, scene, none=True)
+            out = [check_render(tag, vkw, memo=key) for vkw in visits][0]
             if not raster:
                 seed = seed_for(out[0])
                 for vkw in visits:
-                    check_render(tag, dict(vkw, seed=seed))
+                    check_render(tag, dict(vkw, seed=seed), memo=key + ("seed",))
+            if not shadows and filt == filters[0]:
+                # The 9-output mode on K1's and K1-none's sweeps (the scene's
+                # own rows: prep, raw or K10's), seeded too.
+                nine = dict(visits[0], texture="nine", mats=None, pool=None, fb_rows=None)
+                nines = [nine, dict(nine, clusters=None)]
+                out9 = [check_render(tag, n, memo=key + ("nine",)) for n in nines][0]
+                if not raster:
+                    seed = seed_for(out9[0])
+                    for n in nines:
+                        check_render(tag, dict(n, seed=seed), memo=key + ("nine", "seed"))
+            if not watertight and filt == filters[0]:
+                # K12, shaded and in the 9-output mode, on the raw rows.
+                kw_b = rc.pack_inputs(state, scene, raster=raster, near=0.001 if raster else 0.1,
+                                      shadows=shadows, accel="mxu", **size)
+                for nine in (False, True):
+                    check_render(tag, dict(kw_b, nine=nine), memo=key + ("mxu", nine))
+                if shadows and not raster and tag.startswith("occluder"):
+                    # The shadow epilogue on the card: K12's 9-output mode,
+                    # then compute_lit; the shadow darkens some pixels.
+                    kw_rt = dict(size, shadows=True, accel="mxu")
+                    dark = rc.raytrace(state, scene, **kw_rt).rgb.int()
+                    lit = rc.raytrace(state, scene, **dict(kw_rt, shadows=False)).rgb.int()
+                    if not bool(((lit - dark) > 10).any()) or bool(((lit - dark) < 0).any()):
+                        raise AssertionError(f"{tag}: the mxu route's shadow does not show")
             kw = visits[0]
             if tag.startswith("occluder") and shadows and not raster:
                 # The shadow falls on the ground: some lit pixels go dark.
-                lit = check_render(tag, dict(kw, geo=kw["geo"][:-len("_shadows")]))
+                lit = check_render(tag, dict(kw, geo=kw["geo"][:-len("_shadows")]),
+                                   memo=key + ("lit",))
                 darker = lit[2].view(torch.uint8).int() - out[2].view(torch.uint8).int()
                 if not bool((darker > 10).any()) or bool((darker < 0).any()):
                     raise AssertionError(f"{tag}: the shadow does not show")
@@ -1278,12 +1494,14 @@ def main() -> int:
                     kw = rc.pack_inputs(state, lit, raster=raster, texture_filter="trilinear",
                                         near=0.001 if raster else 0.1, shadows=shadows,
                                         watertight=watertight, **size)
-                    visits = resident_visits(kw, state, lit)
-                    k_h = [check_k7(tag, vkw) for vkw in visits][0]
+                    visits = resident_visits(kw, state, lit, none=True)
+                    plain_memo.clear()
+                    key = (shadows, raster, watertight)
+                    k_h = [check_k7(tag, vkw, memo=key) for vkw in visits][0]
                     if not raster:
                         seed = seed_for(k_h[0])
                         for vkw in visits:
-                            check_k7(tag, dict(vkw, seed=seed))
+                            check_k7(tag, dict(vkw, seed=seed), memo=key + ("seed",))
     emit({"phase": "k7_levels", "case": "all", **totals})
     if not (totals["clamped_bilinear"] and totals["blend_killed"]):
         raise AssertionError(f"the mip scenes did not exercise the clamp and the kill: {totals}")
@@ -1316,11 +1534,16 @@ def main() -> int:
                        "bigmesh64_2cams_tex32", "bigmesh64_mip256", "tie64")
     streamed_kw = {}
 
-    def check_seeded(tag, kw, depth):
-        """The variant seeded (K9) by seed_for(depth), against the seeded
-        plain version; its first inputs time it."""
-        kw = dict(kw, seed=seed_for(depth))
-        (check_k7 if is_k7(kw) else check_render)(tag, kw)
+    seeds = {}
+
+    def check_seeded(tag, kw, depth, memo):
+        """The variant seeded (K9) by seed_for(depth) (one seed per scene
+        and mode, shared by its two visits and their plain version), against
+        the seeded plain version; its first inputs time it."""
+        if memo not in seeds:
+            seeds[memo] = seed_for(depth)
+        kw = dict(kw, seed=seeds[memo])
+        (check_k7 if is_k7(kw) else check_render)(tag, kw, memo=memo + ("seed",))
         streamed_kw.setdefault(handoff_name(kw) if is_k7(kw) else variant(kw), kw)
     for tag, parts in streamed_cases.items():
         geo, mats, textures, insts, cams, worlds = parts
@@ -1331,27 +1554,33 @@ def main() -> int:
         mip = rc.has_mips(scene)
         filters = (MIP_FILTERS if mip else ("nearest", "bilinear") if rc.is_textured(scene)
                    else ("nearest",))
-        for accel, watertight, shadows, raster, filt in itertools.product(
-                ("clusters", "binned"), (False, True) if tag in wt_streamed else (False,),
-                (False, True), (False, True), filters):
+        # The two visits of a mode last: they share its plain outputs and
+        # seeds.
+        for watertight, shadows, raster, filt, accel in itertools.product(
+                (False, True) if tag in wt_streamed else (False,), (False, True),
+                (False, True), filters, ("clusters", "binned")):
+            if accel == "clusters":
+                plain_memo.clear()
+                seeds.clear()
+            key = (watertight, shadows, raster, filt)
             lit = (configure_lighting(scene, lights=[((0.5, 1.0, 0.0), (1.0, 1.0, 1.0))])
                    if shadows and tag == "cloud64" else scene)  # tests/test_shadows.py:176
             kw = rc.pack_inputs(state, lit, raster=raster, texture_filter=filt,
                                 near=0.001 if raster else 0.1, shadows=shadows,
                                 watertight=watertight, height=HEIGHT, width=WIDTH,
                                 accel=accel)
-            out = check_k7(tag, kw)[:2] if mip else check_render(tag, kw)
+            out = check_k7(tag, kw, memo=key)[:2] if mip else check_render(tag, kw, memo=key)
             streamed_kw.setdefault(handoff_name(kw) if mip else variant(kw), kw)
             seed_it = tag in seeded_streamed and not raster and (not mip or filt == "trilinear")
             if seed_it:
-                check_seeded(tag, kw, out[0])
+                check_seeded(tag, kw, out[0], key)
             if mip and not shadows and not watertight:
                 # The one-camera mip scene on the raw rows too.
                 kw = dict(kw, rows=pack_cuda.pack_rows(state, lit), geo="raw", ranges=None)
-                raw_out = check_k7(tag, kw)
+                raw_out = check_k7(tag, kw, memo=key + ("raw",))
                 streamed_kw.setdefault(handoff_name(kw), kw)
                 if seed_it:
-                    check_seeded(tag, kw, raw_out[0])
+                    check_seeded(tag, kw, raw_out[0], key + ("raw",))
             if tag == "tie64" and not raster:
                 # The quad's pixels tie between instances 0 and 1: instance
                 # 0 wins them; instance 1 keeps the small triangle in front
@@ -1417,6 +1646,8 @@ def main() -> int:
     def reset_counts():
         rc.render_resident.launches = 0
         rc.render_resident.variant_launches = dict.fromkeys(rc.RENDER_VARIANTS, 0)
+        rc.render_batched.launches = 0
+        rc.render_batched.variant_launches = dict.fromkeys(rc.BATCHED_VARIANTS, 0)
         rc.shade_mip.launches = 0
         rc.shade_mip.variant_launches = dict.fromkeys(rc.SHADE_MIP_VARIANTS, 0)
         pack_cuda.pack_rows.layout_launches = dict.fromkeys(pack_cuda.LAYOUTS, 0)
@@ -1480,8 +1711,7 @@ def main() -> int:
                 record.append((r.state, r.depth_tensor().to_torch().clone(),
                                r.segmask_tensor().to_torch().clone(),
                                r.rgb_tensor().to_torch().clone()))
-        counts = dict(rc.render_resident.variant_launches, **rc.shade_mip.variant_launches,
-                      **pack_cuda.pack_rows.layout_launches)
+        counts = launch_counts()
         steps = 1 + WARMUP_STEPS + timed_steps
         kw = path_inputs(r)
         name = variant(dict(kw, seed=kw["cams"]) if r.cfg.warmstart else kw)
@@ -1495,6 +1725,10 @@ def main() -> int:
             raise AssertionError(f"{path}: launches {counts} in {steps} steps, "
                                  f"expected {expected}")
         return r, step_s, counts, ctor_s, name
+
+    def launch_counts():
+        return dict(rc.render_resident.variant_launches, **rc.render_batched.variant_launches,
+                    **rc.shade_mip.variant_launches, **pack_cuda.pack_rows.layout_launches)
 
     def path_inputs(r, **over):
         """The path's kernel inputs for the renderer's state (at ssaa x its
@@ -1766,6 +2000,35 @@ def main() -> int:
     kw_raster = path_inputs(r, raster=True, near=r.cfg.raster_near_plane)
     check_render("shadows_4096w_inputs", kw_raster)
     timing_kw[variant(kw_raster)] = kw_raster
+    # The 9-output route's shadow epilogue (compute_lit, torch ops) on these
+    # full-size inputs: K1's 9-output mode on the same raw rows, then
+    # frames_from_core with shadows; its rgb against the path's K8 render
+    # (the same shadow rays, traced otherwise: a report).
+    kw9 = dict(kw, geo="raw", texture="nine")
+    outs9 = check_render("shadows_4096w_inputs", kw9)
+    timing_kw.setdefault(variant(kw9), kw9)
+
+    def shadow_epilogue():
+        return rc.frames_from_core(r.state, *outs9, scene=r.scene, far=r.cfg.far_plane,
+                                   fov_y_degrees=r.cfg.fov_y_degrees, shadows=True)
+
+    f9 = shadow_epilogue()
+    n_pix, S9 = int(outs9[0].numel()), int(kw["rows"].shape[2])
+    lights = int(r.scene.light_dir.shape[0])
+    ep_bytes = n_pix * (36 + 4) + NUM_WORLDS * S9 * 4 * 40
+    ep_ops = (n_pix * lights * S9 * EPILOGUE_OPS_PER_TEST
+              + NUM_WORLDS * lights * S9 * EPILOGUE_OPS_PER_TRIANGLE)
+    ep_bound, ep_by = roofline(ep_bytes, ep_ops)
+    emit({"phase": "timing", "inputs": "shadows_4096w", "name": "shadow_epilogue",
+          "route": "torch ops", "source": "madrona_renderer_tpu_torch/ops/raytrace_ref.py",
+          "replaces": "madrona_renderer_tpu/ops/raytrace_ref.py:422 (XLA ops, no Pallas "
+                      "kernel)",
+          "ms": cuda_ms(shadow_epilogue, 3), "bound_ms": ep_bound, "bound_by": ep_by,
+          "library_ms": None, "views": NUM_WORLDS, "bytes": ep_bytes, "ops": ep_ops,
+          "rgb_max_lsb_vs_k8": int((f9.rgb.reshape(shadowed[2].shape + (4,)).int()
+                                    - shadowed[2].view(torch.uint8).reshape(
+                                        shadowed[2].shape + (4,)).int()).abs().max())})
+    del outs9, f9
     time_path("shadows_4096w", r, step_s, counts, ctor_s,
               {"shadowed_pixels": shadowed_px})
     add_launches(counts)
@@ -1940,24 +2203,27 @@ def main() -> int:
     # (K5), the tool's A/B.
     from madrona_renderer_tpu_torch.ops.quat import quat_multiply, quat_normalize
 
-    half = torch.tensor(0.01, dtype=torch.float32)
-    dq = torch.stack([torch.cos(half), 0 * half, 0 * half, torch.sin(half)])
-
-    def drive_terrain(path, res, accel):
-        """One terrain path through MadronaRenderer; every view of world 0
-        must change each step. Returns the renderer, the step times, the
-        launch counts, the constructor's time and the variant's name."""
-        cfg = scenes.binned_terrain_config(TERRAIN_WORLDS, res, res)
+    def drive_tool(path, cfg, res, accel, half=PAGED_HALF_ANGLE, record=None, **opts):
+        """One path through MadronaRenderer in the tools' loop: every
+        instance turned by dq (half-angle ``half``) about z in place through
+        the exported rotation tensor before each step, every view of world 0
+        changing each step (``opts``: further MadronaRenderer options). With
+        ``record`` (a list), each timed step's state is appended to it.
+        Returns the renderer, the step times, the launch counts, the
+        constructor's time and the variant's name."""
         reset_counts()
         t0 = time.perf_counter()
-        r = m.MadronaRenderer(0, TERRAIN_WORLDS, m.RenderMode.Raytracer, res, res,
-                              accel=accel, **scenes.renderer_kwargs(cfg))
+        r = m.MadronaRenderer(0, cfg.num_worlds, cfg.render_mode, res, res, accel=accel,
+                              **opts, **scenes.renderer_kwargs(cfg))
         torch.cuda.synchronize()
         ctor_s = time.perf_counter() - t0
         rot = r.instance_rotation_tensor().to_torch()
+        h = torch.tensor(half, dtype=torch.float32)
+        dq = torch.stack([torch.cos(h), 0 * h, 0 * h, torch.sin(h)])  # the host mirror's
+        C = r.state.max_cameras
         step_s = []
         for i in range(WARMUP_STEPS + TIMED_STEPS):
-            depth0 = r.depth_tensor().to_torch()[0].clone()
+            depth0 = r.depth_tensor().to_torch()[:C].clone()
             rot.copy_(quat_normalize(quat_multiply(dq, rot)))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1965,14 +2231,18 @@ def main() -> int:
             torch.cuda.synchronize()
             if i >= WARMUP_STEPS:
                 step_s.append(time.perf_counter() - t0)
-            if torch.equal(depth0, r.depth_tensor().to_torch()[0]):
-                raise AssertionError(f"{path} step {i}: the turned terrain did not change")
-        counts = dict(rc.render_resident.variant_launches, **rc.shade_mip.variant_launches,
-                      **pack_cuda.pack_rows.layout_launches)
+                if record is not None:
+                    record.append(r.state)
+            if bool((depth0 == r.depth_tensor().to_torch()[:C]).flatten(1).all(1).any()):
+                raise AssertionError(f"{path} step {i}: a view of the turned world 0 did "
+                                     "not change")
+        counts = launch_counts()
         steps = 1 + WARMUP_STEPS + TIMED_STEPS
-        name = variant(path_inputs(r))
+        kw = path_inputs(r)
+        name = variant(kw)
         expected = dict.fromkeys(kernel_names, 0)
-        expected.update({name: steps, "pack_rows": steps})
+        expected.update({part: steps for part in name.split("+")},
+                        **{pack_cuda.LAYOUTS[kw["geo"] != "prep" if "geo" in kw else 1]: steps})
         if counts != expected:
             raise AssertionError(f"{path}: launches {counts} in {steps} steps, "
                                  f"expected {expected}")
@@ -2014,7 +2284,8 @@ def main() -> int:
 
     terrain_timing = []
     for path, res, accel in TERRAIN_PATHS:
-        r, step_s, counts, ctor_s, name = drive_terrain(path, res, accel)
+        r, step_s, counts, ctor_s, name = drive_tool(
+            path, scenes.binned_terrain_config(TERRAIN_WORLDS, res, res), res, accel)
         if name != "render_binned":
             raise AssertionError(f"{path}: the terrain took {name}, not the binned route")
         add_launches(counts)
@@ -2053,7 +2324,9 @@ def main() -> int:
             timing_kw[name] = kw
         terrain_timing.append((path, res, kw, kw5))
         # The A/B: the same steps through the ordered walk (K5).
-        r5, step5, counts5, _, name5 = drive_terrain(path + "_clusters", res, "clusters")
+        r5, step5, counts5, _, name5 = drive_tool(
+            path + "_clusters", scenes.binned_terrain_config(TERRAIN_WORLDS, res, res), res,
+            "clusters")
         add_launches(counts5)
         extra.update(clusters_route=name5,
                      clusters_step_ms_median=statistics.median(step5) * 1e3,
@@ -2063,6 +2336,179 @@ def main() -> int:
         time_path(path, r, step_s, counts, ctor_s, extra)
         del r, k4, k5
         torch.cuda.empty_cache()
+
+
+    # ---- the ninth slice's paths: K12 (accel="mxu"), K1-none (accel=
+    # "none") and the 9-output route with its epilogue -------------------- #
+    def run_kernel(kw):
+        return (rc.render_batched if is_batched(kw) else rc.render_resident)(**kw)
+
+    def frames_of(r, outs):
+        """The route's epilogue on the kernel's outputs (frames_from_core)."""
+        return rc.frames_from_core(r.state, *outs, scene=r.scene, far=r.cfg.far_plane,
+                                   fov_y_degrees=r.cfg.fov_y_degrees,
+                                   texture_filter=r.cfg.texture_filter,
+                                   shadows=bool(r.cfg.shadows))
+
+    def flat(f, h, w):
+        return (f.rgb.reshape(-1, h, w, 4), f.depth.reshape(-1, h, w),
+                f.segmask.reshape(-1, h, w))
+
+    def core_checks(path, r, res):
+        """The path's kernel on the last step's inputs, through the epilogue,
+        reproduces the exported frames; K13 and the kernel equal their plain
+        versions at full size, bitwise."""
+        kw = path_inputs(r)
+        outs = run_kernel(kw)
+        exported = (r.rgb_tensor().to_torch(), r.depth_tensor().to_torch(),
+                    r.segmask_tensor().to_torch())
+        if not all(torch.equal(a, b) for a, b in zip(flat(frames_of(r, outs), res, res),
+                                                      exported)):
+            raise AssertionError(f"{path}: the kernel and the epilogue on the last step's "
+                                 "inputs differ from the exports")
+        if not torch.isfinite(exported[1]).all() or not bool((exported[1] > 0).any()):
+            raise AssertionError(f"{path}: depth not finite or empty")
+        prep = not is_batched(kw) and kw["geo"] == "prep"
+        check_pack(path, r.state, r.scene, r.state.camera_pos[:, 0, :] if prep else None)
+        check_render(path, kw, keep=True)
+        return kw, outs
+
+    def device_share(r, step_s):
+        dev_ms = device_ms(r.step)
+        med = statistics.median(step_s) * 1e3
+        return {"step_device_ms": dev_ms,
+                "idle_share": None if dev_ms is None else max(0.0, 1.0 - dev_ms / med)}
+
+    def ab_of(prefix, step_s):
+        return {f"{prefix}_step_ms_median": statistics.median(step_s) * 1e3,
+                f"{prefix}_step_ms_min": min(step_s) * 1e3,
+                f"{prefix}_step_ms_max": max(step_s) * 1e3}
+
+    # mxu_4096w, mxu_4096w_128: tools/tpu_accel_compare.py's defaults (the
+    # demo scene, bench.build(4096, "rt", res, res)) with accel="mxu" (K12),
+    # and the same steps through "auto" (K1) beside them; each timed step's
+    # inputs through both kernels at the kernel entry.
+    for res in MXU_RESOLUTIONS:
+        path = "mxu_4096w" if res == HEIGHT else f"mxu_4096w_{res}"
+        cfg = scenes.demo_config(NUM_WORLDS, m.RenderMode.Raytracer, res, res)
+        record = []
+        r, step_s, counts, ctor_s, name = drive_tool(path, cfg, res, "mxu",
+                                                     half=TOOL_HALF_ANGLE, record=record)
+        if name != "render_batched":
+            raise AssertionError(f"{path}: took {name}, not K12")
+        kw, outs = core_checks(path, r, res)
+        k1_kw = path_inputs(r, accel="auto")
+        k1_out = rc.render_resident(**k1_kw)
+        if res == HEIGHT:
+            timing_kw[name] = kw
+            # K12 against K1 on the same state: different arithmetic (the
+            # factorisation against the pack-time prep rows), so a report,
+            # not a check.
+            f12, f1 = frames_of(r, outs), rc.frames_from_core(r.state, *k1_out)
+            d12, d1 = f12.depth, f1.depth
+            rel = ((d12 - d1).abs() / torch.clamp_min(d1.abs(), 1e-30))[(d1 > 0) & (d12 > 0)]
+            emit({"phase": "mxu_vs_k1", "path": path,
+                  "rgb_max_lsb": int((f12.rgb.int() - f1.rgb.int()).abs().max()),
+                  "depth_max_rel": float(rel.max()) if rel.numel() else 0.0,
+                  "seg_mismatches": int((f12.segmask != f1.segmask).sum()),
+                  "pixels": int(d1.numel())})
+        else:
+            extra_timing.append((name, path, kw))
+        ab = {"k12": [], "k1": []}
+        for state in record:
+            kb = rc.pack_inputs(state, r.scene, height=res, width=res, accel="mxu")
+            k1 = rc.pack_inputs(state, r.scene, height=res, width=res)
+            ab["k12"].append(cuda_ms(lambda kb=kb: rc.render_batched(**kb), 1))
+            ab["k1"].append(cuda_ms(lambda k1=k1: rc.render_resident(**k1), 1))
+        extra = {"accel": "mxu", "route": name, **device_share(r, step_s),
+                 "epilogue_ms": cuda_ms(lambda: frames_of(r, outs), 5),
+                 **{f"ab_{k}_kernel_ms_median": statistics.median(v) for k, v in ab.items()}}
+        add_launches(counts)
+        del record, outs, k1_out
+        r1, step1, counts1, _, name1 = drive_tool(path + "_auto", cfg, res, "auto",
+                                                  half=TOOL_HALF_ANGLE)
+        add_launches(counts1)
+        extra.update(auto_route=name1, **ab_of("auto", step1))
+        del r1
+        time_path(path, r, step_s, counts, ctor_s, extra)
+        del r
+        torch.cuda.empty_cache()
+
+    # none_4096w: tools/tpu_opt_probe.py:69-72 ("brute (accel=none)", 4096 x
+    # 64²): K1-none, its frames bitwise K1's ("clusters") on every timed
+    # step's state, and the same steps through "clusters" beside them.
+    cfg = scenes.demo_config(NUM_WORLDS, m.RenderMode.Raytracer, WIDTH, HEIGHT)
+    record = []
+    r, step_s, counts, ctor_s, name = drive_tool("none_4096w", cfg, HEIGHT, "none",
+                                                 half=TOOL_HALF_ANGLE, record=record)
+    if name != "render_none":
+        raise AssertionError(f"none_4096w: took {name}, not K1-none")
+    kw, _ = core_checks("none_4096w", r, HEIGHT)
+    timing_kw[name] = kw
+    ab = {"none": [], "clusters": []}
+    for state in record:
+        kn = rc.pack_inputs(state, r.scene, height=HEIGHT, width=WIDTH, accel="none")
+        kc = rc.pack_inputs(state, r.scene, height=HEIGHT, width=WIDTH, accel="clusters")
+        if not all(torch.equal(a, b) for a, b in zip(rc.render_resident(**kn),
+                                                     rc.render_resident(**kc))):
+            raise AssertionError("none_4096w: K1-none's frames differ from K1's")
+        ab["none"].append(cuda_ms(lambda kn=kn: rc.render_resident(**kn), 1))
+        ab["clusters"].append(cuda_ms(lambda kc=kc: rc.render_resident(**kc), 1))
+    emit({"phase": "none_vs_k1", "path": "none_4096w", "steps": len(record), "bitwise": True})
+    extra = {"accel": "none", "route": name, **device_share(r, step_s),
+             **{f"ab_{k}_kernel_ms_median": statistics.median(v) for k, v in ab.items()}}
+    add_launches(counts)
+    del record
+    r1, step1, counts1, _, name1 = drive_tool("none_4096w_clusters", cfg, HEIGHT, "clusters",
+                                              half=TOOL_HALF_ANGLE)
+    add_launches(counts1)
+    extra.update(clusters_route=name1, **ab_of("clusters", step1))
+    del r1
+    time_path("none_4096w", r, step_s, counts, ctor_s, extra)
+    del r
+
+    # textured_4096w_mxu: bench.py:291's scene (the 32x32 checker on the
+    # cube) with accel="mxu": K12's 9-output mode and the planar epilogue.
+    cfg = scenes.demo_config(NUM_WORLDS, m.RenderMode.Raytracer, WIDTH, HEIGHT, dynamic=True,
+                             textured=True, tex_size=TEX_SIZE)
+    r, step_s, counts, ctor_s, name = drive_tool("textured_4096w_mxu", cfg, HEIGHT, "mxu",
+                                                 half=TOOL_HALF_ANGLE)
+    if name != "render_batched_nine":
+        raise AssertionError(f"textured_4096w_mxu: took {name}, not K12's 9-output mode")
+    kw, outs = core_checks("textured_4096w_mxu", r, HEIGHT)
+    timing_kw[name] = kw
+    n_colours = int(torch.unique(r.rgb_tensor().to_torch()[..., :3].reshape(-1, 3),
+                                 dim=0).shape[0])
+    if n_colours < 8:
+        raise AssertionError(f"textured_4096w_mxu: only {n_colours} colours: no texture shows")
+    time_path("textured_4096w_mxu", r, step_s, counts, ctor_s, {
+        "accel": "mxu", "route": name, "distinct_colours": n_colours,
+        **device_share(r, step_s), "epilogue_ms": cuda_ms(lambda: frames_of(r, outs), 5)})
+    add_launches(counts)
+    del r, outs
+
+    # tex256_cliff_4096w: tools/tpu_paged_tex_bench.py:167 (tex256_cliff_r2:
+    # the 256x256 texture baked with mipmaps=False, 4096 x 64²): K1's
+    # 9-output mode and the planar epilogue; beside it the tool's
+    # tex256_paged row (the same scene with mips: K7) in the same loop.
+    cfg = paged_tex_config(NUM_WORLDS, scenes, cfg_mod)
+    r, step_s, counts, ctor_s, name = drive_tool("tex256_cliff_4096w", cfg, HEIGHT, "auto",
+                                                 mipmaps=False)
+    if name != "render_resident_nine" or rc.has_mips(r.scene):
+        raise AssertionError(f"tex256_cliff_4096w: took {name}, not K1's 9-output mode")
+    kw, outs = core_checks("tex256_cliff_4096w", r, HEIGHT)
+    timing_kw[name] = kw
+    extra = {"route": name, "pool_texels": int(r.scene.tex_data.shape[0]),
+             **device_share(r, step_s), "epilogue_ms": cuda_ms(lambda: frames_of(r, outs), 5)}
+    add_launches(counts)
+    del outs
+    r7, step7, counts7, _, name7 = drive_tool("tex256_cliff_4096w_mips", cfg, HEIGHT, "auto")
+    add_launches(counts7)
+    extra.update(mips_route=name7, **ab_of("mips", step7))
+    del r7
+    time_path("tex256_cliff_4096w", r, step_s, counts, ctor_s, extra)
+    del r
+    torch.cuda.empty_cache()
 
     # ---- timings of every kernel at its path's full-size inputs --------- #
     def k13_row(layout, state, scene):
@@ -2082,7 +2528,12 @@ def main() -> int:
 
     def bound_of(kw):
         """The render kernel's bound on these inputs and the work it counts,
-        from its walk replayed (K1's index order included)."""
+        from its walk replayed (K1's index order included; K1-none and K12
+        test every triangle)."""
+        if is_batched(kw):
+            return k12_bound(kw), {}
+        if route(kw) == rc.NONE:
+            return none_bound(kw), {}
         walk = walks(kw)
         work = {k: walk[k] for k in ("triangle_visits", "shadow_triangle_visits",
                                      "cluster_visits", "clusters_streamed")}
@@ -2098,7 +2549,16 @@ def main() -> int:
         return cuda_ms(fn, 1, warm=False) if once else cuda_ms(fn, 2)
 
     def source_of(kw):
-        return f"madrona_renderer_tpu_torch/csrc/{rc.library_of(route(kw), seeded(kw))}.cu"
+        if is_batched(kw):
+            return "madrona_renderer_tpu_torch/csrc/render_batched.cu"
+        lib = rc.library_of(route(kw), seeded(kw), kw.get("texture"))
+        return f"madrona_renderer_tpu_torch/csrc/{lib}.cu"
+
+    def replaces_of(kw):
+        """The TPU kernel's launch: K12's (:4671), the non-culled one
+        (:4911), the culled one (:4872)."""
+        line = 4671 if is_batched(kw) else 4911 if route(kw) == rc.NONE else 4872
+        return f"madrona_renderer_tpu/ops/raytrace_pallas.py:{line}"
 
     def render_row(name, kw, plain=True, bound=True, reps=None):
         """A render variant's timing line; ``plain`` and ``bound`` False leave
@@ -2111,15 +2571,16 @@ def main() -> int:
             bound_of(kw) if bound else ((None, None, None, None), {}))
         if reps is None:
             reps = KERNEL_REPS if binned(kw) or not streamed(kw) or bound else KERNEL_REPS // 10
-        once = streamed(kw) or is_new(kw)
+        once = streamed(kw) or is_new(kw) or is_batched(kw)
+        plain_fn = rc.render_batched_plain if is_batched(kw) else rc.render_resident_plain
         return {
             "name": name, "route": "cuda", "source": source_of(kw),
-            "replaces": "madrona_renderer_tpu/ops/raytrace_pallas.py:4872",
+            "replaces": replaces_of(kw),
             "launches": launches[name], "max_abs_err": max_err[name],
-            "ms": graph_ms(lambda: rc.render_resident(**kw), reps),
-            "wrapper_ms": cuda_ms(lambda: rc.render_resident(**kw), reps),
+            "ms": graph_ms(lambda: run_kernel(kw), reps),
+            "wrapper_ms": cuda_ms(lambda: run_kernel(kw), reps),
             "plain_ms": plain_ms(plain_of, name, kw, once,
-                                 lambda: rc.render_resident_plain(**kw)) if plain else None,
+                                 lambda: plain_fn(**kw)) if plain else None,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "views": int(kw["cams"].shape[0]), **work, "bytes": nbytes, "ops": ops,
         }
@@ -2130,7 +2591,7 @@ def main() -> int:
         once = streamed(kw) or is_new(kw)
         return {
             "name": name, "route": "cuda", "source": source_of(kw),
-            "replaces": "madrona_renderer_tpu/ops/raytrace_pallas.py:4872",
+            "replaces": replaces_of(kw),
             "launches": launches[name], "max_abs_err": max_err[name],
             "ms": graph_ms(lambda: handoff(kw), reps),
             "wrapper_ms": cuda_ms(lambda: handoff(kw), reps),
@@ -2177,7 +2638,9 @@ def main() -> int:
         }
 
     # The streamed variants bigmesh_512w does not run are timed on the
-    # 64-world inputs of their first kernel_vs_plain scene.
+    # 64-world inputs of their first kernel_vs_plain scene, NEW_KERNEL_REPS
+    # launches a graph.
+    small = {name for name in streamed_kw if name not in timing_kw}
     for name, kw in streamed_kw.items():
         timing_kw.setdefault(name, kw)
     rows = []
@@ -2186,12 +2649,17 @@ def main() -> int:
         emit({"phase": "timing", **rows[-1]})
     for name in rc.VARIANTS + rc.BINNED_VARIANTS:
         kw = timing_kw[name]
-        rows.append(handoff_row(name, kw) if is_k7(kw) else render_row(name, kw))
+        reps = NEW_KERNEL_REPS if name in small else KERNEL_REPS
+        rows.append(handoff_row(name, kw, reps) if is_k7(kw) else render_row(name, kw,
+                                                                                reps=reps))
         emit({"phase": "timing", **rows[-1]})
-    # This slice's kernels (K3 and K4 on resident rows, K9): a path's own
-    # on its full-size inputs, the others on the 64-world inputs of their
-    # first kernel_vs_plain scene, NEW_KERNEL_REPS launches a graph.
-    for name in rc.RESIDENT_ORDERED_VARIANTS + rc.RESIDENT_BINNED_VARIANTS + rc.SEEDED_VARIANTS:
+    # The eighth and ninth slices' kernels (K3 and K4 on resident rows, K9,
+    # K1-none, the 9-output mode, K12): a path's own on its full-size inputs,
+    # the others on the 64-world inputs of their first kernel_vs_plain
+    # scene, NEW_KERNEL_REPS launches a graph.
+    for name in (rc.RESIDENT_ORDERED_VARIANTS + rc.RESIDENT_BINNED_VARIANTS
+                 + rc.SEEDED_VARIANTS + rc.NONE_VARIANTS + rc.NINE_VARIANTS
+                 + rc.BATCHED_VARIANTS):
         kw = timing_kw.get(name) or first_kw[name]
         reps = KERNEL_REPS if name in timing_kw else NEW_KERNEL_REPS
         rows.append(handoff_row(name, kw, reps) if is_k7(kw) else render_row(name, kw,

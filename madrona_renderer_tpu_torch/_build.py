@@ -6,9 +6,9 @@ build takes seconds). Libraries land in ``build/torch_kernels/`` at the
 root of a source checkout, or in a per-user cache directory for an
 installed package (``cache_root``), named by a hash of the source, the
 sources it includes (``csrc/render_binned.cu``,
-``csrc/render_resident_ordered.cu``, ``csrc/render_resident_binned.cu`` and
-``csrc/render_seeded.cu`` include ``csrc/render_resident.cu``) and the
-flags, so an edited source or flag
+``csrc/render_resident_ordered.cu``, ``csrc/render_resident_binned.cu``,
+``csrc/render_seeded.cu`` and ``csrc/render_none.cu`` include
+``csrc/render_resident.cu``) and the flags, so an edited source or flag
 rebuilds and an unchanged one loads at once. Nothing is built when this module is imported: the first call that
 launches a kernel builds it. The sources ship in the package
 (``pyproject.toml``'s package data).
@@ -128,6 +128,27 @@ SIGNATURES = {
          _I, _I, _I,  # raster tex_filter geo
          _I, _I, _I,  # bins_x bin_shift n_bins
          _P],  # stream
+    ),
+    "render_none": (
+        "mrt_render_none",
+        [_P, _P, _P, _P, _P,  # rows clusters (null: K1-none) cams mats pool
+         _I,  # n_mats
+         _P, _P, _P,  # depth seg rgb
+         _P, _P,  # code handoff (the mip hand-off, the 9-output mode)
+         _P,  # seed
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
+         _F, _F,  # two_over_w two_over_h
+         _I, _I, _I,  # raster tex_filter geo
+         _I,  # culled (K1's 9-output entries) or not (K1-none)
+         _P],  # stream
+    ),
+    "render_batched": (
+        "mrt_render_batched",
+        [_P] * 6  # rows cams t idx planes ints
+        + [_I] * 7  # num_views num_cams S n_cols n_lights height width
+        + [_F, _F,  # two_over_w two_over_h
+           _I, _I,  # raster nine
+           _P],  # stream
     ),
     "shade_mip": (
         "mrt_shade_mip",

@@ -218,10 +218,11 @@ class ManagerConfig:
     # exceeds the kernel's resident budget). The reference's hardware
     # samplers mip implicitly (src/mgr.cpp:352-354).
     mipmaps: "bool | str" = "auto"
-    # The streamed route's cluster visit (port only; the JAX package's
-    # Manager always takes "auto"): "auto", "clusters" (the ordered walk,
-    # K3 + K5) or "binned" (the tile-binned visit, K4); resident scenes
-    # render through K1 whatever it says.
+    # The render route (port only: the JAX package's Manager never passes
+    # one, its raytrace / rasterize take it): the JAX package's values
+    # "auto", "none" (every triangle, K1-none), "clusters" (the ordered
+    # walk), "binned" (the tile-binned visit) or "mxu" (the batched kernel
+    # K12), passed through to raytrace / rasterize unchanged.
     accel: str = "auto"
     # Supersampled antialiasing: render each view at ssaa x resolution
     # and box-filter rgb back down. 1 = off (reference behavior: one ray

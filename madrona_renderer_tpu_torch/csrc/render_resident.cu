@@ -234,6 +234,10 @@ constexpr int kTexNone = 0;
 constexpr int kTexNearest = 1;
 constexpr int kTexBilinear = 2;
 constexpr int kTexMip = 3;
+// The 9-output mode (csrc/render_none.cu's entries): the unshaded outputs
+// t, z, idx, mat, uv and the normal, written unmasked for the shading
+// epilogue.
+constexpr int kTexNine = 4;
 // Hand-off code bits above the material id.
 constexpr int kFoundBit = 1 << 16;
 constexpr int kShadedBit = 1 << 17;
@@ -603,9 +607,12 @@ __host__ __device__ constexpr int binned_stage_rows() {
 // walk below reads the bin, the cluster table and the spans in device
 // memory where the ordered walk reads its shared copies). RWALK (with STREAM
 // false): the resident visits, BINNED choosing the bin over the order.
-// SEEDED: K9, best_t starting from `seed` (unread otherwise).
+// SEEDED: K9, best_t starting from `seed` (unread otherwise). CULL false
+// (K1-none, csrc/render_none.cu, resident index order only): no cluster
+// table; every triangle is tested, in index order, and so is every
+// triangle of the shadow sweep.
 template <int GEO, bool RASTER, int TEX, bool STREAM, bool BINNED = false,
-          bool RWALK = false, bool SEEDED = false>
+          bool RWALK = false, bool SEEDED = false, bool CULL = true>
 __device__ __forceinline__ void render_body(const RenderArgs& a,
                                             const StreamArgs& st,
                                             const BinArgs& bn = BinArgs{},
@@ -787,7 +794,38 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
   float* buf0 = s_geo;  // streamed: the two staged clusters
   float* buf1 = s_geo + smem_geo_rows<GEO>() * cs;
   if constexpr (BINNED) buf1 = s_geo + binned_stage_rows<GEO>() * cs;
-  if constexpr (!STREAM && !RWALK) {
+  if constexpr (!STREAM && !CULL) {
+    // K1-none: every triangle in index order (the JAX non-culled launch,
+    // :4911); invalid and padding triangles fail through inv = 0 or, K10,
+    // the validity row.
+    for (int i = 0; i < S; ++i) {
+      if constexpr (WT) {
+        float t;
+        if (woop_test(shear, s_geo + i, S, t) && s_geo[9 * S + i] > 0.f && t > t_lo &&
+            t < best_t) {
+          best_t = t;
+          best_idx = i;
+        }
+      } else {
+        float u, v, t;
+        if constexpr (RAW) {
+          pvec_test(dx, dy, dz, g3[i], g4[i], g5[i], g6[i], g7[i], g8[i], g9 + i, S, u, v,
+                    t);
+        } else {
+          prep_test(dx, dy, dz, s_geo + i, S, u, v, t);
+        }
+        if ((fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) && (t > t_lo) &&
+            (t < best_t)) {
+          best_t = t;
+          best_idx = i;
+          if (RAW) {
+            best_u = u;
+            best_v = v;
+          }
+        }
+      }
+    }
+  } else if constexpr (!STREAM && !RWALK) {
     // The resident sweep keeps its own copy of the slab and prep tests
     // (slab() and prep_test() compute the same expressions): ptxas's
     // register allocation of these variants moves with the source's shape.
@@ -1128,6 +1166,23 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
   const float t_hit = found ? best_t : 0.f;
   const float z = t_hit * cosf_;
 
+  if constexpr (TEX == kTexNine) {
+    // The 9-output mode (:2832-2834, :3664-3670): t, idx, the material and
+    // five f32 planes, unmasked; a miss writes t 0, idx -1 and zeros.
+    const size_t o = ((size_t)view * a.height + py) * a.width + px;
+    const size_t plane = (size_t)gridDim.x * a.height * a.width;
+    a.depth[o] = t_hit;
+    a.segmask[o] = best_idx;
+    a.code[o] = (int)a0;
+    a.handoff[o] = z;
+    a.handoff[plane + o] = a1;
+    a.handoff[2 * plane + o] = a2;
+    a.handoff[3 * plane + o] = nx;
+    a.handoff[4 * plane + o] = ny;
+    a.handoff[5 * plane + o] = nz;
+    return;
+  }
+
   // K8: one any-hit sweep per directional light from the hit point
   // (:2847-2999), bit li of occ_mask set when light li is occluded. A miss
   // sweeps from the camera origin (t_hit = 0); its result is dead.
@@ -1144,7 +1199,25 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
       const float ivsy = 1.0f / safe_dir(sdy);
       const float ivsz = 1.0f / safe_dir(sdz);
       bool occ = false;
-      if constexpr (!STREAM) {
+      if constexpr (!STREAM && !CULL) {
+        // K1-none: every triangle, no slab test.
+        for (int i = 0; i < S; ++i) {
+          const float e1x = g3[i], e1y = g4[i], e1z = g5[i];
+          const float e2x = g6[i], e2y = g7[i], e2z = g8[i];
+          float h[7];
+          h[0] = hx - g0[i];
+          h[1] = hy - g1[i];
+          h[2] = hz - g2[i];
+          h[3] = h[1] * e1z - h[2] * e1y;
+          h[4] = h[2] * e1x - h[0] * e1z;
+          h[5] = h[0] * e1y - h[1] * e1x;
+          h[6] = e2x * h[3] + e2y * h[4] + e2z * h[5];
+          float u, v, t;
+          pvec_test(sdx, sdy, sdz, e1x, e1y, e1z, e2x, e2y, e2z, h, 1, u, v, t);
+          occ = occ || ((fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
+                        (t > eps_sh));
+        }
+      } else if constexpr (!STREAM) {
         for (int c = 0; c < CC; ++c) {
           // The shadow ray's slab test (:2930-2948): tmax > 0, and pixels
           // already occluded drop out of the block-wide OR.
@@ -1400,7 +1473,7 @@ RenderArgs render_args(const float* rows, const float* clusters, const float* ca
                n_mats, num_cams, S, CC, cluster_size, n_cols, n_lights,
                height, width, (width + kTileX - 1) / kTileX, seg_div,
                two_over_w, two_over_h};
-  if (tex_filter == kTexMip) {
+  if (tex_filter == kTexMip || tex_filter == kTexNine) {
     a.handoff = handoff;
     a.code = code;
   }

@@ -130,8 +130,8 @@ class Manager:
         self.state: SimState = init_state(
             rcfg.instances, rcfg.cameras, rcfg.worlds, self.device
         )
-        raytrace_cuda.check_supported(self.state, self.scene, cfg.texture_filter)
         raytrace_cuda.check_accel(cfg.accel)
+        raytrace_cuda.check_supported(self.state, self.scene, cfg.texture_filter, cfg.accel)
 
         # --- Flat export index maps (world-major, matching the reference's
         # cross-world-concatenated export columns, src/sim.cpp:113-119) ---

@@ -30,11 +30,13 @@ def rasterize(state: SimState, scene: SceneData, *, height: int, width: int,
     mip chains the mip level reads t too, and the window clamp keys on the
     geometric hit, before the far clip (the JAX ``raster_ref.py:108-123``).
     ``watertight`` passes through to the shared kernel's Woop decision, as
-    in the JAX ``raster_pallas.py:79-92``; ``accel`` picks the streamed
-    route's visit, as in ``raytrace_cuda.render_core``."""
+    in the JAX ``raster_pallas.py:79-92``; ``accel`` (the JAX package's five
+    values, "none" and "mxu" among them, :65-95) picks the route, as in
+    ``raytrace_cuda.render_core``."""
     return frames_from_core(state, *render_core(
         state, scene, height=height, width=width, near=near, far=far,
         fov_y_degrees=fov_y_degrees, raster=True,
         texture_filter=texture_filter, shadows=shadows, watertight=watertight,
         accel=accel,
-    ))
+    ), scene=scene, raster=True, far=far, fov_y_degrees=fov_y_degrees,
+        texture_filter=texture_filter, shadows=shadows)

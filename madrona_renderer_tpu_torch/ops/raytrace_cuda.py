@@ -1,6 +1,9 @@
 """Batch raytracer: the render prologue, then kernel K1 (K1-raw, K8, K10,
 K2, K6, K7) or K3 / K4 on resident rows, or on meshes past the resident
-budget K3 + K5 or K4; each raytrace variant seeded by K9 on request.
+budget K3 + K5 or K4; each raytrace variant seeded by K9 on request; the
+non-culled sweep K1-none (``accel="none"``, and tiny worlds) and the
+batched kernel K12 (``accel="mxu"``); and the 9-output route with its
+shading and shadow epilogue (``frames_from_core``).
 
 The port of the main path of the JAX package's ``ops/raytrace_pallas.py``
 (``render_core``, :3998) for what its flags resolve to on scenes that fit
@@ -76,8 +79,22 @@ first). K9 (``seed``, ``render_core(seed_t=)``): each pixel's best t starts
 at min(seed, far), a per-pixel bound that lets the walks stop sooner; the
 warm start (``ops/warmstart.py``) is built on it.
 
+The JAX package's other two routes (``render_core`` :4040-4073, :4655-4679,
+:4880-4923): ``accel="none"``, and ``"auto"`` on worlds of fewer than 16
+triangles or a single cluster, sweep every triangle without a cluster table
+(K1-none, ``csrc/render_none.cu``: ``clusters`` None); ``accel="mxu"``
+takes K12 (``render_batched``, ``csrc/render_batched.cu``) on K13's raw
+rows, shaded on untextured scenes, else in the 9-output mode. Where the JAX
+package does not shade in the kernel (``output_mode``: textured pools past
+the in-kernel route's 16,384 texels or 128 materials without mips, textured
+scenes and shadows under ``accel="mxu"``), the kernel writes t, z, idx, the
+material, uv and the normal (the 9-output mode, ``texture="nine"``, on K1
+and K1-none), and ``frames_from_core`` shades them
+(``shade.shade_lambert_planar``), with shadows through ``compute_lit``.
+
 Scenes outside these paths raise ``NotImplementedError`` naming the ROADMAP
-item that ports them (``check_supported``).
+item that ports them (``pack_inputs``: the 9-output route on the ordered,
+binned and streamed visits).
 """
 
 from __future__ import annotations
@@ -94,7 +111,9 @@ from ..core.state import SimState
 from . import mips, pack_cuda, shade
 from . import watertight as wt
 from .quat import quat_rotate
-from .raytrace_ref import _EPS_BARY, _EPS_DET, SHADOW_EPS, planar_soup_parts
+from .raytrace_ref import (_EPS_BARY, _EPS_DET, SHADOW_EPS, build_world_soup,
+                           camera_ray_dirs, compute_lit, light_directions,
+                           planar_soup_parts)
 from .shade import AMBIENT, packed_to_rgba8
 
 # Camera row: origin(3) right(3) fwd(3) up(3) tan_x tan_y near far_t far_z
@@ -119,9 +138,11 @@ _F_SHADOW_EPS = float(np.float32(SHADOW_EPS))
 _F_EPS_BEHIND = float(np.float32(1e-6))  # the row spans' camera-plane floor
 _ALPHA = int(np.uint32(0xFF000000).view(np.int32))
 _CAM_FAR_Z = 16  # camera column of the z-space far clip (raster)
-# The render kernel's texture switch: untextured, nearest, bilinear, and
-# the mip hand-off (K7's first launch).
-_TEX_CODES = {None: 0, "nearest": 1, "bilinear": 2, "mip": 3}
+# The render kernel's texture switch: untextured, nearest, bilinear, the mip
+# hand-off (K7's first launch), and the 9-output mode (t, z, idx, mat, uv,
+# normal: the JAX kernel's unshaded outputs, shaded by the epilogue).
+_TEX_CODES = {None: 0, "nearest": 1, "bilinear": 2, "mip": 3, "nine": 4}
+_FUSED_TEX = (None, "nearest", "bilinear", "mip")
 # shade_mip's filter switch.
 _MIP_FILTER_CODES = {"nearest": 0, "bilinear": 1, "trilinear": 2}
 _MIP_FB_ROWS = (16, 32, 64, 128)  # the bake's fallback-region sizes
@@ -133,6 +154,9 @@ _SHADED_BIT = 1 << 17
 _GEO_CODES = {"prep": 0, "raw": 1, "raw_shadows": 2, "raw_wt": 3, "raw_wt_shadows": 4}
 _SHADOW_GEOS = ("raw_shadows", "raw_wt_shadows")
 _WATERTIGHT_GEOS = ("raw_wt", "raw_wt_shadows")
+# The 9-output mode's sweeps: its shadows are the epilogue's.
+_NINE_GEOS = ("prep", "raw", "raw_wt")
+_NINE_PLANES = 6  # the 9-output mode's f32 planes: z, uv x, uv y, normal x, y, z
 _MAX_SHADOW_LIGHTS = 32  # one occlusion bit per light in the kernel
 _TILE = 16  # the kernel's block: 16×16 pixels; the row spans' band height
 # The streamed route's shared memory: two staged clusters of up to 16 rows,
@@ -159,7 +183,9 @@ _AUTO_BIN_MIN_TILES = 4
 _ORDERED_MIN_CLUSTERS = 4
 _AUTO_CULL_MIN_TRIS = 16
 _AUTO_CULL_MIN_CLUSTERS = 2
-ACCELS = ("auto", "clusters", "binned")
+# The JAX package's values: "none" sweeps every triangle (K1-none), "mxu"
+# takes the batched kernel (K12).
+ACCELS = ("auto", "none", "clusters", "binned", "mxu")
 
 
 class Route(NamedTuple):
@@ -167,8 +193,9 @@ class Route(NamedTuple):
     ``streamed`` (rows past the resident budget, staged from device memory)
     or resident (in shared memory); ``visit`` ``"index"`` (every cluster in
     index order, K1), ``"ordered"`` (each view's front-to-back order with
-    the occlusion early exit, K3) or ``"binned"`` (the bin of the block's
-    bin tile, K4)."""
+    the occlusion early exit, K3), ``"binned"`` (the bin of the block's bin
+    tile, K4), ``"none"`` (every triangle, no cluster table: K1-none) or
+    ``"mxu"`` (the batched kernel K12, ``render_batched``)."""
 
     streamed: bool
     visit: str
@@ -210,32 +237,39 @@ def streamed_smem_bytes(n_clusters: int, cluster_size: int, n_lights: int) -> in
 
 
 def check_accel(accel: str) -> None:
-    """``accel`` is one of ``ACCELS``; the JAX package's ``"none"`` and
-    ``"mxu"`` raise ``NotImplementedError``, any other value ``ValueError``."""
-    if accel in ("none", "mxu"):
-        raise NotImplementedError(
-            f"accel={accel!r} (the non-culled sweep K1-none, the matmul kernel "
-            "K12) is not ported yet — ROADMAP Queue 1 #3"
-        )
+    """``accel`` is one of ``ACCELS`` (else ``ValueError``)."""
     if accel not in ACCELS:
         raise ValueError(f"accel must be one of {ACCELS}, got {accel!r}")
 
 
 def visit_route(state: SimState, scene: SceneData, height: int, width: int,
                 accel: str = "auto") -> Route:
-    """The kernel's route: ``render_core``'s ``dma_tris``, ``binned`` and
-    ``ordered`` (:4265-4292), evaluated on the TPU tiling
-    (``mips.tile_geometry``) so that the port visits as the JAX package
-    does. Binned: ``accel="binned"``, or ``"auto"`` with at least 64
-    clusters a world, 4 TPU tiles and at most 2^25 dense bin entries; else
-    ordered on the streamed route and on resident worlds of at least 4
-    clusters (under ``"auto"`` with at least 16 triangles: the JAX package's
-    cluster gate), else index order (K1). A streamed cluster table too
-    large for the ordered walk's shared memory takes the binned visit
+    """The kernel's route: ``render_core``'s ``use_clusters``, ``dma_tris``,
+    ``binned`` and ``ordered`` (:4040-4044, :4265-4292), evaluated on the
+    TPU tiling (``mips.tile_geometry``) so that the port visits as the JAX
+    package does. ``accel="mxu"``: the batched kernel K12. ``"none"``, or
+    ``"auto"`` with fewer than 16 triangles or 2 clusters a world: every
+    triangle, no cluster table (K1-none; past the resident budget a
+    ``ValueError``, :4882-4886). Binned: ``accel="binned"``, or ``"auto"``
+    with at least 64 clusters a world, 4 TPU tiles and at most 2^25 dense
+    bin entries; else ordered on the streamed route and on resident worlds
+    of at least 4 clusters, else index order (K1). A streamed cluster table
+    too large for the ordered walk's shared memory takes the binned visit
     too."""
     check_accel(accel)
+    if accel == "mxu":
+        return Route(False, "mxu")
     streamed = is_streamed(state, scene)
+    S = state.max_instances * scene.tris_per_object
     n_cl = state.max_instances * int(scene.cl_valid.shape[1])
+    culled = accel in ("clusters", "binned") or (
+        accel == "auto" and S >= _AUTO_CULL_MIN_TRIS and n_cl >= _AUTO_CULL_MIN_CLUSTERS)
+    if not culled:
+        if streamed:
+            raise ValueError(
+                f"accel='none' with {S} triangles/world exceeds the SMEM budget; use "
+                "accel='clusters' (streams triangles via DMA)")
+        return Route(False, "none")
     size = scene.tris_per_object // int(scene.cl_valid.shape[1])
     views = int(state.camera_pos.shape[0]) * state.max_cameras
     n_tiles = mips.tile_geometry(height, width)[2]
@@ -247,12 +281,9 @@ def visit_route(state: SimState, scene: SceneData, height: int, width: int,
         if streamed_smem_bytes(n_cl, size, int(scene.light_dir.shape[0])) > _MAX_SMEM:
             binned = True
         return Route(True, "binned" if binned else "ordered")
-    culled = accel != "auto" or (state.max_instances * scene.tris_per_object
-                                 >= _AUTO_CULL_MIN_TRIS
-                                 and n_cl >= _AUTO_CULL_MIN_CLUSTERS)
     if binned:
         return Route(False, "binned")
-    return Route(False, "ordered" if culled and n_cl >= _ORDERED_MIN_CLUSTERS else "index")
+    return Route(False, "ordered" if n_cl >= _ORDERED_MIN_CLUSTERS else "index")
 
 
 def bin_tile_for(num_views: int, height: int, width: int, n_clusters: int) -> int:
@@ -269,20 +300,23 @@ def bin_tile_for(num_views: int, height: int, width: int, n_clusters: int) -> in
 
 
 def check_supported(state: SimState, scene: SceneData,
-                    texture_filter: str = "nearest") -> None:
-    """Raise ``NotImplementedError`` for a scene this slice does not render
-    (``ValueError`` for a filter no route renders)."""
+                    texture_filter: str = "nearest", accel: str = "auto") -> None:
+    """Raise ``ValueError`` for a filter no route renders, and for the mip
+    route's refusals (``render_core`` :4074-4096): mip-mapped pools with
+    ``accel="mxu"`` or past 128 materials. (The 9-output route off the index
+    and non-culled visits raises in ``pack_inputs``, which knows the
+    route.)"""
     if is_textured(scene) and has_mips(scene):
         if texture_filter not in shade.MIP_FILTERS:
             raise ValueError(
                 f"texture_filter must be one of {shade.MIP_FILTERS}, got "
                 f"{texture_filter!r}"
             )
-        if int(scene.mat_color.shape[0]) > shade.TEX_MAX_MATERIALS:
+        if accel == "mxu" or int(scene.mat_color.shape[0]) > shade.TEX_MAX_MATERIALS:
             raise ValueError(
-                "mip-mapped texture pools need the paged kernel path — more "
-                f"than {shade.TEX_MAX_MATERIALS} materials are unsupported with "
-                "mipmaps (bake with mipmaps=False)"
+                "mip-mapped texture pools need the paged kernel path — "
+                "accel='mxu' and >128 materials are unsupported with mipmaps "
+                "(bake with mipmaps=False, or drop accel='mxu')"
             )
     elif is_textured(scene):
         if texture_filter == "trilinear":
@@ -295,16 +329,34 @@ def check_supported(state: SimState, scene: SceneData,
                 f"texture_filter must be one of {shade.FILTERS}, got "
                 f"{texture_filter!r}"
             )
-        n_texels = int(scene.tex_data.shape[0])
-        n_mats = int(scene.mat_color.shape[0])
-        if n_texels > shade.TEX_MAX_TEXELS or n_mats > shade.TEX_MAX_MATERIALS:
-            raise NotImplementedError(
-                f"a textured scene with {n_texels} texels and {n_mats} "
-                f"materials exceeds the in-kernel texture route "
-                f"({shade.TEX_MAX_TEXELS} texels, {shade.TEX_MAX_MATERIALS} "
-                "materials); the 9-output route with the shading epilogue is "
-                "not ported yet — ROADMAP Queue 1 item 6"
-            )
+
+
+def output_mode(scene: SceneData, accel: str = "auto", shadows: bool = False) -> str:
+    """What the kernel writes (``render_core``'s ``shaded``,
+    ``shadows_epilogue``, ``tex_inkernel`` and ``tex_paged``, :4050-4096):
+    ``"fused"`` (K1 and its variants shade in the kernel and write the
+    final depth, segmask and rgb), ``"shaded"`` (K12 on an untextured
+    scene: t, z, idx and rgb, masked by the epilogue) or ``"nine"`` (t, z,
+    idx, mat, uv and the normal, shaded by the planar epilogue: textured
+    pools past the in-kernel route's 16,384 texels or 128 materials without
+    mip chains, textured scenes under ``accel="mxu"``, and shadows under
+    ``accel="mxu"``, which K12 does not trace)."""
+    shadows_epilogue = shadows and accel == "mxu"
+    shaded = not is_textured(scene) and not shadows_epilogue
+    if accel == "mxu":
+        return "shaded" if shaded else "nine"
+    if shaded or has_mips(scene):
+        return "fused"
+    fits = (int(scene.tex_data.shape[0]) <= shade.TEX_MAX_TEXELS
+            and int(scene.mat_color.shape[0]) <= shade.TEX_MAX_MATERIALS)
+    return "fused" if fits else "nine"
+
+
+def check_seedable(accel: str) -> None:
+    """K9's seed has no counterpart in the batched kernel (render_core
+    :4154-4155)."""
+    if accel == "mxu":
+        raise ValueError("seed_t is not supported with accel='mxu'")
 
 
 # --------------------------------------------------------------------- #
@@ -403,13 +455,8 @@ def _pack_cams(
     tan_y = torch.tan(eff_fov * deg2rad * 0.5)[..., None]  # [W, C, 1]
     tan_x = tan_y * (width / height)
     clip = torch.stack([eff_near, far_t, far_z], dim=-1)  # [W, C, 3]
-    ld = scene.light_dir
-    norms = torch.clamp_min(
-        torch.sqrt(ld[:, 0:1] * ld[:, 0:1] + ld[:, 1:2] * ld[:, 1:2]
-                   + ld[:, 2:3] * ld[:, 2:3]),
-        1e-20,
-    )
-    lights_flat = torch.cat([ld / norms, scene.light_color], dim=-1).reshape(-1)
+    lights_flat = torch.cat([light_directions(scene), scene.light_color],
+                            dim=-1).reshape(-1)
     light = lights_flat.expand(W, C, 6 * L)
     n_cols = _n_cam_cols(L)
     camv = state.camera_valid[:, :, None].to(torch.float32)
@@ -762,9 +809,29 @@ def pack_inputs(
     hi) per 8-row band) with the rows row-sorted (``row_sorted``); the
     resident visits take no spans, sort and ranges (the JAX package builds
     them for its deferred sweep only, :4373-4378, :4402-4410). Unused
-    entries are None."""
-    check_supported(state, scene, texture_filter)
+    entries are None.
+
+    The non-culled visit (``accel="none"``, or ``"auto"`` on tiny worlds:
+    K1-none) takes no cluster table (``clusters`` None). Where the scene
+    takes the 9-output route (``output_mode``), ``texture`` is ``"nine"``
+    and the rows sweep without the in-kernel shadow rays (``geo`` ``"raw"``
+    or ``"raw_wt"`` under ``shadows``: the epilogue traces them).
+    ``accel="mxu"`` returns ``render_batched``'s inputs instead: K13's raw
+    rows and the camera rows, with ``nine`` the 9-output mode; ``watertight``
+    raises there, as in the JAX package (:4426-4431)."""
+    check_supported(state, scene, texture_filter, accel)
     route = visit_route(state, scene, height, width, accel)
+    mode = output_mode(scene, accel, shadows)
+    if route.visit == "mxu" and watertight:
+        raise ValueError(
+            "watertight=True is not supported with accel='mxu' (the batched kernel "
+            "has no per-pixel shear sweep) — use accel='auto' or the jnp path")
+    if mode == "nine" and route.visit not in ("index", "none", "mxu"):
+        raise NotImplementedError(
+            f"the 9-output route (a textured pool past the in-kernel route's "
+            f"{shade.TEX_MAX_TEXELS} texels or {shade.TEX_MAX_MATERIALS} materials, "
+            f"without mips) on the {'streamed ' if route.streamed else ''}{route.visit} "
+            "visit is not ported yet — ROADMAP Queue 1 #9")
     # Effective per-camera view parameters (0 = inherit the call defaults).
     eff_fov = torch.where(state.camera_fov > 0, state.camera_fov, fov_y_degrees)
     eff_near = torch.where(state.camera_znear > 0, state.camera_znear, near)
@@ -778,17 +845,24 @@ def pack_inputs(
         far_t = far * torch.sqrt(1.0 + tan_x * tan_x + tan_y * tan_y)
     else:
         far_t = far_z
-    prep = state.max_cameras == 1 and not shadows and not watertight
+    prep = (state.max_cameras == 1 and not shadows and not watertight
+            and route.visit != "mxu")
     geo = "prep"
     if not prep:
-        geo = ("raw_wt" if watertight else "raw") + ("_shadows" if shadows else "")
+        in_kernel_shadows = shadows and mode == "fused"
+        geo = ("raw_wt" if watertight else "raw") + ("_shadows" if in_kernel_shadows else "")
     rows = pack_cuda.pack_rows(state, scene,
                                state.camera_pos[:, 0, :] if prep else None)
     cams = _pack_cams(state, scene, width, height, eff_fov, eff_near, far_t, far_z)
-    cl_lo, cl_hi, cl_valid, cl_count = world_clusters(state, scene)
-    clusters = _pack_clusters(cl_lo, cl_hi, cl_valid, cl_count)
-    order = spans = bins = ranges = bin_tile = None
-    if route.visit != "index":
+    if route.visit == "mxu":
+        return dict(rows=rows, cams=cams.contiguous(), num_cams=state.max_cameras,
+                    n_lights=int(scene.light_dir.shape[0]), height=height, width=width,
+                    raster=raster, nine=mode == "nine")
+    clusters = order = spans = bins = ranges = bin_tile = None
+    if route.visit != "none":
+        cl_lo, cl_hi, cl_valid, cl_count = world_clusters(state, scene)
+        clusters = _pack_clusters(cl_lo, cl_hi, cl_valid, cl_count).contiguous()
+    if route.visit not in ("index", "none"):
         order = camera_cluster_order(cl_lo, cl_hi, cl_valid, state.camera_pos)
     if route.streamed:
         spans = camera_cluster_rowspans(cl_lo, cl_hi, cl_valid, state, eff_fov, height,
@@ -811,7 +885,9 @@ def pack_inputs(
             rows = row_sorted(rows, perm)
             ranges = torch.stack([lo, hi], dim=-1).contiguous()
     texture = mats = pool = fb_rows = None
-    if is_textured(scene):
+    if mode == "nine":
+        texture = "nine"
+    elif is_textured(scene):
         texture = texture_filter
         pool = shade.texel_pool(scene)
         if has_mips(scene):
@@ -821,7 +897,7 @@ def pack_inputs(
             mats = shade.material_table(scene)
     return dict(
         rows=rows,
-        clusters=clusters.contiguous(),
+        clusters=clusters,
         cams=cams.contiguous(),
         num_cams=state.max_cameras,
         n_lights=int(scene.light_dir.shape[0]),
@@ -846,34 +922,43 @@ def pack_inputs(
 # Kernel K1 (K1-raw, K8, K2, K6, K7's first launch) and its plain version
 # --------------------------------------------------------------------- #
 INDEX = Route(False, "index")
+NONE = Route(False, "none")
 # Each route's kernel name (the variants' prefix) and the csrc/ library that
 # holds its entries.
 _ROUTE_NAMES = {
     INDEX: "render_resident",
+    NONE: "render_none",
     Route(False, "ordered"): "render_resident_ordered",
     Route(False, "binned"): "render_resident_binned",
     Route(True, "ordered"): "render_streamed",
     Route(True, "binned"): "render_binned",
 }
-_ROUTE_LIBRARIES = {INDEX: "render_resident", Route(True, "ordered"): "render_resident",
+_ROUTE_LIBRARIES = {INDEX: "render_resident", NONE: "render_none",
+                    Route(True, "ordered"): "render_resident",
                     Route(True, "binned"): "render_binned",
                     Route(False, "ordered"): "render_resident_ordered",
                     Route(False, "binned"): "render_resident_binned"}
 
 
-def library_of(route: Route, seeded: bool) -> str:
+def library_of(route: Route, seeded: bool, texture=None) -> str:
     """The csrc/ library of a launch: K9 on K1, K3 + K5 and K4 builds in
     ``render_seeded.cu``, the resident visits' seeded entries in their own
-    sources."""
+    sources; K1-none and K1's 9-output mode (cold and seeded) in
+    ``render_none.cu``."""
+    if texture == "nine":
+        return "render_none"
     if seeded and route in (INDEX, Route(True, "ordered"), Route(True, "binned")):
         return "render_seeded"
     return _ROUTE_LIBRARIES[route]
 
 
-def route_of(order=None, spans=None, bins=None) -> Route:
+def route_of(order=None, spans=None, bins=None, culled: bool = True) -> Route:
     """The route a launch on these visit inputs takes: streamed with row
     spans (``pack_inputs`` gives them past the resident budget), resident
-    without; ordered with an order, binned with bins, else index order."""
+    without; ordered with an order, binned with bins, without a cluster
+    table (``culled`` False) every triangle (K1-none), else index order."""
+    if not culled:
+        return NONE
     visit = "binned" if bins is not None else "ordered" if order is not None else "index"
     return Route(spans is not None, visit)
 
@@ -885,18 +970,21 @@ def variant_name(raster: bool, texture, geo: str = "prep", route: Route = INDEX,
     and K4 on resident rows; ``render_streamed``, K3 + K5;
     ``render_binned``, K4), ``_seeded`` (K9), then ``_raw`` (K1-raw),
     ``_raw_shadows`` (K8), ``_raw_wt`` or ``_raw_wt_shadows`` (K10),
-    ``_raster`` (K2) and ``_tex_nearest`` / ``_tex_bilinear`` (K6) or
-    ``_tex_mip`` (the hand-off, K7's first launch)."""
+    ``_raster`` (K2) and ``_tex_nearest`` / ``_tex_bilinear`` (K6),
+    ``_tex_mip`` (the hand-off, K7's first launch) or ``_nine`` (the
+    9-output mode); ``render_none`` is K1-none."""
     name = _ROUTE_NAMES[route] + ("_seeded" if seeded else "")
     name += "" if geo == "prep" else f"_{geo}"
     name += "_raster" if raster else ""
+    if texture == "nine":
+        return name + "_nine"
     return name + (f"_tex_{texture}" if texture else "")
 
 
-def _route_variants(*routes, seeded: bool = False) -> tuple:
+def _route_variants(*routes, seeded: bool = False, textures=_FUSED_TEX) -> tuple:
     return tuple(variant_name(r, t, g, route, seeded) for route in routes
                  for g in _GEO_CODES for r in ((False,) if seeded else (False, True))
-                 for t in _TEX_CODES)
+                 for t in textures if t != "nine" or g in _NINE_GEOS)
 
 
 # csrc/render_resident.cu's cold entries (resident and streamed ordered),
@@ -907,9 +995,25 @@ VARIANTS = _route_variants(INDEX, Route(True, "ordered"))
 BINNED_VARIANTS = _route_variants(Route(True, "binned"))
 RESIDENT_ORDERED_VARIANTS = _route_variants(Route(False, "ordered"))
 RESIDENT_BINNED_VARIANTS = _route_variants(Route(False, "binned"))
-SEEDED_VARIANTS = _route_variants(*_ROUTE_NAMES, seeded=True)
+SEEDED_VARIANTS = _route_variants(*(r for r in _ROUTE_NAMES if r != NONE), seeded=True)
+# csrc/render_none.cu's: K1-none in every mode, K1's 9-output mode, each
+# seeded too.
+NONE_VARIANTS = (_route_variants(NONE, textures=tuple(_TEX_CODES))
+                 + _route_variants(NONE, seeded=True, textures=tuple(_TEX_CODES)))
+NINE_VARIANTS = (_route_variants(INDEX, textures=("nine",))
+                 + _route_variants(INDEX, seeded=True, textures=("nine",)))
 RENDER_VARIANTS = (VARIANTS + BINNED_VARIANTS + RESIDENT_ORDERED_VARIANTS
-                   + RESIDENT_BINNED_VARIANTS + SEEDED_VARIANTS)
+                   + RESIDENT_BINNED_VARIANTS + SEEDED_VARIANTS + NONE_VARIANTS
+                   + NINE_VARIANTS)
+
+
+def batched_name(raster: bool, nine: bool) -> str:
+    """The name of one of K12's entries: ``render_batched``, ``_raster``
+    (the raster conventions), ``_nine`` (the 9-output mode)."""
+    return "render_batched" + ("_raster" if raster else "") + ("_nine" if nine else "")
+
+
+BATCHED_VARIANTS = tuple(batched_name(r, n) for n in (False, True) for r in (False, True))
 SHADE_MIP_VARIANTS = tuple(f"shade_mip_{f}" for f in shade.MIP_FILTERS)
 
 
@@ -998,8 +1102,18 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
         raise ValueError("the prep rows bake in one camera origin: num_cams must be 1")
     if geo in _SHADOW_GEOS and n_lights > _MAX_SHADOW_LIGHTS:
         raise ValueError(f"shadows take at most {_MAX_SHADOW_LIGHTS} lights, got {n_lights}")
-    tensors = [("rows", rows), ("clusters", clusters), ("cams", cams)]
-    if texture is not None:
+    tensors = [("rows", rows), ("cams", cams)]
+    if clusters is not None:
+        tensors.append(("clusters", clusters))
+    elif order is not None or spans is not None or bins is not None:
+        raise ValueError("the non-culled sweep (clusters None) takes no visit inputs")
+    if texture == "nine":
+        if geo not in _NINE_GEOS or mats is not None or pool is not None or fb_rows is not None:
+            raise ValueError(f"the 9-output mode sweeps {_NINE_GEOS} rows and samples "
+                             "nothing (its shadows and texture are the epilogue's)")
+        if route_of(order, spans, bins, clusters is not None) not in (INDEX, NONE):
+            raise ValueError("the 9-output mode runs on the index and non-culled sweeps")
+    elif texture is not None:
         filters = shade.FILTERS if fb_rows is None else shade.MIP_FILTERS
         if texture not in filters:
             raise ValueError(f"texture must be None or one of {filters}, got {texture!r}")
@@ -1021,13 +1135,18 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
     if rows.dim() != 3 or rows.shape[1] != _N_GEO_ROWS + _N_ATTR_ROWS:
         raise ValueError(f"rows must be [W, 40, S], got {tuple(rows.shape)}")
     W, _, S = rows.shape
-    if clusters.dim() != 3 or clusters.shape[:2] != (W, 8):
-        raise ValueError(
-            f"clusters must be [{W}, 8, CC], got {tuple(clusters.shape)}"
-        )
-    CC = clusters.shape[2]
-    if CC < 1 or S % CC:
-        raise ValueError(f"{S} triangles do not split into {CC} clusters")
+    CC = 1
+    if clusters is not None:
+        if clusters.dim() != 3 or clusters.shape[:2] != (W, 8):
+            raise ValueError(
+                f"clusters must be [{W}, 8, CC], got {tuple(clusters.shape)}"
+            )
+        CC = clusters.shape[2]
+        if CC < 1 or S % CC:
+            raise ValueError(f"{S} triangles do not split into {CC} clusters")
+    elif _streamed_slots(S):
+        raise ValueError(f"{S} triangles a world are past the resident budget: the "
+                         "non-culled sweep keeps them in shared memory")
     if cams.shape != (W * num_cams, _n_cam_cols(n_lights)):
         raise ValueError(
             f"cams must be [{W * num_cams}, {_n_cam_cols(n_lights)}], got "
@@ -1047,7 +1166,14 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
                     bin_tile=None, seed=None):
     """The render kernel. Returns ``(depth f32, segmask i32, rgb i32-packed)``,
     each ``[W·C, height, width]``, in their final masked form: depth is t
-    (raster: camera-plane z), segmask idx // seg_div (raster: -1).
+    (raster: camera-plane z), segmask idx // seg_div (raster: -1). With
+    ``texture="nine"`` (the 9-output mode, on the index and non-culled
+    sweeps, ``csrc/render_none.cu``) it returns the JAX kernel's unshaded
+    outputs instead, unmasked: ``(t, z, idx, mat, uvx, uvy, nx, ny, nz)``
+    (t and z 0 and idx -1 on a miss, mat i32; the normal flipped toward the
+    viewer), for ``frames_from_core``'s epilogue. ``clusters`` None: the
+    non-culled sweep (K1-none, ``csrc/render_none.cu``), every triangle of
+    the world for every pixel.
     ``texture`` is None for an untextured scene, else the filter, with
     ``mats`` / ``pool`` from ``shade.material_table`` / ``shade.texel_pool``;
     with ``fb_rows`` (a scene baked with mip chains) ``mats`` is
@@ -1122,12 +1248,12 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     if rows.device.type != "cuda":
         raise ValueError(f"render_resident runs on cuda or cpu, not {rows.device}")
     W, _, S = rows.shape
-    CC = clusters.shape[2]
+    CC = 0 if clusters is None else clusters.shape[2]
     WC = W * num_cams
     tiles = -(-height // 16) * -(-width // 16)
     if tiles > 65535:
         raise ValueError(f"{height}x{width} needs {tiles} tiles; the grid takes 65535")
-    route = route_of(order, spans, bins)
+    route = route_of(order, spans, bins, clusters is not None)
     if route.streamed and ((S // CC) % 4 or rows.data_ptr() % 16):
         raise ValueError("the streamed route copies 16-byte slices: the cluster "
                          "size must be a multiple of 4 and rows 16-byte aligned")
@@ -1140,7 +1266,9 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     shape = (WC, height, width)
     depth = torch.empty(shape, dtype=torch.float32, device=dev)
     seg = torch.empty(shape, dtype=torch.int32, device=dev)
-    mip = texture == "mip"
+    # The mip hand-off and the 9-output mode write code (the material) and
+    # six f32 planes instead of rgb.
+    mip = texture in ("mip", "nine")
     sampled = texture in shade.FILTERS
     if mip:
         code = torch.empty(shape, dtype=torch.int32, device=dev)
@@ -1148,12 +1276,13 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     else:
         rgb = torch.empty(shape, dtype=torch.int32, device=dev)
     # The C entries share their arguments but for the visit's.
-    head = [rows.data_ptr(), clusters.data_ptr(), cams.data_ptr(),
+    head = [rows.data_ptr(), None if clusters is None else clusters.data_ptr(),
+            cams.data_ptr(),
             mats.data_ptr() if sampled else None, pool.data_ptr() if sampled else None,
             int(mats.shape[1]) if sampled else 0,
             depth.data_ptr(), seg.data_ptr(), None if mip else rgb.data_ptr(),
             code.data_ptr() if mip else None, handoff.data_ptr() if mip else None]
-    params = [WC, num_cams, S, CC, S // CC, int(cams.shape[1]), n_lights,
+    params = [WC, num_cams, S, CC, S // max(CC, 1), int(cams.shape[1]), n_lights,
               height, width, seg_div,
               float(np.float32(2.0 / width)), float(np.float32(2.0 / height)),
               int(raster), _TEX_CODES[texture], _GEO_CODES[geo]]
@@ -1165,8 +1294,10 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     bin_args = [0, 0, 0] if bins is None else [
         -(-width // bin_tile), bin_tile.bit_length() - _TILE.bit_length(), int(bins.shape[1])]
     n_bands = -(-height // _BAND)
-    kernel = library_of(route, seed is not None)
-    if kernel == "render_seeded":  # K9 on K1, K3 + K5 and K4
+    kernel = library_of(route, seed is not None, texture)
+    if kernel == "render_none":  # K1-none, and K1's 9-output mode
+        visit, tail = [ptr(seed)], [int(clusters is not None), stream]
+    elif kernel == "render_seeded":  # K9 on K1, K3 + K5 and K4
         visit = [ptr(order), ptr(spans), ptr(bins), ptr(ranges), seed.data_ptr()]
         tail = bin_args + [n_bands, stream]
     elif route == Route(True, "binned"):
@@ -1186,6 +1317,8 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     render_resident.launches += 1
     render_resident.variant_launches[
         variant_name(raster, texture, geo, route, seed is not None)] += 1
+    if texture == "nine":  # t, z, idx, mat, uvx, uvy, nx, ny, nz
+        return (depth, handoff[0], seg, code, *handoff[1:])
     return (depth, seg, code, handoff) if mip else (depth, seg, rgb)
 
 
@@ -1254,9 +1387,10 @@ shade_mip.launches = 0
 shade_mip.variant_launches = dict.fromkeys(SHADE_MIP_VARIANTS, 0)
 
 
-def _pack_rgb(base, s, shaded_hit, cam_ok):
+def _pack_rgb(base, s, shaded_hit, cam_ok=None):
     """RGBA8 of lambert + ambient 0.2 over the base colour, black where
-    nothing is shaded, opaque black for an invalid camera."""
+    nothing is shaded, opaque black for an invalid camera (``cam_ok`` None:
+    no camera mask)."""
     def quantize(b, sk):
         c = torch.clamp(b * (_F_AMBIENT + _F_DIFFUSE * sk), 0.0, 1.0)
         c = torch.where(shaded_hit, c, 0.0)
@@ -1268,7 +1402,7 @@ def _pack_rgb(base, s, shaded_hit, cam_ok):
         | (quantize(base[2], s[2]) << 16)
         | _ALPHA
     )
-    return torch.where(cam_ok, packed, _ALPHA)
+    return packed if cam_ok is None else torch.where(cam_ok, packed, _ALPHA)
 
 
 def shade_mip_plain(code, handoff, cams, table, pool, *, fb_rows: int,
@@ -1495,7 +1629,7 @@ def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
         mat = attr(15)
         u = torch.where(found, attr(0) + uc * attr(2) + vc * attr(4), 0.0)
         v = torch.where(found, attr(1) + uc * attr(3) + vc * attr(5), 0.0)
-        if texture != "mip":
+        if texture in shade.FILTERS:
             base = list(shade.sample_texture(mats, pool, mat, u, v, texture))
     ndotd = nx * dx + ny * dy + nz * dz
     flip = torch.where(ndotd > 0, -1.0, 1.0)
@@ -1504,6 +1638,9 @@ def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
     nz = nz * flip
     t_hit = torch.where(found, best_t, 0.0)
     z = t_hit * cosf
+    if texture == "nine":  # the unshaded outputs, unmasked (:2832-2834, :3664-3670)
+        outs = (t_hit, z, best_idx, mat.to(torch.int32), u, v, nx, ny, nz)
+        return tuple(x.reshape(WC, height, width) for x in outs)
 
     occluded = []  # per light: the any-hit sweep from the hit points (K8)
     if shadows:
@@ -1557,39 +1694,276 @@ def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
 
 
 # --------------------------------------------------------------------- #
+# Kernel K12 (the batched kernel, accel="mxu") and its plain version
+# --------------------------------------------------------------------- #
+def _check_batched(rows, cams, num_cams, n_lights, height, width) -> None:
+    _check_tensors(rows, [("cams", cams)])
+    if rows.dtype != torch.float32 or not rows.is_contiguous():
+        raise ValueError("rows must be a contiguous float32 tensor")
+    if rows.dim() != 3 or rows.shape[1] != _N_GEO_ROWS + _N_ATTR_ROWS:
+        raise ValueError(f"rows must be [W, 40, S], got {tuple(rows.shape)}")
+    W = rows.shape[0]
+    if cams.shape != (W * num_cams, _n_cam_cols(n_lights)):
+        raise ValueError(f"cams must be [{W * num_cams}, {_n_cam_cols(n_lights)}], got "
+                         f"{tuple(cams.shape)}")
+    if height < 1 or width < 1:
+        raise ValueError(f"bad height/width {height}/{width}")
+
+
+def render_batched(rows, cams, *, num_cams: int, n_lights: int, height: int, width: int,
+                   raster: bool = False, nine: bool = False):
+    """Kernel K12 (``csrc/render_batched.cu``), the JAX package's batched
+    kernel (``accel="mxu"``, ``raytrace_pallas._batched_kernel``): per view
+    the pinhole prepass D = e2 × e1, A = e2 × tv, B = tv × e1, t_num = e2 · B
+    (tv = origin − v0) of every triangle of K13's raw rows, then for each
+    pixel det = d · D, u = (d · A) / det, v = (d · B) / det, t = t_num / det
+    (each dot three products summed x, y, z in that order; 1/det once, 0
+    where |det| ≤ 1e-10), accepted with the ε slack, t > t_lo and t < far,
+    the first minimum in triangle order; the winner's (u, v) recomputed and
+    clipped, its normal interpolated and flipped toward the viewer. Returns
+    the unmasked ``(t, z, idx, rgb)`` (``nine`` False: lambert + ambient
+    over the colour rows, black off a hit; not masked by the camera's
+    validity) or ``(t, z, idx, mat, uvx, uvy, nx, ny, nz)`` (``nine``), each
+    ``[W·C, height, width]``, t and z 0 and idx -1 on a miss (mat, uv and
+    the normal 0), for ``frames_from_core``'s epilogue. ``raster``: the
+    per-pixel t_lo = near / max(cos, 1e-6), and a hit past the z-far clip
+    shades black.
+
+    Tensors on the card launch the kernel (one add to
+    ``render_batched.launches`` and to the variant's entry of
+    ``render_batched.variant_launches``); on the CPU
+    ``render_batched_plain`` runs."""
+    _check_batched(rows, cams, num_cams, n_lights, height, width)
+    kw = dict(num_cams=num_cams, n_lights=n_lights, height=height, width=width,
+              raster=raster, nine=nine)
+    if rows.device.type == "cpu":
+        return render_batched_plain(rows, cams, **kw)
+    if rows.device.type != "cuda":
+        raise ValueError(f"render_batched runs on cuda or cpu, not {rows.device}")
+    W, _, S = rows.shape
+    WC = W * num_cams
+    tiles = -(-height // _TILE) * -(-width // _TILE)
+    if tiles > 65535:
+        raise ValueError(f"{height}x{width} needs {tiles} tiles; the grid takes 65535")
+    dev = rows.device
+    shape = (WC, height, width)
+    t = torch.empty(shape, dtype=torch.float32, device=dev)
+    idx = torch.empty(shape, dtype=torch.int32, device=dev)
+    # Shaded: z, then rgb; 9-output: the six f32 planes (z, uv, normal) and mat.
+    planes = torch.empty(((_NINE_PLANES if nine else 1),) + shape, dtype=torch.float32,
+                         device=dev)
+    ints = torch.empty(shape, dtype=torch.int32, device=dev)  # rgb, or mat
+    launch = _build.load("render_batched")
+    with torch.cuda.device(dev):
+        err = launch(rows.data_ptr(), cams.data_ptr(), t.data_ptr(), idx.data_ptr(),
+                     planes.data_ptr(), ints.data_ptr(), WC, num_cams, S,
+                     int(cams.shape[1]), n_lights, height, width,
+                     float(np.float32(2.0 / width)), float(np.float32(2.0 / height)),
+                     int(raster), int(nine), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"render_batched launch failed: {launch.error_string(err)}")
+    render_batched.launches += 1
+    render_batched.variant_launches[batched_name(raster, nine)] += 1
+    if nine:
+        return (t, planes[0], idx, ints, *planes[1:])
+    return t, planes[0], idx, ints
+
+
+render_batched.launches = 0
+render_batched.variant_launches = dict.fromkeys(BATCHED_VARIANTS, 0)
+
+
+def batched_prepass(rows_v: torch.Tensor, cams: torch.Tensor) -> list:
+    """K12's per-view prepass rows (:3757-3784) from raw rows ``[V, 40, S]``
+    and each view's camera origin: D = e2 × e1 (0-2), A = e2 × tv (3-5),
+    B = tv × e1 (6-8), t_num = e2 · B (9), each ``[V, S]``."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = rows_v[:, :9].unbind(1)
+    tvx = cams[:, 0:1] - v0x
+    tvy = cams[:, 1:2] - v0y
+    tvz = cams[:, 2:3] - v0z
+    bx = tvy * e1z - tvz * e1y
+    by = tvz * e1x - tvx * e1z
+    bz = tvx * e1y - tvy * e1x
+    return [
+        e2y * e1z - e2z * e1y, e2z * e1x - e2x * e1z, e2x * e1y - e2y * e1x,
+        e2y * tvz - e2z * tvy, e2z * tvx - e2x * tvz, e2x * tvy - e2y * tvx,
+        bx, by, bz,
+        e2x * bx + e2y * by + e2z * bz,
+    ]
+
+
+def _batched_test(pre, dx, dy, dz):
+    """K12's numerators and divide on prepass rows ``pre`` (ten tensors that
+    broadcast against the rays): det, u, v and t (:3838-3853)."""
+    det = (pre[0] * dx + pre[1] * dy) + pre[2] * dz
+    inv = torch.where(torch.abs(det) > _F_EPS_DET, 1.0 / det, 0.0)
+    u = ((pre[3] * dx + pre[4] * dy) + pre[5] * dz) * inv
+    v = ((pre[6] * dx + pre[7] * dy) + pre[8] * dz) * inv
+    return u, v, pre[9] * inv
+
+
+def render_batched_plain(rows, cams, *, num_cams: int, n_lights: int, height: int,
+                         width: int, raster: bool = False, nine: bool = False):
+    """``render_batched`` in torch ops, on any device: the kernel's
+    expressions in its order (the numerators as three products summed x, y,
+    z, not a matmul, whose summation order is not the kernel's), the sweep
+    in ascending chunks (first minimum within a chunk, strict < across:
+    the first minimum in triangle order), the winner's prepass and
+    attribute rows gathered by index (the JAX one-hot resolve's values)."""
+    W, _, S = rows.shape
+    WC = W * num_cams
+    dev = rows.device
+    rows_v = rows[torch.arange(WC, device=dev) // num_cams]  # [WC, 40, S]
+
+    def cam(k):
+        return cams[:, k:k + 1]
+
+    dx, dy, dz = plain_rays(cams, height, width)
+    cosf = dx * cam(6) + dy * cam(7) + dz * cam(8)
+    t_lo = near_bound = cam(14)
+    if raster:
+        t_lo = near_bound / torch.clamp_min(cosf, _F_COS_FLOOR)
+    pre = batched_prepass(rows_v, cams)
+    P = height * width
+    best_t = cam(15).expand(WC, P).clone()
+    best_idx = torch.full((WC, P), -1, dtype=torch.int32, device=dev)
+    d3 = (dx[:, None], dy[:, None], dz[:, None])  # [WC, 1, P]
+    for i0, i1 in _plain_chunks(S, WC * P):
+        u, v, t = _batched_test([r[:, i0:i1, None] for r in pre], *d3)
+        ok = ((u >= -_F_EPS_BARY) & (v >= -_F_EPS_BARY) & (u + v <= _F_ONE_PLUS_EPS)
+              & (t > t_lo[:, None]))
+        t = torch.where(ok, t, torch.inf)
+        m = t.amin(1)
+        ks = torch.arange(i1 - i0, dtype=torch.int32, device=dev)[None, :, None]
+        first = torch.where(t == m[:, None], ks, i1 - i0).amin(1)
+        take = m < best_t
+        best_t = torch.where(take, m, best_t)
+        best_idx = torch.where(take, first + i0, best_idx)
+    found = best_idx >= 0
+    gidx = best_idx.clamp_min(0).long()
+
+    def win(x):  # a [WC, S] row of each pixel's winner, 0 on a miss
+        return torch.where(found, torch.gather(x, 1, gidx), 0.0)
+
+    def attr(k):
+        return win(rows_v[:, _N_GEO_ROWS + k])
+
+    u, v, _ = _batched_test([win(r) for r in pre], dx, dy, dz)
+    uc = torch.clamp(u, 0.0, 1.0)
+    vc = torch.clamp(v, 0.0, 1.0)
+    nx = attr(6) + uc * attr(9) + vc * attr(12)
+    ny = attr(7) + uc * attr(10) + vc * attr(13)
+    nz = attr(8) + uc * attr(11) + vc * attr(14)
+    flip = torch.where(nx * dx + ny * dy + nz * dz > 0, -1.0, 1.0)
+    nx, ny, nz = nx * flip, ny * flip, nz * flip
+    t_hit = torch.where(found, best_t, 0.0)
+    z = t_hit * cosf
+    shape = (WC, height, width)
+    if nine:
+        outs = (t_hit, z, best_idx, attr(15).to(torch.int32),
+                attr(0) + uc * attr(2) + vc * attr(4), attr(1) + uc * attr(3) + vc * attr(5),
+                nx, ny, nz)
+        return tuple(x.reshape(shape) for x in outs)
+    n_inv = 1.0 / torch.sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, _F_TINY))
+    s = [torch.zeros_like(nx) for _ in range(3)]
+    for li in range(n_lights):
+        c0 = _CAM_LIGHT0 + 6 * li
+        nd = torch.clamp_min(-(nx * cam(c0) + ny * cam(c0 + 1) + nz * cam(c0 + 2)) * n_inv,
+                             0.0)
+        s = [s[k] + nd * cam(c0 + 3 + k) for k in range(3)]
+    hit = found & (z < cam(_CAM_FAR_Z)) if raster else found
+    rgb = _pack_rgb([attr(16), attr(17), attr(18)], s, hit)
+    return t_hit.reshape(shape), z.reshape(shape), best_idx.reshape(shape), \
+        rgb.to(torch.int32).reshape(shape)
+
+
+# --------------------------------------------------------------------- #
 # Entry points
 # --------------------------------------------------------------------- #
 def render_core(state: SimState, scene: SceneData, *, height: int, width: int,
                 near: float = 0.1, far: float = 1000.0,
                 fov_y_degrees: float = 90.0, raster: bool = False,
                 texture_filter: str = "nearest", shadows: bool = False,
-                watertight: bool = False, accel: str = "auto", seed_t=None):
-    """Prologue + kernel (or its plain version on the CPU). Returns
-    ``(depth, segmask, rgb_packed)``, each ``[W·C, height, width]``.
-    ``accel`` (``"auto"``, ``"clusters"`` or ``"binned"``) picks the visit
-    (``visit_route``); every visit gives the same frames. ``seed_t`` (K9,
-    the JAX ``render_core``'s, :4146-4158): a per-pixel upper bound on the
-    hit t, ``[W, C, height, width]`` (or any shape of as many values), each
-    pixel's search window ``min(seed, far)``: a pixel whose nearest hit
-    lies at or beyond its seed renders as a miss."""
+                watertight: bool = False, accel: str = "auto", seed_t=None) -> tuple:
+    """Prologue + kernel (or its plain version on the CPU). Returns the
+    kernel's outputs, each ``[W·C, height, width]``: ``(depth, segmask,
+    rgb_packed)`` in their final masked form on the fused routes,
+    ``(t, z, idx, rgb)`` from K12 on untextured scenes (``accel="mxu"``), or
+    the 9-output route's ``(t, z, idx, mat, uvx, uvy, nx, ny, nz)``
+    (``output_mode``); ``frames_from_core`` finishes each. ``accel`` picks
+    the route (``visit_route``); every culled visit gives the same frames.
+    ``seed_t`` (K9, the JAX ``render_core``'s, :4146-4158): a per-pixel
+    upper bound on the hit t, ``[W, C, height, width]`` (or any shape of as
+    many values), each pixel's search window ``min(seed, far)``: a pixel
+    whose nearest hit lies at or beyond its seed renders as a miss; with
+    ``accel="mxu"`` a ``ValueError``."""
+    if seed_t is not None:
+        check_seedable(accel)
     kw = pack_inputs(state, scene, height=height, width=width, near=near,
                      far=far, fov_y_degrees=fov_y_degrees, raster=raster,
                      texture_filter=texture_filter, shadows=shadows,
                      watertight=watertight, accel=accel)
+    if accel == "mxu":
+        return render_batched(**kw)
     views = int(kw["cams"].shape[0])
     seed = None if seed_t is None else (
         seed_t.to(torch.float32).reshape(views, height, width).contiguous())
     return render_resident(**kw, seed=seed)
 
 
-def frames_from_core(state: SimState, depth, seg, rgb) -> Frames:
-    """``[W·C, H, Wd]`` kernel outputs → padded ``Frames [W, C, H, Wd, …]``."""
+def frames_from_core(state: SimState, *outs, scene: SceneData | None = None,
+                     raster: bool = False, far: float = 1000.0,
+                     fov_y_degrees: float = 90.0, texture_filter: str = "nearest",
+                     shadows: bool = False) -> Frames:
+    """Kernel outputs ``[W·C, H, Wd]`` → padded ``Frames [W, C, H, Wd, …]``
+    (the JAX ``_frames_from_core``, :4962-5018). The fused routes' three
+    outputs are final: a reshape. Else a pixel is a hit where idx ≥ 0, in
+    raster mode z < ``far`` too, and its camera is valid; K12's rgb
+    ``(t, z, idx, rgb)`` reads opaque black for an invalid camera; the
+    9-output route's ``(t, z, idx, mat, uvx, uvy, nx, ny, nz)`` is shaded
+    by ``shade.shade_lambert_planar`` on ``scene`` (``texture_filter``), with
+    ``shadows`` each light's visibility from ``compute_lit`` at the points
+    camera origin + t · ``camera_ray_dirs`` (at the cameras' fov, else
+    ``fov_y_degrees``). Depth is t (raster: z) on a hit, else 0; segmask
+    idx // tris_per_object on a hit, else -1 (raster: -1)."""
     W, C = state.camera_pos.shape[:2]
-    H, Wd = depth.shape[1:]
+    H, Wd = outs[0].shape[1:]
+    if len(outs) == 3:
+        depth, seg, rgb = outs
+        return Frames(
+            rgb=packed_to_rgba8(rgb).reshape(W, C, H, Wd, 4),
+            depth=depth.reshape(W, C, H, Wd),
+            segmask=seg.reshape(W, C, H, Wd),
+        )
+    t, z, idx = (x.reshape(W, C, H * Wd) for x in outs[:3])
+    hit = idx >= 0
+    if raster:
+        hit = hit & (z < float(np.float32(far)))
+    cam_ok = state.camera_valid[:, :, None] > 0.0
+    hit = hit & cam_ok
+    if len(outs) == 4:
+        packed = torch.where(cam_ok, outs[3].reshape(W, C, H * Wd), _ALPHA)
+    else:
+        lit = None
+        if shadows:
+            soup = build_world_soup(state, scene)
+            eff_fov = torch.where(state.camera_fov > 0, state.camera_fov, fov_y_degrees)
+            dirs = camera_ray_dirs(state.camera_rot, H, Wd, eff_fov)
+            points = state.camera_pos[:, :, None, :] + t[..., None] * dirs
+            lit = compute_lit(soup, scene, points, t)
+        mat, uvx, uvy, nx, ny, nz = (x.reshape(W, C, H * Wd) for x in outs[3:])
+        packed = shade.shade_lambert_planar(scene, mat, uvx, uvy, nx, ny, nz, hit,
+                                            texture_filter, lit=lit)
+    depth = torch.where(hit, z if raster else t, 0.0)
+    if raster:
+        seg = torch.full_like(idx, -1)
+    else:
+        seg = torch.where(hit, torch.div(idx, scene.tris_per_object, rounding_mode="floor"),
+                          -1)
     return Frames(
-        rgb=packed_to_rgba8(rgb).reshape(W, C, H, Wd, 4),
+        rgb=packed_to_rgba8(packed.to(torch.int32)).reshape(W, C, H, Wd, 4),
         depth=depth.reshape(W, C, H, Wd),
-        segmask=seg.reshape(W, C, H, Wd),
+        segmask=seg.to(torch.int32).reshape(W, C, H, Wd),
     )
 
 
@@ -1608,4 +1982,5 @@ def raytrace(state: SimState, scene: SceneData, *, height: int, width: int,
         state, scene, height=height, width=width, near=near, far=far,
         fov_y_degrees=fov_y_degrees, texture_filter=texture_filter,
         shadows=shadows, watertight=watertight, accel=accel, seed_t=seed_t,
-    ))
+    ), scene=scene, far=far, fov_y_degrees=fov_y_degrees, texture_filter=texture_filter,
+        shadows=shadows)

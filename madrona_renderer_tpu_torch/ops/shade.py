@@ -3,7 +3,8 @@
 One or more directional lambert lights plus a constant ambient term,
 matching the lighting model the reference configures (``configureLighting``
 usage, reference ``src/mgr.cpp:356-359``). The shading itself runs inside
-the render kernel (``ops/raytrace_cuda.py``); this module keeps what both
+the render kernel (``ops/raytrace_cuda.py``), but for the 9-output route's
+planar epilogue (``shade_lambert_planar``); this module keeps what both
 sides share:
 
   * ``AMBIENT = 0.2`` constant ambient.
@@ -19,6 +20,7 @@ sides share:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 AMBIENT = 0.2
@@ -140,6 +142,92 @@ def sample_texture(mats: torch.Tensor, pool: torch.Tensor, mat: torch.Tensor,
         bot = c01 * (1.0 - ax) + c11 * ax
         out.append(base[c] * (top * (1.0 - ay) + bot * ay))
     return tuple(out)
+
+
+def shade_lambert_planar(scene, mat_id: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                         nx: torch.Tensor, ny: torch.Tensor, nz: torch.Tensor,
+                         hit_mask: torch.Tensor, texture_filter: str = "nearest",
+                         lit=None) -> torch.Tensor:
+    """The 9-output route's shading epilogue (the JAX ``shade.py``
+    ``shade_lambert_planar``, :77-172) → packed RGBA i32 shaped like
+    ``mat_id``: the normals (pre-flipped) over their norm, per light the
+    clamped lambert term over the light's norm, times its visibility
+    ``lit [..., L]`` when given; the material's colour (and on a textured
+    pool its texture sampled at (u, v), nearest or bilinear, from the
+    scene's f32 texels: repeat wrap, v flipped, bilinear texel centres at
+    half-integers and a floored modulo); ambient 0.2 plus the lights, black
+    off ``hit_mask``. The JAX one-hot matmuls of the material table are
+    gathers here (a one-hot row times finite values is the value). Its
+    reciprocal square roots are correctly rounded (taken in f64)."""
+    f32 = torch.float32
+
+    def rsqrt(x):
+        return (1.0 / torch.sqrt(x.double())).to(f32)
+
+    tiny = float(np.float32(1e-20))
+    inv_len = rsqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, tiny))
+    n_lights = int(scene.light_dir.shape[0])
+    ndotls = []
+    for li in range(n_lights):
+        lx, ly, lz = scene.light_dir[li, 0], scene.light_dir[li, 1], scene.light_dir[li, 2]
+        l_inv = rsqrt(torch.clamp_min(lx * lx + ly * ly + lz * lz, tiny))
+        nd = -(nx * lx + ny * ly + nz * lz) * (inv_len * l_inv)
+        nd = torch.clamp_min(nd, 0.0)
+        if lit is not None:
+            nd = nd * lit[..., li]
+        ndotls.append(nd)
+    m = mat_id.long()
+    base = [scene.mat_color[:, c][m] for c in range(3)]
+    if int(scene.tex_data.shape[0]) > 1:
+        tex_id = scene.mat_tex.long()[m]
+        w = scene.tex_width[tex_id]
+        h = scene.tex_height[tex_id]
+        off = scene.tex_offset[tex_id]
+        uu = u - torch.floor(u)
+        vv = v - torch.floor(v)
+        if texture_filter == "bilinear":
+            wf, hf = w.to(f32), h.to(f32)
+            fx = uu * wf - 0.5
+            fy = (1.0 - vv) * hf - 0.5
+            x0f = torch.floor(fx)
+            y0f = torch.floor(fy)
+            ax = fx - x0f
+            ay = fy - y0f
+
+            def texel_ch(xi, yi, ch):  # jnp.mod: a floored modulo
+                xm = torch.remainder(xi.to(torch.int32), w)
+                ym = torch.remainder(yi.to(torch.int32), h)
+                return scene.tex_data[:, ch][(off + ym * w + xm).long()]
+
+            def lerp_ch(ch):
+                t00 = texel_ch(x0f, y0f, ch)
+                t10 = texel_ch(x0f + 1, y0f, ch)
+                t01 = texel_ch(x0f, y0f + 1, ch)
+                t11 = texel_ch(x0f + 1, y0f + 1, ch)
+                top = t00 * (1 - ax) + t10 * ax
+                bot = t01 * (1 - ax) + t11 * ax
+                return top * (1 - ay) + bot * ay
+
+            base = [base[c] * lerp_ch(c) for c in range(3)]
+        else:
+            # astype(int32) truncates toward zero.
+            x = torch.minimum(torch.clamp_min((uu * w.to(f32)).to(torch.int32), 0), w - 1)
+            y = torch.minimum(torch.clamp_min(((1.0 - vv) * h.to(f32)).to(torch.int32), 0),
+                              h - 1)
+            flat = (off + y * w + x).long()
+            base = [base[c] * scene.tex_data[:, c][flat] for c in range(3)]
+    ambient = float(np.float32(AMBIENT))
+    diffuse = float(np.float32(1.0 - AMBIENT))
+    packed = torch.full_like(mat_id, int(np.uint32(0xFF000000).view(np.int32)),
+                             dtype=torch.int32)
+    for c in range(3):
+        s = torch.zeros((), dtype=f32, device=nx.device)
+        for li in range(n_lights):
+            s = s + ndotls[li] * scene.light_color[li, c]
+        col = torch.clamp(base[c] * (ambient + diffuse * s), 0.0, 1.0)
+        col = torch.where(hit_mask, col, 0.0)
+        packed = packed | ((col * 255.0 + 0.5).to(torch.int32) << (8 * c))
+    return packed
 
 
 def packed_to_rgba8(packed: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,9 @@ The port of the JAX package's ``ops/warmstart.py`` (``raytrace_warmstart``
 tier seeds each pixel's search window with an upper bound on its hit t
 (``raytrace_cuda.render_resident(seed=)``), so a walk with the occlusion
 early exit (the ordered and binned visits, resident or streamed) stops as
-soon as no pixel's window reaches the next cluster. Two seeded passes whose
+soon as no pixel's window reaches the next cluster (the non-culled sweep
+K1-none takes the seed too, as the JAX non-culled launch does; the batched
+kernel K12, ``accel="mxu"``, has none and raises). Two seeded passes whose
 merge is bitwise equal to a cold render, however stale the seed:
 
  1. main pass: ``best_t`` seeded with ``prev_depth × slack`` (non-positive
@@ -44,21 +46,25 @@ def raytrace_warmstart(state: SimState, scene: SceneData, *, prev_depth: torch.T
     larger value repairs fewer pixels but cuts less of the walk. ``kw``:
     ``raytrace``'s keyword arguments."""
     far = float(kw.get("far", 1000.0))
+    raytrace_cuda.check_seedable(kw.get("accel", "auto"))
     inputs = raytrace_cuda.pack_inputs(state, scene, **kw)
     views, height, width = int(inputs["cams"].shape[0]), kw["height"], kw["width"]
     prev = prev_depth.to(torch.float32).reshape(views, height, width)
     far_t = torch.tensor(far, dtype=torch.float32, device=prev.device)
     seed = torch.where(prev > 0.0, torch.minimum(prev * slack, far_t), far_t).contiguous()
-    depth, seg, rgb = raytrace_cuda.render_resident(**inputs, seed=seed)
-    # A suspect missed under a finite window: its hit may lie beyond it.
-    suspect = (seg < 0) & (seed < far)
+    outs = raytrace_cuda.render_resident(**inputs, seed=seed)
+    # A suspect missed under a finite window: its hit may lie beyond it. The
+    # fused outputs carry the miss in the segmask, the 9-output mode in idx.
+    miss = (outs[1] if len(outs) == 3 else outs[2]) < 0
+    suspect = miss & (seed < far)
     if bool(suspect.any()):
         repair = torch.where(suspect, far_t, torch.zeros_like(far_t)).contiguous()
-        d2, s2, c2 = raytrace_cuda.render_resident(**inputs, seed=repair)
-        depth = torch.where(suspect, d2, depth)
-        seg = torch.where(suspect, s2, seg)
-        rgb = torch.where(suspect, c2, rgb)
-    return raytrace_cuda.frames_from_core(state, depth, seg, rgb)
+        fixed = raytrace_cuda.render_resident(**inputs, seed=repair)
+        outs = tuple(torch.where(suspect, b, a) for a, b in zip(outs, fixed))
+    return raytrace_cuda.frames_from_core(
+        state, *outs, scene=scene, far=far, fov_y_degrees=kw.get("fov_y_degrees", 90.0),
+        texture_filter=kw.get("texture_filter", "nearest"),
+        shadows=kw.get("shadows", False))
 
 
 def raytrace_prepass(state: SimState, scene: SceneData, *, factor: int = 8,

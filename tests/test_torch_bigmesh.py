@@ -154,8 +154,10 @@ def test_cluster_order_and_rowspans_equal_jax(case):
 def test_route_choice():
     """Past the resident budget pack_inputs adds the order and the spans (at
     16-row bands) and the streamed variants are named; a resident scene of
-    one cluster keeps K1 (no order, no spans), and spans without an order
-    or bins raise."""
+    one cluster takes the non-culled sweep under "auto" (K1-none, no
+    cluster table: the JAX render_core's route since the ninth slice; K1
+    before) and K1 under "clusters" (no order, no spans), and spans without
+    an order or bins raise."""
     _, (t_state, t_scene) = _both(terrain_spec())
     kw = trc.pack_inputs(t_state, t_scene, height=32, width=32)
     assert kw["order"].shape == (2, kw["clusters"].shape[2])
@@ -167,7 +169,11 @@ def test_route_choice():
     s_state, s_scene = small.build_torch()
     assert not trc.is_streamed(s_state, s_scene)
     kw = trc.pack_inputs(s_state, s_scene, height=16, width=16)
-    assert kw["order"] is None and kw["spans"] is None
+    assert kw["order"] is None and kw["spans"] is None and kw["clusters"] is None
+    with pytest.raises(ValueError, match="no visit inputs"):
+        trc.render_resident(**dict(kw, spans=torch.zeros((1, 2, 1), dtype=torch.int32)))
+    kw = trc.pack_inputs(s_state, s_scene, height=16, width=16, accel="clusters")
+    assert kw["order"] is None and kw["spans"] is None and kw["clusters"] is not None
     with pytest.raises(ValueError, match="both order and spans"):
         trc.render_resident(**dict(kw, spans=torch.zeros((1, 2, 1), dtype=torch.int32)))
 

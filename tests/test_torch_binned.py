@@ -346,20 +346,21 @@ def test_auto_bins_where_jax_bins(size, monkeypatch):
 
 
 def test_accel_values():
-    """"none" and "mxu" raise naming Queue 1 #3; "clusters" keeps the ordered
-    visit, "binned" bins at any size; a resident scene of one cluster
-    renders the same frames with every value (K1, or with "binned" the
-    resident binned visit)."""
+    """The JAX package's five values: "clusters" keeps the ordered visit,
+    "binned" bins at any size, "none" sweeps without a cluster table, "mxu"
+    takes the batched kernel; others raise. A resident scene of one cluster
+    renders the same frames with every value: bitwise for "auto" (K1-none
+    there: one cluster), "clusters" (K1), "binned" (the resident binned
+    visit) and "none"; within the JAX bar for "mxu" (K12 rounds otherwise)."""
     t_state, t_scene = terrain_spec().build_torch()
-    for accel in ("none", "mxu"):
-        with pytest.raises(NotImplementedError, match="Queue 1 #3"):
-            trc.pack_inputs(t_state, t_scene, height=32, width=32, accel=accel)
-        with pytest.raises(NotImplementedError, match="Queue 1 #3"):
-            tm.Manager(binned_terrain_config(1, 32, 32, grid=40, device="cpu", accel=accel))
     with pytest.raises(ValueError, match="accel"):
         trc.pack_inputs(t_state, t_scene, height=32, width=32, accel="bvh")
+    assert trc.ACCELS == ("auto", "none", "clusters", "binned", "mxu")
     assert trc.visit_route(t_state, t_scene, 128, 128, "clusters") == trc.Route(True, "ordered")
     assert trc.visit_route(t_state, t_scene, 32, 32, "binned") == trc.Route(True, "binned")
+    assert trc.visit_route(t_state, t_scene, 32, 32, "mxu") == trc.Route(False, "mxu")
+    with pytest.raises(ValueError, match="SMEM budget"):
+        trc.visit_route(t_state, t_scene, 32, 32, "none")
     assert trc.variant_name(False, None, "prep", trc.Route(True, "binned")) == "render_binned"
     assert len(trc.BINNED_VARIANTS) == 40 and "render_binned_raw_wt_shadows_raster_tex_mip" \
         in trc.BINNED_VARIANTS
@@ -367,13 +368,21 @@ def test_accel_values():
                       instances=[_inst([0, 0, 0])], cameras=_origin_cams(),
                       worlds=[_world(1, 0)])
     s_state, s_scene = small.build_torch()
-    frames = [trc.raytrace(s_state, s_scene, height=16, width=16, accel=a)
-              for a in ("auto", "clusters", "binned")]
-    for f in frames[1:]:
-        assert torch.equal(f.rgb, frames[0].rgb) and torch.equal(f.depth, frames[0].depth)
-    assert trc.pack_inputs(s_state, s_scene, height=16, width=16, accel="auto")["bins"] is None
+    frames = {a: trc.raytrace(s_state, s_scene, height=16, width=16, accel=a)
+              for a in trc.ACCELS}
+    for a in ("clusters", "binned", "none"):
+        f = frames[a]
+        assert torch.equal(f.rgb, frames["auto"].rgb) and torch.equal(f.depth, frames["auto"].depth)
+        assert torch.equal(f.segmask, frames["auto"].segmask)
+    assert_frames_close(frames["auto"], frames["mxu"])
+    assert (frames["auto"].segmask >= 0).any()
+    auto = trc.pack_inputs(s_state, s_scene, height=16, width=16, accel="auto")
+    assert auto["bins"] is None and auto["clusters"] is None  # K1-none
     binned = trc.pack_inputs(s_state, s_scene, height=16, width=16, accel="binned")
     assert binned["bins"] is not None and binned["spans"] is None
+    assert trc.pack_inputs(s_state, s_scene, height=16, width=16, accel="mxu")["nine"] is False
+    with pytest.raises(ValueError, match="SMEM budget"):
+        tm.Manager(binned_terrain_config(1, 32, 32, grid=40, device="cpu", accel="none"))
 
 
 def test_bin_tile_rule():

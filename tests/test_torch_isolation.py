@@ -100,7 +100,16 @@ assert set(wt.segmask_tensor().numpy().ravel().tolist()) == {-1, 0, 1}
 aa = m.Manager(demo_config(2, m.RenderMode.Rasterizer, 16, 16, ssaa=2, device="cpu"))
 assert aa.rgb_tensor().numpy().shape == (2, 16, 16, 4)
 from madrona_renderer_tpu_torch.ops import ssaa, watertight
+mx = m.Manager(demo_config(2, m.RenderMode.Raytracer, 32, 32, dynamic=True, accel="mxu",
+                           shadows=True, device="cpu"))
+assert set(mx.segmask_tensor().numpy().ravel().tolist()) == {-1, 0, 1}
+no = m.Manager(demo_config(2, m.RenderMode.Rasterizer, 32, 32, accel="none", device="cpu"))
+assert no.depth_tensor().numpy().shape == (2, 32, 32, 1)
+nine = m.Manager(demo_config(2, m.RenderMode.Raytracer, 32, 32, textured=True, tex_size=144,
+                             mipmaps=False, shadows=True, device="cpu"))
+assert raytrace_cuda.pack_inputs(nine.state, nine.scene, height=32, width=32)["texture"] == "nine"
 assert raytrace_cuda.render_resident.launches == 0
+assert raytrace_cuda.render_batched.launches == 0
 assert raytrace_cuda.shade_mip.launches == 0
 assert sum(pack_cuda.pack_rows.layout_launches.values()) == 0
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "madrona_renderer_tpu") and sys.modules[k] is not None)
@@ -171,6 +180,14 @@ def test_cuda_tensor_never_falls_back():
         raytrace_cuda.render_resident(rows, clusters, cams, num_cams=1, n_lights=1,
                                       height=8, width=8, seg_div=8, order=order,
                                       spans=spans)
+    # K1-none (no cluster table), the 9-output mode, and K12.
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        raytrace_cuda.render_resident(rows, None, cams, num_cams=1, n_lights=1,
+                                      height=8, width=8, seg_div=8, texture="nine")
+    for nine in (False, True):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            raytrace_cuda.render_batched(rows, cams, num_cams=1, n_lights=1, height=8,
+                                         width=8, nine=nine)
 
 
 def test_every_kernel_source_has_a_signature():

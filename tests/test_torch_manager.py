@@ -108,17 +108,18 @@ def test_madrona_renderer_ctor_and_functional_api():
 # tests/test_torch_textured.py); what is still missing around them raises.
 UNSUPPORTED = {
     "textures": (dict(texture_paths=["checker.ktx2"]), "item 18"),
-    "textured_material": (dict(materials=[tm.AdditionalMaterial(texture_id=0)],
-                               big_texture=True, mipmaps=False), "item 6"),
     "num_devices": (dict(num_devices=2), "item 15"),
     "asset_paths": (dict(asset_paths=[tm.ImportedAsset("cube.obj")]), "item 18"),
 }
-# Options that raised until their slice was ported (items 7, 8, 9, 10, 11,
-# 12 and 13): each now renders through MadronaRenderer, steps, and matches
-# the JAX Manager (watertight at the knife-edge bar of
+# Options that raised until their slice was ported (items 6, 7, 8, 9, 10,
+# 11, 12 and 13): each now renders through MadronaRenderer, steps, and
+# matches the JAX Manager (watertight at the knife-edge bar of
 # tests/test_torch_watertight.py; warmstart against the JAX Manager's
-# Pallas raytracer, the only one it warm-starts).
+# Pallas raytracer, the only one it warm-starts; the cube textured with a
+# 144×144 checker, past the in-kernel route's 128×128 texels, baked without
+# mips, through the 9-output route and its shading epilogue).
 PORTED = {
+    "textured_material": dict(textured=True, tex_size=144, mipmaps=False),
     "rasterizer": dict(render_mode=tm.RenderMode.Rasterizer, num_cams=2),
     "multi_camera": dict(num_cams=2),
     "shadows": dict(shadows=True),
@@ -185,7 +186,7 @@ def _renders_like_jax(opts):
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED) + sorted(PORTED))
-def test_unsupported_options_raise(case, tmp_path):
+def test_unsupported_options_raise(case):
     """Options outside the ported slice raise NotImplementedError naming
     their ROADMAP item; the ones ported since render like the JAX Manager."""
     if case in PORTED:
@@ -195,15 +196,7 @@ def test_unsupported_options_raise(case, tmp_path):
     opts = dict(opts)
     n = 2
     kw = renderer_kwargs(t_demo(n, tm.RenderMode.Raytracer, 16, 16))
-    if opts.pop("big_texture", False):
-        # 144×144 texels: past the in-kernel route's 128×128 texel pool.
-        from madrona_renderer_tpu_torch.assets.png import write_png
-        from tests.fixtures import make_checker_png
-
-        path = str(tmp_path / "big.png")
-        write_png(path, make_checker_png(144, 16))
-        kw["texture_paths"] = [path]
-    scene_keys = ("texture_paths", "materials", "asset_paths")
+    scene_keys = ("texture_paths", "asset_paths")
     kw.update({k: opts.pop(k) for k in scene_keys if k in opts})
     with pytest.raises(NotImplementedError, match=item):
         tm.MadronaRenderer(0, n, tm.RenderMode.Raytracer, 16, 16, device="cpu", **kw, **opts)

@@ -6,6 +6,7 @@ reference. The bar is tests/test_pallas_parity.py's: rgb within ±1 LSB,
 depth rtol = atol = 1e-5, segmask exact.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -128,7 +129,10 @@ def test_two_lights_and_unaligned_size_match_jax():
 def test_unsupported_scenes_raise():
     """Scenes outside the slice raise NotImplementedError naming their item;
     a world with two cameras, which raised until item 7 was ported, renders
-    like the JAX package."""
+    like the JAX package, and so does a texel pool past the in-kernel
+    route's 128×128 texels, which raised until the 9-output route was
+    ported (its frames: the JAX package's 9-output route's); that route
+    off the index sweep raises naming its entry (Queue 1 #9)."""
     import dataclasses
 
     spec = random_spec(3)
@@ -140,8 +144,19 @@ def test_unsupported_scenes_raise():
     assert port.depth.shape == (1, 2, 16, 16)
     assert_frames_close(j_ref(j_state, j_scene, height=16, width=16), port)
     # A texel pool past the in-kernel route's 128×128 texels.
-    t_state, t_scene = random_spec(3).build_torch()
-    textured = dataclasses.replace(
-        t_scene, tex_data=t_scene.tex_data.repeat(128 * 128 + 1, 1))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        trc.raytrace(t_state, textured, height=16, width=16)
+    j_state, j_scene = random_spec(3).build_jax()
+    j_textured = dataclasses.replace(
+        j_scene, tex_data=jnp.tile(j_scene.tex_data, (128 * 128 + 1, 1)))
+    t_state, textured = carry_over(j_state, j_textured)
+    assert trc.pack_inputs(t_state, textured, height=16, width=16)["texture"] == "nine"
+    port = trc.raytrace(t_state, textured, height=16, width=16)
+    assert_frames_close(j_pallas(j_state, j_textured, height=16, width=16, interpret=True),
+                        port)
+    big = spec_from_config(demo_config(2, RenderMode.Raytracer, 16, 16))
+    big.meshes[0] = np.concatenate([big.meshes[0]] * 40)
+    b_state, b_scene = big.build_torch()
+    b_textured = dataclasses.replace(
+        b_scene, tex_data=b_scene.tex_data.repeat(128 * 128 + 1, 1))
+    assert trc.visit_route(b_state, b_textured, 16, 16).visit == "ordered"
+    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+        trc.raytrace(b_state, b_textured, height=16, width=16)

@@ -182,7 +182,10 @@ def test_texel_pool_round_trips(textures):
 def test_big_pool_and_mips_raise(tmp_path):
     """Past 128 rows of 128 texels the bake turns mips on and the scene
     renders through the mip route; with mipmaps=False the scene exceeds the
-    in-kernel route (item 6), and trilinear without mips raises."""
+    in-kernel route and renders through the 9-output route (it raised,
+    naming item 6, until that route was ported; tests/test_torch_epilogue.py
+    holds its frames to the JAX package's), and trilinear without mips
+    raises."""
     from madrona_renderer_tpu_torch.assets.importer import load_render_assets
     from madrona_renderer_tpu_torch.core.scene import bake_scene
     from madrona_renderer_tpu_torch.core.state import init_state
@@ -201,8 +204,10 @@ def test_big_pool_and_mips_raise(tmp_path):
     assert (frames.segmask.numpy() >= 0).any()
     assert len(np.unique(frames.rgb.numpy().reshape(-1, 4), axis=0)) > 4
     scene = bake_scene(assets, "cpu", mipmaps=False)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        trc.raytrace(state, scene, height=16, width=16)
+    assert trc.output_mode(scene) == "nine"
+    frames = trc.raytrace(state, scene, height=16, width=16)
+    assert (frames.segmask.numpy() >= 0).any()
+    assert len(np.unique(frames.rgb.numpy().reshape(-1, 4), axis=0)) > 4
     with pytest.raises(ValueError, match="trilinear"):
         trc.check_supported(state, scene, "trilinear")
 
