@@ -7,7 +7,12 @@ printed as JSON lines:
 
   1. env     — Python/torch/CUDA versions, the card's name and power limit;
   2. build   — every kernel under madrona_renderer_tpu_torch/csrc, one nvcc
-               per source, all started together;
+               per source, all started together; then the GPU health
+               ladder (madrona_renderer_tpu_torch/ladder.py, the port of
+               tools/tpu_ladder.py: a torch op, the probes L1-L3, the quad
+               scene, the demo fleet, 256-world steps), each rung in a
+               process of its own, a ``ladder`` line per rung, and L1-L3
+               on the tool's inputs against their plain versions here;
   3. kernel_vs_plain — each kernel against its plain PyTorch version on the
                same CUDA inputs at 64 worlds: the fused pack K13 in both
                layouts (``pack_rows`` prep, ``pack_rows_raw``, bitwise) and
@@ -61,7 +66,14 @@ printed as JSON lines:
                on 4 worlds of the binned terrain at 128x128 bitwise against
                its plain version and against K5 (``k4_vs_k5`` lines); the
                seam scene made streamed under bins (a ``seam`` line);
-  4. paths   — the twenty paths of the port, each through MadronaRenderer and
+               K11 (deferred_mxu, ``render_*_dmxu*``) in every mode of the
+               streamed scenes without shadows or watertight, on both
+               visits, seeded too, bitwise against its plain version, its
+               replayed walk (``walk_vs_kernel``) and on prep rows the
+               route's kernel (``dmxu_vs_k5`` / ``dmxu_vs_k4``), with its
+               row gate on the varied terrain at 64x256 (one and two
+               cameras; ``rowskip_off`` lines), and on the 128x128 terrain;
+  4. paths   — the twenty-two paths of the port, each through MadronaRenderer and
                stepped with a position mutation through the exported tensor
                between steps, with every launch count set to 0 just before
                and read just after:
@@ -153,6 +165,22 @@ printed as JSON lines:
                last step's inputs equal to the exports, the step's device
                time and idle share from the profiler and the epilogue's
                time;
+                 dmxu_32w_512     tools/tpu_dmxu_bench.py's defaults: 32
+                                  worlds of the binned terrain at 512x512,
+                                  accel="binned", deferred_mxu=True (K11
+                                  with its row gate), the tools' loop; each
+                                  step's state through K4 bitwise
+                                  (``dmxu_vs_k4``) and both timed at the
+                                  kernel entry, the replayed walk against
+                                  the exports, the rowskip=False launch, the
+                                  tool's 128x128 check against the plain
+                                  version; terrain_32w_512's steps are its
+                                  K4 A/B;
+                 bigmesh_512w_dmxu bigmesh_512w with deferred_mxu=True (K11
+                                  on the ordered walk, no row gate at 64x64),
+                                  every step's state through K5 bitwise
+                                  (``dmxu_vs_k5``) and timed, bigmesh_512w's
+                                  steps its A/B;
                then, on each path's last inputs at full size, the kernels
                (under SSAA, filtered down) against the exported frames and
                their plain versions (and
@@ -195,7 +223,13 @@ printed as JSON lines:
                K12) likewise, their bounds counted from every triangle test
                (K12 at 128x128 on mxu_4096w_128's inputs), and the shadow
                epilogue (compute_lit, torch ops) on shadows_4096w's inputs
-               in a line of its own;
+               in a line of its own; K11's entries (the
+               paths' own, render_binned_dmxu on dmxu_32w_512's 128x128
+               inputs, the others on 64 worlds) with bounds from
+               walk_replay.dmxu_walk's (triangle, pixel) tests, K11 at 512x512
+               with and without its row gate and with its row gate on the
+               ordered walk at 64x256 in lines of their own, and L1-L3 on
+               the tool's inputs beside their library calls;
 
 then the nvidia-smi line, the ``kernels`` summary line and the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -212,6 +246,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -258,6 +293,12 @@ NEW_KERNEL_REPS = 10
 TOOL_HALF_ANGLE = 0.015
 PAGED_HALF_ANGLE = 0.01
 MXU_RESOLUTIONS = (64, 128)
+# K11's binned path (tools/tpu_dmxu_bench.py: 32 worlds of the
+# binned terrain at 512²) and the terrain path whose steps are its K4 A/B.
+DMXU_RES = 512
+DMXU_K4_PATH = "terrain_32w_512"
+# K11's row-gate checks on 64 worlds: 2 TPU tiles across (tile_geometry).
+ROWSKIP_SIZE = (64, 256)
 
 # H100 SXM peaks (NVIDIA data sheet). The published 67 TFLOP/s of FP32
 # outside the tensor cores counts a fused multiply-add as two operations
@@ -406,6 +447,18 @@ EPILOGUE_OPS_PER_TRIANGLE = 17
 # triangle tests with the tie compare (K5_OPS_PER_TRIANGLE); the shadow sweep
 # is K1's (index order). K9 adds the seed's read and its min (1 a thread).
 K9_OPS_SEED = 1
+# K11 (csrc/render_dmxu.cu): per (pixel, slot) test 28 (det 5, the guarded
+# reciprocal 3, u 6, v 6, t 1, the acceptance 5 and the minimum's compare 2:
+# the prep test's 27 and t < the cluster's minimum); per thread and visited
+# cluster the merge (2 compares and the tie's 2) and the row gate (2); on raw
+# rows per block, visited cluster and slot D, A, Q and t_num (tv 3, the
+# three cross products 27, t_num 5: 35).
+K11_OPS_PER_TEST = 28
+K11_OPS_PER_VISIT = 4 + 2
+K11_OPS_RAW_SLOT = 35
+# The ladder's probes (csrc/ladder.cu): L1 one product an element, L2 one
+# add, L3 one add a row element per thread of the block (every thread sums
+# the row: 256 x n a block), each bound by the bytes it moves.
 
 
 _T0 = time.perf_counter()
@@ -920,6 +973,58 @@ def k5_bound(kw: dict, walk: dict) -> tuple:
     return roofline(nbytes, ops) + (nbytes, ops)
 
 
+def dmxu_bound(kw: dict, walk: dict) -> tuple:
+    """Least time for K11's work on these inputs, from the walk this run's
+    data makes (``walk_replay.dmxu_walk``): the bytes of ``k5_bound`` (every
+    slot's rows of each streamed cluster, no ranges), against the per-thread
+    work, the walk's gates, every (pixel, slot) test its row gate leaves, the
+    merges and, on raw rows, each visit's D, A, Q, t_num (ms,
+    'bytes'|'operations', bytes, operations)."""
+    W, _, S = kw["rows"].shape
+    CC = kw["clusters"].shape[2]
+    size = S // CC
+    seeded = kw.get("seed") is not None
+    views = kw["cams"].shape[0]
+    pixels = views * kw["height"] * kw["width"]
+    blocks = views * math.ceil(kw["height"] / 16) * math.ceil(kw["width"] / 16)
+    threads = blocks * K1_THREADS_PER_BLOCK
+    tex = "mip" if kw.get("fb_rows") is not None else kw["texture"]
+    geo = layout(kw)
+    binned = kw.get("bins") is not None
+    visit_bytes = (views * 2 * CC * 4 + walk["bin_entries"] * 4 if binned
+                   else views * 2 * CC * 4 + views * CC * 4)
+    nbytes = (walk["clusters_streamed"] * K1_GEO_ROWS[geo] * size * 4
+              + walk["winners"] * (K1_ATTR_ROWS[tex] + (9 if geo != "raw" else 0)) * 4
+              + kw["clusters"].numel() * 4 + visit_bytes + kw["cams"].numel() * 4
+              + pixels * (K1_OUT_BYTES["mip" if tex == "mip" else "rgb"] + 4 * seeded))
+    if tex in ("nearest", "bilinear"):
+        nbytes += kw["mats"].numel() * 4 + kw["pool"].numel() * 4
+    per_thread = (K1_OPS_FIXED[geo] + K1_OPS_PER_LIGHT * kw["n_lights"] + K1_OPS_TEX[tex]
+                  + (K1_OPS_RASTER if kw["raster"] else 0) + K9_OPS_SEED * seeded)
+    reached = walk["gated"] + (walk["stops"] if binned else blocks)
+    ops = (threads * per_thread
+           + reached * (K5_OPS_APPROACH + K1_THREADS_PER_BLOCK * K5_OPS_EXIT)
+           + walk["slab_tests"] * K1_THREADS_PER_BLOCK * K5_OPS_SLAB
+           + walk["cluster_visits"] * K1_THREADS_PER_BLOCK * K11_OPS_PER_VISIT
+           + walk["pixel_tests"] * K11_OPS_PER_TEST)
+    if geo == "raw":
+        ops += walk["triangle_visits"] * K11_OPS_RAW_SLOT
+    return roofline(nbytes, ops) + (nbytes, ops)
+
+
+def ladder_bound(name: str, args) -> tuple:
+    """Least time for a ladder probe's work: its inputs read once (L3: the
+    row it sums) and its [blocks, 8, 128] output written once, against its
+    FP32 operations (ms, 'bytes'|'operations', bytes, operations)."""
+    blocks, out = args[-1].shape[0], args[-1].shape[0] * 8 * 128
+    if name == "ladder_fori_smem":
+        n = args[0].shape[2]
+        nbytes, ops = 4 * (blocks * n + out), blocks * K1_THREADS_PER_BLOCK * n
+    else:
+        nbytes, ops = 4 * (sum(a.numel() for a in args) + out), out
+    return roofline(nbytes, ops) + (nbytes, ops)
+
+
 def out_bytes(tex) -> int:
     """Bytes the render kernel writes a pixel in this texture mode."""
     return K1_OUT_BYTES[tex if tex in ("mip", "nine") else "rgb"]
@@ -1104,7 +1209,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 2
     import madrona_renderer_tpu_torch as m
-    from madrona_renderer_tpu_torch import _build, config as cfg_mod
+    from madrona_renderer_tpu_torch import _build, config as cfg_mod, ladder
     from madrona_renderer_tpu_torch.assets.importer import load_render_assets
     from madrona_renderer_tpu_torch.core.scene import bake_scene, configure_lighting
     from madrona_renderer_tpu_torch.core.state import init_state
@@ -1136,7 +1241,33 @@ def main() -> int:
     # Per kernel name: the largest error against its plain version.
     kernel_names = (rc.RENDER_VARIANTS + rc.BATCHED_VARIANTS + rc.SHADE_MIP_VARIANTS
                     + pack_cuda.LAYOUTS)
-    max_err = {name: 0.0 for name in kernel_names}
+    max_err = {name: 0.0 for name in kernel_names + ladder.KERNELS}
+
+    # ---- 2b. the GPU health ladder (madrona_renderer_tpu_torch/ladder.py):
+    # every rung in a process of its own, after the build so that its rungs
+    # find the libraries built; a failed or hung rung fails the run. The
+    # probes' launch counts are their rung processes' (each starts at 0).
+    ladder_runs = ladder.run_ladder(out=lambda line: None)
+    for run in ladder_runs:
+        emit({"phase": "ladder", **run})
+    if len(ladder_runs) != len(ladder.RUNGS) or not all(run["ok"] for run in ladder_runs):
+        raise AssertionError(f"the ladder failed at rung {ladder_runs[-1]['rung']!r}")
+    ladder_launches = {}
+    for run in ladder_runs:
+        ladder_launches.update(run.get("launches", {}))
+    if any(ladder_launches.get(name) != 1 for name in ladder.KERNELS):
+        raise AssertionError(f"the ladder's probes launched {ladder_launches}")
+    # L1-L3 on the tool's inputs against their plain versions, here.
+    probes = ladder.probe_inputs(dev)
+    for name in ladder.KERNELS:
+        k = ladder.WRAPPERS[name](*probes[name])
+        torch.cuda.synchronize()
+        p = ladder.PLAIN[name](*probes[name])
+        max_err[name] = float((k - p).abs().max())
+        emit({"phase": "kernel_vs_plain", "kernel": name, "case": "tools/tpu_ladder.py inputs",
+              "max_abs_err": max_err[name], "bitwise": bool(torch.equal(k, p))})
+        if not torch.equal(k, p):
+            raise AssertionError(f"{name} differs from its plain version")
 
     def check_pack(tag, state, scene, cam):
         name = pack_cuda.layout_name(cam)
@@ -1174,8 +1305,12 @@ def main() -> int:
     def seeded(kw):
         return kw.get("seed") is not None
 
+    def dmxu(kw):
+        """K11's inputs (pack_inputs with deferred_mxu where it applies)."""
+        return bool(kw.get("dmxu"))
+
     def handoff_name(kw):
-        return rc.variant_name(kw["raster"], "mip", kw["geo"], route(kw), seeded(kw))
+        return rc.variant_name(kw["raster"], "mip", kw["geo"], route(kw), seeded(kw), dmxu(kw))
 
     def variant(kw):
         """The render kernel's variant; for K7 its two launches' names."""
@@ -1183,7 +1318,8 @@ def main() -> int:
             return rc.batched_name(kw["raster"], kw["nine"])
         if is_k7(kw):
             return f"{handoff_name(kw)}+shade_mip_{kw['texture']}"
-        return rc.variant_name(kw["raster"], kw["texture"], kw["geo"], route(kw), seeded(kw))
+        return rc.variant_name(kw["raster"], kw["texture"], kw["geo"], route(kw), seeded(kw),
+                               dmxu(kw))
 
     def resident_visits(kw, state, scene, none=False):
         """A resident scene's inputs for each visit: index order (K1), the
@@ -1216,12 +1352,15 @@ def main() -> int:
         return torch.where(depth > 0, bound, 1000.0).contiguous()
 
     def is_new(kw):
-        """K3 or K4 on resident rows, K9, K1-none, K12 or the 9-output mode:
-        the eighth and ninth slices' kernels."""
+        """K3 or K4 on resident rows, K9, K1-none, K12, the 9-output mode or
+        K11: the kernels held bitwise to their plain version and timed on
+        the first inputs they were checked on."""
         return (seeded(kw) or (not streamed(kw) and route(kw).visit != "index")
-                or kw.get("texture") == "nine")
+                or kw.get("texture") == "nine" or dmxu(kw))
 
     first_kw = {}  # the first inputs each of this slice's variants was checked on
+    # (name, path, inputs) of the timings on a second path's (or check's) inputs.
+    extra_timing = []
     # Per variant (K7: per hand-off variant too): the inputs it was checked
     # on and its plain version's time there, one cold call, for its first
     # inputs and for a path's own (``keep``); the timing lines take it where
@@ -1275,7 +1414,7 @@ def main() -> int:
         return k_out
 
     handoff_keys = ("num_cams", "n_lights", "height", "width", "seg_div", "raster", "geo",
-                    "order", "spans", "bins", "ranges", "bin_tile", "seed")
+                    "order", "spans", "bins", "ranges", "bin_tile", "seed", "dmxu", "rowskip")
 
     walk_of = {}
 
@@ -1286,11 +1425,19 @@ def main() -> int:
         its work."""
         seed = kw.get("seed")
         key = (kw["geo"], kw["raster"], kw["rows"].data_ptr(), kw["cams"].data_ptr(),
-               route(kw), None if seed is None else seed.data_ptr())
+               route(kw), None if seed is None else seed.data_ptr(), dmxu(kw),
+               bool(kw.get("rowskip")))
         if key not in walk_of:
             walk = (walk_replay.resident_walk if not streamed(kw)
+                    else walk_replay.dmxu_walk if dmxu(kw)
                     else walk_replay.binned_walk if binned(kw) else walk_replay.streamed_walk)
             walk_of[key] = walk(**kw)
+            # The key holds device addresses: the entry goes when one of its
+            # tensors does, before the allocator can hand the address to
+            # another input.
+            for t in (kw["rows"], kw["cams"], seed):
+                if t is not None:
+                    weakref.finalize(t, walk_of.pop, key, None)
         return walk_of[key]
 
     def handoff(kw, plain=False):
@@ -1543,8 +1690,43 @@ def main() -> int:
         if memo not in seeds:
             seeds[memo] = seed_for(depth)
         kw = dict(kw, seed=seeds[memo])
-        (check_k7 if is_k7(kw) else check_render)(tag, kw, memo=memo + ("seed",))
+        out = (check_k7 if is_k7(kw) else check_render)(tag, kw, memo=memo + ("seed",))
         streamed_kw.setdefault(handoff_name(kw) if is_k7(kw) else variant(kw), kw)
+        return kw, out
+
+    def walk_matches(tag, kw, out):
+        """K11's replayed walk (walk_replay.dmxu_walk) renders the kernel's
+        depth and segmask, bitwise (raytraced: the replay writes t and
+        idx // seg_div, as the raytrace export does)."""
+        if kw["raster"]:
+            return
+        walk = walks(kw)
+        same = torch.equal(walk["depth"], out[0]) and torch.equal(walk["segmask"], out[1])
+        emit({"phase": "walk_vs_kernel", "case": tag, "kernel": handoff_name(kw) if is_k7(kw)
+              else variant(kw), "pixel_tests": walk["pixel_tests"], "bitwise": same})
+        if not same:
+            raise AssertionError(f"{tag} {variant(kw)}: the replayed walk differs")
+
+    def check_dmxu(tag, kw, kw_route, memo, seed_it):
+        """K11 on ``kw`` against its plain version (prep rows: the plain
+        outputs and seed of ``memo``'s mode, the route's own; raw rows each
+        view's D, A, Q, t_num: their own) and, prep, against the route's
+        kernel (K5 or K4) on ``kw_route``, bitwise; seeded too (K9)."""
+        memo = memo if kw["geo"] == "prep" else memo + ("dmxu",)
+        out = check_k7(tag, kw, memo=memo)[:2] if is_k7(kw) else check_render(tag, kw, memo=memo)
+        streamed_kw.setdefault(handoff_name(kw) if is_k7(kw) else variant(kw), kw)
+        walk_matches(tag, kw, out)
+        if kw_route is not None:
+            k11, other = rc.render_resident(**kw), rc.render_resident(**kw_route)
+            same = all(torch.equal(a, b) for a, b in zip(k11, other))
+            emit({"phase": "dmxu_vs_k4" if binned(kw) else "dmxu_vs_k5", "case": tag,
+                  "kernel": variant(kw), "rowskip": kw["rowskip"], "bitwise": same})
+            if not same:
+                raise AssertionError(f"{tag} {variant(kw)}: K11 differs from {variant(kw_route)}")
+        if seed_it:
+            walk_matches(tag, *check_seeded(tag, kw, out[0], memo))
+        return out
+
     for tag, parts in streamed_cases.items():
         geo, mats, textures, insts, cams, worlds = parts
         scene = bake_scene(load_render_assets(geo, [], mats, textures), dev)
@@ -1552,8 +1734,12 @@ def main() -> int:
         if not rc.is_streamed(state, scene):
             raise AssertionError(f"{tag}: the scene fits the resident budget")
         mip = rc.has_mips(scene)
-        filters = (MIP_FILTERS if mip else ("nearest", "bilinear") if rc.is_textured(scene)
-                   else ("nearest",))
+        # The mip scene under trilinear only (every filter took 100 s of the
+        # run): the hand-off entries
+        # are one for every filter, trilinear runs both K7 launches in full,
+        # and the filters' shade_mip entries are held on the mip scenes above.
+        filters = (("trilinear",) if mip else ("nearest", "bilinear")
+                   if rc.is_textured(scene) else ("nearest",))
         # The two visits of a mode last: they share its plain outputs and
         # seeds.
         for watertight, shadows, raster, filt, accel in itertools.product(
@@ -1574,13 +1760,24 @@ def main() -> int:
             seed_it = tag in seeded_streamed and not raster and (not mip or filt == "trilinear")
             if seed_it:
                 check_seeded(tag, kw, out[0], key)
+            # K11 (deferred_mxu) in the same mode.
+            dmxu_mode = not shadows and not watertight
+            if dmxu_mode:
+                kw_m = rc.pack_inputs(state, lit, raster=raster, texture_filter=filt,
+                                      near=0.001 if raster else 0.1, height=HEIGHT,
+                                      width=WIDTH, accel=accel, deferred_mxu=True)
+                check_dmxu(tag, kw_m, kw if kw["geo"] == "prep" else None, key, seed_it)
             if mip and not shadows and not watertight:
-                # The one-camera mip scene on the raw rows too.
-                kw = dict(kw, rows=pack_cuda.pack_rows(state, lit), geo="raw", ranges=None)
+                # The one-camera mip scene on the raw rows too (and K11's).
+                raw_rows = pack_cuda.pack_rows(state, lit)
+                kw = dict(kw, rows=raw_rows, geo="raw", ranges=None)
                 raw_out = check_k7(tag, kw, memo=key + ("raw",))
                 streamed_kw.setdefault(handoff_name(kw), kw)
                 if seed_it:
                     check_seeded(tag, kw, raw_out[0], key + ("raw",))
+                if dmxu_mode:
+                    check_dmxu(tag, dict(kw_m, rows=raw_rows, geo="raw"), None,
+                               key + ("raw",), seed_it)
             if tag == "tie64" and not raster:
                 # The quad's pixels tie between instances 0 and 1: instance
                 # 0 wins them; instance 1 keeps the small triangle in front
@@ -1590,6 +1787,36 @@ def main() -> int:
                       "binned": accel == "binned", "pixels": tie})
                 if tie[0] <= tie[1]:
                     raise AssertionError(f"tie64: the ties did not go to instance 0: {tie}")
+
+    # K11's row gate (rowskip: 256 wide, the TPU tiling's 2 tiles across) on
+    # both walks: the varied terrain with one and two cameras at 64x256, each
+    # K11 entry against its plain version, its rowskip=False launch and (prep)
+    # the route's kernel, seeded too.
+    for tag in ("bigmesh64", "bigmesh64_2cams"):
+        geo, mats, textures, insts, cams, worlds = streamed_cases[tag]
+        scene = bake_scene(load_render_assets(geo, [], mats, textures), dev)
+        state = init_state(insts, cams, worlds, dev)
+        for raster in (False, True):
+            plain_memo.clear()
+            seeds.clear()
+            for accel in ("clusters", "binned"):
+                opts = dict(raster=raster, near=0.001 if raster else 0.1,
+                            height=ROWSKIP_SIZE[0], width=ROWSKIP_SIZE[1], accel=accel)
+                kw_m = rc.pack_inputs(state, scene, deferred_mxu=True, **opts)
+                case = f"{tag}_{ROWSKIP_SIZE[0]}x{ROWSKIP_SIZE[1]}"
+                if not kw_m["rowskip"]:
+                    raise AssertionError(f"{case}: K11's row gate is off")
+                kw_r = rc.pack_inputs(state, scene, **opts)
+                out = check_dmxu(case, kw_m, kw_r if kw_r["geo"] == "prep" else None,
+                                 (raster,), not raster)
+                off = rc.render_resident(**dict(kw_m, rowskip=False))
+                same = all(torch.equal(a, b) for a, b in zip(out, off))
+                emit({"phase": "rowskip_off", "case": case, "kernel": variant(kw_m),
+                      "bitwise": same})
+                if not same:
+                    raise AssertionError(f"{case} {variant(kw_m)}: rowskip=False differs")
+                if tag == "bigmesh64" and not raster and accel == "clusters":
+                    extra_timing.append((variant(kw_m), case, kw_m))
 
     # K4 on 4 worlds of the binned terrain at 128x128 (tools/tpu_binned_bench.py's
     # scene, the terrains turned apart): every geometry variant, raytraced
@@ -1616,8 +1843,10 @@ def main() -> int:
             raw_rows = pack_cuda.pack_rows(t_state, lit)
             pairs.append(tuple(dict(kw, rows=raw_rows, geo="raw", ranges=None)
                                for kw in pairs[0]))
+        plain_memo.clear()
         for kw, kw5 in pairs:
-            k4 = check_render("terrain4_128", kw)
+            memo = ("terrain4", kw["geo"])
+            k4 = check_render("terrain4_128", kw, memo=memo)
             k5 = rc.render_resident(**kw5)
             same = all(torch.equal(x, y) for x, y in zip(k4, k5))
             emit({"phase": "k4_vs_k5", "case": "terrain4_128", "kernel": variant(kw),
@@ -1625,6 +1854,14 @@ def main() -> int:
             if not same:
                 raise AssertionError(f"terrain4_128 {variant(kw)}: K4 differs from K5")
             streamed_kw.setdefault(variant(kw), kw)
+            if not shadows and not watertight:
+                # K11 on the same rows unsorted: against the plain version
+                # (prep: K4's) and against K4.
+                kw_m = rc.pack_inputs(t_state, lit, accel="binned", deferred_mxu=True, **opts)
+                if kw["geo"] == "raw":
+                    kw_m = dict(kw_m, rows=kw["rows"], geo="raw")
+                check_dmxu("terrain4_128", kw_m, kw if kw["geo"] == "prep" else None, memo,
+                           False)
     parts = seam_scene(SMALL_WORLDS, cfg_mod, fill=True)
     seam_state = init_state(*parts[3:], dev)
     seam_sc = bake_scene(load_render_assets(parts[0], [], [], []), dev)
@@ -1738,7 +1975,8 @@ def main() -> int:
                   width=r.cfg.batch_render_view_width * r.cfg.ssaa, raster=raster,
                   near=r.cfg.raster_near_plane if raster else r.cfg.near_plane,
                   texture_filter=r.cfg.texture_filter, shadows=bool(r.cfg.shadows),
-                  watertight=bool(r.cfg.watertight), accel=r.cfg.accel)
+                  watertight=bool(r.cfg.watertight), accel=r.cfg.accel,
+                  deferred_mxu=bool(r.cfg.deferred_mxu))
         kw.update(over)
         return rc.pack_inputs(r.state, r.scene, **kw)
 
@@ -1789,10 +2027,8 @@ def main() -> int:
               "launches": counts, **extra,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
 
-    # Per kernel name: (inputs for its timing, launches on the paths); and
-    # (name, path, inputs) of the timings on a second path's inputs.
+    # Per kernel name: (inputs for its timing, launches on the paths).
     timing_kw, launches = {}, dict.fromkeys(kernel_names, 0)
-    extra_timing = []
     resident_kw = {}  # per resident terrain path: its last inputs for the other visits
 
     def add_launches(counts):
@@ -2283,6 +2519,7 @@ def main() -> int:
                 "row_sort_ms": cuda_ms(row_sort, 5), "row_sort_device_ms": device_ms(row_sort)}
 
     terrain_timing = []
+    terrain_steps = {}  # each terrain path's step times (K11's path takes 512²'s as its A/B)
     for path, res, accel in TERRAIN_PATHS:
         r, step_s, counts, ctor_s, name = drive_tool(
             path, scenes.binned_terrain_config(TERRAIN_WORLDS, res, res), res, accel)
@@ -2333,6 +2570,7 @@ def main() -> int:
                      clusters_step_ms_min=min(step5) * 1e3,
                      clusters_step_ms_max=max(step5) * 1e3)
         del r5
+        terrain_steps[path] = step_s
         time_path(path, r, step_s, counts, ctor_s, extra)
         del r, k4, k5
         torch.cuda.empty_cache()
@@ -2510,6 +2748,129 @@ def main() -> int:
     del r
     torch.cuda.empty_cache()
 
+    # ---- K11's paths (deferred_mxu) ------------------------------------ #
+    def same_frames(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def exports(r):
+        return (r.depth_tensor().to_torch(), r.segmask_tensor().to_torch(),
+                r.rgb_tensor().to_torch().contiguous().view(torch.int32).squeeze(-1))
+
+    # dmxu_32w_512: tools/tpu_dmxu_bench.py's defaults (32 worlds of the
+    # 224-grid terrain at 512², accel="binned", every instance turned by dq
+    # of half-angle 0.01 about z each step) with deferred_mxu=True: K11 on
+    # the binned walk with its row gate (the TPU tiling has 4 tiles across).
+    # Each timed step's inputs through K4 too (dmxu_vs_k4, bitwise, and both
+    # timed at the kernel entry), the rowskip=False launch on the last
+    # step's inputs, the tool's 128² correctness check (no row gate there);
+    # the same steps through K4 are terrain_32w_512's, in this call.
+    path = f"dmxu_{TERRAIN_WORLDS}w_{DMXU_RES}"
+    record = []
+    cfg = scenes.binned_terrain_config(TERRAIN_WORLDS, DMXU_RES, DMXU_RES)
+    r, step_s, counts, ctor_s, name = drive_tool(path, cfg, DMXU_RES, "binned", record=record,
+                                                 deferred_mxu=True)
+    if name != "render_binned_dmxu":
+        raise AssertionError(f"{path}: took {name}, not K11 on the binned walk")
+    add_launches(counts)
+    kw = path_inputs(r)
+    exported = exports(r)
+    if kw["rowskip"] != (mips.tile_geometry(DMXU_RES, DMXU_RES)[1] > 1):
+        raise AssertionError(f"{path}: K11's row gate is {kw['rowskip']}")
+    if not same_frames(rc.render_resident(**kw), exported):
+        raise AssertionError(f"{path}: K11 on the last inputs differs from the exports")
+    if not torch.isfinite(exported[0]).all() or not bool((exported[0] > 0).any()):
+        raise AssertionError(f"{path}: depth not finite or empty")
+    check_pack(path, r.state, r.scene, r.state.camera_pos[:, 0, :])
+    # At 512² K11 is held to its replayed walk (torch ops), to its launch
+    # without the row gate and, every step, to K4 (the index-order plain
+    # sweep takes about a minute there, as for terrain_32w_512); against
+    # the plain version at the tool's 128² check below.
+    walk_matches(path, kw, exported)
+    kw_off = dict(kw, rowskip=False)
+    same = same_frames(rc.render_resident(**kw_off), exported)
+    emit({"phase": "rowskip_off", "case": path, "kernel": name, "bitwise": same})
+    if not same:
+        raise AssertionError(f"{path}: rowskip=False differs")
+    ab = {"k11": [], "k4": []}
+    for i, state in enumerate(record):
+        km = rc.pack_inputs(state, r.scene, height=DMXU_RES, width=DMXU_RES, accel="binned",
+                            deferred_mxu=True)
+        k4 = rc.pack_inputs(state, r.scene, height=DMXU_RES, width=DMXU_RES, accel="binned")
+        same = same_frames(rc.render_resident(**km), rc.render_resident(**k4))
+        emit({"phase": "dmxu_vs_k4", "case": path, "step": i, "bitwise": same})
+        if not same:
+            raise AssertionError(f"{path} step {i}: K11's frames differ from K4's")
+        ab["k11"].append(cuda_ms(lambda km=km: rc.render_resident(**km), 1))
+        ab["k4"].append(cuda_ms(lambda k4=k4: rc.render_resident(**k4), 1))
+        del km, k4
+    # The tool's correctness check at 128² (one TPU tile across: no row
+    # gate), K11 and K4 on the last state against one plain output.
+    km, k4 = path_inputs(r, height=128, width=128), path_inputs(r, height=128, width=128,
+                                                                deferred_mxu=False)
+    plain_memo.clear()
+    same = same_frames(check_render(f"{path}_128", km, keep=True, memo=(path,)),
+                       check_render(f"{path}_128", k4, memo=(path,)))
+    emit({"phase": "dmxu_vs_k4", "case": f"{path}_128", "rowskip": km["rowskip"],
+          "bitwise": same})
+    if not same or km["rowskip"] or not km["dmxu"]:
+        raise AssertionError(f"{path} at 128²: K11 (no row gate) differs from K4")
+    plain_memo.clear()
+    # Its kernels-line row on the 128² inputs (their plain time is the
+    # check's); at 512² with and without the row gate, lines of their own
+    # without a plain time.
+    timing_kw[name] = km
+    full_timing = [(path, kw), (f"{path}_rowskip_off", kw_off)]
+    k4_steps = terrain_steps[DMXU_K4_PATH]
+    extra = {"accel": "binned", "deferred_mxu": True, "route": name, "rowskip": kw["rowskip"],
+             "tris_per_world": int(kw["rows"].shape[2]),
+             "clusters_per_world": int(kw["clusters"].shape[2]), **device_share(r, step_s),
+             **{k: v for k, v in walks(kw).items() if k not in ("depth", "segmask")},
+             **{f"ab_{k}_kernel_ms_median": statistics.median(v) for k, v in ab.items()},
+             "k4_route": f"render_binned ({DMXU_K4_PATH}'s steps)", **ab_of("k4", k4_steps)}
+    time_path(path, r, step_s, counts, ctor_s, extra)
+    del r, record, kw, km, k4
+    torch.cuda.empty_cache()
+
+    # bigmesh_512w_dmxu: bigmesh_512w with deferred_mxu=True: K11 on the
+    # ordered walk (64², no row gate: one TPU tile across), every step's
+    # state through K5 too (bitwise the exported frames: dmxu_vs_k5, both
+    # timed at the kernel entry on the timed steps); bigmesh_512w's steps
+    # above are the same loop through K5.
+    path = "bigmesh_512w_dmxu"
+    record = []
+    r, step_s, counts, ctor_s, name = drive(
+        path, m.RenderMode.Raytracer, BIGMESH_WORLDS, False, TIMED_STEPS,
+        cfg=scenes.bigmesh_config(BIGMESH_WORLDS, WIDTH, HEIGHT), record=record,
+        deferred_mxu=True)
+    if name != "render_streamed_dmxu":
+        raise AssertionError(f"{path}: took {name}, not K11 on the ordered walk")
+    kw = full_size_checks(path, r, name)
+    if kw["rowskip"]:
+        raise AssertionError(f"{path}: the row gate is on at 64²")
+    timing_kw[name] = kw
+    walk_matches(path, kw, exports(r))
+    ab = {"k11": [], "k5": []}
+    for i, (state, depth, seg, rgb) in enumerate(record):
+        k5 = rc.pack_inputs(state, r.scene, height=HEIGHT, width=WIDTH)
+        same = same_frames(rc.render_resident(**k5),
+                           (depth, seg, rgb.contiguous().view(torch.int32).squeeze(-1)))
+        if not same:
+            raise AssertionError(f"{path} step {i}: K11's frames differ from K5's")
+        if i >= WARMUP_STEPS:
+            km = rc.pack_inputs(state, r.scene, height=HEIGHT, width=WIDTH, deferred_mxu=True)
+            ab["k11"].append(cuda_ms(lambda km=km: rc.render_resident(**km), 1))
+            ab["k5"].append(cuda_ms(lambda k5=k5: rc.render_resident(**k5), 1))
+    emit({"phase": "dmxu_vs_k5", "case": path, "steps": len(record), "bitwise": True})
+    extra = {"deferred_mxu": True, "route": name, "rowskip": False, **device_share(r, step_s),
+             **{f"walk_{k}": v for k, v in work_of(walks(kw)).items()},
+             "pixel_tests": walks(kw)["pixel_tests"],
+             **{f"ab_{k}_kernel_ms_median": statistics.median(v) for k, v in ab.items()},
+             "k5_route": "render_streamed (bigmesh_512w's steps)", **ab_of("k5", cold_step_s)}
+    time_path(path, r, step_s, counts, ctor_s, extra)
+    add_launches(counts)
+    del r, record, kw
+    torch.cuda.empty_cache()
+
     # ---- timings of every kernel at its path's full-size inputs --------- #
     def k13_row(layout, state, scene):
         cam = state.camera_pos[:, 0, :].contiguous() if layout == "pack_rows" else None
@@ -2536,8 +2897,10 @@ def main() -> int:
             return none_bound(kw), {}
         walk = walks(kw)
         work = {k: walk[k] for k in ("triangle_visits", "shadow_triangle_visits",
-                                     "cluster_visits", "clusters_streamed")}
-        return (k5_bound if streamed(kw) else resident_bound)(kw, walk), work
+                                     "cluster_visits", "clusters_streamed", "pixel_tests")
+                if k in walk}
+        bound = dmxu_bound if dmxu(kw) else k5_bound if streamed(kw) else resident_bound
+        return bound(kw, walk), work
 
     def plain_ms(checked, name, kw, once, fn):
         """The plain version's time on these inputs: the check's, where it
@@ -2551,7 +2914,7 @@ def main() -> int:
     def source_of(kw):
         if is_batched(kw):
             return "madrona_renderer_tpu_torch/csrc/render_batched.cu"
-        lib = rc.library_of(route(kw), seeded(kw), kw.get("texture"))
+        lib = rc.library_of(route(kw), seeded(kw), kw.get("texture"), dmxu(kw))
         return f"madrona_renderer_tpu_torch/csrc/{lib}.cu"
 
     def replaces_of(kw):
@@ -2665,8 +3028,39 @@ def main() -> int:
         rows.append(handoff_row(name, kw, reps) if is_k7(kw) else render_row(name, kw,
                                                                                 reps=reps))
         emit({"phase": "timing", **rows[-1]})
+    # K11: a path's own on its full-size inputs, the
+    # others on the 64-world inputs of their first kernel_vs_plain scene.
+    for name in rc.DMXU_VARIANTS:
+        kw = timing_kw.get(name) or first_kw[name]
+        reps = NEW_KERNEL_REPS if name in small else KERNEL_REPS
+        rows.append(handoff_row(name, kw, reps) if is_k7(kw) else render_row(name, kw,
+                                                                                reps=reps))
+        emit({"phase": "timing", **rows[-1]})
     for name in rc.SHADE_MIP_VARIANTS:
         rows.append(shade_row(name, timing_kw[name]))
+        emit({"phase": "timing", **rows[-1]})
+    # L1-L3 on the tool's inputs; their library call is the one PyTorch
+    # operator that computes each (x * 2, the broadcast add, sum(-1) and its
+    # broadcast view).
+    library = {"ladder_copy": lambda x: x * 2.0,
+               "ladder_grid_smem": lambda s, x: x + s,
+               "ladder_fori_smem": lambda t: t[:, 0].sum(-1)[:, None, None].expand(-1, 8, 128)}
+    replaces = {"ladder_copy": "tools/tpu_ladder.py:43",
+                "ladder_grid_smem": "tools/tpu_ladder.py:64",
+                "ladder_fori_smem": "tools/tpu_ladder.py:94"}
+    for name in ladder.KERNELS:
+        args = probes[name]
+        bound_ms, bound_by, nbytes, ops = ladder_bound(name, args)
+        rows.append({
+            "name": name, "route": "cuda", "source": "madrona_renderer_tpu_torch/csrc/ladder.cu",
+            "replaces": replaces[name], "launches": ladder_launches[name],
+            "max_abs_err": max_err[name],
+            "ms": graph_ms(lambda: ladder.WRAPPERS[name](*args), KERNEL_REPS),
+            "wrapper_ms": cuda_ms(lambda: ladder.WRAPPERS[name](*args), KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: ladder.PLAIN[name](*args), KERNEL_REPS),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cuda_ms(lambda: library[name](*args), KERNEL_REPS),
+            "blocks": int(args[-1].shape[0]), "bytes": nbytes, "ops": ops})
         emit({"phase": "timing", **rows[-1]})
     for kw in k7_timing:
         emit({"phase": "timing", "inputs": "textured256_4096w", **k7_row(kw)})
@@ -2678,6 +3072,10 @@ def main() -> int:
     for path, visits in resident_kw.items():
         for vkw in visits:
             emit({"phase": "timing", "inputs": path, **render_row(variant(vkw), vkw)})
+    # K11 on its terrain path's 512² inputs, with and without the row gate.
+    for path, kw in full_timing:
+        emit({"phase": "timing", "inputs": path, "rowskip": kw["rowskip"],
+              **render_row(variant(kw), kw, plain=False)})
     # K4 on the larger terrain paths and K5 on each (the tool's A/B), on the
     # same inputs; K5's walk is not replayed there (minutes at these sizes).
     for path, res, kw, kw5 in terrain_timing:

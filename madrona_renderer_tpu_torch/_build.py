@@ -7,8 +7,9 @@ root of a source checkout, or in a per-user cache directory for an
 installed package (``cache_root``), named by a hash of the source, the
 sources it includes (``csrc/render_binned.cu``,
 ``csrc/render_resident_ordered.cu``, ``csrc/render_resident_binned.cu``,
-``csrc/render_seeded.cu`` and ``csrc/render_none.cu`` include
-``csrc/render_resident.cu``) and the flags, so an edited source or flag
+``csrc/render_seeded.cu``, ``csrc/render_none.cu`` and
+``csrc/render_dmxu.cu`` include ``csrc/render_resident.cu``) and the flags,
+so an edited source or flag
 rebuilds and an unchanged one loads at once. Nothing is built when this module is imported: the first call that
 launches a kernel builds it. The sources ship in the package
 (``pyproject.toml``'s package data).
@@ -61,7 +62,9 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signature of each kernel's launch function: (symbol, argtypes).
+# C signature of each kernel's launch function: (symbol, argtypes), or for a
+# library of several entries with one signature (the ladder's probes) the
+# tuple of their symbols and the argtypes.
 SIGNATURES = {
     "render_resident": (
         "mrt_render_resident",
@@ -140,6 +143,26 @@ SIGNATURES = {
          _F, _F,  # two_over_w two_over_h
          _I, _I, _I,  # raster tex_filter geo
          _I,  # culled (K1's 9-output entries) or not (K1-none)
+         _P],  # stream
+    ),
+    "render_dmxu": (
+        "mrt_render_dmxu",
+        [_P, _P, _P, _P, _P,  # rows clusters cams mats pool
+         _I,  # n_mats
+         _P, _P, _P,  # depth seg rgb
+         _P, _P,  # code handoff (the mip hand-off)
+         _P, _P, _P, _P,  # order spans bins seed (order or bins; seed or null)
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
+         _F, _F,  # two_over_w two_over_h
+         _I, _I, _I,  # raster tex_filter geo
+         _I, _I, _I,  # bins_x bin_shift n_bins
+         _I,  # rowskip
+         _P],  # stream
+    ),
+    "ladder": (
+        ("mrt_ladder_copy", "mrt_ladder_grid_smem", "mrt_ladder_fori_smem"),
+        [_P, _P, _P,  # x s out
+         _I, _I,  # blocks n
          _P],  # stream
     ),
     "render_batched": (
@@ -232,13 +255,20 @@ def build_all() -> Dict[str, Path]:
         return dict(zip(names, pool.map(build, names)))
 
 
+def symbols(name: str) -> tuple:
+    """The C entries of ``csrc/<name>.cu``'s library."""
+    symbol = SIGNATURES[name][0]
+    return (symbol,) if isinstance(symbol, str) else symbol
+
+
 @functools.cache
-def load(name: str):
-    """The kernel's launch function, built on first use and bound with its
-    ``argtypes``/``restype`` (every pointer and the stream as ``c_void_p``)."""
+def load(name: str, symbol: str | None = None):
+    """The kernel's launch function (``symbol``, for a library of several
+    entries), built on first use and bound with its ``argtypes``/``restype``
+    (every pointer and the stream as ``c_void_p``)."""
     lib = ctypes.CDLL(str(build(name)))
-    symbol, argtypes = SIGNATURES[name]
-    fn = getattr(lib, symbol)
+    argtypes = SIGNATURES[name][1]
+    fn = getattr(lib, symbol or symbols(name)[0])
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     err = lib.mrt_error_string

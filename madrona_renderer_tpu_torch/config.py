@@ -224,6 +224,13 @@ class ManagerConfig:
     # walk), "binned" (the tile-binned visit) or "mxu" (the batched kernel
     # K12), passed through to raytrace / rasterize unchanged.
     accel: str = "auto"
+    # The deferred matmul sweep K11 (port only: the JAX package reads
+    # MRT_DEFERRED_MXU=1 from the environment, the port reads no knobs): on
+    # the streamed visits without shadows or watertight it sweeps each
+    # visited cluster's every slot and merges the cluster's first minimum;
+    # elsewhere ignored, as the JAX package ignores the variable. Passed
+    # through to raytrace / rasterize unchanged; the same frames.
+    deferred_mxu: bool = False
     # Supersampled antialiasing: render each view at ssaa x resolution
     # and box-filter rgb back down. 1 = off (reference behavior: one ray
     # per pixel); more is ROADMAP Queue 1 item 13.

@@ -185,6 +185,17 @@
 // staging: a visited cluster's valid prefix is swept from the shared rows,
 // exact-t ties to the lower triangle index.
 //
+// K11 (the factory's dmxu / rowskip switches, :908-918, :1825-2001; DMXU,
+// a template switch of the streamed route's two visits, built by
+// csrc/render_dmxu.cu, which includes this file and brings its own entry
+// point): the walk and its staging as above, but a visited cluster's every
+// slot is swept, padding included (a padding slot fails through det = 0),
+// on prep rows or on the cluster's D, A, Q and t_num formed in the staged
+// buffer for the block's camera from its raw rows; each thread takes the
+// cluster's first minimum (ties to the lower slot) and merges it into its
+// running best with the lower-index tie rule; with rowskip each warp (two
+// pixel rows of the block) skips a cluster whose row span misses its rows.
+//
 // K9 (the factory's seeded switch, :1064-1069, :1205-1209; SEEDED, a
 // template switch of the raytrace variants of every route, each an entry of
 // its own beside the cold one, whose code stays as it was: a runtime
@@ -610,19 +621,24 @@ __host__ __device__ constexpr int binned_stage_rows() {
 // SEEDED: K9, best_t starting from `seed` (unread otherwise). CULL false
 // (K1-none, csrc/render_none.cu, resident index order only): no cluster
 // table; every triangle is tested, in index order, and so is every
-// triangle of the shadow sweep.
+// triangle of the shadow sweep. DMXU (with STREAM, prep or raw rows, no
+// shadows: csrc/render_dmxu.cu): K11's cluster sweep, with `rowskip` its
+// per-warp row gate (unread otherwise).
 template <int GEO, bool RASTER, int TEX, bool STREAM, bool BINNED = false,
-          bool RWALK = false, bool SEEDED = false, bool CULL = true>
+          bool RWALK = false, bool SEEDED = false, bool CULL = true, bool DMXU = false>
 __device__ __forceinline__ void render_body(const RenderArgs& a,
                                             const StreamArgs& st,
                                             const BinArgs& bn = BinArgs{},
-                                            const float* seed = nullptr) {
+                                            const float* seed = nullptr,
+                                            int rowskip = 0) {
   constexpr bool RAW = GEO != kGeoPrep;
   constexpr bool SHADOWS = GEO == kGeoRawShadows || GEO == kGeoRawWtShadows;
   constexpr bool WT = GEO >= kGeoRawWt;
+  static_assert(!DMXU || (STREAM && (GEO == kGeoPrep || GEO == kGeoRaw)),
+                "K11 sweeps the streamed visits' prep or raw rows");
   // The streamed binned visit on prep rows: row-sorted rows and triangle
-  // ranges.
-  constexpr bool RANGED = BINNED && STREAM && GEO == kGeoPrep;
+  // ranges (K11 streams its rows unsorted).
+  constexpr bool RANGED = BINNED && STREAM && GEO == kGeoPrep && !DMXU;
   const int S = a.S, CC = a.CC;
   extern __shared__ __align__(16) float smem[];
   // Resident: [smem_geo_rows, S]; streamed: two staged clusters, each
@@ -1051,7 +1067,70 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
         }
       }
     };
-    if constexpr (!BINNED) {
+    if constexpr (DMXU) {
+      // K11 (:1825-2001): the cluster's every slot; its first minimum
+      // (strict <, so the lower slot keeps an exact tie) merged into the
+      // running best with the lower-index tie rule; the row gate per warp.
+      const int wrow0 = row0 + 2 * (int)(threadIdx.y / 2);  // the warp's two image rows
+      auto visit_m = [&](int p, float* buf) {
+        const int c = s_order[p];
+        if constexpr (RAW) {
+          // The cluster's D = e2 x e1, A = e2 x tv, Q = tv x e1 and
+          // t_num = e2 . Q for this view (tv = o - v0, :1876-1903), in place
+          // of its staged v0, e1, e2: one thread a slot.
+          for (int k = tid; k < cs; k += kThreads) {
+            const float e1x = buf[3 * cs + k], e1y = buf[4 * cs + k],
+                        e1z = buf[5 * cs + k];
+            const float e2x = buf[6 * cs + k], e2y = buf[7 * cs + k],
+                        e2z = buf[8 * cs + k];
+            const float tvx = ox - buf[k];
+            const float tvy = oy - buf[cs + k];
+            const float tvz = oz - buf[2 * cs + k];
+            const float qx = tvy * e1z - tvz * e1y;
+            const float qy = tvz * e1x - tvx * e1z;
+            const float qz = tvx * e1y - tvy * e1x;
+            buf[k] = e2y * e1z - e2z * e1y;
+            buf[cs + k] = e2z * e1x - e2x * e1z;
+            buf[2 * cs + k] = e2x * e1y - e2y * e1x;
+            buf[3 * cs + k] = e2y * tvz - e2z * tvy;
+            buf[4 * cs + k] = e2z * tvx - e2x * tvz;
+            buf[5 * cs + k] = e2x * tvy - e2y * tvx;
+            buf[6 * cs + k] = qx;
+            buf[7 * cs + k] = qy;
+            buf[8 * cs + k] = qz;
+            buf[9 * cs + k] = e2x * qx + e2y * qy + e2z * qz;
+          }
+          __syncthreads();
+        }
+        // Row skip (:1915-1990): the cluster's rows miss the warp's.
+        if (rowskip && (s_span[c] > wrow0 + 1 || s_span[CC + c] < wrow0)) return;
+        // t < cmin from cmin = far: the accepted t < far of the first
+        // minimum, as the JAX iota-min takes it.
+        float cmin = far, cu = 0.f, cv = 0.f;
+        int lidx = -1;
+        for (int k = 0; k < cs; ++k) {
+          float u, v, t;
+          prep_test(dx, dy, dz, buf + k, cs, u, v, t);
+          if ((fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) && (t > t_lo) &&
+              (t < cmin)) {
+            cmin = t;
+            lidx = k;
+            cu = u;
+            cv = v;
+          }
+        }
+        const int gi = c * cs + lidx;
+        if (lidx >= 0 && ((cmin < best_t) || (cmin == best_t && gi < best_idx))) {
+          best_t = cmin;
+          best_idx = gi;
+          if (RAW) {
+            best_u = cu;
+            best_v = cv;
+          }
+        }
+      };
+      walk_clusters(BINNED ? s_order[-1] : CC, buf0, buf1, gate, stage, visit_m);
+    } else if constexpr (!BINNED) {
       walk_clusters(CC, buf0, buf1, gate, stage, visit);
     } else if constexpr (!RANGED) {
       // K4 on raw rows: the bin's clusters (s_order[-1] of them) through
@@ -1481,8 +1560,9 @@ RenderArgs render_args(const float* rows, const float* clusters, const float* ca
 }
 
 // csrc/render_binned.cu, csrc/render_resident_ordered.cu,
-// csrc/render_resident_binned.cu and csrc/render_seeded.cu include this file
-// for the above and bring their own entry point, route and C interface.
+// csrc/render_resident_binned.cu, csrc/render_seeded.cu, csrc/render_none.cu
+// and csrc/render_dmxu.cu include this file for the above and bring their
+// own entry point, route and C interface.
 #ifndef MRT_RENDER_BODY_ONLY
 // The resident route, or with s.order the streamed route's ordered visit.
 struct ResidentRoute {

@@ -215,6 +215,7 @@ class Manager:
             shadows=bool(cfg.shadows),
             watertight=bool(cfg.watertight),
             accel=cfg.accel,
+            deferred_mxu=bool(cfg.deferred_mxu),
         )
         cam_w, cam_slot = self._t_cam_w, self._t_cam_slot
 

@@ -22,7 +22,8 @@ def rasterize(state: SimState, scene: SceneData, *, height: int, width: int,
               near: float = 0.001, far: float = 1000.0,
               fov_y_degrees: float = 90.0,
               texture_filter: str = "nearest", shadows: bool = False,
-              watertight: bool = False, accel: str = "auto") -> Frames:
+              watertight: bool = False, accel: str = "auto",
+              deferred_mxu: bool = False) -> Frames:
     """Raster-convention rendering → padded ``Frames``: depth is
     camera-plane z (0 on a miss or past ``far``), segmask is -1 everywhere,
     invalid camera slots render black. With ``shadows`` the shadow rays
@@ -31,12 +32,13 @@ def rasterize(state: SimState, scene: SceneData, *, height: int, width: int,
     geometric hit, before the far clip (the JAX ``raster_ref.py:108-123``).
     ``watertight`` passes through to the shared kernel's Woop decision, as
     in the JAX ``raster_pallas.py:79-92``; ``accel`` (the JAX package's five
-    values, "none" and "mxu" among them, :65-95) picks the route, as in
+    values, "none" and "mxu" among them, :65-95) picks the route and
+    ``deferred_mxu`` K11 on the streamed visits, as in
     ``raytrace_cuda.render_core``."""
     return frames_from_core(state, *render_core(
         state, scene, height=height, width=width, near=near, far=far,
         fov_y_degrees=fov_y_degrees, raster=True,
         texture_filter=texture_filter, shadows=shadows, watertight=watertight,
-        accel=accel,
+        accel=accel, deferred_mxu=deferred_mxu,
     ), scene=scene, raster=True, far=far, fov_y_degrees=fov_y_degrees,
         texture_filter=texture_filter, shadows=shadows)

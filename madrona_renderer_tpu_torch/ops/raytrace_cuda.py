@@ -64,6 +64,14 @@ take the streamed route, with one of two visits (``visit_route``):
     index (``gi``), and the winner's attributes are read at it. The kernel
     takes the binned inputs as its own entry point's arguments, so the
     ordered route's entries keep their code.
+With ``deferred_mxu`` (the JAX package's ``MRT_DEFERRED_MXU=1``) the two
+streamed visits take K11 instead (``csrc/render_dmxu.cu``, ``dmxu_route``):
+the same walk, but each visited cluster's every slot swept (on raw rows its
+D, A, Q and t_num formed in the kernel for the block's camera), its first
+minimum taken and merged into the running best, and, where the TPU tiling
+has more than one tile across (``rowskip``), each warp's two pixel rows
+skipped outside the cluster's row span; the binned visit then streams
+unsorted rows (no row sort, no ranges).
 Resident scenes take one of three visits (``visit_route``, the JAX
 ``render_core``'s ``ordered`` and ``binned``, :4272-4292): index order (K1)
 under 4 clusters a world; the front-to-back walk with the early exit (K3 on
@@ -297,6 +305,25 @@ def bin_tile_for(num_views: int, height: int, width: int, n_clusters: int) -> in
            * -(-width // tile) * (1 + n_clusters) > _BIN_ENTRIES):
         tile *= 2
     return tile
+
+
+def dmxu_route(state: SimState, scene: SceneData, height: int, width: int, *,
+               accel: str = "auto", shadows: bool = False, watertight: bool = False,
+               deferred_mxu: bool = False, rowskip: bool = True) -> tuple:
+    """``(dmxu, rowskip)`` as the JAX ``render_core`` resolves them
+    (:4296-4321, :4432): the deferred matmul sweep K11 only on the streamed
+    route's deferred visits (binned, or ordered with 4 or more clusters a
+    world), without shadows and without ``watertight``; elsewhere
+    ``deferred_mxu`` is ignored, as the JAX package ignores
+    ``MRT_DEFERRED_MXU`` there. The row skip where K11 runs and the TPU
+    tiling has more than one tile across (``mips.tile_geometry``: 256 wide
+    and up), unless ``rowskip`` is False (the JAX ``MRT_ROWSKIP=0``)."""
+    if not deferred_mxu or shadows or watertight:
+        return False, False
+    route = visit_route(state, scene, height, width, accel)
+    n_cl = state.max_instances * int(scene.cl_valid.shape[1])
+    on = route.streamed and (route.visit == "binned" or n_cl >= _ORDERED_MIN_CLUSTERS)
+    return on, on and rowskip and mips.tile_geometry(height, width)[1] > 1
 
 
 def check_supported(state: SimState, scene: SceneData,
@@ -791,6 +818,8 @@ def pack_inputs(
     shadows: bool = False,
     watertight: bool = False,
     accel: str = "auto",
+    deferred_mxu: bool = False,
+    rowskip: bool = True,
 ) -> dict:
     """The whole prologue: the kernel's tensors and launch parameters, as
     keyword arguments of ``render_resident`` / ``render_resident_plain``.
@@ -818,7 +847,12 @@ def pack_inputs(
     or ``"raw_wt"`` under ``shadows``: the epilogue traces them).
     ``accel="mxu"`` returns ``render_batched``'s inputs instead: K13's raw
     rows and the camera rows, with ``nine`` the 9-output mode; ``watertight``
-    raises there, as in the JAX package (:4426-4431)."""
+    raises there, as in the JAX package (:4426-4431).
+
+    ``deferred_mxu`` asks for K11 (``dmxu_route``): where it applies,
+    ``dmxu`` is True and the binned visit keeps its rows unsorted (no
+    ``ranges``); ``rowskip`` (False: the JAX ``MRT_ROWSKIP=0``, for the A/B)
+    turns K11's per-row gate off."""
     check_supported(state, scene, texture_filter, accel)
     route = visit_route(state, scene, height, width, accel)
     mode = output_mode(scene, accel, shadows)
@@ -851,6 +885,9 @@ def pack_inputs(
     if not prep:
         in_kernel_shadows = shadows and mode == "fused"
         geo = ("raw_wt" if watertight else "raw") + ("_shadows" if in_kernel_shadows else "")
+    dmxu, rowskip = dmxu_route(state, scene, height, width, accel=accel, shadows=shadows,
+                               watertight=watertight, deferred_mxu=deferred_mxu,
+                               rowskip=rowskip)
     rows = pack_cuda.pack_rows(state, scene,
                                state.camera_pos[:, 0, :] if prep else None)
     cams = _pack_cams(state, scene, width, height, eff_fov, eff_near, far_t, far_z)
@@ -874,7 +911,7 @@ def pack_inputs(
         bins = band_cluster_bins(cl_lo, cl_hi, cl_valid, state, eff_fov, height, width,
                                  tx * ty, tx, bin_tile, bin_tile, order=order)
         order = None
-        if route.streamed and geo == "prep":
+        if route.streamed and geo == "prep" and not dmxu:
             p = planar_soup_parts(state, scene, what="geo")
             W = p["valid"].shape[0]
             planes = [tuple(x.reshape(W, -1) for x in p[k]) for k in ("v0", "e1", "e2")]
@@ -915,6 +952,8 @@ def pack_inputs(
         bins=bins,
         ranges=ranges,
         bin_tile=bin_tile,
+        dmxu=dmxu,
+        rowskip=rowskip,
     )
 
 
@@ -940,11 +979,13 @@ _ROUTE_LIBRARIES = {INDEX: "render_resident", NONE: "render_none",
                     Route(False, "binned"): "render_resident_binned"}
 
 
-def library_of(route: Route, seeded: bool, texture=None) -> str:
+def library_of(route: Route, seeded: bool, texture=None, dmxu: bool = False) -> str:
     """The csrc/ library of a launch: K9 on K1, K3 + K5 and K4 builds in
     ``render_seeded.cu``, the resident visits' seeded entries in their own
     sources; K1-none and K1's 9-output mode (cold and seeded) in
-    ``render_none.cu``."""
+    ``render_none.cu``; K11 (cold and seeded) in ``render_dmxu.cu``."""
+    if dmxu:
+        return "render_dmxu"
     if texture == "nine":
         return "render_none"
     if seeded and route in (INDEX, Route(True, "ordered"), Route(True, "binned")):
@@ -964,16 +1005,17 @@ def route_of(order=None, spans=None, bins=None, culled: bool = True) -> Route:
 
 
 def variant_name(raster: bool, texture, geo: str = "prep", route: Route = INDEX,
-                 seeded: bool = False) -> str:
+                 seeded: bool = False, dmxu: bool = False) -> str:
     """The name of one instantiation of the render kernel: the route's
     (``render_resident``, K1; ``render_resident_ordered`` / ``_binned``, K3
     and K4 on resident rows; ``render_streamed``, K3 + K5;
-    ``render_binned``, K4), ``_seeded`` (K9), then ``_raw`` (K1-raw),
+    ``render_binned``, K4), ``_dmxu`` (K11 on the streamed route's visit),
+    ``_seeded`` (K9), then ``_raw`` (K1-raw),
     ``_raw_shadows`` (K8), ``_raw_wt`` or ``_raw_wt_shadows`` (K10),
     ``_raster`` (K2) and ``_tex_nearest`` / ``_tex_bilinear`` (K6),
     ``_tex_mip`` (the hand-off, K7's first launch) or ``_nine`` (the
     9-output mode); ``render_none`` is K1-none."""
-    name = _ROUTE_NAMES[route] + ("_seeded" if seeded else "")
+    name = _ROUTE_NAMES[route] + ("_dmxu" if dmxu else "") + ("_seeded" if seeded else "")
     name += "" if geo == "prep" else f"_{geo}"
     name += "_raster" if raster else ""
     if texture == "nine":
@@ -981,9 +1023,10 @@ def variant_name(raster: bool, texture, geo: str = "prep", route: Route = INDEX,
     return name + (f"_tex_{texture}" if texture else "")
 
 
-def _route_variants(*routes, seeded: bool = False, textures=_FUSED_TEX) -> tuple:
-    return tuple(variant_name(r, t, g, route, seeded) for route in routes
-                 for g in _GEO_CODES for r in ((False,) if seeded else (False, True))
+def _route_variants(*routes, seeded: bool = False, textures=_FUSED_TEX,
+                    geos=tuple(_GEO_CODES), dmxu: bool = False) -> tuple:
+    return tuple(variant_name(r, t, g, route, seeded, dmxu) for route in routes
+                 for g in geos for r in ((False,) if seeded else (False, True))
                  for t in textures if t != "nine" or g in _NINE_GEOS)
 
 
@@ -1002,9 +1045,16 @@ NONE_VARIANTS = (_route_variants(NONE, textures=tuple(_TEX_CODES))
                  + _route_variants(NONE, seeded=True, textures=tuple(_TEX_CODES)))
 NINE_VARIANTS = (_route_variants(INDEX, textures=("nine",))
                  + _route_variants(INDEX, seeded=True, textures=("nine",)))
+# csrc/render_dmxu.cu's: K11 on the two streamed visits, on prep and raw rows
+# (it sweeps neither shadows nor the watertight decision), seeded too.
+_DMXU_GEOS = ("prep", "raw")
+_STREAMED_ROUTES = (Route(True, "ordered"), Route(True, "binned"))
+DMXU_VARIANTS = (_route_variants(*_STREAMED_ROUTES, geos=_DMXU_GEOS, dmxu=True)
+                 + _route_variants(*_STREAMED_ROUTES, seeded=True, geos=_DMXU_GEOS,
+                                   dmxu=True))
 RENDER_VARIANTS = (VARIANTS + BINNED_VARIANTS + RESIDENT_ORDERED_VARIANTS
                    + RESIDENT_BINNED_VARIANTS + SEEDED_VARIANTS + NONE_VARIANTS
-                   + NINE_VARIANTS)
+                   + NINE_VARIANTS + DMXU_VARIANTS)
 
 
 def batched_name(raster: bool, nine: bool) -> str:
@@ -1047,7 +1097,7 @@ def _check_mip_table(table, fb_rows) -> None:
 
 def _check_visit(order, spans, num_views: int, n_clusters: int, device, bins=None,
                  ranges=None, bin_tile=None, height=0, width=0, rows=None,
-                 geo="prep") -> None:
+                 geo="prep", dmxu=False) -> None:
     if order is not None and bins is not None:
         raise ValueError("a visit takes order (ordered) or bins (binned), not both")
     if spans is not None and order is None and bins is None:
@@ -1067,8 +1117,9 @@ def _check_visit(order, spans, num_views: int, n_clusters: int, device, bins=Non
             raise ValueError(f"bin_tile must be 16·2^k, got {bin_tile!r}")
         n_bins = -(-height // bin_tile) * -(-width // bin_tile)
         checks.append(("bins", bins, (num_views, n_bins, 1 + n_clusters)))
-        if spans is not None and (ranges is not None) != (geo == "prep"):
-            raise ValueError("the binned route takes ranges with prep rows and only then")
+        if spans is not None and (ranges is not None) != (geo == "prep" and not dmxu):
+            raise ValueError("the binned route takes ranges with prep rows (not under K11) "
+                             "and only then")
         if ranges is not None:
             checks.append(("ranges", ranges, (rows.shape[0], n_clusters,
                                               -(-height // _BAND), 2)))
@@ -1095,9 +1146,15 @@ def _check_seed(seed, rows, shape, raster: bool) -> None:
 def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
                   seg_div, texture, mats, pool, geo, fb_rows=None, order=None,
                   spans=None, bins=None, ranges=None, bin_tile=None, seed=None,
-                  raster=False) -> None:
+                  raster=False, dmxu=False, rowskip=False) -> None:
     if geo not in _GEO_CODES:
         raise ValueError(f"geo must be one of {tuple(_GEO_CODES)}, got {geo!r}")
+    if rowskip and not dmxu:
+        raise ValueError("rowskip is K11's row gate: it needs dmxu")
+    if dmxu and (spans is None or geo not in _DMXU_GEOS or ranges is not None
+                 or texture == "nine"):
+        raise ValueError(f"K11 (dmxu) runs on the streamed visits (spans) on {_DMXU_GEOS} "
+                         "rows, unsorted (no ranges), shaded in the kernel")
     if geo == "prep" and num_cams != 1:
         raise ValueError("the prep rows bake in one camera origin: num_cams must be 1")
     if geo in _SHADOW_GEOS and n_lights > _MAX_SHADOW_LIGHTS:
@@ -1155,7 +1212,7 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
     if height < 1 or width < 1 or seg_div < 1:
         raise ValueError(f"bad height/width/seg_div {height}/{width}/{seg_div}")
     _check_visit(order, spans, W * num_cams, CC, rows.device, bins, ranges, bin_tile,
-                 height, width, rows, geo)
+                 height, width, rows, geo, dmxu)
     _check_seed(seed, rows, (W * num_cams, height, width), raster)
 
 
@@ -1163,7 +1220,7 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
                     height: int, width: int, seg_div: int, raster: bool = False,
                     texture=None, mats=None, pool=None, geo: str = "prep",
                     fb_rows=None, order=None, spans=None, bins=None, ranges=None,
-                    bin_tile=None, seed=None):
+                    bin_tile=None, seed=None, dmxu=False, rowskip=False):
     """The render kernel. Returns ``(depth f32, segmask i32, rgb i32-packed)``,
     each ``[W·C, height, width]``, in their final masked form: depth is t
     (raster: camera-plane z), segmask idx // seg_div (raster: -1). With
@@ -1192,7 +1249,12 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
     ``ranges`` the streamed route's (K4, ``csrc/render_binned.cu``);
     without either, every cluster in index order (K1). ``seed`` (K9, f32
     ``[W·C, height, width]`` or None): each pixel's search starts at
-    ``min(seed, far)``, so a hit at or beyond its seed is a miss.
+    ``min(seed, far)``, so a hit at or beyond its seed is a miss. ``dmxu``
+    (the streamed visits, ``pack_inputs(deferred_mxu=True)``): K11
+    (``csrc/render_dmxu.cu``), every slot of a visited cluster swept and its
+    first minimum merged, with ``rowskip`` each warp's two pixel rows gated
+    on the cluster's row span; on raw rows its D, A, Q and t_num formed per
+    view, so its plain version sweeps those (``render_resident_plain``).
 
     Tensors on the card launch the route's kernel on their device's current
     stream; tensors on the CPU run ``render_resident_plain``. Each launch
@@ -1200,11 +1262,11 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
     ``render_resident.variant_launches``."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
                   seg_div, texture, mats, pool, geo, fb_rows, order, spans, bins,
-                  ranges, bin_tile, seed, raster)
+                  ranges, bin_tile, seed, raster, dmxu, rowskip)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height,
               width=width, seg_div=seg_div, raster=raster, geo=geo,
               order=order, spans=spans, bins=bins, ranges=ranges, bin_tile=bin_tile,
-              seed=seed)
+              seed=seed, dmxu=dmxu, rowskip=rowskip)
     if rows.device.type == "cpu":
         return render_resident_plain(rows, clusters, cams, texture=texture,
                                      mats=mats, pool=pool, fb_rows=fb_rows, **kw)
@@ -1220,7 +1282,7 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
 def render_handoff(rows, clusters, cams, *, num_cams: int, n_lights: int,
                    height: int, width: int, seg_div: int, raster: bool = False,
                    geo: str = "prep", order=None, spans=None, bins=None, ranges=None,
-                   bin_tile=None, seed=None):
+                   bin_tile=None, seed=None, dmxu=False, rowskip=False):
     """K7's first launch: the render kernel in its mip hand-off mode.
     Returns ``(depth, segmask, code, handoff)``: depth and segmask as
     ``render_resident`` writes them, ``code`` i32 ``[W·C, H, Wd]`` (the
@@ -1231,11 +1293,11 @@ def render_handoff(rows, clusters, cams, *, num_cams: int, n_lights: int,
     on the CPU."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
                   seg_div, None, None, None, geo, None, order, spans, bins, ranges,
-                  bin_tile, seed, raster)
+                  bin_tile, seed, raster, dmxu, rowskip)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height,
               width=width, seg_div=seg_div, raster=raster, geo=geo,
               order=order, spans=spans, bins=bins, ranges=ranges, bin_tile=bin_tile,
-              seed=seed)
+              seed=seed, dmxu=dmxu, rowskip=rowskip)
     if rows.device.type == "cpu":
         return render_handoff_plain(rows, clusters, cams, **kw)
     return _launch_render(rows, clusters, cams, texture="mip", **kw)
@@ -1244,7 +1306,7 @@ def render_handoff(rows, clusters, cams, *, num_cams: int, n_lights: int,
 def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
                    seg_div, raster, texture, geo, mats=None, pool=None,
                    order=None, spans=None, bins=None, ranges=None, bin_tile=None,
-                   seed=None):
+                   seed=None, dmxu=False, rowskip=False):
     if rows.device.type != "cuda":
         raise ValueError(f"render_resident runs on cuda or cpu, not {rows.device}")
     W, _, S = rows.shape
@@ -1294,8 +1356,11 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     bin_args = [0, 0, 0] if bins is None else [
         -(-width // bin_tile), bin_tile.bit_length() - _TILE.bit_length(), int(bins.shape[1])]
     n_bands = -(-height // _BAND)
-    kernel = library_of(route, seed is not None, texture)
-    if kernel == "render_none":  # K1-none, and K1's 9-output mode
+    kernel = library_of(route, seed is not None, texture, dmxu)
+    if kernel == "render_dmxu":  # K11 on either streamed visit, cold or seeded
+        visit = [ptr(order), spans.data_ptr(), ptr(bins), ptr(seed)]
+        tail = bin_args + [int(rowskip), stream]
+    elif kernel == "render_none":  # K1-none, and K1's 9-output mode
         visit, tail = [ptr(seed)], [int(clusters is not None), stream]
     elif kernel == "render_seeded":  # K9 on K1, K3 + K5 and K4
         visit = [ptr(order), ptr(spans), ptr(bins), ptr(ranges), seed.data_ptr()]
@@ -1316,7 +1381,7 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
         raise RuntimeError(f"{kernel} launch failed: {launch.error_string(err)}")
     render_resident.launches += 1
     render_resident.variant_launches[
-        variant_name(raster, texture, geo, route, seed is not None)] += 1
+        variant_name(raster, texture, geo, route, seed is not None, dmxu)] += 1
     if texture == "nine":  # t, z, idx, mat, uvx, uvy, nx, ny, nz
         return (depth, handoff[0], seg, code, *handoff[1:])
     return (depth, seg, code, handoff) if mip else (depth, seg, rgb)
@@ -1508,7 +1573,8 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
                           seg_div: int, raster: bool = False, texture=None,
                           mats=None, pool=None, geo: str = "prep",
                           fb_rows=None, order=None, spans=None, bins=None,
-                          ranges=None, bin_tile=None, seed=None):
+                          ranges=None, bin_tile=None, seed=None, dmxu=False,
+                          rowskip=False):
     """The kernel in torch ops, on any device: the same expressions in the
     same order, with no cluster cull (the culls only skip work). A loop over
     the S triangles in ascending chunks carries (best_t, best_idx) — and on
@@ -1521,10 +1587,15 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
     ``render_handoff_plain``, then ``shade_mip_plain``. It is the plain
     version of every route: the visit orders, bins and culls only skip
     work, and exact ties go to the lower index on all. Row-sorted rows (the
-    binned route's ``ranges``) are put back in triangle order first."""
-    del clusters, order, spans, bins, bin_tile  # the plain version sweeps every triangle
+    binned route's ``ranges``) are put back in triangle order first. K11
+    (``dmxu``) on raw rows sweeps each view's D, A, Q and t_num
+    (``dmxu_rows``), as the kernel forms them; its row gate (``rowskip``)
+    only skips work."""
+    del clusters, order, spans, bins, bin_tile, rowskip  # the plain version sweeps every triangle
     if ranges is not None:
         rows = _index_order_rows(rows)
+    if dmxu and geo == "raw":
+        rows, num_cams, geo = dmxu_rows(rows, cams, num_cams), 1, "prep"
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height, width=width,
               seg_div=seg_div, raster=raster, geo=geo, seed=seed)
     if fb_rows is None:
@@ -1539,14 +1610,28 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
 def render_handoff_plain(rows, clusters, cams, *, num_cams: int, n_lights: int,
                          height: int, width: int, seg_div: int,
                          raster: bool = False, geo: str = "prep", order=None,
-                         spans=None, bins=None, ranges=None, bin_tile=None, seed=None):
+                         spans=None, bins=None, ranges=None, bin_tile=None, seed=None,
+                         dmxu=False, rowskip=False):
     """``render_handoff`` in torch ops, on any device."""
-    del clusters, order, spans, bins, bin_tile  # the plain version sweeps every triangle
+    del clusters, order, spans, bins, bin_tile, rowskip  # the plain version sweeps every triangle
     if ranges is not None:
         rows = _index_order_rows(rows)
+    if dmxu and geo == "raw":
+        rows, num_cams, geo = dmxu_rows(rows, cams, num_cams), 1, "prep"
     return _render_plain(rows, cams, num_cams=num_cams, n_lights=n_lights,
                          height=height, width=width, seg_div=seg_div,
                          raster=raster, texture="mip", geo=geo, seed=seed)
+
+
+def dmxu_rows(rows: torch.Tensor, cams: torch.Tensor, num_cams: int) -> torch.Tensor:
+    """Raw rows ``[W, 40, S]`` → each view's rows ``[W·C, 40, S]`` with rows
+    0-9 replaced by K11's per-view D = e2 × e1, A = e2 × tv, Q = tv × e1 and
+    t_num = e2 · Q (tv = origin − v0; the JAX dmxu prepass, :1876-1903, and
+    K12's, ``batched_prepass``): on these the prep sweep is K11's raw sweep,
+    term for term."""
+    rows_v = rows[torch.arange(cams.shape[0], device=rows.device) // num_cams]
+    pre = torch.stack(batched_prepass(rows_v, cams), dim=1)
+    return torch.cat([pre, rows_v[:, _N_PREP_ROWS:]], dim=1)
 
 
 def _plain_chunks(S: int, rays: int):
@@ -1884,7 +1969,8 @@ def render_core(state: SimState, scene: SceneData, *, height: int, width: int,
                 near: float = 0.1, far: float = 1000.0,
                 fov_y_degrees: float = 90.0, raster: bool = False,
                 texture_filter: str = "nearest", shadows: bool = False,
-                watertight: bool = False, accel: str = "auto", seed_t=None) -> tuple:
+                watertight: bool = False, accel: str = "auto", seed_t=None,
+                deferred_mxu: bool = False) -> tuple:
     """Prologue + kernel (or its plain version on the CPU). Returns the
     kernel's outputs, each ``[W·C, height, width]``: ``(depth, segmask,
     rgb_packed)`` in their final masked form on the fused routes,
@@ -1896,13 +1982,15 @@ def render_core(state: SimState, scene: SceneData, *, height: int, width: int,
     upper bound on the hit t, ``[W, C, height, width]`` (or any shape of as
     many values), each pixel's search window ``min(seed, far)``: a pixel
     whose nearest hit lies at or beyond its seed renders as a miss; with
-    ``accel="mxu"`` a ``ValueError``."""
+    ``accel="mxu"`` a ``ValueError``. ``deferred_mxu``: K11 on the streamed
+    visits where the JAX package's ``MRT_DEFERRED_MXU=1`` takes it
+    (``dmxu_route``), ignored elsewhere; the same frames."""
     if seed_t is not None:
         check_seedable(accel)
     kw = pack_inputs(state, scene, height=height, width=width, near=near,
                      far=far, fov_y_degrees=fov_y_degrees, raster=raster,
                      texture_filter=texture_filter, shadows=shadows,
-                     watertight=watertight, accel=accel)
+                     watertight=watertight, accel=accel, deferred_mxu=deferred_mxu)
     if accel == "mxu":
         return render_batched(**kw)
     views = int(kw["cams"].shape[0])
@@ -1971,16 +2059,19 @@ def raytrace(state: SimState, scene: SceneData, *, height: int, width: int,
              near: float = 0.1, far: float = 1000.0,
              fov_y_degrees: float = 90.0,
              texture_filter: str = "nearest", shadows: bool = False,
-             watertight: bool = False, accel: str = "auto", seed_t=None) -> Frames:
+             watertight: bool = False, accel: str = "auto", seed_t=None,
+             deferred_mxu: bool = False) -> Frames:
     """Render every (world, camera) view → padded ``Frames``; invalid
     camera slots render black/0/-1; ``shadows`` casts one shadow ray per
     (pixel, light); ``watertight`` decides hits by the crack-free Woop test
-    (``ops/watertight.py``); ``accel`` and ``seed_t`` as in ``render_core``.
+    (``ops/watertight.py``); ``accel``, ``seed_t`` and ``deferred_mxu`` as
+    in ``render_core``.
     The counterpart of ``raytrace_pallas.raytrace`` (:5043-5064) /
     ``raytrace_ref.raytrace``."""
     return frames_from_core(state, *render_core(
         state, scene, height=height, width=width, near=near, far=far,
         fov_y_degrees=fov_y_degrees, texture_filter=texture_filter,
         shadows=shadows, watertight=watertight, accel=accel, seed_t=seed_t,
+        deferred_mxu=deferred_mxu,
     ), scene=scene, far=far, fov_y_degrees=fov_y_degrees, texture_filter=texture_filter,
         shadows=shadows)

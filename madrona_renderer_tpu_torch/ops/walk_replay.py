@@ -17,7 +17,12 @@ rays, including those past the image edge, as the kernel's do; with a seed
 (K9) those start at best t 0 and the others at min(seed, far).
 ``binned_walk`` replays K4's walk over its bins, and ``resident_walk`` the
 resident route's: K1's index order, and K3 and K4 on resident rows (the
-ordered and binned walks with no row gate).
+ordered and binned walks with no row gate). ``dmxu_walk`` replays K11's
+(``csrc/render_dmxu.cu``): either streamed walk, every slot of a visited
+cluster tested (on raw rows the view's D, A, Q and t_num), each warp's two
+pixel rows gated on the cluster's row span under ``rowskip``, the cluster's
+first minimum merged with the lower-index tie rule; it counts the
+(triangle, pixel) tests it makes.
 """
 
 from __future__ import annotations
@@ -62,15 +67,25 @@ def _rows(x, sl, V):
     return x[sl] if x.shape[0] == V else x
 
 
-def _cluster_tests(rows_v, c, cs, cnt, dirs, t_lo, origin, shear=None):
+def _dmxu_tri(tri, cams):
+    """K11's raw sweep: a gathered slab of raw rows ``[n, 10, cs]`` → the
+    view's D, A, Q, t_num rows (``rc.batched_prepass`` with each view's
+    camera origin, ``cams [n, cols]``), swept by the prep test."""
+    return torch.stack(rc.batched_prepass(tri, cams), dim=1)
+
+
+def _cluster_tests(rows_v, c, cs, cnt, dirs, t_lo, origin, shear=None, cams=None):
     """Tests of each view's cluster ``c`` [V] (its valid prefix ``cnt``)
     against the blocks' rays ``dirs`` [V, nt, 1, 256] (with ``shear``, the
-    watertight decision): (ok, t) as [V, nt, cs, 256]."""
+    watertight decision; with ``cams``, K11's per-view rows of raw rows):
+    (ok, t) as [V, nt, cs, 256]."""
     V = rows_v.shape[0]
     dev = rows_v.device
     ks = torch.arange(cs, device=dev)
     idx = (c[:, None] * cs + ks)[:, None, :].expand(V, rc._N_PREP_ROWS, cs)
     tri = rows_v[:, :rc._N_PREP_ROWS].gather(2, idx)  # [V, 10, cs]
+    if cams is not None:
+        tri, origin = _dmxu_tri(tri, cams), None
     ok, t, _, _ = rc.plain_triangle_test(*dirs, tri[:, :, None, :, None], t_lo, None,
                                          origin, shear)
     return ok & (ks[None, :] < cnt[:, None])[:, None, :, None], t
@@ -127,11 +142,41 @@ def resident_walk(rows, clusters, cams, order=None, bins=None, *, bin_tile=None,
     return _walk(rows, clusters, cams, order, None, **kw)
 
 
+def dmxu_walk(rows, clusters, cams, order=None, spans=None, bins=None, *, bin_tile=None,
+              num_cams: int, n_lights: int, height: int, width: int, seg_div: int,
+              raster: bool = False, geo: str = "prep", seed=None, rowskip: bool = False,
+              **_):
+    """Replay K11's walk on ``pack_inputs(deferred_mxu=True)``'s tensors: with
+    ``bins`` K4's walk (``binned_walk``'s gates, no ranges), else the ordered
+    walk (``streamed_walk``'s gates); a visited cluster's every slot tested
+    against every pixel of the block that its row gate keeps (``rowskip``:
+    a warp's two rows against the cluster's span), the cluster's first
+    minimum merged with the lower-index tie rule. On raw rows the tests take
+    each view's D, A, Q and t_num, as the kernel forms them. Returns what
+    ``streamed_walk`` (``binned_walk``) returns, ``triangle_visits`` every
+    slot of each visit, and ``pixel_tests``: the (triangle, pixel) tests it
+    makes."""
+    kw = dict(num_cams=num_cams, n_lights=n_lights, height=height, width=width,
+              seg_div=seg_div, raster=raster, geo=geo, seed=seed, dmxu=True,
+              rowskip=rowskip)
+    if bins is not None:
+        return binned_walk(rows, clusters, cams, bins, spans, bin_tile=bin_tile, **kw)
+    return _walk(rows, clusters, cams, order, spans, **kw)
+
+
+def _warp_rows(row0):
+    """The first image row of each thread's warp (two rows of the 16×16
+    block a warp): ``[..., 256]`` from the blocks' first rows ``row0``."""
+    tid = torch.arange(_T * _T, device=row0.device)
+    return row0[..., None] + tid // (2 * _T) * 2
+
+
 def _walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights: int,
           height: int, width: int, seg_div: int, raster: bool, geo: str, seed,
-          index: bool = False):
+          index: bool = False, dmxu: bool = False, rowskip: bool = False):
     """The ordered walk along ``order`` (with ``spans`` the row gate; with
-    ``index`` K1's sweep in index order) → ``streamed_walk``'s dict."""
+    ``index`` K1's sweep in index order; with ``dmxu`` K11's sweep) →
+    ``streamed_walk``'s dict."""
     V = cams.shape[0]
     W, _, S = rows.shape
     CC = clusters.shape[2]
@@ -164,14 +209,18 @@ def _walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights: int,
     shear = rc.wt.shear_select(*dirs) if geo in rc._WATERTIGHT_GEOS else None
     t_lo4 = t_lo[:, :, None] if raster else near[..., None]
     origin4 = tuple(x[..., None] for x in o) if raw else None
+    pre_cams = cams if dmxu and raw else None  # K11's per-view rows
     best_t = _best_t0(far, seed, height, width, hp, wp, blocks)
     best_idx = torch.full_like(best_t, -1, dtype=torch.int64)
     done = torch.zeros((V, nt), dtype=torch.bool, device=dev)
     row0 = (torch.arange(nt, device=dev) // tx * _T)[None, :]
+    wrow = _warp_rows(row0)  # [1, nt, 256]
     streamed = torch.zeros((W, CC), dtype=torch.int64, device=dev)  # visits per cluster
     ks = torch.arange(cs, device=dev)[None, None, :, None]
     n = dict(gated=0, slab_tests=0, cluster_visits=0, triangle_visits=0,
              shadow_cluster_visits=0, shadow_triangle_visits=0)
+    if dmxu:
+        n["pixel_tests"] = 0
     for p in range(CC):
         active = ~done
         if not bool(active.any()):
@@ -204,17 +253,22 @@ def _walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights: int,
             visit = visit & valid
         if not bool(visit.any()):
             continue
-        cnt = g[:, 7].long()
+        cnt = torch.full_like(g[:, 7], cs).long() if dmxu else g[:, 7].long()
         n["cluster_visits"] += int(visit.sum())
         n["triangle_visits"] += int((visit.sum(1) * cnt).sum())
         streamed.index_put_((world, c), visit.sum(1), accumulate=True)
+        sweep = visit[:, :, None]  # [V, nt, 1 or 256]: the threads that sweep
+        if rowskip:  # K11's row gate: a warp's two rows against the span
+            sweep = sweep & ~((lo[:, :, None] > wrow + 1) | (hi[:, :, None] < wrow))
+        if dmxu:
+            n["pixel_tests"] += int(sweep.expand(V, nt, _T * _T).sum()) * cs
         m = torch.empty_like(best_t)
         first = torch.empty_like(best_idx)
         for sl in _view_chunks(V, nt * cs * _T * _T):
             ok, t = _cluster_tests(rows_v[sl], c[sl], cs, cnt[sl], _rows(dirs, sl, V),
                                    _rows(t_lo4, sl, V), _rows(origin4, sl, V),
-                                   _rows(shear, sl, V))
-            t = torch.where(ok & visit[sl, :, None, None], t, torch.inf)
+                                   _rows(shear, sl, V), _rows(pre_cams, sl, V))
+            t = torch.where(ok & sweep[sl, :, None, :], t, torch.inf)
             m[sl] = t.amin(2)
             first[sl] = torch.where(t == m[sl][:, :, None], ks, cs).amin(2)
         gi = c[:, None, None] * cs + first
@@ -231,7 +285,7 @@ def _walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights: int,
 def binned_walk(rows, clusters, cams, bins, spans, ranges=None, *, bin_tile: int,
                 num_cams: int, n_lights: int, height: int, width: int, seg_div: int,
                 raster: bool = False, geo: str = "prep", chunk: int = 2048, seed=None,
-                **_):
+                dmxu: bool = False, rowskip: bool = False, **_):
     """Replay the binned kernel's walk (K4, ``csrc/render_binned.cu``) on
     ``pack_inputs``'s tensors (``seed`` as in ``streamed_walk``): each 16x16
     block walks the bin of the ``bin_tile`` square it lies in, front to
@@ -241,7 +295,8 @@ def binned_walk(rows, clusters, cams, bins, spans, ranges=None, *, bin_tile: int
     the block) then sweeps the sorted lanes [lo, hi) of its image band where
     the cluster's span touches the band (a band below the image sweeps
     nothing and starts its best t at 0), taking exact ties by the original
-    index in row 10; without, the whole valid prefix. Returns what ``streamed_walk`` returns, with
+    index in row 10; without, the whole valid prefix (``dmxu``: K11's
+    sweep, as ``dmxu_walk`` says). Returns what ``streamed_walk`` returns, with
     ``triangle_visits`` counted per band on prep rows (``sweep_threads``:
     the threads that test each, 128 on prep rows, 256 on raw rows), and
     ``stops`` (blocks that stopped at the early exit), ``bin_entries`` (the
@@ -299,6 +354,9 @@ def binned_walk(rows, clusters, cams, bins, spans, ranges=None, *, bin_tile: int
     n = dict(gated=0, slab_tests=0, cluster_visits=0, triangle_visits=0,
              shadow_cluster_visits=0, shadow_triangle_visits=0, stops=0, band_reads=0,
              sweep_threads=_T * rc._BAND if ranged else _T * _T)
+    if dmxu:
+        n["pixel_tests"] = 0
+    wrow = _warp_rows(row0[0])  # [nt, 256]
     reached = torch.zeros((V, nt), dtype=torch.int64, device=dev)
     for p in range(int(count.max()) if count.numel() else 0):
         active = ~done & (p < count)
@@ -347,12 +405,23 @@ def binned_walk(rows, clusters, cams, bins, spans, ranges=None, *, bin_tile: int
                 n["triangle_visits"] += int(per_band.sum())
                 n["band_reads"] += int(touch[:, :: _T * rc._BAND].sum())
                 gi = tri[:, rc._N_PREP_ROWS].long()  # [m, cs]
+            elif dmxu:  # K11: every slot, on the threads its row gate keeps
+                keep = torch.ones((len(v), _T * _T), dtype=torch.bool, device=dev)
+                if rowskip:
+                    wr = wrow[b]  # [m, 256]
+                    keep = ~((s_lo[v, b][:, None] > wr + 1) | (s_hi[v, b][:, None] < wr))
+                sweep = keep[:, None, :]
+                n["triangle_visits"] += len(v) * cs
+                n["pixel_tests"] += int(keep.sum()) * cs
+                gi = lane_g
             else:
                 cnt = cl[v, 7, cv].long()
                 sweep = (lanes[None, :] < cnt[:, None])[:, :, None]
                 n["triangle_visits"] += int(cnt.sum())
                 gi = lane_g
             origin = tuple(x[v] for x in o) if raw else None  # [m, 1, 1]
+            if dmxu and raw:  # K11's per-view rows
+                tri, origin = _dmxu_tri(tri[:, :rc._N_PREP_ROWS], cams[v]), None
             shear = rc.wt.shear_select(*dirs) if wt else None
             ok, t, _, _ = rc.plain_triangle_test(*dirs, tri[:, :rc._N_PREP_ROWS, :, None],
                                                  t_lo[v, b][:, None, :], None, origin, shear)

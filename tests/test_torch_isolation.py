@@ -3,8 +3,9 @@
 The port (and chip_smoke.py and port_tools/) imports neither JAX nor any
 module of the JAX package; it renders on the CPU (raytraced, textured,
 mip-mapped, rasterized, a streamed big mesh with its walk replayed, the
-binned terrain with its binned walk replayed, watertight and supersampled) in
-a process where both are unimportable; a CPU render
+binned terrain with its binned walk replayed, and with K11's, watertight and
+supersampled; the ladder's probes' plain versions) in a process where both
+are unimportable; a CPU render
 launches no kernel; every kernel source under csrc/ has its launch
 signature, so the build covers it.
 """
@@ -108,6 +109,16 @@ assert no.depth_tensor().numpy().shape == (2, 32, 32, 1)
 nine = m.Manager(demo_config(2, m.RenderMode.Raytracer, 32, 32, textured=True, tex_size=144,
                              mipmaps=False, shadows=True, device="cpu"))
 assert raytrace_cuda.pack_inputs(nine.state, nine.scene, height=32, width=32)["texture"] == "nine"
+dm = m.Manager(binned_terrain_config(2, 32, 32, grid=40, accel="binned", deferred_mxu=True,
+                                     device="cpu"))
+kw = raytrace_cuda.pack_inputs(dm.state, dm.scene, height=32, width=32, accel="binned",
+                               deferred_mxu=True)
+assert kw["dmxu"] and kw["ranges"] is None
+assert walk_replay.dmxu_walk(**kw)["segmask"].equal(dm.segmask_tensor().to_torch())
+from madrona_renderer_tpu_torch import ladder
+probes = ladder.probe_inputs("cpu")
+assert float(ladder.fori_smem(*probes["ladder_fori_smem"])[0, 0, 0]) == 496.0
+assert sum(f.launches for f in ladder.WRAPPERS.values()) == 0
 assert raytrace_cuda.render_resident.launches == 0
 assert raytrace_cuda.render_batched.launches == 0
 assert raytrace_cuda.shade_mip.launches == 0
@@ -188,6 +199,11 @@ def test_cuda_tensor_never_falls_back():
         with pytest.raises(ValueError, match="cuda or cpu"):
             raytrace_cuda.render_batched(rows, cams, num_cams=1, n_lights=1, height=8,
                                          width=8, nine=nine)
+    # K11 on either streamed visit.
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        raytrace_cuda.render_resident(rows, clusters, cams, num_cams=1, n_lights=1,
+                                      height=8, width=8, seg_div=8, order=order,
+                                      spans=spans, dmxu=True)
 
 
 def test_every_kernel_source_has_a_signature():
@@ -196,10 +212,11 @@ def test_every_kernel_source_has_a_signature():
     from madrona_renderer_tpu_torch import _build
 
     assert set(_build.sources()) == set(_build.SIGNATURES)
-    assert "shade_mip" in _build.sources()
+    assert "shade_mip" in _build.sources() and "ladder" in _build.sources()
+    assert len(_build.symbols("ladder")) == 3
     for name in _build.sources():
-        symbol = _build.SIGNATURES[name][0]
-        assert f"int {symbol}(" in (_build.CSRC / f"{name}.cu").read_text()
+        for symbol in _build.symbols(name):
+            assert f"int {symbol}(" in (_build.CSRC / f"{name}.cu").read_text()
 
 
 def test_shade_mip_never_falls_back():

@@ -67,7 +67,8 @@ def test_wheel_holds_every_kernel_source(tmp_path):
     (wheel,) = (tmp_path / "dist").glob("*.whl")
     names = set(zipfile.ZipFile(wheel).namelist())
     kernels = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert {"render_none.cu", "render_batched.cu", "render_resident.cu"} <= set(kernels)
+    assert {"render_none.cu", "render_batched.cu", "render_resident.cu", "render_dmxu.cu",
+            "ladder.cu"} <= set(kernels)
     missing = [k for k in kernels if f"madrona_renderer_tpu_torch/csrc/{k}" not in names]
     assert not missing, f"the wheel lacks {missing}"
 
