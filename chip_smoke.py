@@ -7,12 +7,13 @@ printed as JSON lines:
 
   1. env     — Python/torch/CUDA versions, the card's name and power limit;
   2. build   — every kernel under madrona_renderer_tpu_torch/csrc, one nvcc
-               per source, all started together; then the GPU health
-               ladder (madrona_renderer_tpu_torch/ladder.py, the port of
-               tools/tpu_ladder.py: a torch op, the probes L1-L3, the quad
-               scene, the demo fleet, 256-world steps), each rung in a
-               process of its own, a ``ladder`` line per rung, and L1-L3
-               on the tool's inputs against their plain versions here;
+               per source, all started together; the GPU health ladder
+               (madrona_renderer_tpu_torch/ladder.py, the port of
+               tools/tpu_ladder.py: a torch op and the probes L1-L3 beside
+               the build, then the quad scene, the demo fleet and 256-world
+               steps), each rung in a process of its own, a ``ladder`` line
+               per rung, and L1-L3 on the tool's inputs against their plain
+               versions here;
   3. kernel_vs_plain — each kernel against its plain PyTorch version on the
                same CUDA inputs at 64 worlds: the fused pack K13 in both
                layouts (``pack_rows`` prep, ``pack_rows_raw``, bitwise) and
@@ -73,7 +74,20 @@ printed as JSON lines:
                route's kernel (``dmxu_vs_k5`` / ``dmxu_vs_k4``), with its
                row gate on the varied terrain at 64x256 (one and two
                cameras; ``rowskip_off`` lines), and on the 128x128 terrain;
-  4. paths   — the twenty-two paths of the port, each through MadronaRenderer and
+               the 9-output mode (``*_nine``) of every culled visit, bitwise
+               in all nine planes: K3 and K4 on resident rows on the 27-grid
+               terrain textured with the 256x256 checker baked without mips
+               (``terrain27_64_tex256``; the epilogue's shadows on their
+               outputs, ``nine_shadows`` lines), K3 + K5, K4 and K11 on the
+               72-grid one (``bigmesh64_tex256``; K11 on raw rows too), each
+               seeded too in the raytrace conventions, and K4 and K11's
+               binned visit, its row gate on and off, on 4 worlds of the
+               textured binned terrain at 128x128 (``terrain4_128_tex256``);
+               a mode's texture filters share its inputs and seed, so their
+               variants share one plain sweep (raytrace_cuda.plain_hits),
+               and inputs equal in geometry, cameras, visit and seed share
+               the walk replayed for the timing lines' bounds;
+  4. paths   — the twenty-four paths of the port, each through MadronaRenderer and
                stepped with a position mutation through the exported tensor
                between steps, with every launch count set to 0 just before
                and read just after:
@@ -181,6 +195,21 @@ printed as JSON lines:
                                   every step's state through K5 bitwise
                                   (``dmxu_vs_k5``) and timed, bigmesh_512w's
                                   steps its A/B;
+                 bigmesh_512w_tex256 bigmesh_512w with the terrain textured
+                                  by the 256x256 checker baked without mips
+                                  (``mipmaps=False``): K3 + K5's 9-output
+                                  mode and the planar epilogue; the same
+                                  steps with deferred_mxu=True (K11's 9-output
+                                  mode), each step's state through both at the
+                                  kernel entry, the nine planes bitwise;
+                 resident_terrain_4096w_64_tex256 resident_terrain_4096w_64
+                                  textured the same way: K3's 9-output mode on
+                                  resident rows; each step's state through K4
+                                  on resident rows (accel="binned") too;
+               these two with the kernel and the epilogue on the last step's
+               inputs equal to the exports, the device time, idle share and
+               epilogue time, and both visits against the plain version at
+               full size;
                then, on each path's last inputs at full size, the kernels
                (under SSAA, filtered down) against the exported frames and
                their plain versions (and
@@ -229,7 +258,9 @@ printed as JSON lines:
                walk_replay.dmxu_walk's (triangle, pixel) tests, K11 at 512x512
                with and without its row gate and with its row gate on the
                ordered walk at 64x256 in lines of their own, and L1-L3 on
-               the tool's inputs beside their library calls;
+               the tool's inputs beside their library calls; the 9-output
+               entries of the culled visits on their path's full-size inputs
+               or the inputs of their first check;
 
 then the nvidia-smi line, the ``kernels`` summary line and the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -272,6 +303,9 @@ TERRAIN_CHECK_WORLDS = 4
 TERRAIN_PATHS = (("binned_32w_128", 128, "auto"), ("binned_32w_256", 256, "auto"),
                  ("terrain_32w_512", 512, "binned"))
 MIP_FILTERS = ("nearest", "bilinear", "trilinear")
+# The light of the 9-output scenes' shadow checks (the epilogue's
+# compute_lit): the cube's shadow falls on the terrain.
+NINE_SUN = [((0.5, 1.0, -1.0), (1.0, 1.0, 1.0))]
 KERNEL_REPS = 50
 SMALL_WORLDS = 64
 SSAA = 2
@@ -948,11 +982,10 @@ def k5_bound(kw: dict, walk: dict) -> tuple:
     nbytes = (walk["clusters_streamed"] * (K1_GEO_ROWS[geo] + ranged) * size * 4
               + walk["winners"] * (K1_ATTR_ROWS[tex] + (9 if geo != "raw" else 0)) * 4
               + kw["clusters"].numel() * 4 + visit_bytes + kw["cams"].numel() * 4
-              + pixels * (K1_OUT_BYTES["mip" if tex == "mip" else "rgb"] + 4 * seeded))
+              + pixels * (out_bytes(tex) + 4 * seeded))
     if tex in ("nearest", "bilinear"):
         nbytes += kw["mats"].numel() * 4 + kw["pool"].numel() * 4
-    per_thread = (K1_OPS_FIXED[geo] + K1_OPS_PER_LIGHT * lights + K1_OPS_TEX[tex]
-                  + (K1_OPS_RASTER if kw["raster"] else 0) + K9_OPS_SEED * seeded)
+    per_thread = per_thread_ops(kw, geo, tex)
     # The positions gated and each block's last (binned: the stops counted).
     reached = walk["gated"] + (walk["stops"] if binned else blocks)
     per_triangle = (K4_OPS_PER_TRIANGLE if binned else K5_OPS_PER_TRIANGLE)[geo]
@@ -996,11 +1029,10 @@ def dmxu_bound(kw: dict, walk: dict) -> tuple:
     nbytes = (walk["clusters_streamed"] * K1_GEO_ROWS[geo] * size * 4
               + walk["winners"] * (K1_ATTR_ROWS[tex] + (9 if geo != "raw" else 0)) * 4
               + kw["clusters"].numel() * 4 + visit_bytes + kw["cams"].numel() * 4
-              + pixels * (K1_OUT_BYTES["mip" if tex == "mip" else "rgb"] + 4 * seeded))
+              + pixels * (out_bytes(tex) + 4 * seeded))
     if tex in ("nearest", "bilinear"):
         nbytes += kw["mats"].numel() * 4 + kw["pool"].numel() * 4
-    per_thread = (K1_OPS_FIXED[geo] + K1_OPS_PER_LIGHT * kw["n_lights"] + K1_OPS_TEX[tex]
-                  + (K1_OPS_RASTER if kw["raster"] else 0) + K9_OPS_SEED * seeded)
+    per_thread = per_thread_ops(kw, geo, tex)
     reached = walk["gated"] + (walk["stops"] if binned else blocks)
     ops = (threads * per_thread
            + reached * (K5_OPS_APPROACH + K1_THREADS_PER_BLOCK * K5_OPS_EXIT)
@@ -1219,12 +1251,17 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
+    shade_filters = ("nearest", "bilinear")
     smi = nvidia_smi()
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card, "nvidia_smi": smi,
           "device_count": torch.cuda.device_count()})
 
-    # Every library at once, one nvcc each (as _build.build_all), each timed.
+    # Every library at once, one nvcc each (as _build.build_all), each timed;
+    # beside the build, the GPU health ladder's first rungs (a torch op and
+    # the probes L1-L3, which need csrc/ladder.cu only, built first by its
+    # rung processes or here, whichever comes first: a build publishes
+    # atomically), each in a process of its own.
     t0 = time.perf_counter()
     build_s = {}
 
@@ -1233,9 +1270,15 @@ def main() -> int:
         _build.build(name)
         build_s[name] = time.perf_counter() - start
 
-    with ThreadPoolExecutor(len(_build.sources())) as pool:
-        list(pool.map(timed_build, _build.sources()))
-    emit({"phase": "build", "kernels": sorted(build_s), "seconds": time.perf_counter() - t0,
+    with ThreadPoolExecutor(len(_build.sources()) + 1) as pool:
+        builds = [pool.submit(timed_build, name) for name in _build.sources()]
+        early = pool.submit(ladder.run_ladder, out=lambda line: None,
+                            rungs=ladder.RUNGS[:4])
+        for b in builds:
+            b.result()
+        build_end = time.perf_counter() - t0
+        ladder_runs = early.result()
+    emit({"phase": "build", "kernels": sorted(build_s), "seconds": build_end,
           "seconds_each": build_s})
 
     # Per kernel name: the largest error against its plain version.
@@ -1244,10 +1287,12 @@ def main() -> int:
     max_err = {name: 0.0 for name in kernel_names + ladder.KERNELS}
 
     # ---- 2b. the GPU health ladder (madrona_renderer_tpu_torch/ladder.py):
-    # every rung in a process of its own, after the build so that its rungs
-    # find the libraries built; a failed or hung rung fails the run. The
-    # probes' launch counts are their rung processes' (each starts at 0).
-    ladder_runs = ladder.run_ladder(out=lambda line: None)
+    # every rung in a process of its own, its render rungs after the build
+    # so that they find the libraries built; a failed or hung rung fails the
+    # run. The probes' launch counts are their rung processes' (each starts
+    # at 0).
+    if len(ladder_runs) == 4 and all(run["ok"] for run in ladder_runs):
+        ladder_runs += ladder.run_ladder(out=lambda line: None, rungs=ladder.RUNGS[4:])
     for run in ladder_runs:
         emit({"phase": "ladder", **run})
     if len(ladder_runs) != len(ladder.RUNGS) or not all(run["ok"] for run in ladder_runs):
@@ -1340,13 +1385,15 @@ def main() -> int:
         visits = [base, dict(base, order=order), dict(base, bins=bins, bin_tile=tile)]
         return visits + [dict(base, clusters=None)] if none else visits
 
-    seed_rng = torch.Generator(device=dev).manual_seed(9)
 
     def seed_for(depth):
         """K9's test seed for frames of this depth: per pixel at random far
         (1000), just above the hit (× 1.0001), exactly at it (a miss), or
-        at half of it (a miss); far on a miss."""
-        pick = torch.randint(0, 4, depth.shape, generator=seed_rng, device=depth.device)
+        at half of it (a miss); far on a miss. The picks are drawn afresh
+        from one generator seed, so equal depths get equal seeds (and the
+        seeded walks replayed for one serve the other)."""
+        gen = torch.Generator(device=depth.device).manual_seed(9)
+        pick = torch.randint(0, 4, depth.shape, generator=gen, device=depth.device)
         scale = torch.tensor([1.0, 1.0001, 1.0, 0.5], device=depth.device)[pick]
         bound = torch.where(pick == 0, 1000.0, depth * scale)
         return torch.where(depth > 0, bound, 1000.0).contiguous()
@@ -1373,9 +1420,30 @@ def main() -> int:
 
     # The plain outputs of inputs whose plain version another check already
     # ran (the visits and routes of one scene and mode share it: the plain
-    # version sweeps every triangle in index order whatever the visit);
-    # cleared with each scene's loop.
-    plain_memo = {}
+    # version sweeps every triangle in index order whatever the visit), and
+    # the plain sweeps (rc.plain_hits) that a mode's texture variants share
+    # (the 9-output mode's among them); cleared with each scene's loop
+    # (clear_plain).
+    plain_memo, hits_memo = {}, {}
+
+    def clear_plain():
+        plain_memo.clear()
+        hits_memo.clear()
+
+    def plain_run(kw, fn):
+        """``fn`` (render_resident_plain or render_handoff_plain) on ``kw``
+        and its time, the sweep shared by the inputs' texture modes: one
+        rc.plain_hits for the same rows, cameras and seed (the memo holds
+        them, so no other tensor takes their place) and sweep; the time is
+        the sweep's and the resolve's."""
+        key = (id(kw["rows"]), id(kw["cams"]), id(kw.get("seed")), kw["geo"], kw["raster"],
+               kw["height"], kw["width"], kw.get("ranges") is not None, dmxu(kw))
+        if key not in hits_memo:
+            ms, hits = timed_ms(lambda: rc.plain_hits(**kw))
+            hits_memo[key] = (ms, hits, (kw["rows"], kw["cams"], kw.get("seed")))
+        sweep_ms, hits, _ = hits_memo[key]
+        ms, out = timed_ms(lambda: fn(**kw, hits=hits))
+        return sweep_ms + ms, out
 
     def check_render(tag, kw, keep=False, memo=None):
         """The render kernel (K12: render_batched) against its plain
@@ -1388,10 +1456,12 @@ def main() -> int:
         torch.cuda.synchronize()
         if memo is not None and memo in plain_memo:
             plain_ms, p_out = plain_memo[memo]
-        else:
+        elif memo is None or is_batched(kw):
             plain_ms, p_out = timed_ms(lambda: plain(**kw))
-            if memo is not None:
-                plain_memo[memo] = plain_ms, p_out
+        else:
+            plain_ms, p_out = plain_run(kw, plain)
+        if memo is not None:
+            plain_memo[memo] = plain_ms, p_out
         note_plain(plain_of, name, kw, plain_ms, keep)
         if len(k_out) == 3:
             c = compare_outputs(k_out, p_out)
@@ -1417,21 +1487,55 @@ def main() -> int:
                     "order", "spans", "bins", "ranges", "bin_tile", "seed", "dmxu", "rowskip")
 
     walk_of = {}
+    # Every walk replayed, with weak references to the inputs it read: a
+    # walk depends on the geometry rows (0-10), the cluster table, the
+    # cameras, the visit's inputs and the seed, not on the attribute rows
+    # or the texture, so inputs equal in those (a texture mode of the same
+    # scene, a textured twin of a scene's geometry) take its walk.
+    walk_shelf = []
+    walk_tensors = ("cams", "clusters", "order", "spans", "bins", "ranges", "seed")
+    walk_params = ("geo", "raster", "height", "width", "num_cams", "n_lights", "seg_div",
+                   "bin_tile", "dmxu", "rowskip")
+
+    def same_walk_inputs(kw, refs) -> bool:
+        theirs = [r if r is None else r() for r in refs]
+        mine = [kw["rows"]] + [kw.get(k) for k in walk_tensors]
+        if any(r is not None and t is None for r, t in zip(refs, theirs)):
+            return False  # an input of that walk is gone
+        if mine[0].shape != theirs[0].shape:
+            return False
+        pairs = [(mine[0][:, :rc._N_PREP_ROWS + 1], theirs[0][:, :rc._N_PREP_ROWS + 1])]
+        pairs += list(zip(mine[1:], theirs[1:]))
+        return all(a is b or (a is not None and b is not None and a.shape == b.shape
+                              and torch.equal(a, b)) for a, b in pairs)
 
     def walks(kw):
         """The kernel's walk on these inputs, replayed in torch ops
         (ops/walk_replay.py: the streamed ordered or binned walk, or the
         resident route's), with the seed where there is one: its frames and
-        its work."""
+        its work; a walk replayed on equal inputs (``walk_shelf``) is
+        reused."""
         seed = kw.get("seed")
         key = (kw["geo"], kw["raster"], kw["rows"].data_ptr(), kw["cams"].data_ptr(),
                route(kw), None if seed is None else seed.data_ptr(), dmxu(kw),
                bool(kw.get("rowskip")))
         if key not in walk_of:
-            walk = (walk_replay.resident_walk if not streamed(kw)
-                    else walk_replay.dmxu_walk if dmxu(kw)
-                    else walk_replay.binned_walk if binned(kw) else walk_replay.streamed_walk)
-            walk_of[key] = walk(**kw)
+            params = (tuple(kw.get(k) for k in walk_params)
+                      + (route(kw), tuple(kw["rows"].shape)))
+            found = next((walk for p, refs, walk in walk_shelf
+                          if p == params and same_walk_inputs(kw, refs)), None)
+            if found is None:
+                walk_shelf[:] = [e for e in walk_shelf
+                                 if all(r is None or r() is not None for r in e[1])]
+                walk = (walk_replay.resident_walk if not streamed(kw)
+                        else walk_replay.dmxu_walk if dmxu(kw)
+                        else walk_replay.binned_walk if binned(kw)
+                        else walk_replay.streamed_walk)
+                found = walk(**kw)
+                refs = [weakref.ref(t) if t is not None else None
+                        for t in [kw["rows"]] + [kw.get(k) for k in walk_tensors]]
+                walk_shelf.append((params, refs, found))
+            walk_of[key] = found
             # The key holds device addresses: the entry goes when one of its
             # tensors does, before the allocator can hand the address to
             # another input.
@@ -1440,10 +1544,10 @@ def main() -> int:
                     weakref.finalize(t, walk_of.pop, key, None)
         return walk_of[key]
 
-    def handoff(kw, plain=False):
+    def handoff(kw, plain=False, **hits):
         fn = rc.render_handoff_plain if plain else rc.render_handoff
         return fn(kw["rows"], kw["clusters"], kw["cams"],
-                  **{k: kw[k] for k in handoff_keys if k in kw})
+                  **{k: kw[k] for k in handoff_keys if k in kw}, **hits)
 
     def shade(kw, code, hf, plain=False):
         fn = rc.shade_mip_plain if plain else rc.shade_mip
@@ -1460,10 +1564,11 @@ def main() -> int:
         h_memo = None if memo is None else memo + ("handoff",)
         if h_memo in plain_memo:
             plain_ms, p_h = plain_memo[h_memo]
-        else:
+        elif h_memo is None:
             plain_ms, p_h = timed_ms(lambda: handoff(kw, plain=True))
-            if h_memo is not None:
-                plain_memo[h_memo] = plain_ms, p_h
+        else:
+            plain_ms, p_h = plain_run(kw, lambda **k: handoff(k, plain=True, hits=k["hits"]))
+            plain_memo[h_memo] = plain_ms, p_h
         note_plain(handoff_plain_of, handoff_name(kw), kw, plain_ms, False)
         h_bitwise = all(torch.equal(a, b) for a, b in zip(k_h, p_h))
         k_rgb = shade(kw, *k_h[2:])
@@ -1504,6 +1609,9 @@ def main() -> int:
 
     # ---- 3. each kernel against its plain version on the card ----------- #
     tex_png = scenes.demo_texture_png(TEX_SIZE)
+    # The 256x256 checker (65,536 texels): baked without mips, past the
+    # in-kernel texture route, it takes the 9-output mode on every visit.
+    tex256_png = png_texture(f"paged_{PAGED_TEX_SIZE}", checker_texture(PAGED_TEX_SIZE), scenes)
     two_lights = [((1.0, -1.0, -0.05), (0.7, 0.7, 0.7)),
                   ((-0.3, 0.2, -1.0), (0.3, 0.25, 0.2))]
     occluder_lights = [((1.0, 1.0, 0.0), (1.0, 1.0, 1.0))]
@@ -1532,10 +1640,17 @@ def main() -> int:
         # tiles of 16 px).
         "terrain27_128": (bigmesh_scene(SMALL_WORLDS, cfg_mod, scenes, vary=True,
                                         grid=RESIDENT_GRID), dict(height=128, width=128)),
+        # The 9-output mode on every resident visit (K3 and K4 on resident
+        # rows, K1 and K1-none), lit by a sun whose shadows the epilogue
+        # traces.
+        "terrain27_64_tex256": (bigmesh_scene(SMALL_WORLDS, cfg_mod, scenes, vary=True,
+                                              grid=RESIDENT_GRID, texture=tex256_png),
+                                dict(mipmaps=False, lights=NINE_SUN)),
     }
     for tag, (parts, opts) in cases.items():
         geo, mats, textures, insts, cams, worlds = parts
-        scene = bake_scene(load_render_assets(geo, [], mats, textures), dev)
+        scene = bake_scene(load_render_assets(geo, [], mats, textures), dev,
+                           mipmaps=opts.get("mipmaps", "auto"))
         if "lights" in opts:
             scene = configure_lighting(scene, lights=opts["lights"])
         state = init_state(insts, cams, worlds, dev)
@@ -1543,30 +1658,58 @@ def main() -> int:
             check_pack(tag, state, scene, state.camera_pos[:, 0, :])
         check_pack(tag, state, scene, None)
         size = dict(height=opts.get("height", HEIGHT), width=opts.get("width", WIDTH))
-        filters = ("nearest", "bilinear") if rc.is_textured(scene) else ("nearest",)
+        nine_scene = rc.output_mode(scene) == "nine"
+        filters = (("nearest", "bilinear") if rc.is_textured(scene) and not nine_scene
+                   else ("nearest",))
         for watertight, shadows, raster, filt in itertools.product(
                 (False, True), (False, True), (False, True), filters):
-            plain_memo.clear()
+            if nine_scene and watertight and shadows:
+                continue  # the 9-output mode's K10 entries without the shadows'
+            clear_plain()
             key = (watertight, shadows, raster, filt)
-            kw = rc.pack_inputs(state, scene, raster=raster, texture_filter=filt,
-                                near=0.001 if raster else 0.1, shadows=shadows,
-                                watertight=watertight, **size)
-            # The four resident visits (K1, K3, K4 on resident rows, K1-none),
-            # each seeded (K9) too in the raytrace conventions.
-            visits = resident_visits(kw, state, scene, none=True)
+            if filt == filters[0]:
+                kw = rc.pack_inputs(state, scene, raster=raster, texture_filter=filt,
+                                    near=0.001 if raster else 0.1, shadows=shadows,
+                                    watertight=watertight, **size)
+                # The four resident visits (K1, K3, K4 on resident rows,
+                # K1-none), each seeded (K9) too in the raytrace conventions;
+                # the other filter takes the same tensors (and seed), so its
+                # variants share the plain sweeps and the replayed walks.
+                visits0 = resident_visits(kw, state, scene, none=True)
+            visits = [dict(v, texture=filt) if v["texture"] in shade_filters else v
+                      for v in visits0]
             out = [check_render(tag, vkw, memo=key) for vkw in visits][0]
             if not raster:
-                seed = seed_for(out[0])
+                if filt == filters[0]:
+                    seed = seed_for(out[0])
                 for vkw in visits:
                     check_render(tag, dict(vkw, seed=seed), memo=key + ("seed",))
-            if not shadows and filt == filters[0]:
+            if nine_scene and shadows and not raster:
+                # The 9-output route's shadows (the epilogue's compute_lit)
+                # on the ordered and binned visits' outputs: darker somewhere,
+                # brighter nowhere, depth and segmask the unshadowed ones.
+                for vkw in visits[1:3]:
+                    o = rc.render_resident(**vkw)
+                    f_sh = rc.frames_from_core(state, *o, scene=scene, shadows=True)
+                    f_lit = rc.frames_from_core(state, *o, scene=scene)
+                    darker = f_lit.rgb.int() - f_sh.rgb.int()
+                    emit({"phase": "nine_shadows", "case": tag, "kernel": variant(vkw),
+                          "shadowed_pixels": int((darker > 0).any(-1).sum())})
+                    if (not bool((darker > 10).any()) or bool((darker < 0).any())
+                            or not torch.equal(f_lit.depth, f_sh.depth)
+                            or not torch.equal(f_lit.segmask, f_sh.segmask)):
+                        raise AssertionError(f"{tag} {variant(vkw)}: the epilogue's shadows "
+                                             "do not show")
+            if not shadows and filt == filters[0] and not nine_scene:
                 # The 9-output mode on K1's and K1-none's sweeps (the scene's
                 # own rows: prep, raw or K10's), seeded too.
                 nine = dict(visits[0], texture="nine", mats=None, pool=None, fb_rows=None)
                 nines = [nine, dict(nine, clusters=None)]
-                out9 = [check_render(tag, n, memo=key + ("nine",)) for n in nines][0]
+                # The shaded checks' seed (the same depth), so that the plain
+                # sweeps are theirs.
+                for n in nines:
+                    check_render(tag, n, memo=key + ("nine",))
                 if not raster:
-                    seed = seed_for(out9[0])
                     for n in nines:
                         check_render(tag, dict(n, seed=seed), memo=key + ("nine", "seed"))
             if not watertight and filt == filters[0]:
@@ -1642,7 +1785,7 @@ def main() -> int:
                                         near=0.001 if raster else 0.1, shadows=shadows,
                                         watertight=watertight, **size)
                     visits = resident_visits(kw, state, lit, none=True)
-                    plain_memo.clear()
+                    clear_plain()
                     key = (shadows, raster, watertight)
                     k_h = [check_k7(tag, vkw, memo=key) for vkw in visits][0]
                     if not raster:
@@ -1667,6 +1810,9 @@ def main() -> int:
                                                num_cams=2, texture=tex_png),
         "bigmesh64_mip256": bigmesh_scene(SMALL_WORLDS, cfg_mod, scenes, vary=True,
                                           texture=gradient_png),
+        # Baked without mips: the 9-output mode on K3 + K5, K4 and K11.
+        "bigmesh64_tex256": bigmesh_scene(SMALL_WORLDS, cfg_mod, scenes, vary=True,
+                                          texture=tex256_png),
         "cloud64": streamed_test_scene("cloud", SMALL_WORLDS, cfg_mod),
         "instances64": streamed_test_scene("instances64", SMALL_WORLDS, cfg_mod),
         "hetero64": streamed_test_scene("hetero", SMALL_WORLDS, cfg_mod),
@@ -1676,20 +1822,24 @@ def main() -> int:
     # K10's streamed variants on the varied terrain (untextured, 32x32 and
     # 256x256 mip textures) and the tie scene; K9's (seeded, raytraced) on
     # the terrain scenes and the tie scene.
-    wt_streamed = ("bigmesh64", "bigmesh64_tex32", "bigmesh64_mip256", "tie64")
+    wt_streamed = ("bigmesh64", "bigmesh64_tex32", "bigmesh64_mip256", "bigmesh64_tex256",
+                   "tie64")
     seeded_streamed = ("bigmesh64", "bigmesh64_2cams", "bigmesh64_tex32",
-                       "bigmesh64_2cams_tex32", "bigmesh64_mip256", "tie64")
+                       "bigmesh64_2cams_tex32", "bigmesh64_mip256", "bigmesh64_tex256", "tie64")
+    no_mips = ("bigmesh64_tex256",)
     streamed_kw = {}
 
     seeds = {}
 
     def check_seeded(tag, kw, depth, memo):
         """The variant seeded (K9) by seed_for(depth) (one seed per scene
-        and mode, shared by its two visits and their plain version), against
-        the seeded plain version; its first inputs time it."""
-        if memo not in seeds:
-            seeds[memo] = seed_for(depth)
-        kw = dict(kw, seed=seeds[memo])
+        and mode, shared by its two visits, its texture filters, whose depth
+        is the same, and their plain version), against the seeded plain
+        version; its first inputs time it."""
+        mode = tuple(x for x in memo if x not in MIP_FILTERS)
+        if mode not in seeds:
+            seeds[mode] = seed_for(depth)
+        kw = dict(kw, seed=seeds[mode])
         out = (check_k7 if is_k7(kw) else check_render)(tag, kw, memo=memo + ("seed",))
         streamed_kw.setdefault(handoff_name(kw) if is_k7(kw) else variant(kw), kw)
         return kw, out
@@ -1697,11 +1847,15 @@ def main() -> int:
     def walk_matches(tag, kw, out):
         """K11's replayed walk (walk_replay.dmxu_walk) renders the kernel's
         depth and segmask, bitwise (raytraced: the replay writes t and
-        idx // seg_div, as the raytrace export does)."""
+        idx // seg_div, as the raytrace export does; in the 9-output mode
+        the kernel's t, and its idx so divided)."""
         if kw["raster"]:
             return
         walk = walks(kw)
-        same = torch.equal(walk["depth"], out[0]) and torch.equal(walk["segmask"], out[1])
+        seg = out[1]
+        if kw.get("texture") == "nine":
+            seg = torch.where(out[2] >= 0, out[2] // kw["seg_div"], -1)
+        same = torch.equal(walk["depth"], out[0]) and torch.equal(walk["segmask"], seg)
         emit({"phase": "walk_vs_kernel", "case": tag, "kernel": handoff_name(kw) if is_k7(kw)
               else variant(kw), "pixel_tests": walk["pixel_tests"], "bitwise": same})
         if not same:
@@ -1729,55 +1883,81 @@ def main() -> int:
 
     for tag, parts in streamed_cases.items():
         geo, mats, textures, insts, cams, worlds = parts
-        scene = bake_scene(load_render_assets(geo, [], mats, textures), dev)
+        scene = bake_scene(load_render_assets(geo, [], mats, textures), dev,
+                           mipmaps=False if tag in no_mips else "auto")
         state = init_state(insts, cams, worlds, dev)
         if not rc.is_streamed(state, scene):
             raise AssertionError(f"{tag}: the scene fits the resident budget")
         mip = rc.has_mips(scene)
+        nine_scene = rc.output_mode(scene) == "nine"
         # The mip scene under trilinear only (every filter took 100 s of the
         # run): the hand-off entries
         # are one for every filter, trilinear runs both K7 launches in full,
         # and the filters' shade_mip entries are held on the mip scenes above.
         filters = (("trilinear",) if mip else ("nearest", "bilinear")
-                   if rc.is_textured(scene) else ("nearest",))
+                   if rc.is_textured(scene) and not nine_scene else ("nearest",))
         # The two visits of a mode last: they share its plain outputs and
-        # seeds.
+        # seeds; a mode's second filter takes the first's tensors (and seed),
+        # so that its variants share the plain sweeps and the replayed walks.
+        packed = {}
         for watertight, shadows, raster, filt, accel in itertools.product(
                 (False, True) if tag in wt_streamed else (False,), (False, True),
                 (False, True), filters, ("clusters", "binned")):
+            if nine_scene and watertight and shadows:
+                continue  # the 9-output mode's K10 entries without the shadows'
             if accel == "clusters":
-                plain_memo.clear()
-                seeds.clear()
+                clear_plain()
+                if filt == filters[0]:
+                    seeds.clear()
+                    packed.clear()
             key = (watertight, shadows, raster, filt)
             lit = (configure_lighting(scene, lights=[((0.5, 1.0, 0.0), (1.0, 1.0, 1.0))])
-                   if shadows and tag == "cloud64" else scene)  # tests/test_shadows.py:176
-            kw = rc.pack_inputs(state, lit, raster=raster, texture_filter=filt,
-                                near=0.001 if raster else 0.1, shadows=shadows,
-                                watertight=watertight, height=HEIGHT, width=WIDTH,
-                                accel=accel)
+                   if shadows and tag == "cloud64" else
+                   configure_lighting(scene, lights=NINE_SUN) if shadows and nine_scene
+                   else scene)  # tests/test_shadows.py:176
+            if filt == filters[0]:
+                opts = dict(raster=raster, texture_filter=filt, near=0.001 if raster else 0.1,
+                            height=HEIGHT, width=WIDTH, accel=accel)
+                packed[accel] = (
+                    rc.pack_inputs(state, lit, shadows=shadows, watertight=watertight, **opts),
+                    rc.pack_inputs(state, lit, deferred_mxu=True, **opts)
+                    if not shadows and not watertight else None)
+            kw, kw_m = (None if k is None else dict(k, texture=filt)
+                        if k["texture"] in shade_filters else k for k in packed[accel])
             out = check_k7(tag, kw, memo=key)[:2] if mip else check_render(tag, kw, memo=key)
             streamed_kw.setdefault(handoff_name(kw) if mip else variant(kw), kw)
             seed_it = tag in seeded_streamed and not raster and (not mip or filt == "trilinear")
             if seed_it:
                 check_seeded(tag, kw, out[0], key)
             # K11 (deferred_mxu) in the same mode.
-            dmxu_mode = not shadows and not watertight
+            dmxu_mode = kw_m is not None
             if dmxu_mode:
-                kw_m = rc.pack_inputs(state, lit, raster=raster, texture_filter=filt,
-                                      near=0.001 if raster else 0.1, height=HEIGHT,
-                                      width=WIDTH, accel=accel, deferred_mxu=True)
                 check_dmxu(tag, kw_m, kw if kw["geo"] == "prep" else None, key, seed_it)
-            if mip and not shadows and not watertight:
-                # The one-camera mip scene on the raw rows too (and K11's).
+            if (mip or nine_scene) and not shadows and not watertight:
+                # The one-camera mip scene on the raw rows too (and K11's);
+                # the 9-output scene's K11 on raw rows (its K3 + K5 and K4
+                # take them under shadows).
                 raw_rows = pack_cuda.pack_rows(state, lit)
-                kw = dict(kw, rows=raw_rows, geo="raw", ranges=None)
-                raw_out = check_k7(tag, kw, memo=key + ("raw",))
-                streamed_kw.setdefault(handoff_name(kw), kw)
-                if seed_it:
-                    check_seeded(tag, kw, raw_out[0], key + ("raw",))
-                if dmxu_mode:
-                    check_dmxu(tag, dict(kw_m, rows=raw_rows, geo="raw"), None,
-                               key + ("raw",), seed_it)
+                if mip:
+                    kw = dict(kw, rows=raw_rows, geo="raw", ranges=None)
+                    raw_out = check_k7(tag, kw, memo=key + ("raw",))
+                    streamed_kw.setdefault(handoff_name(kw), kw)
+                    if seed_it:
+                        check_seeded(tag, kw, raw_out[0], key + ("raw",))
+                check_dmxu(tag, dict(kw_m, rows=raw_rows, geo="raw"), None,
+                           key + ("raw",), seed_it)
+            if nine_scene and shadows and not raster and accel == "clusters":
+                # The 9-output route's shadows (the epilogue's compute_lit)
+                # on K3 + K5's outputs.
+                f_sh = rc.frames_from_core(state, *out, scene=lit, shadows=True)
+                f_lit = rc.frames_from_core(state, *out, scene=lit)
+                darker = f_lit.rgb.int() - f_sh.rgb.int()
+                emit({"phase": "nine_shadows", "case": tag, "kernel": variant(kw),
+                      "shadowed_pixels": int((darker > 0).any(-1).sum())})
+                if (not bool((darker > 10).any()) or bool((darker < 0).any())
+                        or not torch.equal(f_lit.depth, f_sh.depth)):
+                    raise AssertionError(f"{tag} {variant(kw)}: the epilogue's shadows do "
+                                         "not show")
             if tag == "tie64" and not raster:
                 # The quad's pixels tie between instances 0 and 1: instance
                 # 0 wins them; instance 1 keeps the small triangle in front
@@ -1797,7 +1977,7 @@ def main() -> int:
         scene = bake_scene(load_render_assets(geo, [], mats, textures), dev)
         state = init_state(insts, cams, worlds, dev)
         for raster in (False, True):
-            plain_memo.clear()
+            clear_plain()
             seeds.clear()
             for accel in ("clusters", "binned"):
                 opts = dict(raster=raster, near=0.001 if raster else 0.1,
@@ -1843,7 +2023,7 @@ def main() -> int:
             raw_rows = pack_cuda.pack_rows(t_state, lit)
             pairs.append(tuple(dict(kw, rows=raw_rows, geo="raw", ranges=None)
                                for kw in pairs[0]))
-        plain_memo.clear()
+        clear_plain()
         for kw, kw5 in pairs:
             memo = ("terrain4", kw["geo"])
             k4 = check_render("terrain4_128", kw, memo=memo)
@@ -1862,6 +2042,42 @@ def main() -> int:
                     kw_m = dict(kw_m, rows=kw["rows"], geo="raw")
                 check_dmxu("terrain4_128", kw_m, kw if kw["geo"] == "prep" else None, memo,
                            False)
+    # The 9-output mode on the same 4 worlds textured with the 256x256
+    # checker, baked without mips: K4 on the row-sorted prep rows and on raw
+    # rows, bitwise against the plain version and against K5, and K11's
+    # binned visit on the same rows unsorted, with and without its row gate
+    # (forced on at 128², where the TPU tiling has one tile across), against
+    # the plain version and (prep) K4.
+    nine_cfg = scenes.binned_terrain_config(TERRAIN_CHECK_WORLDS, 128, 128,
+                                            texture=tex256_png)
+    n_scene = bake_scene(load_render_assets(nine_cfg.rcfg.geo_cfg, [],
+                                            nine_cfg.rcfg.additional_mats,
+                                            list(nine_cfg.rcfg.additional_textures)), dev,
+                         mipmaps=False)
+    for raster in (False, True):
+        opts = dict(height=128, width=128, raster=raster, near=0.001 if raster else 0.1)
+        kws = (rc.pack_inputs(t_state, n_scene, accel="binned", **opts),
+               rc.pack_inputs(t_state, n_scene, accel="clusters", **opts),
+               rc.pack_inputs(t_state, n_scene, accel="binned", deferred_mxu=True, **opts))
+        if kws[0]["texture"] != "nine" or kws[0]["ranges"] is None:
+            raise AssertionError("terrain4_128_tex256: not the 9-output mode on ranges")
+        raw_rows = pack_cuda.pack_rows(t_state, n_scene)
+        clear_plain()
+        for geo in ("prep", "raw"):
+            if geo == "raw":
+                kws = tuple(dict(k, rows=raw_rows, geo="raw", ranges=None) for k in kws)
+            kw, kw5, kw_m = kws
+            memo = ("terrain4_tex256", geo)
+            k4 = check_render("terrain4_128_tex256", kw, memo=memo)
+            same = all(torch.equal(x, y) for x, y in zip(k4, rc.render_resident(**kw5)))
+            emit({"phase": "k4_vs_k5", "case": "terrain4_128_tex256", "kernel": variant(kw),
+                  "bitwise": same})
+            if not same:
+                raise AssertionError(f"terrain4_128_tex256 {variant(kw)}: K4 differs from K5")
+            streamed_kw.setdefault(variant(kw), kw)
+            for rowskip in (True, False):
+                check_dmxu("terrain4_128_tex256", dict(kw_m, rowskip=rowskip),
+                           kw if geo == "prep" else None, memo, False)
     parts = seam_scene(SMALL_WORLDS, cfg_mod, fill=True)
     seam_state = init_state(*parts[3:], dev)
     seam_sc = bake_scene(load_render_assets(parts[0], [], [], []), dev)
@@ -2592,10 +2808,11 @@ def main() -> int:
         return (f.rgb.reshape(-1, h, w, 4), f.depth.reshape(-1, h, w),
                 f.segmask.reshape(-1, h, w))
 
-    def core_checks(path, r, res):
+    def core_checks(path, r, res, memo=None):
         """The path's kernel on the last step's inputs, through the epilogue,
         reproduces the exported frames; K13 and the kernel equal their plain
-        versions at full size, bitwise."""
+        versions at full size, bitwise (``memo``: the plain outputs' key for
+        another visit's check on the same inputs)."""
         kw = path_inputs(r)
         outs = run_kernel(kw)
         exported = (r.rgb_tensor().to_torch(), r.depth_tensor().to_torch(),
@@ -2608,7 +2825,7 @@ def main() -> int:
             raise AssertionError(f"{path}: depth not finite or empty")
         prep = not is_batched(kw) and kw["geo"] == "prep"
         check_pack(path, r.state, r.scene, r.state.camera_pos[:, 0, :] if prep else None)
-        check_render(path, kw, keep=True)
+        check_render(path, kw, keep=True, memo=memo)
         return kw, outs
 
     def device_share(r, step_s):
@@ -2807,14 +3024,14 @@ def main() -> int:
     # gate), K11 and K4 on the last state against one plain output.
     km, k4 = path_inputs(r, height=128, width=128), path_inputs(r, height=128, width=128,
                                                                 deferred_mxu=False)
-    plain_memo.clear()
+    clear_plain()
     same = same_frames(check_render(f"{path}_128", km, keep=True, memo=(path,)),
                        check_render(f"{path}_128", k4, memo=(path,)))
     emit({"phase": "dmxu_vs_k4", "case": f"{path}_128", "rowskip": km["rowskip"],
           "bitwise": same})
     if not same or km["rowskip"] or not km["dmxu"]:
         raise AssertionError(f"{path} at 128²: K11 (no row gate) differs from K4")
-    plain_memo.clear()
+    clear_plain()
     # Its kernels-line row on the 128² inputs (their plain time is the
     # check's); at 512² with and without the row gate, lines of their own
     # without a plain time.
@@ -2869,6 +3086,95 @@ def main() -> int:
     time_path(path, r, step_s, counts, ctor_s, extra)
     add_launches(counts)
     del r, record, kw
+    torch.cuda.empty_cache()
+
+    # ---- the 9-output mode's paths on the culled visits: the terrains
+    # textured with the 256x256 checker, no mips ----------------------- #
+    def nine_ab(path, record, scene, res, a, b):
+        """Each recorded step's state through the visits ``a`` and ``b``
+        (pack_inputs options) at the kernel entry: the nine outputs bitwise
+        equal; the medians of each launch's device time on the timed steps."""
+        ab = {"a": [], "b": []}
+        for i, (state, *_) in enumerate(record):
+            ka = rc.pack_inputs(state, scene, height=res, width=res, **a)
+            kb = rc.pack_inputs(state, scene, height=res, width=res, **b)
+            if not same_frames(rc.render_resident(**ka), rc.render_resident(**kb)):
+                raise AssertionError(f"{path} step {i}: {variant(ka)} and {variant(kb)} "
+                                     "differ")
+            ab["a"].append(cuda_ms(lambda ka=ka: rc.render_resident(**ka), 1))
+            ab["b"].append(cuda_ms(lambda kb=kb: rc.render_resident(**kb), 1))
+            del ka, kb
+        emit({"phase": "nine_ab", "case": path, "steps": len(record), "bitwise": True})
+        return [statistics.median(t[WARMUP_STEPS:]) for t in (ab["a"], ab["b"])]
+
+    # bigmesh_512w_tex256: bigmesh_512w's scene with the terrain textured
+    # (uvs xy / 8) by the 256x256 checker baked without mips: the 9-output
+    # mode on K3 + K5 and the planar epilogue; then the same steps with
+    # deferred_mxu=True (K11's 9-output mode), every step's state through
+    # both at the kernel entry (the nine planes bitwise, both timed).
+    path = "bigmesh_512w_tex256"
+    cfg = scenes.bigmesh_config(BIGMESH_WORLDS, WIDTH, HEIGHT, texture=tex256_png)
+    r, step_s, counts, ctor_s, name = drive(path, m.RenderMode.Raytracer, BIGMESH_WORLDS,
+                                            True, TIMED_STEPS, cfg=cfg, mipmaps=False)
+    if name != "render_streamed_nine" or rc.has_mips(r.scene):
+        raise AssertionError(f"{path}: took {name}, not K3 + K5's 9-output mode")
+    clear_plain()
+    kw, outs = core_checks(path, r, HEIGHT, memo=(path,))
+    timing_kw[name] = kw
+    kw_m = path_inputs(r, deferred_mxu=True)
+    check_render(path, kw_m, keep=True, memo=(path,))
+    clear_plain()
+    timing_kw[variant(kw_m)] = kw_m
+    extra = {"route": name, "pool_texels": int(r.scene.tex_data.shape[0]),
+             "tris_per_world": int(kw["rows"].shape[2]), **device_share(r, step_s),
+             "epilogue_ms": cuda_ms(lambda: frames_of(r, outs), 5)}
+    add_launches(counts)
+    del outs
+    record = []
+    rm, step_m, counts_m, _, name_m = drive(path + "_dmxu", m.RenderMode.Raytracer,
+                                            BIGMESH_WORLDS, True, TIMED_STEPS, cfg=cfg,
+                                            record=record, mipmaps=False, deferred_mxu=True)
+    if name_m != "render_streamed_dmxu_nine":
+        raise AssertionError(f"{path}: deferred_mxu took {name_m}, not K11's 9-output mode")
+    add_launches(counts_m)
+    k11_ms, k5_ms = nine_ab(path, record, r.scene, HEIGHT, dict(deferred_mxu=True), {})
+    extra.update(dmxu_route=name_m, **ab_of("dmxu", step_m), ab_k11_kernel_ms_median=k11_ms,
+                 ab_k5_kernel_ms_median=k5_ms)
+    del rm, record
+    time_path(path, r, step_s, counts, ctor_s, extra)
+    del r
+    torch.cuda.empty_cache()
+
+    # resident_terrain_4096w_64_tex256: resident_terrain_4096w_64's scene
+    # (the 27-grid terrain) textured the same way: the 9-output mode on K3
+    # on resident rows; every timed step's state through K4 on resident
+    # rows too (accel="binned", the nine planes bitwise, both timed).
+    path = "resident_terrain_4096w_64_tex256"
+    res = HEIGHT
+    cfg = scenes.bigmesh_config(NUM_WORLDS, res, res, grid=RESIDENT_GRID, texture=tex256_png)
+    record = []
+    r, step_s, counts, ctor_s, name = drive(path, m.RenderMode.Raytracer, NUM_WORLDS, True,
+                                            TIMED_STEPS, moved=1, size=res, cfg=cfg,
+                                            record=record, mipmaps=False)
+    if name != "render_resident_ordered_nine":
+        raise AssertionError(f"{path}: took {name}, not K3's 9-output mode on resident rows")
+    clear_plain()
+    kw, outs = core_checks(path, r, res, memo=(path,))
+    timing_kw[name] = kw
+    kw_b = path_inputs(r, accel="binned")
+    check_render(path, kw_b, keep=True, memo=(path,))
+    clear_plain()
+    resident_kw[path] = [kw_b]
+    k3_ms, k4_ms = nine_ab(path, record, r.scene, res, {}, dict(accel="binned"))
+    extra = {"route": name, "binned_route": variant(kw_b),
+             "tris_per_world": int(kw["rows"].shape[2]),
+             "clusters_per_world": int(kw["clusters"].shape[2]), **device_share(r, step_s),
+             "epilogue_ms": cuda_ms(lambda: frames_of(r, outs), 5),
+             "ab_ordered_kernel_ms_median": k3_ms, "ab_binned_kernel_ms_median": k4_ms}
+    add_launches(counts)
+    del outs, record
+    time_path(path, r, step_s, counts, ctor_s, extra)
+    del r
     torch.cuda.empty_cache()
 
     # ---- timings of every kernel at its path's full-size inputs --------- #
@@ -3028,11 +3334,12 @@ def main() -> int:
         rows.append(handoff_row(name, kw, reps) if is_k7(kw) else render_row(name, kw,
                                                                                 reps=reps))
         emit({"phase": "timing", **rows[-1]})
-    # K11: a path's own on its full-size inputs, the
-    # others on the 64-world inputs of their first kernel_vs_plain scene.
-    for name in rc.DMXU_VARIANTS:
+    # K11, and the culled visits' 9-output entries: a path's own on its
+    # full-size inputs, the others on the 64-world inputs (4 worlds at 128²
+    # for the binned terrain's) of their first kernel_vs_plain scene.
+    for name in rc.DMXU_VARIANTS + rc.CULLED_NINE_VARIANTS:
         kw = timing_kw.get(name) or first_kw[name]
-        reps = NEW_KERNEL_REPS if name in small else KERNEL_REPS
+        reps = NEW_KERNEL_REPS if name in small or name not in timing_kw else KERNEL_REPS
         rows.append(handoff_row(name, kw, reps) if is_k7(kw) else render_row(name, kw,
                                                                                 reps=reps))
         emit({"phase": "timing", **rows[-1]})

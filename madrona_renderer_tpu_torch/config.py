@@ -208,11 +208,11 @@ class ManagerConfig:
     # beyond-reference feature (the reference's lambert is unshadowed).
     shadows: bool = False
     # Watertight intersection (Woop et al.): the crack-free quality tier
-    # (ROADMAP Queue 1 item 11). None and False both mean off: the port
-    # reads no environment knobs.
+    # (kernel K10). None and False both mean off: the port reads no
+    # environment knobs.
     watertight: "bool | None" = None
     # Temporal depth warm-start: seeds each step's ray search windows
-    # with the previous frame's depth (ROADMAP Queue 1 item 12).
+    # with the previous frame's depth (kernel K9's seed, ops/warmstart.py).
     warmstart: bool = False
     # Mip-mapped textures: True / False / "auto" (on iff the texel pool
     # exceeds the kernel's resident budget). The reference's hardware
@@ -232,9 +232,9 @@ class ManagerConfig:
     # through to raytrace / rasterize unchanged; the same frames.
     deferred_mxu: bool = False
     # Supersampled antialiasing: render each view at ssaa x resolution
-    # and box-filter rgb back down. 1 = off (reference behavior: one ray
-    # per pixel); more is ROADMAP Queue 1 item 13.
+    # and box-filter rgb back down (ops/ssaa.py). 1 = off (reference
+    # behavior: one ray per pixel).
     ssaa: int = 1
-    # Number of devices to shard the world axis over (1 = single device;
-    # more is ROADMAP Queue 1 item 15).
+    # Number of devices to shard the world axis over (1 or fewer: a single
+    # device, as in the JAX Manager; more is ROADMAP Queue 1 item 15).
     num_devices: int = 1

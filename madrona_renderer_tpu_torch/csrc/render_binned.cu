@@ -30,6 +30,11 @@
 // rows and its attributes and segmask read at its original index. On raw
 // rows (more cameras, shadows, the watertight decision) there are no
 // ranges: a visited cluster's valid prefix is swept, as on the ordered walk.
+// The 9-output mode (:3664-3670; prep, raw and K10 rows, raytrace and
+// raster) resolves its winner the same way (prep rows: its uv from its
+// sorted lane, its material, uv rows and normal at its original index) and
+// writes t, z, the original index, the material, uv and the normal,
+// unmasked, for the epilogue.
 //
 // Bound on an H100: the walk's work (positions gated, slab tests, the
 // triangle tests of the swept lanes) at about 27 FP32 operations per prep
@@ -51,6 +56,7 @@ render_binned_kernel(const RenderArgs a, const BinArgs b) {
 // K4's launch of one variant: the streamed grid, and shared memory for the
 // two stage buffers and the camera row.
 struct BinnedRoute {
+  static constexpr bool kNine = true;
   template <int GEO, bool RASTER, int TEX>
   static int run(const RenderArgs& a, const BinArgs& b, int num_views,
                  cudaStream_t stream) {
@@ -68,7 +74,9 @@ extern "C" {
 // visit: bins, spans (8-row bands) and, with prep rows (geo 0) and only
 // then, ranges; the bin of block (bx, by) is
 // (by >> bin_shift) * bins_x + (bx >> bin_shift) of n_bins a view, and
-// ranges hold n_bands bands a cluster. rows, cluster_size and S must keep
+// ranges hold n_bands bands a cluster; tex_filter 4 is the 9-output mode
+// (geo 0, 1 or 3), written as in mrt_render_none. rows, cluster_size and S
+// must keep
 // every cluster's rows 16-byte aligned. Returns cudaGetLastError() after
 // the launch (0 on success), or cudaErrorInvalidValue for an unknown variant
 // or a missing input.

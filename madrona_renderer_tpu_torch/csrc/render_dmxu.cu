@@ -38,7 +38,9 @@
 // conservative span gives the same frames) misses its two rows: the gate is
 // warp-uniform. The binned visit streams the rows unsorted (no row sort, no
 // triangle ranges, as the JAX package turns tri_ranges off under dmxu). The
-// resolve, shading and export are the streamed route's. The raytrace
+// resolve, shading and export are the streamed route's, and the 9-output
+// mode's (:3664-3670, the JAX dmxu switch does not exclude it: t, z, idx,
+// the material, uv and the normal, unmasked, for the epilogue). The raytrace
 // entries have seeded twins (K9: best_t starts at min(seed, far)).
 //
 // Bound on an H100: per (pixel, slot) test 28 FP32 operations (det 5, the
@@ -97,6 +99,7 @@ struct DmxuVisit {
 // and raw rows only (no shadow sweep, no watertight decision), raytrace and
 // raster, the seeded entries raytrace only.
 struct DmxuRoute {
+  static constexpr bool kNine = true;
   template <int GEO, bool RASTER, int TEX>
   static int run(const RenderArgs& a, const Seeded<DmxuVisit>& v, int num_views,
                  cudaStream_t stream) {
@@ -134,7 +137,8 @@ extern "C" {
 // visit: with bins (and spans at 8-row bands) the binned walk, else order
 // and spans (16-row bands) the ordered walk; seed (or null: the cold
 // entries; raster must then be 0) as K9's; geo 0 (prep rows) or 1 (raw
-// rows); rowskip 1 gates each warp's two rows on the cluster's span. rows,
+// rows); rowskip 1 gates each warp's two rows on the cluster's span;
+// tex_filter 4 is the 9-output mode, written as in mrt_render_none. rows,
 // cluster_size and S must keep every cluster's rows 16-byte aligned.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unknown variant or a missing input.

@@ -33,7 +33,9 @@
 // _frames_from_core :4962-5018). It runs on the prep, raw and K10 raw rows
 // (no in-kernel shadow rays), through K1's culled index-order sweep
 // (render_resident_*_nine) and K1-none's (render_none_*_nine), each seeded
-// too. Its outputs take the mip hand-off's slots: t in depth, idx in
+// too; the culled visits' 9-output entries (K3 and K4 on resident rows,
+// K3 + K5, K4 and K11, and their seeded twins) are their routes' own
+// sources'. Its outputs take the mip hand-off's slots: t in depth, idx in
 // segmask, the material in code and z, uv x, uv y and the normal in the six
 // hand-off planes.
 //
@@ -87,23 +89,23 @@ struct NoneArgs {
 };
 
 // One variant on K1's grid and shared memory (without the cluster table
-// when not culled: CC is 0 there).
+// when not culled: CC is 0 there); K1's culled sweep only in the 9-output
+// mode (its other entries are csrc/render_resident.cu's and
+// csrc/render_seeded.cu's).
 struct NoneRoute {
+  static constexpr bool kNine = true;
   template <int GEO, bool RASTER, int TEX>
   static int run(const RenderArgs& a, const NoneArgs& v, int num_views,
                  cudaStream_t stream) {
-    constexpr bool kShadows = GEO == kGeoRawShadows || GEO == kGeoRawWtShadows;
     const size_t smem = resident_smem<GEO>(a);
-    if constexpr (TEX == kTexNine && kShadows) {
-      return (int)cudaErrorInvalidValue;  // the epilogue traces the shadows
-    } else if constexpr (RASTER) {
+    if constexpr (RASTER) {
       if (v.seed != nullptr) return (int)cudaErrorInvalidValue;  // K9 raytraces only
       if (!v.culled)
         return launch_grid(render_none_kernel<GEO, true, TEX>, a, num_views, smem, stream, a);
       if constexpr (TEX == kTexNine)
         return launch_grid(render_resident_nine_kernel<GEO, true>, a, num_views, smem,
                            stream, a);
-      return (int)cudaErrorInvalidValue;  // K1's other entries are its own source's
+      return (int)cudaErrorInvalidValue;
     } else {
       if (!v.culled) {
         if (v.seed == nullptr)
@@ -123,21 +125,6 @@ struct NoneRoute {
     }
   }
 };
-
-template <int GEO, bool RASTER>
-int launch_none_tex(const RenderArgs& a, const NoneArgs& v, int num_views, int tex_filter,
-                    cudaStream_t stream) {
-  if (tex_filter == kTexNine)
-    return NoneRoute::run<GEO, RASTER, kTexNine>(a, v, num_views, stream);
-  return launch_tex<NoneRoute, GEO, RASTER>(a, v, num_views, tex_filter, stream);
-}
-
-template <int GEO>
-int launch_none_raster(const RenderArgs& a, const NoneArgs& v, int num_views, int raster,
-                       int tex_filter, cudaStream_t stream) {
-  return raster ? launch_none_tex<GEO, true>(a, v, num_views, tex_filter, stream)
-                : launch_none_tex<GEO, false>(a, v, num_views, tex_filter, stream);
-}
 
 }  // namespace
 
@@ -165,23 +152,8 @@ int mrt_render_none(const float* rows, const float* clusters, const float* cams,
                                    cluster_size, n_cols, n_lights, height, width,
                                    seg_div, two_over_w, two_over_h, tex_filter);
   if (culled && clusters == nullptr) return (int)cudaErrorInvalidValue;
-  if ((geo == kGeoRawShadows || geo == kGeoRawWtShadows) && n_lights > 32)
-    return (int)cudaErrorInvalidValue;
-  const NoneArgs v{seed, culled != 0};
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (geo) {
-    case kGeoPrep:
-      return launch_none_raster<kGeoPrep>(a, v, num_views, raster, tex_filter, s);
-    case kGeoRaw:
-      return launch_none_raster<kGeoRaw>(a, v, num_views, raster, tex_filter, s);
-    case kGeoRawShadows:
-      return launch_none_raster<kGeoRawShadows>(a, v, num_views, raster, tex_filter, s);
-    case kGeoRawWt:
-      return launch_none_raster<kGeoRawWt>(a, v, num_views, raster, tex_filter, s);
-    case kGeoRawWtShadows:
-      return launch_none_raster<kGeoRawWtShadows>(a, v, num_views, raster, tex_filter, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch_variant<NoneRoute>(a, NoneArgs{seed, culled != 0}, num_views, geo, raster,
+                                   tex_filter, (cudaStream_t)stream);
 }
 
 const char* mrt_error_string(int err) {

@@ -46,7 +46,13 @@
 //     for csrc/shade_mip.cu, which picks each pixel's mip level, applies the
 //     per-tile window clamp and samples (:3203-3663): the material and the
 //     hit flags, uv, the footprint t * (2/height) * tan_y * density (:3237)
-//     and the three lambert sums (shadows applied).
+//     and the three lambert sums (shadows applied). TEX = nine (the
+//     factory's shaded = False outputs, :3664-3670, for the textured pools
+//     render_core does not shade in the kernel) stops before the shading
+//     and writes t, z, idx, the material, uv and the normal, unmasked, for
+//     the epilogue (raytrace_cuda.frames_from_core); every culled visit has
+//     it, each route in its own source (here the streamed ordered walk's;
+//     K1's and K1-none's in csrc/render_none.cu).
 // The plain PyTorch version is ops/raytrace_cuda.py::render_resident_plain;
 // both compute the same expressions in the same order, so with --fmad=false
 // (no mul+add contraction) and IEEE divide/sqrt the two agree bit for bit.
@@ -118,7 +124,7 @@
 // reads in the sweeps), the winner's attributes, the material row and the
 // texels read from global memory once per pixel. No wgmma or TMA: the work
 // is scalar per pixel. The three switches and the route (STREAM) are
-// template parameters, so each of the 80 variants compiles to its own kernel
+// template parameters, so each of the 86 variants compiles to its own kernel
 // with no runtime branch on them. K10's block keeps 10 rows per triangle in
 // shared memory (a, b, c and the validity: 120 KB at the budget's 3,072
 // triangles, where K1-raw's 16 rows take 192 KB); its resolve and its
@@ -245,9 +251,9 @@ constexpr int kTexNone = 0;
 constexpr int kTexNearest = 1;
 constexpr int kTexBilinear = 2;
 constexpr int kTexMip = 3;
-// The 9-output mode (csrc/render_none.cu's entries): the unshaded outputs
-// t, z, idx, mat, uv and the normal, written unmasked for the shading
-// epilogue.
+// The 9-output mode: the unshaded outputs t, z, idx, mat, uv and the
+// normal, written unmasked for the shading epilogue; its entries are each
+// route's own (launch_tex: HasNine).
 constexpr int kTexNine = 4;
 // Hand-off code bits above the material id.
 constexpr int kFoundBit = 1 << 16;
@@ -1491,10 +1497,21 @@ int launch_grid(void (*kernel)(Params...), const RenderArgs& a, int num_views,
   return (int)cudaGetLastError();
 }
 
+// Whether a route has entries in the 9-output mode: it opts in with
+// `static constexpr bool kNine = true`, so that the mode is instantiated
+// only in the sources whose routes declare it (a case for every route would
+// instantiate it in every translation unit that includes this file).
+template <class Route, class = void>
+struct HasNine : std::false_type {};
+template <class Route>
+struct HasNine<Route, std::void_t<decltype(Route::kNine)>>
+    : std::bool_constant<Route::kNine> {};
+
 // The variant dispatch of the C entries, this file's and those of the
 // sources that include it: Route::run<GEO, RASTER, TEX>(a, x, num_views,
 // stream) launches one instantiation with the route's own entry argument x
-// (StreamArgs, BinArgs, or either with K9's seed: Seeded).
+// (StreamArgs, BinArgs, or either with K9's seed: Seeded). The 9-output
+// mode runs without the in-kernel shadow rays (the epilogue traces them).
 template <class Route, int GEO, bool RASTER, class Extra>
 int launch_tex(const RenderArgs& a, const Extra& x, int num_views, int tex_filter,
                cudaStream_t stream) {
@@ -1507,6 +1524,11 @@ int launch_tex(const RenderArgs& a, const Extra& x, int num_views, int tex_filte
       return Route::template run<GEO, RASTER, kTexBilinear>(a, x, num_views, stream);
     case kTexMip:
       return Route::template run<GEO, RASTER, kTexMip>(a, x, num_views, stream);
+    case kTexNine:
+      if constexpr (HasNine<Route>::value && GEO != kGeoRawShadows &&
+                    GEO != kGeoRawWtShadows)
+        return Route::template run<GEO, RASTER, kTexNine>(a, x, num_views, stream);
+      break;
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1564,14 +1586,21 @@ RenderArgs render_args(const float* rows, const float* clusters, const float* ca
 // and csrc/render_dmxu.cu include this file for the above and bring their
 // own entry point, route and C interface.
 #ifndef MRT_RENDER_BODY_ONLY
-// The resident route, or with s.order the streamed route's ordered visit.
+// The resident route, or with s.order the streamed route's ordered visit;
+// the 9-output mode on the streamed visit only (K1's 9-output entries are
+// csrc/render_none.cu's).
 struct ResidentRoute {
+  static constexpr bool kNine = true;
   template <int GEO, bool RASTER, int TEX>
   static int run(const RenderArgs& a, const StreamArgs& s, int num_views,
                  cudaStream_t stream) {
-    if (s.order == nullptr)
-      return launch_grid(render_resident_kernel<GEO, RASTER, TEX>, a, num_views,
-                         resident_smem<GEO>(a), stream, a);
+    if constexpr (TEX != kTexNine) {
+      if (s.order == nullptr)
+        return launch_grid(render_resident_kernel<GEO, RASTER, TEX>, a, num_views,
+                           resident_smem<GEO>(a), stream, a);
+    } else if (s.order == nullptr) {
+      return (int)cudaErrorInvalidValue;
+    }
     return launch_grid(render_streamed_kernel<GEO, RASTER, TEX>, a, num_views,
                        streamed_smem<GEO>(a), stream, a, s);
   }
@@ -1587,11 +1616,13 @@ extern "C" {
 // caller's current device: geo is 0 (prep rows), 1 (raw rows), 2 (raw rows
 // with shadows, at most 32 lights), 3 (raw rows, the watertight decision)
 // or 4 (3 with shadows); tex_filter is 0 (untextured), 1
-// (nearest), 2 (bilinear) or 3 (the mip hand-off, written to code and
-// handoff instead of rgb); mats/pool may be null unless it is 1 or 2, and
-// rgb when it is 3, code/handoff unless it is 3. With order and spans (both
-// or neither) the streamed route runs: rows, cluster_size and S must keep
-// every cluster's rows 16-byte aligned.
+// (nearest), 2 (bilinear), 3 (the mip hand-off, written to code and
+// handoff instead of rgb) or 4 (the 9-output mode, geo 0, 1 or 3, streamed
+// only: t in depth, idx in segmask, the material in code, and z, uv x,
+// uv y, nx, ny, nz in the six planes of handoff); mats/pool may be null
+// unless it is 1 or 2, and rgb when it is 3 or 4, code/handoff unless it is
+// 3 or 4. With order and spans (both or neither) the streamed route runs:
+// rows, cluster_size and S must keep every cluster's rows 16-byte aligned.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unknown variant.
 int mrt_render_resident(const float* rows, const float* clusters,

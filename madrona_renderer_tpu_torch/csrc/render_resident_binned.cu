@@ -21,7 +21,10 @@
 // triangle index, so the frames are the index-order sweep's
 // (raytrace_cuda.render_resident_plain), bit for bit. There are no row
 // spans, row sort or triangle ranges on the resident route (the JAX package
-// builds them for its deferred sweep only, :4373-4378, :4402-4410).
+// builds them for its deferred sweep only, :4373-4378, :4402-4410). Every
+// mode of K1 has its entry here, and the 9-output mode (:3664-3670) on the
+// prep, raw and K10 rows, raytrace and raster, its raytrace entries seeded
+// too.
 //
 // Bound on an H100: as K3 on resident rows (csrc/render_resident_ordered.cu),
 // over the bin's clusters; chip_smoke.py counts the walk's work, with the bin
@@ -52,6 +55,7 @@ render_resident_binned_seeded_kernel(const RenderArgs a, const BinArgs b,
 
 // K4's resident launch of one variant: K1's grid and shared memory.
 struct ResidentBinnedRoute {
+  static constexpr bool kNine = true;
   template <int GEO, bool RASTER, int TEX>
   static int run(const RenderArgs& a, const Seeded<BinArgs>& v, int num_views,
                  cudaStream_t stream) {
@@ -77,7 +81,9 @@ extern "C" {
 // height, width] f32, K9; raytrace variants only) unless it is null, with
 // mrt_render_resident's arguments but for the visit: bins [num_views,
 // n_bins, 1 + CC], the bin of block (bx, by) being
-// (by >> bin_shift) * bins_x + (bx >> bin_shift). Returns cudaGetLastError()
+// (by >> bin_shift) * bins_x + (bx >> bin_shift); tex_filter 4 is the
+// 9-output mode (geo 0, 1 or 3), written as in mrt_render_none. Returns
+// cudaGetLastError()
 // after the launch (0 on success), or cudaErrorInvalidValue for an unknown
 // variant or missing bins.
 int mrt_render_resident_binned(const float* rows, const float* clusters,

@@ -20,6 +20,10 @@
 // lower triangle index, so the frames are the index-order sweep's
 // (raytrace_cuda.render_resident_plain), bit for bit. With K9's seed each
 // pixel's search starts at min(seed, far), which lets the walk stop sooner.
+// Every mode of K1 has its entry here, and the 9-output mode (the factory's
+// shaded = False outputs, :3664-3670) on the prep, raw and K10 rows, raytrace
+// and raster, its raytrace entries seeded too: the same walk, then the
+// winner's t, z, idx, material, uv and normal, unmasked, for the epilogue.
 //
 // Bound on an H100: K1's per-pixel work (ray generation, resolve, shading)
 // plus, per position the block reaches, the approach distance and the exit
@@ -52,6 +56,7 @@ render_resident_ordered_seeded_kernel(const RenderArgs a, const StreamArgs s,
 
 // K3's launch of one variant: K1's grid and shared memory, and the order.
 struct OrderedRoute {
+  static constexpr bool kNine = true;
   template <int GEO, bool RASTER, int TEX>
   static int run(const RenderArgs& a, const Seeded<StreamArgs>& v, int num_views,
                  cudaStream_t stream) {
@@ -76,7 +81,8 @@ extern "C" {
 // the caller's current device, seeded by `seed` ([num_views, height, width]
 // f32, K9; raytrace variants only) unless it is null, with
 // mrt_render_resident's arguments but for the visit: order [num_views, CC], each view's
-// cluster visit order. Returns cudaGetLastError() after the launch (0 on
+// cluster visit order; tex_filter 4 is the 9-output mode (geo 0, 1 or 3),
+// written to depth, segmask, code and handoff as in mrt_render_none. Returns cudaGetLastError() after the launch (0 on
 // success), or cudaErrorInvalidValue for an unknown variant or a missing
 // order.
 int mrt_render_resident_ordered(const float* rows, const float* clusters,

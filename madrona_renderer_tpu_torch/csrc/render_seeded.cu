@@ -24,7 +24,9 @@
 // Bound on an H100: the cold variant's, with the seed read once (4 bytes a
 // pixel) and its min (1 FP32 operation a thread); the walk's work is what the
 // seed leaves (chip_smoke.py replays it, seeded, with ops/walk_replay.py). The
-// design is the cold kernel's: the seed changes one initial value.
+// design is the cold kernel's: the seed changes one initial value. The
+// streamed walks' 9-output entries (prep, raw and K10 rows) are seeded here
+// too; K1's seeded 9-output entries are csrc/render_none.cu's.
 
 #define MRT_RENDER_BODY_ONLY
 #include "render_resident.cu"
@@ -62,6 +64,7 @@ struct Visits {
 
 // K9's launch of one variant, on its route's grid and shared memory.
 struct SeededRoute {
+  static constexpr bool kNine = true;  // the streamed walks' only
   template <int GEO, bool RASTER, int TEX>
   static int run(const RenderArgs& a, const Seeded<Visits>& v, int num_views,
                  cudaStream_t stream) {
@@ -74,8 +77,12 @@ struct SeededRoute {
       if (v.x.s.order != nullptr)
         return launch_grid(render_streamed_seeded_kernel<GEO, TEX>, a, num_views,
                            streamed_smem<GEO>(a), stream, a, v.x.s, v.seed);
-      return launch_grid(render_resident_seeded_kernel<GEO, TEX>, a, num_views,
-                         resident_smem<GEO>(a), stream, a, v.seed);
+      if constexpr (TEX == kTexNine) {
+        return (int)cudaErrorInvalidValue;
+      } else {
+        return launch_grid(render_resident_seeded_kernel<GEO, TEX>, a, num_views,
+                           resident_smem<GEO>(a), stream, a, v.seed);
+      }
     }
   }
 };
@@ -88,7 +95,8 @@ extern "C" {
 // `stream`, on the caller's current device, with mrt_render_binned's
 // arguments and `seed` ([num_views, height, width] f32): with bins, spans
 // and (geo 0 only) ranges the streamed binned walk, with order and spans the
-// streamed ordered walk, with neither K1's index order. Returns
+// streamed ordered walk, with neither K1's index order; tex_filter 4 (the
+// 9-output mode, geo 0, 1 or 3) on the streamed walks only. Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unknown variant, a raster one, a missing seed
 // or visit input.

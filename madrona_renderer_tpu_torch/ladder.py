@@ -268,17 +268,19 @@ def bench_256w(warmup: int = 2, steps: int = 10) -> dict:
 # --------------------------------------------------------------------- #
 # Running the rungs
 # --------------------------------------------------------------------- #
-def run_ladder(timeout: float = RUNG_TIMEOUT_S, out=print) -> list:
-    """Every rung in order, each in a fresh ``python -m`` process with
-    ``timeout`` seconds, stopping at the first failure or hang. Returns one
-    dict a rung run: ``rung``, ``ok``, ``seconds`` and what the rung
-    reported (``launches`` of the probes, ``views_per_s``) or, on failure,
-    ``error`` (the process's last output)."""
+def run_ladder(timeout: float = RUNG_TIMEOUT_S, out=print, rungs=RUNGS) -> list:
+    """Every rung of ``rungs`` in order (all of them unless a caller runs
+    the ladder in parts: the first four need no render library), each in a
+    fresh ``python -m`` process with ``timeout`` seconds, stopping at the
+    first failure or hang. Returns one dict a rung run: ``rung``, ``ok``,
+    ``seconds`` and what the rung reported (``launches`` of the probes,
+    ``views_per_s``) or, on failure, ``error`` (the process's last
+    output)."""
     env = dict(os.environ)
     root = str(_build.PACKAGE.parent)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     results = []
-    for rung in RUNGS:
+    for rung in rungs:
         t0 = time.perf_counter()
         try:
             proc = subprocess.run([sys.executable, "-u", "-m", _MODULE, rung], env=env,
@@ -299,7 +301,7 @@ def run_ladder(timeout: float = RUNG_TIMEOUT_S, out=print) -> list:
         results.append({"rung": rung, "ok": True, "seconds": dt, **info})
         extra = "\n".join(lines[:-1])
         out(f"ok {rung} ({dt:.1f}s)" + (f"\n{extra}" if extra else ""))
-    out("ALL RUNGS PASS")
+    out("ALL RUNGS PASS" if tuple(rungs) == RUNGS else f"RUNGS {', '.join(rungs)} PASS")
     return results
 
 

@@ -96,13 +96,11 @@ rows, shaded on untextured scenes, else in the 9-output mode. Where the JAX
 package does not shade in the kernel (``output_mode``: textured pools past
 the in-kernel route's 16,384 texels or 128 materials without mips, textured
 scenes and shadows under ``accel="mxu"``), the kernel writes t, z, idx, the
-material, uv and the normal (the 9-output mode, ``texture="nine"``, on K1
-and K1-none), and ``frames_from_core`` shades them
-(``shade.shade_lambert_planar``), with shadows through ``compute_lit``.
-
-Scenes outside these paths raise ``NotImplementedError`` naming the ROADMAP
-item that ports them (``pack_inputs``: the 9-output route on the ordered,
-binned and streamed visits).
+material, uv and the normal (the 9-output mode, ``texture="nine"``, on every
+visit: K1 and K1-none in ``csrc/render_none.cu``, K3 and K4 on resident rows,
+K3 + K5, K4 and K11 in their routes' own sources, each seeded too), and
+``frames_from_core`` shades them (``shade.shade_lambert_planar``), with
+shadows through ``compute_lit``.
 """
 
 from __future__ import annotations
@@ -330,9 +328,7 @@ def check_supported(state: SimState, scene: SceneData,
                     texture_filter: str = "nearest", accel: str = "auto") -> None:
     """Raise ``ValueError`` for a filter no route renders, and for the mip
     route's refusals (``render_core`` :4074-4096): mip-mapped pools with
-    ``accel="mxu"`` or past 128 materials. (The 9-output route off the index
-    and non-culled visits raises in ``pack_inputs``, which knows the
-    route.)"""
+    ``accel="mxu"`` or past 128 materials."""
     if is_textured(scene) and has_mips(scene):
         if texture_filter not in shade.MIP_FILTERS:
             raise ValueError(
@@ -842,9 +838,11 @@ def pack_inputs(
 
     The non-culled visit (``accel="none"``, or ``"auto"`` on tiny worlds:
     K1-none) takes no cluster table (``clusters`` None). Where the scene
-    takes the 9-output route (``output_mode``), ``texture`` is ``"nine"``
-    and the rows sweep without the in-kernel shadow rays (``geo`` ``"raw"``
-    or ``"raw_wt"`` under ``shadows``: the epilogue traces them).
+    takes the 9-output route (``output_mode``), ``texture`` is ``"nine"``,
+    on whatever visit the route takes (with that visit's inputs, the
+    streamed binned visit's row-sorted rows and ranges included), and the
+    rows sweep without the in-kernel shadow rays (``geo`` ``"raw"`` or
+    ``"raw_wt"`` under ``shadows``: the epilogue traces them).
     ``accel="mxu"`` returns ``render_batched``'s inputs instead: K13's raw
     rows and the camera rows, with ``nine`` the 9-output mode; ``watertight``
     raises there, as in the JAX package (:4426-4431).
@@ -860,12 +858,6 @@ def pack_inputs(
         raise ValueError(
             "watertight=True is not supported with accel='mxu' (the batched kernel "
             "has no per-pixel shear sweep) — use accel='auto' or the jnp path")
-    if mode == "nine" and route.visit not in ("index", "none", "mxu"):
-        raise NotImplementedError(
-            f"the 9-output route (a textured pool past the in-kernel route's "
-            f"{shade.TEX_MAX_TEXELS} texels or {shade.TEX_MAX_MATERIALS} materials, "
-            f"without mips) on the {'streamed ' if route.streamed else ''}{route.visit} "
-            "visit is not ported yet — ROADMAP Queue 1 #9")
     # Effective per-camera view parameters (0 = inherit the call defaults).
     eff_fov = torch.where(state.camera_fov > 0, state.camera_fov, fov_y_degrees)
     eff_near = torch.where(state.camera_znear > 0, state.camera_znear, near)
@@ -983,10 +975,11 @@ def library_of(route: Route, seeded: bool, texture=None, dmxu: bool = False) -> 
     """The csrc/ library of a launch: K9 on K1, K3 + K5 and K4 builds in
     ``render_seeded.cu``, the resident visits' seeded entries in their own
     sources; K1-none and K1's 9-output mode (cold and seeded) in
-    ``render_none.cu``; K11 (cold and seeded) in ``render_dmxu.cu``."""
+    ``render_none.cu``; K11 (cold and seeded) in ``render_dmxu.cu``. The
+    other visits' 9-output entries are their cold and seeded libraries'."""
     if dmxu:
         return "render_dmxu"
-    if texture == "nine":
+    if texture == "nine" and route == INDEX:
         return "render_none"
     if seeded and route in (INDEX, Route(True, "ordered"), Route(True, "binned")):
         return "render_seeded"
@@ -1052,9 +1045,19 @@ _STREAMED_ROUTES = (Route(True, "ordered"), Route(True, "binned"))
 DMXU_VARIANTS = (_route_variants(*_STREAMED_ROUTES, geos=_DMXU_GEOS, dmxu=True)
                  + _route_variants(*_STREAMED_ROUTES, seeded=True, geos=_DMXU_GEOS,
                                    dmxu=True))
+# The culled visits' 9-output entries, each in its route's own source: K3
+# and K4 on resident rows, K3 + K5 and K4 streamed, and K11 on both streamed
+# visits, seeded too.
+_CULLED_ROUTES = (Route(False, "ordered"), Route(False, "binned")) + _STREAMED_ROUTES
+CULLED_NINE_VARIANTS = (
+    _route_variants(*_CULLED_ROUTES, textures=("nine",))
+    + _route_variants(*_CULLED_ROUTES, seeded=True, textures=("nine",))
+    + _route_variants(*_STREAMED_ROUTES, textures=("nine",), geos=_DMXU_GEOS, dmxu=True)
+    + _route_variants(*_STREAMED_ROUTES, seeded=True, textures=("nine",), geos=_DMXU_GEOS,
+                      dmxu=True))
 RENDER_VARIANTS = (VARIANTS + BINNED_VARIANTS + RESIDENT_ORDERED_VARIANTS
                    + RESIDENT_BINNED_VARIANTS + SEEDED_VARIANTS + NONE_VARIANTS
-                   + NINE_VARIANTS + DMXU_VARIANTS)
+                   + NINE_VARIANTS + DMXU_VARIANTS + CULLED_NINE_VARIANTS)
 
 
 def batched_name(raster: bool, nine: bool) -> str:
@@ -1151,10 +1154,9 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
         raise ValueError(f"geo must be one of {tuple(_GEO_CODES)}, got {geo!r}")
     if rowskip and not dmxu:
         raise ValueError("rowskip is K11's row gate: it needs dmxu")
-    if dmxu and (spans is None or geo not in _DMXU_GEOS or ranges is not None
-                 or texture == "nine"):
+    if dmxu and (spans is None or geo not in _DMXU_GEOS or ranges is not None):
         raise ValueError(f"K11 (dmxu) runs on the streamed visits (spans) on {_DMXU_GEOS} "
-                         "rows, unsorted (no ranges), shaded in the kernel")
+                         "rows, unsorted (no ranges)")
     if geo == "prep" and num_cams != 1:
         raise ValueError("the prep rows bake in one camera origin: num_cams must be 1")
     if geo in _SHADOW_GEOS and n_lights > _MAX_SHADOW_LIGHTS:
@@ -1168,8 +1170,6 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
         if geo not in _NINE_GEOS or mats is not None or pool is not None or fb_rows is not None:
             raise ValueError(f"the 9-output mode sweeps {_NINE_GEOS} rows and samples "
                              "nothing (its shadows and texture are the epilogue's)")
-        if route_of(order, spans, bins, clusters is not None) not in (INDEX, NONE):
-            raise ValueError("the 9-output mode runs on the index and non-culled sweeps")
     elif texture is not None:
         filters = shade.FILTERS if fb_rows is None else shade.MIP_FILTERS
         if texture not in filters:
@@ -1224,8 +1224,8 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
     """The render kernel. Returns ``(depth f32, segmask i32, rgb i32-packed)``,
     each ``[W·C, height, width]``, in their final masked form: depth is t
     (raster: camera-plane z), segmask idx // seg_div (raster: -1). With
-    ``texture="nine"`` (the 9-output mode, on the index and non-culled
-    sweeps, ``csrc/render_none.cu``) it returns the JAX kernel's unshaded
+    ``texture="nine"`` (the 9-output mode, on every visit, each in its
+    route's library: ``library_of``) it returns the JAX kernel's unshaded
     outputs instead, unmasked: ``(t, z, idx, mat, uvx, uvy, nx, ny, nz)``
     (t and z 0 and idx -1 on a miss, mat i32; the normal flipped toward the
     viewer), for ``frames_from_core``'s epilogue. ``clusters`` None: the
@@ -1568,13 +1568,51 @@ def plain_triangle_test(dx, dy, dz, tri_rows, near, best_t=None, origin=None,
     return ok, t, u, v
 
 
+class PlainHits(NamedTuple):
+    """The plain sweep's per-pixel result, each ``[W·C, H·Wd]``: the best t
+    (far, or the seed's bound, where nothing was accepted), the winner's
+    index (-1 on a miss), its carried (u, v) (raw rows; else 0), and with
+    shadows each light's occlusion (a tuple of bool planes)."""
+
+    best_t: torch.Tensor
+    best_idx: torch.Tensor
+    best_u: torch.Tensor
+    best_v: torch.Tensor
+    occluded: tuple
+
+
+def _plain_rows(rows, cams, num_cams: int, geo: str, ranges, dmxu: bool) -> tuple:
+    """The rows the plain version sweeps: row-sorted rows (the binned
+    route's ``ranges``) put back in triangle order, K11's raw rows as each
+    view's D, A, Q and t_num (``dmxu_rows``); with their ``num_cams`` and
+    ``geo``."""
+    if ranges is not None:
+        rows = _index_order_rows(rows)
+    if dmxu and geo == "raw":
+        return dmxu_rows(rows, cams, num_cams), 1, "prep"
+    return rows, num_cams, geo
+
+
+def plain_hits(rows, clusters, cams, *, num_cams: int, n_lights: int, height: int,
+               width: int, raster: bool = False, geo: str = "prep", ranges=None,
+               seed=None, dmxu=False, **_) -> PlainHits:
+    """The sweep of ``render_resident_plain`` and ``render_handoff_plain``
+    on these inputs (their keyword arguments; the texture mode is the
+    resolve's): passed to either as ``hits``, it lets several texture modes
+    of the same rows, cameras and seed share one sweep."""
+    del clusters
+    rows, num_cams, geo = _plain_rows(rows, cams, num_cams, geo, ranges, dmxu)
+    return _plain_sweep(rows, cams, num_cams=num_cams, n_lights=n_lights, height=height,
+                        width=width, raster=raster, geo=geo, seed=seed)
+
+
 def render_resident_plain(rows, clusters, cams, *, num_cams: int,
                           n_lights: int, height: int, width: int,
                           seg_div: int, raster: bool = False, texture=None,
                           mats=None, pool=None, geo: str = "prep",
                           fb_rows=None, order=None, spans=None, bins=None,
                           ranges=None, bin_tile=None, seed=None, dmxu=False,
-                          rowskip=False):
+                          rowskip=False, hits=None):
     """The kernel in torch ops, on any device: the same expressions in the
     same order, with no cluster cull (the culls only skip work). A loop over
     the S triangles in ascending chunks carries (best_t, best_idx) — and on
@@ -1590,14 +1628,12 @@ def render_resident_plain(rows, clusters, cams, *, num_cams: int,
     binned route's ``ranges``) are put back in triangle order first. K11
     (``dmxu``) on raw rows sweeps each view's D, A, Q and t_num
     (``dmxu_rows``), as the kernel forms them; its row gate (``rowskip``)
-    only skips work."""
+    only skips work. ``hits``: ``plain_hits`` of the same inputs, the sweep
+    done already."""
     del clusters, order, spans, bins, bin_tile, rowskip  # the plain version sweeps every triangle
-    if ranges is not None:
-        rows = _index_order_rows(rows)
-    if dmxu and geo == "raw":
-        rows, num_cams, geo = dmxu_rows(rows, cams, num_cams), 1, "prep"
+    rows, num_cams, geo = _plain_rows(rows, cams, num_cams, geo, ranges, dmxu)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height, width=width,
-              seg_div=seg_div, raster=raster, geo=geo, seed=seed)
+              seg_div=seg_div, raster=raster, geo=geo, seed=seed, hits=hits)
     if fb_rows is None:
         return _render_plain(rows, cams, texture=texture, mats=mats, pool=pool,
                              **kw)
@@ -1611,16 +1647,14 @@ def render_handoff_plain(rows, clusters, cams, *, num_cams: int, n_lights: int,
                          height: int, width: int, seg_div: int,
                          raster: bool = False, geo: str = "prep", order=None,
                          spans=None, bins=None, ranges=None, bin_tile=None, seed=None,
-                         dmxu=False, rowskip=False):
-    """``render_handoff`` in torch ops, on any device."""
+                         dmxu=False, rowskip=False, hits=None):
+    """``render_handoff`` in torch ops, on any device (``hits`` as in
+    ``render_resident_plain``)."""
     del clusters, order, spans, bins, bin_tile, rowskip  # the plain version sweeps every triangle
-    if ranges is not None:
-        rows = _index_order_rows(rows)
-    if dmxu and geo == "raw":
-        rows, num_cams, geo = dmxu_rows(rows, cams, num_cams), 1, "prep"
+    rows, num_cams, geo = _plain_rows(rows, cams, num_cams, geo, ranges, dmxu)
     return _render_plain(rows, cams, num_cams=num_cams, n_lights=n_lights,
                          height=height, width=width, seg_div=seg_div,
-                         raster=raster, texture="mip", geo=geo, seed=seed)
+                         raster=raster, texture="mip", geo=geo, seed=seed, hits=hits)
 
 
 def dmxu_rows(rows: torch.Tensor, cams: torch.Tensor, num_cams: int) -> torch.Tensor:
@@ -1641,14 +1675,13 @@ def _plain_chunks(S: int, rays: int):
     return [(i, min(S, i + k)) for i in range(0, S, k)]
 
 
-def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
-                  raster, texture, geo, mats=None, pool=None, seed=None):
+def _plain_sweep(rows, cams, *, num_cams, n_lights, height, width, raster, geo,
+                 seed=None) -> PlainHits:
     W, _, S = rows.shape
     WC = W * num_cams
     dev = rows.device
     f32 = torch.float32
     raw = geo != "prep"
-    shadows = geo in _SHADOW_GEOS
     rows_v = rows[torch.arange(WC, device=dev) // num_cams]  # [WC, 40, S]
 
     def cam(k):  # camera column k → [WC, 1]
@@ -1686,6 +1719,46 @@ def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
             best_u = torch.where(take, torch.gather(u, 1, pick)[:, 0], best_u)
             best_v = torch.where(take, torch.gather(v, 1, pick)[:, 0], best_v)
 
+    occluded = []  # per light: the any-hit sweep from the hit points (K8)
+    if geo in _SHADOW_GEOS:
+        t_hit = torch.where(best_idx >= 0, best_t, 0.0)
+        hx = cam(0) + t_hit * dx
+        hy = cam(1) + t_hit * dy
+        hz = cam(2) + t_hit * dz
+        eps_sh = _F_SHADOW_EPS * (1.0 + t_hit)
+        for li in range(n_lights):
+            c0 = _CAM_LIGHT0 + 6 * li
+            sd = (-cam(c0), -cam(c0 + 1), -cam(c0 + 2))
+            sd = tuple(c[:, None] for c in sd)
+            occ = torch.zeros((WC, P), dtype=torch.bool, device=dev)
+            for i0, i1 in _plain_chunks(S, WC * P):
+                ok, _, _, _ = plain_triangle_test(
+                    *sd, rows_v[:, :_N_PREP_ROWS, i0:i1, None], eps_sh[:, None],
+                    origin=(hx[:, None], hy[:, None], hz[:, None]))
+                occ = occ | ok.any(1)
+            occluded.append(occ)
+    return PlainHits(best_t, best_idx, best_u, best_v, tuple(occluded))
+
+
+def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
+                  raster, texture, geo, mats=None, pool=None, seed=None, hits=None):
+    WC = rows.shape[0] * num_cams
+    dev = rows.device
+    f32 = torch.float32
+    raw = geo != "prep"
+    shadows = geo in _SHADOW_GEOS
+    rows_v = rows[torch.arange(WC, device=dev) // num_cams]  # [WC, 40, S]
+
+    def cam(k):  # camera column k → [WC, 1]
+        return cams[:, k:k + 1]
+
+    dx, dy, dz = plain_rays(cams, height, width)
+    cosf = dx * cam(6) + dy * cam(7) + dz * cam(8)
+    P = height * width
+    if hits is None:
+        hits = _plain_sweep(rows, cams, num_cams=num_cams, n_lights=n_lights,
+                            height=height, width=width, raster=raster, geo=geo, seed=seed)
+    best_t, best_idx, best_u, best_v, occluded = hits
     found = best_idx >= 0
     gidx = best_idx.clamp_min(0).long()
 
@@ -1726,24 +1799,6 @@ def _render_plain(rows, cams, *, num_cams, n_lights, height, width, seg_div,
     if texture == "nine":  # the unshaded outputs, unmasked (:2832-2834, :3664-3670)
         outs = (t_hit, z, best_idx, mat.to(torch.int32), u, v, nx, ny, nz)
         return tuple(x.reshape(WC, height, width) for x in outs)
-
-    occluded = []  # per light: the any-hit sweep from the hit points (K8)
-    if shadows:
-        hx = cam(0) + t_hit * dx
-        hy = cam(1) + t_hit * dy
-        hz = cam(2) + t_hit * dz
-        eps_sh = _F_SHADOW_EPS * (1.0 + t_hit)
-        for li in range(n_lights):
-            c0 = _CAM_LIGHT0 + 6 * li
-            sd = (-cam(c0), -cam(c0 + 1), -cam(c0 + 2))
-            sd = tuple(c[:, None] for c in sd)
-            occ = torch.zeros((WC, P), dtype=torch.bool, device=dev)
-            for i0, i1 in _plain_chunks(S, WC * P):
-                ok, _, _, _ = plain_triangle_test(
-                    *sd, rows_v[:, :_N_PREP_ROWS, i0:i1, None], eps_sh[:, None],
-                    origin=(hx[:, None], hy[:, None], hz[:, None]))
-                occ = occ | ok.any(1)
-            occluded.append(occ)
 
     n_inv = 1.0 / torch.sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, _F_TINY))
     s = [torch.zeros((WC, P), dtype=f32, device=dev) for _ in range(3)]

@@ -61,8 +61,9 @@ reconstructed as ``v0 + e1`` with up to 1-ulp disagreement between them.
 The render kernel is therefore watertight up to that reconstruction ulp;
 ``woop_intersect`` on explicit vertex arrays is exactly watertight. The
 JAX module's soup-level wrapper ``intersect_watertight`` works on the jnp
-reference's triangle soup (``raytrace_ref.build_world_soup``), which the
-port has no twin of yet: it waits for those twins (ROADMAP Queue 1 item 7).
+reference's triangle soup; the port has its twin of that soup
+(``raytrace_ref.build_world_soup``), but not of the wrapper, which no port
+route takes (ROADMAP Queue 1 item 10, the jnp reference path).
 """
 
 from __future__ import annotations

@@ -269,16 +269,18 @@ def terrain_mesh(n: int = 72, extent: float = 40.0, amp: float = 1.5) -> np.ndar
 
 
 def bigmesh_config(num_worlds: int, width: int = 64, height: int = 64,
-                   grid: int = 72, **extra) -> ManagerConfig:
+                   grid: int = 72, texture: str | None = None, **extra) -> ManagerConfig:
     """``bench.py``'s ``bigmesh_512w`` scene (``tools/tpu_bigmesh_bench.py``
     :44-90): per world the ``grid``² terrain (10,368 triangles at 72) at the
     origin and the cube scaled 2 at (0, 0, 2.5), one camera at (0, 14, 6)
-    pitched -0.25, raytraced."""
+    pitched -0.25, raytraced. With a ``texture`` (an image path) the
+    terrain's uvs are its xy / 8 and its material samples the texture."""
     terrain = terrain_mesh(grid)
     cube_v, _ = cube_mesh()
-    geo = _geo_from([terrain, cube_v], [np.zeros((len(m), 2), np.float32)
-                                        for m in (terrain, cube_v)], [0, 1])
-    mats = [AdditionalMaterial(color=(0.35, 0.5, 0.3, 1.0)),
+    uvs = [terrain[:, :2] / 8.0 if texture else np.zeros((len(terrain), 2), np.float32),
+           np.zeros((len(cube_v), 2), np.float32)]
+    geo = _geo_from([terrain, cube_v], uvs, [0, 1])
+    mats = [AdditionalMaterial(color=(0.35, 0.5, 0.3, 1.0), texture_id=0 if texture else -1),
             AdditionalMaterial(color=(0.9, 0.3, 0.2, 1.0))]
     ps, pc = math.sin(-0.25 / 2), math.cos(-0.25 / 2)
     instances, cameras, worlds = [], [], []
@@ -294,21 +296,25 @@ def bigmesh_config(num_worlds: int, width: int = 64, height: int = 64,
         gpu_id=0, num_worlds=num_worlds, render_mode=RenderMode.Raytracer,
         batch_render_view_width=width, batch_render_view_height=height,
         headless_mode=True,
-        rcfg=RenderConfig(geo_cfg=geo, additional_mats=mats, instances=instances,
-                          cameras=cameras, worlds=worlds),
+        rcfg=RenderConfig(geo_cfg=geo, additional_mats=mats,
+                          additional_textures=[texture] if texture else [],
+                          instances=instances, cameras=cameras, worlds=worlds),
         **extra,
     )
 
 
 def binned_terrain_config(num_worlds: int, width: int, height: int, grid: int = 224,
-                          **extra) -> ManagerConfig:
+                          texture: str | None = None, **extra) -> ManagerConfig:
     """``tools/tpu_binned_bench.py``'s scene (:37-88, also ``bench.py``'s
     health anchor, :505-546): per world the ``grid``² sine terrain over
     [-24, 24]² with amplitude 2 (100,352 triangles at 224) at the origin,
     colour (0.35, 0.5, 0.3), and one camera at (0, 20, 8) with rotation
-    (0, 0, sin(-0.175), cos(-0.175)), raytraced."""
+    (0, 0, sin(-0.175), cos(-0.175)), raytraced. With a ``texture`` (an
+    image path) the terrain's uvs are its xy / 8 and it samples the
+    texture."""
     terrain = terrain_mesh(grid, extent=24.0, amp=2.0)
-    geo = _geo_from([terrain], [np.zeros((len(terrain), 2), np.float32)], [0])
+    uvs = terrain[:, :2] / 8.0 if texture else np.zeros((len(terrain), 2), np.float32)
+    geo = _geo_from([terrain], [uvs], [0])
     ps, pc = math.sin(-0.35 / 2), math.cos(-0.35 / 2)
     instances, cameras, worlds = [], [], []
     for w in range(num_worlds):
@@ -322,7 +328,9 @@ def binned_terrain_config(num_worlds: int, width: int, height: int, grid: int = 
         batch_render_view_width=width, batch_render_view_height=height,
         headless_mode=True,
         rcfg=RenderConfig(geo_cfg=geo,
-                          additional_mats=[AdditionalMaterial(color=(0.35, 0.5, 0.3, 1.0))],
+                          additional_mats=[AdditionalMaterial(color=(0.35, 0.5, 0.3, 1.0),
+                                                              texture_id=0 if texture else -1)],
+                          additional_textures=[texture] if texture else [],
                           instances=instances, cameras=cameras, worlds=worlds),
         **extra,
     )

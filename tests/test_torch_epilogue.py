@@ -13,8 +13,9 @@ port's is correctly rounded), ``compute_lit`` / ``shadow_occlusion``; the
 route's frames against the JAX Pallas kernel in interpret mode and the jnp
 reference at tests/test_pallas_parity.py's bar (rgb within ±1 LSB, depth
 rtol = atol = 1e-5, segmask exact), nearest and bilinear, with shadows and
-rasterized; the refusal off the index and non-culled sweeps; the warm start
-on the route.
+rasterized; the resident binned visit (K4 on resident rows), which raised
+until the culled visits' 9-output mode was ported; the warm start on the
+route.
 """
 
 import jax
@@ -118,15 +119,24 @@ def test_nine_output_route_rasterized(tmp_path):
 
 
 def test_nine_output_route_refusals_and_warm_start(tmp_path):
-    """Off the index and non-culled sweeps the 9-output mode raises naming
-    its ROADMAP entry; the warm start on it is bitwise a cold render."""
-    (_, _), (t_state, t_scene) = _built(tmp_path)
+    """Off the index sweep (the scene's 2 clusters a world bin under
+    accel="binned": K4 on resident rows) the 9-output mode, which raised
+    until that visit's entries were ported, renders the JAX package's
+    frames (the jnp reference and the Pallas kernel's binned visit in
+    interpret mode); the warm start on the route is bitwise a cold
+    render."""
+    (j_state, j_scene), (t_state, t_scene) = _built(tmp_path)
     kw = dict(height=32, width=32)
     for accel in ("clusters", "binned"):  # a resident world of 2 clusters
         route = trc.visit_route(t_state, t_scene, 32, 32, accel)
         if route.visit != "index":
-            with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-                trc.raytrace(t_state, t_scene, accel=accel, **kw)
+            assert route == trc.Route(False, "binned")
+            inputs = trc.pack_inputs(t_state, t_scene, accel=accel, **kw)
+            assert inputs["texture"] == "nine" and inputs["bins"] is not None
+            port = trc.raytrace(t_state, t_scene, accel=accel, **kw)
+            assert_frames_close(j_ref_frames(j_state, j_scene, False, kw), port)
+            assert_frames_close(j_pallas(j_state, j_scene, interpret=True, accel=accel, **kw),
+                                port)
     cold = trc.raytrace(t_state, t_scene, shadows=True, **kw)
     prev = torch.where(cold.depth > 0, cold.depth * 0.8, 1000.0)
     warm = warmstart.raytrace_warmstart(t_state, t_scene, prev_depth=prev, shadows=True, **kw)

@@ -199,11 +199,16 @@ def test_cuda_tensor_never_falls_back():
         with pytest.raises(ValueError, match="cuda or cpu"):
             raytrace_cuda.render_batched(rows, cams, num_cams=1, n_lights=1, height=8,
                                          width=8, nine=nine)
-    # K11 on either streamed visit.
+    # K11 on either streamed visit; the 9-output mode on the culled visits.
+    for texture in (None, "nine"):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            raytrace_cuda.render_resident(rows, clusters, cams, num_cams=1, n_lights=1,
+                                          height=8, width=8, seg_div=8, order=order,
+                                          spans=spans, dmxu=True, texture=texture)
     with pytest.raises(ValueError, match="cuda or cpu"):
         raytrace_cuda.render_resident(rows, clusters, cams, num_cams=1, n_lights=1,
                                       height=8, width=8, seg_div=8, order=order,
-                                      spans=spans, dmxu=True)
+                                      texture="nine")
 
 
 def test_every_kernel_source_has_a_signature():

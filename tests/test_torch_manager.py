@@ -128,6 +128,8 @@ PORTED = {
     "watertight": dict(watertight=True, textured=True, tex_size=32),
     "ssaa": dict(ssaa=2, textured=True, tex_size=32),
     "warmstart": dict(warmstart=True),
+    # num_devices of 0 or less: one device, as the JAX Manager runs it.
+    "num_devices_zero": dict(num_devices=0),
 }
 
 

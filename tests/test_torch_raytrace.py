@@ -131,8 +131,10 @@ def test_unsupported_scenes_raise():
     a world with two cameras, which raised until item 7 was ported, renders
     like the JAX package, and so does a texel pool past the in-kernel
     route's 128×128 texels, which raised until the 9-output route was
-    ported (its frames: the JAX package's 9-output route's); that route
-    off the index sweep raises naming its entry (Queue 1 #9)."""
+    ported (its frames: the JAX package's 9-output route's), on the index
+    sweep and, with 4+ clusters a world, on the ordered visit (K3 on
+    resident rows), which raised until that visit's 9-output mode was
+    ported."""
     import dataclasses
 
     spec = random_spec(3)
@@ -154,9 +156,13 @@ def test_unsupported_scenes_raise():
                         port)
     big = spec_from_config(demo_config(2, RenderMode.Raytracer, 16, 16))
     big.meshes[0] = np.concatenate([big.meshes[0]] * 40)
-    b_state, b_scene = big.build_torch()
-    b_textured = dataclasses.replace(
-        b_scene, tex_data=b_scene.tex_data.repeat(128 * 128 + 1, 1))
+    big.uvs[0] = np.concatenate([big.uvs[0]] * 40)
+    j_state, j_scene = big.build_jax()
+    j_textured = dataclasses.replace(
+        j_scene, tex_data=jnp.tile(j_scene.tex_data, (128 * 128 + 1, 1)))
+    b_state, b_textured = carry_over(j_state, j_textured)
     assert trc.visit_route(b_state, b_textured, 16, 16).visit == "ordered"
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        trc.raytrace(b_state, b_textured, height=16, width=16)
+    kw = trc.pack_inputs(b_state, b_textured, height=16, width=16)
+    assert kw["texture"] == "nine" and kw["order"] is not None
+    port = trc.raytrace(b_state, b_textured, height=16, width=16)
+    assert_frames_close(j_ref(j_state, j_textured, height=16, width=16), port)

@@ -156,8 +156,9 @@ def test_resident_route_names_and_inputs():
     """The resident visits' variants and launch inputs: 40 entries each,
     100 seeded (K9) over the five routes of K1's source and the visits';
     300 such entries, and with K1-none's 69 and K1's 9-output mode's 9
-    (csrc/render_none.cu) 378, with K11's 48 (csrc/render_dmxu.cu) 426; a
-    resident visit takes no spans,
+    (csrc/render_none.cu) 378, with K11's 48 (csrc/render_dmxu.cu) 426, with
+    the culled visits' 48 9-output entries 474; a resident visit takes no
+    spans,
     and rows past the resident budget need them."""
     assert len(trc.RESIDENT_ORDERED_VARIANTS) == len(trc.RESIDENT_BINNED_VARIANTS) == 40
     assert trc.variant_name(False, None, "prep", trc.Route(False, "ordered")) \
@@ -167,9 +168,10 @@ def test_resident_route_names_and_inputs():
     assert len(trc.SEEDED_VARIANTS) == 100 and not any("raster" in n
                                                        for n in trc.SEEDED_VARIANTS)
     assert "render_streamed_seeded_raw_tex_bilinear" in trc.SEEDED_VARIANTS
-    assert len(set(trc.RENDER_VARIANTS)) == 426
+    assert len(set(trc.RENDER_VARIANTS)) == 474 and len(trc.CULLED_NINE_VARIANTS) == 48
     assert len(set(trc.RENDER_VARIANTS) - set(trc.NONE_VARIANTS + trc.NINE_VARIANTS
-                                              + trc.DMXU_VARIANTS)) == 300
+                                              + trc.DMXU_VARIANTS
+                                              + trc.CULLED_NINE_VARIANTS)) == 300
     _, (t_state, t_scene) = _built("terrain27")
     kw = trc.pack_inputs(t_state, t_scene, height=32, width=32)
     assert kw["order"].shape == (2, kw["clusters"].shape[2]) and kw["spans"] is None
