@@ -136,7 +136,10 @@ printed as JSON lines:
                                   step's inputs bitwise equal to the plain
                                   version and the exports, each timed step's inputs
                                   through the three at the kernel entry (the
-                                  A/B), the replayed walks' work;
+                                  A/B), the replayed walks' work, and a
+                                  ``resident_occupancy`` line: the path
+                                  entry's tile groups, threads, registers,
+                                  shared memory, blocks and warps per SM;
                  binned_32w_128, binned_32w_256, terrain_32w_512
                                   tools/tpu_binned_bench.py's scene (32
                                   worlds of the 100,352-triangle terrain)
@@ -204,8 +207,9 @@ printed as JSON lines:
                                   kernel entry, the nine planes bitwise;
                  resident_terrain_4096w_64_tex256 resident_terrain_4096w_64
                                   textured the same way: K3's 9-output mode on
-                                  resident rows; each step's state through K4
-                                  on resident rows (accel="binned") too;
+                                  resident rows (a ``resident_occupancy``
+                                  line); each step's state through K4 on
+                                  resident rows (accel="binned") too;
                these two with the kernel and the epilogue on the last step's
                inputs equal to the exports, the device time, idle share and
                epilogue time, and both visits against the plain version at
@@ -2623,6 +2627,7 @@ def main() -> int:
             if not all(torch.equal(o, e) for o, e in zip(out, exported)):
                 raise AssertionError(f"{path}: the {v} visit differs from the exports")
         emit({"phase": "visits_vs_k1", "case": path, "visits": 3, "bitwise": True})
+        emit({"phase": "resident_occupancy", "case": path, **rc.resident_occupancy(kw)})
         if not torch.isfinite(exported[0]).all() or not bool((exported[0] > 0).any()):
             raise AssertionError(f"{path}: depth not finite or empty")
         check_pack(path, r.state, r.scene, r.state.camera_pos[:, 0, :])
@@ -3161,6 +3166,7 @@ def main() -> int:
     clear_plain()
     kw, outs = core_checks(path, r, res, memo=(path,))
     timing_kw[name] = kw
+    emit({"phase": "resident_occupancy", "case": path, **rc.resident_occupancy(kw)})
     kw_b = path_inputs(r, accel="binned")
     check_render(path, kw_b, keep=True, memo=(path,))
     clear_plain()

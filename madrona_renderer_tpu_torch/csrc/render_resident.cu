@@ -128,10 +128,11 @@
 // with no runtime branch on them. K10's block keeps 10 rows per triangle in
 // shared memory (a, b, c and the validity: 120 KB at the budget's 3,072
 // triangles, where K1-raw's 16 rows take 192 KB); its resolve and its
-// shadow sweep read the raw rows from global memory (L1/L2). Left for a later change: several views
-// per block and persistent blocks, to amortise the per-block setup; the
-// shadow sweep's per-light pvec, det and 1/det, which are per-triangle
-// scalars, hoisted per block.
+// shadow sweep read the raw rows from global memory (L1/L2). The resident
+// visits (K3 and K4 on resident rows, below) fill a block's rows once a
+// view and walk several tiles in it. Left for a later change: K1's blocks
+// likewise; the shadow sweep's per-light pvec, det and 1/det, which are
+// per-triangle scalars, hoisted per block.
 //
 // The streamed route (STREAM, render_streamed_kernel): meshes whose rows do
 // not fit the resident budget (32 * S * 4 bytes > 384 KB, the JAX package's
@@ -179,17 +180,24 @@
 // below the image sweeps nothing and starts at best_t = 0, so it never
 // holds the walk open.
 //
-// The resident visits (K3 and K4 on resident rows, RWALK, built by
+// The resident visits (K3 and K4 on resident rows, visit_body, built by
 // csrc/render_resident_ordered.cu and csrc/render_resident_binned.cu, each
 // including this file and bringing its own entry point): the JAX factory's
 // ordered and binned sweeps over the resident SMEM rows (:2681-2699; perm
-// :4819-4832, bins :4762-4810). The block holds the world's rows, the
-// cluster table and the camera row in shared memory as K1 does, and walks
-// the view's front-to-back order (in shared memory after the camera row) or
-// the bin of its bin tile (in device memory, as K4 reads it) with the
-// streamed walk's early exit and slab slack, but with no row gate and no
-// staging: a visited cluster's valid prefix is swept from the shared rows,
-// exact-t ties to the lower triangle index.
+// :4819-4832, bins :4762-4810), walking the view's front-to-back order (in
+// shared memory) or the bin of the tile's bin tile (in device memory, as K4
+// reads it) with the streamed walk's early exit and slab slack, but with no
+// row gate and no staging: a visited cluster's valid prefix is swept from
+// the shared rows, exact-t ties to the lower triangle index. One block a
+// view: the world's geometry rows (one bulk asynchronous copy completing on
+// an mbarrier; raw rows with the view's tv, q, t_num, K10's a, b, c and
+// validity, formed once a view), the cluster table, the gate terms (each
+// cluster's AABB relative to the view's camera origin and its early-exit
+// threshold), the camera row and the order are filled once, and G groups of
+// 256 threads (visit_groups) each take the view's 16x16 tiles from a shared
+// counter and walk them, every gate over the group's own threads (a named
+// barrier each), so one tile's barriers and shared loads overlap another's
+// tests.
 //
 // K11 (the factory's dmxu / rowskip switches, :908-918, :1825-2001; DMXU,
 // a template switch of the streamed route's two visits, built by
@@ -622,8 +630,9 @@ __host__ __device__ constexpr int binned_stage_rows() {
 // geometry rows in shared memory, clusters in index order); true: the
 // streamed route (see the header), with BINNED its binned visit (K4: the
 // walk below reads the bin, the cluster table and the spans in device
-// memory where the ordered walk reads its shared copies). RWALK (with STREAM
-// false): the resident visits, BINNED choosing the bin over the order.
+// memory where the ordered walk reads its shared copies). RWALK stays false:
+// the resident visits have a body of their own (visit_body, below), and
+// the slot keeps the other sources' template arguments as they are.
 // SEEDED: K9, best_t starting from `seed` (unread otherwise). CULL false
 // (K1-none, csrc/render_none.cu, resident index order only): no cluster
 // table; every triangle is tested, in index order, and so is every
@@ -642,6 +651,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
   constexpr bool WT = GEO >= kGeoRawWt;
   static_assert(!DMXU || (STREAM && (GEO == kGeoPrep || GEO == kGeoRaw)),
                 "K11 sweeps the streamed visits' prep or raw rows");
+  static_assert(!RWALK, "the resident visits' body is visit_body");
   // The streamed binned visit on prep rows: row-sorted rows and triangle
   // ranges (K11 streams its rows unsorted).
   constexpr bool RANGED = BINNED && STREAM && GEO == kGeoPrep && !DMXU;
@@ -676,22 +686,12 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
     s_cl = const_cast<float*>(g_cl);
     s_order = const_cast<int*>(bn.bins + ((size_t)view * bn.n_bins + bin) * (1 + CC) + 1);
     s_span = const_cast<int*>(bn.spans + (size_t)view * 2 * CC);
-  } else if constexpr (BINNED) {
-    // K4 on resident rows: the bin of the block's bin tile, in device memory.
-    const int bx = blockIdx.y % a.tiles_x, by = blockIdx.y / a.tiles_x;
-    const int bin = (by >> bn.bin_shift) * bn.bins_x + (bx >> bn.bin_shift);
-    s_order = const_cast<int*>(bn.bins + ((size_t)view * bn.n_bins + bin) * (1 + CC) + 1);
   }
   if constexpr (!STREAM && !WT) {
     for (int i = tid; i < kLoadRows * S; i += kThreads) s_geo[i] = g_rows[i];
   }
   if constexpr (!BINNED || !STREAM) {
     for (int i = tid; i < kClRows * CC; i += kThreads) s_cl[i] = g_cl[i];
-  }
-  if constexpr (RWALK && !BINNED) {
-    // K3 on resident rows: the view's order, after the camera row.
-    const int* g_order = st.order + (size_t)view * CC;
-    for (int i = tid; i < CC; i += kThreads) s_order[i] = g_order[i];
   }
   for (int i = tid; i < a.n_cols; i += kThreads) s_cam[i] = g_cam[i];
   if constexpr (!STREAM && WT) {
@@ -847,7 +847,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
         }
       }
     }
-  } else if constexpr (!STREAM && !RWALK) {
+  } else if constexpr (!STREAM) {
     // The resident sweep keeps its own copy of the slab and prep tests
     // (slab() and prep_test() compute the same expressions): ptxas's
     // register allocation of these variants moves with the source's shape.
@@ -896,64 +896,6 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
           }
           const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
                           (t > t_lo) && (t < best_t);
-          if (ok) {
-            best_t = t;
-            best_idx = i;
-            if (RAW) {
-              best_u = u;
-              best_v = v;
-            }
-          }
-        }
-      }
-    }
-  } else if constexpr (!STREAM) {
-    // K3 / K4 on resident rows: the view's order (or the block's bin) with
-    // the streamed walk's early exit and slab slack; the rows are resident,
-    // so a visited cluster is swept at once. Each gate is uniform across the
-    // block (a block-wide OR, or a shared-memory value), so every thread
-    // leaves the loop together.
-    const int n = BINNED ? s_order[-1] : CC;
-    for (int p = 0; p < n; ++p) {
-      const int c = s_order[p];
-      if (!(s_cl[6 * CC + c] > 0.f)) break;  // invalid clusters sort last
-      // Occlusion early exit (:1740-1780): no pixel's best hit lies beyond
-      // this cluster's AABB, nor beyond any later one's.
-      const float ax =
-          fmaxf(fmaxf(s_cl[0 * CC + c] - ox, ox - s_cl[3 * CC + c]), 0.0f);
-      const float ay =
-          fmaxf(fmaxf(s_cl[1 * CC + c] - oy, oy - s_cl[4 * CC + c]), 0.0f);
-      const float az =
-          fmaxf(fmaxf(s_cl[2 * CC + c] - oz, oz - s_cl[5 * CC + c]), 0.0f);
-      const float d2 = ax * ax + ay * ay + az * az;
-      if (!__syncthreads_or(best_t * best_t > d2 * kExitSlack)) break;
-      float tmin, tmax;
-      slab(s_cl, CC, c, ox, oy, oz, ivx, ivy, ivz, tmin, tmax);
-      const bool possible =
-          (tmax >= tmin) && (tmax > near) && (tmin * kSlabSlack < best_t);
-      if (!__syncthreads_or(possible)) continue;
-      const int base = c * cs;
-      const int cnt = (int)s_cl[7 * CC + c];
-      for (int i = base; i < base + cnt; ++i) {
-        // The lower index wins an exact tie, whatever the visit order.
-        if constexpr (WT) {
-          float t;
-          if (woop_test(shear, s_geo + i, S, t) && s_geo[9 * S + i] > 0.f &&
-              t > t_lo && ((t < best_t) || (t == best_t && i < best_idx))) {
-            best_t = t;
-            best_idx = i;
-          }
-        } else {
-          float u, v, t;
-          if constexpr (RAW) {
-            pvec_test(dx, dy, dz, g3[i], g4[i], g5[i], g6[i], g7[i], g8[i],
-                      g9 + i, S, u, v, t);
-          } else {
-            prep_test(dx, dy, dz, s_geo + i, S, u, v, t);
-          }
-          const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
-                          (t > t_lo) &&
-                          ((t < best_t) || (t == best_t && i < best_idx));
           if (ok) {
             best_t = t;
             best_idx = i;
@@ -1495,6 +1437,583 @@ int launch_grid(void (*kernel)(Params...), const RenderArgs& a, int num_views,
   const dim3 block(kTileX, kTileY);
   kernel<<<grid, block, smem, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// ---- The resident visits: one block a view, G tile groups walking in it -- //
+// The span hooks of port_tools/resident_phase_probe.py (empty here).
+#ifndef MRT_PHASE
+#define MRT_PHASE_BEGIN
+#define MRT_PHASE(k)
+#define MRT_AFTER_FILL
+#endif
+
+// Tile groups of 256 threads in a resident visit's block: 4 (1,024 threads,
+// at most 64 registers a thread) on prep and raw rows, whose entries fit
+// them without spills; 2 (128 registers) for K10's and the shadow sweeps'.
+template <int GEO>
+__host__ __device__ constexpr int visit_groups() {
+  return GEO == kGeoPrep || GEO == kGeoRaw ? 4 : 2;
+}
+
+// A resident visit's per-view gate terms, rows of [kGateRows, CC] in
+// shared memory: each cluster's AABB relative to the view's camera origin
+// (lo - o, hi - o: the slab test's differences) and its early-exit
+// threshold (the approach distance squared times kExitSlack), formed once a
+// view with render_body's expressions.
+constexpr int kGateRows = 7;
+
+// The head of a resident visit block's shared memory: the geometry fill's
+// mbarrier, the tile counter, each group's two tile slots and two vote
+// words (one byte a warp), each pair used by turns so that one barrier a
+// step separates a slot's writes from its reads.
+struct VisitCtl {
+  unsigned long long fill_bar;
+  int next_tile;
+  int tile[4][2];
+  unsigned long long vote[4][2];
+};
+constexpr int kVisitCtlBytes = 128;
+static_assert(sizeof(VisitCtl) <= kVisitCtlBytes, "the visit's shared head");
+// A bulk copy's largest piece (the mbarrier counts every piece's bytes).
+constexpr unsigned kBulkPiece = 32768;
+
+// bar.sync on the named barrier `id` over kThreads threads: a tile group's
+// __syncthreads.
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kThreads) : "memory");
+}
+
+// A tile group's __syncthreads_or: bar.red.or.pred on the named barrier
+// `id` over kThreads threads.
+__device__ __forceinline__ bool group_or(int id, bool p) {
+  int r;
+  asm volatile(
+      "{\n\t.reg .pred pi, po;\n\t"
+      "setp.ne.s32 pi, %1, 0;\n\t"
+      "bar.red.or.pred po, %2, %3, pi;\n\t"
+      "selp.s32 %0, 1, 0, po;\n\t}\n"
+      : "=r"(r)
+      : "r"((int)p), "r"(id), "n"(kThreads)
+      : "memory");
+  return r != 0;
+}
+
+// One thread's bulk asynchronous copy of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) from device to shared memory, completing on
+// the mbarrier `bar`, which it initialises for one arrival first.
+__device__ __forceinline__ void bulk_fill(float* dst, const float* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+               "r"(bytes)
+               : "memory");
+  for (unsigned off = 0; off < bytes; off += kBulkPiece) {
+    const unsigned n = bytes - off < kBulkPiece ? bytes - off : kBulkPiece;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(d + off),
+        "l"(reinterpret_cast<const char*>(src) + off), "r"(n), "r"(b)
+        : "memory");
+  }
+}
+
+// Waits until the mbarrier's first phase completes (the bulk copy landed).
+__device__ __forceinline__ void bulk_wait(unsigned long long* bar) {
+  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(b)
+        : "memory");
+  }
+}
+
+// One 16x16 tile of a resident visit, walked by one group (named barrier
+// `bar`, its two vote words `vote`): K1's ray, the walk of the view's order
+// (s_order) or of the tile's bin, then the resolve, the shadow sweep, the
+// shading and the export, each expression as render_body computes it. The
+// walk's gates are the tile's: the exit and the slab test of a position are
+// each an OR over the group's threads, taken together at one barrier (each
+// warp's OR of both in its byte of the position's vote word), exit first.
+template <int GEO, bool RASTER, int TEX, bool BINNED, bool SEEDED>
+__device__ __forceinline__ void visit_tile(const RenderArgs& a, const BinArgs& bn,
+                                           const float* seed, const float* s_geo,
+                                           const float* s_cl, const float* s_gate,
+                                           const float* s_cam, const int* s_order,
+                                           const float* g_rows, int view, int tile, int bar,
+                                           unsigned long long* vote) {
+  constexpr bool RAW = GEO != kGeoPrep;
+  constexpr bool SHADOWS = GEO == kGeoRawShadows || GEO == kGeoRawWtShadows;
+  constexpr bool WT = GEO >= kGeoRawWt;
+  const int S = a.S, CC = a.CC, cs = a.cluster_size;
+  const int ly = threadIdx.y % kTileY;
+  const int bx = tile % a.tiles_x, by = tile / a.tiles_x;
+  const int px = bx * kTileX + threadIdx.x;
+  const int py = by * kTileY + ly;
+  if constexpr (BINNED) {
+    // K4: the bin of the tile's bin tile, in device memory.
+    const int bin = (by >> bn.bin_shift) * bn.bins_x + (bx >> bn.bin_shift);
+    s_order = bn.bins + ((size_t)view * bn.n_bins + bin) * (1 + CC) + 1;
+  }
+
+  const float ox = s_cam[0], oy = s_cam[1], oz = s_cam[2];
+  const float rxx = s_cam[3], rxy = s_cam[4], rxz = s_cam[5];
+  const float fx = s_cam[6], fy = s_cam[7], fz = s_cam[8];
+  const float ux = s_cam[9], uy = s_cam[10], uz = s_cam[11];
+  const float tan_x = s_cam[12], tan_y = s_cam[13];
+  const float near = s_cam[14], far = s_cam[15];
+
+  // Ray generation (raytrace_pallas.py:1180-1188). Threads past the image
+  // edge trace their ray too: they take part in the tile's gates and write
+  // nothing.
+  const float ra = (((float)px + 0.5f) * a.two_over_w - 1.0f) * tan_x;
+  const float rb = (1.0f - ((float)py + 0.5f) * a.two_over_h) * tan_y;
+  float dx = ra * rxx + fx + rb * ux;
+  float dy = ra * rxy + fy + rb * uy;
+  float dz = ra * rxz + fz + rb * uz;
+  const float inv_len = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
+  dx = dx * inv_len;
+  dy = dy * inv_len;
+  dz = dz * inv_len;
+  const float cosf_ = dx * fx + dy * fy + dz * fz;
+  const float t_lo = RASTER ? near / fmaxf(cosf_, kCosFloor) : near;
+  const float ivx = 1.0f / safe_dir(dx);
+  const float ivy = 1.0f / safe_dir(dy);
+  const float ivz = 1.0f / safe_dir(dz);
+  const std::conditional_t<WT, Shear, NoShear> shear(dx, dy, dz);
+
+  float best_t = far, best_u = 0.f, best_v = 0.f;
+  if constexpr (SEEDED) {
+    // K9: min(seed, far); 0 past the image edge.
+    const bool in_image = px < a.width && py < a.height;
+    const float s = in_image ? seed[((size_t)view * a.height + py) * a.width + px] : 0.f;
+    best_t = s > far ? far : s;
+  }
+  int best_idx = -1;
+  const float* geo = WT ? g_rows : s_geo;  // the rows the resolve reads
+  const float* g0 = geo;  // prep: D; raw: v0
+  const float* g1 = geo + S;
+  const float* g2 = geo + 2 * S;
+  const float* g3 = geo + 3 * S;  // prep: A; raw: e1
+  const float* g4 = geo + 4 * S;
+  const float* g5 = geo + 5 * S;
+  const float* g6 = geo + 6 * S;  // prep: Q; raw: e2
+  const float* g7 = geo + 7 * S;
+  const float* g8 = geo + 8 * S;
+  const float* g9 = geo + 9 * S;  // raw: tv, q, t_num
+  const int lane_tid = ly * kTileX + threadIdx.x;  // 0-255 in the group
+  const int warp = lane_tid >> 5;
+  const bool lane0 = (lane_tid & 31) == 0;
+
+  // The walk: the order (or the bin) with the early exit and the slab
+  // slack; every gate is the tile's, so the group leaves the loop together.
+  const int n = BINNED ? s_order[-1] : CC;
+  for (int p = 0; p < n; ++p) {
+    MRT_PHASE(1);
+    const int c = s_order[p];
+    if (!(s_cl[6 * CC + c] > 0.f)) break;  // invalid clusters sort last
+    // Occlusion early exit (:1740-1780): no pixel's best hit lies beyond
+    // this cluster's AABB, nor beyond any later one's; then the slab test
+    // (:1671-1697), on the view's differences.
+    const bool reach = best_t * best_t > s_gate[6 * CC + c];
+    const float t1x = s_gate[0 * CC + c] * ivx;
+    const float t2x = s_gate[3 * CC + c] * ivx;
+    const float t1y = s_gate[1 * CC + c] * ivy;
+    const float t2y = s_gate[4 * CC + c] * ivy;
+    const float t1z = s_gate[2 * CC + c] * ivz;
+    const float t2z = s_gate[5 * CC + c] * ivz;
+    const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+    const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+    const bool possible = (tmax >= tmin) && (tmax > near) && (tmin * kSlabSlack < best_t);
+    const unsigned any = __reduce_or_sync(0xffffffffu, (reach ? 1u : 0u) | (possible ? 2u : 0u));
+    unsigned long long* word = vote + (p & 1);
+    if (lane0) reinterpret_cast<unsigned char*>(word)[warp] = (unsigned char)any;
+    group_sync(bar);
+    const unsigned long long v = *word;
+    if (!(v & 0x0101010101010101ull)) break;
+    if (!(v & 0x0202020202020202ull)) continue;
+    MRT_PHASE(2);
+    const int base = c * cs;
+    const int cnt = (int)s_cl[7 * CC + c];
+    for (int i = base; i < base + cnt; ++i) {
+      // The lower index wins an exact tie, whatever the visit order.
+      if constexpr (WT) {
+        float t;
+        if (woop_test(shear, s_geo + i, S, t) && s_geo[9 * S + i] > 0.f && t > t_lo &&
+            ((t < best_t) || (t == best_t && i < best_idx))) {
+          best_t = t;
+          best_idx = i;
+        }
+      } else {
+        float u, v, t;
+        if constexpr (RAW) {
+          pvec_test(dx, dy, dz, g3[i], g4[i], g5[i], g6[i], g7[i], g8[i], g9 + i, S, u, v, t);
+        } else {
+          prep_test(dx, dy, dz, s_geo + i, S, u, v, t);
+        }
+        const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) && (t > t_lo) &&
+                        ((t < best_t) || (t == best_t && i < best_idx));
+        if (ok) {
+          best_t = t;
+          best_idx = i;
+          if (RAW) {
+            best_u = u;
+            best_v = v;
+          }
+        }
+      }
+    }
+  }
+  MRT_PHASE(3);
+
+  const bool inside = px < a.width && py < a.height;
+  // The shadow sweep below has the tile's barriers: every thread stays.
+  if (!SHADOWS && !inside) return;
+
+  // Winner resolve (:2725-2793), as render_body's.
+  float nx = 0.f, ny = 0.f, nz = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f;
+  float dens = 0.f;
+  const bool found = best_idx >= 0;
+  if (found && inside) {
+    const int j = best_idx;
+    float uc, vc;
+    if constexpr (WT) {
+      float h[7];
+      h[0] = ox - g0[j];
+      h[1] = oy - g1[j];
+      h[2] = oz - g2[j];
+      h[3] = h[1] * g5[j] - h[2] * g4[j];
+      h[4] = h[2] * g3[j] - h[0] * g5[j];
+      h[5] = h[0] * g4[j] - h[1] * g3[j];
+      h[6] = g6[j] * h[3] + g7[j] * h[4] + g8[j] * h[5];
+      float u, v, t;
+      pvec_test(dx, dy, dz, g3[j], g4[j], g5[j], g6[j], g7[j], g8[j], h, 1, u, v, t);
+      uc = clip01(u);
+      vc = clip01(v);
+    } else if (RAW) {
+      uc = clip01(best_u);
+      vc = clip01(best_v);
+    } else {
+      const float det = dx * g0[j] + dy * g1[j] + dz * g2[j];
+      const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+      uc = clip01((dx * g3[j] + dy * g4[j] + dz * g5[j]) * inv);
+      vc = clip01((dx * g6[j] + dy * g7[j] + dz * g8[j]) * inv);
+    }
+    const float* g_attr = g_rows + (size_t)kAttr0 * S;
+    nx = g_attr[6 * S + j] + uc * g_attr[9 * S + j] + vc * g_attr[12 * S + j];
+    ny = g_attr[7 * S + j] + uc * g_attr[10 * S + j] + vc * g_attr[13 * S + j];
+    nz = g_attr[8 * S + j] + uc * g_attr[11 * S + j] + vc * g_attr[14 * S + j];
+    if (TEX == kTexNone) {
+      a0 = g_attr[16 * S + j];
+      a1 = g_attr[17 * S + j];
+      a2 = g_attr[18 * S + j];
+    } else {
+      a0 = g_attr[15 * S + j];
+      a1 = g_attr[0 * S + j] + uc * g_attr[2 * S + j] + vc * g_attr[4 * S + j];
+      a2 = g_attr[1 * S + j] + uc * g_attr[3 * S + j] + vc * g_attr[5 * S + j];
+    }
+    if (TEX == kTexMip) dens = g_attr[19 * S + j];
+  }
+
+  // Two-sided: flip the normal toward the viewer (:2800-2804).
+  const float ndotd = nx * dx + ny * dy + nz * dz;
+  const float flip = ndotd > 0.f ? -1.0f : 1.0f;
+  nx = nx * flip;
+  ny = ny * flip;
+  nz = nz * flip;
+  const float t_hit = found ? best_t : 0.f;
+  const float z = t_hit * cosf_;
+
+  if constexpr (TEX == kTexNine) {
+    // The 9-output mode (:2832-2834, :3664-3670), unmasked.
+    const size_t o = ((size_t)view * a.height + py) * a.width + px;
+    const size_t plane = (size_t)gridDim.x * a.height * a.width;
+    a.depth[o] = t_hit;
+    a.segmask[o] = best_idx;
+    a.code[o] = (int)a0;
+    a.handoff[o] = z;
+    a.handoff[plane + o] = a1;
+    a.handoff[2 * plane + o] = a2;
+    a.handoff[3 * plane + o] = nx;
+    a.handoff[4 * plane + o] = ny;
+    a.handoff[5 * plane + o] = nz;
+    return;
+  }
+
+  // K8: one any-hit sweep per directional light from the hit point
+  // (:2847-2999), every cluster in index order, each gate the tile's.
+  uint32_t occ_mask = 0;
+  if constexpr (SHADOWS) {
+    const float hx = ox + t_hit * dx;
+    const float hy = oy + t_hit * dy;
+    const float hz = oz + t_hit * dz;
+    const float eps_sh = kShadowEps * (1.0f + t_hit);
+    for (int li = 0; li < a.n_lights; ++li) {
+      const float* l = s_cam + kCamLight0 + 6 * li;
+      const float sdx = -l[0], sdy = -l[1], sdz = -l[2];
+      const float ivsx = 1.0f / safe_dir(sdx);
+      const float ivsy = 1.0f / safe_dir(sdy);
+      const float ivsz = 1.0f / safe_dir(sdz);
+      bool occ = false;
+      for (int c = 0; c < CC; ++c) {
+        const float t1x = (s_cl[0 * CC + c] - hx) * ivsx;
+        const float t2x = (s_cl[3 * CC + c] - hx) * ivsx;
+        const float t1y = (s_cl[1 * CC + c] - hy) * ivsy;
+        const float t2y = (s_cl[4 * CC + c] - hy) * ivsy;
+        const float t1z = (s_cl[2 * CC + c] - hz) * ivsz;
+        const float t2z = (s_cl[5 * CC + c] - hz) * ivsz;
+        const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+        const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+        const bool possible = (tmax >= tmin) && (tmax > 0.f) && !occ;
+        if (!group_or(bar, possible) || !(s_cl[6 * CC + c] > 0.f)) continue;
+        const int base = c * cs;
+        const int cnt = (int)s_cl[7 * CC + c];
+        for (int i = base; i < base + cnt; ++i) {
+          const float e1x = g3[i], e1y = g4[i], e1z = g5[i];
+          const float e2x = g6[i], e2y = g7[i], e2z = g8[i];
+          float h[7];
+          h[0] = hx - g0[i];
+          h[1] = hy - g1[i];
+          h[2] = hz - g2[i];
+          h[3] = h[1] * e1z - h[2] * e1y;
+          h[4] = h[2] * e1x - h[0] * e1z;
+          h[5] = h[0] * e1y - h[1] * e1x;
+          h[6] = e2x * h[3] + e2y * h[4] + e2z * h[5];
+          float u, v, t;
+          pvec_test(sdx, sdy, sdz, e1x, e1y, e1z, e2x, e2y, e2z, h, 1, u, v, t);
+          occ = occ || ((fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) && (t > eps_sh));
+        }
+      }
+      if (occ) occ_mask |= 1u << li;
+    }
+    if (!inside) return;
+  }
+
+  // Base colour, lambert over the lights and the fused export, as
+  // render_body's (:3015-3050, :3186-3202).
+  float br = a0, bg = a1, bb = a2;
+  if (TEX == kTexNearest || TEX == kTexBilinear)
+    textured_base<TEX>(a.mats, a.pool, a.n_mats, (int)a0, a1, a2, br, bg, bb);
+  const float n_inv = 1.0f / sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, kTiny));
+  float sr = 0.f, sg = 0.f, sb = 0.f;
+  for (int li = 0; li < a.n_lights; ++li) {
+    const float* l = s_cam + kCamLight0 + 6 * li;
+    float nd = fmaxf(-(nx * l[0] + ny * l[1] + nz * l[2]) * n_inv, 0.f);
+    if (SHADOWS && ((occ_mask >> li) & 1u)) nd = 0.f;
+    sr = sr + nd * l[3];
+    sg = sg + nd * l[4];
+    sb = sb + nd * l[5];
+  }
+  const bool shaded_hit = RASTER ? found && z < s_cam[kCamFarZ] : found;
+  const bool cam_ok = s_cam[kCamLight0 + 6 * a.n_lights] > 0.f;
+  const bool hit = shaded_hit && cam_ok;
+  const size_t o = ((size_t)view * a.height + py) * a.width + px;
+  if (TEX == kTexMip) {
+    // The hand-off to csrc/shade_mip.cu (:3237).
+    const size_t plane = (size_t)gridDim.x * a.height * a.width;
+    a.depth[o] = hit ? (RASTER ? z : best_t) : 0.f;
+    a.segmask[o] = hit && !RASTER ? best_idx / a.seg_div : -1;
+    a.code[o] = (int)a0 | (found ? kFoundBit : 0) | (shaded_hit ? kShadedBit : 0);
+    a.handoff[o] = a1;
+    a.handoff[plane + o] = a2;
+    a.handoff[2 * plane + o] = t_hit * a.two_over_h * tan_y * dens;
+    a.handoff[3 * plane + o] = sr;
+    a.handoff[4 * plane + o] = sg;
+    a.handoff[5 * plane + o] = sb;
+    return;
+  }
+  const uint32_t packed = quantize(br, sr, shaded_hit) | (quantize(bg, sg, shaded_hit) << 8) |
+                          (quantize(bb, sb, shaded_hit) << 16) | kAlpha;
+  if (RASTER) {
+    a.depth[o] = hit ? z : 0.f;
+    a.segmask[o] = -1;
+  } else {
+    a.depth[o] = hit ? best_t : 0.f;
+    a.segmask[o] = hit ? best_idx / a.seg_div : -1;
+  }
+  a.rgb[o] = cam_ok ? packed : kAlpha;
+}
+
+// A resident visit's block: view blockIdx.x, visit_groups<GEO>() groups of
+// 16x16 threads (blockDim (16, 16 G)). The fill, once a view: prep rows
+// 0-9 (raw: v0, e1, e2, rows 0-8) by one bulk copy, while the threads copy
+// the cluster table, the camera row and (ordered) the order and form the
+// gate terms and the raw sweep's tv, q, t_num or K10's a, b, c and
+// validity; then each group
+// takes tiles from the counter until the view's are gone.
+template <int GEO, bool RASTER, int TEX, bool BINNED, bool SEEDED>
+__device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order,
+                                           const BinArgs& bn, const float* seed) {
+  constexpr bool RAW = GEO != kGeoPrep;
+  constexpr bool WT = GEO >= kGeoRawWt;
+  constexpr int kBlock = kThreads * visit_groups<GEO>();
+  const int S = a.S, CC = a.CC;
+  extern __shared__ __align__(16) float smem[];
+  MRT_PHASE_BEGIN;
+  VisitCtl& ctl = *reinterpret_cast<VisitCtl*>(smem);
+  float* s_geo = smem + kVisitCtlBytes / sizeof(float);  // [smem_geo_rows, S]
+  float* s_cl = s_geo + smem_geo_rows<GEO>() * S;          // [8, CC]
+  float* s_gate = s_cl + kClRows * CC;                     // [kGateRows, CC]
+  float* s_cam = s_gate + kGateRows * CC;                  // [NCOL]
+  int* s_order = reinterpret_cast<int*>(s_cam + a.n_cols);  // [CC] (ordered)
+
+  const int view = blockIdx.x;
+  const int world = view / a.num_cams;
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const float* g_rows = a.rows + (size_t)world * kPackRows * S;
+  const float* g_cl = a.clusters + (size_t)world * kClRows * CC;
+  const float* g_cam = a.cams + (size_t)view * a.n_cols;
+  if (tid == 0) {
+    ctl.next_tile = 0;
+    if constexpr (!WT)
+      bulk_fill(s_geo, g_rows, (RAW ? kRawRows : kPrepRows) * S * sizeof(float), &ctl.fill_bar);
+  }
+  for (int i = tid; i < kClRows * CC; i += kBlock) s_cl[i] = g_cl[i];
+  for (int i = tid; i < a.n_cols; i += kBlock) s_cam[i] = g_cam[i];
+  {
+    // The gate terms: lo - o, hi - o and (approach_dist2, :1740-1780)
+    // d2 * kExitSlack of each cluster for this view's camera origin.
+    const float ox = g_cam[0], oy = g_cam[1], oz = g_cam[2];
+    for (int c = tid; c < CC; c += kBlock) {
+      const float lx = g_cl[0 * CC + c] - ox, ly = g_cl[1 * CC + c] - oy,
+                  lz = g_cl[2 * CC + c] - oz;
+      const float hx = g_cl[3 * CC + c] - ox, hy = g_cl[4 * CC + c] - oy,
+                  hz = g_cl[5 * CC + c] - oz;
+      s_gate[0 * CC + c] = lx;
+      s_gate[1 * CC + c] = ly;
+      s_gate[2 * CC + c] = lz;
+      s_gate[3 * CC + c] = hx;
+      s_gate[4 * CC + c] = hy;
+      s_gate[5 * CC + c] = hz;
+      const float ax = fmaxf(fmaxf(lx, ox - g_cl[3 * CC + c]), 0.0f);
+      const float ay = fmaxf(fmaxf(ly, oy - g_cl[4 * CC + c]), 0.0f);
+      const float az = fmaxf(fmaxf(lz, oz - g_cl[5 * CC + c]), 0.0f);
+      s_gate[6 * CC + c] = (ax * ax + ay * ay + az * az) * kExitSlack;
+    }
+  }
+  if constexpr (!BINNED) {
+    const int* g_order = order + (size_t)view * CC;
+    for (int i = tid; i < CC; i += kBlock) s_order[i] = g_order[i];
+  }
+  if constexpr (WT) {
+    // K10's per-(view, triangle) terms (:1393-1402): a = v0 - o,
+    // b = a + e1, c = a + e2 with this view's camera origin, and the
+    // validity.
+    const float ox = g_cam[0], oy = g_cam[1], oz = g_cam[2];
+    for (int i = tid; i < S; i += kBlock) {
+      const float ax = g_rows[i] - ox;
+      const float ay = g_rows[S + i] - oy;
+      const float az = g_rows[2 * S + i] - oz;
+      s_geo[i] = ax;
+      s_geo[S + i] = ay;
+      s_geo[2 * S + i] = az;
+      s_geo[3 * S + i] = ax + g_rows[3 * S + i];
+      s_geo[4 * S + i] = ay + g_rows[4 * S + i];
+      s_geo[5 * S + i] = az + g_rows[5 * S + i];
+      s_geo[6 * S + i] = ax + g_rows[6 * S + i];
+      s_geo[7 * S + i] = ay + g_rows[7 * S + i];
+      s_geo[8 * S + i] = az + g_rows[8 * S + i];
+      s_geo[9 * S + i] = g_rows[9 * S + i];
+    }
+  } else if constexpr (RAW) {
+    // The raw sweep's per-(view, triangle) terms (:1342-1348): tv = o - v0,
+    // q = tv x e1, t_num = e2 . q, in rows 9-15 beside the copied v0, e1,
+    // e2.
+    const float ox = g_cam[0], oy = g_cam[1], oz = g_cam[2];
+    float* s_h = s_geo + kRawRows * S;
+    for (int i = tid; i < S; i += kBlock) {
+      const float e1x = g_rows[3 * S + i], e1y = g_rows[4 * S + i], e1z = g_rows[5 * S + i];
+      const float e2x = g_rows[6 * S + i], e2y = g_rows[7 * S + i], e2z = g_rows[8 * S + i];
+      const float tvx = ox - g_rows[i];
+      const float tvy = oy - g_rows[S + i];
+      const float tvz = oz - g_rows[2 * S + i];
+      const float qx = tvy * e1z - tvz * e1y;
+      const float qy = tvz * e1x - tvx * e1z;
+      const float qz = tvx * e1y - tvy * e1x;
+      s_h[i] = tvx;
+      s_h[S + i] = tvy;
+      s_h[2 * S + i] = tvz;
+      s_h[3 * S + i] = qx;
+      s_h[4 * S + i] = qy;
+      s_h[5 * S + i] = qz;
+      s_h[6 * S + i] = e2x * qx + e2y * qy + e2z * qz;
+    }
+  }
+  __syncthreads();
+  if constexpr (!WT) bulk_wait(&ctl.fill_bar);
+  MRT_AFTER_FILL;
+
+  const int g = threadIdx.y / kTileY;
+  const int n_tiles = a.tiles_x * ((a.height + kTileY - 1) / kTileY);
+  for (int it = 0;; ++it) {
+    MRT_PHASE(4);
+    int* slot = &ctl.tile[g][it & 1];
+    if ((tid & (kThreads - 1)) == 0) *slot = atomicAdd(&ctl.next_tile, 1);
+    group_sync(1 + g);
+    const int tile = *slot;
+    if (tile >= n_tiles) break;
+    MRT_PHASE(3);
+    visit_tile<GEO, RASTER, TEX, BINNED, SEEDED>(a, bn, seed, s_geo, s_cl, s_gate, s_cam,
+                                                 s_order, g_rows, view, tile, 1 + g,
+                                                 ctl.vote[g]);
+  }
+}
+
+// Shared memory of a resident visit's block: the head, the geometry rows,
+// the cluster table, the gate terms, the camera row and (ordered) the
+// order.
+template <int GEO>
+size_t visit_smem(const RenderArgs& a, bool ordered) {
+  return kVisitCtlBytes +
+         sizeof(float) * ((size_t)smem_geo_rows<GEO>() * a.S +
+                          (size_t)(kClRows + kGateRows) * a.CC + a.n_cols) +
+         (ordered ? sizeof(int) * (size_t)a.CC : 0);
+}
+
+// A resident visit route's entry argument: the visit's inputs, K9's seed
+// (null: the cold entries) and, for an occupancy query instead of a launch,
+// where its four numbers go (visit_launch).
+template <class X>
+struct VisitArgs {
+  X x;
+  const float* seed;
+  int* query;
+};
+
+// One launch of a resident visit's entry: a block of visit_groups<GEO>()
+// tile groups a view, `smem` bytes of dynamic shared memory;
+// cudaGetLastError() after it. With `query`, no launch: what the card makes
+// of the entry at `smem` bytes goes there instead (threads a block,
+// registers a thread, local memory a thread in bytes, blocks a
+// multiprocessor).
+template <int GEO, class... Params, class... Args>
+int visit_launch(void (*kernel)(Params...), int* query, int num_views, size_t smem,
+                 cudaStream_t stream, const Args&... args) {
+  int err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  if (query == nullptr) {
+    kernel<<<num_views, dim3(kTileX, kTileY * visit_groups<GEO>()), smem, stream>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  cudaFuncAttributes attr;
+  err = (int)cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                             attr.maxThreadsPerBlock, smem);
+  if (err != 0) return err;
+  query[0] = attr.maxThreadsPerBlock;
+  query[1] = attr.numRegs;
+  query[2] = (int)attr.localSizeBytes;
+  query[3] = blocks;
+  return 0;
 }
 
 // Whether a route has entries in the 9-output mode: it opts in with

@@ -76,10 +76,12 @@ Resident scenes take one of three visits (``visit_route``, the JAX
 ``render_core``'s ``ordered`` and ``binned``, :4272-4292): index order (K1)
 under 4 clusters a world; the front-to-back walk with the early exit (K3 on
 resident rows, ``csrc/render_resident_ordered.cu``: ``camera_cluster_order``
-in the prologue); or, where the JAX package bins, each block's bin tile's
+in the prologue); or, where the JAX package bins, each tile's bin tile's
 bin (K4 on resident rows, ``csrc/render_resident_binned.cu``:
-``band_cluster_bins``). The rows stay in shared memory; there are no row
-spans, row sort or triangle ranges on the resident route.
+``band_cluster_bins``). The rows stay in shared memory, filled once a view
+(one block a view, several 16x16 tiles walking in it:
+``resident_smem_bytes``, ``check_resident_plan``); there are no row spans,
+row sort or triangle ranges on the resident route.
 Exact-t ties go to the lower triangle index on every route, so the visit
 changes only the work: the frames are the index-order sweep's
 (``render_resident_plain``, which puts row-sorted rows back in order
@@ -105,6 +107,7 @@ shadows through ``compute_lit``.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -170,6 +173,19 @@ _TILE = 16  # the kernel's block: 16×16 pixels; the row spans' band height
 # dynamic shared memory ends at 227 KB).
 _STAGE_ROWS = 16
 _MAX_SMEM = 227 * 1024
+# The resident visits' block (K3 and K4 on resident rows, one a view): a
+# 128-byte head (the geometry fill's mbarrier, the tile counter, the tile
+# groups' slots and votes), then the geometry rows a geo keeps in shared
+# memory (prep D, A, Q, t_num; raw v0, e1, e2 and the view's tv, q, t_num;
+# K10's a, b, c and the validity), the cluster table, the view's 7 rows of
+# gate terms (each AABB less the camera origin, the early-exit threshold),
+# the camera row and, ordered, the view's order. The fill copies the rows
+# in 16-byte pieces.
+_VISIT_HEAD_BYTES = 128
+_VISIT_CLUSTER_ROWS = 8 + 7
+_VISIT_GEO_ROWS = {"prep": 10, "raw": 16, "raw_shadows": 16, "raw_wt": 10,
+                   "raw_wt_shadows": 10}
+_FILL_ALIGN = 16
 # The streamed walk's slack: the occlusion early exit's on squared distances
 # (the JAX kernel's), the slab test's on t (a tie must not be culled).
 _F_EXIT_SLACK = float(np.float32(0.998))
@@ -240,6 +256,40 @@ def streamed_smem_bytes(n_clusters: int, cluster_size: int, n_lights: int) -> in
     """Shared memory a block of the streamed route takes."""
     return 4 * (2 * _STAGE_ROWS * cluster_size + 11 * n_clusters
                 + _n_cam_cols(n_lights))
+
+
+class LaunchPlanError(ValueError):
+    """Inputs a kernel's launch plan cannot take: a resident visit's block
+    past the card's shared memory, or rows its geometry fill cannot copy in
+    16-byte pieces. Raised on every device: no route falls back."""
+
+
+def resident_smem_bytes(geo: str, S: int, n_clusters: int, n_lights: int,
+                        ordered: bool) -> int:
+    """Shared memory a resident visit's block takes (K3, ``ordered``, or K4
+    on resident rows; ``visit_smem`` in ``csrc/render_resident.cu``)."""
+    return (_VISIT_HEAD_BYTES
+            + 4 * (_VISIT_GEO_ROWS[geo] * S + _VISIT_CLUSTER_ROWS * n_clusters
+                   + _n_cam_cols(n_lights))
+            + (4 * n_clusters if ordered else 0))
+
+
+def check_resident_plan(rows: torch.Tensor, n_clusters: int, n_lights: int, geo: str,
+                        ordered: bool) -> None:
+    """A resident visit's launch plan holds for these rows (else
+    ``LaunchPlanError``): its block fits the card's 227 KB of shared
+    memory, and its geometry fill's bulk copy finds rows 16-byte aligned and
+    S a multiple of 4 (each row 16-byte aligned too)."""
+    S = int(rows.shape[2])
+    smem = resident_smem_bytes(geo, S, n_clusters, n_lights, ordered)
+    if smem > _MAX_SMEM:
+        raise LaunchPlanError(f"a resident visit's block needs {smem} bytes of shared memory "
+                              f"for {S} {geo} slots and {n_clusters} clusters (at most "
+                              f"{_MAX_SMEM})")
+    if S % 4 or rows.data_ptr() % _FILL_ALIGN:
+        raise LaunchPlanError(f"the resident visits' geometry fill copies 16-byte pieces: S "
+                              f"({S}) must be a multiple of 4 and rows 16-byte aligned "
+                              f"(at {rows.data_ptr() % _FILL_ALIGN} past 16)")
 
 
 def check_accel(accel: str) -> None:
@@ -1213,6 +1263,8 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
         raise ValueError(f"bad height/width/seg_div {height}/{width}/{seg_div}")
     _check_visit(order, spans, W * num_cams, CC, rows.device, bins, ranges, bin_tile,
                  height, width, rows, geo, dmxu)
+    if clusters is not None and spans is None and (order is not None or bins is not None):
+        check_resident_plan(rows, CC, n_lights, geo, order is not None)
     _check_seed(seed, rows, (W * num_cams, height, width), raster)
 
 
@@ -1257,7 +1309,9 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
     view, so its plain version sweeps those (``render_resident_plain``).
 
     Tensors on the card launch the route's kernel on their device's current
-    stream; tensors on the CPU run ``render_resident_plain``. Each launch
+    stream; tensors on the CPU run ``render_resident_plain``. Inputs that
+    the resident visits' launch plan cannot take (``check_resident_plan``)
+    raise ``LaunchPlanError`` on either device. Each launch
     adds one to ``render_resident.launches`` and to its variant's entry of
     ``render_resident.variant_launches``."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
@@ -1389,6 +1443,37 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
 
 render_resident.launches = 0
 render_resident.variant_launches = dict.fromkeys(RENDER_VARIANTS, 0)
+
+
+def resident_occupancy(kw: dict) -> dict:
+    """What the card makes of the resident visit's entry that these inputs
+    (``pack_inputs``'s, of a resident ordered or binned visit) launch: its
+    variant, tile groups, threads a block, registers and local memory a
+    thread, shared memory a block, and blocks and warps a multiprocessor
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). Launches nothing;
+    needs the card."""
+    route = route_of(kw["order"], kw["spans"], kw["bins"], kw["clusters"] is not None)
+    if route not in (Route(False, "ordered"), Route(False, "binned")):
+        raise ValueError(f"{route} is not a resident visit")
+    name = _ROUTE_LIBRARIES[route]
+    fn = getattr(ctypes.CDLL(str(_build.build(name))), f"mrt_{name}_occupancy")
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    texture = "mip" if kw.get("fb_rows") is not None else kw["texture"]
+    seeded = kw.get("seed") is not None
+    S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
+    out = (ctypes.c_int * 4)()
+    err = fn(_GEO_CODES[kw["geo"]], int(kw["raster"]), _TEX_CODES[texture], int(seeded), S, CC,
+             int(kw["cams"].shape[1]), kw["n_lights"], out)
+    if err != 0:
+        raise RuntimeError(f"{name}'s occupancy query failed: CUDA error {err}")
+    threads, registers, local, blocks = list(out)
+    return {"variant": variant_name(kw["raster"], texture, kw["geo"], route, seeded),
+            "groups": threads // _TILE ** 2, "threads": threads, "registers": registers,
+            "local_bytes": local,
+            "smem_bytes": resident_smem_bytes(kw["geo"], S, CC, kw["n_lights"],
+                                              route.visit == "ordered"),
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32}
 
 
 # --------------------------------------------------------------------- #

@@ -17,7 +17,12 @@ of 50 launches on the same inputs (the scenes' first step, 64x64):
   scene (untextured, with the 32x32 texture, or chip_smoke.py's 256x256
   gradient floor for the mip hand-off), the streamed and binned ones on
   chip_smoke.py's varied big-mesh terrain (likewise), each geometry code
-  from pack_inputs (the raw sweep on K13's raw rows), keyed "@64w".
+  from pack_inputs (the raw sweep on K13's raw rows), keyed "@64w";
+  and the resident visits at the resident terrain paths' full size (the
+  27-grid terrain, CUDA events over 5 launches of the first step's
+  inputs): K3 and K4 on resident rows at 4096 worlds x 64x64, K4 at 1024
+  x 128x128, and K3's 9-output mode on resident_terrain_4096w_64_tex256's
+  inputs (the 256x256 checker baked without mips).
 PASSES (4) alternate this tree and OTHER, starting with this one. Prints
 one JSON line per pass and then one with each kernel's times and OTHER's
 over this tree's mean, with the card's name and power limit. Needs one
@@ -39,6 +44,13 @@ GEOS = ("prep", "raw", "raw_shadows", "raw_wt", "raw_wt_shadows")
 TEXTURES = (None, "nearest", "bilinear", "mip")
 ROUTES = {"resident": "render_resident", "streamed": "render_streamed",
           "binned": "render_binned"}
+# The resident visits at full size: key → (worlds, size, accel, textured).
+RESIDENT_FULL = {
+    "render_resident_ordered@4096w_64": (4096, 64, "auto", False),
+    "render_resident_binned@4096w_64": (4096, 64, "binned", False),
+    "render_resident_binned@1024w_128": (1024, 128, "auto", False),
+    "render_resident_ordered_nine@4096w_64_tex256": (4096, 64, "auto", True),
+}
 HANDOFF_KEYS = ("num_cams", "n_lights", "height", "width", "seg_div", "raster", "geo",
                 "order", "spans", "bins", "ranges", "bin_tile")
 
@@ -139,6 +151,21 @@ def one_pass(root: Path) -> dict:
     del raster, kw
     for name, fn in variants(cs, torch.device("cuda", 0)):
         out[name] = cs.graph_ms(fn, cs.KERNEL_REPS)
+    from madrona_renderer_tpu_torch.runners import scenes
+
+    tex = cs.png_texture(f"paged_{cs.PAGED_TEX_SIZE}", cs.checker_texture(cs.PAGED_TEX_SIZE),
+                         scenes)
+    for key, (worlds, res, accel, textured) in RESIDENT_FULL.items():
+        extra = dict(texture=tex, mipmaps=False) if textured else {}
+        r = m.Manager(scenes.bigmesh_config(worlds, res, res, grid=cs.RESIDENT_GRID, **extra))
+        kw = rc.pack_inputs(r.state, r.scene, height=res, width=res, accel=accel)
+        name = rc.variant_name(False, kw["texture"], kw["geo"],
+                               rc.route_of(kw["order"], kw["spans"], kw["bins"]))
+        if name != key.split("@")[0]:
+            raise AssertionError(f"{key}: the inputs take {name}")
+        out[key] = cs.cuda_ms(lambda kw=kw: rc.render_resident(**kw), 5)
+        del r, kw
+        torch.cuda.empty_cache()
     return out
 
 
