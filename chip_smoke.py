@@ -117,7 +117,15 @@ printed as JSON lines:
                                   cube (S = 20,736 triangles per world, past
                                   the resident budget: K3 + K5, with the
                                   walk replayed in torch ops, its frames
-                                  held to the exports and its work counted);
+                                  held to the exports and its work counted,
+                                  the step's device time and idle share);
+                                  it, bigmesh_512w_warm, bigmesh_512w_tex256
+                                  and the binned terrain paths' K5 A/B each
+                                  print a ``streamed_occupancy`` line: the
+                                  streamed ordered entry's tile groups and
+                                  blocks a view, threads, registers, local
+                                  memory, shared memory, blocks and warps
+                                  per SM;
                  bigmesh_512w_warm bench.py:322-324, bigmesh_512w with
                                   warmstart=True: the streamed walk seeded
                                   (K9) by the previous depth, repaired where
@@ -2534,8 +2542,15 @@ def main() -> int:
     add_launches(counts)
     del r
 
+    def device_share(r, step_s):
+        dev_ms = device_ms(r.step)
+        med = statistics.median(step_s) * 1e3
+        return {"step_device_ms": dev_ms,
+                "idle_share": None if dev_ms is None else max(0.0, 1.0 - dev_ms / med)}
+
     # bigmesh_512w: bench.py's big-mesh row, past the resident budget: the
-    # streamed route (K3 + K5).
+    # streamed route (K3 + K5), with what the card makes of its entry (a
+    # streamed_occupancy line) and the step's device time.
     r, step_s, counts, ctor_s, name = drive(
         "bigmesh_512w", m.RenderMode.Raytracer, BIGMESH_WORLDS, False, TIMED_STEPS,
         cfg=scenes.bigmesh_config(BIGMESH_WORLDS, WIDTH, HEIGHT))
@@ -2556,7 +2571,9 @@ def main() -> int:
     bake = {"tris_per_world": S, "clusters_per_world": CC,
             "valid_clusters_per_world": int((kw["clusters"][0, 6] > 0).sum()),
             "triangle_share_tested": walk["triangle_visits"] / (blocks * S),
-            **{k: v for k, v in walk.items() if k not in ("depth", "segmask")}}
+            **{k: v for k, v in walk.items() if k not in ("depth", "segmask")},
+            **device_share(r, step_s)}
+    emit({"phase": "streamed_occupancy", "case": "bigmesh_512w", **rc.streamed_occupancy(kw)})
     time_path("bigmesh_512w", r, step_s, counts, ctor_s, bake)
     add_launches(counts)
     del r
@@ -2592,6 +2609,8 @@ def main() -> int:
     kw = path_inputs(r)
     seeded_kw = dict(kw, seed=seed)
     check_render("bigmesh_512w_warm", seeded_kw, keep=True)
+    emit({"phase": "streamed_occupancy", "case": "bigmesh_512w_warm",
+          **rc.streamed_occupancy(seeded_kw)})
     warm_walk, last_cold_walk = walks(seeded_kw), walks(kw)
     timing_kw[name] = seeded_kw
     steps = 1 + WARMUP_STEPS + TIMED_STEPS
@@ -2761,6 +2780,8 @@ def main() -> int:
         k5 = rc.render_resident(**kw5)
         same = all(torch.equal(x, y) for x, y in zip(k4, k5))
         emit({"phase": "k4_vs_k5", "case": path, "kernel": name, "bitwise": same})
+        emit({"phase": "streamed_occupancy", "case": f"{path} (accel clusters)",
+              **rc.streamed_occupancy(kw5)})
         if not same:
             raise AssertionError(f"{path}: K4 differs from K5 at full size")
         check_pack(path, r.state, r.scene, r.state.camera_pos[:, 0, :])
@@ -2832,12 +2853,6 @@ def main() -> int:
         check_pack(path, r.state, r.scene, r.state.camera_pos[:, 0, :] if prep else None)
         check_render(path, kw, keep=True, memo=memo)
         return kw, outs
-
-    def device_share(r, step_s):
-        dev_ms = device_ms(r.step)
-        med = statistics.median(step_s) * 1e3
-        return {"step_device_ms": dev_ms,
-                "idle_share": None if dev_ms is None else max(0.0, 1.0 - dev_ms / med)}
 
     def ab_of(prefix, step_s):
         return {f"{prefix}_step_ms_median": statistics.median(step_s) * 1e3,
@@ -3126,6 +3141,7 @@ def main() -> int:
     clear_plain()
     kw, outs = core_checks(path, r, HEIGHT, memo=(path,))
     timing_kw[name] = kw
+    emit({"phase": "streamed_occupancy", "case": path, **rc.streamed_occupancy(kw)})
     kw_m = path_inputs(r, deferred_mxu=True)
     check_render(path, kw_m, keep=True, memo=(path,))
     clear_plain()

@@ -7,8 +7,9 @@ root of a source checkout, or in a per-user cache directory for an
 installed package (``cache_root``), named by a hash of the source, the
 sources it includes (``csrc/render_binned.cu``,
 ``csrc/render_resident_ordered.cu``, ``csrc/render_resident_binned.cu``,
-``csrc/render_seeded.cu``, ``csrc/render_none.cu`` and
-``csrc/render_dmxu.cu`` include ``csrc/render_resident.cu``) and the flags,
+``csrc/render_seeded.cu``, ``csrc/render_none.cu``, ``csrc/render_dmxu.cu``
+and ``csrc/render_streamed.cu`` include ``csrc/render_resident.cu``) and the
+flags,
 so an edited source or flag
 rebuilds and an unchanged one loads at once. Nothing is built when this module is imported: the first call that
 launches a kernel builds it. The sources ship in the package
@@ -72,10 +73,23 @@ SIGNATURES = {
          _I,  # n_mats
          _P, _P, _P,  # depth seg rgb
          _P, _P,  # code handoff (the mip hand-off)
-         _P, _P,  # order spans (the streamed route)
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
          _F, _F,  # two_over_w two_over_h
          _I, _I, _I,  # raster tex_filter geo
+         _P],  # stream
+    ),
+    "render_streamed": (
+        "mrt_render_streamed",
+        [_P, _P, _P, _P, _P,  # rows clusters cams mats pool
+         _I,  # n_mats
+         _P, _P, _P,  # depth seg rgb
+         _P, _P,  # code handoff (the mip hand-off, the 9-output mode)
+         _P, _P,  # order spans
+         _P,  # seed (K9) or null
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
+         _F, _F,  # two_over_w two_over_h
+         _I, _I, _I,  # raster tex_filter geo
+         _I, _I,  # groups (tile groups a block; 0: 16x16 blocks) parts (blocks a view)
          _P],  # stream
     ),
     "render_binned": (
@@ -97,7 +111,7 @@ SIGNATURES = {
          _I,  # n_mats
          _P, _P, _P,  # depth seg rgb
          _P, _P,  # code handoff (the mip hand-off)
-         _P, _P, _P, _P,  # order spans bins ranges (each or null)
+         _P, _P, _P,  # spans bins ranges (each or null)
          _P,  # seed
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
          _F, _F,  # two_over_w two_over_h

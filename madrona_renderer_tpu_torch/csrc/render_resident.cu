@@ -2,9 +2,10 @@
 // cluster-culled, shaded ray-cast with the fused export, on prep or raw
 // geometry rows, with the Möller–Trumbore or the watertight decision, with
 // or without shadow rays, in its raytrace and raster conventions,
-// untextured, textured, or handing mip-mapped texturing on; and K3 + K5,
-// the same kernel on the streamed route for meshes past the resident
-// budget (render_streamed_kernel, below).
+// untextured, textured, or handing mip-mapped texturing on. The body
+// (render_body) also walks the streamed route's binned visit (K4, K11 and
+// their K9 twins, built in their own sources); the streamed ordered walk
+// (K3 + K5) has a body of its own in csrc/render_streamed.cu.
 //
 // Replaces madrona_renderer_tpu/ops/raytrace_pallas.py::_render_kernel in
 // its resident culled shaded variant (defer_attrs, fused_export), launched
@@ -51,8 +52,8 @@
 //     render_core does not shade in the kernel) stops before the shading
 //     and writes t, z, idx, the material, uv and the normal, unmasked, for
 //     the epilogue (raytrace_cuda.frames_from_core); every culled visit has
-//     it, each route in its own source (here the streamed ordered walk's;
-//     K1's and K1-none's in csrc/render_none.cu).
+//     it, each route in its own source (K1's and K1-none's in
+//     csrc/render_none.cu).
 // The plain PyTorch version is ops/raytrace_cuda.py::render_resident_plain;
 // both compute the same expressions in the same order, so with --fmad=false
 // (no mul+add contraction) and IEEE divide/sqrt the two agree bit for bit.
@@ -124,8 +125,8 @@
 // reads in the sweeps), the winner's attributes, the material row and the
 // texels read from global memory once per pixel. No wgmma or TMA: the work
 // is scalar per pixel. The three switches and the route (STREAM) are
-// template parameters, so each of the 86 variants compiles to its own kernel
-// with no runtime branch on them. K10's block keeps 10 rows per triangle in
+// template parameters, so each of this file's 40 variants compiles to its
+// own kernel with no runtime branch on them. K10's block keeps 10 rows per triangle in
 // shared memory (a, b, c and the validity: 120 KB at the budget's 3,072
 // triangles, where K1-raw's 16 rows take 192 KB); its resolve and its
 // shadow sweep read the raw rows from global memory (L1/L2). The resident
@@ -134,33 +135,30 @@
 // likewise; the shadow sweep's per-light pvec, det and 1/det, which are
 // per-triangle scalars, hoisted per block.
 //
-// The streamed route (STREAM, render_streamed_kernel): meshes whose rows do
-// not fit the resident budget (32 * S * 4 bytes > 384 KB, the JAX package's
-// dma_tris, :4265-4266). Replaces the same factory's ordered (K3, :1755-1785)
-// deferred / dma_tris / prep-stream / band_gates sweep (K5, :1787-2680). Per
-// 16x16 block (one view, one tile) the world's cluster table, the view's
-// visit order (ascending camera-to-AABB distance, raytrace_cuda.
-// camera_cluster_order) and its clusters' pixel-row spans (raytrace_cuda.
-// camera_cluster_rowspans at 16-row bands) sit in shared memory, and the block
-// walks the order: it stops at the first cluster that is invalid or that no
-// pixel can reach (best_t^2 <= 0.998 * approach distance^2, :1740-1780),
-// skips a cluster whose span misses the block's rows or whose slab test no
-// ray passes, and sweeps the rest from a double buffer that cp.async fills
-// with the next candidate's geometry rows (10 prep rows, 9 raw rows plus
-// the block's tv, q, t_num per staged triangle, or, watertight, the 10 raw
-// rows turned in place into the block's a, b, c and the validity) while the
-// current one is swept. Exact-t ties go to the lower triangle index
-// (t < best_t || t == best_t && i < best_i), and the slab test passes
-// tmin * 0.999 < best_t, so a cluster holding a triangle that ties the best
-// hit is visited whatever the order: the frames are the index-order sweep's
+// The streamed route (STREAM): meshes whose rows do not fit the resident
+// budget (32 * S * 4 bytes > 384 KB, the JAX package's dma_tris,
+// :4265-4266). Its ordered visit (K3 + K5, the same factory's ordered,
+// :1755-1785, deferred / dma_tris / prep-stream / band_gates sweep,
+// :1787-2680) is csrc/render_streamed.cu's: one fill of the view's
+// positions a block, tile groups on named barriers, bulk-copy staging.
+// render_body's STREAM branch walks the same order with the same gates for
+// K11 (csrc/render_dmxu.cu) and, through BINNED, each bin (K4, below): per
+// 16x16 block the walk stops at the first cluster that is invalid or that
+// no pixel can reach (best_t^2 <= 0.998 * approach distance^2,
+// :1740-1780), skips a cluster whose row span misses the block's rows or
+// whose slab test no ray passes, and sweeps the rest from a double buffer
+// that cp.async fills with the next candidate's geometry rows (10 prep
+// rows, 9 raw rows plus the block's tv, q, t_num per staged triangle, or,
+// watertight, the 10 raw rows turned in place into the block's a, b, c and
+// the validity) while the current one is swept (walk_clusters). Exact-t
+// ties go to the lower triangle index (t < best_t || t == best_t &&
+// i < best_i), and the slab test passes tmin * 0.999 < best_t, so a
+// cluster holding a triangle that ties the best hit is visited whatever
+// the order: the frames are the index-order sweep's
 // (render_resident_plain), bit for bit. The winner's (u, v) and attributes
 // are resolved once, after the walk, from global memory; the shadow sweep
 // (raw_shadows) walks every cluster in index order with its slab test and
-// stages each visited cluster's raw rows the same way. The grid is the
-// resident route's, (views, tiles), a tile's views next to each other in
-// launch order: on bigmesh_512w that ran 6% faster than a grid that keeps
-// a view's tiles together for L2 reuse of its clusters
-// (port_tools/stream_grid_ab.py).
+// stages each visited cluster's raw rows the same way.
 //
 // The binned visit (K4, BINNED, built by csrc/render_binned.cu, which
 // includes this file for the body and has its own entry point, so this
@@ -1381,12 +1379,6 @@ render_resident_kernel(const RenderArgs a) {
   render_body<GEO, RASTER, TEX, false>(a, StreamArgs{nullptr, nullptr});
 }
 
-template <int GEO, bool RASTER, int TEX>
-__global__ void __launch_bounds__(kThreads)
-render_streamed_kernel(const RenderArgs a, const StreamArgs s) {
-  render_body<GEO, RASTER, TEX, true>(a, s);
-}
-
 template <class Kernel>
 int set_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
@@ -2101,27 +2093,18 @@ RenderArgs render_args(const float* rows, const float* clusters, const float* ca
 }
 
 // csrc/render_binned.cu, csrc/render_resident_ordered.cu,
-// csrc/render_resident_binned.cu, csrc/render_seeded.cu, csrc/render_none.cu
-// and csrc/render_dmxu.cu include this file for the above and bring their
-// own entry point, route and C interface.
+// csrc/render_resident_binned.cu, csrc/render_seeded.cu, csrc/render_none.cu,
+// csrc/render_dmxu.cu and csrc/render_streamed.cu include this file for the
+// above and bring their own entry point, route and C interface.
 #ifndef MRT_RENDER_BODY_ONLY
-// The resident route, or with s.order the streamed route's ordered visit;
-// the 9-output mode on the streamed visit only (K1's 9-output entries are
-// csrc/render_none.cu's).
+// The resident route in index order (K1); its 9-output entries are
+// csrc/render_none.cu's.
 struct ResidentRoute {
-  static constexpr bool kNine = true;
   template <int GEO, bool RASTER, int TEX>
-  static int run(const RenderArgs& a, const StreamArgs& s, int num_views,
+  static int run(const RenderArgs& a, const StreamArgs&, int num_views,
                  cudaStream_t stream) {
-    if constexpr (TEX != kTexNine) {
-      if (s.order == nullptr)
-        return launch_grid(render_resident_kernel<GEO, RASTER, TEX>, a, num_views,
-                           resident_smem<GEO>(a), stream, a);
-    } else if (s.order == nullptr) {
-      return (int)cudaErrorInvalidValue;
-    }
-    return launch_grid(render_streamed_kernel<GEO, RASTER, TEX>, a, num_views,
-                       streamed_smem<GEO>(a), stream, a, s);
+    return launch_grid(render_resident_kernel<GEO, RASTER, TEX>, a, num_views,
+                       resident_smem<GEO>(a), stream, a);
   }
 };
 #endif  // MRT_RENDER_BODY_ONLY
@@ -2135,20 +2118,16 @@ extern "C" {
 // caller's current device: geo is 0 (prep rows), 1 (raw rows), 2 (raw rows
 // with shadows, at most 32 lights), 3 (raw rows, the watertight decision)
 // or 4 (3 with shadows); tex_filter is 0 (untextured), 1
-// (nearest), 2 (bilinear), 3 (the mip hand-off, written to code and
-// handoff instead of rgb) or 4 (the 9-output mode, geo 0, 1 or 3, streamed
-// only: t in depth, idx in segmask, the material in code, and z, uv x,
-// uv y, nx, ny, nz in the six planes of handoff); mats/pool may be null
-// unless it is 1 or 2, and rgb when it is 3 or 4, code/handoff unless it is
-// 3 or 4. With order and spans (both or neither) the streamed route runs:
-// rows, cluster_size and S must keep every cluster's rows 16-byte aligned.
+// (nearest), 2 (bilinear) or 3 (the mip hand-off, written to code and
+// handoff instead of rgb); mats/pool may be null unless it is 1 or 2, and
+// rgb when it is 3, code/handoff unless it is 3. Every cluster in index
+// order (K1); the streamed ordered walk is csrc/render_streamed.cu's.
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unknown variant.
 int mrt_render_resident(const float* rows, const float* clusters,
                         const float* cams, const float* mats, const int* pool,
                         int n_mats, float* depth, int* segmask, uint32_t* rgb,
-                        int* code, float* handoff, const int* order,
-                        const int* spans, int num_views, int num_cams, int S, int CC,
+                        int* code, float* handoff, int num_views, int num_cams, int S, int CC,
                         int cluster_size, int n_cols, int n_lights, int height,
                         int width, int seg_div, float two_over_w,
                         float two_over_h, int raster, int tex_filter, int geo,
@@ -2157,11 +2136,7 @@ int mrt_render_resident(const float* rows, const float* clusters,
                                    segmask, rgb, code, handoff, num_cams, S, CC,
                                    cluster_size, n_cols, n_lights, height, width,
                                    seg_div, two_over_w, two_over_h, tex_filter);
-  if ((order == nullptr) != (spans == nullptr)) return (int)cudaErrorInvalidValue;
-  if (order != nullptr &&
-      (cluster_size % 4 != 0 || S % 4 != 0 || ((uintptr_t)rows & 15) != 0))
-    return (int)cudaErrorMisalignedAddress;
-  return launch_variant<ResidentRoute>(a, StreamArgs{order, spans}, num_views, geo,
+  return launch_variant<ResidentRoute>(a, StreamArgs{nullptr, nullptr}, num_views, geo,
                                        raster, tex_filter, (cudaStream_t)stream);
 }
 

@@ -1,5 +1,6 @@
-// K9 on K1 (index order), K3 + K5 (the streamed ordered walk) and K4 (the
-// streamed binned walk): the render kernel's body (csrc/render_resident.cu,
+// K9 on K1 (index order) and K4 (the streamed binned walk; the streamed
+// ordered walk's seeded entries are csrc/render_streamed.cu's): the render
+// kernel's body (csrc/render_resident.cu,
 // included below, with its variant dispatch) in its SEEDED mode, with its
 // own entry points, route and C interface in this translation unit, which
 // builds beside the others, so that csrc/render_resident.cu's and
@@ -25,8 +26,8 @@
 // pixel) and its min (1 FP32 operation a thread); the walk's work is what the
 // seed leaves (chip_smoke.py replays it, seeded, with ops/walk_replay.py). The
 // design is the cold kernel's: the seed changes one initial value. The
-// streamed walks' 9-output entries (prep, raw and K10 rows) are seeded here
-// too; K1's seeded 9-output entries are csrc/render_none.cu's.
+// streamed binned walk's 9-output entries (prep, raw and K10 rows) are
+// seeded here too; K1's seeded 9-output entries are csrc/render_none.cu's.
 
 #define MRT_RENDER_BODY_ONLY
 #include "render_resident.cu"
@@ -42,29 +43,21 @@ render_resident_seeded_kernel(const RenderArgs a, const float* __restrict__ seed
 
 template <int GEO, int TEX>
 __global__ void __launch_bounds__(kThreads)
-render_streamed_seeded_kernel(const RenderArgs a, const StreamArgs s,
-                              const float* __restrict__ seed) {
-  render_body<GEO, false, TEX, true, false, false, true>(a, s, BinArgs{}, seed);
-}
-
-template <int GEO, int TEX>
-__global__ void __launch_bounds__(kThreads)
 render_binned_seeded_kernel(const RenderArgs a, const BinArgs b,
                             const float* __restrict__ seed) {
   render_body<GEO, false, TEX, true, true, false, true>(a, StreamArgs{nullptr, nullptr}, b,
                                                         seed);
 }
 
-// The visit of a seeded launch: with b.bins the streamed binned walk, with
-// s.order the streamed ordered walk, else K1's index order.
+// The visit of a seeded launch: with b.bins the streamed binned walk, else
+// K1's index order.
 struct Visits {
-  StreamArgs s;
   BinArgs b;
 };
 
 // K9's launch of one variant, on its route's grid and shared memory.
 struct SeededRoute {
-  static constexpr bool kNine = true;  // the streamed walks' only
+  static constexpr bool kNine = true;  // the streamed binned walk's only
   template <int GEO, bool RASTER, int TEX>
   static int run(const RenderArgs& a, const Seeded<Visits>& v, int num_views,
                  cudaStream_t stream) {
@@ -74,9 +67,6 @@ struct SeededRoute {
       if (v.x.b.bins != nullptr)
         return launch_grid(render_binned_seeded_kernel<GEO, TEX>, a, num_views,
                            binned_smem<GEO>(a), stream, a, v.x.b, v.seed);
-      if (v.x.s.order != nullptr)
-        return launch_grid(render_streamed_seeded_kernel<GEO, TEX>, a, num_views,
-                           streamed_smem<GEO>(a), stream, a, v.x.s, v.seed);
       if constexpr (TEX == kTexNine) {
         return (int)cudaErrorInvalidValue;
       } else {
@@ -94,16 +84,15 @@ extern "C" {
 // Launches the seeded variant (geo, tex_filter; raster must be 0) on
 // `stream`, on the caller's current device, with mrt_render_binned's
 // arguments and `seed` ([num_views, height, width] f32): with bins, spans
-// and (geo 0 only) ranges the streamed binned walk, with order and spans the
-// streamed ordered walk, with neither K1's index order; tex_filter 4 (the
-// 9-output mode, geo 0, 1 or 3) on the streamed walks only. Returns
-// cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for an unknown variant, a raster one, a missing seed
-// or visit input.
+// and (geo 0 only) ranges the streamed binned walk, with neither K1's index
+// order; tex_filter 4 (the 9-output mode, geo 0, 1 or 3) on the streamed
+// binned walk only. Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for an unknown variant, a raster one,
+// a missing seed or visit input.
 int mrt_render_seeded(const float* rows, const float* clusters, const float* cams,
                       const float* mats, const int* pool, int n_mats, float* depth,
                       int* segmask, uint32_t* rgb, int* code, float* handoff,
-                      const int* order, const int* spans, const int* bins,
+                      const int* spans, const int* bins,
                       const int* ranges, const float* seed, int num_views, int num_cams,
                       int S, int CC, int cluster_size, int n_cols, int n_lights, int height,
                       int width, int seg_div, float two_over_w, float two_over_h,
@@ -113,15 +102,13 @@ int mrt_render_seeded(const float* rows, const float* clusters, const float* cam
                                    segmask, rgb, code, handoff, num_cams, S, CC,
                                    cluster_size, n_cols, n_lights, height, width,
                                    seg_div, two_over_w, two_over_h, tex_filter);
-  if (seed == nullptr || (order != nullptr && bins != nullptr) ||
-      ((order != nullptr || bins != nullptr) != (spans != nullptr)) ||
+  if (seed == nullptr || ((bins != nullptr) != (spans != nullptr)) ||
       (bins != nullptr && (ranges == nullptr) != (geo != kGeoPrep)))
     return (int)cudaErrorInvalidValue;
   if (spans != nullptr &&
       (cluster_size % 4 != 0 || S % 4 != 0 || ((uintptr_t)rows & 15) != 0))
     return (int)cudaErrorMisalignedAddress;
-  const Visits x{StreamArgs{order, spans},
-                 BinArgs{bins, spans, reinterpret_cast<const int2*>(ranges), bins_x,
+  const Visits x{BinArgs{bins, spans, reinterpret_cast<const int2*>(ranges), bins_x,
                          bin_shift, n_bins, n_bands}};
   return launch_variant<SeededRoute>(a, Seeded<Visits>{x, seed}, num_views, geo, raster,
                                      tex_filter, (cudaStream_t)stream);

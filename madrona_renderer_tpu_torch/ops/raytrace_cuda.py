@@ -43,12 +43,15 @@ samples), in the raytrace or the raster conventions (``raster_clip``, K2).
 Meshes past the resident budget (``is_streamed``: 32·S·4 bytes > 384 KB,
 the JAX package's ``dma_tris``, :4265-4266, whatever the cluster count)
 take the streamed route, with one of two visits (``visit_route``):
-  * ordered (K3 + K5): the prologue adds each view's front-to-back cluster
-    order (``camera_cluster_order``) and its clusters' pixel-row spans
-    (``camera_cluster_rowspans`` at the kernel's 16-row blocks); each block
-    walks the order with the occlusion early exit, streaming each visited
-    cluster's rows from device memory, its shared memory holding the
-    cluster table, order and spans;
+  * ordered (K3 + K5, ``csrc/render_streamed.cu``): the prologue adds each
+    view's front-to-back cluster order (``camera_cluster_order``) and its
+    clusters' pixel-row spans (``camera_cluster_rowspans`` at the kernel's
+    16-row tiles); each tile's walk takes the order with the occlusion early
+    exit, streaming each visited cluster's rows from device memory. A block
+    fills the view's order once, in visit order with each position's gate
+    terms, and its tile groups walk the view's tiles (``streamed_plan``:
+    groups a block, blocks a view, shared memory); the shadow sweeps keep
+    one 16x16 block a tile;
   * binned (K4, ``csrc/render_binned.cu``), where the JAX ``render_core``
     bins (``accel="binned"``, or ``"auto"`` with 64 or more clusters and 4
     or more TPU tiles: 128×128 views and up) and wherever the ordered
@@ -108,6 +111,7 @@ shadows through ``compute_lit``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -168,11 +172,28 @@ _NINE_GEOS = ("prep", "raw", "raw_wt")
 _NINE_PLANES = 6  # the 9-output mode's f32 planes: z, uv x, uv y, normal x, y, z
 _MAX_SHADOW_LIGHTS = 32  # one occlusion bit per light in the kernel
 _TILE = 16  # the kernel's block: 16×16 pixels; the row spans' band height
-# The streamed route's shared memory: two staged clusters of up to 16 rows,
-# the cluster table, order and spans, the camera row (an H100 block's
-# dynamic shared memory ends at 227 KB).
+# The streamed ordered walk's rule (visit_route): its table fits when two
+# staged clusters of up to 16 rows, the cluster table, order and spans and
+# the camera row do (an H100 block's dynamic shared memory ends at 227 KB).
 _STAGE_ROWS = 16
 _MAX_SMEM = 227 * 1024
+# The streamed ordered walk's block (K3 + K5, csrc/render_streamed.cu): a
+# 384-byte head (the tile counter, each tile group's tile slots, stage
+# mbarriers and vote rows), each group's two stage buffers of [rows, cluster
+# size] (the geometry rows a geo sweeps, _VISIT_GEO_ROWS), the view's
+# positions (10 words a cluster of its order: the exit threshold, the row
+# span, the cluster id with its count, the AABB less the camera origin)
+# and the camera row. Four tile groups of 256 threads a block, fewer where a
+# block would not fit; a view's tiles are shared over several blocks where
+# there are fewer views than blocks the card holds at once. The shadow
+# sweeps (_SHADOW_GEOS) take render_body's 16x16 blocks instead.
+_STREAM_HEAD_BYTES = 384
+_STREAM_WORDS = 10
+_STREAM_GROUPS = 4
+_STREAM_MAX_CLUSTERS = (1 << 16) - 1  # the cluster id's bits in its position word
+_H100_SMS = 132
+_SM_SMEM = 228 * 1024  # an SM's shared memory, 1 KB of it reserved a block
+_SM_REGS = 65536  # an SM's registers; the walk's entries take at most 64 a thread
 # The resident visits' block (K3 and K4 on resident rows, one a view): a
 # 128-byte head (the geometry fill's mbarrier, the tile counter, the tile
 # groups' slots and votes), then the geometry rows a geo keeps in shared
@@ -252,17 +273,108 @@ def _streamed_slots(S: int) -> bool:
     return _TRI_ROWS * S * 4 > SMEM_TRI_BUDGET
 
 
-def streamed_smem_bytes(n_clusters: int, cluster_size: int, n_lights: int) -> int:
-    """Shared memory a block of the streamed route takes."""
+def streamed_rule_bytes(n_clusters: int, cluster_size: int, n_lights: int) -> int:
+    """The streamed ordered walk's rule in ``visit_route`` (a table past it
+    takes the binned visit), and the shared memory of K11's ordered visit:
+    two staged clusters of 16 rows, the cluster table, order and spans, the
+    camera row. The ordered walk's own block is ``streamed_block_bytes``."""
     return 4 * (2 * _STAGE_ROWS * cluster_size + 11 * n_clusters
                 + _n_cam_cols(n_lights))
 
 
 class LaunchPlanError(ValueError):
-    """Inputs a kernel's launch plan cannot take: a resident visit's block
-    past the card's shared memory, or rows its geometry fill cannot copy in
-    16-byte pieces. Raised on every device: no route falls back."""
+    """Inputs a kernel's launch plan cannot take: a resident visit's or the
+    streamed ordered walk's block past the card's shared memory, or rows
+    their copies cannot move in 16-byte pieces. Raised on every device: no
+    route falls back."""
 
+
+class StreamPlan(NamedTuple):
+    """The streamed ordered walk's launch: ``groups`` tile groups of 256
+    threads a block (0: one 16x16 block a tile, the shadow sweeps' walk),
+    ``parts`` blocks a view (each a share of the view's tiles,
+    ``stream_tiles``), ``smem_bytes`` of shared memory a block."""
+
+    groups: int
+    parts: int
+    smem_bytes: int
+
+
+def streamed_block_bytes(geo: str, n_clusters: int, cluster_size: int, n_lights: int,
+                         groups: int) -> int:
+    """Shared memory a block of the streamed ordered walk's tile groups
+    takes (``stream_smem`` in ``csrc/render_streamed.cu``)."""
+    return _STREAM_HEAD_BYTES + 4 * (groups * 2 * _VISIT_GEO_ROWS[geo] * cluster_size
+                                     + _STREAM_WORDS * n_clusters + _n_cam_cols(n_lights))
+
+
+def stream_parts(num_views: int, n_tiles: int, groups: int, slots: int) -> int:
+    """Blocks a view: 1 where the views fill the ``slots`` (blocks the card
+    holds at once), else as many as the slots take, as long as each block
+    keeps ``groups`` tiles."""
+    if num_views >= slots:
+        return 1
+    return max(1, min(slots // num_views, n_tiles // groups))
+
+
+def stream_tiles(n_tiles: int, parts: int) -> list:
+    """The tiles of each of a view's ``parts`` blocks, in the order the
+    kernel takes them (``stream_body``: block b's are b, b + parts, ...)."""
+    return [list(range(p, n_tiles, parts)) for p in range(parts)]
+
+
+def streamed_plan(geo: str, n_clusters: int, cluster_size: int, n_lights: int,
+                  num_views: int, height: int, width: int,
+                  sm_count: int = _H100_SMS) -> StreamPlan:
+    """The streamed ordered walk's launch on these inputs (``sm_count``:
+    the card's multiprocessors, the H100's 132 by default): four tile groups
+    (no more than a view's tiles) or fewer, until the block fits 227 KB, and
+    ``stream_parts``' blocks a view for the blocks the card holds at once
+    (by registers, at most 64 a thread, and shared memory); the shadow
+    sweeps one 16x16 block a tile. ``LaunchPlanError`` when even one group
+    does not fit."""
+    n_tiles = -(-height // _TILE) * -(-width // _TILE)
+    if geo in _SHADOW_GEOS:
+        # Two stage buffers, the cluster table, the camera row, the order and
+        # the spans (render_resident.cu's streamed_smem; visit_route's rule
+        # keeps them under 227 KB).
+        groups = 0
+        smem = 4 * (2 * _VISIT_GEO_ROWS[geo] * cluster_size + 11 * n_clusters
+                    + _n_cam_cols(n_lights))
+    else:
+        groups = min(_STREAM_GROUPS, n_tiles)
+        while groups > 1 and streamed_block_bytes(geo, n_clusters, cluster_size, n_lights,
+                                                  groups) > _MAX_SMEM:
+            groups -= 1
+        smem = streamed_block_bytes(geo, n_clusters, cluster_size, n_lights, groups)
+    if smem > _MAX_SMEM:
+        raise LaunchPlanError(f"the streamed ordered walk's block needs {smem} bytes of "
+                              f"shared memory for {n_clusters} clusters of {cluster_size} "
+                              f"{geo} slots (at most {_MAX_SMEM})")
+    if groups == 0:
+        return StreamPlan(0, 1, smem)
+    per_sm = max(1, min(_SM_REGS // (_TILE ** 2 * groups * 64), _SM_SMEM // (smem + 1024)))
+    return StreamPlan(groups, stream_parts(num_views, n_tiles, groups, sm_count * per_sm), smem)
+
+
+def check_streamed_plan(rows: torch.Tensor, n_clusters: int, n_lights: int, geo: str,
+                        num_views: int, height: int, width: int,
+                        sm_count: int = _H100_SMS) -> StreamPlan:
+    """The streamed ordered walk's launch plan for these rows (else
+    ``LaunchPlanError``): its stage copies move whole cluster rows in
+    16-byte pieces (rows 16-byte aligned, S and the cluster size multiples
+    of 4), a cluster's id fits its position word, and ``streamed_plan``
+    finds a block that fits."""
+    S = int(rows.shape[2])
+    size = S // n_clusters
+    if S % 4 or size % 4 or rows.data_ptr() % _FILL_ALIGN:
+        raise LaunchPlanError(f"the streamed ordered walk copies 16-byte pieces: S ({S}) and "
+                              f"the cluster size ({size}) must be multiples of 4 and rows "
+                              f"16-byte aligned (at {rows.data_ptr() % _FILL_ALIGN} past 16)")
+    if n_clusters > _STREAM_MAX_CLUSTERS:
+        raise LaunchPlanError(f"the streamed ordered walk takes at most "
+                              f"{_STREAM_MAX_CLUSTERS} clusters a world, got {n_clusters}")
+    return streamed_plan(geo, n_clusters, size, n_lights, num_views, height, width, sm_count)
 
 def resident_smem_bytes(geo: str, S: int, n_clusters: int, n_lights: int,
                         ordered: bool) -> int:
@@ -334,7 +446,7 @@ def visit_route(state: SimState, scene: SceneData, height: int, width: int,
         and n_tiles >= _AUTO_BIN_MIN_TILES
         and views * n_tiles * (n_cl + 1) <= _BIN_ENTRIES)
     if streamed:
-        if streamed_smem_bytes(n_cl, size, int(scene.light_dir.shape[0])) > _MAX_SMEM:
+        if streamed_rule_bytes(n_cl, size, int(scene.light_dir.shape[0])) > _MAX_SMEM:
             binned = True
         return Route(True, "binned" if binned else "ordered")
     if binned:
@@ -1015,23 +1127,23 @@ _ROUTE_NAMES = {
     Route(True, "binned"): "render_binned",
 }
 _ROUTE_LIBRARIES = {INDEX: "render_resident", NONE: "render_none",
-                    Route(True, "ordered"): "render_resident",
+                    Route(True, "ordered"): "render_streamed",
                     Route(True, "binned"): "render_binned",
                     Route(False, "ordered"): "render_resident_ordered",
                     Route(False, "binned"): "render_resident_binned"}
 
 
 def library_of(route: Route, seeded: bool, texture=None, dmxu: bool = False) -> str:
-    """The csrc/ library of a launch: K9 on K1, K3 + K5 and K4 builds in
-    ``render_seeded.cu``, the resident visits' seeded entries in their own
-    sources; K1-none and K1's 9-output mode (cold and seeded) in
+    """The csrc/ library of a launch: K9 on K1 and K4 builds in
+    ``render_seeded.cu``, the ordered visits' seeded entries (K3 + K5, K3
+    on resident rows) in their own sources; K1-none and K1's 9-output mode (cold and seeded) in
     ``render_none.cu``; K11 (cold and seeded) in ``render_dmxu.cu``. The
     other visits' 9-output entries are their cold and seeded libraries'."""
     if dmxu:
         return "render_dmxu"
     if texture == "nine" and route == INDEX:
         return "render_none"
-    if seeded and route in (INDEX, Route(True, "ordered"), Route(True, "binned")):
+    if seeded and route in (INDEX, Route(True, "binned")):
         return "render_seeded"
     return _ROUTE_LIBRARIES[route]
 
@@ -1073,8 +1185,8 @@ def _route_variants(*routes, seeded: bool = False, textures=_FUSED_TEX,
                  for t in textures if t != "nine" or g in _NINE_GEOS)
 
 
-# csrc/render_resident.cu's cold entries (resident and streamed ordered),
-# csrc/render_binned.cu's (K4), the resident visits' sources' (K3 and K4 on
+# The cold entries of K1 (csrc/render_resident.cu) and of the streamed
+# ordered walk (K3 + K5, csrc/render_streamed.cu), csrc/render_binned.cu's (K4), the resident visits' sources' (K3 and K4 on
 # resident rows), and every route's seeded raytrace entries (K9, each
 # source's own).
 VARIANTS = _route_variants(INDEX, Route(True, "ordered"))
@@ -1265,6 +1377,8 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
                  height, width, rows, geo, dmxu)
     if clusters is not None and spans is None and (order is not None or bins is not None):
         check_resident_plan(rows, CC, n_lights, geo, order is not None)
+    if clusters is not None and spans is not None and order is not None and not dmxu:
+        check_streamed_plan(rows, CC, n_lights, geo, W * num_cams, height, width)
     _check_seed(seed, rows, (W * num_cams, height, width), raster)
 
 
@@ -1310,8 +1424,9 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
 
     Tensors on the card launch the route's kernel on their device's current
     stream; tensors on the CPU run ``render_resident_plain``. Inputs that
-    the resident visits' launch plan cannot take (``check_resident_plan``)
-    raise ``LaunchPlanError`` on either device. Each launch
+    the resident visits' or the streamed ordered walk's launch plan cannot
+    take (``check_resident_plan``, ``check_streamed_plan``) raise
+    ``LaunchPlanError`` on either device. Each launch
     adds one to ``render_resident.launches`` and to its variant's entry of
     ``render_resident.variant_launches``."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
@@ -1373,8 +1488,8 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     if route.streamed and ((S // CC) % 4 or rows.data_ptr() % 16):
         raise ValueError("the streamed route copies 16-byte slices: the cluster "
                          "size must be a multiple of 4 and rows 16-byte aligned")
-    if route == Route(True, "ordered"):
-        smem = streamed_smem_bytes(CC, S // CC, n_lights)
+    if route == Route(True, "ordered") and dmxu:
+        smem = streamed_rule_bytes(CC, S // CC, n_lights)
         if smem > _MAX_SMEM:
             raise ValueError(f"{CC} clusters need {smem} bytes of shared memory "
                              f"(at most {_MAX_SMEM})")
@@ -1416,8 +1531,12 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
         tail = bin_args + [int(rowskip), stream]
     elif kernel == "render_none":  # K1-none, and K1's 9-output mode
         visit, tail = [ptr(seed)], [int(clusters is not None), stream]
-    elif kernel == "render_seeded":  # K9 on K1, K3 + K5 and K4
-        visit = [ptr(order), ptr(spans), ptr(bins), ptr(ranges), seed.data_ptr()]
+    elif kernel == "render_streamed":  # K3 + K5, cold or seeded
+        plan = streamed_plan(geo, CC, S // CC, n_lights, WC, height, width, _sm_count(dev))
+        visit = [order.data_ptr(), spans.data_ptr(), ptr(seed)]
+        tail = [plan.groups, plan.parts, stream]
+    elif kernel == "render_seeded":  # K9 on K1 and K4
+        visit = [ptr(spans), ptr(bins), ptr(ranges), seed.data_ptr()]
         tail = bin_args + [n_bands, stream]
     elif route == Route(True, "binned"):
         visit = [bins.data_ptr(), spans.data_ptr(), ptr(ranges)]
@@ -1426,8 +1545,8 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
         visit, tail = [bins.data_ptr(), ptr(seed)], bin_args + [stream]
     elif route == Route(False, "ordered"):
         visit, tail = [order.data_ptr(), ptr(seed)], [stream]
-    else:
-        visit, tail = [ptr(order), ptr(spans)], [stream]
+    else:  # K1
+        visit, tail = [], [stream]
     launch = _build.load(kernel)
     with torch.cuda.device(dev):
         err = launch(*head, *visit, *params, *tail)
@@ -1445,6 +1564,50 @@ render_resident.launches = 0
 render_resident.variant_launches = dict.fromkeys(RENDER_VARIANTS, 0)
 
 
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _occupancy_query(name: str, argtypes: list):
+    fn = getattr(ctypes.CDLL(str(_build.build(name))), f"mrt_{name}_occupancy")
+    fn.argtypes = argtypes + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def streamed_occupancy(kw: dict) -> dict:
+    """What the card makes of the streamed ordered walk's entry that these
+    inputs (``pack_inputs``'s, of the streamed ordered visit, not K11)
+    launch: its variant, tile groups and blocks a view, threads a block,
+    registers and local memory a thread, shared memory a block, and blocks
+    and warps a multiprocessor (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
+    Launches nothing; needs the card."""
+    route = route_of(kw["order"], kw["spans"], kw["bins"], kw["clusters"] is not None)
+    if route != Route(True, "ordered") or kw.get("dmxu"):
+        raise ValueError(f"{route} (dmxu {kw.get('dmxu')}) is not the streamed ordered walk")
+    texture = "mip" if kw.get("fb_rows") is not None else kw["texture"]
+    seeded = kw.get("seed") is not None
+    S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
+    views = int(kw["cams"].shape[0])
+    plan = streamed_plan(kw["geo"], CC, S // CC, kw["n_lights"], views, kw["height"],
+                         kw["width"], _sm_count(kw["rows"].device))
+    out = (ctypes.c_int * 4)()
+    err = _occupancy_query("render_streamed", [ctypes.c_int] * 9)(
+        _GEO_CODES[kw["geo"]], int(kw["raster"]), _TEX_CODES[texture], int(seeded),
+        plan.groups, CC, S // CC, int(kw["cams"].shape[1]), kw["n_lights"], out)
+    if err != 0:
+        raise RuntimeError(f"render_streamed's occupancy query failed: CUDA error {err}")
+    threads, registers, local, blocks = list(out)
+    return {"variant": variant_name(kw["raster"], texture, kw["geo"], route, seeded),
+            "groups": plan.groups, "blocks_per_view": plan.parts,
+            "blocks": views * (plan.parts if plan.groups else -(-kw["height"] // _TILE)
+                               * -(-kw["width"] // _TILE)),
+            "threads": threads, "registers": registers, "local_bytes": local,
+            "smem_bytes": plan.smem_bytes, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * threads // 32}
+
+
 def resident_occupancy(kw: dict) -> dict:
     """What the card makes of the resident visit's entry that these inputs
     (``pack_inputs``'s, of a resident ordered or binned visit) launch: its
@@ -1456,9 +1619,7 @@ def resident_occupancy(kw: dict) -> dict:
     if route not in (Route(False, "ordered"), Route(False, "binned")):
         raise ValueError(f"{route} is not a resident visit")
     name = _ROUTE_LIBRARIES[route]
-    fn = getattr(ctypes.CDLL(str(_build.build(name))), f"mrt_{name}_occupancy")
-    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _occupancy_query(name, [ctypes.c_int] * 8)
     texture = "mip" if kw.get("fb_rows") is not None else kw["texture"]
     seeded = kw.get("seed") is not None
     S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])

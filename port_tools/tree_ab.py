@@ -22,7 +22,14 @@ of 50 launches on the same inputs (the scenes' first step, 64x64):
   27-grid terrain, CUDA events over 5 launches of the first step's
   inputs): K3 and K4 on resident rows at 4096 worlds x 64x64, K4 at 1024
   x 128x128, and K3's 9-output mode on resident_terrain_4096w_64_tex256's
-  inputs (the 256x256 checker baked without mips).
+  inputs (the 256x256 checker baked without mips); and the streamed
+  ordered walk (K3 + K5) at its paths' full size, likewise: on
+  bigmesh_512w's inputs (512 worlds of the 72-grid terrain at 64x64), in
+  its 9-output mode on bigmesh_512w_tex256's, seeded (K9) on a warm step's
+  of bigmesh_512w_warm (the seed from the depth of the step before, world
+  0's terrain moved between), and on the binned terrain paths' A/B (32
+  worlds of the 224-grid terrain under accel="clusters" at 128x128,
+  256x256 and 512x512).
 PASSES (4) alternate this tree and OTHER, starting with this one. Prints
 one JSON line per pass and then one with each kernel's times and OTHER's
 over this tree's mean, with the card's name and power limit. Needs one
@@ -50,6 +57,18 @@ RESIDENT_FULL = {
     "render_resident_binned@4096w_64": (4096, 64, "binned", False),
     "render_resident_binned@1024w_128": (1024, 128, "auto", False),
     "render_resident_ordered_nine@4096w_64_tex256": (4096, 64, "auto", True),
+}
+# The streamed ordered walk at full size: key → (scene, worlds, size, accel,
+# mode): "bigmesh" (bench.py's big mesh; mode "cold", "nine" with the
+# 256x256 checker baked without mips, or "seeded") or "terrain" (the binned
+# terrain).
+STREAMED_FULL = {
+    "render_streamed@bigmesh_512w": ("bigmesh", 512, 64, "auto", "cold"),
+    "render_streamed_nine@bigmesh_512w_tex256": ("bigmesh", 512, 64, "auto", "nine"),
+    "render_streamed_seeded@bigmesh_512w_warm": ("bigmesh", 512, 64, "auto", "seeded"),
+    "render_streamed@binned_32w_128_clusters": ("terrain", 32, 128, "clusters", "cold"),
+    "render_streamed@binned_32w_256_clusters": ("terrain", 32, 256, "clusters", "cold"),
+    "render_streamed@terrain_32w_512_clusters": ("terrain", 32, 512, "clusters", "cold"),
 }
 HANDOFF_KEYS = ("num_cams", "n_lights", "height", "width", "seg_div", "raster", "geo",
                 "order", "spans", "bins", "ranges", "bin_tile")
@@ -166,7 +185,37 @@ def one_pass(root: Path) -> dict:
         out[key] = cs.cuda_ms(lambda kw=kw: rc.render_resident(**kw), 5)
         del r, kw
         torch.cuda.empty_cache()
+    for key, (kind, worlds, res, accel, mode) in STREAMED_FULL.items():
+        kw = streamed_inputs(m, rc, scenes, tex, kind, worlds, res, accel, mode)
+        name = rc.variant_name(False, kw["texture"], kw["geo"],
+                               rc.route_of(kw["order"], kw["spans"], kw["bins"]),
+                               kw.get("seed") is not None)
+        if name != key.split("@")[0]:
+            raise AssertionError(f"{key}: the inputs take {name}")
+        out[key] = cs.cuda_ms(lambda kw=kw: rc.render_resident(**kw), 5)
+        del kw
+        torch.cuda.empty_cache()
     return out
+
+
+def streamed_inputs(m, rc, scenes, tex, kind, worlds, res, accel, mode) -> dict:
+    """pack_inputs' tensors of one STREAMED_FULL entry."""
+    import torch
+
+    if kind == "terrain":
+        r = m.Manager(scenes.binned_terrain_config(worlds, res, res, accel=accel))
+        return rc.pack_inputs(r.state, r.scene, height=res, width=res, accel=accel)
+    extra = dict(texture=tex, mipmaps=False) if mode == "nine" else {}
+    r = m.Manager(scenes.bigmesh_config(worlds, res, res, **extra))
+    if mode != "seeded":
+        return rc.pack_inputs(r.state, r.scene, height=res, width=res, accel=accel)
+    prev = r.depth_tensor().to_torch().clone()
+    r.instance_position_tensor().to_torch()[0][0] += 0.3
+    r.step()
+    far = torch.tensor(r.cfg.far_plane, dtype=torch.float32, device=prev.device)
+    seed = torch.where(prev > 0, torch.minimum(prev * 1.01, far), far).contiguous()
+    seed = seed.reshape(-1, res, res)
+    return dict(rc.pack_inputs(r.state, r.scene, height=res, width=res, accel=accel), seed=seed)
 
 
 def main() -> int:
