@@ -83,6 +83,14 @@ printed as JSON lines:
                seeded too in the raytrace conventions, and K4 and K11's
                binned visit, its row gate on and off, on 4 worlds of the
                textured binned terrain at 128x128 (``terrain4_128_tex256``);
+               every check of a binned entry on the tile groups (K4 and K11
+               on the streamed binned walk's prep rows, csrc/render_binned.cu:
+               cold, seeded, raster, mip hand-off and 9-output) also holds it at
+               forced plans, G = 1, 2 and 4 tile groups with B = 1 and the
+               plan's blocks a view, and against the parent design
+               (render_body's 16x16 blocks, a plan of 0 groups), bitwise
+               (``plans_vs_kernel`` lines; at the binned paths' full size
+               too);
                a mode's texture filters share its inputs and seed, so their
                variants share one plain sweep (raytrace_cuda.plain_hits),
                and inputs equal in geometry, cameras, visit and seed share
@@ -162,7 +170,11 @@ printed as JSON lines:
                                   bins' and the row sort's bytes and device
                                   times, the step's device time from a
                                   profiler trace, and the same steps with
-                                  accel="clusters" (K5) beside them;
+                                  accel="clusters" (K5) beside them; a
+                                  ``binned_occupancy`` line: the binned
+                                  entry's tile groups and blocks a view,
+                                  threads, registers, local memory, shared
+                                  memory, blocks and warps per SM;
                  mxu_4096w, mxu_4096w_128
                                   tools/tpu_accel_compare.py's defaults:
                                   the demo scene, 4096 worlds at 64x64 and
@@ -198,6 +210,8 @@ printed as JSON lines:
                                   (``dmxu_vs_k4``) and both timed at the
                                   kernel entry, the replayed walk against
                                   the exports, the rowskip=False launch, the
+                                  forced plans and the parent design, a
+                                  ``binned_occupancy`` line, the
                                   tool's 128x128 check against the plain
                                   version; terrain_32w_512's steps are its
                                   K4 A/B;
@@ -272,7 +286,8 @@ printed as JSON lines:
                ordered walk at 64x256 in lines of their own, and L1-L3 on
                the tool's inputs beside their library calls; the 9-output
                entries of the culled visits on their path's full-size inputs
-               or the inputs of their first check;
+               or the inputs of their first check; the binned walk's lines
+               carry its plan (tile groups, blocks a view);
 
 then the nvidia-smi line, the ``kernels`` summary line and the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -1493,7 +1508,47 @@ def main() -> int:
             max_err[part] = max(max_err.get(part, 0.0), err)
         emit({"phase": "kernel_vs_plain", "kernel": name, "case": tag,
               "hit_share": float((k_out[0] > 0).float().mean()), **c})
+        if not is_batched(kw) and binned(kw) and streamed(kw) and kw["geo"] == "prep":
+            check_plans(tag, kw, k_out)
         return k_out
+
+    real_binned_plan = rc.binned_plan
+
+    def forced_plan(groups, parts):
+        """rc.binned_plan forced to ``groups`` tile groups and ``parts``
+        blocks a view (0 groups: the parent design, render_body's 16x16
+        blocks) on prep rows; the other rows keep render_body's blocks."""
+        def plan(geo, size, n_lights, views, height, width, bin_tile, dmxu=False, sms=132):
+            if geo != "prep":
+                return real_binned_plan(geo, size, n_lights, views, height, width, bin_tile,
+                                        dmxu, sms)
+            return rc.StreamPlan(groups, parts,
+                                 rc.binned_block_bytes(geo, size, n_lights, groups, dmxu))
+        return plan
+
+    def check_plans(tag, kw, k_out):
+        """The streamed binned walk's tile groups (K4, K11) at forced plans,
+        G = 1, 2 and 4 tile groups with B = 1 and the plan's blocks a view,
+        and its parent design (render_body's 16x16 blocks, a plan of 0
+        groups) on the same inputs, each bitwise against the kernel's
+        outputs ``k_out`` (held to the plain version or to K5)."""
+        S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
+        plan = rc.binned_plan(kw["geo"], S // CC, kw["n_lights"], int(kw["cams"].shape[0]),
+                              kw["height"], kw["width"], kw["bin_tile"], dmxu(kw))
+        plans = sorted({(0, 1)} | {(g, b) for g in (1, 2, 4) for b in (1, plan.parts)})
+        same = {}
+        try:
+            for g, b in plans:
+                rc.binned_plan = forced_plan(g, b)
+                out = rc.render_resident(**kw)
+                same[f"g{g}_b{b}"] = all(torch.equal(x, y) for x, y in zip(out, k_out))
+        finally:
+            rc.binned_plan = real_binned_plan
+        emit({"phase": "plans_vs_kernel", "case": tag, "kernel": variant(kw),
+              "plan": {"groups": plan.groups, "blocks_per_view": plan.parts}, **same})
+        if not all(same.values()):
+            raise AssertionError(f"{tag} {variant(kw)}: a forced plan or the parent design "
+                                 f"differs: {same}")
 
     handoff_keys = ("num_cams", "n_lights", "height", "width", "seg_div", "raster", "geo",
                     "order", "spans", "bins", "ranges", "bin_tile", "seed", "dmxu", "rowskip")
@@ -2782,11 +2837,14 @@ def main() -> int:
         emit({"phase": "k4_vs_k5", "case": path, "kernel": name, "bitwise": same})
         emit({"phase": "streamed_occupancy", "case": f"{path} (accel clusters)",
               **rc.streamed_occupancy(kw5)})
+        emit({"phase": "binned_occupancy", "case": path, **rc.binned_occupancy(kw)})
         if not same:
             raise AssertionError(f"{path}: K4 differs from K5 at full size")
         check_pack(path, r.state, r.scene, r.state.camera_pos[:, 0, :])
         if res == 128:
-            check_render(path, kw)
+            check_render(path, kw)  # with the forced plans and the parent design
+        else:
+            check_plans(path, kw, k4)
         walk = walks(kw)
         if not (torch.equal(walk["depth"], exported[0]) and torch.equal(walk["segmask"], exported[1])):
             raise AssertionError(f"{path}: the replayed binned walk differs from the exports")
@@ -3028,6 +3086,11 @@ def main() -> int:
     emit({"phase": "rowskip_off", "case": path, "kernel": name, "bitwise": same})
     if not same:
         raise AssertionError(f"{path}: rowskip=False differs")
+    # The forced plans and the parent design at full size, the row gate on
+    # and off, and the entry's occupancy.
+    check_plans(path, kw, exported)
+    check_plans(f"{path}_rowskip_off", kw_off, exported)
+    emit({"phase": "binned_occupancy", "case": path, **rc.binned_occupancy(kw)})
     ab = {"k11": [], "k4": []}
     for i, state in enumerate(record):
         km = rc.pack_inputs(state, r.scene, height=DMXU_RES, width=DMXU_RES, accel="binned",
@@ -3242,7 +3305,7 @@ def main() -> int:
     def source_of(kw):
         if is_batched(kw):
             return "madrona_renderer_tpu_torch/csrc/render_batched.cu"
-        lib = rc.library_of(route(kw), seeded(kw), kw.get("texture"), dmxu(kw))
+        lib = rc.library_of(route(kw), seeded(kw), kw.get("texture"), dmxu(kw), kw["geo"])
         return f"madrona_renderer_tpu_torch/csrc/{lib}.cu"
 
     def replaces_of(kw):
@@ -3250,6 +3313,16 @@ def main() -> int:
         (:4911), the culled one (:4872)."""
         line = 4671 if is_batched(kw) else 4911 if route(kw) == rc.NONE else 4872
         return f"madrona_renderer_tpu/ops/raytrace_pallas.py:{line}"
+
+    def plan_split(kw):
+        """The streamed binned walk's plan on these inputs: its tile groups
+        (0: render_body's 16x16 blocks) and blocks a view; {} off it."""
+        if is_batched(kw) or not (binned(kw) and streamed(kw)):
+            return {}
+        S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
+        plan = rc.binned_plan(kw["geo"], S // CC, kw["n_lights"], int(kw["cams"].shape[0]),
+                              kw["height"], kw["width"], kw["bin_tile"], dmxu(kw))
+        return {"groups": plan.groups, "blocks_per_view": plan.parts}
 
     def render_row(name, kw, plain=True, bound=True, reps=None):
         """A render variant's timing line; ``plain`` and ``bound`` False leave
@@ -3274,6 +3347,7 @@ def main() -> int:
                                  lambda: plain_fn(**kw)) if plain else None,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "views": int(kw["cams"].shape[0]), **work, "bytes": nbytes, "ops": ops,
+            **plan_split(kw),
         }
 
     def handoff_row(name, kw, reps=KERNEL_REPS):
@@ -3290,6 +3364,7 @@ def main() -> int:
                                  lambda: handoff(kw, plain=True)),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "views": int(kw["cams"].shape[0]), **work, "bytes": nbytes, "ops": ops,
+            **plan_split(kw),
         }
 
     def shade_row(name, kw):

@@ -6,12 +6,12 @@ build takes seconds). Libraries land in ``build/torch_kernels/`` at the
 root of a source checkout, or in a per-user cache directory for an
 installed package (``cache_root``), named by a hash of the source, the
 sources it includes (``csrc/render_binned.cu``,
-``csrc/render_resident_ordered.cu``, ``csrc/render_resident_binned.cu``,
-``csrc/render_seeded.cu``, ``csrc/render_none.cu``, ``csrc/render_dmxu.cu``
-and ``csrc/render_streamed.cu`` include ``csrc/render_resident.cu``) and the
-flags,
-so an edited source or flag
-rebuilds and an unchanged one loads at once. Nothing is built when this module is imported: the first call that
+``csrc/render_binned_blocks.cu``, ``csrc/render_resident_ordered.cu``,
+``csrc/render_resident_binned.cu``, ``csrc/render_seeded.cu``,
+``csrc/render_none.cu``, ``csrc/render_dmxu.cu`` and
+``csrc/render_streamed.cu`` include ``csrc/render_resident.cu``) and the
+flags, so an edited source or flag rebuilds and an unchanged one loads at
+once. Nothing is built when this module is imported: the first call that
 launches a kernel builds it. The sources ship in the package
 (``pyproject.toml``'s package data).
 
@@ -94,6 +94,22 @@ SIGNATURES = {
     ),
     "render_binned": (
         "mrt_render_binned",
+        [_P, _P, _P, _P, _P,  # rows clusters cams mats pool
+         _I,  # n_mats
+         _P, _P, _P,  # depth seg rgb
+         _P, _P,  # code handoff (the mip hand-off, the 9-output mode)
+         _P, _P, _P,  # bins spans ranges (or null: K11, raw rows)
+         _P,  # seed (K9) or null
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
+         _F, _F,  # two_over_w two_over_h
+         _I, _I, _I,  # raster tex_filter geo
+         _I, _I, _I, _I,  # bins_x bin_shift n_bins n_bands
+         _I, _I,  # dmxu (K11) rowskip
+         _I, _I,  # groups (tile groups a block) parts (blocks a view)
+         _P],  # stream
+    ),
+    "render_binned_blocks": (
+        "mrt_render_binned_blocks",
         [_P, _P, _P, _P, _P,  # rows clusters cams mats pool
          _I,  # n_mats
          _P, _P, _P,  # depth seg rgb

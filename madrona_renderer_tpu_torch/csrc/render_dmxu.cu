@@ -1,8 +1,13 @@
-// K11: the deferred matmul sweep of the streamed route, the render kernel's
-// body (csrc/render_resident.cu, included below, with its variant dispatch)
-// in its DMXU mode, with its own entry point, route and C interface in this
-// translation unit, which builds beside the others, so that the older
-// sources' entries keep their code.
+// K11: the deferred matmul sweep of the streamed route on render_body's
+// 16x16 blocks (csrc/render_resident.cu, included below, with its variant
+// dispatch) in its DMXU mode, with its own entry point, route and C
+// interface in this translation unit, which builds beside the others, so
+// that the older sources' entries keep their code. Its ordered visit's
+// entries are the route's; its binned visit's are the route's on raw rows
+// and the parent design that the binned walk's tile groups on prep rows
+// (csrc/render_binned.cu, which launches K11 on them) are held bitwise
+// against (chip_smoke.py forces them through a plan of 0 groups,
+// raytrace_cuda.binned_plan).
 //
 // Replaces madrona_renderer_tpu/ops/raytrace_pallas.py::_render_kernel in
 // its dmxu variant (MRT_DEFERRED_MXU=1: dmxu and rowskip, :908-918; the
@@ -13,8 +18,9 @@
 // route's (raytrace_cuda.dmxu_route): the view's front-to-back order in
 // shared memory with the occlusion early exit and the block's span and
 // slab gates (K3 + K5), or the bin of the block's bin tile in device memory
-// (K4); each visited cluster's rows land in a cp.async double buffer. What
-// differs is the sweep of a visited cluster. The TPU kernel forms the
+// (K4); each visited cluster's rows land in a cp.async double buffer, two
+// block barriers a gated position. What differs is the sweep of a visited
+// cluster. The TPU kernel forms the
 // numerators of every slot for a pixel row as one product on its matrix
 // unit, [10, cs]^T x [10, 4 * 128], block-diagonal over (d, d, d, 1), and
 // takes the cluster's first minimum by an iota-min. Here each thread

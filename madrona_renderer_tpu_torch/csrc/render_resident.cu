@@ -3,9 +3,13 @@
 // geometry rows, with the Möller–Trumbore or the watertight decision, with
 // or without shadow rays, in its raytrace and raster conventions,
 // untextured, textured, or handing mip-mapped texturing on. The body
-// (render_body) also walks the streamed route's binned visit (K4, K11 and
-// their K9 twins, built in their own sources); the streamed ordered walk
-// (K3 + K5) has a body of its own in csrc/render_streamed.cu.
+// (render_body) also walks K11 on the streamed ordered visit and the
+// streamed binned visit's parent design (K4, K11 and their K9 twins on one
+// 16x16 block a tile: the binned entries on raw and K10 rows and the
+// shadow sweeps', and the reference of the tile groups), built in their
+// own sources; the streamed ordered walk (K3 + K5) and the binned walk on
+// tile groups (K4 and K11 on prep rows: bin_body, below, built by
+// csrc/render_binned.cu) have bodies of their own.
 //
 // Replaces madrona_renderer_tpu/ops/raytrace_pallas.py::_render_kernel in
 // its resident culled shaded variant (defer_attrs, fused_export), launched
@@ -142,9 +146,10 @@
 // :1787-2680) is csrc/render_streamed.cu's: one fill of the view's
 // positions a block, tile groups on named barriers, bulk-copy staging.
 // render_body's STREAM branch walks the same order with the same gates for
-// K11 (csrc/render_dmxu.cu) and, through BINNED, each bin (K4, below): per
-// 16x16 block the walk stops at the first cluster that is invalid or that
-// no pixel can reach (best_t^2 <= 0.998 * approach distance^2,
+// K11 (csrc/render_dmxu.cu) and, through BINNED, each bin (the binned
+// visit's parent design, below): per 16x16 block the walk stops at the
+// first cluster that is invalid or that no pixel can reach
+// (best_t^2 <= 0.998 * approach distance^2,
 // :1740-1780), skips a cluster whose row span misses the block's rows or
 // whose slab test no ray passes, and sweeps the rest from a double buffer
 // that cp.async fills with the next candidate's geometry rows (10 prep
@@ -160,14 +165,21 @@
 // (raw_shadows) walks every cluster in index order with its slab test and
 // stages each visited cluster's raw rows the same way.
 //
-// The binned visit (K4, BINNED, built by csrc/render_binned.cu, which
-// includes this file for the body and has its own entry point, so this
-// file's entries keep their code): the same walk over the bin of the bin
-// tile the block lies in (raytrace_cuda.band_cluster_bins), its cluster ids
-// front to back, instead of the view's whole order. The walk's pointers to
-// the order, the spans (at 8-row bands) and the cluster table point into
-// device memory (every thread of a gate reads the same word), so the
-// block's shared memory is the two stage buffers and the camera row. On
+// The binned visit (K4): the same walk over the bin of the bin tile the
+// tile lies in (raytrace_cuda.band_cluster_bins), its cluster ids front to
+// back, instead of the view's whole order. Its parent design (BINNED,
+// built by csrc/render_binned_blocks.cu, K4's seeded twins by
+// csrc/render_seeded.cu, K11's by csrc/render_dmxu.cu): the walk's
+// pointers to the order, the spans (at 8-row bands) and the cluster table
+// point into device memory (every thread of a gate reads the same word),
+// so the block's shared memory is the two stage buffers and the camera
+// row; the route's raw, K10 and shadow rows launch it. Its design on tile
+// groups (bin_body, built by csrc/render_binned.cu for K4 and K11 on prep
+// rows, cold and seeded): G groups of 256 threads a block walk the tiles of the block's
+// bin tiles, each group with its own records of 256 positions of its
+// tile's bin in shared memory (the exit threshold, the 8-row span, the
+// cluster id and count, the AABB less the camera origin), one named-barrier
+// vote a gated position and bulk-copy staging (stream_walk, below). On
 // prep rows the staged rows are row-sorted (row 10: the original index gi);
 // each of the block's two 8-row bands (threads row-major: warps 0-3 and
 // 4-7, so its gates are warp-uniform) sweeps, where the cluster's span
@@ -176,7 +188,8 @@
 // (t < best_t || t == best_t && gi < best_gi); the resolve reads the
 // winner's prep rows at its sorted lane and its attributes at gi. A band
 // below the image sweeps nothing and starts at best_t = 0, so it never
-// holds the walk open.
+// holds the walk open. The tile groups sweep the same lanes, D and t_num
+// read as float4 over four lanes.
 //
 // The resident visits (K3 and K4 on resident rows, visit_body, built by
 // csrc/render_resident_ordered.cu and csrc/render_resident_binned.cu, each
@@ -199,22 +212,26 @@
 //
 // K11 (the factory's dmxu / rowskip switches, :908-918, :1825-2001; DMXU,
 // a template switch of the streamed route's two visits, built by
-// csrc/render_dmxu.cu, which includes this file and brings its own entry
-// point): the walk and its staging as above, but a visited cluster's every
+// csrc/render_dmxu.cu on render_body's blocks, the ordered visit's and the
+// binned parent design's, and by csrc/render_binned.cu on the binned walk's
+// tile groups, each bringing its own entry point): the walk and its
+// staging as above, but a visited cluster's every
 // slot is swept, padding included (a padding slot fails through det = 0),
 // on prep rows or on the cluster's D, A, Q and t_num formed in the staged
 // buffer for the block's camera from its raw rows; each thread takes the
 // cluster's first minimum (ties to the lower slot) and merges it into its
 // running best with the lower-index tie rule; with rowskip each warp (two
 // pixel rows of the block) skips a cluster whose row span misses its rows.
+// The tile groups read each cluster's D and t_num as float4 over four
+// slots and make the four tests in slot order.
 //
 // K9 (the factory's seeded switch, :1064-1069, :1205-1209; SEEDED, a
 // template switch of the raytrace variants of every route, each an entry of
 // its own beside the cold one, whose code stays as it was: a runtime
 // pointer in every entry moved 29 of the older entries' times past 1.5% on
 // an H100 (port_tools/tree_ab.py);
-// this file's routes' and K4's seeded entries build in csrc/render_seeded.cu,
-// the resident visits' in their own sources):
+// this file's routes' and the binned parent design's seeded entries build in
+// csrc/render_seeded.cu, the other visits' in their own sources):
 // with a seed ([W*C, H, Wd] f32) each pixel's best_t starts at
 // min(seed, far) instead of far; a thread past the image edge starts at 0
 // (the TPU's padding lanes, _pack_seed_tiles :3968-3972), so it accepts
@@ -224,6 +241,7 @@
 // accepted (best_idx = -1).
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -626,9 +644,10 @@ __host__ __device__ constexpr int binned_stage_rows() {
 
 // The render kernel's body. STREAM false: the resident route (the world's
 // geometry rows in shared memory, clusters in index order); true: the
-// streamed route (see the header), with BINNED its binned visit (K4: the
-// walk below reads the bin, the cluster table and the spans in device
-// memory where the ordered walk reads its shared copies). RWALK stays false:
+// streamed route (see the header), with BINNED its binned visit's parent
+// design (K4 on one 16x16 block a tile: the walk below reads the bin, the
+// cluster table and the spans in device memory where the ordered walk reads
+// its shared copies; the tile groups' walk is bin_body's). RWALK stays false:
 // the resident visits have a body of their own (visit_body, below), and
 // the slot keeps the other sources' template arguments as they are.
 // SEEDED: K9, best_t starting from `seed` (unread otherwise). CULL false
@@ -2006,6 +2025,645 @@ int visit_launch(void (*kernel)(Params...), int* query, int num_views, size_t sm
   query[2] = (int)attr.localSizeBytes;
   query[3] = blocks;
   return 0;
+}
+
+// ---- The streamed walks' pieces: K3 + K5's ordered walk (csrc/render_streamed.cu)
+// and the binned walk on tile groups (bin_body, below) ---------------------- //
+// The position words, 10 a position p of the view's order (the binned
+// walk: of the tile's bin): a 16-byte record
+// (PosHead) of its early-exit threshold, its pixel-row span and the
+// cluster id | its valid-prefix count << kCountShift, one load for the
+// gates every position takes; then the slab test's six differences
+// lo - o, hi - o ([CC, 6]: three 8-byte loads).
+struct __align__(16) PosHead {
+  float exit;
+  int span_lo, span_hi, cluster;
+};
+constexpr int kStreamWords = 10;
+constexpr int kCountShift = 16;
+constexpr int kClusterMask = (1 << kCountShift) - 1;
+
+// Tile groups of 256 threads in a block: at most 4 (1,024 threads, 32 warps
+// an SM at most 64 registers a thread); the launch takes fewer where a
+// block would not fit (raytrace_cuda.streamed_plan, binned_plan).
+constexpr int kStreamGroups = 4;
+
+// The head of a block's shared memory: the tile counter, each group's two
+// tile slots and two vote rows (a word a warp: the warp's largest best_t^2
+// with its slab vote in bit 31), used by turns so that one barrier a step
+// separates a slot's writes from its reads, and each group's two stage
+// buffers' mbarriers.
+struct StreamCtl {
+  int next_tile;
+  int tile[4][2];
+  unsigned long long stage_bar[4][2];
+  uint4 vote[4][2][2];
+};
+constexpr int kStreamCtlBytes = 384;
+static_assert(sizeof(StreamCtl) <= kStreamCtlBytes, "the walk's shared head");
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Rows 0..n_rows-1 of cluster c (cs triangles from c * cs, row stride S in
+// device memory) into buf [n_rows, cs], one bulk copy a row, completing on
+// the mbarrier `bar` with the bytes expected. One thread issues; the
+// proxy fence orders the group's earlier shared-memory accesses to the
+// buffer (ordered to this thread by a group barrier) before the copies.
+__device__ __forceinline__ void stage_rows(float* buf, const float* g_rows, int S, int cs,
+                                           int c, int n_rows, unsigned long long* bar) {
+  const unsigned b = smem_addr(bar);
+  const unsigned d = smem_addr(buf);
+  const unsigned bytes = (unsigned)cs * 4u;
+  const float* src = g_rows + (size_t)c * cs;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+               "r"(bytes * (unsigned)n_rows)
+               : "memory");
+  for (int r = 0; r < n_rows; ++r) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(d + (unsigned)r * bytes),
+        "l"(src + (size_t)r * S), "r"(bytes), "r"(b)
+        : "memory");
+  }
+}
+
+// Waits until the mbarrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void stage_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned b = smem_addr(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+  }
+}
+
+// The staged walk over positions 0..n-1 with two stage buffers (0, 1):
+// gate(p) returns kStop, kSkip or kVisit for the group (uniform: every
+// thread reaches its barrier); stage(p, b) issues a position's copies into
+// buffer b; visit(p, b) waits for them and sweeps; wait(b) waits for a
+// dropped candidate's. As walk_clusters: the next candidate is chosen, and
+// its copies issued, before the current one is swept; after the sweep it is
+// gated again and, if it fails, dropped, so the positions visited are those
+// of the plain walk. The gate after a sweep is a group barrier, so every
+// thread is done with the swept buffer before the next copy into it.
+template <class Gate, class Stage, class Wait, class Visit>
+__device__ __forceinline__ void stream_walk(int n, Gate gate, Stage stage, Wait wait,
+                                            Visit visit) {
+  auto next = [&](int p) {
+    for (; p < n; ++p) {
+      const int g = gate(p);
+      if (g == kVisit) return p;
+      if (g == kStop) return -1;
+    }
+    return -1;
+  };
+  int cur = 0;
+  int pos = next(0);
+  if (pos >= 0) stage(pos, cur);
+  while (pos >= 0) {
+    int nxt = next(pos + 1);
+    if (nxt >= 0) stage(nxt, cur ^ 1);
+    visit(pos, cur);
+    if (nxt >= 0) {
+      const int g = gate(nxt);
+      if (g != kVisit) {
+        wait(cur ^ 1);  // its copies land before the buffer is issued again
+        nxt = g == kStop ? -1 : next(nxt + 1);
+        if (nxt >= 0) stage(nxt, cur ^ 1);
+      }
+    }
+    pos = nxt;
+    cur ^= 1;
+  }
+}
+
+// One launch of an entry on num_views * x.parts blocks of x.groups tile
+// groups (0: one 16x16 block), `smem` bytes of dynamic shared memory;
+// cudaGetLastError() after it. With x.query, no launch: threads a block,
+// registers a thread, local memory a thread in bytes and blocks a
+// multiprocessor go there instead.
+template <class X, class... Params, class... Args>
+int stream_launch(void (*kernel)(Params...), const X& x, int num_views, size_t smem,
+                  cudaStream_t stream, const Args&... args) {
+  int err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  const dim3 block(kTileX, kTileY * (x.groups == 0 ? 1 : x.groups));
+  if (x.query == nullptr) {
+    kernel<<<num_views * x.parts, block, smem, stream>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  cudaFuncAttributes attr;
+  err = (int)cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                             block.x * block.y, smem);
+  if (err != 0) return err;
+  x.query[0] = (int)(block.x * block.y);
+  x.query[1] = attr.numRegs;
+  x.query[2] = (int)attr.localSizeBytes;
+  x.query[3] = blocks;
+  return 0;
+}
+
+
+// ---- The binned walk on tile groups (K4, K11's binned visit) ------------ //
+// csrc/render_binned.cu's entries: K4 and K11 on the streamed binned visit
+// on prep rows, cold and seeded, in every mode (raw and K10 rows and the
+// shadow sweeps keep render_body's 16x16 blocks, csrc/render_binned_blocks.cu,
+// render_seeded.cu and render_dmxu.cu: the tile groups were up to 9% slower
+// there on an H100). The walk is render_body's binned
+// walk (the same positions, gates, slack, tie rule and seed start), on tile
+// groups as the streamed ordered walk's (stream_walk, stage_rows above):
+// a block is G groups of 256 threads, a group walks one 16x16 tile at a
+// time, and a position's gate reads its terms from the group's records in
+// shared memory, kBinChunk positions of its tile's bin at a time.
+constexpr int kBinChunk = 256;
+
+// Rows a staged cluster holds on the binned walk's tile groups: the prep
+// rows, and for K4 the original index (row 10).
+template <bool DMXU>
+__host__ __device__ constexpr int bin_stage_rows() {
+  return DMXU ? kPrepRows : kPrepRows + 1;
+}
+
+// One 16x16 tile, walked by one group (named barrier `bar`, its vote rows
+// `vote`, its stage buffers `bufs` [2, rows, cs] and their mbarriers
+// `bars`, its records `s_head` and `s_box` [kBinChunk]; `phases` and
+// `round` carried from tile to tile as in stream_tile): K1's ray, the staged
+// walk of the bin of the tile's bin tile, the resolve, the shading and the
+// export, each expression as render_body computes it.
+//
+// The records: a chunk's position p holds, as stream_body's do, cluster
+// c = bin[p]'s early-exit threshold (+inf when invalid), its 8-row-band row
+// span, c | its valid count << kCountShift and its AABB less the camera
+// origin; the group writes a chunk (one position a thread, then a barrier)
+// when the walk's gate first reaches it. The gate is stream_tile's: the
+// exit from the group's largest best_t^2 (valid until a sweep, so a
+// position whose row gate fails needs no barrier while it holds), else one
+// vote of the group. A staged cluster's id and count are kept in registers
+// (cw0, cw1: one a buffer), since a later chunk may overwrite its record
+// before its sweep. The sweeps: K4, each 8-row band of the tile (warps
+// 0-3, 4-7) its sorted lanes [lo, hi) where the span touches the band, ties
+// to the lower original index (row 10); K11, every slot, the cluster's
+// first minimum merged with the tie rule, with `rowskip` each warp's two
+// rows gated on the span. Both read D and t_num as float4 over four lanes
+// k..k+3 and make the four tests in lane order (K4: a scalar head and tail
+// where [lo, hi) is not aligned); each test keeps prep_test's expressions
+// (testing t first, so as to skip u and v, made them slower on the card).
+template <bool RASTER, int TEX, bool SEEDED, bool DMXU>
+__device__ __forceinline__ void bin_tile(const RenderArgs& a, const BinArgs& bn,
+                                         const float* seed, PosHead* s_head, float* s_box,
+                                         const float* s_cam, const float* g_rows,
+                                         const float* g_cl, float* bufs,
+                                         unsigned long long* bars, int view, int num_views,
+                                         int tile, int bar, uint4 (*vote)[2],
+                                         unsigned& phases, unsigned& round, int rowskip) {
+  constexpr bool RANGED = !DMXU;
+  constexpr int kRows = bin_stage_rows<DMXU>();
+  const int S = a.S, CC = a.CC, cs = a.cluster_size;
+  const int ly = threadIdx.y % kTileY;
+  const int bx = tile % a.tiles_x, by = tile / a.tiles_x;
+  const int px = bx * kTileX + threadIdx.x;
+  const int py = by * kTileY + ly;
+  const int* g_bin = bn.bins + ((size_t)view * bn.n_bins + (by >> bn.bin_shift) * bn.bins_x +
+                                (bx >> bn.bin_shift)) * (1 + CC);
+  const int* g_span = bn.spans + (size_t)view * 2 * CC;
+
+  const float ox = s_cam[0], oy = s_cam[1], oz = s_cam[2];
+  const float rxx = s_cam[3], rxy = s_cam[4], rxz = s_cam[5];
+  const float fx = s_cam[6], fy = s_cam[7], fz = s_cam[8];
+  const float ux = s_cam[9], uy = s_cam[10], uz = s_cam[11];
+  const float tan_x = s_cam[12], tan_y = s_cam[13];
+  const float near = s_cam[14], far = s_cam[15];
+
+  // Ray generation (raytrace_pallas.py:1180-1188). Threads past the image
+  // edge trace their ray too: they take part in the tile's gates and write
+  // nothing.
+  const float ra = (((float)px + 0.5f) * a.two_over_w - 1.0f) * tan_x;
+  const float rb = (1.0f - ((float)py + 0.5f) * a.two_over_h) * tan_y;
+  float dx = ra * rxx + fx + rb * ux;
+  float dy = ra * rxy + fy + rb * uy;
+  float dz = ra * rxz + fz + rb * uz;
+  const float inv_len = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
+  dx = dx * inv_len;
+  dy = dy * inv_len;
+  dz = dz * inv_len;
+  const float cosf_ = dx * fx + dy * fy + dz * fz;
+  const float t_lo = RASTER ? near / fmaxf(cosf_, kCosFloor) : near;
+  const float ivx = 1.0f / safe_dir(dx);
+  const float ivy = 1.0f / safe_dir(dy);
+  const float ivz = 1.0f / safe_dir(dz);
+
+  float best_t = far;
+  if constexpr (SEEDED) {
+    // K9: min(seed, far); 0 past the image edge.
+    const bool in_image = px < a.width && py < a.height;
+    const float s = in_image ? seed[((size_t)view * a.height + py) * a.width + px] : 0.f;
+    best_t = s > far ? far : s;
+  }
+  int best_idx = -1;
+  [[maybe_unused]] int best_lane = -1;  // K4: the winner's sorted lane
+  const int lane_tid = ly * kTileX + threadIdx.x;  // 0-255 in the group
+  const int warp = lane_tid >> 5;
+  const bool lane0 = (lane_tid & 31) == 0;
+  const bool leader = lane_tid == 0;
+  const int row0 = by * kTileY;
+  // K4: the thread's 8-row band; a band below the image sweeps nothing and
+  // starts at 0, so it never holds the walk open.
+  [[maybe_unused]] const int band_row0 = row0 + (ly / kBandRows) * kBandRows;
+  [[maybe_unused]] const bool band_in = band_row0 / kBandRows < bn.n_bands;
+  if constexpr (RANGED) {
+    if (!band_in) best_t = 0.f;
+  }
+
+  auto buf_of = [&](int b) { return bufs + b * kRows * cs; };
+  auto wait = [&](int b) {
+    stage_wait(bars + b, (phases >> b) & 1u);
+    phases ^= 1u << b;
+  };
+
+  // Chunk k of the bin's records, positions k * kBinChunk + lane_tid: the
+  // barrier before it lets every thread finish reading the chunk before.
+  const int n = g_bin[0];
+  int loaded = -1;
+  auto fill = [&](int k) {
+    MRT_PHASE(0);
+    if (loaded >= 0) group_sync(bar);
+    const int p = k * kBinChunk + lane_tid;
+    if (p < n) {
+      const int c = g_bin[1 + p];
+      const float lx = g_cl[0 * CC + c] - ox, lyy = g_cl[1 * CC + c] - oy,
+                  lz = g_cl[2 * CC + c] - oz;
+      const float hx = g_cl[3 * CC + c] - ox, hy = g_cl[4 * CC + c] - oy,
+                  hz = g_cl[5 * CC + c] - oz;
+      float2* box = reinterpret_cast<float2*>(s_box) + 3 * lane_tid;
+      box[0] = make_float2(lx, lyy);
+      box[1] = make_float2(lz, hx);
+      box[2] = make_float2(hy, hz);
+      const float ax = fmaxf(fmaxf(lx, ox - g_cl[3 * CC + c]), 0.0f);
+      const float ay = fmaxf(fmaxf(lyy, oy - g_cl[4 * CC + c]), 0.0f);
+      const float az = fmaxf(fmaxf(lz, oz - g_cl[5 * CC + c]), 0.0f);
+      PosHead h;
+      h.exit = g_cl[6 * CC + c] > 0.f ? (ax * ax + ay * ay + az * az) * kExitSlack : INFINITY;
+      h.span_lo = g_span[c];
+      h.span_hi = g_span[CC + c];
+      h.cluster = c | ((int)g_cl[7 * CC + c] << kCountShift);
+      s_head[lane_tid] = h;
+    }
+    group_sync(bar);
+    loaded = k;
+    MRT_PHASE(1);
+  };
+
+  // The gate at position p, stream_tile's: the exit, the row gate, the slab
+  // test, on the chunk's record of p.
+  float reach = 0.f;
+  bool fresh = false;  // `reach` is the group's for the current best_t
+  auto gate = [&](int p) {
+    MRT_PHASE(1);
+    if (p / kBinChunk != loaded) fill(p / kBinChunk);
+    const int q = p % kBinChunk;
+    const PosHead h = s_head[q];
+    const bool rows_in = !(h.span_lo > row0 + kTileY - 1 || h.span_hi < row0);
+    if (!rows_in && fresh) return reach > h.exit ? kSkip : kStop;
+    bool possible = false;
+    if (rows_in) {
+      const float2 b0 = reinterpret_cast<const float2*>(s_box)[3 * q];
+      const float2 b1 = reinterpret_cast<const float2*>(s_box)[3 * q + 1];
+      const float2 b2 = reinterpret_cast<const float2*>(s_box)[3 * q + 2];
+      const float t1x = b0.x * ivx;  // (lo.x - o.x) / d.x
+      const float t2x = b1.y * ivx;  // (hi.x - o.x) / d.x
+      const float t1y = b0.y * ivy;
+      const float t2y = b2.x * ivy;
+      const float t1z = b1.x * ivz;
+      const float t2z = b2.y * ivz;
+      const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+      const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+      possible = (tmax >= tmin) && (tmax > near) && (tmin * kSlabSlack < best_t);
+    }
+    const float sq = best_t * best_t;
+    const unsigned w = __reduce_max_sync(0xffffffffu, sq > 0.f ? __float_as_uint(sq) : 0u) |
+                       (__reduce_or_sync(0xffffffffu, possible ? 1u : 0u) << 31);
+    uint4* row = vote[round & 1u];
+    ++round;
+    if (lane0) reinterpret_cast<unsigned*>(row)[warp] = w;
+    group_sync(bar);
+    const uint4 v0 = row[0], v1 = row[1];
+    const unsigned any = (v0.x | v0.y | v0.z | v0.w | v1.x | v1.y | v1.z | v1.w) >> 31;
+    const unsigned mx = max(max(max(v0.x & 0x7fffffffu, v0.y & 0x7fffffffu),
+                                max(v0.z & 0x7fffffffu, v0.w & 0x7fffffffu)),
+                            max(max(v1.x & 0x7fffffffu, v1.y & 0x7fffffffu),
+                                max(v1.z & 0x7fffffffu, v1.w & 0x7fffffffu)));
+    reach = __uint_as_float(mx);
+    fresh = true;
+    if (!(reach > h.exit)) return kStop;
+    return any ? kVisit : kSkip;
+  };
+  int cw0 = 0, cw1 = 0;  // each buffer's staged cluster id | count
+  auto stage = [&](int p, int b) {
+    const int cw = s_head[p % kBinChunk].cluster;
+    if (b) {
+      cw1 = cw;
+    } else {
+      cw0 = cw;
+    }
+    if (leader) stage_rows(buf_of(b), g_rows, S, cs, cw & kClusterMask, kRows, bars + b);
+  };
+  auto visit = [&](int p, int b) {
+    float* buf = buf_of(b);
+    const int c = (b ? cw1 : cw0) & kClusterMask;
+    // The sweep may lower best_t: the gate that follows votes, and its
+    // barrier frees this buffer for its next copy.
+    fresh = false;
+    MRT_PHASE(2);
+    wait(b);
+    MRT_PHASE(3);
+    if constexpr (DMXU) {
+      // Row skip (:1915-1990): the cluster's rows miss the warp's two.
+      const int wrow0 = row0 + 2 * (ly / 2);
+      if (rowskip && (g_span[c] > wrow0 + 1 || g_span[CC + c] < wrow0)) return;
+      // t < cmin from cmin = far: the accepted t < far of the first
+      // minimum, as the JAX iota-min takes it; D and t_num read as float4
+      // over four slots, the four tests in slot order.
+      float cmin = far;
+      int lidx = -1;
+      auto test = [&](float d0, float d1, float d2, float tn, int k) {
+        const float det = dx * d0 + dy * d1 + dz * d2;
+        const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+        const float u = (dx * buf[3 * cs + k] + dy * buf[4 * cs + k] + dz * buf[5 * cs + k]) * inv;
+        const float v = (dx * buf[6 * cs + k] + dy * buf[7 * cs + k] + dz * buf[8 * cs + k]) * inv;
+        const float t = tn * inv;
+        if ((fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) && (t > t_lo) && (t < cmin)) {
+          cmin = t;
+          lidx = k;
+        }
+      };
+      for (int k = 0; k < cs; k += 4) {
+        const float4 d0 = *reinterpret_cast<const float4*>(buf + k);
+        const float4 d1 = *reinterpret_cast<const float4*>(buf + cs + k);
+        const float4 d2 = *reinterpret_cast<const float4*>(buf + 2 * cs + k);
+        const float4 tn = *reinterpret_cast<const float4*>(buf + 9 * cs + k);
+        test(d0.x, d1.x, d2.x, tn.x, k);
+        test(d0.y, d1.y, d2.y, tn.y, k + 1);
+        test(d0.z, d1.z, d2.z, tn.z, k + 2);
+        test(d0.w, d1.w, d2.w, tn.w, k + 3);
+      }
+      const int gi = c * cs + lidx;
+      if (lidx >= 0 && ((cmin < best_t) || (cmin == best_t && gi < best_idx))) {
+        best_t = cmin;
+        best_idx = gi;
+      }
+    } else {
+      // The band's sorted lanes [lo, hi) where the span touches it; row 10
+      // the lane's original index, the tie rule's.
+      if (!band_in || g_span[c] > band_row0 + kBandRows - 1 || g_span[CC + c] < band_row0)
+        return;
+      const int2 r = bn.ranges[((size_t)(view / a.num_cams) * CC + c) * bn.n_bands +
+                               band_row0 / kBandRows];
+      // prep_test's expressions and the tie rule on lane k, its D and t_num
+      // given.
+      auto test = [&](float d0, float d1, float d2, float tn, int k) {
+        const float det = dx * d0 + dy * d1 + dz * d2;
+        const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+        const float u = (dx * buf[3 * cs + k] + dy * buf[4 * cs + k] + dz * buf[5 * cs + k]) * inv;
+        const float v = (dx * buf[6 * cs + k] + dy * buf[7 * cs + k] + dz * buf[8 * cs + k]) * inv;
+        const float t = tn * inv;
+        const int gi = (int)buf[kPrepRows * cs + k];
+        if ((fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) && (t > t_lo) &&
+            ((t < best_t) || (t == best_t && gi < best_idx))) {
+          best_t = t;
+          best_idx = gi;
+          best_lane = c * cs + k;
+        }
+      };
+      // A scalar head to a lane that is a multiple of 4, then D and t_num
+      // read as float4 over four lanes, then a scalar tail.
+      int k = r.x;
+      for (; k < r.y && (k & 3) != 0; ++k)
+        test(buf[k], buf[cs + k], buf[2 * cs + k], buf[9 * cs + k], k);
+      for (; k + 4 <= r.y; k += 4) {
+        const float4 d0 = *reinterpret_cast<const float4*>(buf + k);
+        const float4 d1 = *reinterpret_cast<const float4*>(buf + cs + k);
+        const float4 d2 = *reinterpret_cast<const float4*>(buf + 2 * cs + k);
+        const float4 tn = *reinterpret_cast<const float4*>(buf + 9 * cs + k);
+        test(d0.x, d1.x, d2.x, tn.x, k);
+        test(d0.y, d1.y, d2.y, tn.y, k + 1);
+        test(d0.z, d1.z, d2.z, tn.z, k + 2);
+        test(d0.w, d1.w, d2.w, tn.w, k + 3);
+      }
+      for (; k < r.y; ++k) test(buf[k], buf[cs + k], buf[2 * cs + k], buf[9 * cs + k], k);
+    }
+  };
+  stream_walk(n, gate, stage, wait, visit);
+  MRT_PHASE(4);
+
+  const bool inside = px < a.width && py < a.height;
+  if (!inside) return;
+
+  // Winner resolve (:2725-2793), as render_body's: the rows in device
+  // memory (K4: the winner's prep rows at its sorted lane).
+  const float* g0 = g_rows;  // D
+  const float* g1 = g_rows + S;
+  const float* g2 = g_rows + 2 * S;
+  const float* g3 = g_rows + 3 * S;  // A
+  const float* g4 = g_rows + 4 * S;
+  const float* g5 = g_rows + 5 * S;
+  const float* g6 = g_rows + 6 * S;  // Q
+  const float* g7 = g_rows + 7 * S;
+  const float* g8 = g_rows + 8 * S;
+  float nx = 0.f, ny = 0.f, nz = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f;
+  float dens = 0.f;
+  const bool found = best_idx >= 0;
+  if (found) {
+    const int j = best_idx;
+    const int jr = RANGED ? best_lane : j;
+    const float det = dx * g0[jr] + dy * g1[jr] + dz * g2[jr];
+    const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+    const float uc = clip01((dx * g3[jr] + dy * g4[jr] + dz * g5[jr]) * inv);
+    const float vc = clip01((dx * g6[jr] + dy * g7[jr] + dz * g8[jr]) * inv);
+    const float* g_attr = g_rows + (size_t)kAttr0 * S;
+    nx = g_attr[6 * S + j] + uc * g_attr[9 * S + j] + vc * g_attr[12 * S + j];
+    ny = g_attr[7 * S + j] + uc * g_attr[10 * S + j] + vc * g_attr[13 * S + j];
+    nz = g_attr[8 * S + j] + uc * g_attr[11 * S + j] + vc * g_attr[14 * S + j];
+    if (TEX == kTexNone) {
+      a0 = g_attr[16 * S + j];
+      a1 = g_attr[17 * S + j];
+      a2 = g_attr[18 * S + j];
+    } else {
+      a0 = g_attr[15 * S + j];
+      a1 = g_attr[0 * S + j] + uc * g_attr[2 * S + j] + vc * g_attr[4 * S + j];
+      a2 = g_attr[1 * S + j] + uc * g_attr[3 * S + j] + vc * g_attr[5 * S + j];
+    }
+    if (TEX == kTexMip) dens = g_attr[19 * S + j];
+  }
+
+  // Two-sided: flip the normal toward the viewer (:2800-2804).
+  const float ndotd = nx * dx + ny * dy + nz * dz;
+  const float flip = ndotd > 0.f ? -1.0f : 1.0f;
+  nx = nx * flip;
+  ny = ny * flip;
+  nz = nz * flip;
+  const float t_hit = found ? best_t : 0.f;
+  const float z = t_hit * cosf_;
+  const size_t o = ((size_t)view * a.height + py) * a.width + px;
+  const size_t plane = (size_t)num_views * a.height * a.width;
+
+  if constexpr (TEX == kTexNine) {
+    // The 9-output mode (:2832-2834, :3664-3670), unmasked.
+    a.depth[o] = t_hit;
+    a.segmask[o] = best_idx;
+    a.code[o] = (int)a0;
+    a.handoff[o] = z;
+    a.handoff[plane + o] = a1;
+    a.handoff[2 * plane + o] = a2;
+    a.handoff[3 * plane + o] = nx;
+    a.handoff[4 * plane + o] = ny;
+    a.handoff[5 * plane + o] = nz;
+    return;
+  }
+
+  // Base colour, lambert over the lights and the fused export, as
+  // render_body's (:3015-3050, :3186-3202).
+  float br = a0, bg = a1, bb = a2;
+  if (TEX == kTexNearest || TEX == kTexBilinear)
+    textured_base<TEX>(a.mats, a.pool, a.n_mats, (int)a0, a1, a2, br, bg, bb);
+  const float n_inv = 1.0f / sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, kTiny));
+  float sr = 0.f, sg = 0.f, sb = 0.f;
+  for (int li = 0; li < a.n_lights; ++li) {
+    const float* l = s_cam + kCamLight0 + 6 * li;
+    const float nd = fmaxf(-(nx * l[0] + ny * l[1] + nz * l[2]) * n_inv, 0.f);
+    sr = sr + nd * l[3];
+    sg = sg + nd * l[4];
+    sb = sb + nd * l[5];
+  }
+  const bool shaded_hit = RASTER ? found && z < s_cam[kCamFarZ] : found;
+  const bool cam_ok = s_cam[kCamLight0 + 6 * a.n_lights] > 0.f;
+  const bool hit = shaded_hit && cam_ok;
+  if (TEX == kTexMip) {
+    // The hand-off to csrc/shade_mip.cu (:3237).
+    a.depth[o] = hit ? (RASTER ? z : best_t) : 0.f;
+    a.segmask[o] = hit && !RASTER ? best_idx / a.seg_div : -1;
+    a.code[o] = (int)a0 | (found ? kFoundBit : 0) | (shaded_hit ? kShadedBit : 0);
+    a.handoff[o] = a1;
+    a.handoff[plane + o] = a2;
+    a.handoff[2 * plane + o] = t_hit * a.two_over_h * tan_y * dens;
+    a.handoff[3 * plane + o] = sr;
+    a.handoff[4 * plane + o] = sg;
+    a.handoff[5 * plane + o] = sb;
+    return;
+  }
+  const uint32_t packed = quantize(br, sr, shaded_hit) | (quantize(bg, sg, shaded_hit) << 8) |
+                          (quantize(bb, sb, shaded_hit) << 16) | kAlpha;
+  if (RASTER) {
+    a.depth[o] = hit ? z : 0.f;
+    a.segmask[o] = -1;
+  } else {
+    a.depth[o] = hit ? best_t : 0.f;
+    a.segmask[o] = hit ? best_idx / a.seg_div : -1;
+  }
+  a.rgb[o] = cam_ok ? packed : kAlpha;
+}
+
+// A binned block: view blockIdx.x / parts, its share `part` of the view's
+// bin tiles (part, part + parts, ...: each block's spread over the image and
+// its costly rows), blockDim.y / 16 tile groups that take the share's tiles,
+// bin tile by bin tile (so the tiles of one bin tile go to one block's
+// groups, and their chunk fills read the bin's lines together), from a
+// counter. The fill, once a block: the camera row (threads) and each
+// group's two mbarriers (thread 0).
+template <bool RASTER, int TEX, bool SEEDED, bool DMXU>
+__device__ __forceinline__ void bin_body(const RenderArgs& a, const BinArgs& bn, int parts,
+                                         const float* seed, int rowskip) {
+  constexpr int kRows = bin_stage_rows<DMXU>();
+  const int cs = a.cluster_size;
+  const int groups = blockDim.y / kTileY;
+  const int n_block = kThreads * groups;
+  extern __shared__ __align__(16) float smem[];
+  MRT_PHASE_BEGIN;
+  StreamCtl& ctl = *reinterpret_cast<StreamCtl*>(smem);
+  float* s_stage = smem + kStreamCtlBytes / sizeof(float);  // [groups, 2, rows, cs]
+  PosHead* s_head =
+      reinterpret_cast<PosHead*>(s_stage + (size_t)groups * 2 * kRows * cs);  // [groups, chunk]
+  float* s_box = reinterpret_cast<float*>(s_head + groups * kBinChunk);  // [groups, chunk, 6]
+  float* s_cam = s_box + (size_t)groups * 6 * kBinChunk;                 // [NCOL]
+
+  const int view = blockIdx.x / parts;
+  const int part = blockIdx.x - view * parts;
+  const int world = view / a.num_cams;
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const float* g_rows = a.rows + (size_t)world * kPackRows * a.S;
+  const float* g_cl = a.clusters + (size_t)world * kClRows * a.CC;
+  const float* g_cam = a.cams + (size_t)view * a.n_cols;
+  const int tiles_y = (a.height + kTileY - 1) / kTileY;
+  const int n_tiles = a.tiles_x * tiles_y;
+  if (tid == 0) {
+    ctl.next_tile = 0;
+    for (int k = 0; k < 2 * groups; ++k) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_addr(&ctl.stage_bar[k >> 1][k & 1]))
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < a.n_cols; i += n_block) s_cam[i] = g_cam[i];
+  __syncthreads();
+  MRT_AFTER_FILL;
+
+  const int g = threadIdx.y / kTileY;
+  float* bufs = s_stage + (size_t)g * 2 * kRows * cs;
+  const int sub = 1 << bn.bin_shift;  // tiles across a bin tile
+  unsigned phases = 0, round = 0;
+  for (int it = 0;; ++it) {
+    MRT_PHASE(5);
+    int* slot = &ctl.tile[g][it & 1];
+    if ((tid & (kThreads - 1)) == 0) {
+      // The share's k-th tile: tile k % sub^2 of its (k / sub^2)-th bin
+      // tile, those past the image's edge skipped; n_tiles when it is done.
+      int t;
+      for (;;) {
+        const int k = atomicAdd(&ctl.next_tile, 1);
+        const int bt = part + (k >> (2 * bn.bin_shift)) * parts;
+        if (bt >= bn.n_bins) {
+          t = n_tiles;
+          break;
+        }
+        const int s = k & (sub * sub - 1);
+        const int tx = (bt % bn.bins_x) * sub + (s & (sub - 1));
+        const int ty = (bt / bn.bins_x) * sub + (s >> bn.bin_shift);
+        if (tx < a.tiles_x && ty < tiles_y) {
+          t = ty * a.tiles_x + tx;
+          break;
+        }
+      }
+      *slot = t;
+    }
+    group_sync(1 + g);
+    const int tile = *slot;
+    if (tile >= n_tiles) break;
+    MRT_PHASE(4);
+    bin_tile<RASTER, TEX, SEEDED, DMXU>(
+        a, bn, seed, s_head + g * kBinChunk, s_box + (size_t)g * 6 * kBinChunk, s_cam, g_rows,
+        g_cl, bufs, ctl.stage_bar[g], view, gridDim.x / parts, tile, 1 + g, ctl.vote[g],
+        phases, round, rowskip);
+  }
+}
+
+// Shared memory of a binned block of `groups` tile groups: the head, the
+// groups' stage buffers, their records and the camera row.
+template <bool DMXU>
+size_t bin_smem(const RenderArgs& a, int groups) {
+  return kStreamCtlBytes +
+         sizeof(float) * ((size_t)groups * 2 * bin_stage_rows<DMXU>() * a.cluster_size +
+                          (size_t)groups * kStreamWords * kBinChunk + a.n_cols);
 }
 
 // Whether a route has entries in the 9-output mode: it opts in with

@@ -1,13 +1,16 @@
-// K9 on K1 (index order) and K4 (the streamed binned walk; the streamed
+// K9 on K1 (index order) and on the streamed binned walk's parent design
+// (render_body's 16x16 blocks: the route's raw and K10 rows and shadow
+// sweeps, and the reference that csrc/render_binned.cu's seeded tile
+// groups on prep rows are held to; the streamed
 // ordered walk's seeded entries are csrc/render_streamed.cu's): the render
-// kernel's body (csrc/render_resident.cu,
-// included below, with its variant dispatch) in its SEEDED mode, with its
-// own entry points, route and C interface in this translation unit, which
-// builds beside the others, so that csrc/render_resident.cu's and
-// csrc/render_binned.cu's entries keep their code (a seed pointer in them
-// moved 29 of their times past 1.5% on an H100, port_tools/tree_ab.py, and
-// their seeded instantiations in the same translation units moved 13
-// entries' registers, port_tools/ptxas_regs.py).
+// kernel's body (csrc/render_resident.cu, included below, with its variant
+// dispatch) in its SEEDED mode, with its own entry points, route and C
+// interface in this translation unit, which builds beside the others, so
+// that csrc/render_resident.cu's and csrc/render_binned_blocks.cu's entries
+// keep their code (a seed pointer in them moved 29 of their times past 1.5%
+// on an H100, port_tools/tree_ab.py, and their seeded instantiations in the
+// same translation units moved 13 entries' registers,
+// port_tools/ptxas_regs.py).
 //
 // Replaces madrona_renderer_tpu/ops/raytrace_pallas.py::_render_kernel in
 // its seeded variant (seeded, :1064-1069, :1205-1209; the seed's tile layout
@@ -26,7 +29,7 @@
 // pixel) and its min (1 FP32 operation a thread); the walk's work is what the
 // seed leaves (chip_smoke.py replays it, seeded, with ops/walk_replay.py). The
 // design is the cold kernel's: the seed changes one initial value. The
-// streamed binned walk's 9-output entries (prep, raw and K10 rows) are
+// binned parent design's 9-output entries (prep, raw and K10 rows) are
 // seeded here too; K1's seeded 9-output entries are csrc/render_none.cu's.
 
 #define MRT_RENDER_BODY_ONLY

@@ -84,124 +84,7 @@
 #define MRT_RENDER_BODY_ONLY
 #include "render_resident.cu"
 
-#include <math.h>
-
 namespace {
-
-// The position words, 10 a position p of the view's order: a 16-byte record
-// (PosHead) of its early-exit threshold, its pixel-row span and the
-// cluster id | its valid-prefix count << kCountShift, one load for the
-// gates every position takes; then the slab test's six differences
-// lo - o, hi - o ([CC, 6]: three 8-byte loads).
-struct __align__(16) PosHead {
-  float exit;
-  int span_lo, span_hi, cluster;
-};
-constexpr int kStreamWords = 10;
-constexpr int kCountShift = 16;
-constexpr int kClusterMask = (1 << kCountShift) - 1;
-
-// Tile groups of 256 threads in a block: at most 4 (1,024 threads, 32 warps
-// an SM at most 64 registers a thread); the launch takes fewer where a
-// block would not fit (raytrace_cuda.streamed_plan).
-constexpr int kStreamGroups = 4;
-
-// The head of a block's shared memory: the tile counter, each group's two
-// tile slots and two vote rows (a word a warp: the warp's largest best_t^2
-// with its slab vote in bit 31), used by turns so that one barrier a step
-// separates a slot's writes from its reads, and each group's two stage
-// buffers' mbarriers.
-struct StreamCtl {
-  int next_tile;
-  int tile[4][2];
-  unsigned long long stage_bar[4][2];
-  uint4 vote[4][2][2];
-};
-constexpr int kStreamCtlBytes = 384;
-static_assert(sizeof(StreamCtl) <= kStreamCtlBytes, "the walk's shared head");
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Rows 0..n_rows-1 of cluster c (cs triangles from c * cs, row stride S in
-// device memory) into buf [n_rows, cs], one bulk copy a row, completing on
-// the mbarrier `bar` with the bytes expected. One thread issues; the
-// proxy fence orders the group's earlier shared-memory accesses to the
-// buffer (ordered to this thread by a group barrier) before the copies.
-__device__ __forceinline__ void stage_rows(float* buf, const float* g_rows, int S, int cs,
-                                           int c, int n_rows, unsigned long long* bar) {
-  const unsigned b = smem_addr(bar);
-  const unsigned d = smem_addr(buf);
-  const unsigned bytes = (unsigned)cs * 4u;
-  const float* src = g_rows + (size_t)c * cs;
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
-               "r"(bytes * (unsigned)n_rows)
-               : "memory");
-  for (int r = 0; r < n_rows; ++r) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(d + (unsigned)r * bytes),
-        "l"(src + (size_t)r * S), "r"(bytes), "r"(b)
-        : "memory");
-  }
-}
-
-// Waits until the mbarrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void stage_wait(unsigned long long* bar, unsigned parity) {
-  const unsigned b = smem_addr(bar);
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}\n"
-        : "=r"(done)
-        : "r"(b), "r"(parity)
-        : "memory");
-  }
-}
-
-// The staged walk over positions 0..n-1 with two stage buffers (0, 1):
-// gate(p) returns kStop, kSkip or kVisit for the group (uniform: every
-// thread reaches its barrier); stage(p, b) issues a position's copies into
-// buffer b; visit(p, b) waits for them and sweeps; wait(b) waits for a
-// dropped candidate's. As walk_clusters: the next candidate is chosen, and
-// its copies issued, before the current one is swept; after the sweep it is
-// gated again and, if it fails, dropped, so the positions visited are those
-// of the plain walk. The gate after a sweep is a group barrier, so every
-// thread is done with the swept buffer before the next copy into it.
-template <class Gate, class Stage, class Wait, class Visit>
-__device__ __forceinline__ void stream_walk(int n, Gate gate, Stage stage, Wait wait,
-                                            Visit visit) {
-  auto next = [&](int p) {
-    for (; p < n; ++p) {
-      const int g = gate(p);
-      if (g == kVisit) return p;
-      if (g == kStop) return -1;
-    }
-    return -1;
-  };
-  int cur = 0;
-  int pos = next(0);
-  if (pos >= 0) stage(pos, cur);
-  while (pos >= 0) {
-    int nxt = next(pos + 1);
-    if (nxt >= 0) stage(nxt, cur ^ 1);
-    visit(pos, cur);
-    if (nxt >= 0) {
-      const int g = gate(nxt);
-      if (g != kVisit) {
-        wait(cur ^ 1);  // its copies land before the buffer is issued again
-        nxt = g == kStop ? -1 : next(nxt + 1);
-        if (nxt >= 0) stage(nxt, cur ^ 1);
-      }
-    }
-    pos = nxt;
-    cur ^= 1;
-  }
-}
 
 // One 16x16 tile, walked by one group (named barrier `bar`, its vote rows
 // `vote`, its stage buffers `bufs` [2, rows, cs] and their mbarriers
@@ -687,34 +570,6 @@ struct StreamLaunch {
   int groups, parts;
   int* query;
 };
-
-// One launch of an entry on num_views * parts blocks of x.groups tile
-// groups, `smem` bytes of dynamic shared memory; cudaGetLastError() after
-// it. With x.query, no launch: threads a block, registers a thread, local
-// memory a thread in bytes and blocks a multiprocessor go there instead.
-template <class... Params, class... Args>
-int stream_launch(void (*kernel)(Params...), const StreamLaunch& x, int num_views, size_t smem,
-                  cudaStream_t stream, const Args&... args) {
-  int err = set_smem(kernel, smem);
-  if (err != 0) return err;
-  const dim3 block(kTileX, kTileY * (x.groups == 0 ? 1 : x.groups));
-  if (x.query == nullptr) {
-    kernel<<<num_views * x.parts, block, smem, stream>>>(args...);
-    return (int)cudaGetLastError();
-  }
-  cudaFuncAttributes attr;
-  err = (int)cudaFuncGetAttributes(&attr, kernel);
-  int blocks = 0;
-  if (err == 0)
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                             block.x * block.y, smem);
-  if (err != 0) return err;
-  x.query[0] = (int)(block.x * block.y);
-  x.query[1] = attr.numRegs;
-  x.query[2] = (int)attr.localSizeBytes;
-  x.query[3] = blocks;
-  return 0;
-}
 
 // The route's launch of one variant (or its occupancy query).
 struct StreamedRoute {

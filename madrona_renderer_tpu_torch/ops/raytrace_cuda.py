@@ -58,17 +58,22 @@ take the streamed route, with one of two visits (``visit_route``):
     walk's table would overflow a block's shared memory: the prologue adds
     per-tile bins (``band_cluster_bins``: the view's order with each bin
     tile's non-members taken out; the bin tile a square of 16·2^k pixels,
-    ``bin_tile_for``) and spans at 8-row bands; each block walks its bin
-    tile's bin with the ordered walk's gates, reading the cluster table in
-    device memory. On prep rows each cluster's triangles are row-sorted
-    (``cluster_row_sort``, ``row_sorted``: row 10 holds the original index)
-    and each of the block's two 8-row bands (warps 0-3, 4-7) sweeps only
-    its triangle range (``ranges``); exact ties go to the lower original
-    index (``gi``), and the winner's attributes are read at it. The kernel
-    takes the binned inputs as its own entry point's arguments, so the
-    ordered route's entries keep their code.
+    ``bin_tile_for``) and spans at 8-row bands; each tile's walk takes its
+    bin tile's bin with the ordered walk's gates. On prep rows tile groups
+    of a block walk the tiles of the block's bin tiles, each group holding
+    256 positions of its tile's bin with their gate terms in shared memory
+    (``binned_plan``: groups a block, blocks a view, shared memory;
+    ``binned_tiles``); raw and K10 rows and the shadow sweeps keep one
+    16x16 block a tile (``csrc/render_binned_blocks.cu``). On prep rows each cluster's
+    triangles are row-sorted (``cluster_row_sort``, ``row_sorted``: row 10
+    holds the original index) and each 8-row band of a tile (warps 0-3,
+    4-7) sweeps only its triangle range (``ranges``); exact ties go to the
+    lower original index (``gi``), and the winner's attributes are read at
+    it.
 With ``deferred_mxu`` (the JAX package's ``MRT_DEFERRED_MXU=1``) the two
-streamed visits take K11 instead (``csrc/render_dmxu.cu``, ``dmxu_route``):
+streamed visits take K11 instead (``csrc/render_dmxu.cu``, the binned
+walk's tile groups on prep rows in ``csrc/render_binned.cu``;
+``dmxu_route``):
 the same walk, but each visited cluster's every slot swept (on raw rows its
 D, A, Q and t_num formed in the kernel for the block's camera), its first
 minimum taken and merged into the running best, and, where the TPU tiling
@@ -191,6 +196,17 @@ _STREAM_HEAD_BYTES = 384
 _STREAM_WORDS = 10
 _STREAM_GROUPS = 4
 _STREAM_MAX_CLUSTERS = (1 << 16) - 1  # the cluster id's bits in its position word
+# The streamed binned walk's block on prep rows (K4 and K11,
+# csrc/render_binned.cu): the same head, each group's two stage buffers (K4's
+# prep rows with row 10, K11's prep rows) and its records of _BIN_CHUNK
+# positions of its tile's bin (10 words each), and the camera row. Raw and
+# K10 rows and the shadow sweeps take render_body's 16x16 blocks (two stage
+# buffers of _BIN_STAGE_ROWS and the camera row), as a plan of 0 groups
+# does: the tile groups were slower there.
+_BIN_CHUNK = 256
+_BIN_STAGE_ROWS = {"prep": 11, "raw": 16, "raw_shadows": 16, "raw_wt": 10,
+                   "raw_wt_shadows": 10}
+_DMXU_STAGE_ROWS = 10
 _H100_SMS = 132
 _SM_SMEM = 228 * 1024  # an SM's shared memory, 1 KB of it reserved a block
 _SM_REGS = 65536  # an SM's registers; the walk's entries take at most 64 a thread
@@ -283,17 +299,19 @@ def streamed_rule_bytes(n_clusters: int, cluster_size: int, n_lights: int) -> in
 
 
 class LaunchPlanError(ValueError):
-    """Inputs a kernel's launch plan cannot take: a resident visit's or the
-    streamed ordered walk's block past the card's shared memory, or rows
-    their copies cannot move in 16-byte pieces. Raised on every device: no
-    route falls back."""
+    """Inputs a kernel's launch plan cannot take: a resident visit's or a
+    streamed walk's (ordered or binned) block past the card's shared
+    memory, or rows their copies cannot move in 16-byte pieces. Raised on
+    every device: no route falls back."""
 
 
 class StreamPlan(NamedTuple):
-    """The streamed ordered walk's launch: ``groups`` tile groups of 256
-    threads a block (0: one 16x16 block a tile, the shadow sweeps' walk),
-    ``parts`` blocks a view (each a share of the view's tiles,
-    ``stream_tiles``), ``smem_bytes`` of shared memory a block."""
+    """A streamed walk's launch (the ordered walk's ``streamed_plan``, the
+    binned walk's ``binned_plan``): ``groups`` tile groups of 256 threads a
+    block (0: one 16x16 block a tile, render_body's walk: the shadow
+    sweeps'), ``parts`` blocks a view (each a share of the view's tiles,
+    ``stream_tiles`` / ``binned_tiles``), ``smem_bytes`` of shared memory a
+    block."""
 
     groups: int
     parts: int
@@ -375,6 +393,93 @@ def check_streamed_plan(rows: torch.Tensor, n_clusters: int, n_lights: int, geo:
         raise LaunchPlanError(f"the streamed ordered walk takes at most "
                               f"{_STREAM_MAX_CLUSTERS} clusters a world, got {n_clusters}")
     return streamed_plan(geo, n_clusters, size, n_lights, num_views, height, width, sm_count)
+
+
+def binned_block_bytes(geo: str, cluster_size: int, n_lights: int, groups: int,
+                       dmxu: bool = False) -> int:
+    """Shared memory a block of the streamed binned walk takes: ``groups``
+    tile groups on prep rows (``bin_smem`` in ``csrc/render_resident.cu``),
+    K11's with ``dmxu``; 0 groups, render_body's 16x16 block (two stage
+    buffers and the camera row)."""
+    if groups == 0:
+        return 4 * (2 * _BIN_STAGE_ROWS[geo] * cluster_size + _n_cam_cols(n_lights))
+    rows = _DMXU_STAGE_ROWS if dmxu else _BIN_STAGE_ROWS[geo]
+    return _STREAM_HEAD_BYTES + 4 * (groups * 2 * rows * cluster_size
+                                     + groups * _STREAM_WORDS * _BIN_CHUNK
+                                     + _n_cam_cols(n_lights))
+
+
+def binned_tiles(height: int, width: int, bin_tile: int, parts: int) -> list:
+    """The tiles (``ty · tiles_x + tx``) each of a view's ``parts`` blocks
+    takes on the streamed binned walk, in the kernel's order (``bin_body``):
+    block b's bin tiles are b, b + parts, ..., and each bin tile's 16x16
+    tiles row-major within it, those past the image's edge left out."""
+    tiles_x, tiles_y = -(-width // _TILE), -(-height // _TILE)
+    sub = bin_tile // _TILE
+    bins_x = -(-width // bin_tile)
+    n_bins = bins_x * -(-height // bin_tile)
+    shares = []
+    for part in range(parts):
+        share = []
+        for bt in range(part, n_bins, parts):
+            for s in range(sub * sub):
+                tx = (bt % bins_x) * sub + s % sub
+                ty = (bt // bins_x) * sub + s // sub
+                if tx < tiles_x and ty < tiles_y:
+                    share.append(ty * tiles_x + tx)
+        shares.append(share)
+    return shares
+
+
+def binned_plan(geo: str, cluster_size: int, n_lights: int, num_views: int, height: int,
+                width: int, bin_tile: int, dmxu: bool = False,
+                sm_count: int = _H100_SMS) -> StreamPlan:
+    """The streamed binned walk's launch on these inputs (K4, or K11 with
+    ``dmxu``; ``sm_count``: the card's multiprocessors, the H100's 132 by
+    default): on prep rows four tile groups (no more than a view's tiles)
+    or fewer, until the block fits 227 KB, and ``stream_parts``' blocks a
+    view for the blocks the card holds at once (by registers, at most 64 a
+    thread, and shared memory), no more than the view's bin tiles; on raw
+    and K10 rows, the shadow sweeps and prep rows whose clusters are too
+    large for one group's buffers and records, render_body's 16x16 block a
+    tile (0 groups: two stage buffers and the camera row)."""
+    n_tiles = -(-height // _TILE) * -(-width // _TILE)
+    n_bins = -(-height // bin_tile) * -(-width // bin_tile)
+    blocks = StreamPlan(0, 1, binned_block_bytes(geo, cluster_size, n_lights, 0))
+    if geo != "prep":
+        return blocks
+    groups = min(_STREAM_GROUPS, n_tiles)
+    while groups > 1 and binned_block_bytes(geo, cluster_size, n_lights, groups,
+                                            dmxu) > _MAX_SMEM:
+        groups -= 1
+    smem = binned_block_bytes(geo, cluster_size, n_lights, groups, dmxu)
+    if smem > _MAX_SMEM:
+        return blocks
+    per_sm = max(1, min(_SM_REGS // (_TILE ** 2 * groups * 64), _SM_SMEM // (smem + 1024)))
+    parts = min(stream_parts(num_views, n_tiles, groups, sm_count * per_sm), n_bins)
+    return StreamPlan(groups, parts, smem)
+
+
+def check_binned_plan(rows: torch.Tensor, n_clusters: int, n_lights: int, geo: str,
+                      num_views: int, height: int, width: int, bin_tile: int,
+                      dmxu: bool = False, sm_count: int = _H100_SMS) -> StreamPlan:
+    """The streamed binned walk's launch plan for these rows (else
+    ``LaunchPlanError``): its stage copies move whole cluster rows in
+    16-byte pieces (rows 16-byte aligned, S and the cluster size multiples
+    of 4) and a cluster's id fits its position word; ``binned_plan``'s
+    plan."""
+    S = int(rows.shape[2])
+    size = S // n_clusters
+    if S % 4 or size % 4 or rows.data_ptr() % _FILL_ALIGN:
+        raise LaunchPlanError(f"the streamed binned walk copies 16-byte pieces: S ({S}) and "
+                              f"the cluster size ({size}) must be multiples of 4 and rows "
+                              f"16-byte aligned (at {rows.data_ptr() % _FILL_ALIGN} past 16)")
+    if n_clusters > _STREAM_MAX_CLUSTERS:
+        raise LaunchPlanError(f"the streamed binned walk takes at most "
+                              f"{_STREAM_MAX_CLUSTERS} clusters a world, got {n_clusters}")
+    return binned_plan(geo, size, n_lights, num_views, height, width, bin_tile, dmxu,
+                       sm_count)
+
 
 def resident_smem_bytes(geo: str, S: int, n_clusters: int, n_lights: int,
                         ordered: bool) -> int:
@@ -1133,17 +1238,26 @@ _ROUTE_LIBRARIES = {INDEX: "render_resident", NONE: "render_none",
                     Route(False, "binned"): "render_resident_binned"}
 
 
-def library_of(route: Route, seeded: bool, texture=None, dmxu: bool = False) -> str:
-    """The csrc/ library of a launch: K9 on K1 and K4 builds in
-    ``render_seeded.cu``, the ordered visits' seeded entries (K3 + K5, K3
-    on resident rows) in their own sources; K1-none and K1's 9-output mode (cold and seeded) in
-    ``render_none.cu``; K11 (cold and seeded) in ``render_dmxu.cu``. The
-    other visits' 9-output entries are their cold and seeded libraries'."""
+def library_of(route: Route, seeded: bool, texture=None, dmxu: bool = False,
+               geo: str = "prep") -> str:
+    """The csrc/ library of a launch on its plan: the streamed binned walk's
+    tile groups (K4 and K11 on prep rows, cold and seeded) build in
+    ``render_binned.cu``, its other rows' entries on render_body's 16x16
+    blocks in ``render_binned_blocks.cu`` (K4 cold), ``render_seeded.cu``
+    (K4 seeded, with K9 on K1) and ``render_dmxu.cu`` (K11, with K11 on the
+    ordered walk, cold and seeded); the ordered visits' seeded entries (K3 +
+    K5, K3 on resident rows) in their own sources; K1-none and K1's
+    9-output mode (cold and seeded) in ``render_none.cu``. The other
+    visits' 9-output entries are their cold and seeded libraries'."""
+    if route == Route(True, "binned"):
+        if geo == "prep":
+            return "render_binned"
+        return "render_dmxu" if dmxu else "render_seeded" if seeded else "render_binned_blocks"
     if dmxu:
         return "render_dmxu"
     if texture == "nine" and route == INDEX:
         return "render_none"
-    if seeded and route in (INDEX, Route(True, "binned")):
+    if seeded and route == INDEX:
         return "render_seeded"
     return _ROUTE_LIBRARIES[route]
 
@@ -1186,9 +1300,10 @@ def _route_variants(*routes, seeded: bool = False, textures=_FUSED_TEX,
 
 
 # The cold entries of K1 (csrc/render_resident.cu) and of the streamed
-# ordered walk (K3 + K5, csrc/render_streamed.cu), csrc/render_binned.cu's (K4), the resident visits' sources' (K3 and K4 on
-# resident rows), and every route's seeded raytrace entries (K9, each
-# source's own).
+# ordered walk (K3 + K5, csrc/render_streamed.cu), the streamed binned
+# walk's (K4: csrc/render_binned.cu on prep rows, render_binned_blocks.cu
+# on the others), the resident visits' sources' (K3 and K4 on resident
+# rows), and every route's seeded raytrace entries (K9).
 VARIANTS = _route_variants(INDEX, Route(True, "ordered"))
 BINNED_VARIANTS = _route_variants(Route(True, "binned"))
 RESIDENT_ORDERED_VARIANTS = _route_variants(Route(False, "ordered"))
@@ -1379,6 +1494,8 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
         check_resident_plan(rows, CC, n_lights, geo, order is not None)
     if clusters is not None and spans is not None and order is not None and not dmxu:
         check_streamed_plan(rows, CC, n_lights, geo, W * num_cams, height, width)
+    if clusters is not None and spans is not None and bins is not None:
+        check_binned_plan(rows, CC, n_lights, geo, W * num_cams, height, width, bin_tile, dmxu)
     _check_seed(seed, rows, (W * num_cams, height, width), raster)
 
 
@@ -1424,11 +1541,11 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
 
     Tensors on the card launch the route's kernel on their device's current
     stream; tensors on the CPU run ``render_resident_plain``. Inputs that
-    the resident visits' or the streamed ordered walk's launch plan cannot
-    take (``check_resident_plan``, ``check_streamed_plan``) raise
-    ``LaunchPlanError`` on either device. Each launch
-    adds one to ``render_resident.launches`` and to its variant's entry of
-    ``render_resident.variant_launches``."""
+    the resident visits' or the streamed walks' launch plans cannot take
+    (``check_resident_plan``, ``check_streamed_plan``,
+    ``check_binned_plan``) raise ``LaunchPlanError`` on either device. Each
+    launch adds one to ``render_resident.launches`` and to its variant's
+    entry of ``render_resident.variant_launches``."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
                   seg_div, texture, mats, pool, geo, fb_rows, order, spans, bins,
                   ranges, bin_tile, seed, raster, dmxu, rowskip)
@@ -1525,8 +1642,17 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     bin_args = [0, 0, 0] if bins is None else [
         -(-width // bin_tile), bin_tile.bit_length() - _TILE.bit_length(), int(bins.shape[1])]
     n_bands = -(-height // _BAND)
-    kernel = library_of(route, seed is not None, texture, dmxu)
-    if kernel == "render_dmxu":  # K11 on either streamed visit, cold or seeded
+    kernel = library_of(route, seed is not None, texture, dmxu, geo)
+    if route == Route(True, "binned"):
+        plan = binned_plan(geo, S // CC, n_lights, WC, height, width, bin_tile, dmxu,
+                           _sm_count(dev))
+        if plan.groups == 0:  # the parent design: render_body's 16x16 blocks
+            kernel = ("render_dmxu" if dmxu else "render_seeded" if seed is not None
+                      else "render_binned_blocks")
+    if kernel == "render_binned":  # K4 and K11 on the binned walk's tile groups
+        visit = [bins.data_ptr(), spans.data_ptr(), ptr(ranges), ptr(seed)]
+        tail = bin_args + [n_bands, int(dmxu), int(rowskip), plan.groups, plan.parts, stream]
+    elif kernel == "render_dmxu":  # K11 on either streamed visit, cold or seeded
         visit = [ptr(order), spans.data_ptr(), ptr(bins), ptr(seed)]
         tail = bin_args + [int(rowskip), stream]
     elif kernel == "render_none":  # K1-none, and K1's 9-output mode
@@ -1538,7 +1664,7 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     elif kernel == "render_seeded":  # K9 on K1 and K4
         visit = [ptr(spans), ptr(bins), ptr(ranges), seed.data_ptr()]
         tail = bin_args + [n_bands, stream]
-    elif route == Route(True, "binned"):
+    elif kernel == "render_binned_blocks":
         visit = [bins.data_ptr(), spans.data_ptr(), ptr(ranges)]
         tail = bin_args + [n_bands, stream]
     elif route == Route(False, "binned"):
@@ -1605,6 +1731,45 @@ def streamed_occupancy(kw: dict) -> dict:
                                * -(-kw["width"] // _TILE)),
             "threads": threads, "registers": registers, "local_bytes": local,
             "smem_bytes": plan.smem_bytes, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * threads // 32}
+
+
+def binned_occupancy(kw: dict) -> dict:
+    """What the card makes of the streamed binned walk's entry that these
+    inputs (``pack_inputs``'s, of the streamed binned visit's tile groups:
+    K4, or K11 with ``dmxu``, on prep rows) launch: its variant,
+    tile groups and blocks a view, blocks in all, threads a block,
+    registers and local memory a thread, shared memory a block, and blocks
+    and warps a multiprocessor
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). Launches nothing;
+    needs the card."""
+    route = route_of(kw["order"], kw["spans"], kw["bins"], kw["clusters"] is not None)
+    if route != Route(True, "binned"):
+        raise ValueError(f"{route} is not the streamed binned walk")
+    if kw["rows"].device.type != "cuda":
+        raise RuntimeError(f"binned_occupancy needs the card: the inputs are on "
+                           f"{kw['rows'].device}")
+    texture = "mip" if kw.get("fb_rows") is not None else kw["texture"]
+    seeded = kw.get("seed") is not None
+    dmxu = bool(kw.get("dmxu"))
+    S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
+    views = int(kw["cams"].shape[0])
+    plan = binned_plan(kw["geo"], S // CC, kw["n_lights"], views, kw["height"], kw["width"],
+                       kw["bin_tile"], dmxu, _sm_count(kw["rows"].device))
+    if plan.groups == 0:
+        raise ValueError(f"{kw['geo']} rows walk render_body's 16x16 blocks, which have no "
+                         "occupancy query")
+    out = (ctypes.c_int * 4)()
+    err = _occupancy_query("render_binned", [ctypes.c_int] * 9)(
+        _GEO_CODES[kw["geo"]], int(kw["raster"]), _TEX_CODES[texture], int(seeded), int(dmxu),
+        plan.groups, S // CC, int(kw["cams"].shape[1]), kw["n_lights"], out)
+    if err != 0:
+        raise RuntimeError(f"render_binned's occupancy query failed: CUDA error {err}")
+    threads, registers, local, blocks = list(out)
+    return {"variant": variant_name(kw["raster"], texture, kw["geo"], route, seeded, dmxu),
+            "groups": plan.groups, "blocks_per_view": plan.parts,
+            "blocks": views * plan.parts, "threads": threads, "registers": registers,
+            "local_bytes": local, "smem_bytes": plan.smem_bytes, "blocks_per_sm": blocks,
             "warps_per_sm": blocks * threads // 32}
 
 

@@ -284,7 +284,7 @@ def _walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights: int,
 
 def binned_walk(rows, clusters, cams, bins, spans, ranges=None, *, bin_tile: int,
                 num_cams: int, n_lights: int, height: int, width: int, seg_div: int,
-                raster: bool = False, geo: str = "prep", chunk: int = 2048, seed=None,
+                raster: bool = False, geo: str = "prep", chunk: int = 4096, seed=None,
                 dmxu: bool = False, rowskip: bool = False, **_):
     """Replay the binned kernel's walk (K4, ``csrc/render_binned.cu``) on
     ``pack_inputs``'s tensors (``seed`` as in ``streamed_walk``): each 16x16
@@ -356,6 +356,11 @@ def binned_walk(rows, clusters, cams, bins, spans, ranges=None, *, bin_tile: int
              sweep_threads=_T * rc._BAND if ranged else _T * _T)
     if dmxu:
         n["pixel_tests"] = 0
+    # The counts that depend on the data add up on the device, read once
+    # after the walk: a read a position would wait for the card each time.
+    acc = {k: torch.zeros((), dtype=torch.int64, device=dev)
+           for k in ("stops", "gated", "slab_tests", "cluster_visits", "triangle_visits",
+                     "band_reads", "pixel_tests")}
     wrow = _warp_rows(row0[0])  # [nt, 256]
     reached = torch.zeros((V, nt), dtype=torch.int64, device=dev)
     for p in range(int(count.max()) if count.numel() else 0):
@@ -371,21 +376,22 @@ def binned_walk(rows, clusters, cams, bins, spans, ranges=None, *, bin_tile: int
         d2 = (a[0] * a[0] + a[1] * a[1]) + a[2] * a[2]  # [V, nt]
         live = (best_t * best_t > (d2 * rc._F_EXIT_SLACK)[..., None]).any(-1)
         done = done | (active & ~live)
-        n["stops"] += int((active & ~live).sum())
+        acc["stops"] += (active & ~live).sum()
         act = active & live
-        n["gated"] += int(act.sum())
+        acc["gated"] += act.sum()
         if spans is not None:
             s_lo, s_hi = spans[:, 0].gather(1, c), spans[:, 1].gather(1, c)
             act = act & ~((s_lo > row0 + _T - 1) | (s_hi < row0))
-        n["slab_tests"] += int(act.sum())
+        acc["slab_tests"] += act.sum()
         gv = [g[:, k, :, None] for k in range(8)]
         tmin, tmax = _slab(gv, o, inv)
         possible = (tmax >= tmin) & (tmax > near) & (tmin * rc._F_SLAB_SLACK < best_t)
         visit = act & possible.any(-1)
-        if not bool(visit.any()):
+        visiting = torch.nonzero(visit)
+        if not len(visiting):
             continue
-        n["cluster_visits"] += int(visit.sum())
-        for vb in torch.nonzero(visit).split(chunk):
+        n["cluster_visits"] += len(visiting)
+        for vb in visiting.split(chunk):
             v, b = vb[:, 0], vb[:, 1]
             cv, wv = c[v, b], world[v]
             streamed.index_put_((wv, cv), torch.ones_like(cv), accumulate=True)
@@ -402,8 +408,8 @@ def binned_walk(rows, clusters, cams, bins, spans, ranges=None, *, bin_tile: int
                 hi = torch.where(touch, rg[..., 1], 0)
                 sweep = (lanes[None, :, None] >= lo[:, None, :]) & (lanes[None, :, None] < hi[:, None, :])
                 per_band = (hi - lo)[:, :: _T * rc._BAND]  # [m, 2]: each band's lanes
-                n["triangle_visits"] += int(per_band.sum())
-                n["band_reads"] += int(touch[:, :: _T * rc._BAND].sum())
+                acc["triangle_visits"] += per_band.sum()
+                acc["band_reads"] += touch[:, :: _T * rc._BAND].sum()
                 gi = tri[:, rc._N_PREP_ROWS].long()  # [m, cs]
             elif dmxu:  # K11: every slot, on the threads its row gate keeps
                 keep = torch.ones((len(v), _T * _T), dtype=torch.bool, device=dev)
@@ -412,12 +418,12 @@ def binned_walk(rows, clusters, cams, bins, spans, ranges=None, *, bin_tile: int
                     keep = ~((s_lo[v, b][:, None] > wr + 1) | (s_hi[v, b][:, None] < wr))
                 sweep = keep[:, None, :]
                 n["triangle_visits"] += len(v) * cs
-                n["pixel_tests"] += int(keep.sum()) * cs
+                acc["pixel_tests"] += keep.sum() * cs
                 gi = lane_g
             else:
                 cnt = cl[v, 7, cv].long()
                 sweep = (lanes[None, :] < cnt[:, None])[:, :, None]
-                n["triangle_visits"] += int(cnt.sum())
+                acc["triangle_visits"] += cnt.sum()
                 gi = lane_g
             origin = tuple(x[v] for x in o) if raw else None  # [m, 1, 1]
             if dmxu and raw:  # K11's per-view rows
@@ -435,6 +441,9 @@ def binned_walk(rows, clusters, cams, bins, spans, ranges=None, *, bin_tile: int
             best_t[v, b] = torch.where(take, tm, bt)
             best_idx[v, b] = torch.where(take, gi_m, bi)
 
+    for k, v in acc.items():
+        if k in n:
+            n[k] += int(v)
     furthest = torch.zeros((V, bins.shape[1]), dtype=torch.int64, device=dev)
     furthest.scatter_reduce_(1, bin_of.expand(V, nt), reached, "amax")
     n["bin_entries"] = int((1 + furthest).sum())

@@ -36,6 +36,10 @@ def entry_name(mangled: str) -> str:
     the template arguments end where the void return type's ``Ev`` follows
     their closing ``E``."""
     name = re.sub(r"^_ZN\d+", "", re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", mangled))
+    # The anonymous namespace as nvcc names it, `_<source>_cu_<hash>`, and
+    # the entry's name length: the name alone, so that an entry keeps its
+    # key when its source is renamed.
+    name = re.sub(r"^_\w+?_cu_[0-9a-f]{8}\d+", "", name)
     cut = name.find("EEv")
     return name[:cut + 2] if cut >= 0 else name
 

@@ -29,7 +29,9 @@ of 50 launches on the same inputs (the scenes' first step, 64x64):
   of bigmesh_512w_warm (the seed from the depth of the step before, world
   0's terrain moved between), and on the binned terrain paths' A/B (32
   worlds of the 224-grid terrain under accel="clusters" at 128x128,
-  256x256 and 512x512).
+  256x256 and 512x512); and the streamed binned walk at its paths' full
+  size (BINNED_FULL): K4 on binned_32w_128's, binned_32w_256's and
+  terrain_32w_512's inputs, K11 on dmxu_32w_512's and at 128x128.
 PASSES (4) alternate this tree and OTHER, starting with this one. Prints
 one JSON line per pass and then one with each kernel's times and OTHER's
 over this tree's mean, with the card's name and power limit. Needs one
@@ -69,6 +71,15 @@ STREAMED_FULL = {
     "render_streamed@binned_32w_128_clusters": ("terrain", 32, 128, "clusters", "cold"),
     "render_streamed@binned_32w_256_clusters": ("terrain", 32, 256, "clusters", "cold"),
     "render_streamed@terrain_32w_512_clusters": ("terrain", 32, 512, "clusters", "cold"),
+}
+# The streamed binned walk at full size (K4 and K11 on the binned visit):
+# key → (worlds, size, accel, deferred_mxu) of the binned terrain.
+BINNED_FULL = {
+    "render_binned@binned_32w_128": (32, 128, "auto", False),
+    "render_binned@binned_32w_256": (32, 256, "auto", False),
+    "render_binned@terrain_32w_512": (32, 512, "binned", False),
+    "render_binned_dmxu@dmxu_32w_512": (32, 512, "binned", True),
+    "render_binned_dmxu@dmxu_32w_128": (32, 128, "binned", True),
 }
 HANDOFF_KEYS = ("num_cams", "n_lights", "height", "width", "seg_div", "raster", "geo",
                 "order", "spans", "bins", "ranges", "bin_tile")
@@ -194,6 +205,18 @@ def one_pass(root: Path) -> dict:
             raise AssertionError(f"{key}: the inputs take {name}")
         out[key] = cs.cuda_ms(lambda kw=kw: rc.render_resident(**kw), 5)
         del kw
+        torch.cuda.empty_cache()
+    for key, (worlds, res, accel, dmxu) in BINNED_FULL.items():
+        r = m.Manager(scenes.binned_terrain_config(worlds, res, res, accel=accel,
+                                                   deferred_mxu=dmxu))
+        kw = rc.pack_inputs(r.state, r.scene, height=res, width=res, accel=accel,
+                            deferred_mxu=dmxu)
+        name = rc.variant_name(False, kw["texture"], kw["geo"],
+                               rc.route_of(kw["order"], kw["spans"], kw["bins"]), False, dmxu)
+        if name != key.split("@")[0]:
+            raise AssertionError(f"{key}: the inputs take {name}")
+        out[key] = cs.cuda_ms(lambda kw=kw: rc.render_resident(**kw), 5)
+        del r, kw
         torch.cuda.empty_cache()
     return out
 

@@ -61,7 +61,7 @@ ROUTES = {
     "streamed_ordered": (40, "auto", False, trc.Route(True, "ordered"), "render_streamed"),
     "streamed_binned": (40, "binned", False, trc.Route(True, "binned"), "render_binned"),
     "dmxu_ordered": (40, "auto", True, trc.Route(True, "ordered"), "render_dmxu"),
-    "dmxu_binned": (40, "binned", True, trc.Route(True, "binned"), "render_dmxu"),
+    "dmxu_binned": (40, "binned", True, trc.Route(True, "binned"), "render_binned"),
 }
 
 
@@ -134,10 +134,7 @@ def test_route_inputs_and_entries(name, tex_png):
     for seeded in (False, True):
         name_ = trc.variant_name(False, "nine", "prep", route, seeded, kw["dmxu"])
         assert name_ in trc.CULLED_NINE_VARIANTS and name_ in trc.RENDER_VARIANTS
-        seeded_lib = ("render_seeded" if route == trc.Route(True, "binned") and not kw["dmxu"]
-                      else library)
-        assert trc.library_of(route, seeded, "nine", kw["dmxu"]) == \
-            (seeded_lib if seeded else library)
+        assert trc.library_of(route, seeded, "nine", kw["dmxu"]) == library
     outs = trc.render_resident(**kw)
     assert len(outs) == 9 and outs[3].dtype == torch.int32
     other = {"resident_ordered": "resident_binned", "resident_binned": "resident_ordered",
