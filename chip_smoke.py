@@ -90,7 +90,13 @@ printed as JSON lines:
                plan's blocks a view, and against the parent design
                (render_body's 16x16 blocks, a plan of 0 groups), bitwise
                (``plans_vs_kernel`` lines; at the binned paths' full size
-               too);
+               too); so is every check of K11 on the streamed ordered walk
+               (its tile groups, csrc/render_dmxu.cu: prep and raw rows,
+               cold, seeded, raster, mip hand-off and 9-output, the row
+               gate on and off) at raytrace_cuda.streamed_plan's forced
+               plans and against its parent design, and every check of K12
+               on its records (4 pixels a thread) and in its parent design
+               (one a thread of a 16x16 block: a plan of 0 pixels);
                a mode's texture filters share its inputs and seed, so their
                variants share one plain sweep (raytrace_cuda.plain_hits),
                and inputs equal in geometry, cameras, visit and seed share
@@ -183,7 +189,8 @@ printed as JSON lines:
                                   each step as the tool's rollout does; the
                                   same steps through "auto" (K1) beside
                                   them, each timed step's inputs through
-                                  both kernels, and (64x64) a ``mxu_vs_k1``
+                                  both kernels (and K12's parent design),
+                                  and (64x64) a ``mxu_vs_k1``
                                   line: the frames' largest rgb and
                                   relative depth differences and segmask
                                   mismatches (a report: the two round
@@ -216,9 +223,12 @@ printed as JSON lines:
                                   version; terrain_32w_512's steps are its
                                   K4 A/B;
                  bigmesh_512w_dmxu bigmesh_512w with deferred_mxu=True (K11
-                                  on the ordered walk, no row gate at 64x64),
-                                  every step's state through K5 bitwise
-                                  (``dmxu_vs_k5``) and timed, bigmesh_512w's
+                                  on the ordered walk's tile groups, no row
+                                  gate at 64x64), every step's state through
+                                  K5 bitwise (``dmxu_vs_k5``) and timed with
+                                  K11's parent design beside, the forced
+                                  plans at full size, a
+                                  ``streamed_occupancy`` line, bigmesh_512w's
                                   steps its A/B;
                  bigmesh_512w_tex256 bigmesh_512w with the terrain textured
                                   by the 256x256 checker baked without mips
@@ -1508,11 +1518,60 @@ def main() -> int:
             max_err[part] = max(max_err.get(part, 0.0), err)
         emit({"phase": "kernel_vs_plain", "kernel": name, "case": tag,
               "hit_share": float((k_out[0] > 0).float().mean()), **c})
-        if not is_batched(kw) and binned(kw) and streamed(kw) and kw["geo"] == "prep":
+        if not is_batched(kw) and streamed(kw) and (
+                kw["geo"] == "prep" if binned(kw) else dmxu(kw)):
             check_plans(tag, kw, k_out)
+        if is_batched(kw):
+            check_batched_plans(tag, kw, k_out)
         return k_out
 
     real_binned_plan = rc.binned_plan
+    real_streamed_plan = rc.streamed_plan
+    real_batched_plan = rc.batched_plan
+
+    def forced_streamed_plan(groups, parts):
+        """rc.streamed_plan forced, for K11 (dmxu), to ``groups`` tile groups
+        and ``parts`` blocks a view (0 groups: the parent design,
+        render_body's 16x16 blocks); K3 + K5 keep their own plan."""
+        def plan(geo, cc, size, n_lights, *args, dmxu=False, **kwargs):
+            if not dmxu:
+                return real_streamed_plan(geo, cc, size, n_lights, *args, **kwargs)
+            return rc.StreamPlan(groups, parts,
+                                 rc.streamed_block_bytes(geo, cc, size, n_lights, groups, True))
+        return plan
+
+    def on_plan(fn, kw, groups, parts=1):
+        """``fn()`` with ``kw``'s kernel forced to a plan: K12 to ``groups``
+        pixels a thread (0: the parent design), K11 on the ordered walk and
+        the binned walk's tile groups to ``groups`` tile groups and
+        ``parts`` blocks a view (0: the parent design)."""
+        if is_batched(kw):
+            name, plan = "batched_plan", lambda h, w: real_batched_plan(h, w, groups)
+        elif binned(kw):
+            name, plan = "binned_plan", forced_plan(groups, parts)
+        else:
+            name, plan = "streamed_plan", forced_streamed_plan(groups, parts)
+        real = getattr(rc, name)
+        setattr(rc, name, plan)
+        try:
+            return fn()
+        finally:
+            setattr(rc, name, real)
+
+    def check_batched_plans(tag, kw, k_out):
+        """K12 on its records (4 pixels a thread) and in its parent design
+        (0: one a thread of a 16x16 block) on the same inputs, each bitwise
+        against the kernel's outputs ``k_out`` (held to the plain
+        version)."""
+        same = {}
+        for p in rc._BATCHED_PIXEL_CHOICES:
+            out = on_plan(lambda: rc.render_batched(**kw), kw, p)
+            same[f"pixels{p}"] = all(torch.equal(x, y) for x, y in zip(out, k_out))
+        emit({"phase": "plans_vs_kernel", "case": tag, "kernel": variant(kw),
+              "plan": {"pixels": rc.batched_plan(kw["height"], kw["width"]).pixels}, **same})
+        if not all(same.values()):
+            raise AssertionError(f"{tag} {variant(kw)}: a forced plan or the parent design "
+                                 f"differs: {same}")
 
     def forced_plan(groups, parts):
         """rc.binned_plan forced to ``groups`` tile groups and ``parts``
@@ -1527,23 +1586,26 @@ def main() -> int:
         return plan
 
     def check_plans(tag, kw, k_out):
-        """The streamed binned walk's tile groups (K4, K11) at forced plans,
-        G = 1, 2 and 4 tile groups with B = 1 and the plan's blocks a view,
-        and its parent design (render_body's 16x16 blocks, a plan of 0
-        groups) on the same inputs, each bitwise against the kernel's
-        outputs ``k_out`` (held to the plain version or to K5)."""
+        """The streamed walks' tile groups (K4 and K11 on the binned walk's
+        prep rows, K11 on the ordered walk) at forced plans, G = 1, 2 and 4
+        tile groups with B = 1 and the plan's blocks a view, and their
+        parent design (render_body's 16x16 blocks, a plan of 0 groups) on
+        the same inputs, each bitwise against the kernel's outputs ``k_out``
+        (held to the plain version or to K5)."""
         S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
-        plan = rc.binned_plan(kw["geo"], S // CC, kw["n_lights"], int(kw["cams"].shape[0]),
-                              kw["height"], kw["width"], kw["bin_tile"], dmxu(kw))
-        plans = sorted({(0, 1)} | {(g, b) for g in (1, 2, 4) for b in (1, plan.parts)})
+        if binned(kw):
+            plan = rc.binned_plan(kw["geo"], S // CC, kw["n_lights"],
+                                  int(kw["cams"].shape[0]), kw["height"], kw["width"],
+                                  kw["bin_tile"], dmxu(kw))
+        else:
+            plan = rc.streamed_plan(kw["geo"], CC, S // CC, kw["n_lights"],
+                                    int(kw["cams"].shape[0]), kw["height"], kw["width"],
+                                    dmxu=True)
+        plans = sorted({(0, 1)} | {(g, b) for g in (1, 2, 4) for b in (1, max(plan.parts, 1))})
         same = {}
-        try:
-            for g, b in plans:
-                rc.binned_plan = forced_plan(g, b)
-                out = rc.render_resident(**kw)
-                same[f"g{g}_b{b}"] = all(torch.equal(x, y) for x, y in zip(out, k_out))
-        finally:
-            rc.binned_plan = real_binned_plan
+        for g, b in plans:
+            out = on_plan(lambda: rc.render_resident(**kw), kw, g, b)
+            same[f"g{g}_b{b}"] = all(torch.equal(x, y) for x, y in zip(out, k_out))
         emit({"phase": "plans_vs_kernel", "case": tag, "kernel": variant(kw),
               "plan": {"groups": plan.groups, "blocks_per_view": plan.parts}, **same})
         if not all(same.values()):
@@ -2947,11 +3009,13 @@ def main() -> int:
                   "pixels": int(d1.numel())})
         else:
             extra_timing.append((name, path, kw))
-        ab = {"k12": [], "k1": []}
+        ab = {"k12": [], "k12_parent": [], "k1": []}
         for state in record:
             kb = rc.pack_inputs(state, r.scene, height=res, width=res, accel="mxu")
             k1 = rc.pack_inputs(state, r.scene, height=res, width=res)
             ab["k12"].append(cuda_ms(lambda kb=kb: rc.render_batched(**kb), 1))
+            ab["k12_parent"].append(cuda_ms(lambda kb=kb: on_plan(
+                lambda: rc.render_batched(**kb), kb, 0), 1))
             ab["k1"].append(cuda_ms(lambda k1=k1: rc.render_resident(**k1), 1))
         extra = {"accel": "mxu", "route": name, **device_share(r, step_s),
                  "epilogue_ms": cuda_ms(lambda: frames_of(r, outs), 5),
@@ -3149,7 +3213,8 @@ def main() -> int:
         raise AssertionError(f"{path}: the row gate is on at 64²")
     timing_kw[name] = kw
     walk_matches(path, kw, exports(r))
-    ab = {"k11": [], "k5": []}
+    emit({"phase": "streamed_occupancy", "case": path, **rc.streamed_occupancy(kw)})
+    ab = {"k11": [], "k11_parent": [], "k5": []}
     for i, (state, depth, seg, rgb) in enumerate(record):
         k5 = rc.pack_inputs(state, r.scene, height=HEIGHT, width=WIDTH)
         same = same_frames(rc.render_resident(**k5),
@@ -3159,6 +3224,8 @@ def main() -> int:
         if i >= WARMUP_STEPS:
             km = rc.pack_inputs(state, r.scene, height=HEIGHT, width=WIDTH, deferred_mxu=True)
             ab["k11"].append(cuda_ms(lambda km=km: rc.render_resident(**km), 1))
+            ab["k11_parent"].append(cuda_ms(lambda km=km: on_plan(
+                lambda: rc.render_resident(**km), km, 0), 1))
             ab["k5"].append(cuda_ms(lambda k5=k5: rc.render_resident(**k5), 1))
     emit({"phase": "dmxu_vs_k5", "case": path, "steps": len(record), "bitwise": True})
     extra = {"deferred_mxu": True, "route": name, "rowskip": False, **device_share(r, step_s),

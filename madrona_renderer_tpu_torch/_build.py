@@ -187,6 +187,7 @@ SIGNATURES = {
          _I, _I, _I,  # raster tex_filter geo
          _I, _I, _I,  # bins_x bin_shift n_bins
          _I,  # rowskip
+         _I, _I,  # groups (the ordered walk's tile groups a block; 0: 16x16 blocks) parts
          _P],  # stream
     ),
     "ladder": (
@@ -201,6 +202,7 @@ SIGNATURES = {
         + [_I] * 7  # num_views num_cams S n_cols n_lights height width
         + [_F, _F,  # two_over_w two_over_h
            _I, _I,  # raster nine
+           _I,  # pixels a thread (0: the parent design's 16x16 blocks)
            _P],  # stream
     ),
     "shade_mip": (

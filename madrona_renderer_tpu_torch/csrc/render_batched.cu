@@ -52,16 +52,30 @@
 // (29 + 14 per light) or the uv (8). Each is its own instruction under
 // --fmad=false. chip_smoke.py counts them for its inputs.
 //
-// The design is the simple one: one thread per pixel of a 16x16 block of
-// one view; the block computes the prepass rows of a chunk of kChunk
-// triangles into shared memory (one triangle a thread), every thread sweeps
-// the chunk in index order, and the next chunk follows. No tensor cores:
-// FP32 has no tensor-core path, and TF32 (or a 3xTF32 split) rounds the
-// numerators otherwise than the plain version; that redesign is a lever
-// for later.
+// Two designs, each a launch plan (raytrace_cuda.batched_plan: pixels a
+// thread). The parent design (pixels 0, render_batched_kernel): one thread
+// per pixel of a 16x16 block of one view; the block computes the prepass
+// rows of a chunk of kChunk triangles into shared memory (one triangle a
+// thread), every thread sweeps the chunk in index order (10 scalar shared
+// loads a test), and the next chunk follows; the resolve recomputes the
+// winner's prepass from device memory. The design for the card (pixels 4,
+// render_batched_rec_kernel, below): the prepass as records of three float4
+// a triangle, four pixels a thread of a 32 x 8 block sharing each record's
+// loads, the acceptance as one predicate, the winner's (u, v) from
+// its record. Both give the plain version's bits; chip_smoke.py holds every
+// entry at each plan against the plain version. The bound counts the work,
+// whatever design makes it. No tensor cores: FP32 has no tensor-core path,
+// and TF32 (or a 3xTF32 split) rounds the numerators otherwise than the
+// plain version; that redesign is a lever for later.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// The span hooks of port_tools/batched_phase_probe.py (empty here).
+#ifndef MRT_PHASE
+#define MRT_PHASE_BEGIN
+#define MRT_PHASE(k)
+#endif
 
 namespace {
 
@@ -253,12 +267,219 @@ __global__ void __launch_bounds__(kThreads) render_batched_kernel(const BatchedA
   }
 }
 
+// ---- The design for the card: records, several pixels a thread --------- //
+// A block of 32 x 8 threads covers 32 x 8P pixels of one view (thread (x, y)
+// the pixels (x, y + 8q), q < P: a warp's writes are 128-byte rows), so one
+// prepass serves 256P pixels. Triangle i's prepass is a record of three
+// float4 (D with t_num, A, B: the same values as the parent's rows), so a
+// test reads 3 broadcast 16-byte shared loads, shared by the thread's P rays,
+// where the parent reads 10 scalar ones a ray. The acceptance is one
+// predicate (fminf(u, v) >= -eps && u + v <= 1 + eps && t > t_lo &&
+// t < best_t: the parent's chain, bit for bit, NaNs included: a NaN u or v
+// fails u + v <= 1 + eps) and the first minimum two selects. The resolve
+// takes the winner's record from shared memory when it lies in the last
+// chunk (every triangle when S <= kChunk), else recomputes its prepass from
+// device memory as the parent does: the same expressions on the same values.
+constexpr int kBlockX = 32;
+constexpr int kBlockY = 8;
+// Pixels a thread: of 1, 2 and 4, 4 ran fastest on every K12 path's inputs
+// (port_tools/dense_plan_ab.py).
+constexpr int kPixels = 4;
+
+// Triangle i's prepass (prepass's expressions) as a record r[0..2].
+__device__ __forceinline__ void prepass_record(const float* g, int S, int i, float ox,
+                                               float oy, float oz, float4* r) {
+  const float v0x = g[i], v0y = g[S + i], v0z = g[2 * S + i];
+  const float e1x = g[3 * S + i], e1y = g[4 * S + i], e1z = g[5 * S + i];
+  const float e2x = g[6 * S + i], e2y = g[7 * S + i], e2z = g[8 * S + i];
+  const float tvx = ox - v0x;
+  const float tvy = oy - v0y;
+  const float tvz = oz - v0z;
+  const float bx = tvy * e1z - tvz * e1y;
+  const float by = tvz * e1x - tvx * e1z;
+  const float bz = tvx * e1y - tvy * e1x;
+  r[0] = make_float4(e2y * e1z - e2z * e1y, e2z * e1x - e2x * e1z, e2x * e1y - e2y * e1x,
+                     e2x * bx + e2y * by + e2z * bz);
+  r[1] = make_float4(e2y * tvz - e2z * tvy, e2z * tvx - e2x * tvz, e2x * tvy - e2y * tvx, 0.f);
+  r[2] = make_float4(bx, by, bz, 0.f);
+}
+
+// numerators' expressions on a record.
+__device__ __forceinline__ void record_numerators(const float4& r0, const float4& r1,
+                                                  const float4& r2, float dx, float dy,
+                                                  float dz, float& u, float& v, float& t) {
+  const float det = (r0.x * dx + r0.y * dy) + r0.z * dz;
+  const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+  u = ((r1.x * dx + r1.y * dy) + r1.z * dz) * inv;
+  v = ((r2.x * dx + r2.y * dy) + r2.z * dz) * inv;
+  t = r0.w * inv;
+}
+
+// One pixel's resolve, shading or 9-output export and writes, as the
+// parent kernel's (its winner's (u, v) given).
 template <bool RASTER, bool NINE>
-int launch(const BatchedArgs& a, int num_views, cudaStream_t stream) {
-  const int tiles_y = (a.height + kTileY - 1) / kTileY;
-  const dim3 grid(num_views, a.tiles_x * tiles_y);
-  const dim3 block(kTileX, kTileY);
-  render_batched_kernel<RASTER, NINE><<<grid, block, 0, stream>>>(a);
+__device__ __forceinline__ void finish_pixel(const BatchedArgs& a, const float* g,
+                                             const float* cam, int view, int px, int py,
+                                             float dx, float dy, float dz, float cosf_,
+                                             float best_t, int best_idx, float u, float v) {
+  const int S = a.S;
+  const bool found = best_idx >= 0;
+  float uc = 0.f, vc = 0.f, nx = 0.f, ny = 0.f, nz = 0.f;
+  const int j = found ? best_idx : 0;
+  const float* at = g + (size_t)kAttr0 * S;
+  if (found) {
+    uc = clip01(u);
+    vc = clip01(v);
+    nx = at[6 * S + j] + uc * at[9 * S + j] + vc * at[12 * S + j];
+    ny = at[7 * S + j] + uc * at[10 * S + j] + vc * at[13 * S + j];
+    nz = at[8 * S + j] + uc * at[11 * S + j] + vc * at[14 * S + j];
+  }
+  const float flip = nx * dx + ny * dy + nz * dz > 0.f ? -1.0f : 1.0f;
+  nx = nx * flip;
+  ny = ny * flip;
+  nz = nz * flip;
+  const float t_hit = found ? best_t : 0.f;
+  const float z = t_hit * cosf_;
+  const size_t o = ((size_t)view * a.height + py) * a.width + px;
+  const size_t plane = (size_t)gridDim.x * a.height * a.width;
+  a.t[o] = t_hit;
+  a.idx[o] = best_idx;
+  a.planes[o] = z;
+  if constexpr (NINE) {
+    float uvx = 0.f, uvy = 0.f, mat = 0.f;
+    if (found) {
+      mat = at[15 * S + j];
+      uvx = at[j] + uc * at[2 * S + j] + vc * at[4 * S + j];
+      uvy = at[S + j] + uc * at[3 * S + j] + vc * at[5 * S + j];
+    }
+    a.ints[o] = (int)mat;
+    a.planes[plane + o] = uvx;
+    a.planes[2 * plane + o] = uvy;
+    a.planes[3 * plane + o] = nx;
+    a.planes[4 * plane + o] = ny;
+    a.planes[5 * plane + o] = nz;
+  } else {
+    const float n_inv = 1.0f / sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, kTiny));
+    float sr = 0.f, sg = 0.f, sb = 0.f;
+    for (int li = 0; li < a.n_lights; ++li) {
+      const float* l = cam + kCamLight0 + 6 * li;
+      const float nd = fmaxf(-(nx * l[0] + ny * l[1] + nz * l[2]) * n_inv, 0.f);
+      sr = sr + nd * l[3];
+      sg = sg + nd * l[4];
+      sb = sb + nd * l[5];
+    }
+    const bool hit = RASTER ? found && z < cam[kCamFarZ] : found;
+    const float br = found ? at[16 * S + j] : 0.f;
+    const float bg = found ? at[17 * S + j] : 0.f;
+    const float bb = found ? at[18 * S + j] : 0.f;
+    a.ints[o] = (int)(quantize(br, sr, hit) | (quantize(bg, sg, hit) << 8) |
+                      (quantize(bb, sb, hit) << 16) | kAlpha);
+  }
+}
+
+template <bool RASTER, bool NINE, int P>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+render_batched_rec_kernel(const BatchedArgs a) {
+  __shared__ float4 s_rec[3 * kChunk];
+  MRT_PHASE_BEGIN;
+  const int view = blockIdx.x;
+  const int world = view / a.num_cams;
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  const int S = a.S;
+  const float* g = a.rows + (size_t)world * kPackRows * S;
+  const float* cam = a.cams + (size_t)view * a.n_cols;
+  const int blocks_x = (a.width + kBlockX - 1) / kBlockX;
+  const int px = (blockIdx.y % blocks_x) * kBlockX + threadIdx.x;
+  const int py0 = (blockIdx.y / blocks_x) * (kBlockY * P) + threadIdx.y;
+
+  const float ox = cam[0], oy = cam[1], oz = cam[2];
+  const float rxx = cam[3], rxy = cam[4], rxz = cam[5];
+  const float fx = cam[6], fy = cam[7], fz = cam[8];
+  const float ux = cam[9], uy = cam[10], uz = cam[11];
+  const float tan_x = cam[12], tan_y = cam[13];
+  const float near = cam[14], far = cam[15];
+
+  // Ray generation (:3787-3798), each of the thread's P pixels.
+  float dx[P], dy[P], dz[P], cosf_[P], t_lo[P], best_t[P];
+  int best_idx[P];
+  const float ra = (((float)px + 0.5f) * a.two_over_w - 1.0f) * tan_x;
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const float rb = (1.0f - ((float)(py0 + kBlockY * q) + 0.5f) * a.two_over_h) * tan_y;
+    float x = ra * rxx + fx + rb * ux;
+    float y = ra * rxy + fy + rb * uy;
+    float z = ra * rxz + fz + rb * uz;
+    const float inv_len = 1.0f / sqrtf(x * x + y * y + z * z);
+    dx[q] = x * inv_len;
+    dy[q] = y * inv_len;
+    dz[q] = z * inv_len;
+    cosf_[q] = dx[q] * fx + dy[q] * fy + dz[q] * fz;
+    t_lo[q] = RASTER ? near / fmaxf(cosf_[q], kCosFloor) : near;
+    best_t[q] = far;
+    best_idx[q] = -1;
+  }
+
+  int k0 = 0;
+  for (; k0 < S; k0 += kChunk) {
+    const int n = min(kChunk, S - k0);
+    MRT_PHASE(0);
+    __syncthreads();  // every thread is done with the previous chunk
+    for (int k = tid; k < n; k += kBlockX * kBlockY)
+      prepass_record(g, S, k0 + k, ox, oy, oz, s_rec + 3 * k);
+    __syncthreads();
+    MRT_PHASE(1);
+#pragma unroll 2
+    for (int k = 0; k < n; ++k) {
+      const float4 r0 = s_rec[3 * k], r1 = s_rec[3 * k + 1], r2 = s_rec[3 * k + 2];
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        float u, v, t;
+        record_numerators(r0, r1, r2, dx[q], dy[q], dz[q], u, v, t);
+        const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
+                        (t > t_lo[q]) && (t < best_t[q]);
+        best_t[q] = ok ? t : best_t[q];
+        best_idx[q] = ok ? k0 + k : best_idx[q];
+      }
+    }
+  }
+  const int last0 = k0 - kChunk;  // the chunk the records hold
+
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int py = py0 + kBlockY * q;
+    if (px >= a.width || py >= a.height) continue;
+    MRT_PHASE(2);
+    // The winner's (u, v): its record, or its prepass from device memory.
+    float u = 0.f, v = 0.f, t;
+    const int j = best_idx[q];
+    if (j >= 0 && j >= last0) {
+      const float4* r = s_rec + 3 * (j - last0);
+      record_numerators(r[0], r[1], r[2], dx[q], dy[q], dz[q], u, v, t);
+    } else if (j >= 0) {
+      float4 r[3];
+      prepass_record(g, S, j, ox, oy, oz, r);
+      record_numerators(r[0], r[1], r[2], dx[q], dy[q], dz[q], u, v, t);
+    }
+    MRT_PHASE(3);
+    finish_pixel<RASTER, NINE>(a, g, cam, view, px, py, dx[q], dy[q], dz[q], cosf_[q],
+                               best_t[q], j, u, v);
+  }
+}
+
+template <bool RASTER, bool NINE>
+int launch(const BatchedArgs& a, int num_views, int pixels, cudaStream_t stream) {
+  if (pixels == 0) {  // the parent design: one pixel a thread of a 16x16 tile
+    const int tiles_y = (a.height + kTileY - 1) / kTileY;
+    const dim3 grid(num_views, a.tiles_x * tiles_y);
+    const dim3 block(kTileX, kTileY);
+    render_batched_kernel<RASTER, NINE><<<grid, block, 0, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  const int rows = kBlockY * pixels;
+  const dim3 grid(num_views, ((a.width + kBlockX - 1) / kBlockX) * ((a.height + rows - 1) / rows));
+  const dim3 block(kBlockX, kBlockY);
+  if (pixels != kPixels) return (int)cudaErrorInvalidValue;
+  render_batched_rec_kernel<RASTER, NINE, kPixels><<<grid, block, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -269,19 +490,22 @@ extern "C" {
 // Launches K12 on `stream`, on the caller's current device: raster 0/1 (the
 // raytrace or raster conventions), nine 0 (shaded: z in planes[0], packed
 // rgb in ints) or 1 (the 9-output mode: z, uv x, uv y, nx, ny, nz in
-// planes[0..5], the material in ints). Returns cudaGetLastError() after the
-// launch (0 on success).
+// planes[0..5], the material in ints); pixels 4 a thread of a 32 x 8 block
+// on the records, or 0: the parent design (one a thread of a 16x16 block). Returns cudaGetLastError() after the launch (0 on success),
+// or cudaErrorInvalidValue for another count of pixels.
 int mrt_render_batched(const float* rows, const float* cams, float* t, int* idx,
                        float* planes, int* ints, int num_views, int num_cams, int S,
                        int n_cols, int n_lights, int height, int width, float two_over_w,
-                       float two_over_h, int raster, int nine, void* stream) {
+                       float two_over_h, int raster, int nine, int pixels, void* stream) {
   const BatchedArgs a{rows, cams, t, idx, planes, ints, num_cams, S, n_cols, n_lights,
                       height, width, (width + kTileX - 1) / kTileX, two_over_w,
                       two_over_h};
   const cudaStream_t s = (cudaStream_t)stream;
   if (raster)
-    return nine ? launch<true, true>(a, num_views, s) : launch<true, false>(a, num_views, s);
-  return nine ? launch<false, true>(a, num_views, s) : launch<false, false>(a, num_views, s);
+    return nine ? launch<true, true>(a, num_views, pixels, s)
+                : launch<true, false>(a, num_views, pixels, s);
+  return nine ? launch<false, true>(a, num_views, pixels, s)
+              : launch<false, false>(a, num_views, pixels, s);
 }
 
 const char* mrt_error_string(int err) {

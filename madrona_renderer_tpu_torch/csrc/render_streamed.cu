@@ -72,6 +72,15 @@
 // one 16x16 block a (view, tile) (render_streamed_tile_kernel): on them the
 // tile groups were 1.4-5% slower.
 //
+// K11 on this walk (DMXU, stream_tile's second sweep: every slot of a
+// visited cluster, D and t_num read as float4 over four slots, the
+// cluster's first minimum merged with the lower-index tie rule, each warp's
+// two rows gated on the span under rowskip; on raw rows the view's D, A, Q,
+// t_num formed in place of the staged v0, e1, e2) builds in
+// csrc/render_dmxu.cu, which includes this body without this source's
+// entries (MRT_STREAMED_BODY_ONLY); render_body's 16x16 blocks in their
+// DMXU mode stay there as its parent design.
+//
 // Bound on an H100: csrc/render_resident.cu's K5 bound (chip_smoke.py's
 // k5_bound, from ops/walk_replay.streamed_walk's work for its inputs): per
 // pixel K1's fixed work, per position a tile reaches the approach distance
@@ -86,25 +95,34 @@
 
 namespace {
 
+// Rows of a group's stage buffer: the geo's (smem_geo_rows: K5 on raw rows
+// keeps the view's tv, q, t_num beside v0, e1, e2), or K11's D, A, Q and
+// t_num (on raw rows formed in place of the staged v0, e1, e2).
+template <int GEO, bool DMXU>
+__host__ __device__ constexpr int stream_stage_rows() {
+  return DMXU ? kPrepRows : smem_geo_rows<GEO>();
+}
+
 // One 16x16 tile, walked by one group (named barrier `bar`, its vote rows
 // `vote`, its stage buffers `bufs` [2, rows, cs] and their mbarriers
 // `bars`; `phases` each buffer's parity and `round` the vote rows' turn,
 // carried from tile to tile): K1's ray, the staged walk of the view's
 // positions (`s_head`, `s_box`), the resolve, the shading and the export,
 // each expression as render_body computes it.
-template <int GEO, bool RASTER, int TEX, bool SEEDED>
+template <int GEO, bool RASTER, int TEX, bool SEEDED, bool DMXU = false>
 __device__ __forceinline__ void stream_tile(const RenderArgs& a, const float* seed,
                                             const PosHead* s_head, const float* s_box,
                                             const float* s_cam, const float* g_rows,
                                             float* bufs, unsigned long long* bars, int view,
                                             int num_views, int tile, int bar,
                                             uint4 (*vote)[2], unsigned& phases,
-                                            unsigned& round) {
+                                            unsigned& round, int rowskip = 0) {
   constexpr bool RAW = GEO != kGeoPrep;
   constexpr bool WT = GEO >= kGeoRawWt;
   static_assert(GEO != kGeoRawShadows && GEO != kGeoRawWtShadows,
                 "the shadow sweeps walk render_body's 16x16 blocks");
-  constexpr int kRows = smem_geo_rows<GEO>();
+  static_assert(!DMXU || GEO == kGeoPrep || GEO == kGeoRaw, "K11 sweeps prep or raw rows");
+  constexpr int kRows = stream_stage_rows<GEO, DMXU>();
   constexpr int kLoadRows = WT ? kWtRows : (RAW ? kRawRows : kPrepRows);
   const int S = a.S, CC = a.CC, cs = a.cluster_size;
   const int ly = threadIdx.y % kTileY;
@@ -303,7 +321,94 @@ __device__ __forceinline__ void stream_tile(const RenderArgs& a, const float* se
       }
     }
   };
-  stream_walk(CC, gate, stage, wait, visit);
+  if constexpr (DMXU) {
+    // K11's sweep of a visited cluster (DMXU).
+    auto visit_m = [&](int p, int b) {
+      float* buf = buf_of(b);
+      const int base = (s_head[p].cluster & kClusterMask) * cs;
+      fresh = false;  // as visit's: the gate that follows votes
+      MRT_PHASE(2);
+      wait(b);
+      if constexpr (RAW) {
+        // K11 on raw rows: the cluster's D = e2 x e1, A = e2 x tv,
+        // Q = tv x e1 and t_num = e2 . Q for this view (tv = o - v0,
+        // :1876-1903) in place of its staged v0, e1, e2, one thread a slot;
+        // the group barrier after it, and the one of the gate that follows
+        // the sweep, keep the next copy out of the buffer until every warp
+        // is done with it.
+        for (int k = lane_tid; k < cs; k += kThreads) {
+          const float e1x = buf[3 * cs + k], e1y = buf[4 * cs + k], e1z = buf[5 * cs + k];
+          const float e2x = buf[6 * cs + k], e2y = buf[7 * cs + k], e2z = buf[8 * cs + k];
+          const float tvx = ox - buf[k];
+          const float tvy = oy - buf[cs + k];
+          const float tvz = oz - buf[2 * cs + k];
+          const float qx = tvy * e1z - tvz * e1y;
+          const float qy = tvz * e1x - tvx * e1z;
+          const float qz = tvx * e1y - tvy * e1x;
+          buf[k] = e2y * e1z - e2z * e1y;
+          buf[cs + k] = e2z * e1x - e2x * e1z;
+          buf[2 * cs + k] = e2x * e1y - e2y * e1x;
+          buf[3 * cs + k] = e2y * tvz - e2z * tvy;
+          buf[4 * cs + k] = e2z * tvx - e2x * tvz;
+          buf[5 * cs + k] = e2x * tvy - e2y * tvx;
+          buf[6 * cs + k] = qx;
+          buf[7 * cs + k] = qy;
+          buf[8 * cs + k] = qz;
+          buf[9 * cs + k] = e2x * qx + e2y * qy + e2z * qz;
+        }
+        group_sync(bar);
+      }
+      MRT_PHASE(3);
+      // Row skip (:1915-1990): the cluster's rows miss the warp's two.
+      const int wrow0 = row0 + 2 * (ly / 2);
+      const PosHead h = s_head[p];
+      if (rowskip && (h.span_lo > wrow0 + 1 || h.span_hi < wrow0)) return;
+      // Every slot, padding included; t < cmin from cmin = far: the
+      // accepted t < far of the cluster's first minimum, as the JAX
+      // iota-min takes it; D and t_num read as float4 over four slots, the
+      // four tests in slot order.
+      float cmin = far, cu = 0.f, cv = 0.f;
+      int lidx = -1;
+      auto test = [&](float d0, float d1, float d2, float tn, int k) {
+        const float det = dx * d0 + dy * d1 + dz * d2;
+        const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+        const float u = (dx * buf[3 * cs + k] + dy * buf[4 * cs + k] + dz * buf[5 * cs + k]) * inv;
+        const float v = (dx * buf[6 * cs + k] + dy * buf[7 * cs + k] + dz * buf[8 * cs + k]) * inv;
+        const float t = tn * inv;
+        if ((fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) && (t > t_lo) && (t < cmin)) {
+          cmin = t;
+          lidx = k;
+          if constexpr (RAW) {
+            cu = u;
+            cv = v;
+          }
+        }
+      };
+      for (int k = 0; k < cs; k += 4) {
+        const float4 d0 = *reinterpret_cast<const float4*>(buf + k);
+        const float4 d1 = *reinterpret_cast<const float4*>(buf + cs + k);
+        const float4 d2 = *reinterpret_cast<const float4*>(buf + 2 * cs + k);
+        const float4 tn = *reinterpret_cast<const float4*>(buf + 9 * cs + k);
+        test(d0.x, d1.x, d2.x, tn.x, k);
+        test(d0.y, d1.y, d2.y, tn.y, k + 1);
+        test(d0.z, d1.z, d2.z, tn.z, k + 2);
+        test(d0.w, d1.w, d2.w, tn.w, k + 3);
+      }
+      // The first minimum merged with the lower-index tie rule.
+      const int gi = base + lidx;
+      if (lidx >= 0 && ((cmin < best_t) || (cmin == best_t && gi < best_idx))) {
+        best_t = cmin;
+        best_idx = gi;
+        if constexpr (RAW) {
+          best_u = cu;
+          best_v = cv;
+        }
+      }
+    };
+    stream_walk(CC, gate, stage, wait, visit_m);
+  } else {
+    stream_walk(CC, gate, stage, wait, visit);
+  }
   MRT_PHASE(4);
 
   const bool inside = px < a.width && py < a.height;
@@ -437,10 +542,10 @@ __device__ __forceinline__ void stream_tile(const RenderArgs& a, const float* se
 // once a block: the camera row and the positions' words (threads), each
 // group's two mbarriers (thread 0); then each group takes tiles from the
 // counter until the share is gone.
-template <int GEO, bool RASTER, int TEX, bool SEEDED>
+template <int GEO, bool RASTER, int TEX, bool SEEDED, bool DMXU = false>
 __device__ __forceinline__ void stream_body(const RenderArgs& a, const StreamArgs& st,
-                                            int parts, const float* seed) {
-  constexpr int kRows = smem_geo_rows<GEO>();
+                                            int parts, const float* seed, int rowskip = 0) {
+  constexpr int kRows = stream_stage_rows<GEO, DMXU>();
   const int CC = a.CC, cs = a.cluster_size;
   const int groups = blockDim.y / kTileY;
   const int n_block = kThreads * groups;
@@ -514,12 +619,16 @@ __device__ __forceinline__ void stream_body(const RenderArgs& a, const StreamArg
     const int tile = *slot;
     if (tile >= n_tiles) break;
     MRT_PHASE(4);
-    stream_tile<GEO, RASTER, TEX, SEEDED>(a, seed, s_head, s_box, s_cam, g_rows, bufs,
-                                          ctl.stage_bar[g], view, gridDim.x / parts, tile,
-                                          1 + g, ctl.vote[g], phases, round);
+    stream_tile<GEO, RASTER, TEX, SEEDED, DMXU>(a, seed, s_head, s_box, s_cam, g_rows, bufs,
+                                                ctl.stage_bar[g], view, gridDim.x / parts,
+                                                tile, 1 + g, ctl.vote[g], phases, round,
+                                                rowskip);
   }
 }
 
+// This source's entries; csrc/render_dmxu.cu includes the body above
+// without them (MRT_STREAMED_BODY_ONLY) for K11's tile groups.
+#ifndef MRT_STREAMED_BODY_ONLY
 template <int GEO, bool RASTER, int TEX>
 __global__ void __launch_bounds__(kThreads * kStreamGroups, 1)
 render_streamed_kernel(const RenderArgs a, const StreamArgs s, const int parts) {
@@ -550,15 +659,18 @@ render_streamed_tile_seeded_kernel(const RenderArgs a, const StreamArgs s,
                                    const float* __restrict__ seed) {
   render_body<GEO, false, TEX, true, false, false, true>(a, s, BinArgs{}, seed);
 }
+#endif  // MRT_STREAMED_BODY_ONLY
 
 // Shared memory of a block of `groups` tile groups: the head, the groups'
-// stage buffers, the positions' words and the camera row.
-template <int GEO>
+// stage buffers (K11's with DMXU), the positions' words and the camera row.
+template <int GEO, bool DMXU = false>
 size_t stream_smem(const RenderArgs& a, int groups) {
   return kStreamCtlBytes +
-         sizeof(float) * ((size_t)groups * 2 * smem_geo_rows<GEO>() * a.cluster_size +
+         sizeof(float) * ((size_t)groups * 2 * stream_stage_rows<GEO, DMXU>() * a.cluster_size +
                           (size_t)kStreamWords * a.CC + a.n_cols);
 }
+
+#ifndef MRT_STREAMED_BODY_ONLY
 
 // A launch's visit inputs, K9's seed (null: the cold entries), its plan
 // (tile groups a block, blocks a view; groups 0 for the shadow sweeps'
@@ -611,9 +723,11 @@ struct StreamedRoute {
     }
   }
 };
+#endif  // MRT_STREAMED_BODY_ONLY
 
 }  // namespace
 
+#ifndef MRT_STREAMED_BODY_ONLY
 extern "C" {
 
 // Launches the streamed ordered variant (geo, raster, tex_filter) on
@@ -673,3 +787,4 @@ const char* mrt_error_string(int err) {
 }
 
 }  // extern "C"
+#endif  // MRT_STREAMED_BODY_ONLY

@@ -71,9 +71,10 @@ take the streamed route, with one of two visits (``visit_route``):
     lower original index (``gi``), and the winner's attributes are read at
     it.
 With ``deferred_mxu`` (the JAX package's ``MRT_DEFERRED_MXU=1``) the two
-streamed visits take K11 instead (``csrc/render_dmxu.cu``, the binned
-walk's tile groups on prep rows in ``csrc/render_binned.cu``;
-``dmxu_route``):
+streamed visits take K11 instead (``csrc/render_dmxu.cu``: the ordered
+walk's tile groups, ``streamed_plan(..., dmxu=True)``, and render_body's
+16x16 blocks on the binned walk's raw rows; the binned walk's tile groups
+on prep rows in ``csrc/render_binned.cu``; ``dmxu_route``):
 the same walk, but each visited cluster's every slot swept (on raw rows its
 D, A, Q and t_num formed in the kernel for the block's camera), its first
 minimum taken and merged into the running best, and, where the TPU tiling
@@ -102,7 +103,8 @@ The JAX package's other two routes (``render_core`` :4040-4073, :4655-4679,
 triangles or a single cluster, sweep every triangle without a cluster table
 (K1-none, ``csrc/render_none.cu``: ``clusters`` None); ``accel="mxu"``
 takes K12 (``render_batched``, ``csrc/render_batched.cu``) on K13's raw
-rows, shaded on untextured scenes, else in the 9-output mode. Where the JAX
+rows, shaded on untextured scenes, else in the 9-output mode, several
+pixels a thread on per-view prepass records (``batched_plan``). Where the JAX
 package does not shade in the kernel (``output_mode``: textured pools past
 the in-kernel route's 16,384 texels or 128 materials without mips, textured
 scenes and shadows under ``accel="mxu"``), the kernel writes t, z, idx, the
@@ -319,10 +321,17 @@ class StreamPlan(NamedTuple):
 
 
 def streamed_block_bytes(geo: str, n_clusters: int, cluster_size: int, n_lights: int,
-                         groups: int) -> int:
+                         groups: int, dmxu: bool = False) -> int:
     """Shared memory a block of the streamed ordered walk's tile groups
-    takes (``stream_smem`` in ``csrc/render_streamed.cu``)."""
-    return _STREAM_HEAD_BYTES + 4 * (groups * 2 * _VISIT_GEO_ROWS[geo] * cluster_size
+    takes (``stream_smem`` in ``csrc/render_streamed.cu``; K11's with
+    ``dmxu``: its 10 stage rows, D, A, Q and t_num, on prep and raw rows);
+    0 groups, render_body's 16x16 block (two stage buffers, the cluster
+    table, the camera row, the order and the spans)."""
+    if groups == 0:
+        return 4 * (2 * _VISIT_GEO_ROWS[geo] * cluster_size + 11 * n_clusters
+                    + _n_cam_cols(n_lights))
+    rows = _DMXU_STAGE_ROWS if dmxu else _VISIT_GEO_ROWS[geo]
+    return _STREAM_HEAD_BYTES + 4 * (groups * 2 * rows * cluster_size
                                      + _STREAM_WORDS * n_clusters + _n_cam_cols(n_lights))
 
 
@@ -343,13 +352,18 @@ def stream_tiles(n_tiles: int, parts: int) -> list:
 
 def streamed_plan(geo: str, n_clusters: int, cluster_size: int, n_lights: int,
                   num_views: int, height: int, width: int,
-                  sm_count: int = _H100_SMS) -> StreamPlan:
-    """The streamed ordered walk's launch on these inputs (``sm_count``:
-    the card's multiprocessors, the H100's 132 by default): four tile groups
-    (no more than a view's tiles) or fewer, until the block fits 227 KB, and
-    ``stream_parts``' blocks a view for the blocks the card holds at once
-    (by registers, at most 64 a thread, and shared memory); the shadow
-    sweeps one 16x16 block a tile. ``LaunchPlanError`` when even one group
+                  sm_count: int = _H100_SMS, *, dmxu: bool = False) -> StreamPlan:
+    """The streamed ordered walk's launch on these inputs (K3 + K5, or K11
+    with ``dmxu``; ``sm_count``: the card's multiprocessors, the H100's 132
+    by default): four tile groups (no more than a view's tiles) or fewer,
+    until the block fits 227 KB, and ``stream_parts``' blocks a view for the
+    blocks the card holds at once (by registers, at most 64 a thread, and
+    shared memory); the shadow sweeps one 16x16 block a tile (0 groups:
+    render_body's walk, which is also K11's parent design). K11 takes the
+    tile groups on prep and raw rows (its 10 stage rows: prep rows as
+    packed, raw rows' D, A, Q, t_num formed in place of the staged v0, e1,
+    e2), where both ran faster than on render_body's blocks
+    (port_tools/dense_plan_ab.py). ``LaunchPlanError`` when even one group
     does not fit."""
     n_tiles = -(-height // _TILE) * -(-width // _TILE)
     if geo in _SHADOW_GEOS:
@@ -357,14 +371,13 @@ def streamed_plan(geo: str, n_clusters: int, cluster_size: int, n_lights: int,
         # the spans (render_resident.cu's streamed_smem; visit_route's rule
         # keeps them under 227 KB).
         groups = 0
-        smem = 4 * (2 * _VISIT_GEO_ROWS[geo] * cluster_size + 11 * n_clusters
-                    + _n_cam_cols(n_lights))
+        smem = streamed_block_bytes(geo, n_clusters, cluster_size, n_lights, 0)
     else:
         groups = min(_STREAM_GROUPS, n_tiles)
         while groups > 1 and streamed_block_bytes(geo, n_clusters, cluster_size, n_lights,
-                                                  groups) > _MAX_SMEM:
+                                                  groups, dmxu) > _MAX_SMEM:
             groups -= 1
-        smem = streamed_block_bytes(geo, n_clusters, cluster_size, n_lights, groups)
+        smem = streamed_block_bytes(geo, n_clusters, cluster_size, n_lights, groups, dmxu)
     if smem > _MAX_SMEM:
         raise LaunchPlanError(f"the streamed ordered walk's block needs {smem} bytes of "
                               f"shared memory for {n_clusters} clusters of {cluster_size} "
@@ -377,12 +390,12 @@ def streamed_plan(geo: str, n_clusters: int, cluster_size: int, n_lights: int,
 
 def check_streamed_plan(rows: torch.Tensor, n_clusters: int, n_lights: int, geo: str,
                         num_views: int, height: int, width: int,
-                        sm_count: int = _H100_SMS) -> StreamPlan:
-    """The streamed ordered walk's launch plan for these rows (else
-    ``LaunchPlanError``): its stage copies move whole cluster rows in
-    16-byte pieces (rows 16-byte aligned, S and the cluster size multiples
-    of 4), a cluster's id fits its position word, and ``streamed_plan``
-    finds a block that fits."""
+                        sm_count: int = _H100_SMS, *, dmxu: bool = False) -> StreamPlan:
+    """The streamed ordered walk's launch plan for these rows (K11's with
+    ``dmxu``; else ``LaunchPlanError``): its stage copies move whole cluster
+    rows in 16-byte pieces (rows 16-byte aligned, S and the cluster size
+    multiples of 4), a cluster's id fits its position word, and
+    ``streamed_plan`` finds a block that fits."""
     S = int(rows.shape[2])
     size = S // n_clusters
     if S % 4 or size % 4 or rows.data_ptr() % _FILL_ALIGN:
@@ -392,7 +405,8 @@ def check_streamed_plan(rows: torch.Tensor, n_clusters: int, n_lights: int, geo:
     if n_clusters > _STREAM_MAX_CLUSTERS:
         raise LaunchPlanError(f"the streamed ordered walk takes at most "
                               f"{_STREAM_MAX_CLUSTERS} clusters a world, got {n_clusters}")
-    return streamed_plan(geo, n_clusters, size, n_lights, num_views, height, width, sm_count)
+    return streamed_plan(geo, n_clusters, size, n_lights, num_views, height, width, sm_count,
+                         dmxu=dmxu)
 
 
 def binned_block_bytes(geo: str, cluster_size: int, n_lights: int, groups: int,
@@ -1492,8 +1506,8 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
                  height, width, rows, geo, dmxu)
     if clusters is not None and spans is None and (order is not None or bins is not None):
         check_resident_plan(rows, CC, n_lights, geo, order is not None)
-    if clusters is not None and spans is not None and order is not None and not dmxu:
-        check_streamed_plan(rows, CC, n_lights, geo, W * num_cams, height, width)
+    if clusters is not None and spans is not None and order is not None:
+        check_streamed_plan(rows, CC, n_lights, geo, W * num_cams, height, width, dmxu=dmxu)
     if clusters is not None and spans is not None and bins is not None:
         check_binned_plan(rows, CC, n_lights, geo, W * num_cams, height, width, bin_tile, dmxu)
     _check_seed(seed, rows, (W * num_cams, height, width), raster)
@@ -1605,11 +1619,6 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     if route.streamed and ((S // CC) % 4 or rows.data_ptr() % 16):
         raise ValueError("the streamed route copies 16-byte slices: the cluster "
                          "size must be a multiple of 4 and rows 16-byte aligned")
-    if route == Route(True, "ordered") and dmxu:
-        smem = streamed_rule_bytes(CC, S // CC, n_lights)
-        if smem > _MAX_SMEM:
-            raise ValueError(f"{CC} clusters need {smem} bytes of shared memory "
-                             f"(at most {_MAX_SMEM})")
     dev = rows.device
     shape = (WC, height, width)
     depth = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -1653,8 +1662,11 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
         visit = [bins.data_ptr(), spans.data_ptr(), ptr(ranges), ptr(seed)]
         tail = bin_args + [n_bands, int(dmxu), int(rowskip), plan.groups, plan.parts, stream]
     elif kernel == "render_dmxu":  # K11 on either streamed visit, cold or seeded
+        plan = (StreamPlan(0, 1, 0) if bins is not None else
+                streamed_plan(geo, CC, S // CC, n_lights, WC, height, width, _sm_count(dev),
+                              dmxu=True))
         visit = [ptr(order), spans.data_ptr(), ptr(bins), ptr(seed)]
-        tail = bin_args + [int(rowskip), stream]
+        tail = bin_args + [int(rowskip), plan.groups, plan.parts, stream]
     elif kernel == "render_none":  # K1-none, and K1's 9-output mode
         visit, tail = [ptr(seed)], [int(clusters is not None), stream]
     elif kernel == "render_streamed":  # K3 + K5, cold or seeded
@@ -1704,28 +1716,31 @@ def _occupancy_query(name: str, argtypes: list):
 
 def streamed_occupancy(kw: dict) -> dict:
     """What the card makes of the streamed ordered walk's entry that these
-    inputs (``pack_inputs``'s, of the streamed ordered visit, not K11)
-    launch: its variant, tile groups and blocks a view, threads a block,
-    registers and local memory a thread, shared memory a block, and blocks
-    and warps a multiprocessor (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
-    Launches nothing; needs the card."""
+    inputs (``pack_inputs``'s, of the streamed ordered visit: K3 + K5, or
+    K11's tile groups with ``dmxu``) launch: its variant, tile groups and
+    blocks a view, threads a block, registers and local memory a thread,
+    shared memory a block, and blocks and warps a multiprocessor
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). Launches nothing;
+    needs the card."""
     route = route_of(kw["order"], kw["spans"], kw["bins"], kw["clusters"] is not None)
-    if route != Route(True, "ordered") or kw.get("dmxu"):
-        raise ValueError(f"{route} (dmxu {kw.get('dmxu')}) is not the streamed ordered walk")
+    if route != Route(True, "ordered"):
+        raise ValueError(f"{route} is not the streamed ordered walk")
     texture = "mip" if kw.get("fb_rows") is not None else kw["texture"]
     seeded = kw.get("seed") is not None
+    dmxu = bool(kw.get("dmxu"))
     S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
     views = int(kw["cams"].shape[0])
     plan = streamed_plan(kw["geo"], CC, S // CC, kw["n_lights"], views, kw["height"],
-                         kw["width"], _sm_count(kw["rows"].device))
+                         kw["width"], _sm_count(kw["rows"].device), dmxu=dmxu)
+    name = "render_dmxu" if dmxu else "render_streamed"
     out = (ctypes.c_int * 4)()
-    err = _occupancy_query("render_streamed", [ctypes.c_int] * 9)(
+    err = _occupancy_query(name, [ctypes.c_int] * 9)(
         _GEO_CODES[kw["geo"]], int(kw["raster"]), _TEX_CODES[texture], int(seeded),
         plan.groups, CC, S // CC, int(kw["cams"].shape[1]), kw["n_lights"], out)
     if err != 0:
-        raise RuntimeError(f"render_streamed's occupancy query failed: CUDA error {err}")
+        raise RuntimeError(f"{name}'s occupancy query failed: CUDA error {err}")
     threads, registers, local, blocks = list(out)
-    return {"variant": variant_name(kw["raster"], texture, kw["geo"], route, seeded),
+    return {"variant": variant_name(kw["raster"], texture, kw["geo"], route, seeded, dmxu),
             "groups": plan.groups, "blocks_per_view": plan.parts,
             "blocks": views * (plan.parts if plan.groups else -(-kw["height"] // _TILE)
                                * -(-kw["width"] // _TILE)),
@@ -2261,6 +2276,69 @@ def _check_batched(rows, cams, num_cams, n_lights, height, width) -> None:
         raise ValueError(f"bad height/width {height}/{width}")
 
 
+class BatchedPlan(NamedTuple):
+    """K12's launch (``batched_plan``): ``pixels`` a thread (1, 2 or 4) of
+    a block of ``block`` (x, y) threads on the prepass records, or 0: the
+    parent design, one pixel a thread of a 16x16 block; ``blocks`` a view."""
+
+    pixels: int
+    block: tuple
+    blocks: int
+
+
+# K12's pixels a thread (csrc/render_batched.cu's records design): 4 ran
+# fastest of 1, 2 and 4 on every K12 path's inputs, timed in turns
+# (port_tools/dense_plan_ab.py); 0 takes the parent design.
+_BATCHED_PIXELS = 4
+_BATCHED_BLOCK = (32, 8)
+_BATCHED_PIXEL_CHOICES = (0, _BATCHED_PIXELS)
+
+
+def batched_plan(height: int, width: int, pixels: int = _BATCHED_PIXELS) -> BatchedPlan:
+    """K12's launch at this view size: ``pixels`` (4) a thread of a 32 x 8
+    block, which covers 32 x 8·pixels of the view (thread (x, y) the pixels
+    (x, y + 8q), q < pixels), or with 0 the parent's 16x16 blocks, one
+    pixel a thread. ``LaunchPlanError`` for another count, or a view that
+    needs more than the grid's 65,535 blocks."""
+    if pixels not in _BATCHED_PIXEL_CHOICES:
+        raise LaunchPlanError(f"K12 takes {_BATCHED_PIXELS} pixels a thread (0: the parent "
+                              f"design), not {pixels}")
+    if height < 1 or width < 1:
+        raise LaunchPlanError(f"bad view size {height}x{width}")
+    if pixels == 0:
+        block = (_TILE, _TILE)
+        blocks = -(-height // _TILE) * -(-width // _TILE)
+    else:
+        block = _BATCHED_BLOCK
+        blocks = -(-width // block[0]) * -(-height // (block[1] * pixels))
+    if blocks > 65535:
+        raise LaunchPlanError(f"K12 at {height}x{width} needs {blocks} blocks a view; the "
+                              "grid takes 65535")
+    return BatchedPlan(pixels, block, blocks)
+
+
+def batched_cover(height: int, width: int, plan: BatchedPlan) -> torch.Tensor:
+    """How many times the kernel's threads on ``plan`` write each pixel of
+    a ``height`` x ``width`` view (i32 ``[height, width]``), by the kernel's
+    own index arithmetic: every pixel once is the plan's rule."""
+    bx, by = plan.block
+    rows = by * max(plan.pixels, 1)
+    blocks_x = -(-width // bx)
+    cover = torch.zeros((height, width), dtype=torch.int32)
+    b = torch.arange(plan.blocks)
+    tx = torch.arange(bx)
+    ty = torch.arange(by)
+    for q in range(max(plan.pixels, 1)):
+        px = (b % blocks_x * bx)[:, None, None] + tx[None, None, :]
+        py = (b // blocks_x * rows)[:, None, None] + ty[None, :, None] + by * q
+        px, py = torch.broadcast_tensors(px, py)
+        inside = (px < width) & (py < height)
+        cover.index_put_((py[inside], px[inside]), torch.ones(int(inside.sum()),
+                                                                dtype=torch.int32),
+                         accumulate=True)
+    return cover
+
+
 def render_batched(rows, cams, *, num_cams: int, n_lights: int, height: int, width: int,
                    raster: bool = False, nine: bool = False):
     """Kernel K12 (``csrc/render_batched.cu``), the JAX package's batched
@@ -2280,11 +2358,13 @@ def render_batched(rows, cams, *, num_cams: int, n_lights: int, height: int, wid
     per-pixel t_lo = near / max(cos, 1e-6), and a hit past the z-far clip
     shades black.
 
-    Tensors on the card launch the kernel (one add to
-    ``render_batched.launches`` and to the variant's entry of
+    Tensors on the card launch the kernel on ``batched_plan``'s launch
+    (one add to ``render_batched.launches`` and to the variant's entry of
     ``render_batched.variant_launches``); on the CPU
-    ``render_batched_plain`` runs."""
+    ``render_batched_plain`` runs. A view size the plan cannot take raises
+    ``LaunchPlanError`` on either device."""
     _check_batched(rows, cams, num_cams, n_lights, height, width)
+    plan = batched_plan(height, width)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height, width=width,
               raster=raster, nine=nine)
     if rows.device.type == "cpu":
@@ -2293,9 +2373,6 @@ def render_batched(rows, cams, *, num_cams: int, n_lights: int, height: int, wid
         raise ValueError(f"render_batched runs on cuda or cpu, not {rows.device}")
     W, _, S = rows.shape
     WC = W * num_cams
-    tiles = -(-height // _TILE) * -(-width // _TILE)
-    if tiles > 65535:
-        raise ValueError(f"{height}x{width} needs {tiles} tiles; the grid takes 65535")
     dev = rows.device
     shape = (WC, height, width)
     t = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -2310,7 +2387,8 @@ def render_batched(rows, cams, *, num_cams: int, n_lights: int, height: int, wid
                      planes.data_ptr(), ints.data_ptr(), WC, num_cams, S,
                      int(cams.shape[1]), n_lights, height, width,
                      float(np.float32(2.0 / width)), float(np.float32(2.0 / height)),
-                     int(raster), int(nine), torch.cuda.current_stream(dev).cuda_stream)
+                     int(raster), int(nine), plan.pixels,
+                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"render_batched launch failed: {launch.error_string(err)}")
     render_batched.launches += 1

@@ -219,12 +219,11 @@ def _walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights: int,
     ks = torch.arange(cs, device=dev)[None, None, :, None]
     n = dict(gated=0, slab_tests=0, cluster_visits=0, triangle_visits=0,
              shadow_cluster_visits=0, shadow_triangle_visits=0)
-    if dmxu:
-        n["pixel_tests"] = 0
+    # The walk's counts, summed on the tensors' device and read once at the
+    # end: gated, slab tests, cluster visits, triangle visits, pixel tests.
+    counts = torch.zeros(5, dtype=torch.int64, device=dev)
     for p in range(CC):
         active = ~done
-        if not bool(active.any()):
-            break
         c = order[:, p].long()
         g = cl.gather(2, c[:, None, None].expand(V, 8, 1))[:, :, 0]  # [V, 8]
         gv = [g[:, k, None, None] for k in range(8)]
@@ -239,29 +238,34 @@ def _walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights: int,
             live = (best_t * best_t > (d2 * rc._F_EXIT_SLACK)[:, None, None]).any(-1)
             done = done | (active & (~valid | ~live))
             act = active & ~done
-        n["gated"] += int(act.sum())
+        counts[0] += act.sum()
         if spans is not None:
             lo = spans[:, 0].gather(1, c[:, None])
             hi = spans[:, 1].gather(1, c[:, None])
             act = act & ~((lo > row0 + _T - 1) | (hi < row0))
-        n["slab_tests"] += int(act.sum())
+        counts[1] += act.sum()
         tmin, tmax = _slab(gv, o, inv)
         reach = tmin if index else tmin * rc._F_SLAB_SLACK
         possible = (tmax >= tmin) & (tmax > near) & (reach < best_t)
         visit = act & possible.any(-1)  # [V, nt]
         if index:
             visit = visit & valid
-        if not bool(visit.any()):
+        # One read a position: whether a block was still walking (else the
+        # walk is over: this position changed nothing) and whether one visits.
+        alive, any_visit = torch.stack([active.any(), visit.any()]).tolist()
+        if not alive:
+            break
+        if not any_visit:
             continue
         cnt = torch.full_like(g[:, 7], cs).long() if dmxu else g[:, 7].long()
-        n["cluster_visits"] += int(visit.sum())
-        n["triangle_visits"] += int((visit.sum(1) * cnt).sum())
+        counts[2] += visit.sum()
+        counts[3] += (visit.sum(1) * cnt).sum()
         streamed.index_put_((world, c), visit.sum(1), accumulate=True)
         sweep = visit[:, :, None]  # [V, nt, 1 or 256]: the threads that sweep
         if rowskip:  # K11's row gate: a warp's two rows against the span
             sweep = sweep & ~((lo[:, :, None] > wrow + 1) | (hi[:, :, None] < wrow))
         if dmxu:
-            n["pixel_tests"] += int(sweep.expand(V, nt, _T * _T).sum()) * cs
+            counts[4] += sweep.expand(V, nt, _T * _T).sum() * cs
         m = torch.empty_like(best_t)
         first = torch.empty_like(best_idx)
         for sl in _view_chunks(V, nt * cs * _T * _T):
@@ -276,6 +280,11 @@ def _walk(rows, clusters, cams, order, spans, *, num_cams: int, n_lights: int,
         best_t = torch.where(take, m, best_t)
         best_idx = torch.where(take, gi, best_idx)
 
+    gated, slab_tests, cluster_visits, triangle_visits, pixel_tests = counts.tolist()
+    n.update(gated=gated, slab_tests=slab_tests, cluster_visits=cluster_visits,
+             triangle_visits=triangle_visits)
+    if dmxu:
+        n["pixel_tests"] = pixel_tests
     if geo in rc._SHADOW_GEOS:
         _shadow_walk(cl, cams, world, d, o, best_t, best_idx, rows_v, cs, n_lights,
                      streamed, n)

@@ -1,6 +1,6 @@
 """Where the streamed ordered walk's time (K3 + K5) goes, measured on the card:
 
-    python3 port_tools/streamed_phase_probe.py [CHECKOUT]
+    python3 port_tools/streamed_phase_probe.py [CHECKOUT] [--kernels K5|K11]
 
 Builds, under build/phase_probe/, a clock64 span variant of CHECKOUT's
 streamed ordered entry (default: this tree; e.g. the parent commit unpacked
@@ -37,7 +37,19 @@ bigmesh_512w's scene, it prints one JSON line each:
                    (cudaOccupancyMaxActiveBlocksPerMultiprocessor; a tree
                    with raytrace_cuda.streamed_occupancy reports its own
                    plan's, with its tile groups and blocks a view);
-then the card's name and power limit and its SM clock after the runs
+
+For K11 on the ordered walk (csrc/render_dmxu.cu) on bigmesh_512w_dmxu's
+inputs (bigmesh_512w with deferred_mxu=True: 64x64, no row gate) and with
+its row gate on 64 worlds of chip_smoke.py's varied big-mesh terrain at
+64x256, it prints the same keys for each design the tree has: render_body's
+16x16 blocks (the parent design, "groups": 0; the probe patches
+LEGACY_MARKS and DMXU_MARKS into a copy of csrc/render_resident.cu) and, in
+a tree whose K11 takes the ordered walk's tile groups, those ("groups": the
+plan's); the occupancy of the tile groups' entry from
+raytrace_cuda.streamed_occupancy.
+--kernels K5 or K11 runs only that kernel's cases.
+
+Then the card's name and power limit and its SM clock after the runs
 (nvidia-smi), by which cycles become microseconds. Needs one card and
 nvcc.
 """
@@ -58,6 +70,10 @@ PHASES = ("fill", "gates", "stage", "tests", "pixel", "fetch")
 CASES = (("K5", "bigmesh_512w", 512, 64, "auto", False),
          ("K5", "binned_32w_128 (accel clusters)", 32, 128, "clusters", False),
          ("K5 + K8", "bigmesh_64w_shadows", 64, 64, "auto", True))
+# K11 on the ordered walk: (kernel, inputs, worlds, height, width, varied:
+# chip_smoke.py's bigmesh_scene with vary=True instead of bigmesh_config).
+DMXU_CASES = (("K11", "bigmesh_512w_dmxu", 512, 64, 64, False),
+              ("K11 row gate", "bigmesh_64w_64x256", 64, 64, 256, True))
 
 # The marks of a tree whose streamed ordered walk is render_body's: (anchor,
 # replacement) in csrc/render_resident.cu, each anchor found exactly once.
@@ -83,6 +99,13 @@ LEGACY_MARKS = (
      "        auto visit_sh = [&](int c, float* buf) {\n          MRT_PHASE(3);\n"),
     ("    if (!inside) return;\n  }\n\n  // Base colour. A miss",
      "    MRT_PHASE(4);\n    if (!inside) return;\n  }\n\n  // Base colour. A miss"),
+)
+
+# The sweep mark of render_body's K11 sweep (the parent design of K11 on the
+# ordered walk), beside LEGACY_MARKS' gates and stage waits.
+DMXU_MARKS = (
+    ("        // Row skip (:1915-1990): the cluster's rows miss the warp's.\n",
+     "        MRT_PHASE(3);\n        // Row skip (:1915-1990): the cluster's rows miss the warp's.\n"),
 )
 
 # The span variant's definitions of the hooks. A tile walker's first thread
@@ -206,14 +229,38 @@ def probe_tree(root: Path, out: Path) -> tuple:
     return csrc, "render_resident"
 
 
+def dmxu_tree(root: Path, out: Path) -> Path:
+    """A copy of ``root``'s csrc under ``out`` whose render_body carries the
+    marks (LEGACY_MARKS, the first walk_clusters' stage mark, DMXU_MARKS),
+    for K11's library (csrc/render_dmxu.cu): the parent design's 16x16
+    blocks, and the tile groups' own marks where the tree has them."""
+    csrc = out / "csrc"
+    if csrc.exists():
+        shutil.rmtree(csrc)
+    shutil.copytree(root / "madrona_renderer_tpu_torch" / "csrc", csrc)
+    body = csrc / "render_resident.cu"
+    text = body.read_text()
+    for anchor, repl in LEGACY_MARKS + DMXU_MARKS:
+        if text.count(anchor) < 1:
+            raise RuntimeError(f"anchor not found in {body}: {anchor!r}")
+        if text.count(anchor) > 1 and anchor != "    int nxt = next(pos + 1);\n":
+            raise RuntimeError(f"anchor found more than once in {body}: {anchor!r}")
+        text = text.replace(anchor, repl, 1)  # walk_clusters' stage mark, not stream_walk's
+    body.write_text("#ifndef MRT_PHASE\n#define MRT_PHASE_BEGIN\n#define MRT_PHASE(k)\n"
+                    "#define MRT_AFTER_FILL\n#endif\n" + text)
+    return csrc
+
+
 def build(csrc: Path, name: str, spans: bool, out: Path) -> Path:
     from madrona_renderer_tpu_torch import _build
 
     tu = out / f"{name}_{'spans' if spans else 'plain'}.cu"
     # A tree whose walk is render_body's has an entry for every geo; the
-    # tile groups' entries are prep's, raw's and K10's.
+    # tile groups' entries are prep's, raw's and K10's; K11's parent design
+    # is render_body's.
     kernel = ("geo == 2 ? render_streamed_kernel<2, false, 0> : render_streamed_kernel<0, false, 0>"
-              if name == "render_resident" else "render_streamed_kernel<0, false, 0>")
+              if name == "render_resident" else "render_streamed_dmxu_kernel<0, false, 0>"
+              if name == "render_dmxu" else "render_streamed_kernel<0, false, 0>")
     tu.write_text((SPANS_HEAD if spans else "") + f'#include "{csrc / name}.cu"\n'
                   + TAIL.replace("OCCUPANCY_KERNEL", kernel))
     lib = out / f"lib{tu.stem}.so"
@@ -254,7 +301,13 @@ def block_plan(kw) -> tuple:
 
 
 def main() -> int:
-    root = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else HERE
+    args = sys.argv[1:]
+    only = None
+    if "--kernels" in args:
+        k = args.index("--kernels")
+        only = args[k + 1]
+        del args[k:k + 2]
+    root = Path(args[0]).resolve() if args else HERE
     sys.path.insert(0, str(root))
     import torch
 
@@ -270,9 +323,15 @@ def main() -> int:
     out = HERE / "build" / "phase_probe" / f"streamed_{root.name}"
     out.mkdir(parents=True, exist_ok=True)
     csrc, name = probe_tree(root, out)
-    with ThreadPoolExecutor(2) as pool:
-        plain, spans = pool.map(lambda s: ctypes.CDLL(str(build(csrc, name, s, out))),
-                                (False, True))
+    dmxu_out = out / "dmxu"
+    dmxu_out.mkdir(parents=True, exist_ok=True)
+    dmxu_csrc = dmxu_tree(root, dmxu_out)
+    jobs = [(csrc, name, s, out) for s in (False, True) if only != "K11"]
+    jobs += [(dmxu_csrc, "render_dmxu", s, dmxu_out) for s in (False, True) if only != "K5"]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip([(j[1], j[2]) for j in jobs],
+                        pool.map(lambda j: ctypes.CDLL(str(build(*j))), jobs)))
+    plain, spans = libs.get((name, False)), libs.get((name, True))
     print(json.dumps({"phase": "probe_build", "tree": str(root), "library": name}), flush=True)
 
     def events_ms(fn, reps=5):
@@ -297,7 +356,41 @@ def main() -> int:
             rc._build = real
 
     clock_mhz = []
-    for kernel, path, worlds, res, accel, shadows in CASES:
+
+    def spans_of(lib, fn, line, views, tiles):
+        """``line``'s ms_spans, fill_only_ms and phases from ``lib``'s span
+        build launched by ``fn`` (after ``line["ms"]``)."""
+        probe = lib.mrt_probe_spans
+        probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_int]
+        n_blocks = 1 << 17
+        buf = (ctypes.c_ulonglong * (2 * n_blocks))()
+        span = (ctypes.c_ulonglong * 6)()
+        for fill_only in (1, 0):
+            if probe(fill_only, None, None, 0, 1):
+                raise RuntimeError("probe reset failed")
+            line["fill_only_ms" if fill_only else "ms_spans"] = events_ms(fn)
+        if probe(0, None, None, 0, 1):
+            raise RuntimeError("probe reset failed")
+        fn()
+        torch.cuda.synchronize()
+        clock_mhz.append(smi("clocks.sm"))
+        if probe(0, span, buf, n_blocks, 0):
+            raise RuntimeError("probe read failed")
+        start = torch.tensor(list(buf[:n_blocks]), dtype=torch.float64)
+        end = torch.tensor(list(buf[n_blocks:]), dtype=torch.float64)
+        used = end > 0
+        mhz = float(clock_mhz[-1].split()[0])
+        total = sum(span)
+        line["phases"] = None if total == 0 else {
+            "cycles_per_tile": {p: span[k] / (views * tiles) for k, p in enumerate(PHASES)},
+            "share": {p: span[k] / total for k, p in enumerate(PHASES)},
+            "blocks": int(used.sum()),
+            "block_wall_us": float((end[used] - start[used]).mean()) / mhz}
+
+    if only != "K5":
+        dmxu_cases(m, rc, scenes, libs, events_ms, spans_of, root)
+    for kernel, path, worlds, res, accel, shadows in (CASES if only != "K11" else ()):
         if accel == "auto":
             cfg = scenes.bigmesh_config(worlds, res, res)
         else:
@@ -367,6 +460,76 @@ def main() -> int:
     print(json.dumps({"phase": "nvidia_smi", "name_power_limit": smi("name,power.limit"),
                       "clocks_sm_after_runs": clock_mhz}), flush=True)
     return 0
+
+
+def dmxu_cases(m, rc, scenes, libs, events_ms, spans_of, root) -> None:
+    """K11 on the ordered walk: a line a case and design (see the header)."""
+    import importlib.util
+
+    import torch
+
+    import madrona_renderer_tpu_torch.config as cfg_mod
+    from madrona_renderer_tpu_torch.assets.importer import load_render_assets
+    from madrona_renderer_tpu_torch.core.scene import bake_scene
+    from madrona_renderer_tpu_torch.core.state import init_state
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    plain, spans = libs[("render_dmxu", False)], libs[("render_dmxu", True)]
+    groups_tree = "dmxu" in rc.streamed_plan.__code__.co_varnames
+
+    def through(lib, kw, groups):
+        """``render_resident(**kw)`` with render_dmxu from ``lib``; in a tree
+        with K11's tile groups, on its plan (``groups`` None) or the parent
+        design (0)."""
+        fn = bound(lib, "render_dmxu")
+        real, real_plan = rc._build, rc.streamed_plan
+        rc._build = types.SimpleNamespace(
+            load=lambda n, *a: fn if n == "render_dmxu" else real.load(n))
+        if groups == 0 and groups_tree:
+            rc.streamed_plan = lambda geo, cc, size, lights, *a, dmxu=False, **k: (
+                rc.StreamPlan(0, 1, rc.streamed_block_bytes(geo, cc, size, lights, 0))
+                if dmxu else real_plan(geo, cc, size, lights, *a, **k))
+        try:
+            return rc.render_resident(**kw)
+        finally:
+            rc._build = real
+            rc.streamed_plan = real_plan
+
+    for kernel, path, worlds, height, width, varied in DMXU_CASES:
+        if varied:
+            geo, mats, textures, insts, cams, w = cs.bigmesh_scene(worlds, cfg_mod, scenes,
+                                                                   vary=True)
+            dev = torch.device("cuda", 0)
+            state = init_state(insts, cams, w, dev)
+            scene = bake_scene(load_render_assets(geo, [], mats, textures), dev)
+        else:
+            r = m.Manager(scenes.bigmesh_config(worlds, height, width, deferred_mxu=True))
+            state, scene = r.state, r.scene
+        kw = rc.pack_inputs(state, scene, height=height, width=width, accel="clusters",
+                            deferred_mxu=True)
+        route = rc.route_of(kw["order"], kw["spans"], kw["bins"])
+        if route != rc.Route(True, "ordered") or not kw["dmxu"]:
+            raise AssertionError(f"{path}: not K11 on the streamed ordered walk")
+        views = kw["cams"].shape[0]
+        tiles = -(-height // 16) * -(-width // 16)
+        for groups in ((0, None) if groups_tree else (0,)):
+            line = {"phase": "streamed_phase_probe", "kernel": kernel, "inputs": path,
+                    "tree": str(root), "library": "render_dmxu", "rowskip": kw["rowskip"]}
+            if groups is None:
+                S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
+                plan = rc.streamed_plan(kw["geo"], CC, S // CC, kw["n_lights"], views, height,
+                                        width, dmxu=True)
+                line.update(groups=plan.groups, blocks_per_view=plan.parts)
+                line["occupancy"] = rc.streamed_occupancy(kw)
+            else:
+                line["groups"] = 0
+            line["ms"] = events_ms(lambda: through(plain, kw, groups))
+            spans_of(spans, lambda: through(spans, kw, groups), line, views, tiles)
+            print(json.dumps(line), flush=True)
+        del kw, state, scene
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -31,7 +31,13 @@ of 50 launches on the same inputs (the scenes' first step, 64x64):
   worlds of the 224-grid terrain under accel="clusters" at 128x128,
   256x256 and 512x512); and the streamed binned walk at its paths' full
   size (BINNED_FULL): K4 on binned_32w_128's, binned_32w_256's and
-  terrain_32w_512's inputs, K11 on dmxu_32w_512's and at 128x128.
+  terrain_32w_512's inputs, K11 on dmxu_32w_512's and at 128x128; K11 on
+  the streamed ordered walk (DMXU_FULL) on bigmesh_512w_dmxu's inputs, in
+  its 9-output mode on bigmesh_512w_tex256's under deferred_mxu, and with
+  its row gate on 64 worlds of chip_smoke.py's varied big-mesh terrain at
+  64x256 (accel="clusters"); and K12 (BATCHED_FULL) on mxu_4096w's,
+  mxu_4096w_128's and textured_4096w_mxu's inputs and rasterized on 4096
+  worlds of the demo scene at 64x64.
 PASSES (4) alternate this tree and OTHER, starting with this one. Prints
 one JSON line per pass and then one with each kernel's times and OTHER's
 over this tree's mean, with the card's name and power limit. Needs one
@@ -80,6 +86,21 @@ BINNED_FULL = {
     "render_binned@terrain_32w_512": (32, 512, "binned", False),
     "render_binned_dmxu@dmxu_32w_512": (32, 512, "binned", True),
     "render_binned_dmxu@dmxu_32w_128": (32, 128, "binned", True),
+}
+# K11 on the streamed ordered walk: key → (worlds, height, width, scene):
+# "bigmesh" (bench.py's big mesh), "nine" (textured with the 256x256 checker
+# baked without mips) or "varied" (chip_smoke.py's varied terrain).
+DMXU_FULL = {
+    "render_streamed_dmxu@bigmesh_512w_dmxu": (512, 64, 64, "bigmesh"),
+    "render_streamed_dmxu_nine@bigmesh_512w_tex256": (512, 64, 64, "nine"),
+    "render_streamed_dmxu@64w_64x256": (64, 64, 256, "varied"),
+}
+# K12 at full size: key → (size, textured: the 9-output mode, raster).
+BATCHED_FULL = {
+    "render_batched@mxu_4096w": (64, False, False),
+    "render_batched@mxu_4096w_128": (128, False, False),
+    "render_batched_nine@textured_4096w_mxu": (64, True, False),
+    "render_batched_raster@4096w": (64, False, True),
 }
 HANDOFF_KEYS = ("num_cams", "n_lights", "height", "width", "seg_div", "raster", "geo",
                 "order", "spans", "bins", "ranges", "bin_tile")
@@ -216,6 +237,42 @@ def one_pass(root: Path) -> dict:
         if name != key.split("@")[0]:
             raise AssertionError(f"{key}: the inputs take {name}")
         out[key] = cs.cuda_ms(lambda kw=kw: rc.render_resident(**kw), 5)
+        del r, kw
+        torch.cuda.empty_cache()
+    import madrona_renderer_tpu_torch.config as cfg_mod
+    from madrona_renderer_tpu_torch.assets.importer import load_render_assets
+    from madrona_renderer_tpu_torch.core.scene import bake_scene
+    from madrona_renderer_tpu_torch.core.state import init_state
+
+    for key, (worlds, h, w, kind) in DMXU_FULL.items():
+        if kind == "varied":
+            geo, mats, textures, insts, cams, ws = cs.bigmesh_scene(worlds, cfg_mod, scenes,
+                                                                    vary=True)
+            dev = torch.device("cuda", 0)
+            state = init_state(insts, cams, ws, dev)
+            scene = bake_scene(load_render_assets(geo, [], mats, textures), dev)
+        else:
+            extra = dict(texture=tex, mipmaps=False) if kind == "nine" else {}
+            r = m.Manager(scenes.bigmesh_config(worlds, w, h, deferred_mxu=True, **extra))
+            state, scene = r.state, r.scene
+        kw = rc.pack_inputs(state, scene, height=h, width=w, accel="clusters",
+                            deferred_mxu=True)
+        name = rc.variant_name(False, kw["texture"], kw["geo"],
+                               rc.route_of(kw["order"], kw["spans"], kw["bins"]), False, True)
+        if name != key.split("@")[0]:
+            raise AssertionError(f"{key}: the inputs take {name}")
+        out[key] = cs.cuda_ms(lambda kw=kw: rc.render_resident(**kw), 5)
+        del kw, state, scene
+        torch.cuda.empty_cache()
+    for key, (res, textured, raster) in BATCHED_FULL.items():
+        mode = m.RenderMode.Rasterizer if raster else m.RenderMode.Raytracer
+        r = m.Manager(scenes.demo_config(4096, mode, res, res, dynamic=True, textured=textured,
+                                         tex_size=cs.TEX_SIZE))
+        kw = rc.pack_inputs(r.state, r.scene, height=res, width=res, raster=raster,
+                            near=0.001 if raster else 0.1, accel="mxu")
+        if rc.batched_name(raster, kw["nine"]) != key.split("@")[0]:
+            raise AssertionError(f"{key}: the inputs take {rc.batched_name(raster, kw['nine'])}")
+        out[key] = cs.cuda_ms(lambda kw=kw: rc.render_batched(**kw), 5)
         del r, kw
         torch.cuda.empty_cache()
     return out
