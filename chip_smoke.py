@@ -96,7 +96,12 @@ printed as JSON lines:
                gate on and off) at raytrace_cuda.streamed_plan's forced
                plans and against its parent design, and every check of K12
                on its records (4 pixels a thread) and in its parent design
-               (one a thread of a 16x16 block: a plan of 0 pixels);
+               (one a thread of a 16x16 block: a plan of 0 pixels), and
+               every check of K1 and K6 on the index visit's tile teams
+               (prep rows, raytraced, untextured, nearest or bilinear) at
+               raytrace_cuda.index_plan's forced plans, G = 1 and 2, and in
+               its parent design (``g0``), with the entry's occupancy
+               (``index_occupancy`` lines);
                a mode's texture filters share its inputs and seed, so their
                variants share one plain sweep (raytrace_cuda.plain_hits),
                and inputs equal in geometry, cameras, visit and seed share
@@ -297,7 +302,10 @@ printed as JSON lines:
                the tool's inputs beside their library calls; the 9-output
                entries of the culled visits on their path's full-size inputs
                or the inputs of their first check; the binned walk's lines
-               carry its plan (tile groups, blocks a view);
+               carry its plan (tile groups, blocks a view), K1's its tile
+               groups; K1 at 128x128 on mxu_4096w_128's "auto" inputs is a
+               row of its own, ``render_resident@128``, with those steps'
+               launches (the 64x64 row keeps the others);
 
 then the nvidia-smi line, the ``kernels`` summary line and the result line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script then
@@ -1523,11 +1531,57 @@ def main() -> int:
             check_plans(tag, kw, k_out)
         if is_batched(kw):
             check_batched_plans(tag, kw, k_out)
+        if is_index_visit(kw):
+            check_index_plans(tag, kw, k_out)
         return k_out
 
     real_binned_plan = rc.binned_plan
     real_streamed_plan = rc.streamed_plan
     real_batched_plan = rc.batched_plan
+    real_index_plan = rc.index_plan
+
+    def index_plan_of(kw, **force):
+        """K1's launch plan (rc.index_plan's own) on these inputs."""
+        S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
+        return real_index_plan(kw["geo"], S, CC, kw["n_lights"], int(kw["cams"].shape[0]),
+                               kw["height"], kw["width"], "mip" if is_k7(kw) else kw["texture"],
+                               raster=kw["raster"], seeded=seeded(kw), **force)
+
+    def is_index_visit(kw):
+        """K1's or K6's inputs in a mode the index visit's tile teams take
+        (prep rows, raytraced, untextured or nearest or bilinear, cold),
+        whatever the plan picks for their count of views."""
+        return (not is_batched(kw) and route(kw) == rc.INDEX and kw["clusters"] is not None
+                and index_plan_of(kw, groups=1).groups > 0)
+
+    def forced_index_plan(groups):
+        """rc.index_plan forced to ``groups`` tile groups (0: the parent
+        design, render_body's 16x16 blocks)."""
+        def plan(*args, **kwargs):
+            return real_index_plan(*args, **dict(kwargs, groups=groups))
+        return plan
+
+    def check_index_plans(tag, kw, k_out):
+        """K1's index visit at every forced plan, G = 1 and 2 groups of tile
+        teams (4 pixels a thread), and in its parent design (render_body's
+        16x16 blocks, a plan of 0 groups) on the same inputs, each bitwise
+        against the kernel's outputs ``k_out`` (held to the plain
+        version)."""
+        same = {}
+        for g in (0, *rc._INDEX_GROUP_CHOICES):
+            rc.index_plan = forced_index_plan(g)
+            try:
+                out = rc.render_resident(**kw)
+            finally:
+                rc.index_plan = real_index_plan
+            same[f"g{g}"] = all(torch.equal(x, y) for x, y in zip(out, k_out))
+        emit({"phase": "plans_vs_kernel", "case": tag, "kernel": variant(kw),
+              "plan": index_plan_of(kw)._asdict(), **same})
+        if not all(same.values()):
+            raise AssertionError(f"{tag} {variant(kw)}: a forced plan or the parent design "
+                                 f"differs: {same}")
+        if index_plan_of(kw).groups:
+            emit({"phase": "index_occupancy", "case": tag, **rc.index_occupancy(kw)})
 
     def forced_streamed_plan(groups, parts):
         """rc.streamed_plan forced, for K11 (dmxu), to ``groups`` tile groups
@@ -2983,6 +3037,7 @@ def main() -> int:
     # demo scene, bench.build(4096, "rt", res, res)) with accel="mxu" (K12),
     # and the same steps through "auto" (K1) beside them; each timed step's
     # inputs through both kernels at the kernel entry.
+    k1_128 = {}  # K1 at 128x128: the last step's inputs, the "auto" steps' launches
     for res in MXU_RESOLUTIONS:
         path = "mxu_4096w" if res == HEIGHT else f"mxu_4096w_{res}"
         cfg = scenes.demo_config(NUM_WORLDS, m.RenderMode.Raytracer, res, res)
@@ -2993,8 +3048,8 @@ def main() -> int:
             raise AssertionError(f"{path}: took {name}, not K12")
         kw, outs = core_checks(path, r, res)
         k1_kw = path_inputs(r, accel="auto")
-        k1_out = rc.render_resident(**k1_kw)
         if res == HEIGHT:
+            k1_out = rc.render_resident(**k1_kw)
             timing_kw[name] = kw
             # K12 against K1 on the same state: different arithmetic (the
             # factorisation against the pack-time prep rows), so a report,
@@ -3008,6 +3063,11 @@ def main() -> int:
                   "seg_mismatches": int((f12.segmask != f1.segmask).sum()),
                   "pixels": int(d1.numel())})
         else:
+            # K1 at 128x128 (the "auto" steps' kernel): against its plain
+            # version, and at every forced plan (check_index_plans); its
+            # timing row is the kernels line's 128x128 K1 row.
+            k1_out = check_render(path + "_auto", k1_kw, keep=True)
+            k1_128["kw"] = k1_kw
             extra_timing.append((name, path, kw))
         ab = {"k12": [], "k12_parent": [], "k1": []}
         for state in record:
@@ -3025,6 +3085,8 @@ def main() -> int:
         r1, step1, counts1, _, name1 = drive_tool(path + "_auto", cfg, res, "auto",
                                                   half=TOOL_HALF_ANGLE)
         add_launches(counts1)
+        if res != HEIGHT:
+            k1_128["launches"] = counts1[name1]
         extra.update(auto_route=name1, **ab_of("auto", step1))
         del r1
         time_path(path, r, step_s, counts, ctor_s, extra)
@@ -3383,7 +3445,10 @@ def main() -> int:
 
     def plan_split(kw):
         """The streamed binned walk's plan on these inputs: its tile groups
-        (0: render_body's 16x16 blocks) and blocks a view; {} off it."""
+        (0: render_body's 16x16 blocks) and blocks a view; K1's index visit's
+        tile groups; {} off them."""
+        if not is_batched(kw) and route(kw) == rc.INDEX and kw["clusters"] is not None:
+            return {"groups": index_plan_of(kw).groups}
         if is_batched(kw) or not (binned(kw) and streamed(kw)):
             return {}
         S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
@@ -3485,6 +3550,14 @@ def main() -> int:
         reps = NEW_KERNEL_REPS if name in small else KERNEL_REPS
         rows.append(handoff_row(name, kw, reps) if is_k7(kw) else render_row(name, kw,
                                                                                 reps=reps))
+        if name == "render_resident":
+            # K1 at 64x64 (main's inputs) and, a row of its own named
+            # render_resident@128, at 128x128 (mxu_4096w_128's "auto"
+            # inputs), each with its launches.
+            rows[-1]["launches"] -= k1_128["launches"]
+            emit({"phase": "timing", **rows[-1]})
+            rows.append(dict(render_row(name, k1_128["kw"]), name=f"{name}@128",
+                             inputs="mxu_4096w_128_auto", launches=k1_128["launches"]))
         emit({"phase": "timing", **rows[-1]})
     # The eighth and ninth slices' kernels (K3 and K4 on resident rows, K9,
     # K1-none, the 9-output mode, K12): a path's own on its full-size inputs,

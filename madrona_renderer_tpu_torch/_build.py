@@ -76,6 +76,7 @@ SIGNATURES = {
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views .. seg_div
          _F, _F,  # two_over_w two_over_h
          _I, _I, _I,  # raster tex_filter geo
+         _I,  # the index visit's groups a block (0: the parent's 16x16 blocks)
          _P],  # stream
     ),
     "render_streamed": (

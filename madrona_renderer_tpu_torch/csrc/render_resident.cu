@@ -123,8 +123,9 @@
 // (at most 128 x 128 texels, 64 KB) stays in L1/L2: a texel read is one
 // cached 4-byte load (bilinear: four).
 //
-// The design is the simple one: one thread per pixel, one 16x16 block per
-// (view, tile), the world's geometry rows (raw: with this view's hoisted
+// The parent design (render_body, below) is the simple one: one thread per
+// pixel, one 16x16 block per (view, tile), the world's geometry rows (raw:
+// with this view's hoisted
 // tv, q, t_num), cluster rows and camera row in shared memory (broadcast
 // reads in the sweeps), the winner's attributes, the material row and the
 // texels read from global memory once per pixel. No wgmma or TMA: the work
@@ -135,9 +136,14 @@
 // triangles, where K1-raw's 16 rows take 192 KB); its resolve and its
 // shadow sweep read the raw rows from global memory (L1/L2). The resident
 // visits (K3 and K4 on resident rows, below) fill a block's rows once a
-// view and walk several tiles in it. Left for a later change: K1's blocks
-// likewise; the shadow sweep's per-light pvec, det and 1/det, which are
-// per-triangle scalars, hoisted per block.
+// view and walk several tiles in it, and so does K1 (and K6) on prep rows,
+// raytraced, untextured or nearest or bilinear (visit_body with PIX > 0,
+// index_tile: tile teams of 64 threads, 4 pixels
+// a thread, records of three float4 a triangle; render_index_kernel, taken
+// by raytrace_cuda.index_plan), bit for bit the parent's; its other modes
+// keep this design. Left for a later change: K1-raw's, K8's and K10's
+// blocks likewise; the shadow sweep's per-light pvec, det and 1/det, which
+// are per-triangle scalars, hoisted per block.
 //
 // The streamed route (STREAM): meshes whose rows do not fit the resident
 // budget (32 * S * 4 bytes > 384 KB, the JAX package's dma_tris,
@@ -642,6 +648,22 @@ __host__ __device__ constexpr int binned_stage_rows() {
   return GEO == kGeoPrep ? kPrepRows + 1 : smem_geo_rows<GEO>();
 }
 
+// The span hooks of port_tools/resident_phase_probe.py and
+// port_tools/index_phase_probe.py (empty here): MRT_PHASE in the resident
+// visits' body (visit_body, below, K1's index visit on tile groups among
+// them), MRT_INDEX in render_body's resident index branch (K1's parent
+// design), each phase k as the probes number them.
+#ifndef MRT_PHASE
+#define MRT_PHASE_BEGIN
+#define MRT_PHASE(k)
+#define MRT_AFTER_FILL
+#endif
+#ifndef MRT_INDEX
+#define MRT_INDEX_BEGIN
+#define MRT_INDEX(k)
+#define MRT_INDEX_AFTER_FILL
+#endif
+
 // The render kernel's body. STREAM false: the resident route (the world's
 // geometry rows in shared memory, clusters in index order); true: the
 // streamed route (see the header), with BINNED its binned visit's parent
@@ -674,6 +696,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
   constexpr bool RANGED = BINNED && STREAM && GEO == kGeoPrep && !DMXU;
   const int S = a.S, CC = a.CC;
   extern __shared__ __align__(16) float smem[];
+  MRT_INDEX_BEGIN;
   // Resident: [smem_geo_rows, S]; streamed: two staged clusters, each
   // [smem_geo_rows, cluster_size], then the view's order and spans.
   const int geo_floats = STREAM ? 2 * smem_geo_rows<GEO>() * a.cluster_size
@@ -765,6 +788,8 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
     for (int i = tid; i < 2 * CC; i += kThreads) s_span[i] = g_span[i];
   }
   __syncthreads();
+  MRT_INDEX_AFTER_FILL;
+  MRT_INDEX(3);
 
   const int tile = blockIdx.y;
   const int px = (tile % a.tiles_x) * kTileX + threadIdx.x;
@@ -869,6 +894,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
     // (slab() and prep_test() compute the same expressions): ptxas's
     // register allocation of these variants moves with the source's shape.
     for (int c = 0; c < CC; ++c) {
+      MRT_INDEX(1);
       // Slab test of the cluster's world-space AABB (:1671-1697); it keeps
       // the scalar near in raster mode too (t_lo >= near, so it only
       // over-visits).
@@ -886,6 +912,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
       // Every thread reaches this barrier: the loop bound is uniform.
       const int any_hit = __syncthreads_or(possible);
       if (!any_hit || !(s_cl[6 * CC + c] > 0.f)) continue;
+      MRT_INDEX(2);
       const int base = c * a.cluster_size;
       const int cnt = (int)s_cl[7 * CC + c];
       for (int i = base; i < base + cnt; ++i) {
@@ -1136,6 +1163,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
     }
   }
 
+  MRT_INDEX(3);
   const bool inside = px < a.width && py < a.height;
   // The shadow sweep below has block-wide barriers: every thread stays.
   if (!SHADOWS && !inside) return;
@@ -1451,12 +1479,6 @@ int launch_grid(void (*kernel)(Params...), const RenderArgs& a, int num_views,
 }
 
 // ---- The resident visits: one block a view, G tile groups walking in it -- //
-// The span hooks of port_tools/resident_phase_probe.py (empty here).
-#ifndef MRT_PHASE
-#define MRT_PHASE_BEGIN
-#define MRT_PHASE(k)
-#define MRT_AFTER_FILL
-#endif
 
 // Tile groups of 256 threads in a resident visit's block: 4 (1,024 threads,
 // at most 64 registers a thread) on prep and raw rows, whose entries fit
@@ -1481,12 +1503,34 @@ struct VisitCtl {
   unsigned long long fill_bar;
   int next_tile;
   int tile[4][2];
-  unsigned long long vote[4][2];
+  union {
+    unsigned long long vote[4][2];
+    int team_tile[8][2];  // K1's index visit: each tile team's two tile slots
+  };
 };
 constexpr int kVisitCtlBytes = 128;
 static_assert(sizeof(VisitCtl) <= kVisitCtlBytes, "the visit's shared head");
 // A bulk copy's largest piece (the mbarrier counts every piece's bytes).
 constexpr unsigned kBulkPiece = 32768;
+
+// K1's index visit on tile teams (visit_body with PIX > 0 pixels a thread:
+// the resident index order on prep rows, raytraced, untextured or with the
+// nearest or bilinear filter). Its block holds 1 or 2 groups of 256 threads
+// (the launch plan's, raytrace_cuda.index_plan), each 4 teams of 64, one
+// 16x16 tile a team at a time, a named barrier a team (ids 1..8), and, in
+// shared memory, each triangle's prep rows as a record of three float4 (D
+// with t_num, A, Q). The resolve reads the winner's attribute rows, the
+// material table and the texel pool in device memory (L1): a copy a view
+// of the attribute rows into shared memory ran within 0.3% of it either
+// way, and of the pool 1-2% slower on every textured input
+// (port_tools/index_plan_ab.py). Of 1, 2 and 4 pixels a thread, 4 ran
+// fastest on every input, so the build has 4; of 1, 2 and 4 groups a
+// block (one vote a group over its four tiles, the design before the
+// teams), 4 ran slowest on every input, and the teams' barriers (4 a group)
+// leave ids for 2.
+constexpr int kIndexMaxGroups = 2;
+constexpr int kIndexPixels = 4;
+constexpr int kIndexRecordFloats = 12;  // a triangle's record: three float4
 
 // bar.sync on the named barrier `id` over kThreads threads: a tile group's
 // __syncthreads.
@@ -1852,6 +1896,183 @@ __device__ __forceinline__ void visit_tile(const RenderArgs& a, const BinArgs& b
   a.rgb[o] = cam_ok ? packed : kAlpha;
 }
 
+// A tile team's named-barrier OR over its N threads: bar.red.or.pred on
+// barrier `id` (the parent's __syncthreads_or over its 16x16 block).
+template <int N>
+__device__ __forceinline__ bool team_or(int id, bool p) {
+  int r;
+  asm volatile(
+      "{\n\t.reg .pred pi, po;\n\t"
+      "setp.ne.s32 pi, %1, 0;\n\t"
+      "bar.red.or.pred po, %2, %3, pi;\n\t"
+      "selp.s32 %0, 1, 0, po;\n\t}\n"
+      : "=r"(r)
+      : "r"((int)p), "r"(id), "n"(N)
+      : "memory");
+  return r != 0;
+}
+
+// bar.sync on the named barrier `id` over N threads.
+template <int N>
+__device__ __forceinline__ void team_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+
+// One 16x16 tile of K1's index visit, walked by one tile team of
+// 256 / PIX threads (named barrier `bar`), a thread the pixels of rows
+// r, r + 16 / PIX, ... (PIX of them) of its column, so that each record's
+// three shared loads serve PIX tests. Each cluster in index order: the
+// block's validity, then the slab test (K1's own predicate, no slack, on
+// the view's gate terms lo - o and hi - o: the subtractions K1 makes per
+// thread) as an OR over the tile's 256 pixels (the team's barrier: the
+// parent's 16x16 tile), then the tile's sweep of the valid prefix from the
+// records, the first minimum in index order (strict <: the lowest index
+// keeps an exact tie). The resolve reads the winner's record and its
+// attribute rows (`attr`, device memory), each expression as render_body
+// computes it.
+template <int TEX, int PIX>
+__device__ __forceinline__ void index_tile(const RenderArgs& a, const float4* s_rec,
+                                           const float* attr, const float* s_cl,
+                                           const float* s_gate, const float* s_cam, int view,
+                                           int tile, int bar) {
+  constexpr int kTeam = kThreads / PIX;
+  constexpr int kRowStep = kTileY / PIX;
+  const int S = a.S, CC = a.CC, cs = a.cluster_size;
+  const int tt = (threadIdx.y * kTileX + threadIdx.x) % kTeam;
+  const int px = (tile % a.tiles_x) * kTileX + tt % kTileX;
+  const int py0 = (tile / a.tiles_x) * kTileY + tt / kTileX;
+
+  const float rxx = s_cam[3], rxy = s_cam[4], rxz = s_cam[5];
+  const float fx = s_cam[6], fy = s_cam[7], fz = s_cam[8];
+  const float ux = s_cam[9], uy = s_cam[10], uz = s_cam[11];
+  const float tan_x = s_cam[12], tan_y = s_cam[13];
+  const float near = s_cam[14], far = s_cam[15];
+
+  // Ray generation (raytrace_pallas.py:1180-1188) of each of the thread's
+  // pixels. Pixels past the image edge trace their ray too: they take part
+  // in their tile's gates and write nothing.
+  float dx[PIX], dy[PIX], dz[PIX], ivx[PIX], ivy[PIX], ivz[PIX], best_t[PIX];
+  int best_idx[PIX];
+  const float ra = (((float)px + 0.5f) * a.two_over_w - 1.0f) * tan_x;
+#pragma unroll
+  for (int q = 0; q < PIX; ++q) {
+    const int py = py0 + kRowStep * q;
+    const float rb = (1.0f - ((float)py + 0.5f) * a.two_over_h) * tan_y;
+    float x = ra * rxx + fx + rb * ux;
+    float y = ra * rxy + fy + rb * uy;
+    float z = ra * rxz + fz + rb * uz;
+    const float inv_len = 1.0f / sqrtf(x * x + y * y + z * z);
+    dx[q] = x * inv_len;
+    dy[q] = y * inv_len;
+    dz[q] = z * inv_len;
+    ivx[q] = 1.0f / safe_dir(dx[q]);
+    ivy[q] = 1.0f / safe_dir(dy[q]);
+    ivz[q] = 1.0f / safe_dir(dz[q]);
+    best_t[q] = far;
+    best_idx[q] = -1;
+  }
+
+  for (int c = 0; c < CC; ++c) {
+    MRT_PHASE(1);
+    if (!(s_cl[6 * CC + c] > 0.f)) continue;  // the block's: no vote
+    const float lx = s_gate[0 * CC + c], ly = s_gate[1 * CC + c], lz = s_gate[2 * CC + c];
+    const float hx = s_gate[3 * CC + c], hy = s_gate[4 * CC + c], hz = s_gate[5 * CC + c];
+    bool possible = false;
+#pragma unroll
+    for (int q = 0; q < PIX; ++q) {
+      // The slab test (:1671-1697) with the scalar near.
+      const float t1x = lx * ivx[q];
+      const float t2x = hx * ivx[q];
+      const float t1y = ly * ivy[q];
+      const float t2y = hy * ivy[q];
+      const float t1z = lz * ivz[q];
+      const float t2z = hz * ivz[q];
+      const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+      const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+      possible = possible || ((tmax >= tmin) && (tmax > near) && (tmin < best_t[q]));
+    }
+    if (!team_or<kTeam>(bar, possible)) continue;
+    MRT_PHASE(2);
+    const int base = c * cs;
+    const int cnt = (int)s_cl[7 * CC + c];
+    for (int i = base; i < base + cnt; ++i) {
+      // Möller–Trumbore on the pack-time rows (:1296-1316).
+      const float4 r0 = s_rec[3 * i], r1 = s_rec[3 * i + 1], r2 = s_rec[3 * i + 2];
+#pragma unroll
+      for (int q = 0; q < PIX; ++q) {
+        const float det = dx[q] * r0.x + dy[q] * r0.y + dz[q] * r0.z;
+        const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+        const float u = (dx[q] * r1.x + dy[q] * r1.y + dz[q] * r1.z) * inv;
+        const float v = (dx[q] * r2.x + dy[q] * r2.y + dz[q] * r2.z) * inv;
+        const float t = r0.w * inv;
+        const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) && (t > near) &&
+                        (t < best_t[q]);
+        best_t[q] = ok ? t : best_t[q];
+        best_idx[q] = ok ? i : best_idx[q];
+      }
+    }
+  }
+  MRT_PHASE(3);
+
+  const bool cam_ok = s_cam[kCamLight0 + 6 * a.n_lights] > 0.f;
+#pragma unroll
+  for (int q = 0; q < PIX; ++q) {
+    const int py = py0 + kRowStep * q;
+    if (px >= a.width || py >= a.height) continue;
+    // Winner resolve (:2725-2793): the clipped barycentrics from its record,
+    // the attributes by its index.
+    float nx = 0.f, ny = 0.f, nz = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f;
+    const int j = best_idx[q];
+    const bool found = j >= 0;
+    if (found) {
+      const float4 r0 = s_rec[3 * j], r1 = s_rec[3 * j + 1], r2 = s_rec[3 * j + 2];
+      const float det = dx[q] * r0.x + dy[q] * r0.y + dz[q] * r0.z;
+      const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+      const float uc = clip01((dx[q] * r1.x + dy[q] * r1.y + dz[q] * r1.z) * inv);
+      const float vc = clip01((dx[q] * r2.x + dy[q] * r2.y + dz[q] * r2.z) * inv);
+      nx = attr[6 * S + j] + uc * attr[9 * S + j] + vc * attr[12 * S + j];
+      ny = attr[7 * S + j] + uc * attr[10 * S + j] + vc * attr[13 * S + j];
+      nz = attr[8 * S + j] + uc * attr[11 * S + j] + vc * attr[14 * S + j];
+      if (TEX == kTexNone) {
+        a0 = attr[16 * S + j];
+        a1 = attr[17 * S + j];
+        a2 = attr[18 * S + j];
+      } else {
+        a0 = attr[15 * S + j];
+        a1 = attr[0 * S + j] + uc * attr[2 * S + j] + vc * attr[4 * S + j];
+        a2 = attr[1 * S + j] + uc * attr[3 * S + j] + vc * attr[5 * S + j];
+      }
+    }
+    // Two-sided: flip the normal toward the viewer (:2800-2804).
+    const float ndotd = nx * dx[q] + ny * dy[q] + nz * dz[q];
+    const float flip = ndotd > 0.f ? -1.0f : 1.0f;
+    nx = nx * flip;
+    ny = ny * flip;
+    nz = nz * flip;
+    // Base colour, lambert over the lights and the fused export, as
+    // render_body's (:3015-3050, :3186-3202).
+    float br = a0, bg = a1, bb = a2;
+    if (TEX == kTexNearest || TEX == kTexBilinear)
+      textured_base<TEX>(a.mats, a.pool, a.n_mats, (int)a0, a1, a2, br, bg, bb);
+    const float n_inv = 1.0f / sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, kTiny));
+    float sr = 0.f, sg = 0.f, sb = 0.f;
+    for (int li = 0; li < a.n_lights; ++li) {
+      const float* l = s_cam + kCamLight0 + 6 * li;
+      const float nd = fmaxf(-(nx * l[0] + ny * l[1] + nz * l[2]) * n_inv, 0.f);
+      sr = sr + nd * l[3];
+      sg = sg + nd * l[4];
+      sb = sb + nd * l[5];
+    }
+    const bool hit = found && cam_ok;
+    const uint32_t packed = quantize(br, sr, found) | (quantize(bg, sg, found) << 8) |
+                            (quantize(bb, sb, found) << 16) | kAlpha;
+    const size_t o = ((size_t)view * a.height + py) * a.width + px;
+    a.depth[o] = hit ? best_t[q] : 0.f;
+    a.segmask[o] = hit ? j / a.seg_div : -1;
+    a.rgb[o] = cam_ok ? packed : kAlpha;
+  }
+}
+
 // A resident visit's block: view blockIdx.x, visit_groups<GEO>() groups of
 // 16x16 threads (blockDim (16, 16 G)). The fill, once a view: prep rows
 // 0-9 (raw: v0, e1, e2, rows 0-8) by one bulk copy, while the threads copy
@@ -1859,18 +2080,30 @@ __device__ __forceinline__ void visit_tile(const RenderArgs& a, const BinArgs& b
 // gate terms and the raw sweep's tv, q, t_num or K10's a, b, c and
 // validity; then each group
 // takes tiles from the counter until the view's are gone.
-template <int GEO, bool RASTER, int TEX, bool BINNED, bool SEEDED>
+// PIX > 0: K1's index visit (index_tile) on prep rows, its
+// groups (1 or 2: blockDim.y / 16) each 4 tile teams of 256 / PIX threads
+// (PIX pixels a thread) taking the view's tiles one a team at a time from
+// the block's counter. Its fill: the records built by the threads from
+// the prep rows, the cluster table, the gate terms and the camera row (no
+// bulk copy).
+template <int GEO, bool RASTER, int TEX, bool BINNED, bool SEEDED, int PIX = 0>
 __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order,
                                            const BinArgs& bn, const float* seed) {
   constexpr bool RAW = GEO != kGeoPrep;
   constexpr bool WT = GEO >= kGeoRawWt;
+  constexpr bool INDEX = PIX > 0;
+  static_assert(!INDEX || (GEO == kGeoPrep && !RASTER && !BINNED && !SEEDED &&
+                           (TEX == kTexNone || TEX == kTexNearest || TEX == kTexBilinear)),
+                "K1's index visit: prep rows, raytraced, untextured, nearest or bilinear");
   constexpr int kBlock = kThreads * visit_groups<GEO>();
   const int S = a.S, CC = a.CC;
+  const int n_thr = INDEX ? (int)(blockDim.x * blockDim.y) : kBlock;
   extern __shared__ __align__(16) float smem[];
   MRT_PHASE_BEGIN;
   VisitCtl& ctl = *reinterpret_cast<VisitCtl*>(smem);
-  float* s_geo = smem + kVisitCtlBytes / sizeof(float);  // [smem_geo_rows, S]
-  float* s_cl = s_geo + smem_geo_rows<GEO>() * S;          // [8, CC]
+  // [smem_geo_rows, S]; the index visit's records.
+  float* s_geo = smem + kVisitCtlBytes / sizeof(float);
+  float* s_cl = s_geo + (INDEX ? kIndexRecordFloats : smem_geo_rows<GEO>()) * S;  // [8, CC]
   float* s_gate = s_cl + kClRows * CC;                     // [kGateRows, CC]
   float* s_cam = s_gate + kGateRows * CC;                  // [NCOL]
   int* s_order = reinterpret_cast<int*>(s_cam + a.n_cols);  // [CC] (ordered)
@@ -1883,16 +2116,16 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
   const float* g_cam = a.cams + (size_t)view * a.n_cols;
   if (tid == 0) {
     ctl.next_tile = 0;
-    if constexpr (!WT)
+    if constexpr (!WT && !INDEX)
       bulk_fill(s_geo, g_rows, (RAW ? kRawRows : kPrepRows) * S * sizeof(float), &ctl.fill_bar);
   }
-  for (int i = tid; i < kClRows * CC; i += kBlock) s_cl[i] = g_cl[i];
-  for (int i = tid; i < a.n_cols; i += kBlock) s_cam[i] = g_cam[i];
+  for (int i = tid; i < kClRows * CC; i += n_thr) s_cl[i] = g_cl[i];
+  for (int i = tid; i < a.n_cols; i += n_thr) s_cam[i] = g_cam[i];
   {
     // The gate terms: lo - o, hi - o and (approach_dist2, :1740-1780)
     // d2 * kExitSlack of each cluster for this view's camera origin.
     const float ox = g_cam[0], oy = g_cam[1], oz = g_cam[2];
-    for (int c = tid; c < CC; c += kBlock) {
+    for (int c = tid; c < CC; c += n_thr) {
       const float lx = g_cl[0 * CC + c] - ox, ly = g_cl[1 * CC + c] - oy,
                   lz = g_cl[2 * CC + c] - oz;
       const float hx = g_cl[3 * CC + c] - ox, hy = g_cl[4 * CC + c] - oy,
@@ -1909,7 +2142,7 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
       s_gate[6 * CC + c] = (ax * ax + ay * ay + az * az) * kExitSlack;
     }
   }
-  if constexpr (!BINNED) {
+  if constexpr (!BINNED && !INDEX) {
     const int* g_order = order + (size_t)view * CC;
     for (int i = tid; i < CC; i += kBlock) s_order[i] = g_order[i];
   }
@@ -1956,24 +2189,51 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
       s_h[5 * S + i] = qz;
       s_h[6 * S + i] = e2x * qx + e2y * qy + e2z * qz;
     }
+  } else if constexpr (INDEX) {
+    // The records: triangle i's prep rows as (D, t_num), (A, 0), (Q, 0).
+    float4* s_rec = reinterpret_cast<float4*>(s_geo);
+    for (int i = tid; i < S; i += n_thr) {
+      s_rec[3 * i] = make_float4(g_rows[i], g_rows[S + i], g_rows[2 * S + i], g_rows[9 * S + i]);
+      s_rec[3 * i + 1] = make_float4(g_rows[3 * S + i], g_rows[4 * S + i], g_rows[5 * S + i], 0.f);
+      s_rec[3 * i + 2] = make_float4(g_rows[6 * S + i], g_rows[7 * S + i], g_rows[8 * S + i], 0.f);
+    }
   }
   __syncthreads();
-  if constexpr (!WT) bulk_wait(&ctl.fill_bar);
+  if constexpr (!WT && !INDEX) bulk_wait(&ctl.fill_bar);
   MRT_AFTER_FILL;
 
-  const int g = threadIdx.y / kTileY;
   const int n_tiles = a.tiles_x * ((a.height + kTileY - 1) / kTileY);
-  for (int it = 0;; ++it) {
-    MRT_PHASE(4);
-    int* slot = &ctl.tile[g][it & 1];
-    if ((tid & (kThreads - 1)) == 0) *slot = atomicAdd(&ctl.next_tile, 1);
-    group_sync(1 + g);
-    const int tile = *slot;
-    if (tile >= n_tiles) break;
-    MRT_PHASE(3);
-    visit_tile<GEO, RASTER, TEX, BINNED, SEEDED>(a, bn, seed, s_geo, s_cl, s_gate, s_cam,
-                                                 s_order, g_rows, view, tile, 1 + g,
-                                                 ctl.vote[g]);
+  if constexpr (INDEX) {
+    // Each tile team (named barrier 1 + team) takes its next tile from the
+    // block's counter.
+    constexpr int kTeam = kThreads / PIX;
+    const int team = tid / kTeam;
+    const float* attr = g_rows + (size_t)kAttr0 * S;
+    for (int it = 0;; ++it) {
+      MRT_PHASE(4);
+      int* slot = &ctl.team_tile[team][it & 1];
+      if (tid % kTeam == 0) *slot = atomicAdd(&ctl.next_tile, 1);
+      team_sync<kTeam>(1 + team);
+      const int tile = *slot;
+      if (tile >= n_tiles) break;
+      MRT_PHASE(3);
+      index_tile<TEX, PIX>(a, reinterpret_cast<const float4*>(s_geo), attr, s_cl, s_gate,
+                           s_cam, view, tile, 1 + team);
+    }
+  } else {
+    const int g = threadIdx.y / kTileY;
+    for (int it = 0;; ++it) {
+      MRT_PHASE(4);
+      int* slot = &ctl.tile[g][it & 1];
+      if ((tid & (kThreads - 1)) == 0) *slot = atomicAdd(&ctl.next_tile, 1);
+      group_sync(1 + g);
+      const int tile = *slot;
+      if (tile >= n_tiles) break;
+      MRT_PHASE(3);
+      visit_tile<GEO, RASTER, TEX, BINNED, SEEDED>(a, bn, seed, s_geo, s_cl, s_gate, s_cam,
+                                                   s_order, g_rows, view, tile, 1 + g,
+                                                   ctl.vote[g]);
+    }
   }
 }
 
@@ -1986,6 +2246,13 @@ size_t visit_smem(const RenderArgs& a, bool ordered) {
          sizeof(float) * ((size_t)smem_geo_rows<GEO>() * a.S +
                           (size_t)(kClRows + kGateRows) * a.CC + a.n_cols) +
          (ordered ? sizeof(int) * (size_t)a.CC : 0);
+}
+
+// Shared memory of K1's index visit block: the head, the records, the
+// cluster table, the gate terms and the camera row.
+size_t index_smem(const RenderArgs& a) {
+  return kVisitCtlBytes + sizeof(float) * ((size_t)kIndexRecordFloats * a.S +
+                                           (size_t)(kClRows + kGateRows) * a.CC + a.n_cols);
 }
 
 // A resident visit route's entry argument: the visit's inputs, K9's seed
@@ -2765,6 +3032,60 @@ struct ResidentRoute {
                        resident_smem<GEO>(a), stream, a);
   }
 };
+
+// K1's index visit on tile teams (prep rows, raytraced; untextured,
+// nearest or bilinear), kIndexPixels pixels a thread: 1 or 2 groups a block
+// (the launch's), a block a view. At most 64 registers a thread, so that
+// 2048 threads of 1 or 2 groups' blocks fit a multiprocessor.
+template <int TEX>
+__global__ void __launch_bounds__(kThreads * kIndexMaxGroups, 4 / kIndexMaxGroups)
+render_index_kernel(const RenderArgs a) {
+  visit_body<kGeoPrep, false, TEX, false, false, kIndexPixels>(a, nullptr, BinArgs{}, nullptr);
+}
+
+// One launch of the index visit's entry at `groups` groups a block, a
+// block a view, `index_smem` bytes of dynamic shared memory;
+// cudaGetLastError() after it. With `query`, no launch: what the card makes
+// of the entry goes there instead (threads a block, registers a thread,
+// local memory a thread in bytes, blocks a multiprocessor).
+template <int TEX>
+int index_launch(const RenderArgs& a, int num_views, int groups, int* query,
+                 cudaStream_t stream) {
+  const auto kernel = render_index_kernel<TEX>;
+  const size_t smem = index_smem(a);
+  int err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  if (query == nullptr) {
+    kernel<<<num_views, dim3(kTileX, kTileY * groups), smem, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  cudaFuncAttributes attr;
+  err = (int)cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                             kThreads * groups, smem);
+  if (err != 0) return err;
+  query[0] = kThreads * groups;
+  query[1] = attr.numRegs;
+  query[2] = (int)attr.localSizeBytes;
+  query[3] = blocks;
+  return 0;
+}
+
+int index_variant(const RenderArgs& a, int num_views, int tex_filter, int groups, int* query,
+                  cudaStream_t stream) {
+  if (groups < 1 || groups > kIndexMaxGroups) return (int)cudaErrorInvalidValue;
+  switch (tex_filter) {
+    case kTexNone:
+      return index_launch<kTexNone>(a, num_views, groups, query, stream);
+    case kTexNearest:
+      return index_launch<kTexNearest>(a, num_views, groups, query, stream);
+    case kTexBilinear:
+      return index_launch<kTexBilinear>(a, num_views, groups, query, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 #endif  // MRT_RENDER_BODY_ONLY
 
 }  // namespace
@@ -2780,8 +3101,11 @@ extern "C" {
 // handoff instead of rgb); mats/pool may be null unless it is 1 or 2, and
 // rgb when it is 3, code/handoff unless it is 3. Every cluster in index
 // order (K1); the streamed ordered walk is csrc/render_streamed.cu's.
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for an unknown variant.
+// groups 0: the parent design, one 16x16 block a tile (every variant);
+// 1 or 2: the index visit's groups of tile teams, a block a view (geo 0,
+// raster 0, tex_filter 0, 1 or 2), 4 pixels a thread. Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for an unknown variant or plan.
 int mrt_render_resident(const float* rows, const float* clusters,
                         const float* cams, const float* mats, const int* pool,
                         int n_mats, float* depth, int* segmask, uint32_t* rgb,
@@ -2789,13 +3113,28 @@ int mrt_render_resident(const float* rows, const float* clusters,
                         int cluster_size, int n_cols, int n_lights, int height,
                         int width, int seg_div, float two_over_w,
                         float two_over_h, int raster, int tex_filter, int geo,
-                        void* stream) {
+                        int groups, void* stream) {
   const RenderArgs a = render_args(rows, clusters, cams, mats, pool, n_mats, depth,
                                    segmask, rgb, code, handoff, num_cams, S, CC,
                                    cluster_size, n_cols, n_lights, height, width,
                                    seg_div, two_over_w, two_over_h, tex_filter);
-  return launch_variant<ResidentRoute>(a, StreamArgs{nullptr, nullptr}, num_views, geo,
-                                       raster, tex_filter, (cudaStream_t)stream);
+  if (groups == 0)
+    return launch_variant<ResidentRoute>(a, StreamArgs{nullptr, nullptr}, num_views, geo,
+                                         raster, tex_filter, (cudaStream_t)stream);
+  if (geo != kGeoPrep || raster) return (int)cudaErrorInvalidValue;
+  return index_variant(a, num_views, tex_filter, groups, nullptr, (cudaStream_t)stream);
+}
+
+// The index visit's entry (tex_filter, groups) at these sizes: threads a
+// block, registers, local memory bytes a thread and blocks a
+// multiprocessor, in out[0..3]. Returns 0, or the CUDA error of the query.
+int mrt_render_resident_occupancy(int tex_filter, int groups, int S, int CC, int n_cols,
+                                  int* out) {
+  RenderArgs a{};
+  a.S = S;
+  a.CC = CC;
+  a.n_cols = n_cols;
+  return index_variant(a, 0, tex_filter, groups, out, nullptr);
 }
 
 const char* mrt_error_string(int err) {

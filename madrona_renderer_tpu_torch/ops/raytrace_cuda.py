@@ -90,7 +90,12 @@ bin (K4 on resident rows, ``csrc/render_resident_binned.cu``:
 ``band_cluster_bins``). The rows stay in shared memory, filled once a view
 (one block a view, several 16x16 tiles walking in it:
 ``resident_smem_bytes``, ``check_resident_plan``); there are no row spans,
-row sort or triangle ranges on the resident route.
+row sort or triangle ranges on the resident route. K1 itself (and K6) on
+prep rows, raytraced, untextured or nearest or bilinear, takes the same
+shape on enough views (``index_plan``, ``check_index_plan``: one block a
+view of 64-thread tile teams, 4 pixels a thread, each triangle's prep rows
+as records); its other modes, few views and blocks past 227 KB keep one
+16x16 block a tile.
 Exact-t ties go to the lower triangle index on every route, so the visit
 changes only the work: the frames are the index-order sweep's
 (``render_resident_plain``, which puts row-sorted rows back in order
@@ -225,6 +230,24 @@ _VISIT_CLUSTER_ROWS = 8 + 7
 _VISIT_GEO_ROWS = {"prep": 10, "raw": 16, "raw_shadows": 16, "raw_wt": 10,
                    "raw_wt_shadows": 10}
 _FILL_ALIGN = 16
+# K1's index visit on tile teams (csrc/render_resident.cu's
+# render_index_kernel, visit_body with PIX > 0), the resident index order on
+# prep rows, raytraced, untextured or nearest or bilinear: blocks of 1 or 2
+# groups of 256 threads, each group 4 teams of 64 threads that take the
+# view's 16x16 tiles one at a time, 4 pixels a thread (of 1, 2 and 4, 4 ran
+# fastest on every input: port_tools/index_plan_ab.py), one block a view;
+# where there are fewer views than blocks the card holds at once, the parent
+# design (on 64 views at 64x64 it ran 9-16% faster than 4 blocks a view of
+# the teams), and where the teams' block does not fit. Its shared memory:
+# the 128-byte head, each triangle's prep rows as a record of 12 floats (D,
+# t_num, A, Q: three float4), the cluster table and the view's gate terms
+# (8 + 7 rows) and the camera row. Groups: 1 where a view has fewer than
+# _INDEX_TILES_FOR_TWO tiles (64x64: 16), else 2 (128x128: 64). The other
+# modes of K1 (raster, raw rows, the mip hand-off) and K9 on K1 keep the
+# parent design, render_body's 16x16 blocks: a plan of 0 groups.
+_INDEX_TILES_FOR_TWO = 64
+_INDEX_GROUP_CHOICES = (1, 2)
+_INDEX_RECORD_FLOATS = 12
 # The streamed walk's slack: the occlusion early exit's on squared distances
 # (the JAX kernel's), the slab test's on t (a tie must not be culled).
 _F_EXIT_SLACK = float(np.float32(0.998))
@@ -521,6 +544,73 @@ def check_resident_plan(rows: torch.Tensor, n_clusters: int, n_lights: int, geo:
         raise LaunchPlanError(f"the resident visits' geometry fill copies 16-byte pieces: S "
                               f"({S}) must be a multiple of 4 and rows 16-byte aligned "
                               f"(at {rows.data_ptr() % _FILL_ALIGN} past 16)")
+
+
+class IndexPlan(NamedTuple):
+    """K1's launch (``index_plan``): ``groups`` groups of 4 tile teams a
+    block, a block a view, 4 pixels a thread (0 groups: the parent design,
+    one 16x16 block a tile, one pixel a thread), and ``smem_bytes`` of
+    shared memory a block."""
+
+    groups: int
+    smem_bytes: int
+
+
+def index_block_bytes(S: int, n_clusters: int, n_lights: int) -> int:
+    """Shared memory a block of K1's index visit takes (``index_smem`` in
+    ``csrc/render_resident.cu``): the head, the records, the cluster table
+    and gate terms, and the camera row."""
+    return _VISIT_HEAD_BYTES + 4 * (_INDEX_RECORD_FLOATS * S + _VISIT_CLUSTER_ROWS * n_clusters
+                                    + _n_cam_cols(n_lights))
+
+
+def index_plan(geo: str, S: int, n_clusters: int, n_lights: int, num_views: int,
+               height: int, width: int, texture=None, sm_count: int = _H100_SMS, *,
+               raster: bool = False, seeded: bool = False, groups=None) -> IndexPlan:
+    """K1's launch on these inputs (``sm_count``: the card's
+    multiprocessors, the H100's 132 by default). The index visit's tile
+    teams take prep rows, raytraced, untextured or with the ``"nearest"``
+    or ``"bilinear"`` filter, cold: ``groups`` of 4 teams a block (by
+    default 1, or 2 where the view has at least _INDEX_TILES_FOR_TWO tiles),
+    a block a view. By default the parent design (0 groups: its 16x16
+    block's rows, cluster table and camera row) where the teams' block does
+    not fit 227 KB, where the views are fewer than the blocks the card holds
+    at once (by registers, 64 a thread, and shared memory), and in every
+    other mode (raster, raw rows, the mip hand-off, the 9-output mode, K9's
+    seed); with ``groups`` 0 too. A forced ``groups`` other than 0, 1 or 2,
+    or one whose block does not fit, is ``LaunchPlanError``."""
+    parent = IndexPlan(0, 4 * (_VISIT_GEO_ROWS[geo] * S + 8 * n_clusters
+                               + _n_cam_cols(n_lights)))
+    if geo != "prep" or raster or seeded or texture not in (None,) + shade.FILTERS:
+        return parent
+    smem = index_block_bytes(S, n_clusters, n_lights)
+    if groups is None:
+        n_tiles = -(-height // _TILE) * -(-width // _TILE)
+        groups = 2 if n_tiles >= _INDEX_TILES_FOR_TWO else 1
+        per_sm = max(1, min(_SM_REGS // (_TILE ** 2 * groups * 64), _SM_SMEM // (smem + 1024)))
+        if smem > _MAX_SMEM or num_views < sm_count * per_sm:
+            return parent
+        return IndexPlan(groups, smem)
+    if groups == 0:
+        return parent
+    if groups not in _INDEX_GROUP_CHOICES:
+        raise LaunchPlanError(f"K1's index visit takes {_INDEX_GROUP_CHOICES} tile groups a "
+                              f"block (0: the parent design), not {groups}")
+    if smem > _MAX_SMEM:
+        raise LaunchPlanError(f"K1's index visit needs {smem} bytes of shared memory for {S} "
+                              f"slots, {n_clusters} clusters and {n_lights} lights (at most "
+                              f"{_MAX_SMEM})")
+    return IndexPlan(groups, smem)
+
+
+def check_index_plan(rows: torch.Tensor, n_clusters: int, n_lights: int, geo: str,
+                     num_views: int, height: int, width: int, texture=None, *,
+                     raster: bool = False, seeded: bool = False) -> IndexPlan:
+    """K1's launch plan for these rows (``index_plan``, for the card that
+    holds them, or an H100 for rows on the CPU; else ``LaunchPlanError``)."""
+    sms = _sm_count(rows.device) if rows.is_cuda else _H100_SMS
+    return index_plan(geo, int(rows.shape[2]), n_clusters, n_lights, num_views, height, width,
+                      texture, sms, raster=raster, seeded=seeded)
 
 
 def check_accel(accel: str) -> None:
@@ -1440,7 +1530,7 @@ def _check_seed(seed, rows, shape, raster: bool) -> None:
 def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
                   seg_div, texture, mats, pool, geo, fb_rows=None, order=None,
                   spans=None, bins=None, ranges=None, bin_tile=None, seed=None,
-                  raster=False, dmxu=False, rowskip=False) -> None:
+                  raster=False, dmxu=False, rowskip=False, mip=False) -> None:
     if geo not in _GEO_CODES:
         raise ValueError(f"geo must be one of {tuple(_GEO_CODES)}, got {geo!r}")
     if rowskip and not dmxu:
@@ -1506,6 +1596,10 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
                  height, width, rows, geo, dmxu)
     if clusters is not None and spans is None and (order is not None or bins is not None):
         check_resident_plan(rows, CC, n_lights, geo, order is not None)
+    if clusters is not None and spans is None and order is None and bins is None:
+        check_index_plan(rows, CC, n_lights, geo, W * num_cams, height, width,
+                         "mip" if mip or fb_rows is not None else texture, raster=raster,
+                         seeded=seed is not None)
     if clusters is not None and spans is not None and order is not None:
         check_streamed_plan(rows, CC, n_lights, geo, W * num_cams, height, width, dmxu=dmxu)
     if clusters is not None and spans is not None and bins is not None:
@@ -1593,7 +1687,7 @@ def render_handoff(rows, clusters, cams, *, num_cams: int, n_lights: int,
     on the CPU."""
     _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
                   seg_div, None, None, None, geo, None, order, spans, bins, ranges,
-                  bin_tile, seed, raster, dmxu, rowskip)
+                  bin_tile, seed, raster, dmxu, rowskip, mip=True)
     kw = dict(num_cams=num_cams, n_lights=n_lights, height=height,
               width=width, seg_div=seg_div, raster=raster, geo=geo,
               order=order, spans=spans, bins=bins, ranges=ranges, bin_tile=bin_tile,
@@ -1683,8 +1777,10 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
         visit, tail = [bins.data_ptr(), ptr(seed)], bin_args + [stream]
     elif route == Route(False, "ordered"):
         visit, tail = [order.data_ptr(), ptr(seed)], [stream]
-    else:  # K1
-        visit, tail = [], [stream]
+    else:  # K1: the index visit on its plan (0 groups: the parent design)
+        plan = check_index_plan(rows, CC, n_lights, geo, WC, height, width, texture,
+                                raster=raster)
+        visit, tail = [], [plan.groups, stream]
     launch = _build.load(kernel)
     with torch.cuda.device(dev):
         err = launch(*head, *visit, *params, *tail)
@@ -1820,6 +1916,33 @@ def resident_occupancy(kw: dict) -> dict:
 # --------------------------------------------------------------------- #
 # Kernel K7's second launch and its plain version
 # --------------------------------------------------------------------- #
+def index_occupancy(kw: dict) -> dict:
+    """What the card makes of K1's index visit entry that these inputs
+    (``pack_inputs``'s, of K1's index order on prep rows) launch on their
+    plan: its variant, tile groups and pixels a thread, threads a block,
+    registers and local memory a thread, shared memory a block, and blocks
+    and warps a multiprocessor (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
+    Launches nothing; needs the card."""
+    route = route_of(kw["order"], kw["spans"], kw["bins"], kw["clusters"] is not None)
+    texture = "mip" if kw.get("fb_rows") is not None else kw["texture"]
+    S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
+    plan = check_index_plan(kw["rows"], CC, kw["n_lights"], kw["geo"],
+                            int(kw["cams"].shape[0]), kw["height"], kw["width"], texture,
+                            raster=kw["raster"], seeded=kw.get("seed") is not None)
+    if route != INDEX or plan.groups == 0:
+        raise ValueError("these inputs take no index visit on tile groups")
+    out = (ctypes.c_int * 4)()
+    err = _occupancy_query("render_resident", [ctypes.c_int] * 5)(
+        _TEX_CODES[texture], plan.groups, S, CC, int(kw["cams"].shape[1]), out)
+    if err != 0:
+        raise RuntimeError(f"render_resident's occupancy query failed: CUDA error {err}")
+    threads, registers, local, blocks = list(out)
+    return {"variant": variant_name(False, texture, "prep", INDEX), "groups": plan.groups,
+            "threads": threads, "registers": registers, "local_bytes": local,
+            "smem_bytes": plan.smem_bytes, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * threads // 32}
+
+
 def _check_handoff(code, handoff, cams, table, pool, fb_rows, texture, n_lights):
     if texture not in shade.MIP_FILTERS:
         raise ValueError(f"texture must be one of {shade.MIP_FILTERS}, got {texture!r}")
