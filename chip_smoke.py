@@ -98,10 +98,15 @@ printed as JSON lines:
                on its records (4 pixels a thread) and in its parent design
                (one a thread of a 16x16 block: a plan of 0 pixels), and
                every check of K1 and K6 on the index visit's tile teams
-               (prep rows, raytraced, untextured, nearest or bilinear) at
-               raytrace_cuda.index_plan's forced plans, G = 1 and 2, and in
-               its parent design (``g0``), with the entry's occupancy
-               (``index_occupancy`` lines);
+               (prep rows, raytraced, untextured, nearest or bilinear), of
+               K7 folded into them (the mip render on prep rows,
+               csrc/render_mip.cu) and of K8 on them (raw rows with
+               shadows) at raytrace_cuda.index_plan's forced plans, G = 1
+               and 2, and in its parent design (``g0``; K7's two
+               launches), a forced plan whose block does not fit recorded
+               as refused, with the entry's occupancy (``index_occupancy``
+               lines; fails where its registers are not the ones
+               index_plan counts blocks by, raytrace_cuda._INDEX_REGS);
                a mode's texture filters share its inputs and seed, so their
                variants share one plain sweep (raytrace_cuda.plain_hits),
                and inputs equal in geometry, cameras, visit and seed share
@@ -279,7 +284,10 @@ printed as JSON lines:
                one-camera rows (beside a ``prep_vs_raw`` line of phase 4
                that compares its frames with the prep sweep's), and each
                K7 variant's two launches together on textured256_4096w's
-               inputs, K1-raw on watertight_4096w's rows, the ssaa path's
+               inputs (for the folded ones, their A/B: the kernels line has
+               render_mip_<filter> rows, timed in turns with them, both
+               against k7_bound, the function's own bytes), K8's parent
+               design in turns with it on shadows_4096w's inputs, K1-raw on watertight_4096w's rows, the ssaa path's
                kernel at 128x128 and its filter (torch ops: time and bound),
                and K4 and K5 on each terrain path's inputs (K4's bound from
                the replayed binned walk; at 256x256 and 512x512 no plain
@@ -1239,6 +1247,21 @@ def shade_mip_bound(kw: dict, code) -> tuple:
     return roofline(nbytes, ops) + (nbytes, ops)
 
 
+def k7_bound(kw: dict, walk: dict, code) -> tuple:
+    """Least time for K7's function on these inputs, whichever design runs
+    it (the folded entry or the hand-off and shade_mip): bytes, the rows,
+    cluster table, cameras (and the visit's and the seed's) the render
+    reads, the mip table and the pool read once, and depth, segmask and rgb
+    written (12 B a pixel; the hand-off is no input or output of the
+    function); operations, those of both launches (the render's on the
+    walk, shade_mip's for this run's hit and shaded pixels)."""
+    _, _, render_bytes, render_ops = resident_bound(kw, walk)
+    _, _, _, shade_ops = shade_mip_bound(kw, code)
+    nbytes = (render_bytes - code.numel() * (K1_OUT_BYTES["mip"] - K1_OUT_BYTES["rgb"])
+              + kw["mats"].numel() * 4 + kw["pool"].numel() * 4)
+    return roofline(nbytes, render_ops + shade_ops) + (nbytes, render_ops + shade_ops)
+
+
 def k13_bound(state, scene, layout: str) -> tuple:
     """Least time for K13's work in ``layout`` (``pack_rows`` or
     ``pack_rows_raw``): each input read once, the [W, 40, S] rows written
@@ -1327,8 +1350,8 @@ def main() -> int:
           "seconds_each": build_s})
 
     # Per kernel name: the largest error against its plain version.
-    kernel_names = (rc.RENDER_VARIANTS + rc.BATCHED_VARIANTS + rc.SHADE_MIP_VARIANTS
-                    + pack_cuda.LAYOUTS)
+    kernel_names = (rc.RENDER_VARIANTS + rc.MIP_VARIANTS + rc.BATCHED_VARIANTS
+                    + rc.SHADE_MIP_VARIANTS + pack_cuda.LAYOUTS)
     max_err = {name: 0.0 for name in kernel_names + ladder.KERNELS}
 
     # ---- 2b. the GPU health ladder (madrona_renderer_tpu_torch/ladder.py):
@@ -1402,12 +1425,19 @@ def main() -> int:
     def handoff_name(kw):
         return rc.variant_name(kw["raster"], "mip", kw["geo"], route(kw), seeded(kw), dmxu(kw))
 
+    def pair_name(kw):
+        """K7's two launches' names: the hand-off and shade_mip."""
+        return f"{handoff_name(kw)}+shade_mip_{kw['texture']}"
+
     def variant(kw):
-        """The render kernel's variant; for K7 its two launches' names."""
+        """The render kernel's variant; for K7 the folded entry's name where
+        its plan takes the index visit's teams, else its two launches'."""
         if is_batched(kw):
             return rc.batched_name(kw["raster"], kw["nine"])
         if is_k7(kw):
-            return f"{handoff_name(kw)}+shade_mip_{kw['texture']}"
+            if rc.mip_plan(**kw).groups:
+                return rc.mip_name(kw["texture"])
+            return pair_name(kw)
         return rc.variant_name(kw["raster"], kw["texture"], kw["geo"], route(kw), seeded(kw),
                                dmxu(kw))
 
@@ -1548,11 +1578,12 @@ def main() -> int:
                                raster=kw["raster"], seeded=seeded(kw), **force)
 
     def is_index_visit(kw):
-        """K1's or K6's inputs in a mode the index visit's tile teams take
-        (prep rows, raytraced, untextured or nearest or bilinear, cold),
-        whatever the plan picks for their count of views."""
+        """Inputs in a mode the index visit's tile teams take (K1 and K6:
+        prep rows, raytraced, untextured or nearest or bilinear, cold; K7
+        folded; K8), whatever the plan picks for their count of views."""
         return (not is_batched(kw) and route(kw) == rc.INDEX and kw["clusters"] is not None
-                and index_plan_of(kw, groups=1).groups > 0)
+                and rc.index_takes(kw["geo"], "mip" if is_k7(kw) else kw["texture"],
+                                   kw["raster"], seeded(kw)))
 
     def forced_index_plan(groups):
         """rc.index_plan forced to ``groups`` tile groups (0: the parent
@@ -1561,27 +1592,48 @@ def main() -> int:
             return real_index_plan(*args, **dict(kwargs, groups=groups))
         return plan
 
+    def on_index_plan(fn, groups):
+        """``fn()`` with rc.index_plan forced to ``groups`` (0: the parent
+        design; K7's two launches; None: the plan's own)."""
+        rc.index_plan = real_index_plan if groups is None else forced_index_plan(groups)
+        try:
+            return fn()
+        finally:
+            rc.index_plan = real_index_plan
+
     def check_index_plans(tag, kw, k_out):
-        """K1's index visit at every forced plan, G = 1 and 2 groups of tile
+        """The index visit at every forced plan, G = 1 and 2 groups of tile
         teams (4 pixels a thread), and in its parent design (render_body's
-        16x16 blocks, a plan of 0 groups) on the same inputs, each bitwise
-        against the kernel's outputs ``k_out`` (held to the plain
-        version)."""
+        16x16 blocks, a plan of 0 groups; K7: its two launches) on the same
+        inputs, each bitwise against the kernel's outputs ``k_out`` (held to
+        the plain version): K1, K6, K7 folded (so also against the pair)
+        and K8."""
         same = {}
         for g in (0, *rc._INDEX_GROUP_CHOICES):
-            rc.index_plan = forced_index_plan(g)
             try:
-                out = rc.render_resident(**kw)
-            finally:
-                rc.index_plan = real_index_plan
+                out = on_index_plan(lambda: rc.render_resident(**kw), g)
+            except rc.LaunchPlanError:
+                # The teams' block does not fit these inputs: a forced plan
+                # is refused before any sweep, and the default is the parent.
+                if index_plan_of(kw).groups:
+                    raise
+                same[f"g{g}"] = "refused"
+                continue
             same[f"g{g}"] = all(torch.equal(x, y) for x, y in zip(out, k_out))
         emit({"phase": "plans_vs_kernel", "case": tag, "kernel": variant(kw),
               "plan": index_plan_of(kw)._asdict(), **same})
-        if not all(same.values()):
+        if not all(v is True or v == "refused" for v in same.values()):
             raise AssertionError(f"{tag} {variant(kw)}: a forced plan or the parent design "
                                  f"differs: {same}")
         if index_plan_of(kw).groups:
-            emit({"phase": "index_occupancy", "case": tag, **rc.index_occupancy(kw)})
+            occ = rc.index_occupancy(kw)
+            emit({"phase": "index_occupancy", "case": tag, **occ})
+            # index_plan counts blocks a multiprocessor by _INDEX_REGS: the
+            # entry's registers, as the card allocates them (8 at a time).
+            if -(-occ["registers"] // 8) * 8 != rc._INDEX_REGS[kw["geo"]]:
+                raise AssertionError(f"{tag} {occ['variant']}: {occ['registers']} registers a "
+                                     f"thread, index_plan assumes "
+                                     f"{rc._INDEX_REGS[kw['geo']]}")
 
     def forced_streamed_plan(groups, parts):
         """rc.streamed_plan forced, for K11 (dmxu), to ``groups`` tile groups
@@ -2281,7 +2333,8 @@ def main() -> int:
     # ---- 4. the paths --------------------------------------------------- #
     def reset_counts():
         rc.render_resident.launches = 0
-        rc.render_resident.variant_launches = dict.fromkeys(rc.RENDER_VARIANTS, 0)
+        rc.render_resident.variant_launches = dict.fromkeys(rc.RENDER_VARIANTS
+                                                            + rc.MIP_VARIANTS, 0)
         rc.render_batched.launches = 0
         rc.render_batched.variant_launches = dict.fromkeys(rc.BATCHED_VARIANTS, 0)
         rc.shade_mip.launches = 0
@@ -2703,6 +2756,7 @@ def main() -> int:
                 timing_kw.setdefault(handoff_name(kw), kw)
                 if geo == "prep" and not raster:
                     timing_kw[f"shade_mip_{filt}"] = kw
+                    timing_kw[rc.mip_name(filt)] = kw
     # The minified cube samples a coarse level of the chain.
     if not any(stats["pixels_per_level"][1:]):
         raise AssertionError(f"textured256_4096w: every hit sampled level 0: {stats}")
@@ -3496,7 +3550,8 @@ def main() -> int:
                                  lambda: handoff(kw, plain=True)),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "views": int(kw["cams"].shape[0]), **work, "bytes": nbytes, "ops": ops,
-            **plan_split(kw),
+            # The hand-off always runs the parent's 16x16 blocks on the index order.
+            **({"groups": 0} if route(kw) == rc.INDEX else plan_split(kw)),
         }
 
     def shade_row(name, kw):
@@ -3515,25 +3570,47 @@ def main() -> int:
             "views": int(code.shape[0]), "bytes": nbytes, "ops": ops,
         }
 
-    def k7_row(kw):
-        """Both K7 launches together, as the path runs them."""
-        _, _, b1, o1 = resident_bound(kw, walks(kw))
-        _, _, b2, o2 = shade_mip_bound(kw, handoff(kw)[2])
-        bound_ms, bound_by = roofline(b1 + b2, o1 + o2)
-        name = variant(kw)
-        return {
-            "name": name, "route": "cuda",
+    def k7_rows(kw):
+        """K7 on these inputs against its corrected bound (k7_bound): the
+        two launches together (the hand-off and shade_mip, the parent
+        design), and where the plan folds them, the folded entry too,
+        both timed in turns (folded, pair, pair, folded): (the folded
+        entry's row or None, the pair's row)."""
+        walk = walks(kw)
+        code = handoff(kw)[2]
+        bound_ms, bound_by, nbytes, ops = k7_bound(kw, walk, code)
+        del code
+        folds = rc.mip_plan(**kw).groups > 0
+        pair = lambda: on_index_plan(lambda: rc.render_resident(**kw), 0)
+        times = {"folded": [], "pair": []}
+        for which in (("folded", "pair", "pair", "folded") if folds else ("pair",)):
+            fn = (lambda: rc.render_resident(**kw)) if which == "folded" else pair
+            times[which].append(graph_ms(fn, KERNEL_REPS))
+        common = {"route": "cuda", "replaces": "madrona_renderer_tpu/ops/raytrace_pallas.py:4872",
+                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                  "views": int(kw["cams"].shape[0]), "triangle_visits": walk["triangle_visits"],
+                  "bytes": nbytes, "ops": ops}
+        name = pair_name(kw)
+        pair_row = {
+            "name": name,
             "source": "madrona_renderer_tpu_torch/csrc/render_resident.cu + "
                       "madrona_renderer_tpu_torch/csrc/shade_mip.cu",
-            "replaces": "madrona_renderer_tpu/ops/raytrace_pallas.py:4872",
             "launches": min(launches[part] for part in name.split("+")),
             "max_abs_err": max(max_err[part] for part in name.split("+")),
-            "ms": graph_ms(lambda: rc.render_resident(**kw), KERNEL_REPS),
+            "ms": statistics.mean(times["pair"]), "ms_turns": times["pair"],
+            "wrapper_ms": cuda_ms(pair, KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: rc.render_resident_plain(**kw), 2), **common}
+        if not folds:
+            return None, pair_row
+        folded = rc.mip_name(kw["texture"])
+        folded_row = {
+            "name": folded, "source": "madrona_renderer_tpu_torch/csrc/render_mip.cu",
+            "launches": launches[folded], "max_abs_err": max_err[folded],
+            "ms": statistics.mean(times["folded"]), "ms_turns": times["folded"],
             "wrapper_ms": cuda_ms(lambda: rc.render_resident(**kw), KERNEL_REPS),
-            "plain_ms": cuda_ms(lambda: rc.render_resident_plain(**kw), 2),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "views": int(kw["cams"].shape[0]), "bytes": b1 + b2, "ops": o1 + o2,
-        }
+            "plain_ms": pair_row["plain_ms"], "pair_ms": pair_row["ms"],
+            "groups": rc.mip_plan(**kw).groups, **common}
+        return folded_row, dict(pair_row, ab_of=folded)
 
     # The streamed variants bigmesh_512w does not run are timed on the
     # 64-world inputs of their first kernel_vs_plain scene, NEW_KERNEL_REPS
@@ -3550,6 +3627,19 @@ def main() -> int:
         reps = NEW_KERNEL_REPS if name in small else KERNEL_REPS
         rows.append(handoff_row(name, kw, reps) if is_k7(kw) else render_row(name, kw,
                                                                                 reps=reps))
+        if name == "render_resident_raw_shadows":
+            # K8 on the index visit's teams and its parent design (render_body's
+            # 16x16 blocks) on shadows_4096w's inputs, in turns.
+            turns = {"teams": [], "parent": []}
+            for which in ("teams", "parent", "parent", "teams"):
+                turns[which].append(graph_ms(
+                    lambda: on_index_plan(lambda: run_kernel(kw),
+                                          None if which == "teams" else 0), KERNEL_REPS))
+            emit({"phase": "timing", "inputs": "shadows_4096w", "name": name, "ab": "parent",
+                  "groups": plan_split(kw).get("groups"), "ms_turns": turns,
+                  "ms": statistics.mean(turns["parent"]),
+                  "teams_ms": statistics.mean(turns["teams"]),
+                  "bound_ms": rows[-1]["bound_ms"], "bound_by": rows[-1]["bound_by"]})
         if name == "render_resident":
             # K1 at 64x64 (main's inputs) and, a row of its own named
             # render_resident@128, at 128x128 (mxu_4096w_128's "auto"
@@ -3583,6 +3673,17 @@ def main() -> int:
     for name in rc.SHADE_MIP_VARIANTS:
         rows.append(shade_row(name, timing_kw[name]))
         emit({"phase": "timing", **rows[-1]})
+    # K7 folded (csrc/render_mip.cu) on textured256_4096w's inputs, each
+    # filter a row, timed in turns with the two launches it replaces (their
+    # A/B line below).
+    k7_pairs = []
+    for name in rc.MIP_VARIANTS:
+        folded_row, pair_row = k7_rows(timing_kw[name])
+        if folded_row is None:
+            raise AssertionError(f"textured256_4096w: {name}'s inputs take no folded plan")
+        rows.append(folded_row)
+        k7_pairs.append(pair_row)
+        emit({"phase": "timing", **rows[-1]})
     # L1-L3 on the tool's inputs; their library call is the one PyTorch
     # operator that computes each (x * 2, the broadcast add, sum(-1) and its
     # broadcast view).
@@ -3606,8 +3707,11 @@ def main() -> int:
             "library_ms": cuda_ms(lambda: library[name](*args), KERNEL_REPS),
             "blocks": int(args[-1].shape[0]), "bytes": nbytes, "ops": ops})
         emit({"phase": "timing", **rows[-1]})
+    for row in k7_pairs:
+        emit({"phase": "timing", "inputs": "textured256_4096w", **row})
     for kw in k7_timing:
-        emit({"phase": "timing", "inputs": "textured256_4096w", **k7_row(kw)})
+        if not rc.mip_plan(**kw).groups:  # the folded ones' pairs are above
+            emit({"phase": "timing", "inputs": "textured256_4096w", **k7_rows(kw)[1]})
     for name, path, inputs in extra_timing:
         row = k13_row(name, *inputs) if name in pack_cuda.LAYOUTS else render_row(name, inputs)
         emit({"phase": "timing", "inputs": path, **row})

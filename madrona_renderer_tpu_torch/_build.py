@@ -8,8 +8,9 @@ installed package (``cache_root``), named by a hash of the source, the
 sources it includes (``csrc/render_binned.cu``,
 ``csrc/render_binned_blocks.cu``, ``csrc/render_resident_ordered.cu``,
 ``csrc/render_resident_binned.cu``, ``csrc/render_seeded.cu``,
-``csrc/render_none.cu``, ``csrc/render_dmxu.cu`` and
-``csrc/render_streamed.cu`` include ``csrc/render_resident.cu``) and the
+``csrc/render_none.cu``, ``csrc/render_dmxu.cu``, ``csrc/render_mip.cu``
+and ``csrc/render_streamed.cu`` include ``csrc/render_resident.cu``, which
+with ``csrc/shade_mip.cu`` includes ``csrc/mip_sample.cuh``) and the
 flags, so an edited source or flag rebuilds and an unchanged one loads at
 once. Nothing is built when this module is imported: the first call that
 launches a kernel builds it. The sources ship in the package
@@ -205,6 +206,18 @@ SIGNATURES = {
            _I, _I,  # raster nine
            _I,  # pixels a thread (0: the parent design's 16x16 blocks)
            _P],  # stream
+    ),
+    "render_mip": (
+        "mrt_render_mip",
+        [_P, _P, _P, _P, _P,  # rows clusters cams table pool
+         _I,  # n_mats
+         _P, _P, _P,  # depth seg rgb
+         _I, _I, _I, _I, _I, _I, _I, _I, _I,  # num_views S CC cluster_size .. seg_div
+         _F, _F,  # two_over_w two_over_h
+         _I, _I,  # n_levels fb_rows
+         _I, _I, _I,  # the TPU tiling: tile_sub tiles_x n_tiles
+         _I, _I,  # filter, the index visit's groups a block
+         _P],  # stream
     ),
     "shade_mip": (
         "mrt_shade_mip",

@@ -1,4 +1,4 @@
-// K1 / K1-raw / K8 / K10 / K2 / K6, and the first launch of K7: resident,
+// K1 / K1-raw / K8 / K10 / K2 / K6, and K7 (folded, or its first launch): resident,
 // cluster-culled, shaded ray-cast with the fused export, on prep or raw
 // geometry rows, with the Möller–Trumbore or the watertight decision, with
 // or without shadow rays, in its raytrace and raster conventions,
@@ -118,7 +118,8 @@
 // block, though each thread computes them. Each is its own instruction
 // under --fmad=false (so against half the published 67 TFLOP/s); the writes are
 // 12 B per pixel (about 200 MB per step at 4096 views x 64x64; in the mip
-// hand-off mode 36 B, about 600 MB).
+// hand-off mode 36 B, about 600 MB, of which K7's function, folded or not,
+// needs the 12 B of depth, segmask and rgb).
 // chip_smoke.py works out the exact counts for its inputs. The texel pool
 // (at most 128 x 128 texels, 64 KB) stays in L1/L2: a texel read is one
 // cached 4-byte load (bilinear: four).
@@ -140,10 +141,18 @@
 // raytraced, untextured or nearest or bilinear (visit_body with PIX > 0,
 // index_tile: tile teams of 64 threads, 4 pixels
 // a thread, records of three float4 a triangle; render_index_kernel, taken
-// by raytrace_cuda.index_plan), bit for bit the parent's; its other modes
-// keep this design. Left for a later change: K1-raw's, K8's and K10's
-// blocks likewise; the shadow sweep's per-light pvec, det and 1/det, which
-// are per-triangle scalars, hoisted per block.
+// by raytrace_cuda.index_plan), bit for bit the parent's, and so do two
+// more modes: K7 folded (TEX = mip on the teams, its entry in
+// csrc/render_mip.cu: the teams hold each pixel's winner in shared memory;
+// after a block barrier mip_keys lowers each TPU tile's window keys there,
+// after another mip_pass samples every pixel of the view; one launch where
+// the parent design takes the hand-off and csrc/shade_mip.cu) and K8
+// (shadow_tile, render_index_shadows_kernel: records of four float4 a
+// triangle, the raw sweep's e1, e2 and the view's tv, q, t_num with v0, and
+// each (light, triangle)'s shadow pvec and 1/det, formed once a view, so
+// that the shadow test makes only the hit point's terms). The other modes
+// keep this design; K1-raw's and K10's blocks on the teams are left for a
+// later change.
 //
 // The streamed route (STREAM): meshes whose rows do not fit the resident
 // budget (32 * S * 4 bytes > 384 KB, the JAX package's dma_tris,
@@ -252,6 +261,8 @@
 
 #include <type_traits>
 
+#include "mip_sample.cuh"
+
 namespace {
 
 constexpr int kTileX = 16;
@@ -314,27 +325,13 @@ __device__ __forceinline__ float safe_dir(float d) {
   return fabsf(d) > kTiny ? d : (d < 0.f ? -kTiny : kTiny);
 }
 
-__device__ __forceinline__ float clip01(float x) {
-  return fminf(fmaxf(x, 0.f), 1.f);
-}
-
 __device__ __forceinline__ uint32_t quantize(float base, float s, bool hit) {
   float c = clip01(base * (kAmbient + kDiffuse * s));
   c = hit ? c : 0.f;
   return (uint32_t)(int)(c * 255.f + 0.5f);
 }
 
-// u8 → f32 texel value: an IEEE divide, bitwise np.float32(k) / 255 (the
-// bake's tex_data = u8 / 255).
-__device__ __forceinline__ float dequant(int k) {
-  return __fdiv_rn((float)k, 255.0f);
-}
-
-// Repeat wrap of an index in [-1, n] (:3140-3144).
-__device__ __forceinline__ int wrap(int i, int n) {
-  i = i < 0 ? i + n : i;
-  return i >= n ? i - n : i;
-}
+// clip01, dequant, wrap and the mip texel path: csrc/mip_sample.cuh.
 
 // The pvec test of a ray along d (:1373-1380, :2885-2903) on the raw
 // sweep's terms of its origin and the triangle, h[k * st] for k = 0..6:
@@ -663,6 +660,11 @@ __host__ __device__ constexpr int binned_stage_rows() {
 #define MRT_INDEX(k)
 #define MRT_INDEX_AFTER_FILL
 #endif
+// K7 folded: what the index visit's block holds a pixel between its tiles
+// and its keys and sample passes: the winner (best_t, best_idx), from which
+// each pass resolves again (holding the hand-off's 28 B instead ran 2.1x
+// slower at 64x64, one block an SM, and cannot hold a 128x128 view).
+constexpr int kMipHoldWords = 2;
 
 // The render kernel's body. STREAM false: the resident route (the world's
 // geometry rows in shared memory, clusters in index order); true: the
@@ -1291,6 +1293,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
         }
       } else if constexpr (!STREAM) {
         for (int c = 0; c < CC; ++c) {
+          MRT_INDEX(5);
           // The shadow ray's slab test (:2930-2948): tmax > 0, and pixels
           // already occluded drop out of the block-wide OR.
           const float t1x = (s_cl[0 * CC + c] - hx) * ivsx;
@@ -1306,6 +1309,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
           const bool possible = (tmax >= tmin) && (tmax > 0.f) && !occ;
           const int go = __syncthreads_or(possible);
           if (!go || !(s_cl[6 * CC + c] > 0.f)) continue;
+          MRT_INDEX(6);
           const int base = c * a.cluster_size;
           const int cnt = (int)s_cl[7 * CC + c];
           for (int i = base; i < base + cnt; ++i) {
@@ -1364,6 +1368,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
       }
       if (occ) occ_mask |= 1u << li;
     }
+    MRT_INDEX(3);
     if (!inside) return;
   }
 
@@ -1507,6 +1512,11 @@ struct VisitCtl {
     unsigned long long vote[4][2];
     int team_tile[8][2];  // K1's index visit: each tile team's two tile slots
   };
+  // K7 folded: the attribute rows and the held pixels' offset in floats
+  // from the block's shared memory, read back where they are used, so that
+  // neither stays in a register through the teams' sweeps.
+  const float* mip_attr;
+  int mip_hold;
 };
 constexpr int kVisitCtlBytes = 128;
 static_assert(sizeof(VisitCtl) <= kVisitCtlBytes, "the visit's shared head");
@@ -1530,7 +1540,18 @@ constexpr unsigned kBulkPiece = 32768;
 // leave ids for 2.
 constexpr int kIndexMaxGroups = 2;
 constexpr int kIndexPixels = 4;
+// K8's pixels a thread on the teams: 4 (116-118 registers, 2 blocks of one
+// group an SM) ran 6-31% slower at 64x64 than 2 (72 registers, 3 blocks)
+// and 8-11% faster at 128x128 (port_tools/mip_shadow_ab.py on an H100).
+constexpr int kShadowPixels = 2;
 constexpr int kIndexRecordFloats = 12;  // a triangle's record: three float4
+// K8's: four float4 a triangle, then one float4 a (light, triangle).
+constexpr int kShadowRecordFloats = 16;
+
+template <int GEO>
+__host__ __device__ constexpr int index_record_floats(int n_lights) {
+  return GEO == kGeoRawShadows ? kShadowRecordFloats + 4 * n_lights : kIndexRecordFloats;
+}
 
 // bar.sync on the named barrier `id` over kThreads threads: a tile group's
 // __syncthreads.
@@ -1918,6 +1939,77 @@ __device__ __forceinline__ void team_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
 }
 
+// K7 folded: a hit pixel's material, uv and footprint, and its normal,
+// resolved from its record and attribute rows with index_tile's and
+// render_body's expressions on the ray of pixel (px, py) traced again
+// (pixel_ray: the same bits), for the keys and the sample pass.
+struct MipHit {
+  int mat;
+  float u, v, fp, nx, ny, nz, dx, dy, dz;
+};
+
+// The ray of pixel (px, py) from the camera row (raytrace_pallas.py:1180-1188),
+// render_body's expressions: index_tile's and shadow_tile's rays, and the
+// K7 passes' that trace a pixel's ray again rather than keep it (the same
+// bits).
+__device__ __forceinline__ void pixel_ray(const RenderArgs& a, const float* s_cam, int px,
+                                          int py, float& dx, float& dy, float& dz) {
+  const float ra = (((float)px + 0.5f) * a.two_over_w - 1.0f) * s_cam[12];
+  const float rb = (1.0f - ((float)py + 0.5f) * a.two_over_h) * s_cam[13];
+  const float x = ra * s_cam[3] + s_cam[6] + rb * s_cam[9];
+  const float y = ra * s_cam[4] + s_cam[7] + rb * s_cam[10];
+  const float z = ra * s_cam[5] + s_cam[8] + rb * s_cam[11];
+  const float inv_len = 1.0f / sqrtf(x * x + y * y + z * z);
+  dx = x * inv_len;
+  dy = y * inv_len;
+  dz = z * inv_len;
+}
+
+// Lambert + ambient's sums over the lights (:3015-3035) for the normal
+// (nx, ny, nz), flipped toward the viewer first (:2800-2804); an occluded
+// light (bit li of occ_mask) adds nothing (:3030-3032).
+__device__ __forceinline__ void lambert(const RenderArgs& a, const float* s_cam, float nx,
+                                        float ny, float nz, float dx, float dy, float dz,
+                                        uint32_t occ_mask, float& sr, float& sg, float& sb) {
+  const float ndotd = nx * dx + ny * dy + nz * dz;
+  const float flip = ndotd > 0.f ? -1.0f : 1.0f;
+  nx = nx * flip;
+  ny = ny * flip;
+  nz = nz * flip;
+  const float n_inv = 1.0f / sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, kTiny));
+  sr = 0.f;
+  sg = 0.f;
+  sb = 0.f;
+  for (int li = 0; li < a.n_lights; ++li) {
+    const float* l = s_cam + kCamLight0 + 6 * li;
+    float nd = fmaxf(-(nx * l[0] + ny * l[1] + nz * l[2]) * n_inv, 0.f);
+    if ((occ_mask >> li) & 1u) nd = 0.f;
+    sr = sr + nd * l[3];
+    sg = sg + nd * l[4];
+    sb = sb + nd * l[5];
+  }
+}
+
+__device__ __forceinline__ void mip_hit(const RenderArgs& a, const float4* s_rec,
+                                        const float* attr, const float* s_cam, int px, int py,
+                                        int j, float best_t, MipHit& h) {
+  const int S = a.S;
+  pixel_ray(a, s_cam, px, py, h.dx, h.dy, h.dz);
+  const float4 r0 = s_rec[3 * j], r1 = s_rec[3 * j + 1], r2 = s_rec[3 * j + 2];
+  const float det = h.dx * r0.x + h.dy * r0.y + h.dz * r0.z;
+  const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+  const float uc = clip01((h.dx * r1.x + h.dy * r1.y + h.dz * r1.z) * inv);
+  const float vc = clip01((h.dx * r2.x + h.dy * r2.y + h.dz * r2.z) * inv);
+  h.nx = attr[6 * S + j] + uc * attr[9 * S + j] + vc * attr[12 * S + j];
+  h.ny = attr[7 * S + j] + uc * attr[10 * S + j] + vc * attr[13 * S + j];
+  h.nz = attr[8 * S + j] + uc * attr[11 * S + j] + vc * attr[14 * S + j];
+  h.mat = (int)attr[15 * S + j];
+  h.u = attr[0 * S + j] + uc * attr[2 * S + j] + vc * attr[4 * S + j];
+  h.v = attr[1 * S + j] + uc * attr[3 * S + j] + vc * attr[5 * S + j];
+  // The footprint t * (2 / height) * tan_y * density (:3237).
+  h.fp = best_t * a.two_over_h * s_cam[13] * attr[19 * S + j];
+}
+
 // One 16x16 tile of K1's index visit, walked by one tile team of
 // 256 / PIX threads (named barrier `bar`), a thread the pixels of rows
 // r, r + 16 / PIX, ... (PIX of them) of its column, so that each record's
@@ -1929,7 +2021,10 @@ __device__ __forceinline__ void team_sync(int id) {
 // records, the first minimum in index order (strict <: the lowest index
 // keeps an exact tie). The resolve reads the winner's record and its
 // attribute rows (`attr`, device memory), each expression as render_body
-// computes it.
+// computes it. TEX = mip (K7 folded): the tile writes depth and segmask
+// and holds each pixel's winner (best_t, best_idx) in shared memory
+// (VisitCtl::mip_hold) for the view's keys and sample passes (mip_keys,
+// mip_pass); no rgb.
 template <int TEX, int PIX>
 __device__ __forceinline__ void index_tile(const RenderArgs& a, const float4* s_rec,
                                            const float* attr, const float* s_cl,
@@ -1942,29 +2037,16 @@ __device__ __forceinline__ void index_tile(const RenderArgs& a, const float4* s_
   const int px = (tile % a.tiles_x) * kTileX + tt % kTileX;
   const int py0 = (tile / a.tiles_x) * kTileY + tt / kTileX;
 
-  const float rxx = s_cam[3], rxy = s_cam[4], rxz = s_cam[5];
-  const float fx = s_cam[6], fy = s_cam[7], fz = s_cam[8];
-  const float ux = s_cam[9], uy = s_cam[10], uz = s_cam[11];
-  const float tan_x = s_cam[12], tan_y = s_cam[13];
   const float near = s_cam[14], far = s_cam[15];
 
-  // Ray generation (raytrace_pallas.py:1180-1188) of each of the thread's
-  // pixels. Pixels past the image edge trace their ray too: they take part
-  // in their tile's gates and write nothing.
+  // Ray generation of each of the thread's pixels. Pixels past the image
+  // edge trace their ray too: they take part in their tile's gates and
+  // write nothing.
   float dx[PIX], dy[PIX], dz[PIX], ivx[PIX], ivy[PIX], ivz[PIX], best_t[PIX];
   int best_idx[PIX];
-  const float ra = (((float)px + 0.5f) * a.two_over_w - 1.0f) * tan_x;
 #pragma unroll
   for (int q = 0; q < PIX; ++q) {
-    const int py = py0 + kRowStep * q;
-    const float rb = (1.0f - ((float)py + 0.5f) * a.two_over_h) * tan_y;
-    float x = ra * rxx + fx + rb * ux;
-    float y = ra * rxy + fy + rb * uy;
-    float z = ra * rxz + fz + rb * uz;
-    const float inv_len = 1.0f / sqrtf(x * x + y * y + z * z);
-    dx[q] = x * inv_len;
-    dy[q] = y * inv_len;
-    dz[q] = z * inv_len;
+    pixel_ray(a, s_cam, px, py0 + kRowStep * q, dx[q], dy[q], dz[q]);
     ivx[q] = 1.0f / safe_dir(dx[q]);
     ivy[q] = 1.0f / safe_dir(dy[q]);
     ivz[q] = 1.0f / safe_dir(dz[q]);
@@ -2015,6 +2097,26 @@ __device__ __forceinline__ void index_tile(const RenderArgs& a, const float4* s_
   MRT_PHASE(3);
 
   const bool cam_ok = s_cam[kCamLight0 + 6 * a.n_lights] > 0.f;
+  if constexpr (TEX == kTexMip) {
+    // K7 folded: depth and segmask as the hand-off mode writes them, and
+    // each pixel's winner held for the view's passes.
+    extern __shared__ __align__(16) float smem[];
+    float* s_hold = smem + reinterpret_cast<const VisitCtl*>(smem)->mip_hold;
+    const int P = a.height * a.width;
+#pragma unroll
+    for (int q = 0; q < PIX; ++q) {
+      const int py = py0 + kRowStep * q;
+      if (px >= a.width || py >= a.height) continue;
+      const int j = best_idx[q];
+      const bool hit = j >= 0 && cam_ok;
+      const size_t o = ((size_t)view * a.height + py) * a.width + px;
+      a.depth[o] = hit ? best_t[q] : 0.f;
+      a.segmask[o] = hit ? j / a.seg_div : -1;
+      s_hold[py * a.width + px] = best_t[q];
+      reinterpret_cast<int*>(s_hold)[P + py * a.width + px] = j;
+    }
+    return;
+  }
 #pragma unroll
   for (int q = 0; q < PIX; ++q) {
     const int py = py0 + kRowStep * q;
@@ -2043,26 +2145,295 @@ __device__ __forceinline__ void index_tile(const RenderArgs& a, const float4* s_
         a2 = attr[1 * S + j] + uc * attr[3 * S + j] + vc * attr[5 * S + j];
       }
     }
-    // Two-sided: flip the normal toward the viewer (:2800-2804).
-    const float ndotd = nx * dx[q] + ny * dy[q] + nz * dz[q];
-    const float flip = ndotd > 0.f ? -1.0f : 1.0f;
-    nx = nx * flip;
-    ny = ny * flip;
-    nz = nz * flip;
-    // Base colour, lambert over the lights and the fused export, as
-    // render_body's (:3015-3050, :3186-3202).
+    // Base colour, lambert over the lights (the normal flipped toward the
+    // viewer) and the fused export, as render_body's (:3015-3050,
+    // :3186-3202).
     float br = a0, bg = a1, bb = a2;
     if (TEX == kTexNearest || TEX == kTexBilinear)
       textured_base<TEX>(a.mats, a.pool, a.n_mats, (int)a0, a1, a2, br, bg, bb);
-    const float n_inv = 1.0f / sqrtf(fmaxf(nx * nx + ny * ny + nz * nz, kTiny));
-    float sr = 0.f, sg = 0.f, sb = 0.f;
-    for (int li = 0; li < a.n_lights; ++li) {
-      const float* l = s_cam + kCamLight0 + 6 * li;
-      const float nd = fmaxf(-(nx * l[0] + ny * l[1] + nz * l[2]) * n_inv, 0.f);
-      sr = sr + nd * l[3];
-      sg = sg + nd * l[4];
-      sb = sb + nd * l[5];
+    float sr, sg, sb;
+    lambert(a, s_cam, nx, ny, nz, dx[q], dy[q], dz[q], 0u, sr, sg, sb);
+    const bool hit = found && cam_ok;
+    const uint32_t packed = quantize(br, sr, found) | (quantize(bg, sg, found) << 8) |
+                            (quantize(bb, sb, found) << 16) | kAlpha;
+    const size_t o = ((size_t)view * a.height + py) * a.width + px;
+    a.depth[o] = hit ? best_t[q] : 0.f;
+    a.segmask[o] = hit ? j / a.seg_div : -1;
+    a.rgb[o] = cam_ok ? packed : kAlpha;
+  }
+}
+
+// K7 folded, the view's keys pass: the block's threads take the view's
+// pixels in turn; each hit, resolved again from its held winner (mip_hit),
+// lowers its TPU tile's two window keys (s_keys: pref, anyf a tile,
+// shared-memory integer minima, so the order of the threads does not
+// matter; :3330-3336).
+template <int FILTER>
+__device__ __forceinline__ void mip_keys(const RenderArgs& a, const MipArgs& mp,
+                                         const float4* s_rec, const float* attr,
+                                         const float* s_cam, int* s_keys, const float* s_hold,
+                                         int tid, int n_thr) {
+  const int P = a.height * a.width;
+  for (int p = tid; p < P; p += n_thr) {
+    MRT_PHASE(7);
+    const int j = reinterpret_cast<const int*>(s_hold)[P + p];
+    if (j < 0) continue;  // a miss takes no part
+    const int px = p % a.width, py = p / a.width;
+    MipHit h;
+    mip_hit(a, s_rec, attr, s_cam, px, py, j, s_hold[p], h);
+    int pref = kMipBig, anyf = kMipBig;
+    window_keys<FILTER != kMipNearest>(a.mats, a.n_mats, mp, h.mat, h.u, h.v, h.fp, pref,
+                                       anyf);
+    int* key = s_keys + 2 * tpu_tile(mp, px, py, a.width);
+    if (pref < kMipBig) atomicMin(key, pref);
+    if (anyf < kMipBig) atomicMin(key + 1, anyf);
+  }
+}
+
+// K7 folded, the view's sample pass: after every team has walked every
+// tile of the view and the keys pass (so every TPU tile's keys are final), the block's
+// threads take the view's pixels in turn: the clamp, the sample and the
+// packed rgb from the tile's window base (mip_base, as csrc/shade_mip.cu's
+// second pass), the hit's uv, footprint and lambert sums resolved again
+// from its held winner, record and attribute rows (mip_hit).
+template <int FILTER>
+__device__ __forceinline__ void mip_pass(const RenderArgs& a, const MipArgs& mp,
+                                         const float4* s_rec, const float* attr,
+                                         const float* s_cam, const int* s_keys,
+                                         const float* s_hold, int view, int tid, int n_thr) {
+  const int S = a.S, P = a.height * a.width;
+  const bool cam_ok = s_cam[kCamLight0 + 6 * a.n_lights] > 0.f;
+  uint32_t* rgb = a.rgb + (size_t)view * P;
+  for (int p = tid; p < P; p += n_thr) {
+    MRT_PHASE(7);
+    const int px = p % a.width, py = p / a.width;
+    const int j = reinterpret_cast<const int*>(s_hold)[P + p];
+    // A pixel that shades nothing packs to opaque black.
+    if (!cam_ok || j < 0) {
+      rgb[p] = kAlpha;
+      continue;
     }
+    MipHit h;
+    mip_hit(a, s_rec, attr, s_cam, px, py, j, s_hold[p], h);
+    float sr, sg, sb;
+    lambert(a, s_cam, h.nx, h.ny, h.nz, h.dx, h.dy, h.dz, 0u, sr, sg, sb);
+    const int* key = s_keys + 2 * tpu_tile(mp, px, py, a.width);
+    float br, bg, bb;
+    mip_base<FILTER>(a.mats, a.pool, a.n_mats, mp, h.mat, true, h.u, h.v, h.fp,
+                     window_base(key[0], key[1]), br, bg, bb);
+    rgb[p] = quantize(br, sr) | (quantize(bg, sg) << 8) | (quantize(bb, sb) << 16) | kAlpha;
+  }
+}
+
+// K8's tile on the index visit's tile teams (GEO = raw_shadows, raytraced,
+// untextured or nearest or bilinear): one 16x16 tile walked by a team of
+// 256 / PIX threads (named barrier `bar`), PIX pixels a thread as
+// index_tile takes them. The records (four float4 a triangle: e1 and t_num,
+// e2 and v0.x, tv and v0.y, q and v0.z, with this view's tv = o - v0,
+// q = tv x e1 and t_num = e2 . q, formed once a view) serve the primary
+// pvec test; s_sh holds, per (light, triangle), pvec = sd x e2 and
+// inv = 1/det (0 where |det| <= eps), formed once a view with pvec_test's
+// expressions, so the shadow test makes only the hit point's terms. The
+// order of the work keeps the registers small: the primary sweep (K1's
+// gates on the view's gate terms), the hit points, then per light the
+// any-hit sweep (the shadow ray's slab test from the hit point, tmax > 0,
+// pixels occluded, missed or past the image out of the team's OR; the
+// tests against t > 1e-3 * (1 + t)), holding only the hit point, eps and
+// the occlusion bits; then each pixel's ray again, the winner's (u, v) from
+// its record (pvec_test's expressions on the values the parent's sweep
+// tested: the same bits as the carried pair), its attributes, the lambert
+// and the fused export, as render_body computes them.
+template <int TEX, int PIX>
+__device__ __forceinline__ void shadow_tile(const RenderArgs& a, const float4* s_rec,
+                                            const float4* s_sh, const float* attr,
+                                            const float* s_cl, const float* s_gate,
+                                            const float* s_cam, int view, int tile, int bar) {
+  constexpr int kTeam = kThreads / PIX;
+  constexpr int kRowStep = kTileY / PIX;
+  const int S = a.S, CC = a.CC, cs = a.cluster_size;
+  const int tt = (threadIdx.y * kTileX + threadIdx.x) % kTeam;
+  const int px = (tile % a.tiles_x) * kTileX + tt % kTileX;
+  const int py0 = (tile / a.tiles_x) * kTileY + tt / kTileX;
+  const float ox = s_cam[0], oy = s_cam[1], oz = s_cam[2];
+  const float near = s_cam[14], far = s_cam[15];
+
+  float best_t[PIX], hx[PIX], hy[PIX], hz[PIX], eps_sh[PIX];
+  int best_idx[PIX];
+  {
+    float dx[PIX], dy[PIX], dz[PIX], ivx[PIX], ivy[PIX], ivz[PIX];
+#pragma unroll
+    for (int q = 0; q < PIX; ++q) {
+      pixel_ray(a, s_cam, px, py0 + kRowStep * q, dx[q], dy[q], dz[q]);
+      ivx[q] = 1.0f / safe_dir(dx[q]);
+      ivy[q] = 1.0f / safe_dir(dy[q]);
+      ivz[q] = 1.0f / safe_dir(dz[q]);
+      best_t[q] = far;
+      best_idx[q] = -1;
+    }
+    for (int c = 0; c < CC; ++c) {
+      MRT_PHASE(1);
+      if (!(s_cl[6 * CC + c] > 0.f)) continue;  // the block's: no vote
+      const float lx = s_gate[0 * CC + c], ly = s_gate[1 * CC + c], lz = s_gate[2 * CC + c];
+      const float ux = s_gate[3 * CC + c], uy = s_gate[4 * CC + c], uz = s_gate[5 * CC + c];
+      bool possible = false;
+#pragma unroll
+      for (int q = 0; q < PIX; ++q) {
+        // The slab test (:1671-1697) with the scalar near.
+        const float t1x = lx * ivx[q];
+        const float t2x = ux * ivx[q];
+        const float t1y = ly * ivy[q];
+        const float t2y = uy * ivy[q];
+        const float t1z = lz * ivz[q];
+        const float t2z = uz * ivz[q];
+        const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+        const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+        possible = possible || ((tmax >= tmin) && (tmax > near) && (tmin < best_t[q]));
+      }
+      if (!team_or<kTeam>(bar, possible)) continue;
+      MRT_PHASE(2);
+      const int base = c * cs;
+      const int cnt = (int)s_cl[7 * CC + c];
+      for (int i = base; i < base + cnt; ++i) {
+        // The pvec test on the view's tv, q, t_num (:1373-1380).
+        const float4 r0 = s_rec[4 * i], r1 = s_rec[4 * i + 1];
+        const float4 r2 = s_rec[4 * i + 2], r3 = s_rec[4 * i + 3];
+#pragma unroll
+        for (int q = 0; q < PIX; ++q) {
+          const float pvx = dy[q] * r1.z - dz[q] * r1.y;
+          const float pvy = dz[q] * r1.x - dx[q] * r1.z;
+          const float pvz = dx[q] * r1.y - dy[q] * r1.x;
+          const float det = r0.x * pvx + r0.y * pvy + r0.z * pvz;
+          const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+          const float u = (r2.x * pvx + r2.y * pvy + r2.z * pvz) * inv;
+          const float v = (dx[q] * r3.x + dy[q] * r3.y + dz[q] * r3.z) * inv;
+          const float t = r0.w * inv;
+          const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
+                          (t > near) && (t < best_t[q]);
+          best_t[q] = ok ? t : best_t[q];
+          best_idx[q] = ok ? i : best_idx[q];
+        }
+      }
+    }
+    MRT_PHASE(3);
+    // The hit points (t = 0 on a miss, :2847-2860).
+#pragma unroll
+    for (int q = 0; q < PIX; ++q) {
+      const float t_hit = best_idx[q] >= 0 ? best_t[q] : 0.f;
+      hx[q] = ox + t_hit * dx[q];
+      hy[q] = oy + t_hit * dy[q];
+      hz[q] = oz + t_hit * dz[q];
+      eps_sh[q] = kShadowEps * (1.0f + t_hit);
+    }
+  }
+
+  // K8: one any-hit sweep per directional light, bit li of occ_mask set
+  // when light li is occluded.
+  uint32_t occ_mask[PIX];
+#pragma unroll
+  for (int q = 0; q < PIX; ++q) occ_mask[q] = 0;
+  for (int li = 0; li < a.n_lights; ++li) {
+    const float* l = s_cam + kCamLight0 + 6 * li;
+    const float sdx = -l[0], sdy = -l[1], sdz = -l[2];
+    const float ivsx = 1.0f / safe_dir(sdx);
+    const float ivsy = 1.0f / safe_dir(sdy);
+    const float ivsz = 1.0f / safe_dir(sdz);
+    const float4* sh = s_sh + (size_t)li * S;
+    // A miss's and an outside pixel's occlusion is dead: it stays out.
+    bool occ[PIX];
+#pragma unroll
+    for (int q = 0; q < PIX; ++q)
+      occ[q] = best_idx[q] < 0 || px >= a.width || py0 + kRowStep * q >= a.height;
+    for (int c = 0; c < CC; ++c) {
+      MRT_PHASE(5);
+      if (!(s_cl[6 * CC + c] > 0.f)) continue;
+      const float lx = s_cl[0 * CC + c], ly = s_cl[1 * CC + c], lz = s_cl[2 * CC + c];
+      const float ux = s_cl[3 * CC + c], uy = s_cl[4 * CC + c], uz = s_cl[5 * CC + c];
+      bool possible = false;
+#pragma unroll
+      for (int q = 0; q < PIX; ++q) {
+        // The shadow ray's slab test (:2930-2948).
+        const float t1x = (lx - hx[q]) * ivsx;
+        const float t2x = (ux - hx[q]) * ivsx;
+        const float t1y = (ly - hy[q]) * ivsy;
+        const float t2y = (uy - hy[q]) * ivsy;
+        const float t1z = (lz - hz[q]) * ivsz;
+        const float t2z = (uz - hz[q]) * ivsz;
+        const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+        const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+        possible = possible || ((tmax >= tmin) && (tmax > 0.f) && !occ[q]);
+      }
+      if (!team_or<kTeam>(bar, possible)) continue;
+      MRT_PHASE(6);
+      const int base = c * cs;
+      const int cnt = (int)s_cl[7 * CC + c];
+      for (int i = base; i < base + cnt; ++i) {
+        // The any-hit test along the light (:2885-2903) on the hoisted
+        // pvec and inv: tv = p - v0, q = tv x e1, then u, v, t.
+        const float4 r0 = s_rec[4 * i], r1 = s_rec[4 * i + 1];
+        const float4 r2 = s_rec[4 * i + 2], r3 = s_rec[4 * i + 3];
+        const float4 pv = sh[i];
+#pragma unroll
+        for (int q = 0; q < PIX; ++q) {
+          const float h0 = hx[q] - r1.w;
+          const float h1 = hy[q] - r2.w;
+          const float h2 = hz[q] - r3.w;
+          const float h3 = h1 * r0.z - h2 * r0.y;
+          const float h4 = h2 * r0.x - h0 * r0.z;
+          const float h5 = h0 * r0.y - h1 * r0.x;
+          const float h6 = r1.x * h3 + r1.y * h4 + r1.z * h5;
+          const float u = (h0 * pv.x + h1 * pv.y + h2 * pv.z) * pv.w;
+          const float v = (sdx * h3 + sdy * h4 + sdz * h5) * pv.w;
+          const float t = h6 * pv.w;
+          occ[q] = occ[q] ||
+                   ((fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) && (t > eps_sh[q]));
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < PIX; ++q) occ_mask[q] |= occ[q] ? 1u << li : 0u;
+  }
+  MRT_PHASE(3);
+
+  const bool cam_ok = s_cam[kCamLight0 + 6 * a.n_lights] > 0.f;
+#pragma unroll
+  for (int q = 0; q < PIX; ++q) {
+    const int py = py0 + kRowStep * q;
+    if (px >= a.width || py >= a.height) continue;
+    float dx, dy, dz;
+    pixel_ray(a, s_cam, px, py, dx, dy, dz);
+    // Winner resolve (:2725-2793): (u, v) from its record, the attributes
+    // by its index.
+    float nx = 0.f, ny = 0.f, nz = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f;
+    const int j = best_idx[q];
+    const bool found = j >= 0;
+    if (found) {
+      const float4 r0 = s_rec[4 * j], r1 = s_rec[4 * j + 1];
+      const float4 r2 = s_rec[4 * j + 2], r3 = s_rec[4 * j + 3];
+      const float pvx = dy * r1.z - dz * r1.y;
+      const float pvy = dz * r1.x - dx * r1.z;
+      const float pvz = dx * r1.y - dy * r1.x;
+      const float det = r0.x * pvx + r0.y * pvy + r0.z * pvz;
+      const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+      const float uc = clip01((r2.x * pvx + r2.y * pvy + r2.z * pvz) * inv);
+      const float vc = clip01((dx * r3.x + dy * r3.y + dz * r3.z) * inv);
+      nx = attr[6 * S + j] + uc * attr[9 * S + j] + vc * attr[12 * S + j];
+      ny = attr[7 * S + j] + uc * attr[10 * S + j] + vc * attr[13 * S + j];
+      nz = attr[8 * S + j] + uc * attr[11 * S + j] + vc * attr[14 * S + j];
+      if (TEX == kTexNone) {
+        a0 = attr[16 * S + j];
+        a1 = attr[17 * S + j];
+        a2 = attr[18 * S + j];
+      } else {
+        a0 = attr[15 * S + j];
+        a1 = attr[0 * S + j] + uc * attr[2 * S + j] + vc * attr[4 * S + j];
+        a2 = attr[1 * S + j] + uc * attr[3 * S + j] + vc * attr[5 * S + j];
+      }
+    }
+    float br = a0, bg = a1, bb = a2;
+    if (TEX == kTexNearest || TEX == kTexBilinear)
+      textured_base<TEX>(a.mats, a.pool, a.n_mats, (int)a0, a1, a2, br, bg, bb);
+    float sr, sg, sb;
+    lambert(a, s_cam, nx, ny, nz, dx, dy, dz, occ_mask[q], sr, sg, sb);
     const bool hit = found && cam_ok;
     const uint32_t packed = quantize(br, sr, found) | (quantize(bg, sg, found) << 8) |
                             (quantize(bb, sb, found) << 16) | kAlpha;
@@ -2085,16 +2456,26 @@ __device__ __forceinline__ void index_tile(const RenderArgs& a, const float4* s_
 // (PIX pixels a thread) taking the view's tiles one a team at a time from
 // the block's counter. Its fill: the records built by the threads from
 // the prep rows, the cluster table, the gate terms and the camera row (no
-// bulk copy).
-template <int GEO, bool RASTER, int TEX, bool BINNED, bool SEEDED, int PIX = 0>
+// bulk copy). TEX = mip (K7 folded, `mp` its tiling, FILTER its filter):
+// the TPU tiles' window keys too, and after the last tile a block barrier
+// and the view's sample pass (mip_pass). GEO = raw_shadows (K8,
+// shadow_tile): records of the raw rows with the view's tv, q, t_num, and
+// each (light, triangle)'s hoisted pvec and inv.
+template <int GEO, bool RASTER, int TEX, bool BINNED, bool SEEDED, int PIX = 0,
+          int FILTER = kMipNearest>
 __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order,
-                                           const BinArgs& bn, const float* seed) {
+                                           const BinArgs& bn, const float* seed,
+                                           const MipArgs& mp = MipArgs{}) {
   constexpr bool RAW = GEO != kGeoPrep;
   constexpr bool WT = GEO >= kGeoRawWt;
   constexpr bool INDEX = PIX > 0;
-  static_assert(!INDEX || (GEO == kGeoPrep && !RASTER && !BINNED && !SEEDED &&
-                           (TEX == kTexNone || TEX == kTexNearest || TEX == kTexBilinear)),
-                "K1's index visit: prep rows, raytraced, untextured, nearest or bilinear");
+  constexpr bool MIP = INDEX && TEX == kTexMip;
+  constexpr bool SHADOW_TEAMS = INDEX && GEO == kGeoRawShadows;
+  static_assert(!INDEX || (!RASTER && !BINNED && !SEEDED &&
+                           ((GEO == kGeoPrep && TEX != kTexNine) ||
+                            (GEO == kGeoRawShadows &&
+                             (TEX == kTexNone || TEX == kTexNearest || TEX == kTexBilinear)))),
+                "the index visit: K1 and K6 on prep rows (K7 folded too) and K8, raytraced");
   constexpr int kBlock = kThreads * visit_groups<GEO>();
   const int S = a.S, CC = a.CC;
   const int n_thr = INDEX ? (int)(blockDim.x * blockDim.y) : kBlock;
@@ -2103,10 +2484,14 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
   VisitCtl& ctl = *reinterpret_cast<VisitCtl*>(smem);
   // [smem_geo_rows, S]; the index visit's records.
   float* s_geo = smem + kVisitCtlBytes / sizeof(float);
-  float* s_cl = s_geo + (INDEX ? kIndexRecordFloats : smem_geo_rows<GEO>()) * S;  // [8, CC]
+  float* s_cl = s_geo + (INDEX ? index_record_floats<GEO>(a.n_lights) : smem_geo_rows<GEO>()) *
+                           S;                          // [8, CC]
   float* s_gate = s_cl + kClRows * CC;                     // [kGateRows, CC]
   float* s_cam = s_gate + kGateRows * CC;                  // [NCOL]
   int* s_order = reinterpret_cast<int*>(s_cam + a.n_cols);  // [CC] (ordered)
+  // K7 folded: the TPU tiles' keys [n_tiles, 2], then the held pixels.
+  [[maybe_unused]] int* s_keys = s_order;
+  [[maybe_unused]] float* s_hold = reinterpret_cast<float*>(s_keys + 2 * mp.n_tiles);
 
   const int view = blockIdx.x;
   const int world = view / a.num_cams;
@@ -2118,6 +2503,10 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
     ctl.next_tile = 0;
     if constexpr (!WT && !INDEX)
       bulk_fill(s_geo, g_rows, (RAW ? kRawRows : kPrepRows) * S * sizeof(float), &ctl.fill_bar);
+    if constexpr (MIP) {
+      ctl.mip_attr = g_rows + (size_t)kAttr0 * S;
+      ctl.mip_hold = (int)(s_hold - smem);
+    }
   }
   for (int i = tid; i < kClRows * CC; i += n_thr) s_cl[i] = g_cl[i];
   for (int i = tid; i < a.n_cols; i += n_thr) s_cam[i] = g_cam[i];
@@ -2146,7 +2535,43 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
     const int* g_order = order + (size_t)view * CC;
     for (int i = tid; i < CC; i += kBlock) s_order[i] = g_order[i];
   }
-  if constexpr (WT) {
+  if constexpr (MIP) {
+    for (int i = tid; i < 2 * mp.n_tiles; i += n_thr) s_keys[i] = kMipBig;
+  }
+  if constexpr (SHADOW_TEAMS) {
+    // K8's records (the raw sweep's per-(view, triangle) terms, :1342-1348:
+    // tv = o - v0, q = tv x e1, t_num = e2 . q, with e1, e2 and v0) and,
+    // per light, the shadow test's pvec = sd x e2 and inv (:2885-2903,
+    // pvec_test's expressions), sd = -dir.
+    const float ox = g_cam[0], oy = g_cam[1], oz = g_cam[2];
+    float4* s_rec = reinterpret_cast<float4*>(s_geo);
+    float4* s_sh = s_rec + 4 * S;
+    for (int i = tid; i < S; i += n_thr) {
+      const float e1x = g_rows[3 * S + i], e1y = g_rows[4 * S + i], e1z = g_rows[5 * S + i];
+      const float e2x = g_rows[6 * S + i], e2y = g_rows[7 * S + i], e2z = g_rows[8 * S + i];
+      const float v0x = g_rows[i], v0y = g_rows[S + i], v0z = g_rows[2 * S + i];
+      const float tvx = ox - v0x;
+      const float tvy = oy - v0y;
+      const float tvz = oz - v0z;
+      const float qx = tvy * e1z - tvz * e1y;
+      const float qy = tvz * e1x - tvx * e1z;
+      const float qz = tvx * e1y - tvy * e1x;
+      s_rec[4 * i] = make_float4(e1x, e1y, e1z, e2x * qx + e2y * qy + e2z * qz);
+      s_rec[4 * i + 1] = make_float4(e2x, e2y, e2z, v0x);
+      s_rec[4 * i + 2] = make_float4(tvx, tvy, tvz, v0y);
+      s_rec[4 * i + 3] = make_float4(qx, qy, qz, v0z);
+      for (int li = 0; li < a.n_lights; ++li) {
+        const float* l = g_cam + kCamLight0 + 6 * li;
+        const float sdx = -l[0], sdy = -l[1], sdz = -l[2];
+        const float pvx = sdy * e2z - sdz * e2y;
+        const float pvy = sdz * e2x - sdx * e2z;
+        const float pvz = sdx * e2y - sdy * e2x;
+        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+        s_sh[(size_t)li * S + i] =
+            make_float4(pvx, pvy, pvz, fabsf(det) > kEpsDet ? 1.0f / det : 0.0f);
+      }
+    }
+  } else if constexpr (WT) {
     // K10's per-(view, triangle) terms (:1393-1402): a = v0 - o,
     // b = a + e1, c = a + e2 with this view's camera origin, and the
     // validity.
@@ -2217,8 +2642,24 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
       const int tile = *slot;
       if (tile >= n_tiles) break;
       MRT_PHASE(3);
-      index_tile<TEX, PIX>(a, reinterpret_cast<const float4*>(s_geo), attr, s_cl, s_gate,
-                           s_cam, view, tile, 1 + team);
+      const float4* s_rec = reinterpret_cast<const float4*>(s_geo);
+      if constexpr (SHADOW_TEAMS)
+        shadow_tile<TEX, PIX>(a, s_rec, s_rec + 4 * S, attr, s_cl, s_gate, s_cam, view, tile,
+                              1 + team);
+      else
+        index_tile<TEX, PIX>(a, s_rec, attr, s_cl, s_gate, s_cam, view, tile, 1 + team);
+    }
+    if constexpr (MIP) {
+      // Every team has walked every tile of the view: every pixel's winner
+      // is held. Then the keys, and once they are final the sample.
+      __syncthreads();
+      const float4* s_rec = reinterpret_cast<const float4*>(s_geo);
+      const float* m_attr = ctl.mip_attr;
+      float* m_hold = smem + ctl.mip_hold;
+      int* m_keys = reinterpret_cast<int*>(m_hold) - 2 * mp.n_tiles;
+      mip_keys<FILTER>(a, mp, s_rec, m_attr, s_cam, m_keys, m_hold, tid, n_thr);
+      __syncthreads();
+      mip_pass<FILTER>(a, mp, s_rec, m_attr, s_cam, m_keys, m_hold, view, tid, n_thr);
     }
   } else {
     const int g = threadIdx.y / kTileY;
@@ -2248,11 +2689,46 @@ size_t visit_smem(const RenderArgs& a, bool ordered) {
          (ordered ? sizeof(int) * (size_t)a.CC : 0);
 }
 
-// Shared memory of K1's index visit block: the head, the records, the
-// cluster table, the gate terms and the camera row.
-size_t index_smem(const RenderArgs& a) {
-  return kVisitCtlBytes + sizeof(float) * ((size_t)kIndexRecordFloats * a.S +
-                                           (size_t)(kClRows + kGateRows) * a.CC + a.n_cols);
+// Shared memory of the index visit's block: the head, the records (K8:
+// and the hoisted shadow terms), the cluster table, the gate terms and the
+// camera row; K7 folded, the TPU tiles' keys and the held pixels
+// (kMipHoldWords a pixel) too.
+template <int GEO>
+size_t index_smem(const RenderArgs& a, const MipArgs* mp = nullptr) {
+  return kVisitCtlBytes +
+         sizeof(float) * ((size_t)index_record_floats<GEO>(a.n_lights) * a.S +
+                          (size_t)(kClRows + kGateRows) * a.CC + a.n_cols) +
+         (mp == nullptr ? 0
+                        : sizeof(int) * (2 * (size_t)mp->n_tiles +
+                                         (size_t)kMipHoldWords * a.height * a.width));
+}
+
+// One launch of an index visit's entry (K1 and K6, K8, K7 folded) at
+// `groups` groups a block, a block a view, `smem` bytes of dynamic shared
+// memory; cudaGetLastError() after it. With `query`, no launch: what the
+// card makes of the entry goes there instead (threads a block, registers a
+// thread, local memory a thread in bytes, blocks a multiprocessor).
+template <class... Params, class... Args>
+int index_entry(void (*kernel)(Params...), size_t smem, int num_views, int groups, int* query,
+                cudaStream_t stream, const Args&... args) {
+  int err = set_smem(kernel, smem);
+  if (err != 0) return err;
+  if (query == nullptr) {
+    kernel<<<num_views, dim3(kTileX, kTileY * groups), smem, stream>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  cudaFuncAttributes attr;
+  err = (int)cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                             kThreads * groups, smem);
+  if (err != 0) return err;
+  query[0] = kThreads * groups;
+  query[1] = attr.numRegs;
+  query[2] = (int)attr.localSizeBytes;
+  query[3] = blocks;
+  return 0;
 }
 
 // A resident visit route's entry argument: the visit's inputs, K9's seed
@@ -3043,47 +3519,47 @@ render_index_kernel(const RenderArgs a) {
   visit_body<kGeoPrep, false, TEX, false, false, kIndexPixels>(a, nullptr, BinArgs{}, nullptr);
 }
 
-// One launch of the index visit's entry at `groups` groups a block, a
-// block a view, `index_smem` bytes of dynamic shared memory;
-// cudaGetLastError() after it. With `query`, no launch: what the card makes
-// of the entry goes there instead (threads a block, registers a thread,
-// local memory a thread in bytes, blocks a multiprocessor).
+// K8 on the index visit's tile teams (raw rows with shadows, raytraced;
+// untextured, nearest or bilinear), kShadowPixels pixels a thread, 1 or 2
+// groups a block, a block a view; up to 128 registers a thread.
 template <int TEX>
-int index_launch(const RenderArgs& a, int num_views, int groups, int* query,
-                 cudaStream_t stream) {
-  const auto kernel = render_index_kernel<TEX>;
-  const size_t smem = index_smem(a);
-  int err = set_smem(kernel, smem);
-  if (err != 0) return err;
-  if (query == nullptr) {
-    kernel<<<num_views, dim3(kTileX, kTileY * groups), smem, stream>>>(a);
-    return (int)cudaGetLastError();
-  }
-  cudaFuncAttributes attr;
-  err = (int)cudaFuncGetAttributes(&attr, kernel);
-  int blocks = 0;
-  if (err == 0)
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                             kThreads * groups, smem);
-  if (err != 0) return err;
-  query[0] = kThreads * groups;
-  query[1] = attr.numRegs;
-  query[2] = (int)attr.localSizeBytes;
-  query[3] = blocks;
-  return 0;
+__global__ void __launch_bounds__(kThreads * kIndexMaxGroups, 1)
+render_index_shadows_kernel(const RenderArgs a) {
+  visit_body<kGeoRawShadows, false, TEX, false, false, kShadowPixels>(a, nullptr, BinArgs{},
+                                                                       nullptr);
 }
 
-int index_variant(const RenderArgs& a, int num_views, int tex_filter, int groups, int* query,
-                  cudaStream_t stream) {
-  if (groups < 1 || groups > kIndexMaxGroups) return (int)cudaErrorInvalidValue;
+template <int GEO, int TEX>
+int index_launch(const RenderArgs& a, int num_views, int groups, int* query,
+                 cudaStream_t stream) {
+  if constexpr (GEO == kGeoRawShadows)
+    return index_entry(render_index_shadows_kernel<TEX>, index_smem<GEO>(a), num_views, groups,
+                       query, stream, a);
+  else
+    return index_entry(render_index_kernel<TEX>, index_smem<GEO>(a), num_views, groups, query,
+                       stream, a);
+}
+
+template <int GEO>
+int index_tex(const RenderArgs& a, int num_views, int tex_filter, int groups, int* query,
+              cudaStream_t stream) {
   switch (tex_filter) {
     case kTexNone:
-      return index_launch<kTexNone>(a, num_views, groups, query, stream);
+      return index_launch<GEO, kTexNone>(a, num_views, groups, query, stream);
     case kTexNearest:
-      return index_launch<kTexNearest>(a, num_views, groups, query, stream);
+      return index_launch<GEO, kTexNearest>(a, num_views, groups, query, stream);
     case kTexBilinear:
-      return index_launch<kTexBilinear>(a, num_views, groups, query, stream);
+      return index_launch<GEO, kTexBilinear>(a, num_views, groups, query, stream);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+int index_variant(const RenderArgs& a, int num_views, int geo, int tex_filter, int groups,
+                  int* query, cudaStream_t stream) {
+  if (groups < 1 || groups > kIndexMaxGroups) return (int)cudaErrorInvalidValue;
+  if (geo == kGeoPrep) return index_tex<kGeoPrep>(a, num_views, tex_filter, groups, query, stream);
+  if (geo == kGeoRawShadows && a.n_lights <= 32)
+    return index_tex<kGeoRawShadows>(a, num_views, tex_filter, groups, query, stream);
   return (int)cudaErrorInvalidValue;
 }
 #endif  // MRT_RENDER_BODY_ONLY
@@ -3102,8 +3578,8 @@ extern "C" {
 // rgb when it is 3, code/handoff unless it is 3. Every cluster in index
 // order (K1); the streamed ordered walk is csrc/render_streamed.cu's.
 // groups 0: the parent design, one 16x16 block a tile (every variant);
-// 1 or 2: the index visit's groups of tile teams, a block a view (geo 0,
-// raster 0, tex_filter 0, 1 or 2), 4 pixels a thread. Returns
+// 1 or 2: the index visit's groups of tile teams, a block a view (geo 0
+// or 2, raster 0, tex_filter 0, 1 or 2), 4 pixels a thread. Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unknown variant or plan.
 int mrt_render_resident(const float* rows, const float* clusters,
@@ -3121,20 +3597,21 @@ int mrt_render_resident(const float* rows, const float* clusters,
   if (groups == 0)
     return launch_variant<ResidentRoute>(a, StreamArgs{nullptr, nullptr}, num_views, geo,
                                          raster, tex_filter, (cudaStream_t)stream);
-  if (geo != kGeoPrep || raster) return (int)cudaErrorInvalidValue;
-  return index_variant(a, num_views, tex_filter, groups, nullptr, (cudaStream_t)stream);
+  if (raster) return (int)cudaErrorInvalidValue;
+  return index_variant(a, num_views, geo, tex_filter, groups, nullptr, (cudaStream_t)stream);
 }
 
-// The index visit's entry (tex_filter, groups) at these sizes: threads a
-// block, registers, local memory bytes a thread and blocks a
+// The index visit's entry (geo, tex_filter, groups) at these sizes: threads
+// a block, registers, local memory bytes a thread and blocks a
 // multiprocessor, in out[0..3]. Returns 0, or the CUDA error of the query.
-int mrt_render_resident_occupancy(int tex_filter, int groups, int S, int CC, int n_cols,
-                                  int* out) {
+int mrt_render_resident_occupancy(int geo, int tex_filter, int groups, int S, int CC,
+                                  int n_cols, int n_lights, int* out) {
   RenderArgs a{};
   a.S = S;
   a.CC = CC;
   a.n_cols = n_cols;
-  return index_variant(a, 0, tex_filter, groups, out, nullptr);
+  a.n_lights = n_lights;
+  return index_variant(a, 0, geo, tex_filter, groups, out, nullptr);
 }
 
 const char* mrt_error_string(int err) {

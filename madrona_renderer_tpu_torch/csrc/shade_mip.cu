@@ -47,29 +47,23 @@
 // 350 KB) sits in L2.
 // The design is the simple one: 256 threads a block, each taking every
 // 256th pixel of the tile twice (once for the window keys, once to shade),
-// recomputing the taps rather than keeping them. Left for a later change:
-// folding this launch into the render kernel, whose 16x16 blocks are not
-// the TPU's tiles, to save the hand-off's round trip.
+// recomputing the taps rather than keeping them. It serves every mode of K7
+// but the one K1's index visit takes (prep rows, raytraced, cold, on tile
+// teams: csrc/render_mip.cu folds this launch into the render kernel, one
+// launch a step without the hand-off's round trip); the texel path both
+// share is csrc/mip_sample.cuh's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mip_sample.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLane = 128;       // texels a pool row; pixels a tile row
-constexpr int kPageRows = 128;   // TEX_PAGE_ROWS: rows of one window
-constexpr int kBig = 1 << 30;
 constexpr int kFoundBit = 1 << 16;
 constexpr int kShadedBit = 1 << 17;
 constexpr int kMatMask = 0xFFFF;
-
-constexpr int kNearest = 0;
-constexpr int kBilinear = 1;
-constexpr int kTrilinear = 2;
-
-constexpr float kAmbient = 0.2f;
-constexpr float kDiffuse = (float)(1.0 - 0.2);
 constexpr uint32_t kAlpha = 0xFF000000u;
 
 struct Args {
@@ -79,150 +73,44 @@ struct Args {
   const float* table;
   const int* pool;
   uint32_t* rgb;
-  int n_cols, cam_valid_col, n_mats, n_levels, fb_rows, height, width,
-      tile_sub, tiles_x;
+  int n_cols, cam_valid_col, n_mats;
+  MipArgs m;
+  int height, width;
 };
-
-__device__ __forceinline__ float clip01(float x) {
-  return fminf(fmaxf(x, 0.f), 1.f);
-}
-
-__device__ __forceinline__ uint32_t quantize(float base, float s) {
-  const float c = clip01(base * (kAmbient + kDiffuse * s));
-  return (uint32_t)(int)(c * 255.f + 0.5f);
-}
-
-__device__ __forceinline__ float dequant(int k) {
-  return __fdiv_rn((float)k, 255.0f);
-}
-
-__device__ __forceinline__ int wrap(int i, int n) {
-  i = i < 0 ? i + n : i;
-  return i >= n ? i - n : i;
-}
-
-// sum_l [fp >= 2^l], l = 1 .. L-1 (ops/mips.py::mip_level).
-__device__ __forceinline__ int mip_level(float fp, int n_levels) {
-  int lvl = 0;
-  for (int l = 1; l < n_levels; ++l) lvl += fp >= (float)(1 << l) ? 1 : 0;
-  return lvl;
-}
-
-// The taps of one level (:3259-3296): flat pool indices, and for bilinear
-// the weights. Offsets and sizes travel as f32 (exact below 2^24).
-struct Taps {
-  int flat[4];
-  float ax, ay;
-};
-
-template <bool BILINEAR>
-__device__ __forceinline__ Taps taps_at(const Args& a, int mat, float uu,
-                                        float vv, int lvl) {
-  const float off = a.table[(4 + 3 * lvl) * a.n_mats + mat];
-  const float wf = a.table[(5 + 3 * lvl) * a.n_mats + mat];
-  const float hf = a.table[(6 + 3 * lvl) * a.n_mats + mat];
-  const int w_i = (int)wf, h_i = (int)hf, off_i = (int)off;
-  Taps t;
-  if (!BILINEAR) {
-    // A plain cast truncates toward zero, as astype(int32) does.
-    const int tx = min(max((int)(uu * wf), 0), w_i - 1);
-    const int ty = min(max((int)((1.0f - vv) * hf), 0), h_i - 1);
-    t.flat[0] = off_i + ty * w_i + tx;
-    t.ax = t.ay = 0.f;
-    return t;
-  }
-  const float fx = uu * wf - 0.5f;
-  const float fy = (1.0f - vv) * hf - 0.5f;
-  const float x0f = floorf(fx);
-  const float y0f = floorf(fy);
-  t.ax = fx - x0f;
-  t.ay = fy - y0f;
-  const int x0 = (int)x0f, y0 = (int)y0f;
-  const int xa = wrap(x0, w_i), xb = wrap(x0 + 1, w_i);
-  const int ya = wrap(y0, h_i), yb = wrap(y0 + 1, h_i);
-  t.flat[0] = off_i + ya * w_i + xa;  // (0, 0)
-  t.flat[1] = off_i + ya * w_i + xb;  // (1, 0)
-  t.flat[2] = off_i + yb * w_i + xa;  // (0, 1)
-  t.flat[3] = off_i + yb * w_i + xb;  // (1, 1)
-  return t;
-}
-
-template <bool BILINEAR>
-__device__ __forceinline__ void row_span(const Taps& t, int& lo, int& hi) {
-  lo = hi = t.flat[0] / kLane;
-  if (BILINEAR) {
-    for (int k = 1; k < 4; ++k) {
-      const int r = t.flat[k] / kLane;
-      lo = min(lo, r);
-      hi = max(hi, r);
-    }
-  }
-}
-
-// The texel colour of one level's taps (:3579-3597).
-template <bool BILINEAR>
-__device__ __forceinline__ void sample(const int* __restrict__ pool,
-                                       const Taps& t, float c[3]) {
-  if (!BILINEAR) {
-    const int texel = pool[t.flat[0]];
-    for (int ch = 0; ch < 3; ++ch) c[ch] = dequant((texel >> (8 * ch)) & 255);
-    return;
-  }
-  const int t00 = pool[t.flat[0]], t10 = pool[t.flat[1]];
-  const int t01 = pool[t.flat[2]], t11 = pool[t.flat[3]];
-  for (int ch = 0; ch < 3; ++ch) {
-    const int sh = 8 * ch;
-    const float c00 = dequant((t00 >> sh) & 255);
-    const float c10 = dequant((t10 >> sh) & 255);
-    const float c01 = dequant((t01 >> sh) & 255);
-    const float c11 = dequant((t11 >> sh) & 255);
-    const float top = c00 * (1.0f - t.ax) + c10 * t.ax;
-    const float bot = c01 * (1.0f - t.ax) + c11 * t.ax;
-    c[ch] = top * (1.0f - t.ay) + bot * t.ay;
-  }
-}
 
 // Pixel j of the block's tile → its flat index in the view, or -1 for the
 // tile's overhang past the image (which never widens the window, :3243).
 __device__ __forceinline__ int tile_pixel(const Args& a, int tile, int j) {
-  const int sub = j / kLane, lane = j % kLane;
-  if (a.tiles_x > 1) {
-    const int y = (tile / a.tiles_x) * a.tile_sub + sub;
-    const int x = (tile % a.tiles_x) * kLane + lane;
+  const int sub = j / kMipLane, lane = j % kMipLane;
+  if (a.m.tiles_x > 1) {
+    const int y = (tile / a.m.tiles_x) * a.m.tile_sub + sub;
+    const int x = (tile % a.m.tiles_x) * kMipLane + lane;
     return y < a.height ? y * a.width + x : -1;
   }
-  const int p = tile * a.tile_sub * kLane + j;
+  const int p = tile * a.m.tile_sub * kMipLane + j;
   return p < a.height * a.width ? p : -1;
 }
 
 template <int FILTER>
 __global__ void __launch_bounds__(kThreads) shade_mip_kernel(const Args a) {
-  constexpr bool BILINEAR = FILTER != kNearest;  // the primary taps
+  constexpr bool BILINEAR = FILTER != kMipNearest;  // the primary taps
   const int view = blockIdx.x, tile = blockIdx.y;
   const int P = a.height * a.width;
   const size_t plane = (size_t)gridDim.x * P;
   const int* code = a.code + (size_t)view * P;
   const float* hf = a.handoff + (size_t)view * P;
-  const int tile_pix = a.tile_sub * kLane;
+  const int tile_pix = a.m.tile_sub * kMipLane;
 
   // Pass 1: the tile's two window keys (:3330-3336). The loop count is the
   // same for every thread, so every thread reaches the reductions.
-  int pref = kBig, anyf = kBig;
+  int pref = kMipBig, anyf = kMipBig;
   for (int j = threadIdx.x; j < tile_pix; j += kThreads) {
     const int p = tile_pixel(a, tile, j);
     if (p < 0) continue;
     const int c = code[p];
     if (!(c & kFoundBit)) continue;
-    const float u = hf[p], v = hf[plane + p];
-    const int lvl = mip_level(hf[2 * plane + p], a.n_levels);
-    int lo, hi;
-    row_span<BILINEAR>(
-        taps_at<BILINEAR>(a, c & kMatMask, u - floorf(u), v - floorf(v), lvl), lo,
-        hi);
-    if (hi >= a.fb_rows && hi - lo < kPageRows) {
-      anyf = min(anyf, lo);
-      if (lvl == 0) pref = min(pref, lo);
-    }
+    window_keys<BILINEAR>(a.table, a.n_mats, a.m, c & kMatMask, hf[p], hf[plane + p],
+                          hf[2 * plane + p], pref, anyf);
   }
   __shared__ int s_min[2][kThreads / 32];
   pref = __reduce_min_sync(0xffffffffu, pref);
@@ -238,9 +126,7 @@ __global__ void __launch_bounds__(kThreads) shade_mip_kernel(const Args a) {
     pref = min(pref, s_min[0][w]);
     anyf = min(anyf, s_min[1][w]);
   }
-  int r0 = pref < kBig ? pref : anyf;
-  r0 = r0 < kBig ? r0 : 0;
-  const int base_row = (r0 / 8) * 8;
+  const int base_row = window_base(pref, anyf);
 
   // Pass 2: clamp, sample, shade, pack.
   const float* cam = a.cams + (size_t)view * a.n_cols;
@@ -255,42 +141,10 @@ __global__ void __launch_bounds__(kThreads) shade_mip_kernel(const Args a) {
       rgb[p] = kAlpha;
       continue;
     }
-    const int mat = c & kMatMask;
-    const float u = hf[p], v = hf[plane + p], fp = hf[2 * plane + p];
-    const float uu = u - floorf(u), vv = v - floorf(v);
-    const int lvl = mip_level(fp, a.n_levels);
-    const int top = a.n_levels - 1;
-    int lo, hi;
-    row_span<BILINEAR>(taps_at<BILINEAR>(a, mat, uu, vv, lvl), lo, hi);
-    const bool fine = (c & kFoundBit) && hi >= a.fb_rows;
-    const bool in_window = lo >= base_row && hi < base_row + kPageRows;
-    const int fit = (int)a.table[3 * a.n_mats + mat];
-    const int lvl_f = fine && !in_window ? max(lvl, fit) : lvl;
-    float col[3];
-    sample<BILINEAR>(a.pool, taps_at<BILINEAR>(a, mat, uu, vv, lvl_f), col);
-    if (FILTER == kTrilinear) {
-      // The blend is live where fp / 2^lvl - 1 > 0 at the unclamped level
-      // (:3352-3355); a live pixel in the window whose secondary taps are
-      // neither resident nor in the window keeps its primary level alone.
-      const bool live = fp / (float)(1 << lvl) - 1.0f > 0.0f;
-      int slo, shi;
-      row_span<true>(taps_at<true>(a, mat, uu, vv, min(lvl + 1, top)), slo, shi);
-      const bool sec_ok = !live || shi < a.fb_rows ||
-                          (slo >= base_row && shi < base_row + kPageRows);
-      const bool kill = fine && in_window && !sec_ok;
-      float wgt = clip01(fp / (float)(1 << lvl_f) - 1.0f);
-      wgt = kill ? 0.f : wgt;
-      float col1[3];
-      sample<true>(a.pool, taps_at<true>(a, mat, uu, vv, min(lvl_f + 1, top)),
-                   col1);
-      for (int ch = 0; ch < 3; ++ch)
-        col[ch] = col[ch] * (1.0f - wgt) + col1[ch] * wgt;
-    }
-    const float br = a.table[mat] * col[0];
-    const float bg = a.table[a.n_mats + mat] * col[1];
-    const float bb = a.table[2 * a.n_mats + mat] * col[2];
-    rgb[p] = quantize(br, hf[3 * plane + p]) |
-             (quantize(bg, hf[4 * plane + p]) << 8) |
+    float br, bg, bb;
+    mip_base<FILTER>(a.table, a.pool, a.n_mats, a.m, c & kMatMask, (c & kFoundBit) != 0,
+                     hf[p], hf[plane + p], hf[2 * plane + p], base_row, br, bg, bb);
+    rgb[p] = quantize(br, hf[3 * plane + p]) | (quantize(bg, hf[4 * plane + p]) << 8) |
              (quantize(bb, hf[5 * plane + p]) << 16) | kAlpha;
   }
 }
@@ -318,12 +172,13 @@ int mrt_shade_mip(const int* code, const float* handoff, const float* cams,
                   int tile_sub, int tiles_x, int n_tiles, int filter,
                   void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const Args a{code, handoff, cams, table, pool, rgb, n_cols, cam_valid_col,
-               n_mats, n_levels, fb_rows, height, width, tile_sub, tiles_x};
+  const MipArgs m{n_levels, fb_rows, tile_sub, tiles_x, n_tiles};
+  const Args a{code, handoff, cams, table, pool, rgb, n_cols, cam_valid_col, n_mats, m,
+               height, width};
   switch (filter) {
-    case kNearest: return launch<kNearest>(a, num_views, n_tiles, st);
-    case kBilinear: return launch<kBilinear>(a, num_views, n_tiles, st);
-    case kTrilinear: return launch<kTrilinear>(a, num_views, n_tiles, st);
+    case kMipNearest: return launch<kMipNearest>(a, num_views, n_tiles, st);
+    case kMipBilinear: return launch<kMipBilinear>(a, num_views, n_tiles, st);
+    case kMipTrilinear: return launch<kMipTrilinear>(a, num_views, n_tiles, st);
   }
   return (int)cudaErrorInvalidValue;
 }

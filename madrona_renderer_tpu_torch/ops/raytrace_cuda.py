@@ -242,12 +242,22 @@ _FILL_ALIGN = 16
 # the 128-byte head, each triangle's prep rows as a record of 12 floats (D,
 # t_num, A, Q: three float4), the cluster table and the view's gate terms
 # (8 + 7 rows) and the camera row. Groups: 1 where a view has fewer than
-# _INDEX_TILES_FOR_TWO tiles (64x64: 16), else 2 (128x128: 64). The other
-# modes of K1 (raster, raw rows, the mip hand-off) and K9 on K1 keep the
-# parent design, render_body's 16x16 blocks: a plan of 0 groups.
+# _INDEX_TILES_FOR_TWO tiles (64x64: 16), else 2 (128x128: 64). The teams
+# take two more modes: K7 folded (the mip sample in the same launch,
+# csrc/render_mip.cu: the block also holds the TPU tiles' two window keys
+# and each pixel's winner, _MIP_HOLD_WORDS words, between its tile and the
+# view's sample pass) and K8 (raw rows with shadows: records of 16 floats a
+# triangle, the raw sweep's e1, e2, tv, q, t_num and v0, and 4 a (light,
+# triangle), the shadow test's hoisted pvec and 1/det, 2 pixels a thread;
+# its entry takes 72 registers a thread, the others 64). The other modes of
+# K1 (raster, raw rows without shadows, K10, the 9-output mode) and K9 on K1
+# keep the parent design, render_body's 16x16 blocks: a plan of 0 groups.
 _INDEX_TILES_FOR_TWO = 64
 _INDEX_GROUP_CHOICES = (1, 2)
 _INDEX_RECORD_FLOATS = 12
+_SHADOW_RECORD_FLOATS = 16
+_MIP_HOLD_WORDS = 2
+_INDEX_REGS = {"prep": 64, "raw_shadows": 72}
 # The streamed walk's slack: the occlusion early exit's on squared distances
 # (the JAX kernel's), the slab test's on t (a tie must not be culled).
 _F_EXIT_SLACK = float(np.float32(0.998))
@@ -547,47 +557,72 @@ def check_resident_plan(rows: torch.Tensor, n_clusters: int, n_lights: int, geo:
 
 
 class IndexPlan(NamedTuple):
-    """K1's launch (``index_plan``): ``groups`` groups of 4 tile teams a
-    block, a block a view, 4 pixels a thread (0 groups: the parent design,
-    one 16x16 block a tile, one pixel a thread), and ``smem_bytes`` of
-    shared memory a block."""
+    """The index visit's launch (``index_plan``): ``groups`` groups of 4
+    tile teams a block, a block a view, 4 pixels a thread (K8: 2; 0 groups:
+    the parent design, one 16x16 block a tile, one pixel a thread; K7 then
+    takes two launches, the hand-off and ``shade_mip``), and ``smem_bytes``
+    of shared memory a block."""
 
     groups: int
     smem_bytes: int
 
 
-def index_block_bytes(S: int, n_clusters: int, n_lights: int) -> int:
-    """Shared memory a block of K1's index visit takes (``index_smem`` in
-    ``csrc/render_resident.cu``): the head, the records, the cluster table
-    and gate terms, and the camera row."""
-    return _VISIT_HEAD_BYTES + 4 * (_INDEX_RECORD_FLOATS * S + _VISIT_CLUSTER_ROWS * n_clusters
+def index_block_bytes(S: int, n_clusters: int, n_lights: int, geo: str = "prep",
+                      height: int = 0, width: int = 0, mip: bool = False) -> int:
+    """Shared memory a block of the index visit's tile teams takes
+    (``index_smem`` in ``csrc/render_resident.cu``): the head, the records
+    (``geo`` "raw_shadows", K8: 16 floats a triangle and 4 a light and
+    triangle), the cluster table and gate terms, and the camera row; with
+    ``mip`` (K7 folded, at ``height`` x ``width``) the TPU tiles' window
+    keys (two words a tile of ``mips.tile_geometry``) and each pixel's held
+    winner too."""
+    rec = (_INDEX_RECORD_FLOATS if geo == "prep"
+           else _SHADOW_RECORD_FLOATS + 4 * n_lights)
+    smem = _VISIT_HEAD_BYTES + 4 * (rec * S + _VISIT_CLUSTER_ROWS * n_clusters
                                     + _n_cam_cols(n_lights))
+    if mip:
+        smem += 4 * (2 * mips.tile_geometry(height, width)[2] + _MIP_HOLD_WORDS * height * width)
+    return smem
+
+
+def index_takes(geo: str, texture=None, raster: bool = False, seeded: bool = False) -> bool:
+    """Whether the index visit's tile teams take this mode: raytraced and
+    cold, on prep rows untextured, with the ``"nearest"`` or
+    ``"bilinear"`` filter (K1, K6) or ``"mip"`` (K7 folded), or on raw rows
+    with shadows untextured, nearest or bilinear (K8)."""
+    if raster or seeded:
+        return False
+    if geo == "prep":
+        return texture in (None, "mip") + shade.FILTERS
+    return geo == "raw_shadows" and texture in (None,) + shade.FILTERS
 
 
 def index_plan(geo: str, S: int, n_clusters: int, n_lights: int, num_views: int,
                height: int, width: int, texture=None, sm_count: int = _H100_SMS, *,
                raster: bool = False, seeded: bool = False, groups=None) -> IndexPlan:
-    """K1's launch on these inputs (``sm_count``: the card's
-    multiprocessors, the H100's 132 by default). The index visit's tile
-    teams take prep rows, raytraced, untextured or with the ``"nearest"``
-    or ``"bilinear"`` filter, cold: ``groups`` of 4 teams a block (by
-    default 1, or 2 where the view has at least _INDEX_TILES_FOR_TWO tiles),
-    a block a view. By default the parent design (0 groups: its 16x16
-    block's rows, cluster table and camera row) where the teams' block does
-    not fit 227 KB, where the views are fewer than the blocks the card holds
-    at once (by registers, 64 a thread, and shared memory), and in every
-    other mode (raster, raw rows, the mip hand-off, the 9-output mode, K9's
-    seed); with ``groups`` 0 too. A forced ``groups`` other than 0, 1 or 2,
-    or one whose block does not fit, is ``LaunchPlanError``."""
+    """The resident index order's launch on these inputs (``sm_count``: the
+    card's multiprocessors, the H100's 132 by default). The index visit's
+    tile teams take the modes of ``index_takes`` (K1, K6, K7 folded as
+    ``texture="mip"``, K8): ``groups`` of 4 teams a block (by default 1, or
+    2 where the view has at least _INDEX_TILES_FOR_TWO tiles), a block a
+    view. By default the parent design (0 groups: its 16x16 block's rows,
+    cluster table and camera row; K7's two launches) where the teams' block
+    does not fit 227 KB, where the views are fewer than the blocks the card
+    holds at once (by registers, _INDEX_REGS a thread, and shared memory),
+    and in every other mode (raster, raw rows without shadows, K10, the
+    9-output mode, K9's seed); with ``groups`` 0 too. A forced ``groups``
+    other than 0, 1 or 2, or one whose block does not fit, is
+    ``LaunchPlanError``."""
     parent = IndexPlan(0, 4 * (_VISIT_GEO_ROWS[geo] * S + 8 * n_clusters
                                + _n_cam_cols(n_lights)))
-    if geo != "prep" or raster or seeded or texture not in (None,) + shade.FILTERS:
+    if not index_takes(geo, texture, raster, seeded):
         return parent
-    smem = index_block_bytes(S, n_clusters, n_lights)
+    smem = index_block_bytes(S, n_clusters, n_lights, geo, height, width, texture == "mip")
     if groups is None:
         n_tiles = -(-height // _TILE) * -(-width // _TILE)
         groups = 2 if n_tiles >= _INDEX_TILES_FOR_TWO else 1
-        per_sm = max(1, min(_SM_REGS // (_TILE ** 2 * groups * 64), _SM_SMEM // (smem + 1024)))
+        per_sm = max(1, min(_SM_REGS // (_TILE ** 2 * groups * _INDEX_REGS[geo]),
+                            _SM_SMEM // (smem + 1024)))
         if smem > _MAX_SMEM or num_views < sm_count * per_sm:
             return parent
         return IndexPlan(groups, smem)
@@ -597,16 +632,16 @@ def index_plan(geo: str, S: int, n_clusters: int, n_lights: int, num_views: int,
         raise LaunchPlanError(f"K1's index visit takes {_INDEX_GROUP_CHOICES} tile groups a "
                               f"block (0: the parent design), not {groups}")
     if smem > _MAX_SMEM:
-        raise LaunchPlanError(f"K1's index visit needs {smem} bytes of shared memory for {S} "
-                              f"slots, {n_clusters} clusters and {n_lights} lights (at most "
-                              f"{_MAX_SMEM})")
+        raise LaunchPlanError(f"the index visit ({geo}, {texture}) needs {smem} bytes of "
+                              f"shared memory for {S} slots, {n_clusters} clusters and "
+                              f"{n_lights} lights at {height}x{width} (at most {_MAX_SMEM})")
     return IndexPlan(groups, smem)
 
 
 def check_index_plan(rows: torch.Tensor, n_clusters: int, n_lights: int, geo: str,
                      num_views: int, height: int, width: int, texture=None, *,
                      raster: bool = False, seeded: bool = False) -> IndexPlan:
-    """K1's launch plan for these rows (``index_plan``, for the card that
+    """The index order's launch plan for these rows (``index_plan``, for the card that
     holds them, or an H100 for rows on the CPU; else ``LaunchPlanError``)."""
     sms = _sm_count(rows.device) if rows.is_cuda else _H100_SMS
     return index_plan(geo, int(rows.shape[2]), n_clusters, n_lights, num_views, height, width,
@@ -1451,6 +1486,16 @@ BATCHED_VARIANTS = tuple(batched_name(r, n) for n in (False, True) for r in (Fal
 SHADE_MIP_VARIANTS = tuple(f"shade_mip_{f}" for f in shade.MIP_FILTERS)
 
 
+def mip_name(texture: str) -> str:
+    """The name of K7's folded entry for the mip filter ``texture``
+    (``csrc/render_mip.cu``: the index visit's tile teams with the mip
+    sample, one launch for K7's two)."""
+    return f"render_mip_{texture}"
+
+
+MIP_VARIANTS = tuple(mip_name(f) for f in shade.MIP_FILTERS)
+
+
 def _check_tensors(ref, tensors) -> None:
     for name, t in tensors:
         if t.dtype != torch.float32:
@@ -1625,7 +1670,9 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
     ``texture`` is None for an untextured scene, else the filter, with
     ``mats`` / ``pool`` from ``shade.material_table`` / ``shade.texel_pool``;
     with ``fb_rows`` (a scene baked with mip chains) ``mats`` is
-    ``shade.mip_table`` and the render is K7: the kernel's hand-off
+    ``shade.mip_table`` and the render is K7: where ``index_plan`` takes
+    the tile teams, one launch of the folded entry (``csrc/render_mip.cu``,
+    counted as ``mip_name(texture)``), else the kernel's hand-off
     (``render_handoff``), then ``shade_mip``.
     ``geo`` names the rows' layout (``pack_cuda.pack_rows``) and the sweep:
     ``"prep"`` (one camera per world), ``"raw"``, or ``"raw_shadows"``,
@@ -1665,6 +1712,12 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
         return render_resident_plain(rows, clusters, cams, texture=texture,
                                      mats=mats, pool=pool, fb_rows=fb_rows, **kw)
     if fb_rows is not None:
+        plan = mip_plan(rows, clusters, cams, n_lights=n_lights, height=height, width=width,
+                        raster=raster, geo=geo, order=order, spans=spans, bins=bins, seed=seed)
+        if plan.groups:
+            return _launch_mip(rows, clusters, cams, mats, pool, n_lights=n_lights,
+                               height=height, width=width, seg_div=seg_div,
+                               texture=texture, fb_rows=fb_rows, groups=plan.groups)
         depth, seg, code, handoff = render_handoff(rows, clusters, cams, **kw)
         rgb = shade_mip(code, handoff, cams, mats, pool, fb_rows=fb_rows,
                         texture=texture, n_lights=n_lights)
@@ -1673,11 +1726,26 @@ def render_resident(rows, clusters, cams, *, num_cams: int, n_lights: int,
                           pool=pool, **kw)
 
 
+def mip_plan(rows, clusters, cams, *, n_lights: int, height: int, width: int,
+             raster: bool = False, geo: str = "prep", order=None, spans=None, bins=None,
+             seed=None, **_) -> IndexPlan:
+    """K7's launch on these inputs (``render_resident``'s keyword
+    arguments): on the resident index order, ``index_plan``'s for the
+    ``"mip"`` mode (groups > 0: the folded entry, one launch); on every
+    other visit, and where the plan takes the parent, 0 groups: the
+    hand-off, then ``shade_mip``."""
+    if route_of(order, spans, bins, clusters is not None) != INDEX:
+        return IndexPlan(0, 0)
+    return check_index_plan(rows, int(clusters.shape[2]), n_lights, geo, int(cams.shape[0]),
+                            height, width, "mip", raster=raster, seeded=seed is not None)
+
+
 def render_handoff(rows, clusters, cams, *, num_cams: int, n_lights: int,
                    height: int, width: int, seg_div: int, raster: bool = False,
                    geo: str = "prep", order=None, spans=None, bins=None, ranges=None,
                    bin_tile=None, seed=None, dmxu=False, rowskip=False):
-    """K7's first launch: the render kernel in its mip hand-off mode.
+    """K7's first launch in its two-launch design: the render kernel in its
+    mip hand-off mode, on render_body's 16x16 blocks whatever the plan.
     Returns ``(depth, segmask, code, handoff)``: depth and segmask as
     ``render_resident`` writes them, ``code`` i32 ``[W·C, H, Wd]`` (the
     winner's material | geometric hit << 16 | shaded hit << 17) and
@@ -1778,8 +1846,9 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
     elif route == Route(False, "ordered"):
         visit, tail = [order.data_ptr(), ptr(seed)], [stream]
     else:  # K1: the index visit on its plan (0 groups: the parent design)
-        plan = check_index_plan(rows, CC, n_lights, geo, WC, height, width, texture,
-                                raster=raster)
+        plan = (IndexPlan(0, 0) if texture == "mip" else  # the hand-off: the parent's blocks
+                check_index_plan(rows, CC, n_lights, geo, WC, height, width, texture,
+                                 raster=raster))
         visit, tail = [], [plan.groups, stream]
     launch = _build.load(kernel)
     with torch.cuda.device(dev):
@@ -1795,7 +1864,36 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
 
 
 render_resident.launches = 0
-render_resident.variant_launches = dict.fromkeys(RENDER_VARIANTS, 0)
+render_resident.variant_launches = dict.fromkeys(RENDER_VARIANTS + MIP_VARIANTS, 0)
+
+
+def _launch_mip(rows, clusters, cams, mats, pool, *, n_lights, height, width, seg_div,
+                texture, fb_rows, groups):
+    """K7 folded (``csrc/render_mip.cu``): one launch of the index visit's
+    tile teams with the mip sample, ``groups`` groups a block, on prep rows
+    raytraced (one camera a world); ``(depth, segmask, rgb)``."""
+    W, _, S = rows.shape
+    CC = int(clusters.shape[2])
+    dev = rows.device
+    tile_sub, tiles_x, n_tiles = mips.tile_geometry(height, width)
+    shape = (W, height, width)
+    depth = torch.empty(shape, dtype=torch.float32, device=dev)
+    seg = torch.empty(shape, dtype=torch.int32, device=dev)
+    rgb = torch.empty(shape, dtype=torch.int32, device=dev)
+    launch = _build.load("render_mip")
+    with torch.cuda.device(dev):
+        err = launch(rows.data_ptr(), clusters.data_ptr(), cams.data_ptr(), mats.data_ptr(),
+                     pool.data_ptr(), int(mats.shape[1]), depth.data_ptr(), seg.data_ptr(),
+                     rgb.data_ptr(), W, S, CC, S // CC, int(cams.shape[1]), n_lights, height,
+                     width, seg_div, float(np.float32(2.0 / width)),
+                     float(np.float32(2.0 / height)), mips.num_levels(mats), fb_rows, tile_sub,
+                     tiles_x, n_tiles, _MIP_FILTER_CODES[texture], groups,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"render_mip launch failed: {launch.error_string(err)}")
+    render_resident.launches += 1
+    render_resident.variant_launches[mip_name(texture)] += 1
+    return depth, seg, rgb
 
 
 @functools.cache
@@ -1917,12 +2015,13 @@ def resident_occupancy(kw: dict) -> dict:
 # Kernel K7's second launch and its plain version
 # --------------------------------------------------------------------- #
 def index_occupancy(kw: dict) -> dict:
-    """What the card makes of K1's index visit entry that these inputs
-    (``pack_inputs``'s, of K1's index order on prep rows) launch on their
-    plan: its variant, tile groups and pixels a thread, threads a block,
-    registers and local memory a thread, shared memory a block, and blocks
-    and warps a multiprocessor (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
-    Launches nothing; needs the card."""
+    """What the card makes of the index visit's entry that these inputs
+    (``pack_inputs``'s, of the resident index order: K1 and K6 on prep
+    rows, K7 folded, K8) launch on their plan: its variant, tile groups,
+    threads a block, registers and local memory a thread, shared memory a
+    block, and blocks and warps a multiprocessor
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). Launches nothing;
+    needs the card."""
     route = route_of(kw["order"], kw["spans"], kw["bins"], kw["clusters"] is not None)
     texture = "mip" if kw.get("fb_rows") is not None else kw["texture"]
     S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
@@ -1932,12 +2031,21 @@ def index_occupancy(kw: dict) -> dict:
     if route != INDEX or plan.groups == 0:
         raise ValueError("these inputs take no index visit on tile groups")
     out = (ctypes.c_int * 4)()
-    err = _occupancy_query("render_resident", [ctypes.c_int] * 5)(
-        _TEX_CODES[texture], plan.groups, S, CC, int(kw["cams"].shape[1]), out)
+    n_cols = int(kw["cams"].shape[1])
+    if texture == "mip":
+        name, variant = "render_mip", mip_name(kw["texture"])
+        err = _occupancy_query(name, [ctypes.c_int] * 9)(
+            _MIP_FILTER_CODES[kw["texture"]], plan.groups, S, CC, n_cols, kw["n_lights"],
+            kw["height"], kw["width"], mips.tile_geometry(kw["height"], kw["width"])[2], out)
+    else:
+        name, variant = "render_resident", variant_name(False, texture, kw["geo"], INDEX)
+        err = _occupancy_query(name, [ctypes.c_int] * 7)(
+            _GEO_CODES[kw["geo"]], _TEX_CODES[texture], plan.groups, S, CC, n_cols,
+            kw["n_lights"], out)
     if err != 0:
-        raise RuntimeError(f"render_resident's occupancy query failed: CUDA error {err}")
+        raise RuntimeError(f"{name}'s occupancy query failed: CUDA error {err}")
     threads, registers, local, blocks = list(out)
-    return {"variant": variant_name(False, texture, "prep", INDEX), "groups": plan.groups,
+    return {"variant": variant, "groups": plan.groups,
             "threads": threads, "registers": registers, "local_bytes": local,
             "smem_bytes": plan.smem_bytes, "blocks_per_sm": blocks,
             "warps_per_sm": blocks * threads // 32}

@@ -1,22 +1,27 @@
-"""Where K1's and K6's time goes (the resident index order on prep rows),
-measured on the card, in the parent design and on the index visit's tile
-groups:
+"""Where the resident index order's time goes (K1 and K6 on prep rows, K7
+folded with its mip sample, K8 with its shadow rays), measured on the card,
+in the parent design and on the index visit's tile groups:
 
-    python3 port_tools/index_phase_probe.py
+    python3 port_tools/index_phase_probe.py [CASE ...]
 
 Builds, under build/phase_probe/, a clock64 span variant of
-csrc/render_resident.cu, in a translation unit of its own, never on the
-main path: the source's MRT_INDEX hooks (render_body's index branch, the
-parent design) and MRT_PHASE hooks (visit_body, the tile teams), empty in
-the port's own build, mark the phases. It also builds the same source
-without the marks (its kernels are the port's), with a function that reads
-the parent entry's attributes and occupancy.
+csrc/render_resident.cu and of csrc/render_mip.cu (K7 folded), each in a
+translation unit of its own, never on the main path: the sources' MRT_INDEX
+hooks (render_body's index branch and shadow sweep, the parent design) and
+MRT_PHASE hooks (visit_body, the tile teams), empty in the port's own
+build, mark the phases. It also builds the same sources without the marks
+(their kernels are the port's), with a function that reads the parent
+entry's attributes and occupancy.
 
 For K1 on main's inputs (4096 worlds of the demo scene at 64x64) and
-mxu_4096w_128's under "auto" (128x128), and K6 on textured_4096w's (the
-32x32 checker, nearest) and textured_4096w_ssaa2's (the same at 128x128),
-each the scene's first step, it prints one JSON line per design (the
-parent, plan 0; the default plan, index_plan's):
+mxu_4096w_128's under "auto" (128x128), K6 on textured_4096w's (the 32x32
+checker, nearest) and textured_4096w_ssaa2's (the same at 128x128), K7 on
+textured256_4096w's (chip_smoke.py's paged-texture scene with its mip
+chains, nearest; the parent design is the hand-off, whose split this is,
+then csrc/shade_mip.cu, counted in its ms) and K8 on shadows_4096w's (the
+demo scene with shadows), each the scene's first step (CASE names a subset),
+it prints one JSON line per design (the parent, plan 0; the default plan,
+index_plan's):
   ms               the kernel's device time (CUDA events, 5 launches);
   ms_spans         the span variant's (what the marks cost);
   fill_only_ms     the span variant stopped after its fill, at the same
@@ -25,10 +30,14 @@ parent, plan 0; the default plan, index_plan's):
                    thread (a team: 64 threads; the parent's 16x16 block
                    counts as four teams walking the same tile, their sum
                    divided by four) in: fill (the
-                   block's fill), gates (the slab votes and their
-                   barriers), tests (the triangle tests of the visited
-                   clusters), pixel (ray generation, resolve, texel fetch,
-                   shading, write), fetch (taking the next tiles), and each
+                   block's fill: K8's hoisted shadow terms among it),
+                   gates (the slab votes and their barriers), tests (the
+                   triangle tests of the visited clusters), pixel (ray
+                   generation, resolve, texel fetch, shading, write; K7
+                   folded: the held winners and the window keys), fetch
+                   (taking the next tiles), shadow_gates and shadow_tests
+                   (K8: the shadow rays' slab votes and any-hit tests),
+                   sample (K7 folded: the view's sample pass), and each
                    phase's share; block_wall_us, a block's mean wall time;
   occupancy        the entry's threads a block, registers, local memory,
                    dynamic shared memory, and blocks and warps per SM;
@@ -52,7 +61,8 @@ sys.path.insert(0, str(HERE / "port_tools"))
 
 import resident_phase_probe as rpp  # noqa: E402
 
-PHASES = rpp.PHASES
+PHASES = rpp.PHASES + ("shadow_gates", "shadow_tests", "sample")
+NP = len(PHASES)
 N_BLOCKS = 1 << 19  # the parent's blocks at 4096 views of 128x128: 262,144
 TEAM = 64  # threads of a tile team (4 pixels a thread)
 SLOTS = 256  # counters each phase's cycles are spread over
@@ -62,6 +72,8 @@ CASES = {
     "mxu_4096w_128_auto": (128, False, 1),
     "textured_4096w": (64, True, 1),
     "textured_4096w_ssaa2": (64, True, 2),
+    "textured256_4096w": (64, "mip", 1),
+    "shadows_4096w": (64, "shadows", 1),
 }
 WORLDS = 4096
 
@@ -69,10 +81,13 @@ INDEX_HOOKS = ("#define MRT_INDEX_BEGIN MRT_PHASE_BEGIN\n#define MRT_INDEX(k) MR
                "#define MRT_INDEX_AFTER_FILL MRT_AFTER_FILL\n")
 TAIL = r"""
 extern "C" {
+#ifndef MRT_RENDER_BODY_ONLY
 int mrt_probe_parent_occupancy(int tex, size_t smem, int* out) {
   auto kernel = render_resident_kernel<0, false, 0>;
   if (tex == 1) kernel = render_resident_kernel<0, false, 1>;
   if (tex == 2) kernel = render_resident_kernel<0, false, 2>;
+  if (tex == 3) kernel = render_resident_kernel<0, false, 3>;
+  if (tex == 8) kernel = render_resident_kernel<2, false, 0>;
   cudaFuncAttributes attr;
   int err = (int)cudaFuncGetAttributes(&attr, kernel);
   if (err) return err;
@@ -85,19 +100,20 @@ int mrt_probe_parent_occupancy(int tex, size_t smem, int* out) {
   out[3] = blocks;
   return err;
 }
+#endif
 #ifdef MRT_SPANS
 int mrt_probe_spans(int fill_only, unsigned long long* span, unsigned long long* block,
                     int n_blocks, int reset) {
   int err;
   if (reset) {
-    static unsigned long long zero[5 * SPAN_SLOTS];
+    static unsigned long long zero[NP * SPAN_SLOTS];
     static unsigned long long zeros[2][N_BLOCKS];
     err = (int)cudaMemcpyToSymbol(g_mrt_span, zero, sizeof(zero));
     if (!err) err = (int)cudaMemcpyToSymbol(g_mrt_block, zeros, sizeof(zeros));
     if (!err) err = (int)cudaMemcpyToSymbol(g_mrt_fill_only, &fill_only, sizeof(int));
     return err ? err : (int)cudaDeviceSynchronize();
   }
-  err = (int)cudaMemcpyFromSymbol(span, g_mrt_span, 5 * SPAN_SLOTS * sizeof(unsigned long long));
+  err = (int)cudaMemcpyFromSymbol(span, g_mrt_span, NP * SPAN_SLOTS * sizeof(unsigned long long));
   for (int k = 0; k < 2 && !err; ++k)
     err = (int)cudaMemcpyFromSymbol(block + (size_t)k * n_blocks, g_mrt_block,
                                     n_blocks * sizeof(unsigned long long),
@@ -106,7 +122,7 @@ int mrt_probe_spans(int fill_only, unsigned long long* span, unsigned long long*
 }
 #endif
 }
-""".replace("N_BLOCKS", str(N_BLOCKS)).replace("SPAN_SLOTS", str(SLOTS))
+""".replace("N_BLOCKS", str(N_BLOCKS)).replace("SPAN_SLOTS", str(SLOTS)).replace("NP", str(NP))
 
 
 def spans_head() -> str:
@@ -116,27 +132,31 @@ def spans_head() -> str:
     walkers' atomics at their end do not queue on five addresses."""
     head = rpp.SPANS_HEAD.replace("1 << 17", str(N_BLOCKS))
     reps = (("__device__ unsigned long long g_mrt_span[5];",
-             "__device__ unsigned long long g_mrt_span[5 * SLOTS];"),
-            ("atomicAdd(&g_mrt_span[k],", "atomicAdd(&g_mrt_span[(mrt_block() % SLOTS) * 5 + k],"),
+             "__device__ unsigned long long g_mrt_span[NP * SLOTS];"),
+            ("atomicAdd(&g_mrt_span[k],", "atomicAdd(&g_mrt_span[(mrt_block() % SLOTS) * NP + k],"),
+            ("for (int k = 0; k < 5; ++k) mrt_acc[g][k] = 0;",
+             "for (int k = 0; k < NP; ++k) mrt_acc[g][k] = 0;"),
+            ("for (int k = 0; k < 5; ++k) atomicAdd", "for (int k = 0; k < NP; ++k) atomicAdd"),
             ("return threadIdx.x == 0 && threadIdx.y % 16 == 0;",
              "return (threadIdx.y * blockDim.x + threadIdx.x) % TEAM == 0;"),
             ("const int g = threadIdx.y / 16;",
              "const int g = (threadIdx.y * blockDim.x + threadIdx.x) / TEAM;"),
-            ("mrt_acc[4][5]", "mrt_acc[16][5]"), ("mrt_last[4]", "mrt_last[16]"),
+            ("mrt_acc[4][5]", "mrt_acc[16][NP]"), ("mrt_last[4]", "mrt_last[16]"),
             ("mrt_cur[4]", "mrt_cur[16]"))
     for a, b in reps:
         if a not in head:
             raise RuntimeError(f"resident_phase_probe's span head lacks {a!r}")
-        head = head.replace(a, b.replace("TEAM", str(TEAM)).replace("SLOTS", str(SLOTS)))
+        head = head.replace(a, b.replace("TEAM", str(TEAM)).replace("SLOTS", str(SLOTS))
+                            .replace("NP", str(NP)))
     return head + INDEX_HOOKS
 
 
-def build(csrc: Path, spans: bool, out: Path) -> Path:
+def build(csrc: Path, spans: bool, out: Path, name: str = "render_resident") -> Path:
     from madrona_renderer_tpu_torch import _build
 
-    tu = out / f"render_resident_{'spans' if spans else 'plain'}.cu"
+    tu = out / f"{name}_{'spans' if spans else 'plain'}.cu"
     head = spans_head() if spans else ""
-    tu.write_text(head + f'#include "{csrc / "render_resident"}.cu"\n' + TAIL)
+    tu.write_text(head + f'#include "{csrc / name}.cu"\n' + TAIL)
     lib = out / f"lib{tu.stem}.so"
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *(["-DMRT_SPANS"] if spans else []),
            "-o", str(lib), str(tu)]
@@ -160,12 +180,14 @@ def main() -> int:
     out = HERE / "build" / "phase_probe" / "index"
     out.mkdir(parents=True, exist_ok=True)
     csrc = HERE / "madrona_renderer_tpu_torch" / "csrc"
-    with ThreadPoolExecutor(2) as pool:
-        plain, spans = pool.map(lambda s: ctypes.CDLL(str(build(csrc, s, out))), (False, True))
+    jobs = [(n, sp) for n in ("render_resident", "render_mip") for sp in (False, True)]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(
+            lambda job: ctypes.CDLL(str(build(csrc, job[1], out, job[0]))), jobs)))
     print(json.dumps({"phase": "probe_build"}), flush=True)
-    name = "render_resident"
     real_plan = rc.index_plan
     designs = {"parent": 0, "default": None}
+    cases = sys.argv[1:] or list(CASES)
 
     def events_ms(fn, reps=5):
         fn()
@@ -178,12 +200,13 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def through(lib, kw, groups):
-        """``render_resident(**kw)`` with K1's library taken from ``lib``, on
-        the parent design (``groups`` 0) or the default plan (None)."""
-        fn = rpp.bound(lib, name)
+    def through(spans, kw, groups):
+        """``render_resident(**kw)`` with the render libraries taken from the
+        plain or span builds, on the parent design (``groups`` 0) or the
+        default plan (None)."""
+        fns = {n: rpp.bound(libs[(n, spans)], n) for n in ("render_resident", "render_mip")}
         real = rc._build
-        rc._build = types.SimpleNamespace(load=lambda n, *a: fn if n == name else real.load(n))
+        rc._build = types.SimpleNamespace(load=lambda n, *a: fns[n] if n in fns else real.load(n))
         if groups == 0:
             rc.index_plan = lambda *a, **k: real_plan(*a, **dict(k, groups=0))
         try:
@@ -192,48 +215,68 @@ def main() -> int:
             rc._build = real
             rc.index_plan = real_plan
 
-    probe = spans.mrt_probe_spans
-    probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_int]
-    clock_mhz = []
-    for path, (res, textured, ssaa) in CASES.items():
+    def inputs(path, res, mode, ssaa):
+        if mode == "mip":
+            import chip_smoke
+            from madrona_renderer_tpu_torch import config as cfg_mod
+            cfg = chip_smoke.paged_tex_config(WORLDS, scenes, cfg_mod)
+            r = m.MadronaRenderer(0, WORLDS, m.RenderMode.Raytracer, res, res,
+                                  **scenes.renderer_kwargs(cfg))
+            return r, rc.pack_inputs(r.state, r.scene, height=res, width=res,
+                                     texture_filter="nearest")
+        shadows = mode == "shadows"
         r = m.Manager(scenes.demo_config(WORLDS, m.RenderMode.Raytracer, res, res,
-                                         dynamic=True, textured=textured, tex_size=32,
-                                         ssaa=ssaa))
+                                         dynamic=True, textured=mode is True, tex_size=32,
+                                         ssaa=ssaa, shadows=shadows))
         h = res * ssaa
-        kw = rc.pack_inputs(r.state, r.scene, height=h, width=h)
-        if rc.route_of(kw["order"], kw["spans"], kw["bins"]) != rc.INDEX or kw["geo"] != "prep":
-            raise AssertionError(f"{path}: not K1's index order on prep rows")
+        return r, rc.pack_inputs(r.state, r.scene, height=h, width=h, shadows=shadows)
+
+    clock_mhz = []
+    for path in cases:
+        res, mode, ssaa = CASES[path]
+        r, kw = inputs(path, res, mode, ssaa)
+        h = res * ssaa
+        mip = kw.get("fb_rows") is not None
+        if rc.route_of(kw["order"], kw["spans"], kw["bins"]) != rc.INDEX:
+            raise AssertionError(f"{path}: not the resident index order")
+        kernel = "K7" if mip else "K8" if kw["geo"] == "raw_shadows" else "K6" if mode else "K1"
+        texture = "mip" if mip else kw["texture"]
         views = int(kw["cams"].shape[0])
         tiles = (-(-h // 16)) ** 2
         S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
+        cols = int(kw["cams"].shape[1])
         for design, groups in designs.items():
-            line = {"phase": "index_phase_probe", "kernel": "K6" if textured else "K1",
-                    "inputs": path, "design": design}
+            line = {"phase": "index_phase_probe", "kernel": kernel, "inputs": path,
+                    "design": design}
+            plan = real_plan(kw["geo"], S, CC, kw["n_lights"], views, h, h, texture)
             if groups is None:
-                plan = real_plan(kw["geo"], S, CC, kw["n_lights"], views, h, h, kw["texture"])
                 line["plan"] = plan._asdict()
-            line["ms"] = events_ms(lambda: through(plain, kw, groups))
+            folded = mip and groups is None and plan.groups > 0
+            name = "render_mip" if folded else "render_resident"
+            probe = libs[(name, True)].mrt_probe_spans
+            probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_int]
+            line["ms"] = events_ms(lambda: through(False, kw, groups))
             for fill_only in (1, 0):
                 if probe(fill_only, None, None, 0, 1):
                     raise RuntimeError("probe reset failed")
-                t = events_ms(lambda: through(spans, kw, groups))
+                t = events_ms(lambda: through(True, kw, groups))
                 line["fill_only_ms" if fill_only else "ms_spans"] = t
             # One launch's spans; the SM clock under load, sampled while ten
             # launches run.
             if probe(0, None, None, 0, 1):
                 raise RuntimeError("probe reset failed")
-            through(spans, kw, groups)
+            through(True, kw, groups)
             torch.cuda.synchronize()
             for _ in range(10):
-                through(plain, kw, groups)
+                through(False, kw, groups)
             clock_mhz.append(rpp.smi("clocks.sm"))
             torch.cuda.synchronize()
             buf = (ctypes.c_ulonglong * (2 * N_BLOCKS))()
-            slots = (ctypes.c_ulonglong * (5 * SLOTS))()
+            slots = (ctypes.c_ulonglong * (NP * SLOTS))()
             if probe(0, slots, buf, N_BLOCKS, 0):
                 raise RuntimeError("probe read failed")
-            span = [sum(slots[s * 5 + k] for s in range(SLOTS)) for k in range(5)]
+            span = [sum(slots[s * NP + k] for s in range(SLOTS)) for k in range(NP)]
             start = torch.tensor(list(buf[:N_BLOCKS]), dtype=torch.float64)
             end = torch.tensor(list(buf[N_BLOCKS:]), dtype=torch.float64)
             used = end > 0
@@ -247,14 +290,24 @@ def main() -> int:
                 "blocks": int(used.sum()),
                 "block_wall_us": float((end[used] - start[used]).mean()) / mhz}
             occ = (ctypes.c_int * 4)()
+            plain = libs[(name, False)]
             if groups == 0:
-                smem = 4 * (10 * S + 8 * CC + int(kw["cams"].shape[1]))
-                err = plain.mrt_probe_parent_occupancy(int(textured), ctypes.c_size_t(smem), occ)
+                rows = rc._VISIT_GEO_ROWS[kw["geo"]]
+                smem = 4 * (rows * S + 8 * CC + cols)
+                code = 8 if kernel == "K8" else 3 if mip else int(mode is True)
+                err = plain.mrt_probe_parent_occupancy(code, ctypes.c_size_t(smem), occ)
+            elif folded:
+                smem = plan.smem_bytes
+                fn = plain.mrt_render_mip_occupancy
+                fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+                err = fn(0, plan.groups, S, CC, cols, kw["n_lights"], h, h,
+                         rc.mips.tile_geometry(h, h)[2], occ)
             else:
                 smem = plan.smem_bytes
                 fn = plain.mrt_render_resident_occupancy
-                fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-                err = fn(int(textured), plan.groups, S, CC, int(kw["cams"].shape[1]), occ)
+                fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+                err = fn(rc._GEO_CODES[kw["geo"]], rc._TEX_CODES[texture], plan.groups, S, CC,
+                         cols, kw["n_lights"], occ)
             if err:
                 raise RuntimeError(f"occupancy query failed: {err}")
             threads, regs, local, blocks = list(occ)

@@ -3,7 +3,8 @@ them outside the install.
 
 A wheel built from the tree (no network: ``--no-index --no-deps
 --no-build-isolation``) holds every ``madrona_renderer_tpu_torch/csrc/*.cu``
-(``pyproject.toml``'s package data); unpacked as an installed package, the
+and the header they share, ``csrc/mip_sample.cuh`` (``pyproject.toml``'s
+package data); unpacked as an installed package, the
 port lists every kernel source and puts its build cache in the user's cache
 directory, not beside the package. A source checkout keeps ``build/``.
 """
@@ -66,9 +67,9 @@ def test_wheel_holds_every_kernel_source(tmp_path):
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     (wheel,) = (tmp_path / "dist").glob("*.whl")
     names = set(zipfile.ZipFile(wheel).namelist())
-    kernels = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    kernels = sorted(p.name for p in _build.CSRC.glob("*.cu*"))
     assert {"render_none.cu", "render_batched.cu", "render_resident.cu", "render_dmxu.cu",
-            "ladder.cu"} <= set(kernels)
+            "render_mip.cu", "ladder.cu", "mip_sample.cuh"} <= set(kernels)
     missing = [k for k in kernels if f"madrona_renderer_tpu_torch/csrc/{k}" not in names]
     assert not missing, f"the wheel lacks {missing}"
 
@@ -82,4 +83,4 @@ def test_wheel_holds_every_kernel_source(tmp_path):
                           cwd=str(tmp_path), env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.split() == [Path(k).stem for k in kernels]
+    assert proc.stdout.split() == [Path(k).stem for k in kernels if k.endswith(".cu")]
