@@ -100,13 +100,16 @@ printed as JSON lines:
                every check of K1 and K6 on the index visit's tile teams
                (prep rows, raytraced, untextured, nearest or bilinear), of
                K7 folded into them (the mip render on prep rows,
-               csrc/render_mip.cu) and of K8 on them (raw rows with
-               shadows) at raytrace_cuda.index_plan's forced plans, G = 1
-               and 2, and in its parent design (``g0``; K7's two
-               launches), a forced plan whose block does not fit recorded
-               as refused, with the entry's occupancy (``index_occupancy``
-               lines; fails where its registers are not the ones
-               index_plan counts blocks by, raytrace_cuda._INDEX_REGS);
+               csrc/render_mip.cu), of K8 on them (raw rows with shadows),
+               of K10 on them (raw rows, the watertight decision) and of
+               K1-none on them (prep and K10 rows, no cluster table,
+               csrc/render_none.cu) at raytrace_cuda.index_plan's forced
+               plans, G = 1 and 2, and in its parent design (``g0``; K7's
+               two launches), a forced plan whose block does not fit
+               recorded as refused, with the entry's occupancy
+               (``index_occupancy`` lines; fails where its registers are
+               not the ones index_plan counts blocks by,
+               raytrace_cuda._INDEX_REGS, by index_entry_key);
                a mode's texture filters share its inputs and seed, so their
                variants share one plain sweep (raytrace_cuda.plain_hits),
                and inputs equal in geometry, cameras, visit and seed share
@@ -286,8 +289,11 @@ printed as JSON lines:
                K7 variant's two launches together on textured256_4096w's
                inputs (for the folded ones, their A/B: the kernels line has
                render_mip_<filter> rows, timed in turns with them, both
-               against k7_bound, the function's own bytes), K8's parent
-               design in turns with it on shadows_4096w's inputs, K1-raw on watertight_4096w's rows, the ssaa path's
+               against k7_bound, the function's own bytes), the parent
+               design of K8, K10 and K1-none in turns with their team
+               entries on shadows_4096w's, watertight_4096w's and
+               none_4096w's inputs (``"ab": "parent"`` lines), K1-raw on
+               watertight_4096w's rows, the ssaa path's
                kernel at 128x128 and its filter (torch ops: time and bound),
                and K4 and K5 on each terrain path's inputs (K4's bound from
                the replayed binned walk; at 256x256 and 512x512 no plain
@@ -504,8 +510,9 @@ K5_OPS_PER_TRIANGLE = {"prep": 28, "raw": 37, "wt": 44}
 K4_OPS_PER_TRIANGLE = {"prep": 29, "raw": 37, "wt": 44}
 K4_OPS_BAND_GATE = 2
 # K1-none (csrc/render_none.cu): K1's per-thread work without the slab tests,
-# and every triangle of the world tested by every thread; its shadow rays
-# every triangle per light. The 9-output mode (K1's and K1-none's) stops
+# and every slot of the world that a test can accept (live_slots: not the
+# padding, whose tests fail for every ray) tested by every thread; its
+# shadow rays those per light. The 9-output mode (K1's and K1-none's) stops
 # before the shading (29 + 14 per light a thread) and resolves the material
 # and uv as the textured variants do (8 + 4), writing 36 bytes a pixel.
 K1_OPS_SHADING = 29
@@ -1127,18 +1134,34 @@ def per_thread_ops(kw: dict, geo: str, tex) -> int:
     return ops
 
 
+def live_slots(kw: dict) -> int:
+    """The slots a view's tests can accept, summed over the views: where
+    the view's near is at least 0, on prep rows those whose D (rows 0-2)
+    is not zero, on raw rows those whose validity (row 9) is positive;
+    every ray's test of the others fails (K1-none's teams skip them)."""
+    rows = kw["rows"]
+    live = (rows[:, 0:3] != 0).any(1) if kw["geo"] == "prep" else rows[:, 9] > 0
+    per_view = live.sum(1).repeat_interleave(kw["num_cams"])
+    near_ok = kw["cams"][:, 14] >= 0
+    return int(torch.where(near_ok, per_view, rows.shape[2]).sum())
+
+
 def none_bound(kw: dict) -> tuple:
     """Least time for K1-none's work (csrc/render_none.cu) on these inputs:
     the rows each block reads, the attribute rows a hit reads once, the
     camera rows, the seed and the pixels written, against the per-thread
     work, the block's hoisted per-triangle terms and every thread's test of
-    every triangle; with shadows every thread's shadow test of every
-    triangle per light (ms, 'bytes'|'operations', bytes, operations)."""
+    every slot a test can accept (live_slots); with shadows every thread's
+    shadow test of those per light (ms, 'bytes'|'operations', bytes,
+    operations)."""
     W, _, S = kw["rows"].shape
     views = kw["cams"].shape[0]
     pixels = views * kw["height"] * kw["width"]
-    blocks = views * math.ceil(kw["height"] / 16) * math.ceil(kw["width"] / 16)
+    tiles = math.ceil(kw["height"] / 16) * math.ceil(kw["width"] / 16)
+    blocks = views * tiles
     threads = blocks * K1_THREADS_PER_BLOCK
+    # (block, slot) pairs whose tests the data needs.
+    tested = tiles * live_slots(kw)
     tex = "mip" if kw.get("fb_rows") is not None else kw["texture"]
     geo = layout(kw)
     lights = kw["n_lights"]
@@ -1148,12 +1171,12 @@ def none_bound(kw: dict) -> tuple:
     if tex in ("nearest", "bilinear"):
         nbytes += kw["mats"].numel() * 4 + kw["pool"].numel() * 4
     ops = (threads * per_thread_ops(kw, geo, tex) + blocks * S * K1_OPS_HOIST[geo]
-           + threads * S * K1_OPS_PER_TRIANGLE[geo])
+           + tested * K1_THREADS_PER_BLOCK * K1_OPS_PER_TRIANGLE[geo])
     if kw["geo"].endswith("_shadows"):
         ops += (threads * (K8_OPS_FIXED + K8_OPS_PER_LIGHT * lights)
                 + views * lights * K8_OPS_PER_VIEW_LIGHT
-                + blocks * lights * S * (K1_THREADS_PER_BLOCK * K8_OPS_PER_TRIANGLE
-                                         + K8_OPS_PER_BLOCK_TRIANGLE))
+                + tested * lights * (K1_THREADS_PER_BLOCK * K8_OPS_PER_TRIANGLE
+                                     + K8_OPS_PER_BLOCK_TRIANGLE))
     return roofline(nbytes, ops) + (nbytes, ops)
 
 
@@ -1571,19 +1594,22 @@ def main() -> int:
     real_index_plan = rc.index_plan
 
     def index_plan_of(kw, **force):
-        """K1's launch plan (rc.index_plan's own) on these inputs."""
-        S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
+        """The index order's launch plan (rc.index_plan's own) on these
+        inputs: K1's, or without a cluster table K1-none's."""
+        culled = kw["clusters"] is not None
+        S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2]) if culled else 0
         return real_index_plan(kw["geo"], S, CC, kw["n_lights"], int(kw["cams"].shape[0]),
                                kw["height"], kw["width"], "mip" if is_k7(kw) else kw["texture"],
-                               raster=kw["raster"], seeded=seeded(kw), **force)
+                               raster=kw["raster"], seeded=seeded(kw), culled=culled, **force)
 
     def is_index_visit(kw):
         """Inputs in a mode the index visit's tile teams take (K1 and K6:
         prep rows, raytraced, untextured or nearest or bilinear, cold; K7
-        folded; K8), whatever the plan picks for their count of views."""
-        return (not is_batched(kw) and route(kw) == rc.INDEX and kw["clusters"] is not None
+        folded; K8; K10; K1-none on prep and K10 rows), whatever the plan
+        picks for their count of views."""
+        return (not is_batched(kw) and route(kw) in (rc.INDEX, rc.NONE)
                 and rc.index_takes(kw["geo"], "mip" if is_k7(kw) else kw["texture"],
-                                   kw["raster"], seeded(kw)))
+                                   kw["raster"], seeded(kw), kw["clusters"] is not None))
 
     def forced_index_plan(groups):
         """rc.index_plan forced to ``groups`` tile groups (0: the parent
@@ -1603,11 +1629,11 @@ def main() -> int:
 
     def check_index_plans(tag, kw, k_out):
         """The index visit at every forced plan, G = 1 and 2 groups of tile
-        teams (4 pixels a thread), and in its parent design (render_body's
-        16x16 blocks, a plan of 0 groups; K7: its two launches) on the same
-        inputs, each bitwise against the kernel's outputs ``k_out`` (held to
-        the plain version): K1, K6, K7 folded (so also against the pair)
-        and K8."""
+        teams (4 pixels a thread; K8 and K10 2), and in its parent design
+        (render_body's 16x16 blocks, a plan of 0 groups; K7: its two
+        launches) on the same inputs, each bitwise against the kernel's
+        outputs ``k_out`` (held to the plain version): K1, K6, K7 folded (so
+        also against the pair), K8, K10 and K1-none."""
         same = {}
         for g in (0, *rc._INDEX_GROUP_CHOICES):
             try:
@@ -1628,12 +1654,16 @@ def main() -> int:
         if index_plan_of(kw).groups:
             occ = rc.index_occupancy(kw)
             emit({"phase": "index_occupancy", "case": tag, **occ})
-            # index_plan counts blocks a multiprocessor by _INDEX_REGS: the
-            # entry's registers, as the card allocates them (8 at a time).
-            if -(-occ["registers"] // 8) * 8 != rc._INDEX_REGS[kw["geo"]]:
+            # index_plan counts blocks a multiprocessor by _INDEX_REGS (an
+            # entry's most textured variant's): the entry's registers, as
+            # the card allocates them (8 at a time), are at most that and
+            # leave the multiprocessor the blocks the plan counts.
+            regs = rc._INDEX_REGS[rc.index_entry_key(kw["geo"], kw["clusters"] is not None)]
+            card = -(-occ["registers"] // 8) * 8
+            threads = occ["threads"]
+            if card > regs or rc._SM_REGS // (threads * card) != rc._SM_REGS // (threads * regs):
                 raise AssertionError(f"{tag} {occ['variant']}: {occ['registers']} registers a "
-                                     f"thread, index_plan assumes "
-                                     f"{rc._INDEX_REGS[kw['geo']]}")
+                                     f"thread, index_plan assumes {regs}")
 
     def forced_streamed_plan(groups, parts):
         """rc.streamed_plan forced, for K11 (dmxu), to ``groups`` tile groups
@@ -3501,7 +3531,7 @@ def main() -> int:
         """The streamed binned walk's plan on these inputs: its tile groups
         (0: render_body's 16x16 blocks) and blocks a view; K1's index visit's
         tile groups; {} off them."""
-        if not is_batched(kw) and route(kw) == rc.INDEX and kw["clusters"] is not None:
+        if not is_batched(kw) and route(kw) in (rc.INDEX, rc.NONE):
             return {"groups": index_plan_of(kw).groups}
         if is_batched(kw) or not (binned(kw) and streamed(kw)):
             return {}
@@ -3509,6 +3539,29 @@ def main() -> int:
         plan = rc.binned_plan(kw["geo"], S // CC, kw["n_lights"], int(kw["cams"].shape[0]),
                               kw["height"], kw["width"], kw["bin_tile"], dmxu(kw))
         return {"groups": plan.groups, "blocks_per_view": plan.parts}
+
+    # The entries whose path's inputs the index visit's teams take, timed in
+    # turns with their parent design (render_body's 16x16 blocks): K8, K10
+    # and K1-none.
+    team_paths = {"render_resident_raw_shadows": "shadows_4096w",
+                  "render_resident_raw_wt_tex_nearest": "watertight_4096w",
+                  "render_none": "none_4096w"}
+
+    def team_ab(name, kw, row):
+        """The A/B line of a team entry on its path's inputs (``row``: its
+        timing row): teams, parent, parent, teams."""
+        if name not in team_paths:
+            return
+        turns = {"teams": [], "parent": []}
+        for which in ("teams", "parent", "parent", "teams"):
+            turns[which].append(graph_ms(
+                lambda: on_index_plan(lambda: run_kernel(kw),
+                                      None if which == "teams" else 0), KERNEL_REPS))
+        emit({"phase": "timing", "inputs": team_paths[name], "name": name, "ab": "parent",
+              "groups": plan_split(kw).get("groups"), "ms_turns": turns,
+              "ms": statistics.mean(turns["parent"]),
+              "teams_ms": statistics.mean(turns["teams"]),
+              "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]})
 
     def render_row(name, kw, plain=True, bound=True, reps=None):
         """A render variant's timing line; ``plain`` and ``bound`` False leave
@@ -3627,19 +3680,7 @@ def main() -> int:
         reps = NEW_KERNEL_REPS if name in small else KERNEL_REPS
         rows.append(handoff_row(name, kw, reps) if is_k7(kw) else render_row(name, kw,
                                                                                 reps=reps))
-        if name == "render_resident_raw_shadows":
-            # K8 on the index visit's teams and its parent design (render_body's
-            # 16x16 blocks) on shadows_4096w's inputs, in turns.
-            turns = {"teams": [], "parent": []}
-            for which in ("teams", "parent", "parent", "teams"):
-                turns[which].append(graph_ms(
-                    lambda: on_index_plan(lambda: run_kernel(kw),
-                                          None if which == "teams" else 0), KERNEL_REPS))
-            emit({"phase": "timing", "inputs": "shadows_4096w", "name": name, "ab": "parent",
-                  "groups": plan_split(kw).get("groups"), "ms_turns": turns,
-                  "ms": statistics.mean(turns["parent"]),
-                  "teams_ms": statistics.mean(turns["teams"]),
-                  "bound_ms": rows[-1]["bound_ms"], "bound_by": rows[-1]["bound_by"]})
+        team_ab(name, kw, rows[-1])
         if name == "render_resident":
             # K1 at 64x64 (main's inputs) and, a row of its own named
             # render_resident@128, at 128x128 (mxu_4096w_128's "auto"
@@ -3660,6 +3701,7 @@ def main() -> int:
         reps = KERNEL_REPS if name in timing_kw else NEW_KERNEL_REPS
         rows.append(handoff_row(name, kw, reps) if is_k7(kw) else render_row(name, kw,
                                                                                 reps=reps))
+        team_ab(name, kw, rows[-1])
         emit({"phase": "timing", **rows[-1]})
     # K11, and the culled visits' 9-output entries: a path's own on its
     # full-size inputs, the others on the 64-world inputs (4 worlds at 128²

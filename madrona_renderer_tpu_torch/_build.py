@@ -175,6 +175,7 @@ SIGNATURES = {
          _F, _F,  # two_over_w two_over_h
          _I, _I, _I,  # raster tex_filter geo
          _I,  # culled (K1's 9-output entries) or not (K1-none)
+         _I,  # K1-none's tile-team groups a block (0: the parent's 16x16 blocks)
          _P],  # stream
     ),
     "render_dmxu": (

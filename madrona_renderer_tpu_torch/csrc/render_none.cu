@@ -45,8 +45,16 @@
 // 43 watertight, the raw rows' hoisted terms once per block and triangle);
 // shadows, per thread and light every shadow triangle test (52, of which
 // the 17 that depend only on the light and the triangle are charged once a
-// block). chip_smoke.py counts them for its inputs. The design is K1's: one
-// thread per pixel, the rows in shared memory, broadcast reads.
+// block). chip_smoke.py counts them for its inputs. The parent design is
+// K1's: one thread per pixel, one 16x16 block a tile, the rows in shared
+// memory, broadcast reads. On enough views K1-none on prep rows and on K10's
+// rows, raytraced and cold, untextured or nearest or bilinear, takes the
+// index visit's tile teams instead (raytrace_cuda.index_plan with culled
+// False): one block a view, the records filled once a view (prep: D with
+// t_num, A, Q; K10: a with the validity, b, c, each three float4), no
+// cluster table, every team sweeping every slot for its tile, several
+// pixels a thread (index_tile and wt_tile with CULL false, in
+// csrc/render_resident.cu); the other modes keep the parent.
 
 #define MRT_RENDER_BODY_ONLY
 #include "render_resident.cu"
@@ -79,6 +87,61 @@ __global__ void __launch_bounds__(kThreads)
 render_resident_nine_seeded_kernel(const RenderArgs a, const float* seed) {
   render_body<GEO, false, kTexNine, false, false, false, true>(
       a, StreamArgs{nullptr, nullptr}, BinArgs{}, seed);
+}
+
+// K1-none on the index visit's tile teams: prep rows (kNonePixels pixels a
+// thread) and K10's rows (kWtPixels, as K10's), raytraced, cold;
+// untextured, nearest or bilinear; 1 or 2 groups a block, a block a view;
+// at most 64 registers a thread, as K1's and K10's entries.
+template <int TEX>
+__global__ void __launch_bounds__(kThreads * kIndexMaxGroups, 4 / kIndexMaxGroups)
+render_none_index_kernel(const RenderArgs a) {
+  visit_body<kGeoPrep, false, TEX, false, false, kNonePixels, kMipNearest, false>(
+      a, nullptr, BinArgs{}, nullptr);
+}
+
+template <int TEX>
+__global__ void __launch_bounds__(kThreads * kIndexMaxGroups, 4 / kIndexMaxGroups)
+render_none_index_wt_kernel(const RenderArgs a) {
+  visit_body<kGeoRawWt, false, TEX, false, false, kWtPixels, kMipNearest, false>(
+      a, nullptr, BinArgs{}, nullptr);
+}
+
+template <int GEO, int TEX>
+int none_index_launch(const RenderArgs& a, int num_views, int groups, int* query,
+                      cudaStream_t stream) {
+  if constexpr (GEO == kGeoRawWt)
+    return index_entry(render_none_index_wt_kernel<TEX>, index_smem<GEO>(a), num_views, groups,
+                       query, stream, a);
+  else
+    return index_entry(render_none_index_kernel<TEX>, index_smem<GEO>(a), num_views, groups,
+                       query, stream, a);
+}
+
+template <int GEO>
+int none_index_tex(const RenderArgs& a, int num_views, int tex_filter, int groups, int* query,
+                   cudaStream_t stream) {
+  switch (tex_filter) {
+    case kTexNone:
+      return none_index_launch<GEO, kTexNone>(a, num_views, groups, query, stream);
+    case kTexNearest:
+      return none_index_launch<GEO, kTexNearest>(a, num_views, groups, query, stream);
+    case kTexBilinear:
+      return none_index_launch<GEO, kTexBilinear>(a, num_views, groups, query, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The teams' entry (geo 0 or 3) at `groups` groups a block (with `query`,
+// its occupancy instead of a launch).
+int none_index_variant(const RenderArgs& a, int num_views, int geo, int tex_filter, int groups,
+                       int* query, cudaStream_t stream) {
+  if (groups < 1 || groups > kIndexMaxGroups) return (int)cudaErrorInvalidValue;
+  if (geo == kGeoPrep)
+    return none_index_tex<kGeoPrep>(a, num_views, tex_filter, groups, query, stream);
+  if (geo == kGeoRawWt)
+    return none_index_tex<kGeoRawWt>(a, num_views, tex_filter, groups, query, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // A launch's choice: K1's culled sweep (9-output mode only) or K1-none,
@@ -137,23 +200,41 @@ extern "C" {
 // mrt_render_resident's arguments but for the visit (clusters may be null
 // and CC 0 when not culled). tex_filter 4 is the 9-output mode (geo 0, 1 or
 // 3): t in depth, idx in segmask, the material in code, and z, uv x, uv y,
-// nx, ny, nz in the six planes of handoff. Returns cudaGetLastError() after
-// the launch (0 on success), or cudaErrorInvalidValue for an unknown
-// variant.
+// nx, ny, nz in the six planes of handoff. groups 0: the parent design (one
+// 16x16 block a tile, every variant); 1 or 2: K1-none on the index visit's
+// tile teams, a block a view (culled 0, raster 0, no seed, geo 0 or 3,
+// tex_filter 0, 1 or 2; CC 0). Returns cudaGetLastError() after the launch
+// (0 on success), or cudaErrorInvalidValue for an unknown variant or plan.
 int mrt_render_none(const float* rows, const float* clusters, const float* cams,
                     const float* mats, const int* pool, int n_mats, float* depth,
                     int* segmask, uint32_t* rgb, int* code, float* handoff,
                     const float* seed, int num_views, int num_cams, int S, int CC,
                     int cluster_size, int n_cols, int n_lights, int height, int width,
                     int seg_div, float two_over_w, float two_over_h, int raster,
-                    int tex_filter, int geo, int culled, void* stream) {
+                    int tex_filter, int geo, int culled, int groups, void* stream) {
   const RenderArgs a = render_args(rows, clusters, cams, mats, pool, n_mats, depth,
                                    segmask, rgb, code, handoff, num_cams, S, CC,
                                    cluster_size, n_cols, n_lights, height, width,
                                    seg_div, two_over_w, two_over_h, tex_filter);
   if (culled && clusters == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_variant<NoneRoute>(a, NoneArgs{seed, culled != 0}, num_views, geo, raster,
-                                   tex_filter, (cudaStream_t)stream);
+  if (groups == 0)
+    return launch_variant<NoneRoute>(a, NoneArgs{seed, culled != 0}, num_views, geo, raster,
+                                     tex_filter, (cudaStream_t)stream);
+  if (culled || raster || seed != nullptr || CC != 0) return (int)cudaErrorInvalidValue;
+  return none_index_variant(a, num_views, geo, tex_filter, groups, nullptr,
+                            (cudaStream_t)stream);
+}
+
+// K1-none's team entry (geo, tex_filter, groups) at these sizes: threads a
+// block, registers, local memory bytes a thread and blocks a
+// multiprocessor, in out[0..3]. Returns 0, or the CUDA error of the query.
+int mrt_render_none_occupancy(int geo, int tex_filter, int groups, int S, int n_cols,
+                              int n_lights, int* out) {
+  RenderArgs a{};
+  a.S = S;
+  a.n_cols = n_cols;
+  a.n_lights = n_lights;
+  return none_index_variant(a, 0, geo, tex_filter, groups, out, nullptr);
 }
 
 const char* mrt_error_string(int err) {

@@ -150,9 +150,13 @@
 // (shadow_tile, render_index_shadows_kernel: records of four float4 a
 // triangle, the raw sweep's e1, e2 and the view's tv, q, t_num with v0, and
 // each (light, triangle)'s shadow pvec and 1/det, formed once a view, so
-// that the shadow test makes only the hit point's terms). The other modes
-// keep this design; K1-raw's and K10's blocks on the teams are left for a
-// later change.
+// that the shadow test makes only the hit point's terms), K10 raytraced
+// and cold (wt_tile, render_index_wt_kernel: records of three float4 a
+// triangle, a with the validity, b and c, formed once a view; each pixel's
+// shear frame once a tile), and K1-none on prep and K10 rows (the same
+// tiles without the cluster gates, every slot of the world swept; its
+// entries in csrc/render_none.cu). The other modes keep this design;
+// K1-raw's block on the teams is left for a later change.
 //
 // The streamed route (STREAM): meshes whose rows do not fit the resident
 // budget (32 * S * 4 bytes > 384 KB, the JAX package's dma_tris,
@@ -864,6 +868,7 @@ __device__ __forceinline__ void render_body(const RenderArgs& a,
     // K1-none: every triangle in index order (the JAX non-culled launch,
     // :4911); invalid and padding triangles fail through inv = 0 or, K10,
     // the validity row.
+    MRT_INDEX(2);
     for (int i = 0; i < S; ++i) {
       if constexpr (WT) {
         float t;
@@ -1544,6 +1549,15 @@ constexpr int kIndexPixels = 4;
 // group an SM) ran 6-31% slower at 64x64 than 2 (72 registers, 3 blocks)
 // and 8-11% faster at 128x128 (port_tools/mip_shadow_ab.py on an H100).
 constexpr int kShadowPixels = 2;
+// K10's pixels a thread on the teams (wt_tile): each carries its shear
+// frame and the slab test's reciprocals through the sweep. Of 1, 2 and 4
+// (at 64, 72 and 89-93 registers: 4, 3 and 2 blocks of one group an SM), 2
+// ran fastest, and 7% faster still held to 64 registers (4 blocks, no
+// spills), as its entries are (port_tools/index_plan_ab.py on an H100).
+constexpr int kWtPixels = 2;
+// K1-none's on prep rows (index_tile without the cluster gates): 4 ran 5%
+// faster than 2.
+constexpr int kNonePixels = 4;
 constexpr int kIndexRecordFloats = 12;  // a triangle's record: three float4
 // K8's: four float4 a triangle, then one float4 a (light, triangle).
 constexpr int kShadowRecordFloats = 16;
@@ -2024,8 +2038,9 @@ __device__ __forceinline__ void mip_hit(const RenderArgs& a, const float4* s_rec
 // computes it. TEX = mip (K7 folded): the tile writes depth and segmask
 // and holds each pixel's winner (best_t, best_idx) in shared memory
 // (VisitCtl::mip_hold) for the view's keys and sample passes (mip_keys,
-// mip_pass); no rgb.
-template <int TEX, int PIX>
+// mip_pass); no rgb. CULL false (K1-none, no cluster table): no gates, every
+// slot of the world swept in index order.
+template <int TEX, int PIX, bool CULL = true>
 __device__ __forceinline__ void index_tile(const RenderArgs& a, const float4* s_rec,
                                            const float* attr, const float* s_cl,
                                            const float* s_gate, const float* s_cam, int view,
@@ -2054,32 +2069,59 @@ __device__ __forceinline__ void index_tile(const RenderArgs& a, const float4* s_
     best_idx[q] = -1;
   }
 
-  for (int c = 0; c < CC; ++c) {
-    MRT_PHASE(1);
-    if (!(s_cl[6 * CC + c] > 0.f)) continue;  // the block's: no vote
-    const float lx = s_gate[0 * CC + c], ly = s_gate[1 * CC + c], lz = s_gate[2 * CC + c];
-    const float hx = s_gate[3 * CC + c], hy = s_gate[4 * CC + c], hz = s_gate[5 * CC + c];
-    bool possible = false;
+  if constexpr (CULL) {
+    for (int c = 0; c < CC; ++c) {
+      MRT_PHASE(1);
+      if (!(s_cl[6 * CC + c] > 0.f)) continue;  // the block's: no vote
+      const float lx = s_gate[0 * CC + c], ly = s_gate[1 * CC + c], lz = s_gate[2 * CC + c];
+      const float hx = s_gate[3 * CC + c], hy = s_gate[4 * CC + c], hz = s_gate[5 * CC + c];
+      bool possible = false;
 #pragma unroll
-    for (int q = 0; q < PIX; ++q) {
-      // The slab test (:1671-1697) with the scalar near.
-      const float t1x = lx * ivx[q];
-      const float t2x = hx * ivx[q];
-      const float t1y = ly * ivy[q];
-      const float t2y = hy * ivy[q];
-      const float t1z = lz * ivz[q];
-      const float t2z = hz * ivz[q];
-      const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-      const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
-      possible = possible || ((tmax >= tmin) && (tmax > near) && (tmin < best_t[q]));
+      for (int q = 0; q < PIX; ++q) {
+        // The slab test (:1671-1697) with the scalar near.
+        const float t1x = lx * ivx[q];
+        const float t2x = hx * ivx[q];
+        const float t1y = ly * ivy[q];
+        const float t2y = hy * ivy[q];
+        const float t1z = lz * ivz[q];
+        const float t2z = hz * ivz[q];
+        const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+        const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+        possible = possible || ((tmax >= tmin) && (tmax > near) && (tmin < best_t[q]));
+      }
+      if (!team_or<kTeam>(bar, possible)) continue;
+      MRT_PHASE(2);
+      const int base = c * cs;
+      const int cnt = (int)s_cl[7 * CC + c];
+      for (int i = base; i < base + cnt; ++i) {
+        // Möller–Trumbore on the pack-time rows (:1296-1316).
+        const float4 r0 = s_rec[3 * i], r1 = s_rec[3 * i + 1], r2 = s_rec[3 * i + 2];
+#pragma unroll
+        for (int q = 0; q < PIX; ++q) {
+          const float det = dx[q] * r0.x + dy[q] * r0.y + dz[q] * r0.z;
+          const float inv = fabsf(det) > kEpsDet ? 1.0f / det : 0.0f;
+          const float u = (dx[q] * r1.x + dy[q] * r1.y + dz[q] * r1.z) * inv;
+          const float v = (dx[q] * r2.x + dy[q] * r2.y + dz[q] * r2.z) * inv;
+          const float t = r0.w * inv;
+          const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) && (t > near) &&
+                          (t < best_t[q]);
+          best_t[q] = ok ? t : best_t[q];
+          best_idx[q] = ok ? i : best_idx[q];
+        }
+      }
     }
-    if (!team_or<kTeam>(bar, possible)) continue;
+  } else {
+    // K1-none (the JAX non-culled launch, :4911): every slot in index
+    // order. A dead slot (record 1's w 0: D = 0 where near >= 0, so that
+    // det = 0, inv = 0 and t = 0 fails t > near for every ray) is skipped:
+    // the same first minimum. The test is a copy of the culled sweep's:
+    // ptxas's register allocation of K1's entry moves with its source's
+    // shape.
     MRT_PHASE(2);
-    const int base = c * cs;
-    const int cnt = (int)s_cl[7 * CC + c];
-    for (int i = base; i < base + cnt; ++i) {
-      // Möller–Trumbore on the pack-time rows (:1296-1316).
-      const float4 r0 = s_rec[3 * i], r1 = s_rec[3 * i + 1], r2 = s_rec[3 * i + 2];
+    for (int i = 0; i < S; ++i) {
+      const float4 r1 = s_rec[3 * i + 1];
+      if (r1.w == 0.f) continue;
+      const float4 r0 = s_rec[3 * i], r2 = s_rec[3 * i + 2];
 #pragma unroll
       for (int q = 0; q < PIX; ++q) {
         const float det = dx[q] * r0.x + dy[q] * r0.y + dz[q] * r0.z;
@@ -2444,6 +2486,229 @@ __device__ __forceinline__ void shadow_tile(const RenderArgs& a, const float4* s
   }
 }
 
+// A vertex translated to the ray origin, (x, y, z), sheared by one pixel's
+// frame (Shear::shear's expressions): KZ 0, 1 or 2 with that axis fixed
+// (the frame's kz known to the whole warp: the same values selected), -1
+// with the selects on the pixel's own kz (0: x, 1: y, 2: z).
+template <int KZ>
+__device__ __forceinline__ void wt_shear(int kz, float sx, float sy, float sz, float x, float y,
+                                         float z, float& px, float& py, float& pz) {
+  float X, Y, Z;
+  if constexpr (KZ == 0) {
+    Z = x, X = y, Y = z;
+  } else if constexpr (KZ == 1) {
+    Z = y, X = z, Y = x;
+  } else if constexpr (KZ == 2) {
+    Z = z, X = x, Y = y;
+  } else {
+    Z = kz == 0 ? x : (kz == 1 ? y : z);
+    X = kz == 0 ? y : (kz == 1 ? z : x);
+    Y = kz == 0 ? z : (kz == 1 ? x : y);
+  }
+  px = X - sx * Z;
+  py = Y - sy * Z;
+  pz = sz * Z;
+}
+
+// wt_tile's sweep of slots [lo, hi) from K10's records for the thread's PIX
+// pixels (kz packed two bits a pixel): the validity (record 0's w; an
+// invalid slot is skipped by the whole warp), woop_test's decision, t > near
+// and the first minimum in index order (strict <).
+template <int KZ, int PIX>
+__device__ __forceinline__ void wt_sweep(const float4* s_rec, int lo, int hi, int kz,
+                                         const float (&sx)[PIX], const float (&sy)[PIX],
+                                         const float (&sz)[PIX], float near,
+                                         float (&best_t)[PIX], int (&best_idx)[PIX]) {
+  for (int i = lo; i < hi; ++i) {
+    const float4 r0 = s_rec[3 * i];
+    if (!(r0.w > 0.f)) continue;
+    const float4 r1 = s_rec[3 * i + 1], r2 = s_rec[3 * i + 2];
+#pragma unroll
+    for (int q = 0; q < PIX; ++q) {
+      const int k = (kz >> (2 * q)) & 3;
+      float ax, ay, az, bx, by, bz, cx, cy, cz;
+      wt_shear<KZ>(k, sx[q], sy[q], sz[q], r0.x, r0.y, r0.z, ax, ay, az);
+      wt_shear<KZ>(k, sx[q], sy[q], sz[q], r1.x, r1.y, r1.z, bx, by, bz);
+      wt_shear<KZ>(k, sx[q], sy[q], sz[q], r2.x, r2.y, r2.z, cx, cy, cz);
+      const float u = cx * by - cy * bx;
+      const float v = ax * cy - ay * cx;
+      const float w = bx * ay - by * ax;
+      const float det = u + v + w;
+      const bool accept = det != 0.f && ((u >= 0.f && v >= 0.f && w >= 0.f) ||
+                                         (u <= 0.f && v <= 0.f && w <= 0.f));
+      if (accept) {
+        const float t = (u * az + v * bz + w * cz) * (1.0f / det);
+        if (t > near && t < best_t[q]) {
+          best_t[q] = t;
+          best_idx[q] = i;
+        }
+      }
+    }
+  }
+}
+
+// K10's tile on the index visit's tile teams (GEO = raw_wt, raytraced,
+// untextured or nearest or bilinear; CULL false: K1-none on the same rows,
+// csrc/render_none.cu): one 16x16 tile walked by a team of 256 / PIX
+// threads (named barrier `bar`), PIX pixels a thread as index_tile takes
+// them. The records (three float4 a triangle: a = v0 - o with the
+// validity, b = a + e1, c = a + e2, formed once a view with render_body's
+// expressions) serve woop_test's decision; each pixel's shear frame
+// (Shear) is formed once a tile. Culled: each cluster in index order, the
+// block's validity, then K1's slab test on the view's gate terms as an OR
+// over the tile's pixels (the team's barrier), then its valid prefix; not
+// culled: every slot of the world. Where all 32 threads of a warp share
+// one kz (every pixel of each), the warp sweeps wt_sweep's variant with the
+// axis fixed. The resolve traces each pixel's ray again (pixel_ray: the
+// same bits), computes the winner's Möller–Trumbore (u, v) from its raw
+// rows in device memory (tv, q, t_num, then pvec_test) and its attributes,
+// the shading and the fused export, each as render_body computes them.
+template <int TEX, int PIX, bool CULL>
+__device__ __forceinline__ void wt_tile(const RenderArgs& a, const float4* s_rec,
+                                        const float* g_rows, const float* s_cl,
+                                        const float* s_gate, const float* s_cam, int view,
+                                        int tile, int bar) {
+  constexpr int kTeam = kThreads / PIX;
+  constexpr int kRowStep = kTileY / PIX;
+  const int S = a.S, CC = a.CC, cs = a.cluster_size;
+  const int tt = (threadIdx.y * kTileX + threadIdx.x) % kTeam;
+  const int px = (tile % a.tiles_x) * kTileX + tt % kTileX;
+  const int py0 = (tile / a.tiles_x) * kTileY + tt / kTileX;
+  const float near = s_cam[14], far = s_cam[15];
+
+  // Each pixel's ray (past the image edge too: its pixels take part in the
+  // gates and write nothing), the slab test's reciprocals and its shear
+  // frame.
+  float ivx[PIX], ivy[PIX], ivz[PIX], sx[PIX], sy[PIX], sz[PIX], best_t[PIX];
+  int best_idx[PIX];
+  int kz = 0;
+#pragma unroll
+  for (int q = 0; q < PIX; ++q) {
+    float dx, dy, dz;
+    pixel_ray(a, s_cam, px, py0 + kRowStep * q, dx, dy, dz);
+    ivx[q] = 1.0f / safe_dir(dx);
+    ivy[q] = 1.0f / safe_dir(dy);
+    ivz[q] = 1.0f / safe_dir(dz);
+    const Shear f(dx, dy, dz);
+    kz |= (f.kz_x ? 0 : (f.kz_y ? 1 : 2)) << (2 * q);
+    sx[q] = f.sx;
+    sy[q] = f.sy;
+    sz[q] = f.sz;
+    best_t[q] = far;
+    best_idx[q] = -1;
+  }
+  // The warp's kz: 0, 1 or 2 where every pixel of its threads has it, else
+  // -1 (the selects).
+  int kw = kz & 3;
+#pragma unroll
+  for (int q = 1; q < PIX; ++q) kw = ((kz >> (2 * q)) & 3) == kw ? kw : -1;
+  int same;
+  __match_all_sync(0xffffffffu, kw, &same);
+  kw = same ? kw : -1;
+  auto sweep = [&](int lo, int hi) {
+    if (kw == 0)
+      wt_sweep<0, PIX>(s_rec, lo, hi, kz, sx, sy, sz, near, best_t, best_idx);
+    else if (kw == 1)
+      wt_sweep<1, PIX>(s_rec, lo, hi, kz, sx, sy, sz, near, best_t, best_idx);
+    else if (kw == 2)
+      wt_sweep<2, PIX>(s_rec, lo, hi, kz, sx, sy, sz, near, best_t, best_idx);
+    else
+      wt_sweep<-1, PIX>(s_rec, lo, hi, kz, sx, sy, sz, near, best_t, best_idx);
+  };
+
+  if constexpr (CULL) {
+    for (int c = 0; c < CC; ++c) {
+      MRT_PHASE(1);
+      if (!(s_cl[6 * CC + c] > 0.f)) continue;  // the block's: no vote
+      const float lx = s_gate[0 * CC + c], ly = s_gate[1 * CC + c], lz = s_gate[2 * CC + c];
+      const float hx = s_gate[3 * CC + c], hy = s_gate[4 * CC + c], hz = s_gate[5 * CC + c];
+      bool possible = false;
+#pragma unroll
+      for (int q = 0; q < PIX; ++q) {
+        // The slab test (:1671-1697) with the scalar near.
+        const float t1x = lx * ivx[q];
+        const float t2x = hx * ivx[q];
+        const float t1y = ly * ivy[q];
+        const float t2y = hy * ivy[q];
+        const float t1z = lz * ivz[q];
+        const float t2z = hz * ivz[q];
+        const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+        const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+        possible = possible || ((tmax >= tmin) && (tmax > near) && (tmin < best_t[q]));
+      }
+      if (!team_or<kTeam>(bar, possible)) continue;
+      MRT_PHASE(2);
+      const int base = c * cs;
+      sweep(base, base + (int)s_cl[7 * CC + c]);
+    }
+  } else {
+    // K1-none: every slot in index order; padding slots fail through the
+    // validity.
+    MRT_PHASE(2);
+    sweep(0, S);
+  }
+  MRT_PHASE(3);
+
+  const bool cam_ok = s_cam[kCamLight0 + 6 * a.n_lights] > 0.f;
+  const float ox = s_cam[0], oy = s_cam[1], oz = s_cam[2];
+  const float* attr = g_rows + (size_t)kAttr0 * S;
+#pragma unroll
+  for (int q = 0; q < PIX; ++q) {
+    const int py = py0 + kRowStep * q;
+    if (px >= a.width || py >= a.height) continue;
+    float dx, dy, dz;
+    pixel_ray(a, s_cam, px, py, dx, dy, dz);
+    // Winner resolve (:2725-2793): its Möller–Trumbore (u, v) (:1372-1380)
+    // from its raw rows, clipped; the attributes by its index.
+    float nx = 0.f, ny = 0.f, nz = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f;
+    const int j = best_idx[q];
+    const bool found = j >= 0;
+    if (found) {
+      const float e1x = g_rows[3 * S + j], e1y = g_rows[4 * S + j], e1z = g_rows[5 * S + j];
+      float h[7];
+      h[0] = ox - g_rows[j];
+      h[1] = oy - g_rows[S + j];
+      h[2] = oz - g_rows[2 * S + j];
+      h[3] = h[1] * e1z - h[2] * e1y;
+      h[4] = h[2] * e1x - h[0] * e1z;
+      h[5] = h[0] * e1y - h[1] * e1x;
+      h[6] = g_rows[6 * S + j] * h[3] + g_rows[7 * S + j] * h[4] + g_rows[8 * S + j] * h[5];
+      float u, v, t;
+      pvec_test(dx, dy, dz, e1x, e1y, e1z, g_rows[6 * S + j], g_rows[7 * S + j],
+                g_rows[8 * S + j], h, 1, u, v, t);
+      const float uc = clip01(u);
+      const float vc = clip01(v);
+      nx = attr[6 * S + j] + uc * attr[9 * S + j] + vc * attr[12 * S + j];
+      ny = attr[7 * S + j] + uc * attr[10 * S + j] + vc * attr[13 * S + j];
+      nz = attr[8 * S + j] + uc * attr[11 * S + j] + vc * attr[14 * S + j];
+      if (TEX == kTexNone) {
+        a0 = attr[16 * S + j];
+        a1 = attr[17 * S + j];
+        a2 = attr[18 * S + j];
+      } else {
+        a0 = attr[15 * S + j];
+        a1 = attr[0 * S + j] + uc * attr[2 * S + j] + vc * attr[4 * S + j];
+        a2 = attr[1 * S + j] + uc * attr[3 * S + j] + vc * attr[5 * S + j];
+      }
+    }
+    // Base colour, lambert over the lights (the normal flipped toward the
+    // viewer) and the fused export, as render_body's (:3015-3050,
+    // :3186-3202).
+    float br = a0, bg = a1, bb = a2;
+    if (TEX == kTexNearest || TEX == kTexBilinear)
+      textured_base<TEX>(a.mats, a.pool, a.n_mats, (int)a0, a1, a2, br, bg, bb);
+    float sr, sg, sb;
+    lambert(a, s_cam, nx, ny, nz, dx, dy, dz, 0u, sr, sg, sb);
+    const bool hit = found && cam_ok;
+    const uint32_t packed = quantize(br, sr, found) | (quantize(bg, sg, found) << 8) |
+                            (quantize(bb, sb, found) << 16) | kAlpha;
+    const size_t o = ((size_t)view * a.height + py) * a.width + px;
+    a.depth[o] = hit ? best_t[q] : 0.f;
+    a.segmask[o] = hit ? j / a.seg_div : -1;
+    a.rgb[o] = cam_ok ? packed : kAlpha;
+  }
+}
+
 // A resident visit's block: view blockIdx.x, visit_groups<GEO>() groups of
 // 16x16 threads (blockDim (16, 16 G)). The fill, once a view: prep rows
 // 0-9 (raw: v0, e1, e2, rows 0-8) by one bulk copy, while the threads copy
@@ -2452,7 +2717,7 @@ __device__ __forceinline__ void shadow_tile(const RenderArgs& a, const float4* s
 // validity; then each group
 // takes tiles from the counter until the view's are gone.
 // PIX > 0: K1's index visit (index_tile) on prep rows, its
-// groups (1 or 2: blockDim.y / 16) each 4 tile teams of 256 / PIX threads
+// groups (1 or 2: blockDim.y / 16) each PIX tile teams of 256 / PIX threads
 // (PIX pixels a thread) taking the view's tiles one a team at a time from
 // the block's counter. Its fill: the records built by the threads from
 // the prep rows, the cluster table, the gate terms and the camera row (no
@@ -2460,9 +2725,12 @@ __device__ __forceinline__ void shadow_tile(const RenderArgs& a, const float4* s
 // the TPU tiles' window keys too, and after the last tile a block barrier
 // and the view's sample pass (mip_pass). GEO = raw_shadows (K8,
 // shadow_tile): records of the raw rows with the view's tv, q, t_num, and
-// each (light, triangle)'s hoisted pvec and inv.
+// each (light, triangle)'s hoisted pvec and inv. GEO = raw_wt (K10,
+// wt_tile): records of the view's a, b, c and the validity. CULL false
+// (K1-none on prep or K10 rows, csrc/render_none.cu): no cluster table and
+// no gate terms (CC is 0); every tile sweeps every slot.
 template <int GEO, bool RASTER, int TEX, bool BINNED, bool SEEDED, int PIX = 0,
-          int FILTER = kMipNearest>
+          int FILTER = kMipNearest, bool CULL = true>
 __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order,
                                            const BinArgs& bn, const float* seed,
                                            const MipArgs& mp = MipArgs{}) {
@@ -2471,11 +2739,15 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
   constexpr bool INDEX = PIX > 0;
   constexpr bool MIP = INDEX && TEX == kTexMip;
   constexpr bool SHADOW_TEAMS = INDEX && GEO == kGeoRawShadows;
+  constexpr bool WT_TEAMS = INDEX && GEO == kGeoRawWt;
   static_assert(!INDEX || (!RASTER && !BINNED && !SEEDED &&
                            ((GEO == kGeoPrep && TEX != kTexNine) ||
-                            (GEO == kGeoRawShadows &&
+                            ((GEO == kGeoRawShadows || GEO == kGeoRawWt) &&
                              (TEX == kTexNone || TEX == kTexNearest || TEX == kTexBilinear)))),
-                "the index visit: K1 and K6 on prep rows (K7 folded too) and K8, raytraced");
+                "the index visit: K1 and K6 on prep rows (K7 folded too), K8 and K10, "
+                "raytraced");
+  static_assert(CULL || (INDEX && TEX != kTexMip && (GEO == kGeoPrep || GEO == kGeoRawWt)),
+                "K1-none on the teams: prep and K10 rows, untextured, nearest or bilinear");
   constexpr int kBlock = kThreads * visit_groups<GEO>();
   const int S = a.S, CC = a.CC;
   const int n_thr = INDEX ? (int)(blockDim.x * blockDim.y) : kBlock;
@@ -2571,6 +2843,21 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
             make_float4(pvx, pvy, pvz, fabsf(det) > kEpsDet ? 1.0f / det : 0.0f);
       }
     }
+  } else if constexpr (WT_TEAMS) {
+    // K10's records (:1393-1402): triangle i's a = v0 - o with the
+    // validity, b = a + e1 and c = a + e2, with this view's camera origin.
+    const float ox = g_cam[0], oy = g_cam[1], oz = g_cam[2];
+    float4* s_rec = reinterpret_cast<float4*>(s_geo);
+    for (int i = tid; i < S; i += n_thr) {
+      const float ax = g_rows[i] - ox;
+      const float ay = g_rows[S + i] - oy;
+      const float az = g_rows[2 * S + i] - oz;
+      s_rec[3 * i] = make_float4(ax, ay, az, g_rows[9 * S + i]);
+      s_rec[3 * i + 1] = make_float4(ax + g_rows[3 * S + i], ay + g_rows[4 * S + i],
+                                     az + g_rows[5 * S + i], 0.f);
+      s_rec[3 * i + 2] = make_float4(ax + g_rows[6 * S + i], ay + g_rows[7 * S + i],
+                                     az + g_rows[8 * S + i], 0.f);
+    }
   } else if constexpr (WT) {
     // K10's per-(view, triangle) terms (:1393-1402): a = v0 - o,
     // b = a + e1, c = a + e2 with this view's camera origin, and the
@@ -2615,11 +2902,17 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
       s_h[6 * S + i] = e2x * qx + e2y * qy + e2z * qz;
     }
   } else if constexpr (INDEX) {
-    // The records: triangle i's prep rows as (D, t_num), (A, 0), (Q, 0).
+    // The records: triangle i's prep rows as (D, t_num), (A, 0), (Q, 0);
+    // K1-none's (A, live): live 0 where D = 0 and the view's near >= 0, a
+    // slot no ray's test accepts (index_tile skips it).
     float4* s_rec = reinterpret_cast<float4*>(s_geo);
+    [[maybe_unused]] const bool near_pos = g_cam[14] >= 0.f;
     for (int i = tid; i < S; i += n_thr) {
-      s_rec[3 * i] = make_float4(g_rows[i], g_rows[S + i], g_rows[2 * S + i], g_rows[9 * S + i]);
-      s_rec[3 * i + 1] = make_float4(g_rows[3 * S + i], g_rows[4 * S + i], g_rows[5 * S + i], 0.f);
+      const float Dx = g_rows[i], Dy = g_rows[S + i], Dz = g_rows[2 * S + i];
+      float live = 0.f;
+      if constexpr (!CULL) live = (Dx != 0.f || Dy != 0.f || Dz != 0.f || !near_pos) ? 1.f : 0.f;
+      s_rec[3 * i] = make_float4(Dx, Dy, Dz, g_rows[9 * S + i]);
+      s_rec[3 * i + 1] = make_float4(g_rows[3 * S + i], g_rows[4 * S + i], g_rows[5 * S + i], live);
       s_rec[3 * i + 2] = make_float4(g_rows[6 * S + i], g_rows[7 * S + i], g_rows[8 * S + i], 0.f);
     }
   }
@@ -2646,8 +2939,10 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
       if constexpr (SHADOW_TEAMS)
         shadow_tile<TEX, PIX>(a, s_rec, s_rec + 4 * S, attr, s_cl, s_gate, s_cam, view, tile,
                               1 + team);
+      else if constexpr (WT_TEAMS)
+        wt_tile<TEX, PIX, CULL>(a, s_rec, g_rows, s_cl, s_gate, s_cam, view, tile, 1 + team);
       else
-        index_tile<TEX, PIX>(a, s_rec, attr, s_cl, s_gate, s_cam, view, tile, 1 + team);
+        index_tile<TEX, PIX, CULL>(a, s_rec, attr, s_cl, s_gate, s_cam, view, tile, 1 + team);
     }
     if constexpr (MIP) {
       // Every team has walked every tile of the view: every pixel's winner
@@ -3529,11 +3824,23 @@ render_index_shadows_kernel(const RenderArgs a) {
                                                                        nullptr);
 }
 
+// K10 on the index visit's tile teams (raw rows, the watertight decision,
+// raytraced; untextured, nearest or bilinear), kWtPixels pixels a thread, 1
+// or 2 groups a block, a block a view; at most 64 registers a thread.
+template <int TEX>
+__global__ void __launch_bounds__(kThreads * kIndexMaxGroups, 4 / kIndexMaxGroups)
+render_index_wt_kernel(const RenderArgs a) {
+  visit_body<kGeoRawWt, false, TEX, false, false, kWtPixels>(a, nullptr, BinArgs{}, nullptr);
+}
+
 template <int GEO, int TEX>
 int index_launch(const RenderArgs& a, int num_views, int groups, int* query,
                  cudaStream_t stream) {
   if constexpr (GEO == kGeoRawShadows)
     return index_entry(render_index_shadows_kernel<TEX>, index_smem<GEO>(a), num_views, groups,
+                       query, stream, a);
+  else if constexpr (GEO == kGeoRawWt)
+    return index_entry(render_index_wt_kernel<TEX>, index_smem<GEO>(a), num_views, groups,
                        query, stream, a);
   else
     return index_entry(render_index_kernel<TEX>, index_smem<GEO>(a), num_views, groups, query,
@@ -3560,6 +3867,7 @@ int index_variant(const RenderArgs& a, int num_views, int geo, int tex_filter, i
   if (geo == kGeoPrep) return index_tex<kGeoPrep>(a, num_views, tex_filter, groups, query, stream);
   if (geo == kGeoRawShadows && a.n_lights <= 32)
     return index_tex<kGeoRawShadows>(a, num_views, tex_filter, groups, query, stream);
+  if (geo == kGeoRawWt) return index_tex<kGeoRawWt>(a, num_views, tex_filter, groups, query, stream);
   return (int)cudaErrorInvalidValue;
 }
 #endif  // MRT_RENDER_BODY_ONLY
@@ -3578,8 +3886,9 @@ extern "C" {
 // rgb when it is 3, code/handoff unless it is 3. Every cluster in index
 // order (K1); the streamed ordered walk is csrc/render_streamed.cu's.
 // groups 0: the parent design, one 16x16 block a tile (every variant);
-// 1 or 2: the index visit's groups of tile teams, a block a view (geo 0
-// or 2, raster 0, tex_filter 0, 1 or 2), 4 pixels a thread. Returns
+// 1 or 2: the index visit's groups of tile teams, a block a view (geo 0,
+// 2 or 3, raster 0, tex_filter 0, 1 or 2), 4 pixels a thread (geo 2: 2;
+// geo 3: kWtPixels). Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unknown variant or plan.
 int mrt_render_resident(const float* rows, const float* clusters,

@@ -94,7 +94,10 @@ row sort or triangle ranges on the resident route. K1 itself (and K6) on
 prep rows, raytraced, untextured or nearest or bilinear, takes the same
 shape on enough views (``index_plan``, ``check_index_plan``: one block a
 view of 64-thread tile teams, 4 pixels a thread, each triangle's prep rows
-as records); its other modes, few views and blocks past 227 KB keep one
+as records), and so do K8, K10 (raw rows, the watertight decision:
+records of each triangle's a, b, c and validity, 2 pixels a thread) and
+K1-none on prep and K10 rows (no cluster table: every team sweeps every
+live slot); their other modes, few views and blocks past 227 KB keep one
 16x16 block a tile.
 Exact-t ties go to the lower triangle index on every route, so the visit
 changes only the work: the frames are the index-order sweep's
@@ -243,21 +246,30 @@ _FILL_ALIGN = 16
 # t_num, A, Q: three float4), the cluster table and the view's gate terms
 # (8 + 7 rows) and the camera row. Groups: 1 where a view has fewer than
 # _INDEX_TILES_FOR_TWO tiles (64x64: 16), else 2 (128x128: 64). The teams
-# take two more modes: K7 folded (the mip sample in the same launch,
+# take more modes: K7 folded (the mip sample in the same launch,
 # csrc/render_mip.cu: the block also holds the TPU tiles' two window keys
 # and each pixel's winner, _MIP_HOLD_WORDS words, between its tile and the
 # view's sample pass) and K8 (raw rows with shadows: records of 16 floats a
 # triangle, the raw sweep's e1, e2, tv, q, t_num and v0, and 4 a (light,
-# triangle), the shadow test's hoisted pvec and 1/det, 2 pixels a thread;
-# its entry takes 72 registers a thread, the others 64). The other modes of
-# K1 (raster, raw rows without shadows, K10, the 9-output mode) and K9 on K1
-# keep the parent design, render_body's 16x16 blocks: a plan of 0 groups.
+# triangle), the shadow test's hoisted pvec and 1/det, 2 pixels a thread),
+# K10 raytraced and cold (records of 12 floats: a = v0 - o with the
+# validity, b and c; 2 pixels a thread) and K1-none on prep and K10 rows
+# (csrc/render_none.cu: the same records, no cluster table or gate terms,
+# every live slot swept; 4 and 2 pixels a thread); the K1, K10 and K1-none
+# entries take at most 64 registers a thread, K8's 72. The
+# other modes of K1 (raster, raw rows without shadows, K10 with shadows, the
+# 9-output mode), of K1-none (raw rows, shadows, raster, the 9-output mode)
+# and K9 on either keep the parent design, render_body's 16x16 blocks: a
+# plan of 0 groups. _INDEX_REGS: each team entry's registers a thread
+# (index_entry_key; its most textured variant's, rounded up to the 8 the
+# card allocates at a time), by which the plan counts the blocks a
+# multiprocessor holds.
 _INDEX_TILES_FOR_TWO = 64
 _INDEX_GROUP_CHOICES = (1, 2)
 _INDEX_RECORD_FLOATS = 12
 _SHADOW_RECORD_FLOATS = 16
 _MIP_HOLD_WORDS = 2
-_INDEX_REGS = {"prep": 64, "raw_shadows": 72}
+_INDEX_REGS = {"prep": 64, "raw_shadows": 72, "raw_wt": 64, "none": 64, "none_raw_wt": 64}
 # The streamed walk's slack: the occlusion early exit's on squared distances
 # (the JAX kernel's), the slab test's on t (a tie must not be culled).
 _F_EXIT_SLACK = float(np.float32(0.998))
@@ -558,7 +570,8 @@ def check_resident_plan(rows: torch.Tensor, n_clusters: int, n_lights: int, geo:
 
 class IndexPlan(NamedTuple):
     """The index visit's launch (``index_plan``): ``groups`` groups of 4
-    tile teams a block, a block a view, 4 pixels a thread (K8: 2; 0 groups:
+    tile teams a block, a block a view, 4 pixels a thread (K8, K10 and
+    K1-none on K10 rows: 2; 0 groups:
     the parent design, one 16x16 block a tile, one pixel a thread; K7 then
     takes two launches, the hand-off and ``shade_mip``), and ``smem_bytes``
     of shared memory a block."""
@@ -571,13 +584,14 @@ def index_block_bytes(S: int, n_clusters: int, n_lights: int, geo: str = "prep",
                       height: int = 0, width: int = 0, mip: bool = False) -> int:
     """Shared memory a block of the index visit's tile teams takes
     (``index_smem`` in ``csrc/render_resident.cu``): the head, the records
-    (``geo`` "raw_shadows", K8: 16 floats a triangle and 4 a light and
-    triangle), the cluster table and gate terms, and the camera row; with
-    ``mip`` (K7 folded, at ``height`` x ``width``) the TPU tiles' window
-    keys (two words a tile of ``mips.tile_geometry``) and each pixel's held
-    winner too."""
-    rec = (_INDEX_RECORD_FLOATS if geo == "prep"
-           else _SHADOW_RECORD_FLOATS + 4 * n_lights)
+    (12 floats a triangle on prep and K10 rows; ``geo`` "raw_shadows", K8:
+    16 floats a triangle and 4 a light and triangle), the cluster table and
+    gate terms (none for K1-none: ``n_clusters`` 0), and the camera row;
+    with ``mip`` (K7 folded, at ``height`` x ``width``) the TPU tiles'
+    window keys (two words a tile of ``mips.tile_geometry``) and each
+    pixel's held winner too."""
+    rec = (_SHADOW_RECORD_FLOATS + 4 * n_lights if geo == "raw_shadows"
+           else _INDEX_RECORD_FLOATS)
     smem = _VISIT_HEAD_BYTES + 4 * (rec * S + _VISIT_CLUSTER_ROWS * n_clusters
                                     + _n_cam_cols(n_lights))
     if mip:
@@ -585,43 +599,59 @@ def index_block_bytes(S: int, n_clusters: int, n_lights: int, geo: str = "prep",
     return smem
 
 
-def index_takes(geo: str, texture=None, raster: bool = False, seeded: bool = False) -> bool:
+def index_takes(geo: str, texture=None, raster: bool = False, seeded: bool = False,
+                culled: bool = True) -> bool:
     """Whether the index visit's tile teams take this mode: raytraced and
     cold, on prep rows untextured, with the ``"nearest"`` or
-    ``"bilinear"`` filter (K1, K6) or ``"mip"`` (K7 folded), or on raw rows
-    with shadows untextured, nearest or bilinear (K8)."""
+    ``"bilinear"`` filter (K1, K6) or ``"mip"`` (K7 folded), on raw rows
+    with shadows (K8) or K10's rows untextured, nearest or bilinear; not
+    ``culled`` (K1-none), on prep and K10 rows untextured, nearest or
+    bilinear."""
     if raster or seeded:
         return False
     if geo == "prep":
-        return texture in (None, "mip") + shade.FILTERS
-    return geo == "raw_shadows" and texture in (None,) + shade.FILTERS
+        return texture in ((None, "mip") if culled else (None,)) + shade.FILTERS
+    return ((geo == "raw_wt" or culled and geo == "raw_shadows")
+            and texture in (None,) + shade.FILTERS)
+
+
+def index_entry_key(geo: str, culled: bool = True) -> str:
+    """The team entry a mode of ``index_takes`` launches, as ``_INDEX_REGS``
+    names it: the geo (K1, K8, K10), or ``"none"`` / ``"none_raw_wt"``
+    (K1-none on prep or K10 rows, ``csrc/render_none.cu``)."""
+    if culled:
+        return geo
+    return "none" if geo == "prep" else f"none_{geo}"
 
 
 def index_plan(geo: str, S: int, n_clusters: int, n_lights: int, num_views: int,
                height: int, width: int, texture=None, sm_count: int = _H100_SMS, *,
-               raster: bool = False, seeded: bool = False, groups=None) -> IndexPlan:
+               raster: bool = False, seeded: bool = False, groups=None,
+               culled: bool = True) -> IndexPlan:
     """The resident index order's launch on these inputs (``sm_count``: the
-    card's multiprocessors, the H100's 132 by default). The index visit's
-    tile teams take the modes of ``index_takes`` (K1, K6, K7 folded as
-    ``texture="mip"``, K8): ``groups`` of 4 teams a block (by default 1, or
-    2 where the view has at least _INDEX_TILES_FOR_TWO tiles), a block a
-    view. By default the parent design (0 groups: its 16x16 block's rows,
-    cluster table and camera row; K7's two launches) where the teams' block
-    does not fit 227 KB, where the views are fewer than the blocks the card
-    holds at once (by registers, _INDEX_REGS a thread, and shared memory),
-    and in every other mode (raster, raw rows without shadows, K10, the
-    9-output mode, K9's seed); with ``groups`` 0 too. A forced ``groups``
-    other than 0, 1 or 2, or one whose block does not fit, is
-    ``LaunchPlanError``."""
+    card's multiprocessors, the H100's 132 by default; ``culled`` False:
+    K1-none, no cluster table, ``n_clusters`` 0). The index visit's tile
+    teams take the modes of ``index_takes`` (K1, K6, K7 folded as
+    ``texture="mip"``, K8, K10; K1-none on prep and K10 rows): ``groups``
+    of 4 teams a block (by default 1, or 2 where the view has at least
+    _INDEX_TILES_FOR_TWO tiles), a block a view. By default the parent
+    design (0 groups: its 16x16 block's rows, cluster table and camera row;
+    K7's two launches) where the teams' block does not fit 227 KB, where
+    the views are fewer than the blocks the card holds at once (by
+    registers, _INDEX_REGS a thread, and shared memory), and in every other
+    mode (raster, raw rows without shadows, K10 with shadows, the 9-output
+    mode, K9's seed); with ``groups`` 0 too. A forced ``groups`` other than
+    0, 1 or 2, or one whose block does not fit, is ``LaunchPlanError``."""
     parent = IndexPlan(0, 4 * (_VISIT_GEO_ROWS[geo] * S + 8 * n_clusters
                                + _n_cam_cols(n_lights)))
-    if not index_takes(geo, texture, raster, seeded):
+    if not index_takes(geo, texture, raster, seeded, culled):
         return parent
     smem = index_block_bytes(S, n_clusters, n_lights, geo, height, width, texture == "mip")
     if groups is None:
         n_tiles = -(-height // _TILE) * -(-width // _TILE)
         groups = 2 if n_tiles >= _INDEX_TILES_FOR_TWO else 1
-        per_sm = max(1, min(_SM_REGS // (_TILE ** 2 * groups * _INDEX_REGS[geo]),
+        regs = _INDEX_REGS[index_entry_key(geo, culled)]
+        per_sm = max(1, min(_SM_REGS // (_TILE ** 2 * groups * regs),
                             _SM_SMEM // (smem + 1024)))
         if smem > _MAX_SMEM or num_views < sm_count * per_sm:
             return parent
@@ -629,7 +659,7 @@ def index_plan(geo: str, S: int, n_clusters: int, n_lights: int, num_views: int,
     if groups == 0:
         return parent
     if groups not in _INDEX_GROUP_CHOICES:
-        raise LaunchPlanError(f"K1's index visit takes {_INDEX_GROUP_CHOICES} tile groups a "
+        raise LaunchPlanError(f"the index visit takes {_INDEX_GROUP_CHOICES} tile groups a "
                               f"block (0: the parent design), not {groups}")
     if smem > _MAX_SMEM:
         raise LaunchPlanError(f"the index visit ({geo}, {texture}) needs {smem} bytes of "
@@ -640,12 +670,13 @@ def index_plan(geo: str, S: int, n_clusters: int, n_lights: int, num_views: int,
 
 def check_index_plan(rows: torch.Tensor, n_clusters: int, n_lights: int, geo: str,
                      num_views: int, height: int, width: int, texture=None, *,
-                     raster: bool = False, seeded: bool = False) -> IndexPlan:
+                     raster: bool = False, seeded: bool = False,
+                     culled: bool = True) -> IndexPlan:
     """The index order's launch plan for these rows (``index_plan``, for the card that
     holds them, or an H100 for rows on the CPU; else ``LaunchPlanError``)."""
     sms = _sm_count(rows.device) if rows.is_cuda else _H100_SMS
     return index_plan(geo, int(rows.shape[2]), n_clusters, n_lights, num_views, height, width,
-                      texture, sms, raster=raster, seeded=seeded)
+                      texture, sms, raster=raster, seeded=seeded, culled=culled)
 
 
 def check_accel(accel: str) -> None:
@@ -1641,10 +1672,10 @@ def _check_inputs(rows, clusters, cams, num_cams, n_lights, height, width,
                  height, width, rows, geo, dmxu)
     if clusters is not None and spans is None and (order is not None or bins is not None):
         check_resident_plan(rows, CC, n_lights, geo, order is not None)
-    if clusters is not None and spans is None and order is None and bins is None:
-        check_index_plan(rows, CC, n_lights, geo, W * num_cams, height, width,
-                         "mip" if mip or fb_rows is not None else texture, raster=raster,
-                         seeded=seed is not None)
+    if spans is None and order is None and bins is None:
+        check_index_plan(rows, CC if clusters is not None else 0, n_lights, geo, W * num_cams,
+                         height, width, "mip" if mip or fb_rows is not None else texture,
+                         raster=raster, seeded=seed is not None, culled=clusters is not None)
     if clusters is not None and spans is not None and order is not None:
         check_streamed_plan(rows, CC, n_lights, geo, W * num_cams, height, width, dmxu=dmxu)
     if clusters is not None and spans is not None and bins is not None:
@@ -1829,8 +1860,12 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
                               dmxu=True))
         visit = [ptr(order), spans.data_ptr(), ptr(bins), ptr(seed)]
         tail = bin_args + [int(rowskip), plan.groups, plan.parts, stream]
-    elif kernel == "render_none":  # K1-none, and K1's 9-output mode
-        visit, tail = [ptr(seed)], [int(clusters is not None), stream]
+    elif kernel == "render_none":  # K1-none on its plan, and K1's 9-output mode
+        plan = (IndexPlan(0, 0) if texture == "mip" else  # the hand-off: the parent's blocks
+                check_index_plan(rows, CC, n_lights, geo, WC, height, width, texture,
+                                 raster=raster, seeded=seed is not None,
+                                 culled=clusters is not None))
+        visit, tail = [ptr(seed)], [int(clusters is not None), plan.groups, stream]
     elif kernel == "render_streamed":  # K3 + K5, cold or seeded
         plan = streamed_plan(geo, CC, S // CC, n_lights, WC, height, width, _sm_count(dev))
         visit = [order.data_ptr(), spans.data_ptr(), ptr(seed)]
@@ -2017,22 +2052,29 @@ def resident_occupancy(kw: dict) -> dict:
 def index_occupancy(kw: dict) -> dict:
     """What the card makes of the index visit's entry that these inputs
     (``pack_inputs``'s, of the resident index order: K1 and K6 on prep
-    rows, K7 folded, K8) launch on their plan: its variant, tile groups,
-    threads a block, registers and local memory a thread, shared memory a
-    block, and blocks and warps a multiprocessor
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). Launches nothing;
-    needs the card."""
-    route = route_of(kw["order"], kw["spans"], kw["bins"], kw["clusters"] is not None)
+    rows, K7 folded, K8, K10; K1-none without a cluster table) launch on
+    their plan: its variant, tile groups, threads a block, registers and
+    local memory a thread, shared memory a block, and blocks and warps a
+    multiprocessor (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
+    Launches nothing; needs the card."""
+    culled = kw["clusters"] is not None
+    route = route_of(kw["order"], kw["spans"], kw["bins"], culled)
     texture = "mip" if kw.get("fb_rows") is not None else kw["texture"]
-    S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
+    S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2]) if culled else 0
     plan = check_index_plan(kw["rows"], CC, kw["n_lights"], kw["geo"],
                             int(kw["cams"].shape[0]), kw["height"], kw["width"], texture,
-                            raster=kw["raster"], seeded=kw.get("seed") is not None)
-    if route != INDEX or plan.groups == 0:
+                            raster=kw["raster"], seeded=kw.get("seed") is not None,
+                            culled=culled)
+    if route not in (INDEX, NONE) or plan.groups == 0:
         raise ValueError("these inputs take no index visit on tile groups")
     out = (ctypes.c_int * 4)()
     n_cols = int(kw["cams"].shape[1])
-    if texture == "mip":
+    if not culled:
+        name, variant = "render_none", variant_name(False, texture, kw["geo"], NONE)
+        err = _occupancy_query(name, [ctypes.c_int] * 6)(
+            _GEO_CODES[kw["geo"]], _TEX_CODES[texture], plan.groups, S, n_cols, kw["n_lights"],
+            out)
+    elif texture == "mip":
         name, variant = "render_mip", mip_name(kw["texture"])
         err = _occupancy_query(name, [ctypes.c_int] * 9)(
             _MIP_FILTER_CODES[kw["texture"]], plan.groups, S, CC, n_cols, kw["n_lights"],

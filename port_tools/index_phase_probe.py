@@ -1,25 +1,29 @@
 """Where the resident index order's time goes (K1 and K6 on prep rows, K7
-folded with its mip sample, K8 with its shadow rays), measured on the card,
-in the parent design and on the index visit's tile groups:
+folded with its mip sample, K8 with its shadow rays, K10's watertight
+decision, and K1-none without a cluster table), measured on the card, in
+the parent design and on the index visit's tile groups:
 
-    python3 port_tools/index_phase_probe.py [CASE ...]
+    python3 port_tools/index_phase_probe.py [--parent] [CASE ...]
 
 Builds, under build/phase_probe/, a clock64 span variant of
-csrc/render_resident.cu and of csrc/render_mip.cu (K7 folded), each in a
-translation unit of its own, never on the main path: the sources' MRT_INDEX
-hooks (render_body's index branch and shadow sweep, the parent design) and
-MRT_PHASE hooks (visit_body, the tile teams), empty in the port's own
-build, mark the phases. It also builds the same sources without the marks
-(their kernels are the port's), with a function that reads the parent
-entry's attributes and occupancy.
+csrc/render_resident.cu, csrc/render_mip.cu (K7 folded) and
+csrc/render_none.cu (K1-none), each in a translation unit of its own,
+never on the main path: the sources' MRT_INDEX hooks (render_body's index
+branch and shadow sweep, the parent design) and MRT_PHASE hooks
+(visit_body, the tile teams), empty in the port's own build, mark the
+phases. It also builds the same sources without the marks (their kernels
+are the port's), with a function that reads the parent entry's attributes
+and occupancy. With --parent, the parent design alone.
 
 For K1 on main's inputs (4096 worlds of the demo scene at 64x64) and
 mxu_4096w_128's under "auto" (128x128), K6 on textured_4096w's (the 32x32
 checker, nearest) and textured_4096w_ssaa2's (the same at 128x128), K7 on
 textured256_4096w's (chip_smoke.py's paged-texture scene with its mip
 chains, nearest; the parent design is the hand-off, whose split this is,
-then csrc/shade_mip.cu, counted in its ms) and K8 on shadows_4096w's (the
-demo scene with shadows), each the scene's first step (CASE names a subset),
+then csrc/shade_mip.cu, counted in its ms), K8 on shadows_4096w's (the
+demo scene with shadows), K10 on watertight_4096w's (the 32x32 checker,
+nearest, watertight) and K1-none on none_4096w's (the demo scene under
+accel="none"), each the scene's first step (CASE names a subset),
 it prints one JSON line per design (the parent, plan 0; the default plan,
 index_plan's):
   ms               the kernel's device time (CUDA events, 5 launches);
@@ -74,6 +78,8 @@ CASES = {
     "textured_4096w_ssaa2": (64, True, 2),
     "textured256_4096w": (64, "mip", 1),
     "shadows_4096w": (64, "shadows", 1),
+    "watertight_4096w": (64, "watertight", 1),
+    "none_4096w": (64, "none", 1),
 }
 WORLDS = 4096
 
@@ -88,6 +94,25 @@ int mrt_probe_parent_occupancy(int tex, size_t smem, int* out) {
   if (tex == 2) kernel = render_resident_kernel<0, false, 2>;
   if (tex == 3) kernel = render_resident_kernel<0, false, 3>;
   if (tex == 8) kernel = render_resident_kernel<2, false, 0>;
+  if (tex == 9) kernel = render_resident_kernel<3, false, 0>;
+  if (tex == 10) kernel = render_resident_kernel<3, false, 1>;
+  cudaFuncAttributes attr;
+  int err = (int)cudaFuncGetAttributes(&attr, kernel);
+  if (err) return err;
+  int blocks = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                          attr.maxThreadsPerBlock, smem);
+  out[0] = 256;
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = blocks;
+  return err;
+}
+#elif defined(MRT_PROBE_NONE)
+int mrt_probe_parent_occupancy(int tex, size_t smem, int* out) {
+  auto kernel = render_none_kernel<0, false, 0>;
+  if (tex == 9) kernel = render_none_kernel<3, false, 0>;
+  if (tex == 10) kernel = render_none_kernel<3, false, 1>;
   cudaFuncAttributes attr;
   int err = (int)cudaFuncGetAttributes(&attr, kernel);
   if (err) return err;
@@ -155,7 +180,8 @@ def build(csrc: Path, spans: bool, out: Path, name: str = "render_resident") -> 
     from madrona_renderer_tpu_torch import _build
 
     tu = out / f"{name}_{'spans' if spans else 'plain'}.cu"
-    head = spans_head() if spans else ""
+    head = (spans_head() if spans else "") + (
+        "#define MRT_PROBE_NONE\n" if name == "render_none" else "")
     tu.write_text(head + f'#include "{csrc / name}.cu"\n' + TAIL)
     lib = out / f"lib{tu.stem}.so"
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *(["-DMRT_SPANS"] if spans else []),
@@ -180,14 +206,16 @@ def main() -> int:
     out = HERE / "build" / "phase_probe" / "index"
     out.mkdir(parents=True, exist_ok=True)
     csrc = HERE / "madrona_renderer_tpu_torch" / "csrc"
-    jobs = [(n, sp) for n in ("render_resident", "render_mip") for sp in (False, True)]
+    libraries = ("render_resident", "render_mip", "render_none")
+    jobs = [(n, sp) for n in libraries for sp in (False, True)]
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = dict(zip(jobs, pool.map(
             lambda job: ctypes.CDLL(str(build(csrc, job[1], out, job[0]))), jobs)))
     print(json.dumps({"phase": "probe_build"}), flush=True)
     real_plan = rc.index_plan
-    designs = {"parent": 0, "default": None}
-    cases = sys.argv[1:] or list(CASES)
+    args = sys.argv[1:]
+    designs = {"parent": 0} if "--parent" in args else {"parent": 0, "default": None}
+    cases = [a for a in args if a != "--parent"] or list(CASES)
 
     def events_ms(fn, reps=5):
         fn()
@@ -204,7 +232,7 @@ def main() -> int:
         """``render_resident(**kw)`` with the render libraries taken from the
         plain or span builds, on the parent design (``groups`` 0) or the
         default plan (None)."""
-        fns = {n: rpp.bound(libs[(n, spans)], n) for n in ("render_resident", "render_mip")}
+        fns = {n: rpp.bound(libs[(n, spans)], n) for n in libraries}
         real = rc._build
         rc._build = types.SimpleNamespace(load=lambda n, *a: fns[n] if n in fns else real.load(n))
         if groups == 0:
@@ -224,12 +252,14 @@ def main() -> int:
                                   **scenes.renderer_kwargs(cfg))
             return r, rc.pack_inputs(r.state, r.scene, height=res, width=res,
                                      texture_filter="nearest")
-        shadows = mode == "shadows"
+        shadows, watertight = mode == "shadows", mode == "watertight"
         r = m.Manager(scenes.demo_config(WORLDS, m.RenderMode.Raytracer, res, res,
-                                         dynamic=True, textured=mode is True, tex_size=32,
+                                         dynamic=mode != "none",
+                                         textured=mode is True or watertight, tex_size=32,
                                          ssaa=ssaa, shadows=shadows))
         h = res * ssaa
-        return r, rc.pack_inputs(r.state, r.scene, height=h, width=h, shadows=shadows)
+        return r, rc.pack_inputs(r.state, r.scene, height=h, width=h, shadows=shadows,
+                                 watertight=watertight, accel="none" if mode == "none" else "auto")
 
     clock_mhz = []
     for path in cases:
@@ -237,22 +267,27 @@ def main() -> int:
         r, kw = inputs(path, res, mode, ssaa)
         h = res * ssaa
         mip = kw.get("fb_rows") is not None
-        if rc.route_of(kw["order"], kw["spans"], kw["bins"]) != rc.INDEX:
+        culled = kw["clusters"] is not None
+        if rc.route_of(kw["order"], kw["spans"], kw["bins"], culled) not in (rc.INDEX, rc.NONE):
             raise AssertionError(f"{path}: not the resident index order")
-        kernel = "K7" if mip else "K8" if kw["geo"] == "raw_shadows" else "K6" if mode else "K1"
+        kernel = ("K7" if mip else "K8" if kw["geo"] == "raw_shadows" else
+                  "K1-none" if not culled else "K10" if kw["geo"] == "raw_wt" else
+                  "K6" if mode else "K1")
         texture = "mip" if mip else kw["texture"]
         views = int(kw["cams"].shape[0])
         tiles = (-(-h // 16)) ** 2
-        S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
+        S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2]) if culled else 0
         cols = int(kw["cams"].shape[1])
         for design, groups in designs.items():
             line = {"phase": "index_phase_probe", "kernel": kernel, "inputs": path,
                     "design": design}
-            plan = real_plan(kw["geo"], S, CC, kw["n_lights"], views, h, h, texture)
+            plan = real_plan(kw["geo"], S, CC, kw["n_lights"], views, h, h, texture,
+                             culled=culled)
             if groups is None:
                 line["plan"] = plan._asdict()
             folded = mip and groups is None and plan.groups > 0
-            name = "render_mip" if folded else "render_resident"
+            name = ("render_mip" if folded else "render_resident" if culled
+                    else "render_none")
             probe = libs[(name, True)].mrt_probe_spans
             probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_int]
@@ -294,7 +329,9 @@ def main() -> int:
             if groups == 0:
                 rows = rc._VISIT_GEO_ROWS[kw["geo"]]
                 smem = 4 * (rows * S + 8 * CC + cols)
-                code = 8 if kernel == "K8" else 3 if mip else int(mode is True)
+                code = (8 if kernel == "K8" else 3 if mip else
+                        9 + (kw["texture"] is not None) if kw["geo"] == "raw_wt" else
+                        int(mode is True))
                 err = plain.mrt_probe_parent_occupancy(code, ctypes.c_size_t(smem), occ)
             elif folded:
                 smem = plan.smem_bytes
@@ -302,6 +339,12 @@ def main() -> int:
                 fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
                 err = fn(0, plan.groups, S, CC, cols, kw["n_lights"], h, h,
                          rc.mips.tile_geometry(h, h)[2], occ)
+            elif not culled:
+                smem = plan.smem_bytes
+                fn = plain.mrt_render_none_occupancy
+                fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                err = fn(rc._GEO_CODES[kw["geo"]], rc._TEX_CODES[texture], plan.groups, S,
+                         cols, kw["n_lights"], occ)
             else:
                 smem = plan.smem_bytes
                 fn = plain.mrt_render_resident_occupancy

@@ -1,16 +1,29 @@
-"""K1 and K6 (the resident index order on prep rows) at forced launch plans,
-held bitwise against the parent design and timed in turns in one process on
-one card:
+"""The resident index order's team entries (K1 and K6 on prep rows, K10,
+K1-none) at forced launch plans, held bitwise against the parent design and
+timed in turns in one process on one card:
 
-    python3 port_tools/index_plan_ab.py [PASSES]
+    python3 port_tools/index_plan_ab.py [PASSES] [--variants NAME,...] [CASE ...]
 
 Plans (raytrace_cuda.index_plan): the parent design ("g0": render_body's
 16x16 blocks, one pixel a thread) and the index visit's tile teams at
-G = 1 and 2 groups a block, 4 pixels a thread ("g1", "g2"). Inputs:
-main's (4096 worlds of the demo scene at 64x64), mxu_4096w_128's under
-"auto" (the same scene at 128x128), textured_4096w's (the 32x32 checker,
-nearest, 64x64), textured_4096w_ssaa2's (the same at 2x2 SSAA: 128x128)
-and the checker's bilinear filter at 64x64, each the scene's first step.
+G = 1 and 2 groups a block ("g1", "g2"). Inputs: main's (4096 worlds of
+the demo scene at 64x64), mxu_4096w_128's under "auto" (the same scene at
+128x128), textured_4096w's (the 32x32 checker, nearest, 64x64),
+textured_4096w_ssaa2's (the same at 2x2 SSAA: 128x128), the checker's
+bilinear filter at 64x64, watertight_4096w's (K10: the checker, nearest,
+watertight), none_4096w's (K1-none: the demo scene under accel="none"),
+K10 untextured on main's scene ("watertight_main") and K1-none on K10's
+rows of none_4096w's scene ("none_wt_4096w"), each the scene's first
+step; CASE names a subset. With --variants, the team entries are also
+built from csrc/ copied under build/index_variants/NAME/ with the edits
+of VARIANTS and timed as plans "g1@NAME" and "g2@NAME" on the cases whose
+entry the edits touch, called through the C entry: K10's and K1-none's
+watertight entries at up to 128 registers a thread (where they are held
+to 64) with 1, 2 and 4 pixels a thread ("px1_lb1", "px2_lb1",
+"px4_lb1"), or with every warp on the sweep's selects, no variant with kz
+fixed ("kz_generic"); K1-none's prep entry at up to 128 registers
+("none_lb1"), with its sweep not unrolled ("none_unroll1"), or at 2
+pixels a thread ("none_px2").
 
 Every plan's outputs on a case are compared with the parent's first (a
 plan that differs fails the run); then PASSES (4) passes time every plan of
@@ -22,24 +35,61 @@ then the card's name and power limit. Needs one card and nvcc.
 
 from __future__ import annotations
 
+import ctypes
 import importlib.util
 import json
+import re
+import shutil
 import statistics
+import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import numpy as np
 
 HERE = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(HERE))
 
-# name: (view size, textured, texture filter, ssaa)
+# name: (view size, textured, texture filter, ssaa, pack switches)
 CASES = {
-    "main": (64, False, "nearest", 1),
-    "mxu_4096w_128_auto": (128, False, "nearest", 1),
-    "textured_4096w": (64, True, "nearest", 1),
-    "textured_4096w_ssaa2": (64, True, "nearest", 2),
-    "textured_4096w_bilinear": (64, True, "bilinear", 1),
+    "main": (64, False, "nearest", 1, {}),
+    "mxu_4096w_128_auto": (128, False, "nearest", 1, {}),
+    "textured_4096w": (64, True, "nearest", 1, {}),
+    "textured_4096w_ssaa2": (64, True, "nearest", 2, {}),
+    "textured_4096w_bilinear": (64, True, "bilinear", 1, {}),
+    "watertight_4096w": (64, True, "nearest", 1, dict(watertight=True)),
+    "none_4096w": (64, False, "nearest", 1, dict(accel="none")),
+    "watertight_main": (64, False, "nearest", 1, dict(watertight=True)),
+    "none_wt_4096w": (64, False, "nearest", 1, dict(accel="none", watertight=True)),
 }
 WORLDS = 4096
+# name: ([(source, pattern, replacement), ...], the entries it touches:
+# (geo, culled))
+_WT = {("raw_wt", True), ("raw_wt", False)}
+_NONE = {("prep", False)}
+_PX = r"constexpr int kWtPixels = \d+;"
+# K10's and K1-none's watertight entries at up to 128 registers a thread.
+_WT_LB1 = [(source, r"__launch_bounds__\(kThreads \* kIndexMaxGroups, 4 / kIndexMaxGroups\)\n"
+                    r"(render_(?:none_)?index_wt_kernel)",
+            r"__launch_bounds__(kThreads * kIndexMaxGroups, 1)\n\1")
+           for source in ("render_resident.cu", "render_none.cu")]
+VARIANTS = {
+    "px1_lb1": ([("render_resident.cu", _PX, "constexpr int kWtPixels = 1;")] + _WT_LB1, _WT),
+    "px2_lb1": (_WT_LB1, _WT),
+    "px4_lb1": ([("render_resident.cu", _PX, "constexpr int kWtPixels = 4;")] + _WT_LB1, _WT),
+    "kz_generic": ([("render_resident.cu", r"  kw = same \? kw : -1;", "  kw = -1;")], _WT),
+    "none_lb1": ([("render_none.cu",
+                   r"__launch_bounds__\(kThreads \* kIndexMaxGroups, 4 / kIndexMaxGroups\)\n"
+                   r"render_none_index_kernel",
+                   "__launch_bounds__(kThreads * kIndexMaxGroups, 1)\nrender_none_index_kernel")],
+                 _NONE),
+    "none_unroll1": ([("render_resident.cu",
+                       r"(    MRT_PHASE\(2\);\n)(    for \(int i = 0; i < S; \+\+i\) \{\n)",
+                       r"\1#pragma unroll 1\n\2")], _NONE),
+    "none_px2": ([("render_resident.cu", r"constexpr int kNonePixels = \d+;",
+                   "constexpr int kNonePixels = 2;")], _NONE),
+}
 
 
 def chip_smoke():
@@ -49,8 +99,96 @@ def chip_smoke():
     return module
 
 
+def build_variant(name: str) -> dict:
+    """render_resident.cu and render_none.cu built with the edits VARIANTS
+    names (a copy of csrc/ under build/index_variants/), their C entries
+    bound as the port's loader binds them."""
+    from madrona_renderer_tpu_torch import _build
+
+    edits, _ = VARIANTS[name]
+    out = HERE / "build" / "index_variants" / name
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(_build.CSRC, out / "csrc")
+    for source, pattern, replacement in edits:
+        src = out / "csrc" / source
+        text, n = re.subn(pattern, replacement, src.read_text())
+        if n < 1:
+            raise RuntimeError(f"{source} has no match for the variant {name}")
+        src.write_text(text)
+
+    def build(name):
+        lib = out / f"lib{name}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(out / "csrc" / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}.cu ({out.name}):\n{proc.stderr[-3000:]}")
+        handle = ctypes.CDLL(str(lib))
+        fn = getattr(handle, _build.SIGNATURES[name][0])
+        fn.argtypes = _build.SIGNATURES[name][1]
+        fn.restype = ctypes.c_int
+        fn.occupancy = getattr(handle, f"mrt_{name}_occupancy")
+        return fn
+
+    with ThreadPoolExecutor(2) as pool:
+        names = ("render_resident", "render_none")
+        return dict(zip(names, pool.map(build, names)))
+
+
+def variant_occupancy(rc, fn, kw, groups) -> dict:
+    """What the card makes of a variant's entry: threads a block,
+    registers and local memory a thread, blocks a multiprocessor."""
+    culled = kw["clusters"] is not None
+    S, n_cols = int(kw["rows"].shape[2]), int(kw["cams"].shape[1])
+    out = (ctypes.c_int * 4)()
+    head = [rc._GEO_CODES[kw["geo"]], rc._TEX_CODES[kw["texture"]], groups, S]
+    if culled:
+        err = fn.occupancy(*head, int(kw["clusters"].shape[2]), n_cols, kw["n_lights"], out)
+    else:
+        err = fn.occupancy(*head, n_cols, kw["n_lights"], out)
+    if err:
+        raise RuntimeError(f"the variant's occupancy query failed: {err}")
+    threads, registers, local, blocks = list(out)
+    return {"threads": threads, "registers": registers, "local_bytes": local,
+            "blocks_per_sm": blocks}
+
+
+def direct(torch, rc, fn, kw, groups):
+    """One launch of a team entry through its C entry ``fn``
+    (render_resident's, or render_none's without clusters); (depth,
+    segmask, rgb)."""
+    rows, cl, cams = kw["rows"], kw["clusters"], kw["cams"]
+    W, _, S = rows.shape
+    CC = 0 if cl is None else int(cl.shape[2])
+    views, h, w = W * kw["num_cams"], kw["height"], kw["width"]
+    dev = rows.device
+    depth = torch.empty((views, h, w), dtype=torch.float32, device=dev)
+    seg = torch.empty((views, h, w), dtype=torch.int32, device=dev)
+    rgb = torch.empty((views, h, w), dtype=torch.int32, device=dev)
+    sampled = kw["texture"] in ("nearest", "bilinear")
+    head = [rows.data_ptr(), None if cl is None else cl.data_ptr(), cams.data_ptr(),
+            kw["mats"].data_ptr() if sampled else None,
+            kw["pool"].data_ptr() if sampled else None,
+            int(kw["mats"].shape[1]) if sampled else 0, depth.data_ptr(), seg.data_ptr(),
+            rgb.data_ptr(), None, None]
+    params = [views, kw["num_cams"], S, CC, S // max(CC, 1), int(cams.shape[1]), kw["n_lights"],
+              h, w, kw["seg_div"], float(np.float32(2.0 / w)), float(np.float32(2.0 / h)), 0,
+              rc._TEX_CODES[kw["texture"]], rc._GEO_CODES[kw["geo"]]]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = (fn(*head, *params, groups, stream) if cl is not None else
+           fn(*head, None, *params, 0, groups, stream))
+    if err:
+        raise RuntimeError(f"the variant's launch failed: {err}")
+    return depth, seg, rgb
+
+
 def main() -> int:
-    passes = int(sys.argv[1]) if len(sys.argv) > 1 else 4
+    args = sys.argv[1:]
+    names = []
+    if "--variants" in args:
+        i = args.index("--variants")
+        names = args[i + 1].split(",")
+        del args[i:i + 2]
+    passes = int(args.pop(0)) if args and args[0].isdigit() else 4
     import torch
 
     import madrona_renderer_tpu_torch as m
@@ -62,6 +200,8 @@ def main() -> int:
         return 1
     cs = chip_smoke()
     real = rc.index_plan
+    with ThreadPoolExecutor(max(1, len(names))) as pool:
+        variants = dict(zip(names, pool.map(build_variant, names)))
 
     def forced(groups):
         """rc.index_plan at ``groups`` tile groups (0: the parent design)."""
@@ -79,15 +219,18 @@ def main() -> int:
     plans = {f"g{g}": forced(g) for g in (0, *rc._INDEX_GROUP_CHOICES)}
 
     cases = []
-    for name, (res, textured, filt, ssaa) in CASES.items():
+    for name in args or list(CASES):
+        res, textured, filt, ssaa, switches = CASES[name]
         r = m.Manager(scenes.demo_config(WORLDS, m.RenderMode.Raytracer, res, res,
-                                         dynamic=True, textured=textured,
-                                         tex_size=cs.TEX_SIZE, texture_filter=filt,
-                                         ssaa=ssaa))
+                                         dynamic=switches.get("accel") != "none",
+                                         textured=textured, tex_size=cs.TEX_SIZE,
+                                         texture_filter=filt, ssaa=ssaa))
         kw = rc.pack_inputs(r.state, r.scene, height=res * ssaa, width=res * ssaa,
-                            texture_filter=filt)
-        if rc.route_of(kw["order"], kw["spans"], kw["bins"]) != rc.INDEX or kw["geo"] != "prep":
-            raise AssertionError(f"{name}: not K1's index order on prep rows")
+                            texture_filter=filt, **switches)
+        culled = kw["clusters"] is not None
+        route = rc.route_of(kw["order"], kw["spans"], kw["bins"], culled)
+        if route not in (rc.INDEX, rc.NONE):
+            raise AssertionError(f"{name}: not the resident index order")
         ref = on(plans["g0"], lambda: rc.render_resident(**kw))
         torch.cuda.synchronize()
         launches, occupancy, same = {}, {}, {}
@@ -98,6 +241,17 @@ def main() -> int:
             launches[key] = lambda plan=plan, kw=kw: on(plan, lambda: rc.render_resident(**kw))
             if key != "g0":
                 occupancy[key] = on(plan, lambda: rc.index_occupancy(kw))
+        lib = "render_resident" if culled else "render_none"
+        for v, fns in variants.items():
+            if (kw["geo"], culled) not in VARIANTS[v][1]:
+                continue
+            for g in rc._INDEX_GROUP_CHOICES:
+                key = f"g{g}@{v}"
+                out = direct(torch, rc, fns[lib], kw, g)
+                torch.cuda.synchronize()
+                same[key] = all(torch.equal(a, b) for a, b in zip(out, ref))
+                launches[key] = lambda f=fns[lib], kw=kw, g=g: direct(torch, rc, f, kw, g)
+                occupancy[key] = variant_occupancy(rc, fns[lib], kw, g)
         print(json.dumps({"phase": "index_plan_check", "case": name, "bitwise_vs_parent": same}),
               flush=True)
         if not all(same.values()):
@@ -111,9 +265,10 @@ def main() -> int:
                 t[k].append(cs.graph_ms(launches[k], cs.KERNEL_REPS))
     for (name, kw, _, occupancy), t in zip(cases, times):
         means = {k: statistics.mean(v) for k, v in t.items()}
-        S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2])
+        culled = kw["clusters"] is not None
+        S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2]) if culled else 0
         plan = real(kw["geo"], S, CC, kw["n_lights"], int(kw["cams"].shape[0]), kw["height"],
-                    kw["width"], kw["texture"])
+                    kw["width"], kw["texture"], culled=culled)
         print(json.dumps({"phase": "index_plan_ab", "inputs": name, "plan": plan._asdict(),
                           "occupancy": occupancy, "ms": t, "mean_ms": means,
                           "fastest": min(means, key=means.get)}), flush=True)
