@@ -101,7 +101,9 @@ printed as JSON lines:
                (prep rows, raytraced, untextured, nearest or bilinear), of
                K7 folded into them (the mip render on prep rows,
                csrc/render_mip.cu), of K8 on them (raw rows with shadows),
-               of K10 on them (raw rows, the watertight decision) and of
+               of K1-raw on them (raw rows without shadows), of K1's
+               9-output mode on them (prep rows, csrc/render_none.cu), of
+               K10 on them (raw rows, the watertight decision) and of
                K1-none on them (prep and K10 rows, no cluster table,
                csrc/render_none.cu) at raytrace_cuda.index_plan's forced
                plans, G = 1 and 2, and in its parent design (``g0``; K7's
@@ -132,7 +134,8 @@ printed as JSON lines:
                  raster_256w_png  256 worlds x 64x64 of the textured cube,
                                   RenderMode.Rasterizer;
                  multicam_1024w4c 1024 worlds x 4 cameras x 64x64 (4096
-                                  views), raytraced on the raw rows;
+                                  views), raytraced on the raw rows
+                                  (K1-raw on the index visit's teams);
                  shadows_4096w    main with shadows=True (raw rows and one
                                   shadow ray per pixel and light);
                  textured256_4096w bench.py's paged-texture row: 4096 worlds
@@ -216,7 +219,8 @@ printed as JSON lines:
                                   shading epilogue;
                  tex256_cliff_4096w tools/tpu_paged_tex_bench.py:167: the
                                   256x256 texture baked without mips, K1's
-                                  9-output mode and the epilogue, the same
+                                  9-output mode (on the index visit's
+                                  teams) and the epilogue, the same
                                   loop on the mip-mapped bake (K7) beside;
                each of these five with the kernel and the epilogue on the
                last step's inputs equal to the exports, the step's device
@@ -290,9 +294,10 @@ printed as JSON lines:
                inputs (for the folded ones, their A/B: the kernels line has
                render_mip_<filter> rows, timed in turns with them, both
                against k7_bound, the function's own bytes), the parent
-               design of K8, K10 and K1-none in turns with their team
-               entries on shadows_4096w's, watertight_4096w's and
-               none_4096w's inputs (``"ab": "parent"`` lines), K1-raw on
+               design of K8, K10, K1-none, K1's 9-output mode and K1-raw
+               in turns with their team entries on shadows_4096w's,
+               watertight_4096w's, none_4096w's, tex256_cliff_4096w's and
+               multicam_1024w4c's inputs (``"ab": "parent"`` lines), K1-raw on
                watertight_4096w's rows, the ssaa path's
                kernel at 128x128 and its filter (torch ops: time and bound),
                and K4 and K5 on each terrain path's inputs (K4's bound from
@@ -1605,8 +1610,8 @@ def main() -> int:
     def is_index_visit(kw):
         """Inputs in a mode the index visit's tile teams take (K1 and K6:
         prep rows, raytraced, untextured or nearest or bilinear, cold; K7
-        folded; K8; K10; K1-none on prep and K10 rows), whatever the plan
-        picks for their count of views."""
+        folded; K1's 9-output mode; K1-raw; K8; K10; K1-none on prep and K10
+        rows), whatever the plan picks for their count of views."""
         return (not is_batched(kw) and route(kw) in (rc.INDEX, rc.NONE)
                 and rc.index_takes(kw["geo"], "mip" if is_k7(kw) else kw["texture"],
                                    kw["raster"], seeded(kw), kw["clusters"] is not None))
@@ -1633,7 +1638,8 @@ def main() -> int:
         (render_body's 16x16 blocks, a plan of 0 groups; K7: its two
         launches) on the same inputs, each bitwise against the kernel's
         outputs ``k_out`` (held to the plain version): K1, K6, K7 folded (so
-        also against the pair), K8, K10 and K1-none."""
+        also against the pair), K1's 9-output mode, K1-raw, K8, K10 and
+        K1-none."""
         same = {}
         for g in (0, *rc._INDEX_GROUP_CHOICES):
             try:
@@ -1658,7 +1664,8 @@ def main() -> int:
             # entry's most textured variant's): the entry's registers, as
             # the card allocates them (8 at a time), are at most that and
             # leave the multiprocessor the blocks the plan counts.
-            regs = rc._INDEX_REGS[rc.index_entry_key(kw["geo"], kw["clusters"] is not None)]
+            regs = rc._INDEX_REGS[rc.index_entry_key(kw["geo"], kw["clusters"] is not None,
+                                                      kw["texture"])]
             card = -(-occ["registers"] // 8) * 8
             threads = occ["threads"]
             if card > regs or rc._SM_REGS // (threads * card) != rc._SM_REGS // (threads * regs):
@@ -3541,11 +3548,13 @@ def main() -> int:
         return {"groups": plan.groups, "blocks_per_view": plan.parts}
 
     # The entries whose path's inputs the index visit's teams take, timed in
-    # turns with their parent design (render_body's 16x16 blocks): K8, K10
-    # and K1-none.
+    # turns with their parent design (render_body's 16x16 blocks): K8, K10,
+    # K1-none, K1's 9-output mode and K1-raw.
     team_paths = {"render_resident_raw_shadows": "shadows_4096w",
                   "render_resident_raw_wt_tex_nearest": "watertight_4096w",
-                  "render_none": "none_4096w"}
+                  "render_none": "none_4096w",
+                  "render_resident_nine": "tex256_cliff_4096w",
+                  "render_resident_raw": "multicam_1024w4c"}
 
     def team_ab(name, kw, row):
         """The A/B line of a team entry on its path's inputs (``row``: its

@@ -54,7 +54,11 @@
 // t_num, A, Q; K10: a with the validity, b, c, each three float4), no
 // cluster table, every team sweeping every slot for its tile, several
 // pixels a thread (index_tile and wt_tile with CULL false, in
-// csrc/render_resident.cu); the other modes keep the parent.
+// csrc/render_resident.cu); so does K1's 9-output mode on prep rows
+// (render_resident_nine_index_kernel: K1's records, cluster table and
+// gates, index_tile's resolve writing the nine outputs, kNinePixels pixels
+// a thread). The other modes keep the parent: the 9-output mode on raw and
+// K10 rows and K1-none's, and every seeded or raster entry.
 
 #define MRT_RENDER_BODY_ONLY
 #include "render_resident.cu"
@@ -87,6 +91,29 @@ __global__ void __launch_bounds__(kThreads)
 render_resident_nine_seeded_kernel(const RenderArgs a, const float* seed) {
   render_body<GEO, false, kTexNine, false, false, false, true>(
       a, StreamArgs{nullptr, nullptr}, BinArgs{}, seed);
+}
+
+// K1's 9-output mode on the index visit's tile teams: prep rows, raytraced,
+// cold; K1's records, cluster table and gates (index_tile), kNinePixels
+// pixels a thread, 1 or 2 groups a block, a block a view; at most 64
+// registers a thread, as K1's entries. Of 2 and 4 pixels, each at 64 and
+// at up to 128 registers, 4 at 64 ran fastest: 2 pixels 10% and 4 at 78
+// registers 8% slower (port_tools/index_plan_ab.py on an H100).
+constexpr int kNinePixels = 4;
+
+__global__ void __launch_bounds__(kThreads * kIndexMaxGroups, 4 / kIndexMaxGroups)
+render_resident_nine_index_kernel(const RenderArgs a) {
+  visit_body<kGeoPrep, false, kTexNine, false, false, kNinePixels>(a, nullptr, BinArgs{},
+                                                                    nullptr);
+}
+
+// The 9-output team entry (geo 0) at `groups` groups a block (with
+// `query`, its occupancy instead of a launch).
+int nine_index_variant(const RenderArgs& a, int num_views, int geo, int groups, int* query,
+                       cudaStream_t stream) {
+  if (groups < 1 || groups > kIndexMaxGroups || geo != kGeoPrep) return (int)cudaErrorInvalidValue;
+  return index_entry(render_resident_nine_index_kernel, index_smem<kGeoPrep>(a), num_views,
+                     groups, query, stream, a);
 }
 
 // K1-none on the index visit's tile teams: prep rows (kNonePixels pixels a
@@ -201,10 +228,11 @@ extern "C" {
 // and CC 0 when not culled). tex_filter 4 is the 9-output mode (geo 0, 1 or
 // 3): t in depth, idx in segmask, the material in code, and z, uv x, uv y,
 // nx, ny, nz in the six planes of handoff. groups 0: the parent design (one
-// 16x16 block a tile, every variant); 1 or 2: K1-none on the index visit's
-// tile teams, a block a view (culled 0, raster 0, no seed, geo 0 or 3,
-// tex_filter 0, 1 or 2; CC 0). Returns cudaGetLastError() after the launch
-// (0 on success), or cudaErrorInvalidValue for an unknown variant or plan.
+// 16x16 block a tile, every variant); 1 or 2: the index visit's tile teams,
+// a block a view, raster 0 and no seed: K1-none (culled 0, geo 0 or 3,
+// tex_filter 0, 1 or 2; CC 0) or K1's 9-output mode (culled 1, geo 0,
+// tex_filter 4). Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for an unknown variant or plan.
 int mrt_render_none(const float* rows, const float* clusters, const float* cams,
                     const float* mats, const int* pool, int n_mats, float* depth,
                     int* segmask, uint32_t* rgb, int* code, float* handoff,
@@ -220,7 +248,12 @@ int mrt_render_none(const float* rows, const float* clusters, const float* cams,
   if (groups == 0)
     return launch_variant<NoneRoute>(a, NoneArgs{seed, culled != 0}, num_views, geo, raster,
                                      tex_filter, (cudaStream_t)stream);
-  if (culled || raster || seed != nullptr || CC != 0) return (int)cudaErrorInvalidValue;
+  if (raster || seed != nullptr) return (int)cudaErrorInvalidValue;
+  if (culled) {
+    if (tex_filter != kTexNine) return (int)cudaErrorInvalidValue;
+    return nine_index_variant(a, num_views, geo, groups, nullptr, (cudaStream_t)stream);
+  }
+  if (CC != 0) return (int)cudaErrorInvalidValue;
   return none_index_variant(a, num_views, geo, tex_filter, groups, nullptr,
                             (cudaStream_t)stream);
 }
@@ -235,6 +268,18 @@ int mrt_render_none_occupancy(int geo, int tex_filter, int groups, int S, int n_
   a.n_cols = n_cols;
   a.n_lights = n_lights;
   return none_index_variant(a, 0, geo, tex_filter, groups, out, nullptr);
+}
+
+// K1's 9-output team entry (geo 0) at these sizes, as
+// mrt_render_none_occupancy's.
+int mrt_render_none_nine_occupancy(int geo, int groups, int S, int CC, int n_cols, int n_lights,
+                                   int* out) {
+  RenderArgs a{};
+  a.S = S;
+  a.CC = CC;
+  a.n_cols = n_cols;
+  a.n_lights = n_lights;
+  return nine_index_variant(a, 0, geo, groups, out, nullptr);
 }
 
 const char* mrt_error_string(int err) {

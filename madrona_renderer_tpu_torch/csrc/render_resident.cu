@@ -155,8 +155,12 @@
 // triangle, a with the validity, b and c, formed once a view; each pixel's
 // shear frame once a tile), and K1-none on prep and K10 rows (the same
 // tiles without the cluster gates, every slot of the world swept; its
-// entries in csrc/render_none.cu). The other modes keep this design;
-// K1-raw's block on the teams is left for a later change.
+// entries in csrc/render_none.cu), K1's 9-output mode on prep rows
+// (index_tile's resolve writing the nine outputs; its entry in
+// csrc/render_none.cu) and K1-raw (shadow_tile without its shadow sweep,
+// render_index_raw_kernel: K8's records, each view's own tv, q, t_num
+// formed once a view, so that four cameras a world form four views' terms).
+// The other modes keep this design.
 //
 // The streamed route (STREAM): meshes whose rows do not fit the resident
 // budget (32 * S * 4 bytes > 384 KB, the JAX package's dma_tris,
@@ -1558,13 +1562,20 @@ constexpr int kWtPixels = 2;
 // K1-none's on prep rows (index_tile without the cluster gates): 4 ran 5%
 // faster than 2.
 constexpr int kNonePixels = 4;
+// K1-raw's on the teams (shadow_tile without its shadow sweep): 4 at 64
+// registers (28 B of spill stores) ran 1% faster than 2 (56, no spills)
+// and 3% faster than 4 at up to 128 (80) (port_tools/index_plan_ab.py on
+// an H100).
+constexpr int kRawPixels = 4;
 constexpr int kIndexRecordFloats = 12;  // a triangle's record: three float4
-// K8's: four float4 a triangle, then one float4 a (light, triangle).
+// K8's and K1-raw's: four float4 a triangle, then (K8) one float4 a
+// (light, triangle).
 constexpr int kShadowRecordFloats = 16;
 
 template <int GEO>
 __host__ __device__ constexpr int index_record_floats(int n_lights) {
-  return GEO == kGeoRawShadows ? kShadowRecordFloats + 4 * n_lights : kIndexRecordFloats;
+  return GEO == kGeoRawShadows ? kShadowRecordFloats + 4 * n_lights
+                               : (GEO == kGeoRaw ? kShadowRecordFloats : kIndexRecordFloats);
 }
 
 // bar.sync on the named barrier `id` over kThreads threads: a tile group's
@@ -2038,8 +2049,10 @@ __device__ __forceinline__ void mip_hit(const RenderArgs& a, const float4* s_rec
 // computes it. TEX = mip (K7 folded): the tile writes depth and segmask
 // and holds each pixel's winner (best_t, best_idx) in shared memory
 // (VisitCtl::mip_hold) for the view's keys and sample passes (mip_keys,
-// mip_pass); no rgb. CULL false (K1-none, no cluster table): no gates, every
-// slot of the world swept in index order.
+// mip_pass); no rgb. TEX = nine (K1's 9-output mode, its entry in
+// csrc/render_none.cu): the resolve's t, idx, material, z, uv and flipped
+// normal, written unmasked. CULL false (K1-none, no cluster table): no
+// gates, every slot of the world swept in index order.
 template <int TEX, int PIX, bool CULL = true>
 __device__ __forceinline__ void index_tile(const RenderArgs& a, const float4* s_rec,
                                            const float* attr, const float* s_cl,
@@ -2187,6 +2200,28 @@ __device__ __forceinline__ void index_tile(const RenderArgs& a, const float4* s_
         a2 = attr[1 * S + j] + uc * attr[3 * S + j] + vc * attr[5 * S + j];
       }
     }
+    if constexpr (TEX == kTexNine) {
+      // The 9-output mode, render_body's (:2832-2834, :3664-3670): t (0 on
+      // a miss), idx, the material, z = t * cos and uv and the normal
+      // flipped toward the viewer, unmasked; a warp's two 16-pixel rows of
+      // each plane, 64-byte runs, as the parent writes them.
+      const float ndotd = nx * dx[q] + ny * dy[q] + nz * dz[q];
+      const float flip = ndotd > 0.f ? -1.0f : 1.0f;
+      const float t_hit = found ? best_t[q] : 0.f;
+      const float z = t_hit * (dx[q] * s_cam[6] + dy[q] * s_cam[7] + dz[q] * s_cam[8]);
+      const size_t o = ((size_t)view * a.height + py) * a.width + px;
+      const size_t plane = (size_t)gridDim.x * a.height * a.width;
+      a.depth[o] = t_hit;
+      a.segmask[o] = j;
+      a.code[o] = (int)a0;
+      a.handoff[o] = z;
+      a.handoff[plane + o] = a1;
+      a.handoff[2 * plane + o] = a2;
+      a.handoff[3 * plane + o] = nx * flip;
+      a.handoff[4 * plane + o] = ny * flip;
+      a.handoff[5 * plane + o] = nz * flip;
+      continue;
+    }
     // Base colour, lambert over the lights (the normal flipped toward the
     // viewer) and the fused export, as render_body's (:3015-3050,
     // :3186-3202).
@@ -2284,8 +2319,10 @@ __device__ __forceinline__ void mip_pass(const RenderArgs& a, const MipArgs& mp,
 // the occlusion bits; then each pixel's ray again, the winner's (u, v) from
 // its record (pvec_test's expressions on the values the parent's sweep
 // tested: the same bits as the carried pair), its attributes, the lambert
-// and the fused export, as render_body computes them.
-template <int TEX, int PIX>
+// and the fused export, as render_body computes them. SHADOWS false
+// (K1-raw, GEO = raw: the same records, no s_sh): the primary sweep and the
+// resolve alone, each pixel's ray kept from the sweep.
+template <int TEX, int PIX, bool SHADOWS = true>
 __device__ __forceinline__ void shadow_tile(const RenderArgs& a, const float4* s_rec,
                                             const float4* s_sh, const float* attr,
                                             const float* s_cl, const float* s_gate,
@@ -2301,6 +2338,7 @@ __device__ __forceinline__ void shadow_tile(const RenderArgs& a, const float4* s
 
   float best_t[PIX], hx[PIX], hy[PIX], hz[PIX], eps_sh[PIX];
   int best_idx[PIX];
+  [[maybe_unused]] float rx[PIX], ry[PIX], rz[PIX];  // K1-raw: the rays, for the resolve
   {
     float dx[PIX], dy[PIX], dz[PIX], ivx[PIX], ivy[PIX], ivz[PIX];
 #pragma unroll
@@ -2357,14 +2395,23 @@ __device__ __forceinline__ void shadow_tile(const RenderArgs& a, const float4* s
       }
     }
     MRT_PHASE(3);
-    // The hit points (t = 0 on a miss, :2847-2860).
+    if constexpr (SHADOWS) {
+      // The hit points (t = 0 on a miss, :2847-2860).
 #pragma unroll
-    for (int q = 0; q < PIX; ++q) {
-      const float t_hit = best_idx[q] >= 0 ? best_t[q] : 0.f;
-      hx[q] = ox + t_hit * dx[q];
-      hy[q] = oy + t_hit * dy[q];
-      hz[q] = oz + t_hit * dz[q];
-      eps_sh[q] = kShadowEps * (1.0f + t_hit);
+      for (int q = 0; q < PIX; ++q) {
+        const float t_hit = best_idx[q] >= 0 ? best_t[q] : 0.f;
+        hx[q] = ox + t_hit * dx[q];
+        hy[q] = oy + t_hit * dy[q];
+        hz[q] = oz + t_hit * dz[q];
+        eps_sh[q] = kShadowEps * (1.0f + t_hit);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < PIX; ++q) {
+        rx[q] = dx[q];
+        ry[q] = dy[q];
+        rz[q] = dz[q];
+      }
     }
   }
 
@@ -2373,7 +2420,7 @@ __device__ __forceinline__ void shadow_tile(const RenderArgs& a, const float4* s
   uint32_t occ_mask[PIX];
 #pragma unroll
   for (int q = 0; q < PIX; ++q) occ_mask[q] = 0;
-  for (int li = 0; li < a.n_lights; ++li) {
+  for (int li = 0; li < (SHADOWS ? a.n_lights : 0); ++li) {
     const float* l = s_cam + kCamLight0 + 6 * li;
     const float sdx = -l[0], sdy = -l[1], sdz = -l[2];
     const float ivsx = 1.0f / safe_dir(sdx);
@@ -2442,7 +2489,13 @@ __device__ __forceinline__ void shadow_tile(const RenderArgs& a, const float4* s
     const int py = py0 + kRowStep * q;
     if (px >= a.width || py >= a.height) continue;
     float dx, dy, dz;
-    pixel_ray(a, s_cam, px, py, dx, dy, dz);
+    if constexpr (SHADOWS) {
+      pixel_ray(a, s_cam, px, py, dx, dy, dz);
+    } else {
+      dx = rx[q];
+      dy = ry[q];
+      dz = rz[q];
+    }
     // Winner resolve (:2725-2793): (u, v) from its record, the attributes
     // by its index.
     float nx = 0.f, ny = 0.f, nz = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f;
@@ -2723,9 +2776,11 @@ __device__ __forceinline__ void wt_tile(const RenderArgs& a, const float4* s_rec
 // the prep rows, the cluster table, the gate terms and the camera row (no
 // bulk copy). TEX = mip (K7 folded, `mp` its tiling, FILTER its filter):
 // the TPU tiles' window keys too, and after the last tile a block barrier
-// and the view's sample pass (mip_pass). GEO = raw_shadows (K8,
-// shadow_tile): records of the raw rows with the view's tv, q, t_num, and
-// each (light, triangle)'s hoisted pvec and inv. GEO = raw_wt (K10,
+// and the view's sample pass (mip_pass); TEX = nine, K1's 9-output mode.
+// GEO = raw_shadows (K8, shadow_tile): records of the raw rows with the
+// view's tv, q, t_num, and each (light, triangle)'s hoisted pvec and inv;
+// GEO = raw (K1-raw), the same records and shadow_tile without its shadow
+// sweep. GEO = raw_wt (K10,
 // wt_tile): records of the view's a, b, c and the validity. CULL false
 // (K1-none on prep or K10 rows, csrc/render_none.cu): no cluster table and
 // no gate terms (CC is 0); every tile sweeps every slot.
@@ -2738,14 +2793,16 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
   constexpr bool WT = GEO >= kGeoRawWt;
   constexpr bool INDEX = PIX > 0;
   constexpr bool MIP = INDEX && TEX == kTexMip;
-  constexpr bool SHADOW_TEAMS = INDEX && GEO == kGeoRawShadows;
+  // K8 and K1-raw: the raw sweep's records (shadow_tile, with and without
+  // its shadow sweep).
+  constexpr bool RAW_TEAMS = INDEX && (GEO == kGeoRawShadows || GEO == kGeoRaw);
   constexpr bool WT_TEAMS = INDEX && GEO == kGeoRawWt;
   static_assert(!INDEX || (!RASTER && !BINNED && !SEEDED &&
-                           ((GEO == kGeoPrep && TEX != kTexNine) ||
-                            ((GEO == kGeoRawShadows || GEO == kGeoRawWt) &&
+                           (GEO == kGeoPrep ||
+                            ((GEO == kGeoRaw || GEO == kGeoRawShadows || GEO == kGeoRawWt) &&
                              (TEX == kTexNone || TEX == kTexNearest || TEX == kTexBilinear)))),
-                "the index visit: K1 and K6 on prep rows (K7 folded too), K8 and K10, "
-                "raytraced");
+                "the index visit: K1 and K6 on prep rows (K7 folded and the 9-output mode "
+                "too), K1-raw, K8 and K10, raytraced");
   static_assert(CULL || (INDEX && TEX != kTexMip && (GEO == kGeoPrep || GEO == kGeoRawWt)),
                 "K1-none on the teams: prep and K10 rows, untextured, nearest or bilinear");
   constexpr int kBlock = kThreads * visit_groups<GEO>();
@@ -2810,11 +2867,11 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
   if constexpr (MIP) {
     for (int i = tid; i < 2 * mp.n_tiles; i += n_thr) s_keys[i] = kMipBig;
   }
-  if constexpr (SHADOW_TEAMS) {
-    // K8's records (the raw sweep's per-(view, triangle) terms, :1342-1348:
-    // tv = o - v0, q = tv x e1, t_num = e2 . q, with e1, e2 and v0) and,
-    // per light, the shadow test's pvec = sd x e2 and inv (:2885-2903,
-    // pvec_test's expressions), sd = -dir.
+  if constexpr (RAW_TEAMS) {
+    // K8's and K1-raw's records (the raw sweep's per-(view, triangle)
+    // terms, :1342-1348: tv = o - v0, q = tv x e1, t_num = e2 . q, with e1,
+    // e2 and v0) and, K8, per light, the shadow test's pvec = sd x e2 and
+    // inv (:2885-2903, pvec_test's expressions), sd = -dir.
     const float ox = g_cam[0], oy = g_cam[1], oz = g_cam[2];
     float4* s_rec = reinterpret_cast<float4*>(s_geo);
     float4* s_sh = s_rec + 4 * S;
@@ -2832,7 +2889,7 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
       s_rec[4 * i + 1] = make_float4(e2x, e2y, e2z, v0x);
       s_rec[4 * i + 2] = make_float4(tvx, tvy, tvz, v0y);
       s_rec[4 * i + 3] = make_float4(qx, qy, qz, v0z);
-      for (int li = 0; li < a.n_lights; ++li) {
+      for (int li = 0; li < (GEO == kGeoRawShadows ? a.n_lights : 0); ++li) {
         const float* l = g_cam + kCamLight0 + 6 * li;
         const float sdx = -l[0], sdy = -l[1], sdz = -l[2];
         const float pvx = sdy * e2z - sdz * e2y;
@@ -2936,9 +2993,9 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
       if (tile >= n_tiles) break;
       MRT_PHASE(3);
       const float4* s_rec = reinterpret_cast<const float4*>(s_geo);
-      if constexpr (SHADOW_TEAMS)
-        shadow_tile<TEX, PIX>(a, s_rec, s_rec + 4 * S, attr, s_cl, s_gate, s_cam, view, tile,
-                              1 + team);
+      if constexpr (RAW_TEAMS)
+        shadow_tile<TEX, PIX, GEO == kGeoRawShadows>(a, s_rec, s_rec + 4 * S, attr, s_cl, s_gate,
+                                                     s_cam, view, tile, 1 + team);
       else if constexpr (WT_TEAMS)
         wt_tile<TEX, PIX, CULL>(a, s_rec, g_rows, s_cl, s_gate, s_cam, view, tile, 1 + team);
       else
@@ -3824,6 +3881,16 @@ render_index_shadows_kernel(const RenderArgs a) {
                                                                        nullptr);
 }
 
+// K1-raw on the index visit's tile teams (raw rows without shadows,
+// raytraced; untextured, nearest or bilinear): K8's records and tile
+// without the shadow sweep, kRawPixels pixels a thread, 1 or 2 groups a
+// block, a block a view; at most 64 registers a thread.
+template <int TEX>
+__global__ void __launch_bounds__(kThreads * kIndexMaxGroups, 4 / kIndexMaxGroups)
+render_index_raw_kernel(const RenderArgs a) {
+  visit_body<kGeoRaw, false, TEX, false, false, kRawPixels>(a, nullptr, BinArgs{}, nullptr);
+}
+
 // K10 on the index visit's tile teams (raw rows, the watertight decision,
 // raytraced; untextured, nearest or bilinear), kWtPixels pixels a thread, 1
 // or 2 groups a block, a block a view; at most 64 registers a thread.
@@ -3838,6 +3905,9 @@ int index_launch(const RenderArgs& a, int num_views, int groups, int* query,
                  cudaStream_t stream) {
   if constexpr (GEO == kGeoRawShadows)
     return index_entry(render_index_shadows_kernel<TEX>, index_smem<GEO>(a), num_views, groups,
+                       query, stream, a);
+  else if constexpr (GEO == kGeoRaw)
+    return index_entry(render_index_raw_kernel<TEX>, index_smem<GEO>(a), num_views, groups,
                        query, stream, a);
   else if constexpr (GEO == kGeoRawWt)
     return index_entry(render_index_wt_kernel<TEX>, index_smem<GEO>(a), num_views, groups,
@@ -3865,6 +3935,7 @@ int index_variant(const RenderArgs& a, int num_views, int geo, int tex_filter, i
                   int* query, cudaStream_t stream) {
   if (groups < 1 || groups > kIndexMaxGroups) return (int)cudaErrorInvalidValue;
   if (geo == kGeoPrep) return index_tex<kGeoPrep>(a, num_views, tex_filter, groups, query, stream);
+  if (geo == kGeoRaw) return index_tex<kGeoRaw>(a, num_views, tex_filter, groups, query, stream);
   if (geo == kGeoRawShadows && a.n_lights <= 32)
     return index_tex<kGeoRawShadows>(a, num_views, tex_filter, groups, query, stream);
   if (geo == kGeoRawWt) return index_tex<kGeoRawWt>(a, num_views, tex_filter, groups, query, stream);
@@ -3887,8 +3958,8 @@ extern "C" {
 // order (K1); the streamed ordered walk is csrc/render_streamed.cu's.
 // groups 0: the parent design, one 16x16 block a tile (every variant);
 // 1 or 2: the index visit's groups of tile teams, a block a view (geo 0,
-// 2 or 3, raster 0, tex_filter 0, 1 or 2), 4 pixels a thread (geo 2: 2;
-// geo 3: kWtPixels). Returns
+// 1, 2 or 3, raster 0, tex_filter 0, 1 or 2), 4 pixels a thread (geo 1:
+// kRawPixels; geo 2: 2; geo 3: kWtPixels). Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unknown variant or plan.
 int mrt_render_resident(const float* rows, const float* clusters,

@@ -252,15 +252,19 @@ _FILL_ALIGN = 16
 # view's sample pass) and K8 (raw rows with shadows: records of 16 floats a
 # triangle, the raw sweep's e1, e2, tv, q, t_num and v0, and 4 a (light,
 # triangle), the shadow test's hoisted pvec and 1/det, 2 pixels a thread),
+# K1-raw (raw rows without shadows: K8's records of 16 floats a triangle
+# with each view's own tv, q, t_num, no shadow sweep; 4 pixels a thread),
 # K10 raytraced and cold (records of 12 floats: a = v0 - o with the
-# validity, b and c; 2 pixels a thread) and K1-none on prep and K10 rows
+# validity, b and c; 2 pixels a thread), K1's 9-output mode on prep rows
+# (csrc/render_none.cu: K1's records and gates, the resolve writing the
+# nine outputs; 4 pixels a thread) and K1-none on prep and K10 rows
 # (csrc/render_none.cu: the same records, no cluster table or gate terms,
-# every live slot swept; 4 and 2 pixels a thread); the K1, K10 and K1-none
-# entries take at most 64 registers a thread, K8's 72. The
-# other modes of K1 (raster, raw rows without shadows, K10 with shadows, the
-# 9-output mode), of K1-none (raw rows, shadows, raster, the 9-output mode)
-# and K9 on either keep the parent design, render_body's 16x16 blocks: a
-# plan of 0 groups. _INDEX_REGS: each team entry's registers a thread
+# every live slot swept; 4 and 2 pixels a thread); the K1, K1-raw, 9-output,
+# K10 and K1-none entries take at most 64 registers a thread, K8's 72. The
+# other modes of K1 (raster, K10 with shadows, the 9-output mode on raw and
+# K10 rows), of K1-none (raw rows, shadows, raster, the 9-output mode) and
+# K9 on either keep the parent design, render_body's 16x16 blocks: a plan of
+# 0 groups. _INDEX_REGS: each team entry's registers a thread
 # (index_entry_key; its most textured variant's, rounded up to the 8 the
 # card allocates at a time), by which the plan counts the blocks a
 # multiprocessor holds.
@@ -269,7 +273,8 @@ _INDEX_GROUP_CHOICES = (1, 2)
 _INDEX_RECORD_FLOATS = 12
 _SHADOW_RECORD_FLOATS = 16
 _MIP_HOLD_WORDS = 2
-_INDEX_REGS = {"prep": 64, "raw_shadows": 72, "raw_wt": 64, "none": 64, "none_raw_wt": 64}
+_INDEX_REGS = {"prep": 64, "raw": 64, "raw_shadows": 72, "raw_wt": 64, "nine": 64, "none": 64,
+               "none_raw_wt": 64}
 # The streamed walk's slack: the occlusion early exit's on squared distances
 # (the JAX kernel's), the slab test's on t (a tie must not be culled).
 _F_EXIT_SLACK = float(np.float32(0.998))
@@ -584,14 +589,15 @@ def index_block_bytes(S: int, n_clusters: int, n_lights: int, geo: str = "prep",
                       height: int = 0, width: int = 0, mip: bool = False) -> int:
     """Shared memory a block of the index visit's tile teams takes
     (``index_smem`` in ``csrc/render_resident.cu``): the head, the records
-    (12 floats a triangle on prep and K10 rows; ``geo`` "raw_shadows", K8:
-    16 floats a triangle and 4 a light and triangle), the cluster table and
+    (12 floats a triangle on prep and K10 rows; ``geo`` "raw", K1-raw: 16;
+    "raw_shadows", K8: 16 floats a triangle and 4 a light and triangle),
+    the cluster table and
     gate terms (none for K1-none: ``n_clusters`` 0), and the camera row;
     with ``mip`` (K7 folded, at ``height`` x ``width``) the TPU tiles'
     window keys (two words a tile of ``mips.tile_geometry``) and each
     pixel's held winner too."""
     rec = (_SHADOW_RECORD_FLOATS + 4 * n_lights if geo == "raw_shadows"
-           else _INDEX_RECORD_FLOATS)
+           else _SHADOW_RECORD_FLOATS if geo == "raw" else _INDEX_RECORD_FLOATS)
     smem = _VISIT_HEAD_BYTES + 4 * (rec * S + _VISIT_CLUSTER_ROWS * n_clusters
                                     + _n_cam_cols(n_lights))
     if mip:
@@ -603,24 +609,25 @@ def index_takes(geo: str, texture=None, raster: bool = False, seeded: bool = Fal
                 culled: bool = True) -> bool:
     """Whether the index visit's tile teams take this mode: raytraced and
     cold, on prep rows untextured, with the ``"nearest"`` or
-    ``"bilinear"`` filter (K1, K6) or ``"mip"`` (K7 folded), on raw rows
-    with shadows (K8) or K10's rows untextured, nearest or bilinear; not
-    ``culled`` (K1-none), on prep and K10 rows untextured, nearest or
-    bilinear."""
+    ``"bilinear"`` filter (K1, K6), ``"mip"`` (K7 folded) or ``"nine"``
+    (K1's 9-output mode), on raw rows with or without shadows (K8, K1-raw)
+    or K10's rows untextured, nearest or bilinear; not ``culled``
+    (K1-none), on prep and K10 rows untextured, nearest or bilinear."""
     if raster or seeded:
         return False
     if geo == "prep":
-        return texture in ((None, "mip") if culled else (None,)) + shade.FILTERS
-    return ((geo == "raw_wt" or culled and geo == "raw_shadows")
+        return texture in ((None, "mip", "nine") if culled else (None,)) + shade.FILTERS
+    return ((geo == "raw_wt" or culled and geo in ("raw", "raw_shadows"))
             and texture in (None,) + shade.FILTERS)
 
 
-def index_entry_key(geo: str, culled: bool = True) -> str:
+def index_entry_key(geo: str, culled: bool = True, texture=None) -> str:
     """The team entry a mode of ``index_takes`` launches, as ``_INDEX_REGS``
-    names it: the geo (K1, K8, K10), or ``"none"`` / ``"none_raw_wt"``
+    names it: the geo (K1, K1-raw, K8, K10), ``"nine"`` (K1's 9-output
+    mode, ``csrc/render_none.cu``), or ``"none"`` / ``"none_raw_wt"``
     (K1-none on prep or K10 rows, ``csrc/render_none.cu``)."""
     if culled:
-        return geo
+        return "nine" if texture == "nine" else geo
     return "none" if geo == "prep" else f"none_{geo}"
 
 
@@ -632,15 +639,16 @@ def index_plan(geo: str, S: int, n_clusters: int, n_lights: int, num_views: int,
     card's multiprocessors, the H100's 132 by default; ``culled`` False:
     K1-none, no cluster table, ``n_clusters`` 0). The index visit's tile
     teams take the modes of ``index_takes`` (K1, K6, K7 folded as
-    ``texture="mip"``, K8, K10; K1-none on prep and K10 rows): ``groups``
+    ``texture="mip"``, K1's 9-output mode as ``"nine"``, K1-raw, K8, K10;
+    K1-none on prep and K10 rows): ``groups``
     of 4 teams a block (by default 1, or 2 where the view has at least
     _INDEX_TILES_FOR_TWO tiles), a block a view. By default the parent
     design (0 groups: its 16x16 block's rows, cluster table and camera row;
     K7's two launches) where the teams' block does not fit 227 KB, where
     the views are fewer than the blocks the card holds at once (by
     registers, _INDEX_REGS a thread, and shared memory), and in every other
-    mode (raster, raw rows without shadows, K10 with shadows, the 9-output
-    mode, K9's seed); with ``groups`` 0 too. A forced ``groups`` other than
+    mode (raster, K10 with shadows, the 9-output mode on raw and K10 rows
+    and without a cluster table, K9's seed); with ``groups`` 0 too. A forced ``groups`` other than
     0, 1 or 2, or one whose block does not fit, is ``LaunchPlanError``."""
     parent = IndexPlan(0, 4 * (_VISIT_GEO_ROWS[geo] * S + 8 * n_clusters
                                + _n_cam_cols(n_lights)))
@@ -650,7 +658,7 @@ def index_plan(geo: str, S: int, n_clusters: int, n_lights: int, num_views: int,
     if groups is None:
         n_tiles = -(-height // _TILE) * -(-width // _TILE)
         groups = 2 if n_tiles >= _INDEX_TILES_FOR_TWO else 1
-        regs = _INDEX_REGS[index_entry_key(geo, culled)]
+        regs = _INDEX_REGS[index_entry_key(geo, culled, texture)]
         per_sm = max(1, min(_SM_REGS // (_TILE ** 2 * groups * regs),
                             _SM_SMEM // (smem + 1024)))
         if smem > _MAX_SMEM or num_views < sm_count * per_sm:
@@ -1936,8 +1944,8 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _occupancy_query(name: str, argtypes: list):
-    fn = getattr(ctypes.CDLL(str(_build.build(name))), f"mrt_{name}_occupancy")
+def _occupancy_query(name: str, argtypes: list, symbol=None):
+    fn = getattr(ctypes.CDLL(str(_build.build(name))), symbol or f"mrt_{name}_occupancy")
     fn.argtypes = argtypes + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -2052,7 +2060,8 @@ def resident_occupancy(kw: dict) -> dict:
 def index_occupancy(kw: dict) -> dict:
     """What the card makes of the index visit's entry that these inputs
     (``pack_inputs``'s, of the resident index order: K1 and K6 on prep
-    rows, K7 folded, K8, K10; K1-none without a cluster table) launch on
+    rows, K7 folded, K1's 9-output mode, K1-raw, K8, K10; K1-none without a
+    cluster table) launch on
     their plan: its variant, tile groups, threads a block, registers and
     local memory a thread, shared memory a block, and blocks and warps a
     multiprocessor (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
@@ -2074,6 +2083,10 @@ def index_occupancy(kw: dict) -> dict:
         err = _occupancy_query(name, [ctypes.c_int] * 6)(
             _GEO_CODES[kw["geo"]], _TEX_CODES[texture], plan.groups, S, n_cols, kw["n_lights"],
             out)
+    elif texture == "nine":
+        name, variant = "render_none", variant_name(False, texture, kw["geo"], INDEX)
+        err = _occupancy_query(name, [ctypes.c_int] * 6, "mrt_render_none_nine_occupancy")(
+            _GEO_CODES[kw["geo"]], plan.groups, S, CC, n_cols, kw["n_lights"], out)
     elif texture == "mip":
         name, variant = "render_mip", mip_name(kw["texture"])
         err = _occupancy_query(name, [ctypes.c_int] * 9)(

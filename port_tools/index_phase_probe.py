@@ -1,14 +1,15 @@
 """Where the resident index order's time goes (K1 and K6 on prep rows, K7
-folded with its mip sample, K8 with its shadow rays, K10's watertight
-decision, and K1-none without a cluster table), measured on the card, in
-the parent design and on the index visit's tile groups:
+folded with its mip sample, K1's 9-output mode, K1-raw, K8 with its shadow
+rays, K10's watertight decision, and K1-none without a cluster table),
+measured on the card, in the parent design and on the index visit's tile
+groups:
 
     python3 port_tools/index_phase_probe.py [--parent] [CASE ...]
 
 Builds, under build/phase_probe/, a clock64 span variant of
 csrc/render_resident.cu, csrc/render_mip.cu (K7 folded) and
-csrc/render_none.cu (K1-none), each in a translation unit of its own,
-never on the main path: the sources' MRT_INDEX hooks (render_body's index
+csrc/render_none.cu (K1-none, K1's 9-output mode), each in a translation
+unit of its own, never on the main path: the sources' MRT_INDEX hooks (render_body's index
 branch and shadow sweep, the parent design) and MRT_PHASE hooks
 (visit_body, the tile teams), empty in the port's own build, mark the
 phases. It also builds the same sources without the marks (their kernels
@@ -22,8 +23,11 @@ textured256_4096w's (chip_smoke.py's paged-texture scene with its mip
 chains, nearest; the parent design is the hand-off, whose split this is,
 then csrc/shade_mip.cu, counted in its ms), K8 on shadows_4096w's (the
 demo scene with shadows), K10 on watertight_4096w's (the 32x32 checker,
-nearest, watertight) and K1-none on none_4096w's (the demo scene under
-accel="none"), each the scene's first step (CASE names a subset),
+nearest, watertight), K1-none on none_4096w's (the demo scene under
+accel="none"), K1's 9-output mode on tex256_cliff_4096w's (the
+paged-texture scene baked without mips: a 131,072-texel pool) and K1-raw on
+multicam_1024w4c's (1024 worlds of the demo scene, 4 cameras each: 4096
+views of raw rows), each the scene's first step (CASE names a subset),
 it prints one JSON line per design (the parent, plan 0; the default plan,
 index_plan's):
   ms               the kernel's device time (CUDA events, 5 launches);
@@ -80,7 +84,10 @@ CASES = {
     "shadows_4096w": (64, "shadows", 1),
     "watertight_4096w": (64, "watertight", 1),
     "none_4096w": (64, "none", 1),
+    "tex256_cliff_4096w": (64, "nine", 1),
+    "multicam_1024w4c": (64, "multicam", 1),
 }
+MULTICAM_CAMS = 4
 WORLDS = 4096
 
 INDEX_HOOKS = ("#define MRT_INDEX_BEGIN MRT_PHASE_BEGIN\n#define MRT_INDEX(k) MRT_PHASE(k)\n"
@@ -96,6 +103,7 @@ int mrt_probe_parent_occupancy(int tex, size_t smem, int* out) {
   if (tex == 8) kernel = render_resident_kernel<2, false, 0>;
   if (tex == 9) kernel = render_resident_kernel<3, false, 0>;
   if (tex == 10) kernel = render_resident_kernel<3, false, 1>;
+  if (tex == 12) kernel = render_resident_kernel<1, false, 0>;
   cudaFuncAttributes attr;
   int err = (int)cudaFuncGetAttributes(&attr, kernel);
   if (err) return err;
@@ -113,6 +121,7 @@ int mrt_probe_parent_occupancy(int tex, size_t smem, int* out) {
   auto kernel = render_none_kernel<0, false, 0>;
   if (tex == 9) kernel = render_none_kernel<3, false, 0>;
   if (tex == 10) kernel = render_none_kernel<3, false, 1>;
+  if (tex == 11) kernel = render_resident_nine_kernel<0, false>;
   cudaFuncAttributes attr;
   int err = (int)cudaFuncGetAttributes(&attr, kernel);
   if (err) return err;
@@ -244,14 +253,19 @@ def main() -> int:
             rc.index_plan = real_plan
 
     def inputs(path, res, mode, ssaa):
-        if mode == "mip":
+        if mode in ("mip", "nine"):
             import chip_smoke
             from madrona_renderer_tpu_torch import config as cfg_mod
             cfg = chip_smoke.paged_tex_config(WORLDS, scenes, cfg_mod)
             r = m.MadronaRenderer(0, WORLDS, m.RenderMode.Raytracer, res, res,
+                                  mipmaps="auto" if mode == "mip" else False,
                                   **scenes.renderer_kwargs(cfg))
             return r, rc.pack_inputs(r.state, r.scene, height=res, width=res,
                                      texture_filter="nearest")
+        if mode == "multicam":
+            r = m.Manager(scenes.demo_config(WORLDS // MULTICAM_CAMS, m.RenderMode.Raytracer, res,
+                                             res, dynamic=True, num_cams=MULTICAM_CAMS))
+            return r, rc.pack_inputs(r.state, r.scene, height=res, width=res)
         shadows, watertight = mode == "shadows", mode == "watertight"
         r = m.Manager(scenes.demo_config(WORLDS, m.RenderMode.Raytracer, res, res,
                                          dynamic=mode != "none",
@@ -272,7 +286,8 @@ def main() -> int:
             raise AssertionError(f"{path}: not the resident index order")
         kernel = ("K7" if mip else "K8" if kw["geo"] == "raw_shadows" else
                   "K1-none" if not culled else "K10" if kw["geo"] == "raw_wt" else
-                  "K6" if mode else "K1")
+                  "K1 9-output" if kw["texture"] == "nine" else
+                  "K1-raw" if kw["geo"] == "raw" else "K6" if mode else "K1")
         texture = "mip" if mip else kw["texture"]
         views = int(kw["cams"].shape[0])
         tiles = (-(-h // 16)) ** 2
@@ -286,8 +301,8 @@ def main() -> int:
             if groups is None:
                 line["plan"] = plan._asdict()
             folded = mip and groups is None and plan.groups > 0
-            name = ("render_mip" if folded else "render_resident" if culled
-                    else "render_none")
+            name = ("render_mip" if folded else "render_resident"
+                    if culled and texture != "nine" else "render_none")
             probe = libs[(name, True)].mrt_probe_spans
             probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_int]
@@ -329,7 +344,8 @@ def main() -> int:
             if groups == 0:
                 rows = rc._VISIT_GEO_ROWS[kw["geo"]]
                 smem = 4 * (rows * S + 8 * CC + cols)
-                code = (8 if kernel == "K8" else 3 if mip else
+                code = (8 if kernel == "K8" else 3 if mip else 11 if texture == "nine" else
+                        12 if kernel == "K1-raw" else
                         9 + (kw["texture"] is not None) if kw["geo"] == "raw_wt" else
                         int(mode is True))
                 err = plain.mrt_probe_parent_occupancy(code, ctypes.c_size_t(smem), occ)
@@ -339,6 +355,11 @@ def main() -> int:
                 fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
                 err = fn(0, plan.groups, S, CC, cols, kw["n_lights"], h, h,
                          rc.mips.tile_geometry(h, h)[2], occ)
+            elif texture == "nine":
+                smem = plan.smem_bytes
+                fn = plain.mrt_render_none_nine_occupancy
+                fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                err = fn(rc._GEO_CODES[kw["geo"]], plan.groups, S, CC, cols, kw["n_lights"], occ)
             elif not culled:
                 smem = plan.smem_bytes
                 fn = plain.mrt_render_none_occupancy

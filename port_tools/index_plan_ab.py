@@ -1,6 +1,6 @@
-"""The resident index order's team entries (K1 and K6 on prep rows, K10,
-K1-none) at forced launch plans, held bitwise against the parent design and
-timed in turns in one process on one card:
+"""The resident index order's team entries (K1 and K6 on prep rows, K1's
+9-output mode, K1-raw, K10, K1-none) at forced launch plans, held bitwise
+against the parent design and timed in turns in one process on one card:
 
     python3 port_tools/index_plan_ab.py [PASSES] [--variants NAME,...] [CASE ...]
 
@@ -12,9 +12,11 @@ the demo scene at 64x64), mxu_4096w_128's under "auto" (the same scene at
 textured_4096w_ssaa2's (the same at 2x2 SSAA: 128x128), the checker's
 bilinear filter at 64x64, watertight_4096w's (K10: the checker, nearest,
 watertight), none_4096w's (K1-none: the demo scene under accel="none"),
-K10 untextured on main's scene ("watertight_main") and K1-none on K10's
-rows of none_4096w's scene ("none_wt_4096w"), each the scene's first
-step; CASE names a subset. With --variants, the team entries are also
+K10 untextured on main's scene ("watertight_main"), K1-none on K10's
+rows of none_4096w's scene ("none_wt_4096w"), K1's 9-output mode on
+tex256_cliff_4096w's (chip_smoke.py's paged-texture scene baked without
+mips) and K1-raw on multicam_1024w4c's (1024 worlds of the demo scene, 4
+cameras each), each the scene's first step; CASE names a subset. With --variants, the team entries are also
 built from csrc/ copied under build/index_variants/NAME/ with the edits
 of VARIANTS and timed as plans "g1@NAME" and "g2@NAME" on the cases whose
 entry the edits touch, called through the C entry: K10's and K1-none's
@@ -23,12 +25,14 @@ to 64) with 1, 2 and 4 pixels a thread ("px1_lb1", "px2_lb1",
 "px4_lb1"), or with every warp on the sweep's selects, no variant with kz
 fixed ("kz_generic"); K1-none's prep entry at up to 128 registers
 ("none_lb1"), with its sweep not unrolled ("none_unroll1"), or at 2
-pixels a thread ("none_px2").
+pixels a thread ("none_px2"); K1's 9-output entry at 2 pixels a thread
+("nine_px2"), at up to 128 registers ("nine_lb1"), or both
+("nine_px2_lb1"); K1-raw's likewise ("raw_px2", "raw_lb1", "raw_px2_lb1").
 
 Every plan's outputs on a case are compared with the parent's first (a
 plan that differs fails the run); then PASSES (4) passes time every plan of
 a case in turn, each a CUDA graph of chip_smoke.KERNEL_REPS launches, the
-order reversed every other pass. Prints one JSON line per case (the plan
+order reversed every other pass (0: the checks and occupancy alone). Prints one JSON line per case (the plan
 the wrapper takes, each plan's occupancy, times and mean, the fastest),
 then the card's name and power limit. Needs one card and nvcc.
 """
@@ -51,7 +55,9 @@ import numpy as np
 HERE = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(HERE))
 
-# name: (view size, textured, texture filter, ssaa, pack switches)
+# name: (view size, textured, texture filter, ssaa, pack switches); textured
+# "paged": chip_smoke.paged_tex_config's scene baked without mips; the
+# switch "num_cams": the demo scene at 4096 / num_cams worlds.
 CASES = {
     "main": (64, False, "nearest", 1, {}),
     "mxu_4096w_128_auto": (128, False, "nearest", 1, {}),
@@ -62,13 +68,29 @@ CASES = {
     "none_4096w": (64, False, "nearest", 1, dict(accel="none")),
     "watertight_main": (64, False, "nearest", 1, dict(watertight=True)),
     "none_wt_4096w": (64, False, "nearest", 1, dict(accel="none", watertight=True)),
+    "tex256_cliff_4096w": (64, "paged", "nearest", 1, {}),
+    "multicam_1024w4c": (64, False, "nearest", 1, dict(num_cams=4)),
 }
 WORLDS = 4096
-# name: ([(source, pattern, replacement), ...], the entries it touches:
-# (geo, culled))
-_WT = {("raw_wt", True), ("raw_wt", False)}
-_NONE = {("prep", False)}
+# name: ([(source, pattern, replacement), ...], the entries it touches, by
+# raytrace_cuda.index_entry_key)
+_WT = {"raw_wt", "none_raw_wt"}
+_NONE = {"none"}
 _PX = r"constexpr int kWtPixels = \d+;"
+
+
+def _lb1(source, kernel):
+    """``kernel``'s entry in ``source`` at up to 128 registers a thread."""
+    return (source, r"__launch_bounds__\(kThreads \* kIndexMaxGroups, 4 / kIndexMaxGroups\)\n"
+                    rf"({kernel})", r"__launch_bounds__(kThreads * kIndexMaxGroups, 1)\n\1")
+
+
+_NINE_PX2 = ("render_none.cu", r"constexpr int kNinePixels = \d+;",
+             "constexpr int kNinePixels = 2;")
+_NINE_LB1 = _lb1("render_none.cu", "render_resident_nine_index_kernel")
+_RAW_PX2 = ("render_resident.cu", r"constexpr int kRawPixels = \d+;",
+            "constexpr int kRawPixels = 2;")
+_RAW_LB1 = _lb1("render_resident.cu", "render_index_raw_kernel")
 # K10's and K1-none's watertight entries at up to 128 registers a thread.
 _WT_LB1 = [(source, r"__launch_bounds__\(kThreads \* kIndexMaxGroups, 4 / kIndexMaxGroups\)\n"
                     r"(render_(?:none_)?index_wt_kernel)",
@@ -89,6 +111,12 @@ VARIANTS = {
                        r"\1#pragma unroll 1\n\2")], _NONE),
     "none_px2": ([("render_resident.cu", r"constexpr int kNonePixels = \d+;",
                    "constexpr int kNonePixels = 2;")], _NONE),
+    "nine_px2": ([_NINE_PX2], {"nine"}),
+    "nine_lb1": ([_NINE_LB1], {"nine"}),
+    "nine_px2_lb1": ([_NINE_PX2, _NINE_LB1], {"nine"}),
+    "raw_px2": ([_RAW_PX2], {"raw"}),
+    "raw_lb1": ([_RAW_LB1], {"raw"}),
+    "raw_px2_lb1": ([_RAW_PX2, _RAW_LB1], {"raw"}),
 }
 
 
@@ -127,6 +155,8 @@ def build_variant(name: str) -> dict:
         fn.argtypes = _build.SIGNATURES[name][1]
         fn.restype = ctypes.c_int
         fn.occupancy = getattr(handle, f"mrt_{name}_occupancy")
+        if name == "render_none":
+            fn.nine_occupancy = handle.mrt_render_none_nine_occupancy
         return fn
 
     with ThreadPoolExecutor(2) as pool:
@@ -141,7 +171,10 @@ def variant_occupancy(rc, fn, kw, groups) -> dict:
     S, n_cols = int(kw["rows"].shape[2]), int(kw["cams"].shape[1])
     out = (ctypes.c_int * 4)()
     head = [rc._GEO_CODES[kw["geo"]], rc._TEX_CODES[kw["texture"]], groups, S]
-    if culled:
+    if kw["texture"] == "nine":
+        err = fn.nine_occupancy(rc._GEO_CODES[kw["geo"]], groups, S, int(kw["clusters"].shape[2]),
+                                n_cols, kw["n_lights"], out)
+    elif culled:
         err = fn.occupancy(*head, int(kw["clusters"].shape[2]), n_cols, kw["n_lights"], out)
     else:
         err = fn.occupancy(*head, n_cols, kw["n_lights"], out)
@@ -154,8 +187,9 @@ def variant_occupancy(rc, fn, kw, groups) -> dict:
 
 def direct(torch, rc, fn, kw, groups):
     """One launch of a team entry through its C entry ``fn``
-    (render_resident's, or render_none's without clusters); (depth,
-    segmask, rgb)."""
+    (render_resident's, or render_none's without clusters and in the
+    9-output mode); (depth, segmask, rgb), or the 9-output mode's nine
+    outputs as render_resident returns them."""
     rows, cl, cams = kw["rows"], kw["clusters"], kw["cams"]
     W, _, S = rows.shape
     CC = 0 if cl is None else int(cl.shape[2])
@@ -163,22 +197,27 @@ def direct(torch, rc, fn, kw, groups):
     dev = rows.device
     depth = torch.empty((views, h, w), dtype=torch.float32, device=dev)
     seg = torch.empty((views, h, w), dtype=torch.int32, device=dev)
-    rgb = torch.empty((views, h, w), dtype=torch.int32, device=dev)
+    nine = kw["texture"] == "nine"
+    # The 9-output mode writes the material and six f32 planes instead of rgb.
+    rgb = code = torch.empty((views, h, w), dtype=torch.int32, device=dev)
+    if nine:
+        planes = torch.empty((rc._NINE_PLANES, views, h, w), dtype=torch.float32, device=dev)
     sampled = kw["texture"] in ("nearest", "bilinear")
     head = [rows.data_ptr(), None if cl is None else cl.data_ptr(), cams.data_ptr(),
             kw["mats"].data_ptr() if sampled else None,
             kw["pool"].data_ptr() if sampled else None,
             int(kw["mats"].shape[1]) if sampled else 0, depth.data_ptr(), seg.data_ptr(),
-            rgb.data_ptr(), None, None]
+            None if nine else rgb.data_ptr(), code.data_ptr() if nine else None,
+            planes.data_ptr() if nine else None]
     params = [views, kw["num_cams"], S, CC, S // max(CC, 1), int(cams.shape[1]), kw["n_lights"],
               h, w, kw["seg_div"], float(np.float32(2.0 / w)), float(np.float32(2.0 / h)), 0,
               rc._TEX_CODES[kw["texture"]], rc._GEO_CODES[kw["geo"]]]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = (fn(*head, *params, groups, stream) if cl is not None else
-           fn(*head, None, *params, 0, groups, stream))
+    err = (fn(*head, None, *params, int(cl is not None), groups, stream)
+           if cl is None or nine else fn(*head, *params, groups, stream))
     if err:
         raise RuntimeError(f"the variant's launch failed: {err}")
-    return depth, seg, rgb
+    return (depth, planes[0], seg, code, *planes[1:]) if nine else (depth, seg, rgb)
 
 
 def main() -> int:
@@ -221,10 +260,18 @@ def main() -> int:
     cases = []
     for name in args or list(CASES):
         res, textured, filt, ssaa, switches = CASES[name]
-        r = m.Manager(scenes.demo_config(WORLDS, m.RenderMode.Raytracer, res, res,
-                                         dynamic=switches.get("accel") != "none",
-                                         textured=textured, tex_size=cs.TEX_SIZE,
-                                         texture_filter=filt, ssaa=ssaa))
+        switches = dict(switches)
+        cams = switches.pop("num_cams", 1)
+        if textured == "paged":
+            from madrona_renderer_tpu_torch import config as cfg_mod
+            cfg = cs.paged_tex_config(WORLDS, scenes, cfg_mod)
+            r = m.MadronaRenderer(0, WORLDS, m.RenderMode.Raytracer, res, res, mipmaps=False,
+                                  **scenes.renderer_kwargs(cfg))
+        else:
+            r = m.Manager(scenes.demo_config(WORLDS // cams, m.RenderMode.Raytracer, res, res,
+                                             dynamic=switches.get("accel") != "none",
+                                             textured=textured, tex_size=cs.TEX_SIZE,
+                                             texture_filter=filt, ssaa=ssaa, num_cams=cams))
         kw = rc.pack_inputs(r.state, r.scene, height=res * ssaa, width=res * ssaa,
                             texture_filter=filt, **switches)
         culled = kw["clusters"] is not None
@@ -241,9 +288,9 @@ def main() -> int:
             launches[key] = lambda plan=plan, kw=kw: on(plan, lambda: rc.render_resident(**kw))
             if key != "g0":
                 occupancy[key] = on(plan, lambda: rc.index_occupancy(kw))
-        lib = "render_resident" if culled else "render_none"
+        lib = "render_resident" if culled and kw["texture"] != "nine" else "render_none"
         for v, fns in variants.items():
-            if (kw["geo"], culled) not in VARIANTS[v][1]:
+            if rc.index_entry_key(kw["geo"], culled, kw["texture"]) not in VARIANTS[v][1]:
                 continue
             for g in rc._INDEX_GROUP_CHOICES:
                 key = f"g{g}@{v}"
@@ -264,14 +311,14 @@ def main() -> int:
             for k in (keys if i % 2 == 0 else keys[::-1]):
                 t[k].append(cs.graph_ms(launches[k], cs.KERNEL_REPS))
     for (name, kw, _, occupancy), t in zip(cases, times):
-        means = {k: statistics.mean(v) for k, v in t.items()}
+        means = {k: statistics.mean(v) for k, v in t.items() if v}
         culled = kw["clusters"] is not None
         S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2]) if culled else 0
         plan = real(kw["geo"], S, CC, kw["n_lights"], int(kw["cams"].shape[0]), kw["height"],
                     kw["width"], kw["texture"], culled=culled)
         print(json.dumps({"phase": "index_plan_ab", "inputs": name, "plan": plan._asdict(),
                           "occupancy": occupancy, "ms": t, "mean_ms": means,
-                          "fastest": min(means, key=means.get)}), flush=True)
+                          "fastest": min(means, key=means.get, default=None)}), flush=True)
     print(json.dumps({"phase": "nvidia_smi", "name_power_limit": cs.nvidia_smi()}), flush=True)
     return 0
 

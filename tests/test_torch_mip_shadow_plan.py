@@ -121,12 +121,13 @@ def test_route_per_mode():
         "K7 folded, trilinear": _inputs("mips", texture_filter="trilinear"),
         "K8": _inputs("shadows"),
         "K8, bilinear": _inputs("shadows_tex32", texture_filter="bilinear"),
+        # K1-raw: K8's records and tile without the shadow sweep.
+        "K1-raw": dict(_inputs("shadows"), geo="raw"),
     }
     for what, kw in teams.items():
         assert rc.route_of(kw["order"], kw["spans"], kw["bins"]) == rc.INDEX, what
         assert _plan(kw).groups > 0, what
     parents = {
-        "K1-raw": dict(_inputs("shadows"), geo="raw"),
         "K10": _inputs("mips", watertight=True),
         "K10 shadows": _inputs("shadows", watertight=True),
         "raster": _inputs("raster", raster=True, near=0.001),
