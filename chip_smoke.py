@@ -103,12 +103,13 @@ printed as JSON lines:
                csrc/render_mip.cu), of K8 on them (raw rows with shadows),
                of K1-raw on them (raw rows without shadows), of K1's
                9-output mode on them (prep rows, csrc/render_none.cu), of
-               K10 on them (raw rows, the watertight decision) and of
+               K10 on them (raw rows, the watertight decision), of
                K1-none on them (prep and K10 rows, no cluster table,
-               csrc/render_none.cu) at raytrace_cuda.index_plan's forced
-               plans, G = 1 and 2, and in its parent design (``g0``; K7's
-               two launches), a forced plan whose block does not fit
-               recorded as refused, with the entry's occupancy
+               csrc/render_none.cu) and of K2 and K2+K6 on them (prep
+               rows, the raster conventions) at raytrace_cuda.index_plan's
+               forced plans, G = 1 and 2, and in its parent design
+               (``g0``; K7's two launches), a forced plan whose block does
+               not fit recorded as refused, with the entry's occupancy
                (``index_occupancy`` lines; fails where its registers are
                not the ones index_plan counts blocks by,
                raytrace_cuda._INDEX_REGS, by index_entry_key);
@@ -132,7 +133,11 @@ printed as JSON lines:
                                   ssaa=2 (K6 at 128x128, the box filter
                                   to 64x64);
                  raster_256w_png  256 worlds x 64x64 of the textured cube,
-                                  RenderMode.Rasterizer;
+                                  RenderMode.Rasterizer (K2+K6 on the index
+                                  visit's teams, blocks of two groups;
+                                  nearest and bilinear on its inputs at full
+                                  size and on 64 of its worlds at every
+                                  forced plan);
                  multicam_1024w4c 1024 worlds x 4 cameras x 64x64 (4096
                                   views), raytraced on the raw rows
                                   (K1-raw on the index visit's teams);
@@ -1573,8 +1578,8 @@ def main() -> int:
         else:  # K12, and the 9-output mode: unshaded or unmasked outputs
             c = compare_all(k_out, p_out)
             err = c["max_abs_err"]
-        if (is_batched(kw) or is_k7(kw) or kw["geo"] in rc._WATERTIGHT_GEOS or is_new(kw)) \
-                and not c["bitwise"]:
+        if (is_batched(kw) or is_k7(kw) or kw["geo"] in rc._WATERTIGHT_GEOS or is_new(kw)
+                or kw["raster"] and is_index_visit(kw)) and not c["bitwise"]:
             raise AssertionError(f"{tag} {name}: differs from its plain version: {c}")
         if is_new(kw) or is_batched(kw):
             first_kw.setdefault(handoff_name(kw) if is_k7(kw) else name, kw)
@@ -1634,12 +1639,12 @@ def main() -> int:
 
     def check_index_plans(tag, kw, k_out):
         """The index visit at every forced plan, G = 1 and 2 groups of tile
-        teams (4 pixels a thread; K8 and K10 2), and in its parent design
-        (render_body's 16x16 blocks, a plan of 0 groups; K7: its two
-        launches) on the same inputs, each bitwise against the kernel's
+        teams (4 pixels a thread; K8, K10 and the raster entry 2), and in
+        its parent design (render_body's 16x16 blocks, a plan of 0 groups;
+        K7: its two launches) on the same inputs, each bitwise against the kernel's
         outputs ``k_out`` (held to the plain version): K1, K6, K7 folded (so
-        also against the pair), K1's 9-output mode, K1-raw, K8, K10 and
-        K1-none."""
+        also against the pair), K1's 9-output mode, K1-raw, K8, K10,
+        K1-none, K2 and K2+K6."""
         same = {}
         for g in (0, *rc._INDEX_GROUP_CHOICES):
             try:
@@ -1665,7 +1670,7 @@ def main() -> int:
             # the card allocates them (8 at a time), are at most that and
             # leave the multiprocessor the blocks the plan counts.
             regs = rc._INDEX_REGS[rc.index_entry_key(kw["geo"], kw["clusters"] is not None,
-                                                      kw["texture"])]
+                                                      kw["texture"], kw["raster"])]
             card = -(-occ["registers"] // 8) * 8
             threads = occ["threads"]
             if card > regs or rc._SM_REGS // (threads * card) != rc._SM_REGS // (threads * regs):
@@ -2667,6 +2672,12 @@ def main() -> int:
     kw_bilinear = path_inputs(r, texture_filter="bilinear")
     check_render("raster_256w_png_inputs", kw_bilinear)
     timing_kw[variant(kw_bilinear)] = kw_bilinear
+    # K2+K6 on 64 of these worlds (fewer than the teams take by default),
+    # nearest and bilinear, at every forced plan.
+    for kw in (timing_kw[name], kw_bilinear):
+        check_render("raster_64w_png_inputs", dict(
+            kw, rows=kw["rows"][:SMALL_WORLDS], clusters=kw["clusters"][:SMALL_WORLDS],
+            cams=kw["cams"][:SMALL_WORLDS]))
     time_path("raster_256w_png", r, step_s, counts, ctor_s, {})
     add_launches(counts)
     del r
@@ -3549,12 +3560,15 @@ def main() -> int:
 
     # The entries whose path's inputs the index visit's teams take, timed in
     # turns with their parent design (render_body's 16x16 blocks): K8, K10,
-    # K1-none, K1's 9-output mode and K1-raw.
+    # K1-none, K1's 9-output mode, K1-raw, K2+K6 (raster_256w_png's
+    # inputs) and K2 (main's inputs rasterized).
     team_paths = {"render_resident_raw_shadows": "shadows_4096w",
                   "render_resident_raw_wt_tex_nearest": "watertight_4096w",
                   "render_none": "none_4096w",
                   "render_resident_nine": "tex256_cliff_4096w",
-                  "render_resident_raw": "multicam_1024w4c"}
+                  "render_resident_raw": "multicam_1024w4c",
+                  "render_resident_raster_tex_nearest": "raster_256w_png",
+                  "render_resident_raster": "main"}
 
     def team_ab(name, kw, row):
         """The A/B line of a team entry on its path's inputs (``row``: its

@@ -159,7 +159,9 @@
 // (index_tile's resolve writing the nine outputs; its entry in
 // csrc/render_none.cu) and K1-raw (shadow_tile without its shadow sweep,
 // render_index_raw_kernel: K8's records, each view's own tv, q, t_num
-// formed once a view, so that four cameras a world form four views' terms).
+// formed once a view, so that four cameras a world form four views' terms)
+// and K1's raster conventions on prep rows (K2, K2+K6: index_tile with each
+// pixel's t-space near bound, render_index_raster_kernel).
 // The other modes keep this design.
 //
 // The streamed route (STREAM): meshes whose rows do not fit the resident
@@ -1567,6 +1569,15 @@ constexpr int kNonePixels = 4;
 // and 3% faster than 4 at up to 128 (80) (port_tools/index_plan_ab.py on
 // an H100).
 constexpr int kRawPixels = 4;
+// K2's and K2+K6's (index_tile in the raster conventions: each pixel also
+// carries its t-space near bound through the sweep): 2 (59-64 registers,
+// bilinear with 8 B of local memory) ran 9-16% faster than 4 (64, 16 B of
+// local memory) on raster_256w_png's 256 views, where each team walks few
+// tiles and a tile's pixel work (51-58% of it) sets the pace, and 7%
+// slower on main's 4096 views, which no path rasterizes; up to 128
+// registers (71-91) was slower on both (port_tools/index_plan_ab.py on an
+// H100).
+constexpr int kRasterPixels = 2;
 constexpr int kIndexRecordFloats = 12;  // a triangle's record: three float4
 // K8's and K1-raw's: four float4 a triangle, then (K8) one float4 a
 // (light, triangle).
@@ -2052,8 +2063,13 @@ __device__ __forceinline__ void mip_hit(const RenderArgs& a, const float4* s_rec
 // mip_pass); no rgb. TEX = nine (K1's 9-output mode, its entry in
 // csrc/render_none.cu): the resolve's t, idx, material, z, uv and flipped
 // normal, written unmasked. CULL false (K1-none, no cluster table): no
-// gates, every slot of the world swept in index order.
-template <int TEX, int PIX, bool CULL = true>
+// gates, every slot of the world swept in index order. RASTER (K2, K2+K6:
+// the raster conventions, render_body's :827-830, :1248-1250, :1404-1431):
+// each pixel's t-space near bound near / max(cos, 1e-6) in the sweep's test
+// (the gates keep the scalar near: they only over-visit), and the resolve's
+// camera-plane z = t * cos, the z-space far clip on the shading's hit, depth
+// z or 0, segmask -1.
+template <int TEX, int PIX, bool CULL = true, bool RASTER = false>
 __device__ __forceinline__ void index_tile(const RenderArgs& a, const float4* s_rec,
                                            const float* attr, const float* s_cl,
                                            const float* s_gate, const float* s_cam, int view,
@@ -2072,9 +2088,14 @@ __device__ __forceinline__ void index_tile(const RenderArgs& a, const float4* s_
   // write nothing.
   float dx[PIX], dy[PIX], dz[PIX], ivx[PIX], ivy[PIX], ivz[PIX], best_t[PIX];
   int best_idx[PIX];
+  // Raster: each pixel's lower bound on t (a fragment with z < znear is
+  // clipped before the depth test); the scalar near otherwise.
+  [[maybe_unused]] float t_lo[PIX];
 #pragma unroll
   for (int q = 0; q < PIX; ++q) {
     pixel_ray(a, s_cam, px, py0 + kRowStep * q, dx[q], dy[q], dz[q]);
+    if constexpr (RASTER)
+      t_lo[q] = near / fmaxf(dx[q] * s_cam[6] + dy[q] * s_cam[7] + dz[q] * s_cam[8], kCosFloor);
     ivx[q] = 1.0f / safe_dir(dx[q]);
     ivy[q] = 1.0f / safe_dir(dy[q]);
     ivz[q] = 1.0f / safe_dir(dz[q]);
@@ -2116,8 +2137,8 @@ __device__ __forceinline__ void index_tile(const RenderArgs& a, const float4* s_
           const float u = (dx[q] * r1.x + dy[q] * r1.y + dz[q] * r1.z) * inv;
           const float v = (dx[q] * r2.x + dy[q] * r2.y + dz[q] * r2.z) * inv;
           const float t = r0.w * inv;
-          const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) && (t > near) &&
-                          (t < best_t[q]);
+          const bool ok = (fminf(u, v) >= -kEpsBary) && (u + v <= kOnePlusEps) &&
+                          (t > (RASTER ? t_lo[q] : near)) && (t < best_t[q]);
           best_t[q] = ok ? t : best_t[q];
           best_idx[q] = ok ? i : best_idx[q];
         }
@@ -2230,6 +2251,20 @@ __device__ __forceinline__ void index_tile(const RenderArgs& a, const float4* s_
       textured_base<TEX>(a.mats, a.pool, a.n_mats, (int)a0, a1, a2, br, bg, bb);
     float sr, sg, sb;
     lambert(a, s_cam, nx, ny, nz, dx[q], dy[q], dz[q], 0u, sr, sg, sb);
+    if constexpr (RASTER) {
+      // The raster export: z = t * cos (:2806-2807), the shading's hit
+      // clipped at the camera's z-space far plane.
+      const float t_hit = found ? best_t[q] : 0.f;
+      const float z = t_hit * (dx[q] * s_cam[6] + dy[q] * s_cam[7] + dz[q] * s_cam[8]);
+      const bool shaded_hit = found && z < s_cam[kCamFarZ];
+      const uint32_t packed = quantize(br, sr, shaded_hit) | (quantize(bg, sg, shaded_hit) << 8) |
+                              (quantize(bb, sb, shaded_hit) << 16) | kAlpha;
+      const size_t o = ((size_t)view * a.height + py) * a.width + px;
+      a.depth[o] = shaded_hit && cam_ok ? z : 0.f;
+      a.segmask[o] = -1;
+      a.rgb[o] = cam_ok ? packed : kAlpha;
+      continue;
+    }
     const bool hit = found && cam_ok;
     const uint32_t packed = quantize(br, sr, found) | (quantize(bg, sg, found) << 8) |
                             (quantize(bb, sb, found) << 16) | kAlpha;
@@ -2797,12 +2832,16 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
   // its shadow sweep).
   constexpr bool RAW_TEAMS = INDEX && (GEO == kGeoRawShadows || GEO == kGeoRaw);
   constexpr bool WT_TEAMS = INDEX && GEO == kGeoRawWt;
-  static_assert(!INDEX || (!RASTER && !BINNED && !SEEDED &&
+  static_assert(!INDEX || (!BINNED && !SEEDED &&
                            (GEO == kGeoPrep ||
                             ((GEO == kGeoRaw || GEO == kGeoRawShadows || GEO == kGeoRawWt) &&
                              (TEX == kTexNone || TEX == kTexNearest || TEX == kTexBilinear)))),
                 "the index visit: K1 and K6 on prep rows (K7 folded and the 9-output mode "
-                "too), K1-raw, K8 and K10, raytraced");
+                "too), K1-raw, K8 and K10");
+  static_assert(!INDEX || !RASTER ||
+                    (GEO == kGeoPrep && CULL &&
+                     (TEX == kTexNone || TEX == kTexNearest || TEX == kTexBilinear)),
+                "the index visit in the raster conventions: K2 and K2+K6, prep rows only");
   static_assert(CULL || (INDEX && TEX != kTexMip && (GEO == kGeoPrep || GEO == kGeoRawWt)),
                 "K1-none on the teams: prep and K10 rows, untextured, nearest or bilinear");
   constexpr int kBlock = kThreads * visit_groups<GEO>();
@@ -2999,7 +3038,8 @@ __device__ __forceinline__ void visit_body(const RenderArgs& a, const int* order
       else if constexpr (WT_TEAMS)
         wt_tile<TEX, PIX, CULL>(a, s_rec, g_rows, s_cl, s_gate, s_cam, view, tile, 1 + team);
       else
-        index_tile<TEX, PIX, CULL>(a, s_rec, attr, s_cl, s_gate, s_cam, view, tile, 1 + team);
+        index_tile<TEX, PIX, CULL, RASTER>(a, s_rec, attr, s_cl, s_gate, s_cam, view, tile,
+                                           1 + team);
     }
     if constexpr (MIP) {
       // Every team has walked every tile of the view: every pixel's winner
@@ -3055,7 +3095,7 @@ size_t index_smem(const RenderArgs& a, const MipArgs* mp = nullptr) {
                                          (size_t)kMipHoldWords * a.height * a.width));
 }
 
-// One launch of an index visit's entry (K1 and K6, K8, K7 folded) at
+// One launch of an index visit's entry (K1 and K6, K8, K7 folded, K2) at
 // `groups` groups a block, a block a view, `smem` bytes of dynamic shared
 // memory; cudaGetLastError() after it. With `query`, no launch: what the
 // card makes of the entry goes there instead (threads a block, registers a
@@ -3871,6 +3911,16 @@ render_index_kernel(const RenderArgs a) {
   visit_body<kGeoPrep, false, TEX, false, false, kIndexPixels>(a, nullptr, BinArgs{}, nullptr);
 }
 
+// K2 and K2+K6 on the index visit's tile teams: K1's entry in the raster
+// conventions (prep rows; untextured, nearest or bilinear), kRasterPixels
+// pixels a thread, 1 or 2 groups a block, a block a view;
+// at most 64 registers a thread.
+template <int TEX>
+__global__ void __launch_bounds__(kThreads * kIndexMaxGroups, 4 / kIndexMaxGroups)
+render_index_raster_kernel(const RenderArgs a) {
+  visit_body<kGeoPrep, true, TEX, false, false, kRasterPixels>(a, nullptr, BinArgs{}, nullptr);
+}
+
 // K8 on the index visit's tile teams (raw rows with shadows, raytraced;
 // untextured, nearest or bilinear), kShadowPixels pixels a thread, 1 or 2
 // groups a block, a block a view; up to 128 registers a thread.
@@ -3901,8 +3951,13 @@ render_index_wt_kernel(const RenderArgs a) {
 }
 
 template <int GEO, int TEX>
-int index_launch(const RenderArgs& a, int num_views, int groups, int* query,
+int index_launch(const RenderArgs& a, int num_views, int groups, bool raster, int* query,
                  cudaStream_t stream) {
+  if constexpr (GEO == kGeoPrep) {
+    if (raster)
+      return index_entry(render_index_raster_kernel<TEX>, index_smem<GEO>(a), num_views,
+                         groups, query, stream, a);
+  }
   if constexpr (GEO == kGeoRawShadows)
     return index_entry(render_index_shadows_kernel<TEX>, index_smem<GEO>(a), num_views, groups,
                        query, stream, a);
@@ -3918,27 +3973,33 @@ int index_launch(const RenderArgs& a, int num_views, int groups, int* query,
 }
 
 template <int GEO>
-int index_tex(const RenderArgs& a, int num_views, int tex_filter, int groups, int* query,
-              cudaStream_t stream) {
+int index_tex(const RenderArgs& a, int num_views, int tex_filter, int groups, bool raster,
+              int* query, cudaStream_t stream) {
   switch (tex_filter) {
     case kTexNone:
-      return index_launch<GEO, kTexNone>(a, num_views, groups, query, stream);
+      return index_launch<GEO, kTexNone>(a, num_views, groups, raster, query, stream);
     case kTexNearest:
-      return index_launch<GEO, kTexNearest>(a, num_views, groups, query, stream);
+      return index_launch<GEO, kTexNearest>(a, num_views, groups, raster, query, stream);
     case kTexBilinear:
-      return index_launch<GEO, kTexBilinear>(a, num_views, groups, query, stream);
+      return index_launch<GEO, kTexBilinear>(a, num_views, groups, raster, query, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-int index_variant(const RenderArgs& a, int num_views, int geo, int tex_filter, int groups,
-                  int* query, cudaStream_t stream) {
-  if (groups < 1 || groups > kIndexMaxGroups) return (int)cudaErrorInvalidValue;
-  if (geo == kGeoPrep) return index_tex<kGeoPrep>(a, num_views, tex_filter, groups, query, stream);
-  if (geo == kGeoRaw) return index_tex<kGeoRaw>(a, num_views, tex_filter, groups, query, stream);
+// The index visit's entry (geo, raster, tex_filter) at `groups` groups a
+// block: raster on prep rows only.
+int index_variant(const RenderArgs& a, int num_views, int geo, int raster, int tex_filter,
+                  int groups, int* query, cudaStream_t stream) {
+  if (groups < 1 || groups > kIndexMaxGroups || (raster && geo != kGeoPrep))
+    return (int)cudaErrorInvalidValue;
+  if (geo == kGeoPrep)
+    return index_tex<kGeoPrep>(a, num_views, tex_filter, groups, raster, query, stream);
+  if (geo == kGeoRaw)
+    return index_tex<kGeoRaw>(a, num_views, tex_filter, groups, false, query, stream);
   if (geo == kGeoRawShadows && a.n_lights <= 32)
-    return index_tex<kGeoRawShadows>(a, num_views, tex_filter, groups, query, stream);
-  if (geo == kGeoRawWt) return index_tex<kGeoRawWt>(a, num_views, tex_filter, groups, query, stream);
+    return index_tex<kGeoRawShadows>(a, num_views, tex_filter, groups, false, query, stream);
+  if (geo == kGeoRawWt)
+    return index_tex<kGeoRawWt>(a, num_views, tex_filter, groups, false, query, stream);
   return (int)cudaErrorInvalidValue;
 }
 #endif  // MRT_RENDER_BODY_ONLY
@@ -3958,8 +4019,9 @@ extern "C" {
 // order (K1); the streamed ordered walk is csrc/render_streamed.cu's.
 // groups 0: the parent design, one 16x16 block a tile (every variant);
 // 1 or 2: the index visit's groups of tile teams, a block a view (geo 0,
-// 1, 2 or 3, raster 0, tex_filter 0, 1 or 2), 4 pixels a thread (geo 1:
-// kRawPixels; geo 2: 2; geo 3: kWtPixels). Returns
+// 1, 2 or 3, raster 0, tex_filter 0, 1 or 2; geo 0 raster 1 too), 4 pixels
+// a thread (geo 1: kRawPixels; geo 2: 2; geo 3: kWtPixels; raster:
+// kRasterPixels). Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unknown variant or plan.
 int mrt_render_resident(const float* rows, const float* clusters,
@@ -3977,21 +4039,21 @@ int mrt_render_resident(const float* rows, const float* clusters,
   if (groups == 0)
     return launch_variant<ResidentRoute>(a, StreamArgs{nullptr, nullptr}, num_views, geo,
                                          raster, tex_filter, (cudaStream_t)stream);
-  if (raster) return (int)cudaErrorInvalidValue;
-  return index_variant(a, num_views, geo, tex_filter, groups, nullptr, (cudaStream_t)stream);
+  return index_variant(a, num_views, geo, raster, tex_filter, groups, nullptr,
+                       (cudaStream_t)stream);
 }
 
-// The index visit's entry (geo, tex_filter, groups) at these sizes: threads
-// a block, registers, local memory bytes a thread and blocks a
-// multiprocessor, in out[0..3]. Returns 0, or the CUDA error of the query.
-int mrt_render_resident_occupancy(int geo, int tex_filter, int groups, int S, int CC,
-                                  int n_cols, int n_lights, int* out) {
+// The index visit's entry (geo, raster, tex_filter, groups) at these
+// sizes: threads a block, registers, local memory bytes a thread and blocks
+// a multiprocessor, in out[0..3]. Returns 0, or the CUDA error of the query.
+int mrt_render_resident_occupancy(int geo, int raster, int tex_filter, int groups, int S,
+                                  int CC, int n_cols, int n_lights, int* out) {
   RenderArgs a{};
   a.S = S;
   a.CC = CC;
   a.n_cols = n_cols;
   a.n_lights = n_lights;
-  return index_variant(a, 0, geo, tex_filter, groups, out, nullptr);
+  return index_variant(a, 0, geo, raster, tex_filter, groups, out, nullptr);
 }
 
 const char* mrt_error_string(int err) {

@@ -7,7 +7,12 @@ depth competition — so the rasterizer is the raytracer's kernel in its
 ``raster`` variant: camera-plane depth z = t·cos, the exact per-pixel
 t-space znear bound znear / cos, the z-space far clip, and no segmask
 (the reference's rasterizer has none, ``src/mgr.cpp:595``). Mip-mapped
-scenes take the same kernel's K7 route in these conventions.
+scenes take the same kernel's K7 route in these conventions. On the
+resident index order's prep rows (one camera a world, no shadows,
+untextured or nearest or bilinear, no mips) the raster variant runs on the
+index visit's tile teams where ``raytrace_cuda.index_plan`` takes them
+(K2, K2+K6: blocks of two groups where the views are few); its other
+modes keep the parent design, one 16x16 block a tile.
 """
 
 from __future__ import annotations

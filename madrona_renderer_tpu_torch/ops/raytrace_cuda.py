@@ -95,10 +95,12 @@ prep rows, raytraced, untextured or nearest or bilinear, takes the same
 shape on enough views (``index_plan``, ``check_index_plan``: one block a
 view of 64-thread tile teams, 4 pixels a thread, each triangle's prep rows
 as records), and so do K8, K10 (raw rows, the watertight decision:
-records of each triangle's a, b, c and validity, 2 pixels a thread) and
+records of each triangle's a, b, c and validity, 2 pixels a thread),
 K1-none on prep and K10 rows (no cluster table: every team sweeps every
-live slot); their other modes, few views and blocks past 227 KB keep one
-16x16 block a tile.
+live slot) and K1's raster conventions on prep rows (K2, K2+K6: each
+pixel's t-space near bound in the sweep, the raster export, blocks of two
+groups where the views are few); their other modes, few views and blocks
+past 227 KB keep one 16x16 block a tile.
 Exact-t ties go to the lower triangle index on every route, so the visit
 changes only the work: the frames are the index-order sweep's
 (``render_resident_plain``, which puts row-sorted rows back in order
@@ -257,24 +259,34 @@ _FILL_ALIGN = 16
 # K10 raytraced and cold (records of 12 floats: a = v0 - o with the
 # validity, b and c; 2 pixels a thread), K1's 9-output mode on prep rows
 # (csrc/render_none.cu: K1's records and gates, the resolve writing the
-# nine outputs; 4 pixels a thread) and K1-none on prep and K10 rows
+# nine outputs; 4 pixels a thread), K1-none on prep and K10 rows
 # (csrc/render_none.cu: the same records, no cluster table or gate terms,
-# every live slot swept; 4 and 2 pixels a thread); the K1, K1-raw, 9-output,
-# K10 and K1-none entries take at most 64 registers a thread, K8's 72. The
-# other modes of K1 (raster, K10 with shadows, the 9-output mode on raw and
-# K10 rows), of K1-none (raw rows, shadows, raster, the 9-output mode) and
-# K9 on either keep the parent design, render_body's 16x16 blocks: a plan of
-# 0 groups. _INDEX_REGS: each team entry's registers a thread
-# (index_entry_key; its most textured variant's, rounded up to the 8 the
-# card allocates at a time), by which the plan counts the blocks a
-# multiprocessor holds.
+# every live slot swept; 4 and 2 pixels a thread) and K1's raster
+# conventions on prep rows (K2, K2+K6: K1's records and gates, each pixel's
+# t-space near bound in the sweep, the raster export; 2 pixels a thread,
+# so 2 teams of 128 threads a group); the K1, K1-raw, 9-output,
+# K10, K1-none and raster entries take at most 64 registers a thread, K8's
+# 72. Where the views are fewer than the card's blocks of one group, the
+# raster entry takes blocks of two groups (one fill for 4 teams; on
+# raster_256w_png's 256 views 0.0333 ms against one group's 0.0395 and the
+# parent's 0.0415, port_tools/index_plan_ab.py on an H100), and it takes
+# the teams from _RASTER_MIN_VIEWS views (two groups beat the parent on
+# every pass at 128 and 256 views and lost at 64). The other modes of K1
+# (raster on raw and K10 rows, with mips or in the 9-output mode, K10 with
+# shadows, the 9-output mode on raw and K10 rows), of K1-none (raw rows,
+# shadows, raster, the 9-output mode) and K9 on either keep the parent
+# design, render_body's 16x16 blocks: a plan of 0 groups. _INDEX_REGS: each
+# team entry's registers a thread (index_entry_key; its most textured
+# variant's, rounded up to the 8 the card allocates at a time), by which
+# the plan counts the blocks a multiprocessor holds.
 _INDEX_TILES_FOR_TWO = 64
 _INDEX_GROUP_CHOICES = (1, 2)
 _INDEX_RECORD_FLOATS = 12
 _SHADOW_RECORD_FLOATS = 16
 _MIP_HOLD_WORDS = 2
 _INDEX_REGS = {"prep": 64, "raw": 64, "raw_shadows": 72, "raw_wt": 64, "nine": 64, "none": 64,
-               "none_raw_wt": 64}
+               "none_raw_wt": 64, "raster": 64}
+_RASTER_MIN_VIEWS = 128
 # The streamed walk's slack: the occlusion early exit's on squared distances
 # (the JAX kernel's), the slab test's on t (a tie must not be culled).
 _F_EXIT_SLACK = float(np.float32(0.998))
@@ -607,25 +619,32 @@ def index_block_bytes(S: int, n_clusters: int, n_lights: int, geo: str = "prep",
 
 def index_takes(geo: str, texture=None, raster: bool = False, seeded: bool = False,
                 culled: bool = True) -> bool:
-    """Whether the index visit's tile teams take this mode: raytraced and
-    cold, on prep rows untextured, with the ``"nearest"`` or
+    """Whether the index visit's tile teams take this mode: cold, and
+    raytraced on prep rows untextured, with the ``"nearest"`` or
     ``"bilinear"`` filter (K1, K6), ``"mip"`` (K7 folded) or ``"nine"``
     (K1's 9-output mode), on raw rows with or without shadows (K8, K1-raw)
     or K10's rows untextured, nearest or bilinear; not ``culled``
-    (K1-none), on prep and K10 rows untextured, nearest or bilinear."""
-    if raster or seeded:
+    (K1-none), on prep and K10 rows untextured, nearest or bilinear;
+    ``raster`` (K2, K2+K6), culled on prep rows untextured, nearest or
+    bilinear."""
+    if seeded:
         return False
+    if raster:
+        return geo == "prep" and culled and texture in (None,) + shade.FILTERS
     if geo == "prep":
         return texture in ((None, "mip", "nine") if culled else (None,)) + shade.FILTERS
     return ((geo == "raw_wt" or culled and geo in ("raw", "raw_shadows"))
             and texture in (None,) + shade.FILTERS)
 
 
-def index_entry_key(geo: str, culled: bool = True, texture=None) -> str:
+def index_entry_key(geo: str, culled: bool = True, texture=None, raster: bool = False) -> str:
     """The team entry a mode of ``index_takes`` launches, as ``_INDEX_REGS``
     names it: the geo (K1, K1-raw, K8, K10), ``"nine"`` (K1's 9-output
-    mode, ``csrc/render_none.cu``), or ``"none"`` / ``"none_raw_wt"``
-    (K1-none on prep or K10 rows, ``csrc/render_none.cu``)."""
+    mode, ``csrc/render_none.cu``), ``"none"`` / ``"none_raw_wt"``
+    (K1-none on prep or K10 rows, ``csrc/render_none.cu``) or ``"raster"``
+    (K2 and K2+K6)."""
+    if raster:
+        return "raster"
     if culled:
         return "nine" if texture == "nine" else geo
     return "none" if geo == "prep" else f"none_{geo}"
@@ -640,16 +659,21 @@ def index_plan(geo: str, S: int, n_clusters: int, n_lights: int, num_views: int,
     K1-none, no cluster table, ``n_clusters`` 0). The index visit's tile
     teams take the modes of ``index_takes`` (K1, K6, K7 folded as
     ``texture="mip"``, K1's 9-output mode as ``"nine"``, K1-raw, K8, K10;
-    K1-none on prep and K10 rows): ``groups``
+    K1-none on prep and K10 rows; K2 and K2+K6, ``raster``): ``groups``
     of 4 teams a block (by default 1, or 2 where the view has at least
-    _INDEX_TILES_FOR_TWO tiles), a block a view. By default the parent
+    _INDEX_TILES_FOR_TWO tiles; the raster entry's, 2 teams a group, also 2
+    where the views are fewer than the card's blocks of one group), a block
+    a view. By default the parent
     design (0 groups: its 16x16 block's rows, cluster table and camera row;
     K7's two launches) where the teams' block does not fit 227 KB, where
     the views are fewer than the blocks the card holds at once (by
-    registers, _INDEX_REGS a thread, and shared memory), and in every other
-    mode (raster, K10 with shadows, the 9-output mode on raw and K10 rows
-    and without a cluster table, K9's seed); with ``groups`` 0 too. A forced ``groups`` other than
-    0, 1 or 2, or one whose block does not fit, is ``LaunchPlanError``."""
+    registers, _INDEX_REGS a thread, and shared memory; raster: fewer than
+    _RASTER_MIN_VIEWS), and in every other
+    mode (raster on raw and K10 rows, with mips or in the 9-output mode,
+    K10 with shadows, the 9-output mode on raw and K10 rows
+    and without a cluster table, K9's seed); with ``groups`` 0 too. A
+    forced ``groups`` other than 0, 1 or 2, or one whose block does not
+    fit, is ``LaunchPlanError``."""
     parent = IndexPlan(0, 4 * (_VISIT_GEO_ROWS[geo] * S + 8 * n_clusters
                                + _n_cam_cols(n_lights)))
     if not index_takes(geo, texture, raster, seeded, culled):
@@ -657,13 +681,16 @@ def index_plan(geo: str, S: int, n_clusters: int, n_lights: int, num_views: int,
     smem = index_block_bytes(S, n_clusters, n_lights, geo, height, width, texture == "mip")
     if groups is None:
         n_tiles = -(-height // _TILE) * -(-width // _TILE)
-        groups = 2 if n_tiles >= _INDEX_TILES_FOR_TWO else 1
-        regs = _INDEX_REGS[index_entry_key(geo, culled, texture)]
-        per_sm = max(1, min(_SM_REGS // (_TILE ** 2 * groups * regs),
-                            _SM_SMEM // (smem + 1024)))
-        if smem > _MAX_SMEM or num_views < sm_count * per_sm:
-            return parent
-        return IndexPlan(groups, smem)
+        regs = _INDEX_REGS[index_entry_key(geo, culled, texture, raster)]
+
+        def slots(g):  # the blocks of g groups the card holds at once
+            return sm_count * max(1, min(_SM_REGS // (_TILE ** 2 * g * regs),
+                                         _SM_SMEM // (smem + 1024)))
+
+        groups = 2 if n_tiles >= _INDEX_TILES_FOR_TWO or (
+            raster and num_views < slots(1)) else 1
+        few = num_views < (_RASTER_MIN_VIEWS if raster else slots(groups))
+        return parent if smem > _MAX_SMEM or few else IndexPlan(groups, smem)
     if groups == 0:
         return parent
     if groups not in _INDEX_GROUP_CHOICES:
@@ -1888,7 +1915,7 @@ def _launch_render(rows, clusters, cams, *, num_cams, n_lights, height, width,
         visit, tail = [bins.data_ptr(), ptr(seed)], bin_args + [stream]
     elif route == Route(False, "ordered"):
         visit, tail = [order.data_ptr(), ptr(seed)], [stream]
-    else:  # K1: the index visit on its plan (0 groups: the parent design)
+    else:  # K1 and K2: the index visit on its plan (0 groups: the parent design)
         plan = (IndexPlan(0, 0) if texture == "mip" else  # the hand-off: the parent's blocks
                 check_index_plan(rows, CC, n_lights, geo, WC, height, width, texture,
                                  raster=raster))
@@ -2060,12 +2087,13 @@ def resident_occupancy(kw: dict) -> dict:
 def index_occupancy(kw: dict) -> dict:
     """What the card makes of the index visit's entry that these inputs
     (``pack_inputs``'s, of the resident index order: K1 and K6 on prep
-    rows, K7 folded, K1's 9-output mode, K1-raw, K8, K10; K1-none without a
-    cluster table) launch on
+    rows, K7 folded, K1's 9-output mode, K1-raw, K8, K10, K2 and K2+K6;
+    K1-none without a cluster table) launch on
     their plan: its variant, tile groups, threads a block, registers and
     local memory a thread, shared memory a block, and blocks and warps a
-    multiprocessor (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
-    Launches nothing; needs the card."""
+    multiprocessor
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). Launches nothing;
+    needs the card."""
     culled = kw["clusters"] is not None
     route = route_of(kw["order"], kw["spans"], kw["bins"], culled)
     texture = "mip" if kw.get("fb_rows") is not None else kw["texture"]
@@ -2093,10 +2121,11 @@ def index_occupancy(kw: dict) -> dict:
             _MIP_FILTER_CODES[kw["texture"]], plan.groups, S, CC, n_cols, kw["n_lights"],
             kw["height"], kw["width"], mips.tile_geometry(kw["height"], kw["width"])[2], out)
     else:
-        name, variant = "render_resident", variant_name(False, texture, kw["geo"], INDEX)
-        err = _occupancy_query(name, [ctypes.c_int] * 7)(
-            _GEO_CODES[kw["geo"]], _TEX_CODES[texture], plan.groups, S, CC, n_cols,
-            kw["n_lights"], out)
+        name = "render_resident"
+        variant = variant_name(kw["raster"], texture, kw["geo"], INDEX)
+        err = _occupancy_query(name, [ctypes.c_int] * 8)(
+            _GEO_CODES[kw["geo"]], int(kw["raster"]), _TEX_CODES[texture], plan.groups, S, CC,
+            n_cols, kw["n_lights"], out)
     if err != 0:
         raise RuntimeError(f"{name}'s occupancy query failed: CUDA error {err}")
     threads, registers, local, blocks = list(out)

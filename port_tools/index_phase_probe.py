@@ -1,10 +1,13 @@
 """Where the resident index order's time goes (K1 and K6 on prep rows, K7
 folded with its mip sample, K1's 9-output mode, K1-raw, K8 with its shadow
-rays, K10's watertight decision, and K1-none without a cluster table),
-measured on the card, in the parent design and on the index visit's tile
-groups:
+rays, K10's watertight decision, K1-none without a cluster table, and K2
+and K2+K6 in the raster conventions), measured on the card, in the parent
+design and on the index visit's tile groups:
 
     python3 port_tools/index_phase_probe.py [--parent] [CASE ...]
+
+e.g. the raster entry's splits: ``python3 port_tools/index_phase_probe.py
+raster_256w_png raster_256w_png_bilinear main_raster``.
 
 Builds, under build/phase_probe/, a clock64 span variant of
 csrc/render_resident.cu, csrc/render_mip.cu (K7 folded) and
@@ -25,9 +28,12 @@ then csrc/shade_mip.cu, counted in its ms), K8 on shadows_4096w's (the
 demo scene with shadows), K10 on watertight_4096w's (the 32x32 checker,
 nearest, watertight), K1-none on none_4096w's (the demo scene under
 accel="none"), K1's 9-output mode on tex256_cliff_4096w's (the
-paged-texture scene baked without mips: a 131,072-texel pool) and K1-raw on
+paged-texture scene baked without mips: a 131,072-texel pool), K1-raw on
 multicam_1024w4c's (1024 worlds of the demo scene, 4 cameras each: 4096
-views of raw rows), each the scene's first step (CASE names a subset),
+views of raw rows), K2+K6 on raster_256w_png's (256 worlds of the 32x32
+checker rasterized, nearest; raster_256w_png_bilinear its bilinear filter)
+and K2 on main's rasterized (main_raster; near 0.001, ManagerConfig's
+raster_near_plane), each the scene's first step (CASE names a subset),
 it prints one JSON line per design (the parent, plan 0; the default plan,
 index_plan's):
   ms               the kernel's device time (CUDA events, 5 launches);
@@ -86,7 +92,12 @@ CASES = {
     "none_4096w": (64, "none", 1),
     "tex256_cliff_4096w": (64, "nine", 1),
     "multicam_1024w4c": (64, "multicam", 1),
+    "raster_256w_png": (64, "raster_nearest", 1),
+    "raster_256w_png_bilinear": (64, "raster_bilinear", 1),
+    "main_raster": (64, "raster", 1),
 }
+RASTER_WORLDS = 256
+RASTER_NEAR = 0.001
 MULTICAM_CAMS = 4
 WORLDS = 4096
 
@@ -104,6 +115,9 @@ int mrt_probe_parent_occupancy(int tex, size_t smem, int* out) {
   if (tex == 9) kernel = render_resident_kernel<3, false, 0>;
   if (tex == 10) kernel = render_resident_kernel<3, false, 1>;
   if (tex == 12) kernel = render_resident_kernel<1, false, 0>;
+  if (tex == 13) kernel = render_resident_kernel<0, true, 0>;
+  if (tex == 14) kernel = render_resident_kernel<0, true, 1>;
+  if (tex == 15) kernel = render_resident_kernel<0, true, 2>;
   cudaFuncAttributes attr;
   int err = (int)cudaFuncGetAttributes(&attr, kernel);
   if (err) return err;
@@ -262,6 +276,14 @@ def main() -> int:
                                   **scenes.renderer_kwargs(cfg))
             return r, rc.pack_inputs(r.state, r.scene, height=res, width=res,
                                      texture_filter="nearest")
+        if mode in ("raster", "raster_nearest", "raster_bilinear"):
+            filt = "bilinear" if mode == "raster_bilinear" else "nearest"
+            r = m.Manager(scenes.demo_config(WORLDS if mode == "raster" else RASTER_WORLDS,
+                                             m.RenderMode.Rasterizer, res, res, dynamic=True,
+                                             textured=mode != "raster", tex_size=32,
+                                             texture_filter=filt))
+            return r, rc.pack_inputs(r.state, r.scene, height=res, width=res, raster=True,
+                                     near=RASTER_NEAR, texture_filter=filt)
         if mode == "multicam":
             r = m.Manager(scenes.demo_config(WORLDS // MULTICAM_CAMS, m.RenderMode.Raytracer, res,
                                              res, dynamic=True, num_cams=MULTICAM_CAMS))
@@ -275,6 +297,7 @@ def main() -> int:
         return r, rc.pack_inputs(r.state, r.scene, height=h, width=h, shadows=shadows,
                                  watertight=watertight, accel="none" if mode == "none" else "auto")
 
+    shade_codes = {None: 0, "nearest": 1, "bilinear": 2}
     clock_mhz = []
     for path in cases:
         res, mode, ssaa = CASES[path]
@@ -285,6 +308,7 @@ def main() -> int:
         if rc.route_of(kw["order"], kw["spans"], kw["bins"], culled) not in (rc.INDEX, rc.NONE):
             raise AssertionError(f"{path}: not the resident index order")
         kernel = ("K7" if mip else "K8" if kw["geo"] == "raw_shadows" else
+                  ("K2+K6" if kw["texture"] else "K2") if kw["raster"] else
                   "K1-none" if not culled else "K10" if kw["geo"] == "raw_wt" else
                   "K1 9-output" if kw["texture"] == "nine" else
                   "K1-raw" if kw["geo"] == "raw" else "K6" if mode else "K1")
@@ -297,7 +321,7 @@ def main() -> int:
             line = {"phase": "index_phase_probe", "kernel": kernel, "inputs": path,
                     "design": design}
             plan = real_plan(kw["geo"], S, CC, kw["n_lights"], views, h, h, texture,
-                             culled=culled)
+                             raster=kw["raster"], culled=culled)
             if groups is None:
                 line["plan"] = plan._asdict()
             folded = mip and groups is None and plan.groups > 0
@@ -346,6 +370,7 @@ def main() -> int:
                 smem = 4 * (rows * S + 8 * CC + cols)
                 code = (8 if kernel == "K8" else 3 if mip else 11 if texture == "nine" else
                         12 if kernel == "K1-raw" else
+                        13 + shade_codes[kw["texture"]] if kw["raster"] else
                         9 + (kw["texture"] is not None) if kw["geo"] == "raw_wt" else
                         int(mode is True))
                 err = plain.mrt_probe_parent_occupancy(code, ctypes.c_size_t(smem), occ)
@@ -369,9 +394,9 @@ def main() -> int:
             else:
                 smem = plan.smem_bytes
                 fn = plain.mrt_render_resident_occupancy
-                fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
-                err = fn(rc._GEO_CODES[kw["geo"]], rc._TEX_CODES[texture], plan.groups, S, CC,
-                         cols, kw["n_lights"], occ)
+                fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+                err = fn(rc._GEO_CODES[kw["geo"]], int(kw["raster"]), rc._TEX_CODES[texture],
+                         plan.groups, S, CC, cols, kw["n_lights"], occ)
             if err:
                 raise RuntimeError(f"occupancy query failed: {err}")
             threads, regs, local, blocks = list(occ)

@@ -1,8 +1,16 @@
 """The resident index order's team entries (K1 and K6 on prep rows, K1's
-9-output mode, K1-raw, K10, K1-none) at forced launch plans, held bitwise
-against the parent design and timed in turns in one process on one card:
+9-output mode, K1-raw, K10, K1-none, K2 and K2+K6) at forced launch plans,
+held bitwise against the parent design and timed in turns in one process
+on one card:
 
     python3 port_tools/index_plan_ab.py [PASSES] [--variants NAME,...] [CASE ...]
+
+e.g. the raster entry's plans and pixel counts on raster_256w_png's inputs,
+128, 64 and 32 of its worlds and main's rasterized:
+
+    python3 port_tools/index_plan_ab.py 4 --variants raster_px4,raster_lb1 \
+        raster_256w_png raster_256w_png_bilinear raster_128w_png raster_64w_png \
+        raster_32w_png main_raster
 
 Plans (raytrace_cuda.index_plan): the parent design ("g0": render_body's
 16x16 blocks, one pixel a thread) and the index visit's tile teams at
@@ -15,8 +23,13 @@ watertight), none_4096w's (K1-none: the demo scene under accel="none"),
 K10 untextured on main's scene ("watertight_main"), K1-none on K10's
 rows of none_4096w's scene ("none_wt_4096w"), K1's 9-output mode on
 tex256_cliff_4096w's (chip_smoke.py's paged-texture scene baked without
-mips) and K1-raw on multicam_1024w4c's (1024 worlds of the demo scene, 4
-cameras each), each the scene's first step; CASE names a subset. With --variants, the team entries are also
+mips), K1-raw on multicam_1024w4c's (1024 worlds of the demo scene, 4
+cameras each), K2+K6 on raster_256w_png's (256 worlds of the 32x32-textured
+demo scene rasterized, nearest; "raster_256w_png_bilinear" its bilinear
+filter; "raster_128w_png", "raster_64w_png" and "raster_32w_png" 128, 64
+and 32 of its worlds) and K2 on main's rasterized ("main_raster"; near =
+ManagerConfig.raster_near_plane on every raster case), each the scene's
+first step; CASE names a subset. With --variants, the team entries are also
 built from csrc/ copied under build/index_variants/NAME/ with the edits
 of VARIANTS and timed as plans "g1@NAME" and "g2@NAME" on the cases whose
 entry the edits touch, called through the C entry: K10's and K1-none's
@@ -27,7 +40,9 @@ fixed ("kz_generic"); K1-none's prep entry at up to 128 registers
 ("none_lb1"), with its sweep not unrolled ("none_unroll1"), or at 2
 pixels a thread ("none_px2"); K1's 9-output entry at 2 pixels a thread
 ("nine_px2"), at up to 128 registers ("nine_lb1"), or both
-("nine_px2_lb1"); K1-raw's likewise ("raw_px2", "raw_lb1", "raw_px2_lb1").
+("nine_px2_lb1"); K1-raw's likewise ("raw_px2", "raw_lb1", "raw_px2_lb1");
+the raster entry's at 4 pixels a thread ("raster_px4"), at up to 128
+registers ("raster_lb1"), or both ("raster_px4_lb1").
 
 Every plan's outputs on a case are compared with the parent's first (a
 plan that differs fails the run); then PASSES (4) passes time every plan of
@@ -70,7 +85,14 @@ CASES = {
     "none_wt_4096w": (64, False, "nearest", 1, dict(accel="none", watertight=True)),
     "tex256_cliff_4096w": (64, "paged", "nearest", 1, {}),
     "multicam_1024w4c": (64, False, "nearest", 1, dict(num_cams=4)),
+    "raster_256w_png": (64, True, "nearest", 1, dict(raster=True, worlds=256)),
+    "raster_256w_png_bilinear": (64, True, "bilinear", 1, dict(raster=True, worlds=256)),
+    "raster_128w_png": (64, True, "nearest", 1, dict(raster=True, worlds=128)),
+    "raster_64w_png": (64, True, "nearest", 1, dict(raster=True, worlds=64)),
+    "raster_32w_png": (64, True, "nearest", 1, dict(raster=True, worlds=32)),
+    "main_raster": (64, False, "nearest", 1, dict(raster=True)),
 }
+RASTER_NEAR = 0.001  # ManagerConfig.raster_near_plane
 WORLDS = 4096
 # name: ([(source, pattern, replacement), ...], the entries it touches, by
 # raytrace_cuda.index_entry_key)
@@ -91,6 +113,9 @@ _NINE_LB1 = _lb1("render_none.cu", "render_resident_nine_index_kernel")
 _RAW_PX2 = ("render_resident.cu", r"constexpr int kRawPixels = \d+;",
             "constexpr int kRawPixels = 2;")
 _RAW_LB1 = _lb1("render_resident.cu", "render_index_raw_kernel")
+_RASTER_PX4 = ("render_resident.cu", r"constexpr int kRasterPixels = \d+;",
+               "constexpr int kRasterPixels = 4;")
+_RASTER_LB1 = _lb1("render_resident.cu", "render_index_raster_kernel")
 # K10's and K1-none's watertight entries at up to 128 registers a thread.
 _WT_LB1 = [(source, r"__launch_bounds__\(kThreads \* kIndexMaxGroups, 4 / kIndexMaxGroups\)\n"
                     r"(render_(?:none_)?index_wt_kernel)",
@@ -117,6 +142,9 @@ VARIANTS = {
     "raw_px2": ([_RAW_PX2], {"raw"}),
     "raw_lb1": ([_RAW_LB1], {"raw"}),
     "raw_px2_lb1": ([_RAW_PX2, _RAW_LB1], {"raw"}),
+    "raster_px4": ([_RASTER_PX4], {"raster"}),
+    "raster_lb1": ([_RASTER_LB1], {"raster"}),
+    "raster_px4_lb1": ([_RASTER_PX4, _RASTER_LB1], {"raster"}),
 }
 
 
@@ -175,7 +203,8 @@ def variant_occupancy(rc, fn, kw, groups) -> dict:
         err = fn.nine_occupancy(rc._GEO_CODES[kw["geo"]], groups, S, int(kw["clusters"].shape[2]),
                                 n_cols, kw["n_lights"], out)
     elif culled:
-        err = fn.occupancy(*head, int(kw["clusters"].shape[2]), n_cols, kw["n_lights"], out)
+        err = fn.occupancy(head[0], int(kw["raster"]), *head[1:], int(kw["clusters"].shape[2]),
+                           n_cols, kw["n_lights"], out)
     else:
         err = fn.occupancy(*head, n_cols, kw["n_lights"], out)
     if err:
@@ -210,8 +239,8 @@ def direct(torch, rc, fn, kw, groups):
             None if nine else rgb.data_ptr(), code.data_ptr() if nine else None,
             planes.data_ptr() if nine else None]
     params = [views, kw["num_cams"], S, CC, S // max(CC, 1), int(cams.shape[1]), kw["n_lights"],
-              h, w, kw["seg_div"], float(np.float32(2.0 / w)), float(np.float32(2.0 / h)), 0,
-              rc._TEX_CODES[kw["texture"]], rc._GEO_CODES[kw["geo"]]]
+              h, w, kw["seg_div"], float(np.float32(2.0 / w)), float(np.float32(2.0 / h)),
+              int(kw["raster"]), rc._TEX_CODES[kw["texture"]], rc._GEO_CODES[kw["geo"]]]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = (fn(*head, None, *params, int(cl is not None), groups, stream)
            if cl is None or nine else fn(*head, *params, groups, stream))
@@ -262,13 +291,18 @@ def main() -> int:
         res, textured, filt, ssaa, switches = CASES[name]
         switches = dict(switches)
         cams = switches.pop("num_cams", 1)
+        worlds = switches.pop("worlds", WORLDS)
+        raster = switches.get("raster", False)
+        if raster:
+            switches["near"] = RASTER_NEAR
         if textured == "paged":
             from madrona_renderer_tpu_torch import config as cfg_mod
             cfg = cs.paged_tex_config(WORLDS, scenes, cfg_mod)
             r = m.MadronaRenderer(0, WORLDS, m.RenderMode.Raytracer, res, res, mipmaps=False,
                                   **scenes.renderer_kwargs(cfg))
         else:
-            r = m.Manager(scenes.demo_config(WORLDS // cams, m.RenderMode.Raytracer, res, res,
+            mode = m.RenderMode.Rasterizer if raster else m.RenderMode.Raytracer
+            r = m.Manager(scenes.demo_config(worlds // cams, mode, res, res,
                                              dynamic=switches.get("accel") != "none",
                                              textured=textured, tex_size=cs.TEX_SIZE,
                                              texture_filter=filt, ssaa=ssaa, num_cams=cams))
@@ -290,7 +324,8 @@ def main() -> int:
                 occupancy[key] = on(plan, lambda: rc.index_occupancy(kw))
         lib = "render_resident" if culled and kw["texture"] != "nine" else "render_none"
         for v, fns in variants.items():
-            if rc.index_entry_key(kw["geo"], culled, kw["texture"]) not in VARIANTS[v][1]:
+            entry = rc.index_entry_key(kw["geo"], culled, kw["texture"], kw["raster"])
+            if entry not in VARIANTS[v][1]:
                 continue
             for g in rc._INDEX_GROUP_CHOICES:
                 key = f"g{g}@{v}"
@@ -315,7 +350,7 @@ def main() -> int:
         culled = kw["clusters"] is not None
         S, CC = int(kw["rows"].shape[2]), int(kw["clusters"].shape[2]) if culled else 0
         plan = real(kw["geo"], S, CC, kw["n_lights"], int(kw["cams"].shape[0]), kw["height"],
-                    kw["width"], kw["texture"], culled=culled)
+                    kw["width"], kw["texture"], raster=kw["raster"], culled=culled)
         print(json.dumps({"phase": "index_plan_ab", "inputs": name, "plan": plan._asdict(),
                           "occupancy": occupancy, "ms": t, "mean_ms": means,
                           "fastest": min(means, key=means.get, default=None)}), flush=True)

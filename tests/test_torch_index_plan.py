@@ -8,10 +8,11 @@ triangle's prep rows as records, the cluster table, the gate terms and the
 camera row in shared memory; so do K7 folded and K8
 (tests/test_torch_mip_shadow_plan.py), K10 and K1-none
 (tests/test_torch_none_wt_plan.py), and K1-raw and K1's 9-output mode
-(tests/test_torch_nine_raw_plan.py). The parent design (a plan of 0
-groups: render_body's 16x16 blocks) takes every other mode of K1 (raster,
-K10 with shadows), K9 on K1, views fewer than the blocks the card holds at
-once, and blocks the teams' records would push past 227 KB.
+(tests/test_torch_nine_raw_plan.py), and K2 and K2+K6, the raster
+conventions on prep rows (tests/test_torch_raster_plan.py). The parent
+design (a plan of 0 groups: render_body's 16x16 blocks) takes every other
+mode of K1 (K10 with shadows), K9 on K1, views fewer than the blocks the
+card holds at once, and blocks the teams' records would push past 227 KB.
 ``check_index_plan`` is its rule, which the wrapper applies on every
 device. Held here on the port's packs: the plan fits one block (at most
 227 KB) on the demo scene, untextured and with its 32x32 texture, at 64²
@@ -19,9 +20,9 @@ and 128², under one and three lights; a view's pixels are each written
 once at every count of groups (``index_cover``, the kernel's index
 arithmetic); the plan takes the tile groups for prep rows untextured,
 nearest and bilinear (and, since K7 folded and K8 joined them, the
-mip-mapped render and raw rows with shadows, K10's rows, and raw rows
-without shadows), and the parent for raster, K10 with shadows, seeded
-inputs and one-slot clusters; and forced plans that
+mip-mapped render and raw rows with shadows, K10's rows, raw rows
+without shadows, and raster on prep rows), and the parent for K10 with
+shadows, seeded inputs and one-slot clusters; and forced plans that
 cannot hold raise ``LaunchPlanError`` before any sweep, never taking the
 plain version.
 """
@@ -132,8 +133,10 @@ def test_route_takes_the_tile_groups_for_k1_and_k6_only():
     so do the mip-mapped render and raw rows with shadows (their own file,
     tests/test_torch_mip_shadow_plan.py, holds them), since K10 joined
     them the watertight sweep without shadows (tests/test_torch_none_wt_plan.py),
-    and since K1-raw joined them raw rows without shadows
-    (tests/test_torch_nine_raw_plan.py); the other modes keep the parent."""
+    since K1-raw joined them raw rows without shadows
+    (tests/test_torch_nine_raw_plan.py), and since K2 joined them raster on
+    prep rows (tests/test_torch_raster_plan.py); the other modes keep the
+    parent."""
     for filt in (None, "nearest", "bilinear"):
         plan = _plan(_inputs("demo" if filt is None else "demo_tex32",
                              texture_filter=filt or "nearest"))
@@ -141,14 +144,14 @@ def test_route_takes_the_tile_groups_for_k1_and_k6_only():
     teams = {"raw rows (shadows)": _inputs("demo", shadows=True),
              "mip, folded": _inputs("demo_tex256_mips"),
              "watertight": _inputs("demo_tex32", watertight=True),
-             "raw rows (no shadows)": dict(_inputs("demo", shadows=True), geo="raw")}
+             "raw rows (no shadows)": dict(_inputs("demo", shadows=True), geo="raw"),
+             "raster": _inputs("demo_raster", raster=True, near=0.001)}
     assert teams["mip, folded"]["fb_rows"] is not None
     assert teams["raw rows (shadows)"]["geo"] == "raw_shadows"
     assert teams["watertight"]["geo"] == "raw_wt"
     for what, kw in teams.items():
         assert _plan(kw).groups > 0, what
     parents = {
-        "raster": _inputs("demo_raster", raster=True, near=0.001),
         "watertight shadows": _inputs("demo", shadows=True, watertight=True),
     }
     assert parents["watertight shadows"]["geo"] == "raw_wt_shadows"

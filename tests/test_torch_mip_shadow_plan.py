@@ -123,6 +123,8 @@ def test_route_per_mode():
         "K8, bilinear": _inputs("shadows_tex32", texture_filter="bilinear"),
         # K1-raw: K8's records and tile without the shadow sweep.
         "K1-raw": dict(_inputs("shadows"), geo="raw"),
+        # K2: K1's tile in the raster conventions (tests/test_torch_raster_plan.py).
+        "raster": _inputs("raster", raster=True, near=0.001),
     }
     for what, kw in teams.items():
         assert rc.route_of(kw["order"], kw["spans"], kw["bins"]) == rc.INDEX, what
@@ -130,7 +132,6 @@ def test_route_per_mode():
     parents = {
         "K10": _inputs("mips", watertight=True),
         "K10 shadows": _inputs("shadows", watertight=True),
-        "raster": _inputs("raster", raster=True, near=0.001),
         "K8 on the mip chains": _inputs("mips", shadows=True),
     }
     assert parents["K10"]["geo"] == "raw_wt" and parents["K10 shadows"]["geo"] == "raw_wt_shadows"
